@@ -1,0 +1,178 @@
+// K2: fused deformable lookup over the 4-level correlation pyramid.
+//
+// Replaces the Pallas TPU kernel fused_pyramid_lookup (the JAX package's
+// ops/pallas_lookup.py, body _fused_kernel).  Per edge e and source pixel p
+// with base coordinates c = cflat[e,p] (level-0 pixels):
+//   1. probe level 1 with a radius-1 window at c/2; gate = sigmoid of the
+//      unbiased variance of the 9 taps;
+//   2. for each level l, 49 taps (7x7, channel i*7+j with i along x) at
+//      c/2^l + (i-3, j-3) + offset, where level 0 adds off0, level 1 adds
+//      off1 * gate and levels 2-3 add nothing; the centre tap's offset is
+//      zeroed and offsets are clipped to +-4;
+//   3. bilinear taps with the reference CUDA boundary rule: a tap is 0
+//      unless its floor corner is inside the level, and a +1 corner outside
+//      the level reads 0.
+// Output [E, P1, 196] fp32, level-major.
+//
+// What bounds it on the H100: it moves bytes, not operations.  At the
+// tracking shapes (E = 48, P1 = 3072) it writes 115.6 MB of output, reads
+// 115.6 MB of fp32 offsets and gathers at most (9 + 196) taps x 4 corners
+// x 2 bytes of bf16 volume per pixel; the arithmetic is ~30 operations per
+// tap.
+//
+// Design: one warp per (edge, source pixel).  The flat levels
+// [E, P1, h_l * w_l] are read in place (no lane packing as on the TPU).
+// Lanes 0-8 take the probe taps and two warp-shuffle reductions give the
+// mean and the unbiased variance, so the gate never leaves registers.  The
+// warp then strides over the 49 taps of each level: consecutive lanes write
+// consecutive output channels and read consecutive offset pairs (coalesced),
+// while the volume corners of one pixel's window fall in a few rows of its
+// level and are served by L1/L2.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int RADIUS = 3;
+constexpr int RD = 2 * RADIUS + 1;      // 7
+constexpr int TAPS = RD * RD;           // 49
+constexpr int LEVELS = 4;
+constexpr int OUT_C = LEVELS * TAPS;    // 196
+constexpr int CENTER = RADIUS * RD + RADIUS;
+constexpr int WARPS = 8;                // warps (pixels) per block
+
+struct Levels {
+  const void* v[LEVELS];
+  int h[LEVELS];
+  int w[LEVELS];
+};
+
+__device__ __forceinline__ float load(const float* p, size_t i) {
+  return __ldg(p + i);
+}
+__device__ __forceinline__ float load(const __nv_bfloat16* p, size_t i) {
+  return __bfloat162float(p[i]);
+}
+
+// bilinear tap of one pixel's level plane vol [H2 * W2]
+template <typename T>
+__device__ __forceinline__ float bilinear(const T* __restrict__ vol, int H2,
+                                          int W2, float px, float py) {
+  const float x1 = floorf(px);
+  const float y1 = floorf(py);
+  if (!(x1 >= 0.f && x1 < (float)W2 && y1 >= 0.f && y1 < (float)H2)) {
+    return 0.f;
+  }
+  const float dx = px - x1;
+  const float dy = py - y1;
+  const int xi = (int)x1;
+  const int yi = (int)y1;
+  const bool xo = xi + 1 < W2;
+  const bool yo = yi + 1 < H2;
+  const size_t r0 = (size_t)yi * W2 + xi;
+  const float v11 = load(vol, r0);
+  const float v21 = xo ? load(vol, r0 + 1) : 0.f;
+  const float v12 = yo ? load(vol, r0 + W2) : 0.f;
+  const float v22 = (xo && yo) ? load(vol, r0 + W2 + 1) : 0.f;
+  return v11 * (1.f - dy) * (1.f - dx) + v21 * (1.f - dy) * dx +
+         v12 * dy * (1.f - dx) + v22 * dy * dx;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(WARPS * 32)
+pyramid_lookup_kernel(Levels lv, const float* __restrict__ cflat,
+                      const float* __restrict__ off0,
+                      const float* __restrict__ off1,
+                      float* __restrict__ out, int n_pix) {
+  const int pix = blockIdx.x * WARPS + threadIdx.x / 32;  // e * P1 + p
+  const int lane = threadIdx.x % 32;
+  if (pix >= n_pix) return;  // uniform per warp: the shuffles stay full
+
+  const float cx = cflat[2 * (size_t)pix];
+  const float cy = cflat[2 * (size_t)pix + 1];
+
+  // level-1 variance probe -> gate
+  const T* vol1 = static_cast<const T*>(lv.v[1]) +
+                  (size_t)pix * lv.h[1] * lv.w[1];
+  float pv = 0.f;
+  if (lane < 9) {
+    pv = bilinear(vol1, lv.h[1], lv.w[1], cx * 0.5f + (float)(lane / 3 - 1),
+                  cy * 0.5f + (float)(lane % 3 - 1));
+  }
+  const float m = warp_sum(pv) / 9.f;
+  const float d = lane < 9 ? pv - m : 0.f;
+  const float var = warp_sum(d * d) / 8.f;
+  const float gate = 1.f / (1.f + expf(-var));
+
+  const float* o0 = off0 + (size_t)pix * TAPS * 2;
+  const float* o1 = off1 + (size_t)pix * TAPS * 2;
+  float* dst = out + (size_t)pix * OUT_C;
+
+#pragma unroll
+  for (int l = 0; l < LEVELS; ++l) {
+    const int H2 = lv.h[l];
+    const int W2 = lv.w[l];
+    const T* vol = static_cast<const T*>(lv.v[l]) + (size_t)pix * H2 * W2;
+    const float scale = 1.f / (float)(1 << l);
+    for (int k = lane; k < TAPS; k += 32) {
+      float ox = 0.f;
+      float oy = 0.f;
+      if (l < 2 && k != CENTER) {
+        if (l == 0) {
+          ox = o0[2 * k];
+          oy = o0[2 * k + 1];
+        } else {
+          ox = o1[2 * k] * gate;
+          oy = o1[2 * k + 1] * gate;
+        }
+        ox = fminf(fmaxf(ox, -4.f), 4.f);
+        oy = fminf(fmaxf(oy, -4.f), 4.f);
+      }
+      const float px = cx * scale + ox + (float)(k / RD - RADIUS);
+      const float py = cy * scale + oy + (float)(k % RD - RADIUS);
+      dst[l * TAPS + k] = bilinear(vol, H2, W2, px, py);
+    }
+  }
+}
+
+}  // namespace
+
+// v0..v3: flat levels [E, P1, h_l * w_l] (bf16 when vol_bf16 != 0, else
+// fp32) with h_l = H >> l, w_l = W >> l; cflat [E, P1, 2]; off0/off1
+// [E, P1, 7, 7, 2]; out [E, P1, 196], all fp32 except the levels.
+// Returns cudaGetLastError() after launch.
+extern "C" int fused_pyramid_lookup(const void* v0, const void* v1,
+                                    const void* v2, const void* v3,
+                                    const float* cflat, const float* off0,
+                                    const float* off1, float* out, int E,
+                                    int H, int W, int vol_bf16,
+                                    cudaStream_t stream) {
+  Levels lv;
+  const void* vs[LEVELS] = {v0, v1, v2, v3};
+  int h = H;
+  int w = W;
+  for (int l = 0; l < LEVELS; ++l) {
+    lv.v[l] = vs[l];
+    lv.h[l] = h;
+    lv.w[l] = w;
+    h /= 2;
+    w /= 2;
+  }
+  const int n_pix = E * H * W;
+  const int blocks = (n_pix + WARPS - 1) / WARPS;
+  if (vol_bf16) {
+    pyramid_lookup_kernel<__nv_bfloat16><<<blocks, WARPS * 32, 0, stream>>>(
+        lv, cflat, off0, off1, out, n_pix);
+  } else {
+    pyramid_lookup_kernel<float><<<blocks, WARPS * 32, 0, stream>>>(
+        lv, cflat, off0, off1, out, n_pix);
+  }
+  return (int)cudaGetLastError();
+}

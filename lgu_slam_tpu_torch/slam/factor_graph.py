@@ -1,0 +1,321 @@
+"""Factor graph over keyframes, frontend surface with the volume
+correlation (port of the JAX package's ``slam/factor_graph.py``).
+
+Edge topology (add/dedup, age- and capacity-based eviction, keyframe
+removal, proximity planning with NMS) is host numpy.  Per-edge state
+(reprojection targets, confidence weights, GRU hidden state) is device
+tensors holding exactly the live edges, in edge order.  The capacity rules
+that decide which edges exist are kept: the ``edge_bucket`` hard cap, the
+``max_factors`` eviction of the oldest edges, and the eviction of the oldest
+stored inactive edges beyond ``inactive_bucket``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from lgu_slam_tpu_torch.geom.dba import DbaPlan, dba_step
+from lgu_slam_tpu_torch.geom.projective import coords_grid, projective_transform
+from lgu_slam_tpu_torch.models.net import LGUNet
+from lgu_slam_tpu_torch.models.update import upsample_disp
+from lgu_slam_tpu_torch.slam.state import Video
+from lgu_slam_tpu_torch.utils.config import SLAMConfig
+
+
+class FactorGraph:
+    def __init__(self, net: LGUNet, video: Video, cfg: SLAMConfig,
+                 max_factors: int = -1):
+        self.net = net
+        self.video = video
+        self.cfg = cfg
+        self.device = video.device
+        self.max_factors = max_factors if max_factors > 0 else cfg.max_factors
+        self.E = cfg.edge_bucket  # hard cap on active edges
+        self.EI = cfg.inactive_bucket  # cap on stored inactive edges
+
+        h, w = cfg.ht8, cfg.wd8
+        empty = np.zeros(0, np.int64)
+        self.ii, self.jj, self.age = empty, empty, empty
+        self.ii_inac, self.jj_inac = empty, empty
+        self.ii_bad, self.jj_bad = empty, empty
+
+        f32 = dict(dtype=torch.float32, device=self.device)
+        self.target = torch.zeros(0, h, w, 2, **f32)
+        self.weight = torch.zeros(0, h, w, 2, **f32)
+        self.hidden = torch.zeros(0, h, w, 128, **f32)  # per-edge GRU state
+        self.target_inac = torch.zeros(0, h, w, 2, **f32)
+        self.weight_inac = torch.zeros(0, h, w, 2, **f32)
+
+        self.pyramid = None
+        self._pyr_dirty = True
+
+    @property
+    def n_edges(self) -> int:
+        return len(self.ii)
+
+    def _index(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.int64), device=self.device)
+
+    def _dedup(self, ii, jj):
+        """Drop candidate edges already present (active or inactive)."""
+        existing = set(zip(self.ii.tolist(), self.jj.tolist()))
+        existing |= set(zip(self.ii_inac.tolist(), self.jj_inac.tolist()))
+        keep = [k for k, e in enumerate(zip(ii.tolist(), jj.tolist()))
+                if e not in existing]
+        return ii[keep], jj[keep]
+
+    # -- edge addition ------------------------------------------------------
+
+    def add_factors(self, ii, jj, remove: bool = False):
+        ii = np.asarray(ii, np.int64).reshape(-1)
+        jj = np.asarray(jj, np.int64).reshape(-1)
+        ii, jj = self._dedup(ii, jj)
+        if ii.size == 0:
+            return
+
+        # capacity limit: evict the oldest edges
+        if (self.max_factors > 0 and self.n_edges + ii.size > self.max_factors
+                and self.n_edges > 0 and remove):
+            order = np.argsort(self.age)[::-1]
+            n_drop = min(self.n_edges,
+                         self.n_edges + ii.size - self.max_factors)
+            drop = np.zeros(self.n_edges, bool)
+            drop[order[:n_drop]] = True
+            self.rm_factors(drop, store=True)
+
+        space = self.E - self.n_edges
+        if ii.size > space:  # hard cap
+            ii, jj = ii[:space], jj[:space]
+            if ii.size == 0:
+                return
+
+        v = self.video
+        ii_t, jj_t = self._index(ii), self._index(jj)
+        coords, _ = projective_transform(v.poses, v.disps, v.intrinsics,
+                                         ii_t, jj_t)
+        self.target = torch.cat([self.target, coords])
+        self.weight = torch.cat([self.weight, torch.zeros_like(coords)])
+        self.hidden = torch.cat([self.hidden, v.nets[ii_t].float()])
+
+        self.ii = np.concatenate([self.ii, ii])
+        self.jj = np.concatenate([self.jj, jj])
+        self.age = np.concatenate([self.age, np.zeros(ii.size, np.int64)])
+        self._pyr_dirty = True
+
+    # -- edge removal -------------------------------------------------------
+
+    def rm_factors(self, mask, store: bool = False):
+        """Remove edges by boolean mask; ``store`` keeps their targets and
+        weights as inactive edges for the DBA."""
+        mask = np.asarray(mask, bool)
+        if mask.size != self.n_edges:
+            raise ValueError("mask size mismatch")
+        if not mask.any():
+            return
+        sel = self._index(np.nonzero(mask)[0])
+        if store:
+            self.ii_inac = np.concatenate([self.ii_inac, self.ii[mask]])
+            self.jj_inac = np.concatenate([self.jj_inac, self.jj[mask]])
+            self.target_inac = torch.cat([self.target_inac, self.target[sel]])
+            self.weight_inac = torch.cat([self.weight_inac, self.weight[sel]])
+            overflow = len(self.ii_inac) - self.EI
+            if overflow > 0:  # drop the oldest stored edges first
+                self.ii_inac = self.ii_inac[overflow:]
+                self.jj_inac = self.jj_inac[overflow:]
+                self.target_inac = self.target_inac[overflow:]
+                self.weight_inac = self.weight_inac[overflow:]
+
+        keep = self._index(np.nonzero(~mask)[0])
+        self.target = self.target[keep]
+        self.weight = self.weight[keep]
+        self.hidden = self.hidden[keep]
+        self.ii = self.ii[~mask]
+        self.jj = self.jj[~mask]
+        self.age = self.age[~mask]
+        self._pyr_dirty = True
+
+    def rm_keyframe(self, ix: int):
+        """Delete keyframe ix: shift its video slot and re-index edges."""
+        self.video.remove_keyframe(ix)
+
+        m = (self.ii_inac == ix) | (self.jj_inac == ix)
+        self.ii_inac = np.where(self.ii_inac >= ix, self.ii_inac - 1,
+                                self.ii_inac)
+        self.jj_inac = np.where(self.jj_inac >= ix, self.jj_inac - 1,
+                                self.jj_inac)
+        if m.any():
+            keep = self._index(np.nonzero(~m)[0])
+            self.target_inac = self.target_inac[keep]
+            self.weight_inac = self.weight_inac[keep]
+            self.ii_inac = self.ii_inac[~m]
+            self.jj_inac = self.jj_inac[~m]
+
+        m = (self.ii == ix) | (self.jj == ix)
+        self.ii = np.where(self.ii >= ix, self.ii - 1, self.ii)
+        self.jj = np.where(self.jj >= ix, self.jj - 1, self.jj)
+        self.rm_factors(m, store=False)
+
+    # -- update -------------------------------------------------------------
+
+    def _build_pyramid(self):
+        """Correlation pyramids of all edges from the cached video features
+        (stereo self-edges read the right camera)."""
+        fmaps = self.video.fmaps
+        rig = fmaps.shape[1]
+        cam = np.minimum((self.ii == self.jj).astype(np.int64), rig - 1)
+        ii, jj = self._index(self.ii), self._index(self.jj)
+        f1 = fmaps[ii, 0].float()
+        f2 = fmaps[jj, self._index(cam)].float()
+        self.pyramid = self.net.build_corr(f1, f2)
+        self._pyr_dirty = False
+
+    @torch.no_grad()
+    def update_n(self, n, t0=None, t1=None, itrs=2, use_inactive=False,
+                 EP=1e-7, motion_only=False):
+        """n x (GRU update over the active edges + DBA over the active and
+        the selected inactive edges)."""
+        if self.n_edges == 0:
+            return
+        cfg = self.cfg
+        v = self.video
+        if self._pyr_dirty:
+            self._build_pyramid()
+
+        if t0 is None:
+            t0 = max(1, int(self.ii.min()) + 1)
+        if t1 is None:
+            t1 = max(int(self.ii.max()), int(self.jj.max())) + 1
+
+        # inactive edges near the window join the DBA (fixed over n)
+        if use_inactive and len(self.ii_inac) > 0:
+            sel = np.nonzero((self.ii_inac >= t0 - 3)
+                             & (self.jj_inac >= t0 - 3))[0]
+        else:
+            sel = np.zeros(0, np.int64)
+        sel_t = self._index(sel)
+        target_inac = self.target_inac[sel_t]
+        weight_inac = self.weight_inac[sel_t]
+        plan = DbaPlan.build(
+            np.concatenate([self.ii, self.ii_inac[sel]]),
+            np.concatenate([self.jj, self.jj_inac[sel]]),
+            t0, t1, self.device, strict_t0_quirk=cfg.strict_t0_quirk)
+
+        # GraphAgg frame slots: the unique source frames
+        frames, slot = np.unique(self.ii, return_inverse=True)
+        frame_ids, edge_slot = self._index(frames), self._index(slot)
+        F = len(frames)
+        # As in the JAX package: it pads these slots to a doubling of
+        # frame_bucket with frame id 0, and its duplicate-index scatter
+        # writes a padded slot's unchanged value last, so while any slot is
+        # padded frame 0 keeps its damping and its upsampled disparity.
+        bucket = cfg.frame_bucket
+        while bucket < F:
+            bucket *= 2
+        keep_0 = int(frames[0] == 0 and F < bucket)
+        written = torch.as_tensor(np.arange(F) >= keep_0, device=self.device)
+
+        ii, jj = self._index(self.ii), self._index(self.jj)
+        ht, wd = v.disps.shape[1:]
+        coords0 = coords_grid(ht, wd, device=self.device)
+        inp = v.inps[ii].float()
+        hidden, target, weight = self.hidden, self.target, self.weight
+        upmask = None
+        for _ in range(n):
+            coords1, _ = projective_transform(v.poses, v.disps, v.intrinsics,
+                                              ii, jj)
+            motn = torch.clamp(
+                torch.cat([coords1 - coords0, target - coords1], dim=-1),
+                -64.0, 64.0)
+            corr = self.net.lookup(self.pyramid, coords1)
+            hidden, delta, weight, eta, upmask, slot_mask = \
+                self.net.update_step(hidden[None], inp[None], corr[None],
+                                     motn[None], edge_slot, F)
+            hidden, upmask = hidden[0], upmask[0]
+            target = coords1 + delta[0]
+            weight = weight[0]
+            slot_mask = slot_mask & written
+            cur = v.damping[frame_ids]
+            v.damping[frame_ids] = torch.where(slot_mask[:, None, None],
+                                               eta[0], cur)
+
+            v.poses, v.disps = dba_step(
+                v.poses, v.disps, v.intrinsics[0], v.disps_sens,
+                torch.cat([target, target_inac]),
+                torch.cat([weight, weight_inac]),
+                0.2 * v.damping + EP, plan, iters=itrs, lm=cfg.dba_lm,
+                ep=cfg.dba_ep, motion_only=motion_only)
+
+        self.hidden, self.target, self.weight = hidden, target, weight
+        if cfg.upsample:
+            up = upsample_disp(v.disps[frame_ids], upmask)
+            v.disps_up[frame_ids] = torch.where(slot_mask[:, None, None], up,
+                                                v.disps_up[frame_ids])
+        v.dirty[t0:t1] = True
+        self.age += n
+
+    # -- proximity edge selection (host-side NMS) ---------------------------
+
+    def add_neighborhood_factors(self, t0, t1, r=3):
+        ii, jj = np.meshgrid(np.arange(t0, t1), np.arange(t0, t1),
+                             indexing="ij")
+        ii, jj = ii.reshape(-1), jj.reshape(-1)
+        c = 1 if self.video.stereo else 0
+        keep = (np.abs(ii - jj) > c) & (np.abs(ii - jj) <= r)
+        self.add_factors(ii[keep], jj[keep])
+
+    def add_proximity_factors(self, t0=0, t1=0, rad=2, nms=2, beta=0.25,
+                              thresh=16.0, remove=False):
+        """Distance-ranked edge selection with non-maximum suppression (the
+        JAX package's Python planner, factor_graph.py:1249-1289; ties rank
+        in index order, as its native planner's stable sort does)."""
+        t = self.video.counter
+        ix = np.arange(t0, t)
+        jx = np.arange(t1, t)
+        if ix.size == 0 or jx.size == 0:
+            return
+        ii, jj = np.meshgrid(ix, jx, indexing="ij")
+        ii, jj = ii.reshape(-1), jj.reshape(-1)
+        d = self.video.distance_rect(t0, t, t1, t, beta=beta).reshape(-1)
+
+        d[ii - rad < jj] = np.inf
+        d[d > 100] = np.inf
+
+        def nms_suppress(i, j):
+            for di in range(-nms, nms + 1):
+                for dj in range(-nms, nms + 1):
+                    if abs(di) + abs(dj) <= max(min(abs(i - j) - 2, nms), 0):
+                        i1, j1 = i + di, j + dj
+                        if t0 <= i1 < t and t1 <= j1 < t:
+                            d[(i1 - t0) * (t - t1) + (j1 - t1)] = np.inf
+
+        ii1 = np.concatenate([self.ii, self.ii_bad, self.ii_inac])
+        jj1 = np.concatenate([self.jj, self.jj_bad, self.jj_inac])
+        for i, j in zip(ii1.tolist(), jj1.tolist()):
+            nms_suppress(i, j)
+
+        es = []
+        for i in range(t0, t):
+            if self.video.stereo:
+                es.append((i, i))
+                if t1 <= i:
+                    d[(i - t0) * (t - t1) + (i - t1)] = np.inf
+            for j in range(max(i - rad - 1, 0), i):
+                es.append((i, j))
+                es.append((j, i))
+                if t1 <= j < t:
+                    d[(i - t0) * (t - t1) + (j - t1)] = np.inf
+
+        for k in np.argsort(d, kind="stable"):
+            if d[k] > thresh:
+                continue
+            if len(es) > self.max_factors:
+                break
+            i, j = int(ii[k]), int(jj[k])
+            es.append((i, j))
+            es.append((j, i))
+            nms_suppress(i, j)
+
+        if es:
+            es = np.asarray(es, np.int64)
+            self.add_factors(es[:, 0], es[:, 1], remove)

@@ -12,7 +12,12 @@ setup(
     name="lgu_slam_tpu",
     version="0.1.0",
     description="TPU-native deep visual SLAM (LGU-SLAM capabilities)",
-    packages=find_packages(include=["lgu_slam_tpu", "lgu_slam_tpu.*"]),
+    # lgu_slam_tpu_torch: the PyTorch/CUDA port; its CUDA kernels build
+    # from the shipped csrc/*.cu with nvcc at first use on the GPU, not here
+    packages=find_packages(include=["lgu_slam_tpu", "lgu_slam_tpu.*",
+                                    "lgu_slam_tpu_torch",
+                                    "lgu_slam_tpu_torch.*"]),
+    package_data={"lgu_slam_tpu_torch": ["csrc/*.cu"]},
     ext_modules=[
         Extension(
             "lgu_native",

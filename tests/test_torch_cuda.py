@@ -1,0 +1,119 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Every test here is marked ``cuda`` and skips where no GPU is
+present.  This file imports no JAX, so it runs where JAX is absent:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: tests/conftest.py configures JAX).
+"""
+
+import numpy as np
+import pytest
+import torch
+from torch_port import cuda_device, tiny_config_kwargs  # noqa: F401
+
+from lgu_slam_tpu_torch.models.net import init_state_dict
+from lgu_slam_tpu_torch.ops.masked_corr import (
+    masked_corr_level0,
+    masked_corr_level0_plain,
+)
+from lgu_slam_tpu_torch.ops.pyramid_lookup import (
+    fused_pyramid_lookup,
+    fused_pyramid_lookup_plain,
+    level_dims,
+)
+from lgu_slam_tpu_torch.slam.system import LGUSlam
+from lgu_slam_tpu_torch.utils.config import SLAMConfig
+from lgu_slam_tpu_torch.utils.device import use_full_fp32
+
+pytestmark = pytest.mark.cuda
+
+
+def corr_inputs(gen, E, H, W, dev):
+    f1 = torch.randn(E, H, W, 128, generator=gen)
+    f2 = torch.randn(E, H, W, 128, generator=gen)
+    mean = torch.rand(E, H, W, 2, generator=gen) * torch.tensor([W, H])
+    cov = 0.05 + 5 * torch.rand(E, H, W, 2, generator=gen)
+    return [x.to(dev) for x in (f1, f2, mean, cov)]
+
+
+@pytest.mark.parametrize("ehw", [(3, 30, 40), (2, 7, 9), (4, 48, 64)])
+def test_masked_corr_kernel(cuda_device, ehw):
+    """fp32 out: atol 2e-4 / rtol 1e-4 (a 128-channel dot product summed
+    in another order); bf16 out: one bf16 step, |err| / (|ref| + 1) < 0.02."""
+    use_full_fp32()
+    args = corr_inputs(torch.Generator().manual_seed(0), *ehw, cuda_device)
+    n = masked_corr_level0.launches
+    out = masked_corr_level0(*args, out_dtype=torch.float32)
+    ref = masked_corr_level0_plain(*args, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert masked_corr_level0.launches == n + 1
+    torch.testing.assert_close(out, ref, atol=2e-4, rtol=1e-4)
+    out = masked_corr_level0(*args, out_dtype=torch.bfloat16).float()
+    ref = masked_corr_level0_plain(*args, out_dtype=torch.bfloat16).float()
+    assert ((out - ref).abs() / (ref.abs() + 1)).max().item() < 0.02
+
+
+@pytest.mark.parametrize("ehw", [(2, 12, 24), (1, 13, 17), (2, 48, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pyramid_lookup_kernel(cuda_device, ehw, dtype):
+    """Coordinates up to 20 % outside the plane, offsets past the +-4 clip;
+    fp32 bilinear taps of the same level values: atol 2e-4."""
+    E, H, W = ehw
+    gen = torch.Generator().manual_seed(1)
+    levels = [torch.randn(E, H * W, h * w, generator=gen).to(cuda_device,
+                                                              dtype)
+              for h, w in level_dims(H, W)]
+    cflat = (torch.rand(E, H * W, 2, generator=gen) * 1.4 - 0.2) \
+        * torch.tensor([W, H])
+    off0 = torch.rand(E, H * W, 7, 7, 2, generator=gen) * 9 - 4.5
+    off1 = torch.rand(E, H * W, 7, 7, 2, generator=gen) * 9 - 4.5
+    cflat, off0, off1 = (x.to(cuda_device) for x in (cflat, off0, off1))
+    n = fused_pyramid_lookup.launches
+    out = fused_pyramid_lookup(levels, cflat, off0, off1, H, W)
+    ref = fused_pyramid_lookup_plain(levels, cflat, off0, off1, H, W)
+    torch.cuda.synchronize()
+    assert fused_pyramid_lookup.launches == n + 1
+    torch.testing.assert_close(out, ref, atol=2e-4, rtol=0)
+
+
+def test_wrappers_reject_bad_inputs(cuda_device):
+    args = corr_inputs(torch.Generator().manual_seed(2), 1, 4, 6,
+                       cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        masked_corr_level0(args[0].double(), *args[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        masked_corr_level0(args[0].transpose(1, 2).contiguous()
+                           .transpose(1, 2), *args[1:])
+    levels = [torch.zeros(1, 24, h * w, device=cuda_device)
+              for h, w in level_dims(4, 6)]
+    cflat = torch.zeros(1, 24, 2, device=cuda_device)
+    off = torch.zeros(1, 24, 7, 7, 2, device=cuda_device)
+    with pytest.raises(ValueError, match="level 2"):
+        fused_pyramid_lookup(levels[:2] + [levels[2][:, :, :0]] + levels[3:],
+                             cflat, off, off, 4, 6)
+    with pytest.raises(ValueError, match="cflat"):
+        fused_pyramid_lookup(levels, cflat.double(), off, off, 4, 6)
+
+
+def test_small_track_cuda_matches_cpu(cuda_device):
+    """track() of a tiny fp32 configuration on the card (kernels) and on
+    the CPU (plain versions) from one state dict: the same keyframes and
+    edges, poses within 1e-2 (sums in another order, grown through 8
+    frames of random-weight tracking)."""
+    cfg = SLAMConfig(**tiny_config_kwargs())
+    sd = init_state_dict(cfg, seed=0)
+    rng = np.random.default_rng(3)
+    base = rng.integers(0, 255, size=(96, 128, 3)).astype(np.uint8)
+    intr = np.asarray([80.0, 80.0, 48.0, 32.0], np.float32)
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        slam = LGUSlam(sd, cfg, device=dev)
+        for k in range(8):
+            slam.track(float(k), base[3 * k:3 * k + 64, 2 * k:2 * k + 96],
+                       intrinsics=intr)
+        g = slam.frontend.graph
+        runs.append((slam.video.counter, g.ii.tolist(), g.jj.tolist(),
+                     slam.video.poses[:slam.video.counter].cpu()))
+    assert runs[0][:3] == runs[1][:3]
+    torch.testing.assert_close(runs[0][3], runs[1][3], atol=1e-2, rtol=0)

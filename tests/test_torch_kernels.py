@@ -1,0 +1,148 @@
+"""Port parity of the two kernels' plain versions, and of the plain
+sampling pieces they are built from, against the JAX package.
+
+- K1: ``masked_corr_level0_plain`` against the Pallas kernel
+  ``masked_corr_level0`` in interpret mode (tests/test_pallas.py's sizes,
+  plus a plane whose size is no multiple of any tile).
+- K2: ``fused_pyramid_lookup_plain`` against the Pallas kernel
+  ``fused_pyramid_lookup`` in interpret mode over ``pack_pyramid`` levels,
+  at tests/test_pallas.py's geometries (16 x 16, and 12 x 24 whose halving
+  chain ends at 1 x 3) with coordinates up to 20 % outside the plane.
+
+On the CPU the wrappers run the plain versions and launch nothing; the
+CUDA kernels themselves are held against the plain versions on the card
+(tests/test_torch_cuda.py, chip_smoke.py).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch_port import close, t, torch_single_thread  # noqa: F401
+
+from lgu_slam_tpu.ops import pallas_corr as jcorr
+from lgu_slam_tpu.ops import pallas_lookup as jlookup
+from lgu_slam_tpu.ops import sampler as jsampler
+from lgu_slam_tpu_torch.ops import masked_corr as tcorr
+from lgu_slam_tpu_torch.ops import pyramid_lookup as tlookup
+from lgu_slam_tpu_torch.ops import sampler as tsampler
+
+
+def corr_inputs(rng, E, H, W, cov_lo=0.1):
+    f1 = rng.normal(size=(E, H, W, 128)).astype(np.float32)
+    f2 = rng.normal(size=(E, H, W, 128)).astype(np.float32)
+    mean = (rng.random(size=(E, H, W, 2)) * np.array([W, H])).astype(
+        np.float32)
+    cov = (cov_lo + 5 * rng.random(size=(E, H, W, 2))).astype(np.float32)
+    return f1, f2, mean, cov
+
+
+@pytest.mark.parametrize("ehw", [(2, 8, 16), (2, 5, 7)])
+def test_masked_corr_plain_matches_pallas_fp32(rng, ehw):
+    """fp32 out; tolerances of tests/test_pallas.py (a 128-channel dot
+    product summed in another order)."""
+    args = corr_inputs(rng, *ehw)
+    ref = jcorr.masked_corr_level0(*map(jnp.asarray, args),
+                                   out_dtype=jnp.float32, interpret=True,
+                                   flat=True)
+    out = tcorr.masked_corr_level0(*map(t, args), out_dtype=torch.float32)
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    close(out, ref, atol=2e-4, rtol=1e-4)
+
+
+def test_masked_corr_plain_matches_pallas_bf16(rng):
+    """bf16 out: both round the same fp32 value, so they differ by at most
+    one bf16 step; the criterion of tests/test_pallas.py."""
+    args = corr_inputs(rng, 1, 8, 16, cov_lo=0.5)
+    ref = np.asarray(jcorr.masked_corr_level0(
+        *map(jnp.asarray, args), out_dtype=jnp.bfloat16, interpret=True,
+        flat=True).astype(jnp.float32))
+    out = tcorr.masked_corr_level0(*map(t, args), out_dtype=torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    rel = np.abs(out.float().numpy() - ref) / (np.abs(ref) + 1.0)
+    assert rel.max() < 0.02
+
+
+def test_gaussian_window_mask(rng):
+    vol = rng.normal(size=(2, 4, 5, 6, 7)).astype(np.float32)
+    mean = (rng.random(size=(2, 4, 5, 2)) * 12 - 3).astype(np.float32)
+    cov = (0.1 + rng.random(size=(2, 4, 5, 2))).astype(np.float32)
+    close(tsampler.gaussian_window_mask(t(vol), t(mean), t(cov), 2),
+          jsampler.gaussian_window_mask(jnp.asarray(vol), jnp.asarray(mean),
+                                        jnp.asarray(cov), 2), atol=1e-6)
+
+
+def test_sample_taps_flat(rng):
+    """The CUDA boundary rule: taps whose floor corner is outside are 0,
+    +1 corners outside read 0."""
+    H2, W2, K = 5, 7, 9
+    vol = rng.normal(size=(2, 3, H2 * W2)).astype(np.float32)
+    px = rng.uniform(-2, W2 + 1, size=(2, 3, K)).astype(np.float32)
+    py = rng.uniform(-2, H2 + 1, size=(2, 3, K)).astype(np.float32)
+    px[0, 0, :2] = [W2 - 0.5, -0.5]
+    py[0, 0, :2] = [H2 - 0.5, 1.0]
+    out = tsampler.sample_taps_flat(t(vol), H2, W2, t(px), t(py))
+    ref = jsampler.sample_taps_flat(jnp.asarray(vol), H2, W2,
+                                    jnp.asarray(px), jnp.asarray(py))
+    close(out, ref, atol=1e-6)
+    assert float(out[0, 0, 1]) == 0.0
+    # a NaN position has no in-bounds floor corner: 0, as in the CUDA
+    # kernel (the JAX gather casts NaN to an index and returns NaN)
+    px[0, 0, 2] = np.nan
+    out = tsampler.sample_taps_flat(t(vol), H2, W2, t(px), t(py))
+    assert float(out[0, 0, 2]) == 0.0
+
+
+def lookup_problem(rng, E, H, W):
+    dims = tlookup.level_dims(H, W)
+    levels = [rng.normal(size=(E, H * W, h * w)).astype(np.float32)
+              for h, w in dims]
+    off0 = rng.uniform(-4, 4, size=(E, H * W, 7, 7, 2)).astype(np.float32)
+    off1 = rng.uniform(-4, 4, size=(E, H * W, 7, 7, 2)).astype(np.float32)
+    cflat = (rng.uniform(-0.2, 1.2, size=(E, H * W, 2))
+             * np.array([W, H])).astype(np.float32)
+    return levels, cflat, off0, off1
+
+
+@pytest.mark.parametrize("hw", [(16, 16), (12, 24)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pyramid_lookup_plain_matches_pallas(rng, hw, dtype):
+    """fp32 bilinear taps of the same level values (bf16 levels are
+    rounded once, identically, on both sides); tolerance of
+    tests/test_pallas.py."""
+    H, W = hw
+    E = 2
+    levels, cflat, off0, off1 = lookup_problem(rng, E, H, W)
+    lv_j = [jnp.asarray(v).astype(dtype) for v in levels]
+    ref = jlookup.fused_pyramid_lookup(
+        tuple(jlookup.pack_pyramid(lv_j, H, W)), jnp.asarray(cflat),
+        jnp.asarray(off0), jnp.asarray(off1), H, W, interpret=True,
+        tile_p=8)
+    lv_t = [t(v).to(getattr(torch, dtype)) for v in levels]
+    before = tlookup.fused_pyramid_lookup.launches
+    out = tlookup.fused_pyramid_lookup(lv_t, t(cflat), t(off0), t(off1),
+                                       H, W)
+    assert tlookup.fused_pyramid_lookup.launches == before  # plain on CPU
+    assert out.shape == (E, H * W, 196) and out.dtype == torch.float32
+    close(out, ref, atol=2e-4)
+
+
+def test_wrappers_dispatch_by_device(rng):
+    """CPU tensors run the plain versions and count no launch; a device
+    with no kernel raises instead of falling back."""
+    f1, f2, mean, cov = map(t, corr_inputs(rng, 1, 4, 6))
+    n1 = tcorr.masked_corr_level0.launches
+    out = tcorr.masked_corr_level0(f1, f2, mean, cov,
+                                   out_dtype=torch.float32)
+    plain = tcorr.masked_corr_level0_plain(f1, f2, mean, cov,
+                                           out_dtype=torch.float32)
+    assert torch.equal(out, plain)
+    assert tcorr.masked_corr_level0.launches == n1
+    with pytest.raises(ValueError, match="no kernel"):
+        tcorr.masked_corr_level0(*(x.to("meta") for x in (f1, f2, mean,
+                                                          cov)))
+    levels, cflat, off0, off1 = lookup_problem(rng, 1, 8, 8)
+    with pytest.raises(ValueError, match="no kernel"):
+        tlookup.fused_pyramid_lookup(
+            [t(v).to("meta") for v in levels], t(cflat).to("meta"),
+            t(off0).to("meta"), t(off1).to("meta"), 8, 8)

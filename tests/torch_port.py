@@ -1,0 +1,55 @@
+"""Shared pieces of the PyTorch port's tests (test_torch_*.py).
+
+Inputs are made with numpy from a seeded generator and handed to both
+packages; weights cross from the JAX parameter tree through the port's
+weight bridge.  JAX stays on the CPU (tests/conftest.py).  This module
+imports no JAX, so the card-only tests can use it where JAX is absent.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def torch_single_thread():
+    """One intra-op thread per xdist worker: the suite runs 6 workers."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, for tests marked ``cuda``; decided here, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+    return torch.device("cuda")
+
+
+def t(a, dtype=None):
+    """numpy/JAX array -> CPU torch tensor (a copy)."""
+    x = torch.from_numpy(np.array(a))
+    return x if dtype is None else x.to(dtype)
+
+
+def close(actual, desired, atol, rtol=0.0, msg=""):
+    """Compare a torch tensor with a JAX/numpy array."""
+    a = actual.detach().cpu().float().numpy() \
+        if isinstance(actual, torch.Tensor) else np.asarray(actual)
+    np.testing.assert_allclose(a, np.asarray(desired, dtype=a.dtype),
+                               atol=atol, rtol=rtol, err_msg=msg)
+
+
+def tiny_config_kwargs():
+    """The tiny configuration of tests/test_slam_e2e.py with fp32 dtypes,
+    as keyword arguments that both packages' SLAMConfig take."""
+    return dict(
+        image_size=(64, 96), buffer=24, warmup=5, filter_thresh=0.0,
+        keyframe_thresh=0.0, frontend_window=8, frontend_iters1=2,
+        frontend_iters2=1, max_factors=24, edge_bucket=32,
+        inactive_bucket=32, pose_bucket=24, backend_edge_cap=64,
+        backend_chunk=32, volume_dtype="float32", feat_dtype="float32",
+        compute_dtype="float32",
+    )
