@@ -3,37 +3,48 @@
 
     python3 chip_smoke.py
 
-Three phases; any failure exits non-zero.
+Four phases; any failure exits non-zero.
 
 1. Build the CUDA kernels from ``lgu_slam_tpu_torch/csrc`` with nvcc for
-   sm_90a (printing ptxas' register/shared-memory summary) and hold each
-   kernel against its plain PyTorch version on the card, at the tracking
-   shapes (E = 48 edges, 48 x 64 feature maps) and at odd geometries, with
-   out-of-bounds coordinates and offsets beyond the +-4 clip.
-2. Run ``LGUSlam.track`` at a tiny size (64 x 96, fp32 dtypes, thresholds
-   0) on a synthetic stream twice -- on the card with the kernels and on
-   the CPU with the plain versions, from one state dict -- and compare the
-   keyframe count, the edge lists and the keyframe poses.
+   sm_90a, all at once (printing ptxas' register/shared-memory summary),
+   and hold each kernel against its plain PyTorch version on the card: K1
+   and K2 at the tracking shapes (E = 48 edges, 48 x 64 feature maps) and
+   at odd geometries, with out-of-bounds coordinates and offsets beyond
+   the +-4 clip; K3/K4 (``window_lookup``) at E = 48, P1 = 3072 on bf16
+   planes of 48 x 64, 24 x 32 (49 taps, and the 9-tap probe), 12 x 16,
+   6 x 8 and 13 x 17, with out-of-bounds and NaN positions.
+2. Run ``LGUSlam.track`` and then ``terminate(stream)`` at a tiny size
+   (64 x 96, fp32 dtypes, thresholds 0) on a synthetic stream twice -- on
+   the card with the kernels and on the CPU with the plain versions, from
+   one state dict -- and compare the keyframes, the edge lists, the
+   keyframe poses and the filled trajectories.
 3. Run ``LGUSlam.track`` at the full width of the default ``SLAMConfig()``
    (384 x 512 images, bf16 volumes/features/convs) on synthetic frames with
    random weights, thresholds 0 so that every frame is a keyframe and the
    frontend runs, then a few frames with the keyframe gate closed.  The
    kernels' launch counters must match the probes, pyramid rebuilds and
    GRU iterations the run made.
+4. Run ``terminate(stream)`` on phase 3's system (backend passes of 7 and
+   12 steps over its 24 keyframes, then the trajectory filled for the 28
+   frames).  K2's launches must equal the backend's correlation
+   sub-chunks plus the filler's GRU iterations, K1's the filler's pyramid
+   rebuilds.
 
 Before the last line it prints the card's name and power limit, one JSON
 line with each kernel's error, time, bound and launches, and the tracking
-times.  The last line is ``{"ok": true, "device": {...}}``.  Data and
-weights come from fixed seeds; nothing needs the network.
+and terminate times.  The last line is ``{"ok": true, "device": {...}}``.
+Data and weights come from fixed seeds; nothing needs the network.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -52,10 +63,13 @@ from lgu_slam_tpu_torch.ops.pyramid_lookup import (
     level_dims,
     tap_positions,
 )
-from lgu_slam_tpu_torch.ops.sampler import sample_taps_flat
+from lgu_slam_tpu_torch.ops.sampler import sample_taps_flat, window_deltas
+from lgu_slam_tpu_torch.ops.window_lookup import window_lookup
+from lgu_slam_tpu_torch.slam.backend import Backend
 from lgu_slam_tpu_torch.slam.factor_graph import FactorGraph
 from lgu_slam_tpu_torch.slam.motion_filter import MotionFilter
 from lgu_slam_tpu_torch.slam.system import LGUSlam
+from lgu_slam_tpu_torch.slam.trajectory_filler import TrajectoryFiller
 from lgu_slam_tpu_torch.utils.config import SLAMConfig
 from lgu_slam_tpu_torch.utils.device import use_full_fp32
 from lgu_slam_tpu_torch.utils.synthetic import shifted_texture_frames
@@ -64,8 +78,23 @@ SEED = 0
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
-KERNELS = ("masked_corr", "pyramid_lookup")
+KERNELS = ("masked_corr", "pyramid_lookup", "window_lookup")
 MAIN_E, MAIN_H, MAIN_W = 48, 48, 64  # frontend graph at 384 x 512
+# K3/K4 cases: (TPU kernel, its file:line, plane h x w, radius, max offset)
+WINDOW_CASES = (
+    ("window_lookup_packed", "lgu_slam_tpu/ops/pallas_lookup.py:172", 48,
+     64, 3, 4),
+    ("window_lookup_packed", "lgu_slam_tpu/ops/pallas_lookup.py:172", 24,
+     32, 3, 4),
+    ("window_lookup_packed", "lgu_slam_tpu/ops/pallas_lookup.py:172", 24,
+     32, 1, 0),
+    ("window_lookup_packed", "lgu_slam_tpu/ops/pallas_lookup.py:172", 13,
+     17, 3, 4),
+    ("dense_lookup_packed", "lgu_slam_tpu/ops/pallas_lookup.py:246", 12, 16,
+     3, 0),
+    ("dense_lookup_packed", "lgu_slam_tpu/ops/pallas_lookup.py:246", 6, 8,
+     3, 0),
+)
 
 
 def fail(msg: str):
@@ -119,33 +148,42 @@ def lookup_inputs(gen, E, H, W, dev, dtype):
     return levels, cflat.to(dev), off0.to(dev), off1.to(dev)
 
 
-def lookup_level_bytes(levels, cflat, off0, off1, H, W) -> int:
-    """Bytes of pyramid the lookup must read for these inputs: the distinct
-    in-bounds bilinear corners per (edge, pixel, level), probe included."""
+def distinct_corners(px, py, h, w) -> int:
+    """The plane elements that the bilinear taps px/py [E, P1, K] read, each
+    (edge, pixel) on its own plane [h, w]: in-bounds corners counted once."""
+    x1, y1 = torch.floor(px), torch.floor(py)
+    live = (x1 >= 0) & (x1 < w) & (y1 >= 0) & (y1 < h)
+    idx = []
+    for dy in (0, 1):
+        for dx in (0, 1):
+            ok = live & (x1 + dx < w) & (y1 + dy < h)
+            flat = torch.where(ok, (y1 + dy) * w + x1 + dx, -1.0).long()
+            idx.append(flat)
+    idx = torch.sort(torch.cat(idx, -1), dim=-1).values
+    distinct = (idx[..., 1:] != idx[..., :-1]) & (idx[..., 1:] >= 0)
+    return int(distinct.sum()) + int((idx[..., 0] >= 0).sum())
+
+
+def lookup_bytes(levels, cflat, off0, off1, H, W) -> int:
+    """Bytes K2 must move for these inputs: the distinct in-bounds bilinear
+    corners per (edge, pixel, level), probe included, the coordinates and
+    offsets read once and the output written once."""
     dims = level_dims(H, W)
     h1, w1 = dims[1]
     probe = tap_positions(cflat / 2.0, None, 1)
     gate = torch.sigmoid(torch.var(
         sample_taps_flat(levels[1], h1, w1, *probe), dim=-1))
     offs = (off0, off1 * gate[..., None, None, None], None, None)
-    total = 0
+    corners = 0
     for lvl, (h, w) in enumerate(dims):
         px, py = tap_positions(cflat / 2.0 ** lvl, offs[lvl], RADIUS)
         if lvl == 1:
             px = torch.cat([px, probe[0]], -1)
             py = torch.cat([py, probe[1]], -1)
-        x1, y1 = torch.floor(px), torch.floor(py)
-        live = (x1 >= 0) & (x1 < w) & (y1 >= 0) & (y1 < h)
-        idx = []
-        for dy in (0, 1):
-            for dx in (0, 1):
-                ok = live & (x1 + dx < w) & (y1 + dy < h)
-                flat = ((y1 + dy) * w + x1 + dx).long()
-                idx.append(torch.where(ok, flat, torch.full_like(flat, -1)))
-        idx = torch.sort(torch.cat(idx, -1), dim=-1).values
-        distinct = (idx[..., 1:] != idx[..., :-1]) & (idx[..., 1:] >= 0)
-        total += int(distinct.sum()) + int((idx[..., 0] >= 0).sum())
-    return total * levels[0].element_size()
+        corners += distinct_corners(px, py, h, w)
+    E, P1 = cflat.shape[:2]
+    return (corners * levels[0].element_size() + cflat.numel() * 4
+            + off0.numel() * 4 + off1.numel() * 4 + E * P1 * 4 * RD * RD * 4)
 
 
 def phase_kernels(dev) -> dict:
@@ -234,10 +272,16 @@ def phase_kernels(dev) -> dict:
                                               MAIN_H, MAIN_W))
     plain_ms = cuda_ms(lambda: fused_pyramid_lookup_plain(
         lv, cflat, off0, off1, MAIN_H, MAIN_W), reps=3, warmup=1)
-    P1 = MAIN_H * MAIN_W
-    k2_bytes = (lookup_level_bytes(lv, cflat, off0, off1, MAIN_H, MAIN_W)
-                + cflat.numel() * 4 + off0.numel() * 4 + off1.numel() * 4
-                + MAIN_E * P1 * 4 * RD * RD * 4)
+    k2_bytes = lookup_bytes(lv, cflat, off0, off1, MAIN_H, MAIN_W)
+    del lv, cflat, off0, off1
+    # the backend's call site: one sub-chunk of SC edges per launch
+    SC = SLAMConfig().backend_sub_chunk
+    lv, cflat, off0, off1 = lookup_inputs(gen, SC, MAIN_H, MAIN_W, dev,
+                                          torch.bfloat16)
+    ms_sc = cuda_ms(lambda: fused_pyramid_lookup(lv, cflat, off0, off1,
+                                                 MAIN_H, MAIN_W), reps=30)
+    sc_bytes = lookup_bytes(lv, cflat, off0, off1, MAIN_H, MAIN_W)
+    del lv, cflat, off0, off1
     results["fused_pyramid_lookup"] = dict(
         name="fused_pyramid_lookup", route="cuda",
         source="lgu_slam_tpu_torch/csrc/pyramid_lookup.cu",
@@ -246,12 +290,62 @@ def phase_kernels(dev) -> dict:
         bound_ms=1e3 * k2_bytes / HBM_BYTES_PER_S, bound_by="bytes",
         library_ms=None, library_call=None,
         shapes=f"E={MAIN_E} {MAIN_H}x{MAIN_W} bf16 levels -> fp32 [E,P1,196]",
+        backend_shapes=f"E={SC} (one backend sub-chunk), same planes",
+        backend_ms=ms_sc, backend_bound_ms=1e3 * sc_bytes / HBM_BYTES_PER_S,
     )
-    del lv, cflat, off0, off1
+    torch.cuda.empty_cache()
+
+    for case in WINDOW_CASES:
+        results[f"{case[0]}:{case[2]}x{case[3]}:r{case[4]}"] = \
+            window_case(gen, dev, *case)
     torch.cuda.empty_cache()
     print("phase 1: kernels built for sm_90a and within tolerance of their "
           "plain versions")
     return results
+
+
+def window_inputs(gen, dev, h, w, radius, max_off):
+    """K3/K4 inputs at E = 48, P1 = 3072: a bf16 plane [h, w] per (edge,
+    pixel); tap positions of a (2r+1)^2 window plus offsets up to
+    +-max_off around bases from 20 % outside the plane on either side,
+    some of them NaN."""
+    E, P1 = MAIN_E, MAIN_H * MAIN_W
+    vol = torch.randn(E, P1, h * w, generator=gen).to(dev, torch.bfloat16)
+    base = (torch.rand(E, P1, 2, generator=gen) * 1.4 - 0.2) \
+        * torch.tensor([w, h], dtype=torch.float32)
+    K = (2 * radius + 1) ** 2
+    off = (torch.rand(E, P1, K, 2, generator=gen) * 2 - 1) * max_off
+    dx, dy = window_deltas(radius)
+    px = base[..., 0:1] + off[..., 0] + dx
+    py = base[..., 1:2] + off[..., 1] + dy
+    px[:, ::7, K // 2] = float("nan")
+    py[:, 3::11, 0] = float("nan")
+    return vol, px.to(dev), py.to(dev)
+
+
+def window_case(gen, dev, name, replaces, h, w, radius, max_off) -> dict:
+    """Hold K3/K4 against sample_taps_flat at one geometry; time both."""
+    vol, px, py = window_inputs(gen, dev, h, w, radius, max_off)
+    out = window_lookup(vol, h, w, px, py)
+    ref = sample_taps_flat(vol, h, w, px, py)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    check(err < 2e-4, f"{name} {h}x{w} r={radius}: max err {err}")
+    check(bool(torch.isfinite(out).all()), f"{name} {h}x{w}: non-finite")
+    del out, ref
+    ms = cuda_ms(lambda: window_lookup(vol, h, w, px, py))
+    plain_ms = cuda_ms(lambda: sample_taps_flat(vol, h, w, px, py), reps=3,
+                       warmup=1)
+    nbytes = (distinct_corners(px, py, h, w) * vol.element_size()
+              + 3 * px.numel() * 4)
+    E, P1, K = px.shape
+    return dict(
+        name=name, route="cuda",
+        source="lgu_slam_tpu_torch/csrc/window_lookup.cu",
+        replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes",
+        library_ms=None, library_call=None,
+        shapes=f"E={E} P1={P1} bf16 plane {h}x{w}, K={K} -> fp32 [E,P1,K]")
 
 
 # -- phases 2 and 3: track() --------------------------------------------------
@@ -262,23 +356,29 @@ def tiny_config() -> SLAMConfig:
         image_size=(64, 96), buffer=24, warmup=5, filter_thresh=0.0,
         keyframe_thresh=0.0, frontend_window=8, frontend_iters1=2,
         frontend_iters2=1, max_factors=24, edge_bucket=32, inactive_bucket=32,
-        volume_dtype="float32", feat_dtype="float32",
-        compute_dtype="float32")
+        backend_edge_cap=64, backend_chunk=32, volume_dtype="float32",
+        feat_dtype="float32", compute_dtype="float32")
 
 
 def phase_small_track(dev):
     cfg = tiny_config()
     sd = init_state_dict(cfg, SEED)
-    runs = {}
+    frames = list(shifted_texture_frames(14, 64, 96, SEED + 3))
+    runs = []
     for where in (dev, torch.device("cpu")):
         slam = LGUSlam(sd, cfg, device=where)
-        for t, img, intr in shifted_texture_frames(14, 64, 96, SEED + 3):
+        for t, img, intr in frames:
             slam.track(float(t), img, intrinsics=intr)
         g = slam.frontend.graph
         n = slam.video.counter
-        runs[where.type] = (n, g.ii.copy(), g.jj.copy(),
-                            slam.video.poses[:n].cpu())
-    (n_c, ii_c, jj_c, p_c), (n_h, ii_h, jj_h, p_h) = runs["cuda"], runs["cpu"]
+        # copies: the backend rescales the poses in place
+        track = (n, g.ii.copy(), g.jj.copy(),
+                 slam.video.poses[:n].cpu().clone())
+        with warnings.catch_warnings():  # the 16*t budget is capped at 64
+            warnings.simplefilter("ignore", UserWarning)
+            traj = slam.terminate(stream=iter(frames), backend_steps=(2, 1))
+        runs.append(track + (slam.video.poses[:n].cpu().clone(), traj))
+    (n_c, ii_c, jj_c, p_c, b_c, x_c), (n_h, ii_h, jj_h, p_h, b_h, x_h) = runs
     check(n_c == n_h, f"keyframes: cuda {n_c} != cpu {n_h}")
     check(np.array_equal(ii_c, ii_h) and np.array_equal(jj_c, jj_h),
           "edge lists differ between cuda and cpu")
@@ -286,63 +386,137 @@ def phase_small_track(dev):
     # fp32 both sides; the two devices sum in different orders and the
     # difference grows through 14 frames of random-weight tracking
     check(err < 1e-2, f"keyframe poses: cuda vs cpu max err {err}")
-    print(f"phase 2: tiny track() agrees on cuda and cpu: {n_c} keyframes, "
-          f"{len(ii_c)} edges, pose max abs err {err:.3g}")
+    # terminate: on the card the backend's correlation is bf16 planes
+    # through K2, on the CPU fp32 fused tap dots; the global BA amplifies
+    # the tracking difference, and the filler's motion-only BA amplifies
+    # any difference of its keyframes (tests/test_torch_terminate.py)
+    check(x_c.shape == (14, 7) and np.isfinite(x_c).all(),
+          f"cuda trajectory {x_c.shape} not finite")
+    b_err = (b_c - b_h).abs().max().item()
+    x_err = float(np.abs(x_c - x_h).max())
+    check(b_err < 2e-2, f"backend keyframe poses: cuda vs cpu max err "
+          f"{b_err}")
+    check(x_err < 5e-2, f"trajectory: cuda vs cpu max err {x_err}")
+    print(f"phase 2: tiny track() + terminate() agree on cuda and cpu: "
+          f"{n_c} keyframes, {len(ii_c)} edges, pose max abs err "
+          f"{err:.3g}, after the backend {b_err:.3g}, trajectory "
+          f"{x_err:.3g}")
+
+
+def sub_chunks(n_edges: int, chunk: int, sub_chunk: int) -> int:
+    """K2 launches of one low-memory step: per chunk of ``chunk`` edges,
+    one per sub-chunk (``sub_chunk`` halved until it divides the chunk)."""
+    total = 0
+    for lo in range(0, n_edges, chunk):
+        e = min(chunk, n_edges - lo)
+        sc = sub_chunk
+        while e % sc:
+            sc //= 2
+        total += e // sc
+    return total
 
 
 class CallCounts:
     """Counts the calls that launch the kernels, independently of the
-    wrappers' own launch counters."""
+    wrappers' own launch counters, and times the backend passes and the
+    filler's batches, while it is entered (it patches the methods and
+    restores them on exit)."""
 
     def __init__(self):
         self.probes = self.rebuilds = self.iterations = 0
-        probe = MotionFilter._flow_probe
-        build = FactorGraph._build_pyramid
-        update_n = FactorGraph.update_n
+        self.lowmem = []  # (edges, steps) per FactorGraph.update_lowmem
+        self.backend_ms = []  # per Backend call
+        self.fill_ms = []  # per TrajectoryFiller batch
+        self._saved = []
+
+    def _patch(self, cls, name, wrap):
+        orig = getattr(cls, name)
+        self._saved.append((cls, name, orig))
+        setattr(cls, name, wrap(orig))
+
+    @staticmethod
+    def _timed(out):
+        def wrap(orig):
+            def timed(*a, **kw):
+                torch.cuda.synchronize()
+                t_start = time.perf_counter()
+                result = orig(*a, **kw)
+                torch.cuda.synchronize()
+                out.append(1e3 * (time.perf_counter() - t_start))
+                return result
+            return timed
+        return wrap
+
+    def __enter__(self):
         counts = self
 
-        def counted_probe(self_, gmap):
-            counts.probes += 1
-            return probe(self_, gmap)
+        def probe(orig):
+            def counted(self_, gmap):
+                counts.probes += 1
+                return orig(self_, gmap)
+            return counted
 
-        def counted_build(self_):
-            counts.rebuilds += 1
-            return build(self_)
+        def build(orig):
+            def counted(self_):
+                counts.rebuilds += 1
+                return orig(self_)
+            return counted
 
-        def counted_update_n(self_, n, *a, **kw):
-            if self_.n_edges > 0:
-                counts.iterations += n
-            return update_n(self_, n, *a, **kw)
+        def update_n(orig):
+            def counted(self_, n, *a, **kw):
+                if self_.n_edges > 0:
+                    counts.iterations += n
+                return orig(self_, n, *a, **kw)
+            return counted
 
-        MotionFilter._flow_probe = counted_probe
-        FactorGraph._build_pyramid = counted_build
-        FactorGraph.update_n = counted_update_n
+        def lowmem(orig):
+            sig = inspect.signature(orig)
+
+            def counted(self_, *a, **kw):
+                args = sig.bind(self_, *a, **kw)
+                args.apply_defaults()
+                counts.lowmem.append((self_.n_edges, args.arguments["steps"]))
+                return orig(self_, *a, **kw)
+            return counted
+
+        self._patch(MotionFilter, "_flow_probe", probe)
+        self._patch(FactorGraph, "_build_pyramid", build)
+        self._patch(FactorGraph, "update_n", update_n)
+        self._patch(FactorGraph, "update_lowmem", lowmem)
+        self._patch(Backend, "__call__", self._timed(self.backend_ms))
+        self._patch(TrajectoryFiller, "_fill", self._timed(self.fill_ms))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, orig in reversed(self._saved):
+            setattr(cls, name, orig)
 
 
-def phase_full_track(dev, kernels: dict) -> dict:
+def phase_full_track(dev, kernels: dict):
     cfg = SLAMConfig().replace(filter_thresh=0.0, keyframe_thresh=0.0)
     H, W = cfg.image_size
     slam = LGUSlam(init_state_dict(cfg, SEED), cfg, device=dev)
     n_kf, n_gated = 24, 4
     frames = list(shifted_texture_frames(n_kf + n_gated, H, W, SEED + 1))
-    calls = CallCounts()
     masked_corr_level0.launches = 0
     fused_pyramid_lookup.launches = 0
+    window_lookup.launches = 0
     kf_ms, gated_ms, snap = [], [], {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for t, img, intr in frames:
-        if t == n_kf:
-            slam.filter.thresh = float("inf")  # close the keyframe gate
-        before = slam.video.counter
-        t_start = time.perf_counter()
-        slam.track(float(t), img, intrinsics=intr)
-        torch.cuda.synchronize()
-        dt = 1e3 * (time.perf_counter() - t_start)
-        (kf_ms if slam.video.counter > before else gated_ms).append(dt)
-        if t in (cfg.warmup - 1, n_kf - 1):  # after initialise / last update
-            snap[t] = (masked_corr_level0.launches,
-                       fused_pyramid_lookup.launches)
+    with CallCounts() as calls:
+        for t, img, intr in frames:
+            if t == n_kf:
+                slam.filter.thresh = float("inf")  # close the keyframe gate
+            before = slam.video.counter
+            t_start = time.perf_counter()
+            slam.track(float(t), img, intrinsics=intr)
+            torch.cuda.synchronize()
+            dt = 1e3 * (time.perf_counter() - t_start)
+            (kf_ms if slam.video.counter > before else gated_ms).append(dt)
+            if t in (cfg.warmup - 1, n_kf - 1):  # after initialise / update
+                snap[t] = (masked_corr_level0.launches,
+                           fused_pyramid_lookup.launches)
     k1, k2 = masked_corr_level0.launches, fused_pyramid_lookup.launches
 
     n = slam.video.counter
@@ -367,7 +541,7 @@ def phase_full_track(dev, kernels: dict) -> dict:
     for i, name in enumerate(("masked_corr_level0", "fused_pyramid_lookup")):
         steady = snap[n_kf - 1][i] - snap[cfg.warmup - 1][i]
         kernels[name].update(
-            launches=(k1, k2)[i],
+            launches_track=(k1, k2)[i],
             launches_per_keyframe=steady / n_updates,
             launches_per_non_keyframe=((k1, k2)[i] - snap[n_kf - 1][i])
             / n_gated)
@@ -385,6 +559,61 @@ def phase_full_track(dev, kernels: dict) -> dict:
     print(f"phase 3: full-width track() ({H}x{W}, bf16): {n} keyframes, "
           f"{g.n_edges} edges, K1 launches {k1}, K2 launches {k2}, poses "
           "finite")
+    return report, slam, frames
+
+
+def phase_terminate(slam, frames, kernels: dict) -> dict:
+    """terminate(stream) at full width on phase 3's system."""
+    cfg = slam.cfg
+    n = slam.video.counter
+    masked_corr_level0.launches = 0
+    fused_pyramid_lookup.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_start = time.perf_counter()
+    with CallCounts() as calls:
+        traj = slam.terminate(stream=iter(frames), backend_steps=(7, 12))
+    torch.cuda.synchronize()
+    ms_total = 1e3 * (time.perf_counter() - t_start)
+    k1, k2 = masked_corr_level0.launches, fused_pyramid_lookup.launches
+
+    check(traj.shape == (len(frames), 7), f"trajectory shape {traj.shape}")
+    check(bool(np.isfinite(traj).all()), "non-finite trajectory")
+    qn = np.linalg.norm(traj[:, 3:], axis=-1)
+    check(bool(np.abs(qn - 1.0).max() < 1e-3),
+          f"quaternion norms off 1 by {np.abs(qn - 1.0).max()}")
+    check(bool(torch.isfinite(slam.video.poses[:n]).all()),
+          "non-finite keyframe poses after the backend")
+    check([s for _, s in calls.lowmem] == [7, 12],
+          f"backend passes {calls.lowmem}")
+    per_step = [sub_chunks(e, cfg.backend_chunk, cfg.backend_sub_chunk)
+                for e, _ in calls.lowmem]
+    backend_k2 = sum(s * c for (_, s), c in zip(calls.lowmem, per_step))
+    check(k1 > 0 and k2 > 0, f"kernel launches K1={k1} K2={k2}")
+    check(calls.probes == 0, "terminate() ran the motion filter")
+    check(k1 == calls.rebuilds,
+          f"K1 launches {k1} != filler pyramid rebuilds {calls.rebuilds}")
+    check(k2 == backend_k2 + calls.iterations,
+          f"K2 launches {k2} != backend sub-chunks {backend_k2} + filler "
+          f"GRU iterations {calls.iterations}")
+    for name, k in (("masked_corr_level0", k1), ("fused_pyramid_lookup", k2)):
+        kernels[name]["launches_terminate"] = k
+    kernels["fused_pyramid_lookup"]["launches_per_backend_step"] = per_step
+    report = dict(
+        keyframes=n, frames=len(frames), backend_edges=[e for e, _ in
+                                                        calls.lowmem],
+        backend_steps=[s for _, s in calls.lowmem],
+        ms_per_backend_call=calls.backend_ms,
+        ms_per_backend_step=[ms / s for ms, (_, s) in
+                             zip(calls.backend_ms, calls.lowmem)],
+        filler_batches=len(calls.fill_ms), ms_per_filler_batch=calls.fill_ms,
+        filler_pyramid_rebuilds=calls.rebuilds,
+        filler_gru_iterations=calls.iterations, ms_terminate=ms_total,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"phase 4: full-width terminate(): {len(calls.lowmem)} backend "
+          f"passes over {report['backend_edges']} edges, "
+          f"{len(calls.fill_ms)} filler batches, trajectory "
+          f"{traj.shape} finite, K1 launches {k1}, K2 launches {k2}")
     return report
 
 
@@ -399,9 +628,14 @@ def main():
     t_start = time.perf_counter()
     kernels = phase_kernels(dev)
     phase_small_track(dev)
-    report = phase_full_track(dev, kernels)
+    report, slam, frames = phase_full_track(dev, kernels)
+    terminate = phase_terminate(slam, frames, kernels)
+    for k in kernels.values():
+        k["launches"] = (k["launches_track"] + k["launches_terminate"]
+                         if "launches_track" in k else window_lookup.launches)
     report["seconds"] = time.perf_counter() - t_start
     print(json.dumps({"tracking": report}))
+    print(json.dumps({"terminate": terminate}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,44 @@
+// Bilinear tap of one flat correlation plane with the reference CUDA
+// boundary rule, shared by K2 (pyramid_lookup.cu) and K3/K4
+// (window_lookup.cu): a tap is 0 unless its floor corner is inside the
+// plane (NaN positions included), and a +1 corner outside the plane reads 0.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace lgu {
+
+__device__ __forceinline__ float load(const float* p, size_t i) {
+  return __ldg(p + i);
+}
+__device__ __forceinline__ float load(const __nv_bfloat16* p, size_t i) {
+  return __bfloat162float(p[i]);
+}
+
+// bilinear tap of one pixel's plane vol [H2 * W2] at (px, py)
+template <typename T>
+__device__ __forceinline__ float bilinear(const T* __restrict__ vol, int H2,
+                                          int W2, float px, float py) {
+  const float x1 = floorf(px);
+  const float y1 = floorf(py);
+  if (!(x1 >= 0.f && x1 < (float)W2 && y1 >= 0.f && y1 < (float)H2)) {
+    return 0.f;
+  }
+  const float dx = px - x1;
+  const float dy = py - y1;
+  const int xi = (int)x1;
+  const int yi = (int)y1;
+  const bool xo = xi + 1 < W2;
+  const bool yo = yi + 1 < H2;
+  const size_t r0 = (size_t)yi * W2 + xi;
+  const float v11 = load(vol, r0);
+  const float v21 = xo ? load(vol, r0 + 1) : 0.f;
+  const float v12 = yo ? load(vol, r0 + W2) : 0.f;
+  const float v22 = (xo && yo) ? load(vol, r0 + W2 + 1) : 0.f;
+  return v11 * (1.f - dy) * (1.f - dx) + v21 * (1.f - dy) * dx +
+         v12 * dy * (1.f - dx) + v22 * dy * dx;
+}
+
+}  // namespace lgu

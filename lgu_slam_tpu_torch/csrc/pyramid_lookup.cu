@@ -27,12 +27,14 @@
 // warp then strides over the 49 taps of each level: consecutive lanes write
 // consecutive output channels and read consecutive offset pairs (coalesced),
 // while the volume corners of one pixel's window fall in a few rows of its
-// level and are served by L1/L2.
+// level and are served by L1/L2.  The bilinear tap is shared with K3/K4
+// (bilinear.cuh).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "bilinear.cuh"
 
 namespace {
+
+using lgu::bilinear;
 
 constexpr int RADIUS = 3;
 constexpr int RD = 2 * RADIUS + 1;      // 7
@@ -47,37 +49,6 @@ struct Levels {
   int h[LEVELS];
   int w[LEVELS];
 };
-
-__device__ __forceinline__ float load(const float* p, size_t i) {
-  return __ldg(p + i);
-}
-__device__ __forceinline__ float load(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
-}
-
-// bilinear tap of one pixel's level plane vol [H2 * W2]
-template <typename T>
-__device__ __forceinline__ float bilinear(const T* __restrict__ vol, int H2,
-                                          int W2, float px, float py) {
-  const float x1 = floorf(px);
-  const float y1 = floorf(py);
-  if (!(x1 >= 0.f && x1 < (float)W2 && y1 >= 0.f && y1 < (float)H2)) {
-    return 0.f;
-  }
-  const float dx = px - x1;
-  const float dy = py - y1;
-  const int xi = (int)x1;
-  const int yi = (int)y1;
-  const bool xo = xi + 1 < W2;
-  const bool yo = yi + 1 < H2;
-  const size_t r0 = (size_t)yi * W2 + xi;
-  const float v11 = load(vol, r0);
-  const float v21 = xo ? load(vol, r0 + 1) : 0.f;
-  const float v12 = yo ? load(vol, r0 + W2) : 0.f;
-  const float v22 = (xo && yo) ? load(vol, r0 + W2 + 1) : 0.f;
-  return v11 * (1.f - dy) * (1.f - dx) + v21 * (1.f - dy) * dx +
-         v12 * dy * (1.f - dx) + v22 * dy * dx;
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

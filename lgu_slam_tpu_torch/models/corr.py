@@ -1,7 +1,15 @@
-"""Correlation pyramid, volume path (port of the JAX package's
-``models/corr.py`` :97-327): FPN offset heads, the Gaussian-masked level-0
-volume (kernel K1), 2x2 average-pooled levels 1-3, and the deformable
-lookup (kernel K2).
+"""Correlation (port of the JAX package's ``models/corr.py``).
+
+- Volume path (:97-327, the frontend and the trajectory filler): FPN offset
+  heads, the Gaussian-masked level-0 volume (kernel K1), 2x2 average-pooled
+  levels 1-3, and the deformable lookup (kernel K2).
+- Low-memory path (:343-551, the backend): a pooled feature pyramid per
+  keyframe and correlation computed on the fly per lookup, either as fused
+  bilinear feature dots per tap (the plain version, the CPU's strategy) or,
+  on the card, per sub-chunk of edges as one matmul per level against the
+  pooled features followed by kernel K2.  Pooling commutes with the feature
+  dot, so the two compute the same function.  This path has no Gaussian
+  mask.
 
 The per-lookup level-1 gate is the JAX package's documented deviation from
 the reference (which compounds the gate in place) and is the spec here.
@@ -17,10 +25,12 @@ import torch.nn.functional as F
 from lgu_slam_tpu_torch.ops.masked_corr import masked_corr_level0
 from lgu_slam_tpu_torch.ops.pyramid_lookup import (
     NUM_LEVELS,
+    RADIUS,
     RD,
     fused_pyramid_lookup,
     level_dims,
 )
+from lgu_slam_tpu_torch.ops.sampler import window_deltas
 
 
 class CorrPyramid(NamedTuple):
@@ -88,3 +98,135 @@ def corr_lookup(pyr: CorrPyramid, coords: torch.Tensor) -> torch.Tensor:
         pyr.levels, coords.reshape(E, P1, 2).float().contiguous(), off0,
         off1, H, W)
     return feats.reshape(E, H, W, NUM_LEVELS * RD * RD)
+
+
+# -- low-memory path (backend) ----------------------------------------------
+
+def uses_volume(device: torch.device) -> bool:
+    """The chunked-volume strategy runs on the card (K2 on bf16 planes);
+    elsewhere the fused tap dots run, which want fp32 feature maps."""
+    return device.type == "cuda"
+
+
+def build_fmap_pyramid(fmaps: torch.Tensor):
+    """Average-pool pyramid of feature maps [N, H, W, C] -> 4 levels
+    [N, H/2^l, W/2^l, C] (odd extents floored), pre-scaled by 1/4 and
+    pooled in the stored dtype."""
+    levels = [fmaps / 4.0]
+    x = levels[0]
+    for _ in range(NUM_LEVELS - 1):
+        n, h, w, c = x.shape
+        x = x[:, : h // 2 * 2, : w // 2 * 2].reshape(
+            n, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4))
+        levels.append(x)
+    return tuple(levels)
+
+
+def _fused_tap_dot(f1, f2, px, py):
+    """<f1[e, y, x], bilinear(f2[e])(px, py)> with the reference boundary
+    rule.  f1 [E, H1, W1, C]; f2 [E, H2, W2, C]; px/py [E, H1, W1]."""
+    e, h2, w2, c = f2.shape
+    x1 = torch.floor(px)
+    y1 = torch.floor(py)
+    dx = (px - x1)[..., None]
+    dy = (py - y1)[..., None]
+    base_ok = (x1 >= 0) & (x1 < w2) & (y1 >= 0) & (y1 < h2)
+    # out-of-range floors are masked; clamp keeps the integer cast defined
+    xi = torch.clamp(x1, -1, w2).long()
+    yi = torch.clamp(y1, -1, h2).long()
+    f2f = f2.reshape(e, h2 * w2, c)
+    rows = torch.arange(e, device=f2.device)[:, None]
+
+    def corner(iy, ix):
+        ok = (iy >= 0) & (iy < h2) & (ix >= 0) & (ix < w2)
+        idx = torch.where(ok, iy * w2 + ix, torch.zeros_like(ix))
+        g = f2f[rows, idx.reshape(e, -1)].reshape(f1.shape)
+        return g * ok[..., None]
+
+    v = (corner(yi, xi) * (1 - dy) * (1 - dx)
+         + corner(yi, xi + 1) * (1 - dy) * dx
+         + corner(yi + 1, xi) * dy * (1 - dx)
+         + corner(yi + 1, xi + 1) * dy * dx)
+    out = torch.sum(f1 * v, dim=-1)
+    return torch.where(base_ok, out, torch.zeros_like(out))
+
+
+def alt_corr_level(f1, f2_lvl, coords_lvl, offsets, radius: int = RADIUS):
+    """Deformable correlation at one pyramid level by fused tap dots.
+    f1 [E, H1, W1, C] (level-0 features / 4); f2_lvl [E, H2, W2, C];
+    coords_lvl [E, H1, W1, 2] in level pixels; offsets [E, H1, W1, rd, rd,
+    2] (the centre tap's is zeroed).  Returns [E, H1, W1, rd*rd]."""
+    rd = 2 * radius + 1
+    offsets = offsets.clone()
+    offsets[..., radius, radius, :] = 0.0
+    offs = offsets.reshape(offsets.shape[:3] + (rd * rd, 2))
+    dx, dy = (d.tolist() for d in window_deltas(radius))
+    taps = [_fused_tap_dot(f1, f2_lvl,
+                           coords_lvl[..., 0] + offs[..., k, 0] + dx[k],
+                           coords_lvl[..., 1] + offs[..., k, 1] + dy[k])
+            for k in range(rd * rd)]
+    return torch.stack(taps, dim=-1)
+
+
+def alt_corr_lookup(fmap_pyr, ii, jj, coords, ofs_map, ofs_residual,
+                    use_volume: bool | None = None, sub_chunk: int = 8):
+    """Backend correlation features computed on the fly.  fmap_pyr: the 4
+    levels of :func:`build_fmap_pyramid`; ii/jj [E] feature indices
+    (rig-expanded by the caller); coords [E, H, W, 2].  Returns
+    [E, H, W, 196] fp32.  ``use_volume`` (default: on a CUDA device) picks
+    the chunked-volume strategy, else the fused tap dots."""
+    if use_volume is None:
+        use_volume = uses_volume(coords.device)
+    if use_volume:
+        return alt_corr_lookup_volume(fmap_pyr, ii, jj, coords, ofs_map,
+                                      ofs_residual, sub_chunk=sub_chunk)
+    f1 = fmap_pyr[0][ii]
+    # offsets from the unscaled feature pair: the /4 pyramid times 4
+    t = torch.cat([f1 * 4.0, fmap_pyr[0][jj] * 4.0], dim=-1)
+    off0, off1 = fpn_offsets(ofs_map, ofs_residual, t)
+
+    # level-1 variance gate from a plain radius-1 window at coords / 2
+    zeros9 = coords.new_zeros(coords.shape[:3] + (3, 3, 2))
+    probe = alt_corr_level(f1, fmap_pyr[1][jj], coords / 2.0, zeros9,
+                           radius=1)
+    gate = torch.sigmoid(torch.var(probe, dim=-1))[..., None, None, None]
+
+    offs = (off0, off1 * gate, torch.zeros_like(off0), torch.zeros_like(off0))
+    return torch.cat([alt_corr_level(f1, fmap_pyr[lvl][jj],
+                                     coords / 2.0 ** lvl, offs[lvl])
+                      for lvl in range(NUM_LEVELS)], dim=-1)
+
+
+def alt_corr_lookup_volume(fmap_pyr, ii, jj, coords, ofs_map, ofs_residual,
+                           sub_chunk: int = 8):
+    """Chunked-volume strategy of :func:`alt_corr_lookup`.  Per sub-chunk
+    of ``sub_chunk`` edges (halved until it divides E) each level's plane
+    is one matmul of f1 against the pooled f2, stored bf16 whatever the
+    configured volume dtype, then the 4 flat levels go through K2.  The
+    transient is sub_chunk * H*W * (sum of the level sizes) bf16."""
+    E, H, W, _ = coords.shape
+    P1 = H * W
+    f1 = fmap_pyr[0][ii]
+    t = torch.cat([f1 * 4.0, fmap_pyr[0][jj] * 4.0], dim=-1)
+    off0, off1 = fpn_offsets(ofs_map, ofs_residual, t)
+    del t
+    off0 = off0.reshape(E, P1, RD, RD, 2)
+    off1 = off1.reshape(E, P1, RD, RD, 2)
+    cflat = coords.reshape(E, P1, 2).float()
+
+    SC = sub_chunk
+    while E % SC:
+        SC //= 2
+    out = coords.new_empty(E, P1, NUM_LEVELS * RD * RD, dtype=torch.float32)
+    for lo in range(0, E, SC):
+        sl = slice(lo, lo + SC)
+        f1f = f1[sl].reshape(SC, P1, -1)
+        levels = []
+        for lvl in fmap_pyr:
+            f2 = lvl[jj[sl]].reshape(SC, -1, lvl.shape[-1])
+            levels.append(torch.matmul(f1f, f2.transpose(1, 2))
+                          .to(torch.bfloat16))
+        out[sl] = fused_pyramid_lookup(levels, cflat[sl].contiguous(),
+                                       off0[sl].contiguous(),
+                                       off1[sl].contiguous(), H, W)
+    return out.reshape(E, H, W, NUM_LEVELS * RD * RD)

@@ -18,6 +18,7 @@ import torch.nn as nn
 from lgu_slam_tpu_torch.models.conv import Conv
 from lgu_slam_tpu_torch.models.corr import (
     CorrPyramid,
+    alt_corr_lookup,
     build_corr_pyramid,
     corr_lookup,
 )
@@ -42,13 +43,16 @@ def normalize_images(images: torch.Tensor) -> torch.Tensor:
 
 
 class LGUNet(nn.Module):
-    """All learned components of the tracking path behind one module, on
-    ``device`` (CUDA when None; raises when CUDA is absent)."""
+    """All learned components of the inference path behind one module, on
+    ``device`` (CUDA when None; raises when CUDA is absent).
+    ``alt_sub_chunk`` is the edge sub-chunk of the backend's chunked-volume
+    correlation (per-sub-chunk transient = alt_sub_chunk * P1 * P2 bf16)."""
 
     def __init__(self, volume_dtype=torch.float32, compute_dtype=None,
-                 device=None):
+                 device=None, alt_sub_chunk: int = 8):
         super().__init__()
         self.volume_dtype = volume_dtype
+        self.alt_sub_chunk = alt_sub_chunk
         self.fnet = BasicEncoder(128, "instance", dtype=compute_dtype)
         self.cnet = BasicEncoder(256, "none", dtype=compute_dtype)
         self.GA = GaussianMask()
@@ -61,7 +65,7 @@ class LGUNet(nn.Module):
     def from_config(cls, cfg: SLAMConfig, device=None) -> "LGUNet":
         return cls(volume_dtype=getattr(torch, cfg.volume_dtype),
                    compute_dtype=getattr(torch, cfg.compute_dtype),
-                   device=device)
+                   device=device, alt_sub_chunk=cfg.backend_sub_chunk)
 
     def features(self, images: torch.Tensor) -> torch.Tensor:
         """Normalised images [B, H, W, 3] -> fmaps [B, H/8, W/8, 128]."""
@@ -81,6 +85,13 @@ class LGUNet(nn.Module):
 
     def lookup(self, pyr: CorrPyramid, coords: torch.Tensor) -> torch.Tensor:
         return corr_lookup(pyr, coords)
+
+    def alt_corr(self, fmap_pyr, ii, jj, coords) -> torch.Tensor:
+        """Backend correlation on the fly from the pooled feature pyramid
+        (no new parameters: the offset heads are shared)."""
+        return alt_corr_lookup(fmap_pyr, ii, jj, coords, self.ofsMap,
+                               self.ofs_residual,
+                               sub_chunk=self.alt_sub_chunk)
 
     def update_step(self, net, inp, corr, flow=None, ii=None,
                     num_frames=None):

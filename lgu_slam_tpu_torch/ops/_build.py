@@ -45,9 +45,12 @@ def _target(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """Missing, or older than its source or any shared header."""
     lib = _target(name)
-    return (not lib.exists()
-            or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+    if not lib.exists():
+        return True
+    sources = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in sources)
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path]:

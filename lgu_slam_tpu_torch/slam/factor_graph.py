@@ -1,5 +1,5 @@
-"""Factor graph over keyframes, frontend surface with the volume
-correlation (port of the JAX package's ``slam/factor_graph.py``).
+"""Factor graph over keyframes (port of the JAX package's
+``slam/factor_graph.py``).
 
 Edge topology (add/dedup, age- and capacity-based eviction, keyframe
 removal, proximity planning with NMS) is host numpy.  Per-edge state
@@ -8,31 +8,58 @@ tensors holding exactly the live edges, in edge order.  The capacity rules
 that decide which edges exist are kept: the ``edge_bucket`` hard cap, the
 ``max_factors`` eviction of the oldest edges, and the eviction of the oldest
 stored inactive edges beyond ``inactive_bucket``.
+
+Two correlation implementations, as in the JAX package: ``"volume"`` (the
+frontend and the trajectory filler; per-edge pyramids from kernel K1,
+:meth:`FactorGraph.update_n`) and ``"alt"`` (the backend; a pooled feature
+pyramid and correlation on the fly, :meth:`FactorGraph.update_lowmem`, with
+the per-edge GRU hidden state stored in ``cfg.backend_hidden_dtype``).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from lgu_slam_tpu_torch.geom.dba import DbaPlan, dba_step
 from lgu_slam_tpu_torch.geom.projective import coords_grid, projective_transform
+from lgu_slam_tpu_torch.models.corr import build_fmap_pyramid, uses_volume
 from lgu_slam_tpu_torch.models.net import LGUNet
 from lgu_slam_tpu_torch.models.update import upsample_disp
 from lgu_slam_tpu_torch.slam.state import Video
 from lgu_slam_tpu_torch.utils.config import SLAMConfig
 
 
+class _Chunk(NamedTuple):
+    """One chunk of the low-memory update: its edge slice, keyframe and
+    rig-expanded feature indices, and GraphAgg frame slots."""
+
+    sl: slice
+    ii: torch.Tensor
+    jj: torch.Tensor
+    ii_rig: torch.Tensor
+    jj_rig: torch.Tensor
+    frame_ids: torch.Tensor
+    edge_slot: torch.Tensor
+    F: int
+    written: torch.Tensor
+
+
 class FactorGraph:
     def __init__(self, net: LGUNet, video: Video, cfg: SLAMConfig,
-                 max_factors: int = -1):
+                 corr_impl: str = "volume", max_factors: int = -1,
+                 edge_bucket: int | None = None,
+                 inactive_bucket: int | None = None):
         self.net = net
         self.video = video
         self.cfg = cfg
         self.device = video.device
         self.max_factors = max_factors if max_factors > 0 else cfg.max_factors
-        self.E = cfg.edge_bucket  # hard cap on active edges
-        self.EI = cfg.inactive_bucket  # cap on stored inactive edges
+        self.E = edge_bucket or cfg.edge_bucket  # hard cap on active edges
+        # cap on stored inactive edges
+        self.EI = inactive_bucket or cfg.inactive_bucket
 
         h, w = cfg.ht8, cfg.wd8
         empty = np.zeros(0, np.int64)
@@ -43,11 +70,16 @@ class FactorGraph:
         f32 = dict(dtype=torch.float32, device=self.device)
         self.target = torch.zeros(0, h, w, 2, **f32)
         self.weight = torch.zeros(0, h, w, 2, **f32)
-        self.hidden = torch.zeros(0, h, w, 128, **f32)  # per-edge GRU state
+        # per-edge GRU state; the backend's global graph stores it in
+        # cfg.backend_hidden_dtype (bf16 by default) to bound its memory
+        hd = (getattr(torch, cfg.backend_hidden_dtype) if corr_impl == "alt"
+              else torch.float32)
+        self.hidden = torch.zeros(0, h, w, 128, dtype=hd, device=self.device)
         self.target_inac = torch.zeros(0, h, w, 2, **f32)
         self.weight_inac = torch.zeros(0, h, w, 2, **f32)
 
-        self.pyramid = None
+        self.pyramid = None  # volume impl: per-edge correlation pyramids
+        self.fmap_pyr = None  # alt impl: pooled feature pyramid
         self._pyr_dirty = True
 
     @property
@@ -96,7 +128,8 @@ class FactorGraph:
                                          ii_t, jj_t)
         self.target = torch.cat([self.target, coords])
         self.weight = torch.cat([self.weight, torch.zeros_like(coords)])
-        self.hidden = torch.cat([self.hidden, v.nets[ii_t].float()])
+        self.hidden = torch.cat([self.hidden,
+                                 v.nets[ii_t].to(self.hidden.dtype)])
 
         self.ii = np.concatenate([self.ii, ii])
         self.jj = np.concatenate([self.jj, jj])
@@ -156,6 +189,10 @@ class FactorGraph:
         self.jj = np.where(self.jj >= ix, self.jj - 1, self.jj)
         self.rm_factors(m, store=False)
 
+    def clear_edges(self):
+        if self.n_edges:
+            self.rm_factors(np.ones(self.n_edges, bool), store=False)
+
     # -- update -------------------------------------------------------------
 
     def _build_pyramid(self):
@@ -169,6 +206,39 @@ class FactorGraph:
         f2 = fmaps[jj, self._index(cam)].float()
         self.pyramid = self.net.build_corr(f1, f2)
         self._pyr_dirty = False
+
+    def _build_fmap_pyramid(self):
+        """Pooled feature pyramid of the live keyframes, rig-flattened
+        (feature index ``rig * frame + camera``): the stored dtype for the
+        chunked-volume strategy, fp32 for the fused tap dots."""
+        fmaps = self.video.fmaps[:max(self.video.counter, 1)]
+        t, rig, h, w, c = fmaps.shape
+        if not uses_volume(self.device):
+            fmaps = fmaps.float()
+        self.fmap_pyr = build_fmap_pyramid(fmaps.reshape(t * rig, h, w, c))
+
+    def _frame_slots(self, ii, bucket: int):
+        """GraphAgg frame slots of the edges' source frames ``ii``:
+        (frame ids, slot of each edge, slot count, the slots whose damping
+        and upsampled disparity get written).  As in the JAX package: it
+        pads the slots to ``bucket`` (doubled until they fit) with frame id
+        0, and its duplicate-index scatter writes a padded slot's unchanged
+        value last, so while any slot is padded frame 0 keeps its damping
+        and its upsampled disparity."""
+        frames, slot = np.unique(ii, return_inverse=True)
+        F = len(frames)
+        while bucket < F:
+            bucket *= 2
+        keep_0 = int(frames[0] == 0 and F < bucket)
+        written = torch.as_tensor(np.arange(F) >= keep_0, device=self.device)
+        return self._index(frames), self._index(slot), F, written
+
+    @staticmethod
+    def _scatter_slots(buf, frame_ids, slot_mask, values):
+        """buf[frame_ids] = values where slot_mask (per-frame damping or
+        upsampled disparity from the GraphAgg slots)."""
+        buf[frame_ids] = torch.where(slot_mask[:, None, None], values,
+                                     buf[frame_ids])
 
     @torch.no_grad()
     def update_n(self, n, t0=None, t1=None, itrs=2, use_inactive=False,
@@ -201,20 +271,8 @@ class FactorGraph:
             np.concatenate([self.jj, self.jj_inac[sel]]),
             t0, t1, self.device, strict_t0_quirk=cfg.strict_t0_quirk)
 
-        # GraphAgg frame slots: the unique source frames
-        frames, slot = np.unique(self.ii, return_inverse=True)
-        frame_ids, edge_slot = self._index(frames), self._index(slot)
-        F = len(frames)
-        # As in the JAX package: it pads these slots to a doubling of
-        # frame_bucket with frame id 0, and its duplicate-index scatter
-        # writes a padded slot's unchanged value last, so while any slot is
-        # padded frame 0 keeps its damping and its upsampled disparity.
-        bucket = cfg.frame_bucket
-        while bucket < F:
-            bucket *= 2
-        keep_0 = int(frames[0] == 0 and F < bucket)
-        written = torch.as_tensor(np.arange(F) >= keep_0, device=self.device)
-
+        frame_ids, edge_slot, F, written = self._frame_slots(
+            self.ii, cfg.frame_bucket)
         ii, jj = self._index(self.ii), self._index(self.jj)
         ht, wd = v.disps.shape[1:]
         coords0 = coords_grid(ht, wd, device=self.device)
@@ -235,9 +293,7 @@ class FactorGraph:
             target = coords1 + delta[0]
             weight = weight[0]
             slot_mask = slot_mask & written
-            cur = v.damping[frame_ids]
-            v.damping[frame_ids] = torch.where(slot_mask[:, None, None],
-                                               eta[0], cur)
+            self._scatter_slots(v.damping, frame_ids, slot_mask, eta[0])
 
             v.poses, v.disps = dba_step(
                 v.poses, v.disps, v.intrinsics[0], v.disps_sens,
@@ -248,11 +304,75 @@ class FactorGraph:
 
         self.hidden, self.target, self.weight = hidden, target, weight
         if cfg.upsample:
-            up = upsample_disp(v.disps[frame_ids], upmask)
-            v.disps_up[frame_ids] = torch.where(slot_mask[:, None, None], up,
-                                                v.disps_up[frame_ids])
+            self._scatter_slots(v.disps_up, frame_ids, slot_mask,
+                                upsample_disp(v.disps[frame_ids], upmask))
         v.dirty[t0:t1] = True
         self.age += n
+
+    def _lowmem_chunk_plan(self, CH: int):
+        """Host plan of the low-memory update: per chunk of ``CH`` edges (in
+        edge order), its edge slice, keyframe and rig-expanded feature
+        indices (stereo self-edges read the right camera) and GraphAgg
+        frame slots, padded to ``CH`` as the JAX package pads them."""
+        rig = self.video.fmaps.shape[1]
+        chunks = []
+        for lo in range(0, self.n_edges, CH):
+            sl = slice(lo, min(lo + CH, self.n_edges))
+            ii, jj = self.ii[sl], self.jj[sl]
+            jj_rig = rig * jj + ((ii == jj) if rig > 1 else 0)
+            chunks.append(_Chunk(
+                sl, self._index(ii), self._index(jj), self._index(rig * ii),
+                self._index(jj_rig), *self._frame_slots(ii, CH)))
+        return chunks
+
+    @torch.no_grad()
+    def update_lowmem(self, t0=None, t1=None, itrs=2, steps=8, EP=1e-7):
+        """Global low-memory optimisation (the backend): ``steps`` rounds of
+        {one GRU update per chunk of ``cfg.backend_chunk`` edges with the
+        correlation computed on the fly, then one DBA over all edges with
+        ``t0 = 1``, ``t1 = counter`` by default}.  Chunks see the poses of
+        the last DBA and the hidden states, targets and weights of earlier
+        chunks; the hidden state is stored back in its dtype after every
+        chunk."""
+        if self.n_edges == 0:
+            return
+        cfg = self.cfg
+        v = self.video
+        t = v.counter
+        self._build_fmap_pyramid()
+        chunks = self._lowmem_chunk_plan(cfg.backend_chunk)
+        plan = DbaPlan.build(self.ii, self.jj, 1 if t0 is None else t0,
+                             t if t1 is None else t1, self.device,
+                             strict_t0_quirk=cfg.strict_t0_quirk)
+        coords0 = coords_grid(*v.disps.shape[1:], device=self.device)
+        for _ in range(steps):
+            for c in chunks:
+                coords1, _ = projective_transform(
+                    v.poses, v.disps, v.intrinsics, c.ii, c.jj)
+                motn = torch.clamp(
+                    torch.cat([coords1 - coords0, self.target[c.sl] - coords1],
+                              dim=-1), -64.0, 64.0)
+                corr = self.net.alt_corr(self.fmap_pyr, c.ii_rig, c.jj_rig,
+                                         coords1)
+                hidden, delta, weight, eta, upmask, slot_mask = \
+                    self.net.update_step(
+                        self.hidden[c.sl][None], v.inps[c.ii].float()[None],
+                        corr[None], motn[None], c.edge_slot, c.F)
+                self.hidden[c.sl] = hidden[0]  # cast to the storage dtype
+                self.target[c.sl] = coords1 + delta[0]
+                self.weight[c.sl] = weight[0]
+                slot_mask = slot_mask & c.written
+                self._scatter_slots(v.damping, c.frame_ids, slot_mask, eta[0])
+                if cfg.upsample:
+                    self._scatter_slots(
+                        v.disps_up, c.frame_ids, slot_mask,
+                        upsample_disp(v.disps[c.frame_ids], upmask[0]))
+            # dba_step clamps the disparities at 1e-3
+            v.poses, v.disps = dba_step(
+                v.poses, v.disps, v.intrinsics[0], v.disps_sens, self.target,
+                self.weight, 0.2 * v.damping + EP, plan, iters=itrs,
+                lm=cfg.dba_lm, ep=cfg.dba_ep)
+        v.dirty[:t] = True
 
     # -- proximity edge selection (host-side NMS) ---------------------------
 

@@ -84,6 +84,15 @@ class Video:
                 buf[ix] = buf[min(src, buf.shape[0] - 1)]
         self.counter -= 1
 
+    def normalize(self):
+        """Scale the mean inverse depth of the first ``counter`` keyframes
+        to 1 and their translations to match."""
+        n = self.counter
+        s = self.disps[:n].mean()
+        self.disps[:n] /= s
+        self.poses[:n, :3] *= s
+        self.dirty[:n] = True
+
     # -- geometry -----------------------------------------------------------
 
     def _index(self, a) -> torch.Tensor:

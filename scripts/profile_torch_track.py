@@ -62,6 +62,63 @@ def group_of(name: str) -> str:
     return "other"
 
 
+def summarize(prof, wall_ms: float, n: int, card: str) -> dict:
+    """Per unit of work (``n`` units recorded in ``wall_ms``): the device
+    time by kernel group and by kernel, the busy share, and the PyTorch ops
+    with the most device time by input shape."""
+    kernels = defaultdict(lambda: [0.0, 0])
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            k = kernels[evt.name]
+            k[0] += evt.time_range.elapsed_us() / 1e3
+            k[1] += 1
+    busy_ms = sum(v[0] for v in kernels.values())
+    groups = defaultdict(float)
+    for name, (ms, _) in kernels.items():
+        groups[group_of(name)] += ms
+    ops = sorted((e for e in prof.key_averages(group_by_input_shape=True)
+                  if e.key.startswith("aten::")),
+                 key=lambda e: -e.self_device_time_total)[:15]
+    return dict(
+        card=card, units=n, wall_ms_per_unit=wall_ms / n,
+        device_busy_ms_per_unit=busy_ms / n,
+        device_busy_share=busy_ms / wall_ms,
+        kernel_launches_per_unit=sum(v[1] for v in kernels.values()) / n,
+        groups_ms_per_unit={g: ms / n for g, ms in sorted(
+            groups.items(), key=lambda kv: -kv[1])},
+        kernels=[dict(name=k, ms_per_unit=v[0] / n,
+                      launches_per_unit=v[1] / n)
+                 for k, v in sorted(kernels.items(),
+                                    key=lambda kv: -kv[1][0])],
+        ops=[dict(name=e.key, input_shapes=str(e.input_shapes),
+                  ms_per_unit=e.self_device_time_total / 1e3 / n,
+                  calls_per_unit=e.count / n) for e in ops],
+    )
+
+
+def print_summary(report: dict, unit: str) -> None:
+    print(f"per {unit}: wall {report['wall_ms_per_unit']:.1f} ms, "
+          f"device busy {report['device_busy_ms_per_unit']:.1f} ms "
+          f"({100 * report['device_busy_share']:.1f} %), "
+          f"{report['kernel_launches_per_unit']:.0f} kernel launches")
+    for g, ms in report["groups_ms_per_unit"].items():
+        print(f"  {g:28s} {ms:9.3f} ms")
+    for k in report["kernels"][:25]:
+        print(f"  {k['ms_per_unit']:9.3f} ms {k['launches_per_unit']:7.1f}x"
+              f"  {k['name'][:110]}")
+    for o in report["ops"]:
+        print(f"  {o['ms_per_unit']:9.3f} ms {o['calls_per_unit']:7.1f}x"
+              f"  {o['name']} {o['input_shapes'][:100]}")
+    print(json.dumps({k: v for k, v in report.items()
+                      if k not in ("kernels", "ops")}))
+
+
+def card_name() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+
+
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--out", default="build")
@@ -87,57 +144,14 @@ def main():
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
 
-    kernels = defaultdict(lambda: [0.0, 0])
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            k = kernels[evt.name]
-            k[0] += evt.time_range.elapsed_us() / 1e3
-            k[1] += 1
-    busy_ms = sum(v[0] for v in kernels.values())
-    groups = defaultdict(float)
-    for name, (ms, _) in kernels.items():
-        groups[group_of(name)] += ms
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    n = UPDATES
-    ops = sorted((e for e in prof.key_averages(group_by_input_shape=True)
-                  if e.key.startswith("aten::")),
-                 key=lambda e: -e.self_device_time_total)[:15]
-    report = dict(
-        card=smi, keyframe_updates=n,
-        wall_ms_per_update=wall_ms / n,
-        device_busy_ms_per_update=busy_ms / n,
-        device_busy_share=busy_ms / wall_ms,
-        kernel_launches_per_update=sum(v[1] for v in kernels.values()) / n,
-        groups_ms_per_update={g: ms / n for g, ms in sorted(
-            groups.items(), key=lambda kv: -kv[1])},
-        kernels=[dict(name=k, ms_per_update=v[0] / n,
-                      launches_per_update=v[1] / n)
-                 for k, v in sorted(kernels.items(), key=lambda kv: -kv[1][0])],
-        ops=[dict(name=e.key, input_shapes=str(e.input_shapes),
-                  ms_per_update=e.self_device_time_total / 1e3 / n,
-                  calls_per_update=e.count / n) for e in ops],
-    )
+    card = card_name()
+    report = summarize(prof, wall_ms, UPDATES, card)
     os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out, "profile_torch_track.json")
     with open(path, "w") as f:
         json.dump(report, f, indent=1)
-    print(smi)
-    print(f"per keyframe update: wall {report['wall_ms_per_update']:.1f} ms, "
-          f"device busy {report['device_busy_ms_per_update']:.1f} ms "
-          f"({100 * report['device_busy_share']:.1f} %), "
-          f"{report['kernel_launches_per_update']:.0f} kernel launches")
-    for g, ms in report["groups_ms_per_update"].items():
-        print(f"  {g:28s} {ms:9.3f} ms")
-    for k in report["kernels"][:25]:
-        print(f"  {k['ms_per_update']:9.3f} ms {k['launches_per_update']:7.1f}x"
-              f"  {k['name'][:110]}")
-    for o in report["ops"]:
-        print(f"  {o['ms_per_update']:9.3f} ms {o['calls_per_update']:7.1f}x"
-              f"  {o['name']} {o['input_shapes'][:100]}")
-    print(json.dumps({k: v for k, v in report.items()
-                      if k not in ("kernels", "ops")}))
+    print(card)
+    print_summary(report, "keyframe update")
 
 
 if __name__ == "__main__":

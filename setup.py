@@ -17,7 +17,7 @@ setup(
     packages=find_packages(include=["lgu_slam_tpu", "lgu_slam_tpu.*",
                                     "lgu_slam_tpu_torch",
                                     "lgu_slam_tpu_torch.*"]),
-    package_data={"lgu_slam_tpu_torch": ["csrc/*.cu"]},
+    package_data={"lgu_slam_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     ext_modules=[
         Extension(
             "lgu_native",

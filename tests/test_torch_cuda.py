@@ -22,6 +22,8 @@ from lgu_slam_tpu_torch.ops.pyramid_lookup import (
     fused_pyramid_lookup_plain,
     level_dims,
 )
+from lgu_slam_tpu_torch.ops.sampler import sample_taps_flat, window_deltas
+from lgu_slam_tpu_torch.ops.window_lookup import window_lookup
 from lgu_slam_tpu_torch.slam.system import LGUSlam
 from lgu_slam_tpu_torch.utils.config import SLAMConfig
 from lgu_slam_tpu_torch.utils.device import use_full_fp32
@@ -77,6 +79,35 @@ def test_pyramid_lookup_kernel(cuda_device, ehw, dtype):
     torch.testing.assert_close(out, ref, atol=2e-4, rtol=0)
 
 
+@pytest.mark.parametrize("geometry", [(48, 64, 3, 4), (24, 32, 1, 0),
+                                      (6, 8, 3, 0), (13, 17, 3, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_lookup_kernel(cuda_device, geometry, dtype):
+    """K3/K4: taps of a (2r+1)^2 window plus offsets up to +-max_off around
+    bases up to 20 % outside the plane, some positions NaN (read as 0);
+    fp32 bilinear taps of the same plane values: atol 2e-4."""
+    h, w, r, max_off = geometry
+    E, P1, K = 2, 96, (2 * r + 1) ** 2
+    gen = torch.Generator().manual_seed(4)
+    vol = torch.randn(E, P1, h * w, generator=gen).to(cuda_device, dtype)
+    base = (torch.rand(E, P1, 2, generator=gen) * 1.4 - 0.2) \
+        * torch.tensor([w, h])
+    off = (torch.rand(E, P1, K, 2, generator=gen) * 2 - 1) * max_off
+    dx, dy = window_deltas(r)
+    px = base[..., 0:1] + off[..., 0] + dx
+    py = base[..., 1:2] + off[..., 1] + dy
+    px[:, ::5, 0] = float("nan")
+    py[:, 1::5, K - 1] = float("nan")
+    px, py = px.to(cuda_device), py.to(cuda_device)
+    n = window_lookup.launches
+    out = window_lookup(vol, h, w, px, py)
+    ref = sample_taps_flat(vol, h, w, px, py)
+    torch.cuda.synchronize()
+    assert window_lookup.launches == n + 1
+    torch.testing.assert_close(out, ref, atol=2e-4, rtol=0)
+    assert (out[:, ::5, 0] == 0).all() and (out[:, 1::5, K - 1] == 0).all()
+
+
 def test_wrappers_reject_bad_inputs(cuda_device):
     args = corr_inputs(torch.Generator().manual_seed(2), 1, 4, 6,
                        cuda_device)
@@ -94,6 +125,14 @@ def test_wrappers_reject_bad_inputs(cuda_device):
                              cflat, off, off, 4, 6)
     with pytest.raises(ValueError, match="cflat"):
         fused_pyramid_lookup(levels, cflat.double(), off, off, 4, 6)
+    vol = torch.zeros(1, 24, 12, device=cuda_device)
+    pos = torch.zeros(1, 24, 9, device=cuda_device)
+    with pytest.raises(ValueError, match="px"):
+        window_lookup(vol, 3, 4, pos.double(), pos)
+    with pytest.raises(ValueError, match="vol"):
+        window_lookup(vol[:, :, :11], 3, 4, pos, pos)
+    with pytest.raises(ValueError, match="neither"):
+        window_lookup(vol.half(), 3, 4, pos, pos)
 
 
 def test_small_track_cuda_matches_cpu(cuda_device):

@@ -8,6 +8,9 @@ sampling pieces they are built from, against the JAX package.
   ``fused_pyramid_lookup`` in interpret mode over ``pack_pyramid`` levels,
   at tests/test_pallas.py's geometries (16 x 16, and 12 x 24 whose halving
   chain ends at 1 x 3) with coordinates up to 20 % outside the plane.
+- K3/K4: ``window_lookup`` (plain on the CPU) against the Pallas kernels
+  ``window_lookup_packed`` and ``dense_lookup_packed`` in interpret mode
+  over ``pack_level`` planes, at tests/test_pallas.py's six geometries.
 
 On the CPU the wrappers run the plain versions and launch nothing; the
 CUDA kernels themselves are held against the plain versions on the card
@@ -26,6 +29,7 @@ from lgu_slam_tpu.ops import sampler as jsampler
 from lgu_slam_tpu_torch.ops import masked_corr as tcorr
 from lgu_slam_tpu_torch.ops import pyramid_lookup as tlookup
 from lgu_slam_tpu_torch.ops import sampler as tsampler
+from lgu_slam_tpu_torch.ops import window_lookup as twindow
 
 
 def corr_inputs(rng, E, H, W, cov_lo=0.1):
@@ -127,6 +131,52 @@ def test_pyramid_lookup_plain_matches_pallas(rng, hw, dtype):
     close(out, ref, atol=2e-4)
 
 
+@pytest.mark.parametrize("H2, W2, r, max_off, dense", [
+    (48, 64, 3, 4, False),  # level 0, deformable
+    (24, 32, 3, 4, False),  # level 1, deformable
+    (12, 16, 3, 0, False),  # level 2, plain window
+    (6, 8, 3, 0, True),  # level 3, K4's dense tent
+    (24, 32, 1, 0, False),  # the radius-1 variance probe
+    (13, 17, 3, 4, False),  # odd (TUM-like) plane
+])
+def test_window_lookup_matches_pallas(rng, H2, W2, r, max_off, dense):
+    """tests/test_pallas.py's check: taps of a (2r+1)^2 window plus
+    offsets up to +-max_off around bases from 2 planes left/above to 20 %
+    beyond the plane, fp32 volume; its tolerance, 1e-4."""
+    E, P1, rd = 2, 16, 2 * r + 1
+    K = rd * rd
+    vol = rng.normal(size=(E, P1, H2 * W2)).astype(np.float32)
+    base = (rng.uniform(-2, 1.2, size=(E, P1, 2))
+            * np.array([W2, H2])).astype(np.float32)
+    off = rng.uniform(-max_off, max_off, size=(E, P1, K, 2)).astype(
+        np.float32)
+    d = np.stack(np.meshgrid(np.arange(rd) - r, np.arange(rd) - r,
+                             indexing="ij"), -1).reshape(K, 2)
+    px = (base[..., 0:1] + off[..., 0] + d[:, 0]).astype(np.float32)
+    py = (base[..., 1:2] + off[..., 1] + d[:, 1]).astype(np.float32)
+    W2p = jlookup.pad_w2(W2)
+    NS = jlookup.pick_ns(2 * (r + max_off) + 2, 128 // W2p)
+    vol4, _ = jlookup.pack_level(jnp.asarray(vol), H2, W2, NS)
+    if dense:
+        ref = jlookup.dense_lookup_packed(vol4, jnp.asarray(px),
+                                          jnp.asarray(py), H2, W2, W2p,
+                                          interpret=True, tile_p=8)
+    else:
+        ref = jlookup.window_lookup_packed(vol4, jnp.asarray(px),
+                                           jnp.asarray(py), H2, W2, W2p, NS,
+                                           interpret=True, tile_p=8)
+    before = twindow.window_lookup.launches
+    out = twindow.window_lookup(t(vol), H2, W2, t(px), t(py))
+    assert twindow.window_lookup.launches == before  # plain on the CPU
+    assert out.shape == (E, P1, K) and out.dtype == torch.float32
+    close(out, ref, atol=1e-4)
+    # bf16 planes are read exactly as their fp32 values
+    vb = t(vol).to(torch.bfloat16)
+    close(twindow.window_lookup(vb, H2, W2, t(px), t(py)),
+          tsampler.sample_taps_flat(vb.float(), H2, W2, t(px), t(py)),
+          atol=0)
+
+
 def test_wrappers_dispatch_by_device(rng):
     """CPU tensors run the plain versions and count no launch; a device
     with no kernel raises instead of falling back."""
@@ -146,3 +196,6 @@ def test_wrappers_dispatch_by_device(rng):
         tlookup.fused_pyramid_lookup(
             [t(v).to("meta") for v in levels], t(cflat).to("meta"),
             t(off0).to("meta"), t(off1).to("meta"), 8, 8)
+    with pytest.raises(ValueError, match="no kernel"):
+        twindow.window_lookup(t(levels[1]).to("meta"), 4, 4,
+                              t(cflat).to("meta"), t(cflat).to("meta"))

@@ -232,11 +232,15 @@ def test_port_imports_no_jax():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
-        "print(len(mods))\n")
+        "print(' '.join(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 25
+    mods = set(out.stdout.split())
+    assert len(mods) >= 34
+    assert {"lgu_slam_tpu_torch.slam.backend",
+            "lgu_slam_tpu_torch.slam.trajectory_filler",
+            "lgu_slam_tpu_torch.ops.window_lookup"} <= mods
 
 
 def test_entry_points_need_cuda_without_device(monkeypatch):

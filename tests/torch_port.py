@@ -34,6 +34,19 @@ def t(a, dtype=None):
     return x if dtype is None else x.to(dtype)
 
 
+def video_from_jax(jv, cfg, tv=None):
+    """A port Video on the CPU (``tv``, else a new one) holding the buffers
+    and the counter of the JAX package's Video ``jv`` (read as numpy)."""
+    from lgu_slam_tpu_torch.slam.state import Video
+
+    tv = Video(cfg, "cpu") if tv is None else tv
+    for name in Video._FIELDS:
+        a = np.asarray(getattr(jv.state, name)).astype(np.float32)
+        getattr(tv, name).copy_(torch.from_numpy(a))
+    tv.counter = jv.counter
+    return tv
+
+
 def close(actual, desired, atol, rtol=0.0, msg=""):
     """Compare a torch tensor with a JAX/numpy array."""
     a = actual.detach().cpu().float().numpy() \
