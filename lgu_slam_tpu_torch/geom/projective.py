@@ -118,6 +118,16 @@ def projective_transform(poses, disps, intrinsics, ii, jj,
     return x1, valid, (Ji, Jj, Jz)
 
 
+def projective_transform_batch(poses, disps, intrinsics, ii, jj):
+    """:func:`projective_transform` over a leading batch axis (poses
+    [B, N, 7], disps [B, N, H, W], intrinsics [B, N, 4]): (coords
+    [B, E, H, W, 2], valid [B, E, H, W, 1])."""
+    outs = [projective_transform(poses[b], disps[b], intrinsics[b], ii, jj)
+            for b in range(poses.shape[0])]
+    return (torch.stack([c for c, _ in outs]),
+            torch.stack([v for _, v in outs]))
+
+
 def induced_flow(poses, disps, intrinsics, ii, jj):
     """Optical flow induced by camera motion."""
     ht, wd = disps.shape[-2:]

@@ -1,5 +1,5 @@
-"""Quaternion Lie-group library on torch tensors (SE(3) only; Sim(3) comes
-with the training slice).
+"""Quaternion Lie-group library on torch tensors (SE(3) only; Sim(3), which
+no ported path uses, comes with slice 5 of the port).
 
 Layouts match the JAX package's ``lie`` so trajectories interoperate:
 

@@ -11,6 +11,14 @@
   dot, so the two compute the same function.  This path has no Gaussian
   mask.
 
+- Differentiable volume path (:169-175, :219-233 and :304-327, the
+  training forward): the JAX package's formulation outside Pallas, which its
+  training forward takes on every backend because its kernels have no
+  backward.  Autograd runs through K1's and K2's plain versions (an fp32
+  all-pairs matmul with the Gaussian window mask as tensor algebra, fp32
+  pooled levels, the gather formulation of the lookup; the TPU's one-hot
+  patch matmuls are layout).  It launches neither K1 nor K2, on any device.
+
 The per-lookup level-1 gate is the JAX package's documented deviation from
 the reference (which compounds the gate in place) and is the spec here.
 """
@@ -22,12 +30,16 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from lgu_slam_tpu_torch.ops.masked_corr import masked_corr_level0
+from lgu_slam_tpu_torch.ops.masked_corr import (
+    masked_corr_level0,
+    masked_corr_level0_plain,
+)
 from lgu_slam_tpu_torch.ops.pyramid_lookup import (
     NUM_LEVELS,
     RADIUS,
     RD,
     fused_pyramid_lookup,
+    fused_pyramid_lookup_plain,
     level_dims,
 )
 from lgu_slam_tpu_torch.ops.sampler import window_deltas
@@ -67,17 +79,24 @@ def fpn_offsets(ofs_map, ofs_residual, t: torch.Tensor):
 
 
 def build_corr_pyramid(ga_predict, ofs_map, ofs_residual, fmap1, fmap2,
-                       volume_dtype=torch.float32) -> CorrPyramid:
-    """fmap1/fmap2: [E, H, W, 128] fp32 per-edge features."""
+                       volume_dtype=torch.float32,
+                       differentiable: bool = False) -> CorrPyramid:
+    """fmap1/fmap2: [E, H, W, 128] fp32 per-edge features.  Level 0 comes
+    from K1, or with ``differentiable`` from its plain version in fp32 (the
+    training forward)."""
     E, H, W, _ = fmap1.shape
     P = H * W
     t = torch.cat([fmap1, fmap2], dim=-1)
     off0, off1 = fpn_offsets(ofs_map, ofs_residual, t)
     mean, cov, det = ga_predict(t)
 
-    lvl0 = masked_corr_level0(fmap1.contiguous(), fmap2.contiguous(),
-                              mean.contiguous(), cov.contiguous(),
-                              out_dtype=volume_dtype)
+    if differentiable:
+        lvl0 = masked_corr_level0_plain(fmap1, fmap2, mean, cov,
+                                        out_dtype=torch.float32)
+    else:
+        lvl0 = masked_corr_level0(fmap1.contiguous(), fmap2.contiguous(),
+                                  mean.contiguous(), cov.contiguous(),
+                                  out_dtype=volume_dtype)
     levels = [lvl0]
     v = lvl0
     for (h2, w2), (ho, wo) in zip(level_dims(H, W)[:-1],
@@ -88,15 +107,23 @@ def build_corr_pyramid(ga_predict, ofs_map, ofs_residual, fmap1, fmap2,
     return CorrPyramid(tuple(levels), (off0, off1), mean, 2.0 * det)
 
 
-def corr_lookup(pyr: CorrPyramid, coords: torch.Tensor) -> torch.Tensor:
-    """coords [E, H, W, 2] (x, y) at 1/8 resolution -> [E, H, W, 196]."""
+def corr_lookup(pyr: CorrPyramid, coords: torch.Tensor,
+                differentiable: bool = False) -> torch.Tensor:
+    """coords [E, H, W, 2] (x, y) at 1/8 resolution -> [E, H, W, 196]
+    through K2, or with ``differentiable`` through K2's plain version, which
+    autograd differentiates (the training forward)."""
     E, H, W, _ = coords.shape
     P1 = H * W
-    off0 = pyr.offsets[0].reshape(E, P1, RD, RD, 2).contiguous()
-    off1 = pyr.offsets[1].reshape(E, P1, RD, RD, 2).contiguous()
-    feats = fused_pyramid_lookup(
-        pyr.levels, coords.reshape(E, P1, 2).float().contiguous(), off0,
-        off1, H, W)
+    off0 = pyr.offsets[0].reshape(E, P1, RD, RD, 2)
+    off1 = pyr.offsets[1].reshape(E, P1, RD, RD, 2)
+    cflat = coords.reshape(E, P1, 2).float()
+    if differentiable:
+        feats = fused_pyramid_lookup_plain(pyr.levels, cflat, off0, off1, H,
+                                           W)
+    else:
+        feats = fused_pyramid_lookup(pyr.levels, cflat.contiguous(),
+                                     off0.contiguous(), off1.contiguous(), H,
+                                     W)
     return feats.reshape(E, H, W, NUM_LEVELS * RD * RD)
 
 

@@ -1,5 +1,6 @@
-"""Kolmogorov-Arnold (B-spline) linear layer, forward only (port of
-the JAX package's ``models/kan.py``).
+"""Kolmogorov-Arnold (B-spline) linear layer (port of the JAX package's
+``models/kan.py``; its ``update_grid`` and regularisation loss, which the
+train step does not use, come with slice 5 of the port).
 
 Output = silu(x) @ base_weight^T + B(x) . (spline_weight * spline_scaler),
 with Cox-de-Boor bases over a fixed uniform per-feature grid.  Parameters

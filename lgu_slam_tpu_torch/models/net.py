@@ -1,7 +1,7 @@
-"""LGUNet, inference surface (port of the JAX package's ``models/net.py``):
-feature/context encoders, Gaussian-uncertainty correlation with deformable
-offset heads, and the KAN-biased update operator.  The unrolled training
-forward comes with the training slice.
+"""LGUNet (port of the JAX package's ``models/net.py``): feature/context
+encoders, Gaussian-uncertainty correlation with deformable offset heads, the
+KAN-biased update operator, and the unrolled training forward with a
+differentiable BA per step (:meth:`LGUNet.forward`).
 
 Parameter names follow the reference torch state dict (``fnet.*``,
 ``GA.*``, ``ofsMap``, ``update.gru.kanz_glo.*``, ...), the layout that
@@ -15,6 +15,9 @@ import math
 import torch
 import torch.nn as nn
 
+from lgu_slam_tpu_torch.geom import projective as pops
+from lgu_slam_tpu_torch.geom.ba import ba
+from lgu_slam_tpu_torch.geom.losses import safe_norm
 from lgu_slam_tpu_torch.models.conv import Conv
 from lgu_slam_tpu_torch.models.corr import (
     CorrPyramid,
@@ -25,7 +28,7 @@ from lgu_slam_tpu_torch.models.corr import (
 from lgu_slam_tpu_torch.models.extractor import BasicEncoder
 from lgu_slam_tpu_torch.models.gaussian_mask import GaussianMask
 from lgu_slam_tpu_torch.models.kan import KANLinear
-from lgu_slam_tpu_torch.models.update import UpdateModule
+from lgu_slam_tpu_torch.models.update import UpdateModule, upsample_disp
 from lgu_slam_tpu_torch.utils.config import SLAMConfig
 from lgu_slam_tpu_torch.utils.device import resolve_device
 
@@ -43,8 +46,8 @@ def normalize_images(images: torch.Tensor) -> torch.Tensor:
 
 
 class LGUNet(nn.Module):
-    """All learned components of the inference path behind one module, on
-    ``device`` (CUDA when None; raises when CUDA is absent).
+    """All learned components behind one module, on ``device`` (CUDA when
+    None; raises when CUDA is absent).
     ``alt_sub_chunk`` is the edge sub-chunk of the backend's chunked-volume
     correlation (per-sub-chunk transient = alt_sub_chunk * P1 * P2 bf16)."""
 
@@ -77,14 +80,18 @@ class LGUNet(nn.Module):
         net, inp = x.split(128, dim=-1)
         return torch.tanh(net), torch.relu(inp)
 
-    def build_corr(self, fmap1, fmap2) -> CorrPyramid:
-        """fmap1/2 [E, H, W, 128] -> the edges' correlation pyramid."""
+    def build_corr(self, fmap1, fmap2,
+                   differentiable: bool = False) -> CorrPyramid:
+        """fmap1/2 [E, H, W, 128] -> the edges' correlation pyramid (with
+        ``differentiable``, the training forward's fp32 formulation)."""
         return build_corr_pyramid(self.GA.predict, self.ofsMap,
                                   self.ofs_residual, fmap1, fmap2,
-                                  volume_dtype=self.volume_dtype)
+                                  volume_dtype=self.volume_dtype,
+                                  differentiable=differentiable)
 
-    def lookup(self, pyr: CorrPyramid, coords: torch.Tensor) -> torch.Tensor:
-        return corr_lookup(pyr, coords)
+    def lookup(self, pyr: CorrPyramid, coords: torch.Tensor,
+               differentiable: bool = False) -> torch.Tensor:
+        return corr_lookup(pyr, coords, differentiable=differentiable)
 
     def alt_corr(self, fmap_pyr, ii, jj, coords) -> torch.Tensor:
         """Backend correlation on the fly from the pooled feature pyramid
@@ -96,6 +103,77 @@ class LGUNet(nn.Module):
     def update_step(self, net, inp, corr, flow=None, ii=None,
                     num_frames=None):
         return self.update(net, inp, corr, flow, ii, num_frames)
+
+    def forward(self, Gs, images, disps, intrinsics, ii, jj,
+                num_steps: int = 12, fixedp: int = 2):
+        """Unrolled training forward.  Gs [B, N, 7] poses, images
+        [B, N, H, W, 3] raw BGR, disps [B, N, H/8, W/8], intrinsics
+        [B, N, 4] at 1/8 scale, ii/jj [E] edge lists (long tensors on the
+        module's device).  Every step looks up the differentiable pyramid,
+        runs the update operator with GraphAgg over the N frames, and two
+        BA steps with ``fixedp`` poses fixed; the state entering a step is
+        detached.  Returns (poses per step [B, N, 7], upsampled disparities
+        per step [B, N, H, W], masked residuals per step [B, E, H/8, W/8, 2],
+        the Gaussian NLL summed over the last five steps)."""
+        B, N = images.shape[:2]
+        E = ii.shape[0]
+        imgs = normalize_images(images).reshape((B * N,) + images.shape[2:])
+        fmaps = self.features(imgs)
+        net_c, inp_c = self.context(imgs)
+        h8, w8 = fmaps.shape[1:3]
+        fmaps = fmaps.reshape(B, N, h8, w8, 128)
+        net = net_c.reshape(B, N, h8, w8, 128)[:, ii]
+        inp = inp_c.reshape(B, N, h8, w8, 128)[:, ii]
+
+        # per-edge pyramid, the batch folded into the edge axis
+        pyr = self.build_corr(fmaps[:, ii].reshape(B * E, h8, w8, 128),
+                              fmaps[:, jj].reshape(B * E, h8, w8, 128),
+                              differentiable=True)
+        mean_n = pyr.mean.reshape(B, E, h8, w8, 2)
+        theta = pyr.theta.reshape(B, E, h8, w8)
+        coords0 = pops.coords_grid(h8, w8, device=images.device)
+
+        def reproject(Gs, disps):
+            return pops.projective_transform_batch(Gs, disps, intrinsics, ii,
+                                                   jj)
+
+        coords1, _ = reproject(Gs, disps)
+        target = coords1
+        poses_out, disps_out, resid_out, nll = [], [], [], []
+        for step in range(num_steps):
+            Gs, disps = Gs.detach(), disps.detach()
+            coords1, target = coords1.detach(), target.detach()
+
+            resd = target - coords1
+            flow = coords1 - coords0
+            corr = self.lookup(pyr, coords1.reshape(B * E, h8, w8, 2),
+                               differentiable=True).reshape(B, E, h8, w8, -1)
+            motion = torch.clamp(torch.cat([flow, resd], dim=-1), -64.0, 64.0)
+            net, delta, weight, eta, upmask, _ = self.update_step(
+                net, inp, corr, motion, ii, N)
+
+            target = coords1 + delta
+            for _ in range(2):
+                Gs, disps = ba(target, weight, eta, Gs, disps, intrinsics,
+                               ii, jj, fixedp=fixedp)
+            coords1, valid = reproject(Gs, disps)
+            residual = target - coords1
+
+            if step > num_steps - 6:  # the Gaussian-NLL auxiliary loss
+                cn = safe_norm(coords1 * valid)
+                mn = safe_norm(mean_n * valid)
+                t = torch.clamp(theta, min=1e-6)
+                nll.append(torch.mean(torch.abs(cn - mn) / (2 * t)
+                                      + torch.log(torch.sqrt(t))))
+            poses_out.append(Gs)
+            disps_out.append(upsample_disp(
+                disps.reshape(B * N, h8, w8),
+                upmask.reshape(B * N, h8, w8, -1)).reshape(B, N, 8 * h8,
+                                                           8 * w8))
+            resid_out.append(valid * residual)
+
+        loss = sum(nll) if nll else torch.zeros((), device=images.device)
+        return poses_out, disps_out, resid_out, loss
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator):

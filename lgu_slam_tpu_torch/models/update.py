@@ -1,6 +1,7 @@
 """Update operator: correlation/flow encoders + KAN-biased ConvGRU +
 delta/weight heads + graph aggregation, and convex upsampling (port of
-the JAX package's ``models/update.py``, forward only).
+the JAX package's ``models/update.py``).  The ``eta``, ``delta`` and
+``weight`` heads pass their gradient through :func:`grad_clip`, as there.
 
 Shapes are edge-batched NHWC: net/inp [B, E, H, W, 128],
 corr [B, E, H, W, 196], flow [B, E, H, W, 4].  Module and parameter names
@@ -13,6 +14,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from lgu_slam_tpu_torch.models.clipping import grad_clip
 from lgu_slam_tpu_torch.models.conv import Conv
 from lgu_slam_tpu_torch.models.gru import KanBiasConvGRU
 
@@ -63,7 +65,7 @@ class GraphAgg(nn.Module):
         x = num / torch.clamp(den, min=1.0)[None, :, None, None, None]
 
         x = F.relu(self.conv2(x.reshape(b * num_frames, h, w, c)))
-        eta = F.softplus(self.eta(x).float())
+        eta = F.softplus(grad_clip(self.eta(x).float()))
         upmask = self.upmask(x)
         return (
             0.01 * eta.reshape(b, num_frames, h, w),
@@ -105,8 +107,8 @@ class UpdateModule(nn.Module):
         flo = self.flow_encoder(flat(flow))
         h_new = self.gru(flat(net), flat(inp), cor, flo)
 
-        delta = self.delta(h_new).float()
-        weight = torch.sigmoid(self.weight(h_new).float())
+        delta = grad_clip(self.delta(h_new).float())
+        weight = torch.sigmoid(grad_clip(self.weight(h_new).float()))
 
         net_out = h_new.reshape(b, e, h, w, 128)
         delta = delta.reshape(b, e, h, w, 2)

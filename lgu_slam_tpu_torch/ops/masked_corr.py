@@ -12,6 +12,9 @@ mean), ``out = corr`` outside, written as [E, P, P] in ``out_dtype``.
 
 :func:`masked_corr_level0` launches the kernel on a CUDA tensor and runs
 :func:`masked_corr_level0_plain` on a CPU tensor; any other device raises.
+The training forward calls the plain version itself, in fp32 on every
+device, and autograd differentiates it (``models/corr.py``): the kernel has
+no backward, as in the JAX package.
 """
 
 from __future__ import annotations

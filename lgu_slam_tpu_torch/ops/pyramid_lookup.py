@@ -15,6 +15,9 @@ semantics, including the per-lookup level-1 gate):
 
 :func:`fused_pyramid_lookup` launches the kernel on a CUDA tensor and runs
 :func:`fused_pyramid_lookup_plain` on a CPU tensor; any other device raises.
+The training forward calls the plain version itself, on every device, and
+autograd differentiates it (``models/corr.py``): the kernel has no
+backward, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -44,13 +47,16 @@ def level_dims(H: int, W: int):
 def tap_positions(base, offset, radius: int):
     """Tap positions (px, py) [E, P1, K] from base coords [E, P1, 2] and
     per-tap offsets [E, P1, rd, rd, 2] (None for a plain window), with the
-    centre-tap offset zeroed and offsets clipped to +-4."""
+    centre-tap offset zeroed and offsets clipped to +-4.  The zeroing is
+    straight-through, as in the JAX package: the centre offset's value is 0
+    and its gradient passes as if it were not zeroed."""
     rd = 2 * radius + 1
     dx, dy = window_deltas(radius, base.device)
     if offset is None:
         return base[..., 0:1] + dx, base[..., 1:2] + dy
-    off = offset.reshape(offset.shape[:2] + (rd * rd, 2)).clone()
-    off[:, :, radius * rd + radius] = 0.0
+    off = offset.reshape(offset.shape[:2] + (rd * rd, 2))
+    centre = torch.arange(rd * rd, device=off.device) == radius * rd + radius
+    off = torch.where(centre[:, None], off - off.detach(), off)
     off = torch.clamp(off, -4.0, 4.0)
     return base[..., 0:1] + off[..., 0] + dx, base[..., 1:2] + off[..., 1] + dy
 

@@ -4,8 +4,9 @@ the JAX package's ``ops/sampler.py``).
 Boundary rule of the reference CUDA samplers: a bilinear tap is exactly 0
 unless its floor corner lies inside the level; a +1 corner that falls
 outside reads 0.  These functions are the plain PyTorch versions that the
-kernels of ``masked_corr.py``, ``pyramid_lookup.py`` and
-``window_lookup.py`` are held against.
+kernels of ``masked_corr.py``, ``pyramid_lookup.py``, ``window_lookup.py``
+and ``k2_parts.py`` are held against, and, through autograd, the training
+forward's differentiable lookup (``models/corr.py``).
 """
 
 from __future__ import annotations

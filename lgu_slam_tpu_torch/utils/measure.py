@@ -1,0 +1,77 @@
+"""Kernel timing and bounds on the card, shared by ``chip_smoke.py`` and
+``scripts/profile_torch_k2_parts.py``."""
+
+from __future__ import annotations
+
+import torch
+
+from lgu_slam_tpu_torch.ops.pyramid_lookup import (
+    RADIUS,
+    RD,
+    level_dims,
+    tap_positions,
+)
+from lgu_slam_tpu_torch.ops.sampler import sample_taps_flat
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+
+def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Mean device time of ``fn()`` over ``reps`` launches (CUDA events).
+    Every input at the tracking shapes exceeds the 50 MB L2, so the reads
+    are cold without a flush."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def bytes_ms(nbytes: float) -> float:
+    """The least time, in ms, to move ``nbytes`` through device memory."""
+    return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def distinct_corners(px, py, h, w) -> int:
+    """The plane elements that the bilinear taps px/py [E, P1, K] read, each
+    (edge, pixel) on its own plane [h, w]: in-bounds corners counted once."""
+    x1, y1 = torch.floor(px), torch.floor(py)
+    live = (x1 >= 0) & (x1 < w) & (y1 >= 0) & (y1 < h)
+    idx = []
+    for dy in (0, 1):
+        for dx in (0, 1):
+            ok = live & (x1 + dx < w) & (y1 + dy < h)
+            flat = torch.where(ok, (y1 + dy) * w + x1 + dx, -1.0).long()
+            idx.append(flat)
+    idx = torch.sort(torch.cat(idx, -1), dim=-1).values
+    distinct = (idx[..., 1:] != idx[..., :-1]) & (idx[..., 1:] >= 0)
+    return int(distinct.sum()) + int((idx[..., 0] >= 0).sum())
+
+
+def lookup_bytes(levels, cflat, off0, off1, H, W) -> int:
+    """Bytes K2 must move for these inputs: the distinct in-bounds bilinear
+    corners per (edge, pixel, level), probe included, the coordinates and
+    offsets read once and the output written once."""
+    dims = level_dims(H, W)
+    h1, w1 = dims[1]
+    probe = tap_positions(cflat / 2.0, None, 1)
+    gate = torch.sigmoid(torch.var(
+        sample_taps_flat(levels[1], h1, w1, *probe), dim=-1))
+    offs = (off0, off1 * gate[..., None, None, None], None, None)
+    corners = 0
+    for lvl, (h, w) in enumerate(dims):
+        px, py = tap_positions(cflat / 2.0 ** lvl, offs[lvl], RADIUS)
+        if lvl == 1:
+            px = torch.cat([px, probe[0]], -1)
+            py = torch.cat([py, probe[1]], -1)
+        corners += distinct_corners(px, py, h, w)
+    E, P1 = cflat.shape[:2]
+    return (corners * levels[0].element_size() + cflat.numel() * 4
+            + off0.numel() * 4 + off1.numel() * 4 + E * P1 * 4 * RD * RD * 4)

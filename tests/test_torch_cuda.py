@@ -13,6 +13,12 @@ import torch
 from torch_port import cuda_device, tiny_config_kwargs  # noqa: F401
 
 from lgu_slam_tpu_torch.models.net import init_state_dict
+from lgu_slam_tpu_torch.ops.k2_parts import (
+    k2_one_level,
+    k2_one_level_plain,
+    k2_stream_floor,
+    k2_stream_floor_plain,
+)
 from lgu_slam_tpu_torch.ops.masked_corr import (
     masked_corr_level0,
     masked_corr_level0_plain,
@@ -22,6 +28,7 @@ from lgu_slam_tpu_torch.ops.pyramid_lookup import (
     fused_pyramid_lookup_plain,
     level_dims,
 )
+from lgu_slam_tpu_torch.ops.row_gather import row_gather, row_gather_plain
 from lgu_slam_tpu_torch.ops.sampler import sample_taps_flat, window_deltas
 from lgu_slam_tpu_torch.ops.window_lookup import window_lookup
 from lgu_slam_tpu_torch.slam.system import LGUSlam
@@ -108,6 +115,56 @@ def test_window_lookup_kernel(cuda_device, geometry, dtype):
     assert (out[:, ::5, 0] == 0).all() and (out[:, 1::5, K - 1] == 0).all()
 
 
+@pytest.mark.parametrize("shape", [(2, 96, 24, 128), (3, 40, 7, 48)])
+def test_row_gather_kernel(cuda_device, shape):
+    """K5: exact (a bf16 value read as fp32), indices outside [0, S) too."""
+    gen = torch.Generator().manual_seed(5)
+    V = torch.randn(*shape, generator=gen).to(cuda_device, torch.bfloat16)
+    S = shape[2]
+    s = torch.randint(-2, S + 2, shape[:2] + shape[3:], generator=gen,
+                      dtype=torch.int32).to(cuda_device)
+    n = row_gather.launches
+    out = row_gather(V, s)
+    torch.cuda.synchronize()
+    assert row_gather.launches == n + 1
+    assert torch.equal(out, row_gather_plain(V, s))
+
+
+def k2_probe_inputs(gen, E, H, W, dev):
+    levels = [torch.randn(E, H * W, h * w, generator=gen).to(
+        dev, torch.bfloat16) for h, w in level_dims(H, W)]
+    gy, gx = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
+    grid = torch.stack([gx, gy], -1).reshape(1, H * W, 2).float()
+    cflat = grid + 1.5 * torch.randn(E, H * W, 2, generator=gen)
+    off0 = torch.rand(E, H * W, 7, 7, 2, generator=gen) * 6 - 3
+    off1 = torch.rand(E, H * W, 7, 7, 2, generator=gen) * 6 - 3
+    return levels, cflat.to(dev), off0.to(dev), off1.to(dev)
+
+
+@pytest.mark.parametrize("ehw", [(2, 13, 17), (1, 12, 24), (2, 48, 64)])
+def test_k2_parts_kernels(cuda_device, ehw):
+    """K6: the stream floor (sums of up to ~50 values of unit scale in
+    another order: atol 1e-3) and each level alone on bf16 and fp32 planes
+    (fp32 bilinear taps of the same values: atol 2e-4)."""
+    E, H, W = ehw
+    levels, cflat, off0, off1 = k2_probe_inputs(
+        torch.Generator().manual_seed(6), E, H, W, cuda_device)
+    n = k2_stream_floor.launches
+    out = k2_stream_floor(levels, cflat, off0, off1)
+    ref = k2_stream_floor_plain(levels, cflat, off0, off1)
+    torch.cuda.synchronize()
+    assert k2_stream_floor.launches == n + 1
+    torch.testing.assert_close(out, ref, atol=1e-3, rtol=0)
+    for lvl in range(4):
+        for v in (levels[lvl], levels[lvl].float()):
+            n = k2_one_level.launches
+            out = k2_one_level(v, cflat, lvl, H, W)
+            ref = k2_one_level_plain(v, cflat, lvl, H, W)
+            torch.cuda.synchronize()
+            assert k2_one_level.launches == n + 1
+            torch.testing.assert_close(out, ref, atol=2e-4, rtol=0)
+
+
 def test_wrappers_reject_bad_inputs(cuda_device):
     args = corr_inputs(torch.Generator().manual_seed(2), 1, 4, 6,
                        cuda_device)
@@ -133,6 +190,17 @@ def test_wrappers_reject_bad_inputs(cuda_device):
         window_lookup(vol[:, :, :11], 3, 4, pos, pos)
     with pytest.raises(ValueError, match="neither"):
         window_lookup(vol.half(), 3, 4, pos, pos)
+    V = torch.zeros(1, 2, 3, 4, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        row_gather(V.float(), torch.zeros(1, 2, 4, dtype=torch.int32,
+                                          device=cuda_device))
+    with pytest.raises(ValueError, match="int32"):
+        row_gather(V, torch.zeros(1, 2, 4, dtype=torch.int64,
+                                  device=cuda_device))
+    with pytest.raises(ValueError, match="level 0"):
+        k2_stream_floor([lv.float() for lv in levels], cflat, off, off)
+    with pytest.raises(ValueError, match="cflat"):
+        k2_one_level(levels[0], cflat.double(), 0, 4, 6)
 
 
 def test_small_track_cuda_matches_cpu(cuda_device):

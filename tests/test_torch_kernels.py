@@ -11,6 +11,12 @@ sampling pieces they are built from, against the JAX package.
 - K3/K4: ``window_lookup`` (plain on the CPU) against the Pallas kernels
   ``window_lookup_packed`` and ``dense_lookup_packed`` in interpret mode
   over ``pack_level`` planes, at tests/test_pallas.py's six geometries.
+- K5: ``row_gather`` (plain on the CPU) against the probe
+  ``_prof_sublane.run(chain_kernel)`` in interpret mode at its CPU size.
+- K6: ``k2_one_level`` against JAX ``sample_taps_flat`` at the probe's
+  positions (``_prof_kparts.py`` runs at E = 48 on import, so the function
+  its kernel computes is the reference), and ``k2_stream_floor`` against a
+  numpy statement of its sum.
 
 On the CPU the wrappers run the plain versions and launch nothing; the
 CUDA kernels themselves are held against the plain versions on the card
@@ -26,8 +32,10 @@ from torch_port import close, t, torch_single_thread  # noqa: F401
 from lgu_slam_tpu.ops import pallas_corr as jcorr
 from lgu_slam_tpu.ops import pallas_lookup as jlookup
 from lgu_slam_tpu.ops import sampler as jsampler
+from lgu_slam_tpu_torch.ops import k2_parts as tparts
 from lgu_slam_tpu_torch.ops import masked_corr as tcorr
 from lgu_slam_tpu_torch.ops import pyramid_lookup as tlookup
+from lgu_slam_tpu_torch.ops import row_gather as trow
 from lgu_slam_tpu_torch.ops import sampler as tsampler
 from lgu_slam_tpu_torch.ops import window_lookup as twindow
 
@@ -95,6 +103,121 @@ def test_sample_taps_flat(rng):
     px[0, 0, 2] = np.nan
     out = tsampler.sample_taps_flat(t(vol), H2, W2, t(px), t(py))
     assert float(out[0, 0, 2]) == 0.0
+
+
+def test_nan_taps_match_jax_patch_formulation(rng):
+    """At NaN positions the port's taps equal those of the JAX package's
+    patch formulation, ``sample_taps_patch_flat``, which its ``corr_lookup``
+    runs off the TPU and its training forward runs: 0.  (Its gather
+    formulation, ``sample_taps_flat``, returns NaN there.)"""
+    H2, W2, r = 6, 8, 3
+    rd = 2 * r + 1
+    vol = rng.normal(size=(2, 5, H2 * W2)).astype(np.float32)
+    base = (rng.uniform(-0.2, 1.2, size=(2, 5, 2))
+            * np.array([W2, H2])).astype(np.float32)
+    d = np.arange(rd, dtype=np.float32) - r
+    px = (base[..., 0:1] + np.repeat(d, rd)).astype(np.float32)
+    py = (base[..., 1:2] + np.tile(d, rd)).astype(np.float32)
+    px[0, 1, 3] = np.nan
+    py[1, 4, :] = np.nan
+    ref = np.asarray(jsampler.sample_taps_patch_flat(
+        jnp.asarray(vol), H2, W2, jnp.asarray(base), jnp.asarray(px),
+        jnp.asarray(py), r))
+    out = tsampler.sample_taps_flat(t(vol), H2, W2, t(px), t(py))
+    assert ref[0, 1, 3] == 0.0 and (ref[1, 4] == 0.0).all()
+    close(out, ref, atol=1e-5)
+    assert np.isnan(np.asarray(jsampler.sample_taps_flat(
+        jnp.asarray(vol), H2, W2, jnp.asarray(px), jnp.asarray(py)))[0, 1, 3])
+
+
+def test_row_gather_plain_matches_probe(monkeypatch):
+    """K5's plain version against the probe's select-chain kernel in
+    interpret mode, at the size its own CPU run uses (E, NB = 2, 1:
+    V [2, 256, 24, 128]); exact (a bf16 value read as fp32)."""
+    import _prof_sublane as probe
+
+    monkeypatch.setattr(probe, "E", 2)
+    monkeypatch.setattr(probe, "NB", 1)
+    rng = np.random.default_rng(0)
+    shape = (probe.E, probe.NB * probe.TP, probe.S, 128)
+    v = rng.normal(size=shape).astype(np.float32)
+    st = rng.integers(0, probe.S, size=shape[:2] + (128,)).astype(np.int32)
+    v_j = jnp.asarray(v).astype(jnp.bfloat16)
+    ref = probe.run(probe.chain_kernel, v_j, jnp.asarray(st), True)
+    V = t(np.asarray(v_j.astype(jnp.float32))).to(torch.bfloat16)
+    before = trow.row_gather.launches
+    out = trow.row_gather(V, t(st))
+    assert trow.row_gather.launches == before  # plain on the CPU
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    close(out, ref, atol=0)
+    # an index outside [0, S) reads 0
+    st[0, 0, :3] = [-1, probe.S, 10 ** 6]
+    assert not trow.row_gather(V, t(st))[0, 0, :3].any()
+
+
+def probe_cflat(rng, E, H, W):
+    """The probe's coordinates: the pixel grid plus 1.5 N(0, 1)."""
+    gy, gx = np.mgrid[0:H, 0:W]
+    grid = np.stack([gx, gy], -1).reshape(1, H * W, 2)
+    return (grid + 1.5 * rng.normal(size=(E, H * W, 2))).astype(np.float32)
+
+
+@pytest.mark.parametrize("hw", [(16, 24), (13, 17)])
+def test_k2_one_level_plain_matches_jax(rng, hw):
+    """The probe's function (``_prof_kparts.py:72-83``): lanes k < 49 tap
+    (k // 7 - 3, k % 7 - 3) around cflat / 2^lvl, lanes 49-63 the centre;
+    JAX ``sample_taps_flat`` at those positions is the reference."""
+    H, W = hw
+    E = 2
+    cflat = probe_cflat(rng, E, H, W)
+    l64 = np.arange(64)
+    live = (l64 < 49).astype(np.float32)
+    dx = ((l64 // 7) - 3) * live
+    dy = ((l64 % 7) - 3) * live
+    for lvl, (h, w) in enumerate(tlookup.level_dims(H, W)):
+        vol = rng.normal(size=(E, H * W, h * w)).astype(np.float32)
+        px = (cflat[..., 0:1] * 0.5 ** lvl + dx).astype(np.float32)
+        py = (cflat[..., 1:2] * 0.5 ** lvl + dy).astype(np.float32)
+        ref = jsampler.sample_taps_flat(jnp.asarray(vol), h, w,
+                                        jnp.asarray(px), jnp.asarray(py))
+        for dtype in (torch.float32, torch.bfloat16):
+            v = t(vol).to(dtype)
+            before = tparts.k2_one_level.launches
+            out = tparts.k2_one_level(v, t(cflat), lvl, H, W)
+            assert tparts.k2_one_level.launches == before
+            assert out.shape == (E, H * W, 64)
+            if dtype == torch.float32:
+                close(out, ref, atol=1e-5)
+            else:  # bf16 planes are read exactly as their fp32 values
+                close(out, tsampler.sample_taps_flat(
+                    v.float(), h, w, t(px), t(py)), atol=0)
+
+
+def test_k2_stream_floor_plain_matches_numpy(rng):
+    """Element k of a pixel's output sums, over every input row of that
+    (edge, pixel), the elements whose index in the row is k mod 64 (rows
+    of 221, 48, 12, 2, 2 and 98 elements)."""
+    E, H, W = 2, 13, 17
+    levels = [rng.normal(size=(E, H * W, h * w)).astype(np.float32)
+              for h, w in tlookup.level_dims(H, W)]
+    cflat = probe_cflat(rng, E, H, W)
+    off0 = rng.uniform(-3, 3, size=(E, H * W, 7, 7, 2)).astype(np.float32)
+    off1 = rng.uniform(-3, 3, size=(E, H * W, 7, 7, 2)).astype(np.float32)
+    ref = np.zeros((E, H * W, 64))
+    for row in levels + [cflat, off0.reshape(E, H * W, 98),
+                         off1.reshape(E, H * W, 98)]:
+        for k in range(64):
+            ref[..., k] += row[..., k::64].astype(np.float64).sum(-1)
+    lv = [t(v).to(torch.bfloat16) for v in levels]
+    ref_bf16 = ref - sum(
+        np.pad(v - v16.float().numpy(), ((0, 0), (0, 0),
+                                         (0, (-v.shape[-1]) % 64)))
+        .reshape(E, H * W, -1, 64).sum(2) for v, v16 in zip(levels, lv))
+    before = tparts.k2_stream_floor.launches
+    out = tparts.k2_stream_floor(lv, t(cflat), t(off0), t(off1))
+    assert tparts.k2_stream_floor.launches == before
+    assert out.shape == (E, H * W, 64) and out.dtype == torch.float32
+    close(out, ref_bf16, atol=1e-4)
 
 
 def lookup_problem(rng, E, H, W):
@@ -199,3 +322,13 @@ def test_wrappers_dispatch_by_device(rng):
     with pytest.raises(ValueError, match="no kernel"):
         twindow.window_lookup(t(levels[1]).to("meta"), 4, 4,
                               t(cflat).to("meta"), t(cflat).to("meta"))
+    meta = [t(v).to("meta") for v in levels]
+    with pytest.raises(ValueError, match="no kernel"):
+        tparts.k2_stream_floor(meta, t(cflat).to("meta"), t(off0).to("meta"),
+                               t(off1).to("meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        tparts.k2_one_level(meta[0], t(cflat).to("meta"), 0, 8, 8)
+    with pytest.raises(ValueError, match="no kernel"):
+        trow.row_gather(torch.zeros(1, 2, 3, 4, device="meta"),
+                        torch.zeros(1, 2, 4, dtype=torch.int32,
+                                    device="meta"))

@@ -220,10 +220,11 @@ def test_track_matches_jax(jax_init):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port (and chip_smoke.py) imports with JAX, flax,
-    the JAX package and its native extension made unimportable."""
+    """Every module of the port, chip_smoke.py and the port's scripts
+    (scripts/*_torch*.py) import with JAX, flax, the JAX package and its
+    native extension made unimportable."""
     code = (
-        "import sys, importlib, pkgutil\n"
+        "import sys, glob, importlib, importlib.util, pkgutil\n"
         "for m in ('jax', 'flax', 'lgu_slam_tpu', 'lgu_native'):\n"
         "    sys.modules[m] = None\n"
         "import lgu_slam_tpu_torch as p\n"
@@ -232,15 +233,30 @@ def test_port_imports_no_jax():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
+        "for path in sorted(glob.glob('scripts/*_torch*.py')):\n"
+        "    spec = importlib.util.spec_from_file_location('s', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "    mods.append(path)\n"
         "print(' '.join(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     mods = set(out.stdout.split())
-    assert len(mods) >= 34
+    assert len(mods) >= 47
     assert {"lgu_slam_tpu_torch.slam.backend",
             "lgu_slam_tpu_torch.slam.trajectory_filler",
-            "lgu_slam_tpu_torch.ops.window_lookup"} <= mods
+            "lgu_slam_tpu_torch.ops.window_lookup",
+            "lgu_slam_tpu_torch.ops.row_gather",
+            "lgu_slam_tpu_torch.ops.k2_parts",
+            "lgu_slam_tpu_torch.geom.ba",
+            "lgu_slam_tpu_torch.geom.chol",
+            "lgu_slam_tpu_torch.geom.losses",
+            "lgu_slam_tpu_torch.models.clipping",
+            "lgu_slam_tpu_torch.data.synthetic",
+            "lgu_slam_tpu_torch.parallel.train_dp",
+            "lgu_slam_tpu_torch.utils.checkpoint",
+            "scripts/train_synthetic_torch.py",
+            "scripts/profile_torch_k2_parts.py"} <= mods
 
 
 def test_entry_points_need_cuda_without_device(monkeypatch):
