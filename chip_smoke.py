@@ -8,15 +8,18 @@ Five phases; any failure exits non-zero.
 1. Build the CUDA kernels from ``lgu_slam_tpu_torch/csrc`` with nvcc for
    sm_90a, all at once (printing ptxas' register/shared-memory summary),
    and hold each kernel against its plain PyTorch version on the card: K1
-   and K2 at the tracking shapes (E = 48 edges, 48 x 64 feature maps) and
-   at odd geometries, with out-of-bounds coordinates and offsets beyond
-   the +-4 clip; K3/K4 (``window_lookup``) at E = 48, P1 = 3072 on bf16
-   planes of 48 x 64, 24 x 32 (49 taps, and the 9-tap probe), 12 x 16,
-   6 x 8 and 13 x 17, with out-of-bounds and NaN positions; K5
-   (``row_gather``) and K6 (``k2_stream_floor``, ``k2_one_level``) at the
-   shapes of their TPU probes (E = 48, 48 x 64; [48, 3072, 24, 128]) and at
-   odd geometries, then the probes' own entry point,
-   ``scripts/profile_torch_k2_parts.py``, which times them.
+   (both kernels: fp32 operands on the SIMT kernel, bf16 operands on the
+   wgmma kernel; fp32 and bf16 volumes) and K2 at the tracking shapes
+   (E = 48 edges, 48 x 64 feature maps) and at odd geometries, K1 with
+   windows across tile edges, K2 with out-of-bounds coordinates and offsets
+   beyond the +-4 clip (and its corner and 32-byte-sector bounds at E = 48
+   and at the backend's sub-chunk); K3/K4 (``window_lookup``) at E = 48,
+   P1 = 3072 on bf16 planes of 48 x 64, 24 x 32 (49 taps, and the 9-tap
+   probe), 12 x 16, 6 x 8 and 13 x 17, with out-of-bounds and NaN
+   positions; K5 (``row_gather``) and K6 (``k2_stream_floor``,
+   ``k2_one_level``) at the shapes of their TPU probes (E = 48, 48 x 64;
+   [48, 3072, 24, 128]) and at odd geometries, then the probes' own entry
+   point, ``scripts/profile_torch_k2_parts.py``, which times them.
 2. Run ``LGUSlam.track`` and then ``terminate(stream)`` at a tiny size
    (64 x 96, fp32 dtypes, thresholds 0) on a synthetic stream twice -- on
    the card with the kernels and on the CPU with the plain versions, from
@@ -24,18 +27,19 @@ Five phases; any failure exits non-zero.
    keyframe poses and the filled trajectories; then one train step at
    64 x 96 (batch 1, 3 frames, 3 iterations) on both devices from one state
    dict: the loss, every metric, every gradient and the weights after the
-   optimizer step.
+   optimizer step.  The fp32 configuration launches K1's SIMT kernel only.
 3. Run ``LGUSlam.track`` at the full width of the default ``SLAMConfig()``
    (384 x 512 images, bf16 volumes/features/convs) on synthetic frames with
    random weights, thresholds 0 so that every frame is a keyframe and the
    frontend runs, then a few frames with the keyframe gate closed.  The
    kernels' launch counters must match the probes, pyramid rebuilds and
-   GRU iterations the run made.
+   GRU iterations the run made; every K1 launch is the bf16-operand
+   kernel (bf16 keyframe store, bf16 encoder).
 4. Run ``terminate(stream)`` on phase 3's system (backend passes of 7 and
    12 steps over its 24 keyframes, then the trajectory filled for the 28
    frames).  K2's launches must equal the backend's correlation
-   sub-chunks plus the filler's GRU iterations, K1's the filler's pyramid
-   rebuilds.
+   sub-chunks plus the filler's GRU iterations, K1's (bf16 operands) the
+   filler's pyramid rebuilds.
 5. Train at the full width of the default ``TrainConfig()`` (384 x 512,
    batch 2, 4 frames, 10 edges per clip, 9 iterations, fp32) on synthetic
    clips for 3 steps: the loss, the metrics, every gradient and the weights
@@ -98,8 +102,9 @@ from lgu_slam_tpu_torch.slam.trajectory_filler import TrajectoryFiller
 from lgu_slam_tpu_torch.utils.config import SLAMConfig, TrainConfig
 from lgu_slam_tpu_torch.utils.device import use_full_fp32
 from lgu_slam_tpu_torch.utils.measure import (
+    BF16_FLOP_PER_S,
     FP32_FLOP_PER_S,
-    HBM_BYTES_PER_S,
+    bytes_ms,
     cuda_ms,
     distinct_corners,
     lookup_bytes,
@@ -107,8 +112,8 @@ from lgu_slam_tpu_torch.utils.measure import (
 from lgu_slam_tpu_torch.utils.synthetic import shifted_texture_frames
 
 SEED = 0
-KERNELS = ("masked_corr", "pyramid_lookup", "window_lookup", "row_gather",
-           "k2_stream")
+KERNELS = ("masked_corr", "masked_corr_tc", "pyramid_lookup",
+           "window_lookup", "row_gather", "k2_stream")
 PROBES = Path(__file__).resolve().parent / "scripts" / \
     "profile_torch_k2_parts.py"
 MAIN_E, MAIN_H, MAIN_W = 48, 48, 64  # frontend graph at 384 x 512
@@ -142,13 +147,21 @@ def check(cond: bool, msg: str):
 # -- phase 1: kernels against their plain versions ---------------------------
 
 def corr_inputs(gen, E, H, W, dev):
-    f1 = torch.randn(E, H, W, 128, generator=gen).to(dev)
-    f2 = torch.randn(E, H, W, 128, generator=gen).to(dev)
+    """fp32 features holding bf16 values (so that both K1 kernels see the
+    same numbers); means scattered around each pixel, a third of them on an
+    integer and a third just below one (floor's edges), so that windows
+    cross tile edges at every offset; covariances from 0.05 (a sharp
+    Gaussian) to 20 (one felt at the window's edge)."""
+    f1 = torch.randn(E, H, W, 128, generator=gen).bfloat16().float().to(dev)
+    f2 = torch.randn(E, H, W, 128, generator=gen).bfloat16().float().to(dev)
     grid = torch.stack(torch.meshgrid(torch.arange(W), torch.arange(H),
                                       indexing="xy"), -1).float()
-    mean = (grid + 3.0 * torch.randn(E, H, W, 2, generator=gen)).to(dev)
-    cov = (0.05 + 5.0 * torch.rand(E, H, W, 2, generator=gen)).to(dev)
-    return f1, f2, mean, cov
+    mean = grid + 3.0 * torch.randn(E, H, W, 2, generator=gen)
+    pick = torch.randint(0, 3, (E, H, W, 1), generator=gen)
+    mean = torch.where(pick == 0, torch.round(mean), mean)
+    mean = torch.where(pick == 1, torch.floor(mean) + 0.999, mean).to(dev)
+    cov = 0.05 + 20.0 * torch.rand(E, H, W, 2, generator=gen) ** 2
+    return f1, f2, mean, cov.to(dev)
 
 
 def lookup_inputs(gen, E, H, W, dev, dtype):
@@ -164,6 +177,87 @@ def lookup_inputs(gen, E, H, W, dev, dtype):
     return levels, cflat.to(dev), off0.to(dev), off1.to(dev)
 
 
+def k1_check(args, tag):
+    """K1 against its plain version on the same inputs, fp32 out (atol 2e-4,
+    rtol 1e-4: a 128-channel dot summed in another order) and bf16 out
+    (one bf16 step: |err| / (|ref| + 1) < 0.02).  Returns the max abs
+    errors of the bf16 and the fp32 volumes."""
+    out = masked_corr_level0(*args, out_dtype=torch.float32)
+    ref = masked_corr_level0_plain(*args, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    err32 = (out - ref).abs().max().item()
+    check(torch.allclose(out, ref, atol=2e-4, rtol=1e-4),
+          f"K1 {tag} -> fp32: max err {err32}")
+    del out, ref
+    out = masked_corr_level0(*args, out_dtype=torch.bfloat16).float()
+    ref = masked_corr_level0_plain(*args, out_dtype=torch.bfloat16).float()
+    torch.cuda.synchronize()
+    rel = ((out - ref).abs() / (ref.abs() + 1.0)).max().item()
+    check(rel < 0.02, f"K1 {tag} -> bf16: rel err {rel}")
+    return (out - ref).abs().max().item(), err32
+
+
+def k1_cases(gen, dev) -> dict:
+    """Both K1 kernels against the plain version at odd geometries (ragged
+    last tiles; 7 x 9 rows of no multiple of 16 bytes) and at the tracking
+    shapes, then timed at the tracking shapes beside their bounds and one
+    torch.bmm of the same operands (the product alone)."""
+    for E, H, W in ((3, 30, 40), (2, 7, 9), (1, 48, 64)):
+        f1, f2, mean, cov = corr_inputs(gen, E, H, W, dev)
+        k1_check((f1, f2, mean, cov), f"fp32 operands {E}x{H}x{W}")
+        k1_check((f1.bfloat16(), f2.bfloat16(), mean, cov),
+                 f"bf16 operands {E}x{H}x{W}")
+    f1, f2, mean, cov = corr_inputs(gen, MAIN_E, MAIN_H, MAIN_W, dev)
+    out = {}
+    for name, source, dt, flop_rate in (
+            ("masked_corr_level0", "masked_corr.cu", torch.float32,
+             FP32_FLOP_PER_S),
+            ("masked_corr_level0_tc", "masked_corr_tc.cu", torch.bfloat16,
+             BF16_FLOP_PER_S)):
+        args = (f1.to(dt), f2.to(dt), mean, cov)
+        err, err32 = k1_check(args, f"{dt} operands main shapes")
+        ms = cuda_ms(lambda: masked_corr_level0(*args,
+                                                out_dtype=torch.bfloat16))
+        plain_ms = cuda_ms(lambda: masked_corr_level0_plain(
+            *args, out_dtype=torch.bfloat16), reps=3, warmup=1)
+        a = (args[0] / 4.0).reshape(MAIN_E, -1, 128)
+        b = (args[1] / 4.0).reshape(MAIN_E, -1, 128).transpose(1, 2)
+        library_ms = cuda_ms(lambda: torch.bmm(a, b))
+        del a, b
+        # the motion filter's probe: one edge
+        probe = tuple(x[:1] for x in args)
+        probe_ms = cuda_ms(lambda: masked_corr_level0(
+            *probe, out_dtype=torch.bfloat16), reps=50)
+        bound, bound_by = k1_bound(MAIN_E, dt, flop_rate)
+        operands = str(dt).replace("torch.", "")
+        out[name] = dict(
+            name=name, route="cuda",
+            source=f"lgu_slam_tpu_torch/csrc/{source}",
+            replaces="lgu_slam_tpu/ops/pallas_corr.py:61",
+            operands=operands, max_abs_err=err, max_abs_err_fp32_out=err32,
+            ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=bound_by, library_ms=library_ms,
+            library_call=f"torch.bmm of the {operands} operands (product "
+                         "only)",
+            shapes=f"E={MAIN_E} {MAIN_H}x{MAIN_W} C=128 {operands} -> bf16",
+            probe_ms=probe_ms, probe_bound_ms=k1_bound(1, dt, flop_rate)[0])
+        del args, probe
+    return out
+
+
+def k1_bound(E, dt, flop_rate):
+    """K1's bound at E edges of the tracking shapes into a bf16 volume:
+    the larger of its bytes (operands and mean/cov read once, the volume
+    written once) over HBM's rate and its operations over the operand
+    type's peak."""
+    P = MAIN_H * MAIN_W
+    esize = torch.empty(0, dtype=dt).element_size()
+    b_ms = bytes_ms(2 * E * P * 128 * esize + 2 * E * P * 2 * 4
+                    + E * P * P * 2)
+    o_ms = 1e3 * 2 * E * P * P * 128 / flop_rate
+    return max(b_ms, o_ms), "operations" if o_ms >= b_ms else "bytes"
+
+
 def phase_kernels(dev) -> dict:
     logs = _build.build_all(KERNELS)
     for name in KERNELS:
@@ -174,60 +268,7 @@ def phase_kernels(dev) -> dict:
     use_full_fp32()
     results = {}
 
-    # K1 at odd geometries (ragged last tile), fp32 and bf16 outputs
-    for E, H, W in ((3, 30, 40), (2, 7, 9)):
-        args = corr_inputs(gen, E, H, W, dev)
-        for dt in (torch.float32, torch.bfloat16):
-            out = masked_corr_level0(*args, out_dtype=dt).float()
-            ref = masked_corr_level0_plain(*args, out_dtype=dt).float()
-            torch.cuda.synchronize()
-            if dt == torch.float32:
-                check(torch.allclose(out, ref, atol=2e-4, rtol=1e-4),
-                      f"K1 fp32 {E}x{H}x{W}: max err "
-                      f"{(out - ref).abs().max().item()}")
-            else:
-                rel = ((out - ref).abs() / (ref.abs() + 1.0)).max().item()
-                check(rel < 0.02, f"K1 bf16 {E}x{H}x{W}: rel err {rel}")
-    # K1 at the tracking shapes: fp32, then the bf16 volume of the path
-    args = corr_inputs(gen, MAIN_E, MAIN_H, MAIN_W, dev)
-    out = masked_corr_level0(*args, out_dtype=torch.float32)
-    ref = masked_corr_level0_plain(*args, out_dtype=torch.float32)
-    torch.cuda.synchronize()
-    check(torch.allclose(out, ref, atol=2e-4, rtol=1e-4),
-          f"K1 fp32 main shapes: max err {(out - ref).abs().max().item()}")
-    del out, ref
-    out = masked_corr_level0(*args, out_dtype=torch.bfloat16).float()
-    ref = masked_corr_level0_plain(*args, out_dtype=torch.bfloat16).float()
-    torch.cuda.synchronize()
-    rel = ((out - ref).abs() / (ref.abs() + 1.0)).max().item()
-    check(rel < 0.02, f"K1 bf16 main shapes: rel err {rel}")
-    k1_err = (out - ref).abs().max().item()
-    del out, ref
-    ms = cuda_ms(lambda: masked_corr_level0(*args, out_dtype=torch.bfloat16))
-    plain_ms = cuda_ms(lambda: masked_corr_level0_plain(
-        *args, out_dtype=torch.bfloat16), reps=3, warmup=1)
-    a = (args[0] / 4.0).reshape(MAIN_E, -1, 128)
-    b = (args[1] / 4.0).reshape(MAIN_E, -1, 128).transpose(1, 2)
-    library_ms = cuda_ms(lambda: torch.bmm(a, b))
-    del a, b
-    P = MAIN_H * MAIN_W
-    k1_bytes = (2 * MAIN_E * P * 128 * 4 + 2 * MAIN_E * P * 2 * 4
-                + MAIN_E * P * P * 2)
-    k1_flops = 2 * MAIN_E * P * P * 128
-    b_ms = 1e3 * k1_bytes / HBM_BYTES_PER_S
-    o_ms = 1e3 * k1_flops / FP32_FLOP_PER_S
-    results["masked_corr_level0"] = dict(
-        name="masked_corr_level0", route="cuda",
-        source="lgu_slam_tpu_torch/csrc/masked_corr.cu",
-        replaces="lgu_slam_tpu/ops/pallas_corr.py:61",
-        max_abs_err=k1_err, ms=ms, plain_ms=plain_ms,
-        bound_ms=max(b_ms, o_ms),
-        bound_by="operations" if o_ms >= b_ms else "bytes",
-        library_ms=library_ms,
-        library_call="torch.bmm of the fp32 operands (product only)",
-        shapes=f"E={MAIN_E} {MAIN_H}x{MAIN_W} C=128 -> bf16",
-    )
-    del args
+    results.update(k1_cases(gen, dev))
 
     # K2 at odd halving chains and TUM's 30 x 40, both level dtypes
     for E, H, W in ((2, 12, 24), (2, 30, 40), (1, 13, 17)):
@@ -251,6 +292,8 @@ def phase_kernels(dev) -> dict:
     plain_ms = cuda_ms(lambda: fused_pyramid_lookup_plain(
         lv, cflat, off0, off1, MAIN_H, MAIN_W), reps=3, warmup=1)
     k2_bytes = lookup_bytes(lv, cflat, off0, off1, MAIN_H, MAIN_W)
+    k2_sector_bytes = lookup_bytes(lv, cflat, off0, off1, MAIN_H, MAIN_W,
+                                   sectors=True)
     del lv, cflat, off0, off1
     # the backend's call site: one sub-chunk of SC edges per launch
     SC = SLAMConfig().backend_sub_chunk
@@ -259,17 +302,21 @@ def phase_kernels(dev) -> dict:
     ms_sc = cuda_ms(lambda: fused_pyramid_lookup(lv, cflat, off0, off1,
                                                  MAIN_H, MAIN_W), reps=30)
     sc_bytes = lookup_bytes(lv, cflat, off0, off1, MAIN_H, MAIN_W)
+    sc_sector_bytes = lookup_bytes(lv, cflat, off0, off1, MAIN_H, MAIN_W,
+                                   sectors=True)
     del lv, cflat, off0, off1
     results["fused_pyramid_lookup"] = dict(
         name="fused_pyramid_lookup", route="cuda",
         source="lgu_slam_tpu_torch/csrc/pyramid_lookup.cu",
         replaces="lgu_slam_tpu/ops/pallas_lookup.py:524",
         max_abs_err=k2_err, ms=ms, plain_ms=plain_ms,
-        bound_ms=1e3 * k2_bytes / HBM_BYTES_PER_S, bound_by="bytes",
+        bound_ms=bytes_ms(k2_bytes), bound_by="bytes",
+        sector_bound_ms=bytes_ms(k2_sector_bytes),
         library_ms=None, library_call=None,
         shapes=f"E={MAIN_E} {MAIN_H}x{MAIN_W} bf16 levels -> fp32 [E,P1,196]",
         backend_shapes=f"E={SC} (one backend sub-chunk), same planes",
-        backend_ms=ms_sc, backend_bound_ms=1e3 * sc_bytes / HBM_BYTES_PER_S,
+        backend_ms=ms_sc, backend_bound_ms=bytes_ms(sc_bytes),
+        backend_sector_bound_ms=bytes_ms(sc_sector_bytes),
     )
     torch.cuda.empty_cache()
 
@@ -452,7 +499,7 @@ def window_case(gen, dev, name, replaces, h, w, radius, max_off) -> dict:
         name=name, route="cuda",
         source="lgu_slam_tpu_torch/csrc/window_lookup.cu",
         replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes",
+        bound_ms=bytes_ms(nbytes), bound_by="bytes",
         library_ms=None, library_call=None,
         shapes=f"E={E} P1={P1} bf16 plane {h}x{w}, K={K} -> fp32 [E,P1,K]")
 
@@ -469,12 +516,20 @@ def tiny_config() -> SLAMConfig:
         feat_dtype="float32", compute_dtype="float32")
 
 
-def phase_small_track(dev):
+def reset_k1_counts():
+    masked_corr_level0.launches = 0
+    masked_corr_level0.launches_bf16 = 0
+    masked_corr_level0.edges = 0
+
+
+def phase_small_track(dev, kernels: dict):
     cfg = tiny_config()
     sd = init_state_dict(cfg, SEED)
     frames = list(shifted_texture_frames(14, 64, 96, SEED + 3))
     runs = []
     for where in (dev, torch.device("cpu")):
+        if where == dev:
+            reset_k1_counts()
         slam = LGUSlam(sd, cfg, device=where)
         for t, img, intr in frames:
             slam.track(float(t), img, intrinsics=intr)
@@ -487,6 +542,17 @@ def phase_small_track(dev):
             warnings.simplefilter("ignore", UserWarning)
             traj = slam.terminate(stream=iter(frames), backend_steps=(2, 1))
         runs.append(track + (slam.video.poses[:n].cpu().clone(), traj))
+        if where == dev:
+            k1_fp32 = masked_corr_level0.launches
+            k1_bf16 = masked_corr_level0.launches_bf16
+            k1_edges = masked_corr_level0.edges
+    # the fp32 configuration runs K1's fp32-operand (SIMT) kernel only
+    check(k1_fp32 > 0 and k1_bf16 == 0,
+          f"tiny fp32 run: K1 launches {k1_fp32}, bf16 kernel {k1_bf16}")
+    kernels["masked_corr_level0"].update(
+        launches=k1_fp32, edges=k1_edges,
+        launches_path="phase 2: tiny fp32 track() + terminate() (SLAMConfig "
+                      "with fp32 dtypes); 0 at full width (bf16)")
     (n_c, ii_c, jj_c, p_c, b_c, x_c), (n_h, ii_h, jj_h, p_h, b_h, x_h) = runs
     check(n_c == n_h, f"keyframes: cuda {n_c} != cpu {n_h}")
     check(np.array_equal(ii_c, ii_h) and np.array_equal(jj_c, jj_h),
@@ -685,7 +751,7 @@ def phase_full_track(dev, kernels: dict):
     slam = LGUSlam(init_state_dict(cfg, SEED), cfg, device=dev)
     n_kf, n_gated = 24, 4
     frames = list(shifted_texture_frames(n_kf + n_gated, H, W, SEED + 1))
-    masked_corr_level0.launches = 0
+    reset_k1_counts()
     fused_pyramid_lookup.launches = 0
     window_lookup.launches = 0
     kf_ms, gated_ms, snap = [], [], {}
@@ -702,9 +768,10 @@ def phase_full_track(dev, kernels: dict):
             dt = 1e3 * (time.perf_counter() - t_start)
             (kf_ms if slam.video.counter > before else gated_ms).append(dt)
             if t in (cfg.warmup - 1, n_kf - 1):  # after initialise / update
-                snap[t] = (masked_corr_level0.launches,
+                snap[t] = (masked_corr_level0.launches_bf16,
                            fused_pyramid_lookup.launches)
-    k1, k2 = masked_corr_level0.launches, fused_pyramid_lookup.launches
+    k1, k2 = masked_corr_level0.launches_bf16, fused_pyramid_lookup.launches
+    k1_all, k1_edges = masked_corr_level0.launches, masked_corr_level0.edges
 
     n = slam.video.counter
     poses = slam.video.poses[:n]
@@ -716,16 +783,22 @@ def phase_full_track(dev, kernels: dict):
     check(slam.frontend.is_initialized, "the frontend never initialised")
     check(len(gated_ms) == n_gated, "the closed gate still took keyframes")
     check(k1 > 0 and k2 > 0, f"kernel launches K1={k1} K2={k2}")
+    # SLAMConfig() keeps bf16 features and computes the encoder in bf16:
+    # every K1 launch is the bf16-operand (wgmma) kernel
     check(k1 == calls.probes + calls.rebuilds,
-          f"K1 launches {k1} != probes {calls.probes} + rebuilds "
+          f"K1 bf16 launches {k1} != probes {calls.probes} + rebuilds "
           f"{calls.rebuilds}")
+    check(k1_all == k1, f"K1 fp32-operand launches {k1_all - k1} at full "
+          "width")
     check(k2 == calls.probes + calls.iterations,
           f"K2 launches {k2} != probes {calls.probes} + GRU iterations "
           f"{calls.iterations}")
     # per keyframe the initialised frontend took (probe included), and per
     # frame the closed gate turned away
     n_updates = n_kf - cfg.warmup
-    for i, name in enumerate(("masked_corr_level0", "fused_pyramid_lookup")):
+    kernels["masked_corr_level0_tc"]["edges_track"] = k1_edges
+    for i, name in enumerate(("masked_corr_level0_tc",
+                              "fused_pyramid_lookup")):
         steady = snap[n_kf - 1][i] - snap[cfg.warmup - 1][i]
         kernels[name].update(
             launches_track=(k1, k2)[i],
@@ -753,7 +826,7 @@ def phase_terminate(slam, frames, kernels: dict) -> dict:
     """terminate(stream) at full width on phase 3's system."""
     cfg = slam.cfg
     n = slam.video.counter
-    masked_corr_level0.launches = 0
+    reset_k1_counts()
     fused_pyramid_lookup.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -762,7 +835,8 @@ def phase_terminate(slam, frames, kernels: dict) -> dict:
         traj = slam.terminate(stream=iter(frames), backend_steps=(7, 12))
     torch.cuda.synchronize()
     ms_total = 1e3 * (time.perf_counter() - t_start)
-    k1, k2 = masked_corr_level0.launches, fused_pyramid_lookup.launches
+    k1, k2 = masked_corr_level0.launches_bf16, fused_pyramid_lookup.launches
+    k1_all, k1_edges = masked_corr_level0.launches, masked_corr_level0.edges
 
     check(traj.shape == (len(frames), 7), f"trajectory shape {traj.shape}")
     check(bool(np.isfinite(traj).all()), "non-finite trajectory")
@@ -779,12 +853,17 @@ def phase_terminate(slam, frames, kernels: dict) -> dict:
     check(k1 > 0 and k2 > 0, f"kernel launches K1={k1} K2={k2}")
     check(calls.probes == 0, "terminate() ran the motion filter")
     check(k1 == calls.rebuilds,
-          f"K1 launches {k1} != filler pyramid rebuilds {calls.rebuilds}")
+          f"K1 bf16 launches {k1} != filler pyramid rebuilds "
+          f"{calls.rebuilds}")
+    check(k1_all == k1, f"K1 fp32-operand launches {k1_all - k1} in "
+          "terminate()")
     check(k2 == backend_k2 + calls.iterations,
           f"K2 launches {k2} != backend sub-chunks {backend_k2} + filler "
           f"GRU iterations {calls.iterations}")
-    for name, k in (("masked_corr_level0", k1), ("fused_pyramid_lookup", k2)):
+    for name, k in (("masked_corr_level0_tc", k1),
+                    ("fused_pyramid_lookup", k2)):
         kernels[name]["launches_terminate"] = k
+    kernels["masked_corr_level0_tc"]["edges_terminate"] = k1_edges
     kernels["fused_pyramid_lookup"]["launches_per_backend_step"] = per_step
     report = dict(
         keyframes=n, frames=len(frames), backend_edges=[e for e, _ in
@@ -820,7 +899,7 @@ def phase_train(dev) -> dict:
     ii, jj = (torch.from_numpy(x).to(dev) for x in window_edges(N))
     Gs0 = torch.zeros(cfg.batch, N, 7, device=dev)
     disp0 = torch.zeros(cfg.batch, N, H // 8, W // 8, device=dev)
-    masked_corr_level0.launches = 0
+    reset_k1_counts()
     fused_pyramid_lookup.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -872,7 +951,7 @@ def main():
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     t_start = time.perf_counter()
     kernels = phase_kernels(dev)
-    phase_small_track(dev)
+    phase_small_track(dev, kernels)
     small_train = phase_small_train(dev)
     report, slam, frames = phase_full_track(dev, kernels)
     terminate = phase_terminate(slam, frames, kernels)

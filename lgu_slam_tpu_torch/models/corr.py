@@ -80,21 +80,31 @@ def fpn_offsets(ofs_map, ofs_residual, t: torch.Tensor):
 
 def build_corr_pyramid(ga_predict, ofs_map, ofs_residual, fmap1, fmap2,
                        volume_dtype=torch.float32,
-                       differentiable: bool = False) -> CorrPyramid:
-    """fmap1/fmap2: [E, H, W, 128] fp32 per-edge features.  Level 0 comes
-    from K1, or with ``differentiable`` from its plain version in fp32 (the
-    training forward)."""
+                       differentiable: bool = False,
+                       operand_dtype=torch.float32) -> CorrPyramid:
+    """fmap1/fmap2: [E, H, W, 128] per-edge features, fp32 or bf16.  The
+    offset heads and ``ga_predict`` take them widened to fp32.  Level 0
+    comes from K1 with its operands in ``operand_dtype`` (float32 or
+    bfloat16; the dtype picks K1's kernel), or with ``differentiable`` from
+    its plain version in fp32 (the training forward, which ignores
+    ``operand_dtype``).
+
+    Invariant: callers pass ``operand_dtype=torch.bfloat16`` only where the
+    features hold bf16 values already (the bf16 keyframe store, a bf16
+    encoder's output), never to round genuine fp32 values, so the narrowing
+    is lossless and the function computed is the fp32 one."""
     E, H, W, _ = fmap1.shape
     P = H * W
-    t = torch.cat([fmap1, fmap2], dim=-1)
+    t = torch.cat([fmap1.float(), fmap2.float()], dim=-1)
     off0, off1 = fpn_offsets(ofs_map, ofs_residual, t)
     mean, cov, det = ga_predict(t)
 
     if differentiable:
-        lvl0 = masked_corr_level0_plain(fmap1, fmap2, mean, cov,
-                                        out_dtype=torch.float32)
+        lvl0 = masked_corr_level0_plain(fmap1.float(), fmap2.float(), mean,
+                                        cov, out_dtype=torch.float32)
     else:
-        lvl0 = masked_corr_level0(fmap1.contiguous(), fmap2.contiguous(),
+        lvl0 = masked_corr_level0(fmap1.to(operand_dtype).contiguous(),
+                                  fmap2.to(operand_dtype).contiguous(),
                                   mean.contiguous(), cov.contiguous(),
                                   out_dtype=volume_dtype)
     levels = [lvl0]

@@ -80,14 +80,18 @@ class LGUNet(nn.Module):
         net, inp = x.split(128, dim=-1)
         return torch.tanh(net), torch.relu(inp)
 
-    def build_corr(self, fmap1, fmap2,
-                   differentiable: bool = False) -> CorrPyramid:
+    def build_corr(self, fmap1, fmap2, differentiable: bool = False,
+                   operand_dtype=torch.float32) -> CorrPyramid:
         """fmap1/2 [E, H, W, 128] -> the edges' correlation pyramid (with
-        ``differentiable``, the training forward's fp32 formulation)."""
+        ``differentiable``, the training forward's fp32 formulation).
+        ``operand_dtype`` is the dtype of K1's operands: bfloat16 only where
+        the features hold bf16 values already
+        (:func:`~lgu_slam_tpu_torch.models.corr.build_corr_pyramid`)."""
         return build_corr_pyramid(self.GA.predict, self.ofsMap,
                                   self.ofs_residual, fmap1, fmap2,
                                   volume_dtype=self.volume_dtype,
-                                  differentiable=differentiable)
+                                  differentiable=differentiable,
+                                  operand_dtype=operand_dtype)
 
     def lookup(self, pyr: CorrPyramid, coords: torch.Tensor,
                differentiable: bool = False) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Level 0 of the correlation pyramid: all-pairs correlation with the fused
-Gaussian-uncertainty re-weighting (kernel K1, ``csrc/masked_corr.cu``).
+Gaussian-uncertainty re-weighting (kernel K1).
 
 Replaces the Pallas kernel ``masked_corr_level0`` of the JAX package's
 ``ops/pallas_corr.py``.  Per edge e, source pixel p and target pixel q::
@@ -10,11 +10,20 @@ Replaces the Pallas kernel ``masked_corr_level0`` of the JAX package's
 inside the 9x9 window around floor(mean[e, p]) (dx, dy from the unfloored
 mean), ``out = corr`` outside, written as [E, P, P] in ``out_dtype``.
 
-:func:`masked_corr_level0` launches the kernel on a CUDA tensor and runs
+:func:`masked_corr_level0` launches a kernel on a CUDA tensor and runs
 :func:`masked_corr_level0_plain` on a CPU tensor; any other device raises.
-The training forward calls the plain version itself, in fp32 on every
-device, and autograd differentiates it (``models/corr.py``): the kernel has
-no backward, as in the JAX package.
+On the card it dispatches on the operands' dtype, both the same:
+
+- bfloat16 -> ``csrc/masked_corr_tc.cu``, wgmma on the tensor cores with
+  fp32 accumulation.  The product of two bf16 values is exact in fp32, so
+  this is the fp32 function up to the order of summation.  Callers pass
+  bf16 only where the values are bf16 already (``models/corr.py``).
+- float32 -> ``csrc/masked_corr.cu``, an SIMT fp32 kernel.
+
+Any other operand dtype raises; a failed build or launch raises and never
+reroutes.  The training forward calls the plain version itself, in fp32 on
+every device, and autograd differentiates it (``models/corr.py``): the
+kernels have no backward, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -28,12 +37,14 @@ from lgu_slam_tpu_torch.ops.sampler import gaussian_window_mask
 
 TWO_PI = 6.28  # the reference's literal (gaussianMask_cuda.py:85)
 EDGE_CHUNK = 8  # edges per step of the plain version (bounds fp32 transients)
+TC_CHANNELS = 128  # the bf16 kernel's channel count (one smem stage)
 
 
 def masked_corr_level0_plain(fmap1, fmap2, mean, cov, radius: int = 4,
                              out_dtype=torch.bfloat16):
-    """Plain PyTorch version.  fmap1/fmap2 [E, H, W, C], mean/cov
-    [E, H, W, 2] -> [E, P, P] in ``out_dtype``."""
+    """Plain PyTorch version.  fmap1/fmap2 [E, H, W, C] (fp32 or bf16,
+    widened to fp32), mean/cov [E, H, W, 2] -> [E, P, P] in
+    ``out_dtype``."""
     E, H, W, C = fmap1.shape
     P = H * W
     out = torch.empty(E, P, P, dtype=out_dtype, device=fmap1.device)
@@ -50,38 +61,60 @@ def masked_corr_level0_plain(fmap1, fmap2, mean, cov, radius: int = 4,
     return out
 
 
+OPERAND_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_operands(fmap1, fmap2):
+    if fmap1.dtype != fmap2.dtype or fmap1.dtype not in OPERAND_DTYPES:
+        raise ValueError(f"masked_corr_level0: the operands must both be "
+                         f"float32 or both bfloat16, got {fmap1.dtype} and "
+                         f"{fmap2.dtype}")
+
+
 def _launch(fmap1, fmap2, mean, cov, radius, out_dtype):
     E, H, W, C = fmap1.shape
     P = H * W
     dev = fmap1.device
-    for name, t, shape in (("fmap1", fmap1, (E, H, W, C)),
-                           ("fmap2", fmap2, (E, H, W, C)),
-                           ("mean", mean, (E, H, W, 2)),
-                           ("cov", cov, (E, H, W, 2))):
-        if t.device != dev or t.dtype != torch.float32:
-            raise ValueError(f"masked_corr_level0: {name} must be float32 on "
+    bf16 = fmap1.dtype == torch.bfloat16
+    for name, t, shape, dt in (("fmap1", fmap1, (E, H, W, C), fmap1.dtype),
+                               ("fmap2", fmap2, (E, H, W, C), fmap1.dtype),
+                               ("mean", mean, (E, H, W, 2), torch.float32),
+                               ("cov", cov, (E, H, W, 2), torch.float32)):
+        if t.device != dev or t.dtype != dt:
+            raise ValueError(f"masked_corr_level0: {name} must be {dt} on "
                              f"{dev}, got {t.dtype} on {t.device}")
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"masked_corr_level0: {name} must be a "
                              f"contiguous {shape}, got {tuple(t.shape)}")
+    if bf16 and C != TC_CHANNELS:
+        raise ValueError(f"masked_corr_level0: the bf16 kernel takes "
+                         f"{TC_CHANNELS} channels, got {C}")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"masked_corr_level0: out_dtype {out_dtype} "
                          "is neither float32 nor bfloat16")
     out = torch.empty(E, P, P, dtype=out_dtype, device=dev)
     if E == 0:
         return out
-    lib = _build.load("masked_corr")
-    fn = lib.masked_corr_level0
+    if bf16:
+        lib = _build.load("masked_corr_tc")
+        fn = lib.masked_corr_level0_tc
+        args = (E, H, W, radius)
+    else:
+        lib = _build.load("masked_corr")
+        fn = lib.masked_corr_level0
+        args = (E, H, W, C, radius)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * (len(args) + 1) \
         + [ctypes.c_void_p]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(fmap1.data_ptr(), fmap2.data_ptr(), mean.data_ptr(),
-                    cov.data_ptr(), out.data_ptr(), E, H, W, C, radius,
+                    cov.data_ptr(), out.data_ptr(), *args,
                     int(out_dtype == torch.bfloat16), stream)
     _build.check(status, "masked_corr_level0")
     masked_corr_level0.launches += 1
+    masked_corr_level0.launches_bf16 += int(bf16)
+    masked_corr_level0.edges += E
     return out
 
 
@@ -89,8 +122,10 @@ def masked_corr_level0(fmap1, fmap2, mean, cov, radius: int = 4,
                        out_dtype=torch.bfloat16):
     """Masked level-0 volume [E, P, P] in ``out_dtype`` (fp32 or bf16).
 
-    On CUDA the inputs must be contiguous float32 (the frontend's bf16
-    video features are widened by the caller, as in the JAX kernel)."""
+    fmap1/fmap2 are both float32 or both bfloat16; on CUDA they, mean and
+    cov (float32) must be contiguous, and bf16 operands have 128
+    channels."""
+    _check_operands(fmap1, fmap2)
     if fmap1.device.type == "cpu":
         return masked_corr_level0_plain(fmap1, fmap2, mean, cov, radius,
                                         out_dtype)
@@ -100,4 +135,8 @@ def masked_corr_level0(fmap1, fmap2, mean, cov, radius: int = 4,
     return _launch(fmap1, fmap2, mean, cov, radius, out_dtype)
 
 
-masked_corr_level0.launches = 0  # kernel launches, counted by _launch
+# counted by _launch: kernel launches (both kernels), those of the bf16
+# kernel, and the edges over all launches
+masked_corr_level0.launches = 0
+masked_corr_level0.launches_bf16 = 0
+masked_corr_level0.edges = 0

@@ -197,14 +197,15 @@ class FactorGraph:
 
     def _build_pyramid(self):
         """Correlation pyramids of all edges from the cached video features
-        (stereo self-edges read the right camera)."""
+        (stereo self-edges read the right camera).  K1 gets the features in
+        the store's dtype: bf16 values stay bf16 (``feat_dtype``)."""
         fmaps = self.video.fmaps
         rig = fmaps.shape[1]
         cam = np.minimum((self.ii == self.jj).astype(np.int64), rig - 1)
         ii, jj = self._index(self.ii), self._index(self.jj)
-        f1 = fmaps[ii, 0].float()
-        f2 = fmaps[jj, self._index(cam)].float()
-        self.pyramid = self.net.build_corr(f1, f2)
+        f1 = fmaps[ii, 0]
+        f2 = fmaps[jj, self._index(cam)]
+        self.pyramid = self.net.build_corr(f1, f2, operand_dtype=fmaps.dtype)
         self._pyr_dirty = False
 
     def _build_fmap_pyramid(self):

@@ -32,6 +32,11 @@ class MotionFilter:
         self.device = video.device
         self.thresh = cfg.filter_thresh
         self.cfg = cfg
+        # K1's operand dtype for the probe: the encoder's output is bf16
+        # values (widened) when it computes in bf16, so bf16 is lossless
+        self.corr_dtype = (torch.bfloat16
+                           if cfg.compute_dtype == "bfloat16"
+                           else torch.float32)
         self.count = 0
         self.fmap = None  # fp32 features of the last keyframe
         self.hidden = None  # its context: GRU hidden seed and input
@@ -43,7 +48,8 @@ class MotionFilter:
 
     def _flow_probe(self, gmap: torch.Tensor) -> torch.Tensor:
         """1-edge correlation + 1 GRU iteration: mean |delta| (device)."""
-        pyr = self.net.build_corr(self.fmap[None], gmap[None])
+        pyr = self.net.build_corr(self.fmap[None], gmap[None],
+                                  operand_dtype=self.corr_dtype)
         h, w = gmap.shape[:2]
         coords0 = coords_grid(h, w, device=self.device)[None]
         corr = self.net.lookup(pyr, coords0)

@@ -16,6 +16,7 @@ from lgu_slam_tpu_torch.ops.sampler import sample_taps_flat
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12  # tensor cores
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -39,9 +40,9 @@ def bytes_ms(nbytes: float) -> float:
     return 1e3 * nbytes / HBM_BYTES_PER_S
 
 
-def distinct_corners(px, py, h, w) -> int:
-    """The plane elements that the bilinear taps px/py [E, P1, K] read, each
-    (edge, pixel) on its own plane [h, w]: in-bounds corners counted once."""
+def _corner_index(px, py, h, w):
+    """Flat plane index of each in-bounds bilinear corner of the taps
+    px/py [E, P1, K], -1 for the others: [E, P1, 4K]."""
     x1, y1 = torch.floor(px), torch.floor(py)
     live = (x1 >= 0) & (x1 < w) & (y1 >= 0) & (y1 < h)
     idx = []
@@ -50,28 +51,56 @@ def distinct_corners(px, py, h, w) -> int:
             ok = live & (x1 + dx < w) & (y1 + dy < h)
             flat = torch.where(ok, (y1 + dy) * w + x1 + dx, -1.0).long()
             idx.append(flat)
-    idx = torch.sort(torch.cat(idx, -1), dim=-1).values
+    return torch.cat(idx, -1)
+
+
+def _distinct(idx) -> int:
+    """Distinct non-negative entries along the last axis, summed."""
+    idx = torch.sort(idx, dim=-1).values
     distinct = (idx[..., 1:] != idx[..., :-1]) & (idx[..., 1:] >= 0)
     return int(distinct.sum()) + int((idx[..., 0] >= 0).sum())
 
 
-def lookup_bytes(levels, cflat, off0, off1, H, W) -> int:
+def distinct_corners(px, py, h, w) -> int:
+    """The plane elements that the bilinear taps px/py [E, P1, K] read, each
+    (edge, pixel) on its own plane [h, w]: in-bounds corners counted once."""
+    return _distinct(_corner_index(px, py, h, w))
+
+
+def distinct_sectors(px, py, h, w, elem_size: int) -> int:
+    """The 32-byte sectors that the bilinear taps px/py [E, P1, K] read,
+    each (edge, pixel) on its own plane [h, w] of the flat [E, P1, h*w]
+    array with ``elem_size``-byte elements; a sector is counted once per
+    plane (the planes of the tracking shapes span whole sectors)."""
+    idx = _corner_index(px, py, h, w)
+    E, P1 = px.shape[:2]
+    base = torch.arange(E * P1, device=px.device).reshape(E, P1, 1) * (h * w)
+    return _distinct(torch.where(idx >= 0, (base + idx) * elem_size // 32,
+                                 -1))
+
+
+def lookup_bytes(levels, cflat, off0, off1, H, W,
+                 sectors: bool = False) -> int:
     """Bytes K2 must move for these inputs: the distinct in-bounds bilinear
-    corners per (edge, pixel, level), probe included, the coordinates and
-    offsets read once and the output written once."""
+    corners per (edge, pixel, level), probe included, or with ``sectors``
+    the distinct 32-byte sectors that hold them (the DRAM's access
+    granule), the coordinates and offsets read once and the output written
+    once."""
     dims = level_dims(H, W)
     h1, w1 = dims[1]
     probe = tap_positions(cflat / 2.0, None, 1)
     gate = torch.sigmoid(torch.var(
         sample_taps_flat(levels[1], h1, w1, *probe), dim=-1))
     offs = (off0, off1 * gate[..., None, None, None], None, None)
-    corners = 0
+    esize = levels[0].element_size()
+    plane_bytes = 0
     for lvl, (h, w) in enumerate(dims):
         px, py = tap_positions(cflat / 2.0 ** lvl, offs[lvl], RADIUS)
         if lvl == 1:
             px = torch.cat([px, probe[0]], -1)
             py = torch.cat([py, probe[1]], -1)
-        corners += distinct_corners(px, py, h, w)
+        plane_bytes += (32 * distinct_sectors(px, py, h, w, esize) if sectors
+                        else esize * distinct_corners(px, py, h, w))
     E, P1 = cflat.shape[:2]
-    return (corners * levels[0].element_size() + cflat.numel() * 4
-            + off0.numel() * 4 + off1.numel() * 4 + E * P1 * 4 * RD * RD * 4)
+    return (plane_bytes + cflat.numel() * 4 + off0.numel() * 4
+            + off1.numel() * 4 + E * P1 * 4 * RD * RD * 4)

@@ -63,6 +63,73 @@ def test_masked_corr_kernel(cuda_device, ehw):
     assert ((out - ref).abs() / (ref.abs() + 1)).max().item() < 0.02
 
 
+def edge_inputs(gen, E, H, W, dev):
+    """bf16 features; every mean on a window's edge case: a third on an
+    integer, a third just below one (floor's edges), the rest anywhere,
+    scattered +-3 pixels so that windows cross the kernel's 128-pixel
+    tiles; covariances up to 20, so that the Gaussian is felt at the
+    window's edge."""
+    f1 = torch.randn(E, H, W, 128, generator=gen).bfloat16()
+    f2 = torch.randn(E, H, W, 128, generator=gen).bfloat16()
+    grid = torch.stack(torch.meshgrid(torch.arange(W), torch.arange(H),
+                                      indexing="xy"), -1).float()
+    mean = grid + 3.0 * torch.randn(E, H, W, 2, generator=gen)
+    pick = torch.randint(0, 3, (E, H, W, 1), generator=gen)
+    mean = torch.where(pick == 0, torch.round(mean), mean)
+    mean = torch.where(pick == 1, torch.floor(mean) + 0.999, mean)
+    cov = 0.05 + 20.0 * torch.rand(E, H, W, 2, generator=gen) ** 2
+    return [x.to(dev) for x in (f1, f2, mean, cov)]
+
+
+@pytest.mark.parametrize("ehw", [(3, 30, 40), (2, 7, 9), (4, 48, 64)])
+def test_masked_corr_bf16_operand_kernel(cuda_device, ehw):
+    """The wgmma kernel (bf16 operands) against the plain version, which
+    widens them: fp32 out within the SIMT kernel's atol 2e-4 / rtol 1e-4
+    (the same function, summed in another order), bf16 out within one bf16
+    step; it counts a launch, a bf16 launch and E edges."""
+    args = edge_inputs(torch.Generator().manual_seed(1), *ehw, cuda_device)
+    k1 = masked_corr_level0
+    before = (k1.launches, k1.launches_bf16, k1.edges)
+    out = k1(*args, out_dtype=torch.float32)
+    ref = masked_corr_level0_plain(*args, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert (k1.launches, k1.launches_bf16, k1.edges) == (
+        before[0] + 1, before[1] + 1, before[2] + ehw[0])
+    torch.testing.assert_close(out, ref, atol=2e-4, rtol=1e-4)
+    out = k1(*args, out_dtype=torch.bfloat16).float()
+    ref = masked_corr_level0_plain(*args, out_dtype=torch.bfloat16).float()
+    assert ((out - ref).abs() / (ref.abs() + 1)).max().item() < 0.02
+
+
+def test_masked_corr_dispatch_counts(cuda_device):
+    """fp32 operands launch the SIMT kernel: launches and edges advance,
+    launches_bf16 does not."""
+    args = corr_inputs(torch.Generator().manual_seed(3), 2, 4, 6,
+                       cuda_device)
+    k1 = masked_corr_level0
+    before = (k1.launches, k1.launches_bf16, k1.edges)
+    k1(*args)
+    assert (k1.launches, k1.launches_bf16, k1.edges) == (
+        before[0] + 1, before[1], before[2] + 2)
+
+
+def test_masked_corr_bf16_kernel_rejects_bad_inputs(cuda_device):
+    f1, f2, mean, cov = edge_inputs(torch.Generator().manual_seed(4), 1, 4,
+                                    6, cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        masked_corr_level0(f1.transpose(1, 2).contiguous().transpose(1, 2),
+                           f2, mean, cov)
+    with pytest.raises(ValueError, match="contiguous"):
+        masked_corr_level0(f1, f2[:, :, :5], mean, cov)
+    with pytest.raises(ValueError, match="128 channels"):
+        masked_corr_level0(f1[..., :64].contiguous(),
+                           f2[..., :64].contiguous(), mean, cov)
+    with pytest.raises(ValueError, match="float32"):
+        masked_corr_level0(f1, f2, mean.bfloat16(), cov)
+    with pytest.raises(ValueError, match="both be float32 or both"):
+        masked_corr_level0(f1, f2.float(), mean, cov)
+
+
 @pytest.mark.parametrize("ehw", [(2, 12, 24), (1, 13, 17), (2, 48, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pyramid_lookup_kernel(cuda_device, ehw, dtype):

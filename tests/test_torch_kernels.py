@@ -3,7 +3,9 @@ sampling pieces they are built from, against the JAX package.
 
 - K1: ``masked_corr_level0_plain`` against the Pallas kernel
   ``masked_corr_level0`` in interpret mode (tests/test_pallas.py's sizes,
-  plus a plane whose size is no multiple of any tile).
+  plus a plane whose size is no multiple of any tile), with fp32 operands
+  and with bf16 operands holding bf16-exact values; the wrapper's operand
+  dtype rules.
 - K2: ``fused_pyramid_lookup_plain`` against the Pallas kernel
   ``fused_pyramid_lookup`` in interpret mode over ``pack_pyramid`` levels,
   at tests/test_pallas.py's geometries (16 x 16, and 12 x 24 whose halving
@@ -73,6 +75,57 @@ def test_masked_corr_plain_matches_pallas_bf16(rng):
     assert out.dtype == torch.bfloat16
     rel = np.abs(out.float().numpy() - ref) / (np.abs(ref) + 1.0)
     assert rel.max() < 0.02
+
+
+def test_masked_corr_plain_bf16_operands_equal_widened(rng):
+    """The plain version widens bf16 operands: its result on them is its
+    result on their ``.float()``, bit for bit, for both output dtypes."""
+    f1, f2, mean, cov = map(t, corr_inputs(rng, 2, 5, 7))
+    b1, b2 = f1.to(torch.bfloat16), f2.to(torch.bfloat16)
+    for dt in (torch.float32, torch.bfloat16):
+        out = tcorr.masked_corr_level0_plain(b1, b2, mean, cov, out_dtype=dt)
+        ref = tcorr.masked_corr_level0_plain(b1.float(), b2.float(), mean,
+                                             cov, out_dtype=dt)
+        assert out.dtype == dt and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("ehw", [(2, 8, 16), (2, 5, 7)])
+def test_masked_corr_bf16_operands_match_pallas(rng, ehw):
+    """bf16 operands holding bf16-exact values against the Pallas kernel
+    on the same values in fp32, fp32 out: the fp32 test's tolerances."""
+    f1, f2, mean, cov = corr_inputs(rng, *ehw)
+    f1, f2 = (t(x).to(torch.bfloat16) for x in (f1, f2))
+    ref = jcorr.masked_corr_level0(
+        *map(jnp.asarray, (f1.float().numpy(), f2.float().numpy(), mean,
+                           cov)),
+        out_dtype=jnp.float32, interpret=True, flat=True)
+    out = tcorr.masked_corr_level0(f1, f2, t(mean), t(cov),
+                                   out_dtype=torch.float32)
+    close(out, ref, atol=2e-4, rtol=1e-4)
+
+
+def test_masked_corr_cpu_bf16_counts_no_launch(rng):
+    """bf16 CPU tensors run the plain version and advance none of the
+    wrapper's counters."""
+    f1, f2, mean, cov = map(t, corr_inputs(rng, 2, 4, 6))
+    b1, b2 = f1.to(torch.bfloat16), f2.to(torch.bfloat16)
+    k1 = tcorr.masked_corr_level0
+    before = (k1.launches, k1.launches_bf16, k1.edges)
+    out = k1(b1, b2, mean, cov)
+    assert torch.equal(out, tcorr.masked_corr_level0_plain(b1, b2, mean,
+                                                           cov))
+    assert (k1.launches, k1.launches_bf16, k1.edges) == before
+
+
+@pytest.mark.parametrize("dtypes", [
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float16, torch.float16), (torch.float64, torch.float64)])
+def test_masked_corr_rejects_operand_dtypes(rng, dtypes):
+    """Mixed, fp16 or fp64 operands raise on every device."""
+    f1, f2, mean, cov = map(t, corr_inputs(rng, 1, 4, 6))
+    with pytest.raises(ValueError, match="both be float32 or both bfloat16"):
+        tcorr.masked_corr_level0(f1.to(dtypes[0]), f2.to(dtypes[1]), mean,
+                                 cov)
 
 
 def test_gaussian_window_mask(rng):
@@ -332,3 +385,37 @@ def test_wrappers_dispatch_by_device(rng):
         trow.row_gather(torch.zeros(1, 2, 3, 4, device="meta"),
                         torch.zeros(1, 2, 4, dtype=torch.int32,
                                     device="meta"))
+
+
+def test_distinct_sectors_counts_32_byte_granules(rng):
+    """K2's sector count (utils/measure.py) against a numpy statement: the
+    distinct 32-byte sectors of the flat [E, P1, h*w] array that the
+    in-bounds bilinear corners of each (edge, pixel)'s taps fall in."""
+    from lgu_slam_tpu_torch.utils.measure import (
+        distinct_corners,
+        distinct_sectors,
+    )
+
+    E, P1, K, h, w = 2, 3, 5, 6, 16
+    px = rng.random(size=(E, P1, K)).astype(np.float32) * 20 - 2
+    py = rng.random(size=(E, P1, K)).astype(np.float32) * 8 - 1
+    for esize in (2, 4):
+        want = 0
+        corners = 0
+        for e in range(E):
+            for p in range(P1):
+                base = (e * P1 + p) * h * w
+                seen, cells = set(), set()
+                for x, y in zip(np.floor(px[e, p]), np.floor(py[e, p])):
+                    if not (0 <= x < w and 0 <= y < h):
+                        continue
+                    for dy in (0, 1):
+                        for dx in (0, 1):
+                            if x + dx < w and y + dy < h:
+                                i = int((y + dy) * w + x + dx)
+                                cells.add(i)
+                                seen.add((base + i) * esize // 32)
+                want += len(seen)
+                corners += len(cells)
+        assert distinct_sectors(t(px), t(py), h, w, esize) == want
+        assert distinct_corners(t(px), t(py), h, w) == corners
