@@ -3,17 +3,20 @@
 
     python3 chip_smoke.py
 
-Five phases; any failure exits non-zero.
+Six phases; any failure exits non-zero.
 
 1. Build the CUDA kernels from ``lgu_slam_tpu_torch/csrc`` with nvcc for
    sm_90a, all at once (printing ptxas' register/shared-memory summary),
    and hold each kernel against its plain PyTorch version on the card: K1
-   (both kernels: fp32 operands on the SIMT kernel, bf16 operands on the
-   wgmma kernel; fp32 and bf16 volumes) and K2 at the tracking shapes
-   (E = 48 edges, 48 x 64 feature maps) and at odd geometries, K1 with
-   windows across tile edges, K2 with out-of-bounds coordinates and offsets
-   beyond the +-4 clip (and its corner and 32-byte-sector bounds at E = 48
-   and at the backend's sub-chunk); K3/K4 (``window_lookup``) at E = 48,
+   (both kernels: fp32 operands on the 3xTF32 wgmma kernel, on features
+   holding bf16 values and on full-mantissa fp32 features; bf16 operands on
+   the bf16 wgmma kernel; fp32 and bf16 volumes) at the tracking shapes
+   (E = 48 edges, 48 x 64 feature maps) and at odd geometries, with windows
+   across tile edges; K2 at odd geometries and at E = 1, 2, 8, 24 and 48
+   (the motion filter's probe, backend sub-chunks, the frontend's mean, the
+   TPU probes' shape), with out-of-bounds coordinates and offsets beyond the
+   +-4 clip, timed at each E beside its corner and 32-byte-sector bounds;
+   K3/K4 (``window_lookup``) at E = 48,
    P1 = 3072 on bf16 planes of 48 x 64, 24 x 32 (49 taps, and the 9-tap
    probe), 12 x 16, 6 x 8 and 13 x 17, with out-of-bounds and NaN
    positions; K5 (``row_gather``) and K6 (``k2_stream_floor``,
@@ -27,14 +30,16 @@ Five phases; any failure exits non-zero.
    keyframe poses and the filled trajectories; then one train step at
    64 x 96 (batch 1, 3 frames, 3 iterations) on both devices from one state
    dict: the loss, every metric, every gradient and the weights after the
-   optimizer step.  The fp32 configuration launches K1's SIMT kernel only.
+   optimizer step.  The fp32 configuration launches K1's fp32-operand
+   (3xTF32) kernel only.
 3. Run ``LGUSlam.track`` at the full width of the default ``SLAMConfig()``
    (384 x 512 images, bf16 volumes/features/convs) on synthetic frames with
    random weights, thresholds 0 so that every frame is a keyframe and the
    frontend runs, then a few frames with the keyframe gate closed.  The
    kernels' launch counters must match the probes, pyramid rebuilds and
    GRU iterations the run made; every K1 launch is the bf16-operand
-   kernel (bf16 keyframe store, bf16 encoder).
+   kernel (bf16 keyframe store, bf16 encoder).  K2's launches are reported
+   per edge count.
 4. Run ``terminate(stream)`` on phase 3's system (backend passes of 7 and
    12 steps over its 24 keyframes, then the trajectory filled for the 28
    frames).  K2's launches must equal the backend's correlation
@@ -45,10 +50,16 @@ Five phases; any failure exits non-zero.
    clips for 3 steps: the loss, the metrics, every gradient and the weights
    stay finite, the weights move, and neither K1 nor K2 launches (the
    training forward is the differentiable formulation).
+6. Run ``LGUSlam.track`` at full width in the fp32 configuration (the JAX
+   package's evaluation dtypes: fp32 volumes, features and convolutions),
+   10 keyframes with thresholds 0: every K1 launch is the fp32-operand
+   kernel (probes + pyramid rebuilds), K2's launches are probes + GRU
+   iterations; the median ms per keyframe update and the peak memory.
 
-Before the last line it prints the card's name and power limit, one JSON
-line with each kernel's error, time, bound and launches, and the tracking,
-terminate and training reports and the run's wall time.  The last line is ``{"ok": true, "device": {...}}``.
+Before the last line it prints the tracking, terminate, training and fp32
+tracking reports, the run's wall time, the card's name and power limit, and
+one JSON line with each kernel's error, time, bound and launches.  The last
+line is ``{"ok": true, "device": {...}}``.
 Data and weights come from fixed seeds; nothing needs the network.
 """
 
@@ -104,19 +115,29 @@ from lgu_slam_tpu_torch.utils.device import use_full_fp32
 from lgu_slam_tpu_torch.utils.measure import (
     BF16_FLOP_PER_S,
     FP32_FLOP_PER_S,
+    TF32_FLOP_PER_S,
     bytes_ms,
     cuda_ms,
     distinct_corners,
+    graph_ms,
     lookup_bytes,
 )
 from lgu_slam_tpu_torch.utils.synthetic import shifted_texture_frames
 
 SEED = 0
-KERNELS = ("masked_corr", "masked_corr_tc", "pyramid_lookup",
+KERNELS = ("masked_corr_tf32", "masked_corr_tc", "pyramid_lookup",
            "window_lookup", "row_gather", "k2_stream")
+# K1's two kernels: (name, source, operand dtype)
+K1_KERNELS = (
+    ("masked_corr_level0_tf32", "masked_corr_tf32.cu", torch.float32),
+    ("masked_corr_level0_tc", "masked_corr_tc.cu", torch.bfloat16))
 PROBES = Path(__file__).resolve().parent / "scripts" / \
     "profile_torch_k2_parts.py"
 MAIN_E, MAIN_H, MAIN_W = 48, 48, 64  # frontend graph at 384 x 512
+# K2's edge counts: the motion filter's probe, the backend's last sub-chunk
+# of a chunk (phase 4 launches 223 of its 539 at E = 2) and a whole one,
+# the frontend's mean, the TPU probes' shape
+K2_EDGES = (1, 2, SLAMConfig().backend_sub_chunk, 24, MAIN_E)
 # K3/K4 cases: (TPU kernel, its file:line, plane h x w, radius, max offset)
 WINDOW_CASES = (
     ("window_lookup_packed", "lgu_slam_tpu/ops/pallas_lookup.py:172", 48,
@@ -146,14 +167,19 @@ def check(cond: bool, msg: str):
 
 # -- phase 1: kernels against their plain versions ---------------------------
 
-def corr_inputs(gen, E, H, W, dev):
+def corr_inputs(gen, E, H, W, dev, full_mantissa=False):
     """fp32 features holding bf16 values (so that both K1 kernels see the
-    same numbers); means scattered around each pixel, a third of them on an
-    integer and a third just below one (floor's edges), so that windows
-    cross tile edges at every offset; covariances from 0.05 (a sharp
-    Gaussian) to 20 (one felt at the window's edge)."""
-    f1 = torch.randn(E, H, W, 128, generator=gen).bfloat16().float().to(dev)
-    f2 = torch.randn(E, H, W, 128, generator=gen).bfloat16().float().to(dev)
+    same numbers), or with ``full_mantissa`` all 24 bits (so that the lo
+    terms of the 3xTF32 kernel are exercised); means scattered around each
+    pixel, a third of them on an integer and a third just below one
+    (floor's edges), so that windows cross tile edges at every offset;
+    covariances from 0.05 (a sharp Gaussian) to 20 (one felt at the
+    window's edge)."""
+    f1 = torch.randn(E, H, W, 128, generator=gen)
+    f2 = torch.randn(E, H, W, 128, generator=gen)
+    if not full_mantissa:
+        f1, f2 = f1.bfloat16().float(), f2.bfloat16().float()
+    f1, f2 = f1.to(dev), f2.to(dev)
     grid = torch.stack(torch.meshgrid(torch.arange(W), torch.arange(H),
                                       indexing="xy"), -1).float()
     mean = grid + 3.0 * torch.randn(E, H, W, 2, generator=gen)
@@ -200,35 +226,40 @@ def k1_check(args, tag):
 def k1_cases(gen, dev) -> dict:
     """Both K1 kernels against the plain version at odd geometries (ragged
     last tiles; 7 x 9 rows of no multiple of 16 bytes) and at the tracking
-    shapes, then timed at the tracking shapes beside their bounds and one
-    torch.bmm of the same operands (the product alone)."""
+    shapes, the fp32-operand kernel on bf16-valued and on full-mantissa
+    features; then each timed at the tracking shapes (bf16 and fp32
+    volumes) beside its bounds and one torch.bmm of the same operands (the
+    product alone, fp32 without TF32), and at the probe's E = 1."""
     for E, H, W in ((3, 30, 40), (2, 7, 9), (1, 48, 64)):
         f1, f2, mean, cov = corr_inputs(gen, E, H, W, dev)
         k1_check((f1, f2, mean, cov), f"fp32 operands {E}x{H}x{W}")
         k1_check((f1.bfloat16(), f2.bfloat16(), mean, cov),
                  f"bf16 operands {E}x{H}x{W}")
-    f1, f2, mean, cov = corr_inputs(gen, MAIN_E, MAIN_H, MAIN_W, dev)
+        k1_check(corr_inputs(gen, E, H, W, dev, full_mantissa=True),
+                 f"full-mantissa fp32 operands {E}x{H}x{W}")
+    f1, f2, mean, cov = corr_inputs(gen, MAIN_E, MAIN_H, MAIN_W, dev,
+                                    full_mantissa=True)
+    k1_check((f1.bfloat16().float(), f2.bfloat16().float(), mean, cov),
+             "bf16-valued fp32 operands main shapes")
     out = {}
-    for name, source, dt, flop_rate in (
-            ("masked_corr_level0", "masked_corr.cu", torch.float32,
-             FP32_FLOP_PER_S),
-            ("masked_corr_level0_tc", "masked_corr_tc.cu", torch.bfloat16,
-             BF16_FLOP_PER_S)):
+    for name, source, dt in K1_KERNELS:
         args = (f1.to(dt), f2.to(dt), mean, cov)
         err, err32 = k1_check(args, f"{dt} operands main shapes")
         ms = cuda_ms(lambda: masked_corr_level0(*args,
                                                 out_dtype=torch.bfloat16))
+        ms32 = cuda_ms(lambda: masked_corr_level0(*args,
+                                                  out_dtype=torch.float32))
         plain_ms = cuda_ms(lambda: masked_corr_level0_plain(
             *args, out_dtype=torch.bfloat16), reps=3, warmup=1)
         a = (args[0] / 4.0).reshape(MAIN_E, -1, 128)
         b = (args[1] / 4.0).reshape(MAIN_E, -1, 128).transpose(1, 2)
         library_ms = cuda_ms(lambda: torch.bmm(a, b))
         del a, b
-        # the motion filter's probe: one edge
+        # the motion filter's probe: one edge, timed on the device alone
         probe = tuple(x[:1] for x in args)
-        probe_ms = cuda_ms(lambda: masked_corr_level0(
-            *probe, out_dtype=torch.bfloat16), reps=50)
-        bound, bound_by = k1_bound(MAIN_E, dt, flop_rate)
+        probe_ms = graph_ms(lambda: masked_corr_level0(
+            *probe, out_dtype=torch.bfloat16))
+        bound, bound_by = k1_bound(MAIN_E, dt)
         operands = str(dt).replace("torch.", "")
         out[name] = dict(
             name=name, route="cuda",
@@ -238,23 +269,34 @@ def k1_cases(gen, dev) -> dict:
             ms=ms, plain_ms=plain_ms,
             bound_ms=bound, bound_by=bound_by, library_ms=library_ms,
             library_call=f"torch.bmm of the {operands} operands (product "
-                         "only)",
-            shapes=f"E={MAIN_E} {MAIN_H}x{MAIN_W} C=128 {operands} -> bf16",
-            probe_ms=probe_ms, probe_bound_ms=k1_bound(1, dt, flop_rate)[0])
+                         "only; fp32 without TF32)",
+            ms_fp32_out=ms32,
+            bound_ms_fp32_out=k1_bound(MAIN_E, dt, torch.float32)[0],
+            shapes=f"E={MAIN_E} {MAIN_H}x{MAIN_W} C=128 {operands} -> bf16 "
+                   "(full-mantissa features)",
+            probe_ms=probe_ms, probe_bound_ms=k1_bound(1, dt)[0])
+        if dt == torch.float32:
+            # the fp32 SIMT rate: the bound of the earlier kernel
+            out[name]["simt_bound_ms"] = \
+                1e3 * 2 * MAIN_E * (MAIN_H * MAIN_W) ** 2 * 128 \
+                / FP32_FLOP_PER_S
         del args, probe
     return out
 
 
-def k1_bound(E, dt, flop_rate):
-    """K1's bound at E edges of the tracking shapes into a bf16 volume:
-    the larger of its bytes (operands and mean/cov read once, the volume
-    written once) over HBM's rate and its operations over the operand
-    type's peak."""
+def k1_bound(E, dt, out_dt=torch.bfloat16):
+    """K1's bound at E edges of the tracking shapes: the larger of its
+    bytes (operands and mean/cov read once, the volume written once) over
+    HBM's rate and its operations over the tensor cores' rate: for fp32
+    operands three TF32 products (3xTF32), for bf16 one bf16 product."""
     P = MAIN_H * MAIN_W
     esize = torch.empty(0, dtype=dt).element_size()
+    osize = torch.empty(0, dtype=out_dt).element_size()
     b_ms = bytes_ms(2 * E * P * 128 * esize + 2 * E * P * 2 * 4
-                    + E * P * P * 2)
-    o_ms = 1e3 * 2 * E * P * P * 128 / flop_rate
+                    + E * P * P * osize)
+    flop = 2 * E * P * P * 128
+    o_ms = 1e3 * (3 * flop / TF32_FLOP_PER_S if dt == torch.float32
+                  else flop / BF16_FLOP_PER_S)
     return max(b_ms, o_ms), "operations" if o_ms >= b_ms else "bytes"
 
 
@@ -279,45 +321,7 @@ def phase_kernels(dev) -> dict:
             torch.cuda.synchronize()
             err = (out - ref).abs().max().item()
             check(err < 2e-4, f"K2 {dt} {E}x{H}x{W}: max err {err}")
-    lv, cflat, off0, off1 = lookup_inputs(gen, MAIN_E, MAIN_H, MAIN_W, dev,
-                                          torch.bfloat16)
-    out = fused_pyramid_lookup(lv, cflat, off0, off1, MAIN_H, MAIN_W)
-    ref = fused_pyramid_lookup_plain(lv, cflat, off0, off1, MAIN_H, MAIN_W)
-    torch.cuda.synchronize()
-    k2_err = (out - ref).abs().max().item()
-    check(k2_err < 2e-4, f"K2 bf16 main shapes: max err {k2_err}")
-    del out, ref
-    ms = cuda_ms(lambda: fused_pyramid_lookup(lv, cflat, off0, off1,
-                                              MAIN_H, MAIN_W))
-    plain_ms = cuda_ms(lambda: fused_pyramid_lookup_plain(
-        lv, cflat, off0, off1, MAIN_H, MAIN_W), reps=3, warmup=1)
-    k2_bytes = lookup_bytes(lv, cflat, off0, off1, MAIN_H, MAIN_W)
-    k2_sector_bytes = lookup_bytes(lv, cflat, off0, off1, MAIN_H, MAIN_W,
-                                   sectors=True)
-    del lv, cflat, off0, off1
-    # the backend's call site: one sub-chunk of SC edges per launch
-    SC = SLAMConfig().backend_sub_chunk
-    lv, cflat, off0, off1 = lookup_inputs(gen, SC, MAIN_H, MAIN_W, dev,
-                                          torch.bfloat16)
-    ms_sc = cuda_ms(lambda: fused_pyramid_lookup(lv, cflat, off0, off1,
-                                                 MAIN_H, MAIN_W), reps=30)
-    sc_bytes = lookup_bytes(lv, cflat, off0, off1, MAIN_H, MAIN_W)
-    sc_sector_bytes = lookup_bytes(lv, cflat, off0, off1, MAIN_H, MAIN_W,
-                                   sectors=True)
-    del lv, cflat, off0, off1
-    results["fused_pyramid_lookup"] = dict(
-        name="fused_pyramid_lookup", route="cuda",
-        source="lgu_slam_tpu_torch/csrc/pyramid_lookup.cu",
-        replaces="lgu_slam_tpu/ops/pallas_lookup.py:524",
-        max_abs_err=k2_err, ms=ms, plain_ms=plain_ms,
-        bound_ms=bytes_ms(k2_bytes), bound_by="bytes",
-        sector_bound_ms=bytes_ms(k2_sector_bytes),
-        library_ms=None, library_call=None,
-        shapes=f"E={MAIN_E} {MAIN_H}x{MAIN_W} bf16 levels -> fp32 [E,P1,196]",
-        backend_shapes=f"E={SC} (one backend sub-chunk), same planes",
-        backend_ms=ms_sc, backend_bound_ms=bytes_ms(sc_bytes),
-        backend_sector_bound_ms=bytes_ms(sc_sector_bytes),
-    )
+    results["fused_pyramid_lookup"] = k2_edge_cases(gen, dev)
     torch.cuda.empty_cache()
 
     for case in WINDOW_CASES:
@@ -329,6 +333,56 @@ def phase_kernels(dev) -> dict:
     print("phase 1: kernels built for sm_90a and within tolerance of their "
           "plain versions")
     return results
+
+
+def k2_edge_cases(gen, dev) -> dict:
+    """K2 at the edge counts its call sites run, on the tracking planes,
+    both level dtypes within 2e-4 of the plain version; timed (bf16 levels)
+    on the device alone (a CUDA graph of 50 launches: at E = 1 the
+    wrapper's host time exceeds the kernel's) and by CUDA events over
+    launches back to back, beside its byte and 32-byte-sector bounds."""
+    at = {}
+    errs = []
+    for E in K2_EDGES:
+        for dt in (torch.float32, torch.bfloat16):
+            lv, cflat, off0, off1 = lookup_inputs(gen, E, MAIN_H, MAIN_W,
+                                                  dev, dt)
+            out = fused_pyramid_lookup(lv, cflat, off0, off1, MAIN_H, MAIN_W)
+            ref = fused_pyramid_lookup_plain(lv, cflat, off0, off1, MAIN_H,
+                                             MAIN_W)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            check(err < 2e-4, f"K2 {dt} E={E} {MAIN_H}x{MAIN_W}: max err "
+                  f"{err}")
+            errs.append(err)
+            del out, ref
+            if dt != torch.bfloat16:
+                continue
+
+            def call():
+                fused_pyramid_lookup(lv, cflat, off0, off1, MAIN_H, MAIN_W)
+
+            at[E] = dict(
+                ms=graph_ms(call), ms_eager=cuda_ms(call, reps=50),
+                bound_ms=bytes_ms(lookup_bytes(lv, cflat, off0, off1, MAIN_H,
+                                               MAIN_W)),
+                sector_bound_ms=bytes_ms(lookup_bytes(
+                    lv, cflat, off0, off1, MAIN_H, MAIN_W, sectors=True)))
+            if E == MAIN_E:
+                plain_ms = cuda_ms(lambda: fused_pyramid_lookup_plain(
+                    lv, cflat, off0, off1, MAIN_H, MAIN_W), reps=3, warmup=1)
+            del lv, cflat, off0, off1
+    main = at[MAIN_E]
+    return dict(
+        name="fused_pyramid_lookup", route="cuda",
+        source="lgu_slam_tpu_torch/csrc/pyramid_lookup.cu",
+        replaces="lgu_slam_tpu/ops/pallas_lookup.py:524",
+        max_abs_err=max(errs), ms=main["ms"], plain_ms=plain_ms,
+        bound_ms=main["bound_ms"], bound_by="bytes",
+        sector_bound_ms=main["sector_bound_ms"],
+        library_ms=None, library_call=None,
+        shapes=f"E={MAIN_E} {MAIN_H}x{MAIN_W} bf16 levels -> fp32 [E,P1,196]",
+        at_edges=at)
 
 
 def load_probes():
@@ -516,10 +570,14 @@ def tiny_config() -> SLAMConfig:
         feat_dtype="float32", compute_dtype="float32")
 
 
-def reset_k1_counts():
+def reset_counts():
+    """Every count of K1 and K2 to 0."""
     masked_corr_level0.launches = 0
     masked_corr_level0.launches_bf16 = 0
+    masked_corr_level0.launches_fp32 = 0
     masked_corr_level0.edges = 0
+    fused_pyramid_lookup.launches = 0
+    fused_pyramid_lookup.launches_by_edges = {}
 
 
 def phase_small_track(dev, kernels: dict):
@@ -529,7 +587,7 @@ def phase_small_track(dev, kernels: dict):
     runs = []
     for where in (dev, torch.device("cpu")):
         if where == dev:
-            reset_k1_counts()
+            reset_counts()
         slam = LGUSlam(sd, cfg, device=where)
         for t, img, intr in frames:
             slam.track(float(t), img, intrinsics=intr)
@@ -543,16 +601,16 @@ def phase_small_track(dev, kernels: dict):
             traj = slam.terminate(stream=iter(frames), backend_steps=(2, 1))
         runs.append(track + (slam.video.poses[:n].cpu().clone(), traj))
         if where == dev:
-            k1_fp32 = masked_corr_level0.launches
+            k1_all = masked_corr_level0.launches
+            k1_fp32 = masked_corr_level0.launches_fp32
             k1_bf16 = masked_corr_level0.launches_bf16
             k1_edges = masked_corr_level0.edges
-    # the fp32 configuration runs K1's fp32-operand (SIMT) kernel only
-    check(k1_fp32 > 0 and k1_bf16 == 0,
-          f"tiny fp32 run: K1 launches {k1_fp32}, bf16 kernel {k1_bf16}")
-    kernels["masked_corr_level0"].update(
-        launches=k1_fp32, edges=k1_edges,
-        launches_path="phase 2: tiny fp32 track() + terminate() (SLAMConfig "
-                      "with fp32 dtypes); 0 at full width (bf16)")
+    # the fp32 configuration runs K1's fp32-operand (3xTF32) kernel only
+    check(k1_fp32 > 0 and k1_bf16 == 0 and k1_all == k1_fp32,
+          f"tiny fp32 run: K1 launches {k1_all}, fp32-operand kernel "
+          f"{k1_fp32}, bf16 kernel {k1_bf16}")
+    kernels["masked_corr_level0_tf32"].update(launches_tiny=k1_fp32,
+                                              edges_tiny=k1_edges)
     (n_c, ii_c, jj_c, p_c, b_c, x_c), (n_h, ii_h, jj_h, p_h, b_h, x_h) = runs
     check(n_c == n_h, f"keyframes: cuda {n_c} != cpu {n_h}")
     check(np.array_equal(ii_c, ii_h) and np.array_equal(jj_c, jj_h),
@@ -745,14 +803,24 @@ class CallCounts:
             setattr(cls, name, orig)
 
 
-def phase_full_track(dev, kernels: dict):
-    cfg = SLAMConfig().replace(filter_thresh=0.0, keyframe_thresh=0.0)
+def phase_full_track(dev, kernels: dict, cfg: SLAMConfig, n_kf: int,
+                     n_gated: int):
+    """track() at full width with thresholds 0 (every frame a keyframe),
+    then ``n_gated`` frames with the keyframe gate closed.  K1's launches
+    must all be the kernel of the configuration's feature dtype, and equal
+    the motion filter's probes plus the pyramid rebuilds; K2's the probes
+    plus the GRU iterations."""
     H, W = cfg.image_size
+    fp32 = cfg.feat_dtype == "float32"
+    k1_name = "masked_corr_level0_tf32" if fp32 else "masked_corr_level0_tc"
     slam = LGUSlam(init_state_dict(cfg, SEED), cfg, device=dev)
-    n_kf, n_gated = 24, 4
     frames = list(shifted_texture_frames(n_kf + n_gated, H, W, SEED + 1))
-    reset_k1_counts()
-    fused_pyramid_lookup.launches = 0
+
+    def k1_launches():  # those of the configuration's K1 kernel
+        return (masked_corr_level0.launches_fp32 if fp32
+                else masked_corr_level0.launches_bf16)
+
+    reset_counts()
     window_lookup.launches = 0
     kf_ms, gated_ms, snap = [], [], {}
     torch.cuda.synchronize()
@@ -768,9 +836,8 @@ def phase_full_track(dev, kernels: dict):
             dt = 1e3 * (time.perf_counter() - t_start)
             (kf_ms if slam.video.counter > before else gated_ms).append(dt)
             if t in (cfg.warmup - 1, n_kf - 1):  # after initialise / update
-                snap[t] = (masked_corr_level0.launches_bf16,
-                           fused_pyramid_lookup.launches)
-    k1, k2 = masked_corr_level0.launches_bf16, fused_pyramid_lookup.launches
+                snap[t] = (k1_launches(), fused_pyramid_lookup.launches)
+    k1, k2 = k1_launches(), fused_pyramid_lookup.launches
     k1_all, k1_edges = masked_corr_level0.launches, masked_corr_level0.edges
 
     n = slam.video.counter
@@ -784,27 +851,30 @@ def phase_full_track(dev, kernels: dict):
     check(len(gated_ms) == n_gated, "the closed gate still took keyframes")
     check(k1 > 0 and k2 > 0, f"kernel launches K1={k1} K2={k2}")
     # SLAMConfig() keeps bf16 features and computes the encoder in bf16:
-    # every K1 launch is the bf16-operand (wgmma) kernel
+    # every K1 launch is the bf16-operand kernel; the fp32 configuration's
+    # are all the fp32-operand (3xTF32) kernel
     check(k1 == calls.probes + calls.rebuilds,
-          f"K1 bf16 launches {k1} != probes {calls.probes} + rebuilds "
+          f"K1 {k1_name} launches {k1} != probes {calls.probes} + rebuilds "
           f"{calls.rebuilds}")
-    check(k1_all == k1, f"K1 fp32-operand launches {k1_all - k1} at full "
-          "width")
+    check(k1_all == k1, f"K1 launches of the other kernel: {k1_all - k1}")
     check(k2 == calls.probes + calls.iterations,
           f"K2 launches {k2} != probes {calls.probes} + GRU iterations "
           f"{calls.iterations}")
     # per keyframe the initialised frontend took (probe included), and per
     # frame the closed gate turned away
     n_updates = n_kf - cfg.warmup
-    kernels["masked_corr_level0_tc"]["edges_track"] = k1_edges
-    for i, name in enumerate(("masked_corr_level0_tc",
-                              "fused_pyramid_lookup")):
+    tag = "_track_fp32" if fp32 else "_track"
+    kernels[k1_name]["edges" + tag] = k1_edges
+    for i, name in enumerate((k1_name, "fused_pyramid_lookup")):
         steady = snap[n_kf - 1][i] - snap[cfg.warmup - 1][i]
-        kernels[name].update(
-            launches_track=(k1, k2)[i],
-            launches_per_keyframe=steady / n_updates,
-            launches_per_non_keyframe=((k1, k2)[i] - snap[n_kf - 1][i])
-            / n_gated)
+        kernels[name].update({
+            "launches" + tag: (k1, k2)[i],
+            "launches_per_keyframe" + tag: steady / n_updates})
+        if n_gated:
+            kernels[name]["launches_per_non_keyframe" + tag] = \
+                ((k1, k2)[i] - snap[n_kf - 1][i]) / n_gated
+    kernels["fused_pyramid_lookup"]["launches_by_edges" + tag] = dict(
+        sorted(fused_pyramid_lookup.launches_by_edges.items()))
     g = slam.frontend.graph
     report = dict(
         frames=len(frames), keyframes=n, edges=g.n_edges,
@@ -813,12 +883,12 @@ def phase_full_track(dev, kernels: dict):
         ms_per_keyframe_median=statistics.median(kf_ms[cfg.warmup:]),
         ms_per_warmup_keyframe_median=statistics.median(kf_ms[1:cfg.warmup]),
         ms_initialize_frame=kf_ms[cfg.warmup - 1],
-        ms_per_non_keyframe_median=statistics.median(gated_ms),
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-    )
-    print(f"phase 3: full-width track() ({H}x{W}, bf16): {n} keyframes, "
-          f"{g.n_edges} edges, K1 launches {k1}, K2 launches {k2}, poses "
-          "finite")
+        k1_launches=k1, k2_launches=k2,
+        k2_launches_by_edges=kernels["fused_pyramid_lookup"][
+            "launches_by_edges" + tag])
+    if n_gated:
+        report["ms_per_non_keyframe_median"] = statistics.median(gated_ms)
     return report, slam, frames
 
 
@@ -826,8 +896,7 @@ def phase_terminate(slam, frames, kernels: dict) -> dict:
     """terminate(stream) at full width on phase 3's system."""
     cfg = slam.cfg
     n = slam.video.counter
-    reset_k1_counts()
-    fused_pyramid_lookup.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t_start = time.perf_counter()
@@ -865,6 +934,8 @@ def phase_terminate(slam, frames, kernels: dict) -> dict:
         kernels[name]["launches_terminate"] = k
     kernels["masked_corr_level0_tc"]["edges_terminate"] = k1_edges
     kernels["fused_pyramid_lookup"]["launches_per_backend_step"] = per_step
+    kernels["fused_pyramid_lookup"]["launches_by_edges_terminate"] = dict(
+        sorted(fused_pyramid_lookup.launches_by_edges.items()))
     report = dict(
         keyframes=n, frames=len(frames), backend_edges=[e for e, _ in
                                                         calls.lowmem],
@@ -875,7 +946,9 @@ def phase_terminate(slam, frames, kernels: dict) -> dict:
         filler_batches=len(calls.fill_ms), ms_per_filler_batch=calls.fill_ms,
         filler_pyramid_rebuilds=calls.rebuilds,
         filler_gru_iterations=calls.iterations, ms_terminate=ms_total,
-        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        k2_launches_by_edges=kernels["fused_pyramid_lookup"][
+            "launches_by_edges_terminate"])
     print(f"phase 4: full-width terminate(): {len(calls.lowmem)} backend "
           f"passes over {report['backend_edges']} edges, "
           f"{len(calls.fill_ms)} filler batches, trajectory "
@@ -899,8 +972,7 @@ def phase_train(dev) -> dict:
     ii, jj = (torch.from_numpy(x).to(dev) for x in window_edges(N))
     Gs0 = torch.zeros(cfg.batch, N, 7, device=dev)
     disp0 = torch.zeros(cfg.batch, N, H // 8, W // 8, device=dev)
-    reset_k1_counts()
-    fused_pyramid_lookup.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses = [], []
@@ -953,21 +1025,44 @@ def main():
     kernels = phase_kernels(dev)
     phase_small_track(dev, kernels)
     small_train = phase_small_train(dev)
-    report, slam, frames = phase_full_track(dev, kernels)
+    cfg = SLAMConfig().replace(filter_thresh=0.0, keyframe_thresh=0.0)
+    report, slam, frames = phase_full_track(dev, kernels, cfg, 24, 4)
+    print(f"phase 3: full-width track() ({cfg.image_size}, bf16): "
+          f"{report['keyframes']} keyframes, {report['edges']} edges, K1 "
+          f"launches {report['k1_launches']}, K2 launches "
+          f"{report['k2_launches']}, poses finite")
     terminate = phase_terminate(slam, frames, kernels)
-    del slam
+    del slam, frames
     torch.cuda.empty_cache()
     train = phase_train(dev)
     train["small_cuda_vs_cpu"] = small_train
+    torch.cuda.empty_cache()
+    t_fp32 = time.perf_counter()
+    cfg32 = cfg.replace(warmup=5, volume_dtype="float32",
+                        feat_dtype="float32", compute_dtype="float32")
+    fp32, slam, _ = phase_full_track(dev, kernels, cfg32, 10, 0)
+    del slam
+    fp32["seconds"] = time.perf_counter() - t_fp32
+    print(f"phase 6: full-width track() ({cfg32.image_size}, fp32): "
+          f"{fp32['keyframes']} keyframes, K1 fp32-operand launches "
+          f"{fp32['k1_launches']}, K2 launches {fp32['k2_launches']}, "
+          f"{fp32['ms_per_keyframe_median']:.1f} ms per keyframe update, "
+          f"peak {fp32['peak_memory_gb']:.2f} GB, poses finite")
+    # launches on the main path: K1 bf16 and K2 over track() +
+    # terminate(), K1 fp32 operands over phase 6's track()
+    for name in ("masked_corr_level0_tc", "fused_pyramid_lookup"):
+        k = kernels[name]
+        k["launches"] = k["launches_track"] + k["launches_terminate"]
+    k = kernels["masked_corr_level0_tf32"]
+    k["launches"] = k["launches_track_fp32"]
     for k in kernels.values():
-        if "launches_track" in k:
-            k["launches"] = k["launches_track"] + k["launches_terminate"]
-        elif "launches" not in k:
+        if "launches" not in k:
             k["launches"] = window_lookup.launches
     seconds = time.perf_counter() - t_start
     print(json.dumps({"tracking": report}))
     print(json.dumps({"terminate": terminate}))
     print(json.dumps({"training": train}))
+    print(json.dumps({"tracking_fp32": fp32}))
     print(json.dumps({"seconds": seconds}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": list(kernels.values())}))

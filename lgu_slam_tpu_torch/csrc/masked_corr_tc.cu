@@ -4,7 +4,7 @@
 //
 // Replaces the Pallas TPU kernel masked_corr_level0 (the JAX package's
 // ops/pallas_corr.py, body _kernel) where the features are bf16 values (the
-// bf16 keyframe store, a bf16 encoder's output); masked_corr.cu keeps the
+// bf16 keyframe store, a bf16 encoder's output); masked_corr_tf32.cu takes
 // fp32 operands.  Per edge e, source pixel p and target pixel q:
 //   corr = <f1[e,p,:], f2[e,q,:]> / 16
 //   out  = corr * (1 + 3 exp(-(dx^2/c1 + dy^2/c2)/2) / (6.28 sqrt(c1 c2)))
@@ -43,12 +43,11 @@
 // several blocks when E is small (the motion filter's 1-edge probe), so
 // that the card stays full.
 
-#include <cuda.h>  // CUtensorMap and its enums (types only; no -lcuda)
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
+
+using namespace lgu;
 
 constexpr int C = 128;       // feature channels
 constexpr int BM = 128;      // source pixels per block (2 warpgroups x 64)
@@ -65,75 +64,6 @@ constexpr int SMEM_BYTES = 1024 /* alignment slack */
                            + TILE_BYTES * (1 + STAGES)    // A and the B ring
                            + 2 * 64 * SROW * 4            // fp32 staging
                            + 8 * (1 + 2 * STAGES);        // mbarriers
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-// 3D TMA load of box {64 channels, 128 rows, 1 edge} into swizzled smem
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c, int row,
-                                         int e) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(row), "r"(e),
-      "r"(smem_addr(bar))
-      : "memory");
-}
-
-// wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row groups
-// 1024 bytes apart
-__device__ __forceinline__ uint64_t desc(const void* p) {
-  const uint64_t a = smem_addr(p);
-  return ((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16)
-         | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
 
 // d[64 x 128] (+)= A[64 x 16] B[128 x 16]^T, both K-major in smem
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
@@ -160,29 +90,6 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
-}
-
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
-
-__device__ __forceinline__ float to_out(float v, float*) { return v; }
-__device__ __forceinline__ __nv_bfloat16 to_out(float v, __nv_bfloat16*) {
-  return __float2bfloat16(v);
-}
-
-// 16 output bytes from fp32 staging: 4 floats, or 8 floats as bf16
-__device__ __forceinline__ void store16(float* dst, const float* src) {
-  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
-}
-__device__ __forceinline__ void store16(__nv_bfloat16* dst, const float* src) {
-  const float4 a = *reinterpret_cast<const float4*>(src);
-  const float4 b = *reinterpret_cast<const float4*>(src + 4);
-  __nv_bfloat162 v[4] = {__floats2bfloat162_rn(a.x, a.y),
-                         __floats2bfloat162_rn(a.z, a.w),
-                         __floats2bfloat162_rn(b.x, b.y),
-                         __floats2bfloat162_rn(b.z, b.w)};
-  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
 }
 
 template <typename OutT>
@@ -351,46 +258,6 @@ masked_corr_tc_kernel(const __grid_constant__ CUtensorMap map1,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled looked up at run time through the CUDA runtime, so
-// the library needs no -lcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// features [E, P, 128] bf16 as a 3D map {channel, pixel, edge}; boxes of
-// 64 channels x 128 pixels, zero-filled past P
-CUresult feature_map(EncodeTiled enc, CUtensorMap* map, const void* f, int E,
-                     int P) {
-  const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)P, (cuuint64_t)E};
-  const cuuint64_t strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)P * C * 2};
-  const cuuint32_t box[3] = {KH, 128, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(f),
-             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 template <typename OutT>
 int launch(const CUtensorMap& m1, const CUtensorMap& m2, const float* mean,
            const float* cov, void* out, int E, int P, int W, int radius,
@@ -425,11 +292,13 @@ extern "C" int masked_corr_level0_tc(const void* f1, const void* f2,
                                      int radius, int out_bf16,
                                      cudaStream_t stream) {
   const int P = H * W;
-  EncodeTiled enc = encode_tiled();
+  lgu::EncodeTiled enc = lgu::encode_tiled();
   if (enc == nullptr) return -1;
   CUtensorMap m1, m2;
-  if (feature_map(enc, &m1, f1, E, P) != CUDA_SUCCESS
-      || feature_map(enc, &m2, f2, E, P) != CUDA_SUCCESS)
+  // boxes of 64 channels x 128 pixels
+  const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (lgu::feature_map(enc, &m1, f1, bf16, 2, E, P, C, KH, BM) != 0
+      || lgu::feature_map(enc, &m2, f2, bf16, 2, E, P, C, KH, BN) != 0)
     return -2;
   return out_bf16 ? launch<__nv_bfloat16>(m1, m2, mean, cov, out, E, P, W,
                                           radius, stream)

@@ -17,7 +17,9 @@ semantics, including the per-lookup level-1 gate):
 :func:`fused_pyramid_lookup_plain` on a CPU tensor; any other device raises.
 The training forward calls the plain version itself, on every device, and
 autograd differentiates it (``models/corr.py``): the kernel has no
-backward, as in the JAX package.
+backward, as in the JAX package.  The kernel runs one warp per (edge,
+pixel) and is held to 32 registers so that every warp slot of an SM is
+filled: its time follows the loads in flight (see the source).
 """
 
 from __future__ import annotations
@@ -106,6 +108,10 @@ def _launch(levels, cflat, off0, off1, H, W):
     out = torch.empty(E, P1, OUT_C, dtype=torch.float32, device=dev)
     if E * P1 == 0:
         return out
+    # the kernel reads each offset pair as one 8-byte word: a view that
+    # starts between two words is copied
+    off0, off1 = (o if o.data_ptr() % 8 == 0 else o.clone()
+                  for o in (off0, off1))
     lib = _build.load("pyramid_lookup")
     fn = lib.fused_pyramid_lookup
     fn.restype = ctypes.c_int
@@ -118,6 +124,8 @@ def _launch(levels, cflat, off0, off1, H, W):
                     W, int(vdt == torch.bfloat16), stream)
     _build.check(status, "fused_pyramid_lookup")
     fused_pyramid_lookup.launches += 1
+    by_e = fused_pyramid_lookup.launches_by_edges
+    by_e[E] = by_e.get(E, 0) + 1
     return out
 
 
@@ -131,4 +139,6 @@ def fused_pyramid_lookup(levels, cflat, off0, off1, H: int, W: int):
     return _launch(tuple(levels), cflat, off0, off1, H, W)
 
 
-fused_pyramid_lookup.launches = 0  # kernel launches, counted by _launch
+# counted by _launch: kernel launches, and launches per edge count E
+fused_pyramid_lookup.launches = 0
+fused_pyramid_lookup.launches_by_edges = {}

@@ -17,6 +17,7 @@ from lgu_slam_tpu_torch.ops.sampler import sample_taps_flat
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12  # tensor cores
+TF32_FLOP_PER_S = 494.7e12  # tensor cores
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -30,6 +31,27 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, reps: int = 50, warmup: int = 2) -> float:
+    """Mean device time of ``fn()`` over ``reps`` calls replayed from one
+    CUDA graph: no host time between the launches, so a launch shorter than
+    its wrapper's host time is timed on the device alone."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps

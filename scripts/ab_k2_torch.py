@@ -10,10 +10,18 @@ card, in alternating turns: another revision's against this checkout's.
     python scripts/ab_k2_torch.py --parent build/k2_parent
 
 Both sources are compiled with the port's nvcc flags (ptxas' register
-summary is printed) and run on the tracking shapes (E = 48, 48 x 64, bf16
-levels, the inputs of ``chip_smoke.py`` phase 1) in the order parent,
-change, change, parent, twice; each time is a CUDA-event mean over 50
-launches.  The outputs must be equal.
+summary is printed) and run on the tracking planes (48 x 64, bf16 levels,
+the inputs of ``chip_smoke.py`` phase 1) at the edge counts of K2's call
+sites (``chip_smoke.K2_EDGES``): E = 1 (the motion filter's probe), 2 and
+8 (backend sub-chunks), 24 (the frontend's mean) and 48 (the TPU probes'
+shape), in the order parent, change, change, parent.  Each time is a mean
+over 50 launches: on the device alone (one CUDA graph of the launches) and
+by CUDA events over the launches back to back.  The outputs must be equal
+bit for bit, or within 2e-4 where the arithmetic was changed.  Prints one
+JSON line.
+
+``--variant NAME=DIR`` (repeatable) adds further sources, each timed once
+per E after the four turns: designs tried and not kept.
 """
 
 from __future__ import annotations
@@ -31,9 +39,11 @@ import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from lgu_slam_tpu_torch.ops import _build  # noqa: E402
-from lgu_slam_tpu_torch.utils.measure import cuda_ms  # noqa: E402
+from lgu_slam_tpu_torch.utils.measure import cuda_ms, graph_ms  # noqa: E402
 
-E, H, W = 48, 48, 64
+H, W = 48, 64
+EDGES = chip_smoke.K2_EDGES
+ORDER = ("parent", "change", "change", "parent")
 
 
 def build(src: str, out: str) -> ctypes.CDLL:
@@ -50,11 +60,54 @@ def build(src: str, out: str) -> ctypes.CDLL:
     return lib
 
 
+def compare(libs: dict, dev) -> dict:
+    """Every library's K2 at each E of EDGES, timed in the turns of ORDER
+    (tags beyond parent and change once each, after them)."""
+    tags = list(ORDER) + [t for t in libs if t not in ORDER]
+    result = {}
+    for E in EDGES:
+        lv, cflat, off0, off1 = chip_smoke.lookup_inputs(
+            torch.Generator().manual_seed(0), E, H, W, dev, torch.bfloat16)
+        outs = {tag: torch.empty(E, H * W, 196, device=dev) for tag in libs}
+
+        def run(tag):
+            status = libs[tag].fused_pyramid_lookup(
+                *(v.data_ptr() for v in lv), cflat.data_ptr(),
+                off0.data_ptr(), off1.data_ptr(), outs[tag].data_ptr(), E, H,
+                W, 1, torch.cuda.current_stream().cuda_stream)
+            _build.check(status, f"fused_pyramid_lookup ({tag})")
+
+        ms = {tag: [] for tag in libs}
+        ms_eager = {tag: [] for tag in libs}
+        for tag in tags:
+            ms[tag].append(graph_ms(lambda: run(tag)))
+            ms_eager[tag].append(cuda_ms(lambda: run(tag), reps=50,
+                                         warmup=5))
+        torch.cuda.synchronize()
+        ref = outs["parent"]
+        result[E] = {
+            "ms": ms, "ms_eager": ms_eager,
+            "equal_to_parent": {t: torch.equal(o, ref)
+                                for t, o in outs.items()},
+            "max_abs_diff_to_parent": {t: (o - ref).abs().max().item()
+                                       for t, o in outs.items()}}
+        for t, err in result[E]["max_abs_diff_to_parent"].items():
+            if err > 2e-4:
+                sys.exit(f"ab_k2_torch: {t} differs from parent by {err} "
+                         f"at E={E}")
+        del lv, cflat, off0, off1, outs
+    return result
+
+
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--parent", required=True,
                    help="directory with the other revision's "
                         "pyramid_lookup.cu and bilinear.cuh")
+    p.add_argument("--variant", action="append", default=[],
+                   metavar="NAME=DIR",
+                   help="a further source to time (a directory as for "
+                        "--parent), once per E after the four turns")
     args = p.parse_args()
     if not torch.cuda.is_available():
         sys.exit("ab_k2_torch: needs an NVIDIA GPU")
@@ -65,25 +118,12 @@ def main():
         "change": build(str(_build.CSRC / "pyramid_lookup.cu"),
                         str(_build.BUILD_DIR / "libk2_ab_change.so")),
     }
-    dev = torch.device("cuda")
-    lv, cflat, off0, off1 = chip_smoke.lookup_inputs(
-        torch.Generator().manual_seed(0), E, H, W, dev, torch.bfloat16)
-    outs = {tag: torch.empty(E, H * W, 196, device=dev) for tag in libs}
-
-    def run(tag):
-        status = libs[tag].fused_pyramid_lookup(
-            *(v.data_ptr() for v in lv), cflat.data_ptr(), off0.data_ptr(),
-            off1.data_ptr(), outs[tag].data_ptr(), E, H, W, 1,
-            torch.cuda.current_stream().cuda_stream)
-        _build.check(status, f"fused_pyramid_lookup ({tag})")
-
-    ms = {tag: [] for tag in libs}
-    for tag in ("parent", "change", "change", "parent") * 2:
-        ms[tag].append(cuda_ms(lambda: run(tag), reps=50, warmup=5))
-    torch.cuda.synchronize()
-    print(json.dumps({
-        "equal_outputs": torch.equal(outs["parent"], outs["change"]),
-        "ms": ms}))
+    for spec in args.variant:
+        name, src = spec.split("=", 1)
+        libs[name] = build(os.path.join(src, "pyramid_lookup.cu"),
+                           str(_build.BUILD_DIR / f"libk2_ab_{name}.so"))
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "k2_ab": compare(libs, torch.device("cuda"))}))
 
 
 if __name__ == "__main__":

@@ -84,8 +84,8 @@ def edge_inputs(gen, E, H, W, dev):
 @pytest.mark.parametrize("ehw", [(3, 30, 40), (2, 7, 9), (4, 48, 64)])
 def test_masked_corr_bf16_operand_kernel(cuda_device, ehw):
     """The wgmma kernel (bf16 operands) against the plain version, which
-    widens them: fp32 out within the SIMT kernel's atol 2e-4 / rtol 1e-4
-    (the same function, summed in another order), bf16 out within one bf16
+    widens them: fp32 out within atol 2e-4 / rtol 1e-4 (the same
+    function, summed in another order), bf16 out within one bf16
     step; it counts a launch, a bf16 launch and E edges."""
     args = edge_inputs(torch.Generator().manual_seed(1), *ehw, cuda_device)
     k1 = masked_corr_level0
@@ -102,15 +102,54 @@ def test_masked_corr_bf16_operand_kernel(cuda_device, ehw):
 
 
 def test_masked_corr_dispatch_counts(cuda_device):
-    """fp32 operands launch the SIMT kernel: launches and edges advance,
-    launches_bf16 does not."""
+    """fp32 operands launch the 3xTF32 kernel: launches, launches_fp32 and
+    edges advance, launches_bf16 does not."""
     args = corr_inputs(torch.Generator().manual_seed(3), 2, 4, 6,
                        cuda_device)
     k1 = masked_corr_level0
-    before = (k1.launches, k1.launches_bf16, k1.edges)
+    before = (k1.launches, k1.launches_bf16, k1.launches_fp32, k1.edges)
     k1(*args)
-    assert (k1.launches, k1.launches_bf16, k1.edges) == (
-        before[0] + 1, before[1], before[2] + 2)
+    assert (k1.launches, k1.launches_bf16, k1.launches_fp32, k1.edges) == (
+        before[0] + 1, before[1], before[2] + 1, before[3] + 2)
+
+
+@pytest.mark.parametrize("ehw", [(3, 30, 40), (2, 7, 9), (1, 48, 64)])
+def test_masked_corr_fp32_operand_kernel(cuda_device, ehw):
+    """The 3xTF32 kernel on full-mantissa fp32 features (the lo terms
+    matter), means on floor's edges, covariances up to 20: fp32 out within
+    atol 2e-4 / rtol 1e-4, bf16 out within one bf16 step; it counts a
+    launch, an fp32-operand launch and E edges."""
+    f1, f2, mean, cov = edge_inputs(torch.Generator().manual_seed(7), *ehw,
+                                    cuda_device)
+    gen = torch.Generator().manual_seed(8)
+    f1, f2 = (torch.randn(f1.shape, generator=gen).to(cuda_device)
+              for _ in range(2))
+    args = (f1, f2, mean, cov)
+    k1 = masked_corr_level0
+    before = (k1.launches, k1.launches_fp32, k1.launches_bf16, k1.edges)
+    out = k1(*args, out_dtype=torch.float32)
+    ref = masked_corr_level0_plain(*args, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert (k1.launches, k1.launches_fp32, k1.launches_bf16, k1.edges) == (
+        before[0] + 1, before[1] + 1, before[2], before[3] + ehw[0])
+    torch.testing.assert_close(out, ref, atol=2e-4, rtol=1e-4)
+    out = k1(*args, out_dtype=torch.bfloat16).float()
+    ref = masked_corr_level0_plain(*args, out_dtype=torch.bfloat16).float()
+    assert ((out - ref).abs() / (ref.abs() + 1)).max().item() < 0.02
+
+
+def test_masked_corr_fp32_kernel_rejects_bad_inputs(cuda_device):
+    """fp32 operands of other than 128 channels raise before any launch."""
+    f1, f2, mean, cov = corr_inputs(torch.Generator().manual_seed(9), 1, 4,
+                                    6, cuda_device)
+    n = masked_corr_level0.launches
+    with pytest.raises(ValueError, match="128 channels"):
+        masked_corr_level0(f1[..., :64].contiguous(),
+                           f2[..., :64].contiguous(), mean, cov)
+    with pytest.raises(ValueError, match="128 channels"):
+        masked_corr_level0(torch.cat([f1, f1], -1), torch.cat([f2, f2], -1),
+                           mean, cov)
+    assert masked_corr_level0.launches == n
 
 
 def test_masked_corr_bf16_kernel_rejects_bad_inputs(cuda_device):
@@ -151,6 +190,61 @@ def test_pyramid_lookup_kernel(cuda_device, ehw, dtype):
     torch.cuda.synchronize()
     assert fused_pyramid_lookup.launches == n + 1
     torch.testing.assert_close(out, ref, atol=2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("E", [1, 8, 24])
+def test_pyramid_lookup_kernel_edge_counts(cuda_device, E):
+    """At the call sites' edge counts (the motion filter's 1, a backend
+    sub-chunk's 8, the frontend's ~24) on the tracking planes (48 x 64):
+    offsets past the +-4 clip, coordinates up to 20 % outside the plane,
+    and a few NaN coordinates, whose taps are 0 as in the plain version;
+    atol 2e-4.  Each launch is counted under its E."""
+    H, W = 48, 64
+    gen = torch.Generator().manual_seed(10 + E)
+    levels = [torch.randn(E, H * W, h * w, generator=gen).to(
+        cuda_device, torch.bfloat16) for h, w in level_dims(H, W)]
+    cflat = (torch.rand(E, H * W, 2, generator=gen) * 1.4 - 0.2) \
+        * torch.tensor([W, H])
+    cflat[:, ::97, 0] = float("nan")
+    cflat[:, 5::101] = float("nan")
+    off0 = torch.rand(E, H * W, 7, 7, 2, generator=gen) * 9 - 4.5
+    off1 = torch.rand(E, H * W, 7, 7, 2, generator=gen) * 9 - 4.5
+    cflat, off0, off1 = (x.to(cuda_device) for x in (cflat, off0, off1))
+    k2 = fused_pyramid_lookup
+    n, n_e = k2.launches, k2.launches_by_edges.get(E, 0)
+    out = k2(levels, cflat, off0, off1, H, W)
+    ref = fused_pyramid_lookup_plain(levels, cflat, off0, off1, H, W)
+    torch.cuda.synchronize()
+    assert (k2.launches, k2.launches_by_edges[E]) == (n + 1, n_e + 1)
+    torch.testing.assert_close(out, ref, atol=2e-4, rtol=0)
+    assert (out[:, ::97] == 0).all() and (out[:, 5::101] == 0).all()
+
+
+def test_pyramid_lookup_kernel_misaligned_views(cuda_device):
+    """Coordinates and offsets that are contiguous views starting at an odd
+    float (the kernel reads offset pairs as 8-byte words): the same result
+    as on aligned copies, bit for bit."""
+    E, H, W = 2, 13, 17
+    gen = torch.Generator().manual_seed(20)
+    levels = [torch.randn(E, H * W, h * w, generator=gen).to(
+        cuda_device, torch.bfloat16) for h, w in level_dims(H, W)]
+    cflat = (torch.rand(E, H * W, 2, generator=gen) * 1.4 - 0.2) \
+        * torch.tensor([W, H])
+    off0 = torch.rand(E, H * W, 7, 7, 2, generator=gen) * 9 - 4.5
+    off1 = torch.rand(E, H * W, 7, 7, 2, generator=gen) * 9 - 4.5
+    aligned = [x.to(cuda_device) for x in (cflat, off0, off1)]
+    shifted = []
+    for x in aligned:
+        buf = torch.empty(x.numel() + 1, device=cuda_device)
+        shifted.append(buf[1:].view(x.shape))
+        shifted[-1].copy_(x)
+    out = fused_pyramid_lookup(levels, *shifted, H, W)
+    ref = fused_pyramid_lookup(levels, *aligned, H, W)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    torch.testing.assert_close(
+        ref, fused_pyramid_lookup_plain(levels, *aligned, H, W), atol=2e-4,
+        rtol=0)
 
 
 @pytest.mark.parametrize("geometry", [(48, 64, 3, 4), (24, 32, 1, 0),

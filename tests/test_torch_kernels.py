@@ -4,12 +4,16 @@ sampling pieces they are built from, against the JAX package.
 - K1: ``masked_corr_level0_plain`` against the Pallas kernel
   ``masked_corr_level0`` in interpret mode (tests/test_pallas.py's sizes,
   plus a plane whose size is no multiple of any tile), with fp32 operands
-  and with bf16 operands holding bf16-exact values; the wrapper's operand
-  dtype rules.
+  and with bf16 operands holding bf16-exact values; the fp32-operand
+  kernel's arithmetic (3xTF32) emulated in plain torch against the same
+  reference; the wrapper's operand dtype rules, its input checks and the
+  fp32-operand kernel's grid.
 - K2: ``fused_pyramid_lookup_plain`` against the Pallas kernel
   ``fused_pyramid_lookup`` in interpret mode over ``pack_pyramid`` levels,
   at tests/test_pallas.py's geometries (16 x 16, and 12 x 24 whose halving
-  chain ends at 1 x 3) with coordinates up to 20 % outside the plane.
+  chain ends at 1 x 3) with coordinates up to 20 % outside the plane, at
+  the call sites' edge counts 1 (the motion filter's probe) and 8 (a
+  backend sub-chunk) as well as 2.
 - K3/K4: ``window_lookup`` (plain on the CPU) against the Pallas kernels
   ``window_lookup_packed`` and ``dense_lookup_packed`` in interpret mode
   over ``pack_level`` planes, at tests/test_pallas.py's six geometries.
@@ -104,17 +108,125 @@ def test_masked_corr_bf16_operands_match_pallas(rng, ehw):
     close(out, ref, atol=2e-4, rtol=1e-4)
 
 
+def tf32(x):
+    """x with its low 13 mantissa bits cleared: the TF32 value that the
+    tensor cores read from an fp32 word."""
+    return (x.view(torch.int32) & -8192).view(torch.float32)
+
+
+def tf32_volume(f1, f2, mean, cov, passes):
+    """The fp32-operand kernel's function emulated in plain torch, fp32 out:
+    corr as fp32 sums of TF32 products, a_hi b_hi alone (``passes=1``) or
+    a_hi b_hi + a_hi b_lo + a_lo b_hi (``passes=3``, lo = x - hi, itself
+    read as TF32), then the plain version's window epilogue."""
+    E, H, W, C = f1.shape
+    a, b = (x.reshape(E, H * W, C) for x in (f1, f2))
+    a_hi, b_hi = tf32(a), tf32(b)
+    corr = torch.bmm(a_hi, b_hi.transpose(1, 2))
+    if passes == 3:
+        a_lo, b_lo = tf32(a - a_hi), tf32(b - b_hi)
+        corr = corr + torch.bmm(a_hi, b_lo.transpose(1, 2)) \
+            + torch.bmm(a_lo, b_hi.transpose(1, 2))
+    corr = (corr / 16.0).reshape(E, H, W, H, W)
+    return tcorr.window_epilogue(corr, mean, cov, 4).reshape(E, H * W, H * W)
+
+
+def window_edge_inputs(rng, E, H, W):
+    """Full-mantissa fp32 features (all 24 bits, so the lo terms matter);
+    means scattered +-3 pixels around each pixel, a third on an integer and
+    a third just below one (floor's edges); covariances from 0.05 to 20:
+    chip_smoke.py's draw."""
+    f1 = rng.normal(size=(E, H, W, 128)).astype(np.float32)
+    f2 = rng.normal(size=(E, H, W, 128)).astype(np.float32)
+    gy, gx = np.mgrid[0:H, 0:W]
+    mean = np.stack([gx, gy], -1) + 3.0 * rng.normal(size=(E, H, W, 2))
+    pick = rng.integers(0, 3, size=(E, H, W, 1))
+    mean = np.where(pick == 0, np.round(mean), mean)
+    mean = np.where(pick == 1, np.floor(mean) + 0.999, mean)
+    cov = 0.05 + 20.0 * rng.random(size=(E, H, W, 2)) ** 2
+    return f1, f2, mean.astype(np.float32), cov.astype(np.float32)
+
+
+@pytest.mark.parametrize("ehw", [(2, 8, 16), (1, 5, 7)])
+def test_masked_corr_3xtf32_matches_pallas_fp32(rng, ehw):
+    """The fp32-operand kernel's 3xTF32 arithmetic, emulated, against the
+    Pallas kernel's fp32 dot on full-mantissa features: within the fp32
+    tolerance (atol 2e-4, rtol 1e-4).  One TF32 product (a_hi b_hi alone,
+    a relative error near 2^-11) misses it: the three are needed."""
+    args = window_edge_inputs(rng, *ehw)
+    ref = np.asarray(jcorr.masked_corr_level0(
+        *map(jnp.asarray, args), out_dtype=jnp.float32, interpret=True,
+        flat=True))
+    f1, f2, mean, cov = map(t, args)
+    close(tf32_volume(f1, f2, mean, cov, passes=3), ref, atol=2e-4,
+          rtol=1e-4)
+    one = tf32_volume(f1, f2, mean, cov, passes=1).numpy()
+    assert not np.allclose(one, ref, atol=2e-4, rtol=1e-4)
+
+
+def test_tf32_schedule_covers_every_tile():
+    """The fp32-operand kernel's grid: 64-pixel row blocks; the target tiles
+    of a row block split into runs only where E x row blocks would leave
+    the card idle (the motion filter's one edge: 288 blocks), every tile in
+    exactly one run, no run empty, and at least half the target count of
+    blocks wherever there are that many tiles."""
+    assert tcorr.tf32_schedule(1, 3072) == (48, 6, 8)
+    assert tcorr.tf32_schedule(48, 3072) == (48, 1, 48)
+    for E, P in ((1, 3072), (8, 3072), (24, 3072), (48, 3072), (3, 1200),
+                 (2, 63), (1, 1), (1, 640), (5, 1200)):
+        rows, runs, per_run = tcorr.tf32_schedule(E, P)
+        tiles = -(-P // 64)
+        assert rows == tiles
+        assert runs * per_run >= tiles > (runs - 1) * per_run
+        assert E * rows * runs >= min(tcorr.BLOCKS_TARGET // 2,
+                                      E * rows * tiles)
+
+
+def test_masked_corr_kernel_input_checks(rng):
+    """What the kernels refuse, checked before any launch: operands of
+    other than 128 channels (fp32 and bf16 alike), non-contiguous operands,
+    mean/cov of another dtype, a volume of another dtype."""
+    f1, f2, mean, cov = map(t, corr_inputs(rng, 1, 4, 6))
+    check = tcorr.check_kernel_inputs
+    check(f1, f2, mean, cov, torch.float32)
+    for dt in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="128 channels"):
+            check(f1[..., :64].contiguous().to(dt),
+                  f2[..., :64].contiguous().to(dt), mean, cov, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        check(f1.transpose(1, 2).contiguous().transpose(1, 2), f2, mean, cov,
+              torch.float32)
+    with pytest.raises(ValueError, match="float32"):
+        check(f1, f2, mean.double(), cov, torch.float32)
+    with pytest.raises(ValueError, match="neither"):
+        check(f1, f2, mean, cov, torch.float16)
+
+
+def test_masked_corr_cpu_fp32_counts_no_launch(rng):
+    """fp32 CPU tensors run the plain version and advance none of the
+    wrapper's counters, the fp32-operand kernel's included."""
+    f1, f2, mean, cov = map(t, corr_inputs(rng, 2, 4, 6))
+    k1 = tcorr.masked_corr_level0
+    before = (k1.launches, k1.launches_bf16, k1.launches_fp32, k1.edges)
+    out = k1(f1, f2, mean, cov, out_dtype=torch.float32)
+    assert torch.equal(out, tcorr.masked_corr_level0_plain(
+        f1, f2, mean, cov, out_dtype=torch.float32))
+    assert (k1.launches, k1.launches_bf16, k1.launches_fp32,
+            k1.edges) == before
+
+
 def test_masked_corr_cpu_bf16_counts_no_launch(rng):
     """bf16 CPU tensors run the plain version and advance none of the
     wrapper's counters."""
     f1, f2, mean, cov = map(t, corr_inputs(rng, 2, 4, 6))
     b1, b2 = f1.to(torch.bfloat16), f2.to(torch.bfloat16)
     k1 = tcorr.masked_corr_level0
-    before = (k1.launches, k1.launches_bf16, k1.edges)
+    before = (k1.launches, k1.launches_bf16, k1.launches_fp32, k1.edges)
     out = k1(b1, b2, mean, cov)
     assert torch.equal(out, tcorr.masked_corr_level0_plain(b1, b2, mean,
                                                            cov))
-    assert (k1.launches, k1.launches_bf16, k1.edges) == before
+    assert (k1.launches, k1.launches_bf16, k1.launches_fp32,
+            k1.edges) == before
 
 
 @pytest.mark.parametrize("dtypes", [
@@ -284,14 +396,15 @@ def lookup_problem(rng, E, H, W):
     return levels, cflat, off0, off1
 
 
+@pytest.mark.parametrize("E", [1, 2, 8])
 @pytest.mark.parametrize("hw", [(16, 16), (12, 24)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_pyramid_lookup_plain_matches_pallas(rng, hw, dtype):
+def test_pyramid_lookup_plain_matches_pallas(rng, hw, dtype, E):
     """fp32 bilinear taps of the same level values (bf16 levels are
     rounded once, identically, on both sides); tolerance of
-    tests/test_pallas.py."""
+    tests/test_pallas.py.  On the CPU no launch is counted, per edge count
+    neither."""
     H, W = hw
-    E = 2
     levels, cflat, off0, off1 = lookup_problem(rng, E, H, W)
     lv_j = [jnp.asarray(v).astype(dtype) for v in levels]
     ref = jlookup.fused_pyramid_lookup(
@@ -299,10 +412,10 @@ def test_pyramid_lookup_plain_matches_pallas(rng, hw, dtype):
         jnp.asarray(off0), jnp.asarray(off1), H, W, interpret=True,
         tile_p=8)
     lv_t = [t(v).to(getattr(torch, dtype)) for v in levels]
-    before = tlookup.fused_pyramid_lookup.launches
-    out = tlookup.fused_pyramid_lookup(lv_t, t(cflat), t(off0), t(off1),
-                                       H, W)
-    assert tlookup.fused_pyramid_lookup.launches == before  # plain on CPU
+    k2 = tlookup.fused_pyramid_lookup
+    before = (k2.launches, dict(k2.launches_by_edges))
+    out = k2(lv_t, t(cflat), t(off0), t(off1), H, W)
+    assert (k2.launches, k2.launches_by_edges) == before  # plain on CPU
     assert out.shape == (E, H * W, 196) and out.dtype == torch.float32
     close(out, ref, atol=2e-4)
 

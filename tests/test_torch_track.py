@@ -257,7 +257,8 @@ def test_port_imports_no_jax():
             "lgu_slam_tpu_torch.utils.checkpoint",
             "scripts/train_synthetic_torch.py",
             "scripts/profile_torch_k2_parts.py",
-            "scripts/profile_torch_k1_parts.py"} <= mods
+            "scripts/profile_torch_k1_parts.py",
+            "scripts/ab_k1_torch.py", "scripts/ab_k2_torch.py"} <= mods
 
 
 def test_entry_points_need_cuda_without_device(monkeypatch):
