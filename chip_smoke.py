@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Six phases; any failure exits non-zero.
+Seven phases; any failure exits non-zero.
 
 1. Build the CUDA kernels from ``lgu_slam_tpu_torch/csrc`` with nvcc for
    sm_90a, all at once (printing ptxas' register/shared-memory summary),
@@ -55,9 +55,23 @@ Six phases; any failure exits non-zero.
    10 keyframes with thresholds 0: every K1 launch is the fp32-operand
    kernel (probes + pyramid rebuilds), K2's launches are probes + GRU
    iterations; the median ms per keyframe update and the peak memory.
+7. The multi-device paths at world size 1, under NCCL on one process group
+   (``tcp://127.0.0.1`` at a free port, destroyed at the end): one sharded
+   DBA step (12 frames of 48 x 64, 2 Gauss-Newton iterations) against the
+   one-process ``dba_step`` on the same inputs; the sharded backend pass
+   over 12 full-width keyframes tracked from phase 3's frames, through
+   ``Backend`` over the group (K2's launches must equal the sharded
+   sub-chunks times the steps), and once more with the edges sorted by
+   source frame, where its chunks are the one-process pass's, against that
+   pass from the same state; one full-width ``TrainConfig()`` step under
+   ``data_parallel`` (DistributedDataParallel) against a plain
+   ``train_step`` from the same weights, batch and carry: the loss, the
+   clipped gradients and the weights after the step (a weight whose
+   gradient's sign is held to fp32 rounding).  Each is timed beside its
+   one-process path.
 
-Before the last line it prints the tracking, terminate, training and fp32
-tracking reports, the run's wall time, the card's name and power limit, and
+Before the last line it prints the tracking, terminate, training, fp32
+tracking and world-size-1 reports, the run's wall time, the card's name and power limit, and
 one JSON line with each kernel's error, time, bound and launches.  The last
 line is ``{"ok": true, "device": {...}}``.
 Data and weights come from fixed seeds; nothing needs the network.
@@ -68,6 +82,7 @@ from __future__ import annotations
 import importlib.util
 import inspect
 import json
+import socket
 import statistics
 import subprocess
 import sys
@@ -77,8 +92,12 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lgu_slam_tpu_torch.data.synthetic import SyntheticDataset
+from lgu_slam_tpu_torch.geom.dba import DbaPlan, dba_step
+from lgu_slam_tpu_torch.geom.projective import projective_transform
+from lgu_slam_tpu_torch.lie import se3_exp, se3_inv, se3_mul
 from lgu_slam_tpu_torch.models.net import LGUNet, init_state_dict
 from lgu_slam_tpu_torch.ops import _build
 from lgu_slam_tpu_torch.ops.k2_parts import (
@@ -100,7 +119,10 @@ from lgu_slam_tpu_torch.ops.pyramid_lookup import (
 from lgu_slam_tpu_torch.ops.row_gather import row_gather, row_gather_plain
 from lgu_slam_tpu_torch.ops.sampler import sample_taps_flat, window_deltas
 from lgu_slam_tpu_torch.ops.window_lookup import window_lookup
+from lgu_slam_tpu_torch.parallel.backend_shard import backend_plan
+from lgu_slam_tpu_torch.parallel.dba_shard import dba_step_sharded
 from lgu_slam_tpu_torch.parallel.train_dp import (
+    data_parallel,
     make_optimizer,
     train_step,
     window_edges,
@@ -1013,6 +1035,296 @@ def phase_train(dev) -> dict:
     return report
 
 
+# -- phase 7: the multi-device paths at world size 1 --------------------------
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def timed(fn):
+    """(fn(), its wall ms on the card)."""
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t_start)
+
+
+def dba_scene(dev, N=12, H=48, W=64):
+    """tests/test_dba_shard.py's scene at the frontend's 1/8 resolution:
+    N frames, every edge |i - j| <= 2, targets from the true poses, the
+    start perturbed."""
+    gen = torch.Generator().manual_seed(SEED)
+    xi = torch.cumsum(torch.randn(N, 6, generator=gen) * 0.03, 0)
+    poses_gt = se3_exp(xi).to(dev)
+    disps_gt = (0.6 + 0.2 * torch.rand(N, H, W, generator=gen)).to(dev)
+    intr = torch.tensor([W * 1.2, W * 1.2, W / 2, H / 2], device=dev)
+    pairs = [(i, j) for i in range(N) for j in range(N)
+             if 0 < abs(i - j) <= 2]
+    ii, jj = (np.asarray(x) for x in zip(*pairs))
+    target, _ = projective_transform(
+        poses_gt, disps_gt, intr.expand(N, 4),
+        torch.as_tensor(ii, device=dev), torch.as_tensor(jj, device=dev))
+    poses0 = se3_mul(se3_exp((torch.randn(N, 6, generator=gen) * 0.02)
+                             .to(dev)), poses_gt)
+    disps0 = disps_gt + (torch.randn(N, H, W, generator=gen) * 0.02).to(dev)
+    return (poses0, disps0, intr, torch.zeros_like(disps0), target,
+            torch.ones_like(target), torch.full_like(disps0, 1e-3), ii, jj)
+
+
+def phase_world_size_1_dba(dev, group) -> dict:
+    """One sharded DBA step against the one-process dba_step."""
+    poses0, disps0, intr, sens, target, weight, eta, ii, jj = dba_scene(dev)
+    N = poses0.shape[0]
+    plan = DbaPlan.build(ii, jj, 1, N, dev)
+    ms, ms_ref = [], []
+    for _ in range(3):  # the first of each builds its plans and warms up
+        (p, d), t = timed(lambda: dba_step_sharded(
+            group, poses0, disps0, intr, sens, target, weight, eta, ii, jj,
+            1, N, iters=2))
+        (p_ref, d_ref), t_ref = timed(lambda: dba_step(
+            poses0, disps0, intr, sens, target, weight, eta, plan, iters=2))
+        ms.append(t)
+        ms_ref.append(t_ref)
+    pose_err = (p - p_ref).abs().max().item()
+    disp_err = ((d - d_ref).abs() / (2e-4 + 1e-3 * d_ref.abs())).max().item()
+    # tests/test_dba_shard.py's tolerances: poses atol 2e-5 (rtol 1e-4),
+    # disparities atol 2e-4 / rtol 1e-3
+    check(pose_err < 2e-5 + 1e-4 * p_ref.abs().max().item(),
+          f"sharded DBA poses vs dba_step: {pose_err}")
+    check(disp_err <= 1.0, f"sharded DBA disparities vs dba_step: "
+          f"{disp_err} of the tolerance")
+    return dict(frames=N, edges=len(ii), pose_max_abs_err=pose_err,
+                disp_err_share_of_tolerance=disp_err, ms_sharded=ms[-1],
+                ms_one_process=ms_ref[-1], ms_sharded_all=ms,
+                ms_one_process_all=ms_ref)
+
+
+def phase_world_size_1_backend(dev, group, kernels: dict, n_kf=12,
+                               steps=3) -> dict:
+    """The sharded backend pass over n_kf full-width keyframes tracked from
+    phase 3's frames: through Backend over the group, then with the edges
+    sorted by ii against the one-process pass from the same state."""
+    cfg = SLAMConfig().replace(filter_thresh=0.0, keyframe_thresh=0.0)
+    H, W = cfg.image_size
+    sd = init_state_dict(cfg, SEED)
+    slam = LGUSlam(sd, cfg, device=dev, process_group=group)
+    for t, img, intr in shifted_texture_frames(n_kf, H, W, SEED + 1):
+        slam.track(float(t), img, intrinsics=intr)
+    v = slam.video
+    check(v.counter == n_kf, f"{v.counter} keyframes, not {n_kf}")
+    del slam.frontend
+    torch.cuda.empty_cache()
+    state = {name: getattr(v, name).clone() for name in v._FIELDS}
+
+    def restore():
+        for name, x in state.items():
+            getattr(v, name).copy_(x)
+
+    # Backend over the group: proximity edges, K2 per sharded sub-chunk
+    reset_counts()
+    with CallCounts() as calls:
+        with warnings.catch_warnings():  # the 16*t budget may be capped
+            warnings.simplefilter("ignore", UserWarning)
+            _, ms_backend = timed(lambda: slam.backend(steps))
+    k2 = fused_pyramid_lookup.launches
+    check(masked_corr_level0.launches == 0, "the backend launched K1")
+    (n_edges, s), = calls.lowmem
+    check(s == steps, f"backend steps {s}")
+    check(bool(torch.isfinite(v.poses[:n_kf]).all())
+          and bool(torch.isfinite(v.disps[:n_kf]).all()),
+          "non-finite poses or disparities after the sharded pass")
+    # at world size 1 the one rank holds every edge, in chunks of
+    # backend_chunk in ii order: K2 once per sub-chunk of each chunk
+    per_step = sub_chunks(n_edges, cfg.backend_chunk, cfg.backend_sub_chunk)
+    check(k2 == per_step * steps,
+          f"K2 launches {k2} != sharded sub-chunks {per_step} x {steps}")
+    kernels["fused_pyramid_lookup"]["launches_sharded_backend"] = k2
+
+    # edges sorted by ii: the sharded chunks are the one-process chunks
+    restore()
+    net = slam.net
+    kw = dict(corr_impl="alt", max_factors=min(16 * n_kf,
+                                               cfg.backend_edge_cap),
+              edge_bucket=cfg.backend_edge_cap, inactive_bucket=8)
+    graph = FactorGraph(net, v, cfg, **kw)
+    graph.add_proximity_factors(rad=cfg.backend_radius, nms=cfg.backend_nms,
+                                thresh=cfg.backend_thresh, beta=cfg.beta)
+    order = np.argsort(graph.ii, kind="stable")
+    ii, jj = graph.ii[order], graph.jj[order]
+    plan = backend_plan(ii, v.poses.shape[0], 1)
+    check(np.array_equal(plan.perm[0], np.arange(len(ii))),
+          "sorted edges: the sharded plan reorders them")
+    out = {}
+    for name, g in (("sharded", group), ("one_process", None),
+                    ("one_process_again", None)):
+        restore()
+        graph = FactorGraph(net, v, cfg, **kw)
+        graph.add_factors(ii, jj)
+        _, ms = timed(lambda: graph.update_lowmem(steps=steps, group=g))
+        out[name] = (v.poses[:n_kf].clone(), v.disps[:n_kf].clone(), ms)
+        del graph
+
+    def gaps(a, b):
+        """Max abs pose gap; disparity gaps relative to max(|d|, 1e-3):
+        the 99th percentile and the max."""
+        (p_a, d_a, _), (p_b, d_b, _) = out[a], out[b]
+        rel = ((d_a - d_b).abs() / d_b.abs().clamp(min=1e-3)).flatten()
+        return ((p_a - p_b).abs().max().item(),
+                torch.quantile(rel[:2 ** 24].float(), 0.99).item(),
+                rel.max().item())
+
+    pose_err, disp_q99, disp_max = gaps("sharded", "one_process")
+    self_pose, self_q99, self_max = gaps("one_process_again", "one_process")
+    # the same chunks and GRU updates; the card's index_add_ scatters are
+    # atomic, so the one-process pass differs from itself run to run (on
+    # an H100: poses ~5e-6, disparities' 99th percentile ~1e-3 relative,
+    # their max 0.08-0.24 at pixels that no edge constrains); the sharded
+    # pass is held to 20 x and 10 x those
+    check(pose_err < 1e-4, f"sorted edges: sharded vs one-process poses "
+          f"{pose_err}")
+    check(disp_q99 < 1e-2, f"sorted edges: sharded vs one-process "
+          f"disparities, 99th percentile (relative) {disp_q99}")
+    ms_s, ms_1 = out["sharded"][2], out["one_process"][2]
+    report = dict(keyframes=n_kf, steps=steps, backend_edges=n_edges,
+                  k2_launches=k2, k2_per_step=per_step,
+                  ms_backend_call=ms_backend,
+                  ms_per_step_backend_call=ms_backend / steps,
+                  sorted_edges=len(ii),
+                  ms_per_step_sharded=ms_s / steps,
+                  ms_per_step_one_process=ms_1 / steps,
+                  ms_per_step_one_process_again=out[
+                      "one_process_again"][2] / steps,
+                  sorted_pose_max_abs_err=pose_err,
+                  sorted_disp_q99_rel_err=disp_q99,
+                  sorted_disp_max_rel_err=disp_max,
+                  one_process_self_pose_max_abs_err=self_pose,
+                  one_process_self_disp_q99_rel_err=self_q99,
+                  one_process_self_disp_max_rel_err=self_max)
+    del slam, state
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase_world_size_1_train(dev, group) -> dict:
+    """One full-width TrainConfig() step under DDP against a plain
+    train_step from the same weights, batch and carry; a second step of
+    each is timed too.  The carry is the ground-truth start (every frame
+    after the first at frame 1's pose) moved by 1e-3 twists: at the start
+    itself the edges among those frames sit on the lookup's integer grid,
+    where the step's gradient moves by tens of percent under 1e-6 of pose
+    (tests/test_torch_parallel.py), and the card's atomics differ by
+    more."""
+    cfg = TrainConfig()
+    H, W = cfg.image_size
+    N = cfg.n_frames
+    db = SyntheticDataset(n_scenes=2, frames_per_scene=N + 1, n_frames=N,
+                          crop_size=(H, W), seed=SEED)
+    batch = synthetic_batch(db, [0, 2], dev)
+    Ps = se3_inv(batch[1])
+    Gs0 = torch.cat([Ps[:, :1], Ps[:, 1:2].expand(-1, N - 1, -1)], dim=1)
+    gen = torch.Generator().manual_seed(SEED)
+    tw = torch.randn(Gs0.shape[:2] + (6,), generator=gen).to(dev) * 1e-3
+    tw[:, 0] = 0
+    Gs0 = se3_mul(se3_exp(tw), Gs0)
+    disp0 = torch.ones(cfg.batch, N, H // 8, W // 8, device=dev)
+    sd = init_state_dict(SLAMConfig(), SEED)
+    ii, jj = (torch.from_numpy(x).to(dev) for x in window_edges(N))
+    runs = {}
+    for name in ("ddp", "plain"):
+        net = LGUNet(device=dev)
+        net.load_state_dict(sd)
+        model = data_parallel(net, group) if name == "ddp" else net
+        opt = make_optimizer(model, cfg)
+
+        def step():
+            return train_step(model, opt, batch, Gs0, disp0, cfg=cfg, ii=ii,
+                              jj=jj)
+
+        (metrics, _), ms = timed(step)
+        lr = opt.schedule(0)
+        weights = {n: p.detach().clone() for n, p in net.named_parameters()}
+        # the clipped gradients AdamW read: its first moment / (1 - beta1)
+        grads = {n: opt.adamw.state[p]["exp_avg"] / (1.0 - 0.9)
+                 for n, p in net.named_parameters()}
+        _, ms_again = timed(step)  # DDP's first step also sets up buckets
+        runs[name] = (metrics["loss"].item(), [ms, ms_again], weights, grads)
+        del model, net, opt
+    (loss_d, ms_d, w_d, g_d), (loss_p, ms_p, w_p, g_p) = runs["ddp"], \
+        runs["plain"]
+    loss_err = abs(loss_d - loss_p) / abs(loss_p)
+    check(np.isfinite(loss_d) and loss_err < 1e-5,
+          f"DDP loss {loss_d} vs plain {loss_p}")
+    # each gradient tensor to 1e-2 of its largest entry; where the plain
+    # gradient exceeds twice that, Adam's first step moves the weight by lr
+    # in the gradient's sign, and the two agree to fp32 rounding; elsewhere
+    # (an entry within the tolerance of 0) they lie within 2 lr.  The
+    # feature encoder's biases in front of its instance norms (all but its
+    # output conv's) have gradients of rounding noise: weights only.
+    grad_err, sure_err, other_err, noise = 0.0, 0.0, 0.0, 0.0
+    top_all = max(g.abs().max().item() for g in g_p.values())
+    for n, g in g_p.items():
+        top = g.abs().max().item()
+        dw = (w_d[n] - w_p[n]).abs()
+        other_err = max(other_err, dw.max().item() / lr)
+        if (n.startswith("fnet.") and n.endswith(".bias")
+                and n != "fnet.conv2.bias"):
+            noise = max(noise, top / top_all)
+            continue
+        grad_err = max(grad_err,
+                       (g_d[n] - g).abs().max().item() / max(top, 1e-30))
+        sure = g.abs() > 2 * 1e-2 * top
+        room = 1e-3 * lr + 1e-6 * w_p[n].abs()
+        if sure.any():
+            sure_err = max(sure_err, (dw[sure] / room[sure]).max().item())
+    check(grad_err <= 1e-2, f"DDP gradients differ by {grad_err:.3g} of "
+          "a tensor's largest entry")
+    check(sure_err <= 1.0, "DDP weights with a held gradient sign differ "
+          f"by {sure_err:.3g} x (1e-3 lr + 1e-6 |w|)")
+    check(other_err <= 2 * (1 + 1e-3), f"DDP weights differ by "
+          f"{other_err:.3g} lr")
+    torch.cuda.empty_cache()
+    return dict(loss_ddp=loss_d, loss_plain=loss_p, loss_rel_err=loss_err,
+                grads_max_rel_err=grad_err, lr=lr,
+                weights_sign_held_err_over_room=sure_err,
+                weights_max_abs_diff_over_lr=other_err,
+                noise_grads_max_over_top=noise, ms_step_ddp=ms_d,
+                ms_step_plain=ms_p)
+
+
+def phase_world_size_1(dev, kernels: dict) -> dict:
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        group = dist.group.WORLD
+        check(dist.get_backend(group) == "nccl" and
+              dist.get_world_size(group) == 1, "not an NCCL group of 1")
+        report = dict(world_size=1, backend="nccl",
+                      dba=phase_world_size_1_dba(dev, group),
+                      backend_pass=phase_world_size_1_backend(dev, group,
+                                                              kernels),
+                      train=phase_world_size_1_train(dev, group))
+    finally:
+        dist.destroy_process_group()
+    d, b, t = report["dba"], report["backend_pass"], report["train"]
+    print(f"phase 7: sharded DBA step {d['ms_sharded']:.2f} ms (one "
+          f"process {d['ms_one_process']:.2f} ms), pose err "
+          f"{d['pose_max_abs_err']:.3g}; sharded backend "
+          f"{b['ms_per_step_sharded']:.1f} ms per step (one process "
+          f"{b['ms_per_step_one_process']:.1f} ms) over "
+          f"{b['sorted_edges']} edges, K2 launches {b['k2_launches']}; "
+          f"DDP train steps {t['ms_step_ddp'][0]:.1f}, "
+          f"{t['ms_step_ddp'][1]:.1f} ms (plain {t['ms_step_plain'][0]:.1f},"
+          f" {t['ms_step_plain'][1]:.1f} ms), loss rel err "
+          f"{t['loss_rel_err']:.3g}, gradients {t['grads_max_rel_err']:.3g}"
+          f", weights {t['weights_max_abs_diff_over_lr']:.3g} lr")
+    print("phase 7: the sharded DBA, the sharded backend pass and the DDP "
+          "train step ran at world size 1 (one process, one card, NCCL)")
+    return report
+
+
 def main():
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke run needs an NVIDIA GPU")
@@ -1048,11 +1360,15 @@ def main():
           f"{fp32['k1_launches']}, K2 launches {fp32['k2_launches']}, "
           f"{fp32['ms_per_keyframe_median']:.1f} ms per keyframe update, "
           f"peak {fp32['peak_memory_gb']:.2f} GB, poses finite")
+    torch.cuda.empty_cache()
+    world1 = phase_world_size_1(dev, kernels)
     # launches on the main path: K1 bf16 and K2 over track() +
-    # terminate(), K1 fp32 operands over phase 6's track()
+    # terminate(), K2 also over phase 7's sharded backend pass, K1 fp32
+    # operands over phase 6's track()
     for name in ("masked_corr_level0_tc", "fused_pyramid_lookup"):
         k = kernels[name]
-        k["launches"] = k["launches_track"] + k["launches_terminate"]
+        k["launches"] = k["launches_track"] + k["launches_terminate"] + \
+            k.get("launches_sharded_backend", 0)
     k = kernels["masked_corr_level0_tf32"]
     k["launches"] = k["launches_track_fp32"]
     for k in kernels.values():
@@ -1063,6 +1379,7 @@ def main():
     print(json.dumps({"terminate": terminate}))
     print(json.dumps({"training": train}))
     print(json.dumps({"tracking_fp32": fp32}))
+    print(json.dumps({"world_size_1": world1}))
     print(json.dumps({"seconds": seconds}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": list(kernels.values())}))

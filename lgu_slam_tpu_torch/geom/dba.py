@@ -170,6 +170,53 @@ def _solve_damped(A, b, lm: float, ep: float):
     return torch.where(ok, dx, torch.zeros_like(dx))
 
 
+def edge_rows(Eii, Eij, plan: DbaPlan):
+    """The E-matrix rows [K+E, 6, HW]: one self row per source frame (Eii
+    summed over its edges), then one row per edge (Eij)."""
+    K, HW = plan.kf_ids.shape[0], Eii.shape[-1]
+    E_self = Eii.new_zeros(K, 6, HW).index_add_(0, plan.edge_slot, Eii)
+    return torch.cat([E_self, Eij], dim=0)
+
+
+def schur_system(E_rows, Qs, plan: DbaPlan):
+    """The Schur complement of the depth slots in the pose system [6P, 6P]:
+    per slot k, the blocks E_d diag(Q_k) E_e^T of its rows inside the
+    window, summed into their pose pairs."""
+    P, K = plan.P, plan.kf_ids.shape[0]
+    HW = E_rows.shape[-1]
+    D = plan.rows_of_slot.shape[1]
+    Eg = E_rows[plan.rows_of_slot] * plan.rows_ok[..., None, None]
+    EgQ = (Eg * Qs[:, None, None, :]).reshape(K, D * 6, HW)
+    B = torch.bmm(EgQ, Eg.reshape(K, D * 6, HW).transpose(1, 2))
+    B = B.reshape(K, D, 6, D, 6).permute(0, 1, 3, 2, 4)
+    S = E_rows.new_zeros(P * P, 6, 6)
+    S.index_add_(0, plan.pair_dst, B.reshape(K * D * D, 6, 6)[plan.pair_sel])
+    return S.reshape(P, P, 6, 6).permute(0, 2, 1, 3).reshape(P * 6, P * 6)
+
+
+def schur_rhs(E_rows, Qws, plan: DbaPlan):
+    """The Schur right-hand side [6P]: v[pose(r)] += E_r (Q w)[slot(r)] over
+    the rows inside the window (``Qws`` [K, HW] per slot)."""
+    v_rows = torch.einsum("rah,rh->ra", E_rows, Qws[plan.row_slot])
+    sr = plan.schur_rows
+    vs = E_rows.new_zeros(plan.P, 6).index_add_(0, plan.rp[sr], v_rows[sr])
+    return vs.reshape(-1)
+
+
+def back_substitute(E_rows, dx, plan: DbaPlan):
+    """sum over the rows r of each slot of E_r^T dx[pose(r)] -> [K, HW]."""
+    br = plan.bsub_rows
+    dw_rows = torch.einsum("rah,ra->rh", E_rows[br], dx[plan.rp[br]])
+    K, HW = plan.kf_ids.shape[0], E_rows.shape[-1]
+    return E_rows.new_zeros(K, HW).index_add_(0, plan.row_slot[br], dw_rows)
+
+
+def retract_window(poses, dx, plan: DbaPlan):
+    poses = poses.clone()
+    poses[plan.t0:plan.t1] = se3_retr(poses[plan.t0:plan.t1], dx)
+    return poses
+
+
 def dba_step(poses, disps, intrinsics, disps_sens, target, weight, eta,
              plan: DbaPlan, iters: int = 2, lm: float = 1e-4,
              ep: float = 0.1, motion_only: bool = False,
@@ -182,7 +229,7 @@ def dba_step(poses, disps, intrinsics, disps_sens, target, weight, eta,
     """
     N, ht, wd = disps.shape
     HW = ht * wd
-    P, t0, t1 = plan.P, plan.t0, plan.t1
+    P = plan.P
     intr_n = intrinsics.expand(N, 4)
     K = plan.kf_ids.shape[0]
     kf = plan.kf_ids
@@ -198,8 +245,7 @@ def dba_step(poses, disps, intrinsics, disps_sens, target, weight, eta,
         A, b = _pose_system(He, ve, plan)
         if motion_only:
             dx = _solve_damped(A, b, lm, ep).reshape(P, 6)
-            poses = poses.clone()
-            poses[t0:t1] = se3_retr(poses[t0:t1], dx)
+            poses = retract_window(poses, dx, plan)
             continue
 
         disps_s = disps.reshape(N, HW)[kf]
@@ -209,34 +255,15 @@ def dba_step(poses, disps, intrinsics, disps_sens, target, weight, eta,
         ws = ws - m_s * alpha * (disps_s - sens_s)
         Qs = 1.0 / Cs
 
-        E_self = Eii.new_zeros(K, 6, HW).index_add_(0, plan.edge_slot, Eii)
-        E_rows = torch.cat([E_self, Eij], dim=0)  # [K+E, 6, HW]
+        E_rows = edge_rows(Eii, Eij, plan)
+        S = schur_system(E_rows, Qs, plan)
+        vs = schur_rhs(E_rows, Qs * ws, plan)
+        dx = _solve_damped(A - S, b - vs, lm, ep).reshape(P, 6)
 
-        # Schur blocks per depth slot: B[k,d,e] = E_d diag(Q_k) E_e^T
-        D = plan.rows_of_slot.shape[1]
-        Eg = E_rows[plan.rows_of_slot] * plan.rows_ok[..., None, None]
-        EgQ = (Eg * Qs[:, None, None, :]).reshape(K, D * 6, HW)
-        B = torch.bmm(EgQ, Eg.reshape(K, D * 6, HW).transpose(1, 2))
-        B = B.reshape(K, D, 6, D, 6).permute(0, 1, 3, 2, 4)
-        S = A.new_zeros(P * P, 6, 6)
-        S.index_add_(0, plan.pair_dst, B.reshape(K * D * D, 6, 6)[plan.pair_sel])
-        S = S.reshape(P, P, 6, 6).permute(0, 2, 1, 3).reshape(P * 6, P * 6)
-
-        Qw_rows = (Qs * ws)[plan.row_slot]  # [K+E, HW]
-        v_rows = torch.einsum("rah,rh->ra", E_rows, Qw_rows)
-        sr = plan.schur_rows
-        vs = b.new_zeros(P, 6).index_add_(0, plan.rp[sr], v_rows[sr])
-
-        dx = _solve_damped(A - S, b - vs.reshape(-1), lm, ep).reshape(P, 6)
-
-        br = plan.bsub_rows
-        dw_rows = torch.einsum("rah,ra->rh", E_rows[br], dx[plan.rp[br]])
-        dw_s = Qs.new_zeros(K, HW).index_add_(0, plan.row_slot[br], dw_rows)
-        dz = Qs * (ws - dw_s)
+        dz = Qs * (ws - back_substitute(E_rows, dx, plan))
         dz = torch.where(torch.isfinite(dz), dz, torch.zeros_like(dz))
 
-        poses = poses.clone()
-        poses[t0:t1] = se3_retr(poses[t0:t1], dx)
+        poses = retract_window(poses, dx, plan)
         disps = disps.index_add(0, kf, dz.reshape(K, ht, wd))
 
     if not motion_only:

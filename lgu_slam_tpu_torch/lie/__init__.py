@@ -1,10 +1,10 @@
-"""Quaternion Lie-group library on torch tensors (SE(3) only; Sim(3), which
-no ported path uses, comes with slice 5 of the port).
+"""Quaternion Lie-group library on torch tensors: SE(3) and Sim(3).
 
 Layouts match the JAX package's ``lie`` so trajectories interoperate:
 
 - SE(3):  ``[..., 7]`` = (tx, ty, tz, qx, qy, qz, qw)
-- tangent: translation-first ``(v, w)``
+- Sim(3): ``[..., 8]`` = SE(3) + scale
+- tangent: translation-first ``(v, w)`` (Sim(3): ``(v, w, sigma)``)
 """
 
 from lgu_slam_tpu_torch.lie.se3 import (
@@ -27,6 +27,16 @@ from lgu_slam_tpu_torch.lie.se3 import (
     so3_exp,
     so3_log,
     so3_matrix,
+)
+from lgu_slam_tpu_torch.lie.sim3 import (
+    sim3_act,
+    sim3_exp,
+    sim3_from_se3,
+    sim3_identity,
+    sim3_inv,
+    sim3_log,
+    sim3_mul,
+    sim3_scale,
 )
 
 __all__ = [k for k in dir() if not k.startswith("_")]

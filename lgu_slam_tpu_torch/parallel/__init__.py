@@ -1,1 +1,2 @@
-"""Training of the PyTorch port (one process; DDP comes with the multi-GPU slice)."""
+"""Multi-device paths of the PyTorch port: the sharded DBA, the sharded
+backend pass and the (data-parallel) training step."""

@@ -1,7 +1,23 @@
-"""The training step (port of the JAX package's ``parallel/train_dp.py``,
-one process): the unrolled ``LGUNet.forward`` with a differentiable BA per
-step, the four losses, global-norm gradient clipping, and AdamW under a
-one-cycle learning rate.
+"""The training step (port of the JAX package's ``parallel/train_dp.py``):
+the unrolled ``LGUNet.forward`` with a differentiable BA per step, the four
+losses, global-norm gradient clipping, and AdamW under a one-cycle learning
+rate, in one process or data-parallel over a process group.
+
+Data parallelism is the counterpart of the JAX package's data mesh
+(``make_data_mesh``, ``shard_batch``, ``replicate``): one process per
+device, the model under :class:`SummingDDP` (made by :func:`data_parallel`,
+which also makes every rank start from rank 0's weights), the batch split
+over the ranks (:func:`shard_batch`).  The losses are means over the batch,
+so the whole batch's loss is the ranks' mean when the batch divides evenly
+(:func:`shard_batch` raises otherwise).  The update heads' ``GradClip``
+zeroes gradient entries by their size, so each rank back-propagates its
+loss divided by the world size (the scale of the whole batch's gradient)
+and :class:`SummingDDP` sums the ranks' gradients instead of averaging
+them: a step then equals the one-process step on the whole batch.  Both
+halves of that rule live in :class:`SummingDDP`; :func:`train_step` refuses
+a plain ``DistributedDataParallel``, whose average would scale the
+gradients by 1 / world**2.  The global-norm clip in
+:meth:`OneCycleAdamW.step` reads the gradients after that all-reduce.
 
 The optimizer is ``optax.chain(clip_by_global_norm(clip), adamw(schedule,
 weight_decay))`` written out: the clip scales the gradients by
@@ -18,9 +34,12 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from lgu_slam_tpu_torch import lie
 from lgu_slam_tpu_torch.geom import losses
+from lgu_slam_tpu_torch.parallel.dba_shard import check_group
 from lgu_slam_tpu_torch.utils.config import TrainConfig
 
 
@@ -132,9 +151,71 @@ def train_step(model, opt: OneCycleAdamW, batch, Gs0, disp0, *,
                cfg: TrainConfig, ii, jj):
     """One optimizer step on ``batch`` (see :func:`loss_fn`).  Returns
     (metrics, carry), both on the device."""
+    if (isinstance(model, DistributedDataParallel)
+            and not isinstance(model, SummingDDP)):
+        raise TypeError("train_step takes a data-parallel model made by "
+                        "data_parallel(), not a plain DistributedDataParallel")
     opt.zero_grad()
     total, metrics, carry = loss_fn(model, batch, Gs0, disp0, cfg=cfg,
                                     ii=ii, jj=jj)
+    if isinstance(model, SummingDDP):
+        total = model.rank_share(total)
     total.backward()
     opt.step()
     return metrics, carry
+
+
+class SummingDDP(DistributedDataParallel):
+    """``DistributedDataParallel`` whose gradient all-reduce sums the ranks'
+    gradients; each rank scales its loss by :meth:`rank_share` before the
+    backward, so the sum is the whole batch's gradient (see the module
+    docstring)."""
+
+    def __init__(self, module: torch.nn.Module, group=None):
+        dev = next(module.parameters()).device
+        check_group(group, dev)
+        super().__init__(
+            module, device_ids=[dev] if dev.type == "cuda" else None,
+            process_group=group)
+        self.register_comm_hook(self.process_group, _sum_hook)
+
+    def rank_share(self, loss: torch.Tensor) -> torch.Tensor:
+        """This rank's share of the whole batch's loss: its own batch's
+        mean loss over the world size."""
+        return loss / dist.get_world_size(self.process_group)
+
+
+def _sum_hook(group, bucket):
+    """DDP gradient hook: the ranks' sum (DDP's default divides by the
+    world size)."""
+    work = dist.all_reduce(bucket.buffer(), group=group, async_op=True)
+    return work.get_future().then(lambda fut: fut.value()[0])
+
+
+def data_parallel(model: torch.nn.Module, group=None) -> SummingDDP:
+    """``model`` under :class:`SummingDDP` on ``group`` (default: the
+    world), one device per process: NCCL for a model on CUDA, gloo for one
+    on the CPU.  DDP broadcasts rank 0's parameters and buffers."""
+    return SummingDDP(model, group)
+
+
+def shard_batch(tensors, group=None):
+    """This rank's contiguous share of the leading (batch) axis of every
+    tensor in ``tensors``; raises unless the batch divides evenly over the
+    ranks."""
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    B = tensors[0].shape[0]
+    if B % world:
+        raise ValueError(f"batch {B} does not divide over {world} ranks")
+    n = B // world
+    return tuple(x[rank * n:(rank + 1) * n] for x in tensors)
+
+
+def mean_over_ranks(metrics: dict, group=None) -> dict:
+    """The ranks' mean of each 0-dim metric (one all_reduce).  For the loss,
+    a mean over the batch, this is the whole batch's value."""
+    keys = sorted(metrics)
+    x = torch.stack([metrics[k].float() for k in keys])
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    x = x / dist.get_world_size(group)
+    return dict(zip(keys, x))

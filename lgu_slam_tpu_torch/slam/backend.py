@@ -1,5 +1,6 @@
 """Backend: one global bundle adjustment over all keyframes (port of the
-JAX package's ``slam/backend.py``), on one device."""
+JAX package's ``slam/backend.py``), on one device or sharded over the ranks
+of a process group."""
 
 from __future__ import annotations
 
@@ -8,16 +9,22 @@ import warnings
 import numpy as np
 
 from lgu_slam_tpu_torch.models.net import LGUNet
+from lgu_slam_tpu_torch.parallel.backend_shard import broadcast_video
 from lgu_slam_tpu_torch.slam.factor_graph import FactorGraph
 from lgu_slam_tpu_torch.slam.state import Video
 from lgu_slam_tpu_torch.utils.config import SLAMConfig
 
 
 class Backend:
-    def __init__(self, net: LGUNet, video: Video, cfg: SLAMConfig):
+    def __init__(self, net: LGUNet, video: Video, cfg: SLAMConfig,
+                 group=None):
+        """``group`` (a ``torch.distributed`` process group, one rank per
+        device): every global pass runs sharded over its ranks by source
+        keyframe (``parallel/backend_shard.py``), from rank 0's video."""
         self.net = net
         self.video = video
         self.cfg = cfg
+        self.group = group
 
     def __call__(self, steps: int = 12):
         """Normalise the scale (monocular without sensed depth), plan up to
@@ -25,6 +32,8 @@ class Backend:
         low-memory update, and drop the edges."""
         cfg = self.cfg
         v = self.video
+        if self.group is not None:
+            broadcast_video(v, self.group)
         t = v.counter
         if t < 2:
             return
@@ -54,6 +63,6 @@ class Backend:
         graph.add_proximity_factors(rad=cfg.backend_radius,
                                     nms=cfg.backend_nms,
                                     thresh=cfg.backend_thresh, beta=cfg.beta)
-        graph.update_lowmem(steps=steps)
+        graph.update_lowmem(steps=steps, group=self.group)
         graph.clear_edges()
         v.dirty[:t] = True

@@ -28,15 +28,17 @@ from lgu_slam_tpu_torch.geom.projective import coords_grid, projective_transform
 from lgu_slam_tpu_torch.models.corr import build_fmap_pyramid, uses_volume
 from lgu_slam_tpu_torch.models.net import LGUNet
 from lgu_slam_tpu_torch.models.update import upsample_disp
+from lgu_slam_tpu_torch.parallel.backend_shard import update_lowmem_sharded
 from lgu_slam_tpu_torch.slam.state import Video
 from lgu_slam_tpu_torch.utils.config import SLAMConfig
 
 
 class _Chunk(NamedTuple):
-    """One chunk of the low-memory update: its edge slice, keyframe and
-    rig-expanded feature indices, and GraphAgg frame slots."""
+    """One chunk of the low-memory update: its edges (a slice of the edge
+    list, or edge ids), keyframe and rig-expanded feature indices, and
+    GraphAgg frame slots."""
 
-    sl: slice
+    sel: slice | torch.Tensor
     ii: torch.Tensor
     jj: torch.Tensor
     ii_rig: torch.Tensor
@@ -310,64 +312,89 @@ class FactorGraph:
         v.dirty[t0:t1] = True
         self.age += n
 
-    def _lowmem_chunk_plan(self, CH: int):
-        """Host plan of the low-memory update: per chunk of ``CH`` edges (in
-        edge order), its edge slice, keyframe and rig-expanded feature
-        indices (stereo self-edges read the right camera) and GraphAgg
-        frame slots, padded to ``CH`` as the JAX package pads them."""
+    def make_chunk(self, sel, CH: int) -> _Chunk:
+        """The chunk of the edges ``sel`` (a slice, or edge ids as numpy):
+        keyframe and rig-expanded feature indices (stereo self-edges read
+        the right camera) and GraphAgg frame slots, padded to ``CH`` as the
+        JAX package pads them."""
         rig = self.video.fmaps.shape[1]
-        chunks = []
-        for lo in range(0, self.n_edges, CH):
-            sl = slice(lo, min(lo + CH, self.n_edges))
-            ii, jj = self.ii[sl], self.jj[sl]
-            jj_rig = rig * jj + ((ii == jj) if rig > 1 else 0)
-            chunks.append(_Chunk(
-                sl, self._index(ii), self._index(jj), self._index(rig * ii),
-                self._index(jj_rig), *self._frame_slots(ii, CH)))
-        return chunks
+        ii, jj = self.ii[sel], self.jj[sel]
+        jj_rig = rig * jj + ((ii == jj) if rig > 1 else 0)
+        if not isinstance(sel, slice):
+            sel = self._index(sel)
+        return _Chunk(sel, self._index(ii), self._index(jj),
+                      self._index(rig * ii), self._index(jj_rig),
+                      *self._frame_slots(ii, CH))
+
+    def _lowmem_chunk_plan(self, CH: int):
+        """The one-process low-memory update's chunks: ``CH`` edges each, in
+        edge order."""
+        return [self.make_chunk(slice(lo, min(lo + CH, self.n_edges)), CH)
+                for lo in range(0, self.n_edges, CH)]
+
+    def prepare_lowmem(self):
+        """The pooled feature pyramid of the live keyframes and the pixel
+        grid, which the chunk updates read."""
+        self._build_fmap_pyramid()
+        return coords_grid(*self.video.disps.shape[1:], device=self.device)
+
+    def lowmem_chunk_update(self, c: _Chunk, coords0):
+        """One GRU update of chunk ``c`` with the correlation computed on
+        the fly: it reads the poses of the last DBA and the hidden states,
+        targets and weights of earlier chunks, stores the hidden state back
+        in its dtype, and writes the damping (and the upsampled disparity)
+        of the chunk's frame slots."""
+        v, cfg = self.video, self.cfg
+        coords1, _ = projective_transform(v.poses, v.disps, v.intrinsics,
+                                          c.ii, c.jj)
+        motn = torch.clamp(
+            torch.cat([coords1 - coords0, self.target[c.sel] - coords1],
+                      dim=-1), -64.0, 64.0)
+        corr = self.net.alt_corr(self.fmap_pyr, c.ii_rig, c.jj_rig, coords1)
+        hidden, delta, weight, eta, upmask, slot_mask = self.net.update_step(
+            self.hidden[c.sel][None], v.inps[c.ii].float()[None], corr[None],
+            motn[None], c.edge_slot, c.F)
+        self.hidden[c.sel] = hidden[0].to(self.hidden.dtype)
+        self.target[c.sel] = coords1 + delta[0]
+        self.weight[c.sel] = weight[0]
+        slot_mask = slot_mask & c.written
+        self._scatter_slots(v.damping, c.frame_ids, slot_mask, eta[0])
+        if cfg.upsample:
+            self._scatter_slots(v.disps_up, c.frame_ids, slot_mask,
+                                upsample_disp(v.disps[c.frame_ids],
+                                              upmask[0]))
 
     @torch.no_grad()
-    def update_lowmem(self, t0=None, t1=None, itrs=2, steps=8, EP=1e-7):
+    def update_lowmem(self, t0=None, t1=None, itrs=2, steps=8, EP=1e-7,
+                      group=None):
         """Global low-memory optimisation (the backend): ``steps`` rounds of
         {one GRU update per chunk of ``cfg.backend_chunk`` edges with the
         correlation computed on the fly, then one DBA over all edges with
         ``t0 = 1``, ``t1 = counter`` by default}.  Chunks see the poses of
         the last DBA and the hidden states, targets and weights of earlier
         chunks; the hidden state is stored back in its dtype after every
-        chunk."""
+        chunk.
+
+        With a process ``group`` (any world size) the pass runs sharded over
+        its ranks by source keyframe (``parallel/backend_shard.py``); every
+        rank must hold the same video and edges, and ends with the same
+        state."""
         if self.n_edges == 0:
             return
+        if group is not None:
+            return update_lowmem_sharded(self, group, t0, t1, itrs, steps,
+                                         EP)
         cfg = self.cfg
         v = self.video
         t = v.counter
-        self._build_fmap_pyramid()
+        coords0 = self.prepare_lowmem()
         chunks = self._lowmem_chunk_plan(cfg.backend_chunk)
         plan = DbaPlan.build(self.ii, self.jj, 1 if t0 is None else t0,
                              t if t1 is None else t1, self.device,
                              strict_t0_quirk=cfg.strict_t0_quirk)
-        coords0 = coords_grid(*v.disps.shape[1:], device=self.device)
         for _ in range(steps):
             for c in chunks:
-                coords1, _ = projective_transform(
-                    v.poses, v.disps, v.intrinsics, c.ii, c.jj)
-                motn = torch.clamp(
-                    torch.cat([coords1 - coords0, self.target[c.sl] - coords1],
-                              dim=-1), -64.0, 64.0)
-                corr = self.net.alt_corr(self.fmap_pyr, c.ii_rig, c.jj_rig,
-                                         coords1)
-                hidden, delta, weight, eta, upmask, slot_mask = \
-                    self.net.update_step(
-                        self.hidden[c.sl][None], v.inps[c.ii].float()[None],
-                        corr[None], motn[None], c.edge_slot, c.F)
-                self.hidden[c.sl] = hidden[0]  # cast to the storage dtype
-                self.target[c.sl] = coords1 + delta[0]
-                self.weight[c.sl] = weight[0]
-                slot_mask = slot_mask & c.written
-                self._scatter_slots(v.damping, c.frame_ids, slot_mask, eta[0])
-                if cfg.upsample:
-                    self._scatter_slots(
-                        v.disps_up, c.frame_ids, slot_mask,
-                        upsample_disp(v.disps[c.frame_ids], upmask[0]))
+                self.lowmem_chunk_update(c, coords0)
             # dba_step clamps the disparities at 1e-3
             v.poses, v.disps = dba_step(
                 v.poses, v.disps, v.intrinsics[0], v.disps_sens, self.target,

@@ -24,9 +24,16 @@ class LGUSlam:
     ``state_dict`` is an LGUNet state dict in the reference torch layout
     (``models.net.init_state_dict`` or ``utils.weights``).  ``device``
     defaults to CUDA and raises when CUDA is absent; pass ``"cpu"`` to run
-    the kernels' plain versions on the CPU."""
+    the kernels' plain versions on the CPU.
 
-    def __init__(self, state_dict: dict, cfg: SLAMConfig, device=None):
+    ``process_group`` (one process per device, NCCL on CUDA, gloo on the
+    CPU): the global backend passes run sharded over its ranks, as the JAX
+    package's do over several devices.  Every rank tracks the same stream;
+    each pass starts from rank 0's video, and every rank ends with the same
+    result."""
+
+    def __init__(self, state_dict: dict, cfg: SLAMConfig, device=None,
+                 process_group=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -37,7 +44,8 @@ class LGUSlam:
         self.video = Video(cfg, self.device)
         self.filter = MotionFilter(self.net, self.video, cfg)
         self.frontend = Frontend(self.net, self.video, cfg)
-        self.backend = Backend(self.net, self.video, cfg)
+        self.backend = Backend(self.net, self.video, cfg,
+                               group=process_group)
         self.traj_filler = TrajectoryFiller(self.net, self.video, cfg)
 
     def track(self, tstamp, image, depth=None, intrinsics=None):

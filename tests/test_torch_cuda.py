@@ -7,10 +7,17 @@ present.  This file imports no JAX, so it runs where JAX is absent:
 (``--noconftest``: tests/conftest.py configures JAX).
 """
 
+import socket
+
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 from torch_port import cuda_device, tiny_config_kwargs  # noqa: F401
+
+from lgu_slam_tpu_torch.geom.dba import DbaPlan, dba_step
+from lgu_slam_tpu_torch.geom.projective import projective_transform
+from lgu_slam_tpu_torch.lie import se3_exp, se3_mul
 
 from lgu_slam_tpu_torch.models.net import init_state_dict
 from lgu_slam_tpu_torch.ops.k2_parts import (
@@ -31,6 +38,9 @@ from lgu_slam_tpu_torch.ops.pyramid_lookup import (
 from lgu_slam_tpu_torch.ops.row_gather import row_gather, row_gather_plain
 from lgu_slam_tpu_torch.ops.sampler import sample_taps_flat, window_deltas
 from lgu_slam_tpu_torch.ops.window_lookup import window_lookup
+from lgu_slam_tpu_torch.parallel.dba_shard import dba_step_sharded
+from lgu_slam_tpu_torch.slam.factor_graph import FactorGraph
+from lgu_slam_tpu_torch.slam.state import Video
 from lgu_slam_tpu_torch.slam.system import LGUSlam
 from lgu_slam_tpu_torch.utils.config import SLAMConfig
 from lgu_slam_tpu_torch.utils.device import use_full_fp32
@@ -385,3 +395,108 @@ def test_small_track_cuda_matches_cpu(cuda_device):
                      slam.video.poses[:slam.video.counter].cpu()))
     assert runs[0][:3] == runs[1][:3]
     torch.testing.assert_close(runs[0][3], runs[1][3], atol=1e-2, rtol=0)
+
+
+# -- the multi-device paths at world size 1 (one card, NCCL) -----------------
+
+@pytest.fixture(scope="module")
+def nccl_group():
+    """A process group of this process alone on the card, under NCCL."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    yield dist.group.WORLD
+    dist.destroy_process_group()
+
+
+def test_sharded_dba_world_size_1_matches_dba_step(cuda_device, nccl_group):
+    """tests/test_dba_shard.py's scene (8 frames of 8 x 12, 26 edges) on
+    the card: the sharded DBA at world size 1 against the one-process
+    ``dba_step``, poses atol 2e-5 / rtol 1e-4, disparities 2e-4 / 1e-3."""
+    use_full_fp32()
+    gen = torch.Generator().manual_seed(0)
+    N, H, W = 8, 8, 12
+    poses_gt = se3_exp(torch.cumsum(torch.randn(N, 6, generator=gen) * 0.03,
+                                    0)).to(cuda_device)
+    disps_gt = (0.6 + 0.2 * torch.rand(N, H, W, generator=gen)).to(
+        cuda_device)
+    intr = torch.tensor([15.0, 15.0, W / 2, H / 2], device=cuda_device)
+    ii, jj = (np.asarray(x) for x in zip(*[
+        (i, j) for i in range(N) for j in range(N) if 0 < abs(i - j) <= 2]))
+    target, _ = projective_transform(
+        poses_gt, disps_gt, intr.expand(N, 4),
+        torch.as_tensor(ii, device=cuda_device),
+        torch.as_tensor(jj, device=cuda_device))
+    poses0 = se3_mul(se3_exp((torch.randn(N, 6, generator=gen) * 0.02).to(
+        cuda_device)), poses_gt)
+    disps0 = disps_gt + (torch.randn(N, H, W, generator=gen) * 0.02).to(
+        cuda_device)
+    args = (poses0, disps0, intr, torch.zeros_like(disps0), target,
+            torch.ones_like(target), torch.full_like(disps0, 1e-3))
+    p, d = dba_step_sharded(nccl_group, *args, ii, jj, 1, N, iters=2)
+    p_ref, d_ref = dba_step(*args, DbaPlan.build(ii, jj, 1, N, cuda_device),
+                            iters=2)
+    torch.testing.assert_close(p, p_ref, atol=2e-5, rtol=1e-4)
+    torch.testing.assert_close(d, d_ref, atol=2e-4, rtol=1e-3)
+
+
+def test_sharded_backend_world_size_1_matches_one_process(cuda_device,
+                                                          nccl_group):
+    """tests/test_backend_shard.py's aligned case on the card: 16 staged
+    keyframes at 64 x 96, every frame 4 out-edges in ii order, chunks of 8,
+    2 steps, fp32 compute and hidden state.  At world size 1 the sharded
+    chunks are the one-process chunks (K2 on each sub-chunk in both), and
+    the sharded pass launches K2 as often as the one-process pass.  The
+    card's ``index_add_`` scatters are atomic, so the one-process pass
+    differs from itself run to run (poses 3e-6, disparities 7e-5 on this
+    case); the two passes are held to about 10 x that: poses atol 5e-5,
+    disparities atol 5e-4 / rtol 1e-3, damping atol 1e-5 / rtol 1e-4."""
+    use_full_fp32()
+    cfg = SLAMConfig(
+        image_size=(64, 96), buffer=16, warmup=4, max_factors=64,
+        edge_bucket=64, inactive_bucket=8, pose_bucket=16,
+        backend_edge_cap=64, backend_chunk=8, compute_dtype="float32",
+        backend_hidden_dtype="float32")
+    net = LGUSlam(init_state_dict(cfg, seed=0), cfg, device=cuda_device).net
+    gen = torch.Generator().manual_seed(7)
+    T, h, w = 16, cfg.ht8, cfg.wd8
+    staged = dict(
+        fmaps=torch.randn(T, 1, h, w, 128, generator=gen),
+        nets=torch.randn(T, h, w, 128, generator=gen),
+        inps=torch.randn(T, h, w, 128, generator=gen),
+        poses=se3_exp(torch.cumsum(torch.randn(T, 6, generator=gen) * 0.02,
+                                   0)),
+        disps=0.5 + 0.3 * torch.rand(T, h, w, generator=gen),
+        intrinsics=torch.tensor([w * 4.0, w * 4.0, w / 2, h / 2]).expand(
+            T, 4))
+    ii, jj = [], []
+    for i in range(T):
+        js = [j for j in (i + d for d in (1, 2, 3, 4, -1, -2, -3, -4))
+              if 0 <= j < T][:4]
+        ii += [i] * 4
+        jj += js
+    out = []
+    for group in (nccl_group, None):
+        v = Video(cfg, cuda_device)
+        for name, x in staged.items():
+            getattr(v, name)[:T] = x.to(cuda_device)
+        v.counter = T
+        g = FactorGraph(net, v, cfg, corr_impl="alt",
+                        max_factors=cfg.max_factors,
+                        edge_bucket=cfg.backend_edge_cap, inactive_bucket=8)
+        g.add_factors(np.asarray(ii), np.asarray(jj))
+        n = fused_pyramid_lookup.launches
+        g.update_lowmem(steps=2, group=group)
+        torch.cuda.synchronize()
+        out.append((v.poses[:T], v.disps[:T], v.damping[:T],
+                    fused_pyramid_lookup.launches - n))
+    (p, d, e, k2), (p_ref, d_ref, e_ref, k2_ref) = out
+    assert k2 == k2_ref > 0
+    for a, b, atol, rtol in ((p, p_ref, 5e-5, 1e-4), (d, d_ref, 5e-4, 1e-3),
+                             (e, e_ref, 1e-5, 1e-4)):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, atol=atol, rtol=rtol)

@@ -1,0 +1,557 @@
+"""Port parity of the multi-device paths on the CPU: the sharded DBA, the
+sharded low-memory backend pass and data-parallel training, each run over
+a gloo process group of 2 or 4 worker processes (tests/torch_dist_worker.py)
+and held against the JAX package on a CPU mesh of the same size (this
+process has 8 virtual devices, tests/conftest.py) and against the port's
+one-process path.  The tolerances are those of tests/test_dba_shard.py,
+tests/test_backend_shard.py and (training) tests/test_torch_train.py.
+
+Every worker has its own time limit and a free port, so a hang fails its
+test instead of holding up the suite.
+"""
+
+import os
+import socket
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+from jax.sharding import Mesh
+from test_backend_shard import edge_list, edge_list_misaligned
+from test_backend_shard import make_cfg as j_shard_cfg
+from test_dba_shard import make_scene
+from test_lowmem import stage_video as j_stage_video
+from torch_port import (  # noqa: F401
+    close, t, torch_single_thread, video_from_jax)
+
+from lgu_slam_tpu import lie as jl
+from lgu_slam_tpu.geom.dba import DbaPlan as JPlan
+from lgu_slam_tpu.geom.dba import dba_step as j_dba_step
+from lgu_slam_tpu.models.net import LGUNet as JNet
+from lgu_slam_tpu.parallel import train_dp as jtrain
+from lgu_slam_tpu.parallel.backend_shard import (
+    ShardedLowmemPlan as JLowmemPlan,
+)
+from lgu_slam_tpu.parallel.dba_shard import ShardedDbaPlan as JShardPlan
+from lgu_slam_tpu.parallel.dba_shard import dba_step_sharded as j_sharded
+from lgu_slam_tpu.slam.backend import Backend as JBackend
+from lgu_slam_tpu.slam.factor_graph import FactorGraph as JGraph
+from lgu_slam_tpu.slam.system import init_params
+from lgu_slam_tpu.utils.config import SLAMConfig as SLAMConfig_j
+from lgu_slam_tpu.utils.config import TrainConfig as TrainConfig_j
+from lgu_slam_tpu_torch import lie as tlie
+from lgu_slam_tpu_torch.data.synthetic import SyntheticDataset
+from lgu_slam_tpu_torch.geom.dba import DbaPlan, dba_step
+from lgu_slam_tpu_torch.models.net import LGUNet
+from lgu_slam_tpu_torch.parallel.backend_shard import backend_plan, chunks
+from lgu_slam_tpu_torch.parallel.dba_shard import ShardedDbaPlan
+from lgu_slam_tpu_torch.parallel.train_dp import (
+    make_optimizer,
+    train_step,
+    window_edges,
+)
+from lgu_slam_tpu_torch.slam.factor_graph import FactorGraph
+from lgu_slam_tpu_torch.slam.state import Video
+from lgu_slam_tpu_torch.utils.config import SLAMConfig, TrainConfig
+from lgu_slam_tpu_torch.utils.weights import state_dict_from_jax_params
+
+WORKER = os.path.join(os.path.dirname(__file__), "torch_dist_worker.py")
+
+
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def start_ranks(case, world, inp, tmp_path):
+    """Starts ``case`` on ``world`` gloo worker processes; the caller goes
+    on with its own work and collects them with :func:`finish_ranks`."""
+    src, dst = tmp_path / f"{case}{world}.in", tmp_path / f"{case}{world}.out"
+    torch.save(inp, src)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env.pop("XLA_FLAGS", None)
+    port = str(free_port())
+    procs = [subprocess.Popen(
+        [sys.executable, WORKER, case, str(r), str(world), port, str(src),
+         str(dst)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=env) for r in range(world)]
+    return case, procs, dst
+
+
+def finish_ranks(started, timeout=240):
+    """Rank 0's results of :func:`start_ranks`' run.  Every worker is
+    killed when one overruns ``timeout`` (or the caller failed first)."""
+    case, procs, dst = started
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        tail = "\n".join(out.splitlines()[-30:])
+        assert p.returncode == 0, f"rank {r} of {case} failed:\n{tail}"
+    return torch.load(dst, weights_only=False)
+
+
+def mesh(n):
+    return Mesh(np.asarray(jax.devices()[:n]), ("kf",))
+
+
+# -- sharded DBA --------------------------------------------------------------
+
+def jax_dba_sharded(n, poses0, disps0, intr, sens, target, weight, eta, ii,
+                    jj):
+    N, H, W = disps0.shape
+    plan = JShardPlan.build(ii, jj, N, n)
+    D, Es = plan.ii.shape
+    tnp = np.zeros((D, Es, H, W, 2), np.float32)
+    wnp = np.zeros((D, Es, H, W, 2), np.float32)
+    for s in range(D):
+        for k in range(Es):
+            if plan.edge_mask[s, k] > 0:
+                tnp[s, k] = np.asarray(target)[plan.perm[s, k]]
+                wnp[s, k] = np.asarray(weight)[plan.perm[s, k]]
+    return j_sharded(
+        mesh(n), "kf", poses0, disps0, intr, sens, jnp.asarray(tnp),
+        jnp.asarray(wnp), eta, (plan.ii, plan.jj, plan.edge_mask,
+                                plan.rows_of_frame, plan.owned),
+        1, N, P_bucket=N - 1, iters=2)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_sharded_dba_matches_jax_and_one_process(world, tmp_path):
+    """tests/test_dba_shard.py's scene (8 frames, 26 edges, 2 Gauss-Newton
+    iterations) over ``world`` gloo ranks: against the JAX package's
+    sharded DBA on a mesh of ``world`` CPU devices, its one-device DBA, and
+    the port's one-process ``dba_step``.  Poses atol 2e-5 / rtol 1e-4,
+    disparities 2e-4 / 1e-3."""
+    rng = np.random.default_rng(0)
+    poses_gt, disps_gt, intr, ii, jj, target = make_scene(rng)
+    N, H, W = disps_gt.shape
+    weight = jnp.ones_like(target)
+    eta = jnp.full((N, H, W), 1e-3)
+    sens = jnp.zeros((N, H, W))
+    poses0 = jl.se3_mul(jl.se3_exp(jnp.asarray(
+        rng.normal(size=(N, 6)) * 0.02, jnp.float32)), poses_gt)
+    disps0 = disps_gt + jnp.asarray(rng.normal(size=(N, H, W)) * 0.02,
+                                    jnp.float32)
+    started = start_ranks("dba", world, dict(
+        poses=t(poses0), disps=t(disps0), intr=t(intr), sens=t(sens),
+        target=t(target), weight=t(weight), eta=t(eta), ii=ii, jj=jj,
+        t0=1, t1=N), tmp_path)
+
+    jp, jd = jax_dba_sharded(world, poses0, disps0, intr, sens, target,
+                             weight, eta, ii, jj)
+    plan = JPlan.build(ii, jj, N, edge_bucket=len(ii))
+    rp, rd = j_dba_step(poses0, disps0, intr, sens, target, weight, eta,
+                        *plan.jax_arrays(), jnp.int32(1), jnp.int32(N),
+                        P=N - 1, iters=2)
+    tp, td = dba_step(t(poses0), t(disps0), t(intr), t(sens), t(target),
+                      t(weight), t(eta), DbaPlan.build(ii, jj, 1, N, "cpu"),
+                      iters=2)
+    out = finish_ranks(started)
+    for ref_p, ref_d in ((jp, jd), (rp, rd), (tp, td)):
+        close(out["poses"], ref_p, atol=2e-5, rtol=1e-4)
+        close(out["disps"], ref_d, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_shard_plans_match_jax(n):
+    """The frame partition and each rank's edges equal the JAX package's
+    plans (without their padding): the DBA plan on the scene's edges, and
+    the backend plan (each rank's edges stably sorted by ii) chunk by chunk
+    on both backend topologies."""
+    _, _, _, ii, jj, _ = make_scene(np.random.default_rng(0))
+    jplan, tplan = JShardPlan.build(ii, jj, 8, n), \
+        ShardedDbaPlan.build(ii, jj, 8, n)
+    np.testing.assert_array_equal(tplan.owned, jplan.owned)
+    for s in range(n):
+        live = jplan.edge_mask[s] > 0
+        np.testing.assert_array_equal(tplan.perm[s], jplan.perm[s][live])
+    for ii, jj in (edge_list(), edge_list_misaligned()):
+        jl = JLowmemPlan.build(ii, jj, 16, n, 8)
+        tl = backend_plan(ii, 16, n)
+        np.testing.assert_array_equal(tl.owned, jl.owned)
+        for s in range(n):
+            live = [c[c < len(ii)] for c in jl.perm[s].reshape(-1, 8)]
+            assert [c.tolist() for c in chunks(tl.perm[s], 8)] == \
+                [c.tolist() for c in live if len(c)]
+
+
+# -- sharded backend ----------------------------------------------------------
+
+def cfg_kwargs(**over):
+    return dict(
+        image_size=(64, 96), buffer=16, warmup=4, max_factors=64,
+        edge_bucket=64, inactive_bucket=8, pose_bucket=16,
+        backend_edge_cap=64, backend_chunk=8, compute_dtype="float32",
+        backend_hidden_dtype="float32", **over)
+
+
+def video_fields(jv):
+    T = jv.counter
+    return {name: t(np.asarray(getattr(jv.state, name)[:T], np.float32))
+            for name in Video._FIELDS if name != "disps_up"}
+
+
+def port_one_process(sd, kw, jv, ii, jj):
+    cfg = SLAMConfig(**kw)
+    net = LGUNet.from_config(cfg, device="cpu")
+    net.load_state_dict(sd, strict=True)
+    v = video_from_jax(jv, cfg)
+    g = FactorGraph(net.eval(), v, cfg, corr_impl="alt",
+                    max_factors=cfg.max_factors,
+                    edge_bucket=cfg.backend_edge_cap, inactive_bucket=8)
+    g.add_factors(ii, jj)
+    g.update_lowmem(steps=2)
+    return g
+
+
+def jax_graph(cfg, net, params, jv, ii, jj, n=None):
+    g = JGraph(net, params, jv, cfg, corr_impl="alt",
+               max_factors=cfg.max_factors,
+               edge_bucket=cfg.backend_edge_cap, inactive_bucket=8)
+    g.add_factors(ii, jj)
+    g.update_lowmem(steps=2, mesh=None if n is None else mesh(n))
+    return g
+
+
+@pytest.fixture(scope="module")
+def backend_runs(tmp_path_factory):
+    """The four cases of tests/test_backend_shard.py at 4 ranks, in one
+    launch of 4 workers; their JAX (4-device mesh and one device) and
+    port one-process references."""
+    jcfg = j_shard_cfg()
+    net, params = init_params(jcfg, seed=0)
+    params = jax.device_get(params)
+    sd = state_dict_from_jax_params(params)
+    topo = {"aligned": edge_list(), "misaligned": edge_list_misaligned(),
+            "quirk": edge_list()}
+    kws = {"aligned": cfg_kwargs(), "misaligned": cfg_kwargs(),
+           "quirk": cfg_kwargs(strict_t0_quirk=True),
+           "entry": cfg_kwargs()}
+    jcfgs = {k: jcfg.replace(strict_t0_quirk=(k == "quirk")) for k in kws}
+    videos = {k: j_stage_video(jcfgs[k], T=12 if k == "entry" else 16,
+                               seed=3 if k == "entry" else 7) for k in kws}
+    inp = dict(state_dict=sd, cases=kws,
+               videos={k: video_fields(v) for k, v in videos.items()},
+               edges=topo)
+    started = start_ranks("backend", 4, inp,
+                          tmp_path_factory.mktemp("backend"))
+    ref = {}
+    for k, (ii, jj) in topo.items():
+        ref[k] = dict(
+            jax4=jax_graph(jcfgs[k], net, params,
+                           j_stage_video(jcfgs[k], T=16, seed=7), ii, jj, 4),
+            jax1=jax_graph(jcfgs[k], net, params,
+                           j_stage_video(jcfgs[k], T=16, seed=7), ii, jj),
+            port1=port_one_process(sd, kws[k], videos[k], ii, jj))
+    jv = j_stage_video(jcfgs["entry"], T=12, seed=3)
+    JBackend(net, params, jv, jcfgs["entry"], mesh=mesh(4))(steps=2)
+    ref["entry"] = dict(jax4=jv)
+    noq = jcfg.replace(strict_t0_quirk=False)
+    ref["no_quirk"] = jax_graph(noq, net, params,
+                                j_stage_video(noq, T=16, seed=7),
+                                *edge_list())
+    return finish_ranks(started), ref
+
+
+def held_to(res, jv, T, rtol, atol, what):
+    s = jv.state
+    for name in ("poses", "disps", "damping"):
+        assert bool(torch.isfinite(res[name]).all()), name
+        close(res[name], getattr(s, name)[:T], atol=atol, rtol=rtol,
+              msg=f"{what} {name}")
+
+
+def test_sharded_lowmem_matches_jax_and_one_process(backend_runs):
+    """Aligned chunks (every frame 4 out-edges, CH = 8: each rank holds two
+    chunks that coincide with the one-process chunking): poses, disparities
+    and damping within rtol 1e-4 / atol 1e-5 of the JAX package's sharded
+    pass on 4 devices, its one-device pass and the port's one-process pass;
+    the edges' targets, weights and hidden states within rtol 2e-3 / atol
+    1e-4, on every rank."""
+    out, ref = backend_runs
+    res, r = out["aligned"], ref["aligned"]
+    for what in ("jax4", "jax1"):
+        held_to(res, r[what].video, 16, 1e-4, 1e-5, what)
+        n = r[what].n_edges
+        for name, jname in (("target", "target"), ("weight", "weight"),
+                            ("hidden", "net")):
+            close(res[name], getattr(r[what], jname)[:n], atol=1e-4,
+                  rtol=2e-3, msg=f"{what} {name}")
+    g = r["port1"]
+    for name in ("poses", "disps", "damping"):
+        close(res[name], getattr(g.video, name)[:16], atol=1e-5, rtol=1e-4)
+    for name in ("target", "weight", "hidden"):
+        close(res[name], getattr(g, name), atol=1e-4, rtol=2e-3)
+
+
+def test_backend_runs_sharded_over_group(backend_runs):
+    """The Backend entry point over the group (rank 0's video broadcast,
+    normalisation, proximity planning, the sharded pass): finite, clamped
+    disparities, every keyframe dirty, and the same chunk composition as
+    the JAX package's Backend on a 4-device mesh, whose result it matches
+    to rtol 1e-4 / atol 1e-5.  Ranks whose videos differ (translations
+    moved on ranks 1-3) end with the result of rank 0's video."""
+    out, ref = backend_runs
+    res = out["entry"]
+    assert torch.equal(out["entry_from_rank_0"], res["poses"])
+    assert bool((res["disps"] >= 1e-3).all())
+    assert bool(res["dirty"].all())
+    held_to(res, ref["entry"]["jax4"], 12, 1e-4, 1e-5, "entry")
+
+
+def test_sharded_lowmem_misaligned_chunks_bounded(backend_runs):
+    """Alternating out-degrees 3 / 5: the ranks' chunks cannot coincide with
+    the one-process chunking.  Equal to the JAX package's sharded pass on 4
+    devices (same chunks; rtol 1e-4 / atol 1e-5), and within
+    tests/test_backend_shard.py's bound of the one-process pass (poses
+    3e-4, disparities 5e-4)."""
+    out, ref = backend_runs
+    res, r = out["misaligned"], ref["misaligned"]
+    held_to(res, r["jax4"].video, 16, 1e-4, 1e-5, "jax4")
+    g = r["port1"]
+    assert float((res["poses"] - g.video.poses[:16]).abs().max()) < 3e-4
+    assert float((res["disps"] - g.video.disps[:16]).abs().max()) < 5e-4
+
+
+def test_sharded_lowmem_quirk_parity(backend_runs):
+    """``strict_t0_quirk`` reaches the sharded back-substitution: equal to
+    the JAX package's quirk passes (4 devices and one) and the port's
+    one-process one, and different from the JAX package without it."""
+    out, ref = backend_runs
+    res, r = out["quirk"], ref["quirk"]
+    for what in ("jax4", "jax1"):
+        held_to(res, r[what].video, 16, 1e-4, 1e-5, what)
+    close(res["disps"], r["port1"].video.disps[:16], atol=1e-5, rtol=1e-4)
+    d_noq = np.asarray(ref["no_quirk"].video.state.disps[:16])
+    assert np.abs(res["disps"].numpy() - d_noq).max() > 1e-6
+
+
+def test_sharded_pass_refuses_disagreeing_ranks(backend_runs):
+    """Ranks whose videos differ (one pose moved by 1e-3 on ranks 1-3) get a
+    RuntimeError on every rank instead of a reduced result, and a gloo
+    group is refused for CUDA tensors."""
+    out, _ = backend_runs
+    assert out["refused"] is True
+    assert out["nccl_needed"] is True
+
+
+# -- data-parallel training ---------------------------------------------------
+
+DP_H, DP_W, DP_N = 64, 96, 4
+
+
+def noisy_jax_params():
+    """The JAX package's init with N(0, 0.02) noise on every leaf, so that
+    the zero-initialised offset and mean heads compute something (as in
+    tests/test_torch_train.py)."""
+    _, params = init_params(SLAMConfig_j(
+        image_size=(DP_H, DP_W), volume_dtype="float32",
+        compute_dtype="float32", feat_dtype="float32"), seed=0)
+    rng = np.random.default_rng(1)
+    return jax.tree_util.tree_map(
+        lambda a: (np.asarray(a) + 0.02 * rng.normal(size=a.shape))
+        .astype(np.float32), jax.device_get(params))
+
+
+def jax_clipped_grads(opt_state):
+    """The clipped gradients that optax's Adam read at its first step: its
+    first moment over (1 - beta1), in the port's layout."""
+    adam = next(s for s in jax.tree_util.tree_leaves(
+        opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+        if isinstance(s, optax.ScaleByAdamState))
+    return state_dict_from_jax_params(jax.tree_util.tree_map(
+        lambda m: np.asarray(m) / (1.0 - 0.9), adam.mu))
+
+
+def port_clipped_grads(net, opt):
+    return {n: opt.adamw.state[p]["exp_avg"] / (1.0 - 0.9)
+            for n, p in net.named_parameters()}
+
+
+def ground_truth_start(poses):
+    """The train step's start: frame 0 at its ground-truth pose, every later
+    frame at frame 1's (world-to-camera), as numpy [B, N, 7]."""
+    Ps = tlie.se3_inv(torch.from_numpy(poses))
+    return torch.cat([Ps[:, :1], Ps[:, 1:2].expand(-1, Ps.shape[1] - 1, -1)],
+                     dim=1).numpy()
+
+
+def twisted(G, eps, seed):
+    """Poses G [B, N, 7] with frames 1.. moved by N(0, eps) twists."""
+    tw = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=G.shape[:2] + (6,)).astype(np.float32) * eps)
+    tw[:, 0] = 0
+    return tlie.se3_mul(tlie.se3_exp(tw), torch.from_numpy(G)).numpy()
+
+
+@pytest.fixture(scope="module")
+def ddp_runs(tmp_path_factory):
+    """One train step of a batch of 2 clips (64 x 96, 4 frames, 2 update
+    iterations) from the same weights: on 2 gloo ranks under
+    ``data_parallel`` (1 clip each), in one port process on both, and by the
+    JAX package's step on a 2-device CPU mesh with the batch sharded over
+    it (``make_data_mesh``, ``shard_batch``, ``replicate``)."""
+    tmp = tmp_path_factory.mktemp("ddp")
+    cfg_kw = dict(batch=2, iters=2, steps=4, lr=4e-4, n_frames=DP_N,
+                  image_size=(DP_H, DP_W), pct_start=0.05)
+    db = SyntheticDataset(n_scenes=1, frames_per_scene=6, n_frames=DP_N,
+                          crop_size=(DP_H, DP_W), seed=0)
+    images, poses, depths, intr = (np.stack(x) for x in zip(db[0], db[1]))
+    disps = np.where(depths > 0.01, 1.0 / np.maximum(depths, 0.01), 0.0)
+    batch = tuple(x.astype(np.float32) for x in (images, poses, disps, intr))
+    ii, jj = window_edges(DP_N)
+    # a random-restart carry 1e-3 off the ground-truth start (see
+    # test_train_step_gradient_ill_conditioned_at_ground_truth_start)
+    Gs0 = twisted(ground_truth_start(batch[1]), 1e-3, 5)
+    disp0 = np.ones((2, DP_N, DP_H // 8, DP_W // 8), np.float32)
+    params = noisy_jax_params()
+    sd = state_dict_from_jax_params(params)
+
+    cfg = TrainConfig(**cfg_kw)
+    started = start_ranks("ddp", 2, dict(
+        cfg=cfg_kw, state_dict=sd, batch=tuple(map(t, batch)), Gs0=t(Gs0),
+        disp0=t(disp0), ii=t(ii), jj=t(jj), ckpt=str(tmp / "ckpt.pt")), tmp)
+
+    jcfg = TrainConfig_j(**cfg_kw)
+    tx = jtrain.make_optimizer(jcfg)
+    step = jtrain.make_train_step(JNet(volume_dtype=jnp.float32), tx, jcfg,
+                                  ii, jj)
+    m = jtrain.make_data_mesh(2)
+    jp, js, jm, _ = step(jtrain.replicate(params, m),
+                         jtrain.replicate(tx.init(params), m),
+                         jtrain.shard_batch(batch, m),
+                         *jtrain.shard_batch((Gs0, disp0), m))
+    jax_ref = dict(loss=float(jm["loss"]), grads=jax_clipped_grads(js),
+                   weights=state_dict_from_jax_params(jax.device_get(jp)))
+    port_ref = port_step(sd, cfg_kw, batch, Gs0, disp0)
+    out = finish_ranks(started)
+    return dict(out=out, port=port_ref, jax=jax_ref, w0=sd, cfg=cfg_kw,
+                batch=batch, Gs0=Gs0, disp0=disp0,
+                lr=cfg.lr / 25.0)  # the one-cycle schedule's first lr
+
+
+def port_step(sd, cfg_kw, batch, Gs0, disp0):
+    """The port's one-process train step: (loss, clipped gradients, the
+    weights after the step)."""
+    cfg = TrainConfig(**cfg_kw)
+    net = LGUNet(device="cpu")
+    net.load_state_dict(sd)
+    opt = make_optimizer(net, cfg)
+    ii, jj = window_edges(DP_N)
+    metrics, _ = train_step(net, opt, tuple(map(t, batch)), t(Gs0), t(disp0),
+                            cfg=cfg, ii=t(ii), jj=t(jj))
+    return dict(loss=float(metrics["loss"]),
+                grads=port_clipped_grads(net, opt), weights=net.state_dict())
+
+
+def is_noise(name):
+    # the feature encoder's conv biases in front of instance norms (all but
+    # its output conv's), which cancel them: their gradients are fp32
+    # noise, ~1e-9
+    return (name.startswith("fnet.") and name.endswith(".bias")
+            and name != "fnet.conv2.bias")
+
+
+def held_to_step(run, ref, lr, grad_rtol):
+    """``run``'s loss, clipped gradients and weights after the step against
+    ``ref``'s.  The loss to rtol 1e-5.  Each gradient tensor to
+    ``grad_rtol(name)`` of its largest entry; noise tensors (``is_noise``)
+    below 1e-6 of the largest gradient entry in both.  Adam's first step
+    moves a weight by lr * g / (|g| + 1e-8) plus the decay: where the
+    reference's gradient exceeds the gradient tolerance, its sign is held,
+    and the weights agree to fp32 rounding (rtol 1e-6, atol 1e-3 lr); every
+    other weight lies within two learning rates (an entry whose gradient
+    is within the tolerance of 0 may move either way)."""
+    close(run["loss"], ref["loss"], atol=0, rtol=1e-5, msg="loss")
+    top = max(float(np.abs(np.asarray(g)).max())
+              for n, g in ref["grads"].items() if n in run["grads"])
+    for name, g in run["grads"].items():
+        g, r = np.asarray(g), np.asarray(ref["grads"][name])
+        w, wr = (np.asarray(x[name]) for x in (run["weights"],
+                                                ref["weights"]))
+        if is_noise(name):
+            assert np.abs(g).max() < 1e-6 * top, name
+            assert np.abs(r).max() < 1e-6 * top, name
+            sure = np.zeros(r.shape, bool)
+        else:
+            tol = grad_rtol(name) * np.abs(r).max()
+            close(g, r, atol=tol, msg=f"gradient {name}")
+            sure = np.abs(r) > 2 * tol
+        close(w[sure], wr[sure], atol=1e-3 * lr, rtol=1e-6,
+              msg=f"weights {name} (gradient sign held)")
+        close(w, wr, atol=2 * lr * (1 + 1e-3), msg=f"weights {name}")
+
+
+def test_data_parallel_step_matches_one_process(ddp_runs):
+    """One train step of a batch of 2 clips on 2 gloo ranks under
+    ``data_parallel`` (1 clip each) against the port's one process on both,
+    from the same weights and carry: the same loss (the ranks' mean), the
+    same clipped gradients (the summed all-reduce of the ranks' loss shares,
+    read by the optimizer's clip) and the same weights after the step.
+    The gradients to 5e-3 of each tensor's largest entry (2.3e-3 measured:
+    the update heads' GradClip zeroes entries by their size, and the two
+    batchings round differently).  The checkpoint stores the module's keys
+    without the ``module.`` prefix and loads back into a plain LGUNet; an
+    uneven batch and a plain DistributedDataParallel are refused."""
+    r = ddp_runs
+    out = r["out"]
+    held_to_step(out, r["port"], r["lr"], lambda name: 5e-3)
+    assert out["ckpt_keys"] == sorted(r["w0"])
+    assert out["ckpt_roundtrip"] is True
+    assert out["uneven_refused"] is True
+    assert out["bare_ddp_refused"] is True
+
+
+def test_data_parallel_step_matches_jax_mesh(ddp_runs):
+    """The same step against the JAX package's train step on a 2-device CPU
+    mesh with the batch sharded over it: the ranks' step and the port's one
+    process both match its loss, clipped gradients and weights.  The
+    gradients to 1e-2 of each tensor's largest entry, 5e-2 through the
+    feature encoder's instance norms (the tolerances of
+    tests/test_torch_train.py::test_unrolled_forward_and_gradient; 6.8e-3
+    and 1.6e-2 measured)."""
+    r = ddp_runs
+
+    def grad_rtol(name):
+        return 5e-2 if name.startswith("fnet.") else 1e-2
+
+    held_to_step(r["out"], r["jax"], r["lr"], grad_rtol)
+    held_to_step(r["port"], r["jax"], r["lr"], grad_rtol)
+
+
+def test_train_step_gradient_ill_conditioned_at_ground_truth_start(
+        ddp_runs):
+    """Why the steps above start from a carry 1e-3 off the ground truth: at
+    the ground-truth start every frame after the first sits at frame 1's
+    pose, so the edges among them map every pixel exactly onto the grid,
+    where the lookup's bilinear taps have kinks and its boundary rule jumps.
+    There a 1e-6 twist of those poses moves the port's clipped gradients by
+    more than 20 % of a tensor's largest entry (the JAX package's move as
+    much, so the two packages' gradients there are not comparable); from the
+    carry 1e-3 away the same twist moves them by under 5e-2."""
+    r = ddp_runs
+
+    def moved(G):
+        a = port_step(r["w0"], r["cfg"], r["batch"], G, r["disp0"])
+        b = port_step(r["w0"], r["cfg"], r["batch"], twisted(G, 1e-6, 9),
+                      r["disp0"])
+        return max(float((b["grads"][n] - g).abs().max() / g.abs().max())
+                   for n, g in a["grads"].items() if not is_noise(n))
+
+    assert moved(r["Gs0"]) < 5e-2
+    assert moved(ground_truth_start(r["batch"][1])) > 0.2

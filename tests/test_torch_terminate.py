@@ -113,14 +113,17 @@ def test_track_and_terminate_match_jax(jax_init):
     warning) and the trajectory filled for all 14 frames.  A third run
     takes the port's ``terminate`` from the JAX package's tracked state.
 
-    Tracking keeps the same keyframes and edges and ends with poses ~4e-3
-    apart (random-weight tracking amplifies fp32 rounding;
-    tests/test_torch_track.py).  From the same tracked state the backends
-    agree to 1e-4.  The filler's motion-only BA amplifies any difference:
-    moving the keyframe translations by 1e-6 moves the port's own filled
-    poses by up to 1.2e-2 (a tap crossing a plane's low edge switches the
-    lookup's boundary rule), so the trajectories are held to 3e-2 and the
-    backend's keyframe poses after independent tracking to 2e-2."""
+    Free-running tracking keeps the same keyframes, edges and inactive
+    edges; its poses are held to the JAX package update by update in
+    tests/test_torch_track.py (``test_track_updates_match_jax_stepwise``),
+    because free-running random-weight tracking is chaotic on this stream
+    (``test_tracking_self_perturbation``), so the free-running run's
+    trajectory is checked for shape, finite values and unit quaternions.
+    From the same tracked state the backends agree to 1e-4.  The filler's
+    motion-only BA amplifies any difference: moving the keyframe
+    translations by 1e-6 moves the port's own filled poses by up to 1.2e-2
+    (a tap crossing a plane's low edge switches the lookup's boundary
+    rule), so the trajectories from the same start are held to 3e-2."""
     net_def, params = jax_init
     kw = tiny_config_kwargs()
     cfg = SLAMConfig(**kw)
@@ -133,8 +136,11 @@ def test_track_and_terminate_match_jax(jax_init):
         ts.track(float(k), img, intrinsics=intr)
     n = js.video.counter
     assert ts.video.counter == n == 14
-    assert ts.frontend.graph.ii.tolist() == js.frontend.graph.ii.tolist()
-    assert ts.frontend.graph.jj.tolist() == js.frontend.graph.jj.tolist()
+    jg, tg = js.frontend.graph, ts.frontend.graph
+    assert tg.ii.tolist() == jg.ii.tolist()
+    assert tg.jj.tolist() == jg.jj.tolist()
+    assert tg.ii_inac.tolist() == jg.ii_inac.tolist()
+    assert tg.jj_inac.tolist() == jg.jj_inac.tolist()
     tf = LGUSlam(sd, cfg, device="cpu")
     video_from_jax(js.video, cfg, tf.video)
 
@@ -150,7 +156,7 @@ def test_track_and_terminate_match_jax(jax_init):
         assert np.isfinite(traj).all()
         np.testing.assert_allclose(np.linalg.norm(traj[:, 3:], axis=-1),
                                    1.0, atol=1e-3)
-        close(torch.from_numpy(traj), ref, atol=3e-2)
+    assert bool(torch.isfinite(ts.video.poses[:n]).all())
+    close(torch.from_numpy(out_f), ref, atol=3e-2)
     kf = js.video.state.poses[:n]
     close(tf.video.poses[:n], kf, atol=1e-4, msg="backend, same start")
-    close(ts.video.poses[:n], kf, atol=2e-2, msg="backend")
