@@ -19,10 +19,14 @@ Seven phases; any failure exits non-zero.
    K3/K4 (``window_lookup``) at E = 48,
    P1 = 3072 on bf16 planes of 48 x 64, 24 x 32 (49 taps, and the 9-tap
    probe), 12 x 16, 6 x 8 and 13 x 17, with out-of-bounds and NaN
-   positions; K5 (``row_gather``) and K6 (``k2_stream_floor``,
-   ``k2_one_level``) at the shapes of their TPU probes (E = 48, 48 x 64;
-   [48, 3072, 24, 128]) and at odd geometries, then the probes' own entry
-   point, ``scripts/profile_torch_k2_parts.py``, which times them.
+   positions, timed on the device alone (a CUDA graph over input copies
+   whose launches touch more than twice the L2 between two launches on
+   one copy) beside its byte and 32-byte-sector bounds;
+   K5 (``row_gather``) and K6 (``k2_stream_floor``, ``k2_one_level``) at
+   the shapes of their TPU probes (E = 48, 48 x 64; [48, 3072, 24, 128])
+   and at odd geometries, then the probes' own entry point,
+   ``scripts/profile_torch_k2_parts.py``, which times them (K6
+   ``one_level`` on the device alone, beside its sector bound).
 2. Run ``LGUSlam.track`` and then ``terminate(stream)`` at a tiny size
    (64 x 96, fp32 dtypes, thresholds 0) on a synthetic stream twice -- on
    the card with the kernels and on the CPU with the plain versions, from
@@ -139,10 +143,11 @@ from lgu_slam_tpu_torch.utils.measure import (
     FP32_FLOP_PER_S,
     TF32_FLOP_PER_S,
     bytes_ms,
+    cold_graph_ms,
     cuda_ms,
-    distinct_corners,
     graph_ms,
     lookup_bytes,
+    taps_plane_bytes,
 )
 from lgu_slam_tpu_torch.utils.synthetic import shifted_texture_frames
 
@@ -525,9 +530,11 @@ def k2_parts_cases(gen, dev) -> dict:
             source="lgu_slam_tpu_torch/csrc/pyramid_lookup.cu",
             replaces="_prof_kparts.py:88",
             max_abs_err=errs[f"k2_one_level:l{lvl}"], ms=prof[key]["ms"],
+            ms_eager=prof[key]["ms_eager"],
             plain_ms=cuda_ms(lambda lvl=lvl: k2_one_level_plain(
                 lv[lvl], cflat, lvl, PH, PW), reps=3, warmup=1),
             bound_ms=prof[key]["bound_ms"], bound_by="bytes",
+            sector_bound_ms=prof[key]["sector_bound_ms"],
             library_ms=None,
             library_call=None,
             launches=launches["k2_one_level"],
@@ -556,7 +563,10 @@ def window_inputs(gen, dev, h, w, radius, max_off):
 
 
 def window_case(gen, dev, name, replaces, h, w, radius, max_off) -> dict:
-    """Hold K3/K4 against sample_taps_flat at one geometry; time both."""
+    """Hold K3/K4 against sample_taps_flat at one geometry; time both, the
+    kernel on the device alone (a CUDA graph over input copies,
+    ``cold_graph_ms``) and by CUDA events over eager launches, beside its byte
+    and 32-byte-sector bounds."""
     vol, px, py = window_inputs(gen, dev, h, w, radius, max_off)
     out = window_lookup(vol, h, w, px, py)
     ref = sample_taps_flat(vol, h, w, px, py)
@@ -565,17 +575,23 @@ def window_case(gen, dev, name, replaces, h, w, radius, max_off) -> dict:
     check(err < 2e-4, f"{name} {h}x{w} r={radius}: max err {err}")
     check(bool(torch.isfinite(out).all()), f"{name} {h}x{w}: non-finite")
     del out, ref
-    ms = cuda_ms(lambda: window_lookup(vol, h, w, px, py))
+    io = 3 * px.numel() * 4
+    esize = vol.element_size()
+    touched = io + taps_plane_bytes(px, py, h, w, esize, sectors=True)
+    ms = cold_graph_ms(lambda v, x, y: window_lookup(v, h, w, x, y),
+                       (vol, px, py), touched)
+    ms_eager = cuda_ms(lambda: window_lookup(vol, h, w, px, py))
     plain_ms = cuda_ms(lambda: sample_taps_flat(vol, h, w, px, py), reps=3,
                        warmup=1)
-    nbytes = (distinct_corners(px, py, h, w) * vol.element_size()
-              + 3 * px.numel() * 4)
     E, P1, K = px.shape
     return dict(
         name=name, route="cuda",
         source="lgu_slam_tpu_torch/csrc/window_lookup.cu",
-        replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=bytes_ms(nbytes), bound_by="bytes",
+        replaces=replaces, max_abs_err=err, ms=ms, ms_eager=ms_eager,
+        plain_ms=plain_ms,
+        bound_ms=bytes_ms(io + taps_plane_bytes(px, py, h, w, esize)),
+        bound_by="bytes",
+        sector_bound_ms=bytes_ms(touched),
         library_ms=None, library_call=None,
         shapes=f"E={E} P1={P1} bf16 plane {h}x{w}, K={K} -> fp32 [E,P1,K]")
 

@@ -10,8 +10,9 @@ Replaces the Pallas probes of the JAX package's ``_prof_kparts.py``:
   k < 64, the sum over every input row (the four flat bf16 levels, the
   coordinates, both offset fields) of the elements whose index in their
   row is k modulo 64.
-- ``one_level`` -> :func:`k2_one_level` (``csrc/pyramid_lookup.cu``, K2's
-  own per-level device code): the bilinear taps of one level at
+- ``one_level`` -> :func:`k2_one_level` (``k2_one_level`` in
+  ``csrc/pyramid_lookup.cu``, a kernel of its own since the redesign: it no
+  longer runs K2's per-level code): the bilinear taps of one level at
   ``cflat / 2^lvl + (k // 7 - 3, k % 7 - 3)`` for k < 49 and the centre tap
   for k = 49 .. 63, with K2's boundary rule; no offsets and no gate.
 
@@ -132,14 +133,17 @@ def _launch_one_level(level, cflat, lvl, H, W):
                          "neither float32 nor bfloat16")
     _check("k2_one_level: level", level, dev, level.dtype, (E, P1, h * w))
     _check("k2_one_level: cflat", cflat, dev, torch.float32, (E, P1, 2))
+    if cflat.data_ptr() % 8:
+        raise ValueError("k2_one_level: cflat must start on 8 bytes (the "
+                         "kernel reads (x, y) pairs)")
     out = torch.empty(E, P1, ONE_LEVEL_TAPS, dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    lib = _build.load("pyramid_lookup")
-    fn = lib.k2_one_level
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
+    fn = _build.load("pyramid_lookup").k2_one_level
+    if fn.argtypes is None:  # set once: ctypes keeps the function object
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(level.data_ptr(), cflat.data_ptr(), out.data_ptr(),

@@ -24,6 +24,17 @@ from lgu_slam_tpu_torch.ops import _build
 from lgu_slam_tpu_torch.ops.sampler import sample_taps_flat
 
 
+def _kernel():
+    """The kernel's C function, its argument types set at its first use
+    (ctypes keeps the function object, so later launches skip it)."""
+    fn = _build.load("window_lookup").window_lookup
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
+            + [ctypes.c_void_p]
+    return fn
+
+
 def _launch(vol, H2, W2, px, py):
     E, P1, K = px.shape
     dev = px.device
@@ -42,14 +53,13 @@ def _launch(vol, H2, W2, px, py):
                 f"window_lookup: {name} must be a contiguous float32 "
                 f"{(E, P1, K)} on {dev}, got {t.dtype} {tuple(t.shape)} on "
                 f"{t.device}")
+    if E * P1 * K >= 2 ** 31:
+        raise ValueError(f"window_lookup: {E * P1 * K} taps, the kernel "
+                         "indexes them with 32 bits")
     out = torch.empty(E, P1, K, dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    lib = _build.load("window_lookup")
-    fn = lib.window_lookup
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
-        + [ctypes.c_void_p]
+    fn = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(vol.data_ptr(), px.data_ptr(), py.data_ptr(),

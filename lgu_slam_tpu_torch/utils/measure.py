@@ -18,6 +18,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12  # tensor cores
 TF32_FLOP_PER_S = 494.7e12  # tensor cores
+L2_BYTES = 50 * 2 ** 20
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -39,14 +40,25 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 def graph_ms(fn, reps: int = 50, warmup: int = 2) -> float:
     """Mean device time of ``fn()`` over ``reps`` calls replayed from one
     CUDA graph: no host time between the launches, so a launch shorter than
-    its wrapper's host time is timed on the device alone."""
+    its wrapper's host time is timed on the device alone.  ``fn`` may be a
+    sequence of callables, called in turn (launches on copies of the
+    inputs, :func:`cold_graph_ms`); their outputs are then held until the
+    replay ends, so that every launch writes fresh memory.  A single
+    callable's output is freed at once and its memory reused by the next
+    launch."""
+    fns = list(fn) if isinstance(fn, (list, tuple)) else [fn]
     for _ in range(warmup):
-        fn()
+        for f in fns:
+            f()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
+    held = []
     with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
+        for i in range(reps):
+            out = fns[i % len(fns)]()
+            if len(fns) > 1:
+                held.append(out)
+            del out
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -54,7 +66,28 @@ def graph_ms(fn, reps: int = 50, warmup: int = 2) -> float:
     graph.replay()
     stop.record()
     torch.cuda.synchronize()
+    del held
     return start.elapsed_time(stop) / reps
+
+
+def cold_copies(touched_bytes: int) -> int:
+    """How many copies of its inputs a launch that touches
+    ``touched_bytes`` (the bytes it reads and writes: for a gather, its
+    sectors, not its whole inputs) cycles through, so that between two
+    launches on one copy the launches on the other copies touch more than
+    twice the L2 cache: each launch then reads its inputs from device
+    memory."""
+    return 1 + -(-2 * L2_BYTES // max(int(touched_bytes), 1))
+
+
+def cold_graph_ms(fn, inputs, touched_bytes: int, reps: int = 50) -> float:
+    """:func:`graph_ms` of ``fn(*inputs)`` cycling through
+    :func:`cold_copies` copies of ``inputs`` (tensors), each launch
+    with an output of its own."""
+    copies = [tuple(inputs)] + [tuple(x.clone() for x in inputs)
+                                for _ in range(cold_copies(touched_bytes)
+                                               - 1)]
+    return graph_ms([lambda c=c: fn(*c) for c in copies], reps)
 
 
 def bytes_ms(nbytes: float) -> float:
@@ -101,6 +134,16 @@ def distinct_sectors(px, py, h, w, elem_size: int) -> int:
                                  -1))
 
 
+def taps_plane_bytes(px, py, h, w, elem_size: int,
+                     sectors: bool = False) -> int:
+    """Plane bytes that the bilinear taps px/py [E, P1, K] must read from
+    the flat [E, P1, h*w] level: the distinct in-bounds corners, or with
+    ``sectors`` the distinct 32-byte sectors that hold them."""
+    if sectors:
+        return 32 * distinct_sectors(px, py, h, w, elem_size)
+    return elem_size * distinct_corners(px, py, h, w)
+
+
 def lookup_bytes(levels, cflat, off0, off1, H, W,
                  sectors: bool = False) -> int:
     """Bytes K2 must move for these inputs: the distinct in-bounds bilinear
@@ -121,8 +164,7 @@ def lookup_bytes(levels, cflat, off0, off1, H, W,
         if lvl == 1:
             px = torch.cat([px, probe[0]], -1)
             py = torch.cat([py, probe[1]], -1)
-        plane_bytes += (32 * distinct_sectors(px, py, h, w, esize) if sectors
-                        else esize * distinct_corners(px, py, h, w))
+        plane_bytes += taps_plane_bytes(px, py, h, w, esize, sectors)
     E, P1 = cflat.shape[:2]
     return (plane_bytes + cflat.numel() * 4 + off0.numel() * 4
             + off1.numel() * 4 + E * P1 * 4 * RD * RD * 4)

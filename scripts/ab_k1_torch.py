@@ -28,17 +28,16 @@ six turns: designs tried and not kept.
 
 from __future__ import annotations
 
-import argparse
-import ctypes
 import json
 import os
-import subprocess
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+sys.path.insert(0, os.path.dirname(__file__))
 
 import torch  # noqa: E402
 
+import ab_torch  # noqa: E402
 import chip_smoke  # noqa: E402
 from lgu_slam_tpu_torch.ops import _build  # noqa: E402
 from lgu_slam_tpu_torch.ops.masked_corr import (  # noqa: E402
@@ -51,24 +50,7 @@ from lgu_slam_tpu_torch.utils.measure import graph_ms  # noqa: E402
 
 H, W = 48, 64
 EDGES = (1, 48)
-ORDER = ("parent", "change", "bmm", "bmm", "change", "parent")
-
-
-def build(src: str, out: str, entry: str, n_int: int):
-    """Compile src with the port's nvcc flags (the checkout's csrc/ on the
-    include path) and return its entry point."""
-    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
-                        str(_build.CSRC), "-o", out, src],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        sys.exit(f"nvcc failed on {src}:\n{r.stdout}{r.stderr}")
-    print(src, [line.strip() for line in (r.stdout + r.stderr).splitlines()
-                if "registers" in line])
-    fn = getattr(ctypes.CDLL(out), entry)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * n_int \
-        + [ctypes.c_void_p]
-    return fn
+ORDER = ab_torch.turns(("parent", "change", "bmm"))
 
 
 def agrees(out, ref, out_dtype) -> bool:
@@ -143,28 +125,19 @@ def compare(parent, variants: dict, dev) -> dict:
 
 
 def main():
-    p = argparse.ArgumentParser()
-    p.add_argument("--parent", required=True,
-                   help="directory with the other revision's masked_corr.cu")
-    p.add_argument("--variant", action="append", default=[],
-                   metavar="NAME=DIR",
-                   help="a directory with another masked_corr_tf32.cu, "
-                        "timed once per case after the six turns")
-    args = p.parse_args()
-    if not torch.cuda.is_available():
-        sys.exit("ab_k1_torch: needs an NVIDIA GPU")
+    args = ab_torch.arguments(
+        "directory with the other revision's masked_corr.cu",
+        "a directory with another masked_corr_tf32.cu, timed once per case "
+        "after the six turns")
+    ab_torch.need_card("ab_k1_torch")
     use_full_fp32()
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    parent = build(os.path.join(args.parent, "masked_corr.cu"),
-                   str(_build.BUILD_DIR / "libk1_ab_parent.so"),
-                   "masked_corr_level0", 6)
-    variants = {}
-    for spec in args.variant:
-        name, src = spec.split("=", 1)
-        variants[name] = build(
-            os.path.join(src, "masked_corr_tf32.cu"),
-            str(_build.BUILD_DIR / f"libk1_ab_{name}.so"),
-            "masked_corr_level0_tf32", 7)
+    parent = ab_torch.entry(
+        ab_torch.build(os.path.join(args.parent, "masked_corr.cu"),
+                       "k1_parent"), "masked_corr_level0", 5, 6)
+    variants = {name: ab_torch.entry(
+        ab_torch.build(os.path.join(src, "masked_corr_tf32.cu"),
+                       f"k1_{name}"), "masked_corr_level0_tf32", 5, 7)
+        for name, src in args.variant.items()}
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "k1_ab": compare(parent, variants,
                                        torch.device("cuda"))}))

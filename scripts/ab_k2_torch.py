@@ -26,44 +26,29 @@ per E after the four turns: designs tried and not kept.
 
 from __future__ import annotations
 
-import argparse
-import ctypes
 import json
 import os
-import subprocess
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+sys.path.insert(0, os.path.dirname(__file__))
 
 import torch  # noqa: E402
 
+import ab_torch  # noqa: E402
 import chip_smoke  # noqa: E402
 from lgu_slam_tpu_torch.ops import _build  # noqa: E402
 from lgu_slam_tpu_torch.utils.measure import cuda_ms, graph_ms  # noqa: E402
 
 H, W = 48, 64
 EDGES = chip_smoke.K2_EDGES
-ORDER = ("parent", "change", "change", "parent")
-
-
-def build(src: str, out: str) -> ctypes.CDLL:
-    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, src],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        sys.exit(f"nvcc failed on {src}:\n{r.stdout}{r.stderr}")
-    print(src, [line.strip() for line in (r.stdout + r.stderr).splitlines()
-                if "registers" in line])
-    lib = ctypes.CDLL(out)
-    lib.fused_pyramid_lookup.restype = ctypes.c_int
-    lib.fused_pyramid_lookup.argtypes = [ctypes.c_void_p] * 8 \
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    return lib
 
 
 def compare(libs: dict, dev) -> dict:
-    """Every library's K2 at each E of EDGES, timed in the turns of ORDER
-    (tags beyond parent and change once each, after them)."""
-    tags = list(ORDER) + [t for t in libs if t not in ORDER]
+    """Every library's K2 at each E of EDGES, timed in the turns of parent
+    and change (the variants once each, after them)."""
+    tags = ab_torch.turns(("parent", "change")) + tuple(
+        t for t in libs if t not in ("parent", "change"))
     result = {}
     for E in EDGES:
         lv, cflat, off0, off1 = chip_smoke.lookup_inputs(
@@ -71,7 +56,7 @@ def compare(libs: dict, dev) -> dict:
         outs = {tag: torch.empty(E, H * W, 196, device=dev) for tag in libs}
 
         def run(tag):
-            status = libs[tag].fused_pyramid_lookup(
+            status = libs[tag](
                 *(v.data_ptr() for v in lv), cflat.data_ptr(),
                 off0.data_ptr(), off1.data_ptr(), outs[tag].data_ptr(), E, H,
                 W, 1, torch.cuda.current_stream().cuda_stream)
@@ -100,28 +85,17 @@ def compare(libs: dict, dev) -> dict:
 
 
 def main():
-    p = argparse.ArgumentParser()
-    p.add_argument("--parent", required=True,
-                   help="directory with the other revision's "
-                        "pyramid_lookup.cu and bilinear.cuh")
-    p.add_argument("--variant", action="append", default=[],
-                   metavar="NAME=DIR",
-                   help="a further source to time (a directory as for "
-                        "--parent), once per E after the four turns")
-    args = p.parse_args()
-    if not torch.cuda.is_available():
-        sys.exit("ab_k2_torch: needs an NVIDIA GPU")
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    libs = {
-        "parent": build(os.path.join(args.parent, "pyramid_lookup.cu"),
-                        str(_build.BUILD_DIR / "libk2_ab_parent.so")),
-        "change": build(str(_build.CSRC / "pyramid_lookup.cu"),
-                        str(_build.BUILD_DIR / "libk2_ab_change.so")),
-    }
-    for spec in args.variant:
-        name, src = spec.split("=", 1)
-        libs[name] = build(os.path.join(src, "pyramid_lookup.cu"),
-                           str(_build.BUILD_DIR / f"libk2_ab_{name}.so"))
+    args = ab_torch.arguments(
+        "directory with the other revision's pyramid_lookup.cu and "
+        "bilinear.cuh",
+        "a further source to time (a directory as for --parent), once per "
+        "E after the four turns")
+    ab_torch.need_card("ab_k2_torch")
+    dirs = {"parent": args.parent, "change": str(_build.CSRC),
+            **args.variant}
+    libs = {tag: ab_torch.entry(
+        ab_torch.build(os.path.join(d, "pyramid_lookup.cu"), f"k2_{tag}"),
+        "fused_pyramid_lookup", 8, 4) for tag, d in dirs.items()}
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "k2_ab": compare(libs, torch.device("cuda"))}))
 

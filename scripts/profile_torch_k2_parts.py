@@ -7,17 +7,26 @@ port's counterpart of the TPU probes ``_prof_kparts.py`` and
 
 At the probe's shapes (E = 48 edges, 48 x 64 feature maps, bf16 levels,
 coordinates on the pixel grid plus 1.5 N(0, 1), offsets uniform in +-3) it
-times, as CUDA-event means after warm-up:
+times, as CUDA-event means after warm-up (each level alone also on the
+device alone):
 
 - K2 whole (``fused_pyramid_lookup``);
 - K2's memory floor: every input byte streamed once (``k2_stream_floor``);
-- each level alone with K2's own tap code (``k2_one_level``);
+- each level alone (``k2_one_level``, K6's own kernel: since its redesign
+  it no longer runs K2's per-level code), on the device alone: a CUDA
+  graph of 50 launches cycling through copies of the level and the
+  coordinates, so many that the launches between two on one copy touch
+  (read their sectors, write their outputs) more than twice the 50 MB L2,
+  each launch with its own output (``utils/measure.cold_graph_ms``), and
+  by CUDA events over eager launches (``ms_eager``);
 - K5, the per-lane row gather at [48, 3072, 24, 128] (``row_gather``).
 
 Each time stands beside its bound: the bytes the kernel must move over
-3.35 TB/s; for the lookups, the distinct in-bounds corners the taps read;
-for the row gather, a byte bound (2 bytes per gathered value) and a sector
-bound (every distinct 32-byte sector of V that the run's indices touch).
+3.35 TB/s; for the lookups, the distinct in-bounds corners the taps read,
+and for each level alone also the distinct 32-byte sectors that hold them
+(``sector_bound_ms``); for the row gather, a byte bound (2 bytes per
+gathered value) and a sector bound (every distinct 32-byte sector of V
+that the run's indices touch).
 It prints one JSON object and writes it to ``DIR/profile_torch_k2_parts.json``.
 """
 
@@ -48,9 +57,10 @@ from lgu_slam_tpu_torch.ops.pyramid_lookup import (  # noqa: E402
 from lgu_slam_tpu_torch.ops.row_gather import row_gather  # noqa: E402
 from lgu_slam_tpu_torch.utils.measure import (  # noqa: E402
     bytes_ms,
+    cold_graph_ms,
     cuda_ms,
-    distinct_corners,
     lookup_bytes,
+    taps_plane_bytes,
 )
 
 E, H, W = 48, 48, 64  # the probe's K2 shapes (the tracking graph)
@@ -106,11 +116,18 @@ def profile(dev, inputs: dict, reps: int = 10, warmup: int = 2) -> dict:
           in_bytes + E * P1 * 64 * 4, input_bytes=in_bytes)
     for lvl, (h, w) in enumerate(level_dims(H, W)):
         px, py = one_level_positions(cflat, lvl)
-        corners = distinct_corners(px, py, h, w)
-        entry(f"k2_one_level_{lvl}",
-              lambda lvl=lvl: k2_one_level(lv[lvl], cflat, lvl, H, W),
-              corners * 2 + cflat.numel() * 4 + E * P1 * 64 * 4,
-              plane=f"{h}x{w}")
+        io = cflat.numel() * 4 + E * P1 * 64 * 4
+        touched = io + taps_plane_bytes(px, py, h, w, 2, sectors=True)
+        out[f"k2_one_level_{lvl}"] = dict(
+            ms=cold_graph_ms(lambda v, c, lvl=lvl: k2_one_level(v, c, lvl, H,
+                                                                W),
+                             (lv[lvl], cflat), touched),
+            ms_eager=cuda_ms(lambda lvl=lvl: k2_one_level(lv[lvl], cflat,
+                                                          lvl, H, W),
+                             reps, warmup),
+            bound_ms=bytes_ms(io + taps_plane_bytes(px, py, h, w, 2)),
+            sector_bound_ms=bytes_ms(touched), plane=f"{h}x{w}")
+        del px, py
     io = s.numel() * 4 + s.numel() * 4  # s read, out written
     sectors = row_gather_sectors(s)
     entry("row_gather", lambda: row_gather(V, s), io + s.numel() * 2,

@@ -286,6 +286,93 @@ def test_window_lookup_kernel(cuda_device, geometry, dtype):
     assert (out[:, ::5, 0] == 0).all() and (out[:, 1::5, K - 1] == 0).all()
 
 
+def edge_positions(h, w):
+    """Positions on and one ulp below the integers at a plane's edges and
+    just inside them (0, 1, w - 1, w and the like on each axis; below 0
+    the smallest normal step: the card flushes denormals), paired in every
+    combination, and NaN: [n] x and y."""
+    def axis(n):
+        on = np.array([0, 1, n - 2, n - 1, n], np.float32)
+        below = np.nextafter(on, np.float32(-1))
+        below[0] = -np.float32(2.0 ** -126)
+        return np.concatenate([on, below, [np.nan]]).astype(np.float32)
+    xs, ys = np.meshgrid(axis(w), axis(h), indexing="ij")
+    return torch.from_numpy(xs.ravel()), torch.from_numpy(ys.ravel())
+
+
+@pytest.mark.parametrize("hwk", [(13, 17, 49), (24, 32, 9), (7, 5, 81),
+                                 (6, 8, 49)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_lookup_kernel_edges(cuda_device, hwk, dtype):
+    """K3/K4 on positions exactly on, and one ulp below, integers at the
+    planes' edges (where the boundary rule flips a tap to 0), NaN among
+    them, on odd planes, fp32 and bf16, K of both lane layouts and above
+    64: within 2e-4 of the plain version, and exactly 0 where the plain
+    version is 0."""
+    h, w, K = hwk
+    xs, ys = edge_positions(h, w)
+    E, P1 = 2, 40
+    gen = torch.Generator().manual_seed(7)
+    pick = torch.randint(0, xs.numel(), (E, P1, K), generator=gen)
+    px, py = xs[pick].to(cuda_device), ys[pick].to(cuda_device)
+    vol = torch.randn(E, P1, h * w, generator=gen).to(cuda_device, dtype)
+    out = window_lookup(vol, h, w, px, py)
+    ref = sample_taps_flat(vol, h, w, px, py)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=2e-4, rtol=0)
+    assert torch.equal(out == 0, ref == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_lookup_kernel_scattered(cuda_device, dtype):
+    """K3: taps anywhere on and around the plane, not a window: no tile or
+    box of a pixel's corners holds them (the path a staging design falls
+    back from), 49 per pixel on 48 x 64 planes, NaN among them."""
+    h, w, K = 48, 64, 49
+    E, P1 = 2, 64
+    gen = torch.Generator().manual_seed(8)
+    vol = torch.randn(E, P1, h * w, generator=gen).to(cuda_device, dtype)
+    px = torch.rand(E, P1, K, generator=gen) * (w + 4) - 2
+    py = torch.rand(E, P1, K, generator=gen) * (h + 4) - 2
+    px[:, ::3, 5] = float("nan")
+    px, py = px.to(cuda_device), py.to(cuda_device)
+    out = window_lookup(vol, h, w, px, py)
+    ref = sample_taps_flat(vol, h, w, px, py)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=2e-4, rtol=0)
+    assert (out[:, ::3, 5] == 0).all()
+
+
+@pytest.mark.parametrize("ehw", [(2, 9, 15), (1, 17, 23), (2, 13, 17)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_one_level_kernel_edges(cuda_device, ehw, dtype):
+    """K6 one_level on the four levels of odd pyramids (down to 1 x 1,
+    planes smaller than the kernel's patch): coordinates on, and one ulp
+    below, integers at the levels' edges (scaled by 2^l so that each level
+    sees them), coordinates whose tap at +3 rounds up across the next
+    integer (8 - 2^-21 + 3 rounds to 11: a floor the patch does not hold
+    with its +1 corner, read from global memory), huge and NaN ones:
+    within 2e-4 of the plain version, exactly 0 where it is 0."""
+    E, H, W = ehw
+    gen = torch.Generator().manual_seed(9)
+    P1 = H * W
+    for lvl, (h, w) in enumerate(level_dims(H, W)):
+        xs, ys = edge_positions(h, w)
+        special = torch.tensor([[8 - 2.0 ** -21, 8 - 2.0 ** -21],
+                                [8 - 2.0 ** -21, 3.5], [1e30, 2.0],
+                                [-1e30, float("nan")]])
+        pos = torch.cat([torch.stack([xs, ys], -1), special])
+        pick = torch.randint(0, pos.shape[0], (E, P1), generator=gen)
+        cflat = (pos[pick] * 2.0 ** lvl).to(cuda_device).contiguous()
+        level = torch.randn(E, P1, h * w, generator=gen).to(cuda_device,
+                                                           dtype)
+        out = k2_one_level(level, cflat, lvl, H, W)
+        ref = k2_one_level_plain(level, cflat, lvl, H, W)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, atol=2e-4, rtol=0)
+        assert torch.equal(out == 0, ref == 0), lvl
+
+
 @pytest.mark.parametrize("shape", [(2, 96, 24, 128), (3, 40, 7, 48)])
 def test_row_gather_kernel(cuda_device, shape):
     """K5: exact (a bf16 value read as fp32), indices outside [0, S) too."""

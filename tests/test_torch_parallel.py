@@ -268,33 +268,54 @@ def backend_runs(tmp_path_factory):
     return finish_ranks(started), ref
 
 
-def held_to(res, jv, T, rtol, atol, what):
+# The disparities of a backend pass move with the host's rounding alone.
+# Measured on the CPU in max |diff| / (1e-5 + 1e-4 |ref|) over the
+# aligned / misaligned cases: the port's one-process pass under
+# ATEN_CPU_CAPABILITY=default against avx2 or avx512 0.81 / 0.59 (avx2 and
+# avx512 equal; 1 thread and 4 equal); the port's 4-rank pass against its
+# one-process pass on the same chunks 1.16 (avx512 kernels) and 0.39
+# (default kernels); the JAX package's 4-device pass against its one-device
+# pass 0.33 / 0.53.  The port against the JAX package stays inside that
+# spread (0.38-1.30, at most 3.1e-5 on disparities of ~0.1), so its
+# disparities are held to the sum of the two packages' largest spreads,
+# 1.16 + 0.53, rounded up to twice rtol 1e-4 / atol 1e-5.  Poses keep
+# rtol 1e-4 / atol 1e-5 (their largest measured ratio: 0.61).
+DISPS_RTOL, DISPS_ATOL = 2e-4, 2e-5
+
+
+def held_to(res, jv, T, rtol, atol, what, disps_tol=None):
+    """Poses, disparities and damping of ``res`` against the JAX video
+    ``jv``; the disparities to ``disps_tol`` (rtol, atol) where given."""
     s = jv.state
     for name in ("poses", "disps", "damping"):
         assert bool(torch.isfinite(res[name]).all()), name
-        close(res[name], getattr(s, name)[:T], atol=atol, rtol=rtol,
+        r, a = disps_tol if name == "disps" and disps_tol else (rtol, atol)
+        close(res[name], getattr(s, name)[:T], atol=a, rtol=r,
               msg=f"{what} {name}")
 
 
 def test_sharded_lowmem_matches_jax_and_one_process(backend_runs):
     """Aligned chunks (every frame 4 out-edges, CH = 8: each rank holds two
-    chunks that coincide with the one-process chunking): poses, disparities
-    and damping within rtol 1e-4 / atol 1e-5 of the JAX package's sharded
-    pass on 4 devices, its one-device pass and the port's one-process pass;
-    the edges' targets, weights and hidden states within rtol 2e-3 / atol
-    1e-4, on every rank."""
+    chunks that coincide with the one-process chunking): poses and damping
+    within rtol 1e-4 / atol 1e-5, disparities within DISPS_RTOL /
+    DISPS_ATOL (the hosts' rounding spread, measured above held_to), of the
+    JAX package's sharded pass on 4 devices, its one-device pass and the
+    port's one-process pass; the edges' targets, weights and hidden states
+    within rtol 2e-3 / atol 1e-4, on every rank."""
     out, ref = backend_runs
     res, r = out["aligned"], ref["aligned"]
     for what in ("jax4", "jax1"):
-        held_to(res, r[what].video, 16, 1e-4, 1e-5, what)
+        held_to(res, r[what].video, 16, 1e-4, 1e-5, what,
+                disps_tol=(DISPS_RTOL, DISPS_ATOL))
         n = r[what].n_edges
         for name, jname in (("target", "target"), ("weight", "weight"),
                             ("hidden", "net")):
             close(res[name], getattr(r[what], jname)[:n], atol=1e-4,
                   rtol=2e-3, msg=f"{what} {name}")
     g = r["port1"]
-    for name in ("poses", "disps", "damping"):
+    for name in ("poses", "damping"):
         close(res[name], getattr(g.video, name)[:16], atol=1e-5, rtol=1e-4)
+    close(res["disps"], g.video.disps[:16], atol=DISPS_ATOL, rtol=DISPS_RTOL)
     for name in ("target", "weight", "hidden"):
         close(res[name], getattr(g, name), atol=1e-4, rtol=2e-3)
 
@@ -317,12 +338,14 @@ def test_backend_runs_sharded_over_group(backend_runs):
 def test_sharded_lowmem_misaligned_chunks_bounded(backend_runs):
     """Alternating out-degrees 3 / 5: the ranks' chunks cannot coincide with
     the one-process chunking.  Equal to the JAX package's sharded pass on 4
-    devices (same chunks; rtol 1e-4 / atol 1e-5), and within
-    tests/test_backend_shard.py's bound of the one-process pass (poses
-    3e-4, disparities 5e-4)."""
+    devices (same chunks; rtol 1e-4 / atol 1e-5, disparities DISPS_RTOL /
+    DISPS_ATOL: the hosts' rounding spread, measured above held_to), and
+    within tests/test_backend_shard.py's bound of the one-process pass
+    (poses 3e-4, disparities 5e-4)."""
     out, ref = backend_runs
     res, r = out["misaligned"], ref["misaligned"]
-    held_to(res, r["jax4"].video, 16, 1e-4, 1e-5, "jax4")
+    held_to(res, r["jax4"].video, 16, 1e-4, 1e-5, "jax4",
+            disps_tol=(DISPS_RTOL, DISPS_ATOL))
     g = r["port1"]
     assert float((res["poses"] - g.video.poses[:16]).abs().max()) < 3e-4
     assert float((res["disps"] - g.video.disps[:16]).abs().max()) < 5e-4

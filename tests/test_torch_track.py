@@ -379,9 +379,14 @@ def test_tracking_self_perturbation(jax_init):
     """The measurement behind the stepwise test: the port tracks the stream
     twice, once with every weight multiplied by 1 +- 2^-23 (its last
     digit).  Both keep the same keyframes and edges and stay finite, and
-    the second moves from the first by more than the 1e-2 that the
-    free-running comparison with the JAX package used to hold (measured:
-    0.053 at frame 12), so such a bound is no parity check."""
+    the perturbation moves the poses.  How far is the host's: whether a
+    last-digit change flips a tap on the lookup's boundary rule depends on
+    the host's rounding (measured: 0.003 on one CPU host, 0.053 on
+    another, against the 1e-2 that the free-running comparison with the
+    JAX package used to hold), so the size of the gap is not asserted and
+    a free-running pose bound is no parity check.  The mechanism, a tap
+    one ulp below the grid leaving the plane, is pinned by construction in
+    test_seeded_pair_taps_sit_on_the_boundary_rule."""
     net_def, params = jax_init
     cfg = SLAMConfig(**tiny_config_kwargs())
     sd = state_dict_from_jax_params(params)
@@ -408,7 +413,7 @@ def test_tracking_self_perturbation(jax_init):
     assert a.ii.tolist() == b.ii.tolist() and a.jj.tolist() == b.jj.tolist()
     for slam in runs:
         assert bool(torch.isfinite(slam.video.poses[:14]).all())
-    assert gap > 1e-2
+    assert gap > 0.0
 
 
 def test_seeded_pair_taps_sit_on_the_boundary_rule(jax_init):
