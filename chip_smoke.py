@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Seven phases; any failure exits non-zero.
+Eight phases; any failure exits non-zero.
 
 1. Build the CUDA kernels from ``lgu_slam_tpu_torch/csrc`` with nvcc for
    sm_90a, all at once (printing ptxas' register/shared-memory summary),
@@ -73,11 +73,25 @@ Seven phases; any failure exits non-zero.
    clipped gradients and the weights after the step (a weight whose
    gradient's sign is held to fp32 rounding).  Each is timed beside its
    one-process path.
+8. The entry points a user runs, through their ``main`` functions, on
+   sequences written to disk with the port's own PNG encoder (rendered
+   along known trajectories by ``data/synthetic.py``): a 40-frame TUM
+   RGB-D sequence (480 x 640, fr1, 16-bit depth) and a 16-frame EuRoC
+   stereo sequence (752 x 480 gray pairs), with a reference ``.pth`` of
+   random weights (``module.`` prefixes, 3-output heads).
+   ``scripts/demo_torch.py`` mono and RGB-D at full width (undistorted and
+   resized to 384 x 512, thresholds 0, every 2nd frame),
+   ``scripts/evaluate_tum_torch.py`` (240 x 320) and
+   ``scripts/evaluate_euroc_torch.py`` (stereo, rectified to 320 x 512):
+   each run's trajectory has a finite pose per frame and launched K1 (the
+   bf16-operand kernel) and K2.  Beside them, the host's ms per frame of
+   decoding, undistorting or rectifying, and resizing, and the demo's ms
+   per tracked frame.
 
 Before the last line it prints the tracking, terminate, training, fp32
-tracking and world-size-1 reports, the run's wall time, the card's name and power limit, and
-one JSON line with each kernel's error, time, bound and launches.  The last
-line is ``{"ok": true, "device": {...}}``.
+tracking, world-size-1 and entry-point reports, the run's wall time, the
+card's name and power limit, and one JSON line with each kernel's error,
+time, bound and launches.  The last line is ``{"ok": true, "device": {...}}``.
 Data and weights come from fixed seeds; nothing needs the network.
 """
 
@@ -90,6 +104,7 @@ import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -98,6 +113,17 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from lgu_slam_tpu_torch.data.fixtures import (
+    write_euroc_sequence,
+    write_tum_sequence,
+)
+from lgu_slam_tpu_torch.data.image_io import imread
+from lgu_slam_tpu_torch.data.imgproc import (
+    FloatRemap,
+    resize,
+    undistort_maps,
+)
+from lgu_slam_tpu_torch.data.streams import euroc_maps
 from lgu_slam_tpu_torch.data.synthetic import SyntheticDataset
 from lgu_slam_tpu_torch.geom.dba import DbaPlan, dba_step
 from lgu_slam_tpu_torch.geom.projective import projective_transform
@@ -136,6 +162,7 @@ from lgu_slam_tpu_torch.slam.factor_graph import FactorGraph
 from lgu_slam_tpu_torch.slam.motion_filter import MotionFilter
 from lgu_slam_tpu_torch.slam.system import LGUSlam
 from lgu_slam_tpu_torch.slam.trajectory_filler import TrajectoryFiller
+from lgu_slam_tpu_torch.utils.checkpoint import TRIMMED_HEADS
 from lgu_slam_tpu_torch.utils.config import SLAMConfig, TrainConfig
 from lgu_slam_tpu_torch.utils.device import use_full_fp32
 from lgu_slam_tpu_torch.utils.measure import (
@@ -158,8 +185,8 @@ KERNELS = ("masked_corr_tf32", "masked_corr_tc", "pyramid_lookup",
 K1_KERNELS = (
     ("masked_corr_level0_tf32", "masked_corr_tf32.cu", torch.float32),
     ("masked_corr_level0_tc", "masked_corr_tc.cu", torch.bfloat16))
-PROBES = Path(__file__).resolve().parent / "scripts" / \
-    "profile_torch_k2_parts.py"
+SCRIPTS = Path(__file__).resolve().parent / "scripts"
+PROBES = SCRIPTS / "profile_torch_k2_parts.py"
 MAIN_E, MAIN_H, MAIN_W = 48, 48, 64  # frontend graph at 384 x 512
 # K2's edge counts: the motion filter's probe, the backend's last sub-chunk
 # of a chunk (phase 4 launches 223 of its 539 at E = 2) and a whole one,
@@ -1341,6 +1368,168 @@ def phase_world_size_1(dev, kernels: dict) -> dict:
     return report
 
 
+# -- phase 8: the entry points on on-disk sequences --------------------------
+
+def load_script(name: str):
+    """``scripts/<name>.py`` as a module (its ``main(argv)``)."""
+    spec = importlib.util.spec_from_file_location(name,
+                                                  SCRIPTS / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def reference_pth(path: Path, seed: int = SEED) -> None:
+    """Random weights saved as a reference checkpoint: ``module.`` prefixes
+    and 3-output weight/delta heads, which the loader strips and trims."""
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, v in init_state_dict(SLAMConfig(), seed).items():
+        if k.startswith(TRIMMED_HEADS):
+            v = torch.cat([v, torch.randn((1,) + v.shape[1:], generator=gen)])
+        sd["module." + k] = v
+    torch.save(sd, path)
+
+
+def host_ms(fn, items) -> float:
+    """Median host ms of ``fn`` over ``items``."""
+    ms = []
+    for item in items:
+        t_start = time.perf_counter()
+        fn(item)
+        ms.append(1e3 * (time.perf_counter() - t_start))
+    return statistics.median(ms)
+
+
+def host_costs(tum: Path, euroc: Path) -> dict:
+    """The host's ms per frame of each step that feeds a frame: the TUM
+    sequence's 480 x 640 colour PNGs decoded, undistorted (fr1) and resized
+    to 384 x 512 (the demo's path), and the EuRoC pairs' 752 x 480 gray
+    PNGs decoded, rectified and resized to 320 x 512 (both cameras)."""
+    rgb = sorted((tum / "rgb").iterdir())[:10]
+    images = [imread(str(f)) for f in rgb]
+    K = np.asarray([[517.3, 0, 318.6], [0, 516.5, 255.3], [0, 0, 1]])
+    undist = undistort_maps(K, [0.2624, -0.9531, -0.0054, 0.0026, 1.1633],
+                            (640, 480))
+    flat = [undist(im) for im in images]
+    cams = [sorted((euroc / "mav0" / c / "data").iterdir())[:6]
+            for c in ("cam0", "cam1")]
+    pairs = [[imread(str(f)) for f in fs] for fs in zip(*cams)]
+    rectify = [FloatRemap(*m, (480, 752)) for m in euroc_maps()]
+    rectified = [[r(im) for r, im in zip(rectify, pair)] for pair in pairs]
+    return {
+        "tum_480x640_to_384x512": dict(
+            decode_ms=host_ms(lambda f: imread(str(f)), rgb),
+            undistort_ms=host_ms(undist, images),
+            resize_ms=host_ms(lambda im: resize(im, (512, 384)), flat)),
+        "euroc_stereo_752x480_to_320x512": dict(
+            decode_ms=host_ms(lambda fs: [imread(str(f)) for f in fs],
+                              list(zip(*cams))),
+            remap_ms=host_ms(lambda p: [r(im) for r, im in zip(rectify, p)],
+                             pairs),
+            resize_ms=host_ms(lambda p: [resize(im, (512, 320)) for im in p],
+                              rectified))}
+
+
+def entry_run(name: str, fn, kernels: dict, runs: dict):
+    """Run one entry point with K1/K2's counts from 0; checks that it
+    launched both, K1 only as the bf16-operand kernel (every configuration
+    here keeps SLAMConfig()'s bf16 dtypes), and records the counts."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    k1, k2 = masked_corr_level0.launches_bf16, fused_pyramid_lookup.launches
+    check(k1 > 0 and k2 > 0, f"{name}: kernel launches K1={k1} K2={k2}")
+    check(masked_corr_level0.launches == k1,
+          f"{name}: K1 fp32-operand launches "
+          f"{masked_corr_level0.launches - k1}")
+    runs[name] = dict(seconds=time.perf_counter() - t_start, k1_launches=k1,
+                      k2_launches=k2)
+    for kname, k in (("masked_corr_level0_tc", k1),
+                     ("fused_pyramid_lookup", k2)):
+        kernels[kname]["launches_entry_points"] = \
+            kernels[kname].get("launches_entry_points", 0) + k
+    return out
+
+
+def finite_trajectory(name: str, path: Path, n: int) -> None:
+    traj = np.loadtxt(path)
+    check(traj.shape == (n, 8), f"{name}: trajectory {traj.shape}, not "
+          f"{n} poses")
+    check(bool(np.isfinite(traj).all()), f"{name}: non-finite poses")
+
+
+def phase_entry_points(dev, kernels: dict, n_tum: int = 40,
+                       n_euroc: int = 16, stride: int = 2) -> dict:
+    """The entry points a user runs, through their ``main`` functions on
+    the card, on sequences written to disk with the port's PNG encoder:
+    ``demo_torch`` mono and RGB-D at full width (384 x 512, thresholds 0,
+    every ``stride``-th frame), ``evaluate_tum_torch`` (240 x 320) and
+    ``evaluate_euroc_torch`` (stereo, 320 x 512), all with a reference
+    ``.pth`` of random weights; beside them the host's ms per frame of
+    decoding, undistorting or rectifying, and resizing."""
+    demo = load_script("demo_torch")
+    tum_eval = load_script("evaluate_tum_torch")
+    euroc_eval = load_script("evaluate_euroc_torch")
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t_start = time.perf_counter()
+        tum = Path(write_tum_sequence(
+            str(root / "tum" / "rgbd_dataset_freiburg1_desk"), n_tum))
+        euroc = Path(write_euroc_sequence(str(root / "euroc" / "MH_01_easy"),
+                                          n_euroc))
+        weights = root / "weights.pth"
+        reference_pth(weights)
+        calib = root / "calib.txt"
+        calib.write_text("517.3 516.5 318.6 255.3 0.2624 -0.9531 -0.0054 "
+                         "0.0026 1.1633\n")
+        fixture_s = time.perf_counter() - t_start
+        host = host_costs(tum, euroc)
+
+        n_demo = len(range(0, n_tum, stride))
+        demo_args = ["--imagedir", str(tum / "rgb"), "--calib", str(calib),
+                     "--weights", str(weights), "--stride", str(stride),
+                     "--filter_thresh", "0", "--keyframe_thresh", "0",
+                     "--device", str(dev)]
+        for name, extra in (("demo_mono", []),
+                            ("demo_rgbd", ["--depthdir", str(tum / "depth")])):
+            traj = root / f"{name}.txt"
+            out = entry_run(name, lambda: demo.main(
+                demo_args + extra + ["--trajectory_path", str(traj)]),
+                kernels, runs)
+            finite_trajectory(name, traj, n_demo)
+            runs[name].update(frames=n_demo, ms_per_frame={
+                k: v["mean_ms"] for k, v in out["phases"].items()})
+        for name, script, path, n in (
+                ("evaluate_tum", tum_eval, tum, n_tum),
+                ("evaluate_euroc", euroc_eval, euroc, n_euroc)):
+            out = entry_run(name, lambda: script.main(
+                ["--datapath", str(path.parent), "--weights", str(weights),
+                 "--sequences", path.name, "--device", str(dev)]),
+                kernels, runs)
+            result = out[path.name]
+            check(result["poses"] == n and np.isfinite(result["ate"]),
+                  f"{name}: {result}")
+            runs[name].update(poses=result["poses"], ate=result["ate"])
+    report = dict(fixture_seconds=fixture_s, host_ms_per_frame=host,
+                  runs=runs)
+    tum_host = host["tum_480x640_to_384x512"]
+    print(f"phase 8: demo_torch mono and RGB-D ({n_demo} frames at 384 x "
+          f"512), evaluate_tum_torch ({n_tum} poses) and "
+          f"evaluate_euroc_torch (stereo, {n_euroc} poses) on sequences "
+          f"written to disk: trajectories finite; host ms per 480 x 640 "
+          f"frame: decode {tum_host['decode_ms']:.1f}, undistort "
+          f"{tum_host['undistort_ms']:.1f}, resize "
+          f"{tum_host['resize_ms']:.1f}; demo ms per tracked frame "
+          f"{runs['demo_mono']['ms_per_frame']['track']:.1f}; K1 launches "
+          f"{sum(r['k1_launches'] for r in runs.values())}, K2 launches "
+          f"{sum(r['k2_launches'] for r in runs.values())}")
+    return report
+
+
 def main():
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke run needs an NVIDIA GPU")
@@ -1378,13 +1567,16 @@ def main():
           f"peak {fp32['peak_memory_gb']:.2f} GB, poses finite")
     torch.cuda.empty_cache()
     world1 = phase_world_size_1(dev, kernels)
+    torch.cuda.empty_cache()
+    entry_points = phase_entry_points(dev, kernels)
     # launches on the main path: K1 bf16 and K2 over track() +
-    # terminate(), K2 also over phase 7's sharded backend pass, K1 fp32
-    # operands over phase 6's track()
+    # terminate() and phase 8's entry points, K2 also over phase 7's
+    # sharded backend pass, K1 fp32 operands over phase 6's track()
     for name in ("masked_corr_level0_tc", "fused_pyramid_lookup"):
         k = kernels[name]
         k["launches"] = k["launches_track"] + k["launches_terminate"] + \
-            k.get("launches_sharded_backend", 0)
+            k.get("launches_sharded_backend", 0) + \
+            k["launches_entry_points"]
     k = kernels["masked_corr_level0_tf32"]
     k["launches"] = k["launches_track_fp32"]
     for k in kernels.values():
@@ -1396,6 +1588,7 @@ def main():
     print(json.dumps({"training": train}))
     print(json.dumps({"tracking_fp32": fp32}))
     print(json.dumps({"world_size_1": world1}))
+    print(json.dumps({"entry_points": entry_points}))
     print(json.dumps({"seconds": seconds}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": list(kernels.values())}))

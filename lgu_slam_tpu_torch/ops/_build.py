@@ -9,6 +9,10 @@ loaded with ``ctypes``.  The sources ship with the package.
 Nothing is built when a module is imported: the first launch on a CUDA
 tensor builds its kernel, and :func:`build_all` builds every kernel at once
 (one nvcc process per source, all started together).
+
+Host helpers in plain C (``csrc/host/<name>.c``, such as the PNG row
+unfilter) are built and loaded the same way by the host C compiler; a
+failed build raises.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+HOST_CFLAGS = ["-O2", "-std=c99", "-shared", "-fPIC"]
+
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -40,32 +46,53 @@ def _nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
+def _cc() -> str:
+    for name in (os.environ.get("CC"), "cc", "gcc"):
+        found = name and shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no C compiler found (cc, gcc or $CC): the port's "
+                       "host helpers in csrc/host/ are built at first use")
+
+
 def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
+def _source(name: str) -> Path:
+    """``csrc/<name>.cu``, else the host helper ``csrc/host/<name>.c``."""
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.exists() else CSRC / "host" / f"{name}.c"
+
+
 def _stale(name: str) -> bool:
-    """Missing, or older than its source or any shared header."""
+    """Missing, or older than its source or (CUDA) any shared header."""
     lib = _target(name)
     if not lib.exists():
         return True
-    sources = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    src = _source(name)
+    sources = [src, *CSRC.glob("*.cuh")] if src.suffix == ".cu" else [src]
     return lib.stat().st_mtime < max(p.stat().st_mtime for p in sources)
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f"lib{name}.so.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+    src = _source(name)
+    compiler = [_nvcc(), *NVCC_FLAGS] if src.suffix == ".cu" else \
+        [_cc(), *HOST_CFLAGS]
+    proc = subprocess.Popen([*compiler, "-o", str(tmp), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
     return proc, tmp
 
 
 def _finish(name: str, proc: subprocess.Popen, tmp: Path) -> str:
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
+        raise RuntimeError(f"the build of "
+                           f"{_source(name).relative_to(CSRC.parent)} "
+                           f"failed:\n{log}")
     os.replace(tmp, _target(name))  # atomic: concurrent builds race safely
     return log
 
@@ -78,8 +105,8 @@ def build_all(names) -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if missing or
-    older than its source."""
+    """The loaded library of kernel or host helper ``name``, built first if
+    missing or older than its source."""
     lib = _loaded.get(name)
     if lib is None:
         if _stale(name):

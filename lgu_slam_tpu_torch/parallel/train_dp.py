@@ -32,6 +32,8 @@ metrics stay 0-dim tensors on the device until the caller logs them.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -41,6 +43,7 @@ from lgu_slam_tpu_torch import lie
 from lgu_slam_tpu_torch.geom import losses
 from lgu_slam_tpu_torch.parallel.dba_shard import check_group
 from lgu_slam_tpu_torch.utils.config import TrainConfig
+from lgu_slam_tpu_torch.utils.device import resolve_device
 
 
 def window_edges(n_frames: int, radius: int = 2):
@@ -219,3 +222,18 @@ def mean_over_ranks(metrics: dict, group=None) -> dict:
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     x = x / dist.get_world_size(group)
     return dict(zip(keys, x))
+
+
+def init_distributed(device):
+    """Under torchrun (``WORLD_SIZE`` set, world size 1 included): join the
+    process group from torchrun's environment (NCCL on the card, gloo on the
+    CPU) and take this rank's card; otherwise one process.  Returns
+    (device, rank)."""
+    dev = resolve_device(device)
+    if "WORLD_SIZE" not in os.environ:
+        return dev, 0
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    return dev, dist.get_rank()

@@ -10,15 +10,15 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> the first CUDA device (raises when CUDA is absent);
-    anything else is taken as given (``"cpu"`` in the tests)."""
-    if device is None:
+    """``None`` -> the first CUDA device; a CUDA device raises when CUDA is
+    absent; anything else is taken as given (``"cpu"`` in the tests)."""
+    if device is None or torch.device(device).type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA is not available: pass device='cpu' to run the port "
                 "on the CPU with the kernels' plain PyTorch versions"
             )
-        return torch.device("cuda")
+        return torch.device("cuda" if device is None else device)
     return torch.device(device)
 
 

@@ -24,7 +24,7 @@ ATE of each against the exact trajectory; ``--holdout_from`` skips
 training and takes the trained weights from a train state.  The script
 asserts that the trained weights beat the random ones.
 
-Under ``torchrun`` (``WORLD_SIZE`` > 1) the step runs data-parallel, one
+Under ``torchrun`` the step runs data-parallel, one
 process per device: every rank draws the same clips and trains on its
 share of the batch; rank 0 logs, saves and runs the holdout.  Runs on the
 card unless ``--device`` says otherwise.
@@ -55,6 +55,7 @@ from lgu_slam_tpu_torch.models.net import (  # noqa: E402
 )
 from lgu_slam_tpu_torch.parallel.train_dp import (  # noqa: E402
     data_parallel,
+    init_distributed,
     make_optimizer,
     mean_over_ranks,
     shard_batch,
@@ -70,10 +71,7 @@ from lgu_slam_tpu_torch.utils.config import (  # noqa: E402
     SLAMConfig,
     TrainConfig,
 )
-from lgu_slam_tpu_torch.utils.device import (  # noqa: E402
-    resolve_device,
-    use_full_fp32,
-)
+from lgu_slam_tpu_torch.utils.device import use_full_fp32  # noqa: E402
 
 KEYS = ("loss", "f_error", "rot_error", "tr_error")
 
@@ -120,19 +118,6 @@ def run_holdout(weights: dict, size, n_frames: int, device) -> dict:
         print(f"[train_synth] holdout ATE ({name} weights): {rmse:.4f}",
               flush=True)
     return out
-
-
-def init_distributed(device):
-    """Under torchrun: join the process group (NCCL on the card, gloo on
-    the CPU) and take this rank's card.  Returns (device, rank)."""
-    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
-        return resolve_device(device), 0
-    dev = resolve_device(device)
-    if dev.type == "cuda":
-        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
-        torch.cuda.set_device(dev)
-    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
-    return dev, dist.get_rank()
 
 
 def main():

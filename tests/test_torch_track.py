@@ -461,11 +461,13 @@ def test_seeded_pair_taps_sit_on_the_boundary_rule(jax_init):
 
 def test_port_imports_no_jax():
     """Every module of the port, chip_smoke.py and the port's scripts
-    (scripts/*_torch*.py) import with JAX, flax, the JAX package and its
-    native extension made unimportable."""
+    (scripts/*_torch*.py) import with JAX, flax, the JAX package, its
+    native extension and the image libraries the card machine lacks
+    (OpenCV, PIL, imageio, torchvision) made unimportable."""
     code = (
         "import sys, glob, importlib, importlib.util, pkgutil\n"
-        "for m in ('jax', 'flax', 'lgu_slam_tpu', 'lgu_native'):\n"
+        "for m in ('jax', 'flax', 'lgu_slam_tpu', 'lgu_native', 'cv2', "
+        "'PIL', 'imageio', 'torchvision'):\n"
         "    sys.modules[m] = None\n"
         "import lgu_slam_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
@@ -482,7 +484,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     mods = set(out.stdout.split())
-    assert len(mods) >= 51
+    assert len(mods) >= 81
     assert {"lgu_slam_tpu_torch.slam.backend",
             "lgu_slam_tpu_torch.slam.trajectory_filler",
             "lgu_slam_tpu_torch.ops.window_lookup",
@@ -502,7 +504,26 @@ def test_port_imports_no_jax():
             "scripts/train_synthetic_torch.py",
             "scripts/profile_torch_k2_parts.py",
             "scripts/profile_torch_k1_parts.py",
-            "scripts/ab_k1_torch.py", "scripts/ab_k2_torch.py"} <= mods
+            "scripts/ab_k1_torch.py", "scripts/ab_k2_torch.py",
+            "lgu_slam_tpu_torch.data.image_io",
+            "lgu_slam_tpu_torch.data.imgproc",
+            "lgu_slam_tpu_torch.data.streams",
+            "lgu_slam_tpu_torch.data.rgbd_datasets",
+            "lgu_slam_tpu_torch.data.replica",
+            "lgu_slam_tpu_torch.data.base",
+            "lgu_slam_tpu_torch.data.augmentation",
+            "lgu_slam_tpu_torch.data.tartan",
+            "lgu_slam_tpu_torch.data.fixtures",
+            "lgu_slam_tpu_torch.geom.graph_utils",
+            "lgu_slam_tpu_torch.utils.logger",
+            "lgu_slam_tpu_torch.utils.profiling",
+            "scripts/demo_torch.py", "scripts/synthetic_demo_torch.py",
+            "scripts/evaluate_tum_torch.py",
+            "scripts/evaluate_euroc_torch.py",
+            "scripts/evaluate_eth3d_torch.py",
+            "scripts/validate_tartanair_torch.py",
+            "scripts/export_poses_torch.py",
+            "scripts/train_torch.py"} <= mods
 
 
 def test_entry_points_need_cuda_without_device(monkeypatch):
