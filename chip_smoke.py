@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eight phases; any failure exits non-zero.
+Nine phases; any failure exits non-zero.
 
 1. Build the CUDA kernels from ``lgu_slam_tpu_torch/csrc`` with nvcc for
    sm_90a, all at once (printing ptxas' register/shared-memory summary),
@@ -86,10 +86,30 @@ Eight phases; any failure exits non-zero.
    each run's trajectory has a finite pose per frame and launched K1 (the
    bf16-operand kernel) and K2.  Beside them, the host's ms per frame of
    decoding, undistorting or rectifying, and resizing, and the demo's ms
-   per tracked frame.
+   per tracked frame.  The mono demo runs with ``--upsample`` and writes
+   its reconstruction ``.npz`` for phase 9, and with ``--export_every 4``
+   its growing ``.ply`` snapshots (multi-view depth filter and dirty-flag
+   export on the card).
+9. The 3DGS stage (``gs/``; it launches none of the kernels, which is
+   checked): the renderer and one mapping step on the card against the
+   CPU on a 96 x 128 synthetic frame; ``scripts/bench_gs_mapping_torch.py``
+   (one mapping iteration at 680 x 1200 with 200,000 live Gaussians of a
+   400,000-capacity map: ms per iteration, peak memory, truncation
+   telemetry); ``GaussianMapper`` under the Replica preset's schedule (60
+   iterations per frame, window 24, pruning every 20) over 8 synthetic
+   frames of 384 x 512 with ground-truth depth and poses: ms per mapped
+   frame, the Gaussian count, the loss from the first iteration to the
+   last, PSNR and depth L1 of ``gs/eval.py`` (PSNR must rise above the
+   first frame's before mapping), and a TSDF mesh of the renders, which
+   must not be empty; then ``scripts/gs_slam_torch.py --mesh`` on phase
+   8's reconstruction (3 frames), which must write a scene and a mesh.
+   The export: the mono demo's final snapshot holds a camera per keyframe
+   and finite points; ``backproject_points`` on the card against the CPU
+   on phase 8's reconstruction; ``scripts/view_reconstruction_torch.py``
+   on the card writes the card's filtered cloud.
 
 Before the last line it prints the tracking, terminate, training, fp32
-tracking, world-size-1 and entry-point reports, the run's wall time, the
+tracking, world-size-1, entry-point and 3DGS reports, the run's wall time, the
 card's name and power limit, and one JSON line with each kernel's error,
 time, bound and launches.  The last line is ``{"ok": true, "device": {...}}``.
 Data and weights come from fixed seeds; nothing needs the network.
@@ -124,10 +144,27 @@ from lgu_slam_tpu_torch.data.imgproc import (
     undistort_maps,
 )
 from lgu_slam_tpu_torch.data.streams import euroc_maps
-from lgu_slam_tpu_torch.data.synthetic import SyntheticDataset
+from lgu_slam_tpu_torch.data.synthetic import (
+    SyntheticDataset,
+    SyntheticScene,
+    make_trajectory,
+)
 from lgu_slam_tpu_torch.geom.dba import DbaPlan, dba_step
+from lgu_slam_tpu_torch.geom.depth_filter import depth_filter
 from lgu_slam_tpu_torch.geom.projective import projective_transform
-from lgu_slam_tpu_torch.lie import se3_exp, se3_inv, se3_mul
+from lgu_slam_tpu_torch.gs.configs import get_preset
+from lgu_slam_tpu_torch.gs.eval import evaluate_renders
+from lgu_slam_tpu_torch.gs.mapping import (
+    GaussianMapper,
+    GSConfig,
+    adam_init,
+    learning_rates,
+    make_mapping_step,
+)
+from lgu_slam_tpu_torch.gs.params import PARAM_KEYS, pointcloud_from_depth
+from lgu_slam_tpu_torch.gs.render import render_rgbd
+from lgu_slam_tpu_torch.gs.tsdf import TSDFVolume
+from lgu_slam_tpu_torch.lie import se3_exp, se3_inv, se3_mul, so3_matrix
 from lgu_slam_tpu_torch.models.net import LGUNet, init_state_dict
 from lgu_slam_tpu_torch.ops import _build
 from lgu_slam_tpu_torch.ops.k2_parts import (
@@ -162,6 +199,7 @@ from lgu_slam_tpu_torch.slam.factor_graph import FactorGraph
 from lgu_slam_tpu_torch.slam.motion_filter import MotionFilter
 from lgu_slam_tpu_torch.slam.system import LGUSlam
 from lgu_slam_tpu_torch.slam.trajectory_filler import TrajectoryFiller
+from lgu_slam_tpu_torch.slam.visualization import backproject_points
 from lgu_slam_tpu_torch.utils.checkpoint import TRIMMED_HEADS
 from lgu_slam_tpu_torch.utils.config import SLAMConfig, TrainConfig
 from lgu_slam_tpu_torch.utils.device import use_full_fp32
@@ -1461,12 +1499,15 @@ def finite_trajectory(name: str, path: Path, n: int) -> None:
     check(bool(np.isfinite(traj).all()), f"{name}: non-finite poses")
 
 
-def phase_entry_points(dev, kernels: dict, n_tum: int = 40,
-                       n_euroc: int = 16, stride: int = 2) -> dict:
+def phase_entry_points(dev, kernels: dict, recon: Path, export: Path,
+                       n_tum: int = 40, n_euroc: int = 16,
+                       stride: int = 2) -> dict:
     """The entry points a user runs, through their ``main`` functions on
     the card, on sequences written to disk with the port's PNG encoder:
-    ``demo_torch`` mono and RGB-D at full width (384 x 512, thresholds 0,
-    every ``stride``-th frame), ``evaluate_tum_torch`` (240 x 320) and
+    ``demo_torch`` mono (``--upsample``, its reconstruction written to
+    ``recon`` and its ``.ply`` snapshots every 4 frames to ``export`` for
+    phase 9) and RGB-D at full width (384 x 512, thresholds
+    0, every ``stride``-th frame), ``evaluate_tum_torch`` (240 x 320) and
     ``evaluate_euroc_torch`` (stereo, 320 x 512), all with a reference
     ``.pth`` of random weights; beside them the host's ms per frame of
     decoding, undistorting or rectifying, and resizing."""
@@ -1494,7 +1535,10 @@ def phase_entry_points(dev, kernels: dict, n_tum: int = 40,
                      "--weights", str(weights), "--stride", str(stride),
                      "--filter_thresh", "0", "--keyframe_thresh", "0",
                      "--device", str(dev)]
-        for name, extra in (("demo_mono", []),
+        for name, extra in (("demo_mono", ["--upsample",
+                                           "--reconstruction_path",
+                                           str(recon), "--export_every", "4",
+                                           "--export_dir", str(export)]),
                             ("demo_rgbd", ["--depthdir", str(tum / "depth")])):
             traj = root / f"{name}.txt"
             out = entry_run(name, lambda: demo.main(
@@ -1527,6 +1571,353 @@ def phase_entry_points(dev, kernels: dict, n_tum: int = 40,
           f"{runs['demo_mono']['ms_per_frame']['track']:.1f}; K1 launches "
           f"{sum(r['k1_launches'] for r in runs.values())}, K2 launches "
           f"{sum(r['k2_launches'] for r in runs.values())}")
+    return report
+
+
+# -- phase 9: the 3DGS stage -------------------------------------------------
+
+def kernel_counts() -> dict:
+    """Every kernel wrapper's launch count."""
+    return dict(k1=masked_corr_level0.launches,
+                k2=fused_pyramid_lookup.launches,
+                window_lookup=window_lookup.launches,
+                row_gather=row_gather.launches,
+                k2_stream_floor=k2_stream_floor.launches,
+                k2_one_level=k2_one_level.launches)
+
+
+def gs_frame(scene, pose_c2w, intr, H, W):
+    """One RGB-D frame of ``scene`` as the mapper takes it: image in [0, 1],
+    z-depth, world-to-camera rotation and translation, intrinsics."""
+    img, depth = scene.render(pose_c2w, intr, H, W)
+    q = pose_c2w[3:7].astype(np.float64)
+    w2c = so3_matrix(torch.from_numpy(q / np.linalg.norm(q))).numpy().T \
+        .astype(np.float32)
+    return (img.astype(np.float32) / 255.0, depth, w2c,
+            (-w2c @ pose_c2w[:3]).astype(np.float32),
+            np.asarray(intr, np.float32))
+
+
+def synthetic_gs_frames(n, H, W, seed=SEED):
+    """``n`` frames of ``data/synthetic.py``'s billboard scene along a
+    slow random walk (0.15 m and 0.02 rad steps), ground-truth depth and
+    poses."""
+    scene = SyntheticScene(seed=seed)
+    poses = make_trajectory(np.random.default_rng(seed), n, t_step=0.15,
+                            r_step=0.02)
+    intr = np.float32([0.9 * W, 0.9 * W, W / 2.0, H / 2.0])
+    return [gs_frame(scene, p, intr, H, W) for p in poses]
+
+
+def phase_gs_cuda_vs_cpu(dev) -> dict:
+    """The renderer and one mapping step on the card and on the CPU from the
+    same Gaussians (one per pixel of a 96 x 128 synthetic frame, their log
+    scales perturbed from a seed): the renders within 1e-4, the loss within
+    1e-5, the gradients (Adam's first moments, 0.1 x the gradient) within
+    1e-3 of each group's largest, the densification signal likewise, and
+    the parameters after the step: the first step moves each entry by
+    -lr sign(g), so an entry differs by 0 or 2 lr (where a gradient near 0
+    takes another sign under the card's atomic scatter-adds); at least
+    99 % of each group's entries must agree within 1e-6.  The rotations'
+    gradient is rounding noise for isotropic Gaussians on both devices
+    (below 1e-6)."""
+    H, W = 96, 128
+    im, depth, R, tr, intr = synthetic_gs_frames(1, H, W)[0]
+    cfg = GSConfig(capacity=H * W)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        mapper = GaussianMapper(cfg, (H, W), device=d)
+        mapper.add_frame_gaussians(im, depth, R, tr, intr, 0)
+        gen = torch.Generator().manual_seed(SEED)
+        n = mapper.map.count
+        mapper.map.params["log_scales"][:n] += (
+            0.3 * torch.randn(n, 1, generator=gen)).to(d)
+        frame = mapper.frame_tensors(im, depth, R, tr, intr)
+        params = mapper.map.live()
+        alive = mapper.map.alive_device(n)
+        with torch.no_grad():
+            render = render_rgbd(params, alive, *frame[2:], (H, W),
+                                 span=cfg.span, k_max=cfg.k_max)
+        step = make_mapping_step(cfg, (H, W))
+        p1, opt, loss, _, g2d = step(params, adam_init(params), alive,
+                                     frame)
+        out.append(dict(
+            render=[x.cpu() for x in render], loss=float(loss),
+            g2d=g2d.cpu(), mu={k: v.cpu() for k, v in opt["mu"].items()},
+            params={k: v.cpu() for k, v in p1.items()}))
+    a, b = out
+    report = dict(gaussians=n, image=[H, W])
+    report["render_max_abs_diff"] = max(
+        float((x - y).abs().max()) for x, y in zip(a["render"], b["render"]))
+    check(report["render_max_abs_diff"] <= 1e-4,
+          f"phase 9: render cuda vs cpu {report['render_max_abs_diff']}")
+    report["loss"] = [a["loss"], b["loss"]]
+    check(abs(a["loss"] - b["loss"]) <= 1e-5,
+          f"phase 9: loss cuda vs cpu {report['loss']}")
+    scale = float(b["g2d"].abs().max())
+    report["g2d_rel_diff"] = float((a["g2d"] - b["g2d"]).abs().max()) / scale
+    check(report["g2d_rel_diff"] <= 1e-3,
+          f"phase 9: densification signal {report['g2d_rel_diff']}")
+    lrs = learning_rates(cfg)
+    for k in PARAM_KEYS:
+        mu_a, mu_b = a["mu"][k], b["mu"][k]
+        dp = (a["params"][k] - b["params"][k]).abs()
+        if k == "unnorm_rotations":
+            check(float(mu_a.abs().max()) < 1e-6 and
+                  float(mu_b.abs().max()) < 1e-6,
+                  "phase 9: rotation gradients are not noise")
+        else:
+            rel = float((mu_a - mu_b).abs().max()) / float(mu_b.abs().max())
+            agree = float((dp <= 1e-6).float().mean())
+            report[f"{k}_grad_rel_diff"] = rel
+            report[f"{k}_params_agreeing"] = agree
+            check(rel <= 1e-3 and agree >= 0.99,
+                  f"phase 9: {k} cuda vs cpu: gradients {rel}, "
+                  f"entries agreeing {agree}")
+        check(float(dp.max()) <= 2 * lrs[k] + 1e-6,
+              f"phase 9: {k} moved apart by {float(dp.max())}")
+    return report
+
+
+def phase_gs_bench(dev) -> dict:
+    """``scripts/bench_gs_mapping_torch.py`` itself: one mapping iteration
+    at 680 x 1200 with 200,000 live Gaussians of a 400,000-capacity map
+    (``GSConfig()``), 10 timed after a warm-up."""
+    result = load_script("bench_gs_mapping_torch").run(dev, reps=10)
+    check(np.isfinite(result["loss"]), f"phase 9: bench loss {result}")
+    return result
+
+
+def phase_gs_mapper(dev, n_frames=8, H=384, W=512) -> dict:
+    """``GaussianMapper`` under the Replica preset's schedule (60 mapping
+    iterations per frame, a 24-frame window, pruning every 20) over
+    ``n_frames`` synthetic frames with ground-truth depth and poses; then
+    the render metrics of ``gs/eval.py`` on the mapped frames, against the
+    first frame's render before any iteration, and a TSDF fused from the
+    renders, meshed."""
+    preset = get_preset("replica")
+    cfg = preset.gs
+    frames = synthetic_gs_frames(n_frames, H, W)
+    mapper = GaussianMapper(cfg, (H, W), device=dev)
+    window, ms, losses = [], [], []
+    psnr_initial = None
+    for t, (im, depth, R, tr, intr) in enumerate(frames):
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        mapper.add_frame_gaussians(im, depth, R, tr, intr, t)
+        window.append(mapper.frame_tensors(im, depth, R, tr, intr))
+        window = window[-cfg.mapping_window_size:]
+        if t == 0:
+            torch.cuda.synchronize()
+            t_eval = time.perf_counter()
+            psnr_initial = evaluate_renders(
+                mapper.map.live(), mapper.map.alive_device(mapper.map.count),
+                window, (H, W), cfg.span, cfg.k_max)["psnr"]
+            t_start += time.perf_counter() - t_eval
+        losses.append(mapper.map_frame(window))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t_start))
+    live = mapper.map.live()
+    alive = mapper.map.alive_device(mapper.map.count)
+    metrics = evaluate_renders(live, alive, window, (H, W), cfg.span,
+                               cfg.k_max)
+    check(np.isfinite(metrics["psnr"]) and metrics["psnr"] > psnr_initial,
+          f"phase 9: PSNR {metrics['psnr']} not above the first frame's "
+          f"{psnr_initial}")
+    check(np.isfinite(metrics["depth_l1"]),
+          f"phase 9: depth L1 {metrics['depth_l1']}")
+    check(all(np.isfinite(x) for ls in losses for x in ls),
+          "phase 9: non-finite mapping loss")
+
+    pts = live["means3D"][alive].cpu().numpy()
+    lo, hi = pts.min(0) - 0.2, pts.max(0) + 0.2
+    voxel = max(0.02, float((hi - lo).max()) / 160)
+    vol = TSDFVolume(lo, hi, voxel_size=voxel, device=dev)
+    for _, _, R, tr, intr in window:
+        with torch.no_grad():
+            img_r, depth_r, sil, _ = render_rgbd(
+                live, alive, R, tr, intr, (H, W), span=cfg.span,
+                k_max=cfg.k_max)
+        vol.integrate(torch.where(sil > 0.5, depth_r,
+                                  torch.zeros_like(depth_r)),
+                      img_r, intr, R, tr)
+    V, _, Tri = vol.extract_mesh()
+    check(len(V) > 0 and len(Tri) > 0, "phase 9: empty mesh")
+    return dict(
+        image=[H, W], frames=n_frames, mapping_iters=cfg.mapping_iters,
+        window=cfg.mapping_window_size, prune_every=cfg.prune_every,
+        ms_per_frame=ms, ms_per_frame_median=statistics.median(ms),
+        ms_per_frame_after_first=statistics.fmean(ms[1:]),
+        gaussians=mapper.map.count, alive=int(mapper.map.alive.sum()),
+        loss_first=losses[0][0], loss_last=losses[-1][-1],
+        psnr_first_frame_before_mapping=psnr_initial, eval=metrics,
+        peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        tsdf_dims=list(vol.dims), voxel=voxel, mesh_vertices=len(V),
+        mesh_triangles=len(Tri))
+
+
+def phase_gs_chain(dev, recon: Path, max_frames=3, mapping_iters=20) -> dict:
+    """``scripts/gs_slam_torch.py --mesh`` on the reconstruction that phase
+    8's mono demo wrote (``--upsample``: full-resolution disparities): it
+    must exit, having written a scene and a mesh file.  The TSDF's voxel
+    is sized from the reconstruction so that its grid holds at most 161
+    voxels a side: random weights give depths up to the script's 1,000
+    (disparities clamped at 1e-3), and against voxels of metres the
+    script's 0.08 m truncation leaves few zero crossings, so the mesh's
+    size is reported, not held (phase 9's mapper holds a mesh of known
+    geometry)."""
+    data = np.load(recon)
+    disps, poses = data["disps"][:max_frames], data["poses"][:max_frames]
+    intr = data["intrinsics"][0] * 8.0
+    h, w = disps.shape[1:3]
+    world = []
+    for d, pose in zip(disps, poses):
+        R = so3_matrix(torch.from_numpy(pose[3:7])).numpy()
+        world.append(pointcloud_from_depth(
+            np.zeros((h, w, 3)), 1.0 / np.maximum(d, 1e-3), intr, R.T,
+            -R.T @ pose[:3])[0])
+    extent = float((np.ptp(np.concatenate(world), axis=0) + 0.4).max())
+    voxel = max(0.02, extent / 160)
+    with tempfile.TemporaryDirectory() as tmp:
+        t_start = time.perf_counter()
+        out = load_script("gs_slam_torch").main([
+            "--reconstruction", str(recon), "--max_frames", str(max_frames),
+            "--mapping_iters", str(mapping_iters), "--voxel", str(voxel),
+            "--out", str(Path(tmp) / "scene.npz"), "--mesh",
+            str(Path(tmp) / "mesh.ply"), "--device", str(dev)])
+        seconds = time.perf_counter() - t_start
+        check((Path(tmp) / "scene.npz").stat().st_size > 0,
+              "phase 9: gs_slam_torch wrote no scene")
+        check((Path(tmp) / "mesh.ply").stat().st_size > 0,
+              f"phase 9: gs_slam_torch wrote no mesh: {out}")
+    check(all(np.isfinite(out["losses"])), f"phase 9: chain losses {out}")
+    return dict(image=[h, w], frames=max_frames, mapping_iters=mapping_iters,
+                voxel=voxel, seconds=seconds, **out)
+
+
+def read_ply(path: Path) -> tuple:
+    """The element counts of a binary ``.ply``'s header and the bytes
+    after it."""
+    data = path.read_bytes()
+    head, body = data.split(b"end_header\n", 1)
+    counts = {}
+    for line in head.decode().splitlines():
+        if line.startswith("element "):
+            _, kind, n = line.split()
+            counts[kind] = int(n)
+    return counts, body
+
+
+def phase_gs_export(dev, recon: Path, export: Path) -> dict:
+    """The reconstruction export on the card.  The mono demo's final
+    snapshot (``IncrementalReconstruction`` over the card's video,
+    thresholds 0, so no keyframe is removed) holds 5 frustum vertices and
+    8 edges per keyframe of the reconstruction, and finite points.
+    ``backproject_points`` on phase 8's reconstruction (its full-resolution
+    disparities read at 1/8, as ``view_reconstruction_torch`` reads them),
+    on the card against the CPU: unfiltered (``filter_count=0``), the same
+    pixels, points within 1e-5 of the cloud's largest coordinate (plus
+    1e-5: random weights put points up to 1,000 m away, where a float32
+    ulp is 6e-5) and equal colours; the multi-view filter's counts on at
+    most 0.1 % of the pixels apart (a projection within rounding of a pixel
+    edge or of the threshold can go either way), and the filtered clouds'
+    sizes no further apart than that.  ``view_reconstruction_torch`` on the
+    card writes as many points as the card's ``backproject_points``."""
+    t_start = time.perf_counter()
+    data = np.load(recon)
+    n_kf = len(data["tstamps"])
+    cams, _ = read_ply(export / "cameras_final.ply")
+    check(cams == {"vertex": 5 * n_kf, "edge": 8 * n_kf},
+          f"phase 9: final frusta {cams} for {n_kf} keyframes")
+    snap, body = read_ply(export / "points_final.ply")
+    pts = np.frombuffer(body, dtype=[("xyz", "<f4", 3), ("rgb", "u1", 3)])
+    check(len(pts) == snap["vertex"] and np.isfinite(pts["xyz"]).all(),
+          f"phase 9: final snapshot {snap}, {len(pts)} records")
+    snapshots = sorted(p.name for p in export.glob("points_*.ply"))
+
+    disps8 = data["disps"][:, 3::8, 3::8]
+    args = (data["poses"], disps8, data["intrinsics"][0])
+
+    def on(d):
+        t = [torch.from_numpy(np.ascontiguousarray(x)).to(d) for x in args]
+        counts = depth_filter(*t, torch.arange(len(disps8), device=d),
+                              0.005 * t[1].mean(dim=(1, 2)))
+        return dict(
+            counts=counts.cpu(),
+            all=backproject_points(*t, images=data["images"],
+                                   filter_count=0),
+            filtered=backproject_points(*t, images=data["images"])[0])
+    a, b = on(dev), on(torch.device("cpu"))
+    check(a["all"][0].shape == b["all"][0].shape,
+          f"phase 9: unfiltered clouds {a['all'][0].shape} vs "
+          f"{b['all'][0].shape}")
+    err = np.abs(a["all"][0] - b["all"][0]) / (
+        1.0 + np.abs(b["all"][0]).max())
+    check(float(err.max()) <= 1e-5 and
+          np.array_equal(a["all"][1], b["all"][1]),
+          f"phase 9: backproject_points cuda vs cpu {float(err.max())}")
+    counts_apart = int((a["counts"] != b["counts"]).sum())
+    check(counts_apart <= 1e-3 * a["counts"].numel(),
+          f"phase 9: depth_filter counts apart on {counts_apart} pixels")
+    size_apart = abs(len(a["filtered"]) - len(b["filtered"]))
+    check(size_apart <= counts_apart,
+          f"phase 9: filtered clouds {len(a['filtered'])} vs "
+          f"{len(b['filtered'])}")
+    with tempfile.TemporaryDirectory() as tmp:
+        ply = Path(tmp) / "reconstruction.ply"
+        n_view = load_script("view_reconstruction_torch").main(
+            ["--reconstruction", str(recon), "--out", str(ply),
+             "--device", str(dev)])
+        view, _ = read_ply(ply)
+    check(n_view == view["vertex"] == len(a["filtered"]),
+          f"phase 9: view_reconstruction_torch wrote {view} (returned "
+          f"{n_view}), backproject_points {len(a['filtered'])}")
+    return dict(keyframes=n_kf, snapshots=snapshots,
+                snapshot_points=snap["vertex"], pixels=a["counts"].numel(),
+                unfiltered_points=len(a["all"][0]),
+                unfiltered_rel_err=float(err.max()),
+                filter_counts_apart=counts_apart,
+                filtered_points=[len(a["filtered"]), len(b["filtered"])],
+                view_reconstruction_points=n_view,
+                seconds=time.perf_counter() - t_start)
+
+
+def phase_gs(dev, recon: Path, export: Path) -> dict:
+    """Phase 9: the 3DGS stage (it launches none of the kernels)."""
+    t_start = time.perf_counter()
+    before = kernel_counts()
+    report = dict(cuda_vs_cpu=phase_gs_cuda_vs_cpu(dev))
+    torch.cuda.empty_cache()
+    report["bench"] = phase_gs_bench(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    report["mapper"] = phase_gs_mapper(dev)
+    torch.cuda.empty_cache()
+    report["chain"] = phase_gs_chain(dev, recon)
+    report["export"] = phase_gs_export(dev, recon, export)
+    check(kernel_counts() == before,
+          f"phase 9 launched a kernel: {before} -> {kernel_counts()}")
+    report["seconds"] = time.perf_counter() - t_start
+    b, m, c, e = (report[k] for k in ("bench", "mapper", "chain", "export"))
+    print(f"phase 9: 3DGS renderer and mapping step agree on cuda and cpu "
+          f"(render {report['cuda_vs_cpu']['render_max_abs_diff']:.2e}); "
+          f"mapping iteration at 680 x 1200 / 200k live: "
+          f"{b['ms_per_iter_median']:.1f} ms median, peak "
+          f"{b['peak_memory_gb']:.2f} GB, {b['truncation']}; mapper "
+          f"(Replica schedule, {m['frames']} frames at 384 x 512): "
+          f"{m['ms_per_frame_median']:.0f} ms per frame, "
+          f"{m['gaussians']} Gaussians, loss {m['loss_first']:.4f} -> "
+          f"{m['loss_last']:.4f}, PSNR "
+          f"{m['psnr_first_frame_before_mapping']:.2f} -> "
+          f"{m['eval']['psnr']:.2f}, depth L1 "
+          f"{m['eval']['depth_l1']:.4f}, mesh {m['mesh_vertices']} vertices; "
+          f"gs_slam_torch on the demo's reconstruction: {c['gaussians']} "
+          f"Gaussians, mesh {c['mesh_vertices']} vertices; export: "
+          f"{len(e['snapshots'])} demo snapshots, "
+          f"{e['snapshot_points']} points in the last, backproject_points "
+          f"cuda vs cpu {e['unfiltered_rel_err']:.1e}, filtered "
+          f"{e['filtered_points'][0]} points ({e['seconds']:.1f} s); "
+          f"{report['seconds']:.0f} s")
     return report
 
 
@@ -1568,7 +1959,11 @@ def main():
     torch.cuda.empty_cache()
     world1 = phase_world_size_1(dev, kernels)
     torch.cuda.empty_cache()
-    entry_points = phase_entry_points(dev, kernels)
+    with tempfile.TemporaryDirectory() as tmp:
+        recon, export = Path(tmp) / "reconstruction.npz", Path(tmp) / "export"
+        entry_points = phase_entry_points(dev, kernels, recon, export)
+        torch.cuda.empty_cache()
+        gs = phase_gs(dev, recon, export)
     # launches on the main path: K1 bf16 and K2 over track() +
     # terminate() and phase 8's entry points, K2 also over phase 7's
     # sharded backend pass, K1 fp32 operands over phase 6's track()
@@ -1589,6 +1984,7 @@ def main():
     print(json.dumps({"tracking_fp32": fp32}))
     print(json.dumps({"world_size_1": world1}))
     print(json.dumps({"entry_points": entry_points}))
+    print(json.dumps({"gs": gs}))
     print(json.dumps({"seconds": seconds}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": list(kernels.values())}))

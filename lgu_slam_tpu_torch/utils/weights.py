@@ -7,6 +7,8 @@ It is the exact inverse of ``convert_torch_checkpoint``
 dense and KAN weights are transposed back, the reference key names are
 used, and the delta and weight heads stay at 2 channels.  The input is the
 tree as numpy arrays (``jax.device_get(params)``); nothing here imports JAX.
+A 3DGS ``GaussianMap`` crosses both ways with ``gaussian_map_from_numpy``
+and ``gaussian_map_to_numpy``.
 """
 
 from __future__ import annotations
@@ -83,3 +85,26 @@ def state_dict_from_jax_params(params) -> dict:
     _conv(sd, "update.agg.eta.0", up["agg"]["eta"])
     _conv(sd, "update.agg.upmask.0", up["agg"]["upmask"])
     return sd
+
+
+def gaussian_map_from_numpy(params: dict, alive, count: int, timestep,
+                            device) -> "GaussianMap":
+    """A JAX package ``GaussianMap``'s state -- its parameter dict as numpy
+    (``jax.device_get(map.params)``), ``alive``, ``count`` and
+    ``timestep`` -- as the port's ``GaussianMap`` on ``device``.  Both keep
+    the same keys, shapes and slot layout."""
+    from lgu_slam_tpu_torch.gs.params import PARAM_KEYS, GaussianMap
+
+    tensors = {k: torch.as_tensor(np.array(params[k], np.float32),
+                                  device=device) for k in PARAM_KEYS}
+    return GaussianMap(tensors, np.array(alive, bool), int(count),
+                       tensors["means3D"].shape[0],
+                       np.array(timestep, np.float32))
+
+
+def gaussian_map_to_numpy(gmap) -> tuple:
+    """The inverse: (params as numpy, alive, count, timestep), the fields
+    of the JAX package's ``GaussianMap``."""
+    params = {k: v.detach().cpu().numpy().copy()
+              for k, v in gmap.params.items()}
+    return params, gmap.alive.copy(), gmap.count, gmap.timestep.copy()

@@ -8,12 +8,15 @@
 Runs the SLAM system on an image directory (PNG frames; ``--depthdir``
 adds aligned 16-bit depth PNGs), fills the trajectory of every frame and
 saves it in TUM format, plus an optional reconstruction ``.npz`` (the keys
-of the JAX demo's) for the 3DGS stage.  ``--weights`` takes a reference
-``.pth``, a train state of the port or a JAX params pickle
-(``utils/checkpoint.load_weights``); without it the weights are the port's
-random init.  Runs on the card unless ``--device`` says otherwise.  The
-time spent reading frames (decode, undistort, resize) and tracking them is
-printed per frame at the end.
+of the JAX demo's) for the 3DGS stage (``scripts/gs_slam_torch.py``).
+``--export_every N`` writes growing ``.ply`` snapshots of the filtered
+point cloud and the camera frusta every N tracked frames, and a final pair
+after ``terminate()``, into ``--export_dir``; ``--viewer`` is not ported
+yet.  ``--weights`` takes a reference ``.pth``, a train state of the port
+or a JAX params pickle (``utils/checkpoint.load_weights``); without it the
+weights are the port's random init.  Runs on the card unless ``--device``
+says otherwise.  The time spent reading frames (decode, undistort, resize)
+and tracking them is printed per frame at the end.
 """
 
 from __future__ import annotations
@@ -34,13 +37,16 @@ from lgu_slam_tpu_torch.data.streams import (  # noqa: E402
 from lgu_slam_tpu_torch.eval.ate import save_tum_trajectory  # noqa: E402
 from lgu_slam_tpu_torch.models.net import init_state_dict  # noqa: E402
 from lgu_slam_tpu_torch.slam.system import LGUSlam  # noqa: E402
+from lgu_slam_tpu_torch.slam.visualization import (  # noqa: E402
+    IncrementalReconstruction,
+)
 from lgu_slam_tpu_torch.utils.checkpoint import load_weights  # noqa: E402
 from lgu_slam_tpu_torch.utils.config import SLAMConfig  # noqa: E402
 from lgu_slam_tpu_torch.utils.device import resolve_device  # noqa: E402
 from lgu_slam_tpu_torch.utils.profiling import PhaseTimer  # noqa: E402
 
-NOT_PORTED = ("--export_every and --viewer are not ported yet (ROADMAP A.R "
-              "item 7: the host tools)")
+NOT_PORTED = ("--viewer is not ported yet: it needs the live viewer "
+              "(slam/live_viewer.py)")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -69,10 +75,18 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--reconstruction_path", default=None)
     p.add_argument("--target_pixels", type=int, default=384 * 512,
                    help="resize frames to ~this many pixels")
-    p.add_argument("--export_every", type=int, default=0, help=NOT_PORTED)
+    p.add_argument("--export_every", type=int, default=0,
+                   help="write growing .ply snapshots every N frames")
+    p.add_argument("--export_dir", default="recon")
     p.add_argument("--viewer", action="store_true", help=NOT_PORTED)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
+
+
+def export(inc: IncrementalReconstruction, export_dir: str, tag: str):
+    """Write the current point cloud and camera frusta as .ply files."""
+    inc.export_ply(os.path.join(export_dir, f"points_{tag}.ply"))
+    inc.export_frusta(os.path.join(export_dir, f"cameras_{tag}.ply"))
 
 
 def main(argv=None) -> dict:
@@ -80,7 +94,7 @@ def main(argv=None) -> dict:
     ``[T, 7]``) and the per-phase times (``PhaseTimer.summary()``)."""
     p = parser()
     args = p.parse_args(argv)
-    if args.export_every or args.viewer:
+    if args.viewer:
         p.error(NOT_PORTED)
     device = resolve_device(args.device)
 
@@ -113,9 +127,14 @@ def main(argv=None) -> dict:
     weights = (load_weights(args.weights) if args.weights
                else init_state_dict(cfg, seed=0))
     slam = LGUSlam(weights, cfg, device=device)
+    inc = None
+    if args.export_every:
+        inc = IncrementalReconstruction(slam.video)
+        os.makedirs(args.export_dir, exist_ok=True)
 
     timer = PhaseTimer()
     tstamps = []
+    n_tracked = 0
     frames = iter(make_stream())
     while True:
         with timer.phase("read"):
@@ -129,9 +148,18 @@ def main(argv=None) -> dict:
         with timer.phase("track", sync=device):
             slam.track(t, image, depth=depth, intrinsics=item[-1])
         tstamps.append(t)
+        n_tracked += 1
+        # consume the dirty-flag protocol incrementally
+        # (droid_slam/visualization.py:81-112)
+        if inc is not None and n_tracked % args.export_every == 0 \
+                and inc.update():
+            export(inc, args.export_dir, f"{n_tracked:05d}")
 
     with timer.phase("terminate", sync=device):
         traj = slam.terminate(make_stream())
+    if inc is not None:
+        inc.update()
+        export(inc, args.export_dir, "final")
     save_tum_trajectory(args.trajectory_path, tstamps[: len(traj)], traj)
     print(f"trajectory ({len(traj)} poses) -> {args.trajectory_path}")
     print(json.dumps({"ms_per_frame": {

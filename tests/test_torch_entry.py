@@ -174,15 +174,17 @@ def _port_pth(tmp_path):
 
 
 def test_scripts_refuse_what_waits(tmp_path, monkeypatch):
-    """The demo's --export_every and --viewer wait for the host tools; an
-    entry point asked for CUDA where there is none raises."""
-    demo = script("demo_torch")
-    for extra in (["--viewer"], ["--export_every", "5"]):
-        with pytest.raises(SystemExit):
-            demo.main(["--imagedir", str(tmp_path), "--calib", "c.txt"]
-                      + extra)
+    """The demo's --viewer and view_reconstruction's --serve wait for the
+    live viewer (--export_every is ported: tests/test_torch_gs_script.py);
+    an entry point asked for CUDA where there is none raises."""
+    with pytest.raises(SystemExit):
+        script("demo_torch").main(["--imagedir", str(tmp_path), "--calib",
+                                   "c.txt", "--viewer"])
     with pytest.raises(SystemExit):
         script("synthetic_demo_torch").main(["--viewer"])
+    with pytest.raises(SystemExit):
+        script("view_reconstruction_torch").main(
+            ["--reconstruction", "r.npz", "--serve"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         script("evaluate_euroc_torch").main(

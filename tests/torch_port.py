@@ -66,3 +66,14 @@ def tiny_config_kwargs():
         backend_chunk=32, volume_dtype="float32", feat_dtype="float32",
         compute_dtype="float32",
     )
+
+
+def read_ply_points(path):
+    """Vertices (and colours) of a binary PLY written by ``write_ply``."""
+    raw = open(path, "rb").read()
+    head, body = raw.split(b"end_header\n", 1)
+    n = int(head.split(b"element vertex ")[1].split(b"\n")[0])
+    dt = [("xyz", "<f4", 3), ("rgb", "u1", 3)] if b"red" in head \
+        else [("xyz", "<f4", 3)]
+    rec = np.frombuffer(body, dtype=dt, count=n)
+    return rec["xyz"], (rec["rgb"] if b"red" in head else None)
