@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Nine phases; any failure exits non-zero.
+Ten phases; any failure exits non-zero.
 
 1. Build the CUDA kernels from ``lgu_slam_tpu_torch/csrc`` with nvcc for
    sm_90a, all at once (printing ptxas' register/shared-memory summary),
@@ -107,9 +107,30 @@ Nine phases; any failure exits non-zero.
    and finite points; ``backproject_points`` on the card against the CPU
    on phase 8's reconstruction; ``scripts/view_reconstruction_torch.py``
    on the card writes the card's filtered cloud.
+10. JPEG frames, the native planner, the live viewer and the frame-graph
+   helpers.  Seeded 480 x 640 frames through the port's encoder
+   (``encode_jpeg``, quality 95: 4:2:0, 4:4:4, 4:2:0 with restart markers)
+   and its C decoder: PSNR against the source, the host's ms per decode
+   and per fed frame (decode + resize to 384 x 512), medians of 20.  A
+   24-frame ScanNet-layout RGB-D sequence (480 x 640 JPEG colour, 16-bit
+   depth, poses) read through the port's ``ScanNet`` loader and tracked by
+   ``track()`` + ``terminate()`` at the full width of ``SLAMConfig()``
+   (384 x 512, bf16, thresholds 0): K1 and K2 launch, the poses are finite,
+   the ms per keyframe update.  A Replica-layout scene (4 frames of 680 x
+   1200) read through ``ReplicaDataset``: its frames equal the encoder's
+   bytes decoded on the host.  ``demo_torch --viewer`` on a 12-frame JPEG
+   image directory at full width: ``GET /`` and ``/cloud`` while the viewer
+   is up, the version advanced and the points and cameras are the
+   reconstruction's.  The C planner against its Python version on a
+   t = 512 candidate grid (262,144 distances, 3,000 stored edges, the
+   backend's parameters): equal edge lists, the host ms of each.  And
+   ``FactorGraph.filter_edges``, ``Video.reproject`` and
+   ``Video.distance_matrix`` on phase 3's state (copied before phase 4's
+   ``terminate()``), cuda against cpu.
 
 Before the last line it prints the tracking, terminate, training, fp32
-tracking, world-size-1, entry-point and 3DGS reports, the run's wall time, the
+tracking, world-size-1, entry-point, 3DGS and JPEG reports, the run's wall
+time, the
 card's name and power limit, and one JSON line with each kernel's error,
 time, bound and launches.  The last line is ``{"ok": true, "device": {...}}``.
 Data and weights come from fixed seeds; nothing needs the network.
@@ -117,10 +138,12 @@ Data and weights come from fixed seeds; nothing needs the network.
 
 from __future__ import annotations
 
+import http.client
 import importlib.util
 import inspect
 import json
 import socket
+import struct
 import statistics
 import subprocess
 import sys
@@ -134,15 +157,23 @@ import torch
 import torch.distributed as dist
 
 from lgu_slam_tpu_torch.data.fixtures import (
+    REPLICA_CAM,
+    TUM_FR1,
+    render_sequence,
     write_euroc_sequence,
+    write_jpeg_imagedir,
+    write_replica_scene,
+    write_scannet_sequence,
     write_tum_sequence,
 )
-from lgu_slam_tpu_torch.data.image_io import imread
+from lgu_slam_tpu_torch.data.image_io import decode_jpeg, encode_jpeg, imread
 from lgu_slam_tpu_torch.data.imgproc import (
     FloatRemap,
     resize,
     undistort_maps,
 )
+from lgu_slam_tpu_torch.data.replica import ReplicaDataset
+from lgu_slam_tpu_torch.data.rgbd_datasets import KNOWN_CAMERAS, ScanNet
 from lgu_slam_tpu_torch.data.streams import euroc_maps
 from lgu_slam_tpu_torch.data.synthetic import (
     SyntheticDataset,
@@ -197,9 +228,11 @@ from lgu_slam_tpu_torch.parallel.train_dp import (
 from lgu_slam_tpu_torch.slam.backend import Backend
 from lgu_slam_tpu_torch.slam.factor_graph import FactorGraph
 from lgu_slam_tpu_torch.slam.motion_filter import MotionFilter
+from lgu_slam_tpu_torch.slam.state import Video
 from lgu_slam_tpu_torch.slam.system import LGUSlam
 from lgu_slam_tpu_torch.slam.trajectory_filler import TrajectoryFiller
 from lgu_slam_tpu_torch.slam.visualization import backproject_points
+from lgu_slam_tpu_torch.utils import native
 from lgu_slam_tpu_torch.utils.checkpoint import TRIMMED_HEADS
 from lgu_slam_tpu_torch.utils.config import SLAMConfig, TrainConfig
 from lgu_slam_tpu_torch.utils.device import use_full_fp32
@@ -1921,6 +1954,297 @@ def phase_gs(dev, recon: Path, export: Path) -> dict:
     return report
 
 
+# -- phase 10: JPEG frames, the native planner, the viewer, the helpers ------
+
+def psnr(a: np.ndarray, b: np.ndarray) -> float:
+    mse = np.mean((a.astype(np.float64) - b) ** 2)
+    return float(10 * np.log10(255.0 ** 2 / max(mse, 1e-12)))
+
+
+# the codec's cases: subsampling and restart interval (MCUs) at quality 95
+JPEG_CASES = {"420": dict(subsampling="420"),
+              "444": dict(subsampling="444"),
+              "420_restart_4": dict(subsampling="420", restart_interval=4)}
+JPEG_PSNR_DB = 35.0  # decode against the rendered source, every case
+
+
+def phase_jpeg_codec() -> dict:
+    """Seeded 480 x 640 frames through ``encode_jpeg`` and the C decoder:
+    PSNR against the source, the host's ms to encode (once), to decode and
+    to feed a frame (decode + resize to 384 x 512; medians of 20)."""
+    images = render_sequence(SEED + 10, len(JPEG_CASES), 480, 640, TUM_FR1,
+                             0.02, 0.004)[0]
+    out = {}
+    for (name, kw), img in zip(JPEG_CASES.items(), images):
+        t_start = time.perf_counter()
+        data = encode_jpeg(img, 95, **kw)
+        encode_ms = 1e3 * (time.perf_counter() - t_start)
+        db = psnr(decode_jpeg(data), img)
+        check(db >= JPEG_PSNR_DB, f"phase 10: JPEG {name} PSNR {db:.2f} dB")
+        out[name] = dict(
+            bytes=len(data), psnr_db=db, encode_ms=encode_ms,
+            decode_ms=host_ms(decode_jpeg, [data] * 20),
+            feed_ms=host_ms(lambda d: resize(decode_jpeg(d), (512, 384)),
+                            [data] * 20))
+    return out
+
+
+def count_launches(name: str, kernels: dict) -> tuple:
+    """K1's (the bf16-operand kernel) and K2's launches since the counts
+    were reset, checked and added to the kernels' phase-10 counts."""
+    k1, k2 = masked_corr_level0.launches_bf16, fused_pyramid_lookup.launches
+    check(k1 > 0 and k2 > 0, f"phase 10 {name}: kernel launches K1={k1} "
+          f"K2={k2}")
+    check(masked_corr_level0.launches == k1,
+          f"phase 10 {name}: K1 fp32-operand launches "
+          f"{masked_corr_level0.launches - k1}")
+    for kname, k in (("masked_corr_level0_tc", k1),
+                     ("fused_pyramid_lookup", k2)):
+        kernels[kname]["launches_jpeg"] = \
+            kernels[kname].get("launches_jpeg", 0) + k
+    return k1, k2
+
+
+def phase_jpeg_track(dev, kernels: dict, root: Path, n_frames: int = 24,
+                     size: tuple = (384, 512)) -> dict:
+    """A ScanNet-layout RGB-D sequence written with the port's encoder,
+    read through ``ScanNet`` (the 640 x 480 camera, resized to 384 x 512)
+    and tracked with depth at the full width of ``SLAMConfig()``,
+    thresholds 0, then ``terminate()`` over the stream."""
+    t_start = time.perf_counter()
+    write_scannet_sequence(str(root / "scene0000_00"), n_frames,
+                           seed=SEED + 11)
+    write_s = time.perf_counter() - t_start
+    ds = ScanNet(str(root), "scene0000_00",
+                 camera=KNOWN_CAMERAS["scannet_640"], desired=size)
+    t_start = time.perf_counter()
+    frames = list(ds.stream())
+    read_ms = 1e3 * (time.perf_counter() - t_start) / len(frames)
+    check(len(frames) == n_frames and frames[0][1].shape == (*size, 3),
+          f"phase 10: ScanNet read {len(frames)} frames of "
+          f"{frames[0][1].shape}")
+    cfg = SLAMConfig().replace(filter_thresh=0.0, keyframe_thresh=0.0,
+                               image_size=size)
+    slam = LGUSlam(init_state_dict(cfg, SEED), cfg, device=dev)
+    reset_counts()
+    kf_ms = []
+    for t, img, depth, intr in frames:
+        before = slam.video.counter
+        t_start = time.perf_counter()
+        slam.track(float(t), img, depth=depth, intrinsics=intr)
+        torch.cuda.synchronize()
+        if slam.video.counter > before:
+            kf_ms.append(1e3 * (time.perf_counter() - t_start))
+    n_kf = slam.video.counter
+    check(bool(torch.isfinite(slam.video.poses[:n_kf]).all()),
+          "phase 10: non-finite keyframe poses")
+    t_start = time.perf_counter()
+    traj = slam.terminate(iter(frames))
+    torch.cuda.synchronize()
+    terminate_s = time.perf_counter() - t_start
+    check(traj.shape == (n_frames, 7) and bool(np.isfinite(traj).all()),
+          f"phase 10: ScanNet trajectory {traj.shape} not finite")
+    k1, k2 = count_launches("ScanNet track", kernels)
+    return dict(frames=n_frames, keyframes=n_kf, write_seconds=write_s,
+                read_ms_per_frame=read_ms,
+                ms_per_keyframe_median=statistics.median(kf_ms[cfg.warmup:]),
+                terminate_seconds=terminate_s, k1_launches=k1,
+                k2_launches=k2)
+
+
+def phase_replica(root: Path, n_frames: int = 4) -> dict:
+    """A Replica-layout scene at 680 x 1200 read through
+    ``ReplicaDataset``: every frame equals the encoder's bytes of the
+    rendered frame decoded on the host, flipped to RGB and resized as the
+    loader resizes; the decode's PSNR against the rendered frame."""
+    seed = SEED + 12
+    scene = write_replica_scene(str(root / "room0"), n_frames, seed=seed)
+    images, depths = render_sequence(seed, n_frames, 680, 1200, REPLICA_CAM,
+                                     0.02, 0.004)[:2]
+    ds = ReplicaDataset(scene)
+    check(len(ds) == n_frames, f"phase 10: Replica {len(ds)} frames")
+    H, W = ds.size
+    dbs = []
+    for i in range(n_frames):
+        im, d, w2c, _ = ds[i]
+        dec = decode_jpeg(encode_jpeg(images[i]))
+        dbs.append(psnr(dec, images[i]))
+        want = resize(dec[..., ::-1], (W, H)).astype(np.float32) / 255.0
+        check(np.array_equal(im, want), f"phase 10: Replica frame {i} is "
+              "not the encoder's decode")
+        check(d.shape == (H, W) and bool(np.isfinite(w2c).all()),
+              f"phase 10: Replica depth {d.shape} or pose")
+    return dict(frames=n_frames, size=[H, W], psnr_db_min=min(dbs))
+
+
+def http_get(port: int, path: str):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    conn.request("GET", path)
+    r = conn.getresponse()
+    body = r.read()
+    conn.close()
+    return r.status, body
+
+
+def phase_jpeg_viewer(dev, kernels: dict, root: Path, n_frames: int = 12,
+                      target_pixels: int = 384 * 512) -> dict:
+    """``demo_torch --viewer`` on a JPEG image directory (480 x 640,
+    resized to 384 x 512, thresholds 0): the page and the snapshot while
+    the viewer is up."""
+    imagedir, calib = write_jpeg_imagedir(str(root / "jpeg"), n_frames,
+                                          seed=SEED + 13)
+    demo = load_script("demo_torch")
+    reset_counts()
+    t_start = time.perf_counter()
+    out = demo.main(["--imagedir", imagedir, "--calib", calib, "--stride",
+                     "1", "--filter_thresh", "0", "--keyframe_thresh", "0",
+                     "--viewer", "--viewer_port", str(free_port()),
+                     "--target_pixels", str(target_pixels),
+                     "--trajectory_path", str(root / "jpeg_traj.txt"),
+                     "--device", str(dev)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_start
+    viewer, inc = out["viewer"], out["reconstruction"]
+    try:
+        status, page = http_get(viewer.port, "/")
+        check(status == 200 and b"webgl" in page,
+              f"phase 10: viewer page {status}")
+        status, blob = http_get(viewer.port, "/cloud")
+        ver, n_pts, n_cams = struct.unpack_from("<III", blob, 0)
+        check(status == 200 and len(blob) == 12 + 15 * n_pts + 48 * n_cams,
+              f"phase 10: /cloud {status}, {len(blob)} bytes")
+        check(http_get(viewer.port, "/nope")[0] == 404,
+              "phase 10: unknown path not 404")
+        want = sum(len(p) for p, _ in inc.points.values())
+        check(ver == viewer.version and ver >= 2,
+              f"phase 10: viewer version {ver} ({viewer.version})")
+        check(n_pts == want and n_cams == len(inc.cameras)
+              == inc.video.counter,
+              f"phase 10: served {n_pts} points, {n_cams} cameras; the "
+              f"reconstruction {want}, {len(inc.cameras)}")
+    finally:
+        viewer.close()
+    finite_trajectory("phase 10 demo", root / "jpeg_traj.txt", n_frames)
+    k1, k2 = count_launches("demo --viewer", kernels)
+    return dict(frames=n_frames, seconds=seconds, version=ver,
+                points=n_pts, cameras=n_cams, k1_launches=k1,
+                k2_launches=k2, ms_per_frame={
+                    k: v["mean_ms"] for k, v in out["phases"].items()})
+
+
+def phase_planner(t: int = 512, n_existing: int = 3000) -> dict:
+    """The C planner against its Python version on the t x t candidate
+    grid ``terminate()`` plans over, with the backend's parameters (rad 2,
+    nms 3, threshold 22, cap 16 t): distances growing with the frame gap,
+    2 % loop closures and 2 % beyond 100, a few thousand stored edges."""
+    rng = np.random.default_rng(SEED + 14)
+    ii, jj = np.meshgrid(np.arange(t), np.arange(t), indexing="ij")
+    ii, jj = ii.reshape(-1), jj.reshape(-1)
+    d = (0.4 * np.abs(ii - jj) * (0.5 + rng.random(ii.size))
+         ).astype(np.float32)
+    d[rng.random(d.size) < 0.02] = rng.random() * 20
+    d[rng.random(d.size) < 0.02] = 150.0
+    e = rng.integers(0, t, (n_existing, 2))
+    args = (d, ii, jj, e[:, 0], e[:, 1], 0, 0, t, 2, 3, 22.0, 16 * t, False)
+    c_ms = []
+    for _ in range(5):
+        t_start = time.perf_counter()
+        got = native.proximity_plan(*args)
+        c_ms.append(1e3 * (time.perf_counter() - t_start))
+    t_start = time.perf_counter()
+    plain = native.proximity_plan_plain(*args)
+    plain_ms = 1e3 * (time.perf_counter() - t_start)
+    check(np.array_equal(got, plain), f"phase 10: planner edge lists "
+          f"differ ({len(got)} against {len(plain)})")
+    return dict(t=t, candidates=int(d.size), stored_edges=n_existing,
+                edges=len(got), c_ms_median=statistics.median(c_ms),
+                plain_ms=plain_ms)
+
+
+def frame_graph_helpers(dev, slam) -> dict:
+    """``Video.reproject``, ``Video.distance_matrix`` and
+    ``FactorGraph.filter_edges`` on a copy of phase 3's state (keyframes,
+    the frontend's edges with every third weight scaled by 1e-4, and edges
+    four keyframes apart added, half of them with zero weight), on the card
+    against the CPU."""
+    g, v = slam.frontend.graph, slam.video
+    n = v.counter
+    far = np.arange(4, n, 2)
+    out = []
+    for where in (dev, torch.device("cpu")):
+        cv = Video(v.cfg.replace(buffer=n), where)
+        for name in ("poses", "disps", "disps_sens", "intrinsics"):
+            getattr(cv, name).copy_(getattr(v, name)[:n])
+        cv.counter = n
+        cg = FactorGraph(g.net, cv, g.cfg, max_factors=g.max_factors)
+        cg.ii, cg.jj, cg.age = g.ii.copy(), g.jj.copy(), g.age.copy()
+        cg.target, cg.hidden = g.target.to(where), g.hidden.to(where)
+        cg.weight = g.weight.to(where).clone()
+        cg.weight[::3] *= 1e-4
+        cg.add_factors(far, far - 4)
+        cg.weight[g.n_edges + 1::2] = 0.5
+        t_start = time.perf_counter()
+        coords, valid = cv.reproject(cg.ii, cg.jj)
+        dist = cv.distance_matrix(beta=0.7)
+        cg.filter_edges()
+        if where == dev:
+            torch.cuda.synchronize()
+        out.append(dict(coords=coords.cpu(), valid=valid.cpu(), dist=dist,
+                        ii=cg.ii, jj=cg.jj, bad=cg.ii_bad,
+                        ms=1e3 * (time.perf_counter() - t_start)))
+    a, b = out
+    c_err = float((a["coords"] - b["coords"]).abs().max())
+    scale = float(b["coords"].abs().max())
+    d_rel = float(np.max(np.abs(a["dist"] - b["dist"])
+                         / np.maximum(np.abs(b["dist"]), 1e-6)))
+    check(c_err <= 1e-5 * max(scale, 1.0) + 1e-3,
+          f"phase 10: reproject cuda vs cpu {c_err} (coordinates to {scale})")
+    check(bool((a["valid"] == b["valid"]).float().mean() > 0.999),
+          "phase 10: reproject validity differs")
+    check(d_rel < 1e-4, f"phase 10: distance_matrix cuda vs cpu {d_rel}")
+    check(np.array_equal(a["ii"], b["ii"]) and np.array_equal(a["jj"], b["jj"])
+          and np.array_equal(a["bad"], b["bad"]) and len(a["bad"]) > 0,
+          f"phase 10: filter_edges dropped {len(a['bad'])} edges on cuda, "
+          f"{len(b['bad'])} on cpu, or kept other edges")
+    return dict(keyframes=n, edges=len(g.ii) + len(far),
+                filtered=len(a["bad"]),
+                reproject_max_abs_diff=c_err, distance_max_rel_diff=d_rel,
+                ms_cuda=a["ms"], ms_cpu=b["ms"])
+
+
+def phase_jpeg(dev, kernels: dict, helpers: dict) -> dict:
+    """Phase 10 (its frame-graph helpers ran on phase 3's state)."""
+    t_start = time.perf_counter()
+    report = dict(codec=phase_jpeg_codec(), helpers=helpers)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        report["scannet"] = phase_jpeg_track(dev, kernels, root)
+        torch.cuda.empty_cache()
+        report["replica"] = phase_replica(root)
+        report["viewer"] = phase_jpeg_viewer(dev, kernels, root)
+        torch.cuda.empty_cache()
+    report["planner"] = phase_planner()
+    report["seconds"] = time.perf_counter() - t_start + helpers["seconds"]
+    c, sn, v, pl = (report[k] for k in ("codec", "scannet", "viewer",
+                                        "planner"))
+    print(f"phase 10: JPEG 480 x 640 at quality 95, host ms per decode "
+          f"{c['420']['decode_ms']:.2f} (4:2:0) / {c['444']['decode_ms']:.2f}"
+          f" (4:4:4), per fed frame {c['420']['feed_ms']:.2f}, PSNR >= "
+          f"{min(x['psnr_db'] for x in c.values()):.1f} dB; ScanNet JPEG "
+          f"RGB-D tracked at 384 x 512 ({sn['keyframes']} keyframes, "
+          f"{sn['ms_per_keyframe_median']:.1f} ms per keyframe update, K1 "
+          f"{sn['k1_launches']}, K2 {sn['k2_launches']}), poses finite; "
+          f"Replica frames equal the encoder's decode; demo --viewer served "
+          f"version {v['version']}, {v['points']} points, {v['cameras']} "
+          f"cameras; planner at t = {pl['t']}: {pl['edges']} edges, C "
+          f"{pl['c_ms_median']:.2f} ms, Python {pl['plain_ms']:.0f} ms, "
+          f"equal; helpers cuda vs cpu: reproject "
+          f"{helpers['reproject_max_abs_diff']:.2e}, distance "
+          f"{helpers['distance_max_rel_diff']:.2e}, filter_edges dropped "
+          f"{helpers['filtered']} alike; {report['seconds']:.0f} s")
+    return report
+
+
 def main():
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke run needs an NVIDIA GPU")
@@ -1939,6 +2263,9 @@ def main():
           f"{report['keyframes']} keyframes, {report['edges']} edges, K1 "
           f"launches {report['k1_launches']}, K2 launches "
           f"{report['k2_launches']}, poses finite")
+    t_helpers = time.perf_counter()
+    helpers = frame_graph_helpers(dev, slam)
+    helpers["seconds"] = time.perf_counter() - t_helpers
     terminate = phase_terminate(slam, frames, kernels)
     del slam, frames
     torch.cuda.empty_cache()
@@ -1964,14 +2291,17 @@ def main():
         entry_points = phase_entry_points(dev, kernels, recon, export)
         torch.cuda.empty_cache()
         gs = phase_gs(dev, recon, export)
+    torch.cuda.empty_cache()
+    jpeg = phase_jpeg(dev, kernels, helpers)
     # launches on the main path: K1 bf16 and K2 over track() +
-    # terminate() and phase 8's entry points, K2 also over phase 7's
-    # sharded backend pass, K1 fp32 operands over phase 6's track()
+    # terminate(), phase 8's entry points and phase 10's JPEG runs, K2
+    # also over phase 7's sharded backend pass, K1 fp32 operands over
+    # phase 6's track()
     for name in ("masked_corr_level0_tc", "fused_pyramid_lookup"):
         k = kernels[name]
         k["launches"] = k["launches_track"] + k["launches_terminate"] + \
             k.get("launches_sharded_backend", 0) + \
-            k["launches_entry_points"]
+            k["launches_entry_points"] + k["launches_jpeg"]
     k = kernels["masked_corr_level0_tf32"]
     k["launches"] = k["launches_track_fp32"]
     for k in kernels.values():
@@ -1985,6 +2315,7 @@ def main():
     print(json.dumps({"world_size_1": world1}))
     print(json.dumps({"entry_points": entry_points}))
     print(json.dumps({"gs": gs}))
+    print(json.dumps({"jpeg": jpeg}))
     print(json.dumps({"seconds": seconds}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -1,14 +1,24 @@
 """On-disk sequences in the layouts of the benchmarks' datasets, rendered by
 ``data/synthetic.py`` along known trajectories and written with the port's
-own PNG encoder: for the tests and ``chip_smoke.py``, which have no dataset
-to read (nothing is downloaded).
+own PNG and JPEG encoders: for the tests and ``chip_smoke.py``, which have
+no dataset to read (nothing is downloaded).
 
 - :func:`write_tum_sequence`: a TUM RGB-D sequence (``rgb/``, 16-bit
   ``depth/`` in 1/5000 m, ``rgb.txt``, ``depth.txt``, ``groundtruth.txt``);
 - :func:`write_euroc_sequence`: a EuRoC MAV stereo sequence (gray
   ``mav0/cam0|cam1/data/<ns>.png`` and the state-estimate ``data.csv``);
 - :func:`write_tartanair_scene`: a TartanAir scene (``image_left/``,
-  ``depth_left/*.npy``, NED ``pose_left.txt``).
+  ``depth_left/*.npy``, NED ``pose_left.txt``);
+- :func:`write_scannet_sequence`: a ScanNet export (JPEG ``color/``, 16-bit
+  ``depth/`` in mm, ``pose/*.txt`` camera-to-world matrices);
+- :func:`write_replica_scene`: a Replica scene (``results/frame*.jpg``,
+  ``results/depth*.png`` in 1/6553.5 m, ``traj.txt``);
+- :func:`write_jpeg_imagedir`: a JPEG image directory and its
+  ``calib.txt``, as the demo reads them.
+
+The JPEG writers take :func:`image_io.encode_jpeg`'s ``quality``,
+``subsampling`` and ``restart_interval`` (defaults: ``cv2.imwrite``'s
+quality 95 and 4:2:0).
 """
 
 from __future__ import annotations
@@ -18,7 +28,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from lgu_slam_tpu_torch.data.image_io import imwrite
+from lgu_slam_tpu_torch.data.image_io import encode_jpeg, imwrite
 from lgu_slam_tpu_torch.data.synthetic import (
     SyntheticScene,
     _quat_to_mat,
@@ -31,6 +41,10 @@ TUM_T0 = 1305031102.0
 TUM_FR1 = (517.3, 516.5, 318.6, 255.3)
 EUROC_CAM = (458.654, 457.296, 367.215, 248.375)
 EUROC_BASELINE = 0.11
+# the 640 x 480 depth-registered ScanNet camera (rgbd_datasets.KNOWN_CAMERAS
+# "scannet_640") and Replica's (data/replica.py INTRINSICS)
+SCANNET_640 = (577.59, 578.73, 318.9, 242.7)
+REPLICA_CAM = (600.0, 600.0, 599.5, 339.5)
 
 
 def render_sequence(seed: int, n_frames: int, H: int, W: int, intrinsics,
@@ -61,6 +75,22 @@ def render_all(scene, poses, intrinsics, H: int, W: int):
 def _write_pngs(files) -> None:
     """``imwrite`` of every (path, image)."""
     _on_cores(lambda f: imwrite(*f), files)
+
+
+def _write_jpegs(files, **jpeg) -> None:
+    """The JPEG of every (path, image) (``encode_jpeg`` keywords)."""
+    def write(f):
+        with open(f[0], "wb") as fh:
+            fh.write(encode_jpeg(f[1], **jpeg))
+    _on_cores(write, files)
+
+
+def _c2w_matrix(pose) -> np.ndarray:
+    """Camera-to-world (t, quaternion xyzw) -> 4 x 4."""
+    T = np.eye(4)
+    T[:3, :3] = _quat_to_mat(np.asarray(pose[3:7], np.float64))
+    T[:3, 3] = pose[:3]
+    return T
 
 
 def _write_list(path, header, rows):
@@ -152,3 +182,63 @@ def write_tartanair_scene(root, n_frames: int = 12, H: int = 480,
     np.savetxt(os.path.join(root, "pose_left.txt"), poses[:, _XYZ_TO_NED],
                delimiter=" ")
     return root
+
+
+def write_scannet_sequence(root, n_frames: int = 24, H: int = 480,
+                           W: int = 640, seed: int = 0, **jpeg) -> str:
+    """A ScanNet export under ``root`` at the 640 x 480 camera
+    (``CameraParams`` "scannet_640"): ``color/<k>.jpg``, ``depth/<k>.png``
+    (uint16 mm) and ``pose/<k>.txt`` (4 x 4 camera-to-world).  Returns
+    ``root``."""
+    images, depths, poses, _ = render_sequence(
+        seed, n_frames, H, W, SCANNET_640, t_step=0.02, r_step=0.004)
+    for sub in ("color", "depth", "pose"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    _write_jpegs([(os.path.join(root, "color", f"{k}.jpg"), images[k])
+                  for k in range(n_frames)], **jpeg)
+    _write_pngs([(os.path.join(root, "depth", f"{k}.png"),
+                  np.clip(np.rint(depths[k] * 1000.0), 0, 65535)
+                  .astype(np.uint16)) for k in range(n_frames)])
+    for k in range(n_frames):
+        np.savetxt(os.path.join(root, "pose", f"{k}.txt"),
+                   _c2w_matrix(poses[k]))
+    return root
+
+
+def write_replica_scene(root, n_frames: int = 4, H: int = 680,
+                        W: int = 1200, seed: int = 0, **jpeg) -> str:
+    """A Replica scene directory ``root`` at Replica's camera:
+    ``results/frame%06d.jpg``, ``results/depth%06d.png`` (uint16 in
+    1/6553.5 m) and ``traj.txt`` (one row-major 4 x 4 camera-to-world per
+    line).  Returns ``root``."""
+    images, depths, poses, _ = render_sequence(
+        seed, n_frames, H, W, REPLICA_CAM, t_step=0.02, r_step=0.004)
+    res = os.path.join(root, "results")
+    os.makedirs(res, exist_ok=True)
+    _write_jpegs([(os.path.join(res, f"frame{k:06d}.jpg"), images[k])
+                  for k in range(n_frames)], **jpeg)
+    _write_pngs([(os.path.join(res, f"depth{k:06d}.png"),
+                  np.clip(np.rint(depths[k] * 6553.5), 0, 65535)
+                  .astype(np.uint16)) for k in range(n_frames)])
+    np.savetxt(os.path.join(root, "traj.txt"),
+               np.stack([_c2w_matrix(p).reshape(-1) for p in poses]))
+    return root
+
+
+def write_jpeg_imagedir(root, n_frames: int = 16, H: int = 480,
+                        W: int = 640, seed: int = 0, **jpeg):
+    """JPEG frames ``root/images/<k>.jpg`` along a random walk, and
+    ``root/calib.txt`` (``fx fy cx cy``: the TUM fr1 camera scaled to
+    ``W`` x ``H``): returns (image directory, calib path)."""
+    s = np.asarray([W / 640, H / 480, W / 640, H / 480])
+    cam = tuple(np.asarray(TUM_FR1) * s)
+    images, _, _, _ = render_sequence(seed, n_frames, H, W, cam,
+                                      t_step=0.02, r_step=0.004)
+    imagedir = os.path.join(root, "images")
+    os.makedirs(imagedir, exist_ok=True)
+    _write_jpegs([(os.path.join(imagedir, f"{k:06d}.jpg"), images[k])
+                  for k in range(n_frames)], **jpeg)
+    calib = os.path.join(root, "calib.txt")
+    with open(calib, "w") as fh:
+        fh.write(" ".join(f"{v:.6f}" for v in cam) + "\n")
+    return imagedir, calib

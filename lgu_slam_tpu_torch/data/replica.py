@@ -1,9 +1,6 @@
 """Replica RGB-D dataset loader for the 3DGS stage (port of the JAX
 package's ``data/replica.py``).  Layout: <scene>/results/frame%06d.jpg +
 depth%06d.png (scale 6553.5), traj.txt with 4x4 c2w row-major poses.
-
-Discovery and poses work; the colour frames are JPEG, which the port does
-not read yet (``image_io.imread`` raises ``NotImplementedError``).
 """
 
 from __future__ import annotations

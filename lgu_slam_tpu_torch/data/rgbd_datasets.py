@@ -1,7 +1,7 @@
 """RGB-D capture-dataset loaders for the 3DGS mapping stage (port of the
 JAX package's ``data/rgbd_datasets.py``): plain-Python folder readers
-producing numpy host arrays, on the port's own PNG decoder and resize
-(``data/image_io.py``, ``data/imgproc.py``) in place of OpenCV.
+producing numpy host arrays, on the port's own PNG and JPEG decoders and
+resize (``data/image_io.py``, ``data/imgproc.py``) in place of OpenCV.
 
 Every dataset yields, per frame:
   image  [H, W, 3] float32 RGB in [0, 1]   (resized to ``desired`` size)
@@ -12,11 +12,6 @@ Every dataset yields, per frame:
 
 plus a ``stream()`` view for feeding the SLAM system directly
 ((t, bgr uint8, depth, intr) tuples, matching data/streams.py).
-
-Discovery, poses and intrinsics work for every loader.  The port reads PNG
-only: the loaders whose colour frames are JPEG (ScanNet, Azure, RealSense)
-raise ``NotImplementedError`` from ``image_io.imread`` when they read
-pixels.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Streaming image readers for inference (port of the JAX package's
-``data/streams.py``), on the port's own PNG decoder and image operations
-(``data/image_io.py``, ``data/imgproc.py``) in place of OpenCV.
+``data/streams.py``), on the port's own PNG and JPEG decoders and image
+operations (``data/image_io.py``, ``data/imgproc.py``) in place of OpenCV.
 
 All streams yield numpy arrays shaped for :meth:`LGUSlam.track`:
 ``(t, image[H,W,3] BGR uint8, intrinsics[4])`` -- with an extra ``depth``

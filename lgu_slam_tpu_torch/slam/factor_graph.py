@@ -2,7 +2,8 @@
 ``slam/factor_graph.py``).
 
 Edge topology (add/dedup, age- and capacity-based eviction, keyframe
-removal, proximity planning with NMS) is host numpy.  Per-edge state
+removal, low-confidence filtering) is host numpy; the proximity planning
+with NMS runs in host C (``utils/native.py``).  Per-edge state
 (reprojection targets, confidence weights, GRU hidden state) is device
 tensors holding exactly the live edges, in edge order.  The capacity rules
 that decide which edges exist are kept: the ``edge_bucket`` hard cap, the
@@ -30,6 +31,7 @@ from lgu_slam_tpu_torch.models.net import LGUNet
 from lgu_slam_tpu_torch.models.update import upsample_disp
 from lgu_slam_tpu_torch.parallel.backend_shard import update_lowmem_sharded
 from lgu_slam_tpu_torch.slam.state import Video
+from lgu_slam_tpu_torch.utils import native
 from lgu_slam_tpu_torch.utils.config import SLAMConfig
 
 
@@ -190,6 +192,18 @@ class FactorGraph:
         self.ii = np.where(self.ii >= ix, self.ii - 1, self.ii)
         self.jj = np.where(self.jj >= ix, self.jj - 1, self.jj)
         self.rm_factors(m, store=False)
+
+    def filter_edges(self):
+        """Drop the low-confidence long-range edges (mean weight under
+        1e-3, more than two keyframes apart) and remember them as bad: the
+        proximity planner suppresses around them."""
+        if self.n_edges == 0:
+            return
+        conf = self.weight.mean(dim=(1, 2, 3)).cpu().numpy()
+        mask = (np.abs(self.ii - self.jj) > 2) & (conf < 0.001)
+        self.ii_bad = np.concatenate([self.ii_bad, self.ii[mask]])
+        self.jj_bad = np.concatenate([self.jj_bad, self.jj[mask]])
+        self.rm_factors(mask, store=False)
 
     def clear_edges(self):
         if self.n_edges:
@@ -414,9 +428,9 @@ class FactorGraph:
 
     def add_proximity_factors(self, t0=0, t1=0, rad=2, nms=2, beta=0.25,
                               thresh=16.0, remove=False):
-        """Distance-ranked edge selection with non-maximum suppression (the
-        JAX package's Python planner, factor_graph.py:1249-1289; ties rank
-        in index order, as its native planner's stable sort does)."""
+        """Distance-ranked edge selection with non-maximum suppression over
+        the candidates ``[t0, t) x [t1, t)``, planned in C
+        (``utils/native.proximity_plan``)."""
         t = self.video.counter
         ix = np.arange(t0, t)
         jx = np.arange(t1, t)
@@ -425,45 +439,9 @@ class FactorGraph:
         ii, jj = np.meshgrid(ix, jx, indexing="ij")
         ii, jj = ii.reshape(-1), jj.reshape(-1)
         d = self.video.distance_rect(t0, t, t1, t, beta=beta).reshape(-1)
-
-        d[ii - rad < jj] = np.inf
-        d[d > 100] = np.inf
-
-        def nms_suppress(i, j):
-            for di in range(-nms, nms + 1):
-                for dj in range(-nms, nms + 1):
-                    if abs(di) + abs(dj) <= max(min(abs(i - j) - 2, nms), 0):
-                        i1, j1 = i + di, j + dj
-                        if t0 <= i1 < t and t1 <= j1 < t:
-                            d[(i1 - t0) * (t - t1) + (j1 - t1)] = np.inf
-
-        ii1 = np.concatenate([self.ii, self.ii_bad, self.ii_inac])
-        jj1 = np.concatenate([self.jj, self.jj_bad, self.jj_inac])
-        for i, j in zip(ii1.tolist(), jj1.tolist()):
-            nms_suppress(i, j)
-
-        es = []
-        for i in range(t0, t):
-            if self.video.stereo:
-                es.append((i, i))
-                if t1 <= i:
-                    d[(i - t0) * (t - t1) + (i - t1)] = np.inf
-            for j in range(max(i - rad - 1, 0), i):
-                es.append((i, j))
-                es.append((j, i))
-                if t1 <= j < t:
-                    d[(i - t0) * (t - t1) + (j - t1)] = np.inf
-
-        for k in np.argsort(d, kind="stable"):
-            if d[k] > thresh:
-                continue
-            if len(es) > self.max_factors:
-                break
-            i, j = int(ii[k]), int(jj[k])
-            es.append((i, j))
-            es.append((j, i))
-            nms_suppress(i, j)
-
-        if es:
-            es = np.asarray(es, np.int64)
+        es = native.proximity_plan(
+            d, ii, jj, np.concatenate([self.ii, self.ii_bad, self.ii_inac]),
+            np.concatenate([self.jj, self.jj_bad, self.jj_inac]), t0, t1, t,
+            rad, nms, thresh, self.max_factors, self.video.stereo)
+        if len(es):
             self.add_factors(es[:, 0], es[:, 1], remove)

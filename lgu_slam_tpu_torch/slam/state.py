@@ -13,6 +13,7 @@ from lgu_slam_tpu_torch.geom.distance import (
     frame_distance,
     frame_distance_bidirectional,
 )
+from lgu_slam_tpu_torch.geom.projective import projective_transform
 from lgu_slam_tpu_torch.lie import se3_identity
 from lgu_slam_tpu_torch.utils.config import SLAMConfig
 
@@ -99,6 +100,13 @@ class Video:
         return torch.as_tensor(np.asarray(a, np.int64).reshape(-1),
                                device=self.device)
 
+    def reproject(self, ii, jj):
+        """Pixel coordinates [E, h, w, 2] of keyframe ii's pixels in
+        keyframe jj, and their validity [E, h, w, 1], on the video's
+        device."""
+        return projective_transform(self.poses, self.disps, self.intrinsics,
+                                    self._index(ii), self._index(jj))
+
     def distance(self, ii, jj, beta=0.3, bidirectional=True) -> np.ndarray:
         """Frame distance for an edge list, as numpy [E]."""
         ii, jj = self._index(ii), self._index(jj)
@@ -118,3 +126,9 @@ class Video:
         ii = np.repeat(np.arange(i0, i1), nj)
         jj = np.tile(np.arange(j0, j1), ni)
         return self.distance(ii, jj, beta=beta).reshape(ni, nj)
+
+    def distance_matrix(self, beta=0.3) -> np.ndarray:
+        """Bidirectional distance between every two of the first
+        ``counter`` keyframes, as numpy [t, t]."""
+        t = self.counter
+        return self.distance_rect(0, t, 0, t, beta=beta)

@@ -5,18 +5,22 @@
     python scripts/demo_torch.py --imagedir DIR --calib calib.txt \\
         [--depthdir DIR] [--weights FILE] [--device cpu]
 
-Runs the SLAM system on an image directory (PNG frames; ``--depthdir``
-adds aligned 16-bit depth PNGs), fills the trajectory of every frame and
-saves it in TUM format, plus an optional reconstruction ``.npz`` (the keys
-of the JAX demo's) for the 3DGS stage (``scripts/gs_slam_torch.py``).
-``--export_every N`` writes growing ``.ply`` snapshots of the filtered
-point cloud and the camera frusta every N tracked frames, and a final pair
-after ``terminate()``, into ``--export_dir``; ``--viewer`` is not ported
-yet.  ``--weights`` takes a reference ``.pth``, a train state of the port
-or a JAX params pickle (``utils/checkpoint.load_weights``); without it the
-weights are the port's random init.  Runs on the card unless ``--device``
-says otherwise.  The time spent reading frames (decode, undistort, resize)
-and tracking them is printed per frame at the end.
+Runs the SLAM system on an image directory (PNG or JPEG frames;
+``--depthdir`` adds aligned 16-bit depth PNGs), fills the trajectory of
+every frame and saves it in TUM format, plus an optional reconstruction
+``.npz`` (the keys of the JAX demo's) for the 3DGS stage
+(``scripts/gs_slam_torch.py``).  ``--export_every N`` writes growing
+``.ply`` snapshots of the filtered point cloud and the camera frusta every
+N tracked frames, and a final pair after ``terminate()``, into
+``--export_dir``.  ``--viewer`` serves the growing reconstruction in the
+live web viewer (``slam/live_viewer.py``) at ``--viewer_port`` on every
+interface, refreshed after each tracked frame and after ``terminate()``;
+it serves until the process exits (``main`` returns it).  ``--weights``
+takes a reference ``.pth``, a train state of the port or a JAX params
+pickle (``utils/checkpoint.load_weights``); without it the weights are the
+port's random init.  Runs on the card unless ``--device`` says otherwise.
+The time spent reading frames (decode, undistort, resize), tracking them
+and refreshing the viewer is printed per frame at the end.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from lgu_slam_tpu_torch.data.streams import (  # noqa: E402
 )
 from lgu_slam_tpu_torch.eval.ate import save_tum_trajectory  # noqa: E402
 from lgu_slam_tpu_torch.models.net import init_state_dict  # noqa: E402
+from lgu_slam_tpu_torch.slam.live_viewer import LiveViewer  # noqa: E402
 from lgu_slam_tpu_torch.slam.system import LGUSlam  # noqa: E402
 from lgu_slam_tpu_torch.slam.visualization import (  # noqa: E402
     IncrementalReconstruction,
@@ -44,9 +49,6 @@ from lgu_slam_tpu_torch.utils.checkpoint import load_weights  # noqa: E402
 from lgu_slam_tpu_torch.utils.config import SLAMConfig  # noqa: E402
 from lgu_slam_tpu_torch.utils.device import resolve_device  # noqa: E402
 from lgu_slam_tpu_torch.utils.profiling import PhaseTimer  # noqa: E402
-
-NOT_PORTED = ("--viewer is not ported yet: it needs the live viewer "
-              "(slam/live_viewer.py)")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -78,7 +80,9 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--export_every", type=int, default=0,
                    help="write growing .ply snapshots every N frames")
     p.add_argument("--export_dir", default="recon")
-    p.add_argument("--viewer", action="store_true", help=NOT_PORTED)
+    p.add_argument("--viewer", action="store_true",
+                   help="serve a live interactive web viewer")
+    p.add_argument("--viewer_port", type=int, default=8090)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
 
@@ -91,11 +95,10 @@ def export(inc: IncrementalReconstruction, export_dir: str, tag: str):
 
 def main(argv=None) -> dict:
     """Returns the trajectory's timestamps and poses (camera-to-world,
-    ``[T, 7]``) and the per-phase times (``PhaseTimer.summary()``)."""
-    p = parser()
-    args = p.parse_args(argv)
-    if args.viewer:
-        p.error(NOT_PORTED)
+    ``[T, 7]``), the per-phase times (``PhaseTimer.summary()``), the live
+    viewer (still serving; None without ``--viewer``) and the incremental
+    reconstruction it serves."""
+    args = parser().parse_args(argv)
     device = resolve_device(args.device)
 
     def make_stream():
@@ -127,10 +130,14 @@ def main(argv=None) -> dict:
     weights = (load_weights(args.weights) if args.weights
                else init_state_dict(cfg, seed=0))
     slam = LGUSlam(weights, cfg, device=device)
-    inc = None
-    if args.export_every:
+    inc = viewer = None
+    if args.export_every or args.viewer:
         inc = IncrementalReconstruction(slam.video)
+    if args.export_every:
         os.makedirs(args.export_dir, exist_ok=True)
+    if args.viewer:
+        viewer = LiveViewer(inc, port=args.viewer_port, host="0.0.0.0")
+        print(f"live viewer at {viewer.url}")
 
     timer = PhaseTimer()
     tstamps = []
@@ -149,16 +156,22 @@ def main(argv=None) -> dict:
             slam.track(t, image, depth=depth, intrinsics=item[-1])
         tstamps.append(t)
         n_tracked += 1
+        if viewer is not None:
+            with timer.phase("view"):
+                viewer.refresh()
         # consume the dirty-flag protocol incrementally
         # (droid_slam/visualization.py:81-112)
-        if inc is not None and n_tracked % args.export_every == 0 \
-                and inc.update():
+        if args.export_every and n_tracked % args.export_every == 0 \
+                and (viewer is not None or inc.update()):
             export(inc, args.export_dir, f"{n_tracked:05d}")
 
     with timer.phase("terminate", sync=device):
         traj = slam.terminate(make_stream())
-    if inc is not None:
+    if viewer is not None:
+        viewer.refresh()
+    elif inc is not None:
         inc.update()
+    if args.export_every:
         export(inc, args.export_dir, "final")
     save_tum_trajectory(args.trajectory_path, tstamps[: len(traj)], traj)
     print(f"trajectory ({len(traj)} poses) -> {args.trajectory_path}")
@@ -179,7 +192,8 @@ def main(argv=None) -> dict:
         )
         print("reconstruction ->", args.reconstruction_path)
     return {"tstamps": tstamps[: len(traj)], "trajectory": traj,
-            "phases": timer.summary()}
+            "phases": timer.summary(), "viewer": viewer,
+            "reconstruction": inc}
 
 
 if __name__ == "__main__":

@@ -12,8 +12,9 @@ asserts pipeline health, finite poses for every input frame.
 
     python scripts/synthetic_demo_torch.py [--frames 30] [--device cpu]
 
-Runs on the card unless ``--device`` says otherwise.  ``--viewer`` waits
-for the port of the live viewer (ROADMAP A.R item 7).
+Runs on the card unless ``--device`` says otherwise.  ``--viewer`` serves
+the reconstruction in the live web viewer at ``--viewer_port`` while the
+demo runs.
 """
 
 from __future__ import annotations
@@ -31,7 +32,11 @@ from lgu_slam_tpu_torch.data.image_io import imwrite  # noqa: E402
 from lgu_slam_tpu_torch.data.streams import image_stream  # noqa: E402
 from lgu_slam_tpu_torch.eval.ate import save_tum_trajectory  # noqa: E402
 from lgu_slam_tpu_torch.models.net import init_state_dict  # noqa: E402
+from lgu_slam_tpu_torch.slam.live_viewer import LiveViewer  # noqa: E402
 from lgu_slam_tpu_torch.slam.system import LGUSlam  # noqa: E402
+from lgu_slam_tpu_torch.slam.visualization import (  # noqa: E402
+    IncrementalReconstruction,
+)
 from lgu_slam_tpu_torch.utils.config import SLAMConfig  # noqa: E402
 from lgu_slam_tpu_torch.utils.device import resolve_device  # noqa: E402
 
@@ -59,16 +64,13 @@ def main(argv=None) -> np.ndarray:
     """Returns the trajectory (camera-to-world, [frames, 7])."""
     p = argparse.ArgumentParser()
     p.add_argument("--frames", type=int, default=30)
-    p.add_argument("--viewer", action="store_true",
-                   help="not ported yet (ROADMAP A.R item 7)")
+    p.add_argument("--viewer", action="store_true")
+    p.add_argument("--viewer_port", type=int, default=9876)
     p.add_argument("--trajectory_path", default=None,
                    help="output trajectory file (default: inside the "
                         "demo's tempdir, discarded on exit)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.viewer:
-        p.error("--viewer is not ported yet (ROADMAP A.R item 7: the host "
-                "tools)")
     device = resolve_device(args.device)
 
     with tempfile.TemporaryDirectory() as td:
@@ -89,10 +91,18 @@ def main(argv=None) -> np.ndarray:
         )
         slam = LGUSlam(init_state_dict(cfg, seed=0), cfg, device=device)
 
+        viewer = None
+        if args.viewer:
+            viewer = LiveViewer(IncrementalReconstruction(slam.video),
+                                port=args.viewer_port, host="0.0.0.0")
+            print(f"live viewer at {viewer.url}")
+
         tstamps = []
         for t, image, intr in make_stream():
             slam.track(t, image, intrinsics=intr)
             tstamps.append(t)
+            if viewer is not None:
+                viewer.refresh()
 
         kf = slam.video.counter
         traj = slam.terminate(make_stream())
@@ -104,6 +114,8 @@ def main(argv=None) -> np.ndarray:
               f"trajectory ({len(traj)} poses, finite) -> "
               f"{args.trajectory_path}")
         print("synthetic demo OK")
+        if viewer is not None:
+            viewer.close()
     return traj
 
 

@@ -1,9 +1,10 @@
 """The port's dataset loaders (lgu_slam_tpu_torch/data/rgbd_datasets.py,
 replica.py, tartan.py, base.py, augmentation.py) on tiny on-disk fixtures:
-the nine tests of tests/test_datasets.py on the port's loaders (for the
-JPEG fixtures, discovery and poses, then the explicit error on a pixel
-read), each loader's poses, intrinsics and frames against the JAX
-package's loader (frames exact, poses and intrinsics within 1e-6),
+the nine tests of tests/test_datasets.py on the port's loaders (JPEG colour
+frames written by ``cv2.imwrite`` for ScanNet, Azure, RealSense and
+Replica, as there), each loader's poses, intrinsics and frames against the
+JAX package's loader (frames exact, poses and intrinsics within 1e-6), the
+ScanNet and Replica layouts of data/fixtures.py read by both packages,
 ``RGBDAugmentor`` bit-identical for a seed, and TartanAir clips
 (``ClipDataset``) with the JAX package's index, frame graph (distances
 within 1e-4 relative) and items."""
@@ -131,8 +132,8 @@ def test_tum_default_camera_from_sequence_name(tmp_path):
 
 
 def test_scannet_and_azure(tmp_path):
-    """JPEG colour: discovery, poses and camera as the JAX loader's; a
-    pixel read raises the image reader's NotImplementedError."""
+    """JPEG colour: discovery, poses, camera and frames as the JAX
+    loader's."""
     for cls, jcls in ((ScanNet, jrgbd.ScanNet), (Azure, jrgbd.Azure)):
         root = tmp_path / cls.__name__
         n = 3
@@ -146,13 +147,13 @@ def test_scannet_and_azure(tmp_path):
                 T[0, 3] = 0.05 * i
                 np.savetxt(root / "pose" / f"{i}.txt", T)
         ds = cls(str(tmp_path), cls.__name__, camera=CAM)
-        assert len(ds) == n
-        _same_as_jax(ds, jcls(str(tmp_path), cls.__name__, camera=CAM),
-                     frames=False)
-        with pytest.raises(NotImplementedError, match="JPEG"):
-            ds[0]
-        with pytest.raises(NotImplementedError, match="JPEG"):
-            next(iter(ds.stream()))
+        _check(ds, n)
+        _same_as_jax(ds, jcls(str(tmp_path), cls.__name__, camera=CAM))
+        ref = jcls(str(tmp_path), cls.__name__, camera=CAM)
+        for a, b in zip(ds.stream(), ref.stream()):
+            assert a[0] == b[0]
+            for x, y in zip(a[1:], b[1:]):
+                np.testing.assert_array_equal(x, y)
 
 
 def test_icl_gt_sim_poses(tmp_path):
@@ -215,9 +216,9 @@ def test_nerfcapture_transforms_json(tmp_path):
 
 
 def test_realsense_and_scannetpp_match_jax(tmp_path):
-    """RealSense (JPEG colour: discovery and OpenGL-conjugated poses, then
-    the error on a pixel read) and ScanNet++'s DSLR layout (PNG frames
-    named by transforms_undistorted.json, whose camera it takes)."""
+    """RealSense (JPEG colour, OpenGL-conjugated poses) and ScanNet++'s
+    DSLR layout (PNG frames named by transforms_undistorted.json, whose
+    camera it takes)."""
     root = tmp_path / "rs"
     os.makedirs(root / "poses", exist_ok=True)
     for i in range(3):
@@ -227,10 +228,8 @@ def test_realsense_and_scannetpp_match_jax(tmp_path):
         T[:3, 3] = [0.1 * i, 0.02, -0.05 * i]
         np.save(root / "poses" / f"{i}.npy", T)
     ds = RealSense(str(tmp_path), "rs", camera=CAM)
-    _same_as_jax(ds, jrgbd.RealSense(str(tmp_path), "rs", camera=CAM),
-                 frames=False)
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        ds[0]
+    _check(ds, 3)
+    _same_as_jax(ds, jrgbd.RealSense(str(tmp_path), "rs", camera=CAM))
 
     dslr = tmp_path / "pp" / "dslr"
     frames = []
@@ -258,7 +257,7 @@ def test_stride_start_end(tmp_path):
     ds = ScanNet(str(tmp_path), "s", camera=CAM, stride=2, start=1, end=6)
     assert len(ds) == 3  # frames 1, 3, 5
     _same_as_jax(ds, jrgbd.ScanNet(str(tmp_path), "s", camera=CAM, stride=2,
-                                   start=1, end=6), frames=False)
+                                   start=1, end=6))
 
 
 def test_quat_pose_roundtrip(rng):
@@ -278,8 +277,8 @@ def test_unknown_dataset_raises(tmp_path):
 
 
 def test_replica_discovery_and_poses(tmp_path):
-    """Replica: discovery, traj.txt poses and intrinsics as the JAX
-    loader's; its colour frames are JPEG, so a pixel read raises."""
+    """Replica: discovery, traj.txt poses, intrinsics and frames (JPEG
+    colour) as the JAX loader's."""
     scene = tmp_path / "room0"
     n = 3
     poses = []
@@ -298,8 +297,50 @@ def test_replica_discovery_and_poses(tmp_path):
     np.testing.assert_array_equal(ds.poses_c2w, ref.poses_c2w)
     np.testing.assert_array_equal(ds.intr, ref.intr)
     assert ds.size == ref.size
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        ds[0]
+    for i in range(n):
+        for a, b in zip(ds[i], ref[i]):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
+    for a, b in zip(ds.stream(), ref.stream()):
+        for x, y in zip(a[1:], b[1:]):
+            np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("jpeg", [
+    dict(), dict(quality=75, subsampling="444", restart_interval=4)])
+def test_scannet_fixture_matches_jax(tmp_path, jpeg):
+    """fixtures.write_scannet_sequence (the port's JPEG encoder) read by
+    the port's and the JAX package's ScanNet loaders at the 640 x 480
+    camera, resized to 120 x 160: the same frames, depths and poses; the
+    poses are the rendered trajectory's."""
+    fixtures.write_scannet_sequence(str(tmp_path / "scene0000_00"),
+                                    n_frames=3, seed=2, **jpeg)
+    cam = jrgbd.KNOWN_CAMERAS["scannet_640"]
+    kw = dict(camera=cam, desired=(120, 160))
+    ds = ScanNet(str(tmp_path), "scene0000_00", **kw)
+    _same_as_jax(ds, jrgbd.ScanNet(str(tmp_path), "scene0000_00", **kw))
+    _, _, poses, _ = fixtures.render_sequence(2, 3, 48, 64,
+                                              fixtures.SCANNET_640, 0.02,
+                                              0.004)
+    np.testing.assert_allclose(ds.poses_c2w[:, :3, 3], poses[:, :3],
+                               atol=1e-6)
+
+
+def test_replica_fixture_matches_jax(tmp_path):
+    """fixtures.write_replica_scene at Replica's 680 x 1200 read by both
+    packages' Replica loaders (downscaled to 340 x 600): the same frames,
+    depths, poses and intrinsics; the colour frames are the port's JPEG
+    decode of its own encoder's files, resized."""
+    scene = fixtures.write_replica_scene(str(tmp_path / "room0"),
+                                         n_frames=2, seed=4)
+    ds = load_rgbd_dataset("replica", str(tmp_path), "room0")
+    ref = jreplica.ReplicaDataset(scene)
+    assert len(ds) == len(ref) == 2
+    for i in range(2):
+        for a, b in zip(ds[i], ref[i]):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
+        assert ds[i][0].shape == (340, 600, 3)
 
 
 def test_augmentor_bit_identical(rng):

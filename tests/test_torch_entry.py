@@ -174,21 +174,21 @@ def _port_pth(tmp_path):
 
 
 def test_scripts_refuse_what_waits(tmp_path, monkeypatch):
-    """The demo's --viewer and view_reconstruction's --serve wait for the
-    live viewer (--export_every is ported: tests/test_torch_gs_script.py);
-    an entry point asked for CUDA where there is none raises."""
-    with pytest.raises(SystemExit):
-        script("demo_torch").main(["--imagedir", str(tmp_path), "--calib",
-                                   "c.txt", "--viewer"])
-    with pytest.raises(SystemExit):
-        script("synthetic_demo_torch").main(["--viewer"])
-    with pytest.raises(SystemExit):
-        script("view_reconstruction_torch").main(
-            ["--reconstruction", "r.npz", "--serve"])
+    """Nothing waits any more: the demo's --viewer / --viewer_port and
+    view_reconstruction's --serve / --port parse (they are driven in
+    tests/test_torch_live_viewer.py), and an entry point asked for CUDA
+    where there is none raises, with those flags as without them."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        script("evaluate_euroc_torch").main(
-            ["--datapath", str(tmp_path), "--weights", "w"])
+    for name, argv in (
+            ("demo_torch", ["--imagedir", str(tmp_path), "--calib", "c.txt",
+                            "--viewer", "--viewer_port", "0"]),
+            ("synthetic_demo_torch", ["--viewer", "--viewer_port", "0"]),
+            ("view_reconstruction_torch", ["--reconstruction", "r.npz",
+                                           "--serve", "--port", "0"]),
+            ("evaluate_euroc_torch", ["--datapath", str(tmp_path),
+                                      "--weights", "w"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            script(name).main(argv)
 
 
 def test_export_poses_matches_jax(tmp_path, monkeypatch):

@@ -117,20 +117,21 @@ def _patch_ihdr(png: bytes, offset: int, value: int) -> bytes:
 
 
 def test_what_the_port_does_not_read_raises(tmp_path):
-    """JPEG and other formats: NotImplementedError naming the ROADMAP item;
-    palette, interlaced and sub-byte PNGs: ValueError; a missing file:
-    FileNotFoundError (OpenCV returns None)."""
+    """Formats other than PNG and JPEG: NotImplementedError (JPEG's own
+    refusals: tests/test_torch_jpeg.py); palette, interlaced and sub-byte
+    PNGs: ValueError; a missing file: FileNotFoundError (OpenCV returns
+    None)."""
     im = np.random.default_rng(3).integers(0, 256, (8, 12, 3), np.uint8)
-    jpg = str(tmp_path / "a.jpg")
-    cv2.imwrite(jpg, im)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.R item 8"):
-        image_io.imread(jpg)
     bmp = str(tmp_path / "a.bmp")
     cv2.imwrite(bmp, im)
-    with pytest.raises(NotImplementedError, match="only PNG"):
+    with pytest.raises(NotImplementedError, match="only PNG and JPEG"):
         image_io.imread(bmp)
-    with pytest.raises(NotImplementedError, match="only PNG"):
-        image_io.imwrite(jpg, im)
+    with pytest.raises(NotImplementedError, match="only PNG and JPEG"):
+        image_io.imwrite(bmp, im)
+    jpg = str(tmp_path / "a.jpg")
+    cv2.imwrite(jpg, im)
+    with pytest.raises(ValueError, match="gray PNGs only"):
+        image_io.imread(jpg, anydepth=True)
     png = image_io.encode_png(im)
     for offset, value, match in ((9, 3, "palette"), (12, 1, "interlaced"),
                                  (8, 4, "bit depth")):

@@ -65,6 +65,26 @@ def test_image_stream_matches_jax(folder, calib):
     assert items[0][1].shape == (40, 56, 3)
 
 
+@pytest.mark.parametrize("source", ["cv2", "port"])
+def test_jpeg_image_stream_matches_jax(tmp_path, source):
+    """A directory of JPEG frames, written by cv2.imwrite or by the port's
+    encoder (fixtures.write_jpeg_imagedir), read as the JAX image_stream
+    reads it (cv2.imread): the same frames, resized to ~3000 pixels."""
+    imagedir, calib = fixtures.write_jpeg_imagedir(
+        str(tmp_path), n_frames=4, H=60, W=80, seed=6)
+    if source == "cv2":
+        import cv2
+
+        for name in os.listdir(imagedir):
+            path = os.path.join(imagedir, name)
+            cv2.imwrite(path, cv2.imread(path), [cv2.IMWRITE_JPEG_QUALITY,
+                                                 90])
+    kw = dict(stride=1, target_pixels=3000)
+    items = _held(tstreams.image_stream(imagedir, calib, **kw),
+                  jstreams.image_stream(imagedir, calib, **kw))
+    assert len(items) == 4 and items[0][1].shape == (40, 56, 3)
+
+
 def test_rgbd_stream_matches_jax(folder):
     args = (str(folder / "rgb"), str(folder / "depth"),
             str(folder / "calib_dist.txt"))

@@ -517,6 +517,9 @@ def test_port_imports_no_jax():
             "lgu_slam_tpu_torch.geom.graph_utils",
             "lgu_slam_tpu_torch.utils.logger",
             "lgu_slam_tpu_torch.utils.profiling",
+            "lgu_slam_tpu_torch.utils.native",
+            "lgu_slam_tpu_torch.slam.live_viewer",
+            "scripts/view_reconstruction_torch.py",
             "scripts/demo_torch.py", "scripts/synthetic_demo_torch.py",
             "scripts/evaluate_tum_torch.py",
             "scripts/evaluate_euroc_torch.py",
