@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Ten phases; any failure exits non-zero.
+Eleven phases; any failure exits non-zero.
 
 1. Build the CUDA kernels from ``lgu_slam_tpu_torch/csrc`` with nvcc for
    sm_90a, all at once (printing ptxas' register/shared-memory summary),
@@ -119,18 +119,38 @@ Ten phases; any failure exits non-zero.
    the ms per keyframe update.  A Replica-layout scene (4 frames of 680 x
    1200) read through ``ReplicaDataset``: its frames equal the encoder's
    bytes decoded on the host.  ``demo_torch --viewer`` on a 12-frame JPEG
-   image directory at full width: ``GET /`` and ``/cloud`` while the viewer
-   is up, the version advanced and the points and cameras are the
-   reconstruction's.  The C planner against its Python version on a
+   image directory at full width: ``GET /``, ``/cloud``, another path (the
+   page, as the JAX viewer serves it) and ``/cloudy?have=<version>`` (304)
+   while the viewer is up, the version advanced and the points and cameras
+   are the reconstruction's.  The C planner against its Python version on a
    t = 512 candidate grid (262,144 distances, 3,000 stored edges, the
    backend's parameters): equal edge lists, the host ms of each.  And
    ``FactorGraph.filter_edges``, ``Video.reproject`` and
    ``Video.distance_matrix`` on phase 3's state (copied before phase 4's
    ``terminate()``), cuda against cpu.
+11. The oracle pipeline of ``tests/test_torch_oracle_pipeline.py`` (the
+   real Frontend and Backend, the learned update replaced by the
+   ground-truth oracle of ``tests/torch_oracle.py``, loaded from its file)
+   at the full width of ``SLAMConfig()`` (384 x 512, a 48 x 64 grid), 24
+   frames: once in this process, once through ``Backend(group=)`` on the
+   NCCL group of world size 1 that phase 7 runs on; each must keep its
+   Sim(3)-aligned ATE below 1 % of the trajectory's extent and cull a
+   keyframe, and K1 and K2 launch 0 times (counted): the ATE, the ms per
+   oracle keyframe update beside phase 3's learned one, the backend pass.
+   ``models.gru.ConvGRU(128, 320)`` at E = 48 over 48 x 64, cuda against
+   cpu (a few edges; TF32 convolutions) and timed.  ``FactorGraph.update``
+   on phase 3's state (its graph's edges among the newest 4 keyframes,
+   copied before ``terminate()``), cuda against cpu.  On the host, which
+   has no OpenCV: the port's lossless fixtures of the image modes its
+   readers took in last (PNG palette with tRNS and gray at 1-8 bits, plain
+   and Adam7; Adam7 colour and 16-bit; BMP 8-, 24- and 32-bit, bottom-up
+   and top-down) read back as the pixels written, and a 480 x 640 JPEG cut
+   after a restart marker decodes to the full shape, its rows before the
+   cut as the whole file's and the MCU rows past it gray.
 
 Before the last line it prints the tracking, terminate, training, fp32
-tracking, world-size-1, entry-point, 3DGS and JPEG reports, the run's wall
-time, the
+tracking, world-size-1, entry-point, 3DGS, JPEG and oracle reports, the
+run's wall time, the
 card's name and power limit, and one JSON line with each kernel's error,
 time, bound and launches.  The last line is ``{"ok": true, "device": {...}}``.
 Data and weights come from fixed seeds; nothing needs the network.
@@ -166,7 +186,13 @@ from lgu_slam_tpu_torch.data.fixtures import (
     write_scannet_sequence,
     write_tum_sequence,
 )
-from lgu_slam_tpu_torch.data.image_io import decode_jpeg, encode_jpeg, imread
+from lgu_slam_tpu_torch.data.image_io import (
+    decode_jpeg,
+    encode_bmp,
+    encode_jpeg,
+    encode_png,
+    imread,
+)
 from lgu_slam_tpu_torch.data.imgproc import (
     FloatRemap,
     resize,
@@ -196,6 +222,7 @@ from lgu_slam_tpu_torch.gs.params import PARAM_KEYS, pointcloud_from_depth
 from lgu_slam_tpu_torch.gs.render import render_rgbd
 from lgu_slam_tpu_torch.gs.tsdf import TSDFVolume
 from lgu_slam_tpu_torch.lie import se3_exp, se3_inv, se3_mul, so3_matrix
+from lgu_slam_tpu_torch.models.gru import ConvGRU
 from lgu_slam_tpu_torch.models.net import LGUNet, init_state_dict
 from lgu_slam_tpu_torch.ops import _build
 from lgu_slam_tpu_torch.ops.k2_parts import (
@@ -1408,20 +1435,23 @@ def phase_world_size_1_train(dev, group) -> dict:
                 ms_step_plain=ms_p)
 
 
-def phase_world_size_1(dev, kernels: dict) -> dict:
+def nccl_group_1():
+    """The NCCL process group of world size 1 (one process, one card) that
+    phases 7 and 11 run on; main destroys it."""
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
                             f"{free_port()}", rank=0, world_size=1)
-    try:
-        group = dist.group.WORLD
-        check(dist.get_backend(group) == "nccl" and
-              dist.get_world_size(group) == 1, "not an NCCL group of 1")
-        report = dict(world_size=1, backend="nccl",
-                      dba=phase_world_size_1_dba(dev, group),
-                      backend_pass=phase_world_size_1_backend(dev, group,
-                                                              kernels),
-                      train=phase_world_size_1_train(dev, group))
-    finally:
-        dist.destroy_process_group()
+    group = dist.group.WORLD
+    check(dist.get_backend(group) == "nccl" and
+          dist.get_world_size(group) == 1, "not an NCCL group of 1")
+    return group
+
+
+def phase_world_size_1(dev, kernels: dict, group) -> dict:
+    report = dict(world_size=1, backend="nccl",
+                  dba=phase_world_size_1_dba(dev, group),
+                  backend_pass=phase_world_size_1_backend(dev, group,
+                                                          kernels),
+                  train=phase_world_size_1_train(dev, group))
     d, b, t = report["dba"], report["backend_pass"], report["train"]
     print(f"phase 7: sharded DBA step {d['ms_sharded']:.2f} ms (one "
           f"process {d['ms_one_process']:.2f} ms), pose err "
@@ -2113,8 +2143,10 @@ def phase_jpeg_viewer(dev, kernels: dict, root: Path, n_frames: int = 12,
         ver, n_pts, n_cams = struct.unpack_from("<III", blob, 0)
         check(status == 200 and len(blob) == 12 + 15 * n_pts + 48 * n_cams,
               f"phase 10: /cloud {status}, {len(blob)} bytes")
-        check(http_get(viewer.port, "/nope")[0] == 404,
-              "phase 10: unknown path not 404")
+        check(http_get(viewer.port, "/nope") == (200, page),
+              "phase 10: another path does not serve the page")
+        check(http_get(viewer.port, f"/cloudy?have={viewer.version}")[0]
+              == 304, "phase 10: /cloudy?have=<version> not 304")
         want = sum(len(p) for p, _ in inc.points.values())
         check(ver == viewer.version and ver >= 2,
               f"phase 10: viewer version {ver} ({viewer.version})")
@@ -2245,6 +2277,268 @@ def phase_jpeg(dev, kernels: dict, helpers: dict) -> dict:
     return report
 
 
+# -- phase 11: the oracle pipeline, ConvGRU, FactorGraph.update, images ------
+
+ORACLE = Path(__file__).resolve().parent / "tests" / "torch_oracle.py"
+ORACLE_FRAMES = 24
+CONV_GRU_ATOL = 1e-2  # cuDNN's TF32 convolutions against the CPU's fp32
+# FactorGraph.update on phase 3's bf16 graph, cuda against cpu: bf16
+# convolutions round each output to 8 bits of mantissa (3.9e-3 relative)
+# on both devices, in another order of accumulation; a few such roundings
+# per GRU iteration reach the targets (pixels), the weights and, through
+# one damped DBA, the poses and disparities (relative)
+UPDATE_TOL = dict(target=0.25, weight=0.05, poses=5e-3, disps=2e-2)
+
+
+def load_oracle():
+    """tests/torch_oracle.py (the oracle and scene of the port's
+    end-to-end accuracy test) as a module."""
+    spec = importlib.util.spec_from_file_location("torch_oracle", ORACLE)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_oracle(dev, group, T: int = ORACLE_FRAMES) -> dict:
+    """The oracle pipeline (tests/test_torch_oracle_pipeline.py) at the
+    full width of ``SLAMConfig()``: T frames through the real Frontend,
+    then ``Backend(steps=6)``, once in this process and once sharded over
+    the NCCL group of world size 1.  Each must keep its ATE below 1 % of
+    the extent and cull a keyframe; neither launches K1 or K2 (the oracle
+    replaces build_corr, lookup and alt_corr), which is counted."""
+    oracle = load_oracle()
+    cfg = oracle.full_width_config()
+    runs = {}
+    for name, g in (("one_process", None), ("nccl_world_size_1", group)):
+        reset_counts()
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", "backend edge budget")
+            r = oracle.run_pipeline(cfg, T, dev, group=g)
+        updates = r["frontend_ms"][cfg.warmup:]  # after the initialising call
+        check(r["culled"], f"phase 11 ({name}): the cull never fired")
+        check(r["ate"] < 0.01 * r["extent"],
+              f"phase 11 ({name}): oracle ATE {r['ate']} >= 1 % of the "
+              f"extent {r['extent']}")
+        runs[name] = dict(
+            ate=r["ate"], extent=r["extent"],
+            ate_over_extent=r["ate"] / r["extent"],
+            keyframes=r["keyframes"], tstamps=r["tstamps"],
+            ms_per_update_median=statistics.median(updates),
+            ms_per_update_min=min(updates), ms_per_update_max=max(updates),
+            ms_initialize=r["frontend_ms"][cfg.warmup - 1],
+            backend_ms=r["backend_ms"],
+            k1_launches=masked_corr_level0.launches,
+            k2_launches=fused_pyramid_lookup.launches)
+        torch.cuda.empty_cache()
+    a, b = runs["one_process"], runs["nccl_world_size_1"]
+    check(a["tstamps"] == b["tstamps"],
+          "phase 11: the two oracle runs kept different keyframes")
+    return dict(frames=T, image_size=list(cfg.image_size),
+                thresholds=dict(keyframe=cfg.keyframe_thresh,
+                                frontend=cfg.frontend_thresh,
+                                backend=cfg.backend_thresh), **runs)
+
+
+def phase_conv_gru(dev, E: int = 48, h: int = 48, w: int = 64,
+                   cpu_edges=(0, 17, 31, 47)) -> dict:
+    """``models.gru.ConvGRU(128, 320)`` at the update operator's full
+    width (E = 48 edges over 48 x 64): its cuda output against the CPU's
+    on the same weights and inputs, for a few of the edges (the cell is
+    per edge: its pooling is over one edge's pixels)."""
+    torch.manual_seed(SEED)
+    gru = ConvGRU(128, 320).eval()
+    gen = torch.Generator().manual_seed(SEED)
+    net = torch.tanh(torch.randn(E, h, w, 128, generator=gen))
+    ins = [torch.randn(E, h, w, c, generator=gen) for c in (128, 128, 64)]
+    gru_c = ConvGRU(128, 320).to(dev).eval()
+    gru_c.load_state_dict(gru.state_dict())
+    net_c, ins_c = net.to(dev), [x.to(dev) for x in ins]
+    with torch.no_grad():
+        out = gru_c(net_c, *ins_c)
+        ms = cuda_ms(lambda: gru_c(net_c, *ins_c))
+        sel = list(cpu_edges)
+        ref = gru(net[sel], *[x[sel] for x in ins])
+    err = float((out[sel].cpu() - ref).abs().max())
+    check(bool(torch.isfinite(out).all()), "phase 11: ConvGRU not finite")
+    check(err <= CONV_GRU_ATOL, f"phase 11: ConvGRU cuda vs cpu {err} > "
+          f"{CONV_GRU_ATOL}")
+    return dict(edges=E, grid=[h, w], cpu_edges=sel, max_abs_diff=err,
+                atol=CONV_GRU_ATOL, ms=ms)
+
+
+def update_cuda_vs_cpu(dev, slam, window: int = 4) -> dict:
+    """``FactorGraph.update`` (one GRU + DBA update) on a copy of phase
+    3's state, on the card against the CPU: the keyframes, and the edges of
+    the frontend's graph among its newest ``window`` keyframes with their
+    hidden states, targets, weights and ages."""
+    g, v = slam.frontend.graph, slam.video
+    n = v.counter
+    keep = np.nonzero((g.ii >= n - window) & (g.jj >= n - window))[0]
+    check(len(keep) > 0, "phase 11: no edges among the newest keyframes")
+    sel = torch.as_tensor(keep, device=g.target.device)
+    out = []
+    for where in (dev, torch.device("cpu")):
+        cv = Video(v.cfg.replace(buffer=n), where)
+        for name in Video._FIELDS:
+            src = getattr(v, name)
+            if src.shape[0] >= n:
+                getattr(cv, name).copy_(src[:n])
+        cv.counter = n
+        net = slam.net if where == dev else \
+            LGUNet.from_config(v.cfg, device="cpu").eval()
+        if where != dev:
+            net.load_state_dict(slam.net.state_dict())
+        cg = FactorGraph(net, cv, g.cfg, max_factors=g.max_factors)
+        cg.ii, cg.jj, cg.age = g.ii[keep], g.jj[keep], g.age[keep]
+        cg.target, cg.weight = g.target[sel].to(where), \
+            g.weight[sel].to(where)
+        cg.hidden = g.hidden[sel].to(where)
+        t_start = time.perf_counter()
+        cg.update()
+        if where == dev:
+            torch.cuda.synchronize()
+        out.append(dict(poses=cv.poses.cpu(), disps=cv.disps.cpu(),
+                        target=cg.target.cpu(), weight=cg.weight.cpu(),
+                        ms=1e3 * (time.perf_counter() - t_start)))
+    a, b = out
+    errs = dict(
+        target=float((a["target"] - b["target"]).abs().max()),
+        weight=float((a["weight"] - b["weight"]).abs().max()),
+        poses=float((a["poses"] - b["poses"]).abs().max()),
+        disps=float(((a["disps"] - b["disps"]).abs()
+                     / b["disps"].abs().clamp(min=1e-3)).max()))
+    for k, e in errs.items():
+        check(e <= UPDATE_TOL[k], f"phase 11: FactorGraph.update cuda vs "
+              f"cpu {k} differ by {e} > {UPDATE_TOL[k]}")
+    check(bool(torch.isfinite(a["poses"]).all()),
+          "phase 11: FactorGraph.update poses not finite")
+    return dict(keyframes=n, edges=len(keep), max_diff=errs, tol=UPDATE_TOL,
+                ms_cuda=a["ms"], ms_cpu=b["ms"])
+
+
+def image_cases(rng) -> list:
+    """(name, file bytes, reader kwargs, the pixels imread must return):
+    the port's lossless fixtures of the modes its readers took in last."""
+    H, W = 37, 53
+    cases = []
+    for depth in (1, 2, 4, 8):
+        idx = rng.integers(0, 1 << depth, (H, W), np.uint8)
+        pal = rng.integers(0, 256, (1 << depth, 3), np.uint8)
+        trns = rng.integers(0, 256, 1 << depth, np.uint8)
+        for interlace in (False, True):
+            tag = f"{depth}-bit{' Adam7' if interlace else ''}"
+            cases.append((f"PNG palette + tRNS {tag}", encode_png(
+                idx, bit_depth=depth, palette=pal, trns=trns,
+                interlace=interlace), {}, pal[idx]))
+            gray = idx * np.uint8(255 // ((1 << depth) - 1))
+            cases.append((f"PNG gray {tag}", encode_png(
+                idx, bit_depth=depth, interlace=interlace),
+                dict(anydepth=True), gray))
+    for C, dtype in ((3, np.uint8), (4, np.uint16), (1, np.uint16)):
+        top = 256 if dtype == np.uint8 else 65536
+        im = rng.integers(0, top, (H, W, C), dtype)
+        if C == 1:
+            cases.append(("PNG gray 16-bit Adam7", encode_png(
+                im, interlace=True), dict(anydepth=True), im[..., 0]))
+        else:
+            want = im[..., :3] if dtype == np.uint8 else \
+                (im[..., :3] >> 8).astype(np.uint8)
+            cases.append((f"PNG {C}-channel {8 * im.itemsize}-bit Adam7",
+                          encode_png(im, interlace=True), {}, want))
+    for C in (1, 3, 4):
+        im = rng.integers(0, 256, (H, W, C), np.uint8)
+        im = im[..., 0] if C == 1 else im
+        want = im[..., :3] if C > 1 else np.repeat(im[..., None], 3, -1)
+        for top_down in (False, True):
+            cases.append((f"BMP {8 * C}-bit{' top-down' if top_down else ''}",
+                          encode_bmp(im, top_down), {}, want))
+    return cases
+
+
+def truncated_jpeg(rng, H: int = 480, W: int = 640, cut_row: int = 12
+                   ) -> dict:
+    """A baseline 4:2:0 JPEG of the port's encoder with a restart marker
+    after every MCU row, cut after the marker that ends MCU row
+    ``cut_row``: the decode has the full shape, its rows before the cut
+    equal the whole file's decode, and the MCU rows past the next one are
+    uniform gray (their coefficients left at zero, as libjpeg leaves
+    them)."""
+    img = shifted_texture_frames(1, H, W, SEED + 2)
+    img = next(iter(img))[1]
+    data = encode_jpeg(img, 95, "420", restart_interval=W // 16)
+    marks = [i for i in range(len(data) - 1) if data[i] == 0xFF
+             and 0xD0 <= data[i + 1] <= 0xD7]
+    cut = marks[cut_row - 1] + 2
+    whole = decode_jpeg(data)
+    part = decode_jpeg(data[:cut])
+    exact = 16 * cut_row - 1  # h2v2 fancy upsampling reads the next row
+    check(part.shape == whole.shape, f"phase 11: truncated JPEG decodes to "
+          f"{part.shape}, not {whole.shape}")
+    check(np.array_equal(part[:exact], whole[:exact]),
+          "phase 11: truncated JPEG rows before the cut differ")
+    check(bool((part[16 * (cut_row + 2):] == 128).all()),
+          "phase 11: truncated JPEG rows past the cut are not gray")
+    return dict(bytes=len(data), cut_at=cut, rows_equal=exact,
+                gray_from_row=16 * (cut_row + 2))
+
+
+def phase_images(root: Path) -> dict:
+    """The image paths on the card machine's host, which has no OpenCV:
+    each of the port's lossless fixtures (PNG palette with tRNS and gray at
+    1, 2, 4 and 8 bits, plain and Adam7; Adam7 RGB, 16-bit RGBA and 16-bit
+    gray; BMP 8-, 24- and 32-bit, bottom-up and top-down), written to disk,
+    reads back as the pixels it was written from; and a truncated JPEG."""
+    rng = np.random.default_rng(SEED)
+    names = []
+    t_start = time.perf_counter()
+    for name, data, kw, want in image_cases(rng):
+        path = root / "fixture"
+        path.write_bytes(data)
+        got = imread(str(path), **kw)
+        check(got.shape == want.shape and got.dtype == want.dtype and
+              np.array_equal(got, want),
+              f"phase 11: {name} does not read back as written")
+        names.append(name)
+    ms = 1e3 * (time.perf_counter() - t_start)
+    return dict(lossless=names, lossless_ms=ms,
+                truncated_jpeg=truncated_jpeg(rng))
+
+
+def phase_11(dev, group, update: dict) -> dict:
+    """Phase 11 (its FactorGraph.update ran on phase 3's state)."""
+    t_start = time.perf_counter()
+    report = dict(oracle=phase_oracle(dev, group), update=update)
+    report["conv_gru"] = phase_conv_gru(dev)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        report["images"] = phase_images(Path(tmp))
+    report["seconds"] = time.perf_counter() - t_start + update["seconds"]
+    return report
+
+
+def print_phase_11(report: dict, learned_ms: float) -> None:
+    o, c, u = report["oracle"], report["conv_gru"], report["update"]
+    a, b = o["one_process"], o["nccl_world_size_1"]
+    print(f"phase 11: oracle pipeline at {tuple(o['image_size'])}, "
+          f"{o['frames']} frames: ATE {a['ate']:.3g} ({a['ate_over_extent']:.2g}"
+          f" of the extent) over {a['keyframes']} keyframes, "
+          f"{a['ms_per_update_median']:.1f} ms per oracle keyframe update "
+          f"(min {a['ms_per_update_min']:.1f}, max "
+          f"{a['ms_per_update_max']:.1f}; phase 3's learned update "
+          f"{learned_ms:.1f} ms), backend pass {a['backend_ms']:.1f} ms; "
+          f"through Backend(group=) at world size 1 (NCCL): ATE "
+          f"{b['ate']:.3g}, backend pass {b['backend_ms']:.1f} ms; K1 "
+          f"{a['k1_launches'] + b['k1_launches']} and K2 "
+          f"{a['k2_launches'] + b['k2_launches']} launches; ConvGRU E = "
+          f"{c['edges']} cuda vs cpu {c['max_abs_diff']:.2e} "
+          f"({c['ms']:.2f} ms); FactorGraph.update over {u['edges']} edges "
+          f"cuda vs cpu: poses {u['max_diff']['poses']:.2e}, disps "
+          f"{u['max_diff']['disps']:.2e}, targets "
+          f"{u['max_diff']['target']:.2e}; "
+          f"{len(report['images']['lossless'])} lossless fixtures and a "
+          f"truncated JPEG read back; {report['seconds']:.0f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke run needs an NVIDIA GPU")
@@ -2266,6 +2560,9 @@ def main():
     t_helpers = time.perf_counter()
     helpers = frame_graph_helpers(dev, slam)
     helpers["seconds"] = time.perf_counter() - t_helpers
+    t_update = time.perf_counter()
+    update = update_cuda_vs_cpu(dev, slam)
+    update["seconds"] = time.perf_counter() - t_update
     terminate = phase_terminate(slam, frames, kernels)
     del slam, frames
     torch.cuda.empty_cache()
@@ -2284,15 +2581,23 @@ def main():
           f"{fp32['ms_per_keyframe_median']:.1f} ms per keyframe update, "
           f"peak {fp32['peak_memory_gb']:.2f} GB, poses finite")
     torch.cuda.empty_cache()
-    world1 = phase_world_size_1(dev, kernels)
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        recon, export = Path(tmp) / "reconstruction.npz", Path(tmp) / "export"
-        entry_points = phase_entry_points(dev, kernels, recon, export)
+    group = nccl_group_1()
+    try:
+        world1 = phase_world_size_1(dev, kernels, group)
         torch.cuda.empty_cache()
-        gs = phase_gs(dev, recon, export)
-    torch.cuda.empty_cache()
-    jpeg = phase_jpeg(dev, kernels, helpers)
+        with tempfile.TemporaryDirectory() as tmp:
+            recon = Path(tmp) / "reconstruction.npz"
+            export = Path(tmp) / "export"
+            entry_points = phase_entry_points(dev, kernels, recon, export)
+            torch.cuda.empty_cache()
+            gs = phase_gs(dev, recon, export)
+        torch.cuda.empty_cache()
+        jpeg = phase_jpeg(dev, kernels, helpers)
+        torch.cuda.empty_cache()
+        oracle = phase_11(dev, group, update)
+    finally:
+        dist.destroy_process_group()
+    print_phase_11(oracle, report["ms_per_keyframe_median"])
     # launches on the main path: K1 bf16 and K2 over track() +
     # terminate(), phase 8's entry points and phase 10's JPEG runs, K2
     # also over phase 7's sharded backend pass, K1 fp32 operands over
@@ -2316,6 +2621,7 @@ def main():
     print(json.dumps({"entry_points": entry_points}))
     print(json.dumps({"gs": gs}))
     print(json.dumps({"jpeg": jpeg}))
+    print(json.dumps({"oracle": oracle}))
     print(json.dumps({"seconds": seconds}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": list(kernels.values())}))

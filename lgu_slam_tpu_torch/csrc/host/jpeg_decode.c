@@ -5,18 +5,31 @@
  * orientation tag of the first APP1 segment.
  *
  * The output is what cv2.imread returns, which decodes with libjpeg-turbo's
- * defaults: the integer ISLOW inverse DCT (jidctint.c), fancy upsampling
- * (jdsample.c: a triangle filter for h2v1, h1v2 and h2v2 with the edge
- * rules there, replication otherwise) and the fixed-point YCbCr -> RGB
- * tables of jdcolor.c.  The arithmetic below follows those files step for
- * step, so the samples are the same bit for bit.
+ * defaults: the integer ISLOW inverse DCT (jidctint.c, as its x86 SIMD
+ * code computes it), fancy upsampling (jdsample.c: a triangle filter for
+ * h2v1, h1v2 and h2v2 with the edge rules there, replication otherwise),
+ * the fixed-point YCbCr -> RGB tables of jdcolor.c, or with a gray output
+ * its JCS_GRAYSCALE conversion (cv2.IMREAD_ANYDEPTH), and block smoothing
+ * of a progressive file's incomplete coefficients (jdcoefct.c).  The
+ * arithmetic below follows those files step for step, so the samples are
+ * the same bit for bit.
+ *
+ * Damaged data is read as cv2.imread reads a file (libjpeg-turbo 3.1 with
+ * its stdio source): past the end of the data the source supplies "FF D9"
+ * (a fake EOI) again and again (jdatasrc.c); the entropy decoder pads a
+ * segment cut short by a marker with zero bits and leaves the MCUs after
+ * that one at zero coefficients (jdhuff.c insufficient_data), reads a bad
+ * Huffman code as 17 bits of symbol 0, skips bytes before a marker
+ * (jdmarker.c next_marker) and resynchronises out-of-order restart markers
+ * as jpeg_resync_to_restart does.  A sequential file whose first scan holds
+ * every component is output from that scan alone, as libjpeg's single-pass
+ * decoder does, whatever follows it.  Where libjpeg stops with an error
+ * (OpenCV then returns None) the decoder returns JPEG_CORRUPT.
  *
  * Arithmetic coding, lossless and hierarchical files, other sample
- * precisions than 8 bits, 2 or 4 components (CMYK / YCCK), fractional
- * sampling ratios and progressive files that leave coefficients incomplete
- * (libjpeg's block smoothing would then estimate them) return
- * JPEG_UNSUPPORTED.  A truncated or corrupt stream returns JPEG_CORRUPT
- * where libjpeg would only warn and go on: every read is bounds-checked.
+ * precisions than 8 bits, 2 or 4 components (CMYK / YCCK) and fractional
+ * sampling ratios return JPEG_UNSUPPORTED.  Every read of the data is
+ * bounds-checked.
  *
  * Built by the host C compiler at first use and called through ctypes
  * (lgu_slam_tpu_torch/data/image_io.py).
@@ -42,8 +55,9 @@ static const uint8_t NATURAL[64 + 16] = {
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
     63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
-/* Annex K.3 tables, which libjpeg-turbo uses where a scan names a table
- * that no DHT defined (Motion-JPEG frames carry none) */
+/* Annex K.3 tables, which libjpeg-turbo's sequential decoder uses where a
+ * scan names a table that no DHT defined (Motion-JPEG frames carry none);
+ * its progressive decoder fails there */
 static const uint8_t STD_DC_BITS[2][16] = {
     {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0},
     {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0}};
@@ -88,7 +102,7 @@ typedef struct {
     int32_t valoff[17];  /* value index of a code: valoff[len] + code */
     uint16_t fast[1 << FAST_BITS]; /* (len << 8) | value; 0: longer code */
     uint8_t vals[256];
-    int nvals, defined;
+    int nvals, defined, bad; /* bad: fails the scan that uses it */
 } huff_t;
 
 typedef struct {
@@ -100,16 +114,22 @@ typedef struct {
     uint16_t q[64]; /* quantisation table, latched at the first scan */
     int latched;
     int coef_bits[64]; /* progressive: Al of the last scan, -1 before */
+    int prev_bits[64]; /* coef_bits before the component's last scan */
+    int latch[10], prev_latch[10]; /* the two at the output (smoothing) */
     int dc_pred;
 } comp_t;
 
 typedef struct {
     const uint8_t *d;
-    size_t n, pos;
+    size_t n, pos; /* pos may pass n: see byte_at */
     /* entropy-coded data: acc holds nbits bits, MSB first; the last fake of
-     * them are zeros supplied past a marker or the end of the data */
+     * them are zeros supplied past a marker.  unread_marker: the marker the
+     * entropy decoder stopped at, not yet read by the marker reader;
+     * insufficient: the segment's data ran out (libjpeg's
+     * insufficient_data), so its remaining MCUs are left as they are */
     uint64_t acc;
-    int nbits, fake, at_marker;
+    int nbits, fake, unread_marker, insufficient;
+    uint8_t *segbuf; /* a scan header that runs past the end of the data */
     uint16_t qt[4][64];
     int qt_def[4];
     huff_t hdc[4], hac[4];
@@ -118,11 +138,16 @@ typedef struct {
     int hmax, vmax, mcux, mcuy;
     comp_t comp[4];
     int jfif, adobe, adobe_transform;
+    int rgb; /* no colour conversion: decided at the first scan */
+    int scans;
     int orientation, app1_seen, sos_seen;
     int eobrun;
+    int last_good; /* libjpeg's last_good_iMCU_row */
+    int smooth;    /* block smoothing at the output (smoothing_ok) */
     uint8_t *planes[4], *full[4];
     int *sum;        /* h2v2 column sums */
     int want_h, want_w; /* the output buffer's size */
+    int gray_out;       /* one output channel: libjpeg's JCS_GRAYSCALE */
     jmp_buf jb;
     char *err;
     int errlen;
@@ -152,43 +177,69 @@ static void *alloc(dec_t *s, size_t bytes)
 
 /* -- marker segments ----------------------------------------------------- */
 
-static int next_byte(dec_t *s)
+/* byte i of the input as libjpeg's stdio source delivers it: the data,
+ * then FF D9 (a fake EOI) without end */
+static inline int byte_at(const dec_t *s, size_t i)
 {
-    if (s->pos >= s->n)
-        fail(s, JPEG_CORRUPT, "the data ends before the EOI marker "
-             "(truncated at byte %zu)", s->n);
-    return s->d[s->pos++];
+    return i < s->n ? s->d[i] : ((i - s->n) & 1 ? 0xD9 : 0xFF);
 }
 
+static inline int next_byte(dec_t *s)
+{
+    return byte_at(s, s->pos++);
+}
+
+/* jdmarker.c next_marker: skip bytes up to an FF, FF fill bytes and
+ * stuffed zeros (libjpeg warns of the bytes it skips) */
+static int scan_marker(dec_t *s)
+{
+    for (;;) {
+        int c = next_byte(s);
+        while (c != 0xFF)
+            c = next_byte(s);
+        do
+            c = next_byte(s);
+        while (c == 0xFF);
+        if (c != 0)
+            return c;
+    }
+}
+
+/* the next marker: the one the entropy decoder stopped at, else the next
+ * one in the data */
 static int next_marker(dec_t *s)
 {
-    int c = next_byte(s);
-    if (c != 0xFF)
-        fail(s, JPEG_CORRUPT, "byte %zu: 0x%02x where a marker should start",
-             s->pos - 1, c);
-    do
-        c = next_byte(s);
-    while (c == 0xFF); /* fill bytes */
-    if (c == 0)
-        fail(s, JPEG_CORRUPT, "byte %zu: a stuffed zero outside entropy-coded "
-             "data", s->pos - 1);
-    return c;
+    int m = s->unread_marker;
+    s->unread_marker = 0;
+    return m ? m : scan_marker(s);
 }
 
-/* the payload of a marker segment: its length field counts itself */
-static const uint8_t *segment(dec_t *s, size_t *len)
+/* the payload of a marker segment: its length field counts itself.  Past
+ * the end of the data it holds the fake EOI markers, as libjpeg reads
+ * them. */
+static const uint8_t *segment(dec_t *s, int marker, size_t *len)
 {
     int hi = next_byte(s), lo = next_byte(s);
     size_t L = ((size_t)hi << 8) | (size_t)lo;
     if (L < 2)
         fail(s, JPEG_CORRUPT, "byte %zu: segment length %zu", s->pos - 2, L);
-    if (L - 2 > s->n - s->pos)
+    *len = L - 2;
+    if (s->pos <= s->n && L - 2 <= s->n - s->pos) {
+        const uint8_t *p = s->d + s->pos;
+        s->pos += L - 2;
+        return p;
+    }
+    /* before the first scan, libjpeg fails on every such segment: only
+     * the fake EOI markers follow it, and an EOI before a scan is an
+     * error */
+    if (marker != 0xDA && s->scans == 0)
         fail(s, JPEG_CORRUPT, "a marker segment of %zu bytes runs past the "
              "end of the data (truncated)", L);
-    const uint8_t *p = s->d + s->pos;
-    s->pos += L - 2;
-    *len = L - 2;
-    return p;
+    free(s->segbuf);
+    s->segbuf = alloc(s, L - 2);
+    for (size_t i = 0; i < L - 2; i++)
+        s->segbuf[i] = (uint8_t)next_byte(s);
+    return s->segbuf;
 }
 
 static void read_dqt(dec_t *s, const uint8_t *p, size_t L)
@@ -210,13 +261,20 @@ static void read_dqt(dec_t *s, const uint8_t *p, size_t L)
     }
 }
 
-static void build_huff(dec_t *s, huff_t *h, const uint8_t *bits,
-                       const uint8_t *vals)
+static void build_huff(huff_t *h, const uint8_t *bits, const uint8_t *vals)
 {
     int code = 0, k = 0;
     memset(h->fast, 0, sizeof h->fast);
+    h->bad = 0;
     for (int len = 1; len <= 16; len++) {
         int cnt = bits[len - 1];
+        /* libjpeg: no code may be all ones; it checks a table where a scan
+         * uses it (jpeg_make_d_derived_tbl), so a bad one is kept, unbuilt,
+         * to fail that scan */
+        if (code + cnt >= (1 << len)) {
+            h->bad = 1;
+            break;
+        }
         h->valoff[len] = k - code;
         h->maxcode[len] = cnt ? code + cnt - 1 : -1;
         for (int i = 0; i < cnt; i++, code++, k++) {
@@ -228,9 +286,6 @@ static void build_huff(dec_t *s, huff_t *h, const uint8_t *bits,
                     h->fast[j] = (uint16_t)(len << 8 | vals[k]);
             }
         }
-        /* libjpeg: no code may be all ones */
-        if (code >= (1 << len))
-            fail(s, JPEG_CORRUPT, "bad Huffman table");
         code <<= 1;
     }
     h->nvals = k;
@@ -250,7 +305,7 @@ static void read_dht(dec_t *s, const uint8_t *p, size_t L)
             total += p[1 + i];
         if (total > 256 || L < 17 + total)
             fail(s, JPEG_CORRUPT, "DHT: bad table size");
-        build_huff(s, tc ? &s->hac[th] : &s->hdc[th], p + 1, p + 17);
+        build_huff(tc ? &s->hac[th] : &s->hdc[th], p + 1, p + 17);
         p += 17 + total;
         L -= 17 + total;
     }
@@ -323,13 +378,13 @@ static void read_sof(dec_t *s, int marker, const uint8_t *p, size_t L)
         fail(s, JPEG_CORRUPT, "image height 0 (a DNL-defined height)");
     if (s->width == 0)
         fail(s, JPEG_CORRUPT, "image width 0");
+    if (L != 6 + 3 * (size_t)s->ncomp) /* checked first, as libjpeg does */
+        fail(s, JPEG_CORRUPT, "SOF: bad segment length");
     if (s->ncomp == 4)
         fail(s, JPEG_UNSUPPORTED, "4 components (CMYK or YCCK)");
     if (s->ncomp != 1 && s->ncomp != 3)
         fail(s, JPEG_UNSUPPORTED, "%d components (gray and 3-component "
              "files are decoded)", s->ncomp);
-    if (L != 6 + 3 * (size_t)s->ncomp)
-        fail(s, JPEG_CORRUPT, "SOF: bad segment length");
     s->progressive = marker == 0xC2;
     s->hmax = s->vmax = 1;
     for (int i = 0; i < s->ncomp; i++) {
@@ -369,36 +424,46 @@ static void read_sof(dec_t *s, int marker, const uint8_t *p, size_t L)
 
 /* -- entropy-coded data -------------------------------------------------- */
 
+/* jdhuff.c jpeg_fill_bit_buffer: FF 00 (after any FF fill bytes) is a
+ * data byte FF; any other FF xx is a marker, which ends the data: zero
+ * bits follow it */
 static void fill(dec_t *s)
 {
     while (s->nbits <= 56) {
-        uint64_t b = 0;
-        if (!s->at_marker) {
-            if (s->pos >= s->n) {
-                s->at_marker = 1;
-            } else if (s->d[s->pos] != 0xFF) {
-                b = s->d[s->pos++];
-            } else if (s->pos + 1 < s->n && s->d[s->pos + 1] == 0) {
-                b = 0xFF;
-                s->pos += 2;
-            } else {
-                s->at_marker = 1; /* a marker: stop before its 0xFF */
+        int c = -1;
+        if (!s->unread_marker) {
+            c = next_byte(s);
+            if (c == 0xFF) {
+                do
+                    c = next_byte(s);
+                while (c == 0xFF);
+                if (c == 0) {
+                    c = 0xFF;
+                } else {
+                    s->unread_marker = c;
+                    c = -1;
+                }
             }
         }
-        if (s->at_marker)
+        if (c < 0) {
             s->fake += 8;
-        s->acc |= b << (56 - s->nbits);
+            c = 0;
+        }
+        s->acc |= (uint64_t)c << (56 - s->nbits);
         s->nbits += 8;
     }
 }
 
+/* drop n bits; reading into the zero bits after a marker marks the
+ * segment's data as insufficient (the rest of this MCU reads zeros) */
 static inline void consume(dec_t *s, int n)
 {
     s->acc <<= n;
     s->nbits -= n;
-    if (s->nbits < s->fake)
-        fail(s, JPEG_CORRUPT, "entropy-coded data ends early (truncated or "
-             "corrupt)");
+    if (s->nbits < s->fake) {
+        s->insufficient = 1;
+        s->fake = s->nbits;
+    }
 }
 
 static inline int get_bits(dec_t *s, int n)
@@ -419,7 +484,7 @@ static inline int extend(int v, int n)
 
 static inline int decode_huff(dec_t *s, const huff_t *h)
 {
-    if (s->nbits < 16)
+    if (s->nbits < 17)
         fill(s);
     uint32_t peek = (uint32_t)(s->acc >> 48);
     uint16_t f = h->fast[peek >> (16 - FAST_BITS)];
@@ -434,40 +499,62 @@ static inline int decode_huff(dec_t *s, const huff_t *h)
             return h->vals[h->valoff[len] + code];
         }
     }
-    fail(s, JPEG_CORRUPT, "bad Huffman code");
+    /* jpeg_huff_decode: a code past 16 bits is read as 17 bits of
+     * symbol 0 (JWRN_HUFF_BAD_CODE) */
+    consume(s, 17);
+    return 0;
 }
 
+/* drop the bits left in the buffer; an unread marker stays unread */
 static void reset_bits(dec_t *s)
 {
     s->acc = 0;
-    s->nbits = s->fake = s->at_marker = 0;
+    s->nbits = s->fake = 0;
 }
 
-/* the end of an entropy-coded segment: only the padding bits of the last
- * byte may be left, and a marker must follow */
-static void end_segment(dec_t *s)
+/* jdmarker.c jpeg_resync_to_restart: the marker found where RST<desired>
+ * should be is either discarded (decoding goes on), or left unread (the
+ * segment decodes as empty), or skipped for the next marker */
+static void resync(dec_t *s, int desired)
 {
-    if (s->nbits - s->fake >= 8)
-        fail(s, JPEG_CORRUPT, "extraneous bytes in entropy-coded data");
-    if (s->pos >= s->n)
-        fail(s, JPEG_CORRUPT, "the data ends in entropy-coded data "
-             "(truncated)");
-    if (s->d[s->pos] != 0xFF)
-        fail(s, JPEG_CORRUPT, "extraneous bytes in entropy-coded data");
-    reset_bits(s);
+    for (;;) {
+        int m = s->unread_marker, action;
+        if (m < 0xC0)
+            action = 2;
+        else if (m < 0xD0 || m > 0xD7)
+            action = 3;
+        else if (m == 0xD0 + ((desired + 1) & 7) ||
+                 m == 0xD0 + ((desired + 2) & 7))
+            action = 3;
+        else if (m == 0xD0 + ((desired - 1) & 7) ||
+                 m == 0xD0 + ((desired - 2) & 7))
+            action = 2;
+        else
+            action = 1;
+        if (action == 1)
+            s->unread_marker = 0;
+        if (action != 2)
+            return;
+        s->unread_marker = scan_marker(s);
+    }
 }
 
+/* jdhuff.c process_restart */
 static void restart(dec_t *s, int *next_rst)
 {
-    end_segment(s);
-    int m = next_marker(s);
-    if (m != 0xD0 + *next_rst)
-        fail(s, JPEG_CORRUPT, "marker 0x%02x where RST%d should be", m,
-             *next_rst);
+    reset_bits(s);
+    if (!s->unread_marker)
+        s->unread_marker = scan_marker(s);
+    if (s->unread_marker == 0xD0 + *next_rst)
+        s->unread_marker = 0;
+    else
+        resync(s, *next_rst);
     *next_rst = (*next_rst + 1) & 7;
     for (int i = 0; i < s->ncomp; i++)
         s->comp[i].dc_pred = 0;
     s->eobrun = 0;
+    if (!s->unread_marker)
+        s->insufficient = 0;
 }
 
 static void block_sequential(dec_t *s, comp_t *c, int16_t *blk,
@@ -481,9 +568,7 @@ static void block_sequential(dec_t *s, comp_t *c, int16_t *blk,
         int rs = decode_huff(s, ac);
         int r = rs >> 4, sz = rs & 15;
         if (sz) {
-            k += r;
-            if (k > 63)
-                fail(s, JPEG_CORRUPT, "AC run past coefficient 63");
+            k += r; /* past 63 on corrupt data: NATURAL's extra entries */
             blk[NATURAL[k]] = (int16_t)extend(get_bits(s, sz), sz);
         } else {
             if (r != 15)
@@ -519,9 +604,7 @@ static void block_ac_first(dec_t *s, int16_t *blk, const huff_t *ac, int ss,
         int rs = decode_huff(s, ac);
         int r = rs >> 4, sz = rs & 15;
         if (sz) {
-            k += r;
-            if (k > se)
-                fail(s, JPEG_CORRUPT, "AC run past the end of the band");
+            k += r; /* past se on corrupt data, as libjpeg writes it */
             int v = extend(get_bits(s, sz), sz);
             blk[NATURAL[k]] = (int16_t)(uint16_t)((unsigned)v << al);
         } else if (r == 15) {
@@ -549,10 +632,7 @@ static void block_ac_refine(dec_t *s, int16_t *blk, const huff_t *ac, int ss,
         for (; k <= se; k++) {
             int rs = decode_huff(s, ac);
             int r = rs >> 4, sz = rs & 15, v = 0;
-            if (sz) {
-                if (sz != 1)
-                    fail(s, JPEG_CORRUPT, "refinement coefficient of size "
-                         "%d", sz);
+            if (sz) { /* of size 1; libjpeg warns of any other */
                 v = get_bits(s, 1) ? p1 : -p1;
             } else if (r != 15) {
                 s->eobrun = (1 << r) + get_bits(s, r);
@@ -567,11 +647,8 @@ static void block_ac_refine(dec_t *s, int16_t *blk, const huff_t *ac, int ss,
                     break;
                 k++;
             } while (k <= se);
-            if (v) {
-                if (k > se)
-                    fail(s, JPEG_CORRUPT, "AC run past the end of the band");
+            if (v)
                 blk[NATURAL[k]] = (int16_t)v;
-            }
         }
     }
     if (s->eobrun > 0) {
@@ -613,8 +690,6 @@ static void read_sos(dec_t *s, const uint8_t *p, size_t L)
         cs[i] = &s->comp[ci];
         td[i] = p[2 + 2 * i] >> 4;
         ta[i] = p[2 + 2 * i] & 15;
-        if (td[i] > 3 || ta[i] > 3)
-            fail(s, JPEG_CORRUPT, "SOS: Huffman table id above 3");
     }
     int ss = p[1 + 2 * ns], se = p[2 + 2 * ns];
     int ah = p[3 + 2 * ns] >> 4, al = p[3 + 2 * ns] & 15;
@@ -625,22 +700,18 @@ static void read_sos(dec_t *s, const uint8_t *p, size_t L)
         if ((ah != 0 && al != ah - 1) || al > 13 || bad)
             fail(s, JPEG_CORRUPT, "bad progression parameters Ss=%d Se=%d "
                  "Ah=%d Al=%d", ss, se, ah, al);
+        /* scans out of order only draw a warning (JWRN_BOGUS_PROGRESSION);
+         * the bits before the scan are kept for block smoothing (jdphuff.c
+         * start_pass_phuff_decoder), 0 at the first scan */
         for (int i = 0; i < ns; i++) {
-            if (!dc_band && cs[i]->coef_bits[0] < 0)
-                fail(s, JPEG_CORRUPT, "an AC scan before the DC scan");
-            for (int k = ss; k <= se; k++) {
-                int expected = cs[i]->coef_bits[k] < 0 ? 0 :
-                               cs[i]->coef_bits[k];
-                if (ah != expected)
-                    fail(s, JPEG_CORRUPT, "scans out of order (coefficient "
-                         "%d)", k);
+            for (int k = ss < 1 ? ss : 1; k <= (se > 9 ? se : 9); k++)
+                cs[i]->prev_bits[k] = s->scans > 0 ? cs[i]->coef_bits[k] : 0;
+            for (int k = ss; k <= se; k++)
                 cs[i]->coef_bits[k] = al;
-            }
         }
-    } else if (ss != 0 || se != 63 || ah != 0 || al != 0) {
-        fail(s, JPEG_CORRUPT, "a sequential scan with Ss=%d Se=%d Ah=%d "
-             "Al=%d", ss, se, ah, al);
     }
+    /* a sequential scan's Ss, Se, Ah and Al are not used: libjpeg warns
+     * where they differ from 0, 63, 0, 0 (JWRN_NOT_SEQUENTIAL) */
 
     if (ns > 1) {
         int blocks = 0;
@@ -661,22 +732,31 @@ static void read_sos(dec_t *s, const uint8_t *p, size_t L)
         }
         int uses_dc = s->progressive ? dc_band && ah == 0 : 1;
         int uses_ac = s->progressive ? !dc_band : 1;
+        /* only the tables the scan uses are checked, as libjpeg does */
         if (uses_dc) {
+            if (td[i] > 3)
+                fail(s, JPEG_CORRUPT, "SOS: Huffman table id above 3");
             huff_t *h = &s->hdc[td[i]];
-            if (!h->defined && td[i] < 2)
-                build_huff(s, h, STD_DC_BITS[td[i]], STD_DC_VALS);
+            if (!h->defined && td[i] < 2 && !s->progressive)
+                build_huff(h, STD_DC_BITS[td[i]], STD_DC_VALS);
             if (!h->defined)
                 fail(s, JPEG_CORRUPT, "DC Huffman table %d is not defined",
                      td[i]);
+            if (h->bad)
+                fail(s, JPEG_CORRUPT, "bad Huffman table");
             dct[i] = h;
         }
         if (uses_ac) {
+            if (ta[i] > 3)
+                fail(s, JPEG_CORRUPT, "SOS: Huffman table id above 3");
             huff_t *h = &s->hac[ta[i]];
-            if (!h->defined && ta[i] < 2)
-                build_huff(s, h, STD_AC_BITS[ta[i]], STD_AC_VALS[ta[i]]);
+            if (!h->defined && ta[i] < 2 && !s->progressive)
+                build_huff(h, STD_AC_BITS[ta[i]], STD_AC_VALS[ta[i]]);
             if (!h->defined)
                 fail(s, JPEG_CORRUPT, "AC Huffman table %d is not defined",
                      ta[i]);
+            if (h->bad)
+                fail(s, JPEG_CORRUPT, "bad Huffman table");
             act[i] = h;
         }
         c->dc_pred = 0;
@@ -700,11 +780,17 @@ static void decode_scan(dec_t *s, int ns, comp_t *const *cs,
     int dc_band = ss == 0;
     reset_bits(s);
     s->eobrun = 0;
+    s->insufficient = 0;
     int mx_n = ns > 1 ? s->mcux : cs[0]->wib;
     int my_n = ns > 1 ? s->mcuy : cs[0]->hib;
     long long total = (long long)mx_n * my_n;
     int left = s->restart, next_rst = 0;
     for (long long m = 0; m < total; m++) {
+        int my = (int)(m / mx_n), mx = (int)(m % mx_n);
+        /* jdcoefct.c consume_data: the iMCU row of the last MCU started
+         * with data, checked before the MCU's restart marker is read */
+        if (!s->insufficient)
+            s->last_good = ns > 1 ? my : my / cs[0]->v;
         if (s->restart) {
             if (left == 0) {
                 restart(s, &next_rst);
@@ -712,7 +798,9 @@ static void decode_scan(dec_t *s, int ns, comp_t *const *cs,
             }
             left--;
         }
-        int my = (int)(m / mx_n), mx = (int)(m % mx_n);
+        if (s->insufficient)
+            continue; /* the MCU keeps its coefficients (zero, or those of
+                         earlier scans): uniform gray where nothing came */
         for (int i = 0; i < ns; i++) {
             comp_t *c = cs[i];
             int nv = ns > 1 ? c->v : 1, nh = ns > 1 ? c->h : 1;
@@ -733,157 +821,99 @@ static void decode_scan(dec_t *s, int ns, comp_t *const *cs,
                 }
         }
     }
-    end_segment(s);
+    reset_bits(s); /* the next marker: unread_marker, else the data's */
 }
 
 /* -- samples ------------------------------------------------------------- */
 
-#define CONST_BITS 13
-#define PASS1_BITS 2
-#define FIX_0_298631336 ((int64_t)2446)
-#define FIX_0_390180644 ((int64_t)3196)
-#define FIX_0_541196100 ((int64_t)4433)
-#define FIX_0_765366865 ((int64_t)6270)
-#define FIX_0_899976223 ((int64_t)7373)
-#define FIX_1_175875602 ((int64_t)9633)
-#define FIX_1_501321110 ((int64_t)12299)
-#define FIX_1_847759065 ((int64_t)15137)
-#define FIX_1_961570560 ((int64_t)16069)
-#define FIX_2_053119869 ((int64_t)16819)
-#define FIX_2_562915447 ((int64_t)20995)
-#define FIX_3_072711026 ((int64_t)25172)
-#define DESCALE(x, n) (((x) + ((int64_t)1 << ((n) - 1))) >> (n))
+/* jpeg_idct_islow as libjpeg-turbo runs it on x86-64, in SIMD
+ * (simd/x86_64/jidctint-sse2.asm and -avx2.asm, which compute alike):
+ * jidctint.c's arithmetic, regrouped into pairs of 16-bit products
+ * (pmaddwd), on 16-bit lanes.  On coefficients a valid file holds this is
+ * jidctint.c's result; on those of damaged data it is what cv2.imread
+ * returns, which differs from the C code's: the dequantised coefficient
+ * keeps its low 16 bits (pmullw), in0 + in4 and the odd part's z3 and z4
+ * are 16-bit sums, each pass saturates its outputs to 16 bits (packssdw),
+ * and the samples saturate to -128..127 before the +128 level shift
+ * (packsswb, paddb) where jidctint.c masks them into a range table.  The
+ * first pass takes libjpeg-turbo's shortcut when rows 1-7 of the block are
+ * zero: the dequantised DC shifted left by 2 in 16 bits. */
+#define DESCALE_P1 11 /* CONST_BITS - PASS1_BITS */
+#define DESCALE_P2 18 /* CONST_BITS + PASS1_BITS + 3 */
 
-/* libjpeg's post-IDCT range limit: the value, masked to 10 bits, indexes a
- * table that clamps -384..383 to 0..255 around the +128 level shift */
-static uint8_t RANGE[1024];
-
-static void init_range(void)
+static inline int16_t wrap16(uint32_t v)
 {
-    for (int i = 0; i < 1024; i++) {
-        int v = i < 512 ? i : i - 1024; /* the signed value of the index */
-        v += 128;
-        RANGE[i] = (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v);
-    }
+    return (int16_t)(uint16_t)v;
 }
 
-/* jpeg_idct_islow (jidctint.c): coefficients times the quantisation table,
- * columns then rows, into 8 x 8 samples at out (row stride `stride`) */
+static inline int16_t sat16(int32_t v)
+{
+    return (int16_t)(v < -32768 ? -32768 : v > 32767 ? 32767 : v);
+}
+
+/* one 8-point pass over x[0], x[st], ..., x[7 st]: 16-bit outputs,
+ * descaled by d bits with rounding, saturated (32-bit sums wrap as paddd
+ * wraps) */
+static void idct_pass(const int16_t *x, int st, int16_t *out, int d)
+{
+    const int32_t in0 = x[0], in1 = x[st], in2 = x[2 * st], in3 = x[3 * st];
+    const int32_t in4 = x[4 * st], in5 = x[5 * st], in6 = x[6 * st],
+                  in7 = x[7 * st];
+    /* even part */
+    uint32_t t3 = (uint32_t)(in2 * 10703 + in6 * 4433);
+    uint32_t t2 = (uint32_t)(in2 * 4433 + in6 * -10704);
+    uint32_t t0 = (uint32_t)(int32_t)wrap16((uint32_t)(in0 + in4)) << 13;
+    uint32_t t1 = (uint32_t)(int32_t)wrap16((uint32_t)(in0 - in4)) << 13;
+    uint32_t t10 = t0 + t3, t13 = t0 - t3, t11 = t1 + t2, t12 = t1 - t2;
+    /* odd part */
+    const int32_t z3 = wrap16((uint32_t)(in7 + in3));
+    const int32_t z4 = wrap16((uint32_t)(in5 + in1));
+    uint32_t zz3 = (uint32_t)(z3 * -6436) + (uint32_t)(z4 * 9633);
+    uint32_t zz4 = (uint32_t)(z3 * 9633) + (uint32_t)(z4 * 6437);
+    uint32_t o0 = (uint32_t)(in7 * -4927 + in1 * -7373) + zz3;
+    uint32_t o3 = (uint32_t)(in7 * -7373 + in1 * 4926) + zz4;
+    uint32_t o1 = (uint32_t)(in5 * -4176 + in3 * -20995) + zz4;
+    uint32_t o2 = (uint32_t)(in5 * -20995 + in3 * 4177) + zz3;
+    const uint32_t r = 1u << (d - 1);
+    const uint32_t v[8] = {t10 + o3, t11 + o2, t12 + o1, t13 + o0,
+                           t13 - o0, t12 - o1, t11 - o2, t10 - o3};
+    for (int i = 0; i < 8; i++)
+        out[i] = sat16((int32_t)(v[i] + r) >> d);
+}
+
+/* coefficients times the quantisation table (both 16-bit, as libjpeg's
+ * ISLOW_MULT_TYPE), columns then rows, into 8 x 8 samples at out (row
+ * stride `stride`) */
 static void idct_islow(const int16_t *in, const uint16_t *q, uint8_t *out,
                        size_t stride)
 {
-    int ws[64];
-    for (int c = 0; c < 8; c++) {
-        const int16_t *x = in + c;
-        const uint16_t *qc = q + c;
-        int *w = ws + c;
-        if (x[8] == 0 && x[16] == 0 && x[24] == 0 && x[32] == 0 &&
-            x[40] == 0 && x[48] == 0 && x[56] == 0) {
-            int dc = (int)((unsigned)(x[0] * qc[0]) << PASS1_BITS);
+    int16_t deq[64], ws[64], col[8], row[8];
+    int ac = 0;
+    for (int k = 0; k < 64; k++) {
+        deq[k] = wrap16((uint32_t)((int32_t)in[k] * (int16_t)q[k]));
+        if (k >= 8)
+            ac |= in[k];
+    }
+    if (!ac) {
+        for (int c = 0; c < 8; c++) {
+            int16_t dc = wrap16((uint32_t)(int32_t)deq[c] << 2);
             for (int r = 0; r < 8; r++)
-                w[8 * r] = dc;
-            continue;
+                ws[8 * r + c] = dc;
         }
-        int64_t z1, z2, z3, z4, z5, t0, t1, t2, t3, t10, t11, t12, t13;
-        z2 = x[16] * qc[16];
-        z3 = x[48] * qc[48];
-        z1 = (z2 + z3) * FIX_0_541196100;
-        t2 = z1 + z3 * -FIX_1_847759065;
-        t3 = z1 + z2 * FIX_0_765366865;
-        z2 = x[0] * qc[0];
-        z3 = x[32] * qc[32];
-        t0 = (z2 + z3) * ((int64_t)1 << CONST_BITS);
-        t1 = (z2 - z3) * ((int64_t)1 << CONST_BITS);
-        t10 = t0 + t3;
-        t13 = t0 - t3;
-        t11 = t1 + t2;
-        t12 = t1 - t2;
-        t0 = x[56] * qc[56];
-        t1 = x[40] * qc[40];
-        t2 = x[24] * qc[24];
-        t3 = x[8] * qc[8];
-        z1 = t0 + t3;
-        z2 = t1 + t2;
-        z3 = t0 + t2;
-        z4 = t1 + t3;
-        z5 = (z3 + z4) * FIX_1_175875602;
-        t0 *= FIX_0_298631336;
-        t1 *= FIX_2_053119869;
-        t2 *= FIX_3_072711026;
-        t3 *= FIX_1_501321110;
-        z1 *= -FIX_0_899976223;
-        z2 *= -FIX_2_562915447;
-        z3 *= -FIX_1_961570560;
-        z4 *= -FIX_0_390180644;
-        z3 += z5;
-        z4 += z5;
-        t0 += z1 + z3;
-        t1 += z2 + z4;
-        t2 += z2 + z3;
-        t3 += z1 + z4;
-        w[0] = (int)DESCALE(t10 + t3, CONST_BITS - PASS1_BITS);
-        w[56] = (int)DESCALE(t10 - t3, CONST_BITS - PASS1_BITS);
-        w[8] = (int)DESCALE(t11 + t2, CONST_BITS - PASS1_BITS);
-        w[48] = (int)DESCALE(t11 - t2, CONST_BITS - PASS1_BITS);
-        w[16] = (int)DESCALE(t12 + t1, CONST_BITS - PASS1_BITS);
-        w[40] = (int)DESCALE(t12 - t1, CONST_BITS - PASS1_BITS);
-        w[24] = (int)DESCALE(t13 + t0, CONST_BITS - PASS1_BITS);
-        w[32] = (int)DESCALE(t13 - t0, CONST_BITS - PASS1_BITS);
+    } else {
+        for (int c = 0; c < 8; c++) {
+            idct_pass(deq + c, 8, col, DESCALE_P1);
+            for (int r = 0; r < 8; r++)
+                ws[8 * r + c] = col[r];
+        }
     }
     for (int r = 0; r < 8; r++) {
-        const int *w = ws + 8 * r;
         uint8_t *o = out + r * stride;
-        if (w[1] == 0 && w[2] == 0 && w[3] == 0 && w[4] == 0 && w[5] == 0 &&
-            w[6] == 0 && w[7] == 0) {
-            uint8_t dc = RANGE[(int)DESCALE((int64_t)w[0], PASS1_BITS + 3) &
-                               1023];
-            memset(o, dc, 8);
-            continue;
-        }
-        int64_t z1, z2, z3, z4, z5, t0, t1, t2, t3, t10, t11, t12, t13;
-        z2 = w[2];
-        z3 = w[6];
-        z1 = (z2 + z3) * FIX_0_541196100;
-        t2 = z1 + z3 * -FIX_1_847759065;
-        t3 = z1 + z2 * FIX_0_765366865;
-        t0 = ((int64_t)w[0] + w[4]) * ((int64_t)1 << CONST_BITS);
-        t1 = ((int64_t)w[0] - w[4]) * ((int64_t)1 << CONST_BITS);
-        t10 = t0 + t3;
-        t13 = t0 - t3;
-        t11 = t1 + t2;
-        t12 = t1 - t2;
-        t0 = w[7];
-        t1 = w[5];
-        t2 = w[3];
-        t3 = w[1];
-        z1 = t0 + t3;
-        z2 = t1 + t2;
-        z3 = t0 + t2;
-        z4 = t1 + t3;
-        z5 = (z3 + z4) * FIX_1_175875602;
-        t0 *= FIX_0_298631336;
-        t1 *= FIX_2_053119869;
-        t2 *= FIX_3_072711026;
-        t3 *= FIX_1_501321110;
-        z1 *= -FIX_0_899976223;
-        z2 *= -FIX_2_562915447;
-        z3 *= -FIX_1_961570560;
-        z4 *= -FIX_0_390180644;
-        z3 += z5;
-        z4 += z5;
-        t0 += z1 + z3;
-        t1 += z2 + z4;
-        t2 += z2 + z3;
-        t3 += z1 + z4;
-        const int sh = CONST_BITS + PASS1_BITS + 3;
-        o[0] = RANGE[(int)DESCALE(t10 + t3, sh) & 1023];
-        o[7] = RANGE[(int)DESCALE(t10 - t3, sh) & 1023];
-        o[1] = RANGE[(int)DESCALE(t11 + t2, sh) & 1023];
-        o[6] = RANGE[(int)DESCALE(t11 - t2, sh) & 1023];
-        o[2] = RANGE[(int)DESCALE(t12 + t1, sh) & 1023];
-        o[5] = RANGE[(int)DESCALE(t12 - t1, sh) & 1023];
-        o[3] = RANGE[(int)DESCALE(t13 + t0, sh) & 1023];
-        o[4] = RANGE[(int)DESCALE(t13 - t0, sh) & 1023];
+        idct_pass(ws + 8 * r, 1, row, DESCALE_P2);
+        for (int i = 0; i < 8; i++)
+            o[i] = (uint8_t)((row[i] < -128 ? -128 : row[i] > 127 ? 127
+                                                                  : row[i]) +
+                             128);
     }
 }
 
@@ -951,41 +981,169 @@ static void upsample(const comp_t *c, const uint8_t *in, size_t stride,
     }
 }
 
-/* progressive files whose coefficients are not all complete would go
- * through libjpeg's block smoothing (jdcoefct.c smoothing_ok) */
-static void check_smoothing(dec_t *s)
+/* -- block smoothing (jdcoefct.c, libjpeg-turbo 3.1) ----------------------- */
+
+/* natural positions of the first 10 zigzag coefficients */
+static const int SMOOTH_POS[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+
+/* smoothing_ok: a progressive file whose every component has data (its DC
+ * at least partly known, its quantisation table latched, the 10 first
+ * quantisers nonzero) and some of whose first 9 AC coefficients are not
+ * exact.  Latches the coefficient bits now and before each component's
+ * last scan (-1, unknown, after one scan). */
+static int smoothing_ok(dec_t *s)
 {
-    static const int Q[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
     int useful = 0;
     for (int i = 0; i < s->ncomp; i++) {
-        const comp_t *c = &s->comp[i];
-        if (c->coef_bits[0] < 0 || !c->latched)
-            return;
+        comp_t *c = &s->comp[i];
+        if (!c->latched)
+            return 0;
         for (int k = 0; k < 10; k++)
-            if (c->q[Q[k]] == 0)
-                return;
-        for (int k = 1; k < 10; k++)
+            if (c->q[SMOOTH_POS[k]] == 0)
+                return 0;
+        if (c->coef_bits[0] < 0)
+            return 0;
+        for (int k = 1; k < 10; k++) {
+            c->prev_latch[k] = s->scans > 1 ? c->prev_bits[k] : -1;
+            c->latch[k] = c->coef_bits[k];
             if (c->coef_bits[k] != 0)
                 useful = 1;
+        }
     }
-    if (useful)
-        fail(s, JPEG_UNSUPPORTED, "a progressive file that leaves "
-             "coefficients incomplete (libjpeg's block smoothing)");
+    return useful;
+}
+
+/* an estimate of a coefficient from num = Q00 * (a sum of DC values),
+ * rounded, for a quantiser q and, where al > 0, below 2^al */
+static int16_t predict(int64_t num, int64_t q, int al)
+{
+    int64_t pred = ((q << 7) + (num >= 0 ? num : -num)) / (q << 8);
+    if (al > 0 && pred >= (1 << al))
+        pred = (1 << al) - 1;
+    return (int16_t)(num >= 0 ? pred : -pred);
+}
+
+/* decompress_smooth_data on block (by, bx) of component c: a copy of its
+ * coefficients in ws, the first 9 AC estimated where still zero and not
+ * exact from the DC values of its 5 x 5 neighbourhood (with change_dc, as
+ * nothing of the 9 came yet, the DC too).  Neighbour rows as libjpeg-turbo
+ * picks them: it counts a block row's place in the image by the block rows
+ * of the block's own iMCU row, and replaces rows past the image's by the
+ * nearer ones; columns past the edges repeat the edge column. */
+static void smooth_block(const dec_t *s, const comp_t *c, int by, int bx,
+                         int16_t *ws)
+{
+    const int last = s->mcuy - 1, imcu = by / c->v;
+    const int *cb = imcu > s->last_good ? c->prev_latch : c->latch;
+    int change_dc = 1;
+    for (int k = 1; k < 10; k++)
+        if (cb[k] != -1)
+            change_dc = 0;
+    int rows_here = imcu < last ? c->v : (c->hib % c->v ? c->hib % c->v
+                                                         : c->v);
+    int ibr = imcu * rows_here + by % c->v, ibrs = rows_here * s->mcuy;
+    int row[5];
+    row[2] = by;
+    row[1] = ibr > 0 ? by - 1 : by;
+    row[0] = ibr > 1 ? by - 2 : row[1];
+    row[3] = ibr < ibrs - 1 ? by + 1 : by;
+    row[4] = ibr < ibrs - 2 ? by + 2 : row[3];
+    int64_t D[26]; /* D[1..25]: DC01..DC25, row by row */
+    for (int r = 0; r < 5; r++)
+        for (int k = 0; k < 5; k++) {
+            int x = bx + k - 2;
+            x = x < 0 ? 0 : x > c->wib - 1 ? c->wib - 1 : x;
+            D[1 + 5 * r + k] = c->coef[((size_t)row[r] * c->bw + x) * 64];
+        }
+    const int64_t Q00 = c->q[0];
+    int64_t num;
+    if (cb[1] != 0 && ws[1] == 0) { /* AC01 */
+        num = change_dc ? -D[1] - D[2] + D[4] + D[5] - 3 * D[6] +
+                              13 * D[7] - 13 * D[9] + 3 * D[10] - 3 * D[11] +
+                              38 * D[12] - 38 * D[14] + 3 * D[15] -
+                              3 * D[16] + 13 * D[17] - 13 * D[19] +
+                              3 * D[20] - D[21] - D[22] + D[24] + D[25]
+                        : -7 * D[11] + 50 * D[12] - 50 * D[14] + 7 * D[15];
+        ws[1] = predict(Q00 * num, c->q[1], cb[1]);
+    }
+    if (cb[2] != 0 && ws[8] == 0) { /* AC10 */
+        num = change_dc ? -D[1] - 3 * D[2] - 3 * D[3] - 3 * D[4] - D[5] -
+                              D[6] + 13 * D[7] + 38 * D[8] + 13 * D[9] -
+                              D[10] + D[16] - 13 * D[17] - 38 * D[18] -
+                              13 * D[19] + D[20] + D[21] + 3 * D[22] +
+                              3 * D[23] + 3 * D[24] + D[25]
+                        : -7 * D[3] + 50 * D[8] - 50 * D[18] + 7 * D[23];
+        ws[8] = predict(Q00 * num, c->q[8], cb[2]);
+    }
+    if (cb[3] != 0 && ws[16] == 0) { /* AC20 */
+        num = change_dc ? D[3] + 2 * D[7] + 7 * D[8] + 2 * D[9] - 5 * D[12] -
+                              14 * D[13] - 5 * D[14] + 2 * D[17] +
+                              7 * D[18] + 2 * D[19] + D[23]
+                        : -D[3] + 13 * D[8] - 24 * D[13] + 13 * D[18] -
+                              D[23];
+        ws[16] = predict(Q00 * num, c->q[16], cb[3]);
+    }
+    if (cb[4] != 0 && ws[9] == 0) { /* AC11 */
+        num = change_dc ? -D[1] + D[5] + 9 * D[7] - 9 * D[9] - 9 * D[17] +
+                              9 * D[19] + D[21] - D[25]
+                        : D[10] + D[16] - 10 * D[17] + 10 * D[19] - D[2] -
+                              D[20] + D[22] - D[24] + D[4] - D[6] +
+                              10 * D[7] - 10 * D[9];
+        ws[9] = predict(Q00 * num, c->q[9], cb[4]);
+    }
+    if (cb[5] != 0 && ws[2] == 0) { /* AC02 */
+        num = change_dc ? 2 * D[7] - 5 * D[8] + 2 * D[9] + D[11] +
+                              7 * D[12] - 14 * D[13] + 7 * D[14] + D[15] +
+                              2 * D[17] - 5 * D[18] + 2 * D[19]
+                        : -D[11] + 13 * D[12] - 24 * D[13] + 13 * D[14] -
+                              D[15];
+        ws[2] = predict(Q00 * num, c->q[2], cb[5]);
+    }
+    if (!change_dc)
+        return;
+    if (cb[6] != 0 && ws[3] == 0) /* AC03 */
+        ws[3] = predict(Q00 * (D[7] - D[9] + 2 * D[12] - 2 * D[14] + D[17] -
+                               D[19]), c->q[3], cb[6]);
+    if (cb[7] != 0 && ws[10] == 0) /* AC12 */
+        ws[10] = predict(Q00 * (D[7] - 3 * D[8] + D[9] - D[17] + 3 * D[18] -
+                                D[19]), c->q[10], cb[7]);
+    if (cb[8] != 0 && ws[17] == 0) /* AC21 */
+        ws[17] = predict(Q00 * (D[7] - D[9] - 3 * D[12] + 3 * D[14] + D[17] -
+                                D[19]), c->q[17], cb[8]);
+    if (cb[9] != 0 && ws[24] == 0) /* AC30 */
+        ws[24] = predict(Q00 * (D[7] + 2 * D[8] + D[9] - D[17] - 2 * D[18] -
+                                D[19]), c->q[24], cb[9]);
+    num = -2 * D[1] - 6 * D[2] - 8 * D[3] - 6 * D[4] - 2 * D[5] - 6 * D[6] +
+          6 * D[7] + 42 * D[8] + 6 * D[9] - 6 * D[10] - 8 * D[11] +
+          42 * D[12] + 152 * D[13] + 42 * D[14] - 8 * D[15] - 6 * D[16] +
+          6 * D[17] + 42 * D[18] + 6 * D[19] - 6 * D[20] - 2 * D[21] -
+          6 * D[22] - 8 * D[23] - 6 * D[24] - 2 * D[25];
+    ws[0] = predict(Q00 * num, Q00, 0);
 }
 
 static void output(dec_t *s, uint8_t *out)
 {
     const int W = s->width, H = s->height;
     const uint8_t *ch[3];
-    for (int i = 0; i < s->ncomp; i++) {
+    /* a gray output of a gray or YCbCr file needs only component 0 */
+    const int needed = s->gray_out && !s->rgb ? 1 : s->ncomp;
+    for (int i = 0; i < needed; i++) {
         comp_t *c = &s->comp[i];
         size_t stride = (size_t)c->wib * 8;
         uint8_t *pl = s->planes[i] = alloc(s, stride * (size_t)c->hib * 8);
+        int16_t ws[64];
         for (int by = 0; by < c->hib; by++)
-            for (int bx = 0; bx < c->wib; bx++)
-                idct_islow(c->coef + ((size_t)by * c->bw + bx) * 64, c->q,
+            for (int bx = 0; bx < c->wib; bx++) {
+                const int16_t *blk = c->coef + ((size_t)by * c->bw + bx) * 64;
+                if (s->smooth) {
+                    memcpy(ws, blk, sizeof ws);
+                    smooth_block(s, c, by, bx, ws);
+                    blk = ws;
+                }
+                idct_islow(blk, c->q,
                            pl + (size_t)by * 8 * stride + (size_t)bx * 8,
                            stride);
+            }
         int hexp = s->hmax / c->h, vexp = s->vmax / c->v;
         if (hexp == 1 && vexp == 1) {
             uint8_t *full = s->full[i] = alloc(s, (size_t)W * H);
@@ -1001,20 +1159,22 @@ static void output(dec_t *s, uint8_t *out)
         ch[i] = s->full[i];
     }
     size_t npx = (size_t)W * H;
+    if (s->gray_out && needed == 1) { /* jdcolor.c grayscale_convert */
+        memcpy(out, ch[0], npx);
+        return;
+    }
+    if (s->gray_out) { /* jdcolor.c rgb_gray_convert: FIX(0.299) etc. */
+        for (size_t k = 0; k < npx; k++)
+            out[k] = (uint8_t)((19595 * ch[0][k] + 38470 * ch[1][k] +
+                                7471 * ch[2][k] + 32768) >> 16);
+        return;
+    }
     if (s->ncomp == 1) {
         for (size_t k = 0; k < npx; k++)
             out[3 * k] = out[3 * k + 1] = out[3 * k + 2] = ch[0][k];
         return;
     }
-    int rgb;
-    if (s->jfif)
-        rgb = 0;
-    else if (s->adobe)
-        rgb = s->adobe_transform == 0;
-    else
-        rgb = s->comp[0].id == 'R' && s->comp[1].id == 'G' &&
-              s->comp[2].id == 'B';
-    if (rgb) {
+    if (s->rgb) {
         for (size_t k = 0; k < npx; k++) {
             out[3 * k] = ch[2][k];
             out[3 * k + 1] = ch[1][k];
@@ -1051,13 +1211,12 @@ static void run(dec_t *s, int header_only, uint8_t *out)
     if (s->n < 2 || s->d[0] != 0xFF || s->d[1] != 0xD8)
         fail(s, JPEG_CORRUPT, "not a JPEG file (no SOI marker)");
     s->pos = 2;
-    int scans = 0;
     for (;;) {
         int m = next_marker(s);
         size_t L;
         const uint8_t *p;
         if (m == 0xD9) { /* EOI */
-            if (!scans)
+            if (!s->scans)
                 fail(s, JPEG_CORRUPT, "EOI before any scan");
             break;
         }
@@ -1065,7 +1224,7 @@ static void run(dec_t *s, int header_only, uint8_t *out)
             continue; /* stray RSTn / TEM: libjpeg skips them */
         if (m == 0xD8)
             fail(s, JPEG_CORRUPT, "a second SOI marker");
-        p = segment(s, &L);
+        p = segment(s, m, &L);
         switch (m) {
         case 0xC0:
         case 0xC1:
@@ -1104,18 +1263,33 @@ static void run(dec_t *s, int header_only, uint8_t *out)
                          "header (SOF)");
                 return;
             }
-            if (scans == 0 && (s->height != s->want_h ||
-                               s->width != s->want_w))
+            if (s->scans == 0 && (s->height != s->want_h ||
+                                  s->width != s->want_w))
                 fail(s, JPEG_CORRUPT, "the output is %dx%d, the image %dx%d",
                      s->want_h, s->want_w, s->height, s->width);
-            if (scans == 0)
+            if (s->scans == 0) {
                 for (int i = 0; i < s->ncomp; i++) {
                     comp_t *c = &s->comp[i];
                     c->coef = alloc(s, (size_t)c->bw * c->bh * 64 *
                                            sizeof(int16_t));
                 }
+                /* jdapimin.c default_decompress_parms: markers after the
+                 * header do not change the colour space */
+                if (s->ncomp == 3 && s->jfif)
+                    s->rgb = 0;
+                else if (s->ncomp == 3 && s->adobe)
+                    s->rgb = s->adobe_transform == 0;
+                else if (s->ncomp == 3)
+                    s->rgb = s->comp[0].id == 'R' && s->comp[1].id == 'G' &&
+                             s->comp[2].id == 'B';
+            }
             read_sos(s, p, L);
-            scans++;
+            s->scans++;
+            /* libjpeg's single-pass decoder: the image is this scan's,
+             * and what follows it cannot change or fail it */
+            if (s->scans == 1 && !s->progressive &&
+                L == 4 + 2 * (size_t)s->ncomp)
+                goto done;
             break;
         case 0xDC: /* DNL: skipped, as libjpeg does */
         case 0xFE: /* COM */
@@ -1128,8 +1302,8 @@ static void run(dec_t *s, int header_only, uint8_t *out)
             fail(s, JPEG_CORRUPT, "unknown marker 0x%02x", m);
         }
     }
-    if (s->progressive)
-        check_smoothing(s);
+done:
+    s->smooth = s->progressive && smoothing_ok(s);
     output(s, out);
 }
 
@@ -1141,6 +1315,7 @@ static void release(dec_t *s)
         free(s->full[i]);
     }
     free(s->sum);
+    free(s->segbuf);
 }
 
 static void start(dec_t *s, const uint8_t *data, int64_t len, char *err,
@@ -1153,8 +1328,6 @@ static void start(dec_t *s, const uint8_t *data, int64_t len, char *err,
     s->errlen = errlen;
     if (err != NULL && errlen > 0)
         err[0] = 0;
-    if (RANGE[1023] == 0) /* index -1 -> 127: the table is built */
-        init_range();
 }
 
 /* Parse the markers up to the first scan.  info: height, width, EXIF
@@ -1176,15 +1349,18 @@ int jpeg_info(const uint8_t *data, int64_t len, int32_t *info, char *err,
     return status;
 }
 
-/* Decode into out, height x width x 3 bytes in BGR order (jpeg_info's
+/* Decode into out, height x width x 3 bytes in BGR order, or with gray
+ * height x width bytes of libjpeg's JCS_GRAYSCALE output (jpeg_info's
  * height and width; the orientation is not applied here). */
-int jpeg_decode(const uint8_t *data, int64_t len, uint8_t *out,
-                int64_t height, int64_t width, char *err, int errlen)
+int jpeg_decode_as(const uint8_t *data, int64_t len, uint8_t *out,
+                   int64_t height, int64_t width, int gray, char *err,
+                   int errlen)
 {
     dec_t s;
     start(&s, data, len, err, errlen);
     s.want_h = (int)height;
     s.want_w = (int)width;
+    s.gray_out = gray != 0;
     int status = setjmp(s.jb);
     if (status == 0)
         run(&s, 0, out);

@@ -1,33 +1,43 @@
-"""Image files for the port's data layer: PNG and JPEG decoders and
+"""Image files for the port's data layer: PNG, JPEG and BMP decoders and
 encoders of its own, in place of the ``cv2.imread`` / ``cv2.imwrite`` calls
 of the JAX package's data layer (the port runs where OpenCV is not
 installed).
 
-:func:`imread` returns what ``cv2.imread`` returns for the PNGs and JPEGs
-the data layer reads:
+:func:`imread` returns what ``cv2.imread`` returns for these files:
 
-- ``imread(path)``: ``uint8 [H, W, 3]`` in BGR order; a gray PNG comes back
-  as three equal channels, alpha is dropped, and 16-bit samples keep their
-  high byte (libpng's ``png_set_strip_16``, which OpenCV's decoder calls);
-- ``imread(path, anydepth=True)`` (``cv2.IMREAD_ANYDEPTH``): a gray PNG as
-  one channel, ``uint16`` for 16-bit files, ``uint8`` for 8-bit ones.
+- ``imread(path)``: ``uint8 [H, W, 3]`` in BGR order; a gray image comes
+  back as three equal channels, alpha is dropped, and 16-bit samples keep
+  their high byte (libpng's ``png_set_strip_16``, which OpenCV's decoder
+  calls);
+- ``imread(path, anydepth=True)`` (``cv2.IMREAD_ANYDEPTH``): one channel,
+  ``uint16`` for 16-bit PNGs, ``uint8`` otherwise; colour files convert to
+  gray as OpenCV's readers convert them (libpng's ``rgb_to_gray`` for PNG,
+  libjpeg's ``JCS_GRAYSCALE`` output for JPEG, OpenCV's own for BMP).
 
-PNG decoding covers bit depth 8 and 16 of gray, gray + alpha, RGB and RGBA
-with all five row filters.  Interlaced, palette and sub-byte images raise
-``ValueError``.  The row unfilter, sequential along a row for the Average
-and Paeth filters, runs in C (``csrc/host/png_unfilter.c``, built by the
-host compiler at first use); :func:`unfilter_plain` is its numpy version,
-for the tests.
+PNG decoding (:func:`decode_png`) covers every colour type and bit depth
+of the standard (gray at 1, 2, 4, 8 and 16 bits, palette with ``PLTE`` and
+``tRNS``, gray + alpha, RGB, RGBA), all five row filters and Adam7
+interlacing.  The row unfilter, sequential along a row for the Average and
+Paeth filters, runs in C (``csrc/host/png_unfilter.c``, built by the host
+compiler at first use); :func:`unfilter_plain` is its numpy version, for
+the tests.  :func:`encode_png` writes fixtures of every mode it reads.
 
 JPEG decoding (:func:`decode_jpeg`) runs in C (``csrc/host/jpeg_decode.c``,
 built the same way): baseline and progressive Huffman JPEG of 8-bit gray or
 3-component files, every sampling factor OpenCV writes, restart intervals
-and the EXIF orientation, bit for bit as ``cv2.imread`` (libjpeg-turbo)
-decodes them.  Arithmetic coding, 12-bit, lossless, CMYK and progressive
-files that leave coefficients incomplete raise ``NotImplementedError``; a
-truncated or corrupt stream raises ``ValueError``.  :func:`encode_jpeg` is
-a baseline encoder in numpy for writing fixtures.  Every other format
-raises ``NotImplementedError``.
+and the EXIF orientation, bit for bit as ``cv2.imread`` (libjpeg-turbo 3.1)
+decodes them, truncated and damaged streams included (libjpeg's warnings:
+the data's end padded, bad codes read as zero, block smoothing of
+incomplete progressive coefficients); a stream for which OpenCV returns
+None raises ``ValueError``.  Arithmetic coding, 12-bit, lossless,
+hierarchical and CMYK / YCCK files raise ``NotImplementedError``.
+:func:`encode_jpeg` is a baseline encoder in numpy for writing fixtures.
+
+BMP decoding (:func:`decode_bmp`) covers uncompressed 8-bit palette, 24-
+and 32-bit files with the 40-byte header or its extensions, bottom-up and
+top-down; RLE compression, other depths and OS/2 headers raise
+``NotImplementedError``, as every other format (TIFF, WebP) does.
+:func:`encode_bmp` writes fixtures.
 """
 
 from __future__ import annotations
@@ -42,8 +52,9 @@ import numpy as np
 from lgu_slam_tpu_torch.ops import _build
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# PNG colour type -> samples per pixel (palette, type 3, is not read)
-CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+# PNG colour type -> samples per pixel (a palette index is one)
+CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+BMP_MAGIC = b"BM"
 JPEG_SOI = b"\xff\xd8\xff"
 
 
@@ -63,55 +74,131 @@ def _chunks(data: bytes, path):
     raise ValueError(f"{path}: PNG ends before its IEND chunk")
 
 
+def _unpack(rows: np.ndarray, width: int, depth: int,
+            channels: int) -> np.ndarray:
+    """Unfiltered rows [h, rowbytes] -> samples [h, width, channels]
+    (``uint8`` for bit depths 1-8, MSB-first within a byte; ``uint16`` at
+    16)."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16).reshape(h, width, channels)
+    if depth == 8:
+        return rows.reshape(h, width, channels)
+    per = 8 // depth  # samples per byte (one channel below 8 bits)
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    samples = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return samples.reshape(h, -1)[:, :width, None].astype(np.uint8)
+
+
+# Adam7 passes: (x0, y0, dx, dy)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+# the bit depths PNG allows per colour type
+DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+          6: (8, 16)}
+
+
 def decode_png(data: bytes, path="<bytes>") -> np.ndarray:
-    """PNG bytes -> ``[H, W, C]`` samples as stored (RGB(A) or gray(+alpha)
-    order; ``uint8``, or ``uint16`` at bit depth 16)."""
+    """PNG bytes -> ``[H, W, C]`` samples as libpng hands them to OpenCV
+    (RGB(A) or gray(+alpha) order; ``uint8``, or ``uint16`` at bit depth
+    16): gray at bit depths 1, 2 and 4 expanded to 8 bits
+    (``png_set_expand_gray_1_2_4_to_8``: x 255, 85, 17), a palette image
+    expanded through ``PLTE`` to RGB, or RGBA where ``tRNS`` gives its
+    entries alpha (``png_set_palette_to_rgb``; an index past the palette
+    reads black, as libpng's zeroed 256-entry palette gives it), Adam7
+    passes put back in place."""
     if not data.startswith(SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
-    header, idat = None, []
+    header, idat, plte, trns = None, [], None, None
     for kind, body in _chunks(data, path):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"IDAT":
             idat.append(body)
+        elif kind == b"PLTE":
+            plte = np.frombuffer(body[:len(body) // 3 * 3],
+                                 np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = np.frombuffer(body, np.uint8)
     if header is None:
         raise ValueError(f"{path}: PNG without an IHDR chunk")
     width, height, depth, ctype, _, method, interlace = header
-    if ctype not in CHANNELS:
-        raise ValueError(f"{path}: PNG colour type {ctype} (palette) is not "
-                         "read")
-    if depth not in (8, 16):
-        raise ValueError(f"{path}: PNG bit depth {depth} is not read")
-    if interlace != 0 or method != 0:
-        raise ValueError(f"{path}: interlaced PNG is not read")
-    bpp = CHANNELS[ctype] * depth // 8
+    if ctype not in DEPTHS:
+        raise ValueError(f"{path}: PNG colour type {ctype}")
+    if depth not in DEPTHS[ctype]:
+        raise ValueError(f"{path}: PNG bit depth {depth} of colour type "
+                         f"{ctype}")
+    if method != 0 or interlace not in (0, 1):
+        raise ValueError(f"{path}: PNG filter method {method}, interlace "
+                         f"method {interlace}")
+    if ctype == 3 and plte is None:
+        raise ValueError(f"{path}: a palette PNG without a PLTE chunk")
+    channels = CHANNELS[ctype]
+    bits = channels * depth
     raw = zlib.decompress(b"".join(idat))
-    pixels = unfilter(raw, height, width * bpp, bpp)
-    if depth == 16:
-        pixels = pixels.view(">u2").astype(np.uint16)
-    return pixels.reshape(height, width, CHANNELS[ctype])
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    sizes = [((width - x0 + dx - 1) // dx, (height - y0 + dy - 1) // dy)
+             for x0, y0, dx, dy in passes]
+    need = sum(h * ((w * bits + 7) // 8 + 1) for w, h in sizes if w and h)
+    if len(raw) != need:
+        raise ValueError(f"PNG image data holds {len(raw)} bytes, not "
+                         f"{need}")
+    px = np.zeros((height, width, channels),
+                  np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for (x0, y0, dx, dy), (w, h) in zip(passes, sizes):
+        if w == 0 or h == 0:
+            continue
+        rowbytes = (w * bits + 7) // 8
+        n = h * (rowbytes + 1)
+        rows = unfilter(raw[pos:pos + n], h, rowbytes, max(1, bits // 8))
+        pos += n
+        px[y0::dy, x0::dx] = _unpack(rows.reshape(h, rowbytes), w, depth,
+                                     channels)
+    if ctype == 3:
+        table = np.zeros((256, 4), np.uint8)  # libpng's zeroed palette
+        table[:len(plte), :3] = plte[:256]
+        table[:, 3] = 255
+        if trns is not None:
+            table[:min(len(trns), 256), 3] = trns[:256]
+        return table[px[..., 0], :4 if trns is not None else 3]
+    if depth < 8:
+        return px * np.uint8(255 // ((1 << depth) - 1))
+    return px
+
+
+def png_gray(px: np.ndarray) -> np.ndarray:
+    """libpng's ``png_set_rgb_to_gray(png, 1, 0.299, 0.587)``, which
+    OpenCV's PNG reader asks for a gray read of a colour file: coefficients
+    9797 / 19234 / 3737 over 2^15; 8-bit samples truncate, 16-bit ones
+    round; a pixel with R = G = B keeps its value."""
+    r, g, b = (px[..., c].astype(np.int64) for c in range(3))
+    acc = 9797 * r + 19234 * g + 3737 * b
+    if px.dtype == np.uint16:
+        acc += 16384
+    return np.where((r == g) & (r == b), r, acc >> 15).astype(px.dtype)
 
 
 def imread(path, anydepth: bool = False) -> np.ndarray:
     """``cv2.imread(path)``, or with ``anydepth`` ``cv2.imread(path,
-    cv2.IMREAD_ANYDEPTH)``, for PNG and JPEG files (module docstring).  A
-    missing file raises ``FileNotFoundError`` (OpenCV returns None)."""
+    cv2.IMREAD_ANYDEPTH)``, for PNG, JPEG and BMP files (module
+    docstring).  A missing file raises ``FileNotFoundError``, and a file
+    of another format ``NotImplementedError`` (OpenCV returns None for
+    both where it cannot read them)."""
     with open(path, "rb") as fh:
         data = fh.read()
     if data.startswith(JPEG_SOI):
-        if anydepth:
-            raise ValueError(f"{path}: anydepth reads gray PNGs only")
-        return decode_jpeg(data, path)
+        return decode_jpeg(data, path, gray=anydepth)
+    if data.startswith(BMP_MAGIC):
+        return decode_bmp(data, path, gray=anydepth)
     if not data.startswith(SIGNATURE):
-        raise NotImplementedError(f"{path}: only PNG and JPEG files are "
-                                  "read")
+        raise NotImplementedError(f"{path}: only PNG, JPEG and BMP files "
+                                  "are read")
     px = decode_png(data, path)
-    if px.shape[-1] in (2, 4):  # alpha is dropped
+    if px.shape[-1] in (2, 4):  # alpha is dropped (png_set_strip_alpha)
         px = px[..., :-1]
     if anydepth:
-        if px.shape[-1] != 1:
-            raise ValueError(f"{path}: anydepth reads gray PNGs only")
-        return px[..., 0]
+        return px[..., 0] if px.shape[-1] == 1 else png_gray(px)
     if px.dtype == np.uint16:
         px = (px >> 8).astype(np.uint8)
     if px.shape[-1] == 1:
@@ -185,27 +272,11 @@ def _paeth(a, b, c):
     return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
 
 
-def encode_png(img: np.ndarray, filter_type: int = 4) -> bytes:
-    """``[H, W]`` or ``[H, W, C]`` (C = 1 gray, 3 BGR, 4 BGRA) ``uint8`` or
-    ``uint16`` -> PNG bytes, every row filtered with ``filter_type``
-    (0-4)."""
-    img = np.asarray(img)
-    if img.dtype not in (np.uint8, np.uint16):
-        raise TypeError(f"PNG samples are uint8 or uint16, not {img.dtype}")
-    if img.ndim == 2:
-        img = img[..., None]
-    if img.ndim != 3 or img.shape[-1] not in (1, 3, 4):
-        raise ValueError(f"PNG images are [H, W, 1|3|4], not {img.shape}")
-    if filter_type not in range(5):
-        raise ValueError(f"PNG filter type {filter_type} is not 0-4")
-    H, W, C = img.shape
-    if C in (3, 4):  # BGR(A) -> RGB(A)
-        img = img[..., [2, 1, 0, 3][:C]]
-    depth = 8 * img.dtype.itemsize
-    bpp = C * img.dtype.itemsize
-    rows = np.ascontiguousarray(img.astype(f">u{img.dtype.itemsize}")) \
-        .view(np.uint8).reshape(H, W * bpp)
-    raw = np.empty((H, W * bpp + 1), np.uint8)
+def _filtered(rows: np.ndarray, bpp: int, filter_type: int) -> np.ndarray:
+    """Rows of bytes [h, rowbytes] -> [h, 1 + rowbytes], each row
+    filtered with ``filter_type`` (0-4) over pixels of ``bpp`` bytes."""
+    h, n = rows.shape
+    raw = np.empty((h, n + 1), np.uint8)
     raw[:, 0] = filter_type
     # the predictor from the unfiltered left / up / up-left bytes (int16)
     if filter_type == 0:
@@ -229,16 +300,78 @@ def encode_png(img: np.ndarray, filter_type: int = 4) -> bytes:
     # uint8 arithmetic wraps modulo 256, as the filters are defined
     np.subtract(rows, np.asarray(pred).astype(np.uint8), out=raw[:, 1:],
                 casting="unsafe")
-    ctype = {1: 0, 3: 2, 4: 6}[C]
+    return raw
+
+
+def _packed(px: np.ndarray, depth: int) -> np.ndarray:
+    """Samples [h, w, c] -> rows of bytes [h, rowbytes] at ``depth`` bits
+    (MSB first below 8 bits, big-endian at 16)."""
+    h, w, c = px.shape
+    if depth >= 8:
+        return np.ascontiguousarray(px.astype(f">u{depth // 8}")).view(
+            np.uint8).reshape(h, w * c * depth // 8)
+    per = 8 // depth
+    x = np.zeros((h, -(-w // per) * per), np.uint8)
+    x[:, :w] = px[..., 0]
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    return np.bitwise_or.reduce(x.reshape(h, -1, per) << shifts, axis=2)
+
+
+def encode_png(img: np.ndarray, filter_type: int = 4, bit_depth=None,
+               palette=None, trns=None, interlace: bool = False) -> bytes:
+    """``[H, W]`` or ``[H, W, C]`` (C = 1 gray, 3 BGR, 4 BGRA) ``uint8`` or
+    ``uint16`` -> PNG bytes, every row filtered with ``filter_type``
+    (0-4).  For fixtures of the modes :func:`decode_png` reads:
+    ``palette`` ([N, 3] BGR colours) writes a palette image whose ``img``
+    holds [H, W] indices, with ``trns`` (alpha per entry) as its tRNS
+    chunk; ``bit_depth`` 1, 2 or 4 packs gray samples or palette indices,
+    which must fit; ``interlace`` writes the Adam7 passes."""
+    img = np.asarray(img)
+    if img.dtype not in (np.uint8, np.uint16):
+        raise TypeError(f"PNG samples are uint8 or uint16, not {img.dtype}")
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.ndim != 3 or img.shape[-1] not in (1, 3, 4):
+        raise ValueError(f"PNG images are [H, W, 1|3|4], not {img.shape}")
+    if filter_type not in range(5):
+        raise ValueError(f"PNG filter type {filter_type} is not 0-4")
+    H, W, C = img.shape
+    if C in (3, 4):  # BGR(A) -> RGB(A)
+        img = img[..., [2, 1, 0, 3][:C]]
+    depth = bit_depth or 8 * img.dtype.itemsize
+    if palette is not None:
+        if C != 1 or img.dtype != np.uint8 or depth > 8:
+            raise ValueError("a palette image holds [H, W] uint8 indices")
+        ctype = 3
+    else:
+        ctype = {1: 0, 3: 2, 4: 6}[C]
+    if depth not in DEPTHS[ctype] or (depth < 8 and img.dtype != np.uint8):
+        raise ValueError(f"bit depth {depth} of colour type {ctype}")
+    if depth < 8 and int(img.max(initial=0)) >> depth:
+        raise ValueError(f"samples above {depth} bits")
+    bits = C * depth
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    raw = b"".join(
+        _filtered(_packed(img[y0::dy, x0::dx], depth), max(1, bits // 8),
+                  filter_type).tobytes()
+        for x0, y0, dx, dy in passes
+        if x0 < W and y0 < H)
 
     def chunk(kind: bytes, body: bytes) -> bytes:
         return (struct.pack(">I", len(body)) + kind + body
                 + struct.pack(">I", zlib.crc32(kind + body)))
 
+    extra = b""
+    if palette is not None:
+        rgb = np.asarray(palette, np.uint8).reshape(-1, 3)[:, ::-1]
+        extra = chunk(b"PLTE", rgb.tobytes())
+        if trns is not None:
+            extra += chunk(b"tRNS", np.asarray(trns, np.uint8).tobytes())
     return (SIGNATURE
             + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, depth, ctype, 0,
-                                         0, 0))
-            + chunk(b"IDAT", zlib.compress(raw.tobytes()))
+                                         0, int(interlace)))
+            + extra
+            + chunk(b"IDAT", zlib.compress(raw))
             + chunk(b"IEND", b""))
 
 
@@ -259,9 +392,124 @@ def imwrite(path, img: np.ndarray, filter_type: int = 4) -> None:
         fh.write(data)
 
 
+# -- BMP ---------------------------------------------------------------------
+
+BMP_RLE = {1: "RLE8", 2: "RLE4"}
+
+
+def bgr_gray(bgr: np.ndarray) -> np.ndarray:
+    """OpenCV's gray of ``uint8`` BGR samples (``icvCvt_BGR2Gray_8u``):
+    coefficients 1868 / 9617 / 4899 over 2^14, rounded."""
+    b, g, r = (bgr[..., c].astype(np.int64) for c in range(3))
+    return ((1868 * b + 9617 * g + 4899 * r + 8192) >> 14).astype(np.uint8)
+
+
+def bgra_bitfields_gray(bgr: np.ndarray) -> np.ndarray:
+    """OpenCV's gray of a 32-bit BMP with bit masks (BI_BITFIELDS):
+    coefficients 7471 / 38470 / 19595 over 2^16, truncated."""
+    b, g, r = (bgr[..., c].astype(np.int64) for c in range(3))
+    return ((7471 * b + 38470 * g + 19595 * r) >> 16).astype(np.uint8)
+
+
+# the masks of BGRA bytes (red, green, blue), the only ones read
+BMP_MASKS = (0xFF0000, 0xFF00, 0xFF)
+
+
+def decode_bmp(data: bytes, path="<bytes>", gray: bool = False
+               ) -> np.ndarray:
+    """Uncompressed BMP bytes (8-bit palette, 24- and 32-bit, the latter
+    also with the BGRA bit masks that ``cv2.imwrite`` writes; bottom-up or
+    top-down; rows padded to 4 bytes) -> ``uint8 [H, W, 3]`` BGR as
+    ``cv2.imread`` returns them (a 32-bit file's fourth byte dropped), or
+    with ``gray`` ``[H, W]`` as ``cv2.imread(path, cv2.IMREAD_ANYDEPTH)``
+    (:func:`bgr_gray` of the colours; :func:`bgra_bitfields_gray` for bit
+    masks).  RLE compression, other depths and other masks raise
+    ``NotImplementedError``."""
+    if len(data) < 26 or not data.startswith(BMP_MAGIC):
+        raise ValueError(f"{path}: not a BMP file")
+    offset, size = struct.unpack_from("<II", data, 10)
+    if size < 40 or len(data) < 54:
+        raise NotImplementedError(f"{path}: BMP header of {size} bytes "
+                                  "(the 40-byte header and its extensions "
+                                  "are read)")
+    W, height, _, bpp, compression = struct.unpack_from("<iiHHI", data, 18)
+    colours, = struct.unpack_from("<I", data, 46)
+    if compression in BMP_RLE:
+        raise NotImplementedError(f"{path}: {BMP_RLE[compression]} "
+                                  "compressed BMP")
+    if bpp not in (8, 24, 32) or compression not in (0, 3) or (
+            compression == 3 and bpp != 32):
+        raise NotImplementedError(f"{path}: {bpp}-bit BMP (compression "
+                                  f"{compression}); 8-bit palette, 24- and "
+                                  "32-bit files are read")
+    if compression == 3 and (len(data) < 66 or struct.unpack_from(
+            "<III", data, 54) != BMP_MASKS):
+        raise NotImplementedError(f"{path}: BMP bit masks other than BGRA "
+                                  "bytes")
+    H = abs(height)
+    if W <= 0 or H == 0:
+        raise ValueError(f"{path}: BMP of {W} x {height} pixels")
+    pitch = ((W * bpp + 7) // 8 + 3) & ~3
+    if offset + H * pitch > len(data):
+        raise ValueError(f"{path}: BMP pixel data ends early")
+    rows = np.frombuffer(data, np.uint8, H * pitch, offset).reshape(H, pitch)
+    if height > 0:  # bottom-up
+        rows = rows[::-1]
+    if bpp == 8:
+        n = colours or 256
+        if not 0 <= n <= 256 or 14 + size + 4 * n > len(data):
+            raise ValueError(f"{path}: BMP palette of {n} colours")
+        table = np.zeros((256, 3), np.uint8)
+        pal = np.frombuffer(data, np.uint8, 4 * n, 14 + size)
+        table[:n] = pal.reshape(n, 4)[:, :3]
+        bgr = table[rows[:, :W]]
+    else:
+        c = bpp // 8
+        bgr = rows[:, :W * c].reshape(H, W, c)[..., :3]
+    if gray:
+        return bgra_bitfields_gray(bgr) if compression == 3 else \
+            bgr_gray(bgr)
+    return np.ascontiguousarray(bgr)
+
+
+def encode_bmp(img: np.ndarray, top_down: bool = False,
+               palette=None) -> bytes:
+    """``uint8`` ``[H, W, 3]`` BGR (24-bit), ``[H, W, 4]`` BGRA (32-bit) or
+    ``[H, W]`` (8-bit, through ``palette`` [N, 3] BGR, else a gray ramp)
+    -> uncompressed BMP bytes with a 40-byte header, bottom-up unless
+    ``top_down``, rows padded to 4 bytes."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (
+            img.ndim == 3 and img.shape[-1] not in (3, 4)):
+        raise ValueError(f"BMP images are uint8 [H, W(, 3|4)], not "
+                         f"{img.dtype} {img.shape}")
+    H, W = img.shape[:2]
+    bpp = 8 if img.ndim == 2 else 8 * img.shape[-1]
+    table = b""
+    if bpp == 8:
+        pal = (np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)
+               if palette is None else np.asarray(palette, np.uint8))
+        quad = np.zeros((len(pal), 4), np.uint8)
+        quad[:, :3] = pal
+        table = quad.tobytes()
+    pitch = ((W * bpp // 8) + 3) & ~3
+    rows = np.zeros((H, pitch), np.uint8)
+    rows[:, :W * bpp // 8] = img.reshape(H, -1)
+    if not top_down:
+        rows = rows[::-1]
+    offset = 54 + len(table)
+    header = struct.pack("<2sIHHI", BMP_MAGIC, offset + rows.size, 0, 0,
+                         offset)
+    info = struct.pack("<IiiHHIIiiII", 40, W, -H if top_down else H, 1, bpp,
+                       0, rows.size, 2835, 2835, len(table) // 4, 0)
+    return header + info + table + rows.tobytes()
+
+
 # -- JPEG --------------------------------------------------------------------
 
 JPEG_STATUS = {1: ValueError, 2: NotImplementedError, 3: MemoryError}
+# OpenCV's CV_IO_MAX_IMAGE_PIXELS: imread returns None for larger images
+MAX_PIXELS = 1 << 30
 # EXIF orientation -> the flips and transpose cv2.imread applies
 # (imgcodecs' ExifTransform)
 _ORIENT = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1],
@@ -279,24 +527,35 @@ def _jpeg_call(fn, path, *args):
             f"{path}: JPEG: {err.value.decode(errors='replace')}")
 
 
-def decode_jpeg(data: bytes, path="<bytes>") -> np.ndarray:
+def decode_jpeg(data: bytes, path="<bytes>", gray: bool = False
+                ) -> np.ndarray:
     """JPEG bytes -> ``uint8 [H, W, 3]`` BGR with the EXIF orientation
-    applied: what ``cv2.imdecode`` / ``cv2.imread`` return (module
-    docstring); decoded in C (``csrc/host/jpeg_decode.c``)."""
+    applied: what ``cv2.imread`` returns for a file of these bytes (module
+    docstring), or with ``gray`` ``[H, W]`` as ``cv2.imread(path,
+    cv2.IMREAD_ANYDEPTH)`` returns it (libjpeg's ``JCS_GRAYSCALE`` output:
+    the Y plane, or the luma of an RGB file); decoded in C
+    (``csrc/host/jpeg_decode.c``)."""
     lib = _build.load("jpeg_decode")
     c_char, i64, ptr, cint = (ctypes.c_char_p, ctypes.c_int64,
                               ctypes.c_void_p, ctypes.c_int)
     lib.jpeg_info.argtypes = [c_char, i64, ptr, c_char, cint]
-    lib.jpeg_decode.argtypes = [c_char, i64, ptr, i64, i64, c_char, cint]
-    lib.jpeg_info.restype = lib.jpeg_decode.restype = cint
+    lib.jpeg_decode_as.argtypes = [c_char, i64, ptr, i64, i64, cint, c_char,
+                                   cint]
+    lib.jpeg_info.restype = lib.jpeg_decode_as.restype = cint
     info = np.zeros(3, np.int32)
     _jpeg_call(lib.jpeg_info, path, data, len(data), info.ctypes.data)
     H, W, orientation = (int(v) for v in info)
-    out = np.empty((H, W, 3), np.uint8)
-    _jpeg_call(lib.jpeg_decode, path, data, len(data), out.ctypes.data, H, W)
+    if H * W > MAX_PIXELS:
+        raise ValueError(f"{path}: JPEG: {H}x{W} is more than cv2.imread "
+                         f"reads ({MAX_PIXELS} pixels)")
+    out = np.empty((H, W) if gray else (H, W, 3), np.uint8)
+    _jpeg_call(lib.jpeg_decode_as, path, data, len(data), out.ctypes.data, H,
+               W, int(gray))
+    if gray:
+        out = out[..., None]
     if orientation in _ORIENT:
         out = np.ascontiguousarray(_ORIENT[orientation](out))
-    return out
+    return out[..., 0] if gray else out
 
 
 # Annex K.1 quantisation tables (natural order) and K.3 Huffman tables

@@ -163,9 +163,12 @@ def euroc_stereo_stream(datapath, stride=1, image_size=(320, 512)):
     for name in names:
         tstamp = float(name.split(".")[0]) / 1e9
         rpath = os.path.join(right_dir, name)
+        try:
+            left = imread(os.path.join(left_dir, name))
+        except (FileNotFoundError, NotImplementedError, ValueError):
+            continue  # where cv2.imread returns None, the JAX stream skips
         if not os.path.exists(rpath):
             continue
-        left = imread(os.path.join(left_dir, name))
         right = imread(rpath)
         left = resize(rectify[0](left), (W1, H1))
         right = resize(rectify[1](right), (W1, H1))

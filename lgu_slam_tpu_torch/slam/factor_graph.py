@@ -326,6 +326,12 @@ class FactorGraph:
         v.dirty[t0:t1] = True
         self.age += n
 
+    def update(self, t0=None, t1=None, itrs=2, use_inactive=False, EP=1e-7,
+               motion_only=False):
+        """One GRU update + DBA: ``update_n(1, ...)`` (the JAX package's
+        ``FactorGraph.update``)."""
+        self.update_n(1, t0, t1, itrs, use_inactive, EP, motion_only)
+
     def make_chunk(self, sel, CH: int) -> _Chunk:
         """The chunk of the edges ``sel`` (a slice, or edge ids as numpy):
         keyframe and rig-expanded feature indices (stereo self-edges read

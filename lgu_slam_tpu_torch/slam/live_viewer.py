@@ -7,14 +7,14 @@ A zero-dependency web viewer in place of the reference's Open3D window:
 * :class:`LiveViewer` wraps an :class:`IncrementalReconstruction`
   (``slam/visualization.py``) and serves it over stdlib ``http.server`` on
   a background daemon thread.
-* ``GET /`` returns an embedded single-file WebGL page (orbiting point
-  cloud and camera frusta, no external JS).
-* ``GET /cloud`` returns a versioned binary snapshot (little-endian:
+* ``GET /cloud`` (any path that starts with ``/cloud``) returns a versioned binary snapshot (little-endian:
   ``u32 version, u32 n_points, u32 n_cams``, then ``f32 xyz * n``,
   ``u8 rgb * n``, ``f32 [centre, rotation columns] * n_cams``), or 304
-  when the client's ``?have=`` already is the version.  The page polls it
-  and re-uploads its buffers only when the version advances.
-* Any other path: 404 (the JAX viewer serves its page there).
+  when the client's ``have=`` (read anywhere in the path, up to the next
+  ``&``) already is the version.  The page polls it and re-uploads its
+  buffers only when the version advances.
+* Every other path returns an embedded single-file WebGL page (orbiting
+  point cloud and camera frusta, no external JS).
 
 The SLAM loop calls :meth:`LiveViewer.refresh` where the reference signals
 its viewer (after each tracked frame and after ``terminate()``): refresh
@@ -179,26 +179,26 @@ class LiveViewer:
                 self.wfile.write(body)
 
             def do_GET(self):
-                path, _, query = self.path.partition("?")
-                if path == "/cloud":
+                # the JAX handler's routing: any path that starts with
+                # /cloud is the blob, have= is read anywhere in it, and
+                # every other path is the page
+                if self.path.startswith("/cloud"):
                     have = -1
-                    for item in query.split("&"):
-                        if item.startswith("have="):
-                            try:
-                                have = int(item[5:])
-                            except ValueError:
-                                pass
+                    if "have=" in self.path:
+                        try:
+                            have = int(self.path.split("have=")[1]
+                                       .split("&")[0])
+                        except ValueError:
+                            pass
                     with viewer._lock:
                         ver, blob = viewer._version, viewer._blob
                     if have == ver:
                         self._send(304)
                     else:
                         self._send(200, "application/octet-stream", blob)
-                elif path == "/":
+                else:
                     self._send(200, "text/html; charset=utf-8",
                                _PAGE.encode())
-                else:
-                    self._send(404, "text/plain", b"not found")
 
         self._server = http.server.ThreadingHTTPServer((host, port), Handler)
         self._server.daemon_threads = True

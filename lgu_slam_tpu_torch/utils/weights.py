@@ -7,6 +7,7 @@ It is the exact inverse of ``convert_torch_checkpoint``
 dense and KAN weights are transposed back, the reference key names are
 used, and the delta and weight heads stay at 2 channels.  The input is the
 tree as numpy arrays (``jax.device_get(params)``); nothing here imports JAX.
+``conv_gru_state_dict`` bridges a lone ``ConvGRU`` cell the same way.
 A 3DGS ``GaussianMap`` crosses both ways with ``gaussian_map_from_numpy``
 and ``gaussian_map_to_numpy``.
 """
@@ -84,6 +85,16 @@ def state_dict_from_jax_params(params) -> dict:
     _conv(sd, "update.agg.conv2", up["agg"]["conv2"])
     _conv(sd, "update.agg.eta.0", up["agg"]["eta"])
     _conv(sd, "update.agg.upmask.0", up["agg"]["upmask"])
+    return sd
+
+
+def conv_gru_state_dict(params) -> dict:
+    """A JAX ``ConvGRU`` cell's params (numpy leaves) -> the state dict of
+    the port's ``models.gru.ConvGRU`` (the reference's key names)."""
+    sd: dict = {}
+    for name in ("convz", "convr", "convq", "convz_glo", "convr_glo",
+                 "convq_glo"):
+        _conv(sd, name, params[name])
     return sd
 
 

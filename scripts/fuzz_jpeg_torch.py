@@ -3,15 +3,17 @@
 jpeg_decode.c``): builds it with AddressSanitizer and UndefinedBehavior
 Sanitizer beside a small C harness, then decodes every truncation of a few
 seed files and ``--mutations`` copies of each with 1-4 random bytes
-overwritten.  Any out-of-bounds access or undefined behaviour aborts the
-harness; otherwise it prints how many inputs decoded, were refused as
-corrupt, or as unsupported.
+overwritten, to the colour and to the gray output.  Any out-of-bounds
+access or undefined behaviour aborts the harness; otherwise it prints how
+many inputs decoded, were refused as corrupt, or as unsupported.
 
     python scripts/fuzz_jpeg_torch.py [--mutations 20000] [--seed 1]
 
 The seeds are baseline files of the port's encoder (4:2:0 with restart
-markers, 4:4:4, 4:1:1, 4:4:0, gray); ``--files`` adds others (progressive
-files, say).  Needs a C compiler with the sanitizers (gcc or clang); runs
+markers, 4:4:4, 4:1:1, 4:4:0, gray) and two of them damaged as libjpeg
+reads past (restart markers out of order, bytes before a marker);
+``--files`` adds others (progressive files, whose truncations drive the
+block smoothing, say).  Needs a C compiler with the sanitizers (gcc or clang); runs
 on the host only.
 """
 
@@ -36,8 +38,8 @@ HARNESS = r"""
 #include <stdlib.h>
 #include <string.h>
 int jpeg_info(const uint8_t *, int64_t, int32_t *, char *, int);
-int jpeg_decode(const uint8_t *, int64_t, uint8_t *, int64_t, int64_t,
-                char *, int);
+int jpeg_decode_as(const uint8_t *, int64_t, uint8_t *, int64_t, int64_t,
+                   int, char *, int);
 int main(int argc, char **argv)
 {
     long mutations = atol(argv[1]), counts[4] = {0};
@@ -61,9 +63,18 @@ int main(int argc, char **argv)
             int32_t info[3];
             char err[256];
             int st = jpeg_info(d, m, info, err, 256);
-            if (st == 0) {
+            /* a mutated frame header can name an image of up to 2^32
+             * pixels, which now decodes (gray past the data's end): such
+             * files count as refused, sparing the sanitizers' memory */
+            if (st == 0 && (int64_t)info[0] * info[1] > (1 << 22))
+                st = 1;
+            if (st == 0) { /* the colour and the gray output */
                 uint8_t *o = malloc((size_t)info[0] * info[1] * 3);
-                st = jpeg_decode(d, m, o, info[0], info[1], err, 256);
+                st = jpeg_decode_as(d, m, o, info[0], info[1], 0, err, 256);
+                int gst = jpeg_decode_as(d, m, o, info[0], info[1], 1, err,
+                                         256);
+                if (gst != st)
+                    return 3; /* the two outputs must fail alike */
                 free(o);
             }
             counts[st]++;
@@ -80,11 +91,24 @@ int main(int argc, char **argv)
 
 
 def seeds(rng) -> list:
-    """Small files of the port's encoder in several modes."""
+    """Small files of the port's encoder in several modes, and the same
+    with the damage libjpeg reads past: restart markers out of order and
+    bytes before markers (the decoder's resync and skip paths); every
+    seed's truncations drive the zero-bit padding."""
     im = rng.integers(0, 256, (37, 53, 3), np.uint8)
-    return [encode_jpeg(im, 90, "420", 2), encode_jpeg(im, 75, "444"),
-            encode_jpeg(im, 95, "411", 3), encode_jpeg(im, 50, "440"),
-            encode_jpeg(im[..., 1], 90, restart_interval=1)]
+    files = [encode_jpeg(im, 90, "420", 2), encode_jpeg(im, 75, "444"),
+             encode_jpeg(im, 95, "411", 3), encode_jpeg(im, 50, "440"),
+             encode_jpeg(im[..., 1], 90, restart_interval=1)]
+    def restarts(data):
+        return [i for i in range(len(data) - 1)
+                if data[i] == 0xFF and 0xD0 <= data[i + 1] <= 0xD7]
+
+    rst = bytearray(files[0])
+    for k, i in enumerate(restarts(rst)[:6]):  # RSTn -> RSTn+1..n+3
+        rst[i + 1] = 0xD0 + ((rst[i + 1] - 0xD0 + 1 + k % 3) & 7)
+    at = restarts(files[4])[0]
+    junk = files[4][:at] + b"\x12\x34\xff\x00\x56" + files[4][at:]
+    return files + [bytes(rst), junk]
 
 
 def main(argv=None) -> str:

@@ -4,8 +4,10 @@ decodes with libjpeg-turbo: files written by ``cv2.imwrite`` at every
 quality, sampling factor and coding mode the cases name decode to the same
 samples bit for bit (no mode needs a tolerance); the EXIF orientation turns
 the image as ``cv2.imread`` does; what the decoder does not read raises
-``NotImplementedError`` naming the feature; truncated and corrupt streams
-raise ``ValueError`` and random corruption never crashes; the numpy encoder
+``NotImplementedError`` naming the feature; truncated and corrupt streams,
+and random corruption, decode as ``cv2.imread`` reads them from a file
+(libjpeg's warnings: the same samples bit for bit) or raise ``ValueError``
+where it returns None, and never crash; the numpy encoder
 writes files that decode as ``cv2.imread`` decodes them, within the PSNR
 of the source that each subsampling states."""
 
@@ -127,12 +129,9 @@ def _find(data: bytes, marker: int):
     return next(s for s in _segments(data) if s[0] == marker)
 
 
-def test_rgb_colour_space():
-    """Three components named 'R', 'G', 'B' and no JFIF marker: libjpeg
-    takes the samples as RGB, with no colour conversion."""
-    data = _cv2_jpeg(_image(67, 93, "smooth"), [
-        cv2.IMWRITE_JPEG_QUALITY, 90,
-        cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING["444"]])
+def _rgb_named(data: bytes) -> bytes:
+    """The file without its JFIF marker and with its components (in the
+    frame header and the first scan) named 'R', 'G', 'B'."""
     _, app0, app0_end = _find(data, 0xE0)
     data = data[:app0] + data[app0_end:]
     raw = bytearray(data)
@@ -142,8 +141,53 @@ def test_rgb_colour_space():
     _, sos, _ = _find(data, 0xDA)
     for c, name in enumerate(b"RGB"):
         raw[sos + 5 + 2 * c] = name
-    got = _same_as_cv2(bytes(raw))
+    return bytes(raw)
+
+
+def test_rgb_colour_space():
+    """Three components named 'R', 'G', 'B' and no JFIF marker: libjpeg
+    takes the samples as RGB, with no colour conversion."""
+    got = _same_as_cv2(_rgb_named(_cv2_jpeg(_image(67, 93, "smooth"), [
+        cv2.IMWRITE_JPEG_QUALITY, 90,
+        cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING["444"]])))
     assert not (got[..., 0] == got[..., 1]).all()
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_anydepth_reads_gray(mode, tmp_path):
+    """imread(path, anydepth=True) is cv2.imread(path, IMREAD_ANYDEPTH):
+    libjpeg's JCS_GRAYSCALE output, the Y plane of a YCbCr file at every
+    sampling, a gray file's samples, the luma of an RGB file; turned by
+    the EXIF orientation as the colour read is."""
+    path = tmp_path / "a.jpg"
+
+    def same(data):
+        path.write_bytes(data)
+        ref = cv2.imread(str(path), cv2.IMREAD_ANYDEPTH)
+        got = image_io.imread(str(path), anydepth=True)
+        assert got.dtype == ref.dtype == np.uint8
+        assert got.shape == ref.shape and got.ndim == 2
+        np.testing.assert_array_equal(got, ref)
+
+    for H, W in SIZES:
+        for sampling in SAMPLING.values():
+            same(_cv2_jpeg(_image(H, W, "smooth"), [
+                cv2.IMWRITE_JPEG_QUALITY, 90,
+                cv2.IMWRITE_JPEG_SAMPLING_FACTOR, sampling, *MODES[mode]]))
+        same(_cv2_jpeg(_image(H, W, "noise")[..., 0],
+                       [cv2.IMWRITE_JPEG_QUALITY, 90, *MODES[mode]]))
+    if mode != "progressive":  # _rgb_named renames the first scan's ids
+        same(_rgb_named(_cv2_jpeg(_image(67, 93, "smooth"), [
+            cv2.IMWRITE_JPEG_QUALITY, 90,
+            cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING["444"],
+            *MODES[mode]])))
+    for orientation in (3, 6):
+        exif = Image.Exif()
+        exif[0x0112] = orientation
+        buf = io.BytesIO()
+        Image.fromarray(_image(30, 40, "noise", seed=5)).save(
+            buf, format="JPEG", quality=90, exif=exif.tobytes())
+        same(buf.getvalue())
 
 
 def _baseline(**kw) -> bytes:
@@ -151,15 +195,53 @@ def _baseline(**kw) -> bytes:
                      [cv2.IMWRITE_JPEG_QUALITY, 90, *kw.get("extra", [])])
 
 
-@pytest.mark.parametrize("mode", ["baseline", "progressive", "restart"])
-def test_truncated_streams_raise(mode):
-    """Every prefix of a file (header, tables, entropy-coded data, the
-    missing EOI) raises ValueError."""
-    data = _baseline(extra=MODES[mode])
-    image_io.decode_jpeg(data)
-    for n in range(len(data)):
+def _cv2_file(data: bytes, tmp_path):
+    """cv2.imread of the bytes as a file: libjpeg's stdio source, which
+    reads past the end of the data as fake EOI markers (cv2.imdecode's
+    source suspends there instead)."""
+    path = tmp_path / "cut.jpg"
+    path.write_bytes(data)
+    return cv2.imread(str(path))
+
+
+def _as_cv2_reads(data: bytes, tmp_path) -> str:
+    """decode_jpeg against cv2.imread of the same bytes: the same samples
+    where cv2 returns an image ("image"), ValueError where it returns None
+    ("None")."""
+    ref = _cv2_file(data, tmp_path)
+    if ref is None:
         with pytest.raises(ValueError):
-            image_io.decode_jpeg(data[:n])
+            image_io.decode_jpeg(data)
+        return "None"
+    got = image_io.decode_jpeg(data)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)
+    return "image"
+
+
+@pytest.mark.parametrize("mode", ["baseline", "progressive", "restart"])
+def test_truncated_streams_raise(mode, tmp_path):
+    """Every prefix of a file decodes as cv2.imread reads it: a prefix cut
+    in the markers before the first scan raises ValueError, one cut in the
+    scan data is read with the data's end padded by zero bits and the MCUs
+    after it left at zero coefficients, bit for bit; a progressive prefix
+    so, its incomplete coefficients estimated by libjpeg's block smoothing
+    (one cut in a later scan's header: ValueError, as cv2 returns None)."""
+    data = _baseline(extra=MODES[mode])
+    first_scan = _segments(data)[-1][2]
+    outcomes = [_as_cv2_reads(data[:n], tmp_path)
+                for n in range(len(data) + 1)]
+    assert outcomes[-1] == "image"
+    if mode == "progressive":
+        assert outcomes[:first_scan] == ["None"] * first_scan
+        assert outcomes[first_scan] == "image"
+        assert outcomes.count("image") > len(data) // 2
+        return
+    # cut within the scan header's last three bytes (Ss, Se, Ah/Al, which
+    # a sequential scan does not use): read too
+    assert outcomes[:first_scan - 3] == ["None"] * (first_scan - 3)
+    assert outcomes[first_scan - 3:] == ["image"] * (len(data) + 4
+                                                     - first_scan)
 
 
 def _corrupt(name: str) -> tuple[bytes, str]:
@@ -205,61 +287,66 @@ def _corrupt(name: str) -> tuple[bytes, str]:
     raise KeyError(name)
 
 
+# defects libjpeg only warns of: cv2.imread returns an image
+READ_BY_CV2 = ("bad_huffman_code", "extraneous_bytes", "rst_out_of_order")
+
+
 @pytest.mark.parametrize("name", [
     "no_soi", "bad_huffman_table", "undefined_quant_table",
     "bad_huffman_code", "extraneous_bytes", "second_sof", "zero_width",
     "sos_before_sof", "segment_overrun", "unknown_marker",
     "rst_out_of_order"])
-def test_corrupt_streams_raise(name):
+def test_corrupt_streams_raise(name, tmp_path):
+    """Where cv2.imread returns None the decoder raises ValueError with
+    the defect's words; where libjpeg only warns (a bad Huffman code read
+    as symbol 0, bytes skipped before a marker, a restart marker out of
+    order resynchronised) it returns cv2.imread's samples bit for bit."""
     data, words = _corrupt(name)
-    with pytest.raises(ValueError, match=words):
-        image_io.decode_jpeg(data)
+    outcome = _as_cv2_reads(data, tmp_path)
+    if name in READ_BY_CV2:
+        assert outcome == "image"
+    else:
+        assert outcome == "None"
+        with pytest.raises(ValueError, match=words):
+            image_io.decode_jpeg(data)
 
 
-def test_random_corruption_never_crashes():
+def test_random_corruption_never_crashes(tmp_path):
     """Bytes overwritten at random in baseline, progressive and restart
-    files: the decoder raises ValueError or NotImplementedError, or returns
-    an image of the header's size; it never reads out of bounds (a crash
-    would end the test process)."""
+    files: the decoder returns cv2.imread's image bit for bit, or raises
+    ValueError where cv2 returns None; it never reads out of bounds (a
+    crash would end the test process)."""
     rng = np.random.default_rng(11)
-    outcomes = {"image": 0, "ValueError": 0, "NotImplementedError": 0}
+    outcomes = {"image": 0, "None": 0}
     for mode in ("baseline", "progressive", "restart"):
         base = _baseline(extra=MODES[mode])
         for _ in range(400):
             raw = bytearray(base)
             for i in rng.integers(2, len(raw), rng.integers(1, 5)):
                 raw[i] = rng.integers(0, 256)
-            try:
-                got = image_io.decode_jpeg(bytes(raw))
-            except (ValueError, NotImplementedError) as e:
-                outcomes[type(e).__name__] += 1
-                continue
-            assert got.dtype == np.uint8 and got.ndim == 3
-            outcomes["image"] += 1
-    assert outcomes["ValueError"] > outcomes["image"] > 0
+            outcomes[_as_cv2_reads(bytes(raw), tmp_path)] += 1
+    assert outcomes["image"] > outcomes["None"] > 0
 
 
 @pytest.mark.parametrize("feature", ["arithmetic", "12-bit", "lossless",
-                                     "hierarchical", "CMYK",
-                                     "block smoothing"])
+                                     "hierarchical", "CMYK", "YCCK"])
 def test_unsupported_modes_raise(feature):
     """NotImplementedError naming the feature: the SOF marker or precision
     of a baseline file patched to arithmetic coding (SOF9), 12-bit samples,
     lossless (SOF3) or hierarchical (SOF5) coding; a CMYK file written by
-    PIL; a progressive file cut after its third scan (its AC coefficients
-    incomplete, which libjpeg's block smoothing would estimate)."""
+    PIL, and the same with its Adobe marker's transform set to YCCK (2)."""
     data = _baseline()
     raw = bytearray(data)
     _, sof, _ = _find(data, 0xC0)
-    if feature == "CMYK":
+    if feature in ("CMYK", "YCCK"):
         buf = io.BytesIO()
         Image.new("CMYK", (16, 8), (10, 20, 30, 40)).save(buf, "JPEG")
         data, words = buf.getvalue(), "4 components"
-    elif feature == "block smoothing":
-        data = _baseline(extra=MODES["progressive"])
-        starts = [i for i in range(len(data) - 1)
-                  if data[i] == 0xFF and data[i + 1] == 0xDA]
-        data, words = data[:starts[3]] + b"\xff\xd9", "block smoothing"
+        if feature == "YCCK":
+            _, adobe, _ = _find(data, 0xEE)
+            raw = bytearray(data)
+            raw[adobe + 15] = 2  # the transform byte of "Adobe" + 7 bytes
+            data = bytes(raw)
     else:
         patch, words = {"arithmetic": ((1, 0xC9), "arithmetic"),
                         "12-bit": ((4, 12), "12-bit"),
@@ -269,6 +356,36 @@ def test_unsupported_modes_raise(feature):
         data = bytes(raw)
     with pytest.raises(NotImplementedError, match=words):
         image_io.decode_jpeg(data)
+
+
+@pytest.mark.parametrize("sampling", list(SAMPLING))
+def test_block_smoothing(sampling, tmp_path):
+    """Progressive files cut after each scan and inside scans, at 67 x 93
+    and 120 x 160, smooth and noisy, quality 75 and 95, and gray: their
+    incomplete coefficients estimated as libjpeg-turbo 3.1's block
+    smoothing estimates them (the 5 x 5 DC neighbourhood while only DC
+    came, the 9 first AC of blocks whose data ran out from the bits before
+    the last scan), bit for bit with cv2.imread."""
+    rng = np.random.default_rng(len(sampling))
+    read = 0
+    for H, W in ((67, 93), (120, 160)):
+        for kind in ("smooth", "noise"):
+            for quality in (75, 95):
+                data = _cv2_jpeg(_image(H, W, kind, seed=H), [
+                    cv2.IMWRITE_JPEG_QUALITY, quality,
+                    cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING[sampling],
+                    *MODES["progressive"]])
+                scans = [i for i in range(len(data) - 1)
+                         if data[i] == 0xFF and data[i + 1] == 0xDA]
+                cuts = set(scans[1:]) | set(
+                    rng.integers(scans[0], len(data), 8).tolist())
+                for n in sorted(cuts):
+                    read += _as_cv2_reads(data[:n], tmp_path) == "image"
+    gray = _cv2_jpeg(_image(67, 93, "noise")[..., 0], [
+        cv2.IMWRITE_JPEG_QUALITY, 90, *MODES["progressive"]])
+    for n in rng.integers(_segments(gray)[-1][2], len(gray), 8):
+        read += _as_cv2_reads(gray[:n], tmp_path) == "image"
+    assert read > 60
 
 
 # PSNR of decode_jpeg(encode_jpeg(x)) against x, 480 x 640 smooth colour

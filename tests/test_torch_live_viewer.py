@@ -1,7 +1,8 @@
 """The port's live viewer (lgu_slam_tpu_torch/slam/live_viewer.py) and
 the entry points that serve it: the JAX test's HTTP surface and versioned
 snapshots (tests/test_live_viewer.py) on the port's incremental
-reconstruction, plus 404 for an unknown path; ``/cloud`` bytes equal to
+reconstruction; every path answered as the JAX viewer answers it (status,
+content type and body); ``/cloud`` bytes equal to
 the JAX viewer's for the same numpy state, and the two packages'
 incremental reconstructions of one staged video served alike; the demo
 with ``--viewer`` on a JPEG image directory tracks the stream's frames and
@@ -80,9 +81,6 @@ def test_live_viewer_serves_and_versions():
         status, ctype, body = _get(viewer.port, "/")
         assert status == 200 and "text/html" in ctype
         assert b"webgl" in body
-        assert _get(viewer.port, "/nope")[0] == 404
-        assert _get(viewer.port, "/index.html")[0] == 404
-        assert _get(viewer.port, "/cloudy")[0] == 404
 
         status, _, body = _get(viewer.port, "/cloud")
         assert status == 200
@@ -167,6 +165,34 @@ def test_cloud_bytes_match_jax():
         ref.close()
 
 
+ROUTES = ("/", "/nope", "/index.html", "/cloudy", "/cloud?x=1&have={v}",
+          "/cloud?x=1&have={w}", "/cloudhave={v}", "/cloudhave={w}",
+          "/cloud?have=x")
+
+
+@pytest.mark.parametrize("refreshed", [False, True])
+def test_routes_match_jax(refreshed):
+    """Both viewers on the same numpy state answer every path alike:
+    any path that starts with /cloud is the blob (304 where ``have=``,
+    read anywhere in the path, is the version), every other one the
+    page."""
+    port, ref = LiveViewer(_Fixed(4)), JViewer(_Fixed(4))
+    try:
+        if refreshed:
+            port.refresh()
+            ref.refresh()
+        assert port.version == ref._version
+        for route in ROUTES:
+            path = route.format(v=port.version, w=port.version + 1)
+            got, want = _get(port.port, path), _get(ref.port, path)
+            assert got == want, path
+            assert got[0] == (304 if f"have={port.version}" in path
+                              else 200)
+    finally:
+        port.close()
+        ref.close()
+
+
 @pytest.fixture(scope="module")
 def demo_run(tmp_path_factory):
     """demo_torch --viewer on a JPEG image directory (8 frames of 64 x 96,
@@ -211,7 +237,7 @@ def test_demo_viewer_on_jpeg_directory(demo_run):
     assert len(xyz) == len(rgb) == sum(len(p) for p, _ in
                                         inc.points.values())
     assert np.isfinite(xyz).all()
-    assert _get(viewer.port, "/nope")[0] == 404
+    assert _get(viewer.port, "/nope")[2] == body
 
 
 def test_view_reconstruction_serves(demo_run, monkeypatch):

@@ -18,6 +18,7 @@ from torch_port import close, t, torch_single_thread  # noqa: F401
 from lgu_slam_tpu.models import kan as jkan
 from lgu_slam_tpu.models.extractor import BasicEncoder as JEncoder
 from lgu_slam_tpu.models.gaussian_mask import GaussianMask as JMask
+from lgu_slam_tpu.models.gru import ConvGRU as JConvGRU
 from lgu_slam_tpu.models.gru import KanBiasConvGRU as JGRU
 from lgu_slam_tpu.models.net import LGUNet as JNet
 from lgu_slam_tpu.models.net import normalize_images as j_normalize
@@ -28,12 +29,14 @@ from lgu_slam_tpu.slam.system import init_params
 from lgu_slam_tpu.utils import config as jconfig
 from lgu_slam_tpu.utils.checkpoint import convert_torch_checkpoint
 from lgu_slam_tpu_torch.models import kan as tkan
+from lgu_slam_tpu_torch.models.gru import ConvGRU
 from lgu_slam_tpu_torch.models.net import LGUNet, init_state_dict
 from lgu_slam_tpu_torch.models.net import normalize_images as t_normalize
 from lgu_slam_tpu_torch.models.update import cvx_upsample as t_cvx
 from lgu_slam_tpu_torch.models.update import upsample_disp as t_up_disp
 from lgu_slam_tpu_torch.utils import config as tconfig
-from lgu_slam_tpu_torch.utils.weights import state_dict_from_jax_params
+from lgu_slam_tpu_torch.utils.weights import (
+    conv_gru_state_dict, state_dict_from_jax_params)
 
 CFG = dict(image_size=(64, 96), volume_dtype="float32",
            feat_dtype="float32", compute_dtype="float32")
@@ -146,6 +149,34 @@ def test_kan_bias_conv_gru(nets, rng):
                                jnp.asarray(h), *map(jnp.asarray, ins))
     with torch.no_grad():
         out = net.update.gru(t(h), *map(t, ins))
+    close(out, ref, atol=2e-5)
+
+
+def test_conv_gru(rng):
+    """The vanilla ConvGRU(128, 320): the JAX cell's random init with
+    N(0, 0.02) noise, bridged; the same tolerance as the KAN-bias cell
+    (three 3x3 convs over 448 channels)."""
+    shp = (2, 6, 8)
+    h = np.tanh(rng.normal(size=shp + (128,))).astype(np.float32)
+    ins = [rng.normal(size=shp + (c,)).astype(np.float32)
+           for c in (128, 128, 64)]
+    cell = JConvGRU(128, 320)
+    params = jax.device_get(cell.init(jax.random.PRNGKey(3), jnp.asarray(h),
+                                      *map(jnp.asarray, ins))["params"])
+    noise = np.random.default_rng(2)
+    params = jax.tree_util.tree_map(
+        lambda a: (np.asarray(a) + 0.02 * noise.normal(size=a.shape))
+        .astype(np.float32), params)
+    ref = cell.apply({"params": params}, jnp.asarray(h),
+                     *map(jnp.asarray, ins))
+    gru = ConvGRU(128, 320)
+    gru.load_state_dict(conv_gru_state_dict(params), strict=True)
+    assert sorted(gru.state_dict()) == sorted(
+        f"{n}.{p}" for n in ("convz", "convr", "convq", "convz_glo",
+                             "convr_glo", "convq_glo")
+        for p in ("weight", "bias"))
+    with torch.no_grad():
+        out = gru(t(h), *map(t, ins))
     close(out, ref, atol=2e-5)
 
 

@@ -116,3 +116,18 @@ def test_euroc_stereo_stream_matches_jax(tmp_path):
     items = _held(tstreams.euroc_stereo_stream(root),
                   jstreams.euroc_stereo_stream(root))
     assert len(items) == 2 and items[0][1].shape == (2, 320, 512, 3)
+
+
+def test_euroc_stream_skips_unreadable_left_image(tmp_path):
+    """A left file that cv2.imread cannot read (non-image bytes) drops its
+    pair, as the JAX stream drops it: 3 of 4 frames, the same ones."""
+    root = fixtures.write_euroc_sequence(str(tmp_path / "MH_01_easy"),
+                                         n_frames=4)
+    left = os.path.join(root, "mav0", "cam0", "data")
+    bad = sorted(os.listdir(left))[2]
+    with open(os.path.join(left, bad), "wb") as fh:
+        fh.write(b"not an image\n" * 8)
+    items = _held(tstreams.euroc_stereo_stream(root),
+                  jstreams.euroc_stereo_stream(root))
+    assert len(items) == 3
+    assert float(bad.split(".")[0]) / 1e9 not in [it[0] for it in items]

@@ -1,5 +1,5 @@
-"""Port parity of the tracking path: FactorGraph.update_n on a staged
-video with forced edges, the proximity planner, keyframe removal, and
+"""Port parity of the tracking path: FactorGraph.update_n and update on a
+staged video with forced edges, the proximity planner, keyframe removal, and
 LGUSlam.track end to end on tests/test_slam_e2e.py's synthetic stream and
 tiny configuration in fp32.  Also: the port imports nothing of JAX, and an
 entry point given no device needs CUDA.
@@ -160,6 +160,27 @@ def two_bursts(weights, kw):
         g.add_factors(np.array([7, 4]), np.array([4, 7]))
         g.update_n(2, t0=2, use_inactive=True)
     same_state(jg, tg, 2e-3, "second burst")
+
+
+def test_update_matches_jax(weights):
+    """``FactorGraph.update``, one GRU + DBA update (``update_n(1, ...)``),
+    from the same state as the JAX method: the forced edges of the bursts
+    above, then the default window and a given one with inactive edges
+    stored; update_n's tolerance."""
+    jg, tg = graphs(weights, dict(tiny_config_kwargs(), buffer=16,
+                                  inactive_bucket=8))
+    ii = np.array([1, 2, 2, 3, 3, 4, 4, 5, 5, 6, 6, 7, 1, 3, 0])
+    jj = np.array([0, 1, 3, 2, 4, 3, 5, 4, 6, 5, 7, 6, 2, 1, 2])
+    drop = np.zeros(len(ii), bool)
+    drop[[0, 5, 12]] = True
+    for g in (jg, tg):
+        g.add_factors(ii, jj)
+        g.update()
+    same_state(jg, tg, 2e-3, "update()")
+    for g in (jg, tg):
+        g.rm_factors(drop, store=True)
+        g.update(t0=2, t1=8, itrs=3, use_inactive=True)
+    same_state(jg, tg, 2e-3, "update(t0=2, t1=8, itrs=3, use_inactive)")
 
 
 def test_proximity_and_rm_keyframe_match_jax(weights):
@@ -460,10 +481,11 @@ def test_seeded_pair_taps_sit_on_the_boundary_rule(jax_init):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, chip_smoke.py and the port's scripts
-    (scripts/*_torch*.py) import with JAX, flax, the JAX package, its
-    native extension and the image libraries the card machine lacks
-    (OpenCV, PIL, imageio, torchvision) made unimportable."""
+    """Every module of the port, chip_smoke.py, the oracle it loads
+    (tests/torch_oracle.py) and the port's scripts (scripts/*_torch*.py)
+    import with JAX, flax, the JAX package, its native extension and the
+    image libraries the card machine lacks (OpenCV, PIL, imageio,
+    torchvision) made unimportable."""
     code = (
         "import sys, glob, importlib, importlib.util, pkgutil\n"
         "for m in ('jax', 'flax', 'lgu_slam_tpu', 'lgu_native', 'cv2', "
@@ -475,6 +497,8 @@ def test_port_imports_no_jax():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
+        "chip_smoke.load_oracle()\n"
+        "mods.append('tests/torch_oracle.py')\n"
         "for path in sorted(glob.glob('scripts/*_torch*.py')):\n"
         "    spec = importlib.util.spec_from_file_location('s', path)\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
@@ -526,7 +550,7 @@ def test_port_imports_no_jax():
             "scripts/evaluate_eth3d_torch.py",
             "scripts/validate_tartanair_torch.py",
             "scripts/export_poses_torch.py",
-            "scripts/train_torch.py"} <= mods
+            "scripts/train_torch.py", "tests/torch_oracle.py"} <= mods
 
 
 def test_entry_points_need_cuda_without_device(monkeypatch):

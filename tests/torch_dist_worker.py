@@ -1,5 +1,6 @@
 """One rank of a port run over a gloo process group on the CPU (started by
-tests/test_torch_parallel.py, one process per rank; imports no JAX).
+tests/test_torch_parallel.py and tests/test_torch_oracle_pipeline.py, one
+process per rank; imports no JAX).
 
     python torch_dist_worker.py CASE RANK WORLD PORT INPUT OUTPUT
 
@@ -177,6 +178,21 @@ def ddp(inp):
     return out
 
 
+def oracle(inp):
+    """tests/torch_oracle.py's pipeline with the backend sharded over the
+    group."""
+    import warnings
+
+    from torch_oracle import run_pipeline
+
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "backend edge budget truncated")
+        out = run_pipeline(SLAMConfig(**inp["config"]), inp["T"], "cpu",
+                           group=dist.group.WORLD)
+    same_on_all_ranks(out["poses"])
+    return out
+
+
 def main():
     case, rank, world, port, src, dst = sys.argv[1:7]
     rank, world = int(rank), int(world)
@@ -187,7 +203,8 @@ def main():
         world_size=world, timeout=datetime.timedelta(seconds=120))
     try:
         inp = torch.load(src, weights_only=False)
-        out = {"dba": dba, "backend": backend, "ddp": ddp}[case](inp)
+        out = {"dba": dba, "backend": backend, "ddp": ddp,
+               "oracle": oracle}[case](inp)
         if rank == 0:
             torch.save(out, dst)
     finally:
