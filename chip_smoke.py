@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eleven phases; any failure exits non-zero.
+Twelve phases; any failure exits non-zero.
 
 1. Build the CUDA kernels from ``lgu_slam_tpu_torch/csrc`` with nvcc for
    sm_90a, all at once (printing ptxas' register/shared-memory summary),
@@ -147,9 +147,27 @@ Eleven phases; any failure exits non-zero.
    and top-down) read back as the pixels written, and a 480 x 640 JPEG cut
    after a restart marker decodes to the full shape, its rows before the
    cut as the whole file's and the MCU rows past it gray.
+12. The depth and frame formats ``cv2.imread`` reads that the port took in
+   last, on the card machine's host (which has no OpenCV) with the port's
+   own encoders: a rendered 480 x 640 frame and its depth through TIFF
+   (LZW RGB; Deflate float32 depth with the floating-point predictor;
+   tiled big-endian), 16-bit PGM, PPM, PFM, RLE8 BMP, each read back as
+   written, and a CMYK JPEG within 35 dB of OpenCV's conversion of its
+   source; the host's median decode ms of each.  A 24-frame TUM fr1
+   sequence written twice, PPM colour with float32 TIFF depth and PNG
+   colour with 16-bit PNG depth of the same values, read through
+   ``evaluate_tum_torch``'s stream (``tum_rgbd_stream``) and resized to
+   384 x 512: both streams feed equal frames and depth; each is tracked
+   with depth at the full width of ``SLAMConfig()`` (bf16, thresholds 0)
+   and ``terminate()``d: K1's launches in ``track()`` equal the probes
+   plus the pyramid rebuilds, K2's the probes plus the GRU iterations, the
+   trajectories are finite; the host ms to feed a frame, the ms per
+   keyframe update.  ``rgbd_stream`` over 8 frames of 16-bit PGM depth
+   (NYU Depth v2's raw form): the millimetres written.
 
 Before the last line it prints the tracking, terminate, training, fp32
-tracking, world-size-1, entry-point, 3DGS, JPEG and oracle reports, the
+tracking, world-size-1, entry-point, 3DGS, JPEG, oracle and format
+reports, the
 run's wall time, the
 card's name and power limit, and one JSON line with each kernel's error,
 time, bound and launches.  The last line is ``{"ok": true, "device": {...}}``.
@@ -176,11 +194,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from lgu_slam_tpu_torch.data import pnm, tiff
 from lgu_slam_tpu_torch.data.fixtures import (
     REPLICA_CAM,
     TUM_FR1,
     render_sequence,
     write_euroc_sequence,
+    write_frame,
     write_jpeg_imagedir,
     write_replica_scene,
     write_scannet_sequence,
@@ -194,13 +214,18 @@ from lgu_slam_tpu_torch.data.image_io import (
     imread,
 )
 from lgu_slam_tpu_torch.data.imgproc import (
+    NEAREST,
     FloatRemap,
     resize,
     undistort_maps,
 )
 from lgu_slam_tpu_torch.data.replica import ReplicaDataset
 from lgu_slam_tpu_torch.data.rgbd_datasets import KNOWN_CAMERAS, ScanNet
-from lgu_slam_tpu_torch.data.streams import euroc_maps
+from lgu_slam_tpu_torch.data.streams import (
+    euroc_maps,
+    rgbd_stream,
+    tum_rgbd_stream,
+)
 from lgu_slam_tpu_torch.data.synthetic import (
     SyntheticDataset,
     SyntheticScene,
@@ -2539,6 +2564,229 @@ def print_phase_11(report: dict, learned_ms: float) -> None:
           f"truncated JPEG read back; {report['seconds']:.0f} s")
 
 
+# -- phase 12: TIFF, PNM / PAM / PFM, RLE BMP and CMYK JPEG frames ----------
+
+def cmyk_bgr(cmyk: np.ndarray) -> np.ndarray:
+    """OpenCV's BGR of Adobe (inverted) CMYK samples: R = K - ((255 - C) *
+    K >> 8), G from M, B from Y (imgcodecs' icvCvt_CMYK2BGR_8u_C4C3R)."""
+    c, m, y, k = (cmyk[..., i].astype(np.int64) for i in range(4))
+    return np.stack([k - ((255 - y) * k >> 8), k - ((255 - m) * k >> 8),
+                     k - ((255 - c) * k >> 8)], -1).astype(np.uint8)
+
+
+CMYK_PSNR_DB = 35.0  # the CMYK JPEG's decode against cmyk_bgr(source)
+
+
+def format_cases() -> list:
+    """(name, file bytes, anydepth, what imread must return) of a rendered
+    480 x 640 frame and its depth (16-bit in 1/5000 m, and the same values
+    as float32) in the formats phase 12 reads; the CMYK JPEG, which is
+    lossy, must return cmyk_bgr of its source within CMYK_PSNR_DB."""
+    images, depths = render_sequence(SEED + 13, 1, 480, 640, TUM_FR1, 0.02,
+                                     0.004)[:2]
+    img = images[0]
+    d16 = np.clip(np.rint(depths[0] * 5000.0), 0, 65535).astype(np.uint16)
+    d32 = d16.astype(np.float32)
+    pal = np.stack([np.arange(0, 256, 4)] * 3, -1).astype(np.uint8)
+    idx = (img[..., 1] >> 2).astype(np.uint8)
+    idx[:, 320:] = idx[:, 320:321]  # long runs for RLE8
+    cmyk = np.concatenate([img[..., ::-1], np.full_like(img[..., :1], 235)],
+                          -1)
+    return [
+        ("TIFF LZW RGB", tiff.encode_tiff(img, "lzw", 2), False, img),
+        ("TIFF Deflate float depth, floating-point predictor",
+         tiff.encode_tiff(d32, "deflate", 3), True, d32),
+        ("TIFF tiled big-endian RGB", tiff.encode_tiff(
+            img, "deflate", 2, tile=(64, 64), big_endian=True), False, img),
+        ("PGM 16-bit depth", pnm.encode_pnm(d16), True, d16),
+        ("PPM", pnm.encode_pnm(img), False, img),
+        ("PFM depth", pnm.encode_pfm(d32), True, d32),
+        ("BMP RLE8", encode_bmp(idx, palette=pal, rle=True), False, pal[idx]),
+        ("JPEG CMYK", encode_jpeg(cmyk, 95, adobe_transform=0), False,
+         cmyk_bgr(cmyk)),
+    ]
+
+
+def phase_format_codecs(root: Path) -> dict:
+    """Each format's file, written to disk on the host: ``imread`` returns
+    the encoder's input (the CMYK JPEG: within CMYK_PSNR_DB of it), and the
+    host's median ms of 10 decodes."""
+    out = {}
+    path = root / "frame"
+    for name, data, anydepth, want in format_cases():
+        path.write_bytes(data)
+        got = imread(str(path), anydepth=anydepth)
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"phase 12: {name} reads as {got.dtype} {got.shape}")
+        if name == "JPEG CMYK":
+            db = psnr(got, want)
+            check(db >= CMYK_PSNR_DB, f"phase 12: {name} PSNR {db:.2f} dB")
+        else:
+            check(np.array_equal(got, want),
+                  f"phase 12: {name} does not read back as written")
+        out[name] = dict(bytes=len(data), decode_ms=host_ms(
+            lambda _: imread(str(path), anydepth=anydepth), range(10)))
+        if name == "JPEG CMYK":
+            out[name]["psnr_db"] = db
+    return out
+
+
+def tum_frames(root: Path, size: tuple) -> tuple:
+    """``evaluate_tum_torch``'s stream (``tum_rgbd_stream``, stride 1) over
+    a sequence, each frame resized to ``size`` (depth nearest) with its
+    intrinsics scaled; and the host's median ms to feed a frame (the
+    stream's decode, crop and halving, then the resize)."""
+    H, W = size
+    frames, ms = [], []
+    stream = tum_rgbd_stream(str(root), stride=1)
+    while True:
+        t_start = time.perf_counter()
+        item = next(stream, None)
+        if item is None:
+            break
+        t, img, depth, intr = item
+        h0, w0 = img.shape[:2]
+        img = resize(img, (W, H))
+        depth = resize(depth, (W, H), NEAREST)
+        ms.append(1e3 * (time.perf_counter() - t_start))
+        scale = np.asarray([W / w0, H / h0, W / w0, H / h0], np.float32)
+        frames.append((t, img, depth, intr * scale))
+    return frames, statistics.median(ms)
+
+
+def phase_format_track(dev, kernels: dict, root: Path, n_frames: int = 24,
+                       size: tuple = (384, 512)) -> dict:
+    """A 24-frame TUM fr1 sequence written twice, PPM colour with float32
+    TIFF depth and PNG colour with 16-bit PNG depth of the same values:
+    the two streams feed equal frames and depth; each is tracked with
+    depth at the full width of ``SLAMConfig()`` (thresholds 0), then
+    ``terminate()``.  K1's launches in track() equal the motion filter's
+    probes plus the pyramid rebuilds, K2's the probes plus the GRU
+    iterations (phase 3's count); the trajectories are finite."""
+    runs, streams = {}, []
+    cfg = SLAMConfig().replace(filter_thresh=0.0, keyframe_thresh=0.0,
+                               image_size=size)
+    for color, depth in (("ppm", "tiff"), ("png", "png")):
+        seq = root / f"{color}_{depth}" / "rgbd_dataset_freiburg1_desk"
+        t_start = time.perf_counter()
+        write_tum_sequence(str(seq), n_frames, seed=SEED + 14, color=color,
+                           depth=depth)
+        write_s = time.perf_counter() - t_start
+        frames, feed_ms = tum_frames(seq, size)
+        streams.append(frames)
+        slam = LGUSlam(init_state_dict(cfg, SEED), cfg, device=dev)
+        reset_counts()
+        kf_ms = []
+        with CallCounts() as calls:
+            for t, img, d, intr in frames:
+                before = slam.video.counter
+                t_start = time.perf_counter()
+                slam.track(float(t), img, depth=d, intrinsics=intr)
+                torch.cuda.synchronize()
+                if slam.video.counter > before:
+                    kf_ms.append(1e3 * (time.perf_counter() - t_start))
+        k1, k2 = masked_corr_level0.launches_bf16, fused_pyramid_lookup.launches
+        tag = f"{color} + {depth} depth"
+        check(masked_corr_level0.launches == k1,
+              f"phase 12 {tag}: K1 fp32-operand launches")
+        check(k1 > 0 and k1 == calls.probes + calls.rebuilds,
+              f"phase 12 {tag}: K1 launches {k1} != probes {calls.probes} "
+              f"+ rebuilds {calls.rebuilds}")
+        check(k2 > 0 and k2 == calls.probes + calls.iterations,
+              f"phase 12 {tag}: K2 launches {k2} != probes {calls.probes} "
+              f"+ GRU iterations {calls.iterations}")
+        n_kf = slam.video.counter
+        check(bool(torch.isfinite(slam.video.poses[:n_kf]).all()),
+              f"phase 12 {tag}: non-finite keyframe poses")
+        check(len(kf_ms) > cfg.warmup, f"phase 12 {tag}: {len(kf_ms)} "
+              f"keyframes, no update after the {cfg.warmup} of warm-up")
+        t_start = time.perf_counter()
+        traj = slam.terminate(iter(frames))
+        torch.cuda.synchronize()
+        terminate_s = time.perf_counter() - t_start
+        check(traj.shape == (n_frames, 7) and bool(np.isfinite(traj).all()),
+              f"phase 12 {tag}: trajectory {traj.shape} not finite")
+        k1_all = masked_corr_level0.launches_bf16
+        k2_all = fused_pyramid_lookup.launches
+        for kname, k in (("masked_corr_level0_tc", k1_all),
+                         ("fused_pyramid_lookup", k2_all)):
+            kernels[kname]["launches_formats"] = \
+                kernels[kname].get("launches_formats", 0) + k
+        runs[tag] = dict(
+            write_seconds=write_s, feed_ms=feed_ms, keyframes=n_kf,
+            probes=calls.probes, pyramid_rebuilds=calls.rebuilds,
+            gru_iterations=calls.iterations,
+            ms_per_keyframe_median=statistics.median(kf_ms[cfg.warmup:]),
+            terminate_seconds=terminate_s, k1_launches_track=k1,
+            k2_launches_track=k2, k1_launches=k1_all, k2_launches=k2_all)
+        del slam
+        torch.cuda.empty_cache()
+    a, b = streams
+    check(len(a) == len(b) == n_frames, "phase 12: the streams' lengths")
+    for (ta, ia, da, xa), (tb, ib, db, xb) in zip(a, b):
+        check(ta == tb and np.array_equal(ia, ib) and np.array_equal(xa, xb),
+              "phase 12: the PPM and PNG streams feed different frames")
+        check(da.dtype == db.dtype == np.float32 and np.array_equal(da, db),
+              "phase 12: the TIFF and PNG depth streams feed different "
+              "depth")
+    return runs
+
+
+def phase_pgm_depth(root: Path, n_frames: int = 8) -> dict:
+    """``rgbd_stream`` over a directory of 16-bit PGM depth maps (NYU Depth
+    v2's raw form) beside PPM colour: 8 frames whose depth is the written
+    millimetres / 1000, resized as the stream resizes."""
+    images, depths = render_sequence(SEED + 15, n_frames, 480, 640, TUM_FR1,
+                                     0.02, 0.004)[:2]
+    for sub in ("rgb", "depth"):
+        (root / sub).mkdir(parents=True)
+    mm = np.clip(np.rint(depths * 1000), 0, 65535).astype(np.uint16)
+    for k in range(n_frames):
+        write_frame(str(root / "rgb" / f"{k:04d}"), images[k], "ppm")
+        write_frame(str(root / "depth" / f"{k:04d}"), mm[k], "pgm")
+    (root / "calib.txt").write_text(" ".join(map(str, TUM_FR1)) + "\n")
+    t_start = time.perf_counter()
+    items = list(rgbd_stream(str(root / "rgb"), str(root / "depth"),
+                             str(root / "calib.txt")))
+    ms = 1e3 * (time.perf_counter() - t_start) / max(len(items), 1)
+    check(len(items) == n_frames, f"phase 12: rgbd_stream {len(items)} "
+          "frames")
+    for k, (_, img, d, _) in enumerate(items):
+        h, w = img.shape[:2]
+        want = resize(mm[k].astype(np.float32) / 1000.0, (w, h), NEAREST)
+        check(d.dtype == np.float32 and np.array_equal(d, want),
+              f"phase 12: PGM depth frame {k} is not the millimetres "
+              "written")
+    return dict(frames=n_frames, size=list(items[0][1].shape[:2]),
+                ms_per_frame=ms)
+
+
+def phase_12(dev, kernels: dict) -> dict:
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        report = dict(codecs=phase_format_codecs(root))
+        report["tum"] = phase_format_track(dev, kernels, root / "tum")
+        report["pgm_rgbd_stream"] = phase_pgm_depth(root / "nyu")
+    report["seconds"] = time.perf_counter() - t_start
+    return report
+
+
+def print_phase_12(report: dict) -> None:
+    codecs = ", ".join(f"{k} {v['decode_ms']:.2f}"
+                       for k, v in report["codecs"].items())
+    tum = "; ".join(
+        f"{k}: fed {v['feed_ms']:.2f} ms per frame (limit 33), "
+        f"{v['keyframes']} "
+        f"keyframes, {v['ms_per_keyframe_median']:.1f} ms per keyframe "
+        f"update, K1 {v['k1_launches']} / K2 {v['k2_launches']} launches"
+        for k, v in report["tum"].items())
+    print(f"phase 12: host decode ms at 480 x 640: {codecs}; TUM RGB-D at "
+          f"384 x 512, equal depth from both streams: {tum}; rgbd_stream "
+          f"over 16-bit PGM depth {report['pgm_rgbd_stream']['frames']} "
+          f"frames; {report['seconds']:.0f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke run needs an NVIDIA GPU")
@@ -2598,15 +2846,19 @@ def main():
     finally:
         dist.destroy_process_group()
     print_phase_11(oracle, report["ms_per_keyframe_median"])
+    torch.cuda.empty_cache()
+    formats = phase_12(dev, kernels)
+    print_phase_12(formats)
     # launches on the main path: K1 bf16 and K2 over track() +
-    # terminate(), phase 8's entry points and phase 10's JPEG runs, K2
-    # also over phase 7's sharded backend pass, K1 fp32 operands over
-    # phase 6's track()
+    # terminate(), phase 8's entry points, phase 10's JPEG runs and phase
+    # 12's TUM tracks, K2 also over phase 7's sharded backend pass, K1 fp32
+    # operands over phase 6's track()
     for name in ("masked_corr_level0_tc", "fused_pyramid_lookup"):
         k = kernels[name]
         k["launches"] = k["launches_track"] + k["launches_terminate"] + \
             k.get("launches_sharded_backend", 0) + \
-            k["launches_entry_points"] + k["launches_jpeg"]
+            k["launches_entry_points"] + k["launches_jpeg"] + \
+            k["launches_formats"]
     k = kernels["masked_corr_level0_tf32"]
     k["launches"] = k["launches_track_fp32"]
     for k in kernels.values():
@@ -2622,6 +2874,7 @@ def main():
     print(json.dumps({"gs": gs}))
     print(json.dumps({"jpeg": jpeg}))
     print(json.dumps({"oracle": oracle}))
+    print(json.dumps({"formats": formats}))
     print(json.dumps({"seconds": seconds}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -1,6 +1,7 @@
 /* JPEG decoder for the port's data layer (ITU-T T.81): baseline, extended
  * sequential and progressive Huffman coding of 8-bit samples, 1 component
- * (gray) or 3 (YCbCr, or RGB by the Adobe marker or the component ids),
+ * (gray), 3 (YCbCr, or RGB by the Adobe marker or the component ids) or 4
+ * (CMYK, or YCCK by the Adobe marker),
  * every integral sampling factor, restart intervals and the EXIF
  * orientation tag of the first APP1 segment.
  *
@@ -26,10 +27,12 @@
  * decoder does, whatever follows it.  Where libjpeg stops with an error
  * (OpenCV then returns None) the decoder returns JPEG_CORRUPT.
  *
- * Arithmetic coding, lossless and hierarchical files, other sample
- * precisions than 8 bits, 2 or 4 components (CMYK / YCCK) and fractional
- * sampling ratios return JPEG_UNSUPPORTED.  Every read of the data is
- * bounds-checked.
+ * Four components are CMYK or YCCK, converted to BGR or gray as OpenCV
+ * converts libjpeg's CMYK output (cmyk_output).  Arithmetic coding,
+ * lossless files, other sample precisions than 8 bits and fractional
+ * sampling ratios return JPEG_UNSUPPORTED; hierarchical files and 2 or more
+ * than 4 components, which libjpeg refuses, JPEG_CORRUPT.  Every read of
+ * the data is bounds-checked.
  *
  * Built by the host C compiler at first use and called through ctypes
  * (lgu_slam_tpu_torch/data/image_io.py).
@@ -380,11 +383,11 @@ static void read_sof(dec_t *s, int marker, const uint8_t *p, size_t L)
         fail(s, JPEG_CORRUPT, "image width 0");
     if (L != 6 + 3 * (size_t)s->ncomp) /* checked first, as libjpeg does */
         fail(s, JPEG_CORRUPT, "SOF: bad segment length");
-    if (s->ncomp == 4)
-        fail(s, JPEG_UNSUPPORTED, "4 components (CMYK or YCCK)");
-    if (s->ncomp != 1 && s->ncomp != 3)
-        fail(s, JPEG_UNSUPPORTED, "%d components (gray and 3-component "
-             "files are decoded)", s->ncomp);
+    /* libjpeg has no colour space of 2 or more than 4 components that
+     * converts to OpenCV's BGR or gray output */
+    if (s->ncomp != 1 && s->ncomp != 3 && s->ncomp != 4)
+        fail(s, JPEG_CORRUPT, "%d components (no conversion to BGR)",
+             s->ncomp);
     s->progressive = marker == 0xC2;
     s->hmax = s->vmax = 1;
     for (int i = 0; i < s->ncomp; i++) {
@@ -1121,12 +1124,57 @@ static void smooth_block(const dec_t *s, const comp_t *c, int by, int bx,
     ws[0] = predict(Q00 * num, Q00, 0);
 }
 
+/* A 4-component file: libjpeg's JCS_CMYK output (an Adobe transform of 0
+ * is CMYK, no Adobe marker too; any other transform is YCCK, converted by
+ * jdcolor.c ycck_cmyk_convert), then OpenCV's own conversion
+ * (grfmt_jpeg.cpp, imgcodecs utils icvCvt_CMYK2BGR_8u_C4C3R /
+ * icvCvt_CMYK2Gray_8u_C4C1R), which reads the samples as Adobe's inverted
+ * CMYK: R = K - ((255 - C) * K >> 8), and the same for G from M and B
+ * from Y; gray (4899 R + 9617 G + 1868 B + 8192) >> 14. */
+static void cmyk_output(const dec_t *s, const uint8_t *const *ch,
+                        uint8_t *out, size_t npx)
+{
+    const int ycck = s->adobe && s->adobe_transform != 0;
+    int cr_r[256], cb_b[256];
+    int64_t cr_g[256], cb_g[256];
+    const int64_t half = (int64_t)1 << 15;
+    for (int i = 0; i < 256; i++) {
+        int64_t x = i - 128;
+        cr_r[i] = (int)((91881 * x + half) >> 16);
+        cb_b[i] = (int)((116130 * x + half) >> 16);
+        cr_g[i] = -46802 * x;
+        cb_g[i] = -22554 * x + half;
+    }
+    for (size_t k = 0; k < npx; k++) {
+        int c = ch[0][k], m = ch[1][k], y = ch[2][k], K = ch[3][k];
+        if (ycck) {
+            int luma = c, cb = m, cr = y;
+            c = 255 - (luma + cr_r[cr]);
+            m = 255 - (luma + (int)((cb_g[cb] + cr_g[cr]) >> 16));
+            y = 255 - (luma + cb_b[cb]);
+            c = c < 0 ? 0 : c > 255 ? 255 : c;
+            m = m < 0 ? 0 : m > 255 ? 255 : m;
+            y = y < 0 ? 0 : y > 255 ? 255 : y;
+        }
+        int r = K - ((255 - c) * K >> 8);
+        int g = K - ((255 - m) * K >> 8);
+        int b = K - ((255 - y) * K >> 8);
+        if (s->gray_out) {
+            out[k] = (uint8_t)((4899 * r + 9617 * g + 1868 * b + 8192) >> 14);
+        } else {
+            out[3 * k] = (uint8_t)b;
+            out[3 * k + 1] = (uint8_t)g;
+            out[3 * k + 2] = (uint8_t)r;
+        }
+    }
+}
+
 static void output(dec_t *s, uint8_t *out)
 {
     const int W = s->width, H = s->height;
-    const uint8_t *ch[3];
+    const uint8_t *ch[4];
     /* a gray output of a gray or YCbCr file needs only component 0 */
-    const int needed = s->gray_out && !s->rgb ? 1 : s->ncomp;
+    const int needed = s->gray_out && !s->rgb && s->ncomp < 4 ? 1 : s->ncomp;
     for (int i = 0; i < needed; i++) {
         comp_t *c = &s->comp[i];
         size_t stride = (size_t)c->wib * 8;
@@ -1159,6 +1207,10 @@ static void output(dec_t *s, uint8_t *out)
         ch[i] = s->full[i];
     }
     size_t npx = (size_t)W * H;
+    if (s->ncomp == 4) {
+        cmyk_output(s, ch, out, npx);
+        return;
+    }
     if (s->gray_out && needed == 1) { /* jdcolor.c grayscale_convert */
         memcpy(out, ch[0], npx);
         return;
@@ -1236,13 +1288,15 @@ static void run(dec_t *s, int header_only, uint8_t *out)
         case 0xC5:
         case 0xC6:
         case 0xC7:
-            fail(s, JPEG_UNSUPPORTED, "hierarchical JPEG (SOF%d)", m - 0xC0);
+        case 0xC8:
+        case 0xCD:
+        case 0xCE:
+        case 0xCF: /* libjpeg refuses them (JERR_SOF_UNSUPPORTED) */
+            fail(s, JPEG_CORRUPT, "hierarchical JPEG (SOF%d), which libjpeg "
+                 "does not decode", m - 0xC0);
         case 0xC9:
         case 0xCA:
         case 0xCB:
-        case 0xCD:
-        case 0xCE:
-        case 0xCF:
         case 0xCC:
             fail(s, JPEG_UNSUPPORTED, "arithmetic coding (marker 0x%02x)", m);
         case 0xC4:

@@ -1,0 +1,224 @@
+/* TIFF strip and tile decoding for the port's data layer: the LZW and
+ * PackBits decoders and the inverse of the horizontal (predictor 2) and
+ * floating-point (predictor 3) predictors, as libtiff 4.7 (tif_lzw.c,
+ * tif_packbits.c, tif_predict.c) applies them for cv2.imread.
+ *
+ * Each decoder fills exactly `occ` bytes (a strip or a tile) and returns
+ * TIFF_OK, or TIFF_CORRUPT where libtiff reports an error (the data ends
+ * before the strip is full, a code past the table); the bytes it could not
+ * decode are then zero.  Extra data past `occ` is ignored, as libtiff
+ * ignores it.  Every read of the input is bounds-checked.
+ *
+ * Built by the host C compiler at first use and called through ctypes
+ * (lgu_slam_tpu_torch/data/tiff.py).
+ */
+#include <stdint.h>
+#include <stdlib.h>
+#include <string.h>
+
+#define TIFF_OK 0
+#define TIFF_CORRUPT 1
+#define TIFF_UNSUPPORTED 2
+#define TIFF_NOMEM 3
+
+#define LZW_CLEAR 256
+#define LZW_EOI 257
+#define LZW_FIRST 258
+#define LZW_BITS_MAX 12
+/* libtiff's table: 2^12 codes plus 1024 slack entries for encoders that
+ * are late to emit a clear code (tif_lzw.c CSIZE) */
+#define LZW_CSIZE ((1 << LZW_BITS_MAX) - 1 + 1024)
+
+typedef struct {
+    uint16_t prefix; /* the code of the string without its last byte */
+    uint8_t last;    /* its last byte */
+    uint8_t first;   /* its first byte */
+    uint32_t length;
+} lzw_entry;
+
+/* LZW of TIFF 6.0 section 13: codes of 9 to 12 bits, most significant bit
+ * first, the code width growing one code early (at 511, 1023, 2047).
+ * Old-style (LSB-first, pre-6.0) streams, which start with the bytes 0x00
+ * 0x01, return TIFF_UNSUPPORTED. */
+int tiff_lzw_decode(const uint8_t *src, int64_t n, uint8_t *dst, int64_t occ)
+{
+    if (n >= 2 && src[0] == 0 && (src[1] & 1))
+        return TIFF_UNSUPPORTED;
+    lzw_entry *tab = malloc(sizeof(lzw_entry) * LZW_CSIZE);
+    uint8_t *stack = malloc(LZW_CSIZE + 1);
+    if (tab == NULL || stack == NULL) {
+        free(tab);
+        free(stack);
+        return TIFF_NOMEM;
+    }
+    for (int i = 0; i < 256; i++) {
+        tab[i].prefix = 0;
+        tab[i].last = tab[i].first = (uint8_t)i;
+        tab[i].length = 1;
+    }
+    int64_t pos = 0, out = 0;
+    uint64_t acc = 0;
+    int accbits = 0, nbits = 9, free_ent = LZW_FIRST, old = -1;
+    int status = TIFF_OK;
+    while (out < occ) {
+        while (accbits < nbits && pos < n) {
+            acc = acc << 8 | src[pos++];
+            accbits += 8;
+        }
+        if (accbits < nbits)
+            break; /* the data ends without an EOI code: libtiff's warning */
+        int code = (int)(acc >> (accbits - nbits)) & ((1 << nbits) - 1);
+        accbits -= nbits;
+        if (code == LZW_EOI)
+            break;
+        if (code == LZW_CLEAR) {
+            nbits = 9;
+            free_ent = LZW_FIRST;
+            old = -1;
+            continue;
+        }
+        if (old < 0) { /* the first code after a clear: a byte */
+            if (code > 255) {
+                status = TIFF_CORRUPT;
+                break;
+            }
+            dst[out++] = (uint8_t)code;
+            old = code;
+            continue;
+        }
+        if (code > free_ent || free_ent >= LZW_CSIZE) {
+            status = TIFF_CORRUPT; /* "Corrupted LZW table" */
+            break;
+        }
+        /* the new entry: the previous string and the first byte of this
+         * one (of the previous one where this code is the new entry) */
+        lzw_entry *e = &tab[free_ent];
+        e->prefix = (uint16_t)old;
+        e->first = tab[old].first;
+        e->last = code == free_ent ? tab[old].first : tab[code].first;
+        e->length = tab[old].length + 1;
+        free_ent++;
+        if (free_ent > (1 << nbits) - 2 && nbits < LZW_BITS_MAX)
+            nbits++;
+        /* the string of code, written back to front */
+        uint32_t len = tab[code].length;
+        int c = code;
+        for (uint32_t k = len; k-- > 0;) {
+            stack[k] = tab[c].last;
+            c = tab[c].prefix;
+        }
+        int64_t take = len < (uint64_t)(occ - out) ? (int64_t)len : occ - out;
+        memcpy(dst + out, stack, (size_t)take);
+        out += take;
+        old = code;
+    }
+    if (status == TIFF_OK && out < occ)
+        status = TIFF_CORRUPT; /* "Not enough data at scanline" */
+    if (out < occ)
+        memset(dst + out, 0, (size_t)(occ - out));
+    free(tab);
+    free(stack);
+    return status;
+}
+
+/* PackBits (tif_packbits.c PackBitsDecode): a header byte n, then n + 1
+ * literal bytes (0 <= n <= 127) or one byte repeated 1 - n times
+ * (-127 <= n <= -1); -128 is skipped.  Runs longer than the space left
+ * are cut to it. */
+int tiff_packbits_decode(const uint8_t *src, int64_t n, uint8_t *dst,
+                         int64_t occ)
+{
+    int64_t pos = 0, out = 0;
+    while (pos < n && out < occ) {
+        int h = (int8_t)src[pos++];
+        if (h == -128)
+            continue;
+        if (h < 0) {
+            int64_t run = 1 - h;
+            if (run > occ - out)
+                run = occ - out;
+            if (pos >= n)
+                break; /* "Terminating PackBitsDecode due to lack of data" */
+            memset(dst + out, src[pos++], (size_t)run);
+            out += run;
+        } else {
+            int64_t run = h + 1;
+            if (run > occ - out)
+                run = occ - out;
+            if (n - pos < run)
+                break;
+            memcpy(dst + out, src + pos, (size_t)run);
+            out += run;
+            pos += run;
+        }
+    }
+    if (out < occ) {
+        memset(dst + out, 0, (size_t)(occ - out));
+        return TIFF_CORRUPT; /* "Not enough data for scanline" */
+    }
+    return TIFF_OK;
+}
+
+static inline uint16_t swap16(uint16_t v) { return (uint16_t)(v << 8 | v >> 8); }
+
+static inline uint32_t swap32(uint32_t v)
+{
+    return v << 24 | (v & 0xFF00) << 8 | (v >> 8 & 0xFF00) | v >> 24;
+}
+
+/* Undo the horizontal predictor in place (tif_predict.c horAcc8/16/32,
+ * swabHorAcc16/32): `rows` rows of `rowbytes` bytes, samples of `bytes`
+ * bytes (1, 2 or 4), `stride` samples per pixel.  With `swap` the samples
+ * are byte-swapped first (a file of the other byte order); the result is
+ * in the host's byte order. */
+void tiff_hpredict(uint8_t *buf, int64_t rows, int64_t rowbytes,
+                   int64_t stride, int bytes, int swap)
+{
+    int64_t count = rowbytes / bytes;
+    for (int64_t y = 0; y < rows; y++) {
+        uint8_t *row = buf + y * rowbytes;
+        if (bytes == 1) {
+            for (int64_t i = stride; i < count; i++)
+                row[i] = (uint8_t)(row[i] + row[i - stride]);
+        } else if (bytes == 2) {
+            uint16_t *w = (uint16_t *)row;
+            if (swap)
+                for (int64_t i = 0; i < count; i++)
+                    w[i] = swap16(w[i]);
+            for (int64_t i = stride; i < count; i++)
+                w[i] = (uint16_t)(w[i] + w[i - stride]);
+        } else {
+            uint32_t *w = (uint32_t *)row;
+            if (swap)
+                for (int64_t i = 0; i < count; i++)
+                    w[i] = swap32(w[i]);
+            for (int64_t i = stride; i < count; i++)
+                w[i] = w[i] + w[i - stride];
+        }
+    }
+}
+
+/* Undo the floating-point predictor in place (tif_predict.c fpAcc): each
+ * row holds the bytes of its samples as `bytes` planes, most significant
+ * first, each byte differenced against the byte `stride` before it.  The
+ * result is the samples in the host's (little-endian) byte order.  Returns
+ * TIFF_NOMEM, or TIFF_OK. */
+int tiff_fpredict(uint8_t *buf, int64_t rows, int64_t rowbytes,
+                  int64_t stride, int bytes)
+{
+    uint8_t *tmp = malloc((size_t)(rowbytes > 0 ? rowbytes : 1));
+    if (tmp == NULL)
+        return TIFF_NOMEM;
+    int64_t wc = rowbytes / bytes;
+    for (int64_t y = 0; y < rows; y++) {
+        uint8_t *row = buf + y * rowbytes;
+        for (int64_t i = stride; i < rowbytes; i++)
+            row[i] = (uint8_t)(row[i] + row[i - stride]);
+        memcpy(tmp, row, (size_t)rowbytes);
+        for (int64_t k = 0; k < wc; k++)
+            for (int b = 0; b < bytes; b++)
+                row[bytes * k + b] = tmp[(int64_t)(bytes - b - 1) * wc + k];
+    }
+    free(tmp);
+    return TIFF_OK;
+}

@@ -4,7 +4,9 @@ own PNG and JPEG encoders: for the tests and ``chip_smoke.py``, which have
 no dataset to read (nothing is downloaded).
 
 - :func:`write_tum_sequence`: a TUM RGB-D sequence (``rgb/``, 16-bit
-  ``depth/`` in 1/5000 m, ``rgb.txt``, ``depth.txt``, ``groundtruth.txt``);
+  ``depth/`` in 1/5000 m, ``rgb.txt``, ``depth.txt``, ``groundtruth.txt``),
+  its frames in a format of :func:`write_frame` (colour PNG or PPM; depth
+  as 16-bit PNG or PGM, or float TIFF or PFM);
 - :func:`write_euroc_sequence`: a EuRoC MAV stereo sequence (gray
   ``mav0/cam0|cam1/data/<ns>.png`` and the state-estimate ``data.csv``);
 - :func:`write_tartanair_scene`: a TartanAir scene (``image_left/``,
@@ -28,7 +30,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from lgu_slam_tpu_torch.data.image_io import encode_jpeg, imwrite
+from lgu_slam_tpu_torch.data import pnm, tiff
+from lgu_slam_tpu_torch.data.image_io import encode_jpeg, encode_png, imwrite
 from lgu_slam_tpu_torch.data.synthetic import (
     SyntheticScene,
     _quat_to_mat,
@@ -98,12 +101,38 @@ def _write_list(path, header, rows):
         fh.write(header + "\n" + "\n".join(rows) + "\n")
 
 
+def write_frame(path, image, kind: str) -> str:
+    """Write ``image`` as ``kind`` at ``path`` + its extension, the way a
+    dataset of that format stores it; returns the file's path.  Colour
+    (``uint8 [H, W, 3]``): ``png``, ``ppm`` (binary P6); depth (``uint16
+    [H, W]``): ``png``, ``pgm`` (binary 16-bit P5), or the same values as
+    ``float32`` in ``tiff`` (Deflate, floating-point predictor) or
+    ``pfm``."""
+    path = f"{path}.{kind}"
+    if kind == "png":
+        data = encode_png(image)
+    elif kind in ("ppm", "pgm"):
+        data = pnm.encode_pnm(image)
+    elif kind == "tiff":
+        data = tiff.encode_tiff(image.astype(np.float32), "deflate", 3)
+    elif kind == "pfm":
+        data = pnm.encode_pfm(image.astype(np.float32))
+    else:
+        raise ValueError(f"no fixture format {kind!r}")
+    with open(path, "wb") as fh:
+        fh.write(data)
+    return path
+
+
 def write_tum_sequence(root, n_frames: int = 40, H: int = 480, W: int = 640,
-                       seed: int = 0, rate: float = 30.0) -> str:
+                       seed: int = 0, rate: float = 30.0, color: str = "png",
+                       depth: str = "png") -> str:
     """A TUM RGB-D sequence under ``root`` (name it ``*freiburg1*`` for the
     fr1 calibration, as the benchmark's folders are named): colour at
-    ``rate`` Hz, depth 10 ms after each colour frame, ground truth at the
-    colour stamps.  Returns ``root``."""
+    ``rate`` Hz, depth (in 1/5000 m) 10 ms after each colour frame, ground
+    truth at the colour stamps; frames stored as :func:`write_frame`'s
+    ``color`` and ``depth`` formats (TUM's own: 16-bit PNG).  Returns
+    ``root``."""
     images, depths, poses, _ = render_sequence(
         seed, n_frames, H, W, TUM_FR1, t_step=0.02, r_step=0.004)
     for sub in ("rgb", "depth"):
@@ -112,12 +141,12 @@ def write_tum_sequence(root, n_frames: int = 40, H: int = 480, W: int = 640,
     for k in range(n_frames):
         t = TUM_T0 + k / rate
         d = np.clip(np.rint(depths[k] * 5000.0), 0, 65535).astype(np.uint16)
-        files += [(os.path.join(root, "rgb", f"{t:.6f}.png"), images[k]),
-                  (os.path.join(root, "depth", f"{t + 0.01:.6f}.png"), d)]
-        rgb.append(f"{t:.6f} rgb/{t:.6f}.png")
-        dep.append(f"{t + 0.01:.6f} depth/{t + 0.01:.6f}.png")
+        files += [(os.path.join(root, "rgb", f"{t:.6f}"), images[k], color),
+                  (os.path.join(root, "depth", f"{t + 0.01:.6f}"), d, depth)]
+        rgb.append(f"{t:.6f} rgb/{t:.6f}.{color}")
+        dep.append(f"{t + 0.01:.6f} depth/{t + 0.01:.6f}.{depth}")
         gt.append(f"{t:.6f} " + " ".join(f"{v:.7f}" for v in poses[k]))
-    _write_pngs(files)
+    _on_cores(lambda f: write_frame(*f), files)
     _write_list(os.path.join(root, "rgb.txt"), "# color images", rgb)
     _write_list(os.path.join(root, "depth.txt"), "# depth maps", dep)
     _write_list(os.path.join(root, "groundtruth.txt"),

@@ -1,43 +1,51 @@
-"""Image files for the port's data layer: PNG, JPEG and BMP decoders and
-encoders of its own, in place of the ``cv2.imread`` / ``cv2.imwrite`` calls
-of the JAX package's data layer (the port runs where OpenCV is not
-installed).
+"""Image files for the port's data layer: decoders and encoders of its own
+in place of the ``cv2.imread`` / ``cv2.imwrite`` calls of the JAX
+package's data layer (the port runs where OpenCV is not installed).
 
-:func:`imread` returns what ``cv2.imread`` returns for these files:
+:func:`imread` picks the decoder by the file's signature, as ``cv2.imread``
+does (:func:`sniff`), whatever the file's name, and returns what
+``cv2.imread`` (OpenCV 5.0) returns:
 
-- ``imread(path)``: ``uint8 [H, W, 3]`` in BGR order; a gray image comes
-  back as three equal channels, alpha is dropped, and 16-bit samples keep
-  their high byte (libpng's ``png_set_strip_16``, which OpenCV's decoder
-  calls);
+- ``imread(path)``: ``uint8 [H, W, 3]``, BGR for every format but P7 RGB
+  (kept in the file's order, as OpenCV keeps it); gray comes back as three
+  equal channels, alpha is dropped, and 16-bit samples become 8-bit by
+  each reader's own rule (PNG, PNM, PAM and 16-bit gray TIFF keep the high
+  byte; 16-bit colour TIFF rounds ``x / 257``);
 - ``imread(path, anydepth=True)`` (``cv2.IMREAD_ANYDEPTH``): one channel,
-  ``uint16`` for 16-bit PNGs, ``uint8`` otherwise; colour files convert to
-  gray as OpenCV's readers convert them (libpng's ``rgb_to_gray`` for PNG,
-  libjpeg's ``JCS_GRAYSCALE`` output for JPEG, OpenCV's own for BMP).
+  ``uint16`` for 16-bit PNG, TIFF, PNM and PAM, ``float32`` for float TIFF
+  and PFM, ``uint8`` otherwise; colour converts to gray as each reader
+  converts it (libpng's ``rgb_to_gray`` for PNG, libjpeg's
+  ``JCS_GRAYSCALE`` output for JPEG, OpenCV's own ``(4899 R + 9617 G +
+  1868 B + 8192) >> 14`` for BMP, TIFF, PNM and PAM).
 
-PNG decoding (:func:`decode_png`) covers every colour type and bit depth
-of the standard (gray at 1, 2, 4, 8 and 16 bits, palette with ``PLTE`` and
-``tRNS``, gray + alpha, RGB, RGBA), all five row filters and Adam7
-interlacing.  The row unfilter, sequential along a row for the Average and
-Paeth filters, runs in C (``csrc/host/png_unfilter.c``, built by the host
-compiler at first use); :func:`unfilter_plain` is its numpy version, for
-the tests.  :func:`encode_png` writes fixtures of every mode it reads.
+The formats, their decoders and what each reads:
 
-JPEG decoding (:func:`decode_jpeg`) runs in C (``csrc/host/jpeg_decode.c``,
-built the same way): baseline and progressive Huffman JPEG of 8-bit gray or
-3-component files, every sampling factor OpenCV writes, restart intervals
-and the EXIF orientation, bit for bit as ``cv2.imread`` (libjpeg-turbo 3.1)
-decodes them, truncated and damaged streams included (libjpeg's warnings:
-the data's end padded, bad codes read as zero, block smoothing of
-incomplete progressive coefficients); a stream for which OpenCV returns
-None raises ``ValueError``.  Arithmetic coding, 12-bit, lossless,
-hierarchical and CMYK / YCCK files raise ``NotImplementedError``.
-:func:`encode_jpeg` is a baseline encoder in numpy for writing fixtures.
+- PNG (:func:`decode_png`): every colour type and bit depth of the
+  standard, palette with ``tRNS``, all five row filters (the row unfilter
+  in C, ``csrc/host/png_unfilter.c``, built by the host compiler at first
+  use; :func:`unfilter_plain` is its numpy version) and Adam7;
+- JPEG (:func:`decode_jpeg`, in C, ``csrc/host/jpeg_decode.c``): baseline,
+  extended and progressive Huffman files of 1, 3 or 4 components (CMYK and
+  YCCK by the Adobe marker, converted as OpenCV converts them), every
+  sampling factor, restart intervals and the EXIF orientation, damaged
+  streams as libjpeg-turbo 3.1 reads them;
+- BMP (:func:`decode_bmp`): 1-, 4-, 8-bit palettes, RLE8 and RLE4 (in C,
+  ``csrc/host/bmp_rle.c``), 16-bit 5-5-5 and 5-6-5, 24- and 32-bit,
+  bottom-up and top-down, 40-byte (and longer) and OS/2 headers;
+- TIFF (``data/tiff.py``): strips and tiles, both byte orders, planar 1
+  and 2, none / LZW / Deflate / PackBits with their predictors, 1-, 8- and
+  16-bit gray, RGB and RGBA, 8-bit palette, 32-bit float;
+- PBM / PGM / PPM, PAM and PFM (``data/pnm.py``).
 
-BMP decoding (:func:`decode_bmp`) covers uncompressed 8-bit palette, 24-
-and 32-bit files with the 40-byte header or its extensions, bottom-up and
-top-down; RLE compression, other depths and OS/2 headers raise
-``NotImplementedError``, as every other format (TIFF, WebP) does.
-:func:`encode_bmp` writes fixtures.
+A file ``cv2.imread`` returns None for raises ``ValueError``.  A format
+this OpenCV build reads and the port does not yet read raises
+``NotImplementedError`` naming it: WebP, JPEG 2000, AVIF, GIF, Sun raster,
+Radiance HDR, and within the formats above arithmetic-coded, 12-bit and
+lossless JPEG, TIFF's other compressions and layouts, and what each
+decoder lists.  The encoders (:func:`encode_png`, :func:`encode_jpeg`,
+:func:`encode_bmp`, ``tiff.encode_tiff``, ``pnm.encode_pnm`` /
+``encode_pam`` / ``encode_pfm``) write fixtures of the modes the decoders
+read.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ import zlib
 
 import numpy as np
 
+from lgu_slam_tpu_torch.data import pnm, tiff
 from lgu_slam_tpu_torch.ops import _build
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -179,21 +188,73 @@ def png_gray(px: np.ndarray) -> np.ndarray:
     return np.where((r == g) & (r == b), r, acc >> 15).astype(px.dtype)
 
 
+# signatures of the formats this OpenCV build reads and the port does not
+# yet read: cv2.imread picks its decoder by them, whatever the file's name
+QUEUED = ((b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"),
+          (b"\x59\xa6\x6a\x95", "Sun raster"), (b"GIF87a", "GIF"),
+          (b"GIF89a", "GIF"),
+          (b"\0\0\0\x0cjP  \r\n\x87\n", "JPEG 2000 (JP2)"),
+          (b"\xff\x4f\xff\x51", "JPEG 2000 (codestream)"))
+
+
+def sniff(data: bytes) -> str:
+    """The decoder ``cv2.imread`` picks for ``data``, by its signature
+    (OpenCV 5.0's registration order): ``bmp``, ``jpeg``, ``pnm``, ``pfm``,
+    ``tiff``, ``png`` or ``pam``; a format this build of OpenCV reads and
+    the port does not yet read raises ``NotImplementedError`` naming it;
+    anything else ``ValueError`` (cv2.imread returns None)."""
+    head = data[:32]
+    if head.startswith(BMP_MAGIC):
+        return "bmp"
+    if head.startswith(JPEG_SOI):
+        return "jpeg"
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        raise NotImplementedError("WebP")
+    if len(head) >= 3 and head[0] == 0x50 and head[2] in pnm.SPACE:
+        if 0x31 <= head[1] <= 0x36:
+            return "pnm"
+        if head[1] in b"fF":
+            return "pfm"
+        if head[1] == 0x37:
+            return "pam"
+    if head[:4] in (tiff.TIFF_II, tiff.TIFF_MM) + tiff.BIGTIFF:
+        return "tiff"
+    if head.startswith(SIGNATURE):
+        return "png"
+    if head[4:8] == b"ftyp" and (b"avif" in data[8:64] or
+                                  b"avis" in data[8:64]):
+        raise NotImplementedError("AVIF")
+    for sig, name in QUEUED:
+        if head.startswith(sig):
+            raise NotImplementedError(name)
+    raise ValueError("no image format of cv2.imread's has this signature")
+
+
 def imread(path, anydepth: bool = False) -> np.ndarray:
     """``cv2.imread(path)``, or with ``anydepth`` ``cv2.imread(path,
-    cv2.IMREAD_ANYDEPTH)``, for PNG, JPEG and BMP files (module
-    docstring).  A missing file raises ``FileNotFoundError``, and a file
-    of another format ``NotImplementedError`` (OpenCV returns None for
-    both where it cannot read them)."""
+    cv2.IMREAD_ANYDEPTH)``, for the formats of the module docstring, picked
+    by the file's signature as OpenCV picks them.  A missing file raises
+    ``FileNotFoundError``; a file OpenCV returns None for, ``ValueError``;
+    a format OpenCV reads and the port does not yet read,
+    ``NotImplementedError`` naming it (never to be taken for None)."""
     with open(path, "rb") as fh:
         data = fh.read()
-    if data.startswith(JPEG_SOI):
+    try:
+        kind = sniff(data)
+    except (NotImplementedError, ValueError) as e:
+        raise type(e)(f"{path}: {e}") from None
+    if kind == "jpeg":
         return decode_jpeg(data, path, gray=anydepth)
-    if data.startswith(BMP_MAGIC):
+    if kind == "bmp":
         return decode_bmp(data, path, gray=anydepth)
-    if not data.startswith(SIGNATURE):
-        raise NotImplementedError(f"{path}: only PNG, JPEG and BMP files "
-                                  "are read")
+    if kind == "pnm":
+        return pnm.decode_pnm(data, path, gray=anydepth)
+    if kind == "pfm":
+        return pnm.decode_pfm(data, path, gray=anydepth)
+    if kind == "pam":
+        return pnm.decode_pam(data, path, gray=anydepth)
+    if kind == "tiff":
+        return tiff.decode_tiff(data, path, gray=anydepth)
     px = decode_png(data, path)
     if px.shape[-1] in (2, 4):  # alpha is dropped (png_set_strip_alpha)
         px = px[..., :-1]
@@ -399,9 +460,9 @@ BMP_RLE = {1: "RLE8", 2: "RLE4"}
 
 def bgr_gray(bgr: np.ndarray) -> np.ndarray:
     """OpenCV's gray of ``uint8`` BGR samples (``icvCvt_BGR2Gray_8u``):
-    coefficients 1868 / 9617 / 4899 over 2^14, rounded."""
-    b, g, r = (bgr[..., c].astype(np.int64) for c in range(3))
-    return ((1868 * b + 9617 * g + 4899 * r + 8192) >> 14).astype(np.uint8)
+    coefficients 1868 / 9617 / 4899 over 2^14, rounded
+    (:func:`pnm.gray14` of the samples in RGB order)."""
+    return pnm.gray14(bgr[..., 2::-1])
 
 
 def bgra_bitfields_gray(bgr: np.ndarray) -> np.ndarray:
@@ -411,98 +472,251 @@ def bgra_bitfields_gray(bgr: np.ndarray) -> np.ndarray:
     return ((7471 * b + 38470 * g + 19595 * r) >> 16).astype(np.uint8)
 
 
-# the masks of BGRA bytes (red, green, blue), the only ones read
+# the masks of BGRA bytes (red, green, blue), the only 32-bit ones read
 BMP_MASKS = (0xFF0000, 0xFF00, 0xFF)
+# 16-bit masks (red, green, blue) OpenCV reads, and its depth for them
+BMP_MASKS16 = {(0x7C00, 0x3E0, 0x1F): 15, (0xF800, 0x7E0, 0x1F): 16}
+
+
+def _bmp_header(data: bytes, path) -> tuple:
+    """(width, height, bits, compression, palette [256, 3] BGR or None,
+    pixel data offset) of a BMP as OpenCV's reader takes them
+    (grfmt_bmp.cpp readHeader): a 12-byte OS/2 header with 3-byte palette
+    entries, or a header of 36 bytes or more (40, or the V4 / V5
+    extensions) with 4-byte entries and, for 16-bit bit masks, the masks
+    after the header; 16-bit samples are 5-5-5 (bits 15) or 5-6-5."""
+    def u32(at):
+        if at + 4 > len(data):
+            raise ValueError(f"{path}: BMP header cut short")
+        return struct.unpack_from("<I", data, at)[0]
+
+    offset, size = u32(10), u32(14)
+    palette = None
+    if size >= 36:
+        W, H = struct.unpack("<ii", struct.pack("<II", u32(18), u32(22)))
+        bpp, compression, colours = u32(26) >> 16, u32(30), u32(46)
+        if compression > 3:
+            raise ValueError(f"{path}: BMP compression {compression}")
+        ok = (bpp in (1, 4, 8, 24, 32) and compression == 0) or (
+            bpp in (16, 32) and compression in (0, 3)) or (
+            (bpp, compression) in ((4, 2), (8, 1)))
+        if W <= 0 or H == 0 or not ok:
+            raise ValueError(f"{path}: {bpp}-bit BMP of {W} x {H} pixels, "
+                             f"compression {compression}")
+        at = 14 + size
+        if bpp <= 8:
+            if colours > 256:
+                raise ValueError(f"{path}: BMP palette of {colours} colours")
+            n = colours or 1 << bpp
+            if at + 4 * n > len(data):
+                raise ValueError(f"{path}: BMP palette cut short")
+            palette = np.zeros((256, 3), np.uint8)
+            palette[:n] = np.frombuffer(data, np.uint8, 4 * n, at
+                                        ).reshape(n, 4)[:, :3]
+        elif bpp == 16 and compression == 3:
+            masks = (u32(at), u32(at + 4), u32(at + 8))
+            if masks not in BMP_MASKS16:
+                raise ValueError(f"{path}: 16-bit BMP masks "
+                                 f"{[hex(m) for m in masks]}")
+            bpp = BMP_MASKS16[masks]
+        elif bpp == 16:
+            bpp = 15
+    elif size == 12:
+        if len(data) < 26:
+            raise ValueError(f"{path}: BMP header cut short")
+        W, H = struct.unpack_from("<HH", data, 18)
+        bpp, compression = u32(22) >> 16, 0
+        if W == 0 or H == 0 or bpp not in (1, 4, 8, 24, 32):
+            raise ValueError(f"{path}: {bpp}-bit OS/2 BMP of {W} x {H} "
+                             "pixels")
+        if bpp <= 8:
+            n = 1 << bpp
+            if 26 + 3 * n > len(data):
+                raise ValueError(f"{path}: BMP palette cut short")
+            palette = np.zeros((256, 3), np.uint8)
+            palette[:n] = np.frombuffer(data, np.uint8, 3 * n, 26
+                                        ).reshape(n, 3)
+    else:
+        raise ValueError(f"{path}: BMP header of {size} bytes")
+    return W, H, bpp, compression, palette, offset
+
+
+def bmp_rle(data: bytes, width: int, height: int, rle4: bool) -> np.ndarray:
+    """RLE8 / RLE4 pixel data -> ``uint8 [height, width]`` palette indices
+    in the order the data fills the rows, decoded in C as OpenCV's reader
+    decodes it (``csrc/host/bmp_rle.c``); data it refuses raises
+    ``ValueError``."""
+    lib = _build.load("bmp_rle")
+    fn = lib.bmp_rle_decode
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int,
+                   ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = np.zeros((height, width), np.uint8)
+    if fn(data, len(data), int(rle4), width, height, out.ctypes.data):
+        raise ValueError(f"BMP {'RLE4' if rle4 else 'RLE8'} data runs past "
+                         "a row or ends early")
+    return out
 
 
 def decode_bmp(data: bytes, path="<bytes>", gray: bool = False
                ) -> np.ndarray:
-    """Uncompressed BMP bytes (8-bit palette, 24- and 32-bit, the latter
-    also with the BGRA bit masks that ``cv2.imwrite`` writes; bottom-up or
-    top-down; rows padded to 4 bytes) -> ``uint8 [H, W, 3]`` BGR as
-    ``cv2.imread`` returns them (a 32-bit file's fourth byte dropped), or
-    with ``gray`` ``[H, W]`` as ``cv2.imread(path, cv2.IMREAD_ANYDEPTH)``
-    (:func:`bgr_gray` of the colours; :func:`bgra_bitfields_gray` for bit
-    masks).  RLE compression, other depths and other masks raise
-    ``NotImplementedError``."""
-    if len(data) < 26 or not data.startswith(BMP_MAGIC):
+    """BMP bytes -> ``uint8 [H, W, 3]`` BGR as ``cv2.imread`` returns them,
+    or with ``gray`` ``[H, W]`` as ``cv2.imread(path,
+    cv2.IMREAD_ANYDEPTH)``: 1-, 4- and 8-bit palettes, RLE8 and RLE4
+    (:func:`bmp_rle`), 16-bit 5-5-5 and 5-6-5 (each 5 or 6 bits shifted
+    left, not scaled), 24-bit, 32-bit (also with the BGRA bit masks that
+    ``cv2.imwrite`` writes); bottom-up or top-down; OS/2 headers.  Gray is
+    :func:`bgr_gray` of the colours, :func:`bgra_bitfields_gray` for 32-bit
+    masks.  Files OpenCV refuses raise ``ValueError``; 32-bit masks other
+    than BGRA bytes ``NotImplementedError``."""
+    if len(data) < 18 or not data.startswith(BMP_MAGIC):
         raise ValueError(f"{path}: not a BMP file")
-    offset, size = struct.unpack_from("<II", data, 10)
-    if size < 40 or len(data) < 54:
-        raise NotImplementedError(f"{path}: BMP header of {size} bytes "
-                                  "(the 40-byte header and its extensions "
-                                  "are read)")
-    W, height, _, bpp, compression = struct.unpack_from("<iiHHI", data, 18)
-    colours, = struct.unpack_from("<I", data, 46)
-    if compression in BMP_RLE:
-        raise NotImplementedError(f"{path}: {BMP_RLE[compression]} "
-                                  "compressed BMP")
-    if bpp not in (8, 24, 32) or compression not in (0, 3) or (
-            compression == 3 and bpp != 32):
-        raise NotImplementedError(f"{path}: {bpp}-bit BMP (compression "
-                                  f"{compression}); 8-bit palette, 24- and "
-                                  "32-bit files are read")
-    if compression == 3 and (len(data) < 66 or struct.unpack_from(
-            "<III", data, 54) != BMP_MASKS):
+    W, height, bpp, compression, palette, offset = _bmp_header(data, path)
+    if bpp == 32 and compression == 3 and struct.unpack_from(
+            "<III", data, 54) != BMP_MASKS:
         raise NotImplementedError(f"{path}: BMP bit masks other than BGRA "
                                   "bytes")
     H = abs(height)
-    if W <= 0 or H == 0:
-        raise ValueError(f"{path}: BMP of {W} x {height} pixels")
-    pitch = ((W * bpp + 7) // 8 + 3) & ~3
-    if offset + H * pitch > len(data):
-        raise ValueError(f"{path}: BMP pixel data ends early")
-    rows = np.frombuffer(data, np.uint8, H * pitch, offset).reshape(H, pitch)
+    if H * W * 3 >= 1 << 30:
+        raise ValueError(f"{path}: BMP of {W} x {H} pixels is more than "
+                         "cv2.imread reads")
+    if compression in BMP_RLE:
+        rows = bmp_rle(data[offset:], W, H, compression == 2)
+    else:
+        pitch = ((W * (16 if bpp == 15 else bpp) + 7) // 8 + 3) & ~3
+        if offset + H * pitch > len(data):
+            raise ValueError(f"{path}: BMP pixel data ends early")
+        rows = np.frombuffer(data, np.uint8, H * pitch, offset
+                             ).reshape(H, pitch)
+        if bpp < 8:  # indices packed most significant first
+            bits = np.unpackbits(rows, axis=1).reshape(H, -1, bpp)
+            rows = bits @ (1 << np.arange(bpp - 1, -1, -1)).astype(np.uint8)
     if height > 0:  # bottom-up
         rows = rows[::-1]
-    if bpp == 8:
-        n = colours or 256
-        if not 0 <= n <= 256 or 14 + size + 4 * n > len(data):
-            raise ValueError(f"{path}: BMP palette of {n} colours")
-        table = np.zeros((256, 3), np.uint8)
-        pal = np.frombuffer(data, np.uint8, 4 * n, 14 + size)
-        table[:n] = pal.reshape(n, 4)[:, :3]
-        bgr = table[rows[:, :W]]
+    if bpp <= 8:
+        bgr = palette[rows[:, :W]]
+    elif bpp in (15, 16):
+        t = rows[:, :2 * W].copy().view("<u2").astype(np.int64)
+        bgr = np.stack([t << 3, (t >> 2) & 0xF8 if bpp == 15 else
+                        (t >> 3) & 0xFC, (t >> 7 if bpp == 15 else t >> 8)
+                        & 0xF8], axis=-1).astype(np.uint8)
     else:
         c = bpp // 8
         bgr = rows[:, :W * c].reshape(H, W, c)[..., :3]
     if gray:
-        return bgra_bitfields_gray(bgr) if compression == 3 else \
-            bgr_gray(bgr)
+        return bgra_bitfields_gray(bgr) if bpp == 32 and compression == 3 \
+            else bgr_gray(bgr)
     return np.ascontiguousarray(bgr)
 
 
-def encode_bmp(img: np.ndarray, top_down: bool = False,
-               palette=None) -> bytes:
-    """``uint8`` ``[H, W, 3]`` BGR (24-bit), ``[H, W, 4]`` BGRA (32-bit) or
-    ``[H, W]`` (8-bit, through ``palette`` [N, 3] BGR, else a gray ramp)
-    -> uncompressed BMP bytes with a 40-byte header, bottom-up unless
-    ``top_down``, rows padded to 4 bytes."""
+def _rle_rows(idx: np.ndarray, rle4: bool) -> bytes:
+    """RLE8 / RLE4 of rows of indices (bottom row first): runs of 3 or
+    more equal values encoded, the rest in absolute runs (3 or more values)
+    or encoded runs of 1 or 2; an end-of-line after each row but the last,
+    which ends with the end-of-bitmap."""
+    out = bytearray()
+    for k, row in enumerate(idx):
+        row, i, W = [int(v) for v in row], 0, len(row)
+        while i < W:
+            j = i
+            while j + 1 < W and row[j + 1] == row[i] and j - i < 254:
+                j += 1
+            if j - i >= 2 or W - i < 3:
+                n = j - i + 1
+                out += bytes([n, row[i] * 17 if rle4 else row[i]])
+                i = j + 1
+                continue
+            j = i
+            while j < W and j - i < 255 and not (
+                    j + 2 < W and row[j] == row[j + 1] == row[j + 2]):
+                j += 1
+            n = j - i
+            if n < 3:
+                out += bytes([1, row[i] * 17 if rle4 else row[i]])
+                i += 1
+                continue
+            vals = row[i:j]
+            if rle4:
+                vals += [0] * (n & 1)
+                body = bytes(a << 4 | b for a, b in zip(vals[::2],
+                                                          vals[1::2]))
+            else:
+                body = bytes(vals)
+            out += bytes([0, n]) + body + b"\0" * (len(body) & 1)
+            i = j
+        out += b"\0\1" if k == len(idx) - 1 else b"\0\0"
+    return bytes(out)
+
+
+def encode_bmp(img: np.ndarray, top_down: bool = False, palette=None,
+               bpp=None, rle: bool = False, masks16=None, os2: bool = False,
+               rle_data=None) -> bytes:
+    """``uint8`` ``[H, W, 3]`` BGR (24-bit, or 16-bit with ``bpp`` 16:
+    5-5-5, or with ``masks16`` "555" / "565" bit masks), ``[H, W, 4]``
+    BGRA (32-bit) or ``[H, W]`` indices (8-bit, or ``bpp`` 1 or 4, through
+    ``palette`` [N, 3] BGR, else a gray ramp) -> BMP bytes with a 40-byte
+    header (``os2``: the 12-byte OS/2 one), bottom-up unless ``top_down``,
+    rows padded to 4 bytes; ``rle`` compresses indices as RLE8 or RLE4
+    (:func:`_rle_rows`), or ``rle_data`` is written as the RLE data."""
     img = np.asarray(img)
     if img.dtype != np.uint8 or img.ndim not in (2, 3) or (
             img.ndim == 3 and img.shape[-1] not in (3, 4)):
         raise ValueError(f"BMP images are uint8 [H, W(, 3|4)], not "
                          f"{img.dtype} {img.shape}")
     H, W = img.shape[:2]
-    bpp = 8 if img.ndim == 2 else 8 * img.shape[-1]
-    table = b""
-    if bpp == 8:
-        pal = (np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)
+    if os2 and top_down:
+        raise ValueError("an OS/2 BMP header has no top-down rows")
+    bpp = bpp or (8 if img.ndim == 2 else 8 * img.shape[-1])
+    if masks16 is not None:
+        bpp = 16
+    table, compression, extra = b"", 0, b""
+    if bpp <= 8:
+        pal = (np.repeat(np.linspace(0, 255, 1 << bpp).astype(np.uint8)
+                         [:, None], 3, 1)
                if palette is None else np.asarray(palette, np.uint8))
-        quad = np.zeros((len(pal), 4), np.uint8)
+        quad = np.zeros((len(pal), 3 if os2 else 4), np.uint8)
         quad[:, :3] = pal
         table = quad.tobytes()
-    pitch = ((W * bpp // 8) + 3) & ~3
-    rows = np.zeros((H, pitch), np.uint8)
-    rows[:, :W * bpp // 8] = img.reshape(H, -1)
-    if not top_down:
-        rows = rows[::-1]
-    offset = 54 + len(table)
-    header = struct.pack("<2sIHHI", BMP_MAGIC, offset + rows.size, 0, 0,
+    if bpp == 16:
+        b, g, r = (img[..., c].astype(np.uint16) for c in range(3))
+        if masks16 == "565":
+            px = (r >> 3) << 11 | (g >> 2) << 5 | b >> 3
+        else:
+            px = (r >> 3) << 10 | (g >> 3) << 5 | b >> 3
+        img = px.astype("<u2").view(np.uint8).reshape(H, 2 * W)
+        if masks16 is not None:
+            compression = 3
+            extra = struct.pack("<III", *{
+                "555": (0x7C00, 0x3E0, 0x1F),
+                "565": (0xF800, 0x7E0, 0x1F)}[masks16])
+    if rle or rle_data is not None:
+        compression = {8: 1, 4: 2}[bpp]
+        rows = img[::-1] if not top_down else img
+        body = rle_data if rle_data is not None else \
+            _rle_rows(rows, bpp == 4)
+    else:
+        pitch = ((W * bpp + 7) // 8 + 3) & ~3
+        rows = np.zeros((H, pitch), np.uint8)
+        if bpp < 8:
+            bits = np.unpackbits(img[..., None], axis=-1)[..., 8 - bpp:]
+            packed = np.packbits(bits.reshape(H, -1), axis=1)
+            rows[:, :packed.shape[1]] = packed
+        else:
+            rows[:, :W * bpp // 8] = img.reshape(H, -1)
+        if not top_down:
+            rows = rows[::-1]
+        body = rows.tobytes()
+    hsize = 12 if os2 else 40
+    offset = 14 + hsize + len(extra) + len(table)
+    header = struct.pack("<2sIHHI", BMP_MAGIC, offset + len(body), 0, 0,
                          offset)
-    info = struct.pack("<IiiHHIIiiII", 40, W, -H if top_down else H, 1, bpp,
-                       0, rows.size, 2835, 2835, len(table) // 4, 0)
-    return header + info + table + rows.tobytes()
+    if os2:
+        info = struct.pack("<IHHHH", 12, W, H, 1, bpp)
+    else:
+        info = struct.pack("<IiiHHIIiiII", 40, W, -H if top_down else H, 1,
+                           bpp, compression, len(body), 2835, 2835,
+                           len(table) // 4, 0)
+    return header + info + extra + table + body
 
 
 # -- JPEG --------------------------------------------------------------------
@@ -628,34 +842,48 @@ def _sizes(v):
     return np.frexp(np.abs(v))[1].astype(np.int64)
 
 
-def _planes(img: np.ndarray, h: int, v: int) -> list:
-    """The component planes of ``img`` padded to whole MCUs of ``h`` x
-    ``v`` luma blocks by edge replication: gray, or Y and the chroma
-    averaged over ``h`` x ``v`` (JFIF's YCbCr, from BGR), level-shifted."""
+def _planes(img: np.ndarray, fac: list, ycck: bool) -> list:
+    """The component planes of ``img`` padded to whole MCUs by edge
+    replication, each averaged down to its sampling factors ``fac`` ((h, v)
+    per component), level-shifted: gray; Y, Cb, Cr of BGR (JFIF's YCbCr);
+    the four samples of CMYK; or with ``ycck`` Y, Cb, Cr of R, G, B = 255 -
+    C, M, Y and K (Adobe's YCCK)."""
     H, W = img.shape[:2]
-    pad = [(0, -H % (8 * v)), (0, -W % (8 * h))] + [(0, 0)] * (img.ndim - 2)
+    hm, vm = max(f[0] for f in fac), max(f[1] for f in fac)
+    pad = [(0, -H % (8 * vm)), (0, -W % (8 * hm))] + [(0, 0)] * (img.ndim - 2)
     x = np.pad(img, pad, mode="edge").astype(np.float64)
     if img.ndim == 2:
-        return [x - 128]
-    b, g, r = x[..., 0], x[..., 1], x[..., 2]
-    y = 0.299 * r + 0.587 * g + 0.114 * b
-    cb = -0.168735892 * r - 0.331264108 * g + 0.5 * b
-    cr = 0.5 * r - 0.418687589 * g - 0.081312411 * b
-    PH, PW = y.shape
-    return [y - 128] + [c.reshape(PH // v, v, PW // h, h).mean(axis=(1, 3))
-                        for c in (cb, cr)]
+        comps = [x - 128]
+    elif img.shape[-1] == 4 and not ycck:
+        comps = [x[..., c] - 128 for c in range(4)]
+    else:
+        if img.shape[-1] == 4:
+            r, g, b = 255 - x[..., 0], 255 - x[..., 1], 255 - x[..., 2]
+        else:
+            b, g, r = x[..., 0], x[..., 1], x[..., 2]
+        comps = [0.299 * r + 0.587 * g + 0.114 * b - 128,
+                 -0.168735892 * r - 0.331264108 * g + 0.5 * b,
+                 0.5 * r - 0.418687589 * g - 0.081312411 * b]
+        if img.shape[-1] == 4:
+            comps.append(x[..., 3] - 128)
+    PH, PW = comps[0].shape
+    out = []
+    for c, (h, v) in zip(comps, fac):
+        dy, dx = vm // v, hm // h
+        out.append(c.reshape(PH // dy, dy, PW // dx, dx).mean(axis=(1, 3)))
+    return out
 
 
-def _mcu_blocks(planes: list, h: int, v: int):
-    """8 x 8 blocks in scan order (per MCU the luma blocks row by row, then
-    Cb, Cr), their component, and the blocks per MCU."""
+def _mcu_blocks(planes: list, fac: list):
+    """8 x 8 blocks in scan order (per MCU each component's v x h blocks row
+    by row, component after component), their component, and the blocks per
+    MCU."""
     def blocks(plane, bh, bw):
         rows, cols = plane.shape[0] // (8 * bh), plane.shape[1] // (8 * bw)
         b = plane.reshape(rows, bh, 8, cols, bw, 8).transpose(0, 3, 1, 4, 2,
                                                               5)
         return b.reshape(rows * cols, bh * bw, 8, 8)
-    per_mcu = [blocks(planes[0], v, h)] + [blocks(p, 1, 1)
-                                           for p in planes[1:]]
+    per_mcu = [blocks(p, v, h) for p, (h, v) in zip(planes, fac)]
     comp = np.concatenate([np.full(p.shape[1], c)
                            for c, p in enumerate(per_mcu)])
     n_mcu = per_mcu[0].shape[0]
@@ -742,29 +970,40 @@ def _pack(vals, lens, interval, n_int: int) -> np.ndarray:
 
 
 def encode_jpeg(img: np.ndarray, quality: int = 95, subsampling: str = "420",
-                restart_interval: int = 0) -> bytes:
+                restart_interval: int = 0, adobe_transform=None) -> bytes:
     """``[H, W, 3]`` BGR or ``[H, W]`` gray ``uint8`` -> baseline JFIF bytes
     with the Annex K tables scaled to ``quality`` (1-100, libjpeg's
     scaling), the luma ``subsampling`` of :data:`SUBSAMPLING` and a restart
-    marker every ``restart_interval`` MCUs (0: none).  A float DCT and
-    rounding: for writing fixtures, as ``cv2.imwrite`` writes them for the
-    JAX package's tests."""
+    marker every ``restart_interval`` MCUs (0: none).  ``[H, W, 4]`` CMYK
+    samples as Adobe stores them (inverted: 0 is full ink) -> a 4-component
+    file with an Adobe APP14 marker of ``adobe_transform`` 0 (CMYK, every
+    component at full resolution; the default) or 2 (YCCK: Y and K at the
+    luma sampling, Cb and Cr at 1 x 1).  A float DCT and rounding: for
+    writing fixtures, as ``cv2.imwrite`` (or, for CMYK, an image editor)
+    writes them for the JAX package's tests."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
         raise TypeError(f"JPEG samples are uint8, not {img.dtype}")
     if img.ndim == 3 and img.shape[-1] == 1:
         img = img[..., 0]
-    if img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[-1] != 3):
-        raise ValueError(f"JPEG images are [H, W] or [H, W, 3], not "
-                         f"{img.shape}")
+    if img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[-1]
+                                  not in (3, 4)):
+        raise ValueError(f"JPEG images are [H, W], [H, W, 3] or [H, W, 4], "
+                         f"not {img.shape}")
     if not 1 <= quality <= 100:
         raise ValueError(f"JPEG quality {quality} is not 1-100")
     H, W = img.shape[:2]
-    h, v = (1, 1) if img.ndim == 2 else SUBSAMPLING[subsampling]
-    planes = _planes(img, h, v)
-    blk, comp, bpm = _mcu_blocks(planes, h, v)
+    ncomp = 1 if img.ndim == 2 else img.shape[-1]
+    transform = (adobe_transform or 0) if ncomp == 4 else None
+    h, v = (1, 1) if ncomp == 1 or transform == 0 else \
+        SUBSAMPLING[subsampling]
+    fac = [(h, v)] + [(1, 1)] * min(ncomp - 1, 2) + [(h, v)] * (ncomp == 4)
+    tsel = [0, 1, 1, 0][:ncomp]  # quantisation and Huffman table per comp
+    planes = _planes(img, fac, transform == 2)
+    blk, comp, bpm = _mcu_blocks(planes, fac)
     qtabs = [_quant_table(_Q_LUMA, quality), _quant_table(_Q_CHROMA, quality)]
-    table = np.where((comp > 0)[:, None], qtabs[1][None], qtabs[0][None])
+    luma = np.asarray(tsel)[comp] == 0
+    table = np.where(luma[:, None], qtabs[0][None], qtabs[1][None])
     coef = (_DCT @ blk @ _DCT.T).reshape(-1, 64)
     q = np.rint(coef / table).astype(np.int64)[:, _ZIGZAG]
 
@@ -776,18 +1015,22 @@ def encode_jpeg(img: np.ndarray, quality: int = 95, subsampling: str = "420",
         sel = np.nonzero(comp == c)[0]
         first = np.r_[True, interval[sel][1:] != interval[sel][:-1]]
         dc[sel] -= np.where(first, 0, np.r_[0, q[sel[:-1], 0]])
-    block, vals, lens = _events(q, dc, comp == 0)
+    block, vals, lens = _events(q, dc, luma)
     data = _pack(vals, lens, interval[block], int(interval[-1]) + 1)
 
-    ncomp = len(planes)
-    out = [b"\xff\xd8",
-           _segment(0xE0, b"JFIF\0\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
+    out = [b"\xff\xd8"]
+    if ncomp == 4:  # "Adobe", version 100, flags 0 and 0, the transform
+        out.append(_segment(0xEE, b"Adobe\x00\x64\0\0\0\0"
+                            + bytes([transform])))
+    else:
+        out.append(_segment(0xE0, b"JFIF\0\x01\x01\x00\x00\x01\x00\x01"
+                            b"\x00\x00"))
     for t in range(min(ncomp, 2)):
         out.append(_segment(0xDB, bytes([t]) + bytes(
             qtabs[t][_ZIGZAG].astype(np.uint8))))
     sof = struct.pack(">BHHB", 8, H, W, ncomp)
     for c in range(ncomp):
-        sof += bytes([c + 1, (h << 4 | v) if c == 0 else 0x11, min(c, 1)])
+        sof += bytes([c + 1, fac[c][0] << 4 | fac[c][1], tsel[c]])
     out.append(_segment(0xC0, sof))
     for t in range(min(ncomp, 2)):
         out.append(_segment(0xC4, bytes([t]) + bytes(_DC_BITS[t])
@@ -798,7 +1041,7 @@ def encode_jpeg(img: np.ndarray, quality: int = 95, subsampling: str = "420",
         out.append(_segment(0xDD, struct.pack(">H", restart_interval)))
     sos = bytes([ncomp])
     for c in range(ncomp):
-        sos += bytes([c + 1, 0x11 * min(c, 1)])
+        sos += bytes([c + 1, 0x11 * tsel[c]])
     out.append(_segment(0xDA, sos + bytes([0, 63, 0])))
     out += [data.tobytes(), b"\xff\xd9"]
     return b"".join(out)

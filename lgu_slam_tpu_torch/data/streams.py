@@ -1,6 +1,9 @@
 """Streaming image readers for inference (port of the JAX package's
-``data/streams.py``), on the port's own PNG and JPEG decoders and image
+``data/streams.py``), on the port's own image decoders and image
 operations (``data/image_io.py``, ``data/imgproc.py``) in place of OpenCV.
+A frame ``cv2.imread`` returns None for (``ValueError``) is skipped where
+the JAX stream skips it; one the port cannot read yet raises
+``NotImplementedError``.
 
 All streams yield numpy arrays shaped for :meth:`LGUSlam.track`:
 ``(t, image[H,W,3] BGR uint8, intrinsics[4])`` -- with an extra ``depth``
@@ -165,7 +168,7 @@ def euroc_stereo_stream(datapath, stride=1, image_size=(320, 512)):
         rpath = os.path.join(right_dir, name)
         try:
             left = imread(os.path.join(left_dir, name))
-        except (FileNotFoundError, NotImplementedError, ValueError):
+        except (FileNotFoundError, ValueError):
             continue  # where cv2.imread returns None, the JAX stream skips
         if not os.path.exists(rpath):
             continue

@@ -1,20 +1,27 @@
 #!/usr/bin/env python
-"""Memory-safety check of the port's JPEG decoder (``csrc/host/
-jpeg_decode.c``): builds it with AddressSanitizer and UndefinedBehavior
-Sanitizer beside a small C harness, then decodes every truncation of a few
-seed files and ``--mutations`` copies of each with 1-4 random bytes
-overwritten, to the colour and to the gray output.  Any out-of-bounds
-access or undefined behaviour aborts the harness; otherwise it prints how
-many inputs decoded, were refused as corrupt, or as unsupported.
+"""Memory-safety check of the port's host decoders in C: the JPEG decoder
+(``csrc/host/jpeg_decode.c``), the TIFF LZW / PackBits decoders and
+predictors (``csrc/host/tiff_lzw.c``) and the BMP RLE decoder
+(``csrc/host/bmp_rle.c``).  Builds each with AddressSanitizer and
+UndefinedBehavior Sanitizer beside a small C harness, then decodes every
+truncation of a few seed streams and ``--mutations`` copies of each with
+1-4 random bytes overwritten (JPEG: to the colour and to the gray output;
+TIFF: into strips of the seed's size and of a random one, then both
+predictors over the output; RLE: as RLE8 and RLE4 at the seed's size and
+a random one).  Any out-of-bounds access or undefined behaviour aborts
+the harness; otherwise it prints, per decoder, how many inputs decoded,
+were refused as corrupt, or as unsupported.
 
     python scripts/fuzz_jpeg_torch.py [--mutations 20000] [--seed 1]
 
-The seeds are baseline files of the port's encoder (4:2:0 with restart
-markers, 4:4:4, 4:1:1, 4:4:0, gray) and two of them damaged as libjpeg
-reads past (restart markers out of order, bytes before a marker);
-``--files`` adds others (progressive files, whose truncations drive the
-block smoothing, say).  Needs a C compiler with the sanitizers (gcc or clang); runs
-on the host only.
+The JPEG seeds are baseline files of the port's encoder (4:2:0 with
+restart markers, 4:4:4, 4:1:1, 4:4:0, gray, CMYK and YCCK) and two of
+them damaged as libjpeg reads past (restart markers out of order, bytes
+before a marker); ``--files`` adds others (progressive files, whose
+truncations drive the block smoothing, say).  The TIFF seeds are the LZW
+and PackBits strips of the port's TIFF encoder, the RLE seeds its RLE8 and
+RLE4 data.  Needs a C compiler with the sanitizers (gcc or clang); runs on
+the host only.
 """
 
 from __future__ import annotations
@@ -29,7 +36,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np  # noqa: E402
 
-from lgu_slam_tpu_torch.data.image_io import encode_jpeg  # noqa: E402
+from lgu_slam_tpu_torch.data.image_io import (  # noqa: E402
+    _rle_rows,
+    encode_jpeg,
+)
+from lgu_slam_tpu_torch.data.tiff import (  # noqa: E402
+    lzw_encode,
+    packbits_encode,
+)
 from lgu_slam_tpu_torch.ops._build import CSRC, _cc  # noqa: E402
 
 HARNESS = r"""
@@ -90,15 +104,118 @@ int main(int argc, char **argv)
 """
 
 
+# one stream per file: argv[3...]; each decoded into `occ` bytes (the
+# seed's own size, given in the file name's stem, then a random one)
+TIFF_HARNESS = r"""
+#include <stdint.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+int tiff_lzw_decode(const uint8_t *, int64_t, uint8_t *, int64_t);
+int tiff_packbits_decode(const uint8_t *, int64_t, uint8_t *, int64_t);
+void tiff_hpredict(uint8_t *, int64_t, int64_t, int64_t, int, int);
+int tiff_fpredict(uint8_t *, int64_t, int64_t, int64_t, int);
+int main(int argc, char **argv)
+{
+    long mutations = atol(argv[1]), counts[4] = {0};
+    srand((unsigned)atoi(argv[2]));
+    for (int f = 3; f + 1 < argc; f += 2) {
+        long occ0 = atol(argv[f + 1]);
+        FILE *fp = fopen(argv[f], "rb");
+        fseek(fp, 0, SEEK_END);
+        long n = ftell(fp);
+        fseek(fp, 0, SEEK_SET);
+        uint8_t *base = malloc((size_t)n);
+        if (fread(base, 1, (size_t)n, fp) != (size_t)n)
+            return 2;
+        fclose(fp);
+        int packbits = strstr(argv[f], "packbits") != NULL;
+        for (long it = 0; it < n + mutations; it++) {
+            long m = it < n ? it : n;
+            uint8_t *d = malloc((size_t)(m > 0 ? m : 1));
+            memcpy(d, base, (size_t)m);
+            if (it >= n)
+                for (int k = 1 + rand() % 4; k > 0; k--)
+                    d[rand() % m] = (uint8_t)rand();
+            long occ = it & 1 ? 1 + rand() % (2 * occ0) : occ0;
+            occ = (occ + 3) & ~3L; /* whole 32-bit samples */
+            uint8_t *o = malloc((size_t)occ);
+            int st = packbits ? tiff_packbits_decode(d, m, o, occ)
+                              : tiff_lzw_decode(d, m, o, occ);
+            int64_t rowbytes = 4 * (1 + rand() % 8);
+            int64_t rows = occ / rowbytes;
+            tiff_hpredict(o, rows, rowbytes, 1 + rand() % 4,
+                          1 << (rand() % 3), rand() & 1);
+            if (tiff_fpredict(o, rows, rowbytes, 1 + rand() % 4, 4) != 0)
+                return 4;
+            counts[st]++;
+            free(o);
+            free(d);
+        }
+        free(base);
+    }
+    printf("{\"decoded\": %ld, \"corrupt\": %ld, \"unsupported\": %ld, "
+           "\"out_of_memory\": %ld}\n", counts[0], counts[1], counts[2],
+           counts[3]);
+    return 0;
+}
+"""
+
+RLE_HARNESS = r"""
+#include <stdint.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+int bmp_rle_decode(const uint8_t *, int64_t, int, int64_t, int64_t,
+                   uint8_t *);
+int main(int argc, char **argv)
+{
+    long mutations = atol(argv[1]), counts[2] = {0};
+    srand((unsigned)atoi(argv[2]));
+    for (int f = 3; f + 2 < argc; f += 3) {
+        int64_t W = atol(argv[f + 1]), H = atol(argv[f + 2]);
+        FILE *fp = fopen(argv[f], "rb");
+        fseek(fp, 0, SEEK_END);
+        long n = ftell(fp);
+        fseek(fp, 0, SEEK_SET);
+        uint8_t *base = malloc((size_t)n);
+        if (fread(base, 1, (size_t)n, fp) != (size_t)n)
+            return 2;
+        fclose(fp);
+        for (long it = 0; it < n + mutations; it++) {
+            long m = it < n ? it : n;
+            uint8_t *d = malloc((size_t)(m > 0 ? m : 1));
+            memcpy(d, base, (size_t)m);
+            if (it >= n)
+                for (int k = 1 + rand() % 4; k > 0; k--)
+                    d[rand() % m] = (uint8_t)rand();
+            int64_t w = it & 1 ? 1 + rand() % 64 : W;
+            int64_t h = it & 1 ? 1 + rand() % 64 : H;
+            uint8_t *o = malloc((size_t)(w * h));
+            counts[bmp_rle_decode(d, m, (int)(it >> 1 & 1), w, h, o)]++;
+            free(o);
+            free(d);
+        }
+        free(base);
+    }
+    printf("{\"decoded\": %ld, \"corrupt\": %ld}\n", counts[0], counts[1]);
+    return 0;
+}
+"""
+
+
 def seeds(rng) -> list:
     """Small files of the port's encoder in several modes, and the same
     with the damage libjpeg reads past: restart markers out of order and
     bytes before markers (the decoder's resync and skip paths); every
     seed's truncations drive the zero-bit padding."""
     im = rng.integers(0, 256, (37, 53, 3), np.uint8)
+    cmyk = np.concatenate([im, im[..., :1]], axis=-1)
     files = [encode_jpeg(im, 90, "420", 2), encode_jpeg(im, 75, "444"),
              encode_jpeg(im, 95, "411", 3), encode_jpeg(im, 50, "440"),
-             encode_jpeg(im[..., 1], 90, restart_interval=1)]
+             encode_jpeg(im[..., 1], 90, restart_interval=1),
+             encode_jpeg(cmyk, 80, "444", 2, adobe_transform=0),
+             encode_jpeg(cmyk, 85, "420", 0, adobe_transform=2)]
     def restarts(data):
         return [i for i in range(len(data) - 1)
                 if data[i] == 0xFF and 0xD0 <= data[i + 1] <= 0xD7]
@@ -111,34 +228,73 @@ def seeds(rng) -> list:
     return files + [bytes(rst), junk]
 
 
+def tiff_seeds(rng) -> list:
+    """(stream, decoded size, codec) of LZW and PackBits strips."""
+    im = rng.integers(0, 256, (16, 40), np.uint8)
+    im[:, 20:] = im[:, 20:21]  # runs
+    raw = im.tobytes()
+    return [(lzw_encode(raw), len(raw), "lzw"),
+            (packbits_encode(raw), len(raw), "packbits"),
+            (lzw_encode(raw * 9), 9 * len(raw), "lzw")]
+
+
+def rle_seeds(rng) -> list:
+    """(data, width, height) of RLE8 and RLE4 rows."""
+    idx = rng.integers(0, 16, (12, 30), np.uint8)
+    idx[:, 10:] = idx[:, 10:11]
+    return [(_rle_rows(idx, False), 30, 12), (_rle_rows(idx, True), 30, 12)]
+
+
+def _run(tmp, name, harness, sources, args, mutations, seed) -> str:
+    """Build ``harness`` with ``sources`` under the sanitizers and run it
+    on ``args`` (files and their parameters)."""
+    path = os.path.join(tmp, f"{name}.c")
+    with open(path, "w") as fh:
+        fh.write(harness)
+    exe = os.path.join(tmp, name)
+    subprocess.run([_cc(), "-O1", "-g", "-fsanitize=address,undefined",
+                    "-fno-sanitize-recover=all", "-o", exe, path,
+                    *[str(CSRC / "host" / s) for s in sources]], check=True)
+    out = subprocess.run([exe, str(mutations), str(seed), *args],
+                         capture_output=True, text=True)
+    if out.returncode != 0:
+        raise SystemExit(f"the sanitizers stopped {name}:\n"
+                         f"{out.stderr[-4000:]}")
+    return out.stdout.strip()
+
+
 def main(argv=None) -> str:
     p = argparse.ArgumentParser()
     p.add_argument("--mutations", type=int, default=20000)
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--files", nargs="*", default=[],
-                   help="more seed files")
+                   help="more JPEG seed files")
     args = p.parse_args(argv)
+    rng = np.random.default_rng(args.seed)
     with tempfile.TemporaryDirectory() as tmp:
-        harness = os.path.join(tmp, "harness.c")
-        with open(harness, "w") as fh:
-            fh.write(HARNESS)
-        exe = os.path.join(tmp, "fuzz")
-        subprocess.run([_cc(), "-O1", "-g", "-fsanitize=address,undefined",
-                        "-fno-sanitize-recover=all", "-o", exe, harness,
-                        str(CSRC / "host" / "jpeg_decode.c")], check=True)
-        files = []
-        for k, data in enumerate(seeds(np.random.default_rng(args.seed))):
-            files.append(os.path.join(tmp, f"seed{k}.jpg"))
-            with open(files[-1], "wb") as fh:
+        def write(name, data):
+            path = os.path.join(tmp, name)
+            with open(path, "wb") as fh:
                 fh.write(data)
-        out = subprocess.run([exe, str(args.mutations), str(args.seed),
-                              *files, *args.files], capture_output=True,
-                             text=True)
-    if out.returncode != 0:
-        raise SystemExit(f"the sanitizers stopped the decoder:\n"
-                         f"{out.stderr[-4000:]}")
-    print(out.stdout.strip())
-    return out.stdout
+            return path
+
+        jpeg = [write(f"seed{k}.jpg", d) for k, d in enumerate(seeds(rng))]
+        tiff_args = []
+        for k, (data, size, codec) in enumerate(tiff_seeds(rng)):
+            tiff_args += [write(f"strip{k}_{codec}", data), str(size)]
+        rle_args = []
+        for k, (data, w, h) in enumerate(rle_seeds(rng)):
+            rle_args += [write(f"rle{k}", data), str(w), str(h)]
+        lines = [
+            "jpeg " + _run(tmp, "fuzz_jpeg", HARNESS, ["jpeg_decode.c"],
+                           jpeg + args.files, args.mutations, args.seed),
+            "tiff " + _run(tmp, "fuzz_tiff", TIFF_HARNESS, ["tiff_lzw.c"],
+                           tiff_args, args.mutations, args.seed),
+            "bmp_rle " + _run(tmp, "fuzz_rle", RLE_HARNESS, ["bmp_rle.c"],
+                              rle_args, args.mutations, args.seed)]
+    out = "\n".join(lines)
+    print(out)
+    return out
 
 
 if __name__ == "__main__":

@@ -6,9 +6,11 @@ port's PNGs under every filter type bit-identically, the modes that
 ``cv2.imwrite`` does not write (palette with and without tRNS, gray at bit
 depths 1, 2 and 4, Adam7 interlacing at every depth and colour type) decode
 as ``cv2.imread`` decodes the port's own fixtures of them and equal their
-pixels, uncompressed BMPs (8-bit palette, 24- and 32-bit, bottom-up and
-top-down) decode as ``cv2.imread`` decodes them, the C row unfilter equals
-its numpy version, and what the port does not read raises."""
+pixels, BMPs (1-, 4- and 8-bit palettes, RLE8 and RLE4, 16-, 24- and
+32-bit, bottom-up and top-down, OS/2 headers) decode as ``cv2.imread``
+decodes them, the C row unfilter equals its numpy version, ``imread``
+picks its decoder by the file's signature, and what the port does not
+read raises."""
 
 import os
 import struct
@@ -17,7 +19,7 @@ import zlib
 import cv2
 import numpy as np
 import pytest
-from torch_port import torch_single_thread  # noqa: F401
+from torch_port import same_as_cv2, torch_single_thread  # noqa: F401
 
 from lgu_slam_tpu_torch.data import image_io
 from lgu_slam_tpu_torch.ops import _build
@@ -119,38 +121,57 @@ def _patch_ihdr(png: bytes, offset: int, value: int) -> bytes:
 
 
 def test_what_the_port_does_not_read_raises(tmp_path):
-    """Formats other than PNG, JPEG and BMP (TIFF, WebP, which cv2 reads
-    here): NotImplementedError (JPEG's own refusals:
-    tests/test_torch_jpeg.py), as for RLE-compressed and 16-bit BMPs and
-    OS/2 BMP headers;
+    """The formats cv2 reads here that the port does not read yet (WebP,
+    JPEG 2000 as JP2 and as a codestream, AVIF, GIF, Radiance HDR, Sun
+    raster; each written by cv2.imwrite and read back by cv2.imread):
+    NotImplementedError naming the format, whatever the file's extension;
+    a signature no decoder of cv2's claims, and an empty file: ValueError
+    (cv2 returns None); imwrite writes PNG and JPEG only.  The files the
+    port's first decoders refused and now reads (TIFF, RLE-compressed and
+    16-bit BMPs, a header patched to OS/2's size) read as cv2 reads them;
     a PNG whose header names a palette but holds no PLTE, Adam7 passes
     that the data does not hold, or a bit depth its colour type does not
     allow: ValueError; a missing file: FileNotFoundError (OpenCV returns
     None)."""
-    im = np.random.default_rng(3).integers(0, 256, (8, 12, 3), np.uint8)
-    for ext in (".tiff", ".webp"):
+    im = np.random.default_rng(3).integers(0, 256, (64, 64, 3), np.uint8)
+    formats = {".webp": "WebP", ".jp2": "JPEG 2000", ".avif": "AVIF",
+               ".gif": "GIF", ".hdr": "Radiance HDR", ".ras": "Sun raster"}
+    for ext, name in formats.items():
         other = str(tmp_path / f"a{ext}")
-        assert cv2.imwrite(other, im) and cv2.imread(other) is not None
-        with pytest.raises(NotImplementedError,
-                           match="only PNG, JPEG and BMP"):
-            image_io.imread(other)
+        src = im.astype(np.float32) / 255 if ext == ".hdr" else im
+        assert cv2.imwrite(other, src) and cv2.imread(other) is not None
+        for path in (other, other + ".png"):
+            os.replace(other if path != other else other, path)
+            with pytest.raises(NotImplementedError, match=name):
+                image_io.imread(path)
+            os.replace(path, other)
         with pytest.raises(NotImplementedError,
                            match="only PNG and JPEG files are written"):
             image_io.imwrite(other, im)
+    jp2 = (tmp_path / "a.jp2").read_bytes()
+    (tmp_path / "a.j2k").write_bytes(jp2[jp2.index(b"\xff\x4f\xff\x51"):])
+    assert cv2.imread(str(tmp_path / "a.j2k")) is not None
+    with pytest.raises(NotImplementedError, match="JPEG 2000"):
+        image_io.imread(str(tmp_path / "a.j2k"))
+    for data in (b"", b"hello, world", b"\x76\x2f\x31\x01" + bytes(60)):
+        (tmp_path / "x.png").write_bytes(data)
+        assert cv2.imread(str(tmp_path / "x.png")) is None
+        with pytest.raises(ValueError, match="signature"):
+            image_io.imread(str(tmp_path / "x.png"))
+    tif = str(tmp_path / "a.tiff")
+    assert cv2.imwrite(tif, im)
+    same_as_cv2(tif)
     bmp = bytearray(image_io.encode_bmp(im[..., 0]))
-    for value, words in ((1, "RLE8"), (2, "RLE4")):
+    for value in (1, 2):  # RLE8, RLE4 over uncompressed rows
         bmp[30] = value
         (tmp_path / "rle.bmp").write_bytes(bytes(bmp))
-        with pytest.raises(NotImplementedError, match=words):
-            image_io.imread(str(tmp_path / "rle.bmp"))
+        same_as_cv2(tmp_path / "rle.bmp")
     bmp[30], bmp[28] = 0, 16
     (tmp_path / "b16.bmp").write_bytes(bytes(bmp))
-    with pytest.raises(NotImplementedError, match="16-bit BMP"):
-        image_io.imread(str(tmp_path / "b16.bmp"))
+    same_as_cv2(tmp_path / "b16.bmp")
     bmp[14] = 12  # the OS/2 core header's size
     (tmp_path / "os2.bmp").write_bytes(bytes(bmp))
-    with pytest.raises(NotImplementedError, match="header of 12 bytes"):
-        image_io.imread(str(tmp_path / "os2.bmp"))
+    same_as_cv2(tmp_path / "os2.bmp")
     png = image_io.encode_png(im)
     for offset, value, match in ((9, 3, "PLTE"), (12, 1, "image data"),
                                  (8, 4, "bit depth")):
@@ -283,3 +304,168 @@ def test_failed_c_build_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="png_unfilter.c"):
         image_io.unfilter(bytes([0, 1]), 1, 1, 1)
     assert not os.path.exists(tmp_path / "libpng_unfilter.so")
+
+
+@pytest.mark.parametrize("bpp", [1, 4, 8])
+def test_bmp_palettes_and_rle(bpp, tmp_path):
+    """1-, 4- and 8-bit palette BMPs (a colour palette and the gray ramp,
+    40-byte and OS/2 12-byte headers, bottom-up and top-down) and the
+    port's RLE4 / RLE8 of them (encoded runs, absolute runs padded to a
+    word, end-of-line, end-of-bitmap): as cv2.imread reads them, and the
+    pixels written."""
+    rng = np.random.default_rng(bpp)
+    path = tmp_path / "p.bmp"
+    for H, W in SIZES:
+        idx = rng.integers(0, 1 << bpp, (H, W), np.uint8)
+        idx[:, W // 3:] = idx[:, W // 3:W // 3 + 1]  # runs for RLE
+        pal = rng.integers(0, 256, (1 << bpp, 3), np.uint8)
+        for top_down in (False, True):
+            for os2 in (False, True)[:2 - top_down]:  # OS/2: bottom-up
+                for palette in (pal, None):
+                    path.write_bytes(image_io.encode_bmp(
+                        idx, top_down, palette, bpp=bpp, os2=os2))
+                    same_as_cv2(path)
+                path.write_bytes(image_io.encode_bmp(idx, top_down, pal,
+                                                     bpp=bpp, os2=os2))
+                np.testing.assert_array_equal(image_io.imread(str(path)),
+                                              pal[idx])
+            if bpp > 1:
+                path.write_bytes(image_io.encode_bmp(idx, top_down, pal,
+                                                     bpp=bpp, rle=True))
+                same_as_cv2(path)
+                np.testing.assert_array_equal(image_io.imread(str(path)),
+                                              pal[idx])
+
+
+# RLE data of a 6 x 3 image: (name, RLE8 data, RLE4 data)
+RLE_STREAMS = {
+    "end_of_line_each_row": (b"\x06\x05\0\0\x06\x06\0\0\x06\x07\0\x01",
+                             b"\x06\x12\0\0\x06\x34\0\0\x06\x56\0\x01"),
+    "rows_filled_exactly": (b"\x06\x05\x06\x06\x06\x07",
+                            b"\x06\x12\x06\x34\x06\x56"),
+    "end_of_line_after_full_rows": (
+        b"\x06\x05\0\0\x06\x06\0\0\x06\x07\0\0",
+        b"\x06\x12\0\0\x06\x34\0\0\x06\x56\0\0"),
+    "run_past_row_end": (b"\x08\x05\0\x01", b"\x08\x12\0\x01"),
+    "short_rows": (b"\x02\x05\0\0\x03\x06\0\x01",
+                   b"\x02\x12\0\0\x03\x34\0\x01"),
+    "end_of_bitmap_early": (b"\x02\x05\0\x01", b"\x02\x12\0\x01"),
+    "delta": (b"\x02\x05\0\x02\x02\x01\x01\x09\0\x01",
+              b"\x02\x12\0\x02\x02\x01\x01\x39\0\0\0\0\0\x01"),
+    "delta_rows_only": (b"\0\x02\0\x01\x06\x07\0\x01",
+                        b"\0\x02\0\x01\x06\x77\0\0\0\0"),
+    "absolute": (b"\0\x03\x01\x02\x03\0\x02\x05\0\0\0\x01",
+                 b"\0\x03\x12\x30\0\0\0\0\0\x01"),
+    "absolute_odd": (b"\0\x05\x01\x02\x03\x04\x05\0\0\0\0\0\0\x01",
+                     b"\0\x05\x12\x34\x50\0\0\0\0\0\0\x01"),
+    "absolute_past_row_end": (b"\0\x07\x01\x02\x03\x04\x05\x06\x07\0",
+                              b"\0\x07\x12\x34\x56\x70\0\0"),
+    "absolute_fills_row": (
+        b"\0\x06\x01\x02\x03\x04\x05\x06\0\0\x02\x03\0\x01",
+        b"\0\x06\x12\x34\x56\0\0\0\0\0\0\x01"),
+    "data_ends_early": (b"\x06\x05\x06\x06", b"\x06\x12\x06\x34"),
+    "absolute_cut_short": (b"\0\x05\x01\x02", b"\0\x05\x12"),
+    "end_of_line_first": (b"\0\0\x06\x05\0\x01", b"\0\0\x06\x12\0\x01"),
+    "two_end_of_lines": (b"\x06\x05\0\0\0\0\0\x01",
+                         b"\x06\x12\0\0\0\0\0\x01"),
+}
+
+
+@pytest.mark.parametrize("name", list(RLE_STREAMS))
+def test_bmp_rle_streams(name, tmp_path):
+    """Hand-written RLE8 and RLE4 data of one case each (runs that fill a
+    row exactly or pass its end, end-of-line after a full row, deltas,
+    absolute runs of odd length or past the row end, data that ends
+    early), bottom-up and top-down: as cv2.imread reads them, ValueError
+    where it returns None."""
+    rng = np.random.default_rng(21)
+    path = tmp_path / "r.bmp"
+    z = np.zeros((3, 6), np.uint8)
+    for bpp, data in zip((8, 4), RLE_STREAMS[name]):
+        pal = rng.integers(0, 256, (1 << bpp, 3), np.uint8)
+        for top_down in (False, True):
+            path.write_bytes(image_io.encode_bmp(z, top_down, pal, bpp=bpp,
+                                                 rle_data=data))
+            same_as_cv2(path)
+
+
+@pytest.mark.parametrize("mode", ["555", "565", "555_bitfields"])
+def test_bmp_16bit(mode, tmp_path):
+    """16-bit BMPs (5-5-5 without masks, 5-5-5 and 5-6-5 bit masks): each
+    field shifted left to 8 bits as OpenCV shifts it, as cv2.imread reads
+    them; other 16-bit masks: ValueError (cv2 returns None)."""
+    rng = np.random.default_rng(4)
+    path = tmp_path / "s.bmp"
+    masks = {"555": None, "565": "565", "555_bitfields": "555"}[mode]
+    for H, W in SIZES:
+        im = rng.integers(0, 256, (H, W, 3), np.uint8)
+        for top_down in (False, True):
+            path.write_bytes(image_io.encode_bmp(im, top_down, bpp=16,
+                                                 masks16=masks))
+            same_as_cv2(path)
+    if masks:
+        data = bytearray(path.read_bytes())
+        data[54:58] = struct.pack("<I", 0xF00)
+        path.write_bytes(bytes(data))
+        same_as_cv2(path)
+
+
+def test_cv2_bitfield_bmps(tmp_path):
+    """cv2.imwrite with IMWRITE_BMP_COMPRESSION_BITFIELDS and RGB, gray,
+    BGR and BGRA: as cv2.imread reads them."""
+    rng = np.random.default_rng(6)
+    path = tmp_path / "c.bmp"
+    for H, W in SIZES:
+        for ch in (1, 3, 4):
+            im = rng.integers(0, 256, (H, W, ch), np.uint8)
+            for comp in (cv2.IMWRITE_BMP_COMPRESSION_RGB,
+                         cv2.IMWRITE_BMP_COMPRESSION_BITFIELDS):
+                assert cv2.imwrite(str(path), im[..., 0] if ch == 1 else im,
+                                   [cv2.IMWRITE_BMP_COMPRESSION, comp])
+                same_as_cv2(path)
+
+
+@pytest.mark.parametrize("fmt", ["png", "jpeg", "bmp", "tiff", "pgm", "ppm",
+                                 "pam", "pfm"])
+def test_decoder_picked_by_signature(fmt, tmp_path):
+    """A file named for another format (each written by cv2.imwrite,
+    stored under ``.jpg`` or ``.png``) reads by its signature, as cv2
+    reads it; a file cut to its first 3 bytes: as cv2 reads it
+    (ValueError)."""
+    rng = np.random.default_rng(7)
+    im = rng.integers(0, 256, (9, 13, 3), np.uint8)
+    src = {"pgm": im[..., 0], "pfm": im.astype(np.float32)}.get(fmt, im)
+    ext = {"jpeg": "jpg", "tiff": "tif"}.get(fmt, fmt)
+    path = tmp_path / f"a.{ext}"
+    assert cv2.imwrite(str(path), src)
+    data = path.read_bytes()
+    for name in ("b.jpg", "b.png", "b"):
+        (tmp_path / name).write_bytes(data)
+        same_as_cv2(tmp_path / name)
+    (tmp_path / "c").write_bytes(data[:3])
+    same_as_cv2(tmp_path / "c")
+
+
+@pytest.mark.parametrize("mode", ["1-bit", "4-bit", "os2", "rle8", "rle4",
+                                  "16-bit"])
+def test_bmp_truncated(mode, tmp_path):
+    """The new BMP modes cut at a dozen points (header, palette, pixel
+    data, the last byte): as cv2.imread reads them, ValueError where it
+    returns None."""
+    rng = np.random.default_rng(9)
+    H, W = 9, 17
+    bpp = {"1-bit": 1, "4-bit": 4, "os2": 8, "rle8": 8, "rle4": 4}.get(mode)
+    if bpp is None:
+        data = image_io.encode_bmp(rng.integers(0, 256, (H, W, 3), np.uint8),
+                                   bpp=16, masks16="565")
+    else:
+        idx = rng.integers(0, 1 << bpp, (H, W), np.uint8)
+        idx[:, 5:] = idx[:, 5:6]
+        data = image_io.encode_bmp(
+            idx, palette=rng.integers(0, 256, (1 << bpp, 3), np.uint8),
+            bpp=bpp, os2=mode == "os2", rle=mode.startswith("rle"))
+    path = tmp_path / "t.bmp"
+    for cut in sorted({2, 14, 20, 30, 54, 60, 70, len(data) // 2,
+                       len(data) - 3, len(data) - 1}):
+        path.write_bytes(data[:cut])
+        same_as_cv2(path)

@@ -3,8 +3,10 @@ decoder csrc/host/jpeg_decode.c) against OpenCV, whose ``cv2.imread``
 decodes with libjpeg-turbo: files written by ``cv2.imwrite`` at every
 quality, sampling factor and coding mode the cases name decode to the same
 samples bit for bit (no mode needs a tolerance); the EXIF orientation turns
-the image as ``cv2.imread`` does; what the decoder does not read raises
-``NotImplementedError`` naming the feature; truncated and corrupt streams,
+the image as ``cv2.imread`` does; 4-component (CMYK, YCCK) files decode
+as ``cv2.imread`` decodes them; what the decoder does not read raises
+``NotImplementedError`` naming the feature, what libjpeg refuses
+``ValueError``; truncated and corrupt streams,
 and random corruption, decode as ``cv2.imread`` reads them from a file
 (libjpeg's warnings: the same samples bit for bit) or raise ``ValueError``
 where it returns None, and never crash; the numpy encoder
@@ -18,7 +20,7 @@ import cv2
 import numpy as np
 import pytest
 from PIL import Image
-from torch_port import torch_single_thread  # noqa: F401
+from torch_port import same_as_cv2, torch_single_thread  # noqa: F401
 
 from lgu_slam_tpu_torch.data import image_io
 
@@ -330,32 +332,110 @@ def test_random_corruption_never_crashes(tmp_path):
 
 @pytest.mark.parametrize("feature", ["arithmetic", "12-bit", "lossless",
                                      "hierarchical", "CMYK", "YCCK"])
-def test_unsupported_modes_raise(feature):
-    """NotImplementedError naming the feature: the SOF marker or precision
-    of a baseline file patched to arithmetic coding (SOF9), 12-bit samples,
-    lossless (SOF3) or hierarchical (SOF5) coding; a CMYK file written by
-    PIL, and the same with its Adobe marker's transform set to YCCK (2)."""
+def test_unsupported_modes_raise(feature, tmp_path):
+    """The modes cv2 reads and the decoder does not (a baseline file's SOF
+    patched to arithmetic coding (SOF9), 12-bit samples or lossless (SOF3)
+    coding): NotImplementedError naming the feature.  Hierarchical coding
+    (SOF5), which libjpeg refuses (cv2 returns None): ValueError.  A CMYK
+    file written by PIL, and the same with its Adobe marker's transform
+    set to YCCK (2), which the decoder reads since CMYK support: as
+    cv2.imread reads them."""
     data = _baseline()
     raw = bytearray(data)
     _, sof, _ = _find(data, 0xC0)
     if feature in ("CMYK", "YCCK"):
         buf = io.BytesIO()
         Image.new("CMYK", (16, 8), (10, 20, 30, 40)).save(buf, "JPEG")
-        data, words = buf.getvalue(), "4 components"
+        data = buf.getvalue()
         if feature == "YCCK":
             _, adobe, _ = _find(data, 0xEE)
             raw = bytearray(data)
             raw[adobe + 15] = 2  # the transform byte of "Adobe" + 7 bytes
             data = bytes(raw)
-    else:
-        patch, words = {"arithmetic": ((1, 0xC9), "arithmetic"),
-                        "12-bit": ((4, 12), "12-bit"),
-                        "lossless": ((1, 0xC3), "lossless"),
-                        "hierarchical": ((1, 0xC5), "hierarchical")}[feature]
-        raw[sof + patch[0]] = patch[1]
-        data = bytes(raw)
-    with pytest.raises(NotImplementedError, match=words):
+        path = tmp_path / "c.jpg"
+        path.write_bytes(data)
+        same_as_cv2(path)
+        return
+    patch, error, words = {
+        "arithmetic": ((1, 0xC9), NotImplementedError, "arithmetic"),
+        "12-bit": ((4, 12), NotImplementedError, "12-bit"),
+        "lossless": ((1, 0xC3), NotImplementedError, "lossless"),
+        "hierarchical": ((1, 0xC5), ValueError, "hierarchical")}[feature]
+    raw[sof + patch[0]] = patch[1]
+    data = bytes(raw)
+    if error is ValueError:
+        path = tmp_path / "h.jpg"
+        path.write_bytes(data)
+        assert cv2.imread(str(path)) is None
+    with pytest.raises(error, match=words):
         image_io.decode_jpeg(data)
+
+
+@pytest.mark.parametrize("marker", [0xC5, 0xC6, 0xC7, 0xC8, 0xCD, 0xCE,
+                                    0xCF])
+def test_refused_frame_types(marker, tmp_path):
+    """SOF5-7 (hierarchical), JPG and SOF13-15 (hierarchical arithmetic):
+    cv2.imread returns None (libjpeg: JERR_SOF_UNSUPPORTED), the decoder
+    raises ValueError; so for a frame of 2 components."""
+    raw = bytearray(_baseline())
+    _, sof, _ = _find(bytes(raw), 0xC0)
+    raw[sof + 1] = marker
+    path = tmp_path / "r.jpg"
+    path.write_bytes(bytes(raw))
+    same_as_cv2(path)
+    with pytest.raises(ValueError):
+        image_io.imread(str(path))
+    gray = image_io.encode_jpeg(_image(16, 16, "noise")[..., 0], 90)
+    segs = dict((m, (at, n)) for m, at, n in _segments(gray))
+    at, _ = segs[0xC0]
+    two = bytearray(gray[:at + 4])  # SOF length, precision, size: 2 comps
+    two[at + 2:at + 4] = struct.pack(">H", 8 + 3 * 2)
+    frame = gray[at + 4:at + 9] + bytes([2]) + gray[at + 10:at + 13] + \
+        bytes([2, 0x11, 0])
+    path.write_bytes(bytes(two[:at + 4]) + frame + gray[at + 2 + 11:])
+    same_as_cv2(path)
+
+
+@pytest.mark.parametrize("source", ["pil", "port"])
+def test_cmyk_and_ycck(source, tmp_path):
+    """4-component files, bit for bit as cv2.imread reads them (libjpeg's
+    CMYK output, YCCK converted by its ycck_cmyk_convert, then OpenCV's
+    own CMYK to BGR and to gray): PIL's Adobe (inverted) CMYK at qualities
+    75 and 95, 4:4:4 and 4:2:0, the same patched to YCCK and with the
+    Adobe marker taken out (CMYK without it); the port's encoder's CMYK
+    (transform 0) and YCCK (transform 2, 4:2:0 and 4:2:2, restart
+    markers), progressive and sequential, noise and smooth; truncated
+    files as cv2 reads them."""
+    rng = np.random.default_rng(12)
+    path = tmp_path / "k.jpg"
+    for H, W in ((8, 16), (37, 53)):
+        noise = rng.integers(0, 256, (H, W, 4)).astype(np.uint8)
+        smooth = np.clip(np.cumsum(rng.normal(0, 8, (H, W, 4)), axis=1)
+                         + 128, 0, 255).astype(np.uint8)
+        files = []
+        for im in (noise, smooth):
+            if source == "pil":
+                for q, sub in ((75, 2), (95, 0)):
+                    buf = io.BytesIO()
+                    Image.fromarray(im, "CMYK").save(buf, "JPEG", quality=q,
+                                                     subsampling=sub)
+                    data = buf.getvalue()
+                    _, adobe, _ = _find(data, 0xEE)
+                    ycck = bytearray(data)
+                    ycck[adobe + 15] = 2
+                    _, start, end = _find(data, 0xEE)
+                    bare = data[:start] + data[end:]
+                    files += [data, bytes(ycck), bare]
+            else:
+                files += [image_io.encode_jpeg(im, 90, "444", 0, 0),
+                          image_io.encode_jpeg(im, 85, "420", 2, 2),
+                          image_io.encode_jpeg(im, 95, "422", 0, 2)]
+        for data in files:
+            path.write_bytes(data)
+            same_as_cv2(path)
+        for cut in (len(files[-1]) // 2, len(files[-1]) - 9):
+            path.write_bytes(files[-1][:cut])
+            same_as_cv2(path)
 
 
 @pytest.mark.parametrize("sampling", list(SAMPLING))

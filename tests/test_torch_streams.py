@@ -131,3 +131,70 @@ def test_euroc_stream_skips_unreadable_left_image(tmp_path):
                   jstreams.euroc_stereo_stream(root))
     assert len(items) == 3
     assert float(bad.split(".")[0]) / 1e9 not in [it[0] for it in items]
+
+
+def test_euroc_stream_raises_on_a_format_it_cannot_read(tmp_path):
+    """A left image stored as WebP, which cv2.imread reads: the JAX stream
+    tracks all 4 frames; the port's stream raises NotImplementedError
+    naming the format instead of dropping the frame."""
+    import cv2
+
+    root = fixtures.write_euroc_sequence(str(tmp_path / "MH_01_easy"),
+                                         n_frames=4)
+    left = os.path.join(root, "mav0", "cam0", "data")
+    name = os.path.join(left, sorted(os.listdir(left))[1])
+    ok, buf = cv2.imencode(".webp", cv2.imread(name))
+    assert ok
+    with open(name, "wb") as fh:
+        fh.write(buf.tobytes())
+    assert len(list(jstreams.euroc_stereo_stream(root))) == 4
+    with pytest.raises(NotImplementedError, match="WebP"):
+        list(tstreams.euroc_stereo_stream(root))
+
+
+DEPTH_FORMATS = ["tiff", "pgm", "pfm"]
+
+
+@pytest.mark.parametrize("depth", DEPTH_FORMATS)
+def test_rgbd_stream_depth_formats_match_jax(depth, tmp_path):
+    """rgbd_stream over PPM colour and depth stored as float32 TIFF
+    (Deflate, floating-point predictor), 16-bit PGM (NYU Depth v2's raw
+    form) or PFM (Middlebury, SceneFlow), the same depth values as the PNG
+    fixture: the JAX stream (cv2.imread with IMREAD_ANYDEPTH, then
+    .astype(float32)) and the port's yield the same arrays exactly."""
+    images, depths, _, _ = fixtures.render_sequence(
+        5, 4, 60, 80, (70.0, 70.0, 40.0, 30.0), t_step=0.05, r_step=0.01)
+    for sub in ("rgb", "depth"):
+        os.makedirs(tmp_path / sub)
+    for k in range(len(images)):
+        d = (depths[k] * 1000).astype(np.uint16)
+        fixtures.write_frame(str(tmp_path / "rgb" / f"{k:03d}"), images[k],
+                             "ppm")
+        fixtures.write_frame(str(tmp_path / "depth" / f"{k:03d}"), d, depth)
+    (tmp_path / "calib.txt").write_text("70.0 70.0 40.0 30.0\n")
+    args = (str(tmp_path / "rgb"), str(tmp_path / "depth"),
+            str(tmp_path / "calib.txt"))
+    kw = dict(stride=1, target_pixels=3000)
+    items = _held(tstreams.rgbd_stream(*args, **kw),
+                  jstreams.rgbd_stream(*args, **kw))
+    assert len(items) == 4 and items[0][2].dtype == np.float32
+    assert items[0][2].max() > 0
+
+
+@pytest.mark.parametrize("depth", DEPTH_FORMATS)
+def test_tum_stream_depth_formats_match_jax(depth, tmp_path):
+    """The TUM reader over an fr1 sequence stored with PPM colour and TIFF,
+    PGM or PFM depth: the port's stream equals the JAX one exactly, and
+    equals the port's own stream over the PNG sequence of the same frames
+    (the depth values are the same)."""
+    name = "rgbd_dataset_freiburg1_desk"
+    root = fixtures.write_tum_sequence(str(tmp_path / depth / name),
+                                       n_frames=3, color="ppm", depth=depth)
+    png = fixtures.write_tum_sequence(str(tmp_path / "png" / name),
+                                      n_frames=3)
+    items = _held(tstreams.tum_rgbd_stream(root, stride=1),
+                  jstreams.tum_rgbd_stream(root, stride=1))
+    ref = list(tstreams.tum_rgbd_stream(png, stride=1))
+    for a, b in zip(items, ref):
+        for x, y in zip(a[1:], b[1:]):
+            np.testing.assert_array_equal(x, y)

@@ -508,7 +508,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     mods = set(out.stdout.split())
-    assert len(mods) >= 81
+    assert len(mods) >= 83
     assert {"lgu_slam_tpu_torch.slam.backend",
             "lgu_slam_tpu_torch.slam.trajectory_filler",
             "lgu_slam_tpu_torch.ops.window_lookup",
@@ -530,6 +530,8 @@ def test_port_imports_no_jax():
             "scripts/profile_torch_k1_parts.py",
             "scripts/ab_k1_torch.py", "scripts/ab_k2_torch.py",
             "lgu_slam_tpu_torch.data.image_io",
+            "lgu_slam_tpu_torch.data.tiff",
+            "lgu_slam_tpu_torch.data.pnm",
             "lgu_slam_tpu_torch.data.imgproc",
             "lgu_slam_tpu_torch.data.streams",
             "lgu_slam_tpu_torch.data.rgbd_datasets",

@@ -77,3 +77,27 @@ def read_ply_points(path):
         else [("xyz", "<f4", 3)]
     rec = np.frombuffer(body, dtype=dt, count=n)
     return rec["xyz"], (rec["rgb"] if b"red" in head else None)
+
+
+def same_as_cv2(path, modes=(False, True)):
+    """The port's ``imread(path, anydepth=m)`` equals ``cv2.imread`` (with
+    ``IMREAD_ANYDEPTH`` where ``m``) for each ``m`` of ``modes``, in dtype,
+    shape and bytes (NaN payloads included), or both refuse: ValueError
+    where cv2 returns None or raises."""
+    import cv2
+
+    from lgu_slam_tpu_torch.data import image_io
+
+    for anydepth in modes:
+        try:
+            ref = cv2.imread(str(path), cv2.IMREAD_ANYDEPTH if anydepth
+                             else cv2.IMREAD_COLOR)
+        except cv2.error:
+            ref = None
+        if ref is None:
+            with pytest.raises(ValueError):
+                image_io.imread(str(path), anydepth=anydepth)
+            continue
+        got = image_io.imread(str(path), anydepth=anydepth)
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        assert got.tobytes() == ref.tobytes()
