@@ -164,10 +164,22 @@ Twelve phases; any failure exits non-zero.
    trajectories are finite; the host ms to feed a frame, the ms per
    keyframe update.  ``rgbd_stream`` over 8 frames of 16-bit PGM depth
    (NYU Depth v2's raw form): the millimetres written.
+13. The formats the port read last, on the card machine's host with the
+   port's own encoders: a rendered 480 x 640 frame as arithmetic-coded
+   JPEG, sequential and progressive (each must decode to the samples of
+   the Huffman file of the same coefficients), lossless gray JPEG (the
+   samples), JPEG-compressed TIFF in strips and in tiles (YCbCr 4:2:0,
+   within 30 dB of the source) and its depth as a float64 BigTIFF (the
+   values); the host's median decode ms of each.  A 24-frame TUM fr1
+   sequence written twice, arithmetic JPEG colour with float64 BigTIFF
+   depth and Huffman JPEG colour (the same coefficients) with 16-bit PNG
+   depth (the same values), tracked as in phase 12: both streams feed
+   equal frames and depth, and ``track()`` makes equal K1 and K2 launches
+   over them.
 
 Before the last line it prints the tracking, terminate, training, fp32
-tracking, world-size-1, entry-point, 3DGS, JPEG, oracle and format
-reports, the
+tracking, world-size-1, entry-point, 3DGS, JPEG, oracle and the two
+format reports, the
 run's wall time, the
 card's name and power limit, and one JSON line with each kernel's error,
 time, bound and launches.  The last line is ``{"ok": true, "device": {...}}``.
@@ -2578,10 +2590,11 @@ CMYK_PSNR_DB = 35.0  # the CMYK JPEG's decode against cmyk_bgr(source)
 
 
 def format_cases() -> list:
-    """(name, file bytes, anydepth, what imread must return) of a rendered
-    480 x 640 frame and its depth (16-bit in 1/5000 m, and the same values
-    as float32) in the formats phase 12 reads; the CMYK JPEG, which is
-    lossy, must return cmyk_bgr of its source within CMYK_PSNR_DB."""
+    """(name, file bytes, anydepth, what imread must return, the PSNR it
+    must reach or None: the same array) of a rendered 480 x 640 frame and
+    its depth (16-bit in 1/5000 m, and the same values as float32) in the
+    formats phase 12 reads; the CMYK JPEG, which is lossy, must return
+    cmyk_bgr of its source within CMYK_PSNR_DB."""
     images, depths = render_sequence(SEED + 13, 1, 480, 640, TUM_FR1, 0.02,
                                      0.004)[:2]
     img = images[0]
@@ -2593,40 +2606,43 @@ def format_cases() -> list:
     cmyk = np.concatenate([img[..., ::-1], np.full_like(img[..., :1], 235)],
                           -1)
     return [
-        ("TIFF LZW RGB", tiff.encode_tiff(img, "lzw", 2), False, img),
+        ("TIFF LZW RGB", tiff.encode_tiff(img, "lzw", 2), False, img, None),
         ("TIFF Deflate float depth, floating-point predictor",
-         tiff.encode_tiff(d32, "deflate", 3), True, d32),
+         tiff.encode_tiff(d32, "deflate", 3), True, d32, None),
         ("TIFF tiled big-endian RGB", tiff.encode_tiff(
-            img, "deflate", 2, tile=(64, 64), big_endian=True), False, img),
-        ("PGM 16-bit depth", pnm.encode_pnm(d16), True, d16),
-        ("PPM", pnm.encode_pnm(img), False, img),
-        ("PFM depth", pnm.encode_pfm(d32), True, d32),
-        ("BMP RLE8", encode_bmp(idx, palette=pal, rle=True), False, pal[idx]),
+            img, "deflate", 2, tile=(64, 64), big_endian=True), False, img,
+         None),
+        ("PGM 16-bit depth", pnm.encode_pnm(d16), True, d16, None),
+        ("PPM", pnm.encode_pnm(img), False, img, None),
+        ("PFM depth", pnm.encode_pfm(d32), True, d32, None),
+        ("BMP RLE8", encode_bmp(idx, palette=pal, rle=True), False, pal[idx],
+         None),
         ("JPEG CMYK", encode_jpeg(cmyk, 95, adobe_transform=0), False,
-         cmyk_bgr(cmyk)),
+         cmyk_bgr(cmyk), CMYK_PSNR_DB),
     ]
 
 
-def phase_format_codecs(root: Path) -> dict:
-    """Each format's file, written to disk on the host: ``imread`` returns
-    the encoder's input (the CMYK JPEG: within CMYK_PSNR_DB of it), and the
-    host's median ms of 10 decodes."""
+def phase_format_codecs(root: Path, cases=None, phase: int = 12) -> dict:
+    """Each format's file of ``cases`` (default :func:`format_cases`),
+    written to disk on the host: ``imread`` returns the case's array (a
+    lossy one within its PSNR of it), and the host's median ms of 10
+    decodes."""
     out = {}
     path = root / "frame"
-    for name, data, anydepth, want in format_cases():
+    for name, data, anydepth, want, min_db in cases or format_cases():
         path.write_bytes(data)
         got = imread(str(path), anydepth=anydepth)
         check(got.shape == want.shape and got.dtype == want.dtype,
-              f"phase 12: {name} reads as {got.dtype} {got.shape}")
-        if name == "JPEG CMYK":
+              f"phase {phase}: {name} reads as {got.dtype} {got.shape}")
+        if min_db is not None:
             db = psnr(got, want)
-            check(db >= CMYK_PSNR_DB, f"phase 12: {name} PSNR {db:.2f} dB")
+            check(db >= min_db, f"phase {phase}: {name} PSNR {db:.2f} dB")
         else:
             check(np.array_equal(got, want),
-                  f"phase 12: {name} does not read back as written")
+                  f"phase {phase}: {name} does not read back as written")
         out[name] = dict(bytes=len(data), decode_ms=host_ms(
             lambda _: imread(str(path), anydepth=anydepth), range(10)))
-        if name == "JPEG CMYK":
+        if min_db is not None:
             out[name]["psnr_db"] = db
     return out
 
@@ -2655,21 +2671,26 @@ def tum_frames(root: Path, size: tuple) -> tuple:
 
 
 def phase_format_track(dev, kernels: dict, root: Path, n_frames: int = 24,
-                       size: tuple = (384, 512)) -> dict:
-    """A 24-frame TUM fr1 sequence written twice, PPM colour with float32
-    TIFF depth and PNG colour with 16-bit PNG depth of the same values:
-    the two streams feed equal frames and depth; each is tracked with
-    depth at the full width of ``SLAMConfig()`` (thresholds 0), then
-    ``terminate()``.  K1's launches in track() equal the motion filter's
-    probes plus the pyramid rebuilds, K2's the probes plus the GRU
-    iterations (phase 3's count); the trajectories are finite."""
+                       size: tuple = (384, 512),
+                       pairs=(("ppm", "tiff"), ("png", "png")),
+                       seed: int = SEED + 14, phase: int = 12,
+                       key: str = "launches_formats") -> dict:
+    """A 24-frame TUM fr1 sequence written twice, in the (colour, depth)
+    formats of ``pairs`` (``write_frame``'s kinds; phase 12: PPM colour
+    with float32 TIFF depth and PNG colour with 16-bit PNG depth of the
+    same values): the two streams feed equal frames and depth; each is
+    tracked with depth at the full width of ``SLAMConfig()`` (thresholds
+    0), then ``terminate()``.  K1's launches in track() equal the motion
+    filter's probes plus the pyramid rebuilds, K2's the probes plus the
+    GRU iterations (phase 3's count); the trajectories are finite.  The
+    launches over both runs add to ``kernels[...][key]``."""
     runs, streams = {}, []
     cfg = SLAMConfig().replace(filter_thresh=0.0, keyframe_thresh=0.0,
                                image_size=size)
-    for color, depth in (("ppm", "tiff"), ("png", "png")):
+    for color, depth in pairs:
         seq = root / f"{color}_{depth}" / "rgbd_dataset_freiburg1_desk"
         t_start = time.perf_counter()
-        write_tum_sequence(str(seq), n_frames, seed=SEED + 14, color=color,
+        write_tum_sequence(str(seq), n_frames, seed=seed, color=color,
                            depth=depth)
         write_s = time.perf_counter() - t_start
         frames, feed_ms = tum_frames(seq, size)
@@ -2688,30 +2709,29 @@ def phase_format_track(dev, kernels: dict, root: Path, n_frames: int = 24,
         k1, k2 = masked_corr_level0.launches_bf16, fused_pyramid_lookup.launches
         tag = f"{color} + {depth} depth"
         check(masked_corr_level0.launches == k1,
-              f"phase 12 {tag}: K1 fp32-operand launches")
+              f"phase {phase} {tag}: K1 fp32-operand launches")
         check(k1 > 0 and k1 == calls.probes + calls.rebuilds,
-              f"phase 12 {tag}: K1 launches {k1} != probes {calls.probes} "
-              f"+ rebuilds {calls.rebuilds}")
+              f"phase {phase} {tag}: K1 launches {k1} != probes "
+              f"{calls.probes} + rebuilds {calls.rebuilds}")
         check(k2 > 0 and k2 == calls.probes + calls.iterations,
-              f"phase 12 {tag}: K2 launches {k2} != probes {calls.probes} "
-              f"+ GRU iterations {calls.iterations}")
+              f"phase {phase} {tag}: K2 launches {k2} != probes "
+              f"{calls.probes} + GRU iterations {calls.iterations}")
         n_kf = slam.video.counter
         check(bool(torch.isfinite(slam.video.poses[:n_kf]).all()),
-              f"phase 12 {tag}: non-finite keyframe poses")
-        check(len(kf_ms) > cfg.warmup, f"phase 12 {tag}: {len(kf_ms)} "
+              f"phase {phase} {tag}: non-finite keyframe poses")
+        check(len(kf_ms) > cfg.warmup, f"phase {phase} {tag}: {len(kf_ms)} "
               f"keyframes, no update after the {cfg.warmup} of warm-up")
         t_start = time.perf_counter()
         traj = slam.terminate(iter(frames))
         torch.cuda.synchronize()
         terminate_s = time.perf_counter() - t_start
         check(traj.shape == (n_frames, 7) and bool(np.isfinite(traj).all()),
-              f"phase 12 {tag}: trajectory {traj.shape} not finite")
+              f"phase {phase} {tag}: trajectory {traj.shape} not finite")
         k1_all = masked_corr_level0.launches_bf16
         k2_all = fused_pyramid_lookup.launches
         for kname, k in (("masked_corr_level0_tc", k1_all),
                          ("fused_pyramid_lookup", k2_all)):
-            kernels[kname]["launches_formats"] = \
-                kernels[kname].get("launches_formats", 0) + k
+            kernels[kname][key] = kernels[kname].get(key, 0) + k
         runs[tag] = dict(
             write_seconds=write_s, feed_ms=feed_ms, keyframes=n_kf,
             probes=calls.probes, pyramid_rebuilds=calls.rebuilds,
@@ -2722,13 +2742,16 @@ def phase_format_track(dev, kernels: dict, root: Path, n_frames: int = 24,
         del slam
         torch.cuda.empty_cache()
     a, b = streams
-    check(len(a) == len(b) == n_frames, "phase 12: the streams' lengths")
+    check(len(a) == len(b) == n_frames,
+          f"phase {phase}: the streams' lengths")
+    names = [f"{c} + {d}" for c, d in pairs]
     for (ta, ia, da, xa), (tb, ib, db, xb) in zip(a, b):
         check(ta == tb and np.array_equal(ia, ib) and np.array_equal(xa, xb),
-              "phase 12: the PPM and PNG streams feed different frames")
+              f"phase {phase}: the {names[0]} and {names[1]} streams feed "
+              "different frames")
         check(da.dtype == db.dtype == np.float32 and np.array_equal(da, db),
-              "phase 12: the TIFF and PNG depth streams feed different "
-              "depth")
+              f"phase {phase}: the {names[0]} and {names[1]} streams feed "
+              "different depth")
     return runs
 
 
@@ -2785,6 +2808,77 @@ def print_phase_12(report: dict) -> None:
           f"384 x 512, equal depth from both streams: {tum}; rgbd_stream "
           f"over 16-bit PGM depth {report['pgm_rgbd_stream']['frames']} "
           f"frames; {report['seconds']:.0f} s")
+
+
+# -- phase 13: arithmetic and lossless JPEG, JPEG-in-TIFF, BigTIFF ---------
+
+TIFF_JPEG_PSNR_DB = 30.0  # JPEG TIFF (quality 90, YCbCr 4:2:0) vs source
+
+
+def arith_cases() -> list:
+    """:func:`format_cases`' tuples of a rendered 480 x 640 frame and its
+    depth (float64, in 1/5000 m) in the formats phase 13 reads: the
+    arithmetic files must decode to the samples of the Huffman file of
+    the same coefficients, the lossless one and the BigTIFF to their
+    source, the JPEG TIFFs to within TIFF_JPEG_PSNR_DB of it."""
+    images, depths = render_sequence(SEED + 16, 1, 480, 640, TUM_FR1, 0.02,
+                                     0.004)[:2]
+    img = images[0]
+    d64 = depths[0].astype(np.float64) * 5000.0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "huffman.jpg"
+        path.write_bytes(encode_jpeg(img))
+        huffman = imread(str(path))
+    return [
+        ("JPEG arithmetic sequential", encode_jpeg(img, arithmetic=True),
+         False, huffman, None),
+        ("JPEG arithmetic progressive", encode_jpeg(
+            img, arithmetic=True, progressive=True), False, huffman, None),
+        ("JPEG lossless gray", encode_jpeg(img[..., 1], lossless=True,
+                                           predictor=6), True, img[..., 1],
+         None),
+        ("TIFF JPEG strips", tiff.encode_tiff(
+            img, "jpeg", rows_per_strip=16, quality=90), False, img,
+         TIFF_JPEG_PSNR_DB),
+        ("TIFF JPEG tiles", tiff.encode_tiff(
+            img, "jpeg", tile=(128, 128), quality=90), False, img,
+         TIFF_JPEG_PSNR_DB),
+        ("BigTIFF float64 depth", tiff.encode_tiff(
+            d64, "deflate", 3, bigtiff=True), True, d64, None),
+    ]
+
+
+def phase_13(dev, kernels: dict) -> dict:
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        report = dict(codecs=phase_format_codecs(root, arith_cases(), 13))
+        runs = phase_format_track(
+            dev, kernels, root / "tum", seed=SEED + 17, phase=13,
+            pairs=(("arith-jpg", "bigtiff"), ("jpg", "png")),
+            key="launches_arith")
+    arith, huffman = runs.values()
+    for name in ("k1_launches_track", "k2_launches_track"):
+        check(arith[name] == huffman[name],
+              f"phase 13: {name} {arith[name]} (arithmetic JPEG + BigTIFF) "
+              f"!= {huffman[name]} (Huffman JPEG + PNG)")
+    report["tum"] = runs
+    report["seconds"] = time.perf_counter() - t_start
+    return report
+
+
+def print_phase_13(report: dict) -> None:
+    codecs = ", ".join(f"{k} {v['decode_ms']:.2f}"
+                       for k, v in report["codecs"].items())
+    tum = "; ".join(
+        f"{k}: fed {v['feed_ms']:.2f} ms per frame, {v['keyframes']} "
+        f"keyframes, {v['ms_per_keyframe_median']:.1f} ms per keyframe "
+        f"update, K1 {v['k1_launches']} / K2 {v['k2_launches']} launches "
+        f"(track {v['k1_launches_track']} / {v['k2_launches_track']})"
+        for k, v in report["tum"].items())
+    print(f"phase 13: host decode ms at 480 x 640: {codecs}; TUM RGB-D at "
+          f"384 x 512, equal frames and depth from both streams: {tum}; "
+          f"{report['seconds']:.0f} s")
 
 
 def main():
@@ -2849,16 +2943,19 @@ def main():
     torch.cuda.empty_cache()
     formats = phase_12(dev, kernels)
     print_phase_12(formats)
+    torch.cuda.empty_cache()
+    formats_13 = phase_13(dev, kernels)
+    print_phase_13(formats_13)
     # launches on the main path: K1 bf16 and K2 over track() +
-    # terminate(), phase 8's entry points, phase 10's JPEG runs and phase
-    # 12's TUM tracks, K2 also over phase 7's sharded backend pass, K1 fp32
-    # operands over phase 6's track()
+    # terminate(), phase 8's entry points, phase 10's JPEG runs and phases
+    # 12 and 13's TUM tracks, K2 also over phase 7's sharded backend pass,
+    # K1 fp32 operands over phase 6's track()
     for name in ("masked_corr_level0_tc", "fused_pyramid_lookup"):
         k = kernels[name]
         k["launches"] = k["launches_track"] + k["launches_terminate"] + \
             k.get("launches_sharded_backend", 0) + \
             k["launches_entry_points"] + k["launches_jpeg"] + \
-            k["launches_formats"]
+            k["launches_formats"] + k["launches_arith"]
     k = kernels["masked_corr_level0_tf32"]
     k["launches"] = k["launches_track_fp32"]
     for k in kernels.values():
@@ -2875,6 +2972,7 @@ def main():
     print(json.dumps({"jpeg": jpeg}))
     print(json.dumps({"oracle": oracle}))
     print(json.dumps({"formats": formats}))
+    print(json.dumps({"formats_13": formats_13}))
     print(json.dumps({"seconds": seconds}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -1,9 +1,10 @@
 /* JPEG decoder for the port's data layer (ITU-T T.81): baseline, extended
- * sequential and progressive Huffman coding of 8-bit samples, 1 component
- * (gray), 3 (YCbCr, or RGB by the Adobe marker or the component ids) or 4
- * (CMYK, or YCCK by the Adobe marker),
- * every integral sampling factor, restart intervals and the EXIF
- * orientation tag of the first APP1 segment.
+ * sequential and progressive files, Huffman or arithmetic coded, and
+ * lossless (SOF3) files, of 8-bit samples (2 to 8 bits in a lossless
+ * file), 1 component (gray), 3 (YCbCr, or RGB by the Adobe marker or the
+ * component ids) or 4 (CMYK, or YCCK by the Adobe marker), every sampling
+ * factor, restart intervals and the EXIF orientation tag of the first APP1
+ * segment.
  *
  * The output is what cv2.imread returns, which decodes with libjpeg-turbo's
  * defaults: the integer ISLOW inverse DCT (jidctint.c, as its x86 SIMD
@@ -13,29 +14,34 @@
  * its JCS_GRAYSCALE conversion (cv2.IMREAD_ANYDEPTH), and block smoothing
  * of a progressive file's incomplete coefficients (jdcoefct.c).  The
  * arithmetic below follows those files step for step, so the samples are
- * the same bit for bit.
+ * the same bit for bit.  Arithmetic decoding follows jdarith.c (T.81 Annex
+ * D, F.1.4 and G.1.3: the QM decoder, DAC conditioning, statistics reset
+ * at each restart), lossless decoding libjpeg-turbo 3.1's jdlossls.c,
+ * jddiffct.c and jdlhuff.c (predictors 1-7, the point transform, rows
+ * replicated where a component is subsampled); libjpeg-turbo converts no
+ * colour space in a lossless file, so gray reads only as gray and RGB only
+ * as colour.
  *
  * Damaged data is read as cv2.imread reads a file (libjpeg-turbo 3.1 with
  * its stdio source): past the end of the data the source supplies "FF D9"
- * (a fake EOI) again and again (jdatasrc.c); the entropy decoder pads a
+ * (a fake EOI) again and again (jdatasrc.c); the Huffman decoder pads a
  * segment cut short by a marker with zero bits and leaves the MCUs after
  * that one at zero coefficients (jdhuff.c insufficient_data), reads a bad
  * Huffman code as 17 bits of symbol 0, skips bytes before a marker
  * (jdmarker.c next_marker) and resynchronises out-of-order restart markers
- * as jpeg_resync_to_restart does.  A sequential file whose first scan holds
- * every component is output from that scan alone, as libjpeg's single-pass
- * decoder does, whatever follows it.  Where libjpeg stops with an error
- * (OpenCV then returns None) the decoder returns JPEG_CORRUPT.
- *
- * Four components are CMYK or YCCK, converted to BGR or gray as OpenCV
- * converts libjpeg's CMYK output (cmyk_output).  Arithmetic coding,
- * lossless files, other sample precisions than 8 bits and fractional
- * sampling ratios return JPEG_UNSUPPORTED; hierarchical files and 2 or more
- * than 4 components, which libjpeg refuses, JPEG_CORRUPT.  Every read of
- * the data is bounds-checked.
+ * as jpeg_resync_to_restart does; the arithmetic decoder reads zero bits
+ * after a marker and stops decoding the segment at a bad code or a
+ * spectral overflow (jdarith.c ct = -1).  A sequential file whose first
+ * scan holds every component is output from that scan alone, as libjpeg's
+ * single-pass decoder does, whatever follows it.  Where libjpeg or OpenCV
+ * stops with an error (cv2.imread returns None: other sample precisions,
+ * hierarchical and arithmetic lossless files, 2 or more than
+ * 4 components, fractional sampling of a component the output needs, a
+ * colour conversion of a lossless file) the decoder returns JPEG_CORRUPT.
+ * Every read of the data is bounds-checked.
  *
  * Built by the host C compiler at first use and called through ctypes
- * (lgu_slam_tpu_torch/data/image_io.py).
+ * (lgu_slam_tpu_torch/data/image_io.py and tiff.py).
  */
 #include <setjmp.h>
 #include <stdarg.h>
@@ -47,8 +53,17 @@
 
 #define JPEG_OK 0
 #define JPEG_CORRUPT 1
-#define JPEG_UNSUPPORTED 2
 #define JPEG_NOMEM 3
+
+/* output colour spaces: OpenCV's BGR (JCS_EXT_BGR, or CMYK converted as
+ * OpenCV converts it), JCS_GRAYSCALE, JCS_RGB from components taken as
+ * YCbCr whatever the markers say, and no conversion (JCS_UNKNOWN: the
+ * components as stored, interleaved); the last two as libtiff asks for
+ * them (tif_jpeg.c JPEGPreDecode) */
+#define JPEG_OUT_BGR 0
+#define JPEG_OUT_GRAY 1
+#define JPEG_OUT_YCC_RGB 2
+#define JPEG_OUT_RAW 3
 
 /* zigzag index -> natural (row-major) index; 16 extra entries as libjpeg */
 static const uint8_t NATURAL[64 + 16] = {
@@ -120,6 +135,14 @@ typedef struct {
     int prev_bits[64]; /* coef_bits before the component's last scan */
     int latch[10], prev_latch[10]; /* the two at the output (smoothing) */
     int dc_pred;
+    int pt; /* lossless: the point transform of the component's scan */
+    int dc_context; /* arithmetic DC conditioning category (jdarith.c) */
+    /* lossless: the sample differences, the undifferenced samples (16-bit,
+     * as jdlossls.c keeps them) of bw x bh, and the row mode (1: the first
+     * row of a scan or restart interval, predicted from its left only) */
+    int32_t *diff;
+    uint16_t *undiff;
+    int first_row;
 } comp_t;
 
 typedef struct {
@@ -137,7 +160,7 @@ typedef struct {
     int qt_def[4];
     huff_t hdc[4], hac[4];
     int restart;
-    int sof, progressive, width, height, ncomp;
+    int sof, progressive, arith, lossless, precision, width, height, ncomp;
     int hmax, vmax, mcux, mcuy;
     comp_t comp[4];
     int jfif, adobe, adobe_transform;
@@ -145,12 +168,20 @@ typedef struct {
     int scans;
     int orientation, app1_seen, sos_seen;
     int eobrun;
+    /* the arithmetic decoder (jdarith.c): C and A registers, the bit
+     * shift counter (-16 before the first two bytes of a segment, -1 after
+     * an error), the statistics bins, DAC's conditioning (L, U, Kx) */
+    int64_t ac, aa;
+    int ct;
+    uint8_t dc_stats[16][64], ac_stats[16][256], fixed_bin;
+    uint8_t dc_l[16], dc_u[16], ac_k[16];
     int last_good; /* libjpeg's last_good_iMCU_row */
     int smooth;    /* block smoothing at the output (smoothing_ok) */
     uint8_t *planes[4], *full[4];
     int *sum;        /* h2v2 column sums */
     int want_h, want_w; /* the output buffer's size */
     int gray_out;       /* one output channel: libjpeg's JCS_GRAYSCALE */
+    int mode;           /* JPEG_OUT_*: the output colour space */
     jmp_buf jb;
     char *err;
     int errlen;
@@ -314,6 +345,28 @@ static void read_dht(dec_t *s, const uint8_t *p, size_t L)
     }
 }
 
+/* jdmarker.c get_dac: arithmetic conditioning, DC tables' L and U, AC
+ * tables' Kx */
+static void read_dac(dec_t *s, const uint8_t *p, size_t L)
+{
+    for (; L >= 2; p += 2, L -= 2) {
+        int index = p[0], val = p[1];
+        if (index >= 32)
+            fail(s, JPEG_CORRUPT, "DAC: table index %d", index);
+        if (index >= 16) {
+            s->ac_k[index - 16] = (uint8_t)val;
+        } else {
+            s->dc_l[index] = (uint8_t)(val & 15);
+            s->dc_u[index] = (uint8_t)(val >> 4);
+            if (s->dc_l[index] > s->dc_u[index])
+                fail(s, JPEG_CORRUPT, "DAC: L %d above U %d", val & 15,
+                     val >> 4);
+        }
+    }
+    if (L != 0)
+        fail(s, JPEG_CORRUPT, "DAC: bad segment length");
+}
+
 static int u16_at(const uint8_t *p, size_t n, size_t off, int le, int *ok)
 {
     if (off + 1 >= n) {
@@ -371,9 +424,14 @@ static void read_sof(dec_t *s, int marker, const uint8_t *p, size_t L)
         fail(s, JPEG_CORRUPT, "a second frame header (SOF)");
     if (L < 6)
         fail(s, JPEG_CORRUPT, "SOF: segment too short");
-    if (p[0] != 8)
-        fail(s, JPEG_UNSUPPORTED, "%d-bit samples (only 8-bit JPEG is "
-             "decoded)", p[0]);
+    /* libjpeg-turbo reads 12-bit samples, and lossless ones of more than
+     * 8 bits, only through APIs OpenCV does not call (cv2.imread returns
+     * None); lossless samples of 2 to 8 bits come as they are */
+    s->lossless = marker == 0xC3;
+    s->precision = p[0];
+    if (s->lossless ? p[0] < 2 || p[0] > 8 : p[0] != 8)
+        fail(s, JPEG_CORRUPT, "%d-bit samples (cv2.imread reads 8-bit "
+             "JPEG, and lossless JPEG of 2 to 8 bits, only)", p[0]);
     s->height = p[1] << 8 | p[2];
     s->width = p[3] << 8 | p[4];
     s->ncomp = p[5];
@@ -388,7 +446,8 @@ static void read_sof(dec_t *s, int marker, const uint8_t *p, size_t L)
     if (s->ncomp != 1 && s->ncomp != 3 && s->ncomp != 4)
         fail(s, JPEG_CORRUPT, "%d components (no conversion to BGR)",
              s->ncomp);
-    s->progressive = marker == 0xC2;
+    s->progressive = marker == 0xC2 || marker == 0xCA;
+    s->arith = marker >= 0xC9;
     s->hmax = s->vmax = 1;
     for (int i = 0; i < s->ncomp; i++) {
         comp_t *c = &s->comp[i];
@@ -396,7 +455,9 @@ static void read_sof(dec_t *s, int marker, const uint8_t *p, size_t L)
         c->h = p[7 + 3 * i] >> 4;
         c->v = p[7 + 3 * i] & 15;
         c->tq = p[8 + 3 * i];
-        if (c->h < 1 || c->h > 4 || c->v < 1 || c->v > 4 || c->tq > 3)
+        /* a lossless file's table ids are not read (no quantisation) */
+        if (c->h < 1 || c->h > 4 || c->v < 1 || c->v > 4 ||
+            (c->tq > 3 && !s->lossless))
             fail(s, JPEG_CORRUPT, "SOF: component %d: sampling %dx%d, "
                  "table %d", i, c->h, c->v, c->tq);
         if (c->h > s->hmax)
@@ -404,19 +465,20 @@ static void read_sof(dec_t *s, int marker, const uint8_t *p, size_t L)
         if (c->v > s->vmax)
             s->vmax = c->v;
     }
-    s->mcux = (s->width + 8 * s->hmax - 1) / (8 * s->hmax);
-    s->mcuy = (s->height + 8 * s->vmax - 1) / (8 * s->vmax);
+    /* a data unit is an 8 x 8 block, or one sample in a lossless file */
+    const int du = s->lossless ? 1 : 8;
+    s->mcux = (s->width + du * s->hmax - 1) / (du * s->hmax);
+    s->mcuy = (s->height + du * s->vmax - 1) / (du * s->vmax);
     for (int i = 0; i < s->ncomp; i++) {
         comp_t *c = &s->comp[i];
-        if (s->hmax % c->h || s->vmax % c->v)
-            fail(s, JPEG_UNSUPPORTED, "fractional sampling (%dx%d against "
-                 "%dx%d)", c->h, c->v, s->hmax, s->vmax);
         long long w = (long long)s->width * c->h, h = (long long)s->height *
                                                       c->v;
         c->dw = (int)((w + s->hmax - 1) / s->hmax);
         c->dh = (int)((h + s->vmax - 1) / s->vmax);
-        c->wib = (int)((w + 8LL * s->hmax - 1) / (8LL * s->hmax));
-        c->hib = (int)((h + 8LL * s->vmax - 1) / (8LL * s->vmax));
+        c->wib = (int)((w + (long long)du * s->hmax - 1) /
+                       ((long long)du * s->hmax));
+        c->hib = (int)((h + (long long)du * s->vmax - 1) /
+                       ((long long)du * s->vmax));
         c->bw = s->mcux * c->h;
         c->bh = s->mcuy * c->v;
         for (int k = 0; k < 64; k++)
@@ -664,9 +726,266 @@ static void block_ac_refine(dec_t *s, int16_t *blk, const huff_t *ac, int ss,
     }
 }
 
+/* -- arithmetic decoding (jdarith.c) -------------------------------------- */
+
+/* T.81 Table D.2 as jaricom.c packs it: Qe << 16, Next_Index_MPS << 8,
+ * Switch_MPS << 7, Next_Index_LPS; entry 113 is the fixed estimate of
+ * probability 0.5 (the sign and refinement bits' bin) */
+#define V(qe, nmps, nlps, sw) \
+    ((uint32_t)(qe) << 16 | (uint32_t)(nmps) << 8 | (uint32_t)(sw) << 7 | \
+     (uint32_t)(nlps))
+static const uint32_t ARITAB[114] = {
+    V(0x5a1d, 1, 1, 1), V(0x2586, 2, 14, 0), V(0x1114, 3, 16, 0), V(0x080b, 4, 18, 0),
+    V(0x03d8, 5, 20, 0), V(0x01da, 6, 23, 0), V(0x00e5, 7, 25, 0), V(0x006f, 8, 28, 0),
+    V(0x0036, 9, 30, 0), V(0x001a, 10, 33, 0), V(0x000d, 11, 35, 0), V(0x0006, 12, 9, 0),
+    V(0x0003, 13, 10, 0), V(0x0001, 13, 12, 0), V(0x5a7f, 15, 15, 1), V(0x3f25, 16, 36, 0),
+    V(0x2cf2, 17, 38, 0), V(0x207c, 18, 39, 0), V(0x17b9, 19, 40, 0), V(0x1182, 20, 42, 0),
+    V(0x0cef, 21, 43, 0), V(0x09a1, 22, 45, 0), V(0x072f, 23, 46, 0), V(0x055c, 24, 48, 0),
+    V(0x0406, 25, 49, 0), V(0x0303, 26, 51, 0), V(0x0240, 27, 52, 0), V(0x01b1, 28, 54, 0),
+    V(0x0144, 29, 56, 0), V(0x00f5, 30, 57, 0), V(0x00b7, 31, 59, 0), V(0x008a, 32, 60, 0),
+    V(0x0068, 33, 62, 0), V(0x004e, 34, 63, 0), V(0x003b, 35, 32, 0), V(0x002c, 9, 33, 0),
+    V(0x5ae1, 37, 37, 1), V(0x484c, 38, 64, 0), V(0x3a0d, 39, 65, 0), V(0x2ef1, 40, 67, 0),
+    V(0x261f, 41, 68, 0), V(0x1f33, 42, 69, 0), V(0x19a8, 43, 70, 0), V(0x1518, 44, 72, 0),
+    V(0x1177, 45, 73, 0), V(0x0e74, 46, 74, 0), V(0x0bfb, 47, 75, 0), V(0x09f8, 48, 77, 0),
+    V(0x0861, 49, 78, 0), V(0x0706, 50, 79, 0), V(0x05cd, 51, 48, 0), V(0x04de, 52, 50, 0),
+    V(0x040f, 53, 50, 0), V(0x0363, 54, 51, 0), V(0x02d4, 55, 52, 0), V(0x025c, 56, 53, 0),
+    V(0x01f8, 57, 54, 0), V(0x01a4, 58, 55, 0), V(0x0160, 59, 56, 0), V(0x0125, 60, 57, 0),
+    V(0x00f6, 61, 58, 0), V(0x00cb, 62, 59, 0), V(0x00ab, 63, 61, 0), V(0x008f, 32, 61, 0),
+    V(0x5b12, 65, 65, 1), V(0x4d04, 66, 80, 0), V(0x412c, 67, 81, 0), V(0x37d8, 68, 82, 0),
+    V(0x2fe8, 69, 83, 0), V(0x293c, 70, 84, 0), V(0x2379, 71, 86, 0), V(0x1edf, 72, 87, 0),
+    V(0x1aa9, 73, 87, 0), V(0x174e, 74, 72, 0), V(0x1424, 75, 72, 0), V(0x119c, 76, 74, 0),
+    V(0x0f6b, 77, 74, 0), V(0x0d51, 78, 75, 0), V(0x0bb6, 79, 77, 0), V(0x0a40, 48, 77, 0),
+    V(0x5832, 81, 80, 1), V(0x4d1c, 82, 88, 0), V(0x438e, 83, 89, 0), V(0x3bdd, 84, 90, 0),
+    V(0x34ee, 85, 91, 0), V(0x2eae, 86, 92, 0), V(0x299a, 87, 93, 0), V(0x2516, 71, 86, 0),
+    V(0x5570, 89, 88, 1), V(0x4ca9, 90, 95, 0), V(0x44d9, 91, 96, 0), V(0x3e22, 92, 97, 0),
+    V(0x3824, 93, 99, 0), V(0x32b4, 94, 99, 0), V(0x2e17, 86, 93, 0), V(0x56a8, 96, 95, 1),
+    V(0x4f46, 97, 101, 0), V(0x47e5, 98, 102, 0), V(0x41cf, 99, 103, 0), V(0x3c3d, 100, 104, 0),
+    V(0x375e, 93, 99, 0), V(0x5231, 102, 105, 0), V(0x4c0f, 103, 106, 0), V(0x4639, 104, 107, 0),
+    V(0x415e, 99, 103, 0), V(0x5627, 106, 105, 1), V(0x50e7, 107, 108, 0), V(0x4b85, 103, 109, 0),
+    V(0x5597, 109, 110, 0), V(0x504f, 107, 111, 0), V(0x5a10, 111, 110, 1), V(0x5522, 109, 112, 0),
+    V(0x59eb, 111, 112, 1), V(0x5a1d, 113, 113, 0),
+};
+#undef V
+
+/* arith_decode: one binary decision in statistics bin st (Annex D.2).
+ * Bytes are read as the Huffman decoder reads them, a marker ending the
+ * segment's data: zero bytes follow it. */
+static int arith_decode(dec_t *s, uint8_t *st)
+{
+    while (s->aa < 0x8000) {
+        if (--s->ct < 0) {
+            int data = 0;
+            if (!s->unread_marker) {
+                data = next_byte(s);
+                if (data == 0xFF) {
+                    do
+                        data = next_byte(s);
+                    while (data == 0xFF);
+                    if (data == 0) {
+                        data = 0xFF;
+                    } else {
+                        s->unread_marker = data;
+                        data = 0;
+                    }
+                }
+            }
+            s->ac = (s->ac << 8) | data;
+            if ((s->ct += 8) < 0 && ++s->ct == 0)
+                s->aa = 0x8000; /* the first two bytes are in */
+        }
+        s->aa <<= 1;
+    }
+    int sv = *st;
+    uint32_t e = ARITAB[sv & 0x7F];
+    int nl = (int)(e & 0xFF), nm = (int)(e >> 8 & 0xFF);
+    int64_t qe = (int64_t)(e >> 16);
+    int64_t temp = s->aa - qe;
+    s->aa = temp;
+    temp <<= s->ct;
+    if (s->ac >= temp) {
+        s->ac -= temp;
+        if (s->aa < qe) { /* conditional exchange: the MPS */
+            s->aa = qe;
+            *st = (uint8_t)((sv & 0x80) ^ nm);
+        } else {
+            s->aa = qe;
+            *st = (uint8_t)((sv & 0x80) ^ nl);
+            sv ^= 0x80;
+        }
+    } else if (s->aa < 0x8000) {
+        if (s->aa < qe) {
+            *st = (uint8_t)((sv & 0x80) ^ nl);
+            sv ^= 0x80;
+        } else {
+            *st = (uint8_t)((sv & 0x80) ^ nm);
+        }
+    }
+    return sv >> 7;
+}
+
+/* a scan's or restart interval's start: the statistics of the tables the
+ * scan codes with cleared, DC predictions and contexts reset, two bytes to
+ * read into C */
+static void arith_reset(dec_t *s, int ns, comp_t *const *cs, const int *td,
+                        const int *ta, int ss, int ah)
+{
+    for (int i = 0; i < ns; i++) {
+        if (!s->progressive || (ss == 0 && ah == 0)) {
+            memset(s->dc_stats[td[i]], 0, sizeof s->dc_stats[0]);
+            cs[i]->dc_pred = 0;
+            cs[i]->dc_context = 0;
+        }
+        if (!s->progressive || ss)
+            memset(s->ac_stats[ta[i]], 0, sizeof s->ac_stats[0]);
+    }
+    s->ac = s->aa = 0;
+    s->ct = -16;
+}
+
+/* a DC difference (Figure F.19 with F.21-F.24) added to the component's
+ * prediction; 0 after a magnitude overflow */
+static int arith_dc(dec_t *s, comp_t *c, int tbl)
+{
+    uint8_t *st = s->dc_stats[tbl] + c->dc_context;
+    if (arith_decode(s, st) == 0) {
+        c->dc_context = 0;
+        return 1;
+    }
+    int sign = arith_decode(s, st + 1);
+    st += 2 + sign;
+    int m = arith_decode(s, st);
+    if (m) {
+        st = s->dc_stats[tbl] + 20; /* X1 */
+        while (arith_decode(s, st)) {
+            if ((m <<= 1) == 0x8000) {
+                s->ct = -1;
+                return 0;
+            }
+            st++;
+        }
+    }
+    if (m < (int)((1L << s->dc_l[tbl]) >> 1))
+        c->dc_context = 0;
+    else if (m > (int)((1L << s->dc_u[tbl]) >> 1))
+        c->dc_context = 12 + sign * 4;
+    else
+        c->dc_context = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+        if (arith_decode(s, st))
+            v |= m;
+    v += 1;
+    if (sign)
+        v = -v;
+    c->dc_pred = (int)(((unsigned)c->dc_pred + (unsigned)v) & 0xFFFF);
+    return 1;
+}
+
+/* AC coefficients ss..se of a block, first (or only) pass (Figure F.20;
+ * G.1.3.2 with al): 0 after a spectral or magnitude overflow */
+static int arith_ac_first(dec_t *s, int16_t *blk, int tbl, int ss, int se,
+                          int al)
+{
+    for (int k = ss; k <= se; k++) {
+        uint8_t *st = s->ac_stats[tbl] + 3 * (k - 1);
+        if (arith_decode(s, st))
+            break; /* EOB */
+        while (arith_decode(s, st + 1) == 0) {
+            st += 3;
+            if (++k > se) {
+                s->ct = -1; /* spectral overflow */
+                return 0;
+            }
+        }
+        int sign = arith_decode(s, &s->fixed_bin);
+        st += 2;
+        int m = arith_decode(s, st);
+        if (m && arith_decode(s, st)) {
+            m <<= 1;
+            st = s->ac_stats[tbl] + (k <= s->ac_k[tbl] ? 189 : 217);
+            while (arith_decode(s, st)) {
+                if ((m <<= 1) == 0x8000) {
+                    s->ct = -1;
+                    return 0;
+                }
+                st++;
+            }
+        }
+        int v = m;
+        st += 14;
+        while (m >>= 1)
+            if (arith_decode(s, st))
+                v |= m;
+        v += 1;
+        if (sign)
+            v = -v;
+        blk[NATURAL[k]] = (int16_t)(uint16_t)((unsigned)v << al);
+    }
+    return 1;
+}
+
+/* successive approximation of AC coefficients ss..se (G.1.3.3) */
+static void arith_ac_refine(dec_t *s, int16_t *blk, int tbl, int ss, int se,
+                            int al)
+{
+    const int p1 = 1 << al, m1 = (int)((unsigned)-1 << al);
+    int kex;
+    for (kex = se; kex > 0; kex--)
+        if (blk[NATURAL[kex]])
+            break;
+    for (int k = ss; k <= se; k++) {
+        uint8_t *st = s->ac_stats[tbl] + 3 * (k - 1);
+        if (k > kex && arith_decode(s, st))
+            break; /* EOB */
+        for (;;) {
+            int16_t *coef = blk + NATURAL[k];
+            if (*coef) { /* a coefficient already nonzero */
+                if (arith_decode(s, st + 2))
+                    *coef = (int16_t)(*coef + (*coef < 0 ? m1 : p1));
+                break;
+            }
+            if (arith_decode(s, st + 1)) { /* newly nonzero */
+                *coef = (int16_t)(arith_decode(s, &s->fixed_bin) ? m1 : p1);
+                break;
+            }
+            st += 3;
+            if (++k > se) {
+                s->ct = -1; /* spectral overflow */
+                return;
+            }
+        }
+    }
+}
+
+/* one block of an arithmetic-coded scan */
+static void arith_block(dec_t *s, comp_t *c, int16_t *blk, int td, int ta,
+                        int ss, int se, int ah, int al)
+{
+    if (!s->progressive) {
+        if (!arith_dc(s, c, td))
+            return;
+        blk[0] = (int16_t)c->dc_pred;
+        arith_ac_first(s, blk, ta, 1, 63, 0);
+    } else if (ss == 0 && ah == 0) {
+        if (arith_dc(s, c, td))
+            blk[0] = (int16_t)(uint16_t)((unsigned)c->dc_pred << al);
+    } else if (ss == 0) {
+        if (arith_decode(s, &s->fixed_bin))
+            blk[0] = (int16_t)(blk[0] | (1 << al));
+    } else if (ah == 0) {
+        arith_ac_first(s, blk, ta, ss, se, al);
+    } else {
+        arith_ac_refine(s, blk, ta, ss, se, al);
+    }
+}
+
 static void decode_scan(dec_t *s, int ns, comp_t *const *cs,
                         const huff_t *const *dct, const huff_t *const *act,
-                        int ss, int se, int ah, int al);
+                        const int *td, const int *ta, int ss, int se, int ah,
+                        int al);
+static void decode_lossless(dec_t *s, int ns, comp_t *const *cs,
+                            const huff_t *const *dct, int psv, int pt);
 
 /* a scan header: its components and tables, the progression's checks */
 static void read_sos(dec_t *s, const uint8_t *p, size_t L)
@@ -698,6 +1017,12 @@ static void read_sos(dec_t *s, const uint8_t *p, size_t L)
     int ah = p[3 + 2 * ns] >> 4, al = p[3 + 2 * ns] & 15;
 
     int dc_band = ss == 0;
+    /* jdlossls.c start_pass_lossless: Ss is the predictor, Al the point
+     * transform */
+    if (s->lossless && (ss < 1 || ss > 7 || se != 0 || ah != 0 ||
+                        al >= s->precision))
+        fail(s, JPEG_CORRUPT, "bad lossless scan parameters: predictor %d, "
+             "Se=%d Ah=%d Pt=%d", ss, se, ah, al);
     if (s->progressive) {
         int bad = dc_band ? se != 0 : (ss > se || se > 63 || ns != 1);
         if ((ah != 0 && al != ah - 1) || al > 13 || bad)
@@ -726,21 +1051,25 @@ static void read_sos(dec_t *s, const uint8_t *p, size_t L)
     const huff_t *dct[4] = {0}, *act[4] = {0};
     for (int i = 0; i < ns; i++) {
         comp_t *c = cs[i];
-        if (!c->latched) {
+        c->dc_pred = 0;
+        if (!c->latched && !s->lossless) {
             if (!s->qt_def[c->tq])
                 fail(s, JPEG_CORRUPT, "quantisation table %d is not defined",
                      c->tq);
             memcpy(c->q, s->qt[c->tq], sizeof c->q);
             c->latched = 1;
         }
+        if (s->arith) /* conditioning tables 0-15 all exist (jdarith.c) */
+            continue;
         int uses_dc = s->progressive ? dc_band && ah == 0 : 1;
-        int uses_ac = s->progressive ? !dc_band : 1;
+        int uses_ac = s->progressive ? !dc_band : !s->lossless;
         /* only the tables the scan uses are checked, as libjpeg does */
         if (uses_dc) {
             if (td[i] > 3)
                 fail(s, JPEG_CORRUPT, "SOS: Huffman table id above 3");
             huff_t *h = &s->hdc[td[i]];
-            if (!h->defined && td[i] < 2 && !s->progressive)
+            if (!h->defined && td[i] < 2 && !s->progressive &&
+                !s->lossless) /* jdlhuff.c takes none */
                 build_huff(h, STD_DC_BITS[td[i]], STD_DC_VALS);
             if (!h->defined)
                 fail(s, JPEG_CORRUPT, "DC Huffman table %d is not defined",
@@ -762,28 +1091,34 @@ static void read_sos(dec_t *s, const uint8_t *p, size_t L)
                 fail(s, JPEG_CORRUPT, "bad Huffman table");
             act[i] = h;
         }
-        c->dc_pred = 0;
     }
+    /* DC categories: 0-15, in a lossless file 0-16 (jdhuff.c) */
     for (int i = 0; i < ns; i++)
         for (int k = 0; dct[i] != NULL && k < dct[i]->nvals; k++)
-            if (dct[i]->vals[k] > 15)
+            if (dct[i]->vals[k] > 15 + s->lossless)
                 fail(s, JPEG_CORRUPT, "bad Huffman table (DC category %d)",
                      dct[i]->vals[k]);
 
     s->sos_seen = 1;
-    decode_scan(s, ns, cs, dct, act, ss, se, ah, al);
+    if (s->lossless)
+        decode_lossless(s, ns, cs, dct, ss, al);
+    else
+        decode_scan(s, ns, cs, dct, act, td, ta, ss, se, ah, al);
 }
 
 /* the scan's entropy-coded data: MCUs in raster order (one block each in a
  * single-component scan), a restart marker every s->restart of them */
 static void decode_scan(dec_t *s, int ns, comp_t *const *cs,
                         const huff_t *const *dct, const huff_t *const *act,
-                        int ss, int se, int ah, int al)
+                        const int *td, const int *ta, int ss, int se, int ah,
+                        int al)
 {
     int dc_band = ss == 0;
     reset_bits(s);
     s->eobrun = 0;
     s->insufficient = 0;
+    if (s->arith)
+        arith_reset(s, ns, cs, td, ta, ss, ah);
     int mx_n = ns > 1 ? s->mcux : cs[0]->wib;
     int my_n = ns > 1 ? s->mcuy : cs[0]->hib;
     long long total = (long long)mx_n * my_n;
@@ -797,13 +1132,16 @@ static void decode_scan(dec_t *s, int ns, comp_t *const *cs,
         if (s->restart) {
             if (left == 0) {
                 restart(s, &next_rst);
+                if (s->arith)
+                    arith_reset(s, ns, cs, td, ta, ss, ah);
                 left = s->restart;
             }
             left--;
         }
-        if (s->insufficient)
-            continue; /* the MCU keeps its coefficients (zero, or those of
-                         earlier scans): uniform gray where nothing came */
+        /* the MCU keeps its coefficients (zero, or those of earlier
+         * scans): uniform gray where nothing came */
+        if (s->arith ? s->ct == -1 : s->insufficient)
+            continue;
         for (int i = 0; i < ns; i++) {
             comp_t *c = cs[i];
             int nv = ns > 1 ? c->v : 1, nh = ns > 1 ? c->h : 1;
@@ -811,7 +1149,11 @@ static void decode_scan(dec_t *s, int ns, comp_t *const *cs,
                 for (int h = 0; h < nh; h++) {
                     size_t by = (size_t)my * nv + v, bx = (size_t)mx * nh + h;
                     int16_t *blk = c->coef + (by * c->bw + bx) * 64;
-                    if (!s->progressive)
+                    if (s->arith) {
+                        arith_block(s, c, blk, td[i], ta[i], ss, se, ah, al);
+                        if (s->ct == -1) /* the rest of the MCU is lost */
+                            goto next_mcu;
+                    } else if (!s->progressive)
                         block_sequential(s, c, blk, dct[i], act[i]);
                     else if (dc_band && ah == 0)
                         block_dc_first(s, c, blk, dct[i], al);
@@ -823,8 +1165,130 @@ static void decode_scan(dec_t *s, int ns, comp_t *const *cs,
                         block_ac_refine(s, blk, act[i], ss, se, al);
                 }
         }
+    next_mcu:;
     }
     reset_bits(s); /* the next marker: unread_marker, else the data's */
+}
+
+/* -- lossless (jdlossls.c, jddiffct.c, jdlhuff.c) ------------------------- */
+
+/* a sample difference: category 16 is 32768 with no extra bits */
+static int lossless_diff(dec_t *s, const huff_t *h)
+{
+    int t = decode_huff(s, h);
+    if (t == 0)
+        return 0;
+    if (t == 16)
+        return 32768;
+    return extend(get_bits(s, t), t);
+}
+
+/* jdlossls.c's undifferencers on row y of component c: the first row of a
+ * scan or restart interval from its left neighbour only (its first sample
+ * from 2^(P - Pt - 1)); the others' first sample from above, the rest by
+ * predictor psv; samples modulo 2^16 */
+static void undifference(comp_t *c, int y, int psv, int pt, int precision)
+{
+    const int32_t *d = c->diff + (size_t)y * c->bw;
+    uint16_t *o = c->undiff + (size_t)y * c->bw;
+    const int width = c->wib;
+    if (c->first_row) {
+        int64_t ra = (d[0] + (1 << (precision - pt - 1))) & 0xFFFF;
+        o[0] = (uint16_t)ra;
+        for (int x = 1; x < width; x++) {
+            ra = (d[x] + ra) & 0xFFFF;
+            o[x] = (uint16_t)ra;
+        }
+        c->first_row = 0;
+        return;
+    }
+    const uint16_t *up = o - c->bw;
+    int64_t rb = up[0], ra = (d[0] + rb) & 0xFFFF, rc, pred;
+    o[0] = (uint16_t)ra;
+    for (int x = 1; x < width; x++) {
+        rc = rb;
+        rb = up[x];
+        switch (psv) {
+        case 1: pred = ra; break;
+        case 2: pred = rb; break;
+        case 3: pred = rc; break;
+        case 4: pred = ra + rb - rc; break;
+        case 5: pred = ra + ((rb - rc) >> 1); break;
+        case 6: pred = rb + ((ra - rc) >> 1); break;
+        default: pred = (ra + rb) >> 1; break;
+        }
+        ra = (d[x] + pred) & 0xFFFF;
+        o[x] = (uint16_t)ra;
+    }
+}
+
+/* a lossless scan, MCU row by MCU row as jddiffct.c decompress_data reads
+ * it: a restart every restart / (MCUs per row) rows, an MCU row after the
+ * data ran out left at zero differences with the undifferencers reset (so
+ * uniform 2^(P - Pt - 1)), each iMCU row undifferenced once decoded */
+static void decode_lossless(dec_t *s, int ns, comp_t *const *cs,
+                            const huff_t *const *dct, int psv, int pt)
+{
+    reset_bits(s);
+    s->insufficient = 0;
+    for (int i = 0; i < ns; i++) {
+        comp_t *c = cs[i];
+        size_t n = (size_t)c->bw * c->bh;
+        if (c->diff == NULL) {
+            c->diff = alloc(s, n * sizeof(int32_t));
+            c->undiff = alloc(s, n * sizeof(uint16_t));
+        }
+        c->pt = pt;
+    }
+    for (int i = 0; i < s->ncomp; i++)
+        s->comp[i].first_row = 1;
+    const int per_row = ns > 1 ? s->mcux : cs[0]->wib;
+    if (s->restart % per_row)
+        fail(s, JPEG_CORRUPT, "restart interval %d is not a whole number of "
+             "MCU rows of %d", s->restart, per_row);
+    unsigned rows_to_go = (unsigned)(s->restart / per_row);
+    int next_rst = 0;
+    for (int r = 0; r < s->mcuy; r++) {
+        const int last = r == s->mcuy - 1;
+        int rows = cs[0]->v;
+        if (ns == 1 && last && cs[0]->hib % cs[0]->v)
+            rows = cs[0]->hib % cs[0]->v;
+        for (int yo = 0; yo < (ns > 1 ? 1 : rows); yo++) {
+            if (s->restart && rows_to_go == 0) {
+                restart(s, &next_rst);
+                for (int i = 0; i < s->ncomp; i++)
+                    s->comp[i].first_row = 1;
+                rows_to_go = (unsigned)(s->restart / per_row);
+            }
+            int reset = s->insufficient;
+            if (reset)
+                for (int i = 0; i < s->ncomp; i++)
+                    s->comp[i].first_row = 1;
+            for (int mx = 0; mx < per_row; mx++)
+                for (int i = 0; i < ns; i++) {
+                    comp_t *c = cs[i];
+                    int nv = ns > 1 ? c->v : 1, nh = ns > 1 ? c->h : 1;
+                    for (int v = 0; v < nv; v++)
+                        for (int h = 0; h < nh; h++) {
+                            size_t y = (size_t)r * c->v + (ns > 1 ? v : yo);
+                            size_t x = (size_t)mx * nh + h;
+                            c->diff[y * c->bw + x] =
+                                reset ? 0 : lossless_diff(s, dct[i]);
+                        }
+                }
+            if (s->restart)
+                rows_to_go--;
+        }
+        for (int i = 0; i < ns; i++) {
+            comp_t *c = cs[i];
+            int n = c->v;
+            if (last && c->hib % c->v)
+                n = c->hib % c->v;
+            for (int row = 0; row < n; row++)
+                undifference(c, r * c->v + row, psv, pt, s->precision);
+        }
+    }
+    reset_bits(s);
 }
 
 /* -- samples ------------------------------------------------------------- */
@@ -922,10 +1386,13 @@ static void idct_islow(const int16_t *in, const uint16_t *q, uint8_t *out,
 
 /* component samples at full size, W x H (jdsample.c's choice of method) */
 static void upsample(const comp_t *c, const uint8_t *in, size_t stride,
-                     int hexp, int vexp, uint8_t *out, int W, int H, int *sum)
+                     int hexp, int vexp, uint8_t *out, int W, int H, int *sum,
+                     int fancy)
 {
     const int dw = c->dw, dh = c->dh;
-    if (hexp == 2 && vexp == 1 && dw > 2) { /* h2v1 fancy */
+    /* not fancy in a lossless file: libjpeg-turbo's fancy upsampling
+     * needs 8 x 8 blocks */
+    if (fancy && hexp == 2 && vexp == 1 && dw > 2) { /* h2v1 fancy */
         for (int y = 0; y < H; y++) {
             const uint8_t *r = in + (size_t)y * stride;
             uint8_t *o = out + (size_t)y * W;
@@ -940,7 +1407,7 @@ static void upsample(const comp_t *c, const uint8_t *in, size_t stride,
                                   : (uint8_t)((3 * r[i] + r[i - 1] + 1) >> 2);
             }
         }
-    } else if (hexp == 1 && vexp == 2) { /* h1v2 fancy */
+    } else if (fancy && hexp == 1 && vexp == 2) { /* h1v2 fancy */
         for (int y = 0; y < H; y++) {
             int i = y >> 1;
             int nb = y & 1 ? (i + 1 < dh ? i + 1 : dh - 1)
@@ -952,7 +1419,7 @@ static void upsample(const comp_t *c, const uint8_t *in, size_t stride,
             for (int x = 0; x < W; x++)
                 o[x] = (uint8_t)((3 * r0[x] + r1[x] + bias) >> 2);
         }
-    } else if (hexp == 2 && vexp == 2 && dw > 2) { /* h2v2 fancy */
+    } else if (fancy && hexp == 2 && vexp == 2 && dw > 2) { /* h2v2 fancy */
         for (int y = 0; y < H; y++) {
             int i = y >> 1;
             int nb = y & 1 ? (i + 1 < dh ? i + 1 : dh - 1)
@@ -1169,18 +1636,59 @@ static void cmyk_output(const dec_t *s, const uint8_t *const *ch,
     }
 }
 
+/* the components the output needs: a gray output of a gray or YCbCr file
+ * only component 0 (jdcolor.c clears component_needed for the others) */
+static int needed(const dec_t *s)
+{
+    return s->mode == JPEG_OUT_GRAY && !s->rgb && s->ncomp < 4 ? 1 : s->ncomp;
+}
+
+/* what libjpeg checks in jpeg_start_decompress before any scan's data:
+ * the upsampling of each component the output needs (jdsample.c: integral
+ * ratios only) and the colour conversion (jdcolor.c: none at all in a
+ * lossless file), and OpenCV's own refusal of the conversions it asks
+ * for; each a failure where cv2.imread returns None */
+static void check_output(dec_t *s)
+{
+    for (int i = 0; i < needed(s); i++) {
+        const comp_t *c = &s->comp[i];
+        if (s->hmax % c->h || s->vmax % c->v)
+            fail(s, JPEG_CORRUPT, "fractional sampling (%dx%d against "
+                 "%dx%d) of component %d", c->h, c->v, s->hmax, s->vmax, i);
+    }
+    const int ycck = s->ncomp == 4 && s->adobe && s->adobe_transform != 0;
+    if (s->mode == JPEG_OUT_YCC_RGB && s->ncomp != 3)
+        fail(s, JPEG_CORRUPT, "%d components taken for YCbCr", s->ncomp);
+    if (!s->lossless || s->mode == JPEG_OUT_RAW)
+        return;
+    int same; /* the output colour space is the file's */
+    if (s->ncomp == 4)
+        same = !ycck && s->mode != JPEG_OUT_YCC_RGB; /* CMYK out */
+    else if (s->mode == JPEG_OUT_GRAY)
+        same = s->ncomp == 1;
+    else
+        same = s->ncomp == 3 && s->rgb && s->mode == JPEG_OUT_BGR;
+    if (!same)
+        fail(s, JPEG_CORRUPT, "a colour conversion of a lossless file "
+             "(libjpeg-turbo converts none)");
+}
+
 static void output(dec_t *s, uint8_t *out)
 {
     const int W = s->width, H = s->height;
     const uint8_t *ch[4];
-    /* a gray output of a gray or YCbCr file needs only component 0 */
-    const int needed = s->gray_out && !s->rgb && s->ncomp < 4 ? 1 : s->ncomp;
-    for (int i = 0; i < needed; i++) {
+    for (int i = 0; i < needed(s); i++) {
         comp_t *c = &s->comp[i];
-        size_t stride = (size_t)c->wib * 8;
-        uint8_t *pl = s->planes[i] = alloc(s, stride * (size_t)c->hib * 8);
+        const int du = s->lossless ? 1 : 8;
+        size_t stride = (size_t)c->wib * du;
+        uint8_t *pl = s->planes[i] = alloc(s, stride * (size_t)c->hib * du);
         int16_t ws[64];
-        for (int by = 0; by < c->hib; by++)
+        for (int by = 0; s->lossless && c->undiff != NULL && by < c->hib;
+             by++)
+            for (int bx = 0; bx < c->wib; bx++) /* jdlossls.c scaling */
+                pl[(size_t)by * stride + bx] = (uint8_t)(
+                    c->undiff[(size_t)by * c->bw + bx] << c->pt);
+        for (int by = 0; !s->lossless && by < c->hib; by++)
             for (int bx = 0; bx < c->wib; bx++) {
                 const int16_t *blk = c->coef + ((size_t)by * c->bw + bx) * 64;
                 if (s->smooth) {
@@ -1202,16 +1710,24 @@ static void output(dec_t *s, uint8_t *out)
             s->full[i] = alloc(s, (size_t)W * H);
             free(s->sum);
             s->sum = alloc(s, sizeof(int) * (size_t)c->dw);
-            upsample(c, pl, stride, hexp, vexp, s->full[i], W, H, s->sum);
+            upsample(c, pl, stride, hexp, vexp, s->full[i], W, H, s->sum,
+                     !s->lossless);
         }
         ch[i] = s->full[i];
     }
     size_t npx = (size_t)W * H;
+    if (s->mode == JPEG_OUT_RAW) { /* jdcolor.c null_convert */
+        for (size_t k = 0; k < npx; k++)
+            for (int i = 0; i < s->ncomp; i++)
+                out[k * s->ncomp + i] = ch[i][k];
+        return;
+    }
+    const int bgr = s->mode != JPEG_OUT_YCC_RGB; /* else RGB order */
     if (s->ncomp == 4) {
         cmyk_output(s, ch, out, npx);
         return;
     }
-    if (s->gray_out && needed == 1) { /* jdcolor.c grayscale_convert */
+    if (s->gray_out && needed(s) == 1) { /* jdcolor.c grayscale_convert */
         memcpy(out, ch[0], npx);
         return;
     }
@@ -1226,7 +1742,7 @@ static void output(dec_t *s, uint8_t *out)
             out[3 * k] = out[3 * k + 1] = out[3 * k + 2] = ch[0][k];
         return;
     }
-    if (s->rgb) {
+    if (s->rgb && bgr) {
         for (size_t k = 0; k < npx; k++) {
             out[3 * k] = ch[2][k];
             out[3 * k + 1] = ch[1][k];
@@ -1250,9 +1766,9 @@ static void output(dec_t *s, uint8_t *out)
         int r = y + cr_r[cr];
         int g = y + (int)((cb_g[cb] + cr_g[cr]) >> 16);
         int b = y + cb_b[cb];
-        out[3 * k] = (uint8_t)(b < 0 ? 0 : b > 255 ? 255 : b);
+        out[3 * k + (bgr ? 0 : 2)] = (uint8_t)(b < 0 ? 0 : b > 255 ? 255 : b);
         out[3 * k + 1] = (uint8_t)(g < 0 ? 0 : g > 255 ? 255 : g);
-        out[3 * k + 2] = (uint8_t)(r < 0 ? 0 : r > 255 ? 255 : r);
+        out[3 * k + (bgr ? 2 : 0)] = (uint8_t)(r < 0 ? 0 : r > 255 ? 255 : r);
     }
 }
 
@@ -1281,10 +1797,14 @@ static void run(dec_t *s, int header_only, uint8_t *out)
         case 0xC0:
         case 0xC1:
         case 0xC2:
+        case 0xC3:
+        case 0xC9:
+        case 0xCA:
             read_sof(s, m, p, L);
             break;
-        case 0xC3:
-            fail(s, JPEG_UNSUPPORTED, "lossless JPEG (SOF3)");
+        case 0xCB: /* jdmaster.c: JERR_ARITH_NOTIMPL in a lossless file */
+            fail(s, JPEG_CORRUPT, "arithmetic-coded lossless JPEG (SOF11), "
+                 "which libjpeg-turbo does not decode");
         case 0xC5:
         case 0xC6:
         case 0xC7:
@@ -1294,11 +1814,9 @@ static void run(dec_t *s, int header_only, uint8_t *out)
         case 0xCF: /* libjpeg refuses them (JERR_SOF_UNSUPPORTED) */
             fail(s, JPEG_CORRUPT, "hierarchical JPEG (SOF%d), which libjpeg "
                  "does not decode", m - 0xC0);
-        case 0xC9:
-        case 0xCA:
-        case 0xCB:
         case 0xCC:
-            fail(s, JPEG_UNSUPPORTED, "arithmetic coding (marker 0x%02x)", m);
+            read_dac(s, p, L);
+            break;
         case 0xC4:
             read_dht(s, p, L);
             break;
@@ -1322,7 +1840,7 @@ static void run(dec_t *s, int header_only, uint8_t *out)
                 fail(s, JPEG_CORRUPT, "the output is %dx%d, the image %dx%d",
                      s->want_h, s->want_w, s->height, s->width);
             if (s->scans == 0) {
-                for (int i = 0; i < s->ncomp; i++) {
+                for (int i = 0; i < s->ncomp && !s->lossless; i++) {
                     comp_t *c = &s->comp[i];
                     c->coef = alloc(s, (size_t)c->bw * c->bh * 64 *
                                            sizeof(int16_t));
@@ -1334,8 +1852,13 @@ static void run(dec_t *s, int header_only, uint8_t *out)
                 else if (s->ncomp == 3 && s->adobe)
                     s->rgb = s->adobe_transform == 0;
                 else if (s->ncomp == 3)
-                    s->rgb = s->comp[0].id == 'R' && s->comp[1].id == 'G' &&
-                             s->comp[2].id == 'B';
+                    /* the ids 'R', 'G', 'B'; in a lossless file any ids */
+                    s->rgb = s->lossless || (s->comp[0].id == 'R' &&
+                                             s->comp[1].id == 'G' &&
+                                             s->comp[2].id == 'B');
+                if (s->mode == JPEG_OUT_YCC_RGB)
+                    s->rgb = 0; /* libtiff sets JCS_YCbCr */
+                check_output(s);
             }
             read_sos(s, p, L);
             s->scans++;
@@ -1365,6 +1888,8 @@ static void release(dec_t *s)
 {
     for (int i = 0; i < 4; i++) {
         free(s->comp[i].coef);
+        free(s->comp[i].diff);
+        free(s->comp[i].undiff);
         free(s->planes[i]);
         free(s->full[i]);
     }
@@ -1382,11 +1907,18 @@ static void start(dec_t *s, const uint8_t *data, int64_t len, char *err,
     s->errlen = errlen;
     if (err != NULL && errlen > 0)
         err[0] = 0;
+    s->fixed_bin = 113;
+    for (int i = 0; i < 16; i++) { /* jdmarker.c get_soi's defaults */
+        s->dc_l[i] = 0;
+        s->dc_u[i] = 1;
+        s->ac_k[i] = 5;
+    }
 }
 
 /* Parse the markers up to the first scan.  info: height, width, EXIF
- * orientation (0 without the tag).  Returns a JPEG_* status; err holds the
- * reason of a failure. */
+ * orientation (0 without the tag), components, component 0's horizontal
+ * and vertical sampling factors, and 1 where every other component's are
+ * 1 x 1.  Returns a JPEG_* status; err holds the reason of a failure. */
 int jpeg_info(const uint8_t *data, int64_t len, int32_t *info, char *err,
               int errlen)
 {
@@ -1398,23 +1930,32 @@ int jpeg_info(const uint8_t *data, int64_t len, int32_t *info, char *err,
         info[0] = s.height;
         info[1] = s.width;
         info[2] = s.orientation;
+        info[3] = s.ncomp;
+        info[4] = s.comp[0].h;
+        info[5] = s.comp[0].v;
+        info[6] = 1;
+        for (int i = 1; i < s.ncomp; i++)
+            if (s.comp[i].h != 1 || s.comp[i].v != 1)
+                info[6] = 0;
     }
     release(&s);
     return status;
 }
 
-/* Decode into out, height x width x 3 bytes in BGR order, or with gray
- * height x width bytes of libjpeg's JCS_GRAYSCALE output (jpeg_info's
- * height and width; the orientation is not applied here). */
+/* Decode into out (jpeg_info's height and width; the orientation is not
+ * applied here) in output colour space mode (JPEG_OUT_*): height x width
+ * x 3 bytes in BGR order, height x width bytes of libjpeg's JCS_GRAYSCALE
+ * output, x 3 in RGB order, or x the components as stored. */
 int jpeg_decode_as(const uint8_t *data, int64_t len, uint8_t *out,
-                   int64_t height, int64_t width, int gray, char *err,
+                   int64_t height, int64_t width, int mode, char *err,
                    int errlen)
 {
     dec_t s;
     start(&s, data, len, err, errlen);
     s.want_h = (int)height;
     s.want_w = (int)width;
-    s.gray_out = gray != 0;
+    s.mode = mode;
+    s.gray_out = mode == JPEG_OUT_GRAY;
     int status = setjmp(s.jb);
     if (status == 0)
         run(&s, 0, out);

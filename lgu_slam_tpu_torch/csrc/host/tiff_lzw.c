@@ -166,9 +166,14 @@ static inline uint32_t swap32(uint32_t v)
     return v << 24 | (v & 0xFF00) << 8 | (v >> 8 & 0xFF00) | v >> 24;
 }
 
-/* Undo the horizontal predictor in place (tif_predict.c horAcc8/16/32,
- * swabHorAcc16/32): `rows` rows of `rowbytes` bytes, samples of `bytes`
- * bytes (1, 2 or 4), `stride` samples per pixel.  With `swap` the samples
+static inline uint64_t swap64(uint64_t v)
+{
+    return (uint64_t)swap32((uint32_t)v) << 32 | swap32((uint32_t)(v >> 32));
+}
+
+/* Undo the horizontal predictor in place (tif_predict.c horAcc8/16/32/64,
+ * swabHorAcc16/32/64): `rows` rows of `rowbytes` bytes, samples of `bytes`
+ * bytes (1, 2, 4 or 8), `stride` samples per pixel.  With `swap` the samples
  * are byte-swapped first (a file of the other byte order); the result is
  * in the host's byte order. */
 void tiff_hpredict(uint8_t *buf, int64_t rows, int64_t rowbytes,
@@ -187,11 +192,18 @@ void tiff_hpredict(uint8_t *buf, int64_t rows, int64_t rowbytes,
                     w[i] = swap16(w[i]);
             for (int64_t i = stride; i < count; i++)
                 w[i] = (uint16_t)(w[i] + w[i - stride]);
-        } else {
+        } else if (bytes == 4) {
             uint32_t *w = (uint32_t *)row;
             if (swap)
                 for (int64_t i = 0; i < count; i++)
                     w[i] = swap32(w[i]);
+            for (int64_t i = stride; i < count; i++)
+                w[i] = w[i] + w[i - stride];
+        } else {
+            uint64_t *w = (uint64_t *)row;
+            if (swap)
+                for (int64_t i = 0; i < count; i++)
+                    w[i] = swap64(w[i]);
             for (int64_t i = stride; i < count; i++)
                 w[i] = w[i] + w[i - stride];
         }

@@ -101,20 +101,33 @@ def _write_list(path, header, rows):
         fh.write(header + "\n" + "\n".join(rows) + "\n")
 
 
+# write_frame's kinds -> file extension
+FRAME_EXT = {"png": "png", "ppm": "ppm", "pgm": "pgm", "tiff": "tiff",
+             "pfm": "pfm", "jpg": "jpg", "arith-jpg": "jpg", "bigtiff": "tif"}
+
+
 def write_frame(path, image, kind: str) -> str:
-    """Write ``image`` as ``kind`` at ``path`` + its extension, the way a
-    dataset of that format stores it; returns the file's path.  Colour
-    (``uint8 [H, W, 3]``): ``png``, ``ppm`` (binary P6); depth (``uint16
-    [H, W]``): ``png``, ``pgm`` (binary 16-bit P5), or the same values as
-    ``float32`` in ``tiff`` (Deflate, floating-point predictor) or
-    ``pfm``."""
-    path = f"{path}.{kind}"
+    """Write ``image`` as ``kind`` at ``path`` + its extension
+    (:data:`FRAME_EXT`), the way a dataset of that format stores it;
+    returns the file's path.  Colour (``uint8 [H, W, 3]``): ``png``,
+    ``ppm`` (binary P6), ``jpg`` (baseline Huffman JPEG at cv2.imwrite's
+    defaults) or ``arith-jpg`` (the same coefficients arithmetic-coded);
+    depth (``uint16 [H, W]``): ``png``, ``pgm`` (binary 16-bit P5), or the
+    same values as ``float32`` in ``tiff`` (Deflate, floating-point
+    predictor) or ``pfm``, or as ``float64`` in ``bigtiff`` (a BigTIFF,
+    Deflate, floating-point predictor)."""
+    path = f"{path}.{FRAME_EXT[kind]}" if kind in FRAME_EXT else path
     if kind == "png":
         data = encode_png(image)
+    elif kind in ("jpg", "arith-jpg"):
+        data = encode_jpeg(image, arithmetic=kind == "arith-jpg")
     elif kind in ("ppm", "pgm"):
         data = pnm.encode_pnm(image)
     elif kind == "tiff":
         data = tiff.encode_tiff(image.astype(np.float32), "deflate", 3)
+    elif kind == "bigtiff":
+        data = tiff.encode_tiff(image.astype(np.float64), "deflate", 3,
+                                bigtiff=True)
     elif kind == "pfm":
         data = pnm.encode_pfm(image.astype(np.float32))
     else:
@@ -143,8 +156,9 @@ def write_tum_sequence(root, n_frames: int = 40, H: int = 480, W: int = 640,
         d = np.clip(np.rint(depths[k] * 5000.0), 0, 65535).astype(np.uint16)
         files += [(os.path.join(root, "rgb", f"{t:.6f}"), images[k], color),
                   (os.path.join(root, "depth", f"{t + 0.01:.6f}"), d, depth)]
-        rgb.append(f"{t:.6f} rgb/{t:.6f}.{color}")
-        dep.append(f"{t + 0.01:.6f} depth/{t + 0.01:.6f}.{depth}")
+        rgb.append(f"{t:.6f} rgb/{t:.6f}.{FRAME_EXT[color]}")
+        dep.append(f"{t + 0.01:.6f} depth/{t + 0.01:.6f}."
+                   f"{FRAME_EXT[depth]}")
         gt.append(f"{t:.6f} " + " ".join(f"{v:.7f}" for v in poses[k]))
     _on_cores(lambda f: write_frame(*f), files)
     _write_list(os.path.join(root, "rgb.txt"), "# color images", rgb)

@@ -13,10 +13,12 @@ does (:func:`sniff`), whatever the file's name, and returns what
   byte; 16-bit colour TIFF rounds ``x / 257``);
 - ``imread(path, anydepth=True)`` (``cv2.IMREAD_ANYDEPTH``): one channel,
   ``uint16`` for 16-bit PNG, TIFF, PNM and PAM, ``float32`` for float TIFF
-  and PFM, ``uint8`` otherwise; colour converts to gray as each reader
-  converts it (libpng's ``rgb_to_gray`` for PNG, libjpeg's
-  ``JCS_GRAYSCALE`` output for JPEG, OpenCV's own ``(4899 R + 9617 G +
-  1868 B + 8192) >> 14`` for BMP, TIFF, PNM and PAM).
+  and PFM, TIFF's own dtype for its other samples (``int8``, ``int16``,
+  ``uint32``, ``int32``, ``uint64``, ``int64``, ``float64``), ``uint8``
+  otherwise; colour converts to gray as each reader converts it (libpng's
+  ``rgb_to_gray`` for PNG, libjpeg's ``JCS_GRAYSCALE`` output for JPEG,
+  OpenCV's own ``(4899 R + 9617 G + 1868 B + 8192) >> 14`` for BMP, TIFF,
+  PNM and PAM).
 
 The formats, their decoders and what each reads:
 
@@ -25,24 +27,26 @@ The formats, their decoders and what each reads:
   in C, ``csrc/host/png_unfilter.c``, built by the host compiler at first
   use; :func:`unfilter_plain` is its numpy version) and Adam7;
 - JPEG (:func:`decode_jpeg`, in C, ``csrc/host/jpeg_decode.c``): baseline,
-  extended and progressive Huffman files of 1, 3 or 4 components (CMYK and
-  YCCK by the Adobe marker, converted as OpenCV converts them), every
-  sampling factor, restart intervals and the EXIF orientation, damaged
-  streams as libjpeg-turbo 3.1 reads them;
+  extended and progressive files, Huffman or arithmetic coded, of 1, 3 or
+  4 components (CMYK and YCCK by the Adobe marker, converted as OpenCV
+  converts them), every sampling factor, restart intervals and the EXIF
+  orientation, lossless files of 2 to 8 bits in the read mode OpenCV takes
+  them in, damaged streams as libjpeg-turbo 3.1 reads them;
 - BMP (:func:`decode_bmp`): 1-, 4-, 8-bit palettes, RLE8 and RLE4 (in C,
   ``csrc/host/bmp_rle.c``), 16-bit 5-5-5 and 5-6-5, 24- and 32-bit,
   bottom-up and top-down, 40-byte (and longer) and OS/2 headers;
-- TIFF (``data/tiff.py``): strips and tiles, both byte orders, planar 1
-  and 2, none / LZW / Deflate / PackBits with their predictors, 1-, 8- and
-  16-bit gray, RGB and RGBA, 8-bit palette, 32-bit float;
+- TIFF (``data/tiff.py``): classic and BigTIFF, strips and tiles, both
+  byte orders, planar 1 and 2, none / LZW / Deflate / PackBits with their
+  predictors and JPEG, orientations 1-4, 1-, 8- and 16-bit gray, RGB and
+  RGBA, 8-bit palette, signed and 32/64-bit integer and float samples;
 - PBM / PGM / PPM, PAM and PFM (``data/pnm.py``).
 
-A file ``cv2.imread`` returns None for raises ``ValueError``.  A format
-this OpenCV build reads and the port does not yet read raises
-``NotImplementedError`` naming it: WebP, JPEG 2000, AVIF, GIF, Sun raster,
-Radiance HDR, and within the formats above arithmetic-coded, 12-bit and
-lossless JPEG, TIFF's other compressions and layouts, and what each
-decoder lists.  The encoders (:func:`encode_png`, :func:`encode_jpeg`,
+A file ``cv2.imread`` returns None for raises ``ValueError``, decided
+where each decoder decides it (the C JPEG decoder, ``tiff.py``), so a
+file reached by any path gets the same class.  A format this OpenCV
+build reads and the port does not yet read raises ``NotImplementedError``
+naming it: WebP, JPEG 2000, AVIF, GIF, Sun raster, Radiance HDR, and
+within the formats above what each decoder lists.  The encoders (:func:`encode_png`, :func:`encode_jpeg`,
 :func:`encode_bmp`, ``tiff.encode_tiff``, ``pnm.encode_pnm`` /
 ``encode_pam`` / ``encode_pfm``) write fixtures of the modes the decoders
 read.
@@ -233,7 +237,10 @@ def sniff(data: bytes) -> str:
 def imread(path, anydepth: bool = False) -> np.ndarray:
     """``cv2.imread(path)``, or with ``anydepth`` ``cv2.imread(path,
     cv2.IMREAD_ANYDEPTH)``, for the formats of the module docstring, picked
-    by the file's signature as OpenCV picks them.  A missing file raises
+    by the file's signature as OpenCV picks them: ``uint8 [H, W, 3]`` BGR,
+    or with ``anydepth`` ``[H, W]`` of ``uint8``, ``uint16``, ``float32``
+    or, for TIFF, the samples' own dtype (``int8``, ``int16``, ``uint32``,
+    ``int32``, ``uint64``, ``int64``, ``float64``).  A missing file raises
     ``FileNotFoundError``; a file OpenCV returns None for, ``ValueError``;
     a format OpenCV reads and the port does not yet read,
     ``NotImplementedError`` naming it (never to be taken for None)."""
@@ -721,7 +728,9 @@ def encode_bmp(img: np.ndarray, top_down: bool = False, palette=None,
 
 # -- JPEG --------------------------------------------------------------------
 
-JPEG_STATUS = {1: ValueError, 2: NotImplementedError, 3: MemoryError}
+JPEG_STATUS = {1: ValueError, 3: MemoryError}
+# output colour spaces of the C decoder (jpeg_decode.c JPEG_OUT_*)
+JPEG_OUT_BGR, JPEG_OUT_GRAY, JPEG_OUT_YCC_RGB, JPEG_OUT_RAW = range(4)
 # OpenCV's CV_IO_MAX_IMAGE_PIXELS: imread returns None for larger images
 MAX_PIXELS = 1 << 30
 # EXIF orientation -> the flips and transpose cv2.imread applies
@@ -741,6 +750,42 @@ def _jpeg_call(fn, path, *args):
             f"{path}: JPEG: {err.value.decode(errors='replace')}")
 
 
+def _jpeg_lib():
+    lib = _build.load("jpeg_decode")
+    c_char, i64, ptr, cint = (ctypes.c_char_p, ctypes.c_int64,
+                              ctypes.c_void_p, ctypes.c_int)
+    lib.jpeg_info.argtypes = [c_char, i64, ptr, c_char, cint]
+    lib.jpeg_decode_as.argtypes = [c_char, i64, ptr, i64, i64, cint, c_char,
+                                   cint]
+    lib.jpeg_info.restype = lib.jpeg_decode_as.restype = cint
+    return lib
+
+
+def jpeg_info(data: bytes, path="<bytes>") -> tuple:
+    """The frame header of a JPEG stream: (height, width, EXIF orientation
+    or 0, components, component 0's horizontal and vertical sampling
+    factors, whether every other component is sampled 1 x 1)."""
+    info = np.zeros(7, np.int32)
+    _jpeg_call(_jpeg_lib().jpeg_info, path, data, len(data),
+               info.ctypes.data)
+    return tuple(int(v) for v in info)
+
+
+def jpeg_samples(data: bytes, mode: int, channels: int, path="<bytes>"
+                 ) -> np.ndarray:
+    """The samples of a JPEG stream in output colour space ``mode``
+    (``JPEG_OUT_*``: BGR, gray, YCbCr taken to RGB, or the components as
+    stored), ``uint8 [H, W, channels]``, the orientation not applied."""
+    H, W = jpeg_info(data, path)[:2]
+    if H * W > MAX_PIXELS:
+        raise ValueError(f"{path}: JPEG: {H}x{W} is more than cv2.imread "
+                         f"reads ({MAX_PIXELS} pixels)")
+    out = np.empty((H, W, channels), np.uint8)
+    _jpeg_call(_jpeg_lib().jpeg_decode_as, path, data, len(data),
+               out.ctypes.data, H, W, mode)
+    return out
+
+
 def decode_jpeg(data: bytes, path="<bytes>", gray: bool = False
                 ) -> np.ndarray:
     """JPEG bytes -> ``uint8 [H, W, 3]`` BGR with the EXIF orientation
@@ -749,24 +794,9 @@ def decode_jpeg(data: bytes, path="<bytes>", gray: bool = False
     cv2.IMREAD_ANYDEPTH)`` returns it (libjpeg's ``JCS_GRAYSCALE`` output:
     the Y plane, or the luma of an RGB file); decoded in C
     (``csrc/host/jpeg_decode.c``)."""
-    lib = _build.load("jpeg_decode")
-    c_char, i64, ptr, cint = (ctypes.c_char_p, ctypes.c_int64,
-                              ctypes.c_void_p, ctypes.c_int)
-    lib.jpeg_info.argtypes = [c_char, i64, ptr, c_char, cint]
-    lib.jpeg_decode_as.argtypes = [c_char, i64, ptr, i64, i64, cint, c_char,
-                                   cint]
-    lib.jpeg_info.restype = lib.jpeg_decode_as.restype = cint
-    info = np.zeros(3, np.int32)
-    _jpeg_call(lib.jpeg_info, path, data, len(data), info.ctypes.data)
-    H, W, orientation = (int(v) for v in info)
-    if H * W > MAX_PIXELS:
-        raise ValueError(f"{path}: JPEG: {H}x{W} is more than cv2.imread "
-                         f"reads ({MAX_PIXELS} pixels)")
-    out = np.empty((H, W) if gray else (H, W, 3), np.uint8)
-    _jpeg_call(lib.jpeg_decode_as, path, data, len(data), out.ctypes.data, H,
-               W, int(gray))
-    if gray:
-        out = out[..., None]
+    orientation = jpeg_info(data, path)[2]
+    out = jpeg_samples(data, JPEG_OUT_GRAY if gray else JPEG_OUT_BGR,
+                       1 if gray else 3, path)
     if orientation in _ORIENT:
         out = np.ascontiguousarray(_ORIENT[orientation](out))
     return out[..., 0] if gray else out
@@ -842,18 +872,22 @@ def _sizes(v):
     return np.frexp(np.abs(v))[1].astype(np.int64)
 
 
-def _planes(img: np.ndarray, fac: list, ycck: bool) -> list:
+def _planes(img: np.ndarray, fac: list, transform) -> list:
     """The component planes of ``img`` padded to whole MCUs by edge
     replication, each averaged down to its sampling factors ``fac`` ((h, v)
-    per component), level-shifted: gray; Y, Cb, Cr of BGR (JFIF's YCbCr);
-    the four samples of CMYK; or with ``ycck`` Y, Cb, Cr of R, G, B = 255 -
+    per component), level-shifted: gray; Y, Cb, Cr of BGR (JFIF's YCbCr),
+    or with the Adobe ``transform`` 0 its R, G, B as they are; the four
+    samples of CMYK; or with ``transform`` 2 Y, Cb, Cr of R, G, B = 255 -
     C, M, Y and K (Adobe's YCCK)."""
     H, W = img.shape[:2]
     hm, vm = max(f[0] for f in fac), max(f[1] for f in fac)
     pad = [(0, -H % (8 * vm)), (0, -W % (8 * hm))] + [(0, 0)] * (img.ndim - 2)
     x = np.pad(img, pad, mode="edge").astype(np.float64)
+    ycck = transform == 2
     if img.ndim == 2:
         comps = [x - 128]
+    elif img.shape[-1] == 3 and transform == 0:
+        comps = [x[..., c] - 128 for c in (2, 1, 0)]
     elif img.shape[-1] == 4 and not ycck:
         comps = [x[..., c] - 128 for c in range(4)]
     else:
@@ -969,8 +1003,375 @@ def _pack(vals, lens, interval, n_int: int) -> np.ndarray:
     return np.insert(data, np.repeat(ends[:-1], 2), marks).astype(np.uint8)
 
 
+# T.81 Table D.2 as libjpeg packs it (jaricom.c): Qe << 16 |
+# Next_Index_MPS << 8 | Switch_MPS << 7 | Next_Index_LPS; entry 113 is the
+# fixed estimate of probability 0.5
+_ARITAB = (
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171,
+)
+# libjpeg's progressions (jcparam.c jpeg_simple_progression): (components,
+# Ss, Se, Ah, Al); "Y" is component 0 alone, "C" each other one alone
+_PROGRESSION = ((None, 0, 0, 0, 1), ("Y", 1, 5, 0, 2), ("C", 1, 63, 0, 1),
+                ("Y", 6, 63, 0, 2), ("Y", 1, 63, 2, 1), (None, 0, 0, 1, 0),
+                ("C", 1, 63, 1, 0), ("Y", 1, 63, 1, 0))
+# the lossless files' DC table: categories 0-16 by code lengths 2 to 14
+_LOSSLESS_BITS = (0, 1, 5, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0)
+
+
+def _qm_encoder():
+    """T.81 Annex D's QM encoder as jcarith.c writes it: ``(encode(bins,
+    i, bit), finish())``; ``encode`` codes one decision in statistics bin
+    ``bins[i]`` (a bytearray, updated), ``finish`` ends the segment
+    (Section D.1.8) and returns its bytes, 0xFF stuffed."""
+    out = bytearray()
+    c, a, sc, zc, ct, buf = 0, 0x10000, 0, 0, 11, -1
+
+    def flush_zeros():
+        nonlocal zc
+        if zc:
+            out.extend(bytes(zc))
+            zc = 0
+
+    def emit(byte):
+        out.append(byte)
+        if byte == 0xFF:
+            out.append(0)
+
+    def carry():  # an overflow into the stacked bytes
+        nonlocal zc, sc
+        if buf >= 0:
+            flush_zeros()
+            emit(buf + 1)
+        zc += sc
+        sc = 0
+
+    def settle():  # the stacked bytes will not overflow any more
+        nonlocal zc, sc
+        if buf == 0:
+            zc += 1
+        elif buf >= 0:
+            flush_zeros()
+            out.append(buf)
+        if sc:
+            flush_zeros()
+            out.extend(b"\xff\x00" * sc)
+            sc = 0
+
+    def encode(bins, i, val):
+        nonlocal c, a, sc, ct, buf
+        sv = bins[i]
+        e = _ARITAB[sv & 0x7F]
+        qe = e >> 16
+        a -= qe
+        if val != sv >> 7:  # the less probable symbol
+            if a >= qe:
+                c += a
+                a = qe
+            bins[i] = (sv & 0x80) ^ (e & 0xFF)
+        else:
+            if a >= 0x8000:
+                return
+            if a < qe:
+                c += a
+                a = qe
+            bins[i] = (sv & 0x80) ^ (e >> 8 & 0xFF)
+        while True:  # renormalisation and output (D.1.6)
+            a <<= 1
+            c <<= 1
+            ct -= 1
+            if ct == 0:
+                temp = c >> 19
+                if temp > 0xFF:
+                    carry()
+                    buf = temp & 0xFF
+                elif temp == 0xFF:
+                    sc += 1
+                else:
+                    settle()
+                    buf = temp
+                c &= 0x7FFFF
+                ct += 8
+            if a >= 0x8000:
+                return
+
+    def finish():
+        nonlocal c
+        temp = (a - 1 + c) & 0xFFFF0000
+        c = temp + 0x8000 if temp < c else temp
+        c <<= ct
+        if c & 0xF8000000:
+            carry()
+        else:
+            settle()
+        if c & 0x7FFF800:
+            flush_zeros()
+            emit(c >> 19 & 0xFF)
+            if c & 0x7F800:
+                emit(c >> 11 & 0xFF)
+        return bytes(out)
+
+    return encode, finish
+
+
+def _arith_dc(enc, bins, ctx: int, v: int, L: int, U: int) -> int:
+    """A DC difference ``v`` in context ``ctx`` (Figures F.4 and F.6-F.9);
+    returns the next context (F.1.4.4.1.2, L and U from DAC)."""
+    if v == 0:
+        enc(bins, ctx, 0)
+        return 0
+    enc(bins, ctx, 1)
+    if v > 0:
+        enc(bins, ctx + 1, 0)
+        st, ctx = ctx + 2, 4
+    else:
+        v = -v
+        enc(bins, ctx + 1, 1)
+        st, ctx = ctx + 3, 8
+    m = 0
+    v -= 1
+    if v:
+        enc(bins, st, 1)
+        m, st, v2 = 1, 20, v >> 1
+        while v2:
+            enc(bins, st, 1)
+            m, st, v2 = m << 1, st + 1, v2 >> 1
+    enc(bins, st, 0)
+    if m < (1 << L) >> 1:
+        ctx = 0
+    elif m > (1 << U) >> 1:
+        ctx += 8
+    st += 14
+    m >>= 1
+    while m:
+        enc(bins, st, 1 if m & v else 0)
+        m >>= 1
+    return ctx
+
+
+def _arith_ac(enc, bins, fixed, zz, ss: int, se: int, al: int, K: int
+              ) -> None:
+    """Zigzag coefficients ``zz[ss..se]`` of a block, ``al`` bits dropped
+    from their magnitudes (Figure F.5 and F.6-F.9; G.1.3.2)."""
+    vals = [0] * 64
+    ke = 0
+    for k in range(se, 0, -1):
+        v = int(zz[k])
+        v = (v >> al) if v >= 0 else -((-v) >> al)
+        vals[k] = v
+        if v and not ke:
+            ke = k
+    k = ss
+    while k <= ke:
+        st = 3 * (k - 1)
+        enc(bins, st, 0)  # not the end of block
+        while vals[k] == 0:
+            enc(bins, st + 1, 0)
+            st += 3
+            k += 1
+        enc(bins, st + 1, 1)
+        v = vals[k]
+        if v > 0:
+            enc(fixed, 0, 0)
+        else:
+            v = -v
+            enc(fixed, 0, 1)
+        st += 2
+        m = 0
+        v -= 1
+        if v:
+            enc(bins, st, 1)
+            m, v2 = 1, v >> 1
+            if v2:
+                enc(bins, st, 1)
+                m, st, v2 = 2, 189 if k <= K else 217, v2 >> 1
+                while v2:
+                    enc(bins, st, 1)
+                    m, st, v2 = m << 1, st + 1, v2 >> 1
+        enc(bins, st, 0)
+        st += 14
+        m >>= 1
+        while m:
+            enc(bins, st, 1 if m & v else 0)
+            m >>= 1
+        k += 1
+    if k <= se:
+        enc(bins, 3 * (k - 1), 1)  # end of block
+
+
+def _arith_ac_refine(enc, bins, fixed, zz, ss: int, se: int, ah: int,
+                     al: int) -> None:
+    """The bit ``al`` of AC coefficients ``zz[ss..se]`` after a scan that
+    sent bits from ``ah`` up (Figure G.10)."""
+    def mag(v, b):
+        return (v >> b) if v >= 0 else (-v) >> b
+
+    ke = next((k for k in range(se, 0, -1) if mag(int(zz[k]), al)), 0)
+    kex = next((k for k in range(ke, 0, -1) if mag(int(zz[k]), ah)), 0)
+    k = ss
+    while k <= ke:
+        st = 3 * (k - 1)
+        if k > kex:
+            enc(bins, st, 0)
+        while True:
+            v = int(zz[k])
+            m = mag(v, al)
+            if m:
+                if m >> 1:  # already nonzero: its next bit
+                    enc(bins, st + 2, m & 1)
+                else:  # newly nonzero, and its sign
+                    enc(bins, st + 1, 1)
+                    enc(fixed, 0, int(v < 0))
+                break
+            enc(bins, st + 1, 0)
+            st += 3
+            k += 1
+        k += 1
+    if k <= se:
+        enc(bins, 3 * (k - 1), 1)
+
+
+def _arith_scan(q, units, tabs, ss, se, ah, al, restart, conditioning,
+                progressive: bool) -> bytes:
+    """One arithmetic-coded scan: ``units`` lists, per MCU, its blocks as
+    (index into the zigzag coefficients ``q``, component); ``tabs[c]`` the
+    component's table; restart markers every ``restart`` MCUs."""
+    L, U, K = conditioning
+    out, enc, finish = b"", None, None
+    fixed = bytearray([113])
+    for n, mcu in enumerate(units):
+        if n % (restart or len(units)) == 0:
+            if enc is not None:
+                out += finish() + bytes([0xFF, 0xD0 + (n // restart - 1) % 8])
+            enc, finish = _qm_encoder()
+            dc_bins = [bytearray(64) for _ in range(2)]
+            ac_bins = [bytearray(256) for _ in range(2)]
+            ctx, pred = {}, {}
+        for b, c in mcu:
+            t, zz = tabs[c], q[b]
+            if not progressive:
+                dc = int(zz[0])
+                ctx[c] = _arith_dc(enc, dc_bins[t], ctx.get(c, 0),
+                                   dc - pred.get(c, 0), L, U)
+                pred[c] = dc
+                _arith_ac(enc, ac_bins[t], fixed, zz, 1, 63, 0, K)
+            elif ss == 0 and ah == 0:
+                dc = int(zz[0]) >> al
+                ctx[c] = _arith_dc(enc, dc_bins[t], ctx.get(c, 0),
+                                   dc - pred.get(c, 0), L, U)
+                pred[c] = dc
+            elif ss == 0:
+                enc(fixed, 0, int(zz[0]) >> al & 1)
+            elif ah == 0:
+                _arith_ac(enc, ac_bins[t], fixed, zz, ss, se, al, K)
+            else:
+                _arith_ac_refine(enc, ac_bins[t], fixed, zz, ss, se, ah, al)
+    return out + finish()
+
+
+def _block_index(fac: list, bpm: int, mcux: int):
+    """index(c, by, bx): the place of component c's block (by, bx) among
+    the MCU-ordered blocks of :func:`_mcu_blocks`."""
+    first = np.cumsum([0] + [h * v for h, v in fac])
+
+    def index(c, by, bx):
+        h, v = fac[c]
+        mcu = (by // v) * mcux + bx // h
+        return mcu * bpm + first[c] + (by % v) * h + bx % h
+    return index
+
+
+def _lossless_events(planes: list, predictor: int, pt: int, precision: int,
+                     rows_per_interval: int):
+    """The Huffman-coded differences of interleaved components ``planes``
+    (each ``[H, W]``, sampled 1 x 1), in stream order: (code and extra bits
+    as one value, length, restart interval); predictions as jdlossls.c
+    undoes them (the first row of each interval from the left only)."""
+    codes, lengths = _huff_codes(_LOSSLESS_BITS, bytes(range(17)))
+    H, W = planes[0].shape
+    diffs = []
+    for x in planes:
+        x = x.astype(np.int64) >> pt
+        pred = np.empty_like(x)
+        ra = np.zeros_like(x)
+        ra[:, 1:] = x[:, :-1]
+        rb = np.zeros_like(x)
+        rb[1:] = x[:-1]
+        rc = np.zeros_like(x)
+        rc[1:, 1:] = x[:-1, :-1]
+        pred[:] = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc,
+                   5: ra + ((rb - rc) >> 1), 6: rb + ((ra - rc) >> 1),
+                   7: (ra + rb) >> 1}[predictor]
+        pred[:, 0] = rb[:, 0]
+        first = np.arange(H) % rows_per_interval == 0
+        pred[first, 1:] = x[first, :-1]
+        pred[first, 0] = 1 << (precision - pt - 1)
+        d = (x - pred) & 0xFFFF
+        diffs.append(np.where(d >= 32768, d - 65536, d))
+    d = np.stack(diffs, -1).reshape(-1)  # per pixel, component after
+    size = np.where(d == -32768, 16, _sizes(d))
+    extra = np.where(d < 0, d + (1 << np.minimum(size, 15)) - 1, d)
+    extra = np.where(size == 16, 0, extra)
+    ebits = np.where(size == 16, 0, size)
+    vals = (codes[size] << ebits) | extra
+    interval = np.repeat(np.arange(H) // rows_per_interval, W * len(planes))
+    return vals, lengths[size] + ebits, interval
+
+
+def _lossless_jpeg(img: np.ndarray, predictor: int, pt: int,
+                   precision: int, restart_rows: int) -> bytes:
+    """A lossless (SOF3) file of ``[H, W]`` gray or ``[H, W, 3]`` BGR
+    samples (stored as R, G, B with component ids 1, 2, 3 and no JFIF
+    marker, which libjpeg-turbo then takes for RGB), every component
+    sampled 1 x 1, a restart marker every ``restart_rows`` rows."""
+    if predictor not in range(1, 8) or not 0 <= pt < precision:
+        raise ValueError(f"lossless predictor {predictor}, point transform "
+                         f"{pt}")
+    if int(img.max(initial=0)) >> precision:
+        raise ValueError(f"samples above {precision} bits")
+    H, W = img.shape[:2]
+    planes = [img] if img.ndim == 2 else [img[..., 2], img[..., 1],
+                                          img[..., 0]]
+    rows = restart_rows or H
+    vals, lens, interval = _lossless_events(planes, predictor, pt, precision,
+                                            rows)
+    data = _pack(vals, lens, interval, int(interval[-1]) + 1)
+    n = len(planes)
+    sof = struct.pack(">BHHB", precision, H, W, n) + b"".join(
+        bytes([c + 1, 0x11, 0]) for c in range(n))
+    out = [b"\xff\xd8", _segment(0xC3, sof),
+           _segment(0xC4, bytes([0]) + bytes(_LOSSLESS_BITS)
+                    + bytes(range(17)))]
+    if restart_rows:
+        out.append(_segment(0xDD, struct.pack(">H", restart_rows * W)))
+    sos = bytes([n]) + b"".join(bytes([c + 1, 0]) for c in range(n))
+    out.append(_segment(0xDA, sos + bytes([predictor, 0, pt])))
+    return b"".join(out + [data.tobytes(), b"\xff\xd9"])
+
+
 def encode_jpeg(img: np.ndarray, quality: int = 95, subsampling: str = "420",
-                restart_interval: int = 0, adobe_transform=None) -> bytes:
+                restart_interval: int = 0, adobe_transform=None,
+                arithmetic: bool = False, progressive: bool = False,
+                conditioning=None, lossless: bool = False,
+                predictor: int = 1, point_transform: int = 0,
+                precision: int = 8) -> bytes:
     """``[H, W, 3]`` BGR or ``[H, W]`` gray ``uint8`` -> baseline JFIF bytes
     with the Annex K tables scaled to ``quality`` (1-100, libjpeg's
     scaling), the luma ``subsampling`` of :data:`SUBSAMPLING` and a restart
@@ -978,10 +1379,31 @@ def encode_jpeg(img: np.ndarray, quality: int = 95, subsampling: str = "420",
     samples as Adobe stores them (inverted: 0 is full ink) -> a 4-component
     file with an Adobe APP14 marker of ``adobe_transform`` 0 (CMYK, every
     component at full resolution; the default) or 2 (YCCK: Y and K at the
-    luma sampling, Cb and Cr at 1 x 1).  A float DCT and rounding: for
+    luma sampling, Cb and Cr at 1 x 1); ``adobe_transform`` 0 of BGR
+    stores R, G and B as they are (Adobe's RGB, each at 1 x 1).  A float DCT and rounding: for
     writing fixtures, as ``cv2.imwrite`` (or, for CMYK, an image editor)
-    writes them for the JAX package's tests."""
+    writes them for the JAX package's tests.  The same quantised
+    coefficients go to each coding:
+
+    - ``arithmetic``: arithmetic coding (SOF9, T.81 Annex D's QM coder as
+      libjpeg's jcarith.c codes) with the DAC ``conditioning`` (L, U, Kx)
+      of every table (default libjpeg's 0, 1, 5, and no DAC segment);
+      ``progressive`` (SOF10): libjpeg's simple progression, spectral
+      selection and successive approximation;
+    - ``lossless`` (SOF3, Huffman): the samples themselves, ``predictor``
+      1-7, ``point_transform`` bits dropped, ``precision`` bits per sample
+      (``uint16`` samples above 8), ``[H, W]`` or ``[H, W, 3]`` sampled
+      1 x 1; ``restart_interval`` counts rows."""
     img = np.asarray(img)
+    if lossless:
+        if img.dtype not in (np.uint8, np.uint16) or img.ndim not in (2, 3) \
+                or (img.ndim == 3 and img.shape[-1] != 3):
+            raise ValueError(f"lossless JPEG of {img.dtype} {img.shape}")
+        return _lossless_jpeg(img, predictor, point_transform, precision,
+                              restart_interval)
+    if progressive and not arithmetic:
+        raise NotImplementedError("progressive Huffman files are written "
+                                  "by cv2.imwrite, not here")
     if img.dtype != np.uint8:
         raise TypeError(f"JPEG samples are uint8, not {img.dtype}")
     if img.ndim == 3 and img.shape[-1] == 1:
@@ -994,12 +1416,13 @@ def encode_jpeg(img: np.ndarray, quality: int = 95, subsampling: str = "420",
         raise ValueError(f"JPEG quality {quality} is not 1-100")
     H, W = img.shape[:2]
     ncomp = 1 if img.ndim == 2 else img.shape[-1]
-    transform = (adobe_transform or 0) if ncomp == 4 else None
+    transform = (adobe_transform or 0) if ncomp == 4 else (
+        adobe_transform if ncomp == 3 else None)
     h, v = (1, 1) if ncomp == 1 or transform == 0 else \
         SUBSAMPLING[subsampling]
     fac = [(h, v)] + [(1, 1)] * min(ncomp - 1, 2) + [(h, v)] * (ncomp == 4)
     tsel = [0, 1, 1, 0][:ncomp]  # quantisation and Huffman table per comp
-    planes = _planes(img, fac, transform == 2)
+    planes = _planes(img, fac, transform)
     blk, comp, bpm = _mcu_blocks(planes, fac)
     qtabs = [_quant_table(_Q_LUMA, quality), _quant_table(_Q_CHROMA, quality)]
     luma = np.asarray(tsel)[comp] == 0
@@ -1007,19 +1430,51 @@ def encode_jpeg(img: np.ndarray, quality: int = 95, subsampling: str = "420",
     coef = (_DCT @ blk @ _DCT.T).reshape(-1, 64)
     q = np.rint(coef / table).astype(np.int64)[:, _ZIGZAG]
 
-    # DC differences within each restart interval, per component
-    mcu = np.arange(len(comp)) // bpm
-    interval = mcu // restart_interval if restart_interval else 0 * mcu
-    dc = q[:, 0].copy()
-    for c in range(len(planes)):
-        sel = np.nonzero(comp == c)[0]
-        first = np.r_[True, interval[sel][1:] != interval[sel][:-1]]
-        dc[sel] -= np.where(first, 0, np.r_[0, q[sel[:-1], 0]])
-    block, vals, lens = _events(q, dc, luma)
-    data = _pack(vals, lens, interval[block], int(interval[-1]) + 1)
+    scans = []  # (SOS segment body, entropy-coded data)
+    if arithmetic:
+        cond = conditioning or (0, 1, 5)
+        mcux = -(-W // (8 * h))
+        index = _block_index(fac, bpm, mcux)
+        mcus = [[(b, int(comp[b])) for b in range(m * bpm, (m + 1) * bpm)]
+                for m in range(len(comp) // bpm)]
+        script = _PROGRESSION if progressive else ((None, 0, 63, 0, 0),)
+        for which, ss, se, ah, al in script:
+            groups = [list(range(ncomp))] if which is None else [[0]] \
+                if which == "Y" else [[c] for c in range(1, ncomp)]
+            for cs in groups:
+                if len(cs) > 1 or ncomp == 1:
+                    units = mcus
+                else:  # one component: its blocks in raster order
+                    c = cs[0]
+                    hc, vc = fac[c]
+                    hm, vm = max(f[0] for f in fac), max(f[1] for f in fac)
+                    wib = -(-W * hc // (8 * hm))
+                    hib = -(-H * vc // (8 * vm))
+                    units = [[(index(c, by, bx), c)] for by in range(hib)
+                             for bx in range(wib)]
+                data = _arith_scan(q, units, tsel, ss, se, ah, al,
+                                   restart_interval, cond, progressive)
+                sos = bytes([len(cs)]) + b"".join(
+                    bytes([c + 1, 0x11 * tsel[c]]) for c in cs) + \
+                    bytes([ss, se, ah << 4 | al])
+                scans.append((sos, data))
+    else:
+        # DC differences within each restart interval, per component
+        mcu = np.arange(len(comp)) // bpm
+        interval = mcu // restart_interval if restart_interval else 0 * mcu
+        dc = q[:, 0].copy()
+        for c in range(len(planes)):
+            sel = np.nonzero(comp == c)[0]
+            first = np.r_[True, interval[sel][1:] != interval[sel][:-1]]
+            dc[sel] -= np.where(first, 0, np.r_[0, q[sel[:-1], 0]])
+        block, vals, lens = _events(q, dc, luma)
+        data = _pack(vals, lens, interval[block], int(interval[-1]) + 1)
+        sos = bytes([ncomp]) + b"".join(
+            bytes([c + 1, 0x11 * tsel[c]]) for c in range(ncomp))
+        scans.append((sos + bytes([0, 63, 0]), data.tobytes()))
 
     out = [b"\xff\xd8"]
-    if ncomp == 4:  # "Adobe", version 100, flags 0 and 0, the transform
+    if transform is not None:  # "Adobe", version 100, flags, transform
         out.append(_segment(0xEE, b"Adobe\x00\x64\0\0\0\0"
                             + bytes([transform])))
     else:
@@ -1028,20 +1483,23 @@ def encode_jpeg(img: np.ndarray, quality: int = 95, subsampling: str = "420",
     for t in range(min(ncomp, 2)):
         out.append(_segment(0xDB, bytes([t]) + bytes(
             qtabs[t][_ZIGZAG].astype(np.uint8))))
+    marker = 0xC0 if not arithmetic else (0xCA if progressive else 0xC9)
     sof = struct.pack(">BHHB", 8, H, W, ncomp)
     for c in range(ncomp):
         sof += bytes([c + 1, fac[c][0] << 4 | fac[c][1], tsel[c]])
-    out.append(_segment(0xC0, sof))
-    for t in range(min(ncomp, 2)):
+    out.append(_segment(marker, sof))
+    if arithmetic and conditioning is not None:
+        L, U, K = conditioning
+        out.append(_segment(0xCC, b"".join(
+            bytes([t, U << 4 | L, 16 + t, K]) for t in range(min(ncomp, 2)))))
+    for t in range(min(ncomp, 2) if not arithmetic else 0):
         out.append(_segment(0xC4, bytes([t]) + bytes(_DC_BITS[t])
                             + bytes(range(12))))
         out.append(_segment(0xC4, bytes([0x10 | t]) + bytes(_AC_BITS[t])
                             + _AC_VALS[t]))
     if restart_interval:
         out.append(_segment(0xDD, struct.pack(">H", restart_interval)))
-    sos = bytes([ncomp])
-    for c in range(ncomp):
-        sos += bytes([c + 1, 0x11 * tsel[c]])
-    out.append(_segment(0xDA, sos + bytes([0, 63, 0])))
-    out += [data.tobytes(), b"\xff\xd9"]
+    for sos, data in scans:
+        out += [_segment(0xDA, sos), data]
+    out.append(b"\xff\xd9")
     return b"".join(out)

@@ -9,19 +9,24 @@ truncation of a few seed streams and ``--mutations`` copies of each with
 TIFF: into strips of the seed's size and of a random one, then both
 predictors over the output; RLE: as RLE8 and RLE4 at the seed's size and
 a random one).  Any out-of-bounds access or undefined behaviour aborts
-the harness; otherwise it prints, per decoder, how many inputs decoded,
-were refused as corrupt, or as unsupported.
+the harness; otherwise it prints, per decoder, how many inputs decoded
+(JPEG: in each of the four output colour spaces, BGR, gray, YCbCr to RGB
+and as stored) or were refused as corrupt.
 
     python scripts/fuzz_jpeg_torch.py [--mutations 20000] [--seed 1]
 
-The JPEG seeds are baseline files of the port's encoder (4:2:0 with
-restart markers, 4:4:4, 4:1:1, 4:4:0, gray, CMYK and YCCK) and two of
-them damaged as libjpeg reads past (restart markers out of order, bytes
-before a marker); ``--files`` adds others (progressive files, whose
-truncations drive the block smoothing, say).  The TIFF seeds are the LZW
-and PackBits strips of the port's TIFF encoder, the RLE seeds its RLE8 and
-RLE4 data.  Needs a C compiler with the sanitizers (gcc or clang); runs on
-the host only.
+The JPEG seeds are files of the port's encoder: baseline Huffman (4:2:0
+with restart markers, 4:4:4, 4:1:1, 4:4:0, gray, CMYK and YCCK),
+arithmetic-coded (sequential and progressive, with restart markers and
+DAC conditioning), lossless (gray and RGB, predictors 1-7, a point
+transform, restart markers), the strips of a JPEG-compressed TIFF with
+its tables, and two baseline files damaged as libjpeg reads past (restart
+markers out of order, bytes before a marker); ``--files`` adds others
+(progressive Huffman files, whose truncations drive the block smoothing,
+say).  The TIFF seeds are the LZW and PackBits strips of the port's TIFF
+encoder, among them a BigTIFF's float64 strip (its predictors on 8-byte
+samples), the RLE seeds its RLE8 and RLE4 data.  Needs a C compiler with
+the sanitizers (gcc or clang); runs on the host only.
 """
 
 from __future__ import annotations
@@ -41,6 +46,9 @@ from lgu_slam_tpu_torch.data.image_io import (  # noqa: E402
     encode_jpeg,
 )
 from lgu_slam_tpu_torch.data.tiff import (  # noqa: E402
+    _ifd,
+    _jpeg_tables,
+    encode_tiff,
     lzw_encode,
     packbits_encode,
 )
@@ -74,7 +82,7 @@ int main(int argc, char **argv)
             if (it >= n)
                 for (int k = 1 + rand() % 4; k > 0; k--)
                     d[2 + rand() % (m - 2)] = (uint8_t)rand();
-            int32_t info[3];
+            int32_t info[7];
             char err[256];
             int st = jpeg_info(d, m, info, err, 256);
             /* a mutated frame header can name an image of up to 2^32
@@ -82,23 +90,21 @@ int main(int argc, char **argv)
              * files count as refused, sparing the sanitizers' memory */
             if (st == 0 && (int64_t)info[0] * info[1] > (1 << 22))
                 st = 1;
-            if (st == 0) { /* the colour and the gray output */
-                uint8_t *o = malloc((size_t)info[0] * info[1] * 3);
-                st = jpeg_decode_as(d, m, o, info[0], info[1], 0, err, 256);
-                int gst = jpeg_decode_as(d, m, o, info[0], info[1], 1, err,
-                                         256);
-                if (gst != st)
-                    return 3; /* the two outputs must fail alike */
+            if (st == 0) { /* each output colour space, up to 4 channels */
+                uint8_t *o = malloc((size_t)info[0] * info[1] * 4);
+                for (int mode = 0; mode < 4; mode++)
+                    counts[jpeg_decode_as(d, m, o, info[0], info[1], mode,
+                                          err, 256)]++;
                 free(o);
+            } else {
+                counts[st]++;
             }
-            counts[st]++;
             free(d);
         }
         free(base);
     }
-    printf("{\"decoded\": %ld, \"corrupt\": %ld, \"unsupported\": %ld, "
-           "\"out_of_memory\": %ld}\n", counts[0], counts[1], counts[2],
-           counts[3]);
+    printf("{\"decoded\": %ld, \"corrupt\": %ld, \"out_of_memory\": "
+           "%ld}\n", counts[0], counts[1], counts[3]);
     return 0;
 }
 """
@@ -138,15 +144,16 @@ int main(int argc, char **argv)
                 for (int k = 1 + rand() % 4; k > 0; k--)
                     d[rand() % m] = (uint8_t)rand();
             long occ = it & 1 ? 1 + rand() % (2 * occ0) : occ0;
-            occ = (occ + 3) & ~3L; /* whole 32-bit samples */
+            occ = (occ + 7) & ~7L; /* whole 64-bit samples */
             uint8_t *o = malloc((size_t)occ);
             int st = packbits ? tiff_packbits_decode(d, m, o, occ)
                               : tiff_lzw_decode(d, m, o, occ);
-            int64_t rowbytes = 4 * (1 + rand() % 8);
+            int64_t rowbytes = 8 * (1 + rand() % 8);
             int64_t rows = occ / rowbytes;
             tiff_hpredict(o, rows, rowbytes, 1 + rand() % 4,
-                          1 << (rand() % 3), rand() & 1);
-            if (tiff_fpredict(o, rows, rowbytes, 1 + rand() % 4, 4) != 0)
+                          1 << (rand() % 4), rand() & 1);
+            if (tiff_fpredict(o, rows, rowbytes, 1 + rand() % 4,
+                              4 << (rand() & 1)) != 0)
                 return 4;
             counts[st]++;
             free(o);
@@ -225,17 +232,44 @@ def seeds(rng) -> list:
         rst[i + 1] = 0xD0 + ((rst[i + 1] - 0xD0 + 1 + k % 3) & 7)
     at = restarts(files[4])[0]
     junk = files[4][:at] + b"\x12\x34\xff\x00\x56" + files[4][at:]
+    small = im[:19, :27]
+    files += [encode_jpeg(im, 80, "420", 3, arithmetic=True),
+              encode_jpeg(im, 90, "422", arithmetic=True, progressive=True,
+                          restart_interval=4),
+              encode_jpeg(im[..., 0], 70, arithmetic=True, progressive=True,
+                          conditioning=(1, 4, 8)),
+              encode_jpeg(cmyk, 85, "420", arithmetic=True,
+                          adobe_transform=2),
+              encode_jpeg(small[..., 1], lossless=True, predictor=5),
+              encode_jpeg(small, lossless=True, predictor=7,
+                          point_transform=2, restart_interval=3),
+              encode_jpeg(small[..., 2] >> 2, lossless=True, predictor=4,
+                          precision=6)]
+    # a JPEG-compressed TIFF's strips, each behind the file's tables, as
+    # libtiff hands them to the decoder
+    tif = encode_tiff(im, "jpeg", rows_per_strip=16, quality=85)
+    tags = _ifd(tif, "")[0]
+    tables = _jpeg_tables(tags)
+    for off, n in zip(tags["strip_offsets"], tags["strip_counts"]):
+        files.append(b"\xff\xd8" + tables + tif[off + 2:off + n])
     return files + [bytes(rst), junk]
 
 
 def tiff_seeds(rng) -> list:
-    """(stream, decoded size, codec) of LZW and PackBits strips."""
+    """(stream, decoded size, codec) of LZW and PackBits strips, and the
+    LZW strip of a float64 BigTIFF (the floating-point predictor's bytes
+    of 8-byte samples)."""
     im = rng.integers(0, 256, (16, 40), np.uint8)
     im[:, 20:] = im[:, 20:21]  # runs
     raw = im.tobytes()
+    depth = rng.uniform(0.5, 8.0, (8, 24))
+    big = encode_tiff(depth, "lzw", 3, bigtiff=True)
+    tags = _ifd(big, "")[0]
+    off, n = tags["strip_offsets"][0], tags["strip_counts"][0]
     return [(lzw_encode(raw), len(raw), "lzw"),
             (packbits_encode(raw), len(raw), "packbits"),
-            (lzw_encode(raw * 9), 9 * len(raw), "lzw")]
+            (lzw_encode(raw * 9), 9 * len(raw), "lzw"),
+            (big[off:off + n], depth.nbytes, "lzw")]
 
 
 def rle_seeds(rng) -> list:

@@ -326,6 +326,37 @@ def test_scannet_fixture_matches_jax(tmp_path, jpeg):
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", ["int16", "uint32", "float64"])
+def test_depth_tiff_dtypes_match_jax(tmp_path, dtype):
+    """Depth maps stored as int16, uint32 or float64 TIFF (classic and
+    BigTIFF, Deflate with the horizontal or floating-point predictor), as
+    simulators and photogrammetry tools write them: the JAX loader
+    (cv2.imread with IMREAD_ANYDEPTH, then float32 / png_depth_scale) and
+    the port's read the same depths exactly."""
+    from lgu_slam_tpu_torch.data import tiff
+
+    fixtures.write_scannet_sequence(str(tmp_path / "scene0000_00"),
+                                    n_frames=1, seed=2)
+    kw = dict(camera=jrgbd.KNOWN_CAMERAS["scannet_640"], desired=(120, 160))
+    ds = ScanNet(str(tmp_path), "scene0000_00", **kw)
+    ref = jrgbd.ScanNet(str(tmp_path), "scene0000_00", **kw)
+    _, depths, _, _ = fixtures.render_sequence(2, 1, 48, 64,
+                                               fixtures.SCANNET_640, 0.02,
+                                               0.004)
+    mm = depths[0] * 1000.0
+    values = np.rint(mm).astype(dtype) if dtype != "float64" else mm
+    for big in (False, True):
+        path = str(tmp_path / f"d{int(big)}.tif")
+        with open(path, "wb") as fh:
+            fh.write(tiff.encode_tiff(values, "deflate",
+                                      3 if dtype == "float64" else 2,
+                                      bigtiff=big))
+        got, want = ds._read_depth(path), ref._read_depth(path)
+        assert got.dtype == want.dtype == np.float32
+        np.testing.assert_array_equal(got, want)
+        assert np.abs(got - mm / 1000.0).max() < 1e-3
+
+
 def test_replica_fixture_matches_jax(tmp_path):
     """fixtures.write_replica_scene at Replica's 680 x 1200 read by both
     packages' Replica loaders (downscaled to 340 x 600): the same frames,

@@ -469,3 +469,203 @@ def test_bmp_truncated(mode, tmp_path):
                        len(data) - 3, len(data) - 1}):
         path.write_bytes(data[:cut])
         same_as_cv2(path)
+
+
+# -- which class each refusal takes --------------------------------------
+
+def _tiff_patch(data: bytes, tag: int, value: int) -> bytes:
+    """A classic little-endian TIFF with one SHORT tag's value set."""
+    off, = struct.unpack_from("<I", data, 4)
+    n, = struct.unpack_from("<H", data, off)
+    raw = bytearray(data)
+    for k in range(n):
+        if struct.unpack_from("<H", data, off + 2 + 12 * k)[0] == tag:
+            struct.pack_into("<H", raw, off + 2 + 12 * k + 8, value)
+            return bytes(raw)
+    raise KeyError(tag)
+
+
+def _pil_tiff(compression: str, img) -> bytes:
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "TIFF", compression=compression)
+    return buf.getvalue()
+
+
+def _cv2_file(ext: str, img, tmp_path) -> bytes:
+    path = str(tmp_path / f"w{ext}")
+    src = img.astype(np.float32) / 255 if ext == ".hdr" else img
+    assert cv2.imwrite(path, src)
+    return open(path, "rb").read()
+
+
+def _kind(name: str, tmp_path) -> bytes:
+    """The bytes of one file kind of the classification below."""
+    from lgu_slam_tpu_torch.data import tiff
+
+    rng = np.random.default_rng(31)
+    img = rng.integers(0, 256, (19, 27, 3), np.uint8)
+    img[:, 12:] = np.arange(15, dtype=np.uint8)[None, :, None] * 9
+    gray = img[..., 0]
+    enc = image_io.encode_jpeg
+    if name == "jpeg_12bit":
+        raw = bytearray(enc(img))
+        raw[raw.index(b"\xff\xc0") + 4] = 12
+        return bytes(raw)
+    if name.startswith("jpeg_lossless_") and name.endswith("bit"):
+        p = int(name.split("_")[-1][:-3])
+        return enc(gray.astype(np.uint16) << (p - 8), lossless=True,
+                   precision=p)
+    if name == "jpeg_lossless_gray8":
+        return enc(gray, lossless=True, predictor=4)
+    if name == "jpeg_lossless_rgb8":
+        return enc(img, lossless=True, predictor=7)
+    if name == "jpeg_sof11":
+        return enc(gray, lossless=True).replace(b"\xff\xc3", b"\xff\xcb")
+    if name == "jpeg_arithmetic":
+        return enc(img, arithmetic=True)
+    if name == "jpeg_arithmetic_progressive":
+        return enc(img, arithmetic=True, progressive=True)
+    if name == "jpeg_fractional":
+        raw = bytearray(enc(img, subsampling="444"))
+        sof = raw.index(b"\xff\xc0")
+        raw[sof + 11], raw[sof + 14], raw[sof + 17] = 0x31, 0x21, 0x11
+        return bytes(raw)
+    if name == "jpeg_hierarchical":
+        return enc(img).replace(b"\xff\xc0", b"\xff\xc5")
+    if name.startswith("tiff_scheme_"):
+        code, bits = (int(v) for v in name.split("_")[2:4])
+        base = tiff.encode_tiff(gray >> 7, bilevel=True) if bits == 1 \
+            else tiff.encode_tiff(gray)
+        return _tiff_patch(base, 259, code)
+    if name == "tiff_sgilog_gray":
+        return _tiff_patch(tiff.encode_tiff(gray), 259, 34677)
+    if name in ("tiff_group3", "tiff_group4", "tiff_ccitt"):
+        return _pil_tiff(name[5:].replace("ccitt", "tiff_ccitt"),
+                         gray > 128)
+    if name == "tiff_old_style_lzw":
+        raw = bytearray(tiff.encode_tiff(gray, "lzw"))
+        tags = tiff._ifd(bytes(raw), "")[0]
+        at, n = tags["strip_offsets"][0], tags["strip_counts"][0]
+        raw[at:at + n] = b"\x00\x01" + rng.integers(0, 256, n - 2,
+                                                    np.uint8).tobytes()
+        return bytes(raw)
+    if name == "tiff_gray_alpha":
+        return tiff.encode_tiff(img[..., :2])
+    if name.startswith("tiff_photometric_"):
+        ph = int(name.split("_")[-1])
+        src = np.concatenate([img, gray[..., None]], -1) if ph == 5 else \
+            (gray if ph == 4 else img)
+        return _tiff_patch(tiff.encode_tiff(src), 262, ph)
+    if name == "tiff_no_photometric":
+        return _tiff_patch(tiff.encode_tiff(gray), 262, 1).replace(
+            b"\x06\x01\x03\x00", b"\x06\x7f\x03\x00")
+    if name == "tiff_palette_without_colormap":
+        return _tiff_patch(tiff.encode_tiff(gray), 262, 3)
+    if name == "tiff_jpeg":
+        return tiff.encode_tiff(img, "jpeg", rows_per_strip=8)
+    if name == "tiff_bigtiff":
+        return tiff.encode_tiff(img, bigtiff=True)
+    if name.startswith("tiff_orientation_"):
+        return tiff.encode_tiff(img, orientation=int(name[-1]))
+    if name.startswith("tiff_format_"):
+        fmt, bits = (int(v) for v in name.split("_")[2:4])
+        base = tiff.encode_tiff(gray.astype({8: np.uint8, 16: np.uint16,
+                                             32: np.uint32,
+                                             64: np.uint64}[bits]))
+        return _tiff_patch(base, 339, fmt)
+    if name == "pam_alpha":
+        from lgu_slam_tpu_torch.data import pnm
+
+        return pnm.encode_pam(np.concatenate([img, gray[..., None]], -1),
+                              "RGB_ALPHA")
+    ext = {"webp": ".webp", "jp2": ".jp2", "avif": ".avif", "gif": ".gif",
+           "hdr": ".hdr", "sun_raster": ".ras"}[name]
+    return _cv2_file(ext, rng.integers(0, 256, (64, 64, 3), np.uint8),
+                     tmp_path)
+
+
+# each file kind -> what cv2.imread does in its colour and its
+# IMREAD_ANYDEPTH read: "read" (the port returns the same array), "queued"
+# (an image the port does not read yet: NotImplementedError), "none"
+# (cv2 returns None: ValueError)
+CLASSES = {
+    "jpeg_12bit": ("none", "none"),
+    "jpeg_lossless_12bit": ("none", "none"),
+    "jpeg_lossless_16bit": ("none", "none"),
+    "jpeg_lossless_gray8": ("none", "read"),
+    "jpeg_lossless_rgb8": ("read", "none"),
+    "jpeg_sof11": ("none", "none"),
+    "jpeg_arithmetic": ("read", "read"),
+    "jpeg_arithmetic_progressive": ("read", "read"),
+    "jpeg_fractional": ("none", "read"),
+    "jpeg_hierarchical": ("none", "none"),
+    "tiff_scheme_34925_8": ("none", "none"),  # LZMA
+    "tiff_scheme_50000_8": ("none", "none"),  # ZSTD
+    "tiff_scheme_50001_8": ("none", "none"),  # WebP
+    "tiff_scheme_34887_8": ("none", "none"),  # LERC
+    "tiff_scheme_34661_8": ("none", "none"),  # JBIG
+    "tiff_scheme_32766_8": ("none", "none"),  # NeXT
+    "tiff_scheme_32809_8": ("none", "none"),  # ThunderScan
+    "tiff_scheme_32909_8": ("none", "none"),  # PixarLog
+    "tiff_scheme_3_8": ("none", "none"),  # CCITT Group 3 of 8-bit samples
+    "tiff_scheme_6_8": ("none", "none"),  # old-style JPEG, no JPEG tags
+    "tiff_scheme_50002_8": ("queued", "queued"),  # JPEG XL: unknown scheme
+    "tiff_scheme_34712_1": ("queued", "queued"),  # JPEG 2000: unknown
+    "tiff_scheme_32771_1": ("queued", "queued"),  # CCITT RLEW
+    "tiff_sgilog_gray": ("none", "none"),
+    "tiff_group3": ("queued", "queued"),
+    "tiff_group4": ("queued", "queued"),
+    "tiff_ccitt": ("queued", "queued"),
+    "tiff_old_style_lzw": ("queued", "queued"),
+    "tiff_gray_alpha": ("queued", "queued"),
+    "tiff_photometric_4": ("none", "none"),  # transparency mask
+    "tiff_photometric_5": ("queued", "queued"),  # CMYK
+    "tiff_photometric_6": ("queued", "queued"),  # YCbCr, uncompressed
+    "tiff_photometric_8": ("queued", "queued"),  # CIE L*a*b*
+    "tiff_no_photometric": ("none", "none"),
+    "tiff_palette_without_colormap": ("read", "read"),
+    "tiff_jpeg": ("read", "read"),
+    "tiff_bigtiff": ("read", "read"),
+    **{f"tiff_orientation_{k}": ("read", "read") for k in (2, 3, 4)},
+    **{f"tiff_orientation_{k}": ("none", "none") for k in (5, 6, 7, 8)},
+    "tiff_format_2_8": ("read", "read"),  # int8
+    "tiff_format_2_16": ("read", "read"),  # int16
+    "tiff_format_1_32": ("none", "read"),  # uint32
+    "tiff_format_2_32": ("none", "read"),  # int32
+    "tiff_format_3_64": ("none", "read"),  # float64
+    "tiff_format_1_64": ("none", "read"),  # uint64
+    "tiff_format_4_8": ("none", "none"),  # void
+    "tiff_format_3_16": ("none", "none"),  # float16
+    "tiff_format_5_32": ("none", "none"),  # complex integer
+    # cv2 returns memory it never wrote for an alpha PAM
+    **{k: ("queued", "queued") for k in ("webp", "jp2", "avif", "gif",
+                                         "hdr", "sun_raster", "pam_alpha")},
+}
+
+
+@pytest.mark.parametrize("name", list(CLASSES))
+def test_refusals_follow_cv2(name, tmp_path):
+    """For each file kind the port ever refused, in both read modes:
+    cv2.imread returns None exactly where the port raises ValueError (the
+    class the EuRoC stream skips a frame for), and an array exactly where
+    the port returns the same array or, for what stays queued, raises
+    NotImplementedError naming it.  The class each kind takes is written
+    in CLASSES, and the test holds cv2 to it too."""
+    path = tmp_path / "k.img"
+    path.write_bytes(_kind(name, tmp_path))
+    for anydepth, want in zip((False, True), CLASSES[name]):
+        ref = cv2.imread(str(path), cv2.IMREAD_ANYDEPTH if anydepth
+                         else cv2.IMREAD_COLOR)
+        assert (ref is None) == (want == "none"), (name, anydepth)
+        if want == "read":
+            got = image_io.imread(str(path), anydepth=anydepth)
+            assert got.dtype == ref.dtype and got.shape == ref.shape
+            assert got.tobytes() == ref.tobytes()
+        else:
+            with pytest.raises(ValueError if want == "none"
+                               else NotImplementedError):
+                image_io.imread(str(path), anydepth=anydepth)

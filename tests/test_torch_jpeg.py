@@ -333,13 +333,14 @@ def test_random_corruption_never_crashes(tmp_path):
 @pytest.mark.parametrize("feature", ["arithmetic", "12-bit", "lossless",
                                      "hierarchical", "CMYK", "YCCK"])
 def test_unsupported_modes_raise(feature, tmp_path):
-    """The modes cv2 reads and the decoder does not (a baseline file's SOF
-    patched to arithmetic coding (SOF9), 12-bit samples or lossless (SOF3)
-    coding): NotImplementedError naming the feature.  Hierarchical coding
-    (SOF5), which libjpeg refuses (cv2 returns None): ValueError.  A CMYK
-    file written by PIL, and the same with its Adobe marker's transform
-    set to YCCK (2), which the decoder reads since CMYK support: as
-    cv2.imread reads them."""
+    """A baseline file's SOF patched to arithmetic coding (SOF9: its
+    Huffman data read by the QM decoder) reads as cv2.imread reads it, in
+    both modes; patched to 12-bit samples, to lossless coding (SOF3: a JFIF file's
+    YCbCr, which libjpeg-turbo does not convert in a lossless file) or to
+    hierarchical coding (SOF5): ValueError,
+    where cv2 returns None.  A CMYK file written by PIL, and the same with
+    its Adobe marker's transform set to YCCK (2): as cv2.imread reads
+    them."""
     data = _baseline()
     raw = bytearray(data)
     _, sof, _ = _find(data, 0xC0)
@@ -356,19 +357,20 @@ def test_unsupported_modes_raise(feature, tmp_path):
         path.write_bytes(data)
         same_as_cv2(path)
         return
-    patch, error, words = {
-        "arithmetic": ((1, 0xC9), NotImplementedError, "arithmetic"),
-        "12-bit": ((4, 12), NotImplementedError, "12-bit"),
-        "lossless": ((1, 0xC3), NotImplementedError, "lossless"),
-        "hierarchical": ((1, 0xC5), ValueError, "hierarchical")}[feature]
+    patch, words = {
+        "arithmetic": ((1, 0xC9), None),
+        "12-bit": ((4, 12), "12-bit"),
+        "lossless": ((1, 0xC3), "lossless"),
+        "hierarchical": ((1, 0xC5), "hierarchical")}[feature]
     raw[sof + patch[0]] = patch[1]
     data = bytes(raw)
-    if error is ValueError:
-        path = tmp_path / "h.jpg"
-        path.write_bytes(data)
+    path = tmp_path / "h.jpg"
+    path.write_bytes(data)
+    same_as_cv2(path)
+    if words is not None:
         assert cv2.imread(str(path)) is None
-    with pytest.raises(error, match=words):
-        image_io.decode_jpeg(data)
+        with pytest.raises(ValueError, match=words):
+            image_io.decode_jpeg(data)
 
 
 @pytest.mark.parametrize("marker", [0xC5, 0xC6, 0xC7, 0xC8, 0xCD, 0xCE,
@@ -501,3 +503,220 @@ def test_encoder_gray():
     src = _image(67, 93, "smooth")[..., 0]
     got = _same_as_cv2(image_io.encode_jpeg(src, 95, restart_interval=3))
     assert _psnr(got[..., 0], src) >= 50.0
+
+
+# -- arithmetic coding, lossless files, fractional sampling ---------------
+
+ARITH = {"sequential": {}, "progressive": dict(progressive=True),
+         "restart": dict(restart_interval=3),
+         "progressive_restart": dict(progressive=True, restart_interval=5),
+         "conditioning": dict(conditioning=(2, 6, 12))}
+# the port's encoder's samplings, and gray, CMYK and YCCK files
+ARITH_SAMPLINGS = list(SAMPLING) + ["gray", "cmyk", "ycck"]
+
+
+def _reads_as_cv2(data: bytes, tmp_path, anydepth: bool) -> str:
+    """imread of the bytes as a file against cv2.imread in one mode: the
+    same array ("image"), or ValueError where cv2 returns None ("None")."""
+    path = tmp_path / "m.jpg"
+    path.write_bytes(data)
+    ref = cv2.imread(str(path), cv2.IMREAD_ANYDEPTH if anydepth
+                     else cv2.IMREAD_COLOR)
+    if ref is None:
+        with pytest.raises(ValueError):
+            image_io.imread(str(path), anydepth=anydepth)
+        return "None"
+    got = image_io.imread(str(path), anydepth=anydepth)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)
+    return "image"
+
+
+def _arith_source(H, W, sampling, kind, seed=0):
+    """An image and encode_jpeg's keywords for one of ARITH_SAMPLINGS."""
+    im = _image(H, W, kind, seed)
+    if sampling == "gray":
+        return im[..., 0], {}
+    if sampling in ("cmyk", "ycck"):
+        return np.concatenate([im, im[..., 1:2]], -1), dict(
+            adobe_transform=0 if sampling == "cmyk" else 2)
+    return im, dict(subsampling=sampling)
+
+
+@pytest.mark.parametrize("sampling", ARITH_SAMPLINGS)
+@pytest.mark.parametrize("coding", list(ARITH))
+def test_arithmetic_matches_cv2(coding, sampling, tmp_path):
+    """Arithmetic-coded files (SOF9 sequential, SOF10 progressive with
+    libjpeg's simple progression: DC first and refine, AC first and
+    refine), written by the port's QM encoder with restart intervals and
+    DAC conditioning, at 1 x 1, 7 x 9 and 67 x 93, quality 30, 75 and 95,
+    of every sampling, gray, CMYK and YCCK: read bit for bit as
+    cv2.imread reads them, in both modes."""
+    for (H, W), kind, q in zip(SIZES, ("noise", "smooth", "noise"),
+                               (30, 75, 95)):
+        im, kw = _arith_source(H, W, sampling, kind, seed=H)
+        data = image_io.encode_jpeg(im, q, arithmetic=True, **ARITH[coding],
+                                    **kw)
+        marker = b"\xff\xca" if ARITH[coding].get("progressive") \
+            else b"\xff\xc9"
+        assert marker in data and b"\xff\xc4" not in data
+        assert (b"\xff\xcc" in data) == (coding == "conditioning")
+        for anydepth in (False, True):
+            assert _reads_as_cv2(data, tmp_path, anydepth) == "image"
+
+
+def test_arithmetic_equals_huffman_pixels():
+    """The same quantised coefficients, Huffman-coded (baseline) and
+    arithmetic-coded (sequential and progressive, with restarts): the same
+    samples, in both output modes; the arithmetic files are smaller."""
+    for sampling in ("420", "444"):
+        im = _image(67, 93, "smooth")
+        base = image_io.encode_jpeg(im, 90, sampling)
+        for kw in ARITH.values():
+            data = image_io.encode_jpeg(im, 90, sampling, arithmetic=True,
+                                        **kw)
+            assert len(data) < len(base)
+            for gray in (False, True):
+                np.testing.assert_array_equal(
+                    image_io.decode_jpeg(data, gray=gray),
+                    image_io.decode_jpeg(base, gray=gray))
+
+
+@pytest.mark.parametrize("coding", ["sequential", "restart", "progressive",
+                                    "progressive_restart"])
+def test_arithmetic_truncated_and_damaged(coding, tmp_path):
+    """Every prefix of an arithmetic-coded 4:2:0 file (zero data after the
+    end, read as libjpeg's fake EOI marker gives it; a segment stopped by
+    a bad code or a spectral overflow) and 150 files with bytes overwritten
+    at random: the decoder returns cv2.imread's image bit for bit, or
+    raises ValueError where it returns None."""
+    data = image_io.encode_jpeg(_image(16, 24, "noise", seed=3), 85,
+                                arithmetic=True, **ARITH[coding])
+    outcomes = [_reads_as_cv2(data[:n], tmp_path, False)
+                for n in range(len(data) + 1)]
+    assert outcomes[-1] == "image" and "None" in outcomes
+    assert outcomes.count("image") > len(data) // 2
+    rng = np.random.default_rng(17)
+    for _ in range(150):
+        raw = bytearray(data)
+        for i in rng.integers(2, len(raw), rng.integers(1, 5)):
+            raw[i] = rng.integers(0, 256)
+        _reads_as_cv2(bytes(raw), tmp_path, bool(rng.integers(0, 2)))
+
+
+LOSSLESS = {"gray": (8, 0), "gray_pt": (8, 3), "gray_6bit": (6, 1),
+            "rgb": (8, 0), "rgb_pt": (8, 2)}
+
+
+@pytest.mark.parametrize("predictor", range(1, 8))
+@pytest.mark.parametrize("kind", list(LOSSLESS))
+def test_lossless_matches_cv2(kind, predictor, tmp_path):
+    """Lossless files (SOF3) of predictors 1-7, point transforms, 6-bit
+    samples and restart intervals (one every 3 rows), gray and RGB:
+    cv2.imread reads gray only with IMREAD_ANYDEPTH and RGB only without
+    (libjpeg-turbo converts no colour in a lossless file), each bit for bit
+    as the decoder reads it, and returns None in the other mode, where the
+    decoder raises ValueError; without a point transform they are the
+    samples."""
+    precision, pt = LOSSLESS[kind]
+    im = _image(23, 37, "smooth")
+    im[4:9, 5:30] = _image(5, 25, "noise", seed=predictor)
+    im = (im.astype(np.int64) >> (8 - precision)).astype(np.uint8)
+    gray = kind.startswith("gray")
+    src = im[..., 0] if gray else im
+    for restart in (0, 3):
+        data = image_io.encode_jpeg(src, lossless=True, predictor=predictor,
+                                    point_transform=pt, precision=precision,
+                                    restart_interval=restart)
+        assert _reads_as_cv2(data, tmp_path, gray) == "image"
+        assert _reads_as_cv2(data, tmp_path, not gray) == "None"
+        got = image_io.decode_jpeg(data, gray=gray)
+        want = (src.astype(np.int64) >> pt << pt).astype(np.uint8)
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["gray", "rgb_restart"])
+def test_lossless_truncated_and_damaged(kind, tmp_path):
+    """Every prefix of a lossless file (the MCU rows after the data ran
+    out at 2^(P - Pt - 1)) and 150 randomly damaged copies: cv2.imread's
+    image bit for bit, or ValueError where it returns None."""
+    im = _image(12, 20, "noise", seed=4)
+    gray = kind == "gray"
+    data = image_io.encode_jpeg(im[..., 0] if gray else im, lossless=True,
+                                predictor=6 if gray else 5,
+                                restart_interval=0 if gray else 2)
+    outcomes = [_reads_as_cv2(data[:n], tmp_path, gray)
+                for n in range(len(data) + 1)]
+    assert outcomes[-1] == "image" and "None" in outcomes
+    rng = np.random.default_rng(19)
+    for _ in range(150):
+        raw = bytearray(data)
+        for i in rng.integers(2, len(raw), rng.integers(1, 5)):
+            raw[i] = rng.integers(0, 256)
+        _reads_as_cv2(bytes(raw), tmp_path, gray)
+
+
+def test_lossless_colour_spaces(tmp_path):
+    """A lossless 3-component file is RGB unless a JFIF marker or an Adobe
+    transform of 1 makes it YCbCr (component ids 'R', 'G', 'B' or 1, 2, 3
+    alike): RGB reads without IMREAD_ANYDEPTH only, YCbCr in neither mode;
+    a restart interval that is not whole MCU rows, a table missing (no
+    standard tables in a lossless file), arithmetic lossless (SOF11) and
+    12- or 16-bit samples: cv2 returns None, ValueError."""
+    im = _image(9, 13, "noise", seed=6)
+    data = image_io.encode_jpeg(im, lossless=True, predictor=1)
+    jfif = _segment_bytes(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0")
+    cases = {"ids 1, 2, 3": (data, "image"),
+             "JFIF": (data[:2] + jfif + data[2:], "None"),
+             "Adobe 0": (data[:2] + _adobe(0) + data[2:], "image"),
+             "Adobe 1": (data[:2] + _adobe(1) + data[2:], "None")}
+    raw = bytearray(data)
+    sof, sos = data.index(b"\xff\xc3"), data.index(b"\xff\xda")
+    for k, c in enumerate(b"RGB"):
+        raw[sof + 10 + 3 * k] = raw[sos + 5 + 2 * k] = c
+    cases["ids R, G, B"] = (bytes(raw), "image")
+    gray = image_io.encode_jpeg(im[..., 0], lossless=True, predictor=2,
+                                restart_interval=2)
+    at = gray.index(b"\xff\xdd")
+    cases["restart not whole rows"] = (
+        gray[:at + 4] + struct.pack(">H", 2 * 13 + 1) + gray[at + 6:], "None")
+    at = gray.index(b"\xff\xc4")
+    n, = struct.unpack(">H", gray[at + 2:at + 4])
+    cases["no DHT"] = (gray[:at] + gray[at + 2 + n:], "None")
+    cases["SOF11"] = (gray.replace(b"\xff\xc3", b"\xff\xcb"), "None")
+    for p in (12, 16):
+        wide = image_io.encode_jpeg(im[..., 0].astype(np.uint16) << (p - 8),
+                                    lossless=True, precision=p)
+        cases[f"{p}-bit"] = (wide, "None")
+    for name, (body, colour) in cases.items():
+        assert _reads_as_cv2(body, tmp_path, False) == colour, name
+        assert _reads_as_cv2(body, tmp_path, True) == "None", name
+
+
+def _segment_bytes(marker: int, body: bytes) -> bytes:
+    return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
+
+
+def _adobe(transform: int) -> bytes:
+    return _segment_bytes(0xEE, b"Adobe\x00\x64\0\0\0\0" + bytes([transform]))
+
+
+@pytest.mark.parametrize("factors", [(0x31, 0x21, 0x11), (0x21, 0x31, 0x11),
+                                     (0x13, 0x12, 0x11), (0x32, 0x11, 0x11)])
+def test_fractional_sampling(factors, tmp_path):
+    """A 4:4:4 file's sampling factors set to ratios libjpeg upsamples by
+    no integer (Y 3 x 1, Cb 2 x 1, Cr 1 x 1 and the like): read with
+    IMREAD_ANYDEPTH, the Y plane alone, as cv2 reads it (none when Y
+    itself is fractional); in colour, ValueError where cv2 returns None
+    (every component is needed); integral ones read in both modes."""
+    raw = bytearray(image_io.encode_jpeg(_image(37, 45, "smooth"), 90,
+                                         "444"))
+    sof = raw.index(b"\xff\xc0")
+    raw[sof + 11], raw[sof + 14], raw[sof + 17] = factors
+    y_whole = factors[0] >> 4 == max(f >> 4 for f in factors) and \
+        factors[0] & 15 == max(f & 15 for f in factors)
+    integral = factors == (0x32, 0x11, 0x11)
+    assert _reads_as_cv2(bytes(raw), tmp_path, True) == (
+        "image" if y_whole else "None")
+    assert _reads_as_cv2(bytes(raw), tmp_path, False) == (
+        "image" if integral else "None")

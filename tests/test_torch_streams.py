@@ -5,6 +5,7 @@ undistort equal OpenCV's here: tests/test_torch_image_io.py,
 tests/test_torch_imgproc.py), depth exact."""
 
 import os
+import struct
 
 import numpy as np
 import pytest
@@ -131,6 +132,40 @@ def test_euroc_stream_skips_unreadable_left_image(tmp_path):
                   jstreams.euroc_stereo_stream(root))
     assert len(items) == 3
     assert float(bad.split(".")[0]) / 1e9 not in [it[0] for it in items]
+
+
+@pytest.mark.parametrize("kind", ["jpeg_12bit", "tiff_lzma"])
+def test_euroc_stream_skips_what_cv2_returns_none_for(kind, tmp_path):
+    """A left image stored as a 12-bit JPEG or an LZMA TIFF, each a file
+    cv2.imread returns None for (OpenCV reads 8-bit JPEG only; this
+    libtiff has no LZMA): the JAX stream skips the pair, and so does the
+    port's (ValueError), so both yield the same 3 of 4 frames."""
+    import cv2
+
+    from lgu_slam_tpu_torch.data import image_io, tiff
+
+    root = fixtures.write_euroc_sequence(str(tmp_path / "MH_01_easy"),
+                                         n_frames=4)
+    left = os.path.join(root, "mav0", "cam0", "data")
+    bad = os.path.join(left, sorted(os.listdir(left))[1])
+    gray = cv2.imread(bad, cv2.IMREAD_GRAYSCALE)
+    if kind == "jpeg_12bit":
+        raw = bytearray(image_io.encode_jpeg(gray))
+        raw[raw.index(b"\xff\xc0") + 4] = 12
+    else:
+        raw = bytearray(tiff.encode_tiff(gray))
+        tags = tiff._ifd(bytes(raw), "")[0]
+        assert tags["compression"] == (1,)
+        raw = raw.replace(struct.pack("<HHIH", 259, 3, 1, 1),
+                          struct.pack("<HHIH", 259, 3, 1, 34925))
+    with open(bad, "wb") as fh:
+        fh.write(bytes(raw))
+    assert cv2.imread(bad) is None
+    items = _held(tstreams.euroc_stereo_stream(root),
+                  jstreams.euroc_stereo_stream(root))
+    assert len(items) == 3
+    assert float(os.path.basename(bad).split(".")[0]) / 1e9 not in [
+        it[0] for it in items]
 
 
 def test_euroc_stream_raises_on_a_format_it_cannot_read(tmp_path):

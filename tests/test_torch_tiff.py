@@ -178,10 +178,13 @@ def _patch(data: bytes, tag: int, value: int, index: int = 0) -> bytes:
 def test_refusals(tmp_path):
     """What cv2 returns None for raises ValueError (float read without
     anydepth, float colour, 2- and 4-bit samples, a strip past the end, a
-    file cut short); what cv2 reads and the port does not, or reads only
-    from memory it never wrote, raises NotImplementedError naming it
-    (the compressions left, BigTIFF, 16-bit separate colour planes read to
-    gray)."""
+    file cut short, an 8-bit file's compression tag set to JPEG over raw
+    data, to LZMA, ZSTD, WebP or LERC, which this libtiff does not decode,
+    or to CCITT, which codes 1-bit images only; a BigTIFF header pointing
+    at no directory); what cv2 reads and the port does not, or reads only
+    from memory it never wrote, raises NotImplementedError naming it (a
+    scheme libtiff does not know, JPEG XL, whose zeroed buffers cv2 reads;
+    16-bit separate colour planes read to gray)."""
     rng = np.random.default_rng(9)
     path = tmp_path / "r.tif"
 
@@ -208,13 +211,21 @@ def test_refusals(tmp_path):
         assert cv2.imread(str(path)) is None
         with pytest.raises(ValueError):
             read(data)
-    for code, name in ((7, "JPEG"), (34925, "LZMA"), (50000, "ZSTD"),
-                       (50001, "WebP"), (34887, "LERC"), (3, "CCITT"),
-                       (50002, "JPEG XL")):
-        with pytest.raises(NotImplementedError, match=name):
-            read(_patch(base, 259, code))
-    with pytest.raises(NotImplementedError, match="BigTIFF"):
-        read(b"II+\0\x08\0\0\0" + bytes(16))
+    for code, name, refused in (
+            (7, "JPEG", True), (34925, "LZMA", True), (50000, "ZSTD", True),
+            (50001, "WebP", True), (34887, "LERC", True),
+            (3, "CCITT", True), (50002, "JPEG XL", False)):
+        data = _patch(base, 259, code)
+        path.write_bytes(data)
+        assert (cv2.imread(str(path)) is None) == refused
+        with pytest.raises(ValueError if refused else NotImplementedError,
+                           match=name):
+            read(data)
+    data = b"II+\0\x08\0\0\0" + bytes(16)
+    path.write_bytes(data)
+    assert cv2.imread(str(path)) is None
+    with pytest.raises(ValueError, match="TIFF"):
+        read(data)
     sep = tiff.encode_tiff(_image("bgr16", rng), planar=2)
     path.write_bytes(sep)
     assert cv2.imread(str(path), cv2.IMREAD_ANYDEPTH) is not None
@@ -273,3 +284,164 @@ def test_lzw_and_packbits_round_trip():
     assert tiff._decompress(pb, len(raw), 32773, "", False).tobytes() == raw
     with pytest.raises(NotImplementedError, match="old-style"):
         tiff._decompress(b"\x00\x01" + lzw, len(raw), 5, "", False)
+
+
+def _same(data: bytes, tmp_path, modes=(False, True)):
+    path = tmp_path / "t.tif"
+    path.write_bytes(data)
+    same_as_cv2(path, modes)
+    return path
+
+
+JPEG_LAYOUTS = {"strips": dict(rows_per_strip=16),
+                "strips_one": {},
+                "tiles": dict(tile=(16, 32)),
+                "no_tables": dict(rows_per_strip=8, jpeg_tables=False)}
+JPEG_PHOTOMETRIC = {"ycbcr22": dict(subsampling=(2, 2)),
+                    "ycbcr21": dict(subsampling=(2, 1)),
+                    "ycbcr11": dict(subsampling=(1, 1)),
+                    "rgb": dict(photometric=2), "gray": {}}
+
+
+@pytest.mark.parametrize("photometric", list(JPEG_PHOTOMETRIC))
+@pytest.mark.parametrize("layout", list(JPEG_LAYOUTS))
+def test_jpeg_compression(layout, photometric, tmp_path):
+    """JPEG-compressed TIFF (compression 7) as libtiff's codec writes it:
+    strips (the last one shorter) and tiles (edge tiles padded), the
+    quantisation and Huffman tables in JPEGTables with abbreviated
+    per-strip streams, or whole streams; YCbCr at 2 x 2, 2 x 1 and 1 x 1
+    subsampling (libjpeg's RGB, JPEGCOLORMODE_RGB), RGB stored as it is,
+    gray; at 37 x 45 and quality 75 and 90: bit for bit as cv2.imread
+    reads it, in both modes."""
+    rng = np.random.default_rng(21)
+    img = rng.integers(0, 256, (37, 45, 3), np.uint8)
+    img[:, 20:] = np.linspace(0, 255, 25, dtype=np.uint8)[None, :, None]
+    if photometric == "gray":
+        img = img[..., 0]
+    for quality in (75, 90):
+        data = tiff.encode_tiff(img, "jpeg", quality=quality,
+                                **JPEG_LAYOUTS[layout],
+                                **JPEG_PHOTOMETRIC[photometric])
+        _same(data, tmp_path)
+
+
+def test_jpeg_compression_damage(tmp_path):
+    """JPEG strips whose byte count is cut (read as libjpeg reads a
+    truncated stream, fake EOI markers after it), cut to 3 bytes or
+    overwritten (libtiff's JPEGPreDecode fails: cv2 returns None,
+    ValueError); strips that hold more rows than RowsPerStrip says
+    (ValueError), or fewer (libtiff warns and reads them short:
+    NotImplementedError); a JPEG strip of 3 components in a file of 1
+    sample (cv2 returns None)."""
+    img = np.random.default_rng(22).integers(0, 256, (37, 45, 3), np.uint8)
+    good = tiff.encode_tiff(img, "jpeg", rows_per_strip=16)
+    counts = tiff._ifd(good, "")[0]["strip_counts"]
+    offsets = tiff._ifd(good, "")[0]["strip_offsets"]
+    _same(_patch(good, 279, counts[1] // 2, index=1), tmp_path)
+    _same(_patch(good, 279, 3, index=1), tmp_path)
+    raw = bytearray(good)
+    raw[offsets[1] + 40:offsets[1] + 60] = b"\xff\x00" * 10
+    _same(bytes(raw), tmp_path)
+    path = _same(_patch(good, 278, 8), tmp_path)
+    assert cv2.imread(str(path)) is None
+    path = tmp_path / "t.tif"
+    path.write_bytes(_patch(good, 278, 24))
+    assert cv2.imread(str(path)) is not None
+    with pytest.raises(NotImplementedError, match="reads it short"):
+        image_io.imread(str(path))
+    one = _patch(good, 277, 1)
+    assert cv2.imread(str(_same(one, tmp_path))) is None
+
+
+BIG_LAYOUTS = {"rgb8": dict(), "gray16_lzw_tiles_be": dict(
+    compression="lzw", predictor=2, tile=(16, 16), big_endian=True),
+    "float32_deflate": dict(compression="deflate", predictor=3),
+    "float64_deflate": dict(compression="deflate", predictor=3),
+    "int16_packbits": dict(compression="packbits", rows_per_strip=5),
+    "jpeg_ycbcr": dict(compression="jpeg", rows_per_strip=16)}
+
+
+@pytest.mark.parametrize("layout", list(BIG_LAYOUTS))
+def test_bigtiff(layout, tmp_path):
+    """BigTIFF (the 0x2B header, 8-byte counts and offsets, LONG8 strip
+    and tile arrays) of 8-bit colour, 16-bit tiles big-endian, float32 and
+    float64 depth with the floating-point predictor, int16 PackBits
+    strips and JPEG strips: bit for bit as cv2.imread reads them, in both
+    modes, and equal to the classic TIFF of the same samples."""
+    rng = np.random.default_rng(23)
+    depth = rng.uniform(0.3, 9.0, (H, W))
+    img = {"rgb8": _image("bgr8", rng), "gray16": _image("gray16", rng),
+           "float32": depth.astype(np.float32),
+           "float64": depth, "int16": (depth * 1000 - 4000).astype(np.int16),
+           "jpeg": _image("bgr8", rng)}[layout.split("_")[0]]
+    big = tiff.encode_tiff(img, bigtiff=True, **BIG_LAYOUTS[layout])
+    assert big[:4] in tiff.BIGTIFF
+    _same(big, tmp_path)
+    classic = tiff.encode_tiff(img, **BIG_LAYOUTS[layout])
+    for anydepth in (False, True):
+        try:
+            want = tiff.decode_tiff(classic, gray=anydepth)
+        except ValueError:
+            continue
+        np.testing.assert_array_equal(tiff.decode_tiff(big, gray=anydepth),
+                                      want)
+
+
+ORIENT_KINDS = ("bgr8", "gray8", "gray16", "float32")
+
+
+@pytest.mark.parametrize("orientation", range(0, 10))
+def test_orientations(orientation, tmp_path):
+    """The Orientation tag over 8-bit colour and gray, 16-bit gray and
+    float32 files: 2, 3 and 4 flip the image left-right, by 180 degrees
+    and upside down, in both modes, as cv2.imread does; 5-8 (transposes):
+    cv2 returns None, ValueError; 0 and 9, which libtiff ignores: read as
+    1."""
+    rng = np.random.default_rng(24)
+    for kind in ORIENT_KINDS:
+        img = _image(kind, rng)
+        data = tiff.encode_tiff(img, orientation=orientation)
+        path = _same(data, tmp_path)
+        if orientation in (2, 3, 4):
+            flip = {2: np.s_[:, ::-1], 3: np.s_[::-1, ::-1],
+                    4: np.s_[::-1]}[orientation]
+            plain = tiff.decode_tiff(tiff.encode_tiff(img), gray=True)
+            np.testing.assert_array_equal(
+                image_io.imread(str(path), anydepth=True), plain[flip])
+        if orientation in (5, 6, 7, 8):
+            with pytest.raises(ValueError, match="transpose"):
+                image_io.imread(str(path), anydepth=True)
+
+
+SAMPLE_KINDS = ("int8", "int16", "uint32", "int32", "float64", "uint64",
+                "int64")
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("dtype", SAMPLE_KINDS)
+def test_sample_formats(dtype, channels, tmp_path):
+    """Signed 8- and 16-bit (SampleFormat 2), 32- and 64-bit integer and
+    64-bit float samples, one channel or three, uncompressed and under
+    LZW with the horizontal predictor (Deflate with the floating-point one
+    for float64): cv2.imread with IMREAD_ANYDEPTH returns the samples'
+    dtype (colour to gray by OpenCV's formula on the bits read as
+    unsigned) for 8/16-bit and one channel of 32/64-bit, and None for
+    32/64-bit colour; without it, 8/16-bit through libtiff's RGBA
+    interface, the bits read as unsigned, and None for 32/64-bit.  Bit
+    for bit, in both modes."""
+    rng = np.random.default_rng(25)
+    info = np.iinfo(dtype) if dtype != "float64" else None
+    shape = (H, W) if channels == 1 else (H, W, 3)
+    if info is None:
+        img = rng.standard_normal(shape) * 1e3
+    else:
+        img = rng.integers(max(info.min, -2 ** 40), min(info.max, 2 ** 40),
+                           shape, endpoint=True)
+    img = img.astype(dtype)
+    for kw in ({}, dict(compression="lzw", predictor=2) if info else
+               dict(compression="deflate", predictor=3)):
+        path = _same(tiff.encode_tiff(img, **kw), tmp_path)
+        if channels == 1:
+            got = image_io.imread(str(path), anydepth=True)
+            assert got.dtype == np.dtype(dtype)
+            np.testing.assert_array_equal(got, img)
