@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twelve phases; any failure exits non-zero.
+Fourteen phases; any failure exits non-zero.
 
 1. Build the CUDA kernels from ``lgu_slam_tpu_torch/csrc`` with nvcc for
    sm_90a, all at once (printing ptxas' register/shared-memory summary),
@@ -176,9 +176,23 @@ Twelve phases; any failure exits non-zero.
    depth (the same values), tracked as in phase 12: both streams feed
    equal frames and depth, and ``track()`` makes equal K1 and K2 launches
    over them.
+14. WebP, GIF, Radiance HDR and Sun raster on the card machine's host:
+   a rendered 480 x 640 frame and its depth through the port's own
+   encoders (lossless WebP, GIF on a colour cube, run-length HDR depth
+   read with and without ``anydepth``, 24-bit and colour-map Sun raster),
+   each read back as written, and the committed lossy, alpha and animated
+   WebP files of ``tests/data/webp`` (libwebp's, from
+   ``scripts/make_webp_fixtures_torch.py``) decoded to the SHA-256 of
+   ``cv2.imread``'s arrays in both read modes;
+   the host's median decode ms of each; byte-encoded and RGB-order Sun
+   raster files refused as OpenCV refuses them.  A 16-frame TUM fr1
+   sequence written twice, lossless WebP colour with HDR depth and PNG
+   colour with float32 TIFF depth of the values the HDR files hold,
+   tracked as in phase 12: both streams feed equal frames and depth, and
+   ``track()`` makes equal K1 and K2 launches over them.
 
 Before the last line it prints the tracking, terminate, training, fp32
-tracking, world-size-1, entry-point, 3DGS, JPEG, oracle and the two
+tracking, world-size-1, entry-point, 3DGS, JPEG, oracle and the three
 format reports, the
 run's wall time, the
 card's name and power limit, and one JSON line with each kernel's error,
@@ -188,6 +202,7 @@ Data and weights come from fixed seeds; nothing needs the network.
 
 from __future__ import annotations
 
+import hashlib
 import http.client
 import importlib.util
 import inspect
@@ -206,10 +221,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from lgu_slam_tpu_torch.data import pnm, tiff
+from lgu_slam_tpu_torch.data import gif, hdr, pnm, sunras, tiff, webp
 from lgu_slam_tpu_torch.data.fixtures import (
     REPLICA_CAM,
     TUM_FR1,
+    gif_cube,
     render_sequence,
     write_euroc_sequence,
     write_frame,
@@ -2881,6 +2897,119 @@ def print_phase_13(report: dict) -> None:
           f"{report['seconds']:.0f} s")
 
 
+# -- phase 14: WebP, GIF, Radiance HDR, Sun raster ------------------------
+
+WEBP_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "webp"
+PHASE_14_FRAMES = 16  # the TUM sequence's length: the phase's 45 s budget
+
+
+def formats_14_cases() -> list:
+    """:func:`format_cases`' tuples of a rendered 480 x 640 frame and its
+    depth (16-bit in 1/5000 m) in the formats phase 14 reads, written by
+    the port's own encoders: each must read back as written (GIF: its
+    colour-cube colours; HDR: the RGBE values of its depth, as float32
+    with ``anydepth``, as ``round(255 f)`` without)."""
+    images, depths = render_sequence(SEED + 18, 1, 480, 640, TUM_FR1, 0.02,
+                                     0.004)[:2]
+    img = images[0]
+    d16 = np.clip(np.rint(depths[0] * 5000.0), 0, 65535).astype(np.uint16)
+    idx, palette = gif_cube(img)
+    cube = np.ascontiguousarray(palette[idx][..., ::-1])
+    gray3 = np.repeat(d16.astype(np.float32)[..., None], 3, -1)
+    hdr_file = hdr.encode_hdr(gray3)
+    return [
+        ("WebP lossless (VP8L)", webp.encode_webp_lossless(img), False, img,
+         None),
+        ("GIF", gif.encode_gif([idx], palette=palette), False, cube, None),
+        ("HDR depth, anydepth", hdr_file, True, hdr.depth_values(d16), None),
+        ("HDR depth, colour", hdr_file, False, hdr.to_uint8(
+            hdr.rgbe_to_float(hdr.float_to_rgbe(gray3))), None),
+        ("Sun raster 24-bit", sunras.encode_sunras(img), False, img, None),
+        ("Sun raster colour map", sunras.encode_sunras(idx, colormap=palette),
+         False, cube, None),
+    ]
+
+
+def phase_committed_webp() -> dict:
+    """The committed WebP files (lossy VP8, VP8X with lossy and lossless
+    alpha, an animation) decode to the SHA-256 of ``cv2.imread``'s arrays
+    (``tests/data/webp/hashes.json``) in both read modes; the host's
+    median ms of 10 colour decodes of each."""
+    hashes = json.loads((WEBP_FIXTURES / "hashes.json").read_text())
+    out = {}
+    for name, want in sorted(hashes.items()):
+        path = str(WEBP_FIXTURES / name)
+        for mode in ("color", "anydepth"):
+            got = imread(path, anydepth=mode == "anydepth")
+            digest = hashlib.sha256(np.ascontiguousarray(got).tobytes())
+            check(digest.hexdigest() == want[mode]["sha256"]
+                  and list(got.shape) == want[mode]["shape"],
+                  f"phase 14: {name} ({mode}) is not cv2.imread's array")
+        out[name] = dict(bytes=want["bytes"], decode_ms=host_ms(
+            lambda _: imread(path), range(10)))
+    return out
+
+
+def refusals_14(root: Path) -> dict:
+    """Sun raster files OpenCV 5.0 returns None for (its header check
+    refuses the byte-encoded and RGB-order types): ValueError, timed."""
+    img = render_sequence(SEED + 18, 1, 48, 64, TUM_FR1, 0.02, 0.004)[0][0]
+    out = {}
+    for name, data in (("Sun raster byte-encoded", sunras.encode_sunras(
+            img[..., 0], kind=sunras.RT_BYTE_ENCODED)),
+                       ("Sun raster RGB order", sunras.encode_sunras(
+                           img, kind=sunras.RT_FORMAT_RGB))):
+        path = root / "refused.ras"
+        path.write_bytes(data)
+        t_start = time.perf_counter()
+        try:
+            imread(str(path))
+            fail(f"phase 14: {name} read; OpenCV refuses it")
+        except ValueError:
+            pass
+        out[name] = dict(refused=True, ms=1e3 * (time.perf_counter() -
+                                                 t_start))
+    return out
+
+
+def phase_14(dev, kernels: dict) -> dict:
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        report = dict(codecs=phase_format_codecs(root, formats_14_cases(),
+                                                 14))
+        report["committed_webp"] = phase_committed_webp()
+        report["refused"] = refusals_14(root)
+        runs = phase_format_track(
+            dev, kernels, root / "tum", n_frames=PHASE_14_FRAMES,
+            seed=SEED + 19, phase=14,
+            pairs=(("webp", "hdr"), ("png", "rgbe-tiff")),
+            key="launches_formats_14")
+    webp_run, png_run = runs.values()
+    for name in ("k1_launches_track", "k2_launches_track"):
+        check(webp_run[name] == png_run[name],
+              f"phase 14: {name} {webp_run[name]} (WebP + HDR) != "
+              f"{png_run[name]} (PNG + TIFF)")
+    report["tum"] = runs
+    report["seconds"] = time.perf_counter() - t_start
+    return report
+
+
+def print_phase_14(report: dict) -> None:
+    codecs = ", ".join(f"{k} {v['decode_ms']:.2f}" for k, v in
+                       {**report["codecs"],
+                        **report["committed_webp"]}.items())
+    tum = "; ".join(
+        f"{k}: fed {v['feed_ms']:.2f} ms per frame, {v['keyframes']} "
+        f"keyframes, {v['ms_per_keyframe_median']:.1f} ms per keyframe "
+        f"update, K1 {v['k1_launches']} / K2 {v['k2_launches']} launches "
+        f"(track {v['k1_launches_track']} / {v['k2_launches_track']})"
+        for k, v in report["tum"].items())
+    print(f"phase 14: host decode ms at 480 x 640 (committed WebP files at "
+          f"their sizes): {codecs}; TUM RGB-D at 384 x 512, equal frames and "
+          f"depth from both streams: {tum}; {report['seconds']:.0f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke run needs an NVIDIA GPU")
@@ -2946,16 +3075,20 @@ def main():
     torch.cuda.empty_cache()
     formats_13 = phase_13(dev, kernels)
     print_phase_13(formats_13)
+    torch.cuda.empty_cache()
+    formats_14 = phase_14(dev, kernels)
+    print_phase_14(formats_14)
     # launches on the main path: K1 bf16 and K2 over track() +
     # terminate(), phase 8's entry points, phase 10's JPEG runs and phases
-    # 12 and 13's TUM tracks, K2 also over phase 7's sharded backend pass,
-    # K1 fp32 operands over phase 6's track()
+    # 12, 13 and 14's TUM tracks, K2 also over phase 7's sharded backend
+    # pass, K1 fp32 operands over phase 6's track()
     for name in ("masked_corr_level0_tc", "fused_pyramid_lookup"):
         k = kernels[name]
         k["launches"] = k["launches_track"] + k["launches_terminate"] + \
             k.get("launches_sharded_backend", 0) + \
             k["launches_entry_points"] + k["launches_jpeg"] + \
-            k["launches_formats"] + k["launches_arith"]
+            k["launches_formats"] + k["launches_arith"] + \
+            k["launches_formats_14"]
     k = kernels["masked_corr_level0_tf32"]
     k["launches"] = k["launches_track_fp32"]
     for k in kernels.values():
@@ -2973,6 +3106,7 @@ def main():
     print(json.dumps({"oracle": oracle}))
     print(json.dumps({"formats": formats}))
     print(json.dumps({"formats_13": formats_13}))
+    print(json.dumps({"formats_14": formats_14}))
     print(json.dumps({"seconds": seconds}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -30,7 +30,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from lgu_slam_tpu_torch.data import pnm, tiff
+from lgu_slam_tpu_torch.data import gif, hdr, pnm, sunras, tiff, webp
 from lgu_slam_tpu_torch.data.image_io import encode_jpeg, encode_png, imwrite
 from lgu_slam_tpu_torch.data.synthetic import (
     SyntheticScene,
@@ -103,7 +103,20 @@ def _write_list(path, header, rows):
 
 # write_frame's kinds -> file extension
 FRAME_EXT = {"png": "png", "ppm": "ppm", "pgm": "pgm", "tiff": "tiff",
-             "pfm": "pfm", "jpg": "jpg", "arith-jpg": "jpg", "bigtiff": "tif"}
+             "pfm": "pfm", "jpg": "jpg", "arith-jpg": "jpg", "bigtiff": "tif",
+             "webp": "webp", "gif": "gif", "ras": "ras", "hdr": "hdr",
+             "rgbe-tiff": "tiff"}
+
+
+def gif_cube(bgr: np.ndarray) -> tuple:
+    """(indices, RGB palette) of BGR on the 6 x 6 x 6 colour cube: the GIF
+    that ``write_frame`` writes of a colour frame."""
+    levels = np.arange(6) * 51
+    q = (bgr.astype(np.int64) * 5 + 127) // 255  # nearest level per channel
+    idx = (q[..., 2] * 36 + q[..., 1] * 6 + q[..., 0]).astype(np.uint8)
+    r, g, b = np.meshgrid(levels, levels, levels, indexing="ij")
+    palette = np.stack([r.ravel(), g.ravel(), b.ravel()], -1)
+    return idx, palette.astype(np.uint8)
 
 
 def write_frame(path, image, kind: str) -> str:
@@ -111,11 +124,15 @@ def write_frame(path, image, kind: str) -> str:
     (:data:`FRAME_EXT`), the way a dataset of that format stores it;
     returns the file's path.  Colour (``uint8 [H, W, 3]``): ``png``,
     ``ppm`` (binary P6), ``jpg`` (baseline Huffman JPEG at cv2.imwrite's
-    defaults) or ``arith-jpg`` (the same coefficients arithmetic-coded);
-    depth (``uint16 [H, W]``): ``png``, ``pgm`` (binary 16-bit P5), or the
-    same values as ``float32`` in ``tiff`` (Deflate, floating-point
-    predictor) or ``pfm``, or as ``float64`` in ``bigtiff`` (a BigTIFF,
-    Deflate, floating-point predictor)."""
+    defaults), ``arith-jpg`` (the same coefficients arithmetic-coded),
+    ``webp`` (lossless: ``webp.encode_webp_lossless``), ``gif`` (on the
+    colour cube of :func:`gif_cube`) or ``ras`` (24-bit Sun raster); depth
+    (``uint16 [H, W]``): ``png``, ``pgm`` (binary 16-bit P5), or the same
+    values as ``float32`` in ``tiff`` (Deflate, floating-point predictor)
+    or ``pfm``, or as ``float64`` in ``bigtiff`` (a BigTIFF, Deflate,
+    floating-point predictor), or as gray Radiance ``hdr`` (run-length
+    RGBE, which rounds them to 8-bit mantissas), or ``rgbe-tiff``: the
+    values that ``hdr`` file reads back as, in a float32 ``tiff``."""
     path = f"{path}.{FRAME_EXT[kind]}" if kind in FRAME_EXT else path
     if kind == "png":
         data = encode_png(image)
@@ -130,6 +147,18 @@ def write_frame(path, image, kind: str) -> str:
                                 bigtiff=True)
     elif kind == "pfm":
         data = pnm.encode_pfm(image.astype(np.float32))
+    elif kind == "webp":
+        data = webp.encode_webp_lossless(image)
+    elif kind == "gif":
+        idx, palette = gif_cube(image)
+        data = gif.encode_gif([idx], palette=palette)
+    elif kind == "ras":
+        data = sunras.encode_sunras(image)
+    elif kind == "hdr":
+        data = hdr.encode_hdr(np.repeat(image.astype(np.float32)[..., None],
+                                        3, -1))
+    elif kind == "rgbe-tiff":
+        data = tiff.encode_tiff(hdr.depth_values(image), "deflate", 3)
     else:
         raise ValueError(f"no fixture format {kind!r}")
     with open(path, "wb") as fh:

@@ -8,17 +8,20 @@ does (:func:`sniff`), whatever the file's name, and returns what
 
 - ``imread(path)``: ``uint8 [H, W, 3]``, BGR for every format but P7 RGB
   (kept in the file's order, as OpenCV keeps it); gray comes back as three
-  equal channels, alpha is dropped, and 16-bit samples become 8-bit by
-  each reader's own rule (PNG, PNM, PAM and 16-bit gray TIFF keep the high
-  byte; 16-bit colour TIFF rounds ``x / 257``);
+  equal channels, alpha is dropped (WebP and GIF: not composited), and
+  16-bit samples become 8-bit by each reader's own rule (PNG, PNM, PAM and
+  16-bit gray TIFF keep the high byte; 16-bit colour TIFF rounds
+  ``x / 257``); Radiance HDR's floats become ``saturate(round(255 f))``;
 - ``imread(path, anydepth=True)`` (``cv2.IMREAD_ANYDEPTH``): one channel,
-  ``uint16`` for 16-bit PNG, TIFF, PNM and PAM, ``float32`` for float TIFF
-  and PFM, TIFF's own dtype for its other samples (``int8``, ``int16``,
-  ``uint32``, ``int32``, ``uint64``, ``int64``, ``float64``), ``uint8``
-  otherwise; colour converts to gray as each reader converts it (libpng's
-  ``rgb_to_gray`` for PNG, libjpeg's ``JCS_GRAYSCALE`` output for JPEG,
-  OpenCV's own ``(4899 R + 9617 G + 1868 B + 8192) >> 14`` for BMP, TIFF,
-  PNM and PAM).
+  ``uint16`` for 16-bit PNG, TIFF, PNM and PAM, ``float32`` for float TIFF,
+  PFM and Radiance HDR, TIFF's own dtype for its other samples (``int8``,
+  ``int16``, ``uint32``, ``int32``, ``uint64``, ``int64``, ``float64``),
+  ``uint8`` otherwise; colour converts to gray as each reader converts it
+  (libpng's ``rgb_to_gray`` for PNG, libjpeg's ``JCS_GRAYSCALE`` output
+  for JPEG, OpenCV's own ``(4899 R + 9617 G + 1868 B + 8192) >> 14`` for
+  BMP, TIFF, PNM, PAM and Sun raster, ``cvtColor``'s ``(9798 R + 19235 G +
+  3735 B + 16384) >> 15`` for WebP and GIF, ``cvtColor``'s float gray for
+  HDR).
 
 The formats, their decoders and what each reads:
 
@@ -39,17 +42,31 @@ The formats, their decoders and what each reads:
   byte orders, planar 1 and 2, none / LZW / Deflate / PackBits with their
   predictors and JPEG, orientations 1-4, 1-, 8- and 16-bit gray, RGB and
   RGBA, 8-bit palette, signed and 32/64-bit integer and float samples;
-- PBM / PGM / PPM, PAM and PFM (``data/pnm.py``).
+- PBM / PGM / PPM, PAM and PFM (``data/pnm.py``);
+- WebP (``data/webp.py``; VP8L, VP8 and ALPH in C,
+  ``csrc/host/webp_decode.c``): lossless and lossy, simple and extended
+  (VP8X, ALPH, ICCP / EXIF / XMP) files and animations (frame 0 on its
+  canvas), bare VP8 / VP8L bitstreams;
+- GIF (``data/gif.py``; LZW in C, ``csrc/host/gif_lzw.c``): GIF87a and
+  GIF89a, global and local tables, interlacing, transparency, frame 0 on
+  the background colour;
+- Radiance HDR (``data/hdr.py``; scanlines in C,
+  ``csrc/host/hdr_rgbe.c``): RGBE, new-style run-length and flat
+  scanlines;
+- Sun raster (``data/sunras.py``): depths 1, 8, 24 and 32, old and
+  standard types, colour maps.
 
 A file ``cv2.imread`` returns None for raises ``ValueError``, decided
-where each decoder decides it (the C JPEG decoder, ``tiff.py``), so a
-file reached by any path gets the same class.  A format this OpenCV
-build reads and the port does not yet read raises ``NotImplementedError``
-naming it: WebP, JPEG 2000, AVIF, GIF, Sun raster, Radiance HDR, and
-within the formats above what each decoder lists.  The encoders (:func:`encode_png`, :func:`encode_jpeg`,
-:func:`encode_bmp`, ``tiff.encode_tiff``, ``pnm.encode_pnm`` /
-``encode_pam`` / ``encode_pfm``) write fixtures of the modes the decoders
-read.
+where each decoder decides it (the C decoders, ``tiff.py``, ``webp.py``,
+...), so a file reached by any path gets the same class.  A format this
+OpenCV build reads and the port does not yet read raises
+``NotImplementedError`` naming it: JPEG 2000 and AVIF, and within the
+formats above what each decoder lists (TIFF's).  The encoders
+(:func:`encode_png`, :func:`encode_jpeg`, :func:`encode_bmp`,
+``tiff.encode_tiff``, ``pnm.encode_pnm`` / ``encode_pam`` /
+``encode_pfm``, ``webp.encode_webp_lossless``, ``gif.encode_gif``,
+``hdr.encode_hdr``, ``sunras.encode_sunras``) write fixtures of the modes
+the decoders read.
 """
 
 from __future__ import annotations
@@ -61,7 +78,7 @@ import zlib
 
 import numpy as np
 
-from lgu_slam_tpu_torch.data import pnm, tiff
+from lgu_slam_tpu_torch.data import gif, hdr, pnm, sunras, tiff, webp
 from lgu_slam_tpu_torch.ops import _build
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -194,26 +211,32 @@ def png_gray(px: np.ndarray) -> np.ndarray:
 
 # signatures of the formats this OpenCV build reads and the port does not
 # yet read: cv2.imread picks its decoder by them, whatever the file's name
-QUEUED = ((b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"),
-          (b"\x59\xa6\x6a\x95", "Sun raster"), (b"GIF87a", "GIF"),
-          (b"GIF89a", "GIF"),
-          (b"\0\0\0\x0cjP  \r\n\x87\n", "JPEG 2000 (JP2)"),
+QUEUED = ((b"\0\0\0\x0cjP  \r\n\x87\n", "JPEG 2000 (JP2)"),
           (b"\xff\x4f\xff\x51", "JPEG 2000 (codestream)"))
 
 
 def sniff(data: bytes) -> str:
     """The decoder ``cv2.imread`` picks for ``data``, by its signature
-    (OpenCV 5.0's registration order): ``bmp``, ``jpeg``, ``pnm``, ``pfm``,
-    ``tiff``, ``png`` or ``pam``; a format this build of OpenCV reads and
-    the port does not yet read raises ``NotImplementedError`` naming it;
-    anything else ``ValueError`` (cv2.imread returns None)."""
+    (OpenCV 5.0's registration order: BMP, HDR, JPEG, WebP, Sun raster,
+    PNM / PFM, TIFF, PNG, GIF, PAM): ``bmp``, ``hdr``, ``jpeg``, ``webp``
+    (``#?RGBE`` / ``#?RADIANCE``; libwebp's header check of the first 32
+    bytes, which also takes a bare VP8 or VP8L bitstream), ``sunras``,
+    ``pnm``, ``pfm``, ``tiff``, ``png``, ``gif`` (``GIF8``: the decoder
+    then takes only GIF87a and GIF89a) or ``pam``; a format this build of
+    OpenCV reads and the port does not yet read (JPEG 2000, AVIF) raises
+    ``NotImplementedError`` naming it; anything else ``ValueError``
+    (cv2.imread returns None)."""
     head = data[:32]
     if head.startswith(BMP_MAGIC):
         return "bmp"
+    if head.startswith(hdr.SIGNATURES):
+        return "hdr"
     if head.startswith(JPEG_SOI):
         return "jpeg"
-    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
-        raise NotImplementedError("WebP")
+    if webp.is_webp(data):
+        return "webp"
+    if head.startswith(sunras.MAGIC):
+        return "sunras"
     if len(head) >= 3 and head[0] == 0x50 and head[2] in pnm.SPACE:
         if 0x31 <= head[1] <= 0x36:
             return "pnm"
@@ -228,6 +251,8 @@ def sniff(data: bytes) -> str:
     if head[4:8] == b"ftyp" and (b"avif" in data[8:64] or
                                   b"avis" in data[8:64]):
         raise NotImplementedError("AVIF")
+    if head[:4] == b"GIF8":
+        return "gif"
     for sig, name in QUEUED:
         if head.startswith(sig):
             raise NotImplementedError(name)
@@ -239,8 +264,9 @@ def imread(path, anydepth: bool = False) -> np.ndarray:
     cv2.IMREAD_ANYDEPTH)``, for the formats of the module docstring, picked
     by the file's signature as OpenCV picks them: ``uint8 [H, W, 3]`` BGR,
     or with ``anydepth`` ``[H, W]`` of ``uint8``, ``uint16``, ``float32``
-    or, for TIFF, the samples' own dtype (``int8``, ``int16``, ``uint32``,
-    ``int32``, ``uint64``, ``int64``, ``float64``).  A missing file raises
+    (float TIFF, PFM, HDR) or, for TIFF, the samples' own dtype (``int8``,
+    ``int16``, ``uint32``, ``int32``, ``uint64``, ``int64``,
+    ``float64``).  A missing file raises
     ``FileNotFoundError``; a file OpenCV returns None for, ``ValueError``;
     a format OpenCV reads and the port does not yet read,
     ``NotImplementedError`` naming it (never to be taken for None)."""
@@ -250,18 +276,8 @@ def imread(path, anydepth: bool = False) -> np.ndarray:
         kind = sniff(data)
     except (NotImplementedError, ValueError) as e:
         raise type(e)(f"{path}: {e}") from None
-    if kind == "jpeg":
-        return decode_jpeg(data, path, gray=anydepth)
-    if kind == "bmp":
-        return decode_bmp(data, path, gray=anydepth)
-    if kind == "pnm":
-        return pnm.decode_pnm(data, path, gray=anydepth)
-    if kind == "pfm":
-        return pnm.decode_pfm(data, path, gray=anydepth)
-    if kind == "pam":
-        return pnm.decode_pam(data, path, gray=anydepth)
-    if kind == "tiff":
-        return tiff.decode_tiff(data, path, gray=anydepth)
+    if kind != "png":
+        return DECODERS[kind](data, path, gray=anydepth)
     px = decode_png(data, path)
     if px.shape[-1] in (2, 4):  # alpha is dropped (png_set_strip_alpha)
         px = px[..., :-1]
@@ -1503,3 +1519,11 @@ def encode_jpeg(img: np.ndarray, quality: int = 95, subsampling: str = "420",
         out += [_segment(0xDA, sos), data]
     out.append(b"\xff\xd9")
     return b"".join(out)
+
+
+# imread's decoder of each sniff kind but PNG, whose result imread adjusts
+DECODERS = {"jpeg": decode_jpeg, "bmp": decode_bmp, "pnm": pnm.decode_pnm,
+            "pfm": pnm.decode_pfm, "pam": pnm.decode_pam,
+            "tiff": tiff.decode_tiff, "webp": webp.decode_webp,
+            "gif": gif.decode_gif, "hdr": hdr.decode_hdr,
+            "sunras": sunras.decode_sunras}

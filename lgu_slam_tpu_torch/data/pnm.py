@@ -62,6 +62,14 @@ def gray14(rgb: np.ndarray) -> np.ndarray:
     return ((4899 * r + 9617 * g + 1868 * b + 8192) >> 14).astype(rgb.dtype)
 
 
+def cvt_gray(bgr: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(bgr, cv2.COLOR_BGR2GRAY)`` of ``uint8`` B, G, R(, A)
+    samples (last axis), the gray the WebP and GIF readers return:
+    ``(3735 B + 19235 G + 9798 R + 16384) >> 15``."""
+    b, g, r = (bgr[..., c].astype(np.int64) for c in range(3))
+    return ((3735 * b + 19235 * g + 9798 * r + 16384) >> 15).astype(np.uint8)
+
+
 class _Stream:
     """OpenCV's byte stream: reading past the end is an error."""
 

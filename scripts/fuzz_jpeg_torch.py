@@ -1,17 +1,20 @@
 #!/usr/bin/env python
 """Memory-safety check of the port's host decoders in C: the JPEG decoder
 (``csrc/host/jpeg_decode.c``), the TIFF LZW / PackBits decoders and
-predictors (``csrc/host/tiff_lzw.c``) and the BMP RLE decoder
-(``csrc/host/bmp_rle.c``).  Builds each with AddressSanitizer and
-UndefinedBehavior Sanitizer beside a small C harness, then decodes every
-truncation of a few seed streams and ``--mutations`` copies of each with
-1-4 random bytes overwritten (JPEG: to the colour and to the gray output;
-TIFF: into strips of the seed's size and of a random one, then both
-predictors over the output; RLE: as RLE8 and RLE4 at the seed's size and
-a random one).  Any out-of-bounds access or undefined behaviour aborts
-the harness; otherwise it prints, per decoder, how many inputs decoded
-(JPEG: in each of the four output colour spaces, BGR, gray, YCbCr to RGB
-and as stored) or were refused as corrupt.
+predictors (``csrc/host/tiff_lzw.c``), the BMP RLE decoder
+(``csrc/host/bmp_rle.c``), the WebP decoders (``csrc/host/webp_decode.c``:
+VP8L, VP8, ALPH), the GIF LZW decoder (``csrc/host/gif_lzw.c``) and the
+Radiance HDR scanline reader and float gray (``csrc/host/hdr_rgbe.c``).
+Builds each with AddressSanitizer and UndefinedBehavior Sanitizer beside a
+small C harness, then decodes every truncation of a few seed streams and
+``--mutations`` copies of each with 1-4 random bytes overwritten (JPEG:
+to the colour and to the gray output; TIFF: into strips of the seed's
+size and of a random one, then both predictors over the output; RLE: as
+RLE8 and RLE4 at the seed's size and a random one; WebP, GIF and HDR: at
+the seed's image size and a random one).  Any out-of-bounds access or
+undefined behaviour aborts the harness; otherwise it prints, per decoder,
+how many inputs decoded (JPEG: in each of the four output colour spaces,
+BGR, gray, YCbCr to RGB and as stored) or were refused as corrupt.
 
     python scripts/fuzz_jpeg_torch.py [--mutations 20000] [--seed 1]
 
@@ -25,8 +28,14 @@ markers out of order, bytes before a marker); ``--files`` adds others
 (progressive Huffman files, whose truncations drive the block smoothing,
 say).  The TIFF seeds are the LZW and PackBits strips of the port's TIFF
 encoder, among them a BigTIFF's float64 strip (its predictors on 8-byte
-samples), the RLE seeds its RLE8 and RLE4 data.  Needs a C compiler with
-the sanitizers (gcc or clang); runs on the host only.
+samples), the RLE seeds its RLE8 and RLE4 data.  The WebP seeds are the
+bitstreams of the port's lossless encoder (subtract-green, predictor,
+colour cache; with alpha) and of the committed libwebp files of
+``tests/data/webp`` (the lossy frame's VP8 and ALPH of
+``lossy_alpha.webp``, the VP8L of ``lossless_alpha.webp``), the GIF seeds
+the LZW data of the port's encoder at minimum code sizes 2, 4 and 8, the
+HDR seeds run-length and flat pixel data.  Needs a C compiler with the
+sanitizers (gcc or clang); runs on the host only.
 """
 
 from __future__ import annotations
@@ -52,7 +61,129 @@ from lgu_slam_tpu_torch.data.tiff import (  # noqa: E402
     lzw_encode,
     packbits_encode,
 )
+from lgu_slam_tpu_torch.data import gif, hdr, webp  # noqa: E402
 from lgu_slam_tpu_torch.ops._build import CSRC, _cc  # noqa: E402
+
+REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+
+# the common loop of the harnesses below: every truncation of each seed,
+# then `mutations` copies with 1-4 bytes overwritten; DECODE(d, m, it) is
+# the harness's call on the m bytes at d (`it` odd: a random image size)
+LOOP = r"""
+#include <stdint.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+static uint8_t *load(const char *path, long *n)
+{
+    FILE *fp = fopen(path, "rb");
+    uint8_t *base;
+    fseek(fp, 0, SEEK_END);
+    *n = ftell(fp);
+    fseek(fp, 0, SEEK_SET);
+    base = malloc((size_t)(*n > 0 ? *n : 1));
+    if (fread(base, 1, (size_t)*n, fp) != (size_t)*n)
+        exit(2);
+    fclose(fp);
+    return base;
+}
+#define FOR_EACH_INPUT(base, n, mutations, BODY)                         \
+    for (long it = 0; it < (n) + (mutations); it++) {                    \
+        long m = it < (n) ? it : (n);                                    \
+        uint8_t *d = malloc((size_t)(m > 0 ? m : 1));                    \
+        memcpy(d, base, (size_t)m);                                      \
+        if (it >= (n))                                                   \
+            for (int k = 1 + rand() % 4; k > 0; k--)                     \
+                d[rand() % m] = (uint8_t)rand();                         \
+        BODY;                                                            \
+        free(d);                                                         \
+    }
+"""
+
+WEBP_HARNESS = LOOP + r"""
+int webp_vp8l_decode(const uint8_t *, int64_t, int64_t, int64_t,
+                     uint32_t *);
+int webp_vp8_decode(const uint8_t *, int64_t, int64_t, int64_t, uint8_t *);
+int webp_alpha_decode(const uint8_t *, int64_t, int64_t, int64_t,
+                      uint8_t *);
+int main(int argc, char **argv)
+{
+    long mutations = atol(argv[1]), counts[4] = {0};
+    srand((unsigned)atoi(argv[2]));
+    for (int f = 3; f + 3 < argc; f += 4) {
+        long n, W = atol(argv[f + 2]), H = atol(argv[f + 3]);
+        uint8_t *base = load(argv[f], &n);
+        char kind = argv[f + 1][0];
+        FOR_EACH_INPUT(base, n, mutations, {
+            int64_t w = it & 1 ? 1 + rand() % 64 : W;
+            int64_t h = it & 1 ? 1 + rand() % 64 : H;
+            uint8_t *o = malloc((size_t)(w * h * 4));
+            int st = kind == 'l' ? webp_vp8l_decode(d, m, w, h, (uint32_t *)o)
+                   : kind == 'v' ? webp_vp8_decode(d, m, w, h, o)
+                                 : webp_alpha_decode(d, m, w, h, o);
+            counts[st]++;
+            free(o);
+        })
+        free(base);
+    }
+    printf("{\"decoded\": %ld, \"corrupt\": %ld, \"out_of_memory\": "
+           "%ld}\n", counts[0], counts[1], counts[3]);
+    return 0;
+}
+"""
+
+GIF_HARNESS = LOOP + r"""
+int gif_lzw_decode(const uint8_t *, int64_t, int, int64_t, uint8_t *);
+int main(int argc, char **argv)
+{
+    long mutations = atol(argv[1]), counts[2] = {0};
+    srand((unsigned)atoi(argv[2]));
+    for (int f = 3; f + 2 < argc; f += 3) {
+        long n, npix0 = atol(argv[f + 2]);
+        int mcs0 = atoi(argv[f + 1]);
+        uint8_t *base = load(argv[f], &n);
+        FOR_EACH_INPUT(base, n, mutations, {
+            int64_t npix = it & 1 ? 1 + rand() % (2 * npix0) : npix0;
+            int mcs = it & 2 ? rand() % 13 : mcs0;
+            uint8_t *o = malloc((size_t)npix);
+            counts[gif_lzw_decode(d, m, mcs, npix, o)]++;
+            free(o);
+        })
+        free(base);
+    }
+    printf("{\"decoded\": %ld, \"corrupt\": %ld}\n", counts[0], counts[1]);
+    return 0;
+}
+"""
+
+HDR_HARNESS = LOOP + r"""
+int hdr_read_pixels(const uint8_t *, int64_t, int64_t, int64_t, float *);
+void hdr_gray(const float *, int64_t, int64_t, float *);
+int main(int argc, char **argv)
+{
+    long mutations = atol(argv[1]), counts[4] = {0};
+    srand((unsigned)atoi(argv[2]));
+    for (int f = 3; f + 2 < argc; f += 3) {
+        long n, W = atol(argv[f + 1]), H = atol(argv[f + 2]);
+        uint8_t *base = load(argv[f], &n);
+        FOR_EACH_INPUT(base, n, mutations, {
+            int64_t w = it & 1 ? 1 + rand() % 64 : W;
+            int64_t h = it & 1 ? 1 + rand() % 16 : H;
+            float *o = malloc(sizeof(float) * (size_t)(w * h * 3));
+            float *g = malloc(sizeof(float) * (size_t)(w * h));
+            int st = hdr_read_pixels(d, m, w, h, o);
+            if (st == 0)
+                hdr_gray(o, h, w, g);
+            counts[st]++;
+            free(o);
+            free(g);
+        })
+        free(base);
+    }
+    printf("{\"decoded\": %ld, \"corrupt\": %ld}\n", counts[0], counts[1]);
+    return 0;
+}
+"""
 
 HARNESS = r"""
 #include <stdint.h>
@@ -279,6 +410,50 @@ def rle_seeds(rng) -> list:
     return [(_rle_rows(idx, False), 30, 12), (_rle_rows(idx, True), 30, 12)]
 
 
+def webp_seeds(rng) -> list:
+    """(bitstream, kind: l VP8L / v VP8 / a ALPH, width, height)."""
+    im = rng.integers(0, 256, (13, 21, 4), np.uint8)
+    im[:, 10:] = im[:, 10:11]
+    out = []
+    for img, cache in ((im[..., :3], 6), (im, 0), (im[..., :3] // 64, 3)):
+        data = webp.encode_webp_lossless(img, cache)
+        f = webp.parse_headers(data, True, True)
+        out.append((data[f["offset"]:], "l", f["width"], f["height"]))
+    for name in ("lossy_alpha.webp", "lossless_alpha.webp"):
+        with open(os.path.join(REPO, "tests", "data", "webp", name),
+                  "rb") as fh:
+            data = fh.read()
+        f = webp.parse_headers(data, True, True)
+        W, H = f["width"], f["height"]
+        out.append((data[f["offset"]:], "l" if f["lossless"] else "v", W,
+                    H))
+        if f["alpha"] is not None:
+            start, size = f["alpha"]
+            out.append((data[start:start + size], "a", W, H))
+    out.append((bytes([0]) + im[..., 3].tobytes(), "a", 21, 13))
+    return out
+
+
+def gif_seeds(rng) -> list:
+    """(LZW data, minimum code size, pixels)."""
+    out = []
+    for mcs in (2, 4, 8):
+        idx = rng.integers(0, 1 << mcs, (9, 17), np.uint8)
+        idx[:, 8:] = idx[:, 8:9]
+        out.append((gif._lzw(idx.ravel(), mcs), mcs, idx.size))
+    return out
+
+
+def hdr_seeds(rng) -> list:
+    """(pixel data, width, height): run-length and flat scanlines."""
+    f = (rng.random((4, 19, 3)) * 3).astype(np.float32)
+    out = []
+    for rle in ("new", "flat"):
+        data = hdr.encode_hdr(f, rle=rle)
+        out.append((data[hdr.header(data)[2]:], 19, 4))
+    return out
+
+
 def _run(tmp, name, harness, sources, args, mutations, seed) -> str:
     """Build ``harness`` with ``sources`` under the sanitizers and run it
     on ``args`` (files and their parameters)."""
@@ -288,7 +463,8 @@ def _run(tmp, name, harness, sources, args, mutations, seed) -> str:
     exe = os.path.join(tmp, name)
     subprocess.run([_cc(), "-O1", "-g", "-fsanitize=address,undefined",
                     "-fno-sanitize-recover=all", "-o", exe, path,
-                    *[str(CSRC / "host" / s) for s in sources]], check=True)
+                    *[str(CSRC / "host" / s) for s in sources], "-lm"],
+                   check=True)
     out = subprocess.run([exe, str(mutations), str(seed), *args],
                          capture_output=True, text=True)
     if out.returncode != 0:
@@ -326,6 +502,21 @@ def main(argv=None) -> str:
                            tiff_args, args.mutations, args.seed),
             "bmp_rle " + _run(tmp, "fuzz_rle", RLE_HARNESS, ["bmp_rle.c"],
                               rle_args, args.mutations, args.seed)]
+        webp_args, gif_args, hdr_args = [], [], []
+        for k, (data, kind, w, h) in enumerate(webp_seeds(rng)):
+            webp_args += [write(f"webp{k}", data), kind, str(w), str(h)]
+        for k, (data, mcs, npix) in enumerate(gif_seeds(rng)):
+            gif_args += [write(f"gif{k}", data), str(mcs), str(npix)]
+        for k, (data, w, h) in enumerate(hdr_seeds(rng)):
+            hdr_args += [write(f"hdr{k}", data), str(w), str(h)]
+        lines += [
+            "webp " + _run(tmp, "fuzz_webp", WEBP_HARNESS,
+                           ["webp_decode.c"], webp_args, args.mutations,
+                           args.seed),
+            "gif " + _run(tmp, "fuzz_gif", GIF_HARNESS, ["gif_lzw.c"],
+                          gif_args, args.mutations, args.seed),
+            "hdr " + _run(tmp, "fuzz_hdr", HDR_HARNESS, ["hdr_rgbe.c"],
+                          hdr_args, args.mutations, args.seed)]
     out = "\n".join(lines)
     print(out)
     return out

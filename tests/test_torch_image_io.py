@@ -121,25 +121,24 @@ def _patch_ihdr(png: bytes, offset: int, value: int) -> bytes:
 
 
 def test_what_the_port_does_not_read_raises(tmp_path):
-    """The formats cv2 reads here that the port does not read yet (WebP,
-    JPEG 2000 as JP2 and as a codestream, AVIF, GIF, Radiance HDR, Sun
-    raster; each written by cv2.imwrite and read back by cv2.imread):
-    NotImplementedError naming the format, whatever the file's extension;
-    a signature no decoder of cv2's claims, and an empty file: ValueError
-    (cv2 returns None); imwrite writes PNG and JPEG only.  The files the
-    port's first decoders refused and now reads (TIFF, RLE-compressed and
-    16-bit BMPs, a header patched to OS/2's size) read as cv2 reads them;
-    a PNG whose header names a palette but holds no PLTE, Adam7 passes
-    that the data does not hold, or a bit depth its colour type does not
-    allow: ValueError; a missing file: FileNotFoundError (OpenCV returns
-    None)."""
+    """The formats this OpenCV build reads that the port does not read
+    yet (JPEG 2000 as JP2 and as a codestream, AVIF; each written by
+    cv2.imwrite and read back by cv2.imread): NotImplementedError naming
+    the format, whatever the file's extension; a signature no decoder of
+    cv2's claims, and an empty file: ValueError (cv2 returns None);
+    imwrite writes PNG and JPEG only.  The files the port's first decoders refused and now
+    reads (TIFF, RLE-compressed and 16-bit BMPs, a header patched to OS/2's
+    size) read as cv2 reads them; a PNG whose header names a palette but
+    holds no PLTE, Adam7 passes that the data does not hold, or a bit depth
+    its colour type does not allow: ValueError; a missing file:
+    FileNotFoundError (OpenCV returns None).  (WebP, GIF, Radiance HDR and
+    Sun raster read now: tests/test_torch_webp.py, test_torch_gif.py,
+    test_torch_hdr_sunras.py.)"""
     im = np.random.default_rng(3).integers(0, 256, (64, 64, 3), np.uint8)
-    formats = {".webp": "WebP", ".jp2": "JPEG 2000", ".avif": "AVIF",
-               ".gif": "GIF", ".hdr": "Radiance HDR", ".ras": "Sun raster"}
+    formats = {".jp2": "JPEG 2000", ".avif": "AVIF"}
     for ext, name in formats.items():
         other = str(tmp_path / f"a{ext}")
-        src = im.astype(np.float32) / 255 if ext == ".hdr" else im
-        assert cv2.imwrite(other, src) and cv2.imread(other) is not None
+        assert cv2.imwrite(other, im) and cv2.imread(other) is not None
         for path in (other, other + ".png"):
             os.replace(other if path != other else other, path)
             with pytest.raises(NotImplementedError, match=name):
@@ -641,9 +640,9 @@ CLASSES = {
     "tiff_format_4_8": ("none", "none"),  # void
     "tiff_format_3_16": ("none", "none"),  # float16
     "tiff_format_5_32": ("none", "none"),  # complex integer
+    **{k: ("read", "read") for k in ("webp", "gif", "hdr", "sun_raster")},
     # cv2 returns memory it never wrote for an alpha PAM
-    **{k: ("queued", "queued") for k in ("webp", "jp2", "avif", "gif",
-                                         "hdr", "sun_raster", "pam_alpha")},
+    **{k: ("queued", "queued") for k in ("jp2", "avif", "pam_alpha")},
 }
 
 

@@ -169,22 +169,111 @@ def test_euroc_stream_skips_what_cv2_returns_none_for(kind, tmp_path):
 
 
 def test_euroc_stream_raises_on_a_format_it_cannot_read(tmp_path):
-    """A left image stored as WebP, which cv2.imread reads: the JAX stream
-    tracks all 4 frames; the port's stream raises NotImplementedError
-    naming the format instead of dropping the frame."""
+    """A left image stored as AVIF, which cv2.imread reads and the port
+    does not yet: the JAX stream tracks all 4 frames; the port's stream
+    raises NotImplementedError naming the format instead of dropping the
+    frame."""
     import cv2
 
     root = fixtures.write_euroc_sequence(str(tmp_path / "MH_01_easy"),
                                          n_frames=4)
     left = os.path.join(root, "mav0", "cam0", "data")
     name = os.path.join(left, sorted(os.listdir(left))[1])
-    ok, buf = cv2.imencode(".webp", cv2.imread(name))
+    ok, buf = cv2.imencode(".avif", cv2.imread(name))
     assert ok
     with open(name, "wb") as fh:
         fh.write(buf.tobytes())
     assert len(list(jstreams.euroc_stereo_stream(root))) == 4
-    with pytest.raises(NotImplementedError, match="WebP"):
+    with pytest.raises(NotImplementedError, match="AVIF"):
         list(tstreams.euroc_stereo_stream(root))
+
+
+@pytest.mark.parametrize("fmt", ["webp", "webp_lossy"])
+def test_euroc_stream_reads_a_webp_left_image(fmt, tmp_path):
+    """A left image stored as WebP (the port's lossless encoder, or lossy
+    from cv2.imencode): the JAX stream and the port's yield the same 4
+    frames."""
+    import cv2
+
+    from lgu_slam_tpu_torch.data import webp
+
+    root = fixtures.write_euroc_sequence(str(tmp_path / "MH_01_easy"),
+                                         n_frames=4)
+    left = os.path.join(root, "mav0", "cam0", "data")
+    name = os.path.join(left, sorted(os.listdir(left))[1])
+    img = cv2.imread(name)
+    if fmt == "webp":
+        data = webp.encode_webp_lossless(img)
+    else:
+        data = cv2.imencode(".webp", img, [cv2.IMWRITE_WEBP_QUALITY, 70]
+                            )[1].tobytes()
+    with open(name, "wb") as fh:
+        fh.write(data)
+    items = _held(tstreams.euroc_stereo_stream(root),
+                  jstreams.euroc_stereo_stream(root))
+    assert len(items) == 4
+
+
+@pytest.mark.parametrize("fmt", ["webp", "gif", "ras"])
+def test_image_stream_over_new_formats_matches_jax(fmt, tmp_path):
+    """image_stream over a directory of lossless WebP, GIF (colour cube)
+    or Sun raster frames: the JAX stream and the port's yield the same
+    frames and intrinsics, with and without distortion."""
+    images = fixtures.render_sequence(5, 4, 60, 80, (70.0, 70.0, 40.0, 30.0),
+                                      t_step=0.05, r_step=0.01)[0]
+    os.makedirs(tmp_path / "rgb")
+    for k in range(len(images)):
+        fixtures.write_frame(str(tmp_path / "rgb" / f"{k:03d}"), images[k],
+                             fmt)
+    (tmp_path / "calib.txt").write_text(
+        "70.0 70.0 40.0 30.0 0.2624 -0.9531 -0.0054 0.0026 1.1633\n")
+    args = (str(tmp_path / "rgb"), str(tmp_path / "calib.txt"))
+    items = _held(tstreams.image_stream(*args, stride=1),
+                  jstreams.image_stream(*args, stride=1))
+    assert len(items) == 4
+
+
+@pytest.mark.parametrize("color", ["webp", "gif"])
+def test_rgbd_stream_over_hdr_depth_matches_jax(color, tmp_path):
+    """rgbd_stream over WebP or GIF colour with Radiance HDR depth (gray
+    RGBE, read as float32 with IMREAD_ANYDEPTH): the JAX stream and the
+    port's yield the same frames, depths and intrinsics exactly."""
+    images, depths, _, _ = fixtures.render_sequence(
+        5, 4, 60, 80, (70.0, 70.0, 40.0, 30.0), t_step=0.05, r_step=0.01)
+    for sub in ("rgb", "depth"):
+        os.makedirs(tmp_path / sub)
+    for k in range(len(images)):
+        fixtures.write_frame(str(tmp_path / "rgb" / f"{k:03d}"), images[k],
+                             color)
+        fixtures.write_frame(str(tmp_path / "depth" / f"{k:03d}"),
+                             (depths[k] * 1000).astype(np.uint16), "hdr")
+    (tmp_path / "calib.txt").write_text("70.0 70.0 40.0 30.0\n")
+    args = (str(tmp_path / "rgb"), str(tmp_path / "depth"),
+            str(tmp_path / "calib.txt"))
+    kw = dict(stride=1, target_pixels=3000)
+    items = _held(tstreams.rgbd_stream(*args, **kw),
+                  jstreams.rgbd_stream(*args, **kw))
+    assert len(items) == 4 and items[0][2].dtype == np.float32
+    assert items[0][2].max() > 0
+
+
+def test_tum_stream_webp_hdr_matches_jax(tmp_path):
+    """The TUM reader over an fr1 sequence of lossless WebP colour and HDR
+    depth: the port's stream equals the JAX one exactly, and equals the
+    port's own stream over PNG colour with the float32 TIFF of the values
+    the HDR files hold (chip_smoke.py phase 14's pair)."""
+    name = "rgbd_dataset_freiburg1_desk"
+    root = fixtures.write_tum_sequence(str(tmp_path / "webp" / name),
+                                       n_frames=3, color="webp",
+                                       depth="hdr")
+    png = fixtures.write_tum_sequence(str(tmp_path / "png" / name),
+                                      n_frames=3, depth="rgbe-tiff")
+    items = _held(tstreams.tum_rgbd_stream(root, stride=1),
+                  jstreams.tum_rgbd_stream(root, stride=1))
+    ref = list(tstreams.tum_rgbd_stream(png, stride=1))
+    for a, b in zip(items, ref):
+        for x, y in zip(a[1:], b[1:]):
+            np.testing.assert_array_equal(x, y)
 
 
 DEPTH_FORMATS = ["tiff", "pgm", "pfm"]

@@ -101,3 +101,22 @@ def same_as_cv2(path, modes=(False, True)):
         got = image_io.imread(str(path), anydepth=anydepth)
         assert got.dtype == ref.dtype and got.shape == ref.shape
         assert got.tobytes() == ref.tobytes()
+
+
+def damaged_same_as_cv2(data: bytes, tmp_path, mutations: int = 200,
+                        seed: int = 0, name: str = "damaged.img"):
+    """:func:`same_as_cv2` on every proper prefix of ``data`` and on
+    ``mutations`` copies with 1-3 seeded bytes replaced or bit-flipped."""
+    path = tmp_path / name
+    rng = np.random.default_rng(seed)
+    cases = [data[:k] for k in range(1, len(data))]
+    for _ in range(mutations):
+        d = bytearray(data)
+        for _ in range(int(rng.integers(1, 4))):
+            i = int(rng.integers(0, len(d)))
+            d[i] = int(rng.integers(0, 256)) if rng.random() < 0.5 else \
+                d[i] ^ (1 << int(rng.integers(0, 8)))
+        cases.append(bytes(d))
+    for case in cases:
+        path.write_bytes(case)
+        same_as_cv2(path)
