@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Fourteen phases; any failure exits non-zero.
+Fifteen phases; any failure exits non-zero.
 
 1. Build the CUDA kernels from ``lgu_slam_tpu_torch/csrc`` with nvcc for
    sm_90a, all at once (printing ptxas' register/shared-memory summary),
@@ -190,9 +190,24 @@ Fourteen phases; any failure exits non-zero.
    colour with float32 TIFF depth of the values the HDR files hold,
    tracked as in phase 12: both streams feed equal frames and depth, and
    ``track()`` makes equal K1 and K2 launches over them.
+15. The TIFF files the port reads since its CCITT, old-style LZW, extra
+   sample, CMYK, YCbCr, CIE L*a*b* and SGI LogL readers, on the card
+   machine's host: a rendered 480 x 640 frame and its depth through the
+   port's own encoders (Group 4 and Group 3 2-D, old-style LZW, gray with
+   alpha, CMYK, YCbCr 2 x 2, L*a*b*, LogL), each read back as written or
+   within its PSNR, and the committed files of libtiff's own encoders
+   (``tests/data/tiff``, from ``scripts/make_tiff_fixtures_torch.py``)
+   decoded to the SHA-256 of ``cv2.imread``'s arrays in both read modes;
+   the host's median decode ms of each; a 16-bit palette, 16-bit CMYK and
+   old-style JPEG refused as OpenCV refuses them.  A 16-frame TUM fr1
+   sequence written twice, uncompressed YCbCr TIFF colour with 16-bit LZW
+   TIFF depth and the PNG of the frames those TIFFs read as with 16-bit
+   PNG depth of the same values, tracked as in phase 12: both streams feed
+   equal frames and depth, ``track()`` makes equal K1 and K2 launches over
+   them, and the TIFF stream's host ms per fed frame against the PNG's.
 
 Before the last line it prints the tracking, terminate, training, fp32
-tracking, world-size-1, entry-point, 3DGS, JPEG, oracle and the three
+tracking, world-size-1, entry-point, 3DGS, JPEG, oracle and the four
 format reports, the
 run's wall time, the
 card's name and power limit, and one JSON line with each kernel's error,
@@ -2930,46 +2945,56 @@ def formats_14_cases() -> list:
     ]
 
 
-def phase_committed_webp() -> dict:
-    """The committed WebP files (lossy VP8, VP8X with lossy and lossless
-    alpha, an animation) decode to the SHA-256 of ``cv2.imread``'s arrays
-    (``tests/data/webp/hashes.json``) in both read modes; the host's
-    median ms of 10 colour decodes of each."""
-    hashes = json.loads((WEBP_FIXTURES / "hashes.json").read_text())
+def phase_committed(folder: Path, phase: int) -> dict:
+    """The committed files of another library's encoder (``folder``:
+    ``tests/data/webp``, libwebp's lossy VP8, VP8X with lossy and lossless
+    alpha, an animation; ``tests/data/tiff``, libtiff's CCITT, gray with
+    alpha, CMYK, YCbCr, L*a*b*, LogL) decode to the SHA-256 of
+    ``cv2.imread``'s arrays (``hashes.json`` beside them) in both read
+    modes; the host's median ms of 10 colour decodes of each."""
+    hashes = json.loads((folder / "hashes.json").read_text())
     out = {}
     for name, want in sorted(hashes.items()):
-        path = str(WEBP_FIXTURES / name)
+        path = str(folder / name)
         for mode in ("color", "anydepth"):
             got = imread(path, anydepth=mode == "anydepth")
             digest = hashlib.sha256(np.ascontiguousarray(got).tobytes())
             check(digest.hexdigest() == want[mode]["sha256"]
-                  and list(got.shape) == want[mode]["shape"],
-                  f"phase 14: {name} ({mode}) is not cv2.imread's array")
+                  and list(got.shape) == want[mode]["shape"]
+                  and str(got.dtype) == want[mode]["dtype"],
+                  f"phase {phase}: {name} ({mode}) is not cv2.imread's "
+                  "array")
         out[name] = dict(bytes=want["bytes"], decode_ms=host_ms(
             lambda _: imread(path), range(10)))
     return out
 
 
-def refusals_14(root: Path) -> dict:
-    """Sun raster files OpenCV 5.0 returns None for (its header check
-    refuses the byte-encoded and RGB-order types): ValueError, timed."""
-    img = render_sequence(SEED + 18, 1, 48, 64, TUM_FR1, 0.02, 0.004)[0][0]
+def refusals(root: Path, cases, phase: int) -> dict:
+    """Files of ``cases`` ((name, bytes)) OpenCV 5.0 returns None for:
+    ValueError, timed."""
     out = {}
-    for name, data in (("Sun raster byte-encoded", sunras.encode_sunras(
-            img[..., 0], kind=sunras.RT_BYTE_ENCODED)),
-                       ("Sun raster RGB order", sunras.encode_sunras(
-                           img, kind=sunras.RT_FORMAT_RGB))):
-        path = root / "refused.ras"
+    for name, data in cases:
+        path = root / "refused"
         path.write_bytes(data)
         t_start = time.perf_counter()
         try:
             imread(str(path))
-            fail(f"phase 14: {name} read; OpenCV refuses it")
+            fail(f"phase {phase}: {name} read; OpenCV refuses it")
         except ValueError:
             pass
         out[name] = dict(refused=True, ms=1e3 * (time.perf_counter() -
                                                  t_start))
     return out
+
+
+def refusals_14() -> list:
+    """Sun raster files OpenCV refuses: its header check refuses the
+    byte-encoded and RGB-order types."""
+    img = render_sequence(SEED + 18, 1, 48, 64, TUM_FR1, 0.02, 0.004)[0][0]
+    return [("Sun raster byte-encoded", sunras.encode_sunras(
+        img[..., 0], kind=sunras.RT_BYTE_ENCODED)),
+            ("Sun raster RGB order", sunras.encode_sunras(
+                img, kind=sunras.RT_FORMAT_RGB))]
 
 
 def phase_14(dev, kernels: dict) -> dict:
@@ -2978,8 +3003,8 @@ def phase_14(dev, kernels: dict) -> dict:
         root = Path(tmp)
         report = dict(codecs=phase_format_codecs(root, formats_14_cases(),
                                                  14))
-        report["committed_webp"] = phase_committed_webp()
-        report["refused"] = refusals_14(root)
+        report["committed_webp"] = phase_committed(WEBP_FIXTURES, 14)
+        report["refused"] = refusals(root, refusals_14(), 14)
         runs = phase_format_track(
             dev, kernels, root / "tum", n_frames=PHASE_14_FRAMES,
             seed=SEED + 19, phase=14,
@@ -3008,6 +3033,122 @@ def print_phase_14(report: dict) -> None:
     print(f"phase 14: host decode ms at 480 x 640 (committed WebP files at "
           f"their sizes): {codecs}; TUM RGB-D at 384 x 512, equal frames and "
           f"depth from both streams: {tum}; {report['seconds']:.0f} s")
+
+
+# -- phase 15: the TIFF files cv2.imread reads that the port last took in ----
+
+TIFF_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "tiff"
+PHASE_15_FRAMES = 16  # the TUM sequence's length, as phase 14's
+PHASE_15_PSNR_DB = 30.0  # the lossy cases against their source frame
+
+
+def logl_codes(depth: np.ndarray) -> tuple:
+    """16-bit SGI LogL codes of the luminance ``depth / 10`` (m), and the
+    8-bit gray libtiff's RGBA interface makes of them, computed apart from
+    the port: 256 sqrt(Y) of Y = 2^((Le + 0.5) / 256 - 64)."""
+    y = np.maximum(depth / 10.0, 1e-9)
+    codes = np.clip(np.floor(256 * (np.log2(y) + 64)), 1, 32767)
+    y_back = np.exp2((codes + 0.5) / 256 - 64)
+    gray = np.where(y_back >= 1, 255, np.floor(256 * np.sqrt(y_back)))
+    return codes.astype(np.int16), gray.astype(np.uint8)
+
+
+def formats_15_cases() -> list:
+    """:func:`format_cases`' tuples of a rendered 480 x 640 frame and its
+    depth through each reader phase 15 adds, written by the port's own
+    encoders: CCITT Group 4 and Group 3 2-D of the thresholded green
+    channel (read as black and white, min-is-white), old-style LZW RGB and
+    gray with alpha (the samples), CMYK with no black (the colours), YCbCr
+    2 x 2 and CIE L*a*b* (lossy: within PHASE_15_PSNR_DB of the frame) and
+    SGI LogL of the depth (the gray libtiff makes of it, within 40 dB)."""
+    from lgu_slam_tpu_torch.data.fixtures import lab_samples, ycbcr_tiff
+
+    images, depths = render_sequence(SEED + 20, 1, 480, 640, TUM_FR1, 0.02,
+                                     0.004)[:2]
+    img = images[0]
+    bits = (img[..., 1] > 110).astype(np.uint8)
+    shown = np.repeat((255 * (1 - bits))[..., None], 3, -1).astype(np.uint8)
+    gray = img[..., 1]
+    cmyk = np.concatenate([255 - img[..., ::-1], np.zeros_like(gray)[
+        ..., None]], -1)
+    codes, logl_gray = logl_codes(depths[0])
+    return [
+        ("TIFF CCITT Group 4", tiff.encode_tiff(bits, "group4", bilevel=True,
+                                                photometric=0), False, shown,
+         None),
+        ("TIFF CCITT Group 3 2-D", tiff.encode_tiff(
+            bits, "group3", bilevel=True, photometric=0, t4_options=5),
+         False, shown, None),
+        ("TIFF old-style LZW RGB", tiff.encode_tiff(img, "lzw_old"), False,
+         img, None),
+        ("TIFF gray + alpha", tiff.encode_tiff(
+            np.stack([gray, img[..., 2]], -1), extra_samples=2), True, gray,
+         None),
+        ("TIFF CMYK", tiff.encode_tiff(cmyk, photometric=5), False, img,
+         None),
+        ("TIFF YCbCr 2x2", ycbcr_tiff(img), False, img, PHASE_15_PSNR_DB),
+        ("TIFF CIE L*a*b*", tiff.encode_tiff(lab_samples(img),
+                                             photometric=8), False, img,
+         PHASE_15_PSNR_DB),
+        ("TIFF SGI LogL depth", tiff.encode_tiff(codes, "sgilog"), False,
+         np.repeat(logl_gray[..., None], 3, -1), 40.0),
+    ]
+
+
+def refusals_15() -> list:
+    """TIFF files OpenCV refuses: a 16-bit palette, 16-bit CMYK, old-style
+    JPEG with its JPEG tags (its libtiff is built without the codec)."""
+    img = render_sequence(SEED + 20, 1, 48, 64, TUM_FR1, 0.02, 0.004)[0][0]
+    jpg = encode_jpeg(img, 90)
+    return [("TIFF 16-bit palette", tiff.encode_tiff(
+        img[..., 0].astype(np.uint16) * 257,
+        palette=np.zeros((1 << 16, 3), np.uint16))),
+            ("TIFF 16-bit CMYK", tiff.encode_tiff(np.concatenate(
+                [img, img[..., :1]], -1).astype(np.uint16) * 257,
+                photometric=5)),
+            ("TIFF old-style JPEG", tiff.encode_tiff(
+                img, photometric=6, chunks=[jpg], tags={
+                    259: (3, [6]), 513: (4, [8]), 514: (4, [len(jpg)])}))]
+
+
+def phase_15(dev, kernels: dict) -> dict:
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        report = dict(codecs=phase_format_codecs(root, formats_15_cases(),
+                                                 15))
+        report["committed_tiff"] = phase_committed(TIFF_FIXTURES, 15)
+        report["refused"] = refusals(root, refusals_15(), 15)
+        runs = phase_format_track(
+            dev, kernels, root / "tum", n_frames=PHASE_15_FRAMES,
+            seed=SEED + 21, phase=15,
+            pairs=(("ycbcr-tiff", "lzw16-tiff"), ("ycbcr-png", "png")),
+            key="launches_formats_15")
+    tiff_run, png_run = runs.values()
+    for name in ("k1_launches_track", "k2_launches_track"):
+        check(tiff_run[name] == png_run[name],
+              f"phase 15: {name} {tiff_run[name]} (YCbCr + LZW TIFF) != "
+              f"{png_run[name]} (PNG + 16-bit PNG)")
+    report["feed_ratio"] = tiff_run["feed_ms"] / png_run["feed_ms"]
+    report["tum"] = runs
+    report["seconds"] = time.perf_counter() - t_start
+    return report
+
+
+def print_phase_15(report: dict) -> None:
+    codecs = ", ".join(f"{k} {v['decode_ms']:.2f}" for k, v in
+                       {**report["codecs"],
+                        **report["committed_tiff"]}.items())
+    tum = "; ".join(
+        f"{k}: fed {v['feed_ms']:.2f} ms per frame, {v['keyframes']} "
+        f"keyframes, {v['ms_per_keyframe_median']:.1f} ms per keyframe "
+        f"update, K1 {v['k1_launches']} / K2 {v['k2_launches']} launches "
+        f"(track {v['k1_launches_track']} / {v['k2_launches_track']})"
+        for k, v in report["tum"].items())
+    print(f"phase 15: host decode ms at 480 x 640 (committed TIFF files at "
+          f"96 x 128): {codecs}; TUM RGB-D at 384 x 512, equal frames and "
+          f"depth from both streams: {tum}; TIFF / PNG feed "
+          f"{report['feed_ratio']:.3f}; {report['seconds']:.0f} s")
 
 
 def main():
@@ -3078,17 +3219,20 @@ def main():
     torch.cuda.empty_cache()
     formats_14 = phase_14(dev, kernels)
     print_phase_14(formats_14)
+    torch.cuda.empty_cache()
+    formats_15 = phase_15(dev, kernels)
+    print_phase_15(formats_15)
     # launches on the main path: K1 bf16 and K2 over track() +
     # terminate(), phase 8's entry points, phase 10's JPEG runs and phases
-    # 12, 13 and 14's TUM tracks, K2 also over phase 7's sharded backend
-    # pass, K1 fp32 operands over phase 6's track()
+    # 12-15's TUM tracks, K2 also over phase 7's sharded backend pass, K1
+    # fp32 operands over phase 6's track()
     for name in ("masked_corr_level0_tc", "fused_pyramid_lookup"):
         k = kernels[name]
         k["launches"] = k["launches_track"] + k["launches_terminate"] + \
             k.get("launches_sharded_backend", 0) + \
             k["launches_entry_points"] + k["launches_jpeg"] + \
             k["launches_formats"] + k["launches_arith"] + \
-            k["launches_formats_14"]
+            k["launches_formats_14"] + k["launches_formats_15"]
     k = kernels["masked_corr_level0_tf32"]
     k["launches"] = k["launches_track_fp32"]
     for k in kernels.values():
@@ -3107,6 +3251,7 @@ def main():
     print(json.dumps({"formats": formats}))
     print(json.dumps({"formats_13": formats_13}))
     print(json.dumps({"formats_14": formats_14}))
+    print(json.dumps({"formats_15": formats_15}))
     print(json.dumps({"seconds": seconds}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -1,7 +1,8 @@
 /* TIFF strip and tile decoding for the port's data layer: the LZW and
- * PackBits decoders and the inverse of the horizontal (predictor 2) and
- * floating-point (predictor 3) predictors, as libtiff 4.7 (tif_lzw.c,
- * tif_packbits.c, tif_predict.c) applies them for cv2.imread.
+ * PackBits decoders, the SGI LogL decoder and the inverse of the horizontal
+ * (predictor 2) and floating-point (predictor 3) predictors, as libtiff 4.7
+ * (tif_lzw.c, tif_packbits.c, tif_luv.c, tif_predict.c) applies them for
+ * cv2.imread.
  *
  * Each decoder fills exactly `occ` bytes (a strip or a tile) and returns
  * TIFF_OK, or TIFF_CORRUPT where libtiff reports an error (the data ends
@@ -12,6 +13,8 @@
  * Built by the host C compiler at first use and called through ctypes
  * (lgu_slam_tpu_torch/data/tiff.py).
  */
+#define _DEFAULT_SOURCE /* M_LN2 */
+#include <math.h>
 #include <stdint.h>
 #include <stdlib.h>
 #include <string.h>
@@ -30,44 +33,61 @@
 #define LZW_CSIZE ((1 << LZW_BITS_MAX) - 1 + 1024)
 
 typedef struct {
-    uint16_t prefix; /* the code of the string without its last byte */
+    int64_t at;      /* where the output holds the string but its last byte */
+    uint32_t length;
     uint8_t last;    /* its last byte */
     uint8_t first;   /* its first byte */
-    uint32_t length;
 } lzw_entry;
 
 /* LZW of TIFF 6.0 section 13: codes of 9 to 12 bits, most significant bit
  * first, the code width growing one code early (at 511, 1023, 2047).
- * Old-style (LSB-first, pre-6.0) streams, which start with the bytes 0x00
- * 0x01, return TIFF_UNSUPPORTED. */
-int tiff_lzw_decode(const uint8_t *src, int64_t n, uint8_t *dst, int64_t occ)
+ * With `old_style`, the pre-6.0 coding libtiff still reads
+ * (tif_lzw.c LZWDecodeCompat): codes least significant bit first, the
+ * width growing when the table reaches 512, 1024, 2048.  libtiff takes a
+ * strip that starts with the bytes 0x00 and an odd byte for old-style,
+ * and decodes every strip of the image as its first strip is coded; the
+ * caller decides (tiff_lzw_old_style on that strip). */
+int tiff_lzw_old_style(const uint8_t *src, int64_t n)
 {
-    if (n >= 2 && src[0] == 0 && (src[1] & 1))
-        return TIFF_UNSUPPORTED;
+    return n >= 2 && src[0] == 0 && (src[1] & 1);
+}
+
+int tiff_lzw_decode(const uint8_t *src, int64_t n, uint8_t *dst, int64_t occ,
+                    int old_style)
+{
+    /* the table's last entry before the code width grows */
+    const int early = old_style ? 1 : 2;
     lzw_entry *tab = malloc(sizeof(lzw_entry) * LZW_CSIZE);
-    uint8_t *stack = malloc(LZW_CSIZE + 1);
-    if (tab == NULL || stack == NULL) {
-        free(tab);
-        free(stack);
+    if (tab == NULL)
         return TIFF_NOMEM;
-    }
     for (int i = 0; i < 256; i++) {
-        tab[i].prefix = 0;
+        tab[i].at = 0;
         tab[i].last = tab[i].first = (uint8_t)i;
         tab[i].length = 1;
     }
     int64_t pos = 0, out = 0;
     uint64_t acc = 0;
-    int accbits = 0, nbits = 9, free_ent = LZW_FIRST, old = -1;
+    /* old: the previous code; -1 right after a clear code, -2 before the
+     * first (libtiff: "Using code not yet in table" for any other code) */
+    int accbits = 0, nbits = 9, free_ent = LZW_FIRST, old = -2;
     int status = TIFF_OK;
     while (out < occ) {
         while (accbits < nbits && pos < n) {
-            acc = acc << 8 | src[pos++];
+            if (old_style)
+                acc |= (uint64_t)src[pos++] << accbits;
+            else
+                acc = acc << 8 | src[pos++];
             accbits += 8;
         }
         if (accbits < nbits)
             break; /* the data ends without an EOI code: libtiff's warning */
-        int code = (int)(acc >> (accbits - nbits)) & ((1 << nbits) - 1);
+        int code;
+        if (old_style) {
+            code = (int)(acc & ((1u << nbits) - 1));
+            acc >>= nbits;
+        } else {
+            code = (int)(acc >> (accbits - nbits)) & ((1 << nbits) - 1);
+        }
         accbits -= nbits;
         if (code == LZW_EOI)
             break;
@@ -78,7 +98,7 @@ int tiff_lzw_decode(const uint8_t *src, int64_t n, uint8_t *dst, int64_t occ)
             continue;
         }
         if (old < 0) { /* the first code after a clear: a byte */
-            if (code > 255) {
+            if (code > 255 || old == -2) {
                 status = TIFF_CORRUPT;
                 break;
             }
@@ -90,26 +110,29 @@ int tiff_lzw_decode(const uint8_t *src, int64_t n, uint8_t *dst, int64_t occ)
             status = TIFF_CORRUPT; /* "Corrupted LZW table" */
             break;
         }
-        /* the new entry: the previous string and the first byte of this
-         * one (of the previous one where this code is the new entry) */
+        /* the new entry: the previous string, which the output ends with,
+         * and the first byte of this one (of the previous one where this
+         * code is the new entry) */
         lzw_entry *e = &tab[free_ent];
-        e->prefix = (uint16_t)old;
+        e->at = out - tab[old].length;
         e->first = tab[old].first;
         e->last = code == free_ent ? tab[old].first : tab[code].first;
         e->length = tab[old].length + 1;
         free_ent++;
-        if (free_ent > (1 << nbits) - 2 && nbits < LZW_BITS_MAX)
+        if (free_ent > (1 << nbits) - early && nbits < LZW_BITS_MAX)
             nbits++;
-        /* the string of code, written back to front */
-        uint32_t len = tab[code].length;
-        int c = code;
-        for (uint32_t k = len; k-- > 0;) {
-            stack[k] = tab[c].last;
-            c = tab[c].prefix;
-        }
-        int64_t take = len < (uint64_t)(occ - out) ? (int64_t)len : occ - out;
-        memcpy(dst + out, stack, (size_t)take);
-        out += take;
+        /* the string of code, copied from where the output holds it but
+         * its last byte (its first bytes only where the output ends) */
+        int64_t len = tab[code].length, room = occ - out;
+        int64_t head = len - 1 < room ? len - 1 : room;
+        if (head < 16)
+            for (int64_t k = 0; k < head; k++)
+                dst[out + k] = dst[tab[code].at + k];
+        else
+            memcpy(dst + out, dst + tab[code].at, (size_t)head);
+        if (len <= room)
+            dst[out + head] = tab[code].last;
+        out += len <= room ? len : room;
         old = code;
     }
     if (status == TIFF_OK && out < occ)
@@ -117,7 +140,6 @@ int tiff_lzw_decode(const uint8_t *src, int64_t n, uint8_t *dst, int64_t occ)
     if (out < occ)
         memset(dst + out, 0, (size_t)(occ - out));
     free(tab);
-    free(stack);
     return status;
 }
 
@@ -233,4 +255,68 @@ int tiff_fpredict(uint8_t *buf, int64_t rows, int64_t rowbytes,
     }
     free(tmp);
     return TIFF_OK;
+}
+
+/* SGI LogL (tif_luv.c LogL16Decode, then L16toGry as libtiff's RGBA
+ * interface asks for it, SGILOGDATAFMT_8BIT): `rows` rows of `width`
+ * pixels, each row two run-length coded byte planes (the high bytes of
+ * the 16-bit log luminances, then the low), a byte >= 128 a run of
+ * (byte - 126) copies of the next byte, else that many literal bytes.
+ * Each pixel becomes 256 sqrt(Y), 0 at or below 0 and 255 at or above 1,
+ * Y = 2^((Le + 0.5) / 256 - 64).  Decoding stops at the first row the
+ * data does not fill (TIFF_CORRUPT); that row and those after it are
+ * left as they are (zeros). */
+static uint8_t logl_gray[1 << 16];
+
+__attribute__((constructor)) static void logl_table(void)
+{
+    for (int p = 0; p < 1 << 16; p++) {
+        int le = p & 0x7fff;
+        double y = le ? exp(M_LN2 / 256. * (le + .5) - M_LN2 * 64.) : 0.;
+        if (p & 0x8000)
+            y = -y;
+        logl_gray[p] = (uint8_t)(y <= 0. ? 0 : y >= 1. ? 255
+                                                 : (int)(256. * sqrt(y)));
+    }
+}
+
+int tiff_logl_decode(const uint8_t *src, int64_t n, uint8_t *dst,
+                     int64_t rows, int64_t width)
+{
+    int16_t *tp = malloc(sizeof(int16_t) * (size_t)(width > 0 ? width : 1));
+    if (tp == NULL)
+        return TIFF_NOMEM;
+    const uint8_t *bp = src;
+    int64_t cc = n;
+    int status = TIFF_OK;
+    for (int64_t y = 0; y < rows && status == TIFF_OK; y++) {
+        memset(tp, 0, sizeof(int16_t) * (size_t)width);
+        for (int shft = 8; shft >= 0; shft -= 8) {
+            int64_t i = 0;
+            while (i < width && cc > 0) {
+                if (*bp >= 128) { /* a run */
+                    if (cc < 2)
+                        break;
+                    int rc = *bp++ + (2 - 128);
+                    int16_t b = (int16_t)(*bp++ << shft);
+                    cc -= 2;
+                    while (rc-- && i < width)
+                        tp[i++] |= b;
+                } else { /* literal bytes; a count of 0 does nothing */
+                    int rc = *bp++;
+                    while (--cc && rc-- && i < width)
+                        tp[i++] |= (int16_t)(*bp++ << shft);
+                }
+            }
+            if (i != width) {
+                status = TIFF_CORRUPT; /* "Not enough data at row" */
+                break;
+            }
+        }
+        if (status == TIFF_OK)
+            for (int64_t i = 0; i < width; i++)
+                dst[y * width + i] = logl_gray[(uint16_t)tp[i]];
+    }
+    free(tp);
+    return status;
 }

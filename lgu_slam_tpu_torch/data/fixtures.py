@@ -5,8 +5,9 @@ no dataset to read (nothing is downloaded).
 
 - :func:`write_tum_sequence`: a TUM RGB-D sequence (``rgb/``, 16-bit
   ``depth/`` in 1/5000 m, ``rgb.txt``, ``depth.txt``, ``groundtruth.txt``),
-  its frames in a format of :func:`write_frame` (colour PNG or PPM; depth
-  as 16-bit PNG or PGM, or float TIFF or PFM);
+  its frames in a format of :func:`write_frame` (colour PNG, PPM, JPEG,
+  WebP, GIF, Sun raster or YCbCr TIFF; depth as 16-bit PNG, PGM or LZW
+  TIFF, or float TIFF, PFM or Radiance HDR);
 - :func:`write_euroc_sequence`: a EuRoC MAV stereo sequence (gray
   ``mav0/cam0|cam1/data/<ns>.png`` and the state-estimate ``data.csv``);
 - :func:`write_tartanair_scene`: a TartanAir scene (``image_left/``,
@@ -105,7 +106,46 @@ def _write_list(path, header, rows):
 FRAME_EXT = {"png": "png", "ppm": "ppm", "pgm": "pgm", "tiff": "tiff",
              "pfm": "pfm", "jpg": "jpg", "arith-jpg": "jpg", "bigtiff": "tif",
              "webp": "webp", "gif": "gif", "ras": "ras", "hdr": "hdr",
-             "rgbe-tiff": "tiff"}
+             "rgbe-tiff": "tiff", "ycbcr-tiff": "tif", "ycbcr-png": "png",
+             "lzw16-tiff": "tif"}
+
+
+def ycbcr_samples(bgr: np.ndarray) -> np.ndarray:
+    """BGR -> full-range ITU-R BT.601 Y, Cb, Cr samples (JFIF's, TIFF's
+    default YCbCrCoefficients and ReferenceBlackWhite), rounded."""
+    b, g, r = (bgr[..., k].astype(np.float64) for k in range(3))
+    ycc = np.stack([0.299 * r + 0.587 * g + 0.114 * b,
+                    128 - 0.168736 * r - 0.331264 * g + 0.5 * b,
+                    128 + 0.5 * r - 0.418688 * g - 0.081312 * b], -1)
+    return np.clip(np.rint(ycc), 0, 255).astype(np.uint8)
+
+
+def lab_samples(bgr: np.ndarray) -> np.ndarray:
+    """BGR -> 8-bit CIE L*a*b* samples (L* unsigned, a* and b* signed) that
+    libtiff's conversion (the sRGB display of its RGBA interface, D50
+    white) takes back to about the same colours: its gamma ramp and
+    display matrix inverted, then CIE 1976 L*a*b*, rounded."""
+    rgb = bgr[..., ::-1].astype(np.float64) / 255
+    luminance = 1 + 99 * rgb ** 2.4
+    display = np.array([[3.2410, -1.5374, -0.4986], [-0.9692, 1.8760, 0.0416],
+                        [0.0556, -0.2040, 1.0570]])
+    t = luminance @ np.linalg.inv(display).T / np.array([96.425, 100,
+                                                         82.468])
+    f = np.where(t > 0.008856, np.cbrt(t), 7.787 * t + 16 / 116)
+    lab = np.stack([(116 * f[..., 1] - 16) * 255 / 100,
+                    500 * (f[..., 0] - f[..., 1]),
+                    200 * (f[..., 1] - f[..., 2])], -1)
+    lab = np.rint(lab)
+    lab[..., 0] = np.clip(lab[..., 0], 0, 255)
+    lab[..., 1:] = np.clip(lab[..., 1:], -128, 127) % 256
+    return lab.astype(np.uint8)
+
+
+def ycbcr_tiff(bgr: np.ndarray) -> bytes:
+    """A colour frame as an uncompressed YCbCr TIFF subsampled 2 x 2 (the
+    chroma of each block its mean), strips of 16 rows."""
+    return tiff.encode_tiff(ycbcr_samples(bgr), photometric=6,
+                            subsampling=(2, 2), rows_per_strip=16)
 
 
 def gif_cube(bgr: np.ndarray) -> tuple:
@@ -132,7 +172,10 @@ def write_frame(path, image, kind: str) -> str:
     or ``pfm``, or as ``float64`` in ``bigtiff`` (a BigTIFF, Deflate,
     floating-point predictor), or as gray Radiance ``hdr`` (run-length
     RGBE, which rounds them to 8-bit mantissas), or ``rgbe-tiff``: the
-    values that ``hdr`` file reads back as, in a float32 ``tiff``."""
+    values that ``hdr`` file reads back as, in a float32 ``tiff``; colour
+    as ``ycbcr-tiff`` (:func:`ycbcr_tiff`) or ``ycbcr-png``, the PNG of
+    what that TIFF reads back as; depth as ``lzw16-tiff`` (16-bit, LZW,
+    horizontal predictor)."""
     path = f"{path}.{FRAME_EXT[kind]}" if kind in FRAME_EXT else path
     if kind == "png":
         data = encode_png(image)
@@ -159,6 +202,12 @@ def write_frame(path, image, kind: str) -> str:
                                         3, -1))
     elif kind == "rgbe-tiff":
         data = tiff.encode_tiff(hdr.depth_values(image), "deflate", 3)
+    elif kind == "ycbcr-tiff":
+        data = ycbcr_tiff(image)
+    elif kind == "ycbcr-png":
+        data = encode_png(tiff.decode_tiff(ycbcr_tiff(image)))
+    elif kind == "lzw16-tiff":
+        data = tiff.encode_tiff(image, "lzw", 2)
     else:
         raise ValueError(f"no fixture format {kind!r}")
     with open(path, "wb") as fh:

@@ -39,9 +39,12 @@ The formats, their decoders and what each reads:
   ``csrc/host/bmp_rle.c``), 16-bit 5-5-5 and 5-6-5, 24- and 32-bit,
   bottom-up and top-down, 40-byte (and longer) and OS/2 headers;
 - TIFF (``data/tiff.py``): classic and BigTIFF, strips and tiles, both
-  byte orders, planar 1 and 2, none / LZW / Deflate / PackBits with their
-  predictors and JPEG, orientations 1-4, 1-, 8- and 16-bit gray, RGB and
-  RGBA, 8-bit palette, signed and 32/64-bit integer and float samples;
+  byte orders and fill orders, planar 1 and 2, none / LZW (both codings)
+  / Deflate / PackBits with their predictors, JPEG, CCITT RLE / RLEW /
+  Group 3 / Group 4 (in C, ``csrc/host/ccitt_decode.c``) and SGI LogL,
+  orientations 1-4, 1-, 8- and 16-bit gray with or without alpha, RGB and
+  RGBA, 1- and 8-bit palettes, CMYK, YCbCr, CIE L*a*b*, signed and
+  32/64-bit integer and float samples;
 - PBM / PGM / PPM, PAM and PFM (``data/pnm.py``);
 - WebP (``data/webp.py``; VP8L, VP8 and ALPH in C,
   ``csrc/host/webp_decode.c``): lossless and lossy, simple and extended
@@ -61,7 +64,7 @@ where each decoder decides it (the C decoders, ``tiff.py``, ``webp.py``,
 ...), so a file reached by any path gets the same class.  A format this
 OpenCV build reads and the port does not yet read raises
 ``NotImplementedError`` naming it: JPEG 2000 and AVIF, and within the
-formats above what each decoder lists (TIFF's).  The encoders
+formats above what each decoder lists (TIFF's SGI LogLuv).  The encoders
 (:func:`encode_png`, :func:`encode_jpeg`, :func:`encode_bmp`,
 ``tiff.encode_tiff``, ``pnm.encode_pnm`` / ``encode_pam`` /
 ``encode_pfm``, ``webp.encode_webp_lossless``, ``gif.encode_gif``,

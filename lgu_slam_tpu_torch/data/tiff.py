@@ -4,44 +4,55 @@ the files it reads, for fixtures.
 
 :func:`decode_tiff` reads page 0 of a classic TIFF (``II*\\0`` or
 ``MM\\0*``) or a BigTIFF (``II+\\0`` / ``MM\\0+``): strips or tiles,
-``PlanarConfiguration`` 1 or 2, compression none, LZW, Deflate (8 and
-32946), PackBits or JPEG (7: libtiff's codec, ``JPEGTables``, YCbCr
-subsampling; each strip through the port's C JPEG decoder), the
+``PlanarConfiguration`` 1 or 2, ``FillOrder`` 1 or 2, compression none,
+LZW (and its pre-6.0 LSB-first coding), Deflate (8 and 32946), PackBits,
+JPEG (7: libtiff's codec, ``JPEGTables``, YCbCr subsampling; each strip
+through the port's C JPEG decoder), the CCITT schemes of 1-bit images
+(RLE, RLEW, Group 3 1-D and 2-D, Group 4) and SGI Log of LogL images, the
 horizontal and the floating-point predictor; 1-, 8- and 16-bit unsigned
-gray (min-is-black or min-is-white), RGB and RGBA, 8-bit palette, and
-the other sample formats OpenCV reads (``int8``, ``int16``, ``uint32``,
-``int32``, ``uint64``, ``int64``, ``float32``, ``float64``);
-orientations 1-4.  The LZW and PackBits decoders and the predictors run
-in C (``csrc/host/tiff_lzw.c``, built by the host compiler at first use).
+gray (min-is-black or min-is-white) with or without extra samples, RGB
+and RGBA, 1- and 8-bit palettes, separated CMYK, uncompressed YCbCr at
+each subsampling libtiff reads, CIE L*a*b*, and the other sample formats
+OpenCV reads (``int8``, ``int16``, ``uint32``, ``int32``, ``uint64``,
+``int64``, ``float32``, ``float64``); orientations 1-4.  The LZW,
+PackBits and LogL decoders and the predictors run in C
+(``csrc/host/tiff_lzw.c``), the CCITT decoder too
+(``csrc/host/ccitt_decode.c``), each built by the host compiler at first
+use.  A scheme libtiff does not know decodes to zeros, as libtiff's RGBA
+interface reads it.
 
 OpenCV reads a TIFF along one of two paths, and the decoder takes the same:
 
 - an 8-bit result (``cv2.imread(path)``, or ``cv2.IMREAD_ANYDEPTH`` of a
-  1- or unsigned 8-bit file) goes through libtiff's RGBA interface
-  (``TIFFReadRGBAStrip`` / ``TIFFReadRGBATile``): 16-bit gray keeps its
-  high byte, 16-bit colour becomes ``(x * 255 + 32767) // 65535`` (that is
-  ``round(x / 257)``), signed samples are read as their unsigned bits,
-  min-is-white is inverted, a palette is looked up (its entries shifted
-  right by 8 unless every one is below 256), an unassociated alpha is
-  multiplied in, JPEG's YCbCr comes out as libjpeg's RGB; then BGR, or
-  gray by OpenCV's own ``(4899 R + 9617 G + 1868 B + 8192) >> 14``;
-- a result of another dtype (``cv2.IMREAD_ANYDEPTH`` of a 16-, 32- or
-  64-bit or signed file) is the samples as stored: one channel as it is,
-  8/16-bit colour to gray by the same formula on the bits read as
-  unsigned; 32/64-bit colour and any 32/64-bit read without
+  1- or 8-bit file, or of a 16-bit one that is not gray, RGB or RGBA)
+  goes through libtiff's RGBA interface (``TIFFReadRGBAStrip`` /
+  ``TIFFReadRGBATile``): 16-bit gray keeps its high byte, 16-bit colour
+  becomes ``(x * 255 + 32767) // 65535`` (that is ``round(x / 257)``),
+  signed samples are read as their unsigned bits, min-is-white is
+  inverted, a palette is looked up (its entries shifted right by 8 unless
+  every one is below 256), an unassociated alpha is multiplied in (gray
+  only from separate planes), CMYK, YCbCr and L*a*b* are converted by
+  libtiff's own integer and float32 arithmetic, JPEG's YCbCr comes out as
+  libjpeg's RGB; then BGR, or gray by OpenCV's own ``(4899 R + 9617 G +
+  1868 B + 8192) >> 14`` (``int8`` where the samples are signed);
+- a result of another dtype (``cv2.IMREAD_ANYDEPTH`` of a 16-bit gray or
+  RGB file, or of a 32- or 64-bit one) is the samples as stored: one
+  channel as it is, 16-bit colour to gray by the same formula on the bits
+  read as unsigned; 32/64-bit colour and any 32/64-bit read without
   ``IMREAD_ANYDEPTH`` are refused (cv2 returns None: ``ValueError``).
 
 Orientations 2-4 flip the result as cv2.imread does; 5-8 (transposes) it
-refuses.  Files OpenCV reads and this decoder does not (the CCITT schemes,
-old-style JPEG and LZW, SGI Log, schemes libtiff does not know, other
-photometric interpretations and layouts) raise ``NotImplementedError``
-naming what they hold; files OpenCV refuses (among them the compressions
-this libtiff build lacks: LZMA, ZSTD, WebP, LERC, JBIG and others) raise
-``ValueError``.
+refuses.  Files OpenCV reads and this decoder does not (SGI LogLuv, and
+what each ``NotImplementedError`` names) raise ``NotImplementedError``;
+files OpenCV refuses (among them the compressions this libtiff build
+lacks: old-style JPEG, LZMA, ZSTD, WebP, LERC, JBIG and others, and the
+layouts its RGBA interface cannot put: 16-bit palettes and CMYK, YCbCr
+subsampled 2 x 4, ...) raise ``ValueError``.
 """
 
 from __future__ import annotations
 
+import bisect
 import ctypes
 import struct
 import zlib
@@ -55,49 +66,62 @@ TIFF_II = b"II*\0"
 TIFF_MM = b"MM\0*"
 BIGTIFF = (b"II+\0", b"MM\0+")
 
-COMPRESSION = {1: "none", 5: "LZW", 7: "JPEG", 8: "Deflate",
-               32946: "Deflate", 32773: "PackBits"}
-# compressions OpenCV's libtiff reads and the decoder does not: the CCITT
-# schemes of 1-bit images, old-style JPEG with its JPEG tags, SGI Log of
-# LogL / LogLuv images (cv2.imread returns None for the others)
-CCITT = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4",
-         32771: "CCITT RLEW"}
-SGILOG = {34676: "SGI LogLuv", 34677: "SGI LogL"}
+COMPRESSION = {1: "none", 2: "CCITT RLE", 3: "CCITT Group 3",
+               4: "CCITT Group 4", 5: "LZW", 7: "JPEG", 8: "Deflate",
+               32771: "CCITT RLEW", 32946: "Deflate", 32773: "PackBits",
+               34676: "SGI Log"}
+# the CCITT schemes, of 1-bit images only
+CCITT = (2, 3, 4, 32771)
 # compressions this libtiff build does not decode (not configured, or
 # for no depth cv2.imread reads): cv2.imread returns None
-REFUSED_COMPRESSION = {32766: "NeXT", 32809: "ThunderScan",
-                       32909: "PixarLog", 34661: "JBIG", 34887: "LERC",
-                       34925: "LZMA", 50000: "ZSTD", 50001: "WebP"}
-# schemes libtiff does not know: its RGBA interface reads their zeroed
-# buffers, so cv2.imread returns an image
+REFUSED_COMPRESSION = {6: "old-style JPEG", 32766: "NeXT",
+                       32809: "ThunderScan", 32909: "PixarLog",
+                       34661: "JBIG", 34887: "LERC", 34925: "LZMA",
+                       50000: "ZSTD", 50001: "WebP"}
+# the SGI Log schemes: LogL under 34676 is read; LogLuv (OpenCV's float
+# read) is not, as no LogLuv file could be made to probe it
+SGILOG = {34676: "SGI Log", 34677: "SGI Log24"}
+# some schemes libtiff does not know (any code outside the above): it
+# decodes nothing, so its RGBA interface reads zeroed buffers
 UNKNOWN_COMPRESSION = {34712: "JPEG 2000", 50002: "JPEG XL",
                        52546: "JPEG XL"}
 # tag -> name of the tags read
 TAGS = {256: "width", 257: "height", 258: "bits", 259: "compression",
-        262: "photometric", 273: "strip_offsets", 274: "orientation",
-        277: "spp", 278: "rows_per_strip", 279: "strip_counts",
-        284: "planar", 317: "predictor", 320: "colormap",
+        262: "photometric", 266: "fill_order", 273: "strip_offsets",
+        274: "orientation", 277: "spp", 278: "rows_per_strip",
+        279: "strip_counts", 284: "planar", 292: "t4_options",
+        317: "predictor", 318: "white_point", 320: "colormap",
         322: "tile_width", 323: "tile_length", 324: "tile_offsets",
-        325: "tile_counts", 338: "extra_samples", 339: "sample_format",
-        347: "jpeg_tables", 513: "ojpeg_interchange", 519: "ojpeg_qtables",
-        530: "ycbcr_subsampling"}
-# TIFF field type -> (struct code, bytes); 16-18 are BigTIFF's
-TYPES = {1: ("B", 1), 2: ("B", 1), 3: ("H", 2), 4: ("I", 4), 6: ("b", 1),
-         7: ("B", 1), 8: ("h", 2), 9: ("i", 4), 11: ("f", 4), 12: ("d", 8),
-         13: ("I", 4), 16: ("Q", 8), 17: ("q", 8), 18: ("Q", 8)}
+        325: "tile_counts", 332: "ink_set", 338: "extra_samples",
+        339: "sample_format", 347: "jpeg_tables", 513: "ojpeg_interchange",
+        519: "ojpeg_qtables", 529: "ycbcr_coefficients",
+        530: "ycbcr_subsampling", 532: "reference_black_white"}
+# TIFF field type -> (struct code, bytes); 16-18 are BigTIFF's; the
+# rationals (5, 10) are read as pairs and become float32 quotients
+TYPES = {1: ("B", 1), 2: ("B", 1), 3: ("H", 2), 4: ("I", 4), 5: ("I", 8),
+         6: ("b", 1), 7: ("B", 1), 8: ("h", 2), 9: ("i", 4), 10: ("i", 8),
+         11: ("f", 4), 12: ("d", 8), 13: ("I", 4), 16: ("Q", 8),
+         17: ("q", 8), 18: ("Q", 8)}
 # (SampleFormat, BitsPerSample) -> the dtype of the samples as stored
 SAMPLE_DTYPES = {(1, 8): np.uint8, (2, 8): np.int8, (1, 16): np.uint16,
                  (2, 16): np.int16, (1, 32): np.uint32, (2, 32): np.int32,
                  (3, 32): np.float32, (1, 64): np.uint64, (2, 64): np.int64,
                  (3, 64): np.float64}
-# the photometric interpretations libtiff's RGBA interface takes (others:
-# cv2.imread returns None for an 8-bit read)
-RGBA_PHOTOMETRIC = (0, 1, 2, 3, 5, 6, 8, 32844, 32845)
+# the photometric interpretations libtiff's RGBA interface reads for
+# cv2.imread (others: it returns None; LogL / LogLuv only under SGI Log)
+RGBA_PHOTOMETRIC = (0, 1, 2, 3, 5, 6, 8, 32844)
+# the YCbCr subsamplings (h, v) libtiff's RGBA interface reads from
+# contiguous samples (tif_getimage.c putcontig8bitYCbCr44tile ... 11tile);
+# from separate planes it reads 1 x 1 only
+YCBCR_SUBSAMPLING = ((4, 4), (4, 2), (4, 1), (2, 2), (2, 1), (1, 2),
+                     (1, 1))
 # Orientation -> the flips cv2.imread applies (through libtiff's RGBA
 # interface, or OpenCV's own for the samples as stored); 5-8 transpose,
 # which it refuses
 ORIENT = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1],
           4: lambda a: a[::-1]}
+# each byte with its bits in reverse order (FillOrder 2)
+_REVERSED = bytes(int(f"{b:08b}"[::-1], 2) for b in range(256))
 # OpenCV's CV_IO_MAX_IMAGE_PIXELS and _WIDTH / _HEIGHT
 MAX_PIXELS = 1 << 30
 MAX_SIDE = 1 << 20
@@ -143,7 +167,14 @@ def _ifd(data: bytes, path) -> tuple:
                 raise ValueError(f"{path}: TIFF tag {tag} runs past the end "
                                  "of the file")
             raw = data[at:at + nbytes]
-        tags[TAGS[tag]] = struct.unpack(f"{bo}{count_k}{code}", raw)
+        if typ in (5, 10):  # libtiff: (float)num / (float)den, 0 for /0
+            v = np.array(struct.unpack(f"{bo}{2 * count_k}{code}", raw),
+                         np.float32).reshape(-1, 2)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                q = np.where(v[:, 1] != 0, v[:, 0] / v[:, 1], 0)
+            tags[TAGS[tag]] = tuple(q.astype(np.float32))
+        else:
+            tags[TAGS[tag]] = struct.unpack(f"{bo}{count_k}{code}", raw)
     return tags, bo
 
 
@@ -155,15 +186,58 @@ def _one(tags, name, default=None):
 def _lib():
     lib = _build.load("tiff_lzw")
     ptr, i64, cint = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    for name in ("tiff_lzw_decode", "tiff_packbits_decode"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_char_p, i64, ptr, i64]
+    lib.tiff_lzw_decode.argtypes = [ctypes.c_char_p, i64, ptr, i64, cint]
+    lib.tiff_packbits_decode.argtypes = [ctypes.c_char_p, i64, ptr, i64]
+    lib.tiff_lzw_old_style.argtypes = [ctypes.c_char_p, i64]
+    lib.tiff_logl_decode.argtypes = [ctypes.c_char_p, i64, ptr, i64, i64]
+    lib.tiff_logl_decode.restype = cint
+    for fn in (lib.tiff_lzw_decode, lib.tiff_packbits_decode,
+               lib.tiff_lzw_old_style):
         fn.restype = cint
     lib.tiff_hpredict.argtypes = [ptr, i64, i64, i64, cint, cint]
     lib.tiff_hpredict.restype = None
     lib.tiff_fpredict.argtypes = [ptr, i64, i64, i64, cint]
     lib.tiff_fpredict.restype = cint
     return lib
+
+
+def _ccitt_lib():
+    lib = _build.load("ccitt_decode")
+    i64, cint = ctypes.c_int64, ctypes.c_int
+    lib.ccitt_state_size.argtypes = [i64, cint]
+    lib.ccitt_state_size.restype = i64
+    lib.ccitt_decode.argtypes = [ctypes.c_char_p, i64, ctypes.c_void_p, i64,
+                                 i64, i64, cint, cint, cint, cint,
+                                 ctypes.c_void_p]
+    lib.ccitt_decode.restype = cint
+    return lib
+
+
+class _Ccitt:
+    """The CCITT decoder of one image (``csrc/host/ccitt_decode.c``): its
+    run arrays carry over from strip to strip, as libtiff's do."""
+
+    def __init__(self, tags: dict, compression: int, rowpixels: int):
+        self.lib = _ccitt_lib()
+        self.scheme = compression
+        self.two_d = int(compression == 3 and
+                         _one(tags, "t4_options", 0) & 1)
+        # FillOrder 2 is read as it is; any other value as 1 (bit-reversed)
+        self.reverse = int(_one(tags, "fill_order", 1) != 2)
+        self.rowpixels = rowpixels
+        self.state = np.zeros(self.lib.ccitt_state_size(
+            rowpixels, int(compression == 4 or self.two_d)), np.uint32)
+
+    def __call__(self, raw: bytes, offset: int, rows: int, rowbytes: int
+                 ) -> np.ndarray:
+        """One strip or tile: ``rows * rowbytes`` bytes of packed rows
+        (rows the data does not reach are zeros)."""
+        out = np.zeros(rows * rowbytes, np.uint8)
+        self.lib.ccitt_decode(raw, len(raw), out.ctypes.data, rows,
+                              self.rowpixels, rowbytes, self.scheme,
+                              self.two_d, self.reverse, offset & 1,
+                              self.state.ctypes.data)
+        return out
 
 
 def _inflate(raw: bytes, size: int) -> tuple:
@@ -185,9 +259,12 @@ def _inflate(raw: bytes, size: int) -> tuple:
 
 
 def _decompress(raw: bytes, size: int, compression: int, path,
-                partial: bool) -> np.ndarray:
+                partial: bool, old_lzw: bool = False, width: int = 1
+                ) -> np.ndarray:
     """One strip or tile of ``size`` bytes as libtiff decodes it (the data
-    may hold more).  Where the data is damaged or ends early, libtiff
+    may hold more); ``old_lzw``: LZW in the pre-6.0 coding; SGI Log: LogL
+    as 8-bit gray rows of ``width`` pixels.  Where the data is damaged or
+    ends early, or the scheme is one libtiff does not know, libtiff
     reports an error: with ``partial`` (its RGBA interface, which goes on)
     the bytes decoded up to there and zeros, else ``ValueError``."""
     out = np.zeros(size, np.uint8)
@@ -202,19 +279,25 @@ def _decompress(raw: bytes, size: int, compression: int, path,
         got, damaged = _inflate(raw, size)
         out[:len(got)] = np.frombuffer(got, np.uint8)
         status = 1 if damaged or len(got) < size else 0
-    else:
-        lib = _lib()
-        fn = lib.tiff_lzw_decode if compression == 5 else \
-            lib.tiff_packbits_decode
-        status = fn(raw, len(raw), out.ctypes.data, size)
-        if status == 2:
-            raise NotImplementedError(f"{path}: old-style (pre-6.0) TIFF "
-                                      "LZW")
+    elif compression == 5:
+        status = _lib().tiff_lzw_decode(raw, len(raw), out.ctypes.data, size,
+                                        int(old_lzw))
+    elif compression == 32773:
+        status = _lib().tiff_packbits_decode(raw, len(raw), out.ctypes.data,
+                                             size)
+    elif compression == 34676:  # LogL, as 8-bit gray rows of `width`
+        status = _lib().tiff_logl_decode(raw, len(raw), out.ctypes.data,
+                                         size // width, width)
+    else:  # a scheme libtiff does not know: it decodes nothing
+        status = 1
     if status == 3:
         raise MemoryError(f"{path}: out of memory")
     if status and not partial:
-        raise ValueError(f"{path}: TIFF {COMPRESSION[compression]} data is "
-                         "damaged or cut short")
+        name = COMPRESSION.get(compression) or UNKNOWN_COMPRESSION.get(
+            compression, f"scheme {compression}")
+        raise ValueError(f"{path}: TIFF {name} data is damaged or cut "
+                         "short, or in a scheme libtiff does not know "
+                         "(cv2.imread returns None)")
     return out
 
 
@@ -230,25 +313,33 @@ def _unpredict(buf: np.ndarray, rows: int, rowbytes: int, stride: int,
         raise MemoryError("tiff_fpredict: out of memory")
 
 
-def _skewed_rows(buf: np.ndarray, h: int, w: int, cw: int) -> np.ndarray:
-    """The 16-bit gray samples libtiff's RGBA interface reads from a tile
-    clipped by the image's right edge (tif_getimage.c put16bitbwtile): it
-    steps from one row to the next by ``w`` samples and ``cw - w`` bytes,
-    not samples, so row ``i`` starts ``i * (w + cw)`` bytes into the tile,
-    at an odd byte where ``w + cw`` is odd."""
-    at = (np.arange(h)[:, None] * (w + cw) + 2 * np.arange(w)[None])
+def _skewed_rows(buf: np.ndarray, h: int, w: int, cw: int, per: int,
+                 bits: int) -> np.ndarray:
+    """The first sample of each pixel that libtiff's RGBA interface reads
+    from a gray or palette tile clipped by the image's right edge
+    (tif_getimage.c putgreytile, putagreytile, put16bitbwtile,
+    put8bitcmaptile): it steps over a row's ``w`` pixels of ``per``
+    samples, then ``cw - w`` bytes, not pixels, so row ``i`` starts
+    ``i * (w * per * bits / 8 + cw - w)`` bytes into the tile (at an odd
+    byte where that is odd): ``[h, w, 1]``."""
+    size = per * bits // 8
+    at = np.arange(h)[:, None] * (w * size + cw - w) + \
+        size * np.arange(w)[None]
+    if bits == 8:
+        return buf[at][..., None]
     lo, hi = buf[at].astype(np.uint16), buf[at + 1].astype(np.uint16)
     return (lo | hi << 8)[..., None]
 
 
 def _uncompressed_counts(counts, H: int, down: int, rowbytes: int,
-                         path) -> tuple:
+                         planes: int, path) -> tuple:
     """The strip byte counts libtiff reads an uncompressed image with
-    (tif_dirread.c): where the first two of several differ, it takes them
-    for wrong and sets every one to ``H // down`` rows (then a strip may
-    run past the file's end, or hold fewer rows than it should)."""
-    if len(counts) > 1 and counts[0] != counts[1] and counts[0] and \
-            counts[1]:
+    (tif_dirread.c): where the first two of more than two strips of
+    contiguous samples differ, it takes them for wrong and sets every one
+    to ``H // down`` rows (then a strip may run past the file's end, or
+    hold fewer rows than it should)."""
+    if planes == 1 and down > 2 and counts[0] != counts[1] and \
+            counts[0] and counts[1]:
         return ((H // down) * rowbytes,) * len(counts)
     if len(counts) == 1 and counts[0] < rowbytes * H:
         raise NotImplementedError(
@@ -261,36 +352,26 @@ def _check_compression(tags: dict, compression: int, bits: int, path
                        ) -> None:
     """Refuse what the decoder does not read: ``ValueError`` where
     cv2.imread returns None (probed with files of each scheme: the codecs
-    this libtiff build lacks, the CCITT schemes of more than 1 bit,
-    old-style JPEG without its JPEG tags, SGI Log of other photometric
-    interpretations), ``NotImplementedError`` where it reads an image."""
+    this libtiff build lacks, old-style JPEG even with its JPEG tags, the
+    CCITT schemes of more than 1 bit, SGI Log of other photometric
+    interpretations than LogL and LogLuv, LogL under SGI Log24),
+    ``NotImplementedError`` where it reads an image (LogLuv)."""
     photometric = _one(tags, "photometric", 1)
-    name = None
     if compression in REFUSED_COMPRESSION:
         raise ValueError(f"{path}: TIFF {REFUSED_COMPRESSION[compression]} "
                          "compression, which this OpenCV's libtiff does not "
                          "decode (cv2.imread returns None)")
-    if compression in CCITT:
-        if bits != 1:
-            raise ValueError(f"{path}: TIFF {CCITT[compression]} of "
-                             f"{bits}-bit samples (cv2.imread returns None)")
-        name = CCITT[compression]
-    elif compression == 6:
-        if "ojpeg_interchange" not in tags and "ojpeg_qtables" not in tags:
-            raise ValueError(f"{path}: old-style JPEG TIFF without its JPEG "
-                             "tags (cv2.imread returns None)")
-        name = "old-style JPEG"
-    elif compression in SGILOG:
-        if photometric not in (32844, 32845):
+    if compression in CCITT and bits != 1:
+        raise ValueError(f"{path}: TIFF {COMPRESSION[compression]} of "
+                         f"{bits}-bit samples (cv2.imread returns None)")
+    if compression in SGILOG:
+        if photometric == 32845:
+            raise NotImplementedError(f"{path}: TIFF {SGILOG[compression]} "
+                                      "compression of LogLuv")
+        if photometric != 32844 or compression != 34676:
             raise ValueError(f"{path}: TIFF {SGILOG[compression]} of "
                              f"photometric interpretation {photometric} "
                              "(cv2.imread returns None)")
-        name = SGILOG[compression]
-    elif compression not in COMPRESSION:
-        name = UNKNOWN_COMPRESSION.get(compression, f"scheme {compression}")
-        name += " (unknown to libtiff: cv2.imread reads zeroed buffers)"
-    if name is not None:
-        raise NotImplementedError(f"{path}: TIFF {name} compression")
     if compression == 7 and bits != 8:
         raise NotImplementedError(f"{path}: JPEG TIFF of {bits}-bit "
                                   "samples")
@@ -345,13 +426,14 @@ def _jpeg_chunk_samples(raw: bytes, tables: bytes, seg_h: int, seg_w: int,
 
 
 def _samples(data: bytes, tags: dict, bo: str, path, partial: bool,
-             bw16_skew: bool = False) -> np.ndarray:
+             skew: bool = False) -> np.ndarray:
     """The stored samples of page 0: ``[H, W, spp]`` of the dtype of
     :data:`SAMPLE_DTYPES` (1 bit: ``uint8`` 0 or 1) in the host's byte
     order; JPEG chunks decoded to ``uint8`` RGB (YCbCr converted) or
     gray.  ``partial``: damaged chunks as far as they decode (libtiff's
-    RGBA interface); ``bw16_skew``: the samples of 16-bit gray tiles at the
-    right edge as that interface reads them (:func:`_skewed_rows`)."""
+    RGBA interface); ``skew``: the samples of 16-bit or multi-sample gray
+    and palette tiles at the right edge as that interface reads them
+    (:func:`_skewed_rows`)."""
     W, H = _one(tags, "width", 0), _one(tags, "height", 0)
     if W <= 0 or H <= 0:
         raise ValueError(f"{path}: TIFF of {W} x {H} pixels")
@@ -390,103 +472,356 @@ def _samples(data: bytes, tags: dict, bo: str, path, partial: bool,
     planes = spp if planar == 2 else 1
     per = spp // planes  # samples per pixel in a chunk
     rowbytes = (cw * per * bits + 7) // 8
+    photometric = _one(tags, "photometric", 1)
+    sub = _ycbcr_sub(tags)
+    # subsampled YCbCr is stored in data units of h x v luma samples and
+    # their Cb, Cr; libtiff's scanline is a row of units over v
+    units = photometric == 6 and compression != 7 and planar == 1 and \
+        sub != (1, 1)
+    if units:
+        if predictor > 1 and tiled:
+            raise NotImplementedError(f"{path}: TIFF predictor {predictor} "
+                                      "of subsampled YCbCr tiles")
+        unit = sub[0] * sub[1] + 2
+        unit_row = -(-cw // sub[0]) * unit
+        rowbytes = unit_row // sub[1]
     across = -(-W // cw)
     down = -(-H // ch)
     if min(len(offsets), len(counts)) < planes * across * down:
         raise ValueError(f"{path}: TIFF lists {len(offsets)} of its "
                          f"{planes * across * down} strips or tiles")
     if compression == 1 and not tiled:
-        counts = _uncompressed_counts(counts, H, down, rowbytes, path)
+        counts = _uncompressed_counts(counts, H, down, rowbytes, planes,
+                                      path)
     dtype = np.uint8 if bits == 1 else SAMPLE_DTYPES[
         (_one(tags, "sample_format", 1), bits)]
     out = np.zeros((H, W, spp), dtype)
     swap = bo == ">"
     tables = _jpeg_tables(tags)
-    photometric = _one(tags, "photometric", 1)
-    sub = tuple(int(v) for v in tags.get("ycbcr_subsampling", (2, 2)))
+    ccitt = None
+    # libtiff reverses the bits of FillOrder 2 data, but for the codecs that
+    # ask it not to: JPEG, and CCITT, whose decoder reads either order
+    reverse = _one(tags, "fill_order", 1) == 2 and \
+        compression not in CCITT + (7,)
+    # libtiff decodes every LZW strip in the coding of the first it reads
+    first = data[int(offsets[0]):int(offsets[0]) + int(counts[0])]
+    if reverse:
+        first = first.translate(_REVERSED)
+    old_lzw = compression == 5 and bool(_lib().tiff_lzw_old_style(
+        first, len(first)))
     for p in range(planes):
         for cy in range(down):
             for cx in range(across):
                 k = (p * down + cy) * across + cx
                 rows = ch if tiled else min(ch, H - cy * ch)
                 size = rows * rowbytes
+                if units:
+                    # libtiff's RGBA interface reads a tile whole and a strip
+                    # as its rows rounded up to v, in scanlines (a row of
+                    # units over v, rounded down: 4 x 4 units lose bytes)
+                    unit_rows = -(-rows // sub[1])
+                    size = unit_rows * (unit_row if tiled else
+                                        sub[1] * rowbytes)
                 off, cnt = int(offsets[k]), int(counts[k])
                 if off + cnt > len(data) or cnt == 0:
                     raise ValueError(f"{path}: TIFF strip or tile {k} runs "
                                      "past the end of the file")
+                raw = data[off:off + cnt]
+                if reverse:  # FillOrder 2: libtiff reverses the bits first
+                    raw = raw.translate(_REVERSED)
                 y0, x0 = cy * ch, cx * cw
                 h, w = min(rows, H - y0), min(cw, W - x0)
                 if compression == 7:
                     px = _jpeg_chunk_samples(
-                        data[off:off + cnt], tables, rows, cw,
+                        raw, tables, rows, cw,
                         not tiled and cy == down - 1, photometric, sub, spp,
                         k, path)
                     out[y0:y0 + h, x0:x0 + w] = px[:h, :w]
                     continue
-                buf = _decompress(data[off:off + cnt], size, compression,
-                                  path, partial)
-                if predictor > 1:
-                    _unpredict(buf, rows, rowbytes, per, bits, predictor,
-                               swap)
-                elif bits > 8 and swap:
-                    buf = buf.view(f">u{bits // 8}").byteswap().view(
-                        np.uint8)
-                if bits == 1:
-                    px = np.unpackbits(buf.reshape(rows, rowbytes), axis=1
-                                       )[:, :cw, None]
-                elif bw16_skew and tiled and w < cw:
-                    px = _skewed_rows(buf, h, w, cw)
+                if compression in CCITT:
+                    ccitt = ccitt or _Ccitt(tags, compression, cw)
+                    buf = ccitt(raw, off, rows, rowbytes)
                 else:
-                    px = buf.view(dtype).reshape(rows, cw, per)
+                    buf = _decompress(raw, size, compression,
+                                      path, partial, old_lzw, cw)
+                if units:
+                    px = _ycbcr_chunk(buf, rows, w, cw, sub, unit_rows,
+                                      predictor)
+                else:
+                    if predictor > 1:
+                        _unpredict(buf, rows, rowbytes, per, bits, predictor,
+                                   swap)
+                    elif bits > 8 and swap:
+                        buf = buf.view(f">u{bits // 8}").byteswap().view(
+                            np.uint8)
+                    if bits == 1:
+                        px = np.unpackbits(buf.reshape(rows, rowbytes),
+                                           axis=1)[:, :cw, None]
+                    elif skew and tiled and w < cw and (bits == 16 or
+                                                        per > 1):
+                        px = _skewed_rows(buf, h, w, cw, per, bits)
+                    else:
+                        px = buf.view(dtype).reshape(rows, cw, per)
                 out[y0:y0 + h, x0:x0 + w, p * per:(p + 1) * per] = \
                     px[:h, :w]
     return out
 
 
-def _rgba(s: np.ndarray, tags: dict, photometric: int, bits: int,
-          path) -> np.ndarray:
-    """libtiff's RGBA interface of the samples: ``uint8 [H, W, 4]``."""
+def _check_rgba(photometric: int, bits: int, spp: int, tags: dict,
+                path) -> None:
+    """Refuse, as ``ValueError`` (cv2.imread returns None), the layouts
+    libtiff's RGBA interface does not read (TIFFRGBAImageOK and its
+    PickContigCase / PickSeparateCase, probed per photometric
+    interpretation, depth, sample count and planar configuration)."""
+    planar = _one(tags, "planar", 1)
+    why = None
+    if bits == 1 and spp > 1:
+        why = f"1-bit image of {spp} samples"
+    elif photometric == 2 and spp < 3:
+        why = f"RGB of {spp} samples"
+    elif photometric == 3 and (bits not in (1, 8) or (planar == 2 and
+                                                     spp > 1)):
+        why = f"{bits}-bit palette of {spp} samples, planar {planar}"
+    elif photometric == 5 and (bits != 8 or spp != 4 or
+                               _one(tags, "ink_set", 1) != 1):
+        why = (f"separated {bits}-bit image of {spp} samples, inks "
+               f"{_one(tags, 'ink_set', 1)}")
+    elif photometric == 6 and (bits != 8 or spp != 3):
+        why = f"YCbCr of {spp} {bits}-bit samples"
+    elif photometric == 6 and _one(tags, "compression", 1) != 7 and \
+            _ycbcr_sub(tags) not in (((1, 1),) if planar == 2 else
+                                     YCBCR_SUBSAMPLING):
+        why = f"YCbCr subsampled {_ycbcr_sub(tags)}, planar {planar}"
+    elif photometric == 8 and (bits not in (8, 16) or spp != 3 or
+                               planar == 2):
+        why = f"CIE L*a*b* of {spp} {bits}-bit samples, planar {planar}"
+    elif photometric == 32844 and (_one(tags, "compression", 1) != 34676
+                                   or spp != 1):
+        why = f"LogL of {spp} samples, not under SGI Log"
+    elif photometric not in RGBA_PHOTOMETRIC:
+        why = f"photometric interpretation {photometric}"
+    if why is not None:
+        raise ValueError(f"{path}: TIFF {why}, which libtiff's RGBA "
+                         "interface does not read (cv2.imread returns None)")
+
+
+def _ycbcr_sub(tags: dict) -> tuple:
+    return tuple(int(v) for v in tags.get("ycbcr_subsampling", (2, 2)))
+
+
+def _code2v(c, rb, rw, cr):
+    """libtiff's Code2V in float32, clamped to +-4096 and truncated (the
+    ``int32_t`` of CLAMPw): ``(c - (int)rb) * cr / (rw - rb)``."""
+    f = np.float32
+    span = f(rw) - f(rb)
+    v = (np.asarray(c, np.int64) - int(f(rb))).astype(f) * f(cr) / (
+        span if span != 0 else f(1))
+    return np.clip(v, f(-4096), f(4096)).astype(np.int64)
+
+
+def _ycbcr_to_rgb(ycc: np.ndarray, tags: dict) -> np.ndarray:
+    """libtiff's TIFFYCbCrToRGBInit and TIFFYCbCrtoRGB of 8-bit samples
+    ``[..., 3]`` (Y, Cb, Cr): the YCbCrCoefficients (default 0.299,
+    0.587, 0.114) and ReferenceBlackWhite (default 0 255 128 255 128 255)
+    in float32, the fixed-point tables of 16 fraction bits."""
+    f = np.float32
+    luma = [f(v) for v in tags.get("ycbcr_coefficients",
+                                   (0.299, 0.587, 0.114))]
+    rbw = [f(v) for v in tags.get("reference_black_white",
+                                  (0, 255, 128, 255, 128, 255))]
+    if len(luma) != 3 or len(rbw) != 6 or np.isnan(luma).any() or \
+            luma[1] == 0:
+        raise NotImplementedError("TIFF YCbCr coefficients or reference "
+                                  f"black and white {luma} {rbw}")
+
+    def fix(x):  # FIX(CLAMP(x, 0, 2)): float * 65536, + 0.5 in double
+        x = f(0) if x < f(0) else (f(2) if x > f(2) else x)
+        return int(float(f(x * f(65536))) + 0.5)
+
+    f1 = f(2) - f(2) * luma[0]
+    f3 = f(2) - f(2) * luma[2]
+    d1, d3 = fix(f1), fix(f3)
+    d2, d4 = -fix(luma[0] * f1 / luma[1]), -fix(luma[2] * f3 / luma[1])
+    x = np.arange(256) - 128
+    cr = _code2v(x, rbw[4] - f(128), rbw[5] - f(128), 127)
+    cb = _code2v(x, rbw[2] - f(128), rbw[3] - f(128), 127)
+    cr_r, cb_b = (d1 * cr + 32768) >> 16, (d3 * cb + 32768) >> 16
+    cr_g, cb_g = d2 * cr, d4 * cb + 32768
+    y_tab = _code2v(x + 128, rbw[0], rbw[1], 255)
+    tables = np.concatenate([y_tab, cr_r, cb_b, cr_g, cb_g]).astype(np.int32)
+    src = np.ascontiguousarray(ycc, np.uint8)
+    rgb = np.empty(ycc.shape, np.uint8)
+    _color_lib().tiff_ycbcr_to_rgb(src.ctypes.data, src.size // 3,
+                                   tables.ctypes.data, rgb.ctypes.data)
+    return rgb
+
+
+def _ycbcr_chunk(buf: np.ndarray, rows: int, w: int, cw: int, sub: tuple,
+                 unit_rows: int, predictor: int) -> np.ndarray:
+    """A decoded chunk of subsampled YCbCr data units (h * v luma samples,
+    row by row, then Cb and Cr, for each h x v block) -> the ``[rows, w,
+    3]`` samples libtiff's RGBA interface converts (tif_getimage.c
+    putcontig8bitYCbCr44tile ... 12tile), the chroma of each block
+    repeated over it, for the ``w`` columns it shows of a chunk ``cw``
+    wide.  Past the shown columns it skips ``(cw - w) // h`` units of its
+    own size, but of 10 bytes at 4 x 4; bytes it did not read are zeros.
+    The horizontal predictor is undone over scanlines (a row of units over
+    v) three samples apart, where they divide into threes
+    (tif_predict.c horAcc8)."""
+    h, v = sub
+    unit = h * v + 2
+    full = np.zeros(unit_rows * -(-cw // h) * unit, np.uint8)
+    full[:len(buf)] = buf
+    if predictor == 2:
+        scanline = -(-cw // h) * unit // v
+        if scanline % 3 == 0:
+            _unpredict(full, len(buf) // scanline, scanline, 3, 8, 2, False)
+    shown = -(-w // h)
+    step = shown * unit + (cw - w) // h * (10 if sub == (4, 4) else unit)
+    at = np.arange(unit_rows)[:, None] * step + \
+        np.arange(shown * unit)[None]
+    units = np.take(full, at, mode="clip").reshape(unit_rows, shown, unit)
+    luma = units[..., :h * v].reshape(unit_rows, shown, v, h).transpose(
+        0, 2, 1, 3)
+    out = np.empty((unit_rows * v, shown * h, 3), np.uint8)
+    out[..., 0] = luma.reshape(unit_rows * v, shown * h)
+    for k in (1, 2):
+        out[..., k] = np.repeat(np.repeat(units[..., h * v + k - 1], v, 0),
+                                h, 1)
+    return out[:rows, :w]
+
+
+def _lab_to_rgb(lab: np.ndarray, bits: int, tags: dict) -> np.ndarray:
+    """libtiff's CIE L*a*b* -> RGB (tif_color.c TIFFCIELabToXYZ /
+    TIFFCIELab16ToXYZ, then TIFFXYZToRGB for tif_getimage.c's sRGB
+    display, 1500-step gamma tables; in C, ``csrc/host/tiff_color.c``, in
+    libtiff's float32 steps): ``[..., 3]`` samples (L unsigned, a* and b*
+    signed, 8 or 16 bits) to ``uint8`` RGB.  The reference white is the
+    WhitePoint tag's (default D50)."""
+    f = np.float32
+    if "white_point" in tags:
+        wx, wy = (f(v) for v in tags["white_point"][:2])
+    else:
+        total = f(96.425) + f(100) + f(82.468)
+        wx, wy = f(96.425) / total, f(100) / total
+    if wy == 0:
+        raise ValueError("TIFF CIE L*a*b* with a white point of y 0 "
+                         "(cv2.imread returns None)")
+    x0, z0 = wx / wy * f(100), (f(1) - wx - wy) / wy * f(100)
+    ramp = (f(255) * np.power(np.arange(1501) / 1500.0,
+                              1.0 / float(f(2.4))).astype(f))
+    src = np.ascontiguousarray(lab, np.uint8 if bits == 8 else np.uint16)
+    rgb = np.empty(lab.shape, np.uint8)
+    _color_lib().tiff_lab_to_rgb(src.ctypes.data, src.size // 3, bits, x0,
+                                 f(100), z0, ramp.ctypes.data,
+                                 rgb.ctypes.data)
+    return rgb
+
+
+def _color_lib():
+    lib = _build.load("tiff_color")
+    fl, ptr, i64 = ctypes.c_float, ctypes.c_void_p, ctypes.c_int64
+    lib.tiff_lab_to_rgb.argtypes = [ptr, i64, ctypes.c_int, fl, fl, fl, ptr,
+                                    ptr]
+    lib.tiff_cmyk_to_rgb.argtypes = [ptr, i64, ptr]
+    lib.tiff_ycbcr_to_rgb.argtypes = [ptr, i64, ptr, ptr]
+    for fn in (lib.tiff_lab_to_rgb, lib.tiff_cmyk_to_rgb,
+               lib.tiff_ycbcr_to_rgb):
+        fn.restype = None
+    return lib
+
+
+def _alpha(tags: dict, spp: int) -> int:
+    """libtiff's RGBA alpha (TIFFRGBAImageBegin): the first ExtraSamples
+    value, 1 (associated) or 2 (unassociated); 0 (unspecified) counts as
+    associated in files of more than 3 samples."""
+    extra = tags.get("extra_samples")
+    if not extra:
+        return 0
+    return 1 if extra[0] == 0 and spp > 3 else int(extra[0]) % 3
+
+
+def _rgb(s: np.ndarray, tags: dict, photometric: int, bits: int,
+         path) -> np.ndarray:
+    """What libtiff's RGBA interface makes of the samples, its alpha
+    dropped as OpenCV drops it: ``uint8 [H, W, 3]`` RGB."""
     H, W, spp = s.shape
-    if bits not in (1, 8, 16):
-        raise NotImplementedError(f"{path}: TIFF {bits}-bit samples")
-    rgba = np.full((H, W, 4), 255, np.uint8)
-    if photometric in (0, 1):
-        if spp != 1:
-            raise NotImplementedError(f"{path}: TIFF gray with {spp - 1} "
-                                      "extra samples")
+    if photometric in (0, 1) and spp > 1 and _one(tags, "planar", 1) == 2:
+        # separate planes: libtiff reads gray as RGB (putRGB*separate*tile):
+        # plane 0, not inverted, 16 bits rounded; an unassociated alpha in
+        # plane 1 multiplied in
+        if bits == 16:
+            s = ((s.astype(np.int64) * 255 + 32767) // 65535).astype(
+                np.uint8)
+        g = s[..., 0]
+        if _alpha(tags, spp) == 2:
+            g = ((g.astype(np.int64) * s[..., 1] + 127) // 255).astype(
+                np.uint8)
+        return np.stack([g, g, g], -1)
+    if photometric in (0, 1):  # extra samples (alpha or not) are dropped
         g = s[..., 0]
         g = g * np.uint8(255) if bits == 1 else (
             (g >> 8).astype(np.uint8) if bits == 16 else g)
         if photometric == 0:
             g = 255 - g
-        rgba[..., :3] = g[..., None]
-        return rgba
-    if photometric == 3:
+        return np.stack([g, g, g], -1)
+    if photometric == 3:  # the first sample indexes the map
         cmap = tags.get("colormap")
-        if bits != 8 or spp != 1:
-            raise NotImplementedError(f"{path}: TIFF {bits}-bit palette")
         if cmap is None or len(cmap) != 3 << bits:
             raise ValueError(f"{path}: TIFF palette image without its "
                              "colour map")
         cmap = np.asarray(cmap, np.int64).reshape(3, 1 << bits)
         if cmap.max() >= 256:  # 16-bit entries (libtiff's checkcmap)
             cmap = cmap >> 8
-        rgba[..., :3] = cmap.T[s[..., 0]].astype(np.uint8)
-        return rgba
-    if photometric != 2:
-        raise NotImplementedError(f"{path}: TIFF photometric "
-                                  f"interpretation {photometric}")
-    if bits == 1 or spp not in (3, 4):
-        raise NotImplementedError(f"{path}: TIFF RGB of {spp} {bits}-bit "
-                                  "samples")
+        return cmap.T.astype(np.uint8)[s[..., 0]]
+    if photometric == 5:  # putRGBcontig8bitCMYKtile, in C
+        src = np.ascontiguousarray(s[..., :4], np.uint8)
+        rgb = np.empty((H, W, 3), np.uint8)
+        _color_lib().tiff_cmyk_to_rgb(src.ctypes.data, src.size // 4,
+                                      rgb.ctypes.data)
+        return rgb
+    if photometric == 6:
+        return _ycbcr_to_rgb(s, tags)
+    if photometric == 8:
+        return _lab_to_rgb(s, bits, tags)
+    if bits == 1:
+        raise NotImplementedError(f"{path}: TIFF RGB of {spp} 1-bit samples")
     if bits == 16:  # libtiff's Bitdepth16To8
         s = ((s.astype(np.int64) * 255 + 32767) // 65535).astype(np.uint8)
-    rgba[..., :spp] = s
     extra = tags.get("extra_samples", (0,))
     if spp == 4 and extra[0] == 2:  # unassociated alpha: libtiff's UaToAa
         a = s[..., 3:4].astype(np.int64)
-        rgba[..., :3] = (s[..., :3] * a + 127) // 255
-    return rgba
+        return ((s[..., :3] * a + 127) // 255).astype(np.uint8)
+    return s[..., :3]
+
+
+def _raw(tags: dict, photometric: int, bits: int, fmt: int, spp: int,
+         compression: int, gray: bool, path) -> bool:
+    """Whether cv2.imread returns the samples as stored (True) or what
+    libtiff's RGBA interface makes of them (False), as probed for each
+    photometric interpretation, depth and sample count; ``ValueError``
+    where it returns None."""
+    if compression in SGILOG:
+        _check_compression(tags, compression, bits, path)
+    if bits >= 32:
+        if not gray:
+            raise ValueError(f"{path}: {bits}-bit TIFF read without "
+                             "IMREAD_ANYDEPTH (cv2.imread returns None)")
+        if spp != 1:
+            raise ValueError(f"{path}: {bits}-bit TIFF of {spp} samples read "
+                             "as one channel (cv2.imread returns None)")
+        if photometric not in (0, 1, 2, 3):
+            raise ValueError(f"{path}: {bits}-bit TIFF of photometric "
+                             f"interpretation {photometric} (cv2.imread "
+                             "returns None)")
+        return True
+    if spp > 4:
+        raise ValueError(f"{path}: TIFF of {spp} samples per pixel (OpenCV "
+                         "reads 1 to 4 channels: cv2.imread returns None)")
+    if gray and bits == 16 and photometric in (0, 1, 2) and spp != 2:
+        return True
+    _check_rgba(photometric, bits, spp, tags, path)
+    return False
 
 
 def decode_tiff(data: bytes, path="<bytes>", gray: bool = False,
@@ -526,41 +861,35 @@ def decode_tiff(data: bytes, path="<bytes>", gray: bool = False,
     if not (fmt == 1 and bits == 1) and (fmt, bits) not in SAMPLE_DTYPES:
         raise ValueError(f"{path}: TIFF sample format {fmt} at {bits} bits "
                          "(cv2.imread returns None)")
-    if photometric not in RGBA_PHOTOMETRIC and not (gray and bits >= 16):
-        raise ValueError(f"{path}: TIFF photometric interpretation "
-                         f"{photometric}, which libtiff's RGBA interface "
-                         "does not read (cv2.imread returns None)")
-    if bits >= 32 and not gray:
-        raise ValueError(f"{path}: {bits}-bit TIFF read without "
-                         "IMREAD_ANYDEPTH (cv2.imread returns None)")
-    if bits >= 32 and spp != 1:
-        raise ValueError(f"{path}: {bits}-bit TIFF of {spp} samples read as "
-                         "one channel (cv2.imread returns None)")
-    # the samples as stored where the result keeps their depth or sign,
-    # else libtiff's RGBA interface
-    raw = gray and (bits >= 16 or fmt == 2)
-    if raw and bits == 16 and photometric not in (0, 1, 2):
-        raise NotImplementedError(f"{path}: 16-bit TIFF photometric "
-                                  f"interpretation {photometric}")
-    if raw and spp not in (1, 3, 4):
-        raise NotImplementedError(f"{path}: {bits}-bit TIFF of {spp} "
-                                  "samples")
+    compression = _one(tags, "compression", 1)
+    # the samples as stored where the result keeps their depth, else
+    # libtiff's RGBA interface
+    raw = _raw(tags, photometric, bits, fmt, spp, compression, gray, path)
     if raw and spp > 1 and _one(tags, "planar", 1) == 2:
         raise NotImplementedError(
             f"{path}: a {bits}-bit TIFF of separate colour planes read as "
             "one channel (cv2.imread reads it as interleaved samples, "
             "partly from uninitialised memory)")
+    if photometric == 32844:
+        # LogL: libtiff's RGBA interface has its codec return 8-bit gray
+        # and reads it as min-is-black
+        tags = dict(tags, bits=(8,), sample_format=(1,))
+        bits, photometric = 8, 1
     s = _samples(data, tags, bo, path, partial=not raw,
-                 bw16_skew=bits == 16 and not gray and photometric in (0, 1))
+                 skew=not raw and photometric in (0, 1, 3) and
+                 (spp == 1 or _one(tags, "planar", 1) == 1))
     if raw:
         out = s[..., 0] if spp == 1 else _gray_as_unsigned(s[..., :3])
     else:
         if fmt == 2:  # the RGBA interface reads the bits as unsigned
             s = s.view(s.dtype.str.replace("i", "u"))
-        if _one(tags, "compression", 1) == 7 and photometric == 6:
+        if compression == 7 and photometric == 6:
             photometric = 2  # libjpeg's RGB of the YCbCr samples
-        rgba = _rgba(s, tags, photometric, bits, path)
-        out = gray14(rgba[..., :3]) if gray else rgba[..., 2::-1]
+        rgb = _rgb(s, tags, photometric, bits, path)
+        out = gray14(rgb) if gray else np.stack(
+            [rgb[..., 2], rgb[..., 1], rgb[..., 0]], -1)  # BGR
+        if gray and fmt == 2:  # OpenCV's signed 8-bit result of the bytes
+            out = out.view(np.int8)
     if orientation in ORIENT:  # other values than 1-8: libtiff ignores them
         out = ORIENT[orientation](out)
     return np.ascontiguousarray(out)
@@ -576,23 +905,35 @@ def _gray_as_unsigned(rgb: np.ndarray) -> np.ndarray:
 # -- encoder -----------------------------------------------------------------
 
 ENCODE_COMPRESSION = {"none": 1, "lzw": 5, "jpeg": 7, "deflate": 32946,
-                      "adobe_deflate": 8, "packbits": 32773}
+                      "adobe_deflate": 8, "packbits": 32773, "lzw_old": 5,
+                      "ccitt_rle": 2, "group3": 3, "group4": 4,
+                      "ccitt_rlew": 32771, "sgilog": 34676}
 
 
-def lzw_encode(raw: bytes) -> bytes:
+def lzw_encode(raw: bytes, old_style: bool = False) -> bytes:
     """TIFF LZW of ``raw`` (MSB-first codes, the width growing one code
-    early, a clear code when the table fills)."""
+    early, a clear code when the table fills); ``old_style``: the pre-6.0
+    coding (LSB-first codes, the width growing on time)."""
     out, acc, nacc = bytearray(), 0, 0
     nbits = 9
+    late = 1 if old_style else 0
 
     def put(code):
         nonlocal acc, nacc
-        acc = acc << nbits | code
+        if old_style:
+            acc |= code << nacc
+        else:
+            acc = acc << nbits | code
         nacc += nbits
         while nacc >= 8:
             nacc -= 8
-            out.append(acc >> nacc & 0xFF)
-        acc &= (1 << nacc) - 1
+            if old_style:
+                out.append(acc & 0xFF)
+                acc >>= 8
+            else:
+                out.append(acc >> nacc & 0xFF)
+        if not old_style:
+            acc &= (1 << nacc) - 1
 
     table = {bytes([i]): i for i in range(256)}
     put(256)
@@ -607,7 +948,7 @@ def lzw_encode(raw: bytes) -> bytes:
         put(table[w])
         table[wc] = nxt
         nxt += 1
-        if nxt > (1 << nbits) - 1 and nbits < 12:
+        if nxt > (1 << nbits) - 1 + late and nbits < 12:
             nbits += 1
         if nxt >= 4094:
             put(256)
@@ -617,12 +958,158 @@ def lzw_encode(raw: bytes) -> bytes:
     if w:
         put(table[w])
         nxt += 1
-        if nxt > (1 << nbits) - 1 and nbits < 12:
+        if nxt > (1 << nbits) - 1 + late and nbits < 12:
             nbits += 1
     put(257)
     if nacc:
-        out.append(acc << (8 - nacc) & 0xFF)
+        out.append(acc & 0xFF if old_style else acc << (8 - nacc) & 0xFF)
     return bytes(out)
+
+
+# the T.4 modified Huffman code words (most significant bit first): the
+# terminating codes of runs 0-63 and the make-up codes of 64-1728 per
+# colour, then the make-up codes of 1792-2560 both colours share
+_TERM = {0: (
+    "00110101 000111 0111 1000 1011 1100 1110 1111 10011 10100 00111 01000 "
+    "001000 000011 110100 110101 101010 101011 0100111 0001100 0001000 "
+    "0010111 0000011 0000100 0101000 0101011 0010011 0100100 0011000 "
+    "00000010 00000011 00011010 00011011 00010010 00010011 00010100 "
+    "00010101 00010110 00010111 00101000 00101001 00101010 00101011 "
+    "00101100 00101101 00000100 00000101 00001010 00001011 01010010 "
+    "01010011 01010100 01010101 00100100 00100101 01011000 01011001 "
+    "01011010 01011011 01001010 01001011 00110010 00110011 00110100"),
+    1: (
+    "0000110111 010 11 10 011 0011 0010 00011 000101 000100 0000100 0000101 "
+    "0000111 00000100 00000111 000011000 0000010111 0000011000 0000001000 "
+    "00001100111 00001101000 00001101100 00000110111 00000101000 "
+    "00000010111 00000011000 000011001010 000011001011 000011001100 "
+    "000011001101 000001101000 000001101001 000001101010 000001101011 "
+    "000011010010 000011010011 000011010100 000011010101 000011010110 "
+    "000011010111 000001101100 000001101101 000011011010 000011011011 "
+    "000001010100 000001010101 000001010110 000001010111 000001100100 "
+    "000001100101 000001010010 000001010011 000000100100 000000110111 "
+    "000000111000 000000100111 000000101000 000001011000 000001011001 "
+    "000000101011 000000101100 000001011010 000001100110 000001100111")}
+_MAKEUP = {0: (
+    "11011 10010 010111 0110111 00110110 00110111 01100100 01100101 "
+    "01101000 01100111 011001100 011001101 011010010 011010011 011010100 "
+    "011010101 011010110 011010111 011011000 011011001 011011010 011011011 "
+    "010011000 010011001 010011010 011000 010011011"),
+    1: (
+    "0000001111 000011001000 000011001001 000001011011 000000110011 "
+    "000000110100 000000110101 0000001101100 0000001101101 0000001001010 "
+    "0000001001011 0000001001100 0000001001101 0000001110010 "
+    "0000001110011 0000001110100 0000001110101 0000001110110 "
+    "0000001110111 0000001010010 0000001010011 0000001010100 "
+    "0000001010101 0000001011010 0000001011011 0000001100100 "
+    "0000001100101")}
+_MAKEUP_X = ("00000001000 00000001100 00000001101 000000010010 000000010011 "
+             "000000010100 000000010101 000000010110 000000010111 "
+             "000000011100 000000011101 000000011110 000000011111").split()
+_VERTICAL = {-3: "0000010", -2: "000010", -1: "010", 0: "1", 1: "011",
+             2: "000011", 3: "0000011"}  # a1 - b1
+EOL = "000000000001"
+
+
+def _run_code(run: int, colour: int) -> str:
+    """The make-up and terminating code words of one run (0 white, 1
+    black)."""
+    term, makeup = _TERM[colour].split(), _MAKEUP[colour].split()
+    words = []
+    while run >= 2560 + 64:
+        words.append(_MAKEUP_X[-1])
+        run -= 2560
+    if run >= 64:
+        m = run // 64
+        words.append(makeup[m - 1] if m <= 27 else _MAKEUP_X[m - 28])
+    return "".join(words) + term[run % 64]
+
+
+def _changes(row: np.ndarray) -> np.ndarray:
+    """The changing elements of a row of 0 (white) / 1 (black) pixels: the
+    columns whose colour differs from the one before (white before the
+    first)."""
+    return np.flatnonzero(np.diff(row.astype(np.int8), prepend=0))
+
+
+def _mh_row(row: np.ndarray) -> str:
+    """One row in modified Huffman (1-D) code: runs from white."""
+    edges = np.concatenate([[0], _changes(row), [len(row)]])
+    return "".join(_run_code(int(r), k & 1)
+                   for k, r in enumerate(np.diff(edges)))
+
+
+def _read_row(row: np.ndarray, ref: np.ndarray) -> str:
+    """One row in 2-D READ code against the reference row (T.4 4.2.1:
+    pass, vertical and horizontal modes)."""
+    W = len(row)
+    a = list(_changes(row)) + [W, W]
+    b = list(_changes(ref)) + [W, W]
+    colour, a0, out = 0, -1, []
+
+    def after(ch, x, col):
+        """The first change right of x to colour col (changes alternate
+        colour, the first to black; the row's end stands for any)."""
+        k = bisect.bisect_right(ch, x)
+        if ch[k] < W and (k & 1) != 1 - col:
+            k += 1
+        return k
+
+    while True:
+        ka = after(a, a0, 1 - colour)
+        a1 = a[ka]
+        kb = after(b, a0, 1 - colour)
+        b1, b2 = b[kb], b[min(kb + 1, len(b) - 1)]
+        if b2 < a1:
+            out.append("0001")
+            a0 = b2
+        elif abs(a1 - b1) <= 3:
+            out.append(_VERTICAL[a1 - b1])
+            a0, colour = a1, 1 - colour
+        else:
+            a2 = a[min(ka + 1, len(a) - 1)]
+            out.append("001" + _run_code(a1 - max(a0, 0), colour) +
+                       _run_code(a2 - a1, 1 - colour))
+            a0 = a2
+        if a0 >= W:
+            return "".join(out)
+
+
+def ccitt_encode(bits: np.ndarray, scheme: int, t4_options: int = 0,
+                 k: int = 2) -> bytes:
+    """``[rows, cols]`` pixels (non-zero black) -> one strip of CCITT code,
+    as a TIFF holds it with FillOrder 1: ``scheme`` 2 (modified Huffman
+    rows, each padded to a byte), 32771 (each padded to 16 bits), 3 (T.4:
+    each row after an EOL, 1-D, or with ``t4_options`` bit 0 one row in
+    ``k`` 1-D and the rest 2-D after a tag bit; bit 2: EOLs ending on a
+    byte boundary; RTC at the end) or 4 (T.6: 2-D rows from an all-white
+    reference, EOFB at the end)."""
+    bits = np.asarray(bits) != 0
+    out, ref = [], np.zeros(bits.shape[1], bool)
+    pos = 0
+    for y, row in enumerate(bits):
+        two_d = scheme == 4 or (scheme == 3 and t4_options & 1 and y % k)
+        code = _read_row(row, ref) if two_d else _mh_row(row)
+        if scheme == 3:
+            eol = EOL
+            if t4_options & 4:  # fill so that the EOL ends a byte
+                eol = "0" * (-(pos + len(eol)) % 8) + eol
+            if t4_options & 1:
+                eol += "0" if two_d else "1"
+            code = eol + code
+        elif scheme in (2, 32771):
+            code += "0" * (-(pos + len(code)) % (8 if scheme == 2 else 16))
+        out.append(code)
+        pos += len(code)
+        ref = row
+    if scheme == 3:
+        out.append((EOL + ("1" if t4_options & 1 else "")) * 6)
+    elif scheme == 4:
+        out.append(EOL * 2)
+    stream = "".join(out)
+    stream += "0" * (-len(stream) % 8)
+    return int(stream, 2).to_bytes(len(stream) // 8, "big") if stream \
+        else b""
 
 
 def packbits_encode(raw: bytes) -> bytes:
@@ -700,12 +1187,65 @@ SAMPLE_TYPES = {np.dtype(np.uint8): (8, 1), np.dtype(np.int8): (8, 2),
                 np.dtype(np.int64): (64, 2), np.dtype(np.float64): (64, 3)}
 
 
+def logl_encode(codes: np.ndarray) -> bytes:
+    """``[rows, cols]`` 16-bit LogL codes -> one strip of SGI Log data
+    (tif_luv.c LogL16Encode's layout): per row the high bytes, then the low,
+    each as runs (a byte 126 + n, n >= 4 copies of the next byte) and
+    literal stretches (a count of at most 127, then the bytes)."""
+    out = bytearray()
+    for row in np.asarray(codes).astype(np.uint16):
+        for plane in ((row >> 8).astype(np.uint8).tobytes(),
+                      (row & 0xFF).astype(np.uint8).tobytes()):
+            i, lit = 0, bytearray()
+            while i <= len(plane):
+                j = i
+                while j < len(plane) and plane[j] == plane[i] and j - i < 129:
+                    j += 1
+                if j - i >= 4 or i == len(plane):
+                    for k in range(0, len(lit), 127):
+                        out += bytes([len(lit[k:k + 127])]) + lit[k:k + 127]
+                    lit = bytearray()
+                    if i == len(plane):
+                        break
+                    out += bytes([126 + j - i, plane[i]])
+                    i = j
+                else:
+                    lit.append(plane[i])
+                    i += 1
+    return bytes(out)
+
+
+def _ycbcr_units(px: np.ndarray, sub: tuple) -> np.ndarray:
+    """``[rows, cols, 3]`` Y, Cb, Cr samples -> their data units at
+    subsampling ``sub`` (h, v): per h x v block (edge blocks padded by
+    repeating the last row and column) the h * v luma samples row by row,
+    then the block's mean Cb and Cr."""
+    h, v = sub
+    rows, cols = px.shape[:2]
+    px = np.pad(px, ((0, -rows % v), (0, -cols % h), (0, 0)), mode="edge")
+    bh, bw = px.shape[0] // v, px.shape[1] // h
+    blocks = px.reshape(bh, v, bw, h, 3).transpose(0, 2, 1, 3, 4)
+    luma = blocks[..., 0].reshape(bh, bw, v * h)
+    chroma = np.round(blocks[..., 1:].reshape(bh, bw, v * h, 2).mean(2))
+    return np.concatenate([luma, chroma.astype(np.uint8)], -1)
+
+
+def _rational(values) -> list:
+    """Floats -> (numerator, denominator) pairs of the RATIONAL type."""
+    from fractions import Fraction
+
+    return [(f.numerator, f.denominator) for f in (
+        Fraction(float(v)).limit_denominator(1 << 16) for v in values)]
+
+
 def encode_tiff(img, compression: str = "none", predictor: int = 1,
                 rows_per_strip=None, tile=None, planar: int = 1,
                 big_endian: bool = False, photometric=None, palette=None,
                 bilevel: bool = False, extra_samples=None,
                 bigtiff: bool = False, orientation=None, quality: int = 75,
-                subsampling=(2, 2), jpeg_tables: bool = True) -> bytes:
+                subsampling=(2, 2), jpeg_tables: bool = True,
+                t4_options: int = 0, fill_order: int = 1,
+                tags=None, chunks=None) -> bytes:
     """``[H, W]`` gray, ``[H, W, 3]`` BGR or ``[H, W, 4]`` BGRA samples of
     a dtype of :data:`SAMPLE_TYPES` -> one-page TIFF bytes, as
     ``cv2.imwrite`` lays out the samples (RGB order in the file), for
@@ -715,34 +1255,51 @@ def encode_tiff(img, compression: str = "none", predictor: int = 1,
       each 8-bit strip or tile as libtiff's JPEG codec does (``quality``;
       gray, RGB as it is with ``photometric`` 2, else YCbCr (6) at
       ``subsampling`` (h, v)), the quantisation and Huffman tables in
-      JPEGTables unless not ``jpeg_tables``;
+      JPEGTables unless not ``jpeg_tables``; "lzw_old" is LZW in the
+      pre-6.0 coding; "ccitt_rle", "ccitt_rlew", "group3" (T4Options
+      ``t4_options``) and "group4" code ``bilevel`` images
+      (:func:`ccitt_encode`); "sgilog" codes ``int16`` LogL values
+      (photometric 32844, :func:`logl_encode`);
     - ``predictor``: 1 (none), 2 (horizontal) or 3 (floating point), for
       LZW and Deflate (libtiff ignores it for the others);
     - ``rows_per_strip`` (default: all), or ``tile`` (length, width);
     - ``planar`` 2: one plane per sample; ``big_endian``: ``MM`` order;
       ``bigtiff``: the BigTIFF header and directory (8-byte counts and
-      offsets);
+      offsets); ``fill_order`` 2: the bits of each byte of the coded data
+      stored in reverse;
     - ``photometric`` (default 1 for gray, 2 for colour), 0 min-is-white;
+      5 (CMYK), 6 (YCbCr) and 8 (CIE L*a*b*) store the samples in the
+      order given; YCbCr other than JPEG in data units at
+      ``subsampling``;
     - ``palette`` ([N, 3] BGR, ``uint8`` or ``uint16``): a palette image
-      whose ``img`` holds [H, W] ``uint8`` indices;
+      whose ``img`` holds [H, W] ``uint8`` or ``uint16`` indices;
     - ``bilevel``: 1-bit gray of ``img`` != 0;
-    - ``extra_samples``: the ExtraSamples value of a 4-sample file (0
-      unspecified, 1 associated, 2 unassociated alpha; default: no tag,
-      as cv2.imwrite writes it);
+    - ``extra_samples``: the ExtraSamples value(s) of a file of 2 or more
+      samples (0 unspecified, 1 associated, 2 unassociated alpha; default:
+      no tag, as cv2.imwrite writes it);
     - ``orientation``: the Orientation tag (1-8) over the samples as
-      given (the file's first row first)."""
+      given (the file's first row first);
+    - ``tags``: {tag: (type 3, 4 or 5, values)} written over the file's
+      own (InkSet, the JPEGInterchangeFormat of old-style JPEG; RATIONAL
+      values as floats: WhitePoint, YCbCrCoefficients,
+      ReferenceBlackWhite);
+      ``chunks``: the strips' or tiles' data as given (bytes each) in place
+      of the coded samples."""
     img = np.asarray(img)
     if img.ndim == 2:
         img = img[..., None]
     H, W, spp = img.shape
-    if spp in (3, 4):
-        img = img[..., [2, 1, 0, 3][:spp]]
     bits, fmt = SAMPLE_TYPES[img.dtype]
     bits = 1 if bilevel else bits
     code = ENCODE_COMPRESSION[compression]
     if photometric is None:
         photometric = 3 if palette is not None else (1 if spp < 3 else (
             6 if code == 7 else 2))
+        photometric = 32844 if code == 34676 else photometric
+    if spp in (3, 4) and (photometric == 2 or code == 7):
+        img = img[..., [2, 1, 0, 3][:spp]]  # BGR -> the file's RGB
+    units = photometric == 6 and code != 7 and planar == 1 and \
+        tuple(subsampling) != (1, 1)
     bo = ">" if big_endian else "<"
     if tile is not None:
         ch, cw = tile
@@ -752,7 +1309,7 @@ def encode_tiff(img, compression: str = "none", predictor: int = 1,
     per = spp // planes
     if code not in (5, 8, 32946):
         predictor = 1  # libtiff takes a predictor for these codecs only
-    chunks, tables = [], None
+    coded, tables = [], None
     for p in range(planes):
         for y0 in range(0, H, ch):
             for x0 in range(0, W, cw):
@@ -765,8 +1322,14 @@ def encode_tiff(img, compression: str = "none", predictor: int = 1,
                     raw = _jpeg_chunk(px, photometric, quality, subsampling)
                     if jpeg_tables:
                         tables, raw = _split_tables(raw)
+                elif code in (2, 3, 4, 32771):
+                    raw = ccitt_encode(px[..., 0], code, t4_options)
+                elif code == 34676:
+                    raw = logl_encode(px[..., 0])
                 elif bilevel:
                     raw = np.packbits(px[..., 0] != 0, axis=1).tobytes()
+                elif units:
+                    raw = _ycbcr_units(px, tuple(subsampling)).tobytes()
                 elif predictor > 1:
                     d = _predicted(px, predictor)
                     raw = d.tobytes() if predictor == 3 else \
@@ -774,14 +1337,17 @@ def encode_tiff(img, compression: str = "none", predictor: int = 1,
                 else:
                     raw = px.astype(px.dtype.newbyteorder(bo)).tobytes()
                 if code == 5:
-                    raw = lzw_encode(raw)
+                    raw = lzw_encode(raw, compression == "lzw_old")
                 elif code in (8, 32946):
                     raw = zlib.compress(raw)
                 elif code == 32773:
                     rb = len(raw) // px.shape[0]  # PackBits codes by rows
                     raw = b"".join(packbits_encode(raw[r * rb:(r + 1) * rb])
                                    for r in range(px.shape[0]))
-                chunks.append(raw)
+                if fill_order == 2:
+                    raw = raw.translate(_REVERSED)
+                coded.append(raw)
+    chunks = coded if chunks is None else list(chunks)
     entries = []  # (tag, type, values)
 
     def add(tag, typ, values):
@@ -792,19 +1358,23 @@ def encode_tiff(img, compression: str = "none", predictor: int = 1,
     add(258, 3, [bits] * spp)
     add(259, 3, [code])
     add(262, 3, [photometric])
+    if fill_order != 1:
+        add(266, 3, [fill_order])
     if orientation is not None:
         add(274, 3, [orientation])
     add(277, 3, [spp])
     add(284, 3, [planar])
+    if code == 3 and t4_options:
+        add(292, 4, [t4_options])
     if predictor > 1:
         add(317, 3, [predictor])
     if palette is not None:
         pal = np.asarray(palette)
-        table = np.zeros((256, 3), np.int64)
+        table = np.zeros((1 << bits, 3), np.int64)
         table[:len(pal)] = pal[:, ::-1]  # BGR -> RGB
         add(320, 3, table.T.reshape(-1))
-    if spp == 4 and extra_samples is not None:
-        add(338, 3, [extra_samples])
+    if extra_samples is not None:
+        add(338, 3, np.atleast_1d(extra_samples))
     add(339, 3, [fmt] * spp)
     if tables is not None:
         add(347, 7, tables)
@@ -826,6 +1396,10 @@ def encode_tiff(img, compression: str = "none", predictor: int = 1,
     long_type = 16 if bigtiff else 4  # LONG8 in BigTIFF
     add(offs_tag, long_type, offsets)
     add(counts_tag, long_type, [len(c) for c in chunks])
+    given = dict(tags or {})
+    entries = [e for e in entries if e[0] not in given] + [
+        (tag, typ, _rational(values) if typ == 5 else list(values))
+        for tag, (typ, values) in given.items()]
     entries.sort()
     ifd_at = pos
     entry, count, nxt = ("HHQ8s", "Q", "Q") if bigtiff else ("HHI4s", "H",
@@ -835,9 +1409,10 @@ def encode_tiff(img, compression: str = "none", predictor: int = 1,
         struct.calcsize(bo + entry) * len(entries) + struct.calcsize(bo + nxt)
     ifd = struct.pack(bo + count, len(entries))
     extra = b""
-    codes = {3: "H", 4: "I", 7: "B", 16: "Q"}
+    codes = {3: "H", 4: "I", 5: "I", 7: "B", 16: "Q"}
     for tag, typ, values in entries:
-        body = struct.pack(f"{bo}{len(values)}{codes[typ]}", *values)
+        flat = [v for pair in values for v in pair] if typ == 5 else values
+        body = struct.pack(f"{bo}{len(flat)}{codes[typ]}", *flat)
         if len(body) <= inline:
             ifd += struct.pack(bo + entry, tag, typ, len(values),
                                body.ljust(inline, b"\0"))

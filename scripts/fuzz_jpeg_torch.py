@@ -1,7 +1,9 @@
 #!/usr/bin/env python
 """Memory-safety check of the port's host decoders in C: the JPEG decoder
-(``csrc/host/jpeg_decode.c``), the TIFF LZW / PackBits decoders and
-predictors (``csrc/host/tiff_lzw.c``), the BMP RLE decoder
+(``csrc/host/jpeg_decode.c``), the TIFF LZW (both codings) / PackBits /
+SGI LogL decoders and predictors (``csrc/host/tiff_lzw.c``), the TIFF
+CCITT decoder (``csrc/host/ccitt_decode.c``), the TIFF colour conversions
+(``csrc/host/tiff_color.c``), the BMP RLE decoder
 (``csrc/host/bmp_rle.c``), the WebP decoders (``csrc/host/webp_decode.c``:
 VP8L, VP8, ALPH), the GIF LZW decoder (``csrc/host/gif_lzw.c``) and the
 Radiance HDR scanline reader and float gray (``csrc/host/hdr_rgbe.c``).
@@ -9,7 +11,10 @@ Builds each with AddressSanitizer and UndefinedBehavior Sanitizer beside a
 small C harness, then decodes every truncation of a few seed streams and
 ``--mutations`` copies of each with 1-4 random bytes overwritten (JPEG:
 to the colour and to the gray output; TIFF: into strips of the seed's
-size and of a random one, then both predictors over the output; RLE: as
+size and of a random one, then both predictors over the output; CCITT: at
+the seed's row width and count and random ones, either bit order, the
+run arrays kept from input to input as libtiff keeps them from strip to
+strip; the colour conversions: over the inputs' bytes as samples; RLE: as
 RLE8 and RLE4 at the seed's size and a random one; WebP, GIF and HDR: at
 the seed's image size and a random one).  Any out-of-bounds access or
 undefined behaviour aborts the harness; otherwise it prints, per decoder,
@@ -26,9 +31,11 @@ transform, restart markers), the strips of a JPEG-compressed TIFF with
 its tables, and two baseline files damaged as libjpeg reads past (restart
 markers out of order, bytes before a marker); ``--files`` adds others
 (progressive Huffman files, whose truncations drive the block smoothing,
-say).  The TIFF seeds are the LZW and PackBits strips of the port's TIFF
-encoder, among them a BigTIFF's float64 strip (its predictors on 8-byte
-samples), the RLE seeds its RLE8 and RLE4 data.  The WebP seeds are the
+say).  The TIFF seeds are the LZW (6.0 and pre-6.0), PackBits and LogL
+strips of the port's TIFF encoder, among them a BigTIFF's float64 strip
+(its predictors on 8-byte samples), the CCITT seeds its RLE, RLEW, Group 3
+(1-D, 2-D, with fill bits) and Group 4 strips, the RLE seeds its RLE8 and
+RLE4 data.  The WebP seeds are the
 bitstreams of the port's lossless encoder (subtract-green, predictor,
 colour cache; with alpha) and of the committed libwebp files of
 ``tests/data/webp`` (the lossy frame's VP8 and ALPH of
@@ -57,7 +64,9 @@ from lgu_slam_tpu_torch.data.image_io import (  # noqa: E402
 from lgu_slam_tpu_torch.data.tiff import (  # noqa: E402
     _ifd,
     _jpeg_tables,
+    ccitt_encode,
     encode_tiff,
+    logl_encode,
     lzw_encode,
     packbits_encode,
 )
@@ -248,8 +257,9 @@ TIFF_HARNESS = r"""
 #include <stdio.h>
 #include <stdlib.h>
 #include <string.h>
-int tiff_lzw_decode(const uint8_t *, int64_t, uint8_t *, int64_t);
+int tiff_lzw_decode(const uint8_t *, int64_t, uint8_t *, int64_t, int);
 int tiff_packbits_decode(const uint8_t *, int64_t, uint8_t *, int64_t);
+int tiff_logl_decode(const uint8_t *, int64_t, uint8_t *, int64_t, int64_t);
 void tiff_hpredict(uint8_t *, int64_t, int64_t, int64_t, int, int);
 int tiff_fpredict(uint8_t *, int64_t, int64_t, int64_t, int);
 int main(int argc, char **argv)
@@ -267,6 +277,8 @@ int main(int argc, char **argv)
             return 2;
         fclose(fp);
         int packbits = strstr(argv[f], "packbits") != NULL;
+        int old = strstr(argv[f], "lzwold") != NULL;
+        int logl = strstr(argv[f], "logl") != NULL;
         for (long it = 0; it < n + mutations; it++) {
             long m = it < n ? it : n;
             uint8_t *d = malloc((size_t)(m > 0 ? m : 1));
@@ -277,8 +289,10 @@ int main(int argc, char **argv)
             long occ = it & 1 ? 1 + rand() % (2 * occ0) : occ0;
             occ = (occ + 7) & ~7L; /* whole 64-bit samples */
             uint8_t *o = malloc((size_t)occ);
+            int64_t width = it & 1 ? 1 + rand() % 64 : 40;
             int st = packbits ? tiff_packbits_decode(d, m, o, occ)
-                              : tiff_lzw_decode(d, m, o, occ);
+                     : logl   ? tiff_logl_decode(d, m, o, occ / width, width)
+                              : tiff_lzw_decode(d, m, o, occ, old);
             int64_t rowbytes = 8 * (1 + rand() % 8);
             int64_t rows = occ / rowbytes;
             tiff_hpredict(o, rows, rowbytes, 1 + rand() % 4,
@@ -295,6 +309,85 @@ int main(int argc, char **argv)
     printf("{\"decoded\": %ld, \"corrupt\": %ld, \"unsupported\": %ld, "
            "\"out_of_memory\": %ld}\n", counts[0], counts[1], counts[2],
            counts[3]);
+    return 0;
+}
+"""
+
+# one strip per file: argv[3...] as (file, scheme, 2-D, width, rows); each
+# decoded at its own width and row count with one state kept across the
+# inputs, and at random ones (odd inputs) with a state of their own
+CCITT_HARNESS = LOOP + r"""
+int64_t ccitt_state_size(int64_t, int);
+int ccitt_decode(const uint8_t *, int64_t, uint8_t *, int64_t, int64_t,
+                 int64_t, int, int, int, int, uint32_t *);
+int main(int argc, char **argv)
+{
+    long mutations = atol(argv[1]), counts[2] = {0};
+    srand((unsigned)atoi(argv[2]));
+    for (int f = 3; f + 4 < argc; f += 5) {
+        int scheme = atoi(argv[f + 1]), two_d = atoi(argv[f + 2]);
+        int64_t W = atol(argv[f + 3]), H = atol(argv[f + 4]);
+        long n;
+        uint8_t *base = load(argv[f], &n);
+        int64_t size = ccitt_state_size(W, scheme == 4 || two_d);
+        uint32_t *kept = calloc((size_t)size, sizeof(uint32_t));
+        FOR_EACH_INPUT(base, n, mutations, {
+            int64_t w = it & 1 ? 1 + rand() % 300 : W;
+            int64_t h = it & 1 ? 1 + rand() % 40 : H;
+            int64_t rowbytes = (w + 7) / 8;
+            uint32_t *state = kept;
+            if (it & 1)
+                state = calloc((size_t)ccitt_state_size(w, scheme == 4 ||
+                                                        two_d),
+                               sizeof(uint32_t));
+            uint8_t *o = calloc((size_t)(h * rowbytes), 1);
+            counts[ccitt_decode(d, m, o, h, w, rowbytes, scheme, two_d,
+                                rand() & 1, rand() & 1, state)]++;
+            free(o);
+            if (state != kept)
+                free(state);
+        });
+        free(kept);
+        free(base);
+    }
+    printf("{\"decoded\": %ld, \"damaged\": %ld}\n", counts[0],
+           counts[1]);
+    return 0;
+}
+"""
+
+# the inputs' bytes as L*a*b* (8 and 16 bits), CMYK and YCbCr samples
+COLOR_HARNESS = LOOP + r"""
+void tiff_lab_to_rgb(const void *, int64_t, int, float, float, float,
+                     const float *, uint8_t *);
+void tiff_cmyk_to_rgb(const uint8_t *, int64_t, uint8_t *);
+void tiff_ycbcr_to_rgb(const uint8_t *, int64_t, const int32_t *,
+                       uint8_t *);
+int main(int argc, char **argv)
+{
+    long mutations = atol(argv[1]), pixels = 0;
+    srand((unsigned)atoi(argv[2]));
+    float ramp[1501];
+    int32_t tab[1280];
+    for (int i = 0; i < 1501; i++)
+        ramp[i] = 255.0F * (float)i / 1500;
+    for (int i = 0; i < 1280; i++)
+        tab[i] = (i % 256 - 128) * (i < 768 ? 1 : 65536);
+    for (int f = 3; f < argc; f++) {
+        long n;
+        uint8_t *base = load(argv[f], &n);
+        FOR_EACH_INPUT(base, n, mutations, {
+            uint8_t *o = malloc((size_t)(m + 3));
+            tiff_lab_to_rgb(d, m / 3, 8, 96.4F, 100.0F, 82.5F, ramp, o);
+            tiff_lab_to_rgb(d, m / 6, 16, 96.4F, 100.0F, 82.5F, ramp, o);
+            tiff_cmyk_to_rgb(d, m / 4, o);
+            tiff_ycbcr_to_rgb(d, m / 3, tab, o);
+            pixels += m / 3;
+            free(o);
+        });
+        free(base);
+    }
+    printf("{\"pixels\": %ld}\n", pixels);
     return 0;
 }
 """
@@ -397,10 +490,28 @@ def tiff_seeds(rng) -> list:
     big = encode_tiff(depth, "lzw", 3, bigtiff=True)
     tags = _ifd(big, "")[0]
     off, n = tags["strip_offsets"][0], tags["strip_counts"][0]
+    codes = (np.cumsum(rng.integers(-3, 4, (16, 40)), 1) + 16000).astype(
+        np.int16)
     return [(lzw_encode(raw), len(raw), "lzw"),
             (packbits_encode(raw), len(raw), "packbits"),
             (lzw_encode(raw * 9), 9 * len(raw), "lzw"),
-            (big[off:off + n], depth.nbytes, "lzw")]
+            (big[off:off + n], depth.nbytes, "lzw"),
+            (lzw_encode(raw * 9, old_style=True), 9 * len(raw), "lzwold"),
+            (logl_encode(codes), codes.size, "logl")]
+
+
+def ccitt_seeds(rng) -> list:
+    """(strip, scheme, 2-D, width, rows) of each CCITT scheme over blobs
+    and noise."""
+    yy, xx = np.mgrid[:24, :150]
+    bits = (np.sin(xx / 5.0) * np.cos(yy / 3.0) > 0.2).astype(np.uint8)
+    bits[12:] = rng.integers(0, 2, (12, 150))
+    out = []
+    for scheme, options in ((2, 0), (32771, 0), (3, 0), (3, 1), (3, 5),
+                            (4, 0)):
+        out.append((ccitt_encode(bits, scheme, options), scheme,
+                    options & 1, 150, 24))
+    return out
 
 
 def rle_seeds(rng) -> list:
@@ -502,6 +613,17 @@ def main(argv=None) -> str:
                            tiff_args, args.mutations, args.seed),
             "bmp_rle " + _run(tmp, "fuzz_rle", RLE_HARNESS, ["bmp_rle.c"],
                               rle_args, args.mutations, args.seed)]
+        ccitt_args = []
+        for k, (data, scheme, two_d, w, h) in enumerate(ccitt_seeds(rng)):
+            ccitt_args += [write(f"ccitt{k}", data), str(scheme), str(two_d),
+                           str(w), str(h)]
+        lines += [
+            "ccitt " + _run(tmp, "fuzz_ccitt", CCITT_HARNESS,
+                            ["ccitt_decode.c"], ccitt_args, args.mutations,
+                            args.seed),
+            "tiff_color " + _run(tmp, "fuzz_color", COLOR_HARNESS,
+                                 ["tiff_color.c"], jpeg[:3] + tiff_args[::2],
+                                 args.mutations, args.seed)]
         webp_args, gif_args, hdr_args = [], [], []
         for k, (data, kind, w, h) in enumerate(webp_seeds(rng)):
             webp_args += [write(f"webp{k}", data), kind, str(w), str(h)]

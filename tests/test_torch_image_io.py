@@ -554,6 +554,25 @@ def _kind(name: str, tmp_path) -> bytes:
         return bytes(raw)
     if name == "tiff_gray_alpha":
         return tiff.encode_tiff(img[..., :2])
+    if name == "tiff_logl":
+        return tiff.encode_tiff(gray.astype(np.int16) * 60 + 9000, "sgilog")
+    if name == "tiff_cmyk_16":
+        return tiff.encode_tiff(np.concatenate(
+            [img, gray[..., None]], -1).astype(np.uint16) * 257,
+            photometric=5)
+    if name == "tiff_ycbcr_2x4":
+        return _tiff_patch(tiff.encode_tiff(img, photometric=6,
+                                            subsampling=(2, 4)), 262, 6)
+    if name == "tiff_palette_1":
+        return tiff.encode_tiff(gray >> 7, bilevel=True, palette=rng.integers(
+            0, 256, (2, 3), np.uint8))
+    if name == "tiff_palette_16":
+        return tiff.encode_tiff(gray.astype(np.uint16) * 199, palette=rng.
+                                integers(0, 65536, (1 << 16, 3), np.uint16))
+    if name == "tiff_old_jpeg_tags":
+        jpg = enc(img, 90)
+        return tiff.encode_tiff(img, photometric=6, chunks=[jpg], tags={
+            259: (3, [6]), 513: (4, [8]), 514: (4, [len(jpg)])})
     if name.startswith("tiff_photometric_"):
         ph = int(name.split("_")[-1])
         src = np.concatenate([img, gray[..., None]], -1) if ph == 5 else \
@@ -612,19 +631,25 @@ CLASSES = {
     "tiff_scheme_32909_8": ("none", "none"),  # PixarLog
     "tiff_scheme_3_8": ("none", "none"),  # CCITT Group 3 of 8-bit samples
     "tiff_scheme_6_8": ("none", "none"),  # old-style JPEG, no JPEG tags
-    "tiff_scheme_50002_8": ("queued", "queued"),  # JPEG XL: unknown scheme
-    "tiff_scheme_34712_1": ("queued", "queued"),  # JPEG 2000: unknown
-    "tiff_scheme_32771_1": ("queued", "queued"),  # CCITT RLEW
+    "tiff_scheme_50002_8": ("read", "read"),  # JPEG XL: unknown, zeros
+    "tiff_scheme_34712_1": ("read", "read"),  # JPEG 2000: unknown, zeros
+    "tiff_scheme_32771_1": ("read", "read"),  # CCITT RLEW over raw bits
     "tiff_sgilog_gray": ("none", "none"),
-    "tiff_group3": ("queued", "queued"),
-    "tiff_group4": ("queued", "queued"),
-    "tiff_ccitt": ("queued", "queued"),
-    "tiff_old_style_lzw": ("queued", "queued"),
-    "tiff_gray_alpha": ("queued", "queued"),
+    "tiff_group3": ("read", "read"),
+    "tiff_group4": ("read", "read"),
+    "tiff_ccitt": ("read", "read"),
+    "tiff_old_style_lzw": ("read", "read"),
+    "tiff_gray_alpha": ("read", "read"),
     "tiff_photometric_4": ("none", "none"),  # transparency mask
-    "tiff_photometric_5": ("queued", "queued"),  # CMYK
-    "tiff_photometric_6": ("queued", "queued"),  # YCbCr, uncompressed
-    "tiff_photometric_8": ("queued", "queued"),  # CIE L*a*b*
+    "tiff_photometric_5": ("read", "read"),  # CMYK
+    "tiff_photometric_6": ("read", "read"),  # YCbCr, uncompressed
+    "tiff_photometric_8": ("read", "read"),  # CIE L*a*b*
+    "tiff_logl": ("read", "read"),  # SGI LogL
+    "tiff_cmyk_16": ("none", "none"),
+    "tiff_ycbcr_2x4": ("none", "none"),  # no put function of libtiff's
+    "tiff_palette_1": ("read", "read"),
+    "tiff_palette_16": ("none", "none"),
+    "tiff_old_jpeg_tags": ("none", "none"),  # not configured in libtiff
     "tiff_no_photometric": ("none", "none"),
     "tiff_palette_without_colormap": ("read", "read"),
     "tiff_jpeg": ("read", "read"),

@@ -12,7 +12,7 @@ import pytest
 from torch_port import torch_single_thread  # noqa: F401
 
 from lgu_slam_tpu.data import streams as jstreams
-from lgu_slam_tpu_torch.data import fixtures
+from lgu_slam_tpu_torch.data import fixtures, tiff
 from lgu_slam_tpu_torch.data import streams as tstreams
 from lgu_slam_tpu_torch.data.image_io import imwrite
 
@@ -322,3 +322,54 @@ def test_tum_stream_depth_formats_match_jax(depth, tmp_path):
     for a, b in zip(items, ref):
         for x, y in zip(a[1:], b[1:]):
             np.testing.assert_array_equal(x, y)
+
+
+def test_tum_stream_ycbcr_tiff_matches_jax(tmp_path):
+    """The TUM reader over an fr1 sequence of uncompressed YCbCr TIFF
+    colour (2 x 2 subsampled) and 16-bit LZW TIFF depth: the port's stream
+    equals the JAX one exactly, and equals the port's own stream over the
+    PNG of what those TIFFs read back as with the 16-bit PNG depth of the
+    same values (chip_smoke.py phase 15's pair)."""
+    name = "rgbd_dataset_freiburg1_desk"
+    root = fixtures.write_tum_sequence(str(tmp_path / "tiff" / name),
+                                       n_frames=3, color="ycbcr-tiff",
+                                       depth="lzw16-tiff")
+    png = fixtures.write_tum_sequence(str(tmp_path / "png" / name),
+                                      n_frames=3, color="ycbcr-png")
+    items = _held(tstreams.tum_rgbd_stream(root, stride=1),
+                  jstreams.tum_rgbd_stream(root, stride=1))
+    ref = list(tstreams.tum_rgbd_stream(png, stride=1))
+    for a, b in zip(items, ref):
+        for x, y in zip(a[1:], b[1:]):
+            np.testing.assert_array_equal(x, y)
+
+
+TIFF_KINDS = {
+    "group4": lambda img: tiff.encode_tiff(
+        (img[..., 1] > 100).astype(np.uint8), "group4", bilevel=True,
+        photometric=0),
+    "old_style_lzw": lambda img: tiff.encode_tiff(img, "lzw_old"),
+    "cmyk": lambda img: tiff.encode_tiff(np.concatenate(
+        [255 - img[..., ::-1], img[..., :1] // 4], -1), photometric=5),
+    "cielab": lambda img: tiff.encode_tiff(img, photometric=8),
+    "gray_alpha": lambda img: tiff.encode_tiff(
+        np.stack([img[..., 1], img[..., 2]], -1), extra_samples=2)}
+
+
+@pytest.mark.parametrize("kind", list(TIFF_KINDS))
+def test_image_stream_over_new_tiff_kinds_matches_jax(kind, tmp_path):
+    """image_stream over a directory of Group 4, old-style LZW, CMYK, CIE
+    L*a*b* or gray-with-alpha TIFF frames: the JAX stream (cv2.imread) and
+    the port's yield the same frames and intrinsics, with distortion."""
+    images = fixtures.render_sequence(5, 4, 60, 80, (70.0, 70.0, 40.0, 30.0),
+                                      t_step=0.05, r_step=0.01)[0]
+    os.makedirs(tmp_path / "rgb")
+    for k in range(len(images)):
+        (tmp_path / "rgb" / f"{k:03d}.tif").write_bytes(
+            TIFF_KINDS[kind](images[k]))
+    (tmp_path / "calib.txt").write_text(
+        "70.0 70.0 40.0 30.0 0.2624 -0.9531 -0.0054 0.0026 1.1633\n")
+    args = (str(tmp_path / "rgb"), str(tmp_path / "calib.txt"))
+    items = _held(tstreams.image_stream(*args, stride=1),
+                  jstreams.image_stream(*args, stride=1))
+    assert len(items) == 4

@@ -9,6 +9,7 @@ predictor and strip height it writes, and the port's ``encode_tiff`` for
 the layouts cv2 does not write (big-endian, tiles, separate planes,
 palettes, bilevel, min-is-white, alpha)."""
 
+import io
 import struct
 
 import cv2
@@ -181,10 +182,10 @@ def test_refusals(tmp_path):
     file cut short, an 8-bit file's compression tag set to JPEG over raw
     data, to LZMA, ZSTD, WebP or LERC, which this libtiff does not decode,
     or to CCITT, which codes 1-bit images only; a BigTIFF header pointing
-    at no directory); what cv2 reads and the port does not, or reads only
-    from memory it never wrote, raises NotImplementedError naming it (a
-    scheme libtiff does not know, JPEG XL, whose zeroed buffers cv2 reads;
-    16-bit separate colour planes read to gray)."""
+    at no directory); a scheme libtiff does not know (JPEG XL) reads as
+    its zeroed buffers, as cv2 reads it; what cv2 reads only from memory
+    it never wrote raises NotImplementedError naming it (16-bit separate
+    colour planes read to gray)."""
     rng = np.random.default_rng(9)
     path = tmp_path / "r.tif"
 
@@ -218,9 +219,12 @@ def test_refusals(tmp_path):
         data = _patch(base, 259, code)
         path.write_bytes(data)
         assert (cv2.imread(str(path)) is None) == refused
-        with pytest.raises(ValueError if refused else NotImplementedError,
-                           match=name):
-            read(data)
+        if refused:
+            with pytest.raises(ValueError, match=name):
+                read(data)
+        else:
+            same_as_cv2(path)
+            assert read(data).max() == 0
     data = b"II+\0\x08\0\0\0" + bytes(16)
     path.write_bytes(data)
     assert cv2.imread(str(path)) is None
@@ -267,7 +271,9 @@ def test_lzw_and_packbits_round_trip():
     """The fixtures' LZW and PackBits encoders against the C decoders on
     data that fills the LZW table past its clear code and runs of every
     length PackBits takes; a stream cut short leaves zeros and is
-    damaged; an old-style (LSB-first) LZW stream is refused."""
+    damaged; an old-style (LSB-first, pre-6.0) LZW stream of the same data
+    decodes to it, and read as a 6.0 stream is damaged from its first
+    code (libtiff: "Using code not yet in table")."""
     rng = np.random.default_rng(17)
     raw = np.concatenate([rng.integers(0, 256, 6000),
                           np.repeat(rng.integers(0, 4, 300), 7),
@@ -282,8 +288,13 @@ def test_lzw_and_packbits_round_trip():
     assert part[-500:].max() == 0 and part[:100].tobytes() == raw[:100]
     pb = tiff.packbits_encode(raw)
     assert tiff._decompress(pb, len(raw), 32773, "", False).tobytes() == raw
-    with pytest.raises(NotImplementedError, match="old-style"):
-        tiff._decompress(b"\x00\x01" + lzw, len(raw), 5, "", False)
+    old = tiff.lzw_encode(raw, old_style=True)
+    assert old[0] == 0 and old[1] & 1  # libtiff's test for old-style codes
+    assert tiff._decompress(old, len(raw), 5, "", False,
+                            old_lzw=True).tobytes() == raw
+    with pytest.raises(ValueError, match="LZW"):
+        tiff._decompress(old, len(raw), 5, "", False)
+    assert tiff._decompress(old, len(raw), 5, "", True).max() == 0
 
 
 def _same(data: bytes, tmp_path, modes=(False, True)):
@@ -445,3 +456,379 @@ def test_sample_formats(dtype, channels, tmp_path):
             got = image_io.imread(str(path), anydepth=True)
             assert got.dtype == np.dtype(dtype)
             np.testing.assert_array_equal(got, img)
+
+
+# -- old-style LZW, extra samples, CMYK, YCbCr, CIE L*a*b*, palettes, LogL,
+# -- unknown schemes, FillOrder ----------------------------------------------
+
+NEW_LAYOUTS = {"strips": dict(rows_per_strip=4), "one_strip": {},
+               "tiles": dict(tile=(16, 16)), "big_endian": dict(
+                   big_endian=True), "planar": dict(planar=2),
+               "planar_tiles": dict(planar=2, tile=(16, 16)),
+               "lzw": dict(compression="lzw", rows_per_strip=8),
+               "lzw_predictor": dict(compression="lzw", predictor=2)}
+
+
+def _strip_damage(data: bytes, tmp_path, rng, mutations: int = 60):
+    """Each strip's byte count cut, and copies with 1-3 bytes of the strips
+    replaced or bit-flipped: as cv2.imread reads them."""
+    tags = tiff._ifd(data, "")[0]
+    for k, count in enumerate(tags["strip_counts"]):
+        for cut in range(1, count, max(1, count // 8)):
+            _same(_patch(data, 279, cut, index=k), tmp_path)
+    start = tags["strip_offsets"][0]
+    end = tags["strip_offsets"][-1] + tags["strip_counts"][-1]
+    for _ in range(mutations):
+        raw = bytearray(data)
+        for _ in range(int(rng.integers(1, 4))):
+            i = int(rng.integers(start, end))
+            raw[i] = int(rng.integers(0, 256)) if rng.random() < 0.5 else \
+                raw[i] ^ 1 << int(rng.integers(0, 8))
+        _same(bytes(raw), tmp_path)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_old_style_lzw(kind, tmp_path):
+    """Pre-6.0 LZW (codes least significant bit first, the code width
+    growing on time) in strips, tiles and big-endian files, with the
+    horizontal or floating-point predictor, and damaged (byte counts cut,
+    bytes overwritten): as cv2.imread reads it; libtiff decodes every
+    strip in the coding of the first one it reads."""
+    rng = np.random.default_rng(40 + KINDS.index(kind))
+    im = _image(kind, rng)
+    for layout in ("strips", "one_strip", "tiles", "big_endian"):
+        for predictor in ((1, 3) if kind == "float32" else (1, 2)):
+            _same(tiff.encode_tiff(im, "lzw_old", predictor,
+                                   **NEW_LAYOUTS[layout]), tmp_path)
+    if kind in ("bgr8", "gray16"):
+        data = tiff.encode_tiff(im, "lzw_old", rows_per_strip=8)
+        _strip_damage(data, tmp_path, rng)
+        # the first strip's first bytes decide the coding of every strip
+        for coding, first in (("lzw_old", b"\x80\x00"),
+                              ("lzw", b"\x00\x01")):
+            raw = bytearray(tiff.encode_tiff(im, coding, rows_per_strip=8))
+            at = tiff._ifd(bytes(raw), "")[0]["strip_offsets"]
+            raw[at[0]:at[0] + 2] = first
+            _same(bytes(raw), tmp_path)
+            raw = bytearray(tiff.encode_tiff(im, coding, rows_per_strip=8))
+            raw[at[1]:at[1] + 2] = first
+            _same(bytes(raw), tmp_path)
+    big = rng.integers(0, 256, (150, 200), np.uint8)  # fills the table
+    path = _same(tiff.encode_tiff(big, "lzw_old"), tmp_path)
+    np.testing.assert_array_equal(image_io.imread(str(path),
+                                                  anydepth=True), big)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.int8, np.int16])
+def test_gray_extra_samples(dtype, tmp_path):
+    """Gray with 1-3 extra samples, ExtraSamples absent, unspecified,
+    associated or unassociated alpha, min-is-black and min-is-white, in
+    every layout: as cv2.imread reads it, through libtiff's RGBA interface
+    in both modes (16-bit too): contiguous samples read as the gray of
+    the first (alpha dropped; a tile cut by the right edge skewed by
+    bytes); separate planes read as RGB of plane 0 (not inverted, 16
+    bits rounded), an unassociated alpha multiplied in."""
+    rng = np.random.default_rng(50)
+    info = np.iinfo(dtype)
+    for spp in (2, 4):
+        im = rng.integers(info.min, info.max, (H, W, spp), endpoint=True
+                          ).astype(dtype)
+        for extra in (None, 0, 1, 2):
+            for photometric in (0, 1):
+                for name, layout in NEW_LAYOUTS.items():
+                    # anydepth of 16-bit planes of 3+ samples: test_refusals
+                    modes = (False,) if dtype().itemsize == 2 and spp > 2 \
+                        and name.startswith("planar") else (False, True)
+                    _same(tiff.encode_tiff(
+                        im, photometric=photometric, extra_samples=None if
+                        extra is None else [extra] * (spp - 1), **layout),
+                        tmp_path, modes)
+    if dtype == np.uint8:
+        path = _same(tiff.encode_tiff(im[..., :2], extra_samples=2),
+                     tmp_path)
+        np.testing.assert_array_equal(image_io.imread(str(path),
+                                                      anydepth=True),
+                                      im[..., 0])
+
+
+def test_cmyk(tmp_path):
+    """Separated (photometric 5) 8-bit CMYK, contiguous and in planes, in
+    strips and tiles, LZW: libtiff's RGB of it (255 - K) * (255 - C) / 255
+    ... truncated, bit for bit as cv2.imread reads it in both modes;
+    16-bit CMYK, inks other than CMYK and 3 or 5 samples: cv2 returns
+    None, ValueError."""
+    rng = np.random.default_rng(51)
+    cmyk = rng.integers(0, 256, (H, W, 4), np.uint8)
+    for layout in NEW_LAYOUTS.values():
+        _same(tiff.encode_tiff(cmyk, photometric=5, **layout), tmp_path)
+    path = _same(tiff.encode_tiff(cmyk, photometric=5), tmp_path)
+    k = 255 - cmyk[..., 3:].astype(int)
+    np.testing.assert_array_equal(image_io.imread(str(path)),
+                                  (k * (255 - cmyk[..., 2::-1])) // 255)
+    for data in (tiff.encode_tiff(cmyk.astype(np.uint16) * 257,
+                                  photometric=5),
+                 tiff.encode_tiff(cmyk.astype(np.uint16) * 257,
+                                  photometric=5, planar=2),
+                 tiff.encode_tiff(cmyk[..., :3], photometric=5),
+                 tiff.encode_tiff(np.concatenate([cmyk, cmyk[..., :1]], -1),
+                                  photometric=5),
+                 tiff.encode_tiff(cmyk, photometric=5, tags={332: (3, [2])})):
+        path = _same(data, tmp_path)
+        with pytest.raises(ValueError, match="cv2.imread returns None"):
+            image_io.imread(str(path))
+
+
+YCBCR_SUBSAMPLINGS = [(1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4)]
+
+
+@pytest.mark.parametrize("sub", YCBCR_SUBSAMPLINGS)
+def test_ycbcr(sub, tmp_path):
+    """Uncompressed and LZW YCbCr (photometric 6, not JPEG) in data units
+    at each subsampling libtiff's RGBA interface reads, in strips of 4 v
+    rows, one strip, tiles and big-endian files, the horizontal predictor,
+    other YCbCrCoefficients and ReferenceBlackWhite: libtiff's fixed-point
+    YCbCr -> RGB, bit for bit as cv2.imread reads it in both modes (a strip
+    read as its rows rounded up to v, in scanlines; 4 x 4 tiles cut by the
+    right edge skipped as 10-byte units)."""
+    rng = np.random.default_rng(52 + YCBCR_SUBSAMPLINGS.index(sub))
+    ycc = rng.integers(0, 256, (H, W, 3), np.uint8)
+    ycc[:, 20:] = 128
+    for name, layout in NEW_LAYOUTS.items():
+        if name.startswith("planar") and sub != (1, 1):
+            continue
+        layout = dict(rows_per_strip=4 * sub[1]) if name == "strips" \
+            else layout
+        _same(tiff.encode_tiff(ycc, photometric=6, subsampling=sub,
+                               **layout), tmp_path)
+    for coefficients, black_white in (
+            ((0.2126, 0.7152, 0.0722), None),
+            (None, (16, 235, 128, 240, 128, 240)),
+            ((0.299, 0.587, 0.114), (10, 200, 100, 220, 90, 250))):
+        tags = {529: (5, coefficients), 532: (5, black_white)}
+        _same(tiff.encode_tiff(ycc, photometric=6, subsampling=sub, tags={
+            k: v for k, v in tags.items() if v[1] is not None}), tmp_path)
+    if sub == (2, 2):
+        for bad in ((2, 4), (1, 4), (3, 3)):  # no put function: None
+            data = tiff.encode_tiff(ycc, photometric=6, subsampling=(2, 2))
+            path = _same(_patch(_patch(data, 530, bad[0]), 530, bad[1], 1),
+                         tmp_path)
+            with pytest.raises(ValueError):
+                image_io.imread(str(path))
+        path = _same(tiff.encode_tiff(ycc, photometric=6, planar=2,
+                                      subsampling=(2, 2)), tmp_path)
+        with pytest.raises(ValueError, match="cv2.imread returns None"):
+            image_io.imread(str(path))
+
+
+def test_cielab(tmp_path):
+    """CIE L*a*b* (photometric 8) of 8 and 16 bits in strips, tiles and
+    big-endian files, other white points, and every 8-bit L* over a grid
+    of a*, b*: cv2.imread converts through libtiff (TIFFCIELabToXYZ, then
+    TIFFXYZToRGB to sRGB) and the port in its float32 steps, bit for bit
+    in both modes; separate planes, 2 or 4 samples: None, ValueError."""
+    rng = np.random.default_rng(60)
+    for dtype in (np.uint8, np.uint16, np.int16):
+        info = np.iinfo(dtype)
+        lab = rng.integers(info.min, info.max, (H, W, 3), endpoint=True
+                           ).astype(dtype)
+        for name, layout in NEW_LAYOUTS.items():
+            if not name.startswith("planar"):
+                _same(tiff.encode_tiff(lab, photometric=8, **layout),
+                      tmp_path)
+        for white in ((0.3127, 0.329), (0.25, 0.4)):
+            _same(tiff.encode_tiff(lab, photometric=8,
+                                   tags={318: (5, white)}),
+                  tmp_path)
+        path = _same(tiff.encode_tiff(lab, photometric=8, planar=2),
+                     tmp_path)
+        with pytest.raises(ValueError):
+            image_io.imread(str(path))
+    a, b = np.meshgrid(np.arange(0, 256, 3), np.arange(0, 256, 3))
+    grid = np.stack([np.broadcast_to(np.arange(256)[:, None, None],
+                                     (256,) + a.shape),
+                     np.broadcast_to(a, (256,) + a.shape),
+                     np.broadcast_to(b, (256,) + a.shape)], -1)
+    _same(tiff.encode_tiff(grid.reshape(-1, a.size, 3).astype(np.uint8),
+                           photometric=8), tmp_path)
+    for spp in (2, 4):
+        path = _same(tiff.encode_tiff(rng.integers(
+            0, 256, (H, W, spp), np.uint8), photometric=8), tmp_path)
+        with pytest.raises(ValueError):
+            image_io.imread(str(path))
+
+
+def test_palettes(tmp_path):
+    """A 1-bit palette (its two entries looked up, 16-bit entries shifted),
+    8-bit palettes of 2-4 samples (the first indexes; a tile cut by the
+    right edge skewed by bytes), bit for bit as cv2.imread reads them;
+    16-bit palettes and palettes in separate planes: None, ValueError."""
+    rng = np.random.default_rng(61)
+    bits = rng.integers(0, 2, (H, W), np.uint8)
+    for pal in (np.array([[12, 34, 56], [200, 100, 0]], np.uint8),
+                np.array([[65535, 0, 12345], [0, 54321, 65535]], np.uint16)):
+        for layout in ({}, dict(tile=(16, 16)), dict(compression="group4")):
+            path = _same(tiff.encode_tiff(bits, palette=pal, bilevel=True,
+                                          **layout), tmp_path)
+            np.testing.assert_array_equal(image_io.imread(str(path)), (
+                pal >> 8 if pal.dtype == np.uint16 else pal)[bits])
+    pal = rng.integers(0, 256, (256, 3), np.uint8)
+    for spp in (2, 3, 4):
+        idx = rng.integers(0, 256, (H, W, spp), np.uint8)
+        for layout in ({}, dict(tile=(16, 16)), dict(rows_per_strip=4)):
+            _same(tiff.encode_tiff(idx, palette=pal, **layout), tmp_path)
+        path = _same(tiff.encode_tiff(idx, palette=pal, planar=2), tmp_path)
+        with pytest.raises(ValueError, match="cv2.imread returns None"):
+            image_io.imread(str(path))
+    for pal_dtype in (np.uint8, np.uint16):
+        pal16 = rng.integers(0, np.iinfo(pal_dtype).max, (1 << 16, 3)
+                             ).astype(pal_dtype)
+        idx = rng.integers(0, 1 << 16, (H, W)).astype(np.uint16)
+        path = _same(tiff.encode_tiff(idx, palette=pal16), tmp_path)
+        with pytest.raises(ValueError, match="cv2.imread returns None"):
+            image_io.imread(str(path), anydepth=True)
+
+
+def test_sgi_logl(tmp_path):
+    """SGI LogL (photometric 32844 under compression 34676): libtiff's
+    RGBA interface has the codec return 8-bit gray, 256 sqrt(Y) of each
+    16-bit log luminance, which cv2.imread reads (as int8 with anydepth
+    where the samples are signed): written by the port's ``logl_encode``
+    (runs and literals, strips, tiles, FillOrder 2, damaged data) and by
+    PIL (libtiff's own LogL encoder of float luminances), bit for bit;
+    LogL under SGI Log24, or of 2 samples: None, ValueError; LogLuv
+    (32845), which no writer here makes: NotImplementedError."""
+    from PIL import Image, TiffImagePlugin
+
+    rng = np.random.default_rng(62)
+    codes = np.cumsum(rng.integers(-3, 4, (H, W)), 1) + 16000
+    codes[:3, :10] = rng.integers(-32768, 32767, (3, 10))
+    codes = codes.astype(np.int16)
+    for layout in ({}, dict(rows_per_strip=4), dict(tile=(16, 16)),
+                   dict(fill_order=2), dict(big_endian=True)):
+        _same(tiff.encode_tiff(codes, "sgilog", **layout), tmp_path)
+    data = tiff.encode_tiff(codes, "sgilog", rows_per_strip=8)
+    _strip_damage(data, tmp_path, rng)
+    for scale in (1e-6, 0.3, 10.0):
+        y = (rng.random((H, W)) * scale).astype(np.float32)
+        y[0, :2] = (0, -scale)
+        info = TiffImagePlugin.ImageFileDirectory_v2()
+        info[262] = 32844
+        buf = io.BytesIO()
+        Image.fromarray(y).save(buf, "TIFF", compression="tiff_sgilog",
+                                tiffinfo=info)
+        path = _same(buf.getvalue(), tmp_path)
+        assert image_io.imread(str(path), anydepth=True).dtype == np.int8
+    for bad in (_patch(data, 259, 34677),
+                tiff.encode_tiff(np.stack([codes, codes], -1), "sgilog")):
+        path = _same(bad, tmp_path)
+        with pytest.raises(ValueError, match="cv2.imread returns None"):
+            image_io.imread(str(path))
+    with pytest.raises(NotImplementedError, match="LogLuv"):
+        tiff.decode_tiff(_patch(data, 262, 32845))
+
+
+def test_unknown_and_unconfigured_schemes(tmp_path):
+    """A scheme libtiff does not know (JPEG 2000: a J2K codestream of
+    cv2.imwrite's in each strip; JPEG XL; any other code) decodes nothing:
+    libtiff's RGBA interface reads zeroed buffers (white where min-is-
+    white), as cv2.imread does, and the 16-bit read of the samples as
+    stored is refused (cv2 returns None); old-style JPEG with its
+    JPEGInterchangeFormat tags is not configured in OpenCV's libtiff:
+    None, ValueError."""
+    rng = np.random.default_rng(63)
+    img = rng.integers(0, 256, (H, W, 3), np.uint8)
+    j2k = tmp_path / "c.jp2"
+    assert cv2.imwrite(str(j2k), np.repeat(np.repeat(img, 4, 0), 4, 1))
+    jp2 = j2k.read_bytes()
+    codestream = jp2[jp2.index(b"\xff\x4f\xff\x51"):]
+    j2k_tiff = tiff.encode_tiff(img, chunks=[codestream],
+                                tags={259: (3, [34712])})
+    base = tiff.encode_tiff(img)
+    for data in (j2k_tiff, _patch(base, 259, 50002),
+                 _patch(tiff.encode_tiff(img[..., 0], photometric=0), 259,
+                        40000),
+                 _patch(tiff.encode_tiff((img[..., 0] > 100).astype(np.uint8),
+                                         bilevel=True),
+                        259, 52546)):
+        path = _same(data, tmp_path)
+        assert cv2.imread(str(path)) is not None
+    path = _same(_patch(tiff.encode_tiff(img[..., 0].astype(np.uint16)),
+                        259, 34712), tmp_path)
+    with pytest.raises(ValueError, match="cv2.imread returns None"):
+        image_io.imread(str(path), anydepth=True)
+    jpg = image_io.encode_jpeg(img, 90)  # JPEGInterchangeFormat: at 8
+    ojpeg = tiff.encode_tiff(img, photometric=6, subsampling=(2, 2),
+                             chunks=[jpg], tags={259: (3, [6]), 513: (4, [8]),
+                                                 514: (4, [len(jpg)])})
+    path = _same(ojpeg, tmp_path)
+    with pytest.raises(ValueError, match="old-style JPEG"):
+        image_io.imread(str(path))
+
+
+def test_fill_order(tmp_path):
+    """FillOrder 2 (the bits of each byte reversed): libtiff reverses them
+    back before decoding uncompressed, LZW, PackBits, Deflate and LogL
+    data, and leaves JPEG's alone (cv2 returns None for the reversed JPEG,
+    ValueError): as cv2.imread reads each; other values read as 1."""
+    rng = np.random.default_rng(64)
+    for kind in ("bgr8", "gray16"):
+        im = _image(kind, rng)
+        for compression in ("none", "lzw", "packbits", "deflate",
+                            "lzw_old"):
+            for fill_order in (2, 3):
+                path = _same(tiff.encode_tiff(im, compression,
+                                              fill_order=fill_order,
+                                              rows_per_strip=8), tmp_path)
+                if fill_order == 2:
+                    np.testing.assert_array_equal(
+                        image_io.imread(str(path), anydepth=True),
+                        tiff.decode_tiff(tiff.encode_tiff(im), gray=True))
+    path = _same(tiff.encode_tiff(_image("bgr8", rng), "jpeg",
+                                  fill_order=2), tmp_path)
+    with pytest.raises(ValueError):
+        image_io.imread(str(path))
+
+
+def test_uncompressed_strip_counts(tmp_path):
+    """libtiff re-counts uncompressed strips whose first two byte counts
+    differ only where there are more than two strips of contiguous
+    samples: two strips of 16 and 5 rows, or separate planes, are read as
+    their counts say."""
+    rng = np.random.default_rng(65)
+    im = _image("bgr8", rng)
+    for layout in (dict(rows_per_strip=16), dict(rows_per_strip=16,
+                                                 planar=2),
+                   dict(rows_per_strip=5, planar=2)):
+        path = _same(tiff.encode_tiff(im, **layout), tmp_path)
+        np.testing.assert_array_equal(image_io.imread(str(path)), im)
+
+
+def test_committed_fixtures_decode_to_cv2_hashes():
+    """tests/data/tiff (scripts/make_tiff_fixtures_torch.py: PIL's, that is
+    libtiff's own, CCITT RLE / RLEW / Group 3 / Group 4, gray with alpha,
+    CMYK, YCbCr, CIE L*a*b* and SGI LogL files of a rendered frame): the
+    port's arrays hash as cv2.imread's do (the hashes written beside them,
+    which chip_smoke.py phase 15 checks on machines without OpenCV), and
+    cv2 still agrees; each file at most 64 KB, the set at most 256 KB."""
+    import hashlib
+    import json
+    import os
+
+    folder = os.path.join(os.path.dirname(__file__), "data", "tiff")
+    hashes = json.load(open(os.path.join(folder, "hashes.json")))
+    assert len(hashes) == 9
+    total = 0
+    for name, want in hashes.items():
+        path = os.path.join(folder, name)
+        total += os.path.getsize(path)
+        assert os.path.getsize(path) <= 64 * 1024
+        for mode, flag in (("color", cv2.IMREAD_COLOR),
+                           ("anydepth", cv2.IMREAD_ANYDEPTH)):
+            got = image_io.imread(path, anydepth=mode == "anydepth")
+            ref = cv2.imread(path, flag)
+            for a in (got, ref):
+                assert hashlib.sha256(a.tobytes()).hexdigest() == \
+                    want[mode]["sha256"]
+                assert list(a.shape) == want[mode]["shape"]
+                assert str(a.dtype) == want[mode]["dtype"]
+    assert total <= 256 * 1024
