@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Fifteen phases; any failure exits non-zero.
+Sixteen phases; any failure exits non-zero.
 
 1. Build the CUDA kernels from ``lgu_slam_tpu_torch/csrc`` with nvcc for
    sm_90a, all at once (printing ptxas' register/shared-memory summary),
@@ -205,9 +205,23 @@ Fifteen phases; any failure exits non-zero.
    PNG depth of the same values, tracked as in phase 12: both streams feed
    equal frames and depth, ``track()`` makes equal K1 and K2 launches over
    them, and the TIFF stream's host ms per fed frame against the PNG's.
+16. JPEG 2000 on the card machine's host: a rendered 480 x 640 frame and
+   its 16-bit depth through the port's lossless writer (5/3, the RCT), each
+   read back as written; the committed files of ``tests/data/jp2`` (from
+   ``scripts/make_jp2_fixtures_torch.py``: Pillow's, ``cv2.imwrite``'s and
+   OpenJPEG's, among them a whole 480 x 640 frame at ``cv2.imwrite``'s
+   default and one in 9/7) decoded to the SHA-256 of ``cv2.imread``'s
+   arrays in both read modes; the host's median decode ms of each; signed
+   and subsampled components, a CMYK colour space, a gray codestream read
+   in colour and a codestream without its EOC refused as OpenCV refuses
+   them.  A 16-frame TUM fr1 sequence written twice, lossless JP2 colour
+   with 16-bit JP2 depth and PNG colour with 16-bit PNG depth of the same
+   values, tracked as in phase 12: both streams feed equal frames and
+   depth, ``track()`` makes equal K1 and K2 launches over them, and the
+   JP2 stream's host ms per fed frame against the PNG's.
 
 Before the last line it prints the tracking, terminate, training, fp32
-tracking, world-size-1, entry-point, 3DGS, JPEG, oracle and the four
+tracking, world-size-1, entry-point, 3DGS, JPEG, oracle and the five
 format reports, the
 run's wall time, the
 card's name and power limit, and one JSON line with each kernel's error,
@@ -236,7 +250,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from lgu_slam_tpu_torch.data import gif, hdr, pnm, sunras, tiff, webp
+from lgu_slam_tpu_torch.data import gif, hdr, jp2, pnm, sunras, tiff, webp
 from lgu_slam_tpu_torch.data.fixtures import (
     REPLICA_CAM,
     TUM_FR1,
@@ -2949,7 +2963,8 @@ def phase_committed(folder: Path, phase: int) -> dict:
     """The committed files of another library's encoder (``folder``:
     ``tests/data/webp``, libwebp's lossy VP8, VP8X with lossy and lossless
     alpha, an animation; ``tests/data/tiff``, libtiff's CCITT, gray with
-    alpha, CMYK, YCbCr, L*a*b*, LogL) decode to the SHA-256 of
+    alpha, CMYK, YCbCr, L*a*b*, LogL; ``tests/data/jp2``, OpenJPEG's JPEG
+    2000 through Pillow, cv2.imwrite and its own API) decode to the SHA-256 of
     ``cv2.imread``'s arrays (``hashes.json`` beside them) in both read
     modes; the host's median ms of 10 colour decodes of each."""
     hashes = json.loads((folder / "hashes.json").read_text())
@@ -3151,6 +3166,87 @@ def print_phase_15(report: dict) -> None:
           f"{report['feed_ratio']:.3f}; {report['seconds']:.0f} s")
 
 
+# -- phase 16: JPEG 2000 -----------------------------------------------------
+
+JP2_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "jp2"
+PHASE_16_FRAMES = 16  # the TUM sequence's length, as phases 14 and 15's
+
+
+def formats_16_cases() -> list:
+    """:func:`format_cases`' tuples of a rendered 480 x 640 frame and its
+    depth (16-bit in 1/5000 m) as lossless JPEG 2000 from the port's
+    writer: a JP2 of the colour frame, a raw codestream of the depth (read
+    with ``anydepth``), each read back as written."""
+    images, depths = render_sequence(SEED + 22, 1, 480, 640, TUM_FR1, 0.02,
+                                     0.004)[:2]
+    d16 = np.clip(np.rint(depths[0] * 5000.0), 0, 65535).astype(np.uint16)
+    return [("JP2 lossless 5/3 + RCT", jp2.encode_jp2(images[0]), False,
+             images[0], None),
+            ("J2K 16-bit depth", jp2.encode_jp2(d16, codestream=True), True,
+             d16, None)]
+
+
+def refusals_16() -> list:
+    """JPEG 2000 files OpenCV refuses: signed components, subsampled
+    components, the CMYK colour space, a gray codestream read in colour
+    (sRGB of one component), a colour codestream without its EOC."""
+    img = render_sequence(SEED + 22, 1, 48, 64, TUM_FR1, 0.02, 0.004)[0][0]
+    colour = jp2.encode_jp2(img)
+    siz = colour.index(b"\xff\x51") + 40  # component 0's Ssiz, XRsiz
+
+    def patched(at, value):
+        return colour[:at] + value + colour[at + len(value):]
+
+    colr = colour.index(b"colr") + 7
+    gray = jp2.encode_jp2(img[..., 1], codestream=True)
+    return [("JPEG 2000 signed components", patched(siz, b"\x87")),
+            ("JPEG 2000 subsampled component", patched(siz + 1, b"\x02")),
+            ("JPEG 2000 CMYK colour space", patched(colr, struct.pack(
+                ">I", 12))),
+            ("JPEG 2000 gray codestream in colour", gray),
+            ("JPEG 2000 codestream without EOC",
+             jp2.encode_jp2(img, codestream=True)[:-2])]
+
+
+def phase_16(dev, kernels: dict) -> dict:
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        report = dict(codecs=phase_format_codecs(root, formats_16_cases(),
+                                                 16))
+        report["committed_jp2"] = phase_committed(JP2_FIXTURES, 16)
+        report["refused"] = refusals(root, refusals_16(), 16)
+        runs = phase_format_track(
+            dev, kernels, root / "tum", n_frames=PHASE_16_FRAMES,
+            seed=SEED + 23, phase=16, pairs=(("jp2", "jp2"), ("png", "png")),
+            key="launches_formats_16")
+    jp2_run, png_run = runs.values()
+    for name in ("k1_launches_track", "k2_launches_track"):
+        check(jp2_run[name] == png_run[name],
+              f"phase 16: {name} {jp2_run[name]} (JP2 + JP2 depth) != "
+              f"{png_run[name]} (PNG + 16-bit PNG)")
+    report["feed_ratio"] = jp2_run["feed_ms"] / png_run["feed_ms"]
+    report["tum"] = runs
+    report["seconds"] = time.perf_counter() - t_start
+    return report
+
+
+def print_phase_16(report: dict) -> None:
+    codecs = ", ".join(f"{k} {v['decode_ms']:.2f}" for k, v in
+                       {**report["codecs"],
+                        **report["committed_jp2"]}.items())
+    tum = "; ".join(
+        f"{k}: fed {v['feed_ms']:.2f} ms per frame, {v['keyframes']} "
+        f"keyframes, {v['ms_per_keyframe_median']:.1f} ms per keyframe "
+        f"update, K1 {v['k1_launches']} / K2 {v['k2_launches']} launches "
+        f"(track {v['k1_launches_track']} / {v['k2_launches_track']})"
+        for k, v in report["tum"].items())
+    print(f"phase 16: host decode ms (480 x 640 frames; committed JPEG 2000 "
+          f"files at their sizes): {codecs}; TUM RGB-D at 384 x 512, equal "
+          f"frames and depth from both streams: {tum}; JP2 / PNG feed "
+          f"{report['feed_ratio']:.3f}; {report['seconds']:.0f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke run needs an NVIDIA GPU")
@@ -3222,9 +3318,12 @@ def main():
     torch.cuda.empty_cache()
     formats_15 = phase_15(dev, kernels)
     print_phase_15(formats_15)
+    torch.cuda.empty_cache()
+    formats_16 = phase_16(dev, kernels)
+    print_phase_16(formats_16)
     # launches on the main path: K1 bf16 and K2 over track() +
     # terminate(), phase 8's entry points, phase 10's JPEG runs and phases
-    # 12-15's TUM tracks, K2 also over phase 7's sharded backend pass, K1
+    # 12-16's TUM tracks, K2 also over phase 7's sharded backend pass, K1
     # fp32 operands over phase 6's track()
     for name in ("masked_corr_level0_tc", "fused_pyramid_lookup"):
         k = kernels[name]
@@ -3232,7 +3331,8 @@ def main():
             k.get("launches_sharded_backend", 0) + \
             k["launches_entry_points"] + k["launches_jpeg"] + \
             k["launches_formats"] + k["launches_arith"] + \
-            k["launches_formats_14"] + k["launches_formats_15"]
+            k["launches_formats_14"] + k["launches_formats_15"] + \
+            k["launches_formats_16"]
     k = kernels["masked_corr_level0_tf32"]
     k["launches"] = k["launches_track_fp32"]
     for k in kernels.values():
@@ -3252,6 +3352,7 @@ def main():
     print(json.dumps({"formats_13": formats_13}))
     print(json.dumps({"formats_14": formats_14}))
     print(json.dumps({"formats_15": formats_15}))
+    print(json.dumps({"formats_16": formats_16}))
     print(json.dumps({"seconds": seconds}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": list(kernels.values())}))

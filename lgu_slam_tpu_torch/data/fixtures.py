@@ -31,7 +31,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from lgu_slam_tpu_torch.data import gif, hdr, pnm, sunras, tiff, webp
+from lgu_slam_tpu_torch.data import gif, hdr, jp2, pnm, sunras, tiff, webp
 from lgu_slam_tpu_torch.data.image_io import encode_jpeg, encode_png, imwrite
 from lgu_slam_tpu_torch.data.synthetic import (
     SyntheticScene,
@@ -107,7 +107,7 @@ FRAME_EXT = {"png": "png", "ppm": "ppm", "pgm": "pgm", "tiff": "tiff",
              "pfm": "pfm", "jpg": "jpg", "arith-jpg": "jpg", "bigtiff": "tif",
              "webp": "webp", "gif": "gif", "ras": "ras", "hdr": "hdr",
              "rgbe-tiff": "tiff", "ycbcr-tiff": "tif", "ycbcr-png": "png",
-             "lzw16-tiff": "tif"}
+             "lzw16-tiff": "tif", "jp2": "jp2"}
 
 
 def ycbcr_samples(bgr: np.ndarray) -> np.ndarray:
@@ -175,7 +175,8 @@ def write_frame(path, image, kind: str) -> str:
     values that ``hdr`` file reads back as, in a float32 ``tiff``; colour
     as ``ycbcr-tiff`` (:func:`ycbcr_tiff`) or ``ycbcr-png``, the PNG of
     what that TIFF reads back as; depth as ``lzw16-tiff`` (16-bit, LZW,
-    horizontal predictor)."""
+    horizontal predictor); colour or depth as ``jp2`` (lossless JPEG 2000:
+    ``jp2.encode_jp2``)."""
     path = f"{path}.{FRAME_EXT[kind]}" if kind in FRAME_EXT else path
     if kind == "png":
         data = encode_png(image)
@@ -208,6 +209,8 @@ def write_frame(path, image, kind: str) -> str:
         data = encode_png(tiff.decode_tiff(ycbcr_tiff(image)))
     elif kind == "lzw16-tiff":
         data = tiff.encode_tiff(image, "lzw", 2)
+    elif kind == "jp2":
+        data = jp2.encode_jp2(image)
     else:
         raise ValueError(f"no fixture format {kind!r}")
     with open(path, "wb") as fh:

@@ -11,17 +11,19 @@ does (:func:`sniff`), whatever the file's name, and returns what
   equal channels, alpha is dropped (WebP and GIF: not composited), and
   16-bit samples become 8-bit by each reader's own rule (PNG, PNM, PAM and
   16-bit gray TIFF keep the high byte; 16-bit colour TIFF rounds
-  ``x / 257``); Radiance HDR's floats become ``saturate(round(255 f))``;
+  ``x / 257``; JPEG 2000 shifts by its precision less 8); Radiance HDR's
+  floats become ``saturate(round(255 f))``;
 - ``imread(path, anydepth=True)`` (``cv2.IMREAD_ANYDEPTH``): one channel,
-  ``uint16`` for 16-bit PNG, TIFF, PNM and PAM, ``float32`` for float TIFF,
+  ``uint16`` for 16-bit PNG, TIFF, PNM and PAM and 9- to 16-bit JPEG 2000,
+  ``float32`` for float TIFF,
   PFM and Radiance HDR, TIFF's own dtype for its other samples (``int8``,
   ``int16``, ``uint32``, ``int32``, ``uint64``, ``int64``, ``float64``),
   ``uint8`` otherwise; colour converts to gray as each reader converts it
   (libpng's ``rgb_to_gray`` for PNG, libjpeg's ``JCS_GRAYSCALE`` output
   for JPEG, OpenCV's own ``(4899 R + 9617 G + 1868 B + 8192) >> 14`` for
   BMP, TIFF, PNM, PAM and Sun raster, ``cvtColor``'s ``(9798 R + 19235 G +
-  3735 B + 16384) >> 15`` for WebP and GIF, ``cvtColor``'s float gray for
-  HDR).
+  3735 B + 16384) >> 15`` for WebP, GIF and JPEG 2000, ``cvtColor``'s
+  float gray for HDR).
 
 The formats, their decoders and what each reads:
 
@@ -57,14 +59,23 @@ The formats, their decoders and what each reads:
   ``csrc/host/hdr_rgbe.c``): RGBE, new-style run-length and flat
   scanlines;
 - Sun raster (``data/sunras.py``): depths 1, 8, 24 and 32, old and
-  standard types, colour maps.
+  standard types, colour maps;
+- JPEG 2000 (``data/jp2.py``; the codestream in C,
+  ``csrc/host/j2k_decode.c``): JP2 files and raw codestreams, the 5/3 and
+  9/7 wavelets, every progression order and its changes (POC), tiles and
+  tile-parts, precincts, layers, code blocks cut short by rate allocation
+  and all six code-block styles, SOP / EPH, packed packet headers (PPM /
+  PPT), ROI shifts, palettes and channel
+  definitions, 8- to 16-bit components (and wider, shifted to 8 bits in
+  colour), the sRGB, gray and sYCC colour spaces.
 
 A file ``cv2.imread`` returns None for raises ``ValueError``, decided
 where each decoder decides it (the C decoders, ``tiff.py``, ``webp.py``,
 ...), so a file reached by any path gets the same class.  A format this
 OpenCV build reads and the port does not yet read raises
-``NotImplementedError`` naming it: JPEG 2000 and AVIF, and within the
-formats above what each decoder lists (TIFF's SGI LogLuv).  The encoders
+``NotImplementedError`` naming it: AVIF, and within the formats above what
+each decoder lists (TIFF's SGI LogLuv; JPEG 2000's HTJ2K code blocks).
+The encoders
 (:func:`encode_png`, :func:`encode_jpeg`, :func:`encode_bmp`,
 ``tiff.encode_tiff``, ``pnm.encode_pnm`` / ``encode_pam`` /
 ``encode_pfm``, ``webp.encode_webp_lossless``, ``gif.encode_gif``,
@@ -81,7 +92,7 @@ import zlib
 
 import numpy as np
 
-from lgu_slam_tpu_torch.data import gif, hdr, pnm, sunras, tiff, webp
+from lgu_slam_tpu_torch.data import gif, hdr, jp2, pnm, sunras, tiff, webp
 from lgu_slam_tpu_torch.ops import _build
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -212,23 +223,18 @@ def png_gray(px: np.ndarray) -> np.ndarray:
     return np.where((r == g) & (r == b), r, acc >> 15).astype(px.dtype)
 
 
-# signatures of the formats this OpenCV build reads and the port does not
-# yet read: cv2.imread picks its decoder by them, whatever the file's name
-QUEUED = ((b"\0\0\0\x0cjP  \r\n\x87\n", "JPEG 2000 (JP2)"),
-          (b"\xff\x4f\xff\x51", "JPEG 2000 (codestream)"))
-
-
 def sniff(data: bytes) -> str:
     """The decoder ``cv2.imread`` picks for ``data``, by its signature
     (OpenCV 5.0's registration order: BMP, HDR, JPEG, WebP, Sun raster,
-    PNM / PFM, TIFF, PNG, GIF, PAM): ``bmp``, ``hdr``, ``jpeg``, ``webp``
-    (``#?RGBE`` / ``#?RADIANCE``; libwebp's header check of the first 32
-    bytes, which also takes a bare VP8 or VP8L bitstream), ``sunras``,
-    ``pnm``, ``pfm``, ``tiff``, ``png``, ``gif`` (``GIF8``: the decoder
-    then takes only GIF87a and GIF89a) or ``pam``; a format this build of
-    OpenCV reads and the port does not yet read (JPEG 2000, AVIF) raises
-    ``NotImplementedError`` naming it; anything else ``ValueError``
-    (cv2.imread returns None)."""
+    PNM / PFM, TIFF, PNG, GIF, JPEG 2000, PAM): ``bmp``, ``hdr``
+    (``#?RGBE`` / ``#?RADIANCE``), ``jpeg``, ``webp`` (libwebp's header
+    check of the first 32 bytes, which also takes a bare VP8 or VP8L
+    bitstream), ``sunras``, ``pnm``, ``pfm``, ``tiff``, ``png``, ``gif``
+    (``GIF8``: the decoder then takes only GIF87a and GIF89a), ``jp2`` (the
+    JP2 signature box or a codestream's SOC and SIZ markers) or ``pam``; a
+    format this build of OpenCV reads and the port does not yet read
+    (AVIF) raises ``NotImplementedError`` naming it; anything else
+    ``ValueError`` (cv2.imread returns None)."""
     head = data[:32]
     if head.startswith(BMP_MAGIC):
         return "bmp"
@@ -256,9 +262,8 @@ def sniff(data: bytes) -> str:
         raise NotImplementedError("AVIF")
     if head[:4] == b"GIF8":
         return "gif"
-    for sig, name in QUEUED:
-        if head.startswith(sig):
-            raise NotImplementedError(name)
+    if head.startswith((jp2.SIGNATURE, jp2.CODESTREAM)):
+        return "jp2"
     raise ValueError("no image format of cv2.imread's has this signature")
 
 
@@ -491,33 +496,48 @@ def bgr_gray(bgr: np.ndarray) -> np.ndarray:
     return pnm.gray14(bgr[..., 2::-1])
 
 
-def bgra_bitfields_gray(bgr: np.ndarray) -> np.ndarray:
-    """OpenCV's gray of a 32-bit BMP with bit masks (BI_BITFIELDS):
-    coefficients 7471 / 38470 / 19595 over 2^16, truncated."""
-    b, g, r = (bgr[..., c].astype(np.int64) for c in range(3))
-    return ((7471 * b + 38470 * g + 19595 * r) >> 16).astype(np.uint8)
+def bitfields_gray(bgr: np.ndarray) -> np.ndarray:
+    """OpenCV's gray of a 32-bit BMP whose bit masks it applies: ``R *
+    0.299f + G * 0.587f + B * 0.114f`` in float32, summed in that order,
+    truncated."""
+    b, g, r = (bgr[..., c].astype(np.float32) for c in range(3))
+    f32 = np.float32
+    return np.floor(r * f32(0.299) + g * f32(0.587) + b * f32(0.114)
+                    ).astype(np.uint8)
 
 
-# the masks of BGRA bytes (red, green, blue), the only 32-bit ones read
-BMP_MASKS = (0xFF0000, 0xFF00, 0xFF)
+def bitfields_channel(px: np.ndarray, mask: int) -> np.ndarray:
+    """The field ``mask`` of ``uint32`` pixels scaled to 8 bits as OpenCV
+    scales it: ``(float)field * (255.f / (float)(mask >> shift))``,
+    truncated."""
+    shift = (mask & -mask).bit_length() - 1
+    scale = np.float32(255) / np.float32(mask >> shift)
+    field = (px & np.uint32(mask)) >> np.uint32(shift)
+    return np.floor(field.astype(np.float32) * scale).astype(np.uint8)
+
+
 # 16-bit masks (red, green, blue) OpenCV reads, and its depth for them
 BMP_MASKS16 = {(0x7C00, 0x3E0, 0x1F): 15, (0xF800, 0x7E0, 0x1F): 16}
 
 
 def _bmp_header(data: bytes, path) -> tuple:
     """(width, height, bits, compression, palette [256, 3] BGR or None,
-    pixel data offset) of a BMP as OpenCV's reader takes them
-    (grfmt_bmp.cpp readHeader): a 12-byte OS/2 header with 3-byte palette
-    entries, or a header of 36 bytes or more (40, or the V4 / V5
+    pixel data offset, 32-bit masks) of a BMP as OpenCV's reader takes
+    them (grfmt_bmp.cpp readHeader): a 12-byte OS/2 header with 3-byte
+    palette entries, or a header of 36 bytes or more (40, or the V2 to V5
     extensions) with 4-byte entries and, for 16-bit bit masks, the masks
-    after the header; 16-bit samples are 5-5-5 (bits 15) or 5-6-5."""
+    after the header; 16-bit samples are 5-5-5 (bits 15) or 5-6-5.  The
+    32-bit masks (red, green, blue) are those OpenCV applies: read from a
+    header of 56 bytes or more and only if none is zero, else None (a
+    40-byte header's masks are ignored, and the pixels read as BGRA
+    bytes)."""
     def u32(at):
         if at + 4 > len(data):
             raise ValueError(f"{path}: BMP header cut short")
         return struct.unpack_from("<I", data, at)[0]
 
     offset, size = u32(10), u32(14)
-    palette = None
+    palette = masks32 = None
     if size >= 36:
         W, H = struct.unpack("<ii", struct.pack("<II", u32(18), u32(22)))
         bpp, compression, colours = u32(26) >> 16, u32(30), u32(46)
@@ -547,6 +567,9 @@ def _bmp_header(data: bytes, path) -> tuple:
             bpp = BMP_MASKS16[masks]
         elif bpp == 16:
             bpp = 15
+        elif bpp == 32 and compression == 3 and size >= 56:
+            masks = (u32(54), u32(58), u32(62))
+            masks32 = masks if all(masks) else None
     elif size == 12:
         if len(data) < 26:
             raise ValueError(f"{path}: BMP header cut short")
@@ -564,7 +587,7 @@ def _bmp_header(data: bytes, path) -> tuple:
                                         ).reshape(n, 3)
     else:
         raise ValueError(f"{path}: BMP header of {size} bytes")
-    return W, H, bpp, compression, palette, offset
+    return W, H, bpp, compression, palette, offset, masks32
 
 
 def bmp_rle(data: bytes, width: int, height: int, rle4: bool) -> np.ndarray:
@@ -590,18 +613,15 @@ def decode_bmp(data: bytes, path="<bytes>", gray: bool = False
     or with ``gray`` ``[H, W]`` as ``cv2.imread(path,
     cv2.IMREAD_ANYDEPTH)``: 1-, 4- and 8-bit palettes, RLE8 and RLE4
     (:func:`bmp_rle`), 16-bit 5-5-5 and 5-6-5 (each 5 or 6 bits shifted
-    left, not scaled), 24-bit, 32-bit (also with the BGRA bit masks that
-    ``cv2.imwrite`` writes); bottom-up or top-down; OS/2 headers.  Gray is
-    :func:`bgr_gray` of the colours, :func:`bgra_bitfields_gray` for 32-bit
-    masks.  Files OpenCV refuses raise ``ValueError``; 32-bit masks other
-    than BGRA bytes ``NotImplementedError``."""
+    left, not scaled), 24-bit, 32-bit (with bit masks of any width and
+    place, applied as :func:`_bmp_header` says OpenCV applies them:
+    :func:`bitfields_channel`); bottom-up or top-down; OS/2 headers.  Gray
+    is :func:`bgr_gray` of the colours, :func:`bitfields_gray` where 32-bit
+    masks are applied.  Files OpenCV refuses raise ``ValueError``."""
     if len(data) < 18 or not data.startswith(BMP_MAGIC):
         raise ValueError(f"{path}: not a BMP file")
-    W, height, bpp, compression, palette, offset = _bmp_header(data, path)
-    if bpp == 32 and compression == 3 and struct.unpack_from(
-            "<III", data, 54) != BMP_MASKS:
-        raise NotImplementedError(f"{path}: BMP bit masks other than BGRA "
-                                  "bytes")
+    W, height, bpp, compression, palette, offset, masks = _bmp_header(
+        data, path)
     H = abs(height)
     if H * W * 3 >= 1 << 30:
         raise ValueError(f"{path}: BMP of {W} x {H} pixels is more than "
@@ -626,12 +646,15 @@ def decode_bmp(data: bytes, path="<bytes>", gray: bool = False
         bgr = np.stack([t << 3, (t >> 2) & 0xF8 if bpp == 15 else
                         (t >> 3) & 0xFC, (t >> 7 if bpp == 15 else t >> 8)
                         & 0xF8], axis=-1).astype(np.uint8)
+    elif masks is not None:
+        px = rows[:, :4 * W].copy().view("<u4")
+        bgr = np.stack([bitfields_channel(px, m) for m in masks[::-1]], -1)
+        return bitfields_gray(bgr) if gray else bgr
     else:
         c = bpp // 8
         bgr = rows[:, :W * c].reshape(H, W, c)[..., :3]
     if gray:
-        return bgra_bitfields_gray(bgr) if bpp == 32 and compression == 3 \
-            else bgr_gray(bgr)
+        return bgr_gray(bgr)
     return np.ascontiguousarray(bgr)
 
 
@@ -676,14 +699,19 @@ def _rle_rows(idx: np.ndarray, rle4: bool) -> bytes:
 
 def encode_bmp(img: np.ndarray, top_down: bool = False, palette=None,
                bpp=None, rle: bool = False, masks16=None, os2: bool = False,
-               rle_data=None) -> bytes:
+               rle_data=None, masks32=None, header: int = 40) -> bytes:
     """``uint8`` ``[H, W, 3]`` BGR (24-bit, or 16-bit with ``bpp`` 16:
     5-5-5, or with ``masks16`` "555" / "565" bit masks), ``[H, W, 4]``
     BGRA (32-bit) or ``[H, W]`` indices (8-bit, or ``bpp`` 1 or 4, through
     ``palette`` [N, 3] BGR, else a gray ramp) -> BMP bytes with a 40-byte
     header (``os2``: the 12-byte OS/2 one), bottom-up unless ``top_down``,
     rows padded to 4 bytes; ``rle`` compresses indices as RLE8 or RLE4
-    (:func:`_rle_rows`), or ``rle_data`` is written as the RLE data."""
+    (:func:`_rle_rows`), or ``rle_data`` is written as the RLE data.
+    ``masks32`` (red, green, blue[, alpha]) writes a 32-bit image as
+    BI_BITFIELDS with these masks over its bytes as they are; ``header``
+    of 56, 108 or 124 bytes holds the masks (the V3 to V5 headers; the
+    fields after the masks zero), a 40-byte one is followed by the
+    three."""
     img = np.asarray(img)
     if img.dtype != np.uint8 or img.ndim not in (2, 3) or (
             img.ndim == 3 and img.shape[-1] not in (3, 4)):
@@ -715,6 +743,15 @@ def encode_bmp(img: np.ndarray, top_down: bool = False, palette=None,
             extra = struct.pack("<III", *{
                 "555": (0x7C00, 0x3E0, 0x1F),
                 "565": (0xF800, 0x7E0, 0x1F)}[masks16])
+    if masks32 is not None:
+        if bpp != 32 or os2:
+            raise ValueError("32-bit masks belong to a 32-bit image")
+        compression = 3
+        masks32 = tuple(masks32) + (0,) * (4 - len(masks32))
+        if header == 40:
+            extra = struct.pack("<III", *masks32[:3])
+    elif header != 40:
+        raise ValueError("a longer header is written for 32-bit masks only")
     if rle or rle_data is not None:
         compression = {8: 1, 4: 2}[bpp]
         rows = img[::-1] if not top_down else img
@@ -732,17 +769,19 @@ def encode_bmp(img: np.ndarray, top_down: bool = False, palette=None,
         if not top_down:
             rows = rows[::-1]
         body = rows.tobytes()
-    hsize = 12 if os2 else 40
+    hsize = 12 if os2 else header
     offset = 14 + hsize + len(extra) + len(table)
-    header = struct.pack("<2sIHHI", BMP_MAGIC, offset + len(body), 0, 0,
-                         offset)
+    head = struct.pack("<2sIHHI", BMP_MAGIC, offset + len(body), 0, 0,
+                       offset)
     if os2:
         info = struct.pack("<IHHHH", 12, W, H, 1, bpp)
     else:
-        info = struct.pack("<IiiHHIIiiII", 40, W, -H if top_down else H, 1,
-                           bpp, compression, len(body), 2835, 2835,
+        info = struct.pack("<IiiHHIIiiII", hsize, W, -H if top_down else H,
+                           1, bpp, compression, len(body), 2835, 2835,
                            len(table) // 4, 0)
-    return header + info + extra + table + body
+        if hsize > 40:
+            info += struct.pack("<IIII", *masks32) + bytes(hsize - 56)
+    return head + info + extra + table + body
 
 
 # -- JPEG --------------------------------------------------------------------
@@ -1529,4 +1568,4 @@ DECODERS = {"jpeg": decode_jpeg, "bmp": decode_bmp, "pnm": pnm.decode_pnm,
             "pfm": pnm.decode_pfm, "pam": pnm.decode_pam,
             "tiff": tiff.decode_tiff, "webp": webp.decode_webp,
             "gif": gif.decode_gif, "hdr": hdr.decode_hdr,
-            "sunras": sunras.decode_sunras}
+            "sunras": sunras.decode_sunras, "jp2": jp2.decode_jp2}

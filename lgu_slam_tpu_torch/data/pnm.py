@@ -63,11 +63,13 @@ def gray14(rgb: np.ndarray) -> np.ndarray:
 
 
 def cvt_gray(bgr: np.ndarray) -> np.ndarray:
-    """``cv2.cvtColor(bgr, cv2.COLOR_BGR2GRAY)`` of ``uint8`` B, G, R(, A)
-    samples (last axis), the gray the WebP and GIF readers return:
-    ``(3735 B + 19235 G + 9798 R + 16384) >> 15``."""
+    """``cv2.cvtColor(bgr, cv2.COLOR_BGR2GRAY)`` of ``uint8`` or ``uint16``
+    B, G, R(, A) samples (last axis), the gray the WebP, GIF and JPEG 2000
+    readers return: ``(3735 B + 19235 G + 9798 R + 16384) >> 15``, in the
+    samples' dtype."""
     b, g, r = (bgr[..., c].astype(np.int64) for c in range(3))
-    return ((3735 * b + 19235 * g + 9798 * r + 16384) >> 15).astype(np.uint8)
+    return ((3735 * b + 19235 * g + 9798 * r + 16384) >> 15).astype(
+        bgr.dtype)
 
 
 class _Stream:

@@ -30,7 +30,9 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-HOST_CFLAGS = ["-O2", "-std=c99", "-shared", "-fPIC"]
+# No FMA contraction: the host decoders round each product alone, as the
+# readers they follow do (hdr_rgbe.c writes its one FMA with fmaf).
+HOST_CFLAGS = ["-O2", "-std=c99", "-ffp-contract=off", "-shared", "-fPIC"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

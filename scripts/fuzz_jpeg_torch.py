@@ -5,8 +5,10 @@ SGI LogL decoders and predictors (``csrc/host/tiff_lzw.c``), the TIFF
 CCITT decoder (``csrc/host/ccitt_decode.c``), the TIFF colour conversions
 (``csrc/host/tiff_color.c``), the BMP RLE decoder
 (``csrc/host/bmp_rle.c``), the WebP decoders (``csrc/host/webp_decode.c``:
-VP8L, VP8, ALPH), the GIF LZW decoder (``csrc/host/gif_lzw.c``) and the
-Radiance HDR scanline reader and float gray (``csrc/host/hdr_rgbe.c``).
+VP8L, VP8, ALPH), the GIF LZW decoder (``csrc/host/gif_lzw.c``), the
+Radiance HDR scanline reader and float gray (``csrc/host/hdr_rgbe.c``) and
+the JPEG 2000 codestream decoder (``csrc/host/j2k_decode.c``: its header
+read, then the whole decode where the header allows it).
 Builds each with AddressSanitizer and UndefinedBehavior Sanitizer beside a
 small C harness, then decodes every truncation of a few seed streams and
 ``--mutations`` copies of each with 1-4 random bytes overwritten (JPEG:
@@ -16,10 +18,14 @@ the seed's row width and count and random ones, either bit order, the
 run arrays kept from input to input as libtiff keeps them from strip to
 strip; the colour conversions: over the inputs' bytes as samples; RLE: as
 RLE8 and RLE4 at the seed's size and a random one; WebP, GIF and HDR: at
-the seed's image size and a random one).  Any out-of-bounds access or
-undefined behaviour aborts the harness; otherwise it prints, per decoder,
-how many inputs decoded (JPEG: in each of the four output colour spaces,
-BGR, gray, YCbCr to RGB and as stored) or were refused as corrupt.
+the seed's image size and a random one; JPEG 2000: as they are).  Any
+out-of-bounds access or undefined behaviour aborts the harness; otherwise
+it prints, per decoder, how many inputs decoded (JPEG: in each of the four
+output colour spaces, BGR, gray, YCbCr to RGB and as stored) or were
+refused as corrupt (JPEG 2000 also: not decoded, a feature it names).
+The 32-bit BMP bit-mask path (``data/image_io.py``, numpy) runs the same
+loop in Python over BMPs of every header size and mask kind: anything
+raised but ValueError is a finding.
 
     python scripts/fuzz_jpeg_torch.py [--mutations 20000] [--seed 1]
 
@@ -41,7 +47,11 @@ colour cache; with alpha) and of the committed libwebp files of
 ``tests/data/webp`` (the lossy frame's VP8 and ALPH of
 ``lossy_alpha.webp``, the VP8L of ``lossless_alpha.webp``), the GIF seeds
 the LZW data of the port's encoder at minimum code sizes 2, 4 and 8, the
-HDR seeds run-length and flat pixel data.  Needs a C compiler with the
+HDR seeds run-length and flat pixel data, the JPEG 2000 seeds the
+codestreams of the committed files of ``tests/data/jp2`` (96 x 128:
+Pillow's, cv2.imwrite's and OpenJPEG's, with tiles, precincts, layers,
+every code-block style, SOP / EPH, POC, ROI, PPT and PPM).  Needs a C
+compiler with the
 sanitizers (gcc or clang); runs on the host only.
 """
 
@@ -565,6 +575,87 @@ def hdr_seeds(rng) -> list:
     return out
 
 
+J2K_HARNESS = LOOP + r"""
+int j2k_header(const uint8_t *, int64_t, int64_t *, char *, int);
+int j2k_decode(const uint8_t *, int64_t, int32_t *, char *, int);
+int main(int argc, char **argv)
+{
+    long mutations = atol(argv[1]), counts[4] = {0}, skipped = 0;
+    char err[256];
+    srand((unsigned)atoi(argv[2]));
+    for (int f = 3; f < argc; f++) {
+        long n;
+        uint8_t *base = load(argv[f], &n);
+        FOR_EACH_INPUT(base, n, mutations, {
+            int64_t info[22];
+            int st = j2k_header(d, m, info, err, sizeof err);
+            if (!st && info[21] > (1 << 22))
+                skipped++;  /* more samples than the seeds: not decoded */
+            else {
+                if (!st) {
+                    int32_t *o = malloc(sizeof(int32_t)
+                                        * (size_t)(info[21] ? info[21] : 1));
+                    st = j2k_decode(d, m, o, err, sizeof err);
+                    free(o);
+                }
+                counts[st]++;
+            }
+        })
+        free(base);
+    }
+    printf("{\"decoded\": %ld, \"corrupt\": %ld, \"not_decoded\": %ld, "
+           "\"out_of_memory\": %ld, \"too_large\": %ld}\n", counts[0],
+           counts[1], counts[2], counts[3], skipped);
+    return 0;
+}
+"""
+
+
+def jp2_seeds() -> list:
+    """The codestreams of the committed 96 x 128 JPEG 2000 files."""
+    folder = os.path.join(REPO, "tests", "data", "jp2")
+    out = []
+    for name in sorted(os.listdir(folder)):
+        if name.startswith("frame_") or not name.endswith((".jp2", ".j2k")):
+            continue
+        with open(os.path.join(folder, name), "rb") as fh:
+            data = fh.read()
+        out.append(data[data.index(b"\xff\x4f\xff\x51"):])
+    return out
+
+
+def fuzz_bmp_masks(rng, mutations: int) -> str:
+    """32-bit BI_BITFIELDS BMPs (40-, 56-, 108- and 124-byte headers;
+    BGRA, RGBA-order, 10-10-10, 5-6-5, odd and zero masks) cut at every
+    length and mutated in 1-4 bytes, through ``decode_bmp`` in both modes:
+    only ValueError may be raised."""
+    from lgu_slam_tpu_torch.data.image_io import decode_bmp, encode_bmp
+
+    im = rng.integers(0, 256, (5, 7, 4), np.uint8)
+    masks = [(0xFF0000, 0xFF00, 0xFF, 0xFF000000), (0xFF, 0xFF00, 0xFF0000),
+             (0x3FF00000, 0xFFC00, 0x3FF), (0xF800, 0x7E0, 0x1F),
+             (0x1F0, 0x7, 0xE0000), (0, 0xFF00, 0xFF)]
+    seeds = [encode_bmp(im, top, masks32=m, header=h) for h in
+             (40, 56, 108, 124) for m in masks for top in (False, True)]
+    counts = {"decoded": 0, "corrupt": 0}
+    per_seed = max(1, mutations // len(seeds))
+    for data in seeds:
+        cases = [data[:k] for k in range(len(data))]
+        for _ in range(per_seed):
+            d = bytearray(data)
+            for _ in range(int(rng.integers(1, 5))):
+                d[int(rng.integers(0, len(d)))] = int(rng.integers(0, 256))
+            cases.append(bytes(d))
+        for case in cases:
+            for gray in (False, True):
+                try:
+                    decode_bmp(case, gray=gray)
+                    counts["decoded"] += 1
+                except ValueError:
+                    counts["corrupt"] += 1
+    return "{" + ", ".join(f'"{k}": {v}' for k, v in counts.items()) + "}"
+
+
 def _run(tmp, name, harness, sources, args, mutations, seed) -> str:
     """Build ``harness`` with ``sources`` under the sanitizers and run it
     on ``args`` (files and their parameters)."""
@@ -639,6 +730,11 @@ def main(argv=None) -> str:
                           gif_args, args.mutations, args.seed),
             "hdr " + _run(tmp, "fuzz_hdr", HDR_HARNESS, ["hdr_rgbe.c"],
                           hdr_args, args.mutations, args.seed)]
+        j2k_args = [write(f"j2k{k}", d) for k, d in enumerate(jp2_seeds())]
+        lines += [
+            "j2k " + _run(tmp, "fuzz_j2k", J2K_HARNESS, ["j2k_decode.c"],
+                          j2k_args, args.mutations, args.seed),
+            "bmp_masks " + fuzz_bmp_masks(rng, args.mutations)]
     out = "\n".join(lines)
     print(out)
     return out

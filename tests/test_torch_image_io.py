@@ -121,21 +121,22 @@ def _patch_ihdr(png: bytes, offset: int, value: int) -> bytes:
 
 
 def test_what_the_port_does_not_read_raises(tmp_path):
-    """The formats this OpenCV build reads that the port does not read
-    yet (JPEG 2000 as JP2 and as a codestream, AVIF; each written by
-    cv2.imwrite and read back by cv2.imread): NotImplementedError naming
-    the format, whatever the file's extension; a signature no decoder of
-    cv2's claims, and an empty file: ValueError (cv2 returns None);
-    imwrite writes PNG and JPEG only.  The files the port's first decoders refused and now
-    reads (TIFF, RLE-compressed and 16-bit BMPs, a header patched to OS/2's
-    size) read as cv2 reads them; a PNG whose header names a palette but
-    holds no PLTE, Adam7 passes that the data does not hold, or a bit depth
-    its colour type does not allow: ValueError; a missing file:
-    FileNotFoundError (OpenCV returns None).  (WebP, GIF, Radiance HDR and
-    Sun raster read now: tests/test_torch_webp.py, test_torch_gif.py,
-    test_torch_hdr_sunras.py.)"""
+    """The format this OpenCV build reads that the port does not read
+    yet (AVIF, written by cv2.imwrite and read back by cv2.imread):
+    NotImplementedError naming the format, whatever the file's extension; a
+    signature no decoder of cv2's claims, and an empty file: ValueError
+    (cv2 returns None); imwrite writes PNG and JPEG only.  The files the
+    port's first decoders refused and now reads (JPEG 2000 as JP2 and as a
+    codestream, under its own extension and another, TIFF, RLE-compressed
+    and 16-bit BMPs, a header patched to OS/2's size) read as cv2 reads
+    them; a PNG whose header names a palette but holds no PLTE, Adam7
+    passes that the data does not hold, or a bit depth its colour type
+    does not allow: ValueError; a missing file: FileNotFoundError (OpenCV
+    returns None).  (WebP, GIF, Radiance HDR, Sun raster and JPEG 2000
+    read now: tests/test_torch_webp.py, test_torch_gif.py,
+    test_torch_hdr_sunras.py, test_torch_jp2.py.)"""
     im = np.random.default_rng(3).integers(0, 256, (64, 64, 3), np.uint8)
-    formats = {".jp2": "JPEG 2000", ".avif": "AVIF"}
+    formats = {".avif": "AVIF"}
     for ext, name in formats.items():
         other = str(tmp_path / f"a{ext}")
         assert cv2.imwrite(other, im) and cv2.imread(other) is not None
@@ -147,11 +148,14 @@ def test_what_the_port_does_not_read_raises(tmp_path):
         with pytest.raises(NotImplementedError,
                            match="only PNG and JPEG files are written"):
             image_io.imwrite(other, im)
+    assert cv2.imwrite(str(tmp_path / "a.jp2"), im)
     jp2 = (tmp_path / "a.jp2").read_bytes()
     (tmp_path / "a.j2k").write_bytes(jp2[jp2.index(b"\xff\x4f\xff\x51"):])
     assert cv2.imread(str(tmp_path / "a.j2k")) is not None
-    with pytest.raises(NotImplementedError, match="JPEG 2000"):
-        image_io.imread(str(tmp_path / "a.j2k"))
+    for name in ("a.jp2", "a.j2k"):
+        same_as_cv2(tmp_path / name)
+        (tmp_path / "b.png").write_bytes((tmp_path / name).read_bytes())
+        same_as_cv2(tmp_path / "b.png")
     for data in (b"", b"hello, world", b"\x76\x2f\x31\x01" + bytes(60)):
         (tmp_path / "x.png").write_bytes(data)
         assert cv2.imread(str(tmp_path / "x.png")) is None
@@ -424,6 +428,43 @@ def test_cv2_bitfield_bmps(tmp_path):
                 same_as_cv2(path)
 
 
+# 32-bit bit masks (red, green, blue[, alpha]): BGRA bytes, RGBA order,
+# 10-10-10, 5-6-5 in 32 bits, overlapping, odd places, one mask zero
+BMP_MASKS32 = {
+    "bgra": (0xFF0000, 0xFF00, 0xFF, 0xFF000000),
+    "rgba": (0xFF, 0xFF00, 0xFF0000, 0xFF000000),
+    "10_10_10": (0x3FF00000, 0xFFC00, 0x3FF),
+    "5_6_5": (0xF800, 0x7E0, 0x1F),
+    "overlapping": (0xFFFF00, 0xFFFF, 0xFF),
+    "odd": (0x1F0, 0x7, 0xE0000),
+    "red_zero": (0, 0xFF00, 0xFF),
+}
+
+
+@pytest.mark.parametrize("header", [40, 56, 108, 124])
+@pytest.mark.parametrize("masks", list(BMP_MASKS32))
+def test_bmp_32bit_masks(masks, header, tmp_path):
+    """32-bit BI_BITFIELDS BMPs with every kind of mask, under 40-byte
+    headers (the masks follow and OpenCV ignores them: BGRA bytes, the
+    colour read's gray) and the V3 / V4 / V5 headers (the masks are
+    applied, each field scaled to 8 bits in float32 and truncated, the gray
+    in float32; with a zero mask none is), bottom-up and top-down: as
+    cv2.imread reads them in both modes.  A 480 x 640 frame with BGRA masks
+    reads exactly too (the case whose gray differed in 153,611 pixels
+    before the gray was chosen by header size)."""
+    rng = np.random.default_rng(header)
+    path = tmp_path / "m.bmp"
+    for H, W in SIZES + ((480, 640),) * (masks == "bgra"):
+        im = rng.integers(0, 256, (H, W, 4), np.uint8)
+        for top_down in (False, True):
+            path.write_bytes(image_io.encode_bmp(
+                im, top_down, masks32=BMP_MASKS32[masks], header=header))
+            same_as_cv2(path)
+    if header == 40 or masks == "red_zero":  # the bytes as they are
+        np.testing.assert_array_equal(image_io.imread(str(path)),
+                                      im[..., :3])
+
+
 @pytest.mark.parametrize("fmt", ["png", "jpeg", "bmp", "tiff", "pgm", "ppm",
                                  "pam", "pfm"])
 def test_decoder_picked_by_signature(fmt, tmp_path):
@@ -665,9 +706,10 @@ CLASSES = {
     "tiff_format_4_8": ("none", "none"),  # void
     "tiff_format_3_16": ("none", "none"),  # float16
     "tiff_format_5_32": ("none", "none"),  # complex integer
-    **{k: ("read", "read") for k in ("webp", "gif", "hdr", "sun_raster")},
+    **{k: ("read", "read") for k in ("webp", "gif", "hdr", "sun_raster",
+                                     "jp2")},
     # cv2 returns memory it never wrote for an alpha PAM
-    **{k: ("queued", "queued") for k in ("jp2", "avif", "pam_alpha")},
+    **{k: ("queued", "queued") for k in ("avif", "pam_alpha")},
 }
 
 

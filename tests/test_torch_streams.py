@@ -233,6 +233,35 @@ def test_image_stream_over_new_formats_matches_jax(fmt, tmp_path):
     assert len(items) == 4
 
 
+def test_jp2_streams_match_jax(tmp_path):
+    """image_stream and rgbd_stream over a directory of lossless JPEG 2000
+    colour frames (.jp2, the port's writer) and 16-bit JPEG 2000 depth
+    (.j2k codestreams): the JAX streams (cv2.imread) and the port's yield
+    the same frames, depths and intrinsics exactly."""
+    from lgu_slam_tpu_torch.data import jp2
+
+    images, depths, _, _ = fixtures.render_sequence(
+        5, 4, 60, 80, (70.0, 70.0, 40.0, 30.0), t_step=0.05, r_step=0.01)
+    for sub in ("rgb", "depth"):
+        os.makedirs(tmp_path / sub)
+    for k in range(len(images)):
+        fixtures.write_frame(str(tmp_path / "rgb" / f"{k:03d}"), images[k],
+                             "jp2")
+        (tmp_path / "depth" / f"{k:03d}.j2k").write_bytes(jp2.encode_jp2(
+            (depths[k] * 1000).astype(np.uint16), codestream=True))
+    (tmp_path / "calib.txt").write_text(
+        "70.0 70.0 40.0 30.0 0.2624 -0.9531 -0.0054 0.0026 1.1633\n")
+    calib = str(tmp_path / "calib.txt")
+    items = _held(tstreams.image_stream(str(tmp_path / "rgb"), calib),
+                  jstreams.image_stream(str(tmp_path / "rgb"), calib))
+    assert len(items) == 4
+    args = (str(tmp_path / "rgb"), str(tmp_path / "depth"), calib)
+    kw = dict(stride=1, target_pixels=3000)
+    items = _held(tstreams.rgbd_stream(*args, **kw),
+                  jstreams.rgbd_stream(*args, **kw))
+    assert len(items) == 4 and items[0][2].max() > 0
+
+
 @pytest.mark.parametrize("color", ["webp", "gif"])
 def test_rgbd_stream_over_hdr_depth_matches_jax(color, tmp_path):
     """rgbd_stream over WebP or GIF colour with Radiance HDR depth (gray
