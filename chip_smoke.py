@@ -219,10 +219,25 @@ Sixteen phases; any failure exits non-zero.
    values, tracked as in phase 12: both streams feed equal frames and
    depth, ``track()`` makes equal K1 and K2 launches over them, and the
    JP2 stream's host ms per fed frame against the PNG's.
+17. The sharded backend's scaling script, ``scripts/
+   bench_backend_scaling_torch.py``, at its defaults (t = 32, 2 steps, 3
+   reps) on the card at world size 1 (its JSON line, the edge count, ms per
+   pass, and the K1 / K2 launches of its passes), then with ``--device cpu
+   --t 8 --steps 1 --reps 1`` at world sizes 1, 2 and 4 on the host
+   (gloo); a one-step pass of the
+   script's first graph on the card against the same pass on the CPU
+   (same seed and weights), poses and disparities within phase 2's
+   backend tolerance.  The TIFF files of ``tests/data/tiff`` that the
+   port reads since its recounted strips, JPEG of separate planes, short
+   JPEG strips, predicted YCbCr tiles and LogLuv32, against the SHA-256 of
+   ``cv2.imread``'s arrays; one file of each kind cv2 returns None for
+   that the port once refused as NotImplementedError, refused
+   (ValueError); the host's decode ms of a 480 x 640 JPEG TIFF of
+   separate planes.
 
 Before the last line it prints the tracking, terminate, training, fp32
-tracking, world-size-1, entry-point, 3DGS, JPEG, oracle and the five
-format reports, the
+tracking, world-size-1, entry-point, 3DGS, JPEG, oracle, the five
+format reports and the scaling report, the
 run's wall time, the
 card's name and power limit, and one JSON line with each kernel's error,
 time, bound and launches.  The last line is ``{"ok": true, "device": {...}}``.
@@ -2959,19 +2974,32 @@ def formats_14_cases() -> list:
     ]
 
 
-def phase_committed(folder: Path, phase: int) -> dict:
+def phase_committed(folder: Path, phase: int, keep=None) -> dict:
     """The committed files of another library's encoder (``folder``:
     ``tests/data/webp``, libwebp's lossy VP8, VP8X with lossy and lossless
     alpha, an animation; ``tests/data/tiff``, libtiff's CCITT, gray with
-    alpha, CMYK, YCbCr, L*a*b*, LogL; ``tests/data/jp2``, OpenJPEG's JPEG
-    2000 through Pillow, cv2.imwrite and its own API) decode to the SHA-256 of
-    ``cv2.imread``'s arrays (``hashes.json`` beside them) in both read
-    modes; the host's median ms of 10 colour decodes of each."""
+    alpha, CMYK, YCbCr, L*a*b*, LogL, and phase 17's files; ``tests/data/
+    jp2``, OpenJPEG's JPEG 2000 through Pillow, cv2.imwrite and its own
+    API) decode to the SHA-256 of ``cv2.imread``'s arrays (``hashes.json``
+    beside them) in both read modes, or are refused in a mode whose hash
+    is null; the host's median ms of 10 colour decodes (or refusals) of
+    each.
+    ``keep``: which names (default: all)."""
     hashes = json.loads((folder / "hashes.json").read_text())
     out = {}
     for name, want in sorted(hashes.items()):
+        if keep is not None and not keep(name):
+            continue
         path = str(folder / name)
+        if want["color"] is None and want["anydepth"] is None:
+            out[name] = dict(bytes=want["bytes"], refused=True, ms=host_ms(
+                lambda mode: refused(path, mode, phase),
+                ("color", "anydepth") * 5))
+            continue
         for mode in ("color", "anydepth"):
+            if want[mode] is None:
+                refused(path, mode, phase)
+                continue
             got = imread(path, anydepth=mode == "anydepth")
             digest = hashlib.sha256(np.ascontiguousarray(got).tobytes())
             check(digest.hexdigest() == want[mode]["sha256"]
@@ -2982,6 +3010,15 @@ def phase_committed(folder: Path, phase: int) -> dict:
         out[name] = dict(bytes=want["bytes"], decode_ms=host_ms(
             lambda _: imread(path), range(10)))
     return out
+
+
+def refused(path: str, mode: str, phase: int) -> None:
+    """``imread`` of ``path`` in ``mode`` raises ValueError."""
+    try:
+        imread(path, anydepth=mode == "anydepth")
+    except ValueError:
+        return
+    fail(f"phase {phase}: {path} ({mode}) read; OpenCV refuses it")
 
 
 def refusals(root: Path, cases, phase: int) -> dict:
@@ -3132,7 +3169,8 @@ def phase_15(dev, kernels: dict) -> dict:
         root = Path(tmp)
         report = dict(codecs=phase_format_codecs(root, formats_15_cases(),
                                                  15))
-        report["committed_tiff"] = phase_committed(TIFF_FIXTURES, 15)
+        report["committed_tiff"] = phase_committed(
+            TIFF_FIXTURES, 15, keep=lambda name: not tiff_17(name))
         report["refused"] = refusals(root, refusals_15(), 15)
         runs = phase_format_track(
             dev, kernels, root / "tum", n_frames=PHASE_15_FRAMES,
@@ -3247,6 +3285,108 @@ def print_phase_16(report: dict) -> None:
           f"{report['feed_ratio']:.3f}; {report['seconds']:.0f} s")
 
 
+# -- phase 17: the sharded backend's scaling script; the TIFF leftovers -----
+
+PHASE_17_WORLDS_CPU = (1, 2, 4)  # the host's gloo worlds (8 would crowd it)
+# the card run: the script's defaults at world size 1 in this process, so
+# that the counts cover every pass of it (a warm-up and the timed reps)
+PHASE_17_CARD_REPS = 3
+# the host run's arguments: on the card machine's host a t = 16 pass of one
+# step takes 3.8-7.3 s (phase 17 then took 73 s of its 60), so the host
+# scales an 8-keyframe graph one step deep, one timed pass per world size
+PHASE_17_HOST_ARGS = ["--device", "cpu", "--t", "8", "--steps", "1",
+                      "--reps", "1"]
+# phase 2's backend bound on cuda against cpu poses, also held on the
+# disparities (about 0.5-0.8)
+PHASE_17_TOL = 2e-2
+TIFF_17 = ("short_strip.tif", "jpeg_separate.tif",
+           "ycbcr_tiles_predictor.tif", "jpeg_short_strip.tif",
+           "logluv32.tif")
+
+
+def tiff_17(name: str) -> bool:
+    """Whether a committed TIFF file is phase 17's (phase 15 reads the
+    rest)."""
+    return name in TIFF_17 or name.startswith("c2_")
+
+
+def phase_scaling(dev, kernels: dict) -> dict:
+    """The scaling script on the card (world size 1) and on the host
+    (gloo), and one pass of its first graph on the card against the CPU."""
+    scaling = load_script("bench_backend_scaling_torch")
+    reset_counts()
+    card = scaling.main(["--reps", str(PHASE_17_CARD_REPS)], worlds=(1,))
+    passes = 1 + PHASE_17_CARD_REPS
+    k1, k2 = masked_corr_level0.launches, fused_pyramid_lookup.launches
+    check(k2 > 0, f"phase 17: the backend passes launched K2 {k2} times")
+    for name, n in (("masked_corr_level0_tc", k1),
+                    ("fused_pyramid_lookup", k2)):
+        kernels[name]["launches_scaling_17"] = n
+    host = scaling.main(PHASE_17_HOST_ARGS, worlds=PHASE_17_WORLDS_CPU)
+    sd = init_state_dict(scaling.config(32), seed=0)
+    on_card = scaling.run_world(1, 32, 1, 0, dev, state_dict=sd)
+    on_cpu = scaling.run_world(1, 32, 1, 0, "cpu", state_dict=sd)
+    check(np.array_equal(on_card["ii"], on_cpu["ii"])
+          and np.array_equal(on_card["jj"], on_cpu["jj"]),
+          "phase 17: the card's and the CPU's graphs differ")
+    err = {k: float((on_card[k] - on_cpu[k]).abs().max())
+           for k in ("poses", "disps")}
+    for k, e in err.items():
+        check(np.isfinite(e) and e < PHASE_17_TOL, f"phase 17: a pass's "
+              f"{k} differ by {e} on cuda and cpu (> {PHASE_17_TOL})")
+    return dict(card=card, host=host, edges=on_card["edges"],
+                k1_launches=k1, k2_launches=k2,
+                passes=passes, k2_launches_per_pass=k2 / passes,
+                cuda_vs_cpu=err,
+                tol=PHASE_17_TOL)
+
+
+def phase_17(dev, kernels: dict) -> dict:
+    t_start = time.perf_counter()
+    report = dict(scaling=phase_scaling(dev, kernels))
+    report["committed_tiff"] = phase_committed(TIFF_FIXTURES, 17,
+                                               keep=tiff_17)
+    frame = render_sequence(SEED + 24, 1, 480, 640, TUM_FR1, 0.02,
+                            0.004)[0][0]
+    sep = tiff.encode_tiff(frame, "jpeg", planar=2, photometric=2,
+                           rows_per_strip=16)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "separate.tif"
+        path.write_bytes(sep)
+        got = imread(str(path))
+        check(got.shape == frame.shape and psnr(got, frame) > 30.0,
+              f"phase 17: the JPEG TIFF of separate planes reads at "
+              f"{psnr(got, frame):.1f} dB")
+        report["jpeg_separate_480x640"] = dict(
+            bytes=len(sep), psnr_db=psnr(got, frame),
+            decode_ms=host_ms(lambda _: imread(str(path)), range(10)))
+    report["seconds"] = time.perf_counter() - t_start
+    return report
+
+
+def print_phase_17(report: dict) -> None:
+    s = report["scaling"]
+    refused_ms = [v["ms"] for v in report["committed_tiff"].values()
+                  if v.get("refused")]
+    read_ms = ", ".join(f"{k} {v['decode_ms']:.2f}" for k, v in
+                        report["committed_tiff"].items()
+                        if not v.get("refused"))
+    print(f"phase 17: scaling script on the card {s['card']['ms']} ms per "
+          f"pass ({s['edges']} edges, t = {s['card']['t']}, "
+          f"{s['card']['steps']} steps; K1 "
+          f"{s['k1_launches']} / K2 {s['k2_launches']} launches over its "
+          f"{s['passes']} passes), on the host (gloo, t = {s['host']['t']}, "
+          f"{s['host']['steps']} steps) {s['host']['ms']}; one pass cuda vs "
+          f"cpu: poses {s['cuda_vs_cpu']['poses']:.3g}, disparities "
+          f"{s['cuda_vs_cpu']['disps']:.3g} (< {s['tol']}); committed TIFF "
+          f"files equal to cv2's hashes ({read_ms} ms), "
+          f"{len(refused_ms)} refused ({min(refused_ms):.2f}-"
+          f"{max(refused_ms):.2f} ms); JPEG TIFF of separate planes at 480 "
+          f"x 640 decoded in "
+          f"{report['jpeg_separate_480x640']['decode_ms']:.2f} ms; "
+          f"{report['seconds']:.0f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke run needs an NVIDIA GPU")
@@ -3321,10 +3461,13 @@ def main():
     torch.cuda.empty_cache()
     formats_16 = phase_16(dev, kernels)
     print_phase_16(formats_16)
+    torch.cuda.empty_cache()
+    scaling_17 = phase_17(dev, kernels)
+    print_phase_17(scaling_17)
     # launches on the main path: K1 bf16 and K2 over track() +
-    # terminate(), phase 8's entry points, phase 10's JPEG runs and phases
-    # 12-16's TUM tracks, K2 also over phase 7's sharded backend pass, K1
-    # fp32 operands over phase 6's track()
+    # terminate(), phase 8's entry points, phase 10's JPEG runs, phases
+    # 12-16's TUM tracks and phase 17's backend passes, K2 also over phase
+    # 7's sharded backend pass, K1 fp32 operands over phase 6's track()
     for name in ("masked_corr_level0_tc", "fused_pyramid_lookup"):
         k = kernels[name]
         k["launches"] = k["launches_track"] + k["launches_terminate"] + \
@@ -3332,7 +3475,7 @@ def main():
             k["launches_entry_points"] + k["launches_jpeg"] + \
             k["launches_formats"] + k["launches_arith"] + \
             k["launches_formats_14"] + k["launches_formats_15"] + \
-            k["launches_formats_16"]
+            k["launches_formats_16"] + k["launches_scaling_17"]
     k = kernels["masked_corr_level0_tf32"]
     k["launches"] = k["launches_track_fp32"]
     for k in kernels.values():
@@ -3353,6 +3496,7 @@ def main():
     print(json.dumps({"formats_14": formats_14}))
     print(json.dumps({"formats_15": formats_15}))
     print(json.dumps({"formats_16": formats_16}))
+    print(json.dumps({"scaling_17": scaling_17}))
     print(json.dumps({"seconds": seconds}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": list(kernels.values())}))

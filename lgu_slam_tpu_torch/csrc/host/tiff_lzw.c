@@ -1,5 +1,6 @@
 /* TIFF strip and tile decoding for the port's data layer: the LZW and
- * PackBits decoders, the SGI LogL decoder and the inverse of the horizontal
+ * PackBits decoders, the SGI LogL and LogLuv32 decoders (LogLuv32 to
+ * libtiff's 8-bit RGB) and the inverse of the horizontal
  * (predictor 2) and floating-point (predictor 3) predictors, as libtiff 4.7
  * (tif_lzw.c, tif_packbits.c, tif_luv.c, tif_predict.c) applies them for
  * cv2.imread.
@@ -257,65 +258,131 @@ int tiff_fpredict(uint8_t *buf, int64_t rows, int64_t rowbytes,
     return TIFF_OK;
 }
 
-/* SGI LogL (tif_luv.c LogL16Decode, then L16toGry as libtiff's RGBA
- * interface asks for it, SGILOGDATAFMT_8BIT): `rows` rows of `width`
- * pixels, each row two run-length coded byte planes (the high bytes of
- * the 16-bit log luminances, then the low), a byte >= 128 a run of
- * (byte - 126) copies of the next byte, else that many literal bytes.
- * Each pixel becomes 256 sqrt(Y), 0 at or below 0 and 255 at or above 1,
- * Y = 2^((Le + 0.5) / 256 - 64).  Decoding stops at the first row the
- * data does not fill (TIFF_CORRUPT); that row and those after it are
- * left as they are (zeros). */
+/* SGI Log (tif_luv.c LogL16Decode / LogLuvDecode32, then L16toGry /
+ * Luv32toRGB as libtiff's RGBA interface asks for them,
+ * SGILOGDATAFMT_8BIT): `rows` rows of `width` pixels, each row `planes`
+ * run-length coded byte planes (LogL: the high bytes of the 16-bit log
+ * luminances, then the low; LogLuv32: the four bytes of each 32-bit
+ * pixel, most significant first), a byte >= 128 a run of (byte - 126)
+ * copies of the next byte, else that many literal bytes.  Decoding stops
+ * at the first row the data does not fill (TIFF_CORRUPT); that row and
+ * those after it are left as they are (zeros). */
+
+/* LogL16toY */
+static double logl16_y(int p16)
+{
+    int le = p16 & 0x7fff;
+    double y = le ? exp(M_LN2 / 256. * (le + .5) - M_LN2 * 64.) : 0.;
+    return (p16 & 0x8000) ? -y : y;
+}
+
+/* 256 sqrt(v), 0 at or below 0 and 255 at or above 1 (L16toGry and
+ * XYZtoRGB24's gamma of 2) */
+static uint8_t gamma2(double v)
+{
+    return (uint8_t)(v <= 0. ? 0 : v >= 1. ? 255 : (int)(256. * sqrt(v)));
+}
+
 static uint8_t logl_gray[1 << 16];
 
 __attribute__((constructor)) static void logl_table(void)
 {
-    for (int p = 0; p < 1 << 16; p++) {
-        int le = p & 0x7fff;
-        double y = le ? exp(M_LN2 / 256. * (le + .5) - M_LN2 * 64.) : 0.;
-        if (p & 0x8000)
-            y = -y;
-        logl_gray[p] = (uint8_t)(y <= 0. ? 0 : y >= 1. ? 255
-                                                 : (int)(256. * sqrt(y)));
-    }
+    for (int p = 0; p < 1 << 16; p++)
+        logl_gray[p] = gamma2(logl16_y(p));
 }
 
+/* LogLuv32toXYZ, then XYZtoRGB24 (CCIR-709 primaries): one pixel to RGB */
+static void logluv32_rgb(uint32_t p, uint8_t *rgb)
+{
+    float xyz[3] = {0.F, 0.F, 0.F};
+    double l = logl16_y((int)p >> 16);
+    if (l > 0.) {
+        double u = 1. / 410. * ((p >> 8 & 0xff) + .5);
+        double v = 1. / 410. * ((p & 0xff) + .5);
+        double s = 1. / (6. * u - 16. * v + 12.);
+        double x = 9. * u * s;
+        double y = 4. * v * s;
+        xyz[0] = (float)(x / y * l);
+        xyz[1] = (float)l;
+        xyz[2] = (float)((1. - x - y) / y * l);
+    }
+    rgb[0] = gamma2(2.690 * xyz[0] + -1.276 * xyz[1] + -0.414 * xyz[2]);
+    rgb[1] = gamma2(-1.022 * xyz[0] + 1.978 * xyz[1] + 0.044 * xyz[2]);
+    rgb[2] = gamma2(0.061 * xyz[0] + -0.224 * xyz[1] + 1.163 * xyz[2]);
+}
+
+/* One row's `planes` byte planes into tp (zeroed first); 0 where the data
+ * ends before the row does ("Not enough data at row"). */
+static int sgilog_row(const uint8_t **bpp, int64_t *ccp, uint32_t *tp,
+                      int64_t width, int planes)
+{
+    const uint8_t *bp = *bpp;
+    int64_t cc = *ccp;
+    memset(tp, 0, sizeof(uint32_t) * (size_t)width);
+    for (int shft = 8 * (planes - 1); shft >= 0; shft -= 8) {
+        int64_t i = 0;
+        while (i < width && cc > 0) {
+            if (*bp >= 128) { /* a run */
+                if (cc < 2)
+                    break;
+                int rc = *bp++ + (2 - 128);
+                uint32_t b = (uint32_t)*bp++ << shft;
+                cc -= 2;
+                while (rc-- && i < width)
+                    tp[i++] |= b;
+            } else { /* literal bytes; a count of 0 does nothing */
+                int rc = *bp++;
+                while (--cc && rc-- && i < width)
+                    tp[i++] |= (uint32_t)*bp++ << shft;
+            }
+        }
+        if (i != width)
+            return 0;
+    }
+    *bpp = bp;
+    *ccp = cc;
+    return 1;
+}
+
+/* LogL: 8-bit gray rows of `width` */
 int tiff_logl_decode(const uint8_t *src, int64_t n, uint8_t *dst,
                      int64_t rows, int64_t width)
 {
-    int16_t *tp = malloc(sizeof(int16_t) * (size_t)(width > 0 ? width : 1));
+    uint32_t *tp = malloc(sizeof(uint32_t) * (size_t)(width > 0 ? width : 1));
     if (tp == NULL)
         return TIFF_NOMEM;
     const uint8_t *bp = src;
     int64_t cc = n;
     int status = TIFF_OK;
-    for (int64_t y = 0; y < rows && status == TIFF_OK; y++) {
-        memset(tp, 0, sizeof(int16_t) * (size_t)width);
-        for (int shft = 8; shft >= 0; shft -= 8) {
-            int64_t i = 0;
-            while (i < width && cc > 0) {
-                if (*bp >= 128) { /* a run */
-                    if (cc < 2)
-                        break;
-                    int rc = *bp++ + (2 - 128);
-                    int16_t b = (int16_t)(*bp++ << shft);
-                    cc -= 2;
-                    while (rc-- && i < width)
-                        tp[i++] |= b;
-                } else { /* literal bytes; a count of 0 does nothing */
-                    int rc = *bp++;
-                    while (--cc && rc-- && i < width)
-                        tp[i++] |= (int16_t)(*bp++ << shft);
-                }
-            }
-            if (i != width) {
-                status = TIFF_CORRUPT; /* "Not enough data at row" */
-                break;
-            }
+    for (int64_t y = 0; y < rows; y++) {
+        if (!sgilog_row(&bp, &cc, tp, width, 2)) {
+            status = TIFF_CORRUPT;
+            break;
         }
-        if (status == TIFF_OK)
-            for (int64_t i = 0; i < width; i++)
-                dst[y * width + i] = logl_gray[(uint16_t)tp[i]];
+        for (int64_t i = 0; i < width; i++)
+            dst[y * width + i] = logl_gray[(uint16_t)tp[i]];
+    }
+    free(tp);
+    return status;
+}
+
+/* LogLuv32: 8-bit RGB rows of `width` pixels */
+int tiff_logluv32_decode(const uint8_t *src, int64_t n, uint8_t *dst,
+                         int64_t rows, int64_t width)
+{
+    uint32_t *tp = malloc(sizeof(uint32_t) * (size_t)(width > 0 ? width : 1));
+    if (tp == NULL)
+        return TIFF_NOMEM;
+    const uint8_t *bp = src;
+    int64_t cc = n;
+    int status = TIFF_OK;
+    for (int64_t y = 0; y < rows; y++) {
+        if (!sgilog_row(&bp, &cc, tp, width, 4)) {
+            status = TIFF_CORRUPT;
+            break;
+        }
+        for (int64_t i = 0; i < width; i++)
+            logluv32_rgb(tp[i], dst + 3 * (y * width + i));
     }
     free(tp);
     return status;

@@ -6,16 +6,18 @@ the files it reads, for fixtures.
 ``MM\\0*``) or a BigTIFF (``II+\\0`` / ``MM\\0+``): strips or tiles,
 ``PlanarConfiguration`` 1 or 2, ``FillOrder`` 1 or 2, compression none,
 LZW (and its pre-6.0 LSB-first coding), Deflate (8 and 32946), PackBits,
-JPEG (7: libtiff's codec, ``JPEGTables``, YCbCr subsampling; each strip
-through the port's C JPEG decoder), the CCITT schemes of 1-bit images
-(RLE, RLEW, Group 3 1-D and 2-D, Group 4) and SGI Log of LogL images, the
-horizontal and the floating-point predictor; 1-, 8- and 16-bit unsigned
-gray (min-is-black or min-is-white) with or without extra samples, RGB
-and RGBA, 1- and 8-bit palettes, separated CMYK, uncompressed YCbCr at
-each subsampling libtiff reads, CIE L*a*b*, and the other sample formats
-OpenCV reads (``int8``, ``int16``, ``uint32``, ``int32``, ``uint64``,
-``int64``, ``float32``, ``float64``); orientations 1-4.  The LZW,
-PackBits and LogL decoders and the predictors run in C
+JPEG (7: libtiff's codec, ``JPEGTables``, YCbCr subsampling, separate
+planes, strips the stream does not fill; each strip through the port's C
+JPEG decoder), the CCITT schemes of 1-bit images (RLE, RLEW, Group 3 1-D
+and 2-D, Group 4) and SGI Log of LogL and LogLuv32 images (LogLuv32 in
+the colour read), the horizontal and the floating-point predictor; 1-, 8-
+and 16-bit unsigned gray (min-is-black or min-is-white) with or without
+extra samples, RGB and RGBA, 1- and 8-bit palettes, separated CMYK,
+uncompressed YCbCr at each subsampling libtiff reads, CIE L*a*b*, and the
+other sample formats OpenCV reads (``int8``, ``int16``, ``uint32``,
+``int32``, ``uint64``, ``int64``, ``float32``, ``float64``); orientations
+1-4; strip byte counts recounted where libtiff recounts them.  The LZW,
+PackBits, LogL and LogLuv32 decoders and the predictors run in C
 (``csrc/host/tiff_lzw.c``), the CCITT decoder too
 (``csrc/host/ccitt_decode.c``), each built by the host compiler at first
 use.  A scheme libtiff does not know decodes to zeros, as libtiff's RGBA
@@ -42,12 +44,15 @@ OpenCV reads a TIFF along one of two paths, and the decoder takes the same:
   ``IMREAD_ANYDEPTH`` are refused (cv2 returns None: ``ValueError``).
 
 Orientations 2-4 flip the result as cv2.imread does; 5-8 (transposes) it
-refuses.  Files OpenCV reads and this decoder does not (SGI LogLuv, and
-what each ``NotImplementedError`` names) raise ``NotImplementedError``;
-files OpenCV refuses (among them the compressions this libtiff build
-lacks: old-style JPEG, LZMA, ZSTD, WebP, LERC, JBIG and others, and the
-layouts its RGBA interface cannot put: 16-bit palettes and CMYK, YCbCr
-subsampled 2 x 4, ...) raise ``ValueError``.
+refuses.  Files OpenCV reads and this decoder does not (SGI LogLuv24 in
+the colour read, 12-bit samples read with ``IMREAD_ANYDEPTH``, and 16-bit
+separate colour planes read to gray) raise ``NotImplementedError``;
+files OpenCV refuses raise ``ValueError``: among them the compressions
+this libtiff build lacks (old-style JPEG, LZMA, ZSTD, WebP, LERC, JBIG
+and others), the layouts its RGBA interface cannot put (16-bit palettes
+and CMYK, YCbCr subsampled 2 x 4, ...), the predictors and per-sample
+fields libtiff does not set up, YCbCr fields its conversion refuses, and
+strips the file cannot fill once libtiff has recounted their bytes.
 """
 
 from __future__ import annotations
@@ -78,8 +83,9 @@ REFUSED_COMPRESSION = {6: "old-style JPEG", 32766: "NeXT",
                        32809: "ThunderScan", 32909: "PixarLog",
                        34661: "JBIG", 34887: "LERC", 34925: "LZMA",
                        50000: "ZSTD", 50001: "WebP"}
-# the SGI Log schemes: LogL under 34676 is read; LogLuv (OpenCV's float
-# read) is not, as no LogLuv file could be made to probe it
+# the SGI Log schemes: LogL and LogLuv32 under 34676 are read (in colour:
+# OpenCV's float read of LogLuv fails), LogLuv24 under 34677 is not (its
+# colour index needs libtiff's table of the uv plane, tif_luvuv.h)
 SGILOG = {34676: "SGI Log", 34677: "SGI Log24"}
 # some schemes libtiff does not know (any code outside the above): it
 # decodes nothing, so its RGBA interface reads zeroed buffers
@@ -89,13 +95,17 @@ UNKNOWN_COMPRESSION = {34712: "JPEG 2000", 50002: "JPEG XL",
 TAGS = {256: "width", 257: "height", 258: "bits", 259: "compression",
         262: "photometric", 266: "fill_order", 273: "strip_offsets",
         274: "orientation", 277: "spp", 278: "rows_per_strip",
-        279: "strip_counts", 284: "planar", 292: "t4_options",
+        279: "strip_counts", 280: "min_sample", 281: "max_sample",
+        284: "planar", 292: "t4_options",
         317: "predictor", 318: "white_point", 320: "colormap",
         322: "tile_width", 323: "tile_length", 324: "tile_offsets",
         325: "tile_counts", 332: "ink_set", 338: "extra_samples",
         339: "sample_format", 347: "jpeg_tables", 513: "ojpeg_interchange",
         519: "ojpeg_qtables", 529: "ycbcr_coefficients",
         530: "ycbcr_subsampling", 532: "reference_black_white"}
+# the SHORT tags libtiff reads one value of for every sample
+# (TIFFReadDirEntryPersampleShort)
+PER_SAMPLE = ("bits", "sample_format", "min_sample", "max_sample")
 # TIFF field type -> (struct code, bytes); 16-18 are BigTIFF's; the
 # rationals (5, 10) are read as pairs and become float32 quotients
 TYPES = {1: ("B", 1), 2: ("B", 1), 3: ("H", 2), 4: ("I", 4), 5: ("I", 8),
@@ -130,7 +140,10 @@ MAX_SIDE = 1 << 20
 def _ifd(data: bytes, path) -> tuple:
     """The tags of the first image file directory (classic TIFF, or
     BigTIFF with its 8-byte counts and offsets): name -> tuple of values,
-    and the byte order."""
+    and the byte order.  ``"dir_bytes"`` holds what libtiff counts as the
+    directory's room in the file (header, entries and the values stored
+    apart from them; None where an entry's type has no size), which its
+    estimate of a compressed strip's size takes from the file's."""
     if data[:4] not in (TIFF_II, TIFF_MM) + BIGTIFF:
         raise ValueError(f"{path}: not a TIFF file")
     bo = "<" if data[:2] == b"II" else ">"
@@ -152,9 +165,15 @@ def _ifd(data: bytes, path) -> tuple:
     if n == 0 or off + csize + esize * n > len(data):
         raise ValueError(f"{path}: TIFF directory of {n} entries cut short")
     tags = {}
+    room = 4 + struct.calcsize(bo + head) + csize + esize * n + (
+        8 if big else 4)
     for k in range(n):
         tag, typ, count_k, value = struct.unpack_from(
             bo + entry, data, off + csize + esize * k)
+        if room is not None:  # tif_dirread.c EstimateStripByteCounts
+            width = TYPES[typ][1] if typ in TYPES else 0
+            room = None if width == 0 else room + (
+                width * count_k if width * count_k > inline else 0)
         if tag not in TAGS or typ not in TYPES:
             continue
         code, size = TYPES[typ]
@@ -175,6 +194,7 @@ def _ifd(data: bytes, path) -> tuple:
             tags[TAGS[tag]] = tuple(q.astype(np.float32))
         else:
             tags[TAGS[tag]] = struct.unpack(f"{bo}{count_k}{code}", raw)
+    tags["dir_bytes"] = (room,)
     return tags, bo
 
 
@@ -189,8 +209,9 @@ def _lib():
     lib.tiff_lzw_decode.argtypes = [ctypes.c_char_p, i64, ptr, i64, cint]
     lib.tiff_packbits_decode.argtypes = [ctypes.c_char_p, i64, ptr, i64]
     lib.tiff_lzw_old_style.argtypes = [ctypes.c_char_p, i64]
-    lib.tiff_logl_decode.argtypes = [ctypes.c_char_p, i64, ptr, i64, i64]
-    lib.tiff_logl_decode.restype = cint
+    for fn in (lib.tiff_logl_decode, lib.tiff_logluv32_decode):
+        fn.argtypes = [ctypes.c_char_p, i64, ptr, i64, i64]
+        fn.restype = cint
     for fn in (lib.tiff_lzw_decode, lib.tiff_packbits_decode,
                lib.tiff_lzw_old_style):
         fn.restype = cint
@@ -258,23 +279,35 @@ def _inflate(raw: bytes, size: int) -> tuple:
     return got, True
 
 
-def _decompress(raw: bytes, size: int, compression: int, path,
-                partial: bool, old_lzw: bool = False, width: int = 1
-                ) -> np.ndarray:
-    """One strip or tile of ``size`` bytes as libtiff decodes it (the data
-    may hold more); ``old_lzw``: LZW in the pre-6.0 coding; SGI Log: LogL
-    as 8-bit gray rows of ``width`` pixels.  Where the data is damaged or
-    ends early, or the scheme is one libtiff does not know, libtiff
-    reports an error: with ``partial`` (its RGBA interface, which goes on)
-    the bytes decoded up to there and zeros, else ``ValueError``."""
-    out = np.zeros(size, np.uint8)
+def _decode_failed(compression: int, n: int, size: int, path):
+    """``ValueError`` for a strip or tile of ``n`` bytes that libtiff's
+    codec fails to decode to ``size`` (cv2.imread returns None where it
+    reads the samples as stored)."""
     if compression == 1:
+        raise ValueError(f"{path}: an uncompressed TIFF strip of {n} bytes "
+                         f"for {size} (cv2.imread returns None)")
+    name = COMPRESSION.get(compression) or UNKNOWN_COMPRESSION.get(
+        compression, f"scheme {compression}")
+    raise ValueError(f"{path}: TIFF {name} data is damaged or cut short, or "
+                     "in a scheme libtiff does not know (cv2.imread returns "
+                     "None)")
+
+
+def _decoded(raw: bytes, size: int, compression: int, path,
+             old_lzw: bool = False, width: int = 1, per: int = 1) -> tuple:
+    """One strip or tile of ``size`` bytes as libtiff decodes it (the data
+    may hold more), and whether libtiff's codec failed: the data is
+    damaged or ends early, or the scheme is one libtiff does not know
+    (then the bytes decoded up to there and zeros, and no predictor
+    undone; its RGBA interface goes on, a raw read refuses:
+    :func:`_decode_failed`).  ``old_lzw``: LZW in the pre-6.0 coding; SGI
+    Log: LogL as 8-bit gray rows of ``width`` pixels, of ``per`` 3
+    LogLuv32 as 8-bit RGB rows."""
+    out = np.zeros(size, np.uint8)
+    if compression == 1:  # libtiff copies nothing of a short strip
         if len(raw) >= size:
             out[:] = np.frombuffer(raw, np.uint8, size)
-        elif not partial:  # libtiff copies nothing of a short strip
-            raise ValueError(f"{path}: an uncompressed TIFF strip of "
-                             f"{len(raw)} bytes for {size}")
-        return out
+        return out, len(raw) < size
     if compression in (8, 32946):
         got, damaged = _inflate(raw, size)
         out[:len(got)] = np.frombuffer(got, np.uint8)
@@ -285,20 +318,16 @@ def _decompress(raw: bytes, size: int, compression: int, path,
     elif compression == 32773:
         status = _lib().tiff_packbits_decode(raw, len(raw), out.ctypes.data,
                                              size)
-    elif compression == 34676:  # LogL, as 8-bit gray rows of `width`
-        status = _lib().tiff_logl_decode(raw, len(raw), out.ctypes.data,
-                                         size // width, width)
+    elif compression == 34676:  # LogL / LogLuv32, 8-bit rows of `width`
+        decode = _lib().tiff_logluv32_decode if per == 3 else \
+            _lib().tiff_logl_decode
+        status = decode(raw, len(raw), out.ctypes.data,
+                        size // (width * per), width)
     else:  # a scheme libtiff does not know: it decodes nothing
         status = 1
     if status == 3:
         raise MemoryError(f"{path}: out of memory")
-    if status and not partial:
-        name = COMPRESSION.get(compression) or UNKNOWN_COMPRESSION.get(
-            compression, f"scheme {compression}")
-        raise ValueError(f"{path}: TIFF {name} data is damaged or cut "
-                         "short, or in a scheme libtiff does not know "
-                         "(cv2.imread returns None)")
-    return out
+    return out, bool(status)
 
 
 def _unpredict(buf: np.ndarray, rows: int, rowbytes: int, stride: int,
@@ -331,21 +360,100 @@ def _skewed_rows(buf: np.ndarray, h: int, w: int, cw: int, per: int,
     return (lo | hi << 8)[..., None]
 
 
-def _uncompressed_counts(counts, H: int, down: int, rowbytes: int,
-                         planes: int, path) -> tuple:
-    """The strip byte counts libtiff reads an uncompressed image with
-    (tif_dirread.c): where the first two of more than two strips of
-    contiguous samples differ, it takes them for wrong and sets every one
-    to ``H // down`` rows (then a strip may run past the file's end, or
-    hold fewer rows than it should)."""
-    if planes == 1 and down > 2 and counts[0] != counts[1] and \
-            counts[0] and counts[1]:
+def _estimated_counts(tags: dict, offsets, n: int, chunk_bytes: int,
+                      compression: int, planes: int, size: int,
+                      path) -> tuple:
+    """libtiff's estimate of ``n`` strip or tile byte counts
+    (tif_dirread.c EstimateStripByteCounts): uncompressed, ``chunk_bytes``
+    each; compressed, the file's bytes outside its directory (split over
+    ``planes`` separate planes; the whole file where the directory counts
+    more bytes than it holds), the last one cut to the file's end."""
+    if compression == 1:
+        return (chunk_bytes,) * n
+    room = tags["dir_bytes"][0]
+    if room is None:
+        raise ValueError(f"{path}: TIFF directory entry of a type without "
+                         "a size (cv2.imread returns None)")
+    each = (size if size < room else size - room) // planes
+    last = int(offsets[n - 1])
+    if last + each > size:
+        each_last = max(size - last, 0)
+        return (each,) * (n - 1) + (each_last,)
+    return (each,) * n
+
+
+def _strip_counts(tags: dict, offsets, counts, compression: int, tiled: bool,
+                  n: int, planes: int, H: int, down: int, rowbytes: int,
+                  chunk_bytes: int, size: int, path) -> tuple:
+    """The strip or tile byte counts libtiff reads the image with
+    (tif_dirread.c TIFFReadDirectory):
+
+    - without the StripByteCounts (TileByteCounts) field, estimated
+      (:func:`_estimated_counts`) where there is one chunk of contiguous
+      samples or one per separate plane, else refused;
+    - a single strip whose count "looks bad" (ByteCountLooksBad: 0, or,
+      uncompressed, past the file's end or short of ``H`` rows),
+      estimated;
+    - where the first two of more than two uncompressed strips of
+      contiguous samples differ, every one set to ``H // down`` rows (then
+      a strip may run past the file's end, or hold fewer rows than it
+      should)."""
+    if counts is None:
+        if n != (1 if planes == 1 else planes):
+            raise ValueError(f"{path}: TIFF without its StripByteCounts "
+                             f"field, of {n} strips or tiles (cv2.imread "
+                             "returns None)")
+        return _estimated_counts(tags, offsets, n, chunk_bytes, compression,
+                                 planes, size, path)
+    if tiled:
+        return counts
+    off, count = int(offsets[0]), int(counts[0])
+    if n == 1 and off != 0 and (count == 0 or compression == 1 and (
+            off <= size and count > size - off or count < rowbytes * H)):
+        return _estimated_counts(tags, offsets, 1, rowbytes * H, compression,
+                                 1, size, path)
+    if compression == 1 and planes == 1 and down > 2 and \
+            counts[0] != counts[1] and counts[0] and counts[1]:
         return ((H // down) * rowbytes,) * len(counts)
-    if len(counts) == 1 and counts[0] < rowbytes * H:
-        raise NotImplementedError(
-            f"{path}: a single uncompressed TIFF strip of {counts[0]} bytes "
-            f"for {rowbytes * H} (libtiff estimates its size anew)")
     return counts
+
+
+def _per_sample(tags: dict, path) -> dict:
+    """``tags`` with one value of each :data:`PER_SAMPLE` field; refused
+    (cv2.imread returns None: libtiff's "Cannot handle different values
+    per sample") where the field lists fewer values than there are samples
+    (but one), or different ones for them (values past the samples are
+    not read)."""
+    spp = _one(tags, "spp", 1)
+    for name in PER_SAMPLE:
+        v = tags.get(name)
+        if v is None or len(v) == 1:
+            continue
+        if len(v) < spp or len(set(v[:spp])) > 1:
+            raise ValueError(f"{path}: TIFF {name} of {len(v)} values "
+                             f"{v[:spp]} for {spp} samples, which libtiff "
+                             "cannot handle (cv2.imread returns None)")
+        tags = dict(tags, **{name: v[:1]})
+    return tags
+
+
+def _check_predictor(predictor: int, bits: int, fmt: int, path) -> None:
+    """Refuse (cv2.imread returns None) the predictors libtiff does not set
+    up (tif_predict.c PredictorSetup): values other than 1-3, the
+    horizontal predictor at other depths than 8, 16, 32 and 64 bits, the
+    floating-point predictor of other than floating-point samples (of 16,
+    24, 32 or 64 bits)."""
+    why = None
+    if predictor not in (1, 2, 3):
+        why = f"predictor {predictor}"
+    elif predictor == 2 and bits not in (8, 16, 32, 64):
+        why = f"horizontal predictor of {bits}-bit samples"
+    elif predictor == 3 and (fmt != 3 or bits not in (16, 24, 32, 64)):
+        why = (f"floating-point predictor of {bits}-bit samples of sample "
+               f"format {fmt}")
+    if why:
+        raise ValueError(f"{path}: TIFF {why}, which libtiff does not "
+                         "decode (cv2.imread returns None)")
 
 
 def _check_compression(tags: dict, compression: int, bits: int, path
@@ -355,7 +463,7 @@ def _check_compression(tags: dict, compression: int, bits: int, path
     this libtiff build lacks, old-style JPEG even with its JPEG tags, the
     CCITT schemes of more than 1 bit, SGI Log of other photometric
     interpretations than LogL and LogLuv, LogL under SGI Log24),
-    ``NotImplementedError`` where it reads an image (LogLuv)."""
+    ``NotImplementedError`` where it reads an image (LogLuv24)."""
     photometric = _one(tags, "photometric", 1)
     if compression in REFUSED_COMPRESSION:
         raise ValueError(f"{path}: TIFF {REFUSED_COMPRESSION[compression]} "
@@ -366,15 +474,17 @@ def _check_compression(tags: dict, compression: int, bits: int, path
                          f"{bits}-bit samples (cv2.imread returns None)")
     if compression in SGILOG:
         if photometric == 32845:
-            raise NotImplementedError(f"{path}: TIFF {SGILOG[compression]} "
-                                      "compression of LogLuv")
-        if photometric != 32844 or compression != 34676:
+            if compression == 34677:
+                raise NotImplementedError(f"{path}: TIFF SGI Log24 "
+                                          "compression of LogLuv")
+        elif photometric != 32844 or compression != 34676:
             raise ValueError(f"{path}: TIFF {SGILOG[compression]} of "
                              f"photometric interpretation {photometric} "
                              "(cv2.imread returns None)")
-    if compression == 7 and bits != 8:
-        raise NotImplementedError(f"{path}: JPEG TIFF of {bits}-bit "
-                                  "samples")
+    if compression == 7 and bits not in (8, 16):
+        raise ValueError(f"{path}: JPEG TIFF of {bits}-bit samples, which "
+                         "this libtiff's libjpeg does not decode (cv2.imread "
+                         "returns None)")
 
 
 def _jpeg_tables(tags: dict) -> bytes:
@@ -389,14 +499,52 @@ def _jpeg_tables(tags: dict) -> bytes:
     return b"".join(out)
 
 
+# the start-of-frame markers (SOF0-SOF15 but DHT, JPG and DAC)
+_SOF = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
+
+
+def _jpeg_frame(stream: bytes, where) -> tuple:
+    """The frame header of a JPEG stream that reaches its first scan, as
+    :func:`image_io.jpeg_info` gives it (height, width, 0, components,
+    component 0's sampling, whether the rest are 1 x 1), with the
+    precision and whether the frame is lossless (SOF3); ``ValueError``
+    where the stream has no frame header before a scan."""
+    pos, frame = 2, None
+    while stream[:2] == b"\xff\xd8" and pos + 4 <= len(stream) and \
+            stream[pos] == 0xFF:
+        marker, = stream[pos + 1:pos + 2]
+        if marker == 0xFF:
+            pos += 1
+            continue
+        n, = struct.unpack_from(">H", stream, pos + 2)
+        if marker == 0xDA and frame is not None:
+            return frame
+        if marker in _SOF and pos + 10 <= len(stream):
+            p, h, w, nf = struct.unpack_from(">BHHB", stream, pos + 4)
+            f = stream[pos + 11:pos + 11 + 3 * nf:3]
+            if len(f) == nf and nf:
+                frame = (h, w, 0, nf, f[0] >> 4, f[0] & 15,
+                         int(all(b == 0x11 for b in f[1:])), p,
+                         marker == 0xC3)
+        pos += 2 + n
+    raise ValueError(f"{where}: no JPEG frame header before a scan "
+                     "(cv2.imread returns None)")
+
+
 def _jpeg_chunk_samples(raw: bytes, tables: bytes, seg_h: int, seg_w: int,
-                        last_strip: bool, photometric: int, sub: tuple,
-                        spp: int, k: int, path) -> np.ndarray:
-    """One JPEG strip or tile as libtiff's JPEG codec decodes it
-    (tif_jpeg.c JPEGPreDecode, JPEGDecode): the tables read first, its
-    size and sampling checked against the strip's (a last strip may hold
-    more rows, which are dropped), YCbCr taken to RGB by libjpeg
-    (JPEGCOLORMODE_RGB), other components as stored."""
+                        last_strip: bool, ycc: bool, sub: tuple, ncomp: int,
+                        bits: int, k: int, path) -> np.ndarray:
+    """One JPEG strip or tile (or, of separate planes, one plane's) as
+    libtiff's JPEG codec decodes it (tif_jpeg.c JPEGPreDecode,
+    JPEGDecode) for its RGBA interface: the tables read first, its size,
+    ``ncomp`` components and sampling checked against the strip's (a last
+    strip may hold more rows, which are dropped), contiguous YCbCr
+    (``ycc``) taken to RGB by libjpeg (JPEGCOLORMODE_RGB), other
+    components as stored.  A stream narrower or shorter than the strip
+    fills its top left corner, zeros the rest (libtiff warns and reads it
+    short).  16 bits: a lossless 16-bit stream passes the header checks
+    and fails in libjpeg's 8-bit scanline reader, so the strip reads as
+    zeros (any other precision fails the checks)."""
     from lgu_slam_tpu_torch.data.image_io import (JPEG_OUT_RAW,
                                                   JPEG_OUT_YCC_RGB,
                                                   jpeg_info, jpeg_samples)
@@ -407,22 +555,28 @@ def _jpeg_chunk_samples(raw: bytes, tables: bytes, seg_h: int, seg_w: int,
     # libtiff's JPEGPreDecode reads the header and starts the decompressor
     # (a progressive stream is absorbed there): a failure fails the strip
     # read, and cv2.imread returns None (ValueError)
-    h, w, _, ncomp, h0, v0, rest_1x1 = jpeg_info(stream, where)
-    ycc = photometric == 6
+    if bits == 16:
+        h, w, _, nc, h0, v0, rest_1x1, precision, lossless = _jpeg_frame(
+            stream, where)
+        if precision != 16 or not lossless:
+            raise ValueError(f"{where}: JPEG of {precision}-bit samples in "
+                             "a 16-bit TIFF (cv2.imread returns None)")
+    else:
+        h, w, _, nc, h0, v0, rest_1x1 = jpeg_info(stream, where)
     want = (sub if ycc else (1, 1), 1)
-    if ncomp != spp or ((h0, v0), rest_1x1) != want:
-        raise ValueError(f"{where}: {ncomp} components sampled {h0}x{v0} "
-                         f"(the TIFF's {spp} at {want[0]})")
+    if nc != ncomp or ((h0, v0), rest_1x1) != want:
+        raise ValueError(f"{where}: {nc} components sampled {h0}x{v0} "
+                         f"(the TIFF's {ncomp} at {want[0]})")
     if w > seg_w or (h > seg_h and not (w == seg_w and last_strip)):
         raise ValueError(f"{where}: {w}x{h} exceeds the strip's "
                          f"{seg_w}x{seg_h}")
-    if w < seg_w or h < seg_h:
-        raise NotImplementedError(f"{where}: {w}x{h} for the strip's "
-                                  f"{seg_w}x{seg_h} (libtiff warns and "
-                                  "reads it short)")
-    px = jpeg_samples(stream, JPEG_OUT_YCC_RGB if ycc else JPEG_OUT_RAW,
-                      ncomp, where)
-    return px[:seg_h]
+    out = np.zeros((seg_h, seg_w, ncomp), np.uint8 if bits == 8 else
+                   np.uint16)
+    if bits == 8:
+        px = jpeg_samples(stream, JPEG_OUT_YCC_RGB if ycc else JPEG_OUT_RAW,
+                          ncomp, where)
+        out[:h, :w] = px[:seg_h]
+    return out
 
 
 def _samples(data: bytes, tags: dict, bo: str, path, partial: bool,
@@ -441,24 +595,16 @@ def _samples(data: bytes, tags: dict, bo: str, path, partial: bool,
         raise ValueError(f"{path}: TIFF of {W} x {H} pixels is more than "
                          "cv2.imread reads")
     spp = _one(tags, "spp", 1)
-    bits = set(tags.get("bits", (1,)))
-    if len(bits) != 1:
-        raise NotImplementedError(f"{path}: TIFF samples of mixed depths")
-    bits = bits.pop()
+    bits = _one(tags, "bits", 1)
     compression = _one(tags, "compression", 1)
     _check_compression(tags, compression, bits, path)
     # libtiff applies a predictor only for the codecs that take one
     predictor = _one(tags, "predictor", 1) if compression in (5, 8, 32946) \
         else 1
+    _check_predictor(predictor, bits, _one(tags, "sample_format", 1), path)
     planar = _one(tags, "planar", 1)
     if planar not in (1, 2):
         raise ValueError(f"{path}: TIFF planar configuration {planar}")
-    if compression == 7 and planar == 2:
-        raise NotImplementedError(f"{path}: JPEG TIFF of separate planes")
-    if predictor not in (1, 2, 3) or (predictor == 3 and bits < 32) or (
-            predictor == 2 and bits not in (8, 16, 32, 64)):
-        raise NotImplementedError(f"{path}: TIFF predictor {predictor} of "
-                                  f"{bits}-bit samples")
     tiled = "tile_width" in tags
     if tiled:
         cw, ch = _one(tags, "tile_width"), _one(tags, "tile_length", 0)
@@ -467,7 +613,7 @@ def _samples(data: bytes, tags: dict, bo: str, path, partial: bool,
         cw = W
         ch = min(_one(tags, "rows_per_strip", H) or H, H)
         offsets, counts = tags.get("strip_offsets"), tags.get("strip_counts")
-    if cw <= 0 or ch <= 0 or offsets is None or counts is None:
+    if cw <= 0 or ch <= 0 or offsets is None:
         raise ValueError(f"{path}: TIFF without its strips or tiles")
     planes = spp if planar == 2 else 1
     per = spp // planes  # samples per pixel in a chunk
@@ -479,26 +625,25 @@ def _samples(data: bytes, tags: dict, bo: str, path, partial: bool,
     units = photometric == 6 and compression != 7 and planar == 1 and \
         sub != (1, 1)
     if units:
-        if predictor > 1 and tiled:
-            raise NotImplementedError(f"{path}: TIFF predictor {predictor} "
-                                      "of subsampled YCbCr tiles")
         unit = sub[0] * sub[1] + 2
         unit_row = -(-cw // sub[0]) * unit
         rowbytes = unit_row // sub[1]
     across = -(-W // cw)
     down = -(-H // ch)
-    if min(len(offsets), len(counts)) < planes * across * down:
-        raise ValueError(f"{path}: TIFF lists {len(offsets)} of its "
-                         f"{planes * across * down} strips or tiles")
-    if compression == 1 and not tiled:
-        counts = _uncompressed_counts(counts, H, down, rowbytes, planes,
-                                      path)
+    n = planes * across * down
+    if min(len(offsets), len(counts or offsets)) < n:
+        raise ValueError(f"{path}: TIFF lists {len(offsets)} of its {n} "
+                         "strips or tiles")
+    tile_bytes = -(-ch // sub[1]) * unit_row if units else ch * rowbytes
+    counts = _strip_counts(
+        tags, offsets, counts, compression, tiled, n, planes, H, down,
+        rowbytes, tile_bytes if tiled else H * rowbytes, len(data), path)
     dtype = np.uint8 if bits == 1 else SAMPLE_DTYPES[
         (_one(tags, "sample_format", 1), bits)]
     out = np.zeros((H, W, spp), dtype)
     swap = bo == ">"
     tables = _jpeg_tables(tags)
-    ccitt = None
+    ccitt = _Ccitt(tags, compression, cw) if compression in CCITT else None
     # libtiff reverses the bits of FillOrder 2 data, but for the codecs that
     # ask it not to: JPEG, and CCITT, whose decoder reads either order
     reverse = _one(tags, "fill_order", 1) == 2 and \
@@ -509,12 +654,56 @@ def _samples(data: bytes, tags: dict, bo: str, path, partial: bool,
         first = first.translate(_REVERSED)
     old_lzw = compression == 5 and bool(_lib().tiff_lzw_old_style(
         first, len(first)))
+
+    def chunk(k: int, rows: int, size: int, h: int, w: int, last: bool,
+              unit_rows: int) -> np.ndarray:
+        """The samples of strip or tile ``k``: ``[rows, cw or w, per]``
+        (``last``: the last strip of a plane)."""
+        off, cnt = int(offsets[k]), int(counts[k])
+        if off + cnt > len(data) or cnt == 0:
+            raise ValueError(f"{path}: TIFF strip or tile {k} of {cnt} bytes "
+                             f"at {off} runs past the end of the file "
+                             "(cv2.imread returns None)")
+        raw = data[off:off + cnt]
+        if reverse:  # FillOrder 2: libtiff reverses the bits first
+            raw = raw.translate(_REVERSED)
+        if compression == 7:
+            if not partial:  # never read in 16 bits (_check_compression)
+                raise ValueError(f"{path}: JPEG TIFF of {bits}-bit samples "
+                                 "read as they are stored (cv2.imread "
+                                 "returns None)")
+            return _jpeg_chunk_samples(
+                raw, tables, rows, cw, last, photometric == 6 and planes == 1,
+                sub, per, bits, k, path)
+        undo = predictor
+        if ccitt is not None:
+            buf = ccitt(raw, off, rows, rowbytes)
+        else:
+            buf, failed = _decoded(raw, size, compression, path, old_lzw, cw,
+                                   per)
+            if failed:  # libtiff's predictor undoes nothing of a failed chunk
+                if not partial:
+                    _decode_failed(compression, len(raw), size, path)
+                undo = 1
+        if units:
+            return _ycbcr_chunk(buf, rows, w, cw, sub, unit_rows, undo, tiled)
+        if undo > 1:
+            _unpredict(buf, rows, rowbytes, per, bits, undo, swap)
+        elif bits > 8 and swap:
+            buf = buf.view(f">u{bits // 8}").byteswap().view(np.uint8)
+        if bits == 1:
+            return np.unpackbits(buf.reshape(rows, rowbytes), axis=1)[
+                :, :cw, None]
+        if skew and tiled and w < cw and (bits == 16 or per > 1):
+            return _skewed_rows(buf, h, w, cw, per, bits)
+        return buf.view(dtype).reshape(rows, cw, per)
+
     for p in range(planes):
         for cy in range(down):
             for cx in range(across):
                 k = (p * down + cy) * across + cx
                 rows = ch if tiled else min(ch, H - cy * ch)
-                size = rows * rowbytes
+                size, unit_rows = rows * rowbytes, 0
                 if units:
                     # libtiff's RGBA interface reads a tile whole and a strip
                     # as its rows rounded up to v, in scanlines (a row of
@@ -522,46 +711,19 @@ def _samples(data: bytes, tags: dict, bo: str, path, partial: bool,
                     unit_rows = -(-rows // sub[1])
                     size = unit_rows * (unit_row if tiled else
                                         sub[1] * rowbytes)
-                off, cnt = int(offsets[k]), int(counts[k])
-                if off + cnt > len(data) or cnt == 0:
-                    raise ValueError(f"{path}: TIFF strip or tile {k} runs "
-                                     "past the end of the file")
-                raw = data[off:off + cnt]
-                if reverse:  # FillOrder 2: libtiff reverses the bits first
-                    raw = raw.translate(_REVERSED)
                 y0, x0 = cy * ch, cx * cw
                 h, w = min(rows, H - y0), min(cw, W - x0)
-                if compression == 7:
-                    px = _jpeg_chunk_samples(
-                        raw, tables, rows, cw,
-                        not tiled and cy == down - 1, photometric, sub, spp,
-                        k, path)
-                    out[y0:y0 + h, x0:x0 + w] = px[:h, :w]
+                try:
+                    px = chunk(k, rows, size, h, w,
+                               not tiled and cy == down - 1, unit_rows)
+                except ValueError:
+                    # libtiff's RGBA interface reads the planes after the
+                    # first into the buffer it made for the first, and
+                    # passes over their failures (tif_getimage.c
+                    # gtStripSeparate, gtTileSeparate): they stay zeros
+                    if not partial or p == 0:
+                        raise
                     continue
-                if compression in CCITT:
-                    ccitt = ccitt or _Ccitt(tags, compression, cw)
-                    buf = ccitt(raw, off, rows, rowbytes)
-                else:
-                    buf = _decompress(raw, size, compression,
-                                      path, partial, old_lzw, cw)
-                if units:
-                    px = _ycbcr_chunk(buf, rows, w, cw, sub, unit_rows,
-                                      predictor)
-                else:
-                    if predictor > 1:
-                        _unpredict(buf, rows, rowbytes, per, bits, predictor,
-                                   swap)
-                    elif bits > 8 and swap:
-                        buf = buf.view(f">u{bits // 8}").byteswap().view(
-                            np.uint8)
-                    if bits == 1:
-                        px = np.unpackbits(buf.reshape(rows, rowbytes),
-                                           axis=1)[:, :cw, None]
-                    elif skew and tiled and w < cw and (bits == 16 or
-                                                        per > 1):
-                        px = _skewed_rows(buf, h, w, cw, per, bits)
-                    else:
-                        px = buf.view(dtype).reshape(rows, cw, per)
                 out[y0:y0 + h, x0:x0 + w, p * per:(p + 1) * per] = \
                     px[:h, :w]
     return out
@@ -574,6 +736,9 @@ def _check_rgba(photometric: int, bits: int, spp: int, tags: dict,
     PickContigCase / PickSeparateCase, probed per photometric
     interpretation, depth, sample count and planar configuration)."""
     planar = _one(tags, "planar", 1)
+    # contiguous JPEG YCbCr comes out of libjpeg as RGB
+    converts = photometric == 6 and not (
+        _one(tags, "compression", 1) == 7 and planar == 1)
     why = None
     if bits == 1 and spp > 1:
         why = f"1-bit image of {spp} samples"
@@ -588,10 +753,12 @@ def _check_rgba(photometric: int, bits: int, spp: int, tags: dict,
                f"{_one(tags, 'ink_set', 1)}")
     elif photometric == 6 and (bits != 8 or spp != 3):
         why = f"YCbCr of {spp} {bits}-bit samples"
-    elif photometric == 6 and _one(tags, "compression", 1) != 7 and \
-            _ycbcr_sub(tags) not in (((1, 1),) if planar == 2 else
-                                     YCBCR_SUBSAMPLING):
+    elif converts and _ycbcr_sub(tags) not in (
+            ((1, 1),) if planar == 2 else YCBCR_SUBSAMPLING):
         why = f"YCbCr subsampled {_ycbcr_sub(tags)}, planar {planar}"
+    elif converts and _bad_ycbcr_fields(tags):
+        why = ("YCbCr of coefficients or reference black and white "
+               f"{_ycbcr_fields(tags)} (initYCbCrConversion)")
     elif photometric == 8 and (bits not in (8, 16) or spp != 3 or
                                planar == 2):
         why = f"CIE L*a*b* of {spp} {bits}-bit samples, planar {planar}"
@@ -607,6 +774,29 @@ def _check_rgba(photometric: int, bits: int, spp: int, tags: dict,
 
 def _ycbcr_sub(tags: dict) -> tuple:
     return tuple(int(v) for v in tags.get("ycbcr_subsampling", (2, 2)))
+
+
+def _ycbcr_fields(tags: dict) -> tuple:
+    """The YCbCrCoefficients and ReferenceBlackWhite libtiff converts with,
+    in float32: each field's own values, or its default where it lists
+    other than 3 and 6 values (libtiff ignores such a field)."""
+    f = np.float32
+    luma = tags.get("ycbcr_coefficients", ())
+    rbw = tags.get("reference_black_white", ())
+    return ([f(v) for v in (luma if len(luma) == 3 else (0.299, 0.587,
+                                                          0.114))],
+            [f(v) for v in (rbw if len(rbw) == 6 else (0, 255, 128, 255,
+                                                        128, 255))])
+
+
+def _bad_ycbcr_fields(tags: dict) -> bool:
+    """Whether libtiff's initYCbCrConversion refuses the fields: a NaN
+    coefficient or a green one of 0, a reference value outside
+    (-2147483520, 2147483648) in float32 (NaN among them)."""
+    luma, rbw = _ycbcr_fields(tags)
+    lo, hi = np.float32(-0x7FFFFFFF + 128), np.float32(0x7FFFFFFF)
+    return bool(np.isnan(luma).any() or luma[1] == 0 or not all(
+        lo < v < hi for v in rbw))
 
 
 def _code2v(c, rb, rw, cr):
@@ -625,23 +815,17 @@ def _ycbcr_to_rgb(ycc: np.ndarray, tags: dict) -> np.ndarray:
     0.587, 0.114) and ReferenceBlackWhite (default 0 255 128 255 128 255)
     in float32, the fixed-point tables of 16 fraction bits."""
     f = np.float32
-    luma = [f(v) for v in tags.get("ycbcr_coefficients",
-                                   (0.299, 0.587, 0.114))]
-    rbw = [f(v) for v in tags.get("reference_black_white",
-                                  (0, 255, 128, 255, 128, 255))]
-    if len(luma) != 3 or len(rbw) != 6 or np.isnan(luma).any() or \
-            luma[1] == 0:
-        raise NotImplementedError("TIFF YCbCr coefficients or reference "
-                                  f"black and white {luma} {rbw}")
+    luma, rbw = _ycbcr_fields(tags)  # checked by _check_rgba
 
-    def fix(x):  # FIX(CLAMP(x, 0, 2)): float * 65536, + 0.5 in double
-        x = f(0) if x < f(0) else (f(2) if x > f(2) else x)
+    def fix(x):  # FIX(CLAMP(x, 0, 2)), NaN to 0: float * 65536, + 0.5
+        x = f(0) if not x >= f(0) else (f(2) if x > f(2) else x)
         return int(float(f(x * f(65536))) + 0.5)
 
     f1 = f(2) - f(2) * luma[0]
     f3 = f(2) - f(2) * luma[2]
     d1, d3 = fix(f1), fix(f3)
-    d2, d4 = -fix(luma[0] * f1 / luma[1]), -fix(luma[2] * f3 / luma[1])
+    with np.errstate(invalid="ignore", over="ignore"):
+        d2, d4 = -fix(luma[0] * f1 / luma[1]), -fix(luma[2] * f3 / luma[1])
     x = np.arange(256) - 128
     cr = _code2v(x, rbw[4] - f(128), rbw[5] - f(128), 127)
     cb = _code2v(x, rbw[2] - f(128), rbw[3] - f(128), 127)
@@ -657,7 +841,7 @@ def _ycbcr_to_rgb(ycc: np.ndarray, tags: dict) -> np.ndarray:
 
 
 def _ycbcr_chunk(buf: np.ndarray, rows: int, w: int, cw: int, sub: tuple,
-                 unit_rows: int, predictor: int) -> np.ndarray:
+                 unit_rows: int, predictor: int, tiled: bool) -> np.ndarray:
     """A decoded chunk of subsampled YCbCr data units (h * v luma samples,
     row by row, then Cb and Cr, for each h x v block) -> the ``[rows, w,
     3]`` samples libtiff's RGBA interface converts (tif_getimage.c
@@ -665,17 +849,20 @@ def _ycbcr_chunk(buf: np.ndarray, rows: int, w: int, cw: int, sub: tuple,
     repeated over it, for the ``w`` columns it shows of a chunk ``cw``
     wide.  Past the shown columns it skips ``(cw - w) // h`` units of its
     own size, but of 10 bytes at 4 x 4; bytes it did not read are zeros.
-    The horizontal predictor is undone over scanlines (a row of units over
-    v) three samples apart, where they divide into threes
-    (tif_predict.c horAcc8)."""
+    The horizontal predictor is undone three samples apart over libtiff's
+    rows (tif_predict.c PredictorDecodeTile, horAcc8): a strip's
+    scanlines (a row of units over v) where they divide into threes, a
+    tile's rows of ``cw`` pixels of 3 samples (TIFFTileRowSize, blind to
+    the subsampling) where the tile's bytes divide into them; else not at
+    all (libtiff's error, which its RGBA interface passes over)."""
     h, v = sub
     unit = h * v + 2
     full = np.zeros(unit_rows * -(-cw // h) * unit, np.uint8)
     full[:len(buf)] = buf
     if predictor == 2:
-        scanline = -(-cw // h) * unit // v
-        if scanline % 3 == 0:
-            _unpredict(full, len(buf) // scanline, scanline, 3, 8, 2, False)
+        row = 3 * cw if tiled else -(-cw // h) * unit // v
+        if (len(buf) % row if tiled else row % 3) == 0:
+            _unpredict(full, len(buf) // row, row, 3, 8, 2, False)
     shown = -(-w // h)
     step = shown * unit + (cw - w) // h * (10 if sub == (4, 4) else unit)
     at = np.arange(unit_rows)[:, None] * step + \
@@ -784,8 +971,6 @@ def _rgb(s: np.ndarray, tags: dict, photometric: int, bits: int,
         return _ycbcr_to_rgb(s, tags)
     if photometric == 8:
         return _lab_to_rgb(s, bits, tags)
-    if bits == 1:
-        raise NotImplementedError(f"{path}: TIFF RGB of {spp} 1-bit samples")
     if bits == 16:  # libtiff's Bitdepth16To8
         s = ((s.astype(np.int64) * 255 + 32767) // 65535).astype(np.uint8)
     extra = tags.get("extra_samples", (0,))
@@ -802,6 +987,10 @@ def _raw(tags: dict, photometric: int, bits: int, fmt: int, spp: int,
     photometric interpretation, depth and sample count; ``ValueError``
     where it returns None."""
     if compression in SGILOG:
+        if gray and photometric == 32845:
+            raise ValueError(f"{path}: TIFF LogLuv read with IMREAD_ANYDEPTH "
+                             "(OpenCV's one-channel read of its three "
+                             "channels fails: cv2.imread returns None)")
         _check_compression(tags, compression, bits, path)
     if bits >= 32:
         if not gray:
@@ -839,6 +1028,7 @@ def decode_tiff(data: bytes, path="<bytes>", gray: bool = False,
         raise NotImplementedError(f"{path}: TIFF page {page} (page 0 is "
                                   "read)")
     tags, bo = _ifd(data, path)
+    tags = _per_sample(tags, path)
     if "photometric" not in tags:
         raise ValueError(f"{path}: TIFF without a photometric "
                          "interpretation (cv2.imread returns None)")
@@ -858,10 +1048,21 @@ def decode_tiff(data: bytes, path="<bytes>", gray: bool = False,
     if bits in (2, 4):
         raise ValueError(f"{path}: TIFF {bits}-bit samples (cv2.imread "
                          "returns None)")
+    compression = _one(tags, "compression", 1)
+    if bits == 12:
+        _twelve_bits(tags, compression, photometric, fmt, spp, gray, path)
     if not (fmt == 1 and bits == 1) and (fmt, bits) not in SAMPLE_DTYPES:
         raise ValueError(f"{path}: TIFF sample format {fmt} at {bits} bits "
                          "(cv2.imread returns None)")
-    compression = _one(tags, "compression", 1)
+    if photometric == 32845 and compression in SGILOG and not gray:
+        # LogLuv: libtiff's RGBA interface has its codec return 8-bit RGB
+        # ("a little white lie", tif_getimage.c), of contiguous samples only
+        _check_compression(tags, compression, bits, path)
+        if _one(tags, "planar", 1) != 1:
+            raise ValueError(f"{path}: TIFF LogLuv of separate planes "
+                             "(cv2.imread returns None)")
+        tags = dict(tags, bits=(8,), sample_format=(1,))
+        bits, fmt, photometric = 8, 1, 2
     # the samples as stored where the result keeps their depth, else
     # libtiff's RGBA interface
     raw = _raw(tags, photometric, bits, fmt, spp, compression, gray, path)
@@ -883,7 +1084,8 @@ def decode_tiff(data: bytes, path="<bytes>", gray: bool = False,
     else:
         if fmt == 2:  # the RGBA interface reads the bits as unsigned
             s = s.view(s.dtype.str.replace("i", "u"))
-        if compression == 7 and photometric == 6:
+        if compression == 7 and photometric == 6 and \
+                _one(tags, "planar", 1) == 1:
             photometric = 2  # libjpeg's RGB of the YCbCr samples
         rgb = _rgb(s, tags, photometric, bits, path)
         out = gray14(rgb) if gray else np.stack(
@@ -893,6 +1095,31 @@ def decode_tiff(data: bytes, path="<bytes>", gray: bool = False,
     if orientation in ORIENT:  # other values than 1-8: libtiff ignores them
         out = ORIENT[orientation](out)
     return np.ascontiguousarray(out)
+
+
+def _twelve_bits(tags: dict, compression: int, photometric: int, fmt: int,
+                 spp: int, gray: bool, path) -> None:
+    """12-bit samples: libtiff's RGBA interface refuses them, and so do the
+    predictors, JPEG (this libtiff's libjpeg decodes no 12-bit data),
+    gray with one extra sample (which OpenCV reads through that
+    interface), other photometric interpretations than gray, RGB and
+    palette, and other sample formats than unsigned and signed integers
+    (probed: ``ValueError``, cv2.imread returns None).  The rest OpenCV
+    reads with ``IMREAD_ANYDEPTH`` as 16-bit samples (gray as the 12 bits
+    shifted up by 4, but signed, colour and separate planes not so
+    simply), which this decoder does not (``NotImplementedError``)."""
+    predictor = _one(tags, "predictor", 1) if compression in (5, 8, 32946) \
+        else 1
+    _check_predictor(predictor, 12, fmt, path)
+    if not gray or spp not in (1, 3, 4) or compression == 7 or \
+            photometric not in (0, 1, 2, 3) or fmt not in (1, 2):
+        raise ValueError(f"{path}: TIFF of {spp} 12-bit samples, "
+                         f"compression {compression}, read "
+                         f"{'with' if gray else 'without'} IMREAD_ANYDEPTH "
+                         "(cv2.imread returns None)")
+    raise NotImplementedError(f"{path}: TIFF of 12-bit samples read with "
+                              "IMREAD_ANYDEPTH (OpenCV widens them to 16 "
+                              "bits)")
 
 
 def _gray_as_unsigned(rgb: np.ndarray) -> np.ndarray:
@@ -1187,15 +1414,17 @@ SAMPLE_TYPES = {np.dtype(np.uint8): (8, 1), np.dtype(np.int8): (8, 2),
                 np.dtype(np.int64): (64, 2), np.dtype(np.float64): (64, 3)}
 
 
-def logl_encode(codes: np.ndarray) -> bytes:
-    """``[rows, cols]`` 16-bit LogL codes -> one strip of SGI Log data
-    (tif_luv.c LogL16Encode's layout): per row the high bytes, then the low,
-    each as runs (a byte 126 + n, n >= 4 copies of the next byte) and
-    literal stretches (a count of at most 127, then the bytes)."""
+def logl_encode(codes: np.ndarray, planes: int = 2) -> bytes:
+    """``[rows, cols]`` 16-bit LogL codes (``planes`` 4: 32-bit LogLuv
+    codes) -> one strip of SGI Log data (tif_luv.c LogL16Encode's and
+    LogLuvEncode32's layout): per row each byte of the codes, most
+    significant first, as runs (a byte 126 + n, n >= 4 copies of the next
+    byte) and literal stretches (a count of at most 127, then the
+    bytes)."""
     out = bytearray()
-    for row in np.asarray(codes).astype(np.uint16):
-        for plane in ((row >> 8).astype(np.uint8).tobytes(),
-                      (row & 0xFF).astype(np.uint8).tobytes()):
+    for row in np.asarray(codes).astype(np.uint32):
+        for plane in (((row >> sh) & 0xFF).astype(np.uint8).tobytes()
+                      for sh in range(8 * planes - 8, -1, -8)):
             i, lit = 0, bytearray()
             while i <= len(plane):
                 j = i
@@ -1230,6 +1459,25 @@ def _ycbcr_units(px: np.ndarray, sub: tuple) -> np.ndarray:
     return np.concatenate([luma, chroma.astype(np.uint8)], -1)
 
 
+def _unit_differences(units: np.ndarray, row: int, tiled: bool
+                      ) -> np.ndarray:
+    """YCbCr data units (bytes) -> their horizontal differences three
+    bytes apart over the rows libtiff undoes them over (see
+    :func:`_ycbcr_chunk`: a strip's scanlines of ``row`` bytes where they
+    divide into threes, a tile's rows of ``row`` bytes where they divide
+    the tile); the bytes past the last whole row, or every byte where
+    libtiff undoes nothing, as they are."""
+    out = units.copy()
+    n = len(units) // row
+    if n == 0 or (len(units) % row if tiled else row % 3):
+        return out
+    rows = units[:n * row].reshape(n, row)
+    d = rows.copy()
+    d[:, 3:] = rows[:, 3:] - rows[:, :-3]  # modulo 256
+    out[:n * row] = d.reshape(-1)
+    return out
+
+
 def _rational(values) -> list:
     """Floats -> (numerator, denominator) pairs of the RATIONAL type."""
     from fractions import Fraction
@@ -1261,7 +1509,9 @@ def encode_tiff(img, compression: str = "none", predictor: int = 1,
       (:func:`ccitt_encode`); "sgilog" codes ``int16`` LogL values
       (photometric 32844, :func:`logl_encode`);
     - ``predictor``: 1 (none), 2 (horizontal) or 3 (floating point), for
-      LZW and Deflate (libtiff ignores it for the others);
+      LZW and Deflate (libtiff ignores it for the others); over YCbCr data
+      units, horizontal differences over the rows libtiff undoes them over
+      (:func:`_unit_differences`);
     - ``rows_per_strip`` (default: all), or ``tile`` (length, width);
     - ``planar`` 2: one plane per sample; ``big_endian``: ``MM`` order;
       ``bigtiff``: the BigTIFF header and directory (8-byte counts and
@@ -1279,10 +1529,11 @@ def encode_tiff(img, compression: str = "none", predictor: int = 1,
       no tag, as cv2.imwrite writes it);
     - ``orientation``: the Orientation tag (1-8) over the samples as
       given (the file's first row first);
-    - ``tags``: {tag: (type 3, 4 or 5, values)} written over the file's
-      own (InkSet, the JPEGInterchangeFormat of old-style JPEG; RATIONAL
-      values as floats: WhitePoint, YCbCrCoefficients,
-      ReferenceBlackWhite);
+    - ``tags``: {tag: (type 3, 4, 5, 11 or 12, values)} written over the
+      file's own (InkSet, the JPEGInterchangeFormat of old-style JPEG;
+      RATIONAL, FLOAT and DOUBLE values as floats: WhitePoint,
+      YCbCrCoefficients, ReferenceBlackWhite, NaN only as FLOAT or
+      DOUBLE);
       ``chunks``: the strips' or tiles' data as given (bytes each) in place
       of the coded samples."""
     img = np.asarray(img)
@@ -1329,7 +1580,13 @@ def encode_tiff(img, compression: str = "none", predictor: int = 1,
                 elif bilevel:
                     raw = np.packbits(px[..., 0] != 0, axis=1).tobytes()
                 elif units:
-                    raw = _ycbcr_units(px, tuple(subsampling)).tobytes()
+                    u = _ycbcr_units(px, tuple(subsampling))
+                    if predictor == 2:
+                        row = 3 * cw if tile is not None else \
+                            u.shape[1] * u.shape[2] // subsampling[1]
+                        u = _unit_differences(u.reshape(-1), row,
+                                              tile is not None)
+                    raw = u.tobytes()
                 elif predictor > 1:
                     d = _predicted(px, predictor)
                     raw = d.tobytes() if predictor == 3 else \
@@ -1409,7 +1666,7 @@ def encode_tiff(img, compression: str = "none", predictor: int = 1,
         struct.calcsize(bo + entry) * len(entries) + struct.calcsize(bo + nxt)
     ifd = struct.pack(bo + count, len(entries))
     extra = b""
-    codes = {3: "H", 4: "I", 5: "I", 7: "B", 16: "Q"}
+    codes = {3: "H", 4: "I", 5: "I", 7: "B", 11: "f", 12: "d", 16: "Q"}
     for tag, typ, values in entries:
         flat = [v for pair in values for v in pair] if typ == 5 else values
         body = struct.pack(f"{bo}{len(flat)}{codes[typ]}", *flat)

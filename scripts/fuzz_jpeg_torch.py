@@ -1,9 +1,9 @@
 #!/usr/bin/env python
 """Memory-safety check of the port's host decoders in C: the JPEG decoder
 (``csrc/host/jpeg_decode.c``), the TIFF LZW (both codings) / PackBits /
-SGI LogL decoders and predictors (``csrc/host/tiff_lzw.c``), the TIFF
-CCITT decoder (``csrc/host/ccitt_decode.c``), the TIFF colour conversions
-(``csrc/host/tiff_color.c``), the BMP RLE decoder
+SGI LogL / LogLuv32 decoders and predictors (``csrc/host/tiff_lzw.c``),
+the TIFF CCITT decoder (``csrc/host/ccitt_decode.c``), the TIFF colour
+conversions (``csrc/host/tiff_color.c``), the BMP RLE decoder
 (``csrc/host/bmp_rle.c``), the WebP decoders (``csrc/host/webp_decode.c``:
 VP8L, VP8, ALPH), the GIF LZW decoder (``csrc/host/gif_lzw.c``), the
 Radiance HDR scanline reader and float gray (``csrc/host/hdr_rgbe.c``) and
@@ -41,9 +41,11 @@ say).  The TIFF seeds are the LZW (6.0 and pre-6.0), PackBits and LogL
 strips of the port's TIFF encoder, among them a BigTIFF's float64 strip
 (its predictors on 8-byte samples), the CCITT seeds its RLE, RLEW, Group 3
 (1-D, 2-D, with fill bits) and Group 4 strips, the RLE seeds its RLE8 and
-RLE4 data.  The WebP seeds are the
-bitstreams of the port's lossless encoder (subtract-green, predictor,
-colour cache; with alpha) and of the committed libwebp files of
+RLE4 data; the JPEG and TIFF seeds also hold the one-component strips of
+JPEG TIFFs of separate planes and short strips and the LZW tiles of
+predicted YCbCr data units (:func:`tiff_leftover_seeds`).  The WebP
+seeds are the bitstreams of the port's lossless encoder (subtract-green,
+predictor, colour cache; with alpha) and of the committed libwebp files of
 ``tests/data/webp`` (the lossy frame's VP8 and ALPH of
 ``lossy_alpha.webp``, the VP8L of ``lossless_alpha.webp``), the GIF seeds
 the LZW data of the port's encoder at minimum code sizes 2, 4 and 8, the
@@ -270,6 +272,8 @@ TIFF_HARNESS = r"""
 int tiff_lzw_decode(const uint8_t *, int64_t, uint8_t *, int64_t, int);
 int tiff_packbits_decode(const uint8_t *, int64_t, uint8_t *, int64_t);
 int tiff_logl_decode(const uint8_t *, int64_t, uint8_t *, int64_t, int64_t);
+int tiff_logluv32_decode(const uint8_t *, int64_t, uint8_t *, int64_t,
+                         int64_t);
 void tiff_hpredict(uint8_t *, int64_t, int64_t, int64_t, int, int);
 int tiff_fpredict(uint8_t *, int64_t, int64_t, int64_t, int);
 int main(int argc, char **argv)
@@ -288,7 +292,8 @@ int main(int argc, char **argv)
         fclose(fp);
         int packbits = strstr(argv[f], "packbits") != NULL;
         int old = strstr(argv[f], "lzwold") != NULL;
-        int logl = strstr(argv[f], "logl") != NULL;
+        int logluv = strstr(argv[f], "logluv") != NULL;
+        int logl = !logluv && strstr(argv[f], "logl") != NULL;
         for (long it = 0; it < n + mutations; it++) {
             long m = it < n ? it : n;
             uint8_t *d = malloc((size_t)(m > 0 ? m : 1));
@@ -302,6 +307,8 @@ int main(int argc, char **argv)
             int64_t width = it & 1 ? 1 + rand() % 64 : 40;
             int st = packbits ? tiff_packbits_decode(d, m, o, occ)
                      : logl   ? tiff_logl_decode(d, m, o, occ / width, width)
+                     : logluv ? tiff_logluv32_decode(d, m, o,
+                                                     occ / (3 * width), width)
                               : tiff_lzw_decode(d, m, o, occ, old);
             int64_t rowbytes = 8 * (1 + rand() % 8);
             int64_t rows = occ / rowbytes;
@@ -510,6 +517,35 @@ def tiff_seeds(rng) -> list:
             (logl_encode(codes), codes.size, "logl")]
 
 
+def tiff_leftover_seeds(rng) -> tuple:
+    """The strips of the TIFF kinds read since the decoder's separate JPEG
+    planes, predicted YCbCr tiles and LogLuv32: (the one-component JPEG
+    streams of a JPEG TIFF of separate planes, each behind the file's
+    tables, and of one whose strips hold fewer rows than RowsPerStrip; the
+    LZW tiles of YCbCr 2 x 2 data units under the horizontal predictor and
+    a LogLuv32 strip 40 pixels wide, as :func:`tiff_seeds` gives its
+    strips)."""
+    im = rng.integers(0, 256, (32, 40, 3), np.uint8)
+    im[:, 20:] = np.cumsum(rng.integers(-3, 4, (32, 20, 3)), 1) % 256
+    jpeg = []
+    tif = encode_tiff(im, "jpeg", planar=2, photometric=2, rows_per_strip=16)
+    tags = _ifd(tif, "")[0]
+    tables = _jpeg_tables(tags)
+    for off, n in zip(tags["strip_offsets"], tags["strip_counts"]):
+        jpeg.append(b"\xff\xd8" + tables + tif[off + 2:off + n])
+    jpeg.append(encode_jpeg(np.ascontiguousarray(im[:12, :, 1]), 90))
+    tif = encode_tiff(im, "lzw", predictor=2, photometric=6,
+                      subsampling=(2, 2), tile=(16, 16))
+    tags = _ifd(tif, "")[0]
+    strips = [(tif[off:off + n], 8 * 8 * 6, "lzw") for off, n in zip(
+        tags["tile_offsets"], tags["tile_counts"])][:2]
+    codes = rng.integers(0, 1 << 32, (16, 40), dtype=np.uint64).astype(
+        np.uint32)
+    codes[:, 20:] = codes[:, 20:21]  # runs
+    strips.append((logl_encode(codes, planes=4), codes.size * 3, "logluv"))
+    return jpeg, strips
+
+
 def ccitt_seeds(rng) -> list:
     """(strip, scheme, 2-D, width, rows) of each CCITT scheme over blobs
     and noise."""
@@ -683,6 +719,10 @@ def main(argv=None) -> str:
                    help="more JPEG seed files")
     args = p.parse_args(argv)
     rng = np.random.default_rng(args.seed)
+    # the TIFF leftovers' seeds from a generator of their own, so that the
+    # other seeds stay as they were
+    more_jpeg, more_tiff = tiff_leftover_seeds(
+        np.random.default_rng(args.seed + 17))
     with tempfile.TemporaryDirectory() as tmp:
         def write(name, data):
             path = os.path.join(tmp, name)
@@ -690,9 +730,10 @@ def main(argv=None) -> str:
                 fh.write(data)
             return path
 
-        jpeg = [write(f"seed{k}.jpg", d) for k, d in enumerate(seeds(rng))]
+        jpeg = [write(f"seed{k}.jpg", d) for k, d in enumerate(
+            seeds(rng) + more_jpeg)]
         tiff_args = []
-        for k, (data, size, codec) in enumerate(tiff_seeds(rng)):
+        for k, (data, size, codec) in enumerate(tiff_seeds(rng) + more_tiff):
             tiff_args += [write(f"strip{k}_{codec}", data), str(size)]
         rle_args = []
         for k, (data, w, h) in enumerate(rle_seeds(rng)):

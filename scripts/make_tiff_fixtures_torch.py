@@ -19,10 +19,28 @@ the file's point):
 - ``logl.tif``: SGI LogL of float luminances (PIL "F", compression
   SGILog, photometric LogL).
 
+and, written by the port's ``tiff.encode_tiff`` from a 48 x 64 crop (the
+layouts no library here writes), the kinds libtiff reads in its own way:
+
+- ``short_strip.tif``: one uncompressed strip whose StripByteCounts says
+  5/8 of its bytes (libtiff recounts it from ImageLength);
+- ``jpeg_separate.tif``: JPEG of separate R, G, B planes, 16-row strips;
+- ``ycbcr_tiles_predictor.tif``: LZW YCbCr 2 x 2 data units in 16 x 16
+  tiles under the horizontal predictor;
+- ``jpeg_short_strip.tif``: JPEG strips of 12 rows where RowsPerStrip
+  says 16 (the rest zeros);
+- ``logluv32.tif``: SGI LogLuv32 (photometric 32845 under SGI Log, 3
+  samples) of the crop's luminance and chromaticity codes;
+
+and one file of each kind cv2.imread returns None for that the port once
+refused as NotImplementedError (``c2_<kind>.tif``, 32 x 48,
+``tests/torch_port.c2_tiff``).
+
 Beside them ``hashes.json``: the SHA-256 of ``cv2.imread``'s array in both
-read modes (colour, ``IMREAD_ANYDEPTH``), its shape and dtype, which
-``tests/test_torch_tiff.py`` and ``chip_smoke.py`` phase 15 hold the
-port's decoder to.  Needs OpenCV and PIL.
+read modes (colour, ``IMREAD_ANYDEPTH``), its shape and dtype (null where
+cv2 returns None), which ``tests/test_torch_tiff.py`` and
+``chip_smoke.py`` phases 15 and 17 hold the port's decoder to.  Needs
+OpenCV and PIL.
 """
 
 from __future__ import annotations
@@ -32,6 +50,7 @@ import hashlib
 import io
 import json
 import os
+import struct
 import sys
 
 import numpy as np
@@ -40,10 +59,56 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LIMIT = 64 * 1024  # bytes per file
 
 
-def array_hash(a: np.ndarray) -> dict:
+def array_hash(a) -> dict:
+    """The SHA-256, shape and dtype of an array; None for None."""
+    if a is None:
+        return None
     return dict(sha256=hashlib.sha256(np.ascontiguousarray(a).tobytes()
                                       ).hexdigest(),
                 shape=list(a.shape), dtype=str(a.dtype))
+
+
+def port_files(rgb: np.ndarray) -> dict:
+    """The files of the port's encoder (module docstring) from ``rgb``
+    (``uint8`` RGB, at least 48 x 64)."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from lgu_slam_tpu_torch.data.image_io import encode_jpeg
+    from lgu_slam_tpu_torch.data.tiff import encode_tiff, logl_encode
+    from torch_port import C2_KINDS, c2_tiff
+
+    bgr = np.ascontiguousarray(rgb[::2, ::2][:48, :64, ::-1])
+    raw = np.ascontiguousarray(bgr[..., ::-1]).tobytes()
+    one = bytearray(encode_tiff(bgr, chunks=[raw]))
+    count = struct.pack("<HHII", 279, 4, 1, len(raw))
+    at = one.index(count)
+    one[at:at + 12] = struct.pack("<HHII", 279, 4, 1, len(raw) * 5 // 8)
+    files = {
+        "short_strip.tif": bytes(one),
+        "jpeg_separate.tif": encode_tiff(bgr, "jpeg", planar=2,
+                                         photometric=2, rows_per_strip=16),
+        "ycbcr_tiles_predictor.tif": encode_tiff(
+            bgr, "lzw", predictor=2, photometric=6, subsampling=(2, 2),
+            tile=(16, 16)),
+        "jpeg_short_strip.tif": encode_tiff(
+            bgr, "jpeg", photometric=2, rows_per_strip=16,
+            jpeg_tables=False, chunks=[encode_jpeg(
+                np.ascontiguousarray(bgr[y:y + 12]), 90, "444",
+                adobe_transform=0) for y in range(0, 48, 16)]),
+    }
+    # LogLuv32 codes: log luminance of the green channel around Y = 1/4,
+    # u and v from the red and blue
+    g, r, b = (bgr[..., k].astype(np.uint32) for k in (1, 2, 0))
+    codes = (15872 + 4 * g) << 16 | (r // 2 + 40) << 8 | (b // 2 + 80)
+    luv = bytearray(encode_tiff(np.zeros(bgr.shape, np.uint16), chunks=[
+        logl_encode(codes, planes=4)]))
+    for tag, value in ((259, 34676), (262, 32845)):
+        at = luv.index(struct.pack("<HHI", tag, 3, 1))
+        struct.pack_into("<H", luv, at + 8, value)
+    files["logluv32.tif"] = bytes(luv)
+    small = np.ascontiguousarray(bgr[:32, :48])
+    for kind in C2_KINDS:
+        files[f"c2_{kind}.tif"] = c2_tiff(kind, small)
+    return files
 
 
 def main(argv=None) -> dict:
@@ -88,6 +153,7 @@ def main(argv=None) -> dict:
     info[262] = 32844
     files["logl.tif"] = save(Image.fromarray(luminance),
                              compression="tiff_sgilog", tiffinfo=info)
+    files.update(port_files(rgb))
     hashes = {}
     for name, data in files.items():
         assert len(data) <= LIMIT, (name, len(data))

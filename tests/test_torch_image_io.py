@@ -19,7 +19,11 @@ import zlib
 import cv2
 import numpy as np
 import pytest
-from torch_port import same_as_cv2, torch_single_thread  # noqa: F401
+from torch_port import (  # noqa: F401
+    C2_KINDS,
+    same_as_cv2,
+    torch_single_thread,
+)
 
 from lgu_slam_tpu_torch.data import image_io
 from lgu_slam_tpu_torch.ops import _build
@@ -636,6 +640,48 @@ def _kind(name: str, tmp_path) -> bytes:
                                              32: np.uint32,
                                              64: np.uint64}[bits]))
         return _tiff_patch(base, 339, fmt)
+    if name.startswith("tiff_c2_"):
+        from torch_port import c2_tiff
+
+        return c2_tiff(name[8:], img)
+    if name == "tiff_predictor_3_uint32":
+        return tiff.encode_tiff(gray.astype(np.uint32), "lzw", predictor=3)
+    if name == "tiff_mixed_sample_format":
+        return tiff.encode_tiff(img, tags={339: (3, [1, 1, 2])})
+    if name == "tiff_short_strip":
+        raw = img[..., ::-1].tobytes()
+        return _tiff_patch(tiff.encode_tiff(img, chunks=[raw]), 279,
+                           len(raw) // 2)
+    if name == "tiff_jpeg_separate":
+        return tiff.encode_tiff(img, "jpeg", planar=2, photometric=2,
+                                rows_per_strip=8)
+    if name == "tiff_ycbcr_tiles_predictor":
+        return tiff.encode_tiff(img, "lzw", predictor=2, photometric=6,
+                                tile=(16, 16))
+    if name == "tiff_jpeg_short_strip":
+        return tiff.encode_tiff(img, "jpeg", rows_per_strip=16,
+                                jpeg_tables=False, chunks=[
+                                    enc(img[:12]), enc(img[16:])])
+    if name == "tiff_jpeg_16bit_lossless":
+        g16 = gray.astype(np.uint16) * 257
+        return tiff.encode_tiff(g16, chunks=[enc(g16, lossless=True,
+                                                 precision=16)],
+                                tags={259: (3, [7])})
+    if name == "tiff_12bit":
+        v = gray.astype(np.uint16) * 16
+        bits = np.unpackbits((v << 4).astype(">u2").view(np.uint8).reshape(
+            v.shape[0], -1, 2), axis=2)[..., :12].reshape(v.shape[0], -1)
+        return tiff.encode_tiff(v, chunks=[np.packbits(bits, 1).tobytes()],
+                                tags={258: (3, [12])})
+    if name == "tiff_logluv24":
+        return _tiff_patch(_tiff_patch(tiff.encode_tiff(img), 259, 34677),
+                           262, 32845)
+    if name == "tiff_logluv32":
+        codes = rng.integers(0, 1 << 32, gray.shape, dtype=np.uint64)
+        return _tiff_patch(_tiff_patch(tiff.encode_tiff(
+            img.astype(np.uint16), chunks=[tiff.logl_encode(
+                codes.astype(np.uint32), planes=4)]), 259, 34676), 262,
+            32845)
     if name == "pam_alpha":
         from lgu_slam_tpu_torch.data import pnm
 
@@ -706,6 +752,17 @@ CLASSES = {
     "tiff_format_4_8": ("none", "none"),  # void
     "tiff_format_3_16": ("none", "none"),  # float16
     "tiff_format_5_32": ("none", "none"),  # complex integer
+    **{f"tiff_c2_{k}": ("none", "none") for k in C2_KINDS},
+    "tiff_predictor_3_uint32": ("none", "none"),
+    "tiff_mixed_sample_format": ("none", "none"),
+    "tiff_short_strip": ("read", "read"),  # byte count recounted
+    "tiff_jpeg_separate": ("read", "read"),
+    "tiff_ycbcr_tiles_predictor": ("read", "read"),
+    "tiff_jpeg_short_strip": ("read", "read"),  # the rest zeros
+    "tiff_jpeg_16bit_lossless": ("read", "none"),  # zeros in colour
+    "tiff_12bit": ("none", "queued"),
+    "tiff_logluv24": ("queued", "none"),
+    "tiff_logluv32": ("read", "none"),
     **{k: ("read", "read") for k in ("webp", "gif", "hdr", "sun_raster",
                                      "jp2")},
     # cv2 returns memory it never wrote for an alpha PAM

@@ -9,7 +9,7 @@ import struct
 
 import numpy as np
 import pytest
-from torch_port import torch_single_thread  # noqa: F401
+from torch_port import C2_KINDS, c2_tiff, torch_single_thread  # noqa: F401
 
 from lgu_slam_tpu.data import streams as jstreams
 from lgu_slam_tpu_torch.data import fixtures, tiff
@@ -160,6 +160,33 @@ def test_euroc_stream_skips_what_cv2_returns_none_for(kind, tmp_path):
                           struct.pack("<HHIH", 259, 3, 1, 34925))
     with open(bad, "wb") as fh:
         fh.write(bytes(raw))
+    assert cv2.imread(bad) is None
+    items = _held(tstreams.euroc_stereo_stream(root),
+                  jstreams.euroc_stereo_stream(root))
+    assert len(items) == 3
+    assert float(os.path.basename(bad).split(".")[0]) / 1e9 not in [
+        it[0] for it in items]
+
+
+@pytest.mark.parametrize("kind", C2_KINDS)
+def test_euroc_stream_skips_tiff_cv2_returns_none_for(kind, tmp_path):
+    """A left image stored as a TIFF that cv2.imread returns None for and
+    that the port's decoder once refused as NotImplementedError (a
+    predictor other than 1-3, the floating-point predictor of 16-bit
+    integers, mixed depths, a green YCbCr coefficient 0, a short strip
+    the file cannot fill, JPEG of separate YCbCr planes:
+    tests/torch_port.c2_tiff): the JAX stream, reading through cv2, skips
+    the pair, and so does the port's (ValueError): the same 3 of 4 frames
+    with the same timestamps."""
+    import cv2
+
+    root = fixtures.write_euroc_sequence(str(tmp_path / "MH_01_easy"),
+                                         n_frames=4)
+    left = os.path.join(root, "mav0", "cam0", "data")
+    bad = os.path.join(left, sorted(os.listdir(left))[2])
+    data = c2_tiff(kind, cv2.imread(bad))
+    with open(bad, "wb") as fh:
+        fh.write(data)
     assert cv2.imread(bad) is None
     items = _held(tstreams.euroc_stereo_stream(root),
                   jstreams.euroc_stereo_stream(root))

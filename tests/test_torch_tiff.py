@@ -15,7 +15,12 @@ import struct
 import cv2
 import numpy as np
 import pytest
-from torch_port import same_as_cv2, torch_single_thread  # noqa: F401
+from torch_port import (  # noqa: F401
+    C2_KINDS,
+    c2_tiff,
+    same_as_cv2,
+    torch_single_thread,
+)
 
 from lgu_slam_tpu_torch.data import image_io, tiff
 
@@ -279,22 +284,23 @@ def test_lzw_and_packbits_round_trip():
                           np.repeat(rng.integers(0, 4, 300), 7),
                           np.zeros(500, int)]).astype(np.uint8).tobytes()
     lzw = tiff.lzw_encode(raw)
-    np.testing.assert_array_equal(
-        tiff._decompress(lzw, len(raw), 5, "", partial=False),
-        np.frombuffer(raw, np.uint8))
-    with pytest.raises(ValueError, match="LZW"):
-        tiff._decompress(lzw[:len(lzw) // 2], len(raw), 5, "", False)
-    part = tiff._decompress(lzw[:len(lzw) // 2], len(raw), 5, "", True)
+    out, failed = tiff._decoded(lzw, len(raw), 5, "")
+    np.testing.assert_array_equal(out, np.frombuffer(raw, np.uint8))
+    assert not failed
+    part, failed = tiff._decoded(lzw[:len(lzw) // 2], len(raw), 5, "")
+    assert failed
     assert part[-500:].max() == 0 and part[:100].tobytes() == raw[:100]
-    pb = tiff.packbits_encode(raw)
-    assert tiff._decompress(pb, len(raw), 32773, "", False).tobytes() == raw
+    with pytest.raises(ValueError, match="LZW"):
+        tiff._decode_failed(5, len(lzw) // 2, len(raw), "")
+    pb, failed = tiff._decoded(tiff.packbits_encode(raw), len(raw), 32773,
+                               "")
+    assert pb.tobytes() == raw and not failed
     old = tiff.lzw_encode(raw, old_style=True)
     assert old[0] == 0 and old[1] & 1  # libtiff's test for old-style codes
-    assert tiff._decompress(old, len(raw), 5, "", False,
-                            old_lzw=True).tobytes() == raw
-    with pytest.raises(ValueError, match="LZW"):
-        tiff._decompress(old, len(raw), 5, "", False)
-    assert tiff._decompress(old, len(raw), 5, "", True).max() == 0
+    out, failed = tiff._decoded(old, len(raw), 5, "", old_lzw=True)
+    assert out.tobytes() == raw and not failed
+    out, failed = tiff._decoded(old, len(raw), 5, "")
+    assert failed and out.max() == 0
 
 
 def _same(data: bytes, tmp_path, modes=(False, True)):
@@ -341,9 +347,9 @@ def test_jpeg_compression_damage(tmp_path):
     truncated stream, fake EOI markers after it), cut to 3 bytes or
     overwritten (libtiff's JPEGPreDecode fails: cv2 returns None,
     ValueError); strips that hold more rows than RowsPerStrip says
-    (ValueError), or fewer (libtiff warns and reads them short:
-    NotImplementedError); a JPEG strip of 3 components in a file of 1
-    sample (cv2 returns None)."""
+    (ValueError), or fewer (libtiff warns and reads them short, the rows
+    they lack zeros: as cv2 reads them); a JPEG strip of 3 components in a
+    file of 1 sample (cv2 returns None)."""
     img = np.random.default_rng(22).integers(0, 256, (37, 45, 3), np.uint8)
     good = tiff.encode_tiff(img, "jpeg", rows_per_strip=16)
     counts = tiff._ifd(good, "")[0]["strip_counts"]
@@ -355,11 +361,8 @@ def test_jpeg_compression_damage(tmp_path):
     _same(bytes(raw), tmp_path)
     path = _same(_patch(good, 278, 8), tmp_path)
     assert cv2.imread(str(path)) is None
-    path = tmp_path / "t.tif"
-    path.write_bytes(_patch(good, 278, 24))
+    path = _same(_patch(good, 278, 24), tmp_path)
     assert cv2.imread(str(path)) is not None
-    with pytest.raises(NotImplementedError, match="reads it short"):
-        image_io.imread(str(path))
     one = _patch(good, 277, 1)
     assert cv2.imread(str(_same(one, tmp_path))) is None
 
@@ -695,8 +698,9 @@ def test_sgi_logl(tmp_path):
     where the samples are signed): written by the port's ``logl_encode``
     (runs and literals, strips, tiles, FillOrder 2, damaged data) and by
     PIL (libtiff's own LogL encoder of float luminances), bit for bit;
-    LogL under SGI Log24, or of 2 samples: None, ValueError; LogLuv
-    (32845), which no writer here makes: NotImplementedError."""
+    LogL under SGI Log24, or of 2 samples, and LogLuv (32845) of one
+    sample: None, ValueError (LogLuv of three samples:
+    test_logluv32_reads_as_cv2_reads)."""
     from PIL import Image, TiffImagePlugin
 
     rng = np.random.default_rng(62)
@@ -719,12 +723,11 @@ def test_sgi_logl(tmp_path):
         path = _same(buf.getvalue(), tmp_path)
         assert image_io.imread(str(path), anydepth=True).dtype == np.int8
     for bad in (_patch(data, 259, 34677),
-                tiff.encode_tiff(np.stack([codes, codes], -1), "sgilog")):
+                tiff.encode_tiff(np.stack([codes, codes], -1), "sgilog"),
+                _patch(data, 262, 32845)):
         path = _same(bad, tmp_path)
         with pytest.raises(ValueError, match="cv2.imread returns None"):
             image_io.imread(str(path))
-    with pytest.raises(NotImplementedError, match="LogLuv"):
-        tiff.decode_tiff(_patch(data, 262, 32845))
 
 
 def test_unknown_and_unconfigured_schemes(tmp_path):
@@ -806,9 +809,12 @@ def test_uncompressed_strip_counts(tmp_path):
 def test_committed_fixtures_decode_to_cv2_hashes():
     """tests/data/tiff (scripts/make_tiff_fixtures_torch.py: PIL's, that is
     libtiff's own, CCITT RLE / RLEW / Group 3 / Group 4, gray with alpha,
-    CMYK, YCbCr, CIE L*a*b* and SGI LogL files of a rendered frame): the
-    port's arrays hash as cv2.imread's do (the hashes written beside them,
-    which chip_smoke.py phase 15 checks on machines without OpenCV), and
+    CMYK, YCbCr, CIE L*a*b* and SGI LogL files of a rendered frame; the
+    port's encoder's short strip, JPEG of separate planes, predicted YCbCr
+    tiles, short JPEG strips and LogLuv32; one file of each refused kind of
+    torch_port.C2_KINDS): the port's arrays hash as cv2.imread's do (the
+    hashes written beside them, which chip_smoke.py phases 15 and 17 check
+    on machines without OpenCV), or both refuse (null: ValueError), and
     cv2 still agrees; each file at most 64 KB, the set at most 256 KB."""
     import hashlib
     import json
@@ -816,7 +822,7 @@ def test_committed_fixtures_decode_to_cv2_hashes():
 
     folder = os.path.join(os.path.dirname(__file__), "data", "tiff")
     hashes = json.load(open(os.path.join(folder, "hashes.json")))
-    assert len(hashes) == 9
+    assert len(hashes) == 14 + len(C2_KINDS)
     total = 0
     for name, want in hashes.items():
         path = os.path.join(folder, name)
@@ -824,11 +830,524 @@ def test_committed_fixtures_decode_to_cv2_hashes():
         assert os.path.getsize(path) <= 64 * 1024
         for mode, flag in (("color", cv2.IMREAD_COLOR),
                            ("anydepth", cv2.IMREAD_ANYDEPTH)):
-            got = image_io.imread(path, anydepth=mode == "anydepth")
             ref = cv2.imread(path, flag)
+            if want[mode] is None:
+                assert ref is None
+                with pytest.raises(ValueError, match="returns None"):
+                    image_io.imread(path, anydepth=mode == "anydepth")
+                continue
+            got = image_io.imread(path, anydepth=mode == "anydepth")
             for a in (got, ref):
                 assert hashlib.sha256(a.tobytes()).hexdigest() == \
                     want[mode]["sha256"]
                 assert list(a.shape) == want[mode]["shape"]
                 assert str(a.dtype) == want[mode]["dtype"]
     assert total <= 256 * 1024
+
+
+# -- ValueError where cv2 returns None, and the leftovers cv2 reads ----------
+
+def _image_32x48(seed=70):
+    """``uint8 [32, 48, 3]``: noise on the left, smooth ramps on the right
+    (JPEG's and the predictors' two regimes)."""
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 256, (32, 48, 3), np.uint8)
+    img[:, 24:] = np.cumsum(rng.integers(-3, 4, (32, 24, 3)), 1) % 256
+    return img
+
+
+def _drop_tag(data: bytes, tag: int, count: int = None) -> bytes:
+    """A little-endian file whose ``tag`` entry is renamed to an unknown
+    tag (65000), so that libtiff reads it as missing; with ``count``, the
+    unknown entry's count set to it."""
+    raw = bytearray(data)
+    at, = struct.unpack_from("<I", raw, 4)
+    n, = struct.unpack_from("<H", raw, at)
+    for k in range(n):
+        if struct.unpack_from("<H", raw, at + 2 + 12 * k)[0] == tag:
+            struct.pack_into("<H", raw, at + 2 + 12 * k, 65000)
+            if count is not None:
+                struct.pack_into("<I", raw, at + 6 + 12 * k, count)
+            return bytes(raw)
+    raise KeyError(tag)
+
+
+def _twelve_bit(v: np.ndarray) -> bytes:
+    """``uint16`` samples below 4096 ([H, W] or [H, W, spp]) packed as
+    TIFF rows of 12-bit samples (most significant bit first, each row
+    padded to a byte)."""
+    v = v.reshape(v.shape[0], -1).astype(np.uint16)
+    bits = np.unpackbits((v << 4).astype(">u2").view(np.uint8).reshape(
+        v.shape[0], -1, 2), axis=2)[..., :12].reshape(v.shape[0], -1)
+    return np.packbits(bits, axis=1).tobytes()
+
+
+NAN, INF = float("nan"), float("inf")
+RBW = [0, 255, 128, 255, 128, 255]
+
+
+def _rbw(k, v):
+    r = list(RBW)
+    r[k] = v
+    return {532: (11, r)}
+
+
+def _refused(name: str) -> bytes:
+    """The refused kinds of test_refused_where_cv2_returns_none."""
+    from lgu_slam_tpu_torch.data.image_io import encode_jpeg
+
+    img = _image_32x48()
+    gray = np.ascontiguousarray(img[..., 1])
+    enc = tiff.encode_tiff
+    if name in C2_KINDS:
+        return c2_tiff(name, img)
+    ycc = dict(photometric=6, subsampling=(1, 1))
+    cases = {
+        "predictor_0": lambda: enc(gray, "lzw", tags={317: (3, [0])}),
+        "predictor_3_8bit": lambda: enc(gray, "lzw", tags={317: (3, [3])}),
+        "predictor_3_uint32": lambda: enc(gray.astype(np.uint32) * 99991,
+                                          "lzw", predictor=3),
+        "predictor_3_int16": lambda: enc(gray.astype(np.int16), "deflate",
+                                         predictor=3),
+        "predictor_2_1bit": lambda: enc(gray >> 7, "lzw", bilevel=True,
+                                        tags={317: (3, [2])}),
+        "mixed_depths_gray_alpha": lambda: enc(img[..., :2], tags={
+            258: (3, [16, 8])}),
+        "mixed_sample_format": lambda: enc(img, tags={339: (3, [1, 1, 2])}),
+        "mixed_min_sample": lambda: enc(img, tags={280: (3, [0, 1, 0])}),
+        "mixed_max_sample": lambda: enc(img, tags={281: (3, [9, 9, 8])}),
+        "bits_two_values_of_three": lambda: enc(img, tags={258: (3, [8, 8])}),
+        **{f"luma_nan_{k}": (lambda k=k: enc(img, **ycc, tags={529: (11, [
+            NAN if i == k else v for i, v in enumerate((0.299, 0.587,
+                                                        0.114))])}))
+           for k in range(3)},
+        "luma_green_negative_zero": lambda: enc(img, **ycc, tags={
+            529: (11, [0.299, -0.0, 0.114])}),
+        "luma_nan_subsampled": lambda: enc(img, photometric=6, tags={
+            529: (11, [0.299, NAN, 0.114])}),
+        "rbw_nan": lambda: enc(img, **ycc, tags=_rbw(3, NAN)),
+        "rbw_infinite": lambda: enc(img, **ycc, tags=_rbw(1, INF)),
+        **{f"rbw_{k}_{side}": (lambda k=k, v=v: enc(
+            img, **ycc, tags=_rbw(k, v)))
+           for k in (0, 2, 5) for side, v in (("above", 2147483648.0),
+                                              ("below", -2147483520.0))},
+        "short_strip_cut_gray16": lambda: enc(
+            gray.astype(np.uint16) * 257, chunks=[
+                (gray.astype(np.uint16) * 257).tobytes()[:1000]]),
+        "lzw_strip_past_end": lambda: _patch(enc(img, "lzw"), 279, 10 ** 6),
+        "missing_counts_two_strips": lambda: _drop_tag(
+            enc(img, rows_per_strip=16), 279),
+        "jpeg_separate_ycbcr_1x2": lambda: enc(
+            img, "jpeg", planar=2, photometric=6, subsampling=(1, 2),
+            rows_per_strip=16),
+        "jpeg_12bit_lossless": lambda: enc(
+            gray.astype(np.uint16), chunks=[encode_jpeg(
+                gray.astype(np.uint16) << 4, lossless=True, precision=12)],
+            tags={259: (3, [7]), 258: (3, [12])}),
+        "jpeg_16bit_dct": lambda: enc(
+            gray.astype(np.uint16), chunks=[encode_jpeg(gray)],
+            tags={259: (3, [7])}),
+        "jpeg_1bit": lambda: _patch(enc(gray, "jpeg"), 258, 1),
+        "twelve_bit_gray_alpha": lambda: enc(
+            img[..., :2].astype(np.uint16), chunks=[_twelve_bit(
+                img[..., :2].astype(np.uint16) * 16)],
+            tags={258: (3, [12, 12])}),
+        "twelve_bit_predictor_2": lambda: enc(
+            gray.astype(np.uint16), "lzw", chunks=[tiff.lzw_encode(
+                _twelve_bit(gray.astype(np.uint16) * 16))],
+            tags={258: (3, [12]), 317: (3, [2])}),
+        **{f"twelve_bit_photometric_{ph}": (lambda ph=ph: enc(
+            img.astype(np.uint16), chunks=[_twelve_bit(
+                img.astype(np.uint16) * 16)],
+            tags={258: (3, [12] * 3), 262: (3, [ph])})) for ph in (6, 8)},
+        "twelve_bit_float": lambda: enc(
+            gray.astype(np.uint16), chunks=[_twelve_bit(
+                gray.astype(np.uint16) * 16)],
+            tags={258: (3, [12]), 339: (3, [3])}),
+    }
+    return cases[name]()
+
+
+REFUSED = C2_KINDS + (
+    "predictor_0", "predictor_3_8bit", "predictor_3_uint32",
+    "predictor_3_int16", "predictor_2_1bit", "mixed_depths_gray_alpha",
+    "mixed_sample_format", "mixed_min_sample", "mixed_max_sample",
+    "bits_two_values_of_three", "luma_nan_0", "luma_nan_1", "luma_nan_2",
+    "luma_green_negative_zero", "luma_nan_subsampled", "rbw_nan",
+    "rbw_infinite", *(f"rbw_{k}_{side}" for k in (0, 2, 5)
+                      for side in ("above", "below")),
+    "short_strip_cut_gray16", "lzw_strip_past_end",
+    "missing_counts_two_strips", "jpeg_separate_ycbcr_1x2",
+    "jpeg_12bit_lossless", "jpeg_16bit_dct", "jpeg_1bit",
+    "twelve_bit_gray_alpha", "twelve_bit_predictor_2",
+    "twelve_bit_photometric_6", "twelve_bit_photometric_8",
+    "twelve_bit_float")
+
+
+@pytest.mark.parametrize("name", REFUSED)
+def test_refused_where_cv2_returns_none(name, tmp_path):
+    """Files cv2.imread returns None for in both read modes raise
+    ValueError in both, decided where the file is parsed: the six kinds
+    the decoder refused as NotImplementedError before (a predictor other
+    than 1-3, the floating-point predictor of 16-bit integers, samples of
+    mixed depths, a green YCbCr coefficient 0, a short uncompressed
+    strip the file cannot fill, JPEG of separate YCbCr planes:
+    tests/torch_port.c2_tiff) and their neighbours: the predictor 0, the
+    floating-point one of any integer samples, the horizontal one of 1-bit
+    samples; SampleFormat, Min- and MaxSampleValue of different values per
+    sample, BitsPerSample of 2 values for 3 samples; a NaN coefficient,
+    -0.0 for green, subsampled too; a reference black or white NaN,
+    infinite or outside (-2147483520, 2147483648) (the values inside read:
+    test_ycbcr_fields_cv2_reads); a short 16-bit strip; a compressed strip
+    past the file's end; two strips without StripByteCounts; JPEG of
+    separate YCbCr planes at 1 x 2, of 12-bit (this libjpeg decodes no
+    12-bit data) or 1-bit samples, or of 8-bit data in a 16-bit file;
+    12-bit gray with alpha, 12-bit YCbCr, L*a*b* or floating-point
+    samples, and 12-bit samples under the horizontal predictor."""
+    path = tmp_path / "r.tif"
+    path.write_bytes(_refused(name))
+    for flag in (cv2.IMREAD_COLOR, cv2.IMREAD_ANYDEPTH):
+        try:
+            assert cv2.imread(str(path), flag) is None
+        except cv2.error:
+            pass
+        with pytest.raises(ValueError, match="cv2.imread returns None"):
+            image_io.imread(str(path), anydepth=flag == cv2.IMREAD_ANYDEPTH)
+
+
+def _read_case(name: str) -> bytes:
+    """The kinds of test_leftovers_read_as_cv2_reads."""
+    from lgu_slam_tpu_torch.data.image_io import encode_jpeg
+
+    img = _image_32x48()
+    gray = np.ascontiguousarray(img[..., 1])
+    enc = tiff.encode_tiff
+    raw = np.ascontiguousarray(img[..., ::-1]).tobytes()
+    one = enc(img, chunks=[raw])
+    sep = dict(planar=2, photometric=2, rows_per_strip=16)
+
+    def jpeg(px, **kw):
+        return encode_jpeg(np.ascontiguousarray(px), 90, **kw)
+
+    def short_jpeg(chunks, **kw):
+        return enc(img, "jpeg", photometric=2, rows_per_strip=16,
+                   jpeg_tables=False, chunks=chunks, **kw)
+
+    rgb = dict(subsampling="444", adobe_transform=0)
+    cases = {
+        # a single uncompressed strip: libtiff recounts a byte count that
+        # "looks bad" from ImageLength, and reads the data that is there
+        "short_strip_present": lambda: _patch(one, 279, len(raw) * 5 // 8),
+        "short_strip_zero": lambda: _patch(one, 279, 0),
+        "short_strip_past_end": lambda: _patch(one, 279, 10 ** 6),
+        "short_strip_gray16": lambda: _patch(
+            enc(gray.astype(np.uint16) * 257), 279, 1000),
+        "short_strip_planar_one_sample": lambda: _patch(
+            enc(gray, planar=2), 279, 500),
+        "lzw_strip_zero": lambda: _patch(enc(img, "lzw"), 279, 0),
+        "missing_counts": lambda: _drop_tag(one, 279),
+        "missing_counts_lzw": lambda: _drop_tag(enc(img, "lzw"), 279),
+        "missing_counts_planar": lambda: _drop_tag(enc(img, planar=2), 279),
+        "missing_counts_planar_lzw": lambda: _drop_tag(
+            enc(img, "lzw", planar=2), 279),
+        "missing_counts_tile": lambda: _drop_tag(
+            enc(img, "deflate", tile=(32, 48)), 325),
+        # the unknown entry's values count more bytes than the file holds:
+        # libtiff sizes each chunk from the whole file
+        "missing_counts_room_past_end": lambda: _drop_tag(
+            enc(img, "lzw"), 279, count=10 ** 6),
+        "missing_counts_planar_room_past_end": lambda: _drop_tag(
+            enc(img, "lzw", planar=2), 279, count=10 ** 6),
+        # JPEG of separate planes: each plane's strips one-component JPEG
+        "jpeg_separate_rgb": lambda: enc(img, "jpeg", **sep),
+        "jpeg_separate_rgb_one_strip": lambda: enc(img, "jpeg", planar=2,
+                                                   photometric=2),
+        "jpeg_separate_rgb_tiles": lambda: enc(img, "jpeg", planar=2,
+                                               photometric=2,
+                                               tile=(16, 32)),
+        "jpeg_separate_rgb_no_tables": lambda: enc(
+            img, "jpeg", jpeg_tables=False, **sep),
+        "jpeg_separate_rgb_odd": lambda: enc(
+            np.ascontiguousarray(img[:21, :35]), "jpeg", planar=2,
+            photometric=2, rows_per_strip=8),
+        "jpeg_separate_rgb_subsampling_tag": lambda: enc(
+            img, "jpeg", tags={530: (3, [2, 2])}, **sep),
+        "jpeg_separate_gray": lambda: enc(gray, "jpeg", planar=2,
+                                          rows_per_strip=16),
+        "jpeg_separate_gray_alpha": lambda: enc(
+            img[..., :2], "jpeg", planar=2, rows_per_strip=16,
+            extra_samples=2),
+        "jpeg_separate_rgba": lambda: enc(
+            np.dstack([img, gray[::-1]]), "jpeg", extra_samples=2, **sep),
+        "jpeg_separate_ycbcr_1x1": lambda: enc(
+            img, "jpeg", planar=2, photometric=6, subsampling=(1, 1),
+            rows_per_strip=16),
+        # JPEG strips and tiles the data does not fill: the rest zeros
+        "jpeg_strip_short": lambda: short_jpeg(
+            [jpeg(img[:12], **rgb), jpeg(img[16:], **rgb)]),
+        "jpeg_strip_narrow": lambda: short_jpeg(
+            [jpeg(img[:16, :40], **rgb), jpeg(img[16:], **rgb)]),
+        "jpeg_last_strip_short": lambda: short_jpeg(
+            [jpeg(img[:16], **rgb), jpeg(img[16:26], **rgb)]),
+        "jpeg_ycbcr_strip_short": lambda: enc(
+            img, "jpeg", rows_per_strip=16, jpeg_tables=False, chunks=[
+                jpeg(img[:12]), jpeg(img[16:])]),
+        "jpeg_tile_short": lambda: enc(
+            gray, "jpeg", tile=(16, 16), jpeg_tables=False, chunks=[
+                jpeg(gray[:8, :16])] + [jpeg(gray[:16, :16])] * 5),
+        "jpeg_separate_plane_short": lambda: enc(
+            img, "jpeg", jpeg_tables=False, chunks=[
+                jpeg(img[:16, :, 2]), jpeg(img[16:, :, 2]),
+                jpeg(img[:9, :, 1]), jpeg(img[16:, :, 1]),
+                jpeg(img[:16, :, 0]), jpeg(img[16:, :30, 0])], **sep),
+        # a 16-bit lossless stream passes libtiff's checks and fails in
+        # libjpeg's 8-bit reader: zeros in the colour read, None in the
+        # 16-bit one
+        "jpeg_16bit_lossless": lambda: enc(
+            gray.astype(np.uint16), chunks=[encode_jpeg(
+                gray.astype(np.uint16) * 257, lossless=True, precision=16)],
+            tags={259: (3, [7])}),
+        "jpeg_16bit_lossless_min_is_white": lambda: enc(
+            gray.astype(np.uint16), chunks=[encode_jpeg(
+                gray.astype(np.uint16) * 257, lossless=True, precision=16)],
+            tags={259: (3, [7]), 262: (3, [0])}),
+        # per-sample values past the samples are not read
+        "bits_extra_value_differs": lambda: enc(img, tags={
+            258: (3, [8, 8, 8, 16])}),
+        "min_sample_one_value": lambda: enc(img, tags={280: (3, [3])}),
+    }
+    return cases[name]()
+
+
+READ = ("short_strip_present", "short_strip_zero", "short_strip_past_end",
+        "short_strip_gray16", "short_strip_planar_one_sample",
+        "lzw_strip_zero", "missing_counts", "missing_counts_lzw",
+        "missing_counts_planar", "missing_counts_planar_lzw",
+        "missing_counts_tile", "missing_counts_room_past_end",
+        "missing_counts_planar_room_past_end", "jpeg_separate_rgb",
+        "jpeg_separate_rgb_one_strip", "jpeg_separate_rgb_tiles",
+        "jpeg_separate_rgb_no_tables", "jpeg_separate_rgb_odd",
+        "jpeg_separate_rgb_subsampling_tag", "jpeg_separate_gray",
+        "jpeg_separate_gray_alpha", "jpeg_separate_rgba",
+        "jpeg_separate_ycbcr_1x1", "jpeg_strip_short", "jpeg_strip_narrow",
+        "jpeg_last_strip_short", "jpeg_ycbcr_strip_short", "jpeg_tile_short",
+        "jpeg_separate_plane_short", "jpeg_16bit_lossless",
+        "jpeg_16bit_lossless_min_is_white", "bits_extra_value_differs",
+        "min_sample_one_value")
+# the readable kinds whose strips are also cut and overwritten
+DAMAGED = ("short_strip_present", "missing_counts_lzw", "jpeg_separate_rgb",
+           "jpeg_separate_rgb_tiles", "jpeg_strip_short")
+
+
+def _chunk_damage(data: bytes, tmp_path, rng, mutations: int):
+    """Each strip's or tile's byte count cut to a few lengths, and copies
+    with 1-3 bytes of the data replaced or bit-flipped: as cv2.imread
+    reads them."""
+    tags = tiff._ifd(data, "")[0]
+    tag, name = (325, "tile_counts") if "tile_counts" in tags else (
+        279, "strip_counts")
+    offsets = tags["tile_offsets" if tag == 325 else "strip_offsets"]
+    counts = tags.get(name, ())
+    for k, count in enumerate(counts):
+        for cut in (1, count // 3, count - 5):
+            _same(_patch(data, tag, max(cut, 1), index=k), tmp_path)
+    start, end = offsets[0], offsets[-1] + (counts[-1] if counts else 64)
+    for _ in range(mutations):
+        raw = bytearray(data)
+        for _ in range(int(rng.integers(1, 4))):
+            i = int(rng.integers(start, min(end, len(raw))))
+            raw[i] = int(rng.integers(0, 256)) if rng.random() < 0.5 else \
+                raw[i] ^ 1 << int(rng.integers(0, 8))
+        _same(bytes(raw), tmp_path)
+
+
+@pytest.mark.parametrize("name", READ)
+def test_leftovers_read_as_cv2_reads(name, tmp_path):
+    """The TIFF files the decoder refused and cv2.imread reads, bit for bit
+    with it in both read modes: a single uncompressed strip whose byte
+    count libtiff takes for wrong (short of the image, 0, past the file's
+    end) and recounts from ImageLength, a compressed one of count 0 sized
+    from the file, StripByteCounts missing where there is one strip per
+    plane (or TileByteCounts of one tile), also where the directory's
+    values count more bytes than the file holds; JPEG of separate planes (RGB in
+    strips, one strip, tiles, without JPEGTables, at odd sizes, beside a
+    2 x 2 subsampling tag that planes of RGB do not take; gray, gray with
+    alpha, RGBA, YCbCr at 1 x 1); JPEG strips, tiles and planes shorter
+    or narrower than their place (libtiff warns, the rest zeros), a
+    16-bit lossless JPEG strip (zeros in the colour read: libjpeg's 8-bit
+    scanline reader fails after libtiff's checks pass; None in the 16-bit
+    one), BitsPerSample values past the samples; and, cut and overwritten
+    (DAMAGED), as cv2 reads those."""
+    data = _read_case(name)
+    path = _same(data, tmp_path)
+    assert cv2.imread(str(path)) is not None
+    if name in DAMAGED:
+        _chunk_damage(data, tmp_path, np.random.default_rng(
+            READ.index(name)), mutations=40)
+
+
+@pytest.mark.parametrize("sub", YCBCR_SUBSAMPLINGS)
+def test_ycbcr_tile_predictor(sub, tmp_path):
+    """LZW YCbCr data units in tiles under the horizontal predictor:
+    libtiff undoes it three bytes apart over rows of the tile's width in
+    pixels times 3 (TIFFTileRowSize, blind to the subsampling), where
+    those rows divide the tile's bytes, and not at all where they do not
+    (its error, passed over by the RGBA interface): as cv2.imread reads
+    each tile shape, in both read modes; ``encode_tiff`` writes the
+    differences over the same rows, so where libtiff undoes them the
+    image is the one written (the 2 x 2 file also cut and overwritten)."""
+    img = _image_32x48(71 + YCBCR_SUBSAMPLINGS.index(sub))
+    for tile in ((16, 16), (16, 32), (32, 16), (16, 48)):
+        data = tiff.encode_tiff(img, "lzw", predictor=2, photometric=6,
+                                subsampling=sub, tile=tile)
+        _same(data, tmp_path)
+        plain = tiff.encode_tiff(img, "lzw", photometric=6, subsampling=sub,
+                                 tile=tile)
+        rows = 3 * tile[1]
+        units = -(-tile[0] // sub[1]) * -(-tile[1] // sub[0]) * (
+            sub[0] * sub[1] + 2)
+        if sub != (1, 1) and units % rows == 0:
+            np.testing.assert_array_equal(tiff.decode_tiff(data),
+                                          tiff.decode_tiff(plain))
+        if sub == (2, 2) and tile == (16, 16):
+            _chunk_damage(data, tmp_path, np.random.default_rng(72), 30)
+
+
+@pytest.mark.parametrize("fields", [
+    {529: (11, [0.299, 1e-30, 0.114])}, {529: (11, [INF, 0.587, 0.114])},
+    {529: (11, [INF, INF, 0.114])}, {529: (11, [-0.5, 0.587, 3.0])},
+    {529: (11, [0.2, 0.7])}, {529: (11, [0.2, 0.7, 0.1, 0.5])},
+    {529: (12, [0.2126, 0.7152, 0.0722])}, {532: (11, [0] * 6)},
+    {532: (11, [7, 7, 128, 128, 3, 3])}, {532: (11, RBW[:5])},
+    *({532: _rbw(k, v)[532]} for k in (0, 2, 5)
+      for v in (2147483520.0, -2147483392.0))],
+    ids=lambda f: "_".join(f"{t}_{len(v[1])}" for t, v in f.items()))
+def test_ycbcr_fields_cv2_reads(fields, tmp_path):
+    """YCbCrCoefficients and ReferenceBlackWhite libtiff takes: a green
+    coefficient near 0 (only 0 and NaN are refused), infinite ones (a
+    NaN they make clamps to 0), negative ones, fields of other than 3
+    and 6 values (ignored: the defaults), DOUBLE values, a reference
+    black equal to its white (divided by 1), and reference values at
+    either end of the range (test_refused_where_cv2_returns_none holds
+    the values just past it): as cv2.imread reads them."""
+    img = _image_32x48(73)
+    _same(tiff.encode_tiff(img, photometric=6, subsampling=(1, 1),
+                           tags=fields), tmp_path)
+
+
+def test_twelve_bit_and_logluv24_are_queued(tmp_path):
+    """What cv2.imread reads and the decoder does not, refused as
+    NotImplementedError naming it: 12-bit samples read with
+    IMREAD_ANYDEPTH (gray, LZW, odd widths in strips, RGBA, separate RGB
+    planes, signed, palette; OpenCV widens them to 16 bits, gray as the
+    samples shifted up by 4), whose colour read cv2 refuses (ValueError);
+    SGI LogLuv24 (photometric 32845 under SGI Log24) read in colour, whose
+    IMREAD_ANYDEPTH read cv2 refuses (ValueError)."""
+    rng = np.random.default_rng(74)
+    v = rng.integers(0, 4096, (32, 48)).astype(np.uint16)
+    v35 = rng.integers(0, 4096, (21, 35)).astype(np.uint16)
+    v3 = rng.integers(0, 4096, (32, 48, 3)).astype(np.uint16)
+    v4 = rng.integers(0, 4096, (32, 48, 4)).astype(np.uint16)
+    enc = tiff.encode_tiff
+    twelve = {
+        "gray": enc(v, chunks=[_twelve_bit(v)], tags={258: (3, [12])}),
+        "min_is_white": enc(v, chunks=[_twelve_bit(v)], tags={
+            258: (3, [12]), 262: (3, [0])}),
+        "lzw": enc(v, "lzw", chunks=[tiff.lzw_encode(_twelve_bit(v))],
+                   tags={258: (3, [12])}),
+        "odd_strips": enc(v35, rows_per_strip=8, chunks=[
+            _twelve_bit(v35[i:i + 8]) for i in range(0, 21, 8)],
+            tags={258: (3, [12])}),
+        "rgba": enc(v4, chunks=[_twelve_bit(v4)], tags={258: (3, [12] * 4)}),
+        "separate_rgb": enc(v3, planar=2, chunks=[
+            _twelve_bit(v3[..., k]) for k in range(3)],
+            tags={258: (3, [12] * 3)}),
+        "signed": enc(v, chunks=[_twelve_bit(v)], tags={
+            258: (3, [12]), 339: (3, [2])}),
+        "palette": enc(v, chunks=[_twelve_bit(v)], tags={
+            258: (3, [12]), 262: (3, [3])}),
+    }
+    path = tmp_path / "q.tif"
+    for name, data in twelve.items():
+        path.write_bytes(data)
+        assert cv2.imread(str(path)) is None, name
+        with pytest.raises(ValueError, match="12-bit"):
+            image_io.imread(str(path))
+        ref = cv2.imread(str(path), cv2.IMREAD_ANYDEPTH)
+        assert ref is not None and ref.dtype.itemsize == 2, name
+        if name in ("gray", "lzw", "min_is_white"):
+            np.testing.assert_array_equal(ref, v << 4)
+        with pytest.raises(NotImplementedError, match="12-bit"):
+            image_io.imread(str(path), anydepth=True)
+    img = _image_32x48(75)
+    img[..., 2] = rng.integers(100, 140, (32, 48))
+    path.write_bytes(_patch(_patch(enc(img), 259, 34677), 262, 32845))
+    assert cv2.imread(str(path)) is not None
+    with pytest.raises(NotImplementedError, match="LogLuv"):
+        image_io.imread(str(path))
+    try:
+        assert cv2.imread(str(path), cv2.IMREAD_ANYDEPTH) is None
+    except cv2.error:
+        pass
+    with pytest.raises(ValueError, match="LogLuv"):
+        image_io.imread(str(path), anydepth=True)
+
+
+def _logluv32(codes: np.ndarray, **layout) -> bytes:
+    """A TIFF of 32-bit LogLuv ``codes`` ([H, W]: 16-bit signed log
+    luminance, then 8-bit u and v) under SGI Log, 3 samples per pixel as
+    libtiff writes LogLuv, each strip or tile coded by ``logl_encode``."""
+    H, W = codes.shape
+    tile = layout.get("tile")
+    ch, cw = tile if tile else (layout.get("rows_per_strip") or H, W)
+    full = np.zeros((-(-H // ch) * ch, -(-W // cw) * cw), np.uint32)
+    full[:H, :W] = codes
+    chunks = [tiff.logl_encode(full[y:y + (ch if tile else min(ch, H - y)),
+                                    x:x + cw], planes=4)
+              for y in range(0, H, ch) for x in range(0, W, cw)]
+    data = tiff.encode_tiff(np.zeros((H, W, 3), np.uint16), chunks=chunks,
+                            **layout)
+    return _patch(_patch(data, 259, 34676), 262, 32845)
+
+
+def test_logluv32_reads_as_cv2_reads(tmp_path):
+    """SGI LogLuv32 (photometric 32845 under SGI Log, 3 samples), read in
+    colour as libtiff's RGBA interface reads it (tif_luv.c LogLuvDecode32,
+    LogLuv32toXYZ, XYZtoRGB24: CCIR-709 primaries, a gamma of 2, in C):
+    random codes over the whole 32-bit range and over luminances near 1,
+    with runs, in one strip, strips of 5 rows and 16 x 16 tiles, and each
+    strip cut and overwritten, bit for bit with cv2.imread (whose
+    IMREAD_ANYDEPTH read fails: ValueError); separate planes and one
+    sample per pixel refused as cv2 refuses them."""
+    rng = np.random.default_rng(78)
+    codes = rng.integers(0, 2 ** 32, (21, 35), dtype=np.uint64).astype(
+        np.uint32)
+    near = (codes & 0x8000FFFF) | (rng.integers(
+        15000, 18500, codes.shape).astype(np.uint32) << 16)
+    near[:, 20:] = near[:, 20:21]  # runs
+    for c in (codes, near):
+        for layout in ({}, dict(rows_per_strip=5), dict(tile=(16, 16))):
+            _same(_logluv32(c, **layout), tmp_path)
+    data = _logluv32(near, rows_per_strip=5)
+    _strip_damage(data, tmp_path, rng, mutations=30)
+    for bad in (_logluv32(near, planar=2), _patch(
+            _patch(tiff.encode_tiff(near.astype(np.uint16), chunks=[
+                tiff.logl_encode(near, planes=4)]), 259, 34676), 262,
+            32845)):
+        path = _same(bad, tmp_path)
+        assert cv2.imread(str(path)) is None
+@pytest.mark.parametrize("compression", ["lzw", "deflate"])
+@pytest.mark.parametrize("layout", [dict(rows_per_strip=8),
+                                    dict(tile=(16, 16))],
+                         ids=["strips", "tiles"])
+def test_damaged_chunks_keep_their_differences(compression, layout,
+                                               tmp_path):
+    """A strip or tile under the horizontal predictor whose data fails to
+    decode (cut short, overwritten): libtiff's predictor undoes nothing of
+    it (PredictorDecodeTile returns on the codec's failure), and its RGBA
+    interface shows the differences as decoded: as cv2.imread reads
+    them, in both read modes, 8-bit gray and RGB."""
+    img = _image_32x48(76)
+    for im in (img, np.ascontiguousarray(img[..., 1])):
+        data = tiff.encode_tiff(im, compression, predictor=2, **layout)
+        _chunk_damage(data, tmp_path, np.random.default_rng(77), 20)

@@ -120,3 +120,37 @@ def damaged_same_as_cv2(data: bytes, tmp_path, mutations: int = 200,
     for case in cases:
         path.write_bytes(case)
         same_as_cv2(path)
+
+
+# TIFF files that cv2.imread returns None for in both read modes, one of
+# each refusal that the port's decoder decides where it parses the file
+C2_KINDS = ("predictor_4", "predictor_3_16bit", "mixed_depths",
+            "ycbcr_green_0", "short_strip_cut", "jpeg_separate_ycbcr")
+
+
+def c2_tiff(kind: str, img: np.ndarray) -> bytes:
+    """A TIFF of ``img`` (``uint8 [H, W, 3]`` BGR, at least 16 rows) of the
+    refused ``kind`` of :data:`C2_KINDS`: a predictor other than 1-3, the
+    floating-point predictor of 16-bit integers, BitsPerSample (8, 8, 16),
+    YCbCr of a green coefficient 0, one uncompressed strip of 5/8 of its
+    bytes that the file cannot fill, JPEG of separate YCbCr planes."""
+    from lgu_slam_tpu_torch.data import tiff
+
+    gray = np.ascontiguousarray(img[..., 1])
+    if kind == "predictor_4":
+        return tiff.encode_tiff(gray, "lzw", tags={317: (3, [4])})
+    if kind == "predictor_3_16bit":
+        return tiff.encode_tiff(gray.astype(np.uint16) * 257, "lzw",
+                                tags={317: (3, [3])})
+    if kind == "mixed_depths":
+        return tiff.encode_tiff(img, tags={258: (3, [8, 8, 16])})
+    if kind == "ycbcr_green_0":
+        return tiff.encode_tiff(img, photometric=6, subsampling=(1, 1),
+                                tags={529: (5, (0.299, 0, 0.114))})
+    if kind == "short_strip_cut":
+        raw = np.ascontiguousarray(img[..., ::-1]).tobytes()
+        return tiff.encode_tiff(img, chunks=[raw[:len(raw) * 5 // 8]])
+    if kind == "jpeg_separate_ycbcr":
+        return tiff.encode_tiff(img, "jpeg", planar=2, photometric=6,
+                                rows_per_strip=16)
+    raise KeyError(kind)
