@@ -196,7 +196,8 @@ Sixteen phases; any failure exits non-zero.
    port's own encoders (Group 4 and Group 3 2-D, old-style LZW, gray with
    alpha, CMYK, YCbCr 2 x 2, L*a*b*, LogL), each read back as written or
    within its PSNR, and the committed files of libtiff's own encoders
-   (``tests/data/tiff``, from ``scripts/make_tiff_fixtures_torch.py``)
+   (``tests/data/tiff`` but phases 17 and 18's, from
+   ``scripts/make_tiff_fixtures_torch.py``)
    decoded to the SHA-256 of ``cv2.imread``'s arrays in both read modes;
    the host's median decode ms of each; a 16-bit palette, 16-bit CMYK and
    old-style JPEG refused as OpenCV refuses them.  A 16-frame TUM fr1
@@ -207,10 +208,11 @@ Sixteen phases; any failure exits non-zero.
    them, and the TIFF stream's host ms per fed frame against the PNG's.
 16. JPEG 2000 on the card machine's host: a rendered 480 x 640 frame and
    its 16-bit depth through the port's lossless writer (5/3, the RCT), each
-   read back as written; the committed files of ``tests/data/jp2`` (from
-   ``scripts/make_jp2_fixtures_torch.py``: Pillow's, ``cv2.imwrite``'s and
-   OpenJPEG's, among them a whole 480 x 640 frame at ``cv2.imwrite``'s
-   default and one in 9/7) decoded to the SHA-256 of ``cv2.imread``'s
+   read back as written; the committed files of ``tests/data/jp2`` but
+   phase 18's (from ``scripts/make_jp2_fixtures_torch.py``: Pillow's,
+   ``cv2.imwrite``'s and OpenJPEG's, among them a whole 480 x 640 frame at
+   ``cv2.imwrite``'s default and one in 9/7) decoded to the SHA-256 of
+   ``cv2.imread``'s
    arrays in both read modes; the host's median decode ms of each; signed
    and subsampled components, a CMYK colour space, a gray codestream read
    in colour and a codestream without its EOC refused as OpenCV refuses
@@ -234,10 +236,28 @@ Sixteen phases; any failure exits non-zero.
    that the port once refused as NotImplementedError, refused
    (ValueError); the host's decode ms of a 480 x 640 JPEG TIFF of
    separate planes.
+18. TIFF LogLuv24 and 12-bit samples, and HTJ2K code blocks, on the card
+   machine's host: the committed files of ``tests/data/tiff`` (LogLuv24
+   of ``cv2.imwrite`` and of the port's encoder, 12-bit gray, RGB and
+   signed tiles) and the HT files of ``tests/data/jp2`` (the port's HT
+   writer: cleanup only, SigProp and MagRef, 9/7, tiles of 4 x 1024 code
+   blocks, 1024 x 4 vertically causal, damaged, cut) decoded to the
+   SHA-256 of ``cv2.imread``'s arrays (or refused where it returns None);
+   a rendered 480 x 640 frame through the port's writer as HT JP2
+   (lossless 5/3 and 9/7) and as EBCOT JP2 (lossless 5/3), its 16-bit
+   depth as 12-bit TIFF, each read back (the 9/7 above a PSNR), with the
+   host's median decode ms of each; HT files of more than one HT set or a
+   quad's U_q past its bit-planes, a 12-bit TIFF read in colour and
+   LogLuv24 of float samples refused.  A 16-frame TUM fr1 sequence written
+   twice, HT JP2 colour with 12-bit TIFF depth and PNG colour with 16-bit
+   PNG depth of the 12-bit values shifted up by 4, tracked as in phase 12:
+   both streams feed equal frames and depth, ``track()`` makes equal K1
+   and K2 launches over them, and the HT stream's host ms per fed frame
+   against the PNG's.
 
 Before the last line it prints the tracking, terminate, training, fp32
 tracking, world-size-1, entry-point, 3DGS, JPEG, oracle, the five
-format reports and the scaling report, the
+format reports, the scaling report and phase 18's report, the
 run's wall time, the
 card's name and power limit, and one JSON line with each kernel's error,
 time, bound and launches.  The last line is ``{"ok": true, "device": {...}}``.
@@ -2982,8 +3002,8 @@ def phase_committed(folder: Path, phase: int, keep=None) -> dict:
     jp2``, OpenJPEG's JPEG 2000 through Pillow, cv2.imwrite and its own
     API) decode to the SHA-256 of ``cv2.imread``'s arrays (``hashes.json``
     beside them) in both read modes, or are refused in a mode whose hash
-    is null; the host's median ms of 10 colour decodes (or refusals) of
-    each.
+    is null; the host's median ms of 10 colour decodes (IMREAD_ANYDEPTH
+    ones where the colour read is refused, or refusals) of each.
     ``keep``: which names (default: all)."""
     hashes = json.loads((folder / "hashes.json").read_text())
     out = {}
@@ -3007,8 +3027,9 @@ def phase_committed(folder: Path, phase: int, keep=None) -> dict:
                   and str(got.dtype) == want[mode]["dtype"],
                   f"phase {phase}: {name} ({mode}) is not cv2.imread's "
                   "array")
+        gray = want["color"] is None  # time a mode that reads
         out[name] = dict(bytes=want["bytes"], decode_ms=host_ms(
-            lambda _: imread(path), range(10)))
+            lambda _: imread(path, anydepth=gray), range(10)))
     return out
 
 
@@ -3170,7 +3191,8 @@ def phase_15(dev, kernels: dict) -> dict:
         report = dict(codecs=phase_format_codecs(root, formats_15_cases(),
                                                  15))
         report["committed_tiff"] = phase_committed(
-            TIFF_FIXTURES, 15, keep=lambda name: not tiff_17(name))
+            TIFF_FIXTURES, 15,
+            keep=lambda name: not tiff_17(name) and not tiff_18(name))
         report["refused"] = refusals(root, refusals_15(), 15)
         runs = phase_format_track(
             dev, kernels, root / "tum", n_frames=PHASE_15_FRAMES,
@@ -3252,7 +3274,8 @@ def phase_16(dev, kernels: dict) -> dict:
         root = Path(tmp)
         report = dict(codecs=phase_format_codecs(root, formats_16_cases(),
                                                  16))
-        report["committed_jp2"] = phase_committed(JP2_FIXTURES, 16)
+        report["committed_jp2"] = phase_committed(
+            JP2_FIXTURES, 16, keep=lambda name: not ht_18(name))
         report["refused"] = refusals(root, refusals_16(), 16)
         runs = phase_format_track(
             dev, kernels, root / "tum", n_frames=PHASE_16_FRAMES,
@@ -3387,6 +3410,118 @@ def print_phase_17(report: dict) -> None:
           f"{report['seconds']:.0f} s")
 
 
+# -- phase 18: TIFF LogLuv24 and 12-bit samples, HTJ2K code blocks ---------
+
+# the TUM sequence's length, as phases 14-16's: SLAMConfig()'s warm-up
+# takes 12 keyframes, and the check wants updates after it
+PHASE_18_FRAMES = 16
+# the 9/7 HT frame's least PSNR against the frame written (the writer's
+# steps of 1/2 give 46.6 dB on a rendered frame)
+PHASE_18_PSNR_DB = 40.0
+
+
+def tiff_18(name: str) -> bool:
+    """Whether a committed TIFF file is phase 18's."""
+    return name.startswith(("logluv24_", "twelve_bit_"))
+
+
+def ht_18(name: str) -> bool:
+    """Whether a committed JPEG 2000 file is phase 18's (HT)."""
+    return name.startswith("ht_")
+
+
+def formats_18_cases() -> list:
+    """:func:`format_cases`' tuples of a rendered 480 x 640 frame through
+    the port's JPEG 2000 writer (HT lossless 5/3 + RCT, HT 9/7 + ICT, and
+    the EBCOT lossless file of phase 16's kind beside them) and of its
+    depth's top 12 bits as 12-bit TIFF samples (read back shifted up by
+    4)."""
+    images, depths = render_sequence(SEED + 25, 1, 480, 640, TUM_FR1, 0.02,
+                                     0.004)[:2]
+    img = images[0]
+    d16 = np.clip(np.rint(depths[0] * 5000.0), 0, 65535).astype(np.uint16)
+    top = np.minimum(d16 >> 4, 4095).astype(np.uint16)
+    return [("HT JP2 lossless 5/3 + RCT", jp2.encode_jp2(img, ht=True),
+             False, img, None),
+            ("HT JP2 9/7 + ICT", jp2.encode_jp2(img, ht=True,
+                                                irreversible=True),
+             False, img, PHASE_18_PSNR_DB),
+            ("EBCOT JP2 lossless 5/3 + RCT", jp2.encode_jp2(img), False,
+             img, None),
+            ("TIFF 12-bit depth", tiff.encode_tiff(top, twelve_bit=True),
+             True, top << 4, None)]
+
+
+def refusals_18() -> list:
+    """Files OpenCV refuses: HT code blocks of more than one HT set (4
+    passes with refinement), HT blocks whose missing MSBs leave a quad's
+    U_q past its bit-planes, a 12-bit TIFF read in colour, LogLuv24 of
+    32-bit float samples."""
+    img = render_sequence(SEED + 25, 1, 48, 64, TUM_FR1, 0.02, 0.004)[0][0]
+    codes = (img[..., 1].astype(np.uint32) << 14) | img[..., 2]
+    return [("HT JPEG 2000 four passes", jp2.encode_jp2(
+        img, ht=True, refine=2, placeholder=1)),
+            ("HT JPEG 2000 U_q past its bit-planes", jp2.encode_jp2(
+                img, ht=True, extra_missing=1)),
+            ("TIFF 12-bit in colour", tiff.encode_tiff(
+                img.astype(np.uint16) * 16, twelve_bit=True)),
+            ("TIFF LogLuv24 of float samples", tiff.encode_tiff(
+                codes, "sgilog24", tags={258: (3, [32] * 3),
+                                         339: (3, [3] * 3)}))]
+
+
+def phase_18(dev, kernels: dict) -> dict:
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        report = dict(codecs=phase_format_codecs(root, formats_18_cases(),
+                                                 18))
+        report["committed_tiff"] = phase_committed(TIFF_FIXTURES, 18,
+                                                   keep=tiff_18)
+        report["committed_jp2"] = phase_committed(JP2_FIXTURES, 18,
+                                                  keep=ht_18)
+        report["refused"] = refusals(root, refusals_18(), 18)
+        runs = phase_format_track(
+            dev, kernels, root / "tum", n_frames=PHASE_18_FRAMES,
+            seed=SEED + 26, phase=18,
+            pairs=(("ht-jp2", "12bit-tiff"), ("png", "12bit-png")),
+            key="launches_formats_18")
+    ht_run, png_run = runs.values()
+    for name in ("k1_launches_track", "k2_launches_track"):
+        check(ht_run[name] == png_run[name],
+              f"phase 18: {name} {ht_run[name]} (HT JP2 + 12-bit TIFF) != "
+              f"{png_run[name]} (PNG + 16-bit PNG)")
+    codecs = report["codecs"]
+    report["ht_over_ebcot_decode"] = \
+        codecs["HT JP2 lossless 5/3 + RCT"]["decode_ms"] / \
+        codecs["EBCOT JP2 lossless 5/3 + RCT"]["decode_ms"]
+    report["feed_ratio"] = ht_run["feed_ms"] / png_run["feed_ms"]
+    report["tum"] = runs
+    report["seconds"] = time.perf_counter() - t_start
+    return report
+
+
+def print_phase_18(report: dict) -> None:
+    codecs = ", ".join(f"{k} {v['decode_ms']:.2f}" for k, v in
+                       report["codecs"].items())
+    committed = ", ".join(
+        f"{k} {v['decode_ms']:.2f}" for k, v in
+        {**report["committed_tiff"], **report["committed_jp2"]}.items()
+        if not v.get("refused"))
+    tum = "; ".join(
+        f"{k}: fed {v['feed_ms']:.2f} ms per frame, {v['keyframes']} "
+        f"keyframes, {v['ms_per_keyframe_median']:.1f} ms per keyframe "
+        f"update, K1 {v['k1_launches']} / K2 {v['k2_launches']} launches "
+        f"(track {v['k1_launches_track']} / {v['k2_launches_track']})"
+        for k, v in report["tum"].items())
+    print(f"phase 18: host decode ms of 480 x 640 frames: {codecs} (HT / "
+          f"EBCOT {report['ht_over_ebcot_decode']:.3f}); committed files "
+          f"equal to cv2's hashes: {committed}; {len(report['refused'])} "
+          f"refusals; TUM RGB-D at 384 x 512, equal frames and depth from "
+          f"both streams: {tum}; HT + 12-bit / PNG feed "
+          f"{report['feed_ratio']:.3f}; {report['seconds']:.0f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke run needs an NVIDIA GPU")
@@ -3464,10 +3599,14 @@ def main():
     torch.cuda.empty_cache()
     scaling_17 = phase_17(dev, kernels)
     print_phase_17(scaling_17)
+    torch.cuda.empty_cache()
+    formats_18 = phase_18(dev, kernels)
+    print_phase_18(formats_18)
     # launches on the main path: K1 bf16 and K2 over track() +
     # terminate(), phase 8's entry points, phase 10's JPEG runs, phases
-    # 12-16's TUM tracks and phase 17's backend passes, K2 also over phase
-    # 7's sharded backend pass, K1 fp32 operands over phase 6's track()
+    # 12-16's and 18's TUM tracks and phase 17's backend passes, K2 also
+    # over phase 7's sharded backend pass, K1 fp32 operands over phase 6's
+    # track()
     for name in ("masked_corr_level0_tc", "fused_pyramid_lookup"):
         k = kernels[name]
         k["launches"] = k["launches_track"] + k["launches_terminate"] + \
@@ -3475,7 +3614,8 @@ def main():
             k["launches_entry_points"] + k["launches_jpeg"] + \
             k["launches_formats"] + k["launches_arith"] + \
             k["launches_formats_14"] + k["launches_formats_15"] + \
-            k["launches_formats_16"] + k["launches_scaling_17"]
+            k["launches_formats_16"] + k["launches_scaling_17"] + \
+            k["launches_formats_18"]
     k = kernels["masked_corr_level0_tf32"]
     k["launches"] = k["launches_track_fp32"]
     for k in kernels.values():
@@ -3497,6 +3637,7 @@ def main():
     print(json.dumps({"formats_15": formats_15}))
     print(json.dumps({"formats_16": formats_16}))
     print(json.dumps({"scaling_17": scaling_17}))
+    print(json.dumps({"formats_18": formats_18}))
     print(json.dumps({"seconds": seconds}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": list(kernels.values())}))

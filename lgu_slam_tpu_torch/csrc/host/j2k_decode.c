@@ -28,7 +28,11 @@
  * EOC after the last tile (unless nothing follows the marker in its place)
  * or a code-block segment past its packet fails the read; a codestream
  * that ends just after a marker decodes the tiles it holds.  HTJ2K code
- * blocks that carry coding passes are not decoded (J2K_UNSUPPORTED).
+ * blocks (T.814: one HT set of cleanup, SigProp and MagRef passes) are
+ * decoded as OpenJPEG's ht_dec.c decodes them, its refusals included
+ * (more than 3 passes, an ROI shift, Mb above 30, a bad Scup or MEL
+ * start, a quad's U_q past its bit-planes); the mixed HT style is
+ * refused.
  *
  * Every read of the input is bounds-checked.  Built by the host C compiler
  * at first use and called through ctypes (data/jp2.py).
@@ -41,11 +45,12 @@
 #include <stdlib.h>
 #include <string.h>
 
+#include "ht_tables.h"
+
 #pragma STDC FP_CONTRACT OFF
 
 #define J2K_OK 0
 #define J2K_CORRUPT 1
-#define J2K_UNSUPPORTED 2
 #define J2K_NOMEM 3
 
 #define MAXRES 33
@@ -733,6 +738,8 @@ typedef struct {
     seg_t *segs;
     uint8_t *data;
     size_t dlen, dcap;
+    uint32_t nchunks;  /* the segment contributions read (OpenJPEG's chunks) */
+    uint32_t align;    /* where the first starts in the tile's data, mod 4 */
 } cblk_t;
 
 typedef struct {
@@ -1054,8 +1061,6 @@ static int read_packet(tile_t *T, const packet_t *pk, const uint8_t *src,
             cb->numnewpasses = getnumpasses(&b);
             while (bio_read(&b, 1))
                 ++cb->numlenbits;
-            if (tccp->cblksty & CBLK_HT)
-                return fail(d, J2K_UNSUPPORTED, "HTJ2K code blocks");
             segno = 0;
             if (!cb->numsegs) {
                 if (init_seg(cb, 0, tccp->cblksty, 1))
@@ -1072,7 +1077,12 @@ static int read_packet(tile_t *T, const packet_t *pk, const uint8_t *src,
             do {
                 seg_t *seg = &cb->segs[segno];
                 uint32_t room = seg->maxpasses - seg->numpasses, bits;
-                seg->numnewpasses = room < n ? room : n;
+                /* HT: the cleanup pass alone in the first segment, every
+                 * other pass in the next */
+                if (tccp->cblksty & CBLK_HT)
+                    seg->numnewpasses = segno ? n : 1;
+                else
+                    seg->numnewpasses = room < n ? room : n;
                 bits = cb->numlenbits + floorlog2(seg->numnewpasses);
                 if (bits > 32)
                     return fail(d, J2K_CORRUPT, "a length of %u bits", bits);
@@ -1135,6 +1145,8 @@ static int read_packet(tile_t *T, const packet_t *pk, const uint8_t *src,
                 }
                 if (seg->newlen)
                     memcpy(cb->data + cb->dlen, cur, seg->newlen);
+                if (!cb->nchunks++)
+                    cb->align = (uint32_t)(cur - src) & 3;
                 cb->dlen += seg->newlen;
                 cur += seg->newlen;
                 seg->len += seg->newlen;
@@ -1558,6 +1570,520 @@ static int t1_decode(j2k *d, const cblk_t *cb, const tccp_t *tccp,
     }
     free(buf);
     return J2K_OK;
+}
+
+/* ------------------------------------------------------------------ */
+/* HTJ2K code blocks (T.814), as OpenJPEG 2.5's ht_dec.c decodes them:
+ * the cleanup pass (MEL and VLC read backward from the segment's end
+ * through vlc_tbl0 / vlc_tbl1 of ht_tables.h, UVLC from its definition,
+ * MagSgn forward), then SigProp (forward) and MagRef (backward from the
+ * refinement segment's end).  Samples are kept as OpenJPEG keeps them:
+ * sign in bit 31, the magnitude above its half step, the cleanup's least
+ * significant bit at bit p = numbps; at the end they become the signed
+ * coefficients with one fractional bit that the EBCOT path leaves. */
+
+/* a forward bit reader (MagSgn, SigProp): bytes least significant bit
+ * first; after a 0xFF byte the next gives 7 bits (its top bit overlaps the
+ * byte after it); past the end `fill` bytes */
+typedef struct {
+    const uint8_t *p;
+    int64_t left;
+    uint64_t acc;
+    int nb, unstuff;
+    uint8_t fill;
+} fwd_t;
+
+static void fwd_init(fwd_t *r, const uint8_t *p, int64_t n, uint8_t fill)
+{
+    r->p = p;
+    r->left = n;
+    r->acc = 0;
+    r->nb = 0;
+    r->unstuff = 0;
+    r->fill = fill;
+}
+
+static void fwd_fill(fwd_t *r)
+{
+    while (r->nb <= 48) {
+        uint32_t d = r->left-- > 0 ? *r->p++ : r->fill;
+        r->acc |= (uint64_t)d << r->nb;
+        r->nb += 8 - r->unstuff;
+        r->unstuff = d == 0xff;
+    }
+}
+
+static uint32_t fwd_peek(fwd_t *r)
+{
+    fwd_fill(r);
+    return (uint32_t)r->acc;
+}
+
+static void fwd_skip(fwd_t *r, int n)
+{
+    r->acc >>= n;
+    r->nb -= n;
+}
+
+/* a backward bit reader (VLC, MagRef): bytes least significant bit first
+ * from the end; after a byte above 0x8F, a byte whose low 7 bits are all
+ * set gives 7 bits; past the start zeros */
+typedef struct {
+    const uint8_t *p;
+    int64_t left;
+    uint64_t acc;
+    int nb, unstuff;
+} rev_t;
+
+static void rev_fill(rev_t *r)
+{
+    while (r->nb <= 48) {
+        uint32_t d = 0;
+        if (r->left > 0) {
+            d = *r->p--;
+            r->left--;
+        }
+        r->acc |= (uint64_t)d << r->nb;
+        r->nb += 8 - (r->unstuff && (d & 0x7f) == 0x7f);
+        r->unstuff = d > 0x8f;
+    }
+}
+
+static uint32_t rev_peek(rev_t *r)
+{
+    rev_fill(r);
+    return (uint32_t)r->acc;
+}
+
+static void rev_skip(rev_t *r, int n)
+{
+    r->acc >>= n;
+    r->nb -= n;
+}
+
+/* the MEL decoder: its bytes most significant bit first, a byte after
+ * 0xFF giving its low 7 bits, the last byte (shared with the VLC) ORed
+ * with 0xF, 0xFF past the end; each symbol a run of events */
+typedef struct {
+    const uint8_t *p;
+    int64_t left;
+    int unstuff, k, zeros, one;
+    uint64_t acc;
+    int nb;
+} mel_t;
+
+static int mel_bit(mel_t *m)
+{
+    int b;
+    if (!m->nb) {
+        uint32_t d = 0xff;
+        if (m->left > 0) {
+            d = *m->p++;
+            if (m->left == 1)
+                d |= 0xf;
+            m->left--;
+        }
+        m->nb = 8 - m->unstuff;
+        m->acc = d & ((1u << m->nb) - 1);
+        m->unstuff = d == 0xff;
+    }
+    b = (int)(m->acc >> (m->nb - 1)) & 1;
+    m->nb--;
+    return b;
+}
+
+/* the next MEL event */
+static int mel_event(mel_t *m)
+{
+    if (!m->zeros && !m->one) {
+        int e = mel_exp[m->k];
+        if (mel_bit(m)) {  /* 2^e zeros */
+            m->zeros = 1 << e;
+            m->k = m->k + 1 < 12 ? m->k + 1 : 12;
+        } else {           /* e bits of zeros, then a one */
+            int r = 0;
+            while (e--)
+                r = r << 1 | mel_bit(m);
+            m->zeros = r;
+            m->one = 1;
+            m->k = m->k > 0 ? m->k - 1 : 0;
+        }
+    }
+    if (m->zeros) {
+        m->zeros--;
+        return 0;
+    }
+    m->one = 0;
+    return 1;
+}
+
+/* a UVLC prefix (T.814 7.3.6): u (1, 2, 3 or 5) and its suffix's bits */
+static uint32_t uvlc_prefix(rev_t *r, int *suffix)
+{
+    uint32_t b = rev_peek(r);
+    if (b & 1) {
+        rev_skip(r, 1);
+        *suffix = 0;
+        return 1;
+    }
+    if (b & 2) {
+        rev_skip(r, 2);
+        *suffix = 0;
+        return 2;
+    }
+    rev_skip(r, 3);
+    *suffix = (b & 4) ? 1 : 5;
+    return (b & 4) ? 3 : 5;
+}
+
+/* the u of a quad pair (uoff: quad 0 in bit 0, quad 1 in bit 1); mel:
+ * the initial line pair's MEL event where both are set, else -1 */
+static void uvlc_pair(rev_t *r, int uoff, int mel, uint32_t *u0,
+                      uint32_t *u1)
+{
+    int s0 = 0, s1 = 0;
+    *u0 = *u1 = 0;
+    if (uoff == 1)
+        *u0 = uvlc_prefix(r, &s0);
+    else if (uoff == 2)
+        *u1 = uvlc_prefix(r, &s1);
+    else if (uoff == 3) {
+        *u0 = uvlc_prefix(r, &s0);
+        if (mel == 0 && *u0 > 2) {
+            *u1 = (rev_peek(r) & 1) + 1;
+            rev_skip(r, 1);
+        } else
+            *u1 = uvlc_prefix(r, &s1);
+    }
+    if (s0) {
+        *u0 += rev_peek(r) & ((1u << s0) - 1);
+        rev_skip(r, s0);
+    }
+    if (s1) {
+        *u1 += rev_peek(r) & ((1u << s1) - 1);
+        rev_skip(r, s1);
+    }
+    if (mel == 1) {
+        *u0 += 2;
+        *u1 += 2;
+    }
+}
+
+/* SigProp and MagRef over the cleanup's significance sigma (a uint16 per
+ * 4 x 4 group: a nibble per column, a bit per row, mstr per stripe) */
+static void ht_refine(uint32_t *dec, uint32_t w, uint32_t h,
+                      const uint16_t *sigma, uint32_t mstr, uint32_t p,
+                      int passes, int causal, const uint8_t *seg,
+                      uint32_t len1, uint32_t len2)
+{
+    uint32_t x, y;
+    if (passes > 2) {  /* MagRef: the cleanup's significant samples */
+        rev_t mr;
+        mr.p = seg + len1 + len2 - 1;
+        mr.left = len2;
+        mr.acc = 0;
+        mr.nb = 0;
+        mr.unstuff = 1;
+        for (y = 0; y < h; y += 4)
+            for (x = 0; x < w; x += 4) {
+                uint32_t sig = sigma[(y >> 2) * mstr + (x >> 2)], col, j;
+                for (col = 0; col < 4; ++col, sig >>= 4)
+                    for (j = 0; j < 4; ++j)
+                        if (sig & (1u << j)) {
+                            uint32_t sym = rev_peek(&mr) & 1;
+                            uint32_t *dp = dec + (y + j) * w + x + col;
+                            rev_skip(&mr, 1);
+                            *dp ^= (1 - sym) << (p - 1);
+                            *dp |= 1u << (p - 2);
+                        }
+            }
+    }
+    {  /* SigProp */
+        fwd_t sp;
+        uint16_t prev_row[256 + 8];
+        memset(prev_row, 0, sizeof prev_row);
+        fwd_init(&sp, seg + len1, len2, 0);
+        for (y = 0; y < h; y += 4) {
+            uint32_t pattern = h - y >= 4 ? 0xffffu : h - y == 3 ? 0x7777u
+                : h - y == 2 ? 0x3333u : 0x1111u, prev = 0;
+            const uint16_t *cur = sigma + (y >> 2) * mstr;
+            uint32_t g;
+            for (x = 0, g = 0; x < w; x += 4, ++g) {
+                int32_t s = (int32_t)(x + 4) - (int32_t)w;
+                uint32_t ps, ns, u, cs, mbr, t, new_sig;
+                s = s > 0 ? s : 0;
+                pattern >>= s * 4;
+                ps = prev_row[g] | (uint32_t)prev_row[g + 1] << 16;
+                ns = cur[mstr + g] | (uint32_t)cur[mstr + g + 1] << 16;
+                u = (ps & 0x88888888u) >> 3;
+                if (!causal)
+                    u |= (ns & 0x11111111u) << 3;
+                cs = cur[g] | (uint32_t)cur[g + 1] << 16;
+                mbr = cs | (cs & 0x77777777u) << 1 | (cs & 0xeeeeeeeeu) >> 1
+                    | u;
+                t = mbr;
+                mbr |= t << 4 | t >> 4 | prev >> 12;
+                mbr &= pattern & ~cs;
+                new_sig = mbr;
+                if (new_sig) {
+                    uint64_t cwd;
+                    uint32_t cnt = 0, col_mask = 0xf, inv = ~cs & pattern;
+                    int i;
+                    static const uint32_t grow[4] = {0x33, 0x76, 0xec, 0xc8};
+                    fwd_fill(&sp);
+                    cwd = sp.acc;
+                    for (i = 0; i < 16; i += 4, col_mask <<= 4) {
+                        int j;
+                        if (!(col_mask & new_sig))
+                            continue;
+                        for (j = 0; j < 4; ++j) {
+                            uint32_t m = 1u << (i + j);
+                            if (new_sig & m) {
+                                new_sig &= ~m;
+                                if (cwd & 1)
+                                    new_sig |= (grow[j] << i) & inv;
+                                cwd >>= 1;
+                                ++cnt;
+                            }
+                        }
+                    }
+                    if (new_sig) {  /* the signs of the new samples */
+                        for (i = 0; i < 4; ++i) {
+                            int j;
+                            for (j = 0; j < 4; ++j)
+                                if (new_sig & (1u << (4 * i + j))) {
+                                    dec[(y + j) * w + x + i] =
+                                        (uint32_t)(cwd & 1) << 31
+                                        | 3u << (p - 2);
+                                    cwd >>= 1;
+                                    ++cnt;
+                                }
+                        }
+                    }
+                    fwd_skip(&sp, (int)cnt);
+                }
+                new_sig |= cs;
+                prev_row[g] = (uint16_t)new_sig;
+                t = new_sig;
+                new_sig |= (t & 0x7777) << 1 | (t & 0xeeee) >> 1;
+                prev = (new_sig | u) & 0xf000;
+            }
+        }
+    }
+}
+
+/* one HT code block into t->data (mb: the band's Mb).  OpenJPEG checks
+ * the first 1-4 bytes of the MEL segment, as many as reach a multiple of
+ * 4 in memory: its buffers are aligned, and a block of one segment is
+ * read where it lies in the tile's data (cb->align), one of more from a
+ * copy. */
+static int ht_decode(j2k *d, const cblk_t *cb, const tccp_t *tccp,
+                     int32_t mb, t1_t *t)
+{
+    uint32_t w = (uint32_t)(cb->x1 - cb->x0), h = (uint32_t)(cb->y1 - cb->y0);
+    uint32_t passes = 0, len1 = 0, len2 = 0, p, zb, lcup, scup, mmsbp2;
+    uint32_t qw = (w + 1) / 2, qh = (h + 1) / 2, qs = qw + 4, mstr;
+    uint32_t *dec = (uint32_t *)t->data, x, y, i;
+    uint16_t *inf = NULL, *uq = NULL, *sigma = NULL;
+    uint32_t *vrow = NULL;
+    const uint8_t *seg = cb->data;
+    rev_t vlc;
+    fwd_t ms;
+    mel_t mel;
+    int status = J2K_OK;
+    memset(t->data, 0, (size_t)w * h * sizeof(int32_t));
+    if (!cb->numsegs || !cb->nchunks)
+        return J2K_OK;
+    passes = cb->segs[0].numpasses;
+    len1 = cb->segs[0].len;
+    if (cb->numsegs > 1) {
+        passes += cb->segs[1].numpasses;
+        len2 = passes > 1 ? cb->segs[1].len : 0;
+    }
+    if (passes > 1 && !len2)
+        passes = 1;
+    if (passes > 3)
+        return fail(d, J2K_CORRUPT, "We do not support more than 3 coding "
+                    "passes in an HT codeblock; This codeblocks has %u "
+                    "passes.", passes);
+    if (tccp->roishift)
+        return fail(d, J2K_CORRUPT, "We do not support ROI in decoding HT "
+                    "codeblocks");
+    if ((uint32_t)mb > 30)  /* OpenJPEG's Mb is unsigned */
+        return fail(d, J2K_CORRUPT, "32 bits are not enough to decode this "
+                    "codeblock, since the number of bitplane, %d, is larger "
+                    "than 30.", mb);
+    zb = (uint32_t)mb + 1u - cb->numbps;
+    if (zb > (uint32_t)mb)
+        return fail(d, J2K_CORRUPT, "Malformed HT codeblock. Decoding this "
+                    "codeblock is stopped. There are %u zero bitplanes in "
+                    "%d bitplanes.", zb, mb);
+    if (zb == (uint32_t)mb && passes > 1)
+        passes = 1;
+    p = cb->numbps;
+    mmsbp2 = zb + 1;
+    if (len1 < 2 || len1 > cb->dlen || (uint64_t)len1 + len2 > cb->dlen)
+        return fail(d, J2K_CORRUPT, "Malformed HT codeblock. Invalid "
+                    "codeblock length values.");
+    lcup = len1;
+    scup = ((uint32_t)seg[lcup - 1] << 4) + (seg[lcup - 2] & 0xf);
+    if (scup < 2 || scup > lcup || scup > 4079)
+        return fail(d, J2K_CORRUPT, "Malformed HT codeblock. One of the "
+                    "following condition is not met: 2 <= Scup <= min(Lcup, "
+                    "4079)");
+    {  /* mel_init's check of its first 1-4 bytes */
+        uint32_t al = cb->nchunks == 1 ? cb->align : 0;  /* else copied */
+        uint32_t pos = lcup - scup, num = 4 - ((al + lcup - scup) & 3);
+        int64_t size = (int64_t)scup - 1;
+        int unstuff = 0;
+        for (i = 0; i < num; ++i) {
+            uint32_t v;
+            if (unstuff && seg[pos] > 0x8f)
+                return fail(d, J2K_CORRUPT, "Malformed HT codeblock. "
+                            "Incorrect MEL segment sequence.");
+            v = size > 0 ? seg[pos] : 0xff;
+            if (size == 1)
+                v |= 0xf;
+            if (size-- > 0)
+                pos++;
+            unstuff = (v & 0xff) == 0xff;
+        }
+    }
+    memset(&mel, 0, sizeof mel);
+    mel.p = seg + lcup - scup;
+    mel.left = (int64_t)scup - 1;
+    {  /* the VLC's first byte holds 3 or 4 bits, above Scup's nibble */
+        uint32_t d0 = seg[lcup - 2];
+        vlc.left = (int64_t)scup - 2;
+        vlc.p = vlc.left ? seg + lcup - 3 : seg;
+        vlc.acc = d0 >> 4;
+        vlc.nb = 4 - ((d0 >> 4 & 7) == 7);
+        vlc.unstuff = (d0 | 0xf) > 0x8f;
+    }
+    fwd_init(&ms, seg, (int64_t)lcup - scup, 0xff);
+    inf = calloc((size_t)qs * (qh + 1), sizeof(uint16_t));
+    uq = calloc((size_t)qs * (qh + 1), sizeof(uint16_t));
+    vrow = calloc((size_t)qw + 4, sizeof(uint32_t));
+    mstr = ((w + 3) / 4 + 2 + 7) & ~7u;
+    sigma = calloc((size_t)mstr * ((h + 3) / 4 + 1), sizeof(uint16_t));
+    if (!inf || !uq || !vrow || !sigma) {
+        status = fail(d, J2K_NOMEM, "out of memory");
+        goto done;
+    }
+    /* the VLC, MEL and UVLC of every quad */
+    for (y = 0; y < qh; ++y) {
+        const uint16_t *tbl = y ? vlc_tbl1 : vlc_tbl0;
+        uint16_t *row = inf + (size_t)y * qs, *up = y ? row - qs : row;
+        uint32_t q;
+        for (q = 0; q < qw; q += 2) {
+            uint32_t c, t0, t1 = 0, u0, u1, uoff;
+            int melev = -1;
+            if (!y)
+                c = q ? (row[q - 1] & 0x10) << 3 | (row[q - 1] & 0xe0) << 2
+                    : 0;
+            else
+                c = (q ? (up[q - 1] & 0x80) | (row[q - 1] & 0x40) << 2
+                     | (row[q - 1] & 0x80) << 1 : 0)
+                    | (up[q] & 0xa0) << 2 | (up[q + 1] & 0x20) << 4;
+            t0 = tbl[c + (rev_peek(&vlc) & 0x7f)];
+            if (!c && !mel_event(&mel))
+                t0 = 0;
+            rev_skip(&vlc, (int)(t0 & 7));
+            row[q] = (uint16_t)t0;
+            if (q + 1 < qw) {
+                if (!y)
+                    c = (t0 & 0x10) << 3 | (t0 & 0xe0) << 2;
+                else
+                    c = (t0 & 0x40) << 2 | (t0 & 0x80) << 1 | (up[q] & 0x80)
+                        | (up[q + 1] & 0xa0) << 2 | (up[q + 2] & 0x20) << 4;
+                t1 = tbl[c + (rev_peek(&vlc) & 0x7f)];
+                if (!c && !mel_event(&mel))
+                    t1 = 0;
+                rev_skip(&vlc, (int)(t1 & 7));
+                row[q + 1] = (uint16_t)t1;
+            }
+            uoff = (t0 >> 3 & 1) | (t1 >> 3 & 1) << 1;
+            if (!y && uoff == 3)
+                melev = mel_event(&mel);
+            /* rho of a sample past the block's right or bottom edge */
+            if ((2 * q + 1 >= w && (t0 & 0xc0))
+                || (q + 1 < qw && 2 * q + 3 >= w && (t1 & 0xc0))
+                || (2 * y + 1 >= h && ((t0 | t1) & 0xa0))) {
+                status = fail(d, J2K_CORRUPT, "Malformed HT codeblock. VLC "
+                              "code produces significant samples outside "
+                              "the codeblock area.");
+                goto done;
+            }
+            uvlc_pair(&vlc, (int)uoff, melev, &u0, &u1);
+            /* the initial line pair's kappa is 1 */
+            uq[(size_t)y * qs + q] = (uint16_t)(u0 + !y);
+            uq[(size_t)y * qs + q + 1] = (uint16_t)(u1 + !y);
+        }
+    }
+    /* MagSgn, quad after quad; vrow: the bottom samples' v ORed in pairs
+     * (column 2k - 1 with column 2k), for the next line pair's kappa */
+    for (y = 0; y < qh; ++y) {
+        const uint16_t *row = inf + (size_t)y * qs;
+        uint32_t q, prev_v = 0;
+        for (q = 0; q < qw; ++q) {
+            uint32_t qi = row[q], U = uq[(size_t)y * qs + q], n;
+            uint32_t vb[4] = {0, 0, 0, 0};
+            if (y) {
+                uint32_t gamma = qi & 0xf0, emax = vrow[q] | vrow[q + 1] | 2;
+                int e = 31;
+                gamma &= gamma - 0x10;
+                while (!(emax >> e))
+                    --e;
+                U += gamma ? (uint32_t)e : 1u;
+            }
+            if (U > mmsbp2) {
+                status = fail(d, J2K_CORRUPT, "Malformed HT codeblock. "
+                              "Decoding this codeblock is stopped. U_q is "
+                              "larger than zero bitplanes + 1");
+                goto done;
+            }
+            for (n = 0; n < 4; ++n)  /* rho is 0 outside the block */
+                if (qi & (0x10u << n)) {
+                    uint32_t m = U - (qi >> (12 + n) & 1), msv = fwd_peek(&ms);
+                    uint32_t v = m ? msv & (uint32_t)((1ull << m) - 1) : 0;
+                    fwd_skip(&ms, (int)m);
+                    v |= (qi >> (8 + n) & 1) << m;
+                    v |= 1;
+                    vb[n] = v;
+                    dec[(2 * y + (n & 1)) * w + 2 * q + (n >> 1)] =
+                        msv << 31 | (v + 2) << (p - 1);
+                }
+            vrow[q] = prev_v | vb[1];
+            prev_v = vb[3];
+        }
+        vrow[qw] = prev_v;
+        vrow[qw + 1] = 0;
+    }
+    if (passes > 1) {
+        /* the cleanup's significance, a nibble per column of 4 rows */
+        for (y = 0; y < qh; ++y)
+            for (x = 0; x < qw; ++x) {
+                uint32_t r = inf[(size_t)y * qs + x] >> 4 & 0xf;
+                uint32_t col = 2 * x, sh = (2 * y) & 3;
+                uint16_t *g = sigma + (size_t)(y >> 1) * mstr + (col >> 2);
+                *g |= (uint16_t)(((r & 1) | (r & 2)) << (4 * (col & 3) + sh));
+                *g |= (uint16_t)((((r >> 2) & 1) | ((r >> 2) & 2))
+                                 << (4 * ((col + 1) & 3) + sh));
+            }
+        ht_refine(dec, w, h, sigma, mstr, p, (int)passes,
+                  (tccp->cblksty & CBLK_VSC) != 0, seg, len1, len2);
+    }
+    for (i = 0; i < w * h; ++i) {  /* sign and magnitude -> signed */
+        uint32_t v = dec[i];
+        t->data[i] = (v & 0x80000000u) ? -(int32_t)(v & 0x7fffffffu)
+            : (int32_t)v;
+    }
+done:
+    free(inf);
+    free(uq);
+    free(vrow);
+    free(sigma);
+    return status;
 }
 
 /* ------------------------------------------------------------------ */
@@ -2025,7 +2551,9 @@ static int tile_decode(j2k *d, uint32_t tileno)
                             x0 += tc->res[r - 1].x1 - tc->res[r - 1].x0;
                         if (band->bandno & 2)
                             y0 += tc->res[r - 1].y1 - tc->res[r - 1].y0;
-                        if (t1_decode(d, cb, tccp, band->bandno, &t1))
+                        if ((tccp->cblksty & CBLK_HT)
+                            ? ht_decode(d, cb, tccp, band->numbps, &t1)
+                            : t1_decode(d, cb, tccp, band->bandno, &t1))
                             goto done;
                         if (tccp->roishift) {
                             int32_t thresh;

@@ -1,18 +1,26 @@
-/* A lossless JPEG 2000 codestream writer (ITU-T T.800) for the port's
- * fixtures: the machines that run the port may have no JPEG 2000 encoder,
- * and data/fixtures.py writes JP2 frames there as a dataset would store
- * them.  One tile, the reversible colour transform where asked, the 5/3
- * wavelet at up to 5 levels, 64 x 64 code blocks, one quality layer in
- * LRCP order, no quantisation (2 guard bits); every coding pass of a code
- * block in one MQ codeword.  The JP2 boxes are written by data/jp2.py.
+/* A JPEG 2000 codestream writer (ITU-T T.800, and T.814's HT block coder)
+ * for the port's fixtures: the machines that run the port may have no JPEG
+ * 2000 encoder, and data/fixtures.py writes JP2 frames there as a dataset
+ * would store them.  By default one tile, the reversible colour transform
+ * where asked, the 5/3 wavelet at up to 5 levels, 64 x 64 code blocks, one
+ * quality layer in LRCP order, no quantisation (2 guard bits); every
+ * coding pass of a code block in one MQ codeword.  Its options add
+ * tiles, other code-block sizes and levels, the 9/7 wavelet with the ICT
+ * (every band quantised at a step of 1/2), and HTJ2K code blocks: the
+ * cleanup pass at bit-plane 0, or at a higher plane followed by SigProp
+ * (and MagRef), written so that OpenJPEG's ht_dec.c reads them back.  The
+ * JP2 boxes are written by data/jp2.py.
  *
  * j2k_encode: int32 component planes [C][H][W] of ``prec``-bit unsigned
- * samples -> the codestream.  Built by the host C compiler at first use
- * and called through ctypes.
+ * samples, and the options -> the codestream.  Built by the host C
+ * compiler at first use and called through ctypes.
  */
+#include <stddef.h>
 #include <stdint.h>
 #include <stdlib.h>
 #include <string.h>
+
+#include "ht_tables.h"
 
 #define ENC_OK 0
 #define ENC_BAD 1
@@ -475,7 +483,536 @@ static void tgt_encode(bits_t *b, tgt_t *t, uint32_t leaf, int32_t threshold)
 }
 
 /* ------------------------------------------------------------------ */
-/* the 5/3 forward transform (lines start on even coordinates) */
+/* the HT block coder (T.814): the cleanup pass (MagSgn forward, MEL
+ * forward, VLC and UVLC backward from the segment's end, the tables of
+ * ht_tables.h read in reverse), then SigProp and MagRef, in the order
+ * OpenJPEG's ht_dec.c reads them back */
+
+/* a forward byte writer (MagSgn, SigProp): bits least significant first,
+ * 7 bits in a byte after 0xFF */
+typedef struct {
+    uint8_t *p;
+    size_t n, cap;
+    uint32_t tmp;
+    int used, max;
+} fwe_t;
+
+static void fwe_put(fwe_t *e, uint32_t v, int n)
+{
+    while (n > 0) {
+        int t = e->max - e->used < n ? e->max - e->used : n;
+        e->tmp |= (v & ((1u << t) - 1)) << e->used;
+        e->used += t;
+        v = t < 32 ? v >> t : 0;
+        n -= t;
+        if (e->used == e->max) {
+            if (e->n < e->cap)
+                e->p[e->n] = (uint8_t)e->tmp;
+            e->n++;
+            e->max = e->tmp == 0xff ? 7 : 8;
+            e->tmp = 0;
+            e->used = 0;
+        }
+    }
+}
+
+/* the last byte, the rest of its bits ones (MagSgn: a final 0xFF is
+ * dropped, as the decoder reads 0xFF past the end) or zeros (SigProp) */
+static void fwe_end(fwe_t *e, int ones)
+{
+    if (e->used) {
+        if (ones)
+            e->tmp |= (0xffu >> e->used) << e->used & ((1u << e->max) - 1);
+        if (!(ones && e->tmp == 0xff)) {
+            if (e->n < e->cap)
+                e->p[e->n] = (uint8_t)e->tmp;
+            e->n++;
+        }
+    } else if (ones && e->max == 7)
+        e->n--;  /* a 0xFF last: the decoder reads one past the end */
+}
+
+/* a backward byte writer (VLC, MagRef): bits least significant first,
+ * bytes from the end; after a byte above 0x8F, 7 bits unless the 8th
+ * keeps the byte's low 7 bits from all being set */
+typedef struct {
+    uint8_t *p;        /* p[0] is the last byte, p[-k] the k-th before */
+    size_t n, cap;
+    uint32_t tmp;
+    int used, gt8f;
+} rve_t;
+
+static void rve_put(rve_t *e, uint32_t v, int n)
+{
+    while (n > 0) {
+        int avail = 8 - e->gt8f - e->used;
+        int t = avail < n ? avail : n;
+        e->tmp |= (v & ((1u << t) - 1)) << e->used;
+        e->used += t;
+        avail -= t;
+        n -= t;
+        v = t < 32 ? v >> t : 0;
+        if (!avail) {
+            if (e->gt8f && e->tmp != 0x7f) {
+                e->gt8f = 0;
+                continue;
+            }
+            if (e->n < e->cap)
+                e->p[-(ptrdiff_t)e->n] = (uint8_t)e->tmp;
+            e->n++;
+            e->gt8f = e->tmp > 0x8f;
+            e->tmp = 0;
+            e->used = 0;
+        }
+    }
+}
+
+static void rve_end(rve_t *e)
+{
+    if (e->used) {
+        if (e->n < e->cap)
+            e->p[-(ptrdiff_t)e->n] = (uint8_t)e->tmp;
+        e->n++;
+    }
+}
+
+/* the MEL coder (T.814 7.3.3): its bits most significant first */
+typedef struct {
+    uint8_t *p;
+    size_t n, cap;
+    uint32_t tmp;
+    int left, max, k, run;  /* left of max bits in the byte being filled */
+} mele_t;
+
+static void mel_emit(mele_t *m, int bit)
+{
+    m->tmp = m->tmp << 1 | (uint32_t)bit;
+    if (!--m->left) {
+        if (m->n < m->cap)
+            m->p[m->n] = (uint8_t)m->tmp;
+        m->n++;
+        m->left = m->max = m->tmp == 0xff ? 7 : 8;
+        m->tmp = 0;
+    }
+}
+
+static void mel_encode(mele_t *m, int bit)
+{
+    if (!bit) {
+        if (++m->run >= 1 << mel_exp[m->k]) {
+            mel_emit(m, 1);
+            m->run = 0;
+            m->k = m->k < 12 ? m->k + 1 : 12;
+        }
+    } else {
+        int e = mel_exp[m->k];
+        mel_emit(m, 0);
+        while (e > 0) {
+            --e;
+            mel_emit(m, (m->run >> e) & 1);
+        }
+        m->run = 0;
+        m->k = m->k > 0 ? m->k - 1 : 0;
+    }
+}
+
+static void mel_end(mele_t *m)
+{
+    if (m->run)
+        mel_emit(m, 1);
+    if (m->left < m->max) {
+        if (m->n < m->cap)
+            m->p[m->n] = (uint8_t)(m->tmp << m->left);
+        m->n++;
+    }
+}
+
+/* the VLC codes of the decoder's tables, by table, context, rho and
+ * u_off: each code's e_k, e_1, codeword and length */
+typedef struct {
+    uint8_t ek, e1, len;
+    uint8_t cwd;
+} vlc_code;
+
+typedef struct {
+    vlc_code c[2][8][16][2][16];
+    uint8_t n[2][8][16][2];
+} vlc_enc_t;
+
+static vlc_enc_t *vlc_enc_tables(void)
+{
+    static vlc_enc_t t;
+    static int done;
+    int tb, ctx, i;
+    if (done)
+        return &t;
+    memset(&t, 0, sizeof t);
+    for (tb = 0; tb < 2; ++tb)
+        for (ctx = 0; ctx < 8; ++ctx)
+            for (i = 0; i < 128; ++i) {
+                uint16_t e = (tb ? vlc_tbl1 : vlc_tbl0)[ctx << 7 | i];
+                int len = e & 7, rho = e >> 4 & 15, uoff = e >> 3 & 1, k;
+                uint8_t *n = &t.n[tb][ctx][rho][uoff];
+                vlc_code c;
+                if (!len || (i >> len))
+                    continue;  /* each code once: at its own bits */
+                c.ek = (uint8_t)(e >> 12);
+                c.e1 = (uint8_t)(e >> 8 & 15);
+                c.len = (uint8_t)len;
+                c.cwd = (uint8_t)i;
+                for (k = 0; k < *n; ++k)
+                    if (t.c[tb][ctx][rho][uoff][k].cwd == c.cwd
+                        && t.c[tb][ctx][rho][uoff][k].len == c.len)
+                        break;
+                if (k == *n && *n < 16)
+                    t.c[tb][ctx][rho][uoff][(*n)++] = c;
+            }
+    done = 1;
+    return &t;
+}
+
+static int bitlen(uint32_t v)
+{
+    int n = 0;
+    while (v) {
+        v >>= 1;
+        ++n;
+    }
+    return n;
+}
+
+/* UVLC (T.814 7.3.6): the prefix and suffix of u >= 1 */
+static void uvlc_prefix_put(rve_t *e, uint32_t u)
+{
+    if (u == 1)
+        rve_put(e, 1, 1);
+    else if (u == 2)
+        rve_put(e, 2, 2);
+    else
+        rve_put(e, u <= 4 ? 4 : 0, 3);
+}
+
+static void uvlc_suffix_put(rve_t *e, uint32_t u)
+{
+    if (u == 3 || u == 4)
+        rve_put(e, u - 3, 1);
+    else if (u >= 5)
+        rve_put(e, u - 5, 5);
+}
+
+typedef struct {
+    uint32_t w, h;
+    const uint32_t *mag;   /* |coefficient| */
+    const uint8_t *neg;
+    int pc;                /* the cleanup's bit-plane */
+} htb_t;
+
+static uint32_t ht_mu(const htb_t *b, int32_t y, int32_t x)
+{
+    if (x < 0 || y < 0 || (uint32_t)x >= b->w || (uint32_t)y >= b->h)
+        return 0;
+    return b->mag[(uint32_t)y * b->w + (uint32_t)x] >> b->pc;
+}
+
+static int ht_e(uint32_t mu)
+{
+    return mu ? 1 + bitlen(mu - 1) : 0;
+}
+
+/* one quad (T.814 7.3; samples 0-3: top left, bottom left, top right,
+ * bottom right): rho, each sample's exponent E and MagSgn value v =
+ * 2 (mu - 1) + sign, the largest E */
+typedef struct {
+    int rho, e[4], emax;
+    uint32_t v[4];
+} quad_t;
+
+static void ht_quad(const htb_t *b, int32_t y0, int32_t x0, quad_t *o)
+{
+    int n;
+    memset(o, 0, sizeof *o);
+    for (n = 0; n < 4; ++n) {
+        int32_t x = x0 + (n >> 1), y = y0 + (n & 1);
+        uint32_t mu = ht_mu(b, y, x);
+        o->e[n] = ht_e(mu);
+        if (mu) {
+            o->rho |= 1 << n;
+            o->v[n] = 2 * (mu - 1) + b->neg[(uint32_t)y * b->w + (uint32_t)x];
+        }
+        o->emax = o->e[n] > o->emax ? o->e[n] : o->emax;
+    }
+}
+
+/* the quad's context and kappa: in the first line pair from its left
+ * quad's significance, kappa 1; below it from the significance of the
+ * samples to its west and north (T.814 eq. 1, 2) and the largest E of
+ * the four above it */
+static int ht_context(const htb_t *b, int32_t y0, int32_t x0, int rho,
+                      uint32_t *kappa)
+{
+    int32_t ya = y0 - 1, j;
+    int m = 0;
+    *kappa = 1;
+    if (!y0)
+        return (ht_mu(b, 0, x0 - 2) || ht_mu(b, 1, x0 - 2))
+            | (ht_mu(b, 0, x0 - 1) != 0) << 1
+            | (ht_mu(b, 1, x0 - 1) != 0) << 2;
+    for (j = -1; j <= 2; ++j) {
+        int e = ht_e(ht_mu(b, ya, x0 + j));
+        m = e > m ? e : m;
+    }
+    if (rho & (rho - 1))  /* gamma: more than one significant sample */
+        *kappa = m - 1 > 1 ? (uint32_t)(m - 1) : 1;
+    return (ht_mu(b, ya, x0 - 1) || ht_mu(b, ya, x0))
+        | (ht_mu(b, y0, x0 - 1) || ht_mu(b, y0 + 1, x0 - 1)) << 1
+        | (ht_mu(b, ya, x0 + 1) || ht_mu(b, ya, x0 + 2)) << 2;
+}
+
+/* the shortest VLC code of the quad's context, rho and u_off whose e_k /
+ * e_1 bits hold for its samples' exponents (NULL: none) */
+static const vlc_code *ht_code(int first_row, int c, const quad_t *q,
+                               uint32_t U, int uoff)
+{
+    vlc_enc_t *tb = vlc_enc_tables();
+    const vlc_code *codes = tb->c[!first_row][c][q->rho][uoff], *best = NULL;
+    int k, n;
+    for (k = 0; k < tb->n[!first_row][c][q->rho][uoff]; ++k) {
+        int ok = 1;
+        for (n = 0; n < 4 && ok; ++n)
+            if (codes[k].ek >> n & 1)
+                ok = (codes[k].e1 >> n & 1) ? q->e[n] == (int)U
+                                            : q->e[n] <= (int)U - 1;
+        if (ok && (!best || codes[k].len < best->len))
+            best = &codes[k];
+    }
+    return best;
+}
+
+/* the UVLC of a quad pair's u (0 where its u_off is 0); the first line
+ * pair codes two u above 2 with a MEL event and u - 2, or a second u of
+ * 1 or 2 after a first above 2 in one bit */
+static void uvlc_pair_put(rve_t *vlc, mele_t *mel, int first_row,
+                          uint32_t u0, uint32_t u1)
+{
+    if (first_row && u0 && u1) {
+        int both = u0 > 2 && u1 > 2;
+        mel_encode(mel, both);
+        if (both) {
+            u0 -= 2;
+            u1 -= 2;
+        } else {
+            uvlc_prefix_put(vlc, u0);
+            if (u0 > 2)
+                rve_put(vlc, u1 - 1, 1);
+            else
+                uvlc_prefix_put(vlc, u1);
+            uvlc_suffix_put(vlc, u0);
+            if (u0 <= 2)
+                uvlc_suffix_put(vlc, u1);
+            return;
+        }
+    }
+    if (u0)
+        uvlc_prefix_put(vlc, u0);
+    if (u1)
+        uvlc_prefix_put(vlc, u1);
+    if (u0)
+        uvlc_suffix_put(vlc, u0);
+    if (u1)
+        uvlc_suffix_put(vlc, u1);
+}
+
+/* the cleanup pass: MagSgn, then MEL, then the VLC; *len gets its length
+ * (ENC_BAD where a quad has no code or the Scup does not fit) */
+static int ht_cleanup(const htb_t *b, uint8_t *out, size_t cap, size_t *len)
+{
+    uint32_t qw = (b->w + 1) / 2, qh = (b->h + 1) / 2, qx, qy;
+    uint8_t *mel_buf = malloc(cap), *vlc_buf = malloc(cap + 1);
+    fwe_t ms;
+    mele_t mel;
+    rve_t vlc;
+    size_t scup, i;
+    int status = ENC_OK;
+    if (!mel_buf || !vlc_buf) {
+        free(mel_buf);
+        free(vlc_buf);
+        return ENC_NOMEM;
+    }
+    memset(&ms, 0, sizeof ms);
+    ms.p = out;
+    ms.cap = cap;
+    ms.max = 8;
+    memset(&mel, 0, sizeof mel);
+    mel.p = mel_buf;
+    mel.cap = cap;
+    mel.left = mel.max = 8;
+    memset(&vlc, 0, sizeof vlc);
+    vlc.p = vlc_buf + cap;
+    vlc.cap = cap;
+    vlc.p[0] = 0xff;   /* Scup's high byte, written last */
+    vlc.n = 1;
+    vlc.tmp = 0xf;     /* Scup's low nibble, below the first VLC bits */
+    vlc.used = 4;
+    vlc.gt8f = 1;
+    for (qy = 0; qy < qh; ++qy)
+        for (qx = 0; qx < qw; qx += 2) {
+            uint32_t u[2] = {0, 0}, k;
+            for (k = 0; k < 2 && qx + k < qw; ++k) {
+                int32_t x0 = 2 * (int32_t)(qx + k), y0 = 2 * (int32_t)qy;
+                const vlc_code *code;
+                uint32_t kappa, U, n;
+                quad_t q;
+                int c;
+                ht_quad(b, y0, x0, &q);
+                c = ht_context(b, y0, x0, q.rho, &kappa);
+                U = (uint32_t)q.emax > kappa ? (uint32_t)q.emax : kappa;
+                u[k] = U - kappa;
+                code = ht_code(!qy, c, &q, U, u[k] > 0);
+                if (c == 0)
+                    mel_encode(&mel, q.rho != 0);
+                if (!c && !q.rho)
+                    continue;
+                if (!code) {
+                    status = ENC_BAD;
+                    goto done;
+                }
+                rve_put(&vlc, code->cwd, code->len);
+                for (n = 0; n < 4; ++n)
+                    if (q.rho >> n & 1) {
+                        int m = (int)U - (code->ek >> n & 1);
+                        fwe_put(&ms, q.v[n] & (m >= 32 ? ~0u : (1u << m) - 1),
+                                m);
+                    }
+            }
+            uvlc_pair_put(&vlc, &mel, !qy, u[0], u[1]);
+        }
+    fwe_end(&ms, 1);
+    mel_end(&mel);
+    rve_end(&vlc);
+    scup = mel.n + vlc.n;
+    if (scup > 4079 || ms.n + scup > cap) {
+        status = ENC_BAD;
+        goto done;
+    }
+    memcpy(out + ms.n, mel_buf, mel.n);
+    for (i = 0; i < vlc.n; ++i)
+        out[ms.n + mel.n + i] = vlc.p[-(ptrdiff_t)(vlc.n - 1 - i)];
+    *len = ms.n + scup;
+    out[*len - 1] = (uint8_t)(scup >> 4);
+    out[*len - 2] = (uint8_t)((out[*len - 2] & 0xf0) | (scup & 0xf));
+done:
+    free(mel_buf);
+    free(vlc_buf);
+    return status;
+}
+
+/* SigProp (forward) then MagRef (backward) at bit-plane pc - 1, as
+ * ht_dec.c reads them back: the refinement segment; passes 2 or 3 */
+static int ht_refinement(const htb_t *b, int passes, int causal,
+                         uint8_t *out, size_t cap, size_t *len)
+{
+    uint32_t w = b->w, h = b->h, x, y, g;
+    uint32_t mstr = ((w + 3) / 4 + 2 + 7) & ~7u, pr = (uint32_t)b->pc - 1;
+    uint16_t *sigma = calloc((size_t)mstr * ((h + 3) / 4 + 1), 2);
+    uint8_t *mr = malloc(cap + 1);
+    uint16_t prev_row[256 + 8];
+    fwe_t sp;
+    rve_t rv;
+    size_t i;
+    if (!sigma || !mr) {
+        free(sigma);
+        free(mr);
+        return ENC_NOMEM;
+    }
+    for (y = 0; y < h; ++y)
+        for (x = 0; x < w; ++x)
+            if (b->mag[y * w + x] >> b->pc)
+                sigma[(y >> 2) * mstr + (x >> 2)] |=
+                    (uint16_t)(1u << (4 * (x & 3) + (y & 3)));
+    memset(&sp, 0, sizeof sp);
+    sp.p = out;
+    sp.cap = cap;
+    sp.max = 8;
+    memset(&rv, 0, sizeof rv);
+    rv.p = mr + cap;
+    rv.cap = cap;
+    rv.gt8f = 1;
+    memset(prev_row, 0, sizeof prev_row);
+    for (y = 0; y < h; y += 4) {
+        uint32_t pattern = h - y >= 4 ? 0xffffu : h - y == 3 ? 0x7777u
+            : h - y == 2 ? 0x3333u : 0x1111u, prev = 0;
+        const uint16_t *cur = sigma + (y >> 2) * mstr;
+        for (x = 0, g = 0; x < w; x += 4, ++g) {
+            int32_t s = (int32_t)(x + 4) - (int32_t)w;
+            uint32_t ps, ns, u, cs, mbr, t, new_sig, inv;
+            int i4, j;
+            static const uint32_t grow[4] = {0x33, 0x76, 0xec, 0xc8};
+            s = s > 0 ? s : 0;
+            pattern >>= s * 4;
+            ps = prev_row[g] | (uint32_t)prev_row[g + 1] << 16;
+            ns = cur[mstr + g] | (uint32_t)cur[mstr + g + 1] << 16;
+            u = (ps & 0x88888888u) >> 3;
+            if (!causal)
+                u |= (ns & 0x11111111u) << 3;
+            cs = cur[g] | (uint32_t)cur[g + 1] << 16;
+            mbr = cs | (cs & 0x77777777u) << 1 | (cs & 0xeeeeeeeeu) >> 1 | u;
+            t = mbr;
+            mbr |= t << 4 | t >> 4 | prev >> 12;
+            mbr &= pattern & ~cs;
+            new_sig = mbr;
+            inv = ~cs & pattern;
+            for (i4 = 0; i4 < 16; i4 += 4)
+                for (j = 0; j < 4; ++j) {
+                    uint32_t m = 1u << (i4 + j);
+                    if (new_sig & m) {
+                        uint32_t bit = b->mag[(y + (uint32_t)j) * w + x
+                                              + (uint32_t)i4 / 4] >> pr & 1;
+                        new_sig &= ~m;
+                        if (bit)
+                            new_sig |= (grow[j] << i4) & inv;
+                        fwe_put(&sp, bit, 1);
+                    }
+                }
+            for (i4 = 0; i4 < 4; ++i4)
+                for (j = 0; j < 4; ++j)
+                    if (new_sig & (1u << (4 * i4 + j)))
+                        fwe_put(&sp, b->neg[(y + (uint32_t)j) * w + x
+                                            + (uint32_t)i4], 1);
+            new_sig |= cs;
+            prev_row[g] = (uint16_t)new_sig;
+            t = new_sig;
+            new_sig |= (t & 0x7777) << 1 | (t & 0xeeee) >> 1;
+            prev = (new_sig | u) & 0xf000;
+        }
+    }
+    fwe_end(&sp, 0);
+    if (passes > 2)  /* MagRef */
+        for (y = 0; y < h; y += 4)
+            for (x = 0; x < w; x += 4) {
+                uint32_t sig = sigma[(y >> 2) * mstr + (x >> 2)], col, j;
+                for (col = 0; col < 4; ++col, sig >>= 4)
+                    for (j = 0; j < 4; ++j)
+                        if (sig & (1u << j))
+                            rve_put(&rv,
+                                    b->mag[(y + j) * w + x + col] >> pr & 1,
+                                    1);
+            }
+    rve_end(&rv);
+    if (sp.n + rv.n > cap) {
+        free(sigma);
+        free(mr);
+        return ENC_BAD;
+    }
+    for (i = 0; i < rv.n; ++i)
+        out[sp.n + i] = rv.p[-(ptrdiff_t)(rv.n - 1 - i)];
+    *len = sp.n + rv.n;
+    free(sigma);
+    free(mr);
+    return ENC_OK;
+}
+
+/* ------------------------------------------------------------------ */
+/* the forward wavelets (lines start on even coordinates) */
 
 static void fdwt53_line(int32_t *x, int32_t *tmp, int32_t n)
 {
@@ -498,12 +1035,48 @@ static void fdwt53_line(int32_t *x, int32_t *tmp, int32_t n)
     memcpy(x, tmp, (size_t)n * sizeof(int32_t));
 }
 
+/* the 9/7: the decoder's lifting steps undone in reverse, the low samples
+ * divided by K and the high ones by 2 / K (the inverse multiplies them
+ * back), in double */
+static void lift97f(double *w, int32_t n, int par, double c)
+{
+    int32_t i;
+    for (i = par; i < n; i += 2) {
+        if (i - 1 >= 0 && i + 1 < n)
+            w[i] += c * (w[i - 1] + w[i + 1]);
+        else if (i - 1 >= 0 || i + 1 < n)
+            w[i] += 2 * c * (i - 1 >= 0 ? w[i - 1] : w[i + 1]);
+    }
+}
+
+static void fdwt97_line(double *x, double *tmp, int32_t n)
+{
+    int32_t sn = (n + 1) / 2, i;
+    if (n < 2)
+        return;
+    lift97f(x, n, 1, -1.586134342);
+    lift97f(x, n, 0, -0.052980118);
+    lift97f(x, n, 1, 0.882911075);
+    lift97f(x, n, 0, 0.443506852);
+    for (i = 0; i < n; ++i)
+        tmp[(i & 1) ? sn + i / 2 : i / 2] =
+            (i & 1) ? x[i] * (1.230174105 / 2) : x[i] / 1.230174105;
+    memcpy(x, tmp, (size_t)n * sizeof(double));
+}
+
 /* ------------------------------------------------------------------ */
 /* the codestream */
 
 typedef struct {
-    int32_t x0, y0, x1, y1;   /* in the component's buffer */
-    uint32_t bandno, level;   /* level: decomposition level of the band */
+    int ht, refine, skip, real, vcausal, extra_missing, placeholder, levels;
+    uint32_t xcb, ycb;
+    int32_t tw, th;
+} eopt_t;
+
+typedef struct {
+    int32_t x0, y0, x1, y1;   /* in the tile's buffer */
+    int32_t ax, ay;           /* the band's origin on its own grid */
+    uint32_t bandno;
     int mb;                   /* Mb: expn + guard bits - 1 */
 } eband_t;
 
@@ -525,19 +1098,47 @@ static void put32(bits_t *o, uint32_t v)
 
 #define GUARD 2
 
-/* one packet (one layer, one precinct per resolution) of resolution r of
- * component c: its header into ``hdr``, its body into ``body`` */
+static void put_passes(bits_t *hdr, uint32_t passes)
+{
+    if (passes == 1)
+        put_bit(hdr, 0);
+    else if (passes == 2)
+        put_bits(hdr, 2, 2);
+    else if (passes <= 5)
+        put_bits(hdr, 0xc | (passes - 3), 4);
+    else if (passes <= 36)
+        put_bits(hdr, 0x1e0 | (passes - 6), 9);
+    else
+        put_bits(hdr, 0xff80 | (passes - 37), 16);
+}
+
+static uint32_t floorlog2(uint32_t a)
+{
+    uint32_t l = 0;
+    while (a >>= 1)
+        ++l;
+    return l;
+}
+
+/* the packet of one resolution of one component of a tile (one layer,
+ * one precinct): its header, then its body, into out */
 static int packet(const int32_t *plane, int32_t W, const eband_t *bands,
-                  uint32_t nb_, bits_t *out, uint8_t *mqbuf, int32_t *v,
-                  t1e_t *t1)
+                  uint32_t nb_, const eopt_t *op, bits_t *out,
+                  uint8_t *mqbuf, int32_t *v, t1e_t *t1)
 {
     bits_t hdr;
-    uint32_t b, any = 0;
+    uint32_t b, any = 0, cbw = 1u << op->xcb, cbh = 1u << op->ycb;
     uint8_t *body = NULL;
     size_t body_n = 0, body_cap = 0;
+    uint32_t *mag = malloc(4096 * sizeof(uint32_t));
+    uint8_t *neg = malloc(4096);
+    int status = ENC_OK;
     memset(&hdr, 0, sizeof hdr);
     hdr.ct = 8;
-    /* first: which code blocks carry bits */
+    if (!mag || !neg) {
+        status = ENC_NOMEM;
+        goto done;
+    }
     for (b = 0; b < nb_ && !any; ++b) {
         const eband_t *bd = &bands[b];
         int32_t x, y;
@@ -553,44 +1154,103 @@ static int packet(const int32_t *plane, int32_t W, const eband_t *bands,
         for (b = 0; b < nb_; ++b) {
             const eband_t *bd = &bands[b];
             int32_t bw = bd->x1 - bd->x0, bh = bd->y1 - bd->y0;
+            int32_t gx0 = bd->ax / (int32_t)cbw, gy0 = bd->ay / (int32_t)cbh;
             uint32_t cw, ch, k;
             int32_t *incl, *zero;
             size_t *lens;
-            int *nbps;
+            uint32_t *passes;
             tgt_t ti, tz;
             if (bw <= 0 || bh <= 0)
                 continue;
-            cw = (uint32_t)(bw + 63) / 64;
-            ch = (uint32_t)(bh + 63) / 64;
+            cw = (uint32_t)((bd->ax + bw + (int32_t)cbw - 1) / (int32_t)cbw
+                            - gx0);
+            ch = (uint32_t)((bd->ay + bh + (int32_t)cbh - 1) / (int32_t)cbh
+                            - gy0);
             incl = malloc(cw * ch * sizeof(int32_t));
             zero = malloc(cw * ch * sizeof(int32_t));
-            lens = malloc(cw * ch * sizeof(size_t));
-            nbps = malloc(cw * ch * sizeof(int));
-            if (!incl || !zero || !lens || !nbps)
-                return ENC_NOMEM;
+            lens = malloc(2 * cw * ch * sizeof(size_t));
+            passes = malloc(cw * ch * sizeof(uint32_t));
+            if (!incl || !zero || !lens || !passes) {
+                status = ENC_NOMEM;
+                goto done;
+            }
             /* tier 1 of every block of the band */
             for (k = 0; k < cw * ch; ++k) {
-                int32_t bx = bd->x0 + (int32_t)(k % cw) * 64;
-                int32_t by = bd->y0 + (int32_t)(k / cw) * 64;
-                uint32_t w = (uint32_t)(bx + 64 < bd->x1 ? 64 : bd->x1 - bx);
-                uint32_t h = (uint32_t)(by + 64 < bd->y1 ? 64 : bd->y1 - by);
-                uint32_t i, j, maxm = 0;
+                int32_t ax0 = (gx0 + (int32_t)(k % cw)) * (int32_t)cbw;
+                int32_t ay0 = (gy0 + (int32_t)(k / cw)) * (int32_t)cbh;
+                int32_t ax1 = ax0 + (int32_t)cbw, ay1 = ay0 + (int32_t)cbh;
+                int32_t bx, by;
+                uint32_t w, h, i, j, maxm = 0;
                 int p, nbp = 0;
+                ax0 = ax0 > bd->ax ? ax0 : bd->ax;
+                ay0 = ay0 > bd->ay ? ay0 : bd->ay;
+                ax1 = ax1 < bd->ax + bw ? ax1 : bd->ax + bw;
+                ay1 = ay1 < bd->ay + bh ? ay1 : bd->ay + bh;
+                bx = bd->x0 + ax0 - bd->ax;
+                by = bd->y0 + ay0 - bd->ay;
+                w = (uint32_t)(ax1 - ax0);
+                h = (uint32_t)(ay1 - ay0);
                 for (j = 0; j < h; ++j)
                     for (i = 0; i < w; ++i) {
                         int32_t c = plane[(size_t)(by + (int32_t)j) * W + bx
                                           + (int32_t)i];
                         uint32_t m = (uint32_t)(c < 0 ? -c : c);
                         v[j * w + i] = c;
+                        mag[j * w + i] = m;
+                        neg[j * w + i] = c < 0;
                         if (m > maxm)
                             maxm = m;
                     }
+                lens[2 * k] = lens[2 * k + 1] = 0;
+                passes[k] = 0;
+                if (op->ht) {
+                    htb_t hb;
+                    int pc = (op->refine ? 1 : 0) + op->skip;
+                    uint8_t *dst;
+                    if (pc > bd->mb - 1) {
+                        status = ENC_BAD;
+                        goto done;
+                    }
+                    incl[k] = (maxm >> (op->refine ? op->skip : pc)) ? 0 : 1;
+                    zero[k] = bd->mb - 1 - pc + op->extra_missing;
+                    if (incl[k])
+                        continue;
+                    hb.w = w;
+                    hb.h = h;
+                    hb.mag = mag;
+                    hb.neg = neg;
+                    hb.pc = pc;
+                    if (body_n + 2 * 65536 > body_cap) {
+                        size_t cap = body_cap ? 2 * body_cap : 1 << 18;
+                        uint8_t *q;
+                        while (cap < body_n + 2 * 65536)
+                            cap *= 2;
+                        q = realloc(body, cap);
+                        if (!q) {
+                            status = ENC_NOMEM;
+                            goto done;
+                        }
+                        body = q;
+                        body_cap = cap;
+                    }
+                    dst = body + body_n;
+                    status = ht_cleanup(&hb, dst, 65536, &lens[2 * k]);
+                    if (!status && op->refine)
+                        status = ht_refinement(&hb, 1 + op->refine,
+                                               op->vcausal,
+                                               dst + lens[2 * k], 65536,
+                                               &lens[2 * k + 1]);
+                    if (status)
+                        goto done;
+                    passes[k] = 1u + (uint32_t)op->refine
+                        + 3u * (uint32_t)op->placeholder;
+                    body_n += lens[2 * k] + lens[2 * k + 1];
+                    continue;
+                }
                 while (maxm >> nbp)
                     ++nbp;
-                nbps[k] = nbp;
                 incl[k] = nbp ? 0 : 1;
                 zero[k] = bd->mb - nbp;  /* missing bit-planes */
-                lens[k] = 0;
                 if (!nbp)
                     continue;
                 t1->w = w;
@@ -607,89 +1267,177 @@ static int packet(const int32_t *plane, int32_t W, const eband_t *bands,
                     }
                     clnpass(t1, p);
                 }
-                lens[k] = mqe_flush(&t1->mq);
-                if (body_n + lens[k] > body_cap) {
+                lens[2 * k] = mqe_flush(&t1->mq);
+                passes[k] = 3u * (uint32_t)nbp - 2;
+                if (body_n + lens[2 * k] > body_cap) {
                     size_t cap = body_cap ? 2 * body_cap : 65536;
                     uint8_t *q;
-                    while (cap < body_n + lens[k])
+                    while (cap < body_n + lens[2 * k])
                         cap *= 2;
                     q = realloc(body, cap);
-                    if (!q)
-                        return ENC_NOMEM;
+                    if (!q) {
+                        status = ENC_NOMEM;
+                        goto done;
+                    }
                     body = q;
                     body_cap = cap;
                 }
-                memcpy(body + body_n, mqbuf + 1, lens[k]);
-                body_n += lens[k];
+                memcpy(body + body_n, mqbuf + 1, lens[2 * k]);
+                body_n += lens[2 * k];
             }
-            if (tgt_build(&ti, cw, ch, incl) || tgt_build(&tz, cw, ch, zero))
-                return ENC_NOMEM;
+            if (tgt_build(&ti, cw, ch, incl) || tgt_build(&tz, cw, ch, zero)) {
+                status = ENC_NOMEM;
+                goto done;
+            }
             for (k = 0; k < cw * ch; ++k) {
-                uint32_t passes, numlen = 3, need = 0, lg = 0;
+                uint32_t numlen = 3, n1, n2 = 0, lg2 = 0;
                 tgt_encode(&hdr, &ti, k, 1);
-                if (!nbps[k])
+                if (!passes[k])
                     continue;
                 tgt_encode(&hdr, &tz, k, zero[k] + 1);
-                passes = 3u * (uint32_t)nbps[k] - 2;
-                if (passes == 1)
-                    put_bit(&hdr, 0);
-                else if (passes == 2)
-                    put_bits(&hdr, 2, 2);
-                else if (passes <= 5)
-                    put_bits(&hdr, 0xc | (passes - 3), 4);
-                else if (passes <= 36)
-                    put_bits(&hdr, 0x1e0 | (passes - 6), 9);
-                else
-                    put_bits(&hdr, 0xff80 | (passes - 37), 16);
-                while ((passes >> (lg + 1)))
-                    ++lg;
-                while (lens[k] >> need)
-                    ++need;
-                while (numlen + lg < need) {
+                put_passes(&hdr, passes[k]);
+                /* HT: the cleanup's length in Lblock bits, the others' in
+                 * Lblock + floor(log2(their passes)) */
+                n1 = (uint32_t)bitlen((uint32_t)lens[2 * k]);
+                if (op->ht && passes[k] > 1) {
+                    lg2 = floorlog2(passes[k] - 1);
+                    n2 = (uint32_t)bitlen((uint32_t)lens[2 * k + 1]);
+                } else if (!op->ht)
+                    n1 = n1 > floorlog2(passes[k]) ?
+                        n1 - floorlog2(passes[k]) : 0;
+                while (numlen < n1 || (op->ht && passes[k] > 1
+                                       && numlen + lg2 < n2)) {
                     put_bit(&hdr, 1);
                     ++numlen;
                 }
                 put_bit(&hdr, 0);
-                put_bits(&hdr, (uint32_t)lens[k], (int)(numlen + lg));
+                put_bits(&hdr, (uint32_t)lens[2 * k],
+                         (int)(numlen + (op->ht ? 0 : floorlog2(passes[k]))));
+                if (op->ht && passes[k] > 1)
+                    put_bits(&hdr, (uint32_t)lens[2 * k + 1],
+                             (int)(numlen + lg2));
             }
             tgt_free(&ti);
             tgt_free(&tz);
             free(incl);
             free(zero);
             free(lens);
-            free(nbps);
+            free(passes);
         }
     bits_flush(&hdr);
-    if (hdr.nomem)
-        return ENC_NOMEM;
+    if (hdr.nomem) {
+        status = ENC_NOMEM;
+        goto done;
+    }
     for (b = 0; b < hdr.n; ++b)
         put_byte(out, hdr.p[b]);
     for (b = 0; b < body_n; ++b)
         put_byte(out, body[b]);
+    if (out->nomem)
+        status = ENC_NOMEM;
+done:
     free(hdr.p);
     free(body);
-    return out->nomem ? ENC_NOMEM : ENC_OK;
+    free(mag);
+    free(neg);
+    return status;
 }
 
-/* out: at least ``cap`` bytes; *size gets the codestream's length */
+/* the bands of resolution r of a tile of tw x th at (tx0, ty0), whose
+ * corners are multiples of 2^levels */
+static uint32_t tile_bands(eband_t *bands, int32_t tx0, int32_t ty0,
+                           int32_t tw, int32_t th, int levels, int r)
+{
+    int32_t lw = tw, lh = th, fw = tw, fh = th, sw, sh;
+    int k;
+    for (k = 0; k < levels; ++k) {
+        lw = (lw + 1) / 2;
+        lh = (lh + 1) / 2;
+    }
+    if (r == 0) {
+        bands[0].x0 = bands[0].y0 = 0;
+        bands[0].x1 = lw;
+        bands[0].y1 = lh;
+        bands[0].ax = tx0 >> levels;
+        bands[0].ay = ty0 >> levels;
+        bands[0].bandno = 0;
+        return 1;
+    }
+    for (k = 0; k < levels - r; ++k) {
+        fw = (fw + 1) / 2;
+        fh = (fh + 1) / 2;
+    }
+    sw = (fw + 1) / 2;
+    sh = (fh + 1) / 2;
+    for (k = 0; k < 3; ++k) {
+        uint32_t bn = (uint32_t)k + 1;
+        int lev = levels - r + 1;
+        bands[k].bandno = bn;
+        bands[k].x0 = (bn & 1) ? sw : 0;
+        bands[k].x1 = (bn & 1) ? fw : sw;
+        bands[k].y0 = (bn & 2) ? sh : 0;
+        bands[k].y1 = (bn & 2) ? fh : sh;
+        bands[k].ax = tx0 >> lev;
+        bands[k].ay = ty0 >> lev;
+    }
+    return 3;
+}
+
+/* the encoder; opts (as many as nopts, the rest at their defaults): HT
+ * code blocks, HT refinement passes (0-2), LSB planes left out of HT blocks,
+ * the irreversible 9/7 with the ICT, code-block width and height
+ * exponents, tile width and height (0: the image), decomposition levels
+ * (-1: up to 5), vertically causal HT SigProp, missing MSBs added to each
+ * HT block, HT placeholder sets declared; out: at least ``cap`` bytes;
+ * *size gets the codestream's length */
 int j2k_encode(const int32_t *planes, int64_t ncomp, int64_t H, int64_t W,
-               int64_t prec, int64_t mct, uint8_t *out, int64_t cap,
-               int64_t *size)
+               int64_t prec, int64_t mct, const int64_t *opts, int64_t nopts,
+               uint8_t *out, int64_t cap, int64_t *size)
 {
     bits_t o, tile;
     int32_t *buf = NULL, *tmp = NULL, *v = NULL;
+    double *fbuf = NULL, *ftmp = NULL;
     uint8_t *mqbuf = NULL;
     t1e_t t1;
-    int levels = 0, status = ENC_OK;
-    int32_t c, r, x, y;
+    eopt_t op;
+    int status = ENC_OK, guard = GUARD, levels, expn_real = (int)prec + 1;
+    int32_t c, r, x, y, tw, th, ntx, nty, tx, ty;
     size_t area = (size_t)H * (size_t)W;
+    int64_t dflt[12] = {0, 0, 0, 0, 6, 6, 0, 0, -1, 0, 0, 0};
+    int64_t i64;
+    for (i64 = 0; i64 < nopts && i64 < 12; ++i64)
+        dflt[i64] = opts[i64];
+    op.ht = (int)dflt[0];
+    op.refine = (int)dflt[1];
+    op.skip = (int)dflt[2];
+    op.real = (int)dflt[3];
+    op.xcb = (uint32_t)dflt[4];
+    op.ycb = (uint32_t)dflt[5];
+    op.tw = (int32_t)(dflt[6] ? dflt[6] : W);
+    op.th = (int32_t)(dflt[7] ? dflt[7] : H);
+    op.levels = (int)dflt[8];
+    op.vcausal = (int)dflt[9];
+    op.extra_missing = (int)dflt[10];
+    op.placeholder = (int)dflt[11];
     if (ncomp < 1 || ncomp > 4 || H < 1 || W < 1 || prec < 1 || prec > 16
-        || (mct && ncomp < 3))
+        || (mct && ncomp < 3) || op.xcb < 2 || op.ycb < 2 || op.xcb > 10
+        || op.ycb > 10 || op.xcb + op.ycb > 12 || op.refine < 0
+        || op.refine > 2 || op.skip < 0 || op.tw < 1 || op.th < 1
+        || op.extra_missing < 0 || op.placeholder < 0)
         return ENC_BAD;
-    while (levels < 5 && (H >> (levels + 1)) > 0 && (W >> (levels + 1)) > 0)
-        ++levels;
+    tw = op.tw > W ? (int32_t)W : op.tw;
+    th = op.th > H ? (int32_t)H : op.th;
+    levels = op.levels;
+    if (levels < 0)
+        for (levels = 0; levels < 5 && (th >> (levels + 1)) > 0
+             && (tw >> (levels + 1)) > 0; ++levels)
+            ;
+    if (levels > 32 || (tw < W && tw % (1 << levels))
+        || (th < H && th % (1 << levels)))
+        return ENC_BAD;
+    ntx = (int32_t)((W + tw - 1) / tw);
+    nty = (int32_t)((H + th - 1) / th);
     memset(&o, 0, sizeof o);
-    memset(&tile, 0, sizeof tile);
     memset(&t1, 0, sizeof t1);
     zc_init(t1.zc);
     buf = malloc(area * (size_t)ncomp * sizeof(int32_t));
@@ -698,37 +1446,93 @@ int j2k_encode(const int32_t *planes, int64_t ncomp, int64_t H, int64_t W,
      * bit-plane */
     mqbuf = malloc(1 + 4096 * 32);
     v = malloc(4096 * sizeof(int32_t));
-    t1.f = malloc(66 * 66);
+    t1.f = malloc(8192);
     if (!buf || !tmp || !mqbuf || !v || !t1.f) {
         status = ENC_NOMEM;
         goto done;
     }
-    /* DC shift, RCT */
-    for (size_t i = 0; i < area * (size_t)ncomp; ++i)
-        buf[i] = planes[i] - (1 << (prec - 1));
-    if (mct)
-        for (size_t i = 0; i < area; ++i) {
-            int32_t R = buf[i], G = buf[area + i], B = buf[2 * area + i];
-            buf[i] = (int32_t)(((int64_t)R + 2 * G + B) >> 2);
-            buf[area + i] = B - G;
-            buf[2 * area + i] = R - G;
-        }
-    /* the wavelet: columns, then rows, on each level's low band */
-    for (c = 0; c < ncomp; ++c) {
-        int32_t *p = buf + (size_t)c * area, w = (int32_t)W, h = (int32_t)H;
-        int lv;
-        for (lv = 0; lv < levels; ++lv) {
-            for (x = 0; x < w; ++x) {
-                for (y = 0; y < h; ++y)
-                    tmp[H + y] = p[(size_t)y * W + x];
-                fdwt53_line(tmp + H, tmp, h);
-                for (y = 0; y < h; ++y)
-                    p[(size_t)y * W + x] = tmp[H + y];
+    /* DC shift, the colour transform, the wavelet of each tile: columns,
+     * then rows, on each level's low band */
+    if (!op.real) {
+        for (size_t i = 0; i < area * (size_t)ncomp; ++i)
+            buf[i] = planes[i] - (1 << (prec - 1));
+        if (mct)
+            for (size_t i = 0; i < area; ++i) {
+                int32_t R = buf[i], G = buf[area + i], B = buf[2 * area + i];
+                buf[i] = (int32_t)(((int64_t)R + 2 * G + B) >> 2);
+                buf[area + i] = B - G;
+                buf[2 * area + i] = R - G;
             }
-            for (y = 0; y < h; ++y)
-                fdwt53_line(p + (size_t)y * W, tmp, w);
-            w = (w + 1) / 2;
-            h = (h + 1) / 2;
+    } else {
+        fbuf = malloc(area * (size_t)ncomp * sizeof(double));
+        ftmp = malloc((size_t)(H > W ? H : W) * 2 * sizeof(double));
+        if (!fbuf || !ftmp) {
+            status = ENC_NOMEM;
+            goto done;
+        }
+        for (size_t i = 0; i < area * (size_t)ncomp; ++i)
+            fbuf[i] = planes[i] - (double)(1 << (prec - 1));
+        if (mct)
+            for (size_t i = 0; i < area; ++i) {
+                double R = fbuf[i], G = fbuf[area + i], B = fbuf[2 * area + i];
+                fbuf[i] = 0.299 * R + 0.587 * G + 0.114 * B;
+                fbuf[area + i] = -0.16875 * R - 0.33126 * G + 0.5 * B;
+                fbuf[2 * area + i] = 0.5 * R - 0.41869 * G - 0.08131 * B;
+            }
+    }
+    for (c = 0; c < ncomp; ++c)
+        for (ty = 0; ty < nty; ++ty)
+            for (tx = 0; tx < ntx; ++tx) {
+                size_t base = (size_t)c * area + (size_t)ty * th * W
+                    + (size_t)tx * tw;
+                int32_t w = tw < (int32_t)W - tx * tw ? tw
+                    : (int32_t)W - tx * tw;
+                int32_t h = th < (int32_t)H - ty * th ? th
+                    : (int32_t)H - ty * th;
+                int lv;
+                for (lv = 0; lv < levels; ++lv) {
+                    for (x = 0; x < w; ++x) {
+                        if (op.real) {
+                            double *p = fbuf + base;
+                            for (y = 0; y < h; ++y)
+                                ftmp[H + y] = p[(size_t)y * W + x];
+                            fdwt97_line(ftmp + H, ftmp, h);
+                            for (y = 0; y < h; ++y)
+                                p[(size_t)y * W + x] = ftmp[H + y];
+                        } else {
+                            int32_t *p = buf + base;
+                            for (y = 0; y < h; ++y)
+                                tmp[H + y] = p[(size_t)y * W + x];
+                            fdwt53_line(tmp + H, tmp, h);
+                            for (y = 0; y < h; ++y)
+                                p[(size_t)y * W + x] = tmp[H + y];
+                        }
+                    }
+                    for (y = 0; y < h; ++y) {
+                        if (op.real)
+                            fdwt97_line(fbuf + base + (size_t)y * W, ftmp, w);
+                        else
+                            fdwt53_line(buf + base + (size_t)y * W, tmp, w);
+                    }
+                    w = (w + 1) / 2;
+                    h = (h + 1) / 2;
+                }
+            }
+    if (op.real) {
+        /* every band quantised at a step of 1/2 (exponent prec + 1, no
+         * mantissa); the guard bits cover the largest index */
+        uint32_t maxq = 0;
+        for (size_t i = 0; i < area * (size_t)ncomp; ++i) {
+            double q = fbuf[i] * 2;
+            uint32_t m = (uint32_t)(q < 0 ? -q : q);
+            buf[i] = q < 0 ? -(int32_t)m : (int32_t)m;
+            maxq = m > maxq ? m : maxq;
+        }
+        guard = bitlen(maxq) - expn_real + 1;
+        guard = guard < 1 ? 1 : guard;
+        if (guard > 7) {
+            status = ENC_BAD;
+            goto done;
         }
     }
     /* SOC, SIZ, COD, QCD */
@@ -741,8 +1545,8 @@ int j2k_encode(const int32_t *planes, int64_t ncomp, int64_t H, int64_t W,
     put32(&o, (uint32_t)H);
     put32(&o, 0);
     put32(&o, 0);
-    put32(&o, (uint32_t)W);
-    put32(&o, (uint32_t)H);
+    put32(&o, (uint32_t)tw);
+    put32(&o, (uint32_t)th);
     put32(&o, 0);
     put32(&o, 0);
     put_byte(&o, 0);
@@ -759,77 +1563,71 @@ int j2k_encode(const int32_t *planes, int64_t ncomp, int64_t H, int64_t W,
     put_byte(&o, 1);            /* one layer */
     put_byte(&o, (uint8_t)(mct ? 1 : 0));
     put_byte(&o, (uint8_t)levels);
-    put_byte(&o, 4);            /* 64 x 64 code blocks */
-    put_byte(&o, 4);
-    put_byte(&o, 0);            /* no code-block style */
-    put_byte(&o, 1);            /* 5/3 */
-    seg16(&o, 0xff5c, (uint32_t)(3 + 1 + 3 * levels));
-    put_byte(&o, GUARD << 5);   /* no quantisation */
-    for (r = 0; r <= levels * 3; ++r) {
-        /* exponent: the precision, the band's gain, one bit for the RCT,
-         * one spare */
-        int gain = r == 0 ? 0 : ((r - 1) % 3 == 2 ? 2 : 1);
-        put_byte(&o, (uint8_t)((prec + gain + 2) << 3));
-    }
-    /* the packets, LRCP: resolutions, then components */
-    tile.ct = 8;
-    for (r = 0; r <= levels; ++r)
-        for (c = 0; c < ncomp; ++c) {
-            eband_t bands[3];
-            uint32_t nb_ = 0, k;
-            int32_t lw = (int32_t)W, lh = (int32_t)H, sw, sh;
-            for (k = 0; k < (uint32_t)levels; ++k) {  /* the LL band */
-                lw = (lw + 1) / 2;
-                lh = (lh + 1) / 2;
-            }
-            if (r == 0) {
-                bands[0].x0 = bands[0].y0 = 0;
-                bands[0].x1 = lw;
-                bands[0].y1 = lh;
-                bands[0].bandno = 0;
-                bands[0].mb = (int)prec + 2 + GUARD - 1;
-                nb_ = 1;
-            } else {
-                /* resolution r: its low band is lw x lh, the whole is
-                 * the next level's size */
-                int32_t fw = (int32_t)W, fh = (int32_t)H;
-                for (k = 0; k < (uint32_t)(levels - r); ++k) {
-                    fw = (fw + 1) / 2;
-                    fh = (fh + 1) / 2;
-                }
-                sw = (fw + 1) / 2;
-                sh = (fh + 1) / 2;
-                for (k = 0; k < 3; ++k) {
-                    uint32_t bn = k + 1;
-                    bands[k].bandno = bn;
-                    bands[k].x0 = (bn & 1) ? sw : 0;
-                    bands[k].x1 = (bn & 1) ? fw : sw;
-                    bands[k].y0 = (bn & 2) ? sh : 0;
-                    bands[k].y1 = (bn & 2) ? fh : sh;
-                    bands[k].mb = (int)prec + (bn == 3 ? 2 : 1) + 2 + GUARD
-                        - 1;
-                }
-                nb_ = 3;
-            }
-            status = packet(buf + (size_t)c * area, (int32_t)W, bands, nb_,
-                            &tile, mqbuf, v, &t1);
-            if (status)
-                goto done;
+    put_byte(&o, (uint8_t)(op.xcb - 2));
+    put_byte(&o, (uint8_t)(op.ycb - 2));
+    put_byte(&o, (uint8_t)((op.ht ? 0x40 : 0) | (op.vcausal ? 0x08 : 0)));
+    put_byte(&o, op.real ? 0 : 1);  /* 9/7 or 5/3 */
+    if (op.real) {  /* scalar expounded */
+        seg16(&o, 0xff5c, (uint32_t)(3 + 2 * (1 + 3 * levels)));
+        put_byte(&o, (uint8_t)(guard << 5 | 2));
+        for (r = 0; r <= levels * 3; ++r) {
+            put_byte(&o, (uint8_t)(expn_real << 3));
+            put_byte(&o, 0);
         }
-    /* SOT, SOD, the tile, EOC */
-    seg16(&o, 0xff90, 10);
-    put_byte(&o, 0);
-    put_byte(&o, 0);
-    put32(&o, (uint32_t)(12 + 2 + tile.n));
-    put_byte(&o, 0);
-    put_byte(&o, 1);
-    put_byte(&o, 0xff);
-    put_byte(&o, 0x93);
-    for (size_t i = 0; i < tile.n; ++i)
-        put_byte(&o, tile.p[i]);
+    } else {
+        seg16(&o, 0xff5c, (uint32_t)(3 + 1 + 3 * levels));
+        put_byte(&o, GUARD << 5);   /* no quantisation */
+        for (r = 0; r <= levels * 3; ++r) {
+            /* exponent: the precision, the band's gain, one bit for the
+             * RCT, one spare */
+            int gain = r == 0 ? 0 : ((r - 1) % 3 == 2 ? 2 : 1);
+            put_byte(&o, (uint8_t)((prec + gain + 2) << 3));
+        }
+    }
+    /* each tile: SOT, SOD, its packets in LRCP order (resolutions, then
+     * components), then EOC */
+    for (ty = 0; ty < nty; ++ty)
+        for (tx = 0; tx < ntx; ++tx) {
+            int32_t w = tw < (int32_t)W - tx * tw ? tw : (int32_t)W - tx * tw;
+            int32_t h = th < (int32_t)H - ty * th ? th : (int32_t)H - ty * th;
+            memset(&tile, 0, sizeof tile);
+            for (r = 0; r <= levels; ++r)
+                for (c = 0; c < ncomp; ++c) {
+                    eband_t bands[3];
+                    uint32_t nb_ = tile_bands(bands, tx * tw, ty * th, w, h,
+                                              levels, r), k;
+                    for (k = 0; k < nb_; ++k) {
+                        uint32_t bn = bands[k].bandno;
+                        bands[k].mb = op.real ? expn_real + guard - 1
+                            : (int)prec + (bn == 3 ? 2 : bn ? 1 : 0) + 2
+                            + GUARD - 1;
+                    }
+                    status = packet(buf + (size_t)c * area + (size_t)ty * th
+                                    * W + (size_t)tx * tw, (int32_t)W, bands,
+                                    nb_, &op, &tile, mqbuf, v, &t1);
+                    if (status)
+                        goto done;
+                }
+            seg16(&o, 0xff90, 10);
+            put_byte(&o, (uint8_t)((ty * ntx + tx) >> 8));
+            put_byte(&o, (uint8_t)(ty * ntx + tx));
+            put32(&o, (uint32_t)(12 + 2 + tile.n));
+            put_byte(&o, 0);
+            put_byte(&o, 1);
+            put_byte(&o, 0xff);
+            put_byte(&o, 0x93);
+            for (size_t i = 0; i < tile.n; ++i)
+                put_byte(&o, tile.p[i]);
+            free(tile.p);
+            tile.p = NULL;
+            if (tile.nomem) {
+                status = ENC_NOMEM;
+                goto done;
+            }
+        }
     put_byte(&o, 0xff);
     put_byte(&o, 0xd9);
-    if (o.nomem || tile.nomem) {
+    if (o.nomem) {
         status = ENC_NOMEM;
         goto done;
     }
@@ -842,6 +1640,8 @@ int j2k_encode(const int32_t *planes, int64_t ncomp, int64_t H, int64_t W,
 done:
     free(buf);
     free(tmp);
+    free(fbuf);
+    free(ftmp);
     free(mqbuf);
     free(v);
     free(t1.f);

@@ -1,6 +1,7 @@
 /* TIFF strip and tile decoding for the port's data layer: the LZW and
- * PackBits decoders, the SGI LogL and LogLuv32 decoders (LogLuv32 to
- * libtiff's 8-bit RGB) and the inverse of the horizontal
+ * PackBits decoders, the SGI LogL, LogLuv32 and LogLuv24 decoders (LogLuv
+ * to libtiff's 8-bit RGB; LogLuv24's colour index through libtiff's uv
+ * table, tiff_uvtable.h) and the inverse of the horizontal
  * (predictor 2) and floating-point (predictor 3) predictors, as libtiff 4.7
  * (tif_lzw.c, tif_packbits.c, tif_luv.c, tif_predict.c) applies them for
  * cv2.imread.
@@ -19,6 +20,8 @@
 #include <stdint.h>
 #include <stdlib.h>
 #include <string.h>
+
+#include "tiff_uvtable.h"
 
 #define TIFF_OK 0
 #define TIFF_CORRUPT 1
@@ -311,6 +314,64 @@ static void logluv32_rgb(uint32_t p, uint8_t *rgb)
     rgb[2] = gamma2(0.061 * xyz[0] + -0.224 * xyz[1] + 1.163 * xyz[2]);
 }
 
+/* LogL10toY */
+static double logl10_y(int p10)
+{
+    return p10 ? exp(M_LN2 * ((p10 + .5) / 64. - 12.)) : 0.;
+}
+
+/* uv_decode: the (u', v') of cell c of the uv table; -1 for an index past
+ * the table (the caller then takes the neutral colour) */
+static int uv_decode(double *up, double *vp, int c)
+{
+    int upper, lower, ui, vi;
+    if (c < 0 || c >= UV_NDIVS)
+        return -1;
+    lower = 0;
+    upper = UV_NVS;
+    while (upper - lower > 1) {
+        vi = (lower + upper) >> 1;
+        ui = c - uv_row[vi].ncum;
+        if (ui > 0)
+            lower = vi;
+        else if (ui < 0)
+            upper = vi;
+        else {
+            lower = vi;
+            break;
+        }
+    }
+    vi = lower;
+    ui = c - uv_row[vi].ncum;
+    *up = uv_row[vi].ustart + (ui + .5) * UV_SQSIZ;
+    *vp = UV_VSTART + (vi + .5) * UV_SQSIZ;
+    return 0;
+}
+
+/* LogLuv24toXYZ, then XYZtoRGB24: one 24-bit pixel (10-bit log luminance,
+ * 14-bit uv index) to RGB */
+static void logluv24_rgb(uint32_t p, uint8_t *rgb)
+{
+    float xyz[3] = {0.F, 0.F, 0.F};
+    double l = logl10_y((int)(p >> 14 & 0x3ff)), u, v;
+    if (l > 0.) {
+        double s, x, y;
+        if (uv_decode(&u, &v, (int)(p & 0x3fff)) < 0) {
+            u = 0.210526316; /* U_NEU, V_NEU */
+            v = 0.473684211;
+        }
+        s = 1. / (6. * u - 16. * v + 12.);
+        x = 9. * u * s;
+        y = 4. * v * s;
+        xyz[0] = (float)(x / y * l);
+        xyz[1] = (float)l;
+        xyz[2] = (float)((1. - x - y) / y * l);
+    }
+    rgb[0] = gamma2(2.690 * xyz[0] + -1.276 * xyz[1] + -0.414 * xyz[2]);
+    rgb[1] = gamma2(-1.022 * xyz[0] + 1.978 * xyz[1] + 0.044 * xyz[2]);
+    rgb[2] = gamma2(0.061 * xyz[0] + -0.224 * xyz[1] + 1.163 * xyz[2]);
+}
+
 /* One row's `planes` byte planes into tp (zeroed first); 0 where the data
  * ends before the row does ("Not enough data at row"). */
 static int sgilog_row(const uint8_t **bpp, int64_t *ccp, uint32_t *tp,
@@ -386,4 +447,22 @@ int tiff_logluv32_decode(const uint8_t *src, int64_t n, uint8_t *dst,
     }
     free(tp);
     return status;
+}
+
+/* LogLuv24 (LogLuvDecode24): 8-bit RGB rows of `width` pixels, each pixel
+ * three bytes, most significant first, uncoded; a row the data does not
+ * fill stops the decoding, as in the other SGI Log decoders */
+int tiff_logluv24_decode(const uint8_t *src, int64_t n, uint8_t *dst,
+                         int64_t rows, int64_t width)
+{
+    int64_t y, i;
+    for (y = 0; y < rows; y++) {
+        if (n < 3 * width)
+            return TIFF_CORRUPT;
+        for (i = 0; i < width; i++, src += 3)
+            logluv24_rgb((uint32_t)src[0] << 16 | (uint32_t)src[1] << 8
+                         | src[2], dst + 3 * (y * width + i));
+        n -= 3 * width;
+    }
+    return TIFF_OK;
 }

@@ -107,7 +107,8 @@ FRAME_EXT = {"png": "png", "ppm": "ppm", "pgm": "pgm", "tiff": "tiff",
              "pfm": "pfm", "jpg": "jpg", "arith-jpg": "jpg", "bigtiff": "tif",
              "webp": "webp", "gif": "gif", "ras": "ras", "hdr": "hdr",
              "rgbe-tiff": "tiff", "ycbcr-tiff": "tif", "ycbcr-png": "png",
-             "lzw16-tiff": "tif", "jp2": "jp2"}
+             "lzw16-tiff": "tif", "jp2": "jp2", "ht-jp2": "jp2",
+             "12bit-tiff": "tif", "12bit-png": "png"}
 
 
 def ycbcr_samples(bgr: np.ndarray) -> np.ndarray:
@@ -176,7 +177,11 @@ def write_frame(path, image, kind: str) -> str:
     as ``ycbcr-tiff`` (:func:`ycbcr_tiff`) or ``ycbcr-png``, the PNG of
     what that TIFF reads back as; depth as ``lzw16-tiff`` (16-bit, LZW,
     horizontal predictor); colour or depth as ``jp2`` (lossless JPEG 2000:
-    ``jp2.encode_jp2``)."""
+    ``jp2.encode_jp2``) or ``ht-jp2`` (the same with HTJ2K code blocks,
+    lossless: the cleanup pass alone); depth as ``12bit-tiff`` (its top
+    12 bits, ``min(d >> 4, 4095)``, as 12-bit TIFF samples) or
+    ``12bit-png``, the 16-bit PNG of what that TIFF reads back as (those
+    12 bits shifted up by 4)."""
     path = f"{path}.{FRAME_EXT[kind]}" if kind in FRAME_EXT else path
     if kind == "png":
         data = encode_png(image)
@@ -209,8 +214,12 @@ def write_frame(path, image, kind: str) -> str:
         data = encode_png(tiff.decode_tiff(ycbcr_tiff(image)))
     elif kind == "lzw16-tiff":
         data = tiff.encode_tiff(image, "lzw", 2)
-    elif kind == "jp2":
-        data = jp2.encode_jp2(image)
+    elif kind in ("jp2", "ht-jp2"):
+        data = jp2.encode_jp2(image, ht=kind == "ht-jp2")
+    elif kind in ("12bit-tiff", "12bit-png"):
+        top = np.minimum(image >> 4, 4095).astype(np.uint16)
+        data = tiff.encode_tiff(top, twelve_bit=True) if kind == \
+            "12bit-tiff" else encode_png(top << 4)
     else:
         raise ValueError(f"no fixture format {kind!r}")
     with open(path, "wb") as fh:

@@ -74,7 +74,8 @@ where each decoder decides it (the C decoders, ``tiff.py``, ``webp.py``,
 ...), so a file reached by any path gets the same class.  A format this
 OpenCV build reads and the port does not yet read raises
 ``NotImplementedError`` naming it: AVIF, and within the formats above what
-each decoder lists (TIFF's SGI LogLuv; JPEG 2000's HTJ2K code blocks).
+each decoder lists (TIFF's separate colour planes of 12 or 16 bits read
+to gray, which OpenCV reads partly from memory it never wrote).
 The encoders
 (:func:`encode_png`, :func:`encode_jpeg`, :func:`encode_bmp`,
 ``tiff.encode_tiff``, ``pnm.encode_pnm`` / ``encode_pam`` /

@@ -2,7 +2,8 @@
 over OpenJPEG 2.5) reads them, for the port's data layer.
 
 The codestream is decoded in C (``csrc/host/j2k_decode.c``) to the
-component planes OpenJPEG hands to OpenCV.  The JP2 boxes are read here in
+component planes OpenJPEG hands to OpenCV, HTJ2K code blocks (T.814) as
+OpenJPEG's HT decoder reads them.  The JP2 boxes are read here in
 OpenJPEG's steps: the signature box first and ``ftyp`` second, ``jp2h``
 (``ihdr`` required, whose size must be the codestream's; the first
 ``colr``; ``pclr`` with ``cmap``; ``cdef``) before ``jp2c``, whose
@@ -29,9 +30,10 @@ What OpenCV's reader then does, which :func:`decode_jp2` repeats:
 - sYCC: component 0 for a gray read; in colour the first three through
   ``COLOR_YUV2BGR``.
 
-:func:`encode_jp2` writes lossless JP2 files (5/3, the RCT for colour, one
-layer; ``csrc/host/j2k_encode.c``) for fixtures, on machines that have no
-JPEG 2000 encoder.
+:func:`encode_jp2` writes JP2 files (by default lossless: 5/3, the RCT for
+colour, one layer; also tiles, code-block sizes, 9/7 with the ICT and
+HTJ2K code blocks; ``csrc/host/j2k_encode.c``) for fixtures, on machines
+that have no JPEG 2000 encoder.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ from lgu_slam_tpu_torch.ops import _build
 
 SIGNATURE = b"\0\0\0\x0cjP  \r\n\x87\n"
 CODESTREAM = b"\xff\x4f\xff\x51"
-STATUS = {1: ValueError, 2: NotImplementedError, 3: MemoryError}
+STATUS = {1: ValueError, 3: MemoryError}
 # OpenJPEG's colour spaces by the colr box's enumerated value
 ENUMCS = {16: "srgb", 17: "gray", 18: "sycc", 24: "esycc", 12: "cmyk"}
 MAX_SIDE, MAX_PIXELS = 1 << 20, 1 << 30
@@ -66,7 +68,8 @@ def _lib():
 def _encoder():
     lib = _build.load("j2k_encode")
     i64, ptr = ctypes.c_int64, ctypes.c_void_p
-    lib.j2k_encode.argtypes = [ptr, i64, i64, i64, i64, i64, ptr, i64, ptr]
+    lib.j2k_encode.argtypes = [ptr, i64, i64, i64, i64, i64, ptr, i64, ptr,
+                               i64, ptr]
     lib.j2k_encode.restype = ctypes.c_int
     return lib
 
@@ -75,11 +78,27 @@ def _box(kind: bytes, body: bytes) -> bytes:
     return struct.pack(">I", 8 + len(body)) + kind + body
 
 
-def encode_jp2(img: np.ndarray, codestream: bool = False) -> bytes:
+def encode_jp2(img: np.ndarray, codestream: bool = False, ht: bool = False,
+               refine: int = 0, skip: int = 0, irreversible: bool = False,
+               cblk=(64, 64), tile=None, levels=None, vcausal: bool = False,
+               extra_missing: int = 0, placeholder: int = 0) -> bytes:
     """``uint8 [H, W, 3]`` BGR, or ``uint8`` / ``uint16 [H, W]`` gray ->
-    a lossless JP2 file (sRGB or gray ``colr``), or with ``codestream``
-    the raw codestream: one tile, the RCT for colour, the 5/3 wavelet at up
-    to 5 levels, 64 x 64 code blocks, one layer, written in C."""
+    a JP2 file (sRGB or gray ``colr``), or with ``codestream`` the raw
+    codestream, written in C (``csrc/host/j2k_encode.c``).  By default
+    lossless: one tile, the RCT for colour, the 5/3 wavelet at up to 5
+    levels, 64 x 64 EBCOT code blocks, one layer.
+
+    - ``ht``: HTJ2K code blocks (T.814), the cleanup pass at bit-plane
+      ``skip`` (lossless at 0), or with ``refine`` 1 or 2 at ``skip + 1``
+      followed by SigProp (and MagRef) at ``skip``; ``vcausal``: SigProp
+      vertically causal; ``extra_missing`` missing MSBs added to each
+      block and ``placeholder`` HT sets of placeholder passes declared
+      (files OpenJPEG refuses or misreads, for tests);
+    - ``irreversible``: the 9/7 wavelet (and the ICT for colour), every
+      band quantised at a step of 1/2;
+    - ``cblk``: the code blocks' (width, height), powers of 2 of 4 to
+      1024, at most 4096 samples; ``tile``: (height, width), multiples of
+      2^levels; ``levels``: the decomposition levels."""
     img = np.asarray(img)
     if img.dtype not in (np.uint8, np.uint16) or not (
             img.ndim == 2 or (img.ndim == 3 and img.shape[-1] == 3
@@ -91,13 +110,19 @@ def encode_jp2(img: np.ndarray, codestream: bool = False) -> bytes:
               else img[None]).astype(np.int32)
     planes = np.ascontiguousarray(planes)
     prec = 8 * img.dtype.itemsize
-    cap = planes.size * 5 + 4096
+    th, tw = tile if tile is not None else (0, 0)
+    opts = np.array([int(ht), refine, skip, int(irreversible),
+                     int(cblk[0]).bit_length() - 1,
+                     int(cblk[1]).bit_length() - 1, tw, th,
+                     -1 if levels is None else levels, int(vcausal),
+                     extra_missing, placeholder], np.int64)
+    cap = planes.size * 5 + 65536
     out = np.empty(cap, np.uint8)
     size = ctypes.c_int64()
-    status = _encoder().j2k_encode(planes.ctypes.data, len(planes), H, W,
-                                   prec, int(len(planes) == 3),
-                                   out.ctypes.data, cap,
-                                   ctypes.byref(size))
+    status = _encoder().j2k_encode(
+        planes.ctypes.data, len(planes), H, W, prec, int(len(planes) == 3),
+        opts.ctypes.data, len(opts), out.ctypes.data, cap,
+        ctypes.byref(size))
     if status:
         raise STATUS.get(status, RuntimeError)("JPEG 2000: encoding failed")
     cs = out[:size.value].tobytes()
@@ -377,12 +402,10 @@ def decode_jp2(data: bytes, path="<bytes>", gray: bool = False
     """JP2 or codestream bytes -> ``uint8 [H, W, 3]`` BGR as ``cv2.imread``
     returns them, or with ``gray`` ``[H, W]`` (``uint16`` above 8 bits) as
     ``cv2.imread(path, cv2.IMREAD_ANYDEPTH)`` returns them (module
-    docstring).  Files OpenCV returns None for raise ``ValueError``; HTJ2K
-    code blocks that carry coding passes, which OpenJPEG decodes, raise
-    ``NotImplementedError``."""
+    docstring).  Files OpenCV returns None for raise ``ValueError``."""
     try:
         return _decode(data, gray)
-    except (ValueError, NotImplementedError, MemoryError) as e:
+    except (ValueError, MemoryError) as e:
         raise type(e)(f"{path}: {e}") from None
 
 

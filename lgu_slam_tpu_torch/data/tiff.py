@@ -9,15 +9,15 @@ LZW (and its pre-6.0 LSB-first coding), Deflate (8 and 32946), PackBits,
 JPEG (7: libtiff's codec, ``JPEGTables``, YCbCr subsampling, separate
 planes, strips the stream does not fill; each strip through the port's C
 JPEG decoder), the CCITT schemes of 1-bit images (RLE, RLEW, Group 3 1-D
-and 2-D, Group 4) and SGI Log of LogL and LogLuv32 images (LogLuv32 in
-the colour read), the horizontal and the floating-point predictor; 1-, 8-
-and 16-bit unsigned gray (min-is-black or min-is-white) with or without
+and 2-D, Group 4) and SGI Log of LogL, LogLuv32 and LogLuv24 images
+(LogLuv in the colour read), the horizontal and the floating-point
+predictor; 1-, 8- and 16-bit unsigned gray (min-is-black or min-is-white) with or without
 extra samples, RGB and RGBA, 1- and 8-bit palettes, separated CMYK,
 uncompressed YCbCr at each subsampling libtiff reads, CIE L*a*b*, and the
 other sample formats OpenCV reads (``int8``, ``int16``, ``uint32``,
 ``int32``, ``uint64``, ``int64``, ``float32``, ``float64``); orientations
 1-4; strip byte counts recounted where libtiff recounts them.  The LZW,
-PackBits, LogL and LogLuv32 decoders and the predictors run in C
+PackBits, LogL, LogLuv32 and LogLuv24 decoders and the predictors run in C
 (``csrc/host/tiff_lzw.c``), the CCITT decoder too
 (``csrc/host/ccitt_decode.c``), each built by the host compiler at first
 use.  A scheme libtiff does not know decodes to zeros, as libtiff's RGBA
@@ -44,9 +44,11 @@ OpenCV reads a TIFF along one of two paths, and the decoder takes the same:
   ``IMREAD_ANYDEPTH`` are refused (cv2 returns None: ``ValueError``).
 
 Orientations 2-4 flip the result as cv2.imread does; 5-8 (transposes) it
-refuses.  Files OpenCV reads and this decoder does not (SGI LogLuv24 in
-the colour read, 12-bit samples read with ``IMREAD_ANYDEPTH``, and 16-bit
-separate colour planes read to gray) raise ``NotImplementedError``;
+refuses.  12-bit samples are read with ``IMREAD_ANYDEPTH`` as OpenCV
+widens them to 16 bits (:func:`_twelve_bits`).  Files OpenCV reads and
+this decoder does not (12- and 16-bit separate colour planes read to
+gray, which OpenCV reads partly from memory it never wrote) raise
+``NotImplementedError``;
 files OpenCV refuses raise ``ValueError``: among them the compressions
 this libtiff build lacks (old-style JPEG, LZMA, ZSTD, WebP, LERC, JBIG
 and others), the layouts its RGBA interface cannot put (16-bit palettes
@@ -74,7 +76,7 @@ BIGTIFF = (b"II+\0", b"MM\0+")
 COMPRESSION = {1: "none", 2: "CCITT RLE", 3: "CCITT Group 3",
                4: "CCITT Group 4", 5: "LZW", 7: "JPEG", 8: "Deflate",
                32771: "CCITT RLEW", 32946: "Deflate", 32773: "PackBits",
-               34676: "SGI Log"}
+               34676: "SGI Log", 34677: "SGI Log24"}
 # the CCITT schemes, of 1-bit images only
 CCITT = (2, 3, 4, 32771)
 # compressions this libtiff build does not decode (not configured, or
@@ -83,9 +85,10 @@ REFUSED_COMPRESSION = {6: "old-style JPEG", 32766: "NeXT",
                        32809: "ThunderScan", 32909: "PixarLog",
                        34661: "JBIG", 34887: "LERC", 34925: "LZMA",
                        50000: "ZSTD", 50001: "WebP"}
-# the SGI Log schemes: LogL and LogLuv32 under 34676 are read (in colour:
-# OpenCV's float read of LogLuv fails), LogLuv24 under 34677 is not (its
-# colour index needs libtiff's table of the uv plane, tif_luvuv.h)
+# the SGI Log schemes: LogL and LogLuv32 under 34676, LogLuv24 under 34677
+# (its colour index through libtiff's table of the uv plane,
+# csrc/host/tiff_uvtable.h); LogLuv only in colour (OpenCV's float read of
+# it fails)
 SGILOG = {34676: "SGI Log", 34677: "SGI Log24"}
 # some schemes libtiff does not know (any code outside the above): it
 # decodes nothing, so its RGBA interface reads zeroed buffers
@@ -209,7 +212,8 @@ def _lib():
     lib.tiff_lzw_decode.argtypes = [ctypes.c_char_p, i64, ptr, i64, cint]
     lib.tiff_packbits_decode.argtypes = [ctypes.c_char_p, i64, ptr, i64]
     lib.tiff_lzw_old_style.argtypes = [ctypes.c_char_p, i64]
-    for fn in (lib.tiff_logl_decode, lib.tiff_logluv32_decode):
+    for fn in (lib.tiff_logl_decode, lib.tiff_logluv32_decode,
+               lib.tiff_logluv24_decode):
         fn.argtypes = [ctypes.c_char_p, i64, ptr, i64, i64]
         fn.restype = cint
     for fn in (lib.tiff_lzw_decode, lib.tiff_packbits_decode,
@@ -302,7 +306,7 @@ def _decoded(raw: bytes, size: int, compression: int, path,
     undone; its RGBA interface goes on, a raw read refuses:
     :func:`_decode_failed`).  ``old_lzw``: LZW in the pre-6.0 coding; SGI
     Log: LogL as 8-bit gray rows of ``width`` pixels, of ``per`` 3
-    LogLuv32 as 8-bit RGB rows."""
+    LogLuv32 (SGI Log24: LogLuv24) as 8-bit RGB rows."""
     out = np.zeros(size, np.uint8)
     if compression == 1:  # libtiff copies nothing of a short strip
         if len(raw) >= size:
@@ -318,9 +322,10 @@ def _decoded(raw: bytes, size: int, compression: int, path,
     elif compression == 32773:
         status = _lib().tiff_packbits_decode(raw, len(raw), out.ctypes.data,
                                              size)
-    elif compression == 34676:  # LogL / LogLuv32, 8-bit rows of `width`
-        decode = _lib().tiff_logluv32_decode if per == 3 else \
-            _lib().tiff_logl_decode
+    elif compression in SGILOG:  # LogL / LogLuv, 8-bit rows of `width`
+        decode = _lib().tiff_logl_decode if per != 3 else \
+            _lib().tiff_logluv24_decode if compression == 34677 else \
+            _lib().tiff_logluv32_decode
         status = decode(raw, len(raw), out.ctypes.data,
                         size // (width * per), width)
     else:  # a scheme libtiff does not know: it decodes nothing
@@ -462,8 +467,7 @@ def _check_compression(tags: dict, compression: int, bits: int, path
     cv2.imread returns None (probed with files of each scheme: the codecs
     this libtiff build lacks, old-style JPEG even with its JPEG tags, the
     CCITT schemes of more than 1 bit, SGI Log of other photometric
-    interpretations than LogL and LogLuv, LogL under SGI Log24),
-    ``NotImplementedError`` where it reads an image (LogLuv24)."""
+    interpretations than LogL and LogLuv, LogL under SGI Log24)."""
     photometric = _one(tags, "photometric", 1)
     if compression in REFUSED_COMPRESSION:
         raise ValueError(f"{path}: TIFF {REFUSED_COMPRESSION[compression]} "
@@ -472,15 +476,11 @@ def _check_compression(tags: dict, compression: int, bits: int, path
     if compression in CCITT and bits != 1:
         raise ValueError(f"{path}: TIFF {COMPRESSION[compression]} of "
                          f"{bits}-bit samples (cv2.imread returns None)")
-    if compression in SGILOG:
-        if photometric == 32845:
-            if compression == 34677:
-                raise NotImplementedError(f"{path}: TIFF SGI Log24 "
-                                          "compression of LogLuv")
-        elif photometric != 32844 or compression != 34676:
-            raise ValueError(f"{path}: TIFF {SGILOG[compression]} of "
-                             f"photometric interpretation {photometric} "
-                             "(cv2.imread returns None)")
+    if compression in SGILOG and photometric != 32845 and (
+            photometric != 32844 or compression != 34676):
+        raise ValueError(f"{path}: TIFF {SGILOG[compression]} of "
+                         f"photometric interpretation {photometric} "
+                         "(cv2.imread returns None)")
     if compression == 7 and bits not in (8, 16):
         raise ValueError(f"{path}: JPEG TIFF of {bits}-bit samples, which "
                          "this libtiff's libjpeg does not decode (cv2.imread "
@@ -638,8 +638,9 @@ def _samples(data: bytes, tags: dict, bo: str, path, partial: bool,
     counts = _strip_counts(
         tags, offsets, counts, compression, tiled, n, planes, H, down,
         rowbytes, tile_bytes if tiled else H * rowbytes, len(data), path)
-    dtype = np.uint8 if bits == 1 else SAMPLE_DTYPES[
-        (_one(tags, "sample_format", 1), bits)]
+    # 12-bit samples are widened to uint16, unshifted (signed ones too)
+    dtype = np.uint8 if bits == 1 else np.uint16 if bits == 12 else \
+        SAMPLE_DTYPES[(_one(tags, "sample_format", 1), bits)]
     out = np.zeros((H, W, spp), dtype)
     swap = bo == ">"
     tables = _jpeg_tables(tags)
@@ -687,6 +688,12 @@ def _samples(data: bytes, tags: dict, bo: str, path, partial: bool,
                 undo = 1
         if units:
             return _ycbcr_chunk(buf, rows, w, cw, sub, unit_rows, undo, tiled)
+        if bits == 12:  # packed most significant bit first, in either order
+            b = np.unpackbits(buf.reshape(rows, rowbytes), axis=1)[
+                :, :cw * per * 12].reshape(rows, cw * per, 12)
+            weights = (1 << np.arange(11, -1, -1)).astype(np.uint16)
+            return (b * weights).sum(-1, dtype=np.uint16).reshape(
+                rows, cw, per)
         if undo > 1:
             _unpredict(buf, rows, rowbytes, per, bits, undo, swap)
         elif bits > 8 and swap:
@@ -1045,24 +1052,33 @@ def decode_tiff(data: bytes, path="<bytes>", gray: bool = False,
     if orientation in (5, 6, 7, 8):
         raise ValueError(f"{path}: TIFF orientation {orientation}, a "
                          "transpose (cv2.imread returns None)")
-    if bits in (2, 4):
-        raise ValueError(f"{path}: TIFF {bits}-bit samples (cv2.imread "
-                         "returns None)")
     compression = _one(tags, "compression", 1)
-    if bits == 12:
-        _twelve_bits(tags, compression, photometric, fmt, spp, gray, path)
-    if not (fmt == 1 and bits == 1) and (fmt, bits) not in SAMPLE_DTYPES:
-        raise ValueError(f"{path}: TIFF sample format {fmt} at {bits} bits "
-                         "(cv2.imread returns None)")
     if photometric == 32845 and compression in SGILOG and not gray:
         # LogLuv: libtiff's RGBA interface has its codec return 8-bit RGB
-        # ("a little white lie", tif_getimage.c), of contiguous samples only
+        # ("a little white lie", tif_getimage.c), of contiguous samples
+        # only; OpenCV refuses the file's own samples where they are
+        # floating-point or of 12 or more bits but 16 (probed)
         _check_compression(tags, compression, bits, path)
         if _one(tags, "planar", 1) != 1:
             raise ValueError(f"{path}: TIFF LogLuv of separate planes "
                              "(cv2.imread returns None)")
+        if bits not in (1, 2, 4, 8, 16) or fmt == 3:
+            raise ValueError(f"{path}: TIFF LogLuv of {bits}-bit samples "
+                             f"of sample format {fmt} (cv2.imread returns "
+                             "None)")
         tags = dict(tags, bits=(8,), sample_format=(1,))
         bits, fmt, photometric = 8, 1, 2
+    if bits in (2, 4):
+        raise ValueError(f"{path}: TIFF {bits}-bit samples (cv2.imread "
+                         "returns None)")
+    if bits == 12:
+        out = _twelve_bits(data, tags, bo, compression, photometric, fmt,
+                           spp, gray, path)
+        return np.ascontiguousarray(ORIENT[orientation](out)) \
+            if orientation in ORIENT else out
+    if not (fmt == 1 and bits == 1) and (fmt, bits) not in SAMPLE_DTYPES:
+        raise ValueError(f"{path}: TIFF sample format {fmt} at {bits} bits "
+                         "(cv2.imread returns None)")
     # the samples as stored where the result keeps their depth, else
     # libtiff's RGBA interface
     raw = _raw(tags, photometric, bits, fmt, spp, compression, gray, path)
@@ -1097,17 +1113,25 @@ def decode_tiff(data: bytes, path="<bytes>", gray: bool = False,
     return np.ascontiguousarray(out)
 
 
-def _twelve_bits(tags: dict, compression: int, photometric: int, fmt: int,
-                 spp: int, gray: bool, path) -> None:
+def _twelve_bits(data: bytes, tags: dict, bo: str, compression: int,
+                 photometric: int, fmt: int, spp: int, gray: bool,
+                 path) -> np.ndarray:
     """12-bit samples: libtiff's RGBA interface refuses them, and so do the
     predictors, JPEG (this libtiff's libjpeg decodes no 12-bit data),
     gray with one extra sample (which OpenCV reads through that
     interface), other photometric interpretations than gray, RGB and
     palette, and other sample formats than unsigned and signed integers
     (probed: ``ValueError``, cv2.imread returns None).  The rest OpenCV
-    reads with ``IMREAD_ANYDEPTH`` as 16-bit samples (gray as the 12 bits
-    shifted up by 4, but signed, colour and separate planes not so
-    simply), which this decoder does not (``NotImplementedError``)."""
+    reads with ``IMREAD_ANYDEPTH`` as 16-bit samples, as probed: one
+    sample per pixel as it is, three or four (RGB, RGBA, and gray or
+    palette of three samples alike) to the gray of the first three
+    (:func:`gray14` of the 12-bit values, alpha ignored), then shifted up
+    by 4 (``uint16``); where the samples are signed, the same values read
+    as unsigned and saturated to ``int16``.  Min-is-white is not
+    inverted, a palette not looked up.  Separate planes of several
+    samples it reads as interleaved samples, the most of them from memory
+    it never wrote (a fresh process reads the same file otherwise):
+    ``NotImplementedError``, as the 16-bit case."""
     predictor = _one(tags, "predictor", 1) if compression in (5, 8, 32946) \
         else 1
     _check_predictor(predictor, 12, fmt, path)
@@ -1117,9 +1141,16 @@ def _twelve_bits(tags: dict, compression: int, photometric: int, fmt: int,
                          f"compression {compression}, read "
                          f"{'with' if gray else 'without'} IMREAD_ANYDEPTH "
                          "(cv2.imread returns None)")
-    raise NotImplementedError(f"{path}: TIFF of 12-bit samples read with "
-                              "IMREAD_ANYDEPTH (OpenCV widens them to 16 "
-                              "bits)")
+    if spp > 1 and _one(tags, "planar", 1) == 2:
+        raise NotImplementedError(
+            f"{path}: a 12-bit TIFF of separate colour planes read as one "
+            "channel (cv2.imread reads it as interleaved samples, partly "
+            "from uninitialised memory)")
+    s = _samples(data, tags, bo, path, partial=False)
+    out = (gray14(s[..., :3]) if spp > 1 else s[..., 0]).astype(np.int64) \
+        << 4
+    return np.minimum(out, 32767).astype(np.int16) if fmt == 2 else \
+        out.astype(np.uint16)
 
 
 def _gray_as_unsigned(rgb: np.ndarray) -> np.ndarray:
@@ -1134,7 +1165,8 @@ def _gray_as_unsigned(rgb: np.ndarray) -> np.ndarray:
 ENCODE_COMPRESSION = {"none": 1, "lzw": 5, "jpeg": 7, "deflate": 32946,
                       "adobe_deflate": 8, "packbits": 32773, "lzw_old": 5,
                       "ccitt_rle": 2, "group3": 3, "group4": 4,
-                      "ccitt_rlew": 32771, "sgilog": 34676}
+                      "ccitt_rlew": 32771, "sgilog": 34676,
+                      "sgilog24": 34677}
 
 
 def lzw_encode(raw: bytes, old_style: bool = False) -> bytes:
@@ -1493,7 +1525,7 @@ def encode_tiff(img, compression: str = "none", predictor: int = 1,
                 bigtiff: bool = False, orientation=None, quality: int = 75,
                 subsampling=(2, 2), jpeg_tables: bool = True,
                 t4_options: int = 0, fill_order: int = 1,
-                tags=None, chunks=None) -> bytes:
+                twelve_bit: bool = False, tags=None, chunks=None) -> bytes:
     """``[H, W]`` gray, ``[H, W, 3]`` BGR or ``[H, W, 4]`` BGRA samples of
     a dtype of :data:`SAMPLE_TYPES` -> one-page TIFF bytes, as
     ``cv2.imwrite`` lays out the samples (RGB order in the file), for
@@ -1507,7 +1539,14 @@ def encode_tiff(img, compression: str = "none", predictor: int = 1,
       pre-6.0 coding; "ccitt_rle", "ccitt_rlew", "group3" (T4Options
       ``t4_options``) and "group4" code ``bilevel`` images
       (:func:`ccitt_encode`); "sgilog" codes ``int16`` LogL values
-      (photometric 32844, :func:`logl_encode`);
+      (photometric 32844, :func:`logl_encode`); "sgilog24" stores
+      ``uint32`` [H, W] 24-bit LogLuv codes (10-bit log luminance, 14-bit
+      uv index) as three bytes each, most significant first (photometric
+      32845, three ``int16`` samples per pixel in the tags, as
+      ``cv2.imwrite`` writes LogLuv24);
+    - ``twelve_bit``: ``uint16`` (or ``int16``) samples below 4096 stored
+      as 12-bit samples, each row packed most significant bit first and
+      padded to a byte;
     - ``predictor``: 1 (none), 2 (horizontal) or 3 (floating point), for
       LZW and Deflate (libtiff ignores it for the others); over YCbCr data
       units, horizontal differences over the rows libtiff undoes them over
@@ -1537,12 +1576,17 @@ def encode_tiff(img, compression: str = "none", predictor: int = 1,
       ``chunks``: the strips' or tiles' data as given (bytes each) in place
       of the coded samples."""
     img = np.asarray(img)
+    code = ENCODE_COMPRESSION[compression]
+    luv24 = None
+    if code == 34677:
+        luv24 = img.astype(np.uint32)
+        img = np.zeros(img.shape + (3,), np.int16)
+        photometric = 32845
     if img.ndim == 2:
         img = img[..., None]
     H, W, spp = img.shape
     bits, fmt = SAMPLE_TYPES[img.dtype]
-    bits = 1 if bilevel else bits
-    code = ENCODE_COMPRESSION[compression]
+    bits = 1 if bilevel else 12 if twelve_bit else bits
     if photometric is None:
         photometric = 3 if palette is not None else (1 if spp < 3 else (
             6 if code == 7 else 2))
@@ -1577,6 +1621,18 @@ def encode_tiff(img, compression: str = "none", predictor: int = 1,
                     raw = ccitt_encode(px[..., 0], code, t4_options)
                 elif code == 34676:
                     raw = logl_encode(px[..., 0])
+                elif code == 34677:
+                    full = np.zeros(px.shape[:2], np.uint32)
+                    part = luv24[y0:y0 + ch, x0:x0 + cw]
+                    full[:part.shape[0], :part.shape[1]] = part
+                    raw = (full.astype(">u4").view(np.uint8).reshape(
+                        full.shape + (4,))[..., 1:]).tobytes()
+                elif twelve_bit:
+                    v = px.reshape(px.shape[0], -1).astype(np.uint16) & 0xfff
+                    b = np.unpackbits((v << 4).astype(">u2").view(
+                        np.uint8).reshape(v.shape + (2,)), axis=2)[..., :12]
+                    raw = np.packbits(b.reshape(v.shape[0], -1),
+                                      axis=1).tobytes()
                 elif bilevel:
                     raw = np.packbits(px[..., 0] != 0, axis=1).tobytes()
                 elif units:

@@ -68,12 +68,14 @@ def _source(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
-    """Missing, or older than its source or (CUDA) any shared header."""
+    """Missing, or older than its source or any shared header (CUDA's
+    ``*.cuh``, the host helpers' ``host/*.h``)."""
     lib = _target(name)
     if not lib.exists():
         return True
     src = _source(name)
-    sources = [src, *CSRC.glob("*.cuh")] if src.suffix == ".cu" else [src]
+    sources = [src, *CSRC.glob("*.cuh")] if src.suffix == ".cu" else \
+        [src, *(CSRC / "host").glob("*.h")]
     return lib.stat().st_mtime < max(p.stat().st_mtime for p in sources)
 
 

@@ -1,14 +1,17 @@
 #!/usr/bin/env python
 """Memory-safety check of the port's host decoders in C: the JPEG decoder
 (``csrc/host/jpeg_decode.c``), the TIFF LZW (both codings) / PackBits /
-SGI LogL / LogLuv32 decoders and predictors (``csrc/host/tiff_lzw.c``),
+SGI LogL / LogLuv32 / LogLuv24 decoders and predictors
+(``csrc/host/tiff_lzw.c``),
 the TIFF CCITT decoder (``csrc/host/ccitt_decode.c``), the TIFF colour
 conversions (``csrc/host/tiff_color.c``), the BMP RLE decoder
 (``csrc/host/bmp_rle.c``), the WebP decoders (``csrc/host/webp_decode.c``:
 VP8L, VP8, ALPH), the GIF LZW decoder (``csrc/host/gif_lzw.c``), the
 Radiance HDR scanline reader and float gray (``csrc/host/hdr_rgbe.c``) and
 the JPEG 2000 codestream decoder (``csrc/host/j2k_decode.c``: its header
-read, then the whole decode where the header allows it).
+read, then the whole decode where the header allows it), and that decoder
+again over small HTJ2K codestreams (its HT cleanup, SigProp and MagRef
+decoders).
 Builds each with AddressSanitizer and UndefinedBehavior Sanitizer beside a
 small C harness, then decodes every truncation of a few seed streams and
 ``--mutations`` copies of each with 1-4 random bytes overwritten (JPEG:
@@ -52,7 +55,13 @@ the LZW data of the port's encoder at minimum code sizes 2, 4 and 8, the
 HDR seeds run-length and flat pixel data, the JPEG 2000 seeds the
 codestreams of the committed files of ``tests/data/jp2`` (96 x 128:
 Pillow's, cv2.imwrite's and OpenJPEG's, with tiles, precincts, layers,
-every code-block style, SOP / EPH, POC, ROI, PPT and PPM).  Needs a C
+every code-block style, SOP / EPH, POC, ROI, PPT and PPM, and the HT
+files of the port's writer); the HT seeds 32 x 48 codestreams of the
+port's HT writer (cleanup only, SigProp, SigProp and MagRef, lossy
+cleanups, 9/7, 4 x 1024 and 1024 x 4 code blocks, tiles, the vertically
+causal SigProp, 16-bit gray), the LogLuv24 seeds strips of random 24-bit
+codes (uv indices past libtiff's table among them) (:func:`ht_seeds`,
+:func:`logluv24_seeds`).  Needs a C
 compiler with the
 sanitizers (gcc or clang); runs on the host only.
 """
@@ -274,6 +283,8 @@ int tiff_packbits_decode(const uint8_t *, int64_t, uint8_t *, int64_t);
 int tiff_logl_decode(const uint8_t *, int64_t, uint8_t *, int64_t, int64_t);
 int tiff_logluv32_decode(const uint8_t *, int64_t, uint8_t *, int64_t,
                          int64_t);
+int tiff_logluv24_decode(const uint8_t *, int64_t, uint8_t *, int64_t,
+                         int64_t);
 void tiff_hpredict(uint8_t *, int64_t, int64_t, int64_t, int, int);
 int tiff_fpredict(uint8_t *, int64_t, int64_t, int64_t, int);
 int main(int argc, char **argv)
@@ -292,7 +303,8 @@ int main(int argc, char **argv)
         fclose(fp);
         int packbits = strstr(argv[f], "packbits") != NULL;
         int old = strstr(argv[f], "lzwold") != NULL;
-        int logluv = strstr(argv[f], "logluv") != NULL;
+        int logluv24 = strstr(argv[f], "logluv24") != NULL;
+        int logluv = !logluv24 && strstr(argv[f], "logluv") != NULL;
         int logl = !logluv && strstr(argv[f], "logl") != NULL;
         for (long it = 0; it < n + mutations; it++) {
             long m = it < n ? it : n;
@@ -309,6 +321,9 @@ int main(int argc, char **argv)
                      : logl   ? tiff_logl_decode(d, m, o, occ / width, width)
                      : logluv ? tiff_logluv32_decode(d, m, o,
                                                      occ / (3 * width), width)
+                     : logluv24 ? tiff_logluv24_decode(d, m, o,
+                                                       occ / (3 * width),
+                                                       width)
                               : tiff_lzw_decode(d, m, o, occ, old);
             int64_t rowbytes = 8 * (1 + rand() % 8);
             int64_t rows = occ / rowbytes;
@@ -660,6 +675,32 @@ def jp2_seeds() -> list:
     return out
 
 
+def ht_seeds(rng) -> list:
+    """HTJ2K codestreams of the port's writer (module docstring)."""
+    from lgu_slam_tpu_torch.data.jp2 import encode_jp2
+
+    im = np.cumsum(rng.integers(-6, 7, (32, 48, 3)), 1) + 128
+    im = (im + rng.integers(-9, 10, im.shape)).clip(0, 255).astype(np.uint8)
+    gray16 = im[..., 1].astype(np.uint16) * 257 + im[..., 2]
+    kinds = [dict(), dict(refine=1), dict(refine=2), dict(skip=2),
+             dict(refine=2, skip=1), dict(irreversible=True, refine=2),
+             dict(cblk=(4, 1024)), dict(cblk=(1024, 4), refine=2),
+             dict(tile=(16, 32), levels=2, refine=1),
+             dict(vcausal=True, refine=2, cblk=(8, 8))]
+    return [encode_jp2(im, codestream=True, ht=True, **kw) for kw in kinds] \
+        + [encode_jp2(gray16, codestream=True, ht=True, refine=2)]
+
+
+def logluv24_seeds(rng) -> list:
+    """(stream, decoded size, codec) of LogLuv24 strips: random 24-bit
+    codes, some uv indices past the table; decoded to 8-bit RGB."""
+    codes = rng.integers(0, 1 << 24, (16, 40)).astype(np.uint32)
+    codes[:, :4] = (codes[:, :4] & np.uint32(0xffc000)) | rng.integers(
+        16280, 16384, (16, 4)).astype(np.uint32)
+    raw = codes.astype(">u4").view(np.uint8).reshape(16, 40, 4)[..., 1:]
+    return [(raw.tobytes(), 3 * codes.size, "logluv24")]
+
+
 def fuzz_bmp_masks(rng, mutations: int) -> str:
     """32-bit BI_BITFIELDS BMPs (40-, 56-, 108- and 124-byte headers;
     BGRA, RGBA-order, 10-10-10, 5-6-5, odd and zero masks) cut at every
@@ -723,6 +764,7 @@ def main(argv=None) -> str:
     # other seeds stay as they were
     more_jpeg, more_tiff = tiff_leftover_seeds(
         np.random.default_rng(args.seed + 17))
+    more_tiff += logluv24_seeds(np.random.default_rng(args.seed + 18))
     with tempfile.TemporaryDirectory() as tmp:
         def write(name, data):
             path = os.path.join(tmp, name)
@@ -772,9 +814,13 @@ def main(argv=None) -> str:
             "hdr " + _run(tmp, "fuzz_hdr", HDR_HARNESS, ["hdr_rgbe.c"],
                           hdr_args, args.mutations, args.seed)]
         j2k_args = [write(f"j2k{k}", d) for k, d in enumerate(jp2_seeds())]
+        ht_args = [write(f"ht{k}", d) for k, d in enumerate(
+            ht_seeds(np.random.default_rng(args.seed + 18)))]
         lines += [
             "j2k " + _run(tmp, "fuzz_j2k", J2K_HARNESS, ["j2k_decode.c"],
                           j2k_args, args.mutations, args.seed),
+            "ht " + _run(tmp, "fuzz_ht", J2K_HARNESS, ["j2k_decode.c"],
+                         ht_args, args.mutations, args.seed),
             "bmp_masks " + fuzz_bmp_masks(rng, args.mutations)]
     out = "\n".join(lines)
     print(out)

@@ -37,6 +37,23 @@ frames (``chip_smoke.py`` phase 16 times their decoding):
 - ``frame_cv2_default.jp2``: ``cv2.imwrite``'s default of a 480 x 640
   frame; ``frame_97.jp2``: the frame in 9/7 with the ICT at a 16:1 rate.
 
+and HTJ2K files of the port's own HT writer (``jp2.encode_jp2(...,
+ht=True)``; no library here writes HT code blocks), each read by
+``cv2.imread`` before its hash is written (:func:`ht_files`):
+
+- ``ht_53.jp2``: the crop losslessly, the cleanup pass alone;
+- ``ht_53_magref.jp2``: the cleanup at bit-plane 1, then SigProp and
+  MagRef;
+- ``ht_97_sigprop.j2k``: 9/7 with the ICT, the cleanup at bit-plane 1 and
+  SigProp, a raw codestream;
+- ``ht_gray16_tiles.jp2``: the 16-bit depth in 48 x 64 tiles of 4 x 1024
+  code blocks;
+- ``ht_gray8_1024x4_vcausal.j2k``: the green channel, 1024 x 4 code
+  blocks, the vertically causal SigProp and MagRef;
+- ``ht_damaged.j2k``: ``ht_53``'s codestream with three seeded bytes of
+  its tile data changed (as cv2 reads it);
+- ``ht_cut.j2k``: that codestream cut inside its tile (None: null hashes).
+
 Beside them ``hashes.json``: the SHA-256 of ``cv2.imread``'s array in both
 read modes (colour, ``IMREAD_ANYDEPTH``), its shape and dtype, which
 ``tests/test_torch_jp2.py`` and ``chip_smoke.py`` phase 16 hold the port's
@@ -62,6 +79,9 @@ LIMIT = 256 * 1024  # bytes per file
 
 
 def array_hash(a: np.ndarray) -> dict:
+    """The SHA-256, shape and dtype of an array; None for None."""
+    if a is None:
+        return None
     return dict(sha256=hashlib.sha256(np.ascontiguousarray(a).tobytes()
                                       ).hexdigest(),
                 shape=list(a.shape), dtype=str(a.dtype))
@@ -244,6 +264,32 @@ def add_palette(jp2: bytes, palette: np.ndarray) -> bytes:
     return jp2[:at] + box(b"jp2h", inner) + jp2[at + length:]
 
 
+def ht_files(bgr: np.ndarray, depth: np.ndarray) -> dict:
+    """The HTJ2K files of the port's writer (module docstring)."""
+    from lgu_slam_tpu_torch.data import jp2
+
+    files = {
+        "ht_53.jp2": jp2.encode_jp2(bgr, ht=True),
+        "ht_53_magref.jp2": jp2.encode_jp2(bgr, ht=True, refine=2),
+        "ht_97_sigprop.j2k": jp2.encode_jp2(bgr, codestream=True, ht=True,
+                                            irreversible=True, refine=1),
+        "ht_gray16_tiles.jp2": jp2.encode_jp2(depth, ht=True, tile=(48, 64),
+                                              levels=4, cblk=(4, 1024)),
+        "ht_gray8_1024x4_vcausal.j2k": jp2.encode_jp2(
+            np.ascontiguousarray(bgr[..., 1]), codestream=True, ht=True,
+            cblk=(1024, 4), vcausal=True, refine=2),
+    }
+    cs = jp2.encode_jp2(bgr, codestream=True, ht=True)
+    raw = bytearray(cs)
+    rng = np.random.default_rng(18)
+    start = cs.index(b"\xff\x93") + 2
+    for at in rng.integers(start, len(cs) - 2, 3):
+        raw[at] ^= 1 << int(rng.integers(0, 8))
+    files["ht_damaged.j2k"] = bytes(raw)
+    files["ht_cut.j2k"] = cs[:(start + len(cs)) // 2]
+    return files
+
+
 def main(argv=None) -> dict:
     import cv2
     from PIL import Image
@@ -327,6 +373,7 @@ def main(argv=None) -> dict:
                                                  "ppt")
     files["opj_tiles_ppm.j2k"] = packed_headers(files["opj_tiles_ppm.j2k"],
                                                 "ppm")
+    files.update(ht_files(bgr, depth))
     hashes = {}
     for name, data in files.items():
         assert len(data) <= LIMIT, (name, len(data))

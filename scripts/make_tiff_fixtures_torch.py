@@ -32,6 +32,17 @@ layouts no library here writes), the kinds libtiff reads in its own way:
 - ``logluv32.tif``: SGI LogLuv32 (photometric 32845 under SGI Log, 3
   samples) of the crop's luminance and chromaticity codes;
 
+- ``logluv24_codes.tif``: SGI LogLuv24 codes of the crop's top-left 32 x
+  48 (10-bit log luminance of the green channel, uv indices from the red
+  and blue, the last columns past libtiff's uv table), strips of 8 rows;
+- ``twelve_bit_gray_lzw.tif``, ``twelve_bit_rgb.tif``,
+  ``twelve_bit_signed_tiles.tif``: 12-bit samples of that 32 x 48 (its 8
+  bits times 16 plus its row): LZW gray, RGB, signed gray in 16 x 16
+  tiles;
+
+and ``logluv24_cv2.tif``: ``cv2.imwrite``'s SGI LogLuv24 of that 32 x 48
+as float (its values / 64);
+
 and one file of each kind cv2.imread returns None for that the port once
 refused as NotImplementedError (``c2_<kind>.tif``, 32 x 48,
 ``tests/torch_port.c2_tiff``).
@@ -106,6 +117,20 @@ def port_files(rgb: np.ndarray) -> dict:
         struct.pack_into("<H", luv, at + 8, value)
     files["logluv32.tif"] = bytes(luv)
     small = np.ascontiguousarray(bgr[:32, :48])
+    g, r, b = (small[..., k].astype(np.uint32) for k in (1, 2, 0))
+    lum = np.uint32(200) + g * 3
+    uv = np.minimum(r * 40 + b // 4, 16383)
+    uv[:, -6:] = 16289 + np.arange(6)  # past the table: the neutral colour
+    files["logluv24_codes.tif"] = encode_tiff(lum << 14 | uv, "sgilog24",
+                                              rows_per_strip=8)
+    twelve = small.astype(np.uint16) * 16 + np.arange(32, dtype=np.uint16)[
+        :, None, None]
+    files["twelve_bit_gray_lzw.tif"] = encode_tiff(
+        twelve[..., 1], "lzw", rows_per_strip=16, twelve_bit=True)
+    files["twelve_bit_rgb.tif"] = encode_tiff(twelve, twelve_bit=True)
+    files["twelve_bit_signed_tiles.tif"] = encode_tiff(
+        twelve[..., 2], tile=(16, 16), twelve_bit=True,
+        tags={339: (3, [2])})
     for kind in C2_KINDS:
         files[f"c2_{kind}.tif"] = c2_tiff(kind, small)
     return files
@@ -154,6 +179,12 @@ def main(argv=None) -> dict:
     files["logl.tif"] = save(Image.fromarray(luminance),
                              compression="tiff_sgilog", tiffinfo=info)
     files.update(port_files(rgb))
+    luv = os.path.join(args.out, "logluv24_cv2.tif")
+    crop = rgb[::2, ::2][:32, :48, ::-1].astype(np.float32) / 64
+    assert cv2.imwrite(luv, crop, [
+        cv2.IMWRITE_TIFF_COMPRESSION, cv2.IMWRITE_TIFF_COMPRESSION_SGILOG24])
+    with open(luv, "rb") as fh:
+        files["logluv24_cv2.tif"] = fh.read()
     hashes = {}
     for name, data in files.items():
         assert len(data) <= LIMIT, (name, len(data))
@@ -164,7 +195,7 @@ def main(argv=None) -> dict:
             bytes=len(data),
             color=array_hash(cv2.imread(path, cv2.IMREAD_COLOR)),
             anydepth=array_hash(cv2.imread(path, cv2.IMREAD_ANYDEPTH)))
-    assert sum(len(d) for d in files.values()) <= 256 * 1024
+    assert sum(len(d) for d in files.values()) <= 320 * 1024
     with open(os.path.join(args.out, "hashes.json"), "w") as fh:
         json.dump(hashes, fh, indent=1, sort_keys=True)
         fh.write("\n")

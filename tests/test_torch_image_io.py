@@ -673,6 +673,15 @@ def _kind(name: str, tmp_path) -> bytes:
             v.shape[0], -1, 2), axis=2)[..., :12].reshape(v.shape[0], -1)
         return tiff.encode_tiff(v, chunks=[np.packbits(bits, 1).tobytes()],
                                 tags={258: (3, [12])})
+    if name == "tiff_12bit_rgb":
+        return tiff.encode_tiff((img.astype(np.uint16) * 16), twelve_bit=True)
+    if name == "tiff_12bit_separate":
+        return tiff.encode_tiff((img.astype(np.uint16) * 16), planar=2,
+                                twelve_bit=True)
+    if name == "tiff_logluv24_float_samples":
+        return tiff.encode_tiff(rng.integers(0, 1 << 24, gray.shape).astype(
+            np.uint32), "sgilog24", tags={258: (3, [32] * 3),
+                                          339: (3, [3] * 3)})
     if name == "tiff_logluv24":
         return _tiff_patch(_tiff_patch(tiff.encode_tiff(img), 259, 34677),
                            262, 32845)
@@ -682,6 +691,13 @@ def _kind(name: str, tmp_path) -> bytes:
             img.astype(np.uint16), chunks=[tiff.logl_encode(
                 codes.astype(np.uint32), planes=4)]), 259, 34676), 262,
             32845)
+    if name.startswith("jp2_ht"):
+        from lgu_slam_tpu_torch.data import jp2
+
+        return jp2.encode_jp2(img, ht=True, **{
+            "jp2_ht": {}, "jp2_ht_97_magref": dict(irreversible=True,
+                                                   refine=2),
+            "jp2_ht_four_passes": dict(refine=2, placeholder=1)}[name])
     if name == "pam_alpha":
         from lgu_slam_tpu_torch.data import pnm
 
@@ -760,11 +776,16 @@ CLASSES = {
     "tiff_ycbcr_tiles_predictor": ("read", "read"),
     "tiff_jpeg_short_strip": ("read", "read"),  # the rest zeros
     "tiff_jpeg_16bit_lossless": ("read", "none"),  # zeros in colour
-    "tiff_12bit": ("none", "queued"),
-    "tiff_logluv24": ("queued", "none"),
+    "tiff_12bit": ("none", "read"),
+    "tiff_12bit_rgb": ("none", "read"),  # the gray of the 12-bit samples
+    # interleaved samples from memory cv2 never wrote
+    "tiff_12bit_separate": ("none", "queued"),
+    "tiff_logluv24": ("read", "none"),
+    "tiff_logluv24_float_samples": ("none", "none"),
     "tiff_logluv32": ("read", "none"),
     **{k: ("read", "read") for k in ("webp", "gif", "hdr", "sun_raster",
-                                     "jp2")},
+                                     "jp2", "jp2_ht", "jp2_ht_97_magref")},
+    "jp2_ht_four_passes": ("none", "none"),  # OpenJPEG decodes one HT set
     # cv2 returns memory it never wrote for an alpha PAM
     **{k: ("queued", "queued") for k in ("avif", "pam_alpha")},
 }

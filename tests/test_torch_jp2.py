@@ -131,12 +131,14 @@ def test_committed_fixtures_decode_to_cv2_hashes():
     """tests/data/jp2 (scripts/make_jp2_fixtures_torch.py: Pillow's,
     cv2.imwrite's and OpenJPEG's files of a rendered frame, the six
     code-block styles, SOP / EPH, POC, ROI, 12 bits, a palette, PPT and
-    PPM, two 480 x 640 frames): the port's arrays hash as cv2.imread's do
-    (the hashes written beside them, which chip_smoke.py phase 16 checks on
-    machines without OpenCV), and cv2 still agrees; each file at most
-    256 KB, the set at most 640 KB."""
+    PPM, two 480 x 640 frames; the port's HT writer's HTJ2K files, a
+    damaged one and a cut one): the port's arrays hash as cv2.imread's do
+    (the hashes written beside them, which chip_smoke.py phases 16 and 18
+    check on machines without OpenCV), or both refuse (null: ValueError),
+    and cv2 still agrees; each file at most 256 KB, the set at most
+    640 KB."""
     hashes = json.load(open(os.path.join(DATA, "hashes.json")))
-    assert len(hashes) == 17
+    assert len(hashes) == 24
     total = 0
     for name, want in hashes.items():
         path = os.path.join(DATA, name)
@@ -144,8 +146,13 @@ def test_committed_fixtures_decode_to_cv2_hashes():
         assert os.path.getsize(path) <= 256 * 1024
         for mode, flag in (("color", cv2.IMREAD_COLOR),
                            ("anydepth", cv2.IMREAD_ANYDEPTH)):
-            got = image_io.imread(path, anydepth=mode == "anydepth")
             ref = cv2.imread(path, flag)
+            if want[mode] is None:
+                assert ref is None
+                with pytest.raises(ValueError):
+                    image_io.imread(path, anydepth=mode == "anydepth")
+                continue
+            got = image_io.imread(path, anydepth=mode == "anydepth")
             for a in (got, ref):
                 assert hashlib.sha256(a.tobytes()).hexdigest() == \
                     want[mode]["sha256"], (name, mode)
@@ -401,21 +408,143 @@ def test_packed_packet_headers(tmp_path):
         _check(packed, tmp_path, f"{kind}.j2k")
 
 
-def test_htj2k_code_blocks(tmp_path):
-    """The HT code-block style bit: a file whose code blocks carry no
-    coding pass reads as cv2 reads it; one whose code blocks carry passes
-    raises NotImplementedError naming HTJ2K (OpenJPEG decodes HTJ2K; these
-    passes were coded by the EBCOT coder, so cv2 returns None here, and no
-    encoder at hand writes HT code blocks); the mixed HT style: None."""
+def _style_cases() -> dict:
+    """The files test_htj2k_code_blocks holds to cv2: Pillow's EBCOT
+    files with the code-block style byte set to HT (0x40) or mixed HT
+    (0xC0)."""
     flat = _pillow(np.full((40, 56, 3), 128, np.uint8))
     busy = _pillow(_frame(40, 56))
     style = lambda d, v: _edit(d, b"\xff\x52", 12, bytes([v]))  # noqa: E731
-    _check(style(flat, 0x40), tmp_path, "flat.jp2")
-    assert cv2.imread(str(tmp_path / "flat.jp2")) is not None
-    (tmp_path / "busy.jp2").write_bytes(style(busy, 0x40))
-    with pytest.raises(NotImplementedError, match="HTJ2K"):
-        image_io.imread(str(tmp_path / "busy.jp2"))
-    _check(style(busy, 0xC0), tmp_path, "mixed.jp2")
+    return {"flat": lambda: style(flat, 0x40),
+            "busy": lambda: style(busy, 0x40),
+            "mixed": lambda: style(busy, 0xC0)}
+
+
+@pytest.mark.parametrize("name", list(_style_cases()))
+def test_htj2k_code_blocks(name, tmp_path):
+    """The HT code-block style bit over EBCOT code blocks: a file whose
+    code blocks carry no coding pass reads as cv2 reads it; one whose code
+    blocks carry EBCOT's passes is read as HT code blocks, as OpenJPEG
+    reads it, and refused where it is (more than 3 passes in a block:
+    cv2 returns None, ValueError); the mixed HT style: None."""
+    _check(_style_cases()[name](), tmp_path, f"{name}.jp2")
+    if name == "flat":
+        assert cv2.imread(str(tmp_path / "flat.jp2")) is not None
+    else:
+        assert cv2.imread(str(tmp_path / f"{name}.jp2")) is None
+
+
+# the port's HT writer (jp2.encode_jp2) -> each kind of file the tests
+# hold to cv2: cleanup-only and refined blocks, 5/3 and 9/7, code-block
+# sizes, tiles and the vertically causal SigProp
+HT_KINDS = {
+    "cleanup": dict(ht=True),
+    "sigprop": dict(ht=True, refine=1),
+    "sigprop_magref": dict(ht=True, refine=2),
+    "cleanup_lossy": dict(ht=True, skip=2),
+    "magref_lossy": dict(ht=True, refine=2, skip=1),
+    "97": dict(ht=True, irreversible=True),
+    "97_magref": dict(ht=True, irreversible=True, refine=2),
+    "cblk_4x1024": dict(ht=True, cblk=(4, 1024)),
+    "cblk_1024x4_magref": dict(ht=True, cblk=(1024, 4), refine=2),
+    "cblk_8x8": dict(ht=True, cblk=(8, 8)),
+    "cblk_32x16_sigprop": dict(ht=True, cblk=(32, 16), refine=1),
+    "tiles": dict(ht=True, tile=(32, 48), levels=3),
+    "tiles_97_magref": dict(ht=True, tile=(32, 64), levels=4,
+                            irreversible=True, refine=2),
+    "vcausal_magref": dict(ht=True, vcausal=True, refine=2,
+                           cblk=(16, 16)),
+}
+
+
+@pytest.mark.parametrize("kind", ["bgr8", "gray8", "gray16"])
+@pytest.mark.parametrize("name", list(HT_KINDS))
+def test_ht_writer_reads_as_cv2_reads(name, kind, tmp_path):
+    """HTJ2K code blocks (T.814) written by the port's HT coder
+    (csrc/host/j2k_encode.c), read by cv2.imread first (OpenJPEG 2.5's
+    ht_dec.c): every kind of HT_KINDS of colour, 8- and 16-bit gray, at an
+    odd size, bit for bit in both read modes, JP2 and raw codestream;
+    cleanup-only reversible files give back the image written (so the
+    coder's cleanup pass is T.814's, as cv2 reads it), refined ones lose
+    at most the last plane's bit of samples SigProp does not visit."""
+    im = _frame(45, 70, 3, seed=len(name))
+    im = {"bgr8": im, "gray8": im[..., 1],
+          "gray16": im[..., 1].astype(np.uint16) * 257 + im[..., 2]}[kind]
+    kw = HT_KINDS[name]
+    data = jp2.encode_jp2(im, **kw)
+    path = tmp_path / "h.jp2"
+    path.write_bytes(data)
+    back = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+    assert back is not None and back.shape == im.shape
+    if not kw.get("irreversible") and not kw.get("skip") and \
+            kw.get("refine", 0) != 1:
+        err = np.abs(back.astype(np.int64) - im).max()
+        assert err <= (1 if kw.get("refine") else 0)
+    same_as_cv2(path)
+    _check(jp2.encode_jp2(im, codestream=True, **kw), tmp_path, "h.j2k")
+
+
+@pytest.mark.parametrize("name", ["cleanup", "sigprop_magref",
+                                  "cblk_8x8", "tiles_97_magref"])
+def test_ht_damaged_and_cut_files(name, tmp_path):
+    """Every proper prefix and 120 seeded byte mutations of HT files: as
+    cv2 reads them, OpenJPEG's refusals included (a U_q past the block's
+    bit-planes, VLC codes of samples outside the block, a bad Scup or MEL
+    start: None, ValueError) and its garbage where it reads on."""
+    im = _frame(32, 48, 3, seed=3)
+    damaged_same_as_cv2(jp2.encode_jp2(im, codestream=True, **HT_KINDS[name]),
+                        tmp_path, mutations=120, seed=len(name))
+
+
+def _rgn(cs: bytes, shift: int) -> bytes:
+    """An RGN marker segment of component 0 (an ROI shift) before COD."""
+    at = cs.index(b"\xff\x52")
+    return cs[:at] + struct.pack(">HHBBB", 0xFF5E, 5, 0, 0, shift) + cs[at:]
+
+
+def _cap(cs: bytes) -> bytes:
+    """A CAP marker segment (Pcap: Part 15; Ccap15 0x0020) before COD, and
+    Rsiz's Part 15 bit: what an HTJ2K codestream should carry, and what
+    OpenJPEG reads past (it reads HT code blocks by their style bit)."""
+    at = cs.index(b"\xff\x52")
+    cs = cs[:at] + struct.pack(">HHIH", 0xFF50, 8, 0x00020000, 0x0020) + \
+        cs[at:]
+    return cs[:6] + b"\x40\x00" + cs[8:]
+
+
+HT_ODD = {
+    "cap_marker": lambda im: _cap(jp2.encode_jp2(
+        im, codestream=True, ht=True, refine=2)),
+    "missing_msbs_short": lambda im: jp2.encode_jp2(
+        im, codestream=True, ht=True, extra_missing=1),
+    "missing_msbs_short_refined": lambda im: jp2.encode_jp2(
+        im, codestream=True, ht=True, extra_missing=1, refine=2),
+    "placeholder_set": lambda im: jp2.encode_jp2(
+        im, codestream=True, ht=True, placeholder=1),
+    "placeholder_set_refined": lambda im: jp2.encode_jp2(
+        im, codestream=True, ht=True, placeholder=1, refine=2),
+    "roi_shift_0": lambda im: _rgn(jp2.encode_jp2(
+        im, codestream=True, ht=True), 0),
+    "roi_shift_3": lambda im: _rgn(jp2.encode_jp2(
+        im, codestream=True, ht=True), 3),
+    "mb_30": lambda im: _edit(jp2.encode_jp2(
+        im, codestream=True, ht=True), b"\xff\x5c", 5, bytes([29 << 3])),
+    "mb_31": lambda im: _edit(jp2.encode_jp2(
+        im, codestream=True, ht=True), b"\xff\x5c", 5, bytes([30 << 3])),
+}
+
+
+@pytest.mark.parametrize("name", list(HT_ODD))
+def test_ht_refusals(name, tmp_path):
+    """What OpenJPEG's HT decoder refuses or reads otherwise, as cv2.imread
+    does: a CAP marker and Rsiz's Part 15 bit (read: neither is needed,
+    and the port's writer writes neither), missing MSBs that leave a
+    quad's U_q past the block's bit-planes (None) unless refinement
+    passes move the cleanup up, a
+    placeholder HT set (more than 3 passes: None; but 4 passes whose
+    refinement segment is empty read as a cleanup pass), an ROI shift
+    (None) and a shift of 0 (read), Mb 30 (read) and 31 (None)."""
+    _check(HT_ODD[name](_frame(24, 40, 3, seed=9)), tmp_path, "o.j2k")
 
 
 def test_sniff_and_stream_dispatch(tmp_path):

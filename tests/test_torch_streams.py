@@ -380,6 +380,29 @@ def test_tum_stream_depth_formats_match_jax(depth, tmp_path):
             np.testing.assert_array_equal(x, y)
 
 
+def test_tum_stream_ht_jp2_12bit_tiff_matches_jax(tmp_path):
+    """The TUM reader over an fr1 sequence of HTJ2K colour (.jp2, the
+    port's HT writer) and 12-bit TIFF depth: the port's stream equals the
+    JAX one (cv2.imread) in frames and timestamps, and equals the port's
+    own stream over PNG colour with the 16-bit PNG depth of the 12-bit
+    values shifted up by 4 (chip_smoke.py phase 18's pair)."""
+    name = "rgbd_dataset_freiburg1_desk"
+    root = fixtures.write_tum_sequence(str(tmp_path / "ht" / name),
+                                       n_frames=3, H=60, W=80,
+                                       color="ht-jp2", depth="12bit-tiff")
+    png = fixtures.write_tum_sequence(str(tmp_path / "png" / name),
+                                      n_frames=3, H=60, W=80,
+                                      depth="12bit-png")
+    items = _held(tstreams.tum_rgbd_stream(root, stride=1),
+                  jstreams.tum_rgbd_stream(root, stride=1))
+    ref = list(tstreams.tum_rgbd_stream(png, stride=1))
+    assert len(items) == len(ref) == 3
+    for a, b in zip(items, ref):
+        assert a[0] == b[0]
+        for x, y in zip(a[1:], b[1:]):
+            np.testing.assert_array_equal(x, y)
+
+
 def test_tum_stream_ycbcr_tiff_matches_jax(tmp_path):
     """The TUM reader over an fr1 sequence of uncompressed YCbCr TIFF
     colour (2 x 2 subsampled) and 16-bit LZW TIFF depth: the port's stream

@@ -811,18 +811,20 @@ def test_committed_fixtures_decode_to_cv2_hashes():
     libtiff's own, CCITT RLE / RLEW / Group 3 / Group 4, gray with alpha,
     CMYK, YCbCr, CIE L*a*b* and SGI LogL files of a rendered frame; the
     port's encoder's short strip, JPEG of separate planes, predicted YCbCr
-    tiles, short JPEG strips and LogLuv32; one file of each refused kind of
-    torch_port.C2_KINDS): the port's arrays hash as cv2.imread's do (the
-    hashes written beside them, which chip_smoke.py phases 15 and 17 check
-    on machines without OpenCV), or both refuse (null: ValueError), and
-    cv2 still agrees; each file at most 64 KB, the set at most 256 KB."""
+    tiles, short JPEG strips, LogLuv32, LogLuv24 codes and 12-bit gray,
+    RGB and signed tiles; cv2.imwrite's LogLuv24; one file of each refused
+    kind of torch_port.C2_KINDS): the port's arrays hash as cv2.imread's
+    do (the hashes written beside them, which chip_smoke.py phases 15, 17
+    and 18 check on machines without OpenCV), or both refuse (null:
+    ValueError), and cv2 still agrees; each file at most 64 KB, the set at
+    most 320 KB."""
     import hashlib
     import json
     import os
 
     folder = os.path.join(os.path.dirname(__file__), "data", "tiff")
     hashes = json.load(open(os.path.join(folder, "hashes.json")))
-    assert len(hashes) == 14 + len(C2_KINDS)
+    assert len(hashes) == 19 + len(C2_KINDS)
     total = 0
     for name, want in hashes.items():
         path = os.path.join(folder, name)
@@ -842,7 +844,7 @@ def test_committed_fixtures_decode_to_cv2_hashes():
                     want[mode]["sha256"]
                 assert list(a.shape) == want[mode]["shape"]
                 assert str(a.dtype) == want[mode]["dtype"]
-    assert total <= 256 * 1024
+    assert total <= 320 * 1024
 
 
 # -- ValueError where cv2 returns None, and the leftovers cv2 reads ----------
@@ -1235,62 +1237,177 @@ def test_ycbcr_fields_cv2_reads(fields, tmp_path):
                            tags=fields), tmp_path)
 
 
-def test_twelve_bit_and_logluv24_are_queued(tmp_path):
-    """What cv2.imread reads and the decoder does not, refused as
-    NotImplementedError naming it: 12-bit samples read with
-    IMREAD_ANYDEPTH (gray, LZW, odd widths in strips, RGBA, separate RGB
-    planes, signed, palette; OpenCV widens them to 16 bits, gray as the
-    samples shifted up by 4), whose colour read cv2 refuses (ValueError);
-    SGI LogLuv24 (photometric 32845 under SGI Log24) read in colour, whose
-    IMREAD_ANYDEPTH read cv2 refuses (ValueError)."""
+def _queued_cases() -> dict:
+    """The files test_twelve_bit_and_logluv24_are_queued once held to
+    NotImplementedError: 12-bit samples (gray, min-is-white, LZW, odd
+    widths in strips, RGBA, separate RGB planes, signed, palette) and SGI
+    LogLuv24 over an 8-bit file's bytes."""
     rng = np.random.default_rng(74)
     v = rng.integers(0, 4096, (32, 48)).astype(np.uint16)
     v35 = rng.integers(0, 4096, (21, 35)).astype(np.uint16)
     v3 = rng.integers(0, 4096, (32, 48, 3)).astype(np.uint16)
     v4 = rng.integers(0, 4096, (32, 48, 4)).astype(np.uint16)
     enc = tiff.encode_tiff
-    twelve = {
-        "gray": enc(v, chunks=[_twelve_bit(v)], tags={258: (3, [12])}),
-        "min_is_white": enc(v, chunks=[_twelve_bit(v)], tags={
-            258: (3, [12]), 262: (3, [0])}),
-        "lzw": enc(v, "lzw", chunks=[tiff.lzw_encode(_twelve_bit(v))],
-                   tags={258: (3, [12])}),
-        "odd_strips": enc(v35, rows_per_strip=8, chunks=[
-            _twelve_bit(v35[i:i + 8]) for i in range(0, 21, 8)],
-            tags={258: (3, [12])}),
-        "rgba": enc(v4, chunks=[_twelve_bit(v4)], tags={258: (3, [12] * 4)}),
-        "separate_rgb": enc(v3, planar=2, chunks=[
-            _twelve_bit(v3[..., k]) for k in range(3)],
-            tags={258: (3, [12] * 3)}),
-        "signed": enc(v, chunks=[_twelve_bit(v)], tags={
-            258: (3, [12]), 339: (3, [2])}),
-        "palette": enc(v, chunks=[_twelve_bit(v)], tags={
-            258: (3, [12]), 262: (3, [3])}),
-    }
-    path = tmp_path / "q.tif"
-    for name, data in twelve.items():
-        path.write_bytes(data)
-        assert cv2.imread(str(path)) is None, name
-        with pytest.raises(ValueError, match="12-bit"):
-            image_io.imread(str(path))
-        ref = cv2.imread(str(path), cv2.IMREAD_ANYDEPTH)
-        assert ref is not None and ref.dtype.itemsize == 2, name
-        if name in ("gray", "lzw", "min_is_white"):
-            np.testing.assert_array_equal(ref, v << 4)
-        with pytest.raises(NotImplementedError, match="12-bit"):
-            image_io.imread(str(path), anydepth=True)
     img = _image_32x48(75)
     img[..., 2] = rng.integers(100, 140, (32, 48))
-    path.write_bytes(_patch(_patch(enc(img), 259, 34677), 262, 32845))
-    assert cv2.imread(str(path)) is not None
-    with pytest.raises(NotImplementedError, match="LogLuv"):
+    return {
+        "gray": lambda: enc(v, chunks=[_twelve_bit(v)],
+                            tags={258: (3, [12])}),
+        "min_is_white": lambda: enc(v, chunks=[_twelve_bit(v)], tags={
+            258: (3, [12]), 262: (3, [0])}),
+        "lzw": lambda: enc(v, "lzw", chunks=[tiff.lzw_encode(_twelve_bit(v))],
+                           tags={258: (3, [12])}),
+        "odd_strips": lambda: enc(v35, rows_per_strip=8, chunks=[
+            _twelve_bit(v35[i:i + 8]) for i in range(0, 21, 8)],
+            tags={258: (3, [12])}),
+        "rgba": lambda: enc(v4, chunks=[_twelve_bit(v4)],
+                            tags={258: (3, [12] * 4)}),
+        "separate_rgb": lambda: enc(v3, planar=2, chunks=[
+            _twelve_bit(v3[..., k]) for k in range(3)],
+            tags={258: (3, [12] * 3)}),
+        "signed": lambda: enc(v, chunks=[_twelve_bit(v)], tags={
+            258: (3, [12]), 339: (3, [2])}),
+        "palette": lambda: enc(v, chunks=[_twelve_bit(v)], tags={
+            258: (3, [12]), 262: (3, [3])}),
+        "logluv24": lambda: _patch(_patch(enc(img), 259, 34677), 262, 32845),
+    }
+
+
+@pytest.mark.parametrize("name", list(_queued_cases()))
+def test_twelve_bit_and_logluv24_are_queued(name, tmp_path):
+    """What cv2.imread reads and the decoder once refused as
+    NotImplementedError, now read bit for bit: 12-bit samples with
+    IMREAD_ANYDEPTH (OpenCV widens them to 16 bits: one sample shifted up
+    by 4, colour to the gray of the 12-bit samples, then shifted; signed
+    samples saturated to int16), whose colour read cv2 refuses
+    (ValueError), but for separate RGB planes, which cv2 reads partly from
+    memory it never wrote (NotImplementedError, on purpose); SGI LogLuv24
+    (photometric 32845 under SGI Log24) read in colour through libtiff's
+    uv table, whose IMREAD_ANYDEPTH read cv2 refuses (ValueError)."""
+    path = tmp_path / "q.tif"
+    path.write_bytes(_queued_cases()[name]())
+    if name == "logluv24":
+        same_as_cv2(path, (False,))
+        try:
+            assert cv2.imread(str(path), cv2.IMREAD_ANYDEPTH) is None
+        except cv2.error:
+            pass
+        with pytest.raises(ValueError, match="LogLuv"):
+            image_io.imread(str(path), anydepth=True)
+        return
+    assert cv2.imread(str(path)) is None, name
+    with pytest.raises(ValueError, match="12-bit"):
         image_io.imread(str(path))
-    try:
-        assert cv2.imread(str(path), cv2.IMREAD_ANYDEPTH) is None
-    except cv2.error:
-        pass
-    with pytest.raises(ValueError, match="LogLuv"):
-        image_io.imread(str(path), anydepth=True)
+    ref = cv2.imread(str(path), cv2.IMREAD_ANYDEPTH)
+    assert ref is not None and ref.dtype.itemsize == 2, name
+    if name == "separate_rgb":
+        with pytest.raises(NotImplementedError, match="12-bit"):
+            image_io.imread(str(path), anydepth=True)
+    else:
+        same_as_cv2(path, (True,))
+
+
+def _twelve_files() -> dict:
+    """12-bit files of every layout cv2.imread reads with
+    IMREAD_ANYDEPTH: one and three or four samples, signed, min-is-white,
+    palette (neither inverted nor looked up), strips, tiles, LZW and
+    Deflate, big-endian, FillOrder 2, orientation 3."""
+    rng = np.random.default_rng(79)
+    v = rng.integers(0, 4096, (21, 35)).astype(np.uint16)
+    v3 = rng.integers(0, 4096, (21, 35, 3)).astype(np.uint16)
+    v4 = rng.integers(0, 4096, (21, 35, 4)).astype(np.uint16)
+    enc = tiff.encode_tiff
+    return {
+        "gray_tiles": enc(v, tile=(16, 16), twelve_bit=True),
+        "gray_big_endian": enc(v, big_endian=True, twelve_bit=True),
+        "gray_fill_order_2": enc(v, fill_order=2, twelve_bit=True),
+        "gray_deflate_strips": enc(v, "deflate", rows_per_strip=4,
+                                   twelve_bit=True),
+        "gray_orientation_3": enc(v, orientation=3, twelve_bit=True),
+        "rgb": enc(v3, twelve_bit=True),
+        "rgb_lzw_tiles": enc(v3, "lzw", tile=(16, 16), twelve_bit=True),
+        "rgb_signed": enc(v3, twelve_bit=True, tags={339: (3, [2] * 3)}),
+        "rgba_signed": enc(v4, twelve_bit=True, tags={339: (3, [2] * 4)}),
+        "gray_of_3_samples": enc(v3, photometric=1, twelve_bit=True),
+        "palette_of_3_samples": enc(v3, photometric=3, twelve_bit=True),
+        "signed_min_is_white": enc(v, photometric=0, twelve_bit=True,
+                                   tags={339: (3, [2])}),
+        "one_plane_separate": enc(v, planar=2, twelve_bit=True),
+    }
+
+
+@pytest.mark.parametrize("name", list(_twelve_files()))
+def test_twelve_bit_samples_read_as_cv2_reads(name, tmp_path):
+    """12-bit samples (module docstring of data/tiff.py, _twelve_bits):
+    each layout bit for bit with cv2.imread in both modes (colour: None,
+    ValueError), and LZW strips cut or overwritten refused where cv2
+    returns None."""
+    data = _twelve_files()[name]
+    path = _same(data, tmp_path)
+    assert cv2.imread(str(path), cv2.IMREAD_ANYDEPTH) is not None
+    if name == "rgb_lzw_tiles":
+        _chunk_damage(data, tmp_path, np.random.default_rng(80), 10)
+
+
+def _logluv24_cv2(img: np.ndarray, tmp_path) -> bytes:
+    """``cv2.imwrite``'s SGI LogLuv24 file of float ``img`` ([H, W, 3]
+    BGR)."""
+    path = tmp_path / "w.tif"
+    assert cv2.imwrite(str(path), img, [
+        cv2.IMWRITE_TIFF_COMPRESSION, cv2.IMWRITE_TIFF_COMPRESSION_SGILOG24])
+    return path.read_bytes()
+
+
+def test_logluv24_reads_as_cv2_reads(tmp_path):
+    """SGI LogLuv24 (photometric 32845 under SGI Log24: three bytes a
+    pixel, a 10-bit log luminance and a 14-bit index into libtiff's uv
+    table, csrc/host/tiff_uvtable.h), read in colour as libtiff's RGBA
+    interface reads it (LogLuv24toXYZ, XYZtoRGB24): cv2.imwrite's files
+    of random, saturating, zero, negative and very large values, and the
+    port's encoder's codes over the whole 24-bit range with uv indices
+    past the table (libtiff's uv_decode fails there and the neutral
+    colour is taken), in one strip, strips of 5 rows, 16 x 16 tiles and
+    big-endian; each strip cut and overwritten; bit for bit with
+    cv2.imread, whose IMREAD_ANYDEPTH read fails (ValueError); separate
+    planes refused as cv2 refuses them."""
+    rng = np.random.default_rng(81)
+    shape = (21, 35, 3)
+    for img in (rng.random(shape), rng.random(shape) * 50,
+                np.zeros(shape), rng.random(shape) - 0.5,
+                rng.random(shape) * 1e20):
+        _same(_logluv24_cv2(img.astype(np.float32), tmp_path), tmp_path)
+    codes = rng.integers(0, 1 << 24, shape[:2]).astype(np.uint32)
+    codes[:, :6] = (codes[:, :6] & np.uint32(0xffc000)) | rng.integers(
+        16280, 16384, (21, 6)).astype(np.uint32)
+    for layout in ({}, dict(rows_per_strip=5), dict(tile=(16, 16)),
+                   dict(big_endian=True)):
+        _same(tiff.encode_tiff(codes, "sgilog24", **layout), tmp_path)
+    data = tiff.encode_tiff(codes, "sgilog24", rows_per_strip=5)
+    _strip_damage(data, tmp_path, rng, mutations=20)
+    path = _same(tiff.encode_tiff(codes, "sgilog24", planar=2), tmp_path)
+    assert cv2.imread(str(path)) is None
+
+
+@pytest.mark.parametrize("scheme", [34676, 34677])
+@pytest.mark.parametrize("bits,fmt", [(1, 1), (4, 2), (8, 4), (16, 1),
+                                      (16, 3), (12, 1), (32, 1), (32, 3),
+                                      (64, 2)])
+def test_logluv_sample_fields(scheme, bits, fmt, tmp_path):
+    """LogLuv's BitsPerSample and SampleFormat, which libtiff's codec
+    overrides and OpenCV checks: read at 1, 2, 4, 8 and 16 bits of any
+    format but floating point, refused (cv2 returns None) at 12, 24, 32
+    and 64 bits and of floating-point samples, for LogLuv24 and LogLuv32
+    alike (probed with cv2.imread)."""
+    rng = np.random.default_rng(82)
+    data = tiff.encode_tiff(rng.integers(0, 1 << 24, (9, 13)).astype(
+        np.uint32), "sgilog24")
+    if scheme == 34676:
+        data = _patch(data, 259, 34676)
+    for k in range(3):
+        data = _patch(_patch(data, 258, bits, k), 339, fmt, k)
+    path = _same(data, tmp_path, (False,))
+    assert (cv2.imread(str(path)) is None) == (
+        bits not in (1, 2, 4, 8, 16) or fmt == 3)
 
 
 def _logluv32(codes: np.ndarray, **layout) -> bytes:
