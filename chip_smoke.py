@@ -254,10 +254,30 @@ Sixteen phases; any failure exits non-zero.
    both streams feed equal frames and depth, ``track()`` makes equal K1
    and K2 launches over them, and the HT stream's host ms per fed frame
    against the PNG's.
+19. The EXIF orientation of PNG and WebP files, and lossless AVIF, on the
+   card machine's host: PNGs (8-bit colour in both byte orders, the
+   ``eXIf`` chunk before and after the image data, and a 16-bit depth
+   map) and lossless WebPs with an ``EXIF`` chunk at orientations 0-9,
+   each read in both modes as the stored samples flipped and transposed
+   by hand; the committed files of ``tests/data/avif`` (from
+   ``scripts/make_avif_fixtures_torch.py``: libaom's through cv2.imwrite
+   at speeds 0-9, 8 to 12 bits, colour and gray, screen content with
+   palettes and intra block copy, Pillow's tiles, the port's writer's)
+   decoded to the SHA-256 of ``cv2.imread``'s arrays, or refused where it
+   returns None, the queued ones (lossy AV1, BT.601 colour, a sequence)
+   raising NotImplementedError naming the feature; a rendered 480 x 640
+   frame and its depth's top 12 bits through the port's AV1 writer, each
+   read back as written, with the host's median decode ms; a cut and a
+   damaged AVIF and one whose ``irot`` is not marked essential refused.
+   A 16-frame TUM fr1 sequence written twice, lossless AVIF colour with
+   12-bit AVIF depth and PNG colour with 16-bit PNG depth of the same
+   12-bit values, tracked as in phase 12: both streams feed equal frames
+   and depth, ``track()`` makes equal K1 and K2 launches over them, and
+   the AVIF stream's host ms per fed frame against the PNG's.
 
 Before the last line it prints the tracking, terminate, training, fp32
 tracking, world-size-1, entry-point, 3DGS, JPEG, oracle, the five
-format reports, the scaling report and phase 18's report, the
+format reports, the scaling report and phases 18 and 19's reports, the
 run's wall time, the
 card's name and power limit, and one JSON line with each kernel's error,
 time, bound and launches.  The last line is ``{"ok": true, "device": {...}}``.
@@ -285,7 +305,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from lgu_slam_tpu_torch.data import gif, hdr, jp2, pnm, sunras, tiff, webp
+from lgu_slam_tpu_torch.data import (avif, gif, hdr, jp2, pnm, sunras, tiff,
+                                     webp)
 from lgu_slam_tpu_torch.data.fixtures import (
     REPLICA_CAM,
     TUM_FR1,
@@ -3522,6 +3543,183 @@ def print_phase_18(report: dict) -> None:
           f"{report['feed_ratio']:.3f}; {report['seconds']:.0f} s")
 
 
+# -- phase 19: EXIF orientation of PNG and WebP, lossless AVIF ------------
+
+AVIF_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "avif"
+PHASE_19_FRAMES = 16
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    import zlib
+
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body)))
+
+
+def _exif_block(value: int, order: str) -> bytes:
+    e = "<" if order == "II" else ">"
+    return (order.encode() + struct.pack(e + "HIHHHIHHI", 42, 8, 1, 0x112,
+                                         3, 1, value, 0, 0))
+
+
+def orientation_cases() -> list:
+    """(name, bytes, stored samples as cv2 returns them unoriented, read
+    mode, orientation): PNGs with an eXIf chunk (before or after IDAT,
+    both byte orders, a 16-bit depth map under IMREAD_ANYDEPTH) and
+    lossless WebPs (VP8X with the EXIF flag) at orientations 0-9."""
+    images, depths = render_sequence(SEED + 27, 1, 60, 80, TUM_FR1, 0.02,
+                                     0.004)[:2]
+    img = images[0]
+    d16 = np.clip(np.rint(depths[0] * 5000.0), 0, 65535).astype(np.uint16)
+    png, dpng = encode_png(img), encode_png(d16)
+    vp8l = webp.encode_webp_lossless(img)[12:]
+    vp8x = b"VP8X" + struct.pack("<I", 10) + struct.pack("<I", 8) + \
+        (79).to_bytes(3, "little") + (59).to_bytes(3, "little")
+    cases = []
+    for o in range(10):
+        for order, place in (("II", "before"), ("MM", "after")):
+            chunk = _png_chunk(b"eXIf", _exif_block(o, order))
+            at = 33 if place == "before" else len(png) - 12
+            cases.append((f"PNG {order} {place} IDAT {o}",
+                          png[:at] + chunk + png[at:], img, False, o))
+        chunk = _png_chunk(b"eXIf", _exif_block(o, "MM"))
+        cases.append((f"PNG 16-bit depth {o}", dpng[:33] + chunk + dpng[33:],
+                      d16, True, o))
+        block = _exif_block(o, "II")
+        body = b"WEBP" + vp8x + vp8l + b"EXIF" + struct.pack(
+            "<I", len(block)) + block
+        cases.append((f"WebP {o}", b"RIFF" + struct.pack("<I", len(body))
+                      + body, img, False, o))
+    return cases
+
+
+# EXIF orientation 2-8 applied to stored samples ``a`` ([H, W] or
+# [H, W, C]), written out here apart from the port's own table
+ORIENTED = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1],
+            4: lambda a: a[::-1], 5: lambda a: a.swapaxes(0, 1),
+            6: lambda a: a.swapaxes(0, 1)[:, ::-1],
+            7: lambda a: a.swapaxes(0, 1)[::-1, ::-1],
+            8: lambda a: a.swapaxes(0, 1)[::-1]}
+
+
+def phase_orientation(root: Path) -> dict:
+    """Each of :func:`orientation_cases` reads, in its mode, as its stored
+    samples flipped and transposed by hand (``ORIENTED``; 0, 1 and 9 as
+    stored)."""
+    path = root / "oriented"
+    n = 0
+    for name, data, stored, anydepth, o in orientation_cases():
+        path.write_bytes(data)
+        want = ORIENTED.get(o, lambda a: a)(stored)
+        got = imread(str(path), anydepth=anydepth)
+        check(got.shape == want.shape and np.array_equal(got, want),
+              f"phase 19: {name} is not oriented as cv2.imread orients it")
+        n += 1
+    return dict(files=n, ms=host_ms(lambda _: imread(str(path)), range(5)))
+
+
+def avif_queued(name: str) -> bool:
+    hashes = json.loads((AVIF_FIXTURES / "hashes.json").read_text())
+    return bool(hashes[name].get("queued"))
+
+
+def formats_19_cases() -> list:
+    """:func:`format_cases`' tuples of a rendered 480 x 640 frame through
+    the port's lossless AVIF writer and of its depth's top 12 bits as a
+    12-bit gray AVIF."""
+    images, depths = render_sequence(SEED + 28, 1, 480, 640, TUM_FR1, 0.02,
+                                     0.004)[:2]
+    img = images[0]
+    d16 = np.clip(np.rint(depths[0] * 5000.0), 0, 65535).astype(np.uint16)
+    top = np.minimum(d16 >> 4, 4095).astype(np.uint16)
+    return [("AVIF lossless colour", avif.encode_avif(img), False, img,
+             None),
+            ("AVIF 12-bit depth", avif.encode_avif(top, 12), True, top,
+             None)]
+
+
+def refusals_19() -> list:
+    """Files OpenCV refuses: an AVIF cut inside its tile, one with three
+    bytes of its tile data changed (libaom's trailing bit check), one
+    whose irot is not marked essential, a gray image with alpha (OpenCV's
+    reader takes no two-channel image), one whose sequence header's
+    trailing bits are wrong (libaom's check)."""
+    img = render_sequence(SEED + 28, 1, 48, 64, TUM_FR1, 0.02, 0.004)[0][0]
+    data = avif.encode_avif(img)
+    damaged = bytearray(data)
+    for k in (40, 300, 900):
+        damaged[-k] ^= 0x24
+    trailing = bytearray(data)
+    # the writer's sequence header OBU: 0x0a, its size 11, 11 bytes
+    trailing[data.index(b"mdat") + 4 + 12] |= 1
+    gray = img[..., 1].copy()
+    return [("AVIF cut", data[:-500]), ("AVIF damaged", bytes(damaged)),
+            ("AVIF irot not essential", avif.encode_avif(
+                img, extra_props=[avif._box(b"irot", bytes([1]))])),
+            ("AVIF gray with alpha", avif.encode_avif(gray, alpha=gray)),
+            ("AVIF sequence header trailing bits", bytes(trailing))]
+
+
+def phase_19(dev, kernels: dict) -> dict:
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        report = dict(orientation=phase_orientation(root))
+        report["codecs"] = phase_format_codecs(root, formats_19_cases(), 19)
+        report["committed_avif"] = phase_committed(
+            AVIF_FIXTURES, 19, keep=lambda name: not avif_queued(name))
+        queued = {}
+        for name, want in json.loads(
+                (AVIF_FIXTURES / "hashes.json").read_text()).items():
+            if not want.get("queued"):
+                continue
+            for mode in (False, True):
+                try:
+                    imread(str(AVIF_FIXTURES / name), anydepth=mode)
+                    fail(f"phase 19: {name} read; it is queued")
+                except NotImplementedError as e:
+                    check(want["queued"] in str(e),
+                          f"phase 19: {name} refused as {e}")
+            queued[name] = want["queued"]
+        report["queued"] = queued
+        report["refused"] = refusals(root, refusals_19(), 19)
+        runs = phase_format_track(
+            dev, kernels, root / "tum", n_frames=PHASE_19_FRAMES,
+            seed=SEED + 29, phase=19,
+            pairs=(("avif", "12bit-avif"), ("png", "12bit-avif-png")),
+            key="launches_formats_19")
+    avif_run, png_run = runs.values()
+    for name in ("k1_launches_track", "k2_launches_track"):
+        check(avif_run[name] == png_run[name],
+              f"phase 19: {name} {avif_run[name]} (AVIF + 12-bit AVIF) != "
+              f"{png_run[name]} (PNG + 16-bit PNG)")
+    report["feed_ratio"] = avif_run["feed_ms"] / png_run["feed_ms"]
+    report["tum"] = runs
+    report["seconds"] = time.perf_counter() - t_start
+    return report
+
+
+def print_phase_19(report: dict) -> None:
+    codecs = ", ".join(f"{k} {v['decode_ms']:.2f}" for k, v in
+                       report["codecs"].items())
+    committed = [v["decode_ms"] for v in report["committed_avif"].values()
+                 if not v.get("refused")]
+    tum = "; ".join(
+        f"{k}: fed {v['feed_ms']:.2f} ms per frame, {v['keyframes']} "
+        f"keyframes, {v['ms_per_keyframe_median']:.1f} ms per keyframe "
+        f"update, K1 {v['k1_launches']} / K2 {v['k2_launches']} launches "
+        f"(track {v['k1_launches_track']} / {v['k2_launches_track']})"
+        for k, v in report["tum"].items())
+    print(f"phase 19: {report['orientation']['files']} PNG / WebP files "
+          f"oriented as cv2.imread orients them; host decode ms of 480 x "
+          f"640 frames: {codecs}; {len(committed)} committed AVIF files "
+          f"equal to cv2's hashes ({min(committed):.2f}-"
+          f"{max(committed):.2f} ms), {len(report['queued'])} queued, "
+          f"{len(report['refused'])} refusals; TUM RGB-D at 384 x 512, "
+          f"equal frames and depth from both streams: {tum}; AVIF / PNG "
+          f"feed {report['feed_ratio']:.3f}; {report['seconds']:.0f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke run needs an NVIDIA GPU")
@@ -3602,9 +3800,12 @@ def main():
     torch.cuda.empty_cache()
     formats_18 = phase_18(dev, kernels)
     print_phase_18(formats_18)
+    torch.cuda.empty_cache()
+    formats_19 = phase_19(dev, kernels)
+    print_phase_19(formats_19)
     # launches on the main path: K1 bf16 and K2 over track() +
     # terminate(), phase 8's entry points, phase 10's JPEG runs, phases
-    # 12-16's and 18's TUM tracks and phase 17's backend passes, K2 also
+    # 12-16's, 18's and 19's TUM tracks and phase 17's backend passes, K2 also
     # over phase 7's sharded backend pass, K1 fp32 operands over phase 6's
     # track()
     for name in ("masked_corr_level0_tc", "fused_pyramid_lookup"):
@@ -3615,7 +3816,7 @@ def main():
             k["launches_formats"] + k["launches_arith"] + \
             k["launches_formats_14"] + k["launches_formats_15"] + \
             k["launches_formats_16"] + k["launches_scaling_17"] + \
-            k["launches_formats_18"]
+            k["launches_formats_18"] + k["launches_formats_19"]
     k = kernels["masked_corr_level0_tf32"]
     k["launches"] = k["launches_track_fp32"]
     for k in kernels.values():
@@ -3638,6 +3839,7 @@ def main():
     print(json.dumps({"formats_16": formats_16}))
     print(json.dumps({"scaling_17": scaling_17}))
     print(json.dumps({"formats_18": formats_18}))
+    print(json.dumps({"formats_19": formats_19}))
     print(json.dumps({"seconds": seconds}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": list(kernels.values())}))

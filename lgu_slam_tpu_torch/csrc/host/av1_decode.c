@@ -1,0 +1,922 @@
+/* A lossless AV1 intra decoder for the port's AVIF reader (data/avif.py):
+ * the OBUs of one still image (sequence header, frame or frame header and
+ * tile groups) decoded to 16-bit planes as libaom 3.14 decodes them.
+ *
+ * Read: profiles 0-2, 8 / 10 / 12 bits, mono_chrome, the reduced still
+ * picture header and full key frame headers, tiles (uniform or not), 64 or
+ * 128 superblocks, every partition, the intra mode info of a lossless key
+ * frame (skip, y and uv modes, angle deltas, CfL, palettes with their
+ * colour cache, filter intra) and the 4 x 4 Walsh-Hadamard coefficients;
+ * the tile syntax and reconstruction are in av1_core.h.  The OBUs are
+ * checked as libaom's aom_decode_frame_from_obus checks them (sizes,
+ * trailing bits and zero padding, reserved types, the operating point,
+ * tile group order, zero bytes between frames).  A frame that is not
+ * coded lossless, or uses superres, film grain, segmentation,
+ * show_existing_frame or a frame type but a key / intra-only frame, and
+ * a second frame in the data, return ERR_NOTIMPL naming it (a later
+ * reader takes it up); a stream libaom refuses (a cut header, a tile that
+ * reads past its bytes, a Golomb code longer than 20 bits, ...)
+ * ERR_VALUE.
+ *
+ * Entry points (ctypes, data/avif.py):
+ *   av1_info(data, n, info[12], err, errlen): the frame's width, height,
+ *     bit depth, mono_chrome, subsampling x / y, matrix coefficients,
+ *     colour range, colour primaries, transfer characteristics, profile,
+ *     still_picture;
+ *   av1_decode(data, n, out, planes, H, W, err, errlen): the planes, each
+ *     H x W uint16.
+ */
+#include "av1_core.h"
+
+static Choice *enc_choice(Av1 *f)
+{
+    (void)f;
+    return NULL;
+}
+
+static int enc_partition(Av1 *f, int r, int c, int bsize)
+{
+    (void)f;
+    (void)r;
+    (void)c;
+    (void)bsize;
+    return 0;
+}
+
+static void forward_wht(Av1 *f, int plane, int x, int y)
+{
+    (void)f;
+    (void)plane;
+    (void)x;
+    (void)y;
+}
+
+/* -- header bits ---------------------------------------------------------- */
+
+typedef struct {
+    Av1 *f;
+    const uint8_t *p;
+    int64_t n, pos; /* bits */
+} Bits;
+
+static uint32_t fb(Bits *b, int n)
+{
+    uint32_t v = 0;
+    for (int i = 0; i < n; i++) {
+        if (b->pos >= b->n * 8)
+            av1_fail(b->f, ERR_VALUE, "AV1: a header ends early");
+        v = (v << 1) | ((b->p[b->pos >> 3] >> (7 - (b->pos & 7))) & 1);
+        b->pos++;
+    }
+    return v;
+}
+
+static int su(Bits *b, int n)
+{
+    int v = (int)fb(b, n), m = 1 << (n - 1);
+    return (v & m) ? v - 2 * m : v;
+}
+
+static uint32_t ns(Bits *b, uint32_t n)
+{
+    int w = 0;
+    for (uint32_t x = n; x > 1; x >>= 1)
+        w++;
+    w++;
+    uint32_t m = (1u << w) - n, v = fb(b, w - 1);
+    return v < m ? v : (v << 1) - m + fb(b, 1);
+}
+
+static uint32_t uvlc(Bits *b)
+{
+    int lz = 0;
+    while (!fb(b, 1))
+        if (++lz >= 32)
+            return 0xFFFFFFFFu;
+    return lz ? fb(b, lz) + ((1u << lz) - 1) : 0;
+}
+
+/* libaom's av1_check_trailing_bits, then its check that the rest of the
+ * OBU's payload is zero */
+static void trailing_bits(Av1 *f, Bits *b, const char *what)
+{
+    int n = 8 - (int)(b->pos & 7);
+    if (fb(b, n) != 1u << (n - 1))
+        av1_fail(f, ERR_VALUE, "AV1: the %s's trailing bits", what);
+    for (int64_t k = b->pos >> 3; k < b->n; k++)
+        if (b->p[k])
+            av1_fail(f, ERR_VALUE, "AV1: nonzero padding after the %s",
+                     what);
+}
+
+/* libaom's byte_alignment: zero bits up to the next byte */
+static void byte_alignment(Av1 *f, Bits *b)
+{
+    while (b->pos & 7)
+        if (fb(b, 1))
+            av1_fail(f, ERR_VALUE, "AV1: byte_alignment() is not all 0 "
+                     "bits");
+}
+
+/* libaom's is_valid_seq_level_idx: the levels AV1 defines, and 31 */
+static int valid_level(int level)
+{
+    return level == 31 || (level < 20 && ((level & 3) < 2 || level >= 12));
+}
+
+static int tile_log2(int blk, int target)
+{
+    int k = 0;
+    while ((blk << k) < target)
+        k++;
+    return k;
+}
+
+/* -- sequence header (5.5) ------------------------------------------------ */
+
+static void sequence_header(Av1 *f, Bits *b)
+{
+    f->profile = (int)fb(b, 3);
+    if (f->profile > 2)
+        av1_fail(f, ERR_VALUE, "AV1: profile %d", f->profile);
+    f->still = (int)fb(b, 1);
+    f->reduced = (int)fb(b, 1);
+    int delay_bits = 0;
+    f->decoder_model_info = 0;
+    f->equal_picture_interval = 0;
+    if (f->reduced && !f->still)
+        av1_fail(f, ERR_VALUE, "AV1: a reduced header of a non-still "
+                 "picture");
+    if (f->reduced) {
+        f->op_count = 1;
+        f->op_idc[0] = 0;
+        int level = (int)fb(b, 5);
+        if (!valid_level(level))
+            av1_fail(f, ERR_VALUE, "AV1: seq_level_idx %d", level);
+        f->op_model[0] = 0;
+    } else {
+        if (fb(b, 1)) { /* timing_info_present_flag */
+            if (!fb(b, 32) || !fb(b, 32))
+                av1_fail(f, ERR_VALUE, "AV1: a timing tick or scale of 0");
+            f->equal_picture_interval = (int)fb(b, 1);
+            if (f->equal_picture_interval && uvlc(b) == 0xFFFFFFFFu)
+                av1_fail(f, ERR_VALUE, "AV1: num_ticks_per_picture");
+            f->decoder_model_info = (int)fb(b, 1);
+            if (f->decoder_model_info) {
+                delay_bits = (int)fb(b, 5) + 1;
+                fb(b, 32);
+                f->removal_time_bits = (int)fb(b, 5) + 1;
+                f->presentation_time_bits = (int)fb(b, 5) + 1;
+            }
+        }
+        int initial_display = (int)fb(b, 1);
+        f->op_count = (int)fb(b, 5) + 1;
+        for (int i = 0; i < f->op_count; i++) {
+            f->op_idc[i] = (int)fb(b, 12);
+            int level = (int)fb(b, 5);
+            if (!valid_level(level))
+                av1_fail(f, ERR_VALUE, "AV1: seq_level_idx %d", level);
+            if (level > 7)
+                fb(b, 1);
+            f->op_model[i] = 0;
+            if (f->decoder_model_info) {
+                f->op_model[i] = (int)fb(b, 1);
+                if (f->op_model[i]) {
+                    fb(b, delay_bits);
+                    fb(b, delay_bits);
+                    fb(b, 1);
+                }
+            }
+            if (initial_display && fb(b, 1) && fb(b, 4) + 1 > 10)
+                av1_fail(f, ERR_VALUE, "AV1: an initial display delay "
+                         "past 10 frames");
+        }
+    }
+    f->width_bits = (int)fb(b, 4) + 1;
+    f->height_bits = (int)fb(b, 4) + 1;
+    f->max_w = (int)fb(b, f->width_bits) + 1;
+    f->max_h = (int)fb(b, f->height_bits) + 1;
+    f->frame_id_present = f->reduced ? 0 : (int)fb(b, 1);
+    if (f->frame_id_present) {
+        int delta = (int)fb(b, 4) + 2;
+        f->frame_id_bits = (int)fb(b, 3) + delta + 1;
+        if (f->frame_id_bits > 16)
+            av1_fail(f, ERR_VALUE, "AV1: frame_id_length %d",
+                     f->frame_id_bits);
+    }
+    f->use128 = (int)fb(b, 1);
+    f->filter_intra_en = (int)fb(b, 1);
+    f->edge_filter_en = (int)fb(b, 1);
+    f->order_hint_bits = 0;
+    if (f->reduced) {
+        f->sct_force = 2;
+        f->intmv_force = 2;
+    } else {
+        fb(b, 1); /* interintra compound */
+        fb(b, 1); /* masked compound */
+        fb(b, 1); /* warped motion */
+        fb(b, 1); /* dual filter */
+        int order_hint = (int)fb(b, 1);
+        if (order_hint) {
+            fb(b, 1); /* jnt comp */
+            fb(b, 1); /* ref frame mvs */
+        }
+        if (fb(b, 1)) /* seq_choose_screen_content_tools */
+            f->sct_force = 2;
+        else
+            f->sct_force = (int)fb(b, 1);
+        if (f->sct_force > 0) {
+            if (fb(b, 1))
+                f->intmv_force = 2;
+            else
+                f->intmv_force = (int)fb(b, 1);
+        } else {
+            f->intmv_force = 2;
+        }
+        if (order_hint)
+            f->order_hint_bits = (int)fb(b, 3) + 1;
+    }
+    f->superres_en = (int)fb(b, 1);
+    f->cdef_en = (int)fb(b, 1);
+    f->lr_en = (int)fb(b, 1);
+    /* color_config */
+    int high = (int)fb(b, 1);
+    if (f->profile == 2 && high)
+        f->bitdepth = fb(b, 1) ? 12 : 10;
+    else
+        f->bitdepth = high ? 10 : 8;
+    f->mono = f->profile == 1 ? 0 : (int)fb(b, 1);
+    f->cp = f->tc = f->mc = 2;
+    if (fb(b, 1)) {
+        f->cp = (int)fb(b, 8);
+        f->tc = (int)fb(b, 8);
+        f->mc = (int)fb(b, 8);
+    }
+    f->separate_uv_delta_q = 0;
+    f->csp = 0;
+    if (f->mono) {
+        f->range = (int)fb(b, 1);
+        f->ssx = f->ssy = 1;
+    } else if (f->cp == 1 && f->tc == 13 && f->mc == 0) {
+        f->range = 1;
+        f->ssx = f->ssy = 0;
+        if (!(f->profile == 1 || (f->profile == 2 && f->bitdepth == 12)))
+            av1_fail(f, ERR_VALUE, "AV1: sRGB in profile %d", f->profile);
+    } else {
+        f->range = (int)fb(b, 1);
+        if (f->profile == 0) {
+            f->ssx = f->ssy = 1;
+        } else if (f->profile == 1) {
+            f->ssx = f->ssy = 0;
+        } else if (f->bitdepth == 12) {
+            f->ssx = (int)fb(b, 1);
+            f->ssy = f->ssx ? (int)fb(b, 1) : 0;
+        } else {
+            f->ssx = 1;
+            f->ssy = 0;
+        }
+        if (f->mc == 0 && (f->ssx || f->ssy))
+            av1_fail(f, ERR_VALUE, "AV1: the identity matrix on subsampled "
+                     "chroma");
+        if (f->ssx && f->ssy)
+            f->csp = (int)fb(b, 2);
+    }
+    if (!f->mono)
+        f->separate_uv_delta_q = (int)fb(b, 1);
+    f->film_grain_present = (int)fb(b, 1);
+    f->nplanes = f->mono ? 1 : 3;
+    f->seq_seen = 1;
+}
+
+/* -- frame header (5.9) --------------------------------------------------- */
+
+static int read_delta_q(Bits *b)
+{
+    return fb(b, 1) ? su(b, 7) : 0;
+}
+
+static void tile_info(Av1 *f, Bits *b)
+{
+    int sb_cols = f->use128 ? (f->MiCols + 31) >> 5 : (f->MiCols + 15) >> 4;
+    int sb_rows = f->use128 ? (f->MiRows + 31) >> 5 : (f->MiRows + 15) >> 4;
+    int sb_shift = f->use128 ? 5 : 4, sb_size = sb_shift + 2;
+    int max_w_sb = 4096 >> sb_size;
+    int max_area_sb = (4096 * 2304) >> (2 * sb_size);
+    int min_log2_cols = tile_log2(max_w_sb, sb_cols);
+    int max_log2_cols = tile_log2(1, sb_cols < 64 ? sb_cols : 64);
+    int max_log2_rows = tile_log2(1, sb_rows < 64 ? sb_rows : 64);
+    int min_log2_tiles = tile_log2(max_area_sb, sb_rows * sb_cols);
+    if (min_log2_tiles < min_log2_cols)
+        min_log2_tiles = min_log2_cols;
+    int i;
+    if (fb(b, 1)) { /* uniform_tile_spacing_flag */
+        f->tile_cols_log2 = min_log2_cols;
+        while (f->tile_cols_log2 < max_log2_cols && fb(b, 1))
+            f->tile_cols_log2++;
+        int w = (sb_cols + (1 << f->tile_cols_log2) - 1) >> f->tile_cols_log2;
+        i = 0;
+        for (int s = 0; s < sb_cols; s += w)
+            f->col_starts[i++] = s << sb_shift;
+        f->col_starts[i] = f->MiCols;
+        f->tile_cols = i;
+        int min_log2_rows = min_log2_tiles - f->tile_cols_log2;
+        f->tile_rows_log2 = min_log2_rows > 0 ? min_log2_rows : 0;
+        while (f->tile_rows_log2 < max_log2_rows && fb(b, 1))
+            f->tile_rows_log2++;
+        int h = (sb_rows + (1 << f->tile_rows_log2) - 1) >> f->tile_rows_log2;
+        i = 0;
+        for (int s = 0; s < sb_rows; s += h)
+            f->row_starts[i++] = s << sb_shift;
+        f->row_starts[i] = f->MiRows;
+        f->tile_rows = i;
+    } else {
+        int widest = 0, s = 0;
+        for (i = 0; s < sb_cols; i++) {
+            if (i >= MAX_TILES)
+                av1_fail(f, ERR_VALUE, "AV1: more than 64 tile columns");
+            f->col_starts[i] = s << sb_shift;
+            int mw = sb_cols - s < max_w_sb ? sb_cols - s : max_w_sb;
+            int size = (int)ns(b, (uint32_t)mw) + 1;
+            if (size > widest)
+                widest = size;
+            s += size;
+        }
+        f->col_starts[i] = f->MiCols;
+        f->tile_cols = i;
+        f->tile_cols_log2 = tile_log2(1, f->tile_cols);
+        int area = min_log2_tiles > 0 ? (sb_rows * sb_cols) >>
+                   (min_log2_tiles + 1) : sb_rows * sb_cols;
+        int max_h_sb = area / widest > 1 ? area / widest : 1;
+        s = 0;
+        for (i = 0; s < sb_rows; i++) {
+            if (i >= MAX_TILES)
+                av1_fail(f, ERR_VALUE, "AV1: more than 64 tile rows");
+            f->row_starts[i] = s << sb_shift;
+            int mh = sb_rows - s < max_h_sb ? sb_rows - s : max_h_sb;
+            s += (int)ns(b, (uint32_t)mh) + 1;
+        }
+        f->row_starts[i] = f->MiRows;
+        f->tile_rows = i;
+        f->tile_rows_log2 = tile_log2(1, f->tile_rows);
+    }
+    f->context_update_tile_id = 0;
+    f->tile_size_bytes = 4;
+    if (f->tile_cols_log2 > 0 || f->tile_rows_log2 > 0) {
+        f->context_update_tile_id =
+            (int)fb(b, f->tile_rows_log2 + f->tile_cols_log2);
+        if (f->context_update_tile_id >= f->tile_cols * f->tile_rows)
+            av1_fail(f, ERR_VALUE, "AV1: context_update_tile_id %d",
+                     f->context_update_tile_id);
+        f->tile_size_bytes = (int)fb(b, 2) + 1;
+    }
+}
+
+/* the first tool of the frame this decoder does not read: it is refused
+ * (ERR_NOTIMPL) once the whole header has been checked */
+static void unread(Av1 *f, const char *fmt, int v)
+{
+    if (!f->unread[0])
+        snprintf(f->unread, sizeof f->unread, fmt, v);
+}
+
+static void loop_filter_params(Av1 *f, Bits *b)
+{
+    int l0 = (int)fb(b, 6), l1 = (int)fb(b, 6);
+    if (f->nplanes > 1 && (l0 || l1))
+        fb(b, 12);
+    fb(b, 3); /* sharpness */
+    if (fb(b, 1) && fb(b, 1)) /* delta enabled, delta update */
+        for (int i = 0; i < 10; i++)
+            if (fb(b, 1))
+                su(b, 7);
+}
+
+static void cdef_params(Av1 *f, Bits *b)
+{
+    fb(b, 2); /* damping */
+    int n = 1 << fb(b, 2);
+    for (int i = 0; i < n; i++)
+        fb(b, f->nplanes > 1 ? 12 : 6);
+}
+
+static void lr_params(Av1 *f, Bits *b)
+{
+    int uses = 0, chroma = 0;
+    for (int i = 0; i < f->nplanes; i++)
+        if (fb(b, 2)) {
+            uses = 1;
+            chroma |= i > 0;
+        }
+    if (!uses)
+        return;
+    if (fb(b, 1) && !f->use128)
+        fb(b, 1);
+    if (f->ssx && f->ssy && chroma)
+        fb(b, 1);
+}
+
+/* the scaling points of one plane (libaom: at most max, increasing) */
+static int grain_points(Av1 *f, Bits *b, int max)
+{
+    int n = (int)fb(b, 4), prev = -1;
+    if (n > max)
+        av1_fail(f, ERR_VALUE, "AV1: %d film grain points", n);
+    for (int i = 0; i < n; i++) {
+        int x = (int)fb(b, 8);
+        if (x <= prev)
+            av1_fail(f, ERR_VALUE, "AV1: film grain points that do not "
+                     "increase");
+        prev = x;
+        fb(b, 8);
+    }
+    return n;
+}
+
+/* film_grain_params of an intra frame with apply_grain set */
+static void film_grain_params(Av1 *f, Bits *b)
+{
+    fb(b, 16); /* grain_seed; update_grain is 1 in an intra frame */
+    int ny = grain_points(f, b, 14), ncb = 0, ncr = 0;
+    int from_luma = f->mono ? 0 : (int)fb(b, 1);
+    if (!(f->mono || from_luma || (f->ssx && f->ssy && !ny))) {
+        ncb = grain_points(f, b, 10);
+        ncr = grain_points(f, b, 10);
+        if (f->ssx && f->ssy && !ncb != !ncr)
+            av1_fail(f, ERR_VALUE, "AV1: film grain on one chroma plane "
+                     "of 4:2:0");
+    }
+    fb(b, 2); /* grain_scaling_minus_8 */
+    int lag = (int)fb(b, 2), luma = 2 * lag * (lag + 1);
+    int chroma = luma + (ny > 0);
+    if (ny)
+        for (int i = 0; i < luma; i++)
+            fb(b, 8);
+    for (int k = 0; k < 2; k++)
+        if (from_luma || (k ? ncr : ncb))
+            for (int i = 0; i < chroma; i++)
+                fb(b, 8);
+    fb(b, 4); /* ar_coeff_shift_minus_6, grain_scale_shift */
+    if (ncb)
+        fb(b, 25);
+    if (ncr)
+        fb(b, 25);
+    fb(b, 2); /* overlap_flag, clip_to_restricted_range */
+}
+
+/* an intra frame's uncompressed header (5.9); first: no frame decoded
+ * yet, where libaom refuses a frame that needs one */
+static void frame_header(Av1 *f, Bits *b, int first)
+{
+    int frame_type = 0, show_frame = 1, showable = 0, error_resilient = 1;
+    f->unread[0] = 0;
+    if (!f->seq_seen)
+        av1_fail(f, ERR_VALUE, "AV1: a frame before the sequence header");
+    if (!f->reduced) {
+        if (fb(b, 1)) {
+            if (first)
+                av1_fail(f, ERR_VALUE, "AV1: show_existing_frame before a "
+                         "frame");
+            av1_fail(f, ERR_NOTIMPL, "AVIF: AV1 show_existing_frame");
+        }
+        frame_type = (int)fb(b, 2);
+        show_frame = (int)fb(b, 1);
+        if (frame_type != 0 && frame_type != 2) {
+            if (first)
+                av1_fail(f, ERR_VALUE, "AV1: an inter frame first");
+            av1_fail(f, ERR_NOTIMPL, "AVIF: an AV1 inter frame");
+        }
+        if (show_frame && f->decoder_model_info && !f->equal_picture_interval)
+            fb(b, f->presentation_time_bits);
+        showable = show_frame ? frame_type != 0 : (int)fb(b, 1);
+        if (frame_type == 0 && show_frame)
+            error_resilient = 1;
+        else
+            error_resilient = (int)fb(b, 1);
+    }
+    (void)error_resilient;
+    f->disable_cdf_update = (int)fb(b, 1);
+    f->sct = f->sct_force == 2 ? (int)fb(b, 1) : f->sct_force;
+    if (f->sct && f->intmv_force == 2)
+        fb(b, 1); /* force_integer_mv */
+    if (f->frame_id_present)
+        fb(b, f->frame_id_bits);
+    int size_override = f->reduced ? 0 : (int)fb(b, 1);
+    fb(b, f->order_hint_bits);
+    /* primary_ref_frame: none for intra frames */
+    if (f->decoder_model_info && fb(b, 1)) { /* buffer_removal_time_present */
+        for (int op = 0; op < f->op_count; op++)
+            if (f->op_model[op]) {
+                int idc = f->op_idc[op];
+                int in_t = (idc >> f->temporal_id) & 1;
+                int in_s = (idc >> (f->spatial_id + 8)) & 1;
+                if (idc == 0 || (in_t && in_s))
+                    fb(b, f->removal_time_bits);
+            }
+    }
+    int refresh = 0xFF;
+    if (!(frame_type == 0 && show_frame))
+        refresh = (int)fb(b, 8);
+    if (frame_type == 2 && refresh == 0xFF)
+        av1_fail(f, ERR_VALUE, "AV1: an intra-only frame refreshing every "
+                 "reference");
+    if (refresh != 0xFF && error_resilient && f->order_hint_bits)
+        for (int i = 0; i < 8; i++)
+            fb(b, f->order_hint_bits);
+    /* frame_size, superres_params, render_size */
+    if (size_override) {
+        f->W = (int)fb(b, f->width_bits) + 1;
+        f->H = (int)fb(b, f->height_bits) + 1;
+        if (f->W > f->max_w || f->H > f->max_h)
+            av1_fail(f, ERR_VALUE, "AV1: a frame larger than the sequence's "
+                     "maximum");
+    } else {
+        f->W = f->max_w;
+        f->H = f->max_h;
+    }
+    int coded_w = f->W;
+    if (f->superres_en && fb(b, 1)) {
+        int denom = (int)fb(b, 3) + 9;
+        coded_w = (f->W * 8 + denom / 2) / denom;
+        unread(f, "AVIF: AV1 superres", 0);
+    }
+    f->MiCols = 2 * ((coded_w + 7) >> 3);
+    f->MiRows = 2 * ((f->H + 7) >> 3);
+    if (fb(b, 1)) { /* render_and_frame_size_different */
+        fb(b, 16);
+        fb(b, 16);
+    }
+    f->allow_intrabc = f->sct && coded_w == f->W ? (int)fb(b, 1) : 0;
+    (void)showable;
+    if (!(f->reduced || f->disable_cdf_update))
+        fb(b, 1); /* disable_frame_end_update_cdf */
+    tile_info(f, b);
+    /* quantization_params */
+    f->base_q = (int)fb(b, 8);
+    int dq = read_delta_q(b) != 0;
+    if (f->nplanes > 1) {
+        int diff_uv = f->separate_uv_delta_q ? (int)fb(b, 1) : 0;
+        dq |= read_delta_q(b) != 0;
+        dq |= read_delta_q(b) != 0;
+        if (diff_uv) {
+            dq |= read_delta_q(b) != 0;
+            dq |= read_delta_q(b) != 0;
+        }
+    }
+    if (fb(b, 1)) { /* using_qmatrix */
+        fb(b, 4);
+        fb(b, 4);
+        if (f->separate_uv_delta_q)
+            fb(b, 4);
+    }
+    /* segmentation_params (no primary reference frame in an intra frame):
+     * each segment's quantiser */
+    int seg = (int)fb(b, 1), seg_q[8] = {0};
+    static const int seg_bits[8] = {8, 6, 6, 6, 6, 3, 0, 0};
+    for (int i = 0; seg && i < 8; i++)
+        for (int j = 0; j < 8; j++)
+            if (fb(b, 1)) {
+                int v = j < 5 ? su(b, 1 + seg_bits[j]) : (int)fb(b,
+                                                                seg_bits[j]);
+                if (j == 0)
+                    seg_q[i] = v < -255 ? -255 : v > 255 ? 255 : v;
+            }
+    /* delta_q_params, delta_lf_params */
+    if (f->base_q > 0 && fb(b, 1)) {
+        fb(b, 2);
+        if (!f->allow_intrabc && fb(b, 1))
+            fb(b, 3);
+    }
+    int lossless = !dq;
+    for (int i = 0; i < (seg ? 8 : 1); i++) {
+        int q = f->base_q + seg_q[i];
+        lossless &= q <= 0;
+    }
+    if (!lossless)
+        unread(f, "AVIF: lossy AV1 (base_q_idx %d)", f->base_q);
+    if (seg)
+        unread(f, "AVIF: AV1 segmentation", 0);
+    if (!lossless && !f->allow_intrabc)
+        loop_filter_params(f, b);
+    if (!lossless && !f->allow_intrabc && f->cdef_en)
+        cdef_params(f, b);
+    if (!(lossless && coded_w == f->W) && !f->allow_intrabc && f->lr_en)
+        lr_params(f, b);
+    if (!lossless)
+        fb(b, 1); /* tx_mode_select */
+    /* reference_select, skip_mode, warped motion, global motion: none in
+     * an intra frame */
+    f->reduced_tx_set = (int)fb(b, 1);
+    if (f->film_grain_present && (show_frame || showable) && fb(b, 1)) {
+        film_grain_params(f, b);
+        unread(f, "AVIF: AV1 film grain", 0);
+    }
+    if (!f->mono && (f->ssx || f->ssy))
+        unread(f, "AVIF: subsampled AV1 chroma (4:2:%d)", f->ssy ? 0 : 2);
+}
+
+/* -- tiles ---------------------------------------------------------------- */
+
+static void decode_superblock(Av1 *f, int r, int c)
+{
+    decode_partition(f, r, c, f->use128 ? BLOCK_128X128 : BLOCK_64X64);
+    /* libaom: a tile whose reader went past its bytes is corrupt */
+    int64_t tell = f->ec.shifts + 1;
+    if ((tell + 7) >> 3 > (int64_t)(f->ec.end - f->ec.buf))
+        av1_fail(f, ERR_VALUE, "AV1: tile data ends early");
+}
+
+/* libaom's check_trailing_bits_after_symbol_coder: the bit after the
+ * last one the symbol decoder used is 1, the rest of its byte and the
+ * tile's later bytes 0 */
+static void check_trailing_bits(Av1 *f, const uint8_t *p, int64_t size)
+{
+    int64_t tell = f->ec.shifts + 1, nbytes = (tell + 7) >> 3;
+    int pattern = 128 >> ((tell - 1) & 7);
+    if (nbytes > size || (p[nbytes - 1] & (2 * pattern - 1)) != pattern)
+        av1_fail(f, ERR_VALUE, "AV1: corrupt tile data (trailing bits)");
+    for (int64_t k = nbytes; k < size; k++)
+        if (p[k])
+            av1_fail(f, ERR_VALUE, "AV1: corrupt tile data (padding)");
+}
+
+/* one tile group; *next: the tile it must start at (libaom's
+ * next_start_tile), 0 again once the frame's last tile is read */
+static void tile_group(Av1 *f, const uint8_t *p, int64_t sz, int frame_obu,
+                       int *next, int *done)
+{
+    Bits b = {f, p, sz, 0};
+    int num = f->tile_cols * f->tile_rows, start = 0, end = num - 1;
+    if (num > 1 && fb(&b, 1)) {
+        if (frame_obu)
+            av1_fail(f, ERR_VALUE, "AV1: tile_start_and_end_present_flag "
+                     "in a frame OBU");
+        int bits = f->tile_cols_log2 + f->tile_rows_log2;
+        start = (int)fb(&b, bits);
+        end = (int)fb(&b, bits);
+    }
+    if (start != *next || end < start || end >= num)
+        av1_fail(f, ERR_VALUE, "AV1: tile group %d..%d of %d tiles", start,
+                 end, num);
+    *next = end == num - 1 ? 0 : end + 1;
+    int64_t pos = (b.pos + 7) >> 3;
+    for (int t = start; t <= end; t++) {
+        int64_t size;
+        if (t == end) {
+            size = sz - pos;
+        } else {
+            if (sz - pos < f->tile_size_bytes)
+                av1_fail(f, ERR_VALUE, "AV1: a tile size ends early");
+            size = 0;
+            for (int k = 0; k < f->tile_size_bytes; k++)
+                size |= (int64_t)p[pos + k] << (8 * k);
+            size += 1;
+            pos += f->tile_size_bytes;
+            if (size > sz - pos)
+                av1_fail(f, ERR_VALUE, "AV1: a tile runs past its group");
+        }
+        if (size <= 0)
+            av1_fail(f, ERR_VALUE, "AV1: an empty tile");
+        ec_dec_init(&f->ec, p + pos, size);
+        code_tile(f, t / f->tile_cols, t % f->tile_cols, decode_superblock);
+        check_trailing_bits(f, p + pos, size);
+        pos += size;
+    }
+    if (end == num - 1)
+        *done = 1;
+}
+
+static int leb128(const uint8_t *p, int64_t n, int64_t *pos, uint64_t *v)
+{
+    *v = 0;
+    for (int i = 0; i < 8; i++) {
+        if (*pos >= n)
+            return 0;
+        uint8_t byte = p[(*pos)++];
+        *v |= (uint64_t)(byte & 0x7F) << (7 * i);
+        if (!(byte & 0x80))
+            return 1;
+    }
+    return 0;
+}
+
+/* the last nonzero byte of p[0, n), 0 if none (libaom's
+ * get_last_nonzero_byte) */
+static int last_nonzero(const uint8_t *p, int64_t n)
+{
+    while (n > 0 && !p[n - 1])
+        n--;
+    return n ? p[n - 1] : 0;
+}
+
+/* an OBU after the header's checks, as libaom's aom_decode_frame_from_obus
+ * takes it */
+typedef struct {
+    int in_frame, frames, next_tile, have_header;
+    const uint8_t *fh; /* the frame header's bytes, for redundant copies */
+    int64_t fh_size;
+} Obus;
+
+static void frame_obu(Av1 *f, Obus *o, int type, const uint8_t *p,
+                      int64_t size, int headers)
+{
+    Bits b = {f, p, size, 0};
+    if (type == 7) { /* a redundant frame header: a copy of the frame's */
+        if (!o->in_frame)
+            return;
+        if (o->fh_size > size || memcmp(p, o->fh, (size_t)o->fh_size))
+            av1_fail(f, ERR_VALUE, "AV1: a redundant frame header that "
+                     "differs");
+        for (int64_t k = o->fh_size; k < size; k++)
+            if (p[k])
+                av1_fail(f, ERR_VALUE, "AV1: nonzero padding after a "
+                         "redundant frame header");
+        return;
+    }
+    if (o->in_frame)
+        av1_fail(f, ERR_VALUE, "AV1: a frame header inside a frame");
+    int W = f->W, H = f->H, nplanes = f->nplanes;
+    frame_header(f, &b, !o->frames);
+    if (type == 3)
+        trailing_bits(f, &b, "frame header");
+    else
+        byte_alignment(f, &b);
+    if (f->unread[0])
+        av1_fail(f, ERR_NOTIMPL, "%s", f->unread);
+    o->fh = p;
+    o->fh_size = b.pos >> 3;
+    o->in_frame = 1;
+    o->have_header = 1;
+    o->next_tile = 0;
+    if (headers)
+        return;
+    if (o->frames) {
+        /* libaom decodes it and outputs the last frame: not read here */
+        if (f->W != W || f->H != H || f->nplanes != nplanes)
+            av1_fail(f, ERR_NOTIMPL, "AVIF: more than one AV1 frame in "
+                     "an item");
+        frame_free(f);
+    }
+    frame_alloc(f);
+    cdfs_init(&f->cdf0, 0);
+    if (type == 6) {
+        int done = 0;
+        tile_group(f, p + o->fh_size, size - o->fh_size, 1, &o->next_tile,
+                   &done);
+        if (done)
+            o->in_frame = 0, o->frames++;
+    }
+}
+
+/* libaom's read_metadata, for what a still image's stream may carry:
+ * the type, then the payload's trailing bits */
+static void metadata(Av1 *f, const uint8_t *p, int64_t size)
+{
+    int64_t pos = 0;
+    uint64_t kind;
+    if (!leb128(p, size, &pos, &kind))
+        av1_fail(f, ERR_VALUE, "AV1: a metadata type that ends early");
+    int last = last_nonzero(p + pos, size - pos);
+    if (kind == 0 || kind >= 6 ? last == 0 : last != 0x80)
+        av1_fail(f, ERR_VALUE, "AV1: metadata without its trailing bits");
+}
+
+/* every OBU of the data (libaom decodes every frame in it; zero bytes
+ * may follow a frame); with headers, only up to the first frame
+ * header */
+static void decode_obus(Av1 *f, const uint8_t *data, int64_t n, int headers)
+{
+    int64_t pos = 0;
+    Obus o = {0};
+    while (pos < n) {
+        if (o.frames && !o.in_frame) {
+            while (pos < n && !data[pos])
+                pos++;
+            if (pos == n)
+                break;
+        }
+        uint8_t h = data[pos++];
+        int type = (h >> 3) & 15, ext = (h >> 2) & 1, has_size = (h >> 1) & 1;
+        if (h & 0x80)
+            av1_fail(f, ERR_VALUE, "AV1: the OBU forbidden bit is set");
+        if (!has_size)
+            av1_fail(f, ERR_VALUE, "AV1: an OBU without its size");
+        f->temporal_id = f->spatial_id = 0;
+        if (ext) {
+            if (pos >= n)
+                av1_fail(f, ERR_VALUE, "AV1: an OBU extension ends early");
+            f->temporal_id = data[pos] >> 5;
+            f->spatial_id = (data[pos] >> 3) & 3;
+            pos++;
+        }
+        uint64_t size;
+        if (!leb128(data, n, &pos, &size))
+            av1_fail(f, ERR_VALUE, "AV1: an OBU size ends early");
+        if (size > (uint64_t)(n - pos))
+            av1_fail(f, ERR_VALUE, "AV1: an OBU runs past the data");
+        const uint8_t *p = data + pos;
+        pos += (int64_t)size;
+        int op = f->seq_seen ? f->op_idc[0] : 0;
+        if (type != 1 && type != 2 && ext && op &&
+            !((op >> f->temporal_id) & 1 && (op >> (f->spatial_id + 8)) & 1))
+            continue; /* not in operating point 0 */
+        Bits b = {f, p, (int64_t)size, 0};
+        switch (type) {
+        case 1:
+            sequence_header(f, &b);
+            trailing_bits(f, &b, "sequence header");
+            break;
+        case 2:
+            if (o.in_frame)
+                av1_fail(f, ERR_VALUE, "AV1: a temporal delimiter inside a "
+                         "frame");
+            if (last_nonzero(p, (int64_t)size))
+                av1_fail(f, ERR_VALUE, "AV1: a temporal delimiter with a "
+                         "payload");
+            break;
+        case 3:
+        case 6:
+        case 7:
+            frame_obu(f, &o, type, p, (int64_t)size, headers);
+            if (headers && o.have_header)
+                return;
+            break;
+        case 4: {
+            int done = 0;
+            if (!o.in_frame)
+                av1_fail(f, ERR_VALUE, "AV1: tiles outside a frame");
+            tile_group(f, p, (int64_t)size, 0, &o.next_tile, &done);
+            if (done)
+                o.in_frame = 0, o.frames++;
+            break;
+        }
+        case 5:
+            metadata(f, p, (int64_t)size);
+            break;
+        case 8:
+            av1_fail(f, ERR_VALUE, "AV1: a tile list OBU");
+            break;
+        case 15:
+            if (size && last_nonzero(p, (int64_t)size) != 0x80)
+                av1_fail(f, ERR_VALUE, "AV1: padding without its trailing "
+                         "bits");
+            break;
+        default: /* reserved types: skipped unless all zero */
+            if (size && !last_nonzero(p, (int64_t)size))
+                av1_fail(f, ERR_VALUE, "AV1: an OBU of reserved type %d "
+                         "that is all zero", type);
+        }
+    }
+    if (o.in_frame)
+        av1_fail(f, ERR_VALUE, "AV1: the frame's tiles end early");
+    if (!o.have_header || (!headers && !o.frames))
+        av1_fail(f, ERR_VALUE, "AV1: no frame in the data");
+    if (o.frames > 1)
+        av1_fail(f, ERR_NOTIMPL, "AVIF: more than one AV1 frame in an "
+                 "item");
+}
+
+int av1_info(const uint8_t *data, int64_t n, int32_t *info, char *err,
+             int errlen)
+{
+    Av1 *f = calloc(1, sizeof(Av1));
+    if (!f)
+        return ERR_MEMORY;
+    f->err = err;
+    f->errlen = errlen;
+    int code = setjmp(f->jb);
+    if (code == 0) {
+        decode_obus(f, data, n, 1);
+        int32_t v[12] = {f->W, f->H, f->bitdepth, f->mono, f->ssx, f->ssy,
+                         f->mc, f->range, f->cp, f->tc, f->profile,
+                         f->still};
+        memcpy(info, v, sizeof(v));
+    }
+    frame_free(f);
+    free(f);
+    return code;
+}
+
+int av1_decode(const uint8_t *data, int64_t n, uint16_t *out, int planes,
+               int64_t H, int64_t W, char *err, int errlen)
+{
+    Av1 *f = calloc(1, sizeof(Av1));
+    if (!f)
+        return ERR_MEMORY;
+    f->err = err;
+    f->errlen = errlen;
+    int code = setjmp(f->jb);
+    if (code == 0) {
+        decode_obus(f, data, n, 0);
+        if (f->W != W || f->H != H || f->nplanes != planes)
+            av1_fail(f, ERR_VALUE, "AV1: the frame is not %lldx%lld",
+                     (long long)W, (long long)H);
+        for (int p = 0; p < planes; p++)
+            for (int64_t y = 0; y < H; y++)
+                memcpy(out + ((size_t)p * H + y) * W,
+                       f->plane[p] + (size_t)y * f->stride,
+                       (size_t)W * 2);
+    }
+    frame_free(f);
+    free(f);
+    return code;
+}

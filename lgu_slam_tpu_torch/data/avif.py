@@ -1,0 +1,771 @@
+"""AVIF files as ``cv2.imread`` (OpenCV 5.0 over libavif 1.4.2 and libaom
+3.14) reads them, for the port's data layer, and a lossless writer for
+fixtures.
+
+The HEIF (ISOBMFF) container is parsed here as libavif's ``read.c`` parses
+a still image, rule for rule where a rule decides between a read and a
+failure: the file-level boxes up to those the brands need (``ftyp``,
+``meta``, ``moov``; a major brand ``avis`` names a sequence), then
+``meta`` (``hdlr`` first, ``pitm``, ``iloc`` versions 0-2 with
+construction methods 0 (file) and 1 (``idat``), ``iinf`` / ``infe``
+versions 2-3, ``iref``, ``iprp`` / ``ipco`` / ``ipma``: ``ispe``, ``av1C``,
+``pixi``, ``colr`` (nclx or ICC), ``irot``, ``imir``, ``clap``, ``auxC``,
+``pasp``, ``clli``, ``a1op``, ``lsel``, ``a1lx``), every property checked
+whether associated or not.  libavif skips an item without extents, one
+with an unknown essential property, a thumbnail and one of an unknown
+type; each item it keeps needs an ``ispe`` (but an alpha item: strict
+checks are off) within its limits.  The primary ``av01`` item's OBUs, and
+those of its alpha item (``auxl`` with an alpha ``auxC``), are decoded in
+C (``csrc/host/av1_decode.c``: lossless AV1 intra, 8 to 12 bits,
+monochrome or 4:4:4, the OBUs checked as libaom checks them; the alpha is
+decoded and dropped, as OpenCV drops it).
+
+What OpenCV's reader then returns, which :func:`decode_avif` repeats:
+
+- its Mat from the container: ``av1C``'s depth (8 bits, or 16 for a 10-
+  or 12-bit ``av1C`` under ``IMREAD_ANYDEPTH``) and format (one channel
+  for 4:0:0, three for colour, one more for alpha: a 4:0:0 image with
+  alpha, two channels, is None);
+- a colour read: ``uint8 [H, W, 3]`` BGR.  4:4:4 under the identity matrix
+  (how libavif writes lossless colour): G = Y, B = U, R = V; 10- and
+  12-bit samples become 8 bits as ``rint(float32(v) * float32(255 / max))``
+  (round half to even).  4:0:0: three equal channels of Y as stored,
+  whatever its range, 10- and 12-bit samples ``rint(v / 2 ** (depth -
+  8))`` (both measured on every sample value);
+- an ``IMREAD_ANYDEPTH`` read: 4:0:0 Y as stored; colour ``cvtColor``'s
+  gray of the BGR samples at the Mat's depth (``(3735 B + 19235 G + 9798
+  R + 16384) >> 15``); the frame's own depth decides the conversion;
+- ``irot``, ``imir`` and ``clap`` are not applied, nor an Exif
+  orientation.
+
+Refused: a file cv2 returns None for raises ``ValueError`` (a cut or
+damaged container or stream, an item without ``ispe``, no usable primary
+item, matrix coefficients libavif's YUV to RGB refuses, ...); what OpenCV
+reads and this module does not yet read raises ``NotImplementedError``
+naming it: lossy AV1, subsampled chroma (4:2:0, 4:2:2), colour under
+another matrix than identity, limited-range colour, a frame of another
+size than ``ispe``'s (libavif scales it), more than one frame in an item,
+``grid`` derived images, ``avis`` sequences, and the AV1 tools the decoder
+lists.
+
+:func:`encode_avif` writes lossless still images (colour under the
+identity matrix at 4:4:4, or gray at 4:0:0; 8, 10 or 12 bits;
+``csrc/host/av1_encode.c``) for the tests and for the card machine, which
+has no AVIF writer.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import struct
+
+import numpy as np
+
+from lgu_slam_tpu_torch.ops import _build
+
+STATUS = {1: ValueError, 2: NotImplementedError, 3: MemoryError}
+ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
+              b"urn:mpeg:hevc:2015:auxid:1")
+# libavif's default imageSizeLimit (16384 * 16384) and imageDimensionLimit
+MAX_PIXELS, MAX_SIDE = 1 << 28, 32768
+# the most samples of a frame that libavif would scale that are decoded
+SCALED_PIXELS = 1 << 22
+# transformative properties: libavif requires them marked essential (and
+# OpenCV applies none of them)
+TRANSFORMS = (b"irot", b"imir", b"clap")
+# the item properties libavif parses and keeps; an unknown one marked
+# essential makes libavif skip its item
+KNOWN = (b"ispe", b"av1C", b"pixi", b"colr", b"auxC", b"pasp", b"clli",
+         b"a1op", b"a1lx", b"lsel") + TRANSFORMS
+# the meta boxes libavif allows once
+UNIQUE = (b"hdlr", b"iloc", b"pitm", b"idat", b"iprp", b"iinf", b"iref")
+# matrix coefficients libavif's YUV to RGB refuses (at any depth and
+# range; 16, YCgCo-Re, only where the samples are two bits deeper than
+# the output; 8, YCgCo, under limited range), measured through cv2.imread
+REFUSED_MATRICES = (3, 10, 11, 13, 14)
+
+
+def is_avif(data: bytes) -> bool:
+    """OpenCV's AVIF signature check (``avifPeekCompatibleFileType``): an
+    ``ftyp`` box first whose major or compatible brands name ``avif`` or
+    ``avis``."""
+    if len(data) < 16 or data[4:8] != b"ftyp":
+        return False
+    size = int.from_bytes(data[:4], "big")
+    if size < 16 or size > len(data):
+        return size >= 16 and b"avif" in data[8:min(len(data), 64)]
+    brands = [data[8:12]] + [data[k:k + 4] for k in range(16, size - 3, 4)]
+    return b"avif" in brands or b"avis" in brands
+
+
+class _Stream:
+    """libavif's ``avifROStream`` over ``data[pos:end]``: a read past the
+    end fails."""
+
+    def __init__(self, data: bytes, pos: int, end: int):
+        self.data, self.pos, self.end = data, pos, end
+
+    def left(self) -> int:
+        return self.end - self.pos
+
+    def take(self, n: int) -> bytes:
+        if n < 0 or self.pos + n > self.end:
+            raise ValueError("AVIF: a box ends early")
+        out = self.data[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def u(self, n: int) -> int:
+        return int.from_bytes(self.take(n), "big") if n else 0
+
+    def full(self, versions=None):
+        """A full box's (version, flags); ``versions``: those libavif
+        reads."""
+        v = self.u(4)
+        if versions is not None and v >> 24 not in versions:
+            raise ValueError(f"AVIF: a box of version {v >> 24}")
+        return v >> 24, v & 0xFFFFFF
+
+    def string(self) -> bytes:
+        k = self.data.find(b"\0", self.pos, self.end)
+        if k < 0:
+            raise ValueError("AVIF: a string without its end")
+        out = self.data[self.pos:k]
+        self.pos = k + 1
+        return out
+
+    def box(self, top: bool = False):
+        """A box header (``avifROStreamReadBoxHeader``): (type, body start,
+        body end), the stream left at the body.  Size 0 runs to the end
+        at the top level and fails inside a box; a box inside another must
+        fit in it."""
+        start = self.pos
+        size, kind = self.u(4), self.take(4)
+        if size == 1:
+            size = self.u(8)
+        if kind == b"uuid":
+            self.take(16)
+        head = self.pos - start
+        if size == 0:
+            if not top:
+                raise ValueError("AVIF: a box of size 0 inside another")
+            size = self.end - start
+        if size < head:
+            raise ValueError(f"AVIF: box {kind!r} is smaller than its header")
+        if not top and size - head > self.left():
+            raise ValueError(f"AVIF: box {kind!r} runs past its container")
+        return kind, self.pos, start + size
+
+
+def _top(data: bytes) -> tuple:
+    """libavif's file-level loop: (brands, meta's body span or None, moov
+    seen), stopping once the boxes the brands need are seen."""
+    st = _Stream(data, 0, len(data))
+    brands, meta, moov = None, None, False
+    while True:
+        if st.pos > len(data):
+            raise ValueError("AVIF: a box runs past the end of the file")
+        if st.pos == len(data):
+            break
+        start = st.pos
+        kind, s, e = st.box(top=True)
+        if kind in (b"ftyp", b"meta", b"moov") and e > len(data):
+            raise ValueError(f"AVIF: the {kind.decode()} box is cut")
+        st.pos = e
+        if kind == b"ftyp":
+            if brands is not None:
+                raise ValueError("AVIF: two ftyp boxes")
+            b = _Stream(data, s, e)
+            major = b.take(4)
+            b.take(4)
+            if b.left() % 4:
+                raise ValueError("AVIF: ftyp's brands")
+            brands = [major] + [b.take(4) for _ in range(b.left() // 4)]
+            if b"avif" not in brands and b"avis" not in brands:
+                raise ValueError("AVIF: neither an avif nor an avis brand")
+        elif kind == b"meta":
+            if meta is not None:
+                raise ValueError("AVIF: two meta boxes")
+            if data[start:start + 4] == bytes(4):
+                # OpenCV's signature check parses a prefix of the file, in
+                # which such a meta box's last child is cut
+                raise ValueError("AVIF: a meta box of size 0")
+            meta = (s, e)
+        elif kind == b"moov":
+            if moov:
+                raise ValueError("AVIF: two moov boxes")
+            moov = True
+        if brands is not None and (b"avif" not in brands or meta) and \
+                (b"avis" not in brands or moov):
+            return brands, meta, moov
+    if brands is None:
+        raise ValueError("AVIF: no ftyp box")
+    raise ValueError("AVIF: the file ends before the boxes its brands need")
+
+
+def _properties(data: bytes, start: int, end: int) -> list:
+    """The ``ipco`` properties in order: (type, parsed fields), each
+    checked as libavif checks it (associated or not)."""
+    st, out = _Stream(data, start, end), []
+    while st.left():
+        kind, s, e = st.box()
+        r, value = _Stream(data, s, e), None
+        if kind == b"ispe":
+            r.full((0,))
+            value = (r.u(4), r.u(4))
+        elif kind == b"auxC":
+            r.full((0,))
+            value = r.string()
+        elif kind == b"colr":
+            ctype = r.take(4)
+            if ctype == b"nclx":
+                value = (ctype, r.u(2), r.u(2), r.u(2), r.u(1))
+                if value[4] & 0x7F:
+                    raise ValueError("AVIF: colr's reserved bits")
+                value = value[:4] + (value[4] >> 7,)
+            elif ctype in (b"rICC", b"prof"):
+                value = (b"ICC",)
+        elif kind == b"av1C":
+            value = r.take(4)
+            if value[0] != 0x81:
+                raise ValueError("AVIF: av1C marker or version")
+        elif kind == b"pixi":
+            r.full((0,))
+            n = r.u(1)
+            if not 1 <= n <= 4:
+                raise ValueError(f"AVIF: pixi with {n} planes")
+            value = tuple(r.take(n))
+        elif kind in (b"irot", b"imir"):
+            if r.u(1) & (0xFC if kind == b"irot" else 0xFE):
+                raise ValueError(f"AVIF: {kind.decode()}'s reserved bits")
+        elif kind == b"a1op":
+            if r.u(1) > 31:
+                raise ValueError("AVIF: a1op's operating point")
+        elif kind == b"lsel":
+            layer = r.u(2)
+            if layer != 0xFFFF and layer >= 4:
+                raise ValueError("AVIF: lsel's layer")
+        elif kind == b"a1lx":
+            x = r.u(1)
+            if x & 0xFE:
+                raise ValueError("AVIF: a1lx's reserved bits")
+            r.take(12 if x & 1 else 6)
+        elif kind in (b"pasp", b"clap", b"clli"):
+            r.take({b"pasp": 8, b"clap": 32, b"clli": 4}[kind])
+        out.append((kind, value))
+        st.pos = e
+    return out
+
+
+def _new_item(items: dict, iid: int) -> dict:
+    """libavif's ``avifMetaFindOrCreateItem``: items keep the order in
+    which the boxes first name them."""
+    if iid not in items:
+        items[iid] = dict(id=iid, type=None, extents=[], method=0, props=[],
+                          unsupported=False, ipma=False, aux_for=0,
+                          thumb_for=0)
+    return items[iid]
+
+
+def _iloc(b: _Stream, items: dict):
+    v, _ = b.full()
+    if v > 2:
+        raise ValueError(f"AVIF: iloc version {v}")
+    sizes = b.u(2)
+    off_size, len_size = sizes >> 12, (sizes >> 8) & 15
+    base_size, idx_size = (sizes >> 4) & 15, sizes & 15 if v else 0
+    if any(n not in (0, 4, 8) for n in (off_size, len_size, base_size,
+                                         idx_size)):
+        raise ValueError("AVIF: iloc field size")
+    for _ in range(b.u(2 if v < 2 else 4)):
+        iid = b.u(2 if v < 2 else 4)
+        if iid == 0:
+            raise ValueError("AVIF: item ID 0")
+        item = _new_item(items, iid)
+        if item["extents"]:
+            raise ValueError("AVIF: an item located twice")
+        if v:
+            x = b.u(2)
+            if x >> 4:
+                raise ValueError("AVIF: iloc's reserved bits")
+            item["method"] = x & 15
+            if x & 15 not in (0, 1):
+                raise ValueError(f"AVIF: iloc construction method {x & 15}")
+        b.u(2)  # data_reference_index
+        base = b.u(base_size)
+        for _ in range(b.u(2)):
+            b.u(idx_size)
+            extent = (base + b.u(off_size), b.u(len_size))
+            if not idx_size:  # libavif drops an extent that has an index
+                item["extents"].append(extent)
+
+
+def _iinf(data: bytes, b: _Stream, items: dict):
+    v, _ = b.full((0, 1))
+    for _ in range(b.u(2 if v == 0 else 4)):  # libavif reads count boxes
+        kind, s, e = b.box()
+        if kind != b"infe":
+            raise ValueError("AVIF: iinf holds a box other than infe")
+        ib = _Stream(data, s, e)
+        iv, _ = ib.full((2, 3))
+        iid = ib.u(2 if iv == 2 else 4)
+        if iid == 0:
+            raise ValueError("AVIF: item ID 0")
+        ib.u(2)  # item_protection_index
+        kind = ib.take(4)
+        ib.string()  # item_name
+        if kind == b"mime":
+            ib.string()  # content_type
+        _new_item(items, iid)["type"] = kind
+        b.pos = e
+
+
+def _iref(b: _Stream, items: dict):
+    """References as libavif reads them: each box's header is checked,
+    its fields read on from the header whatever its size; versions past 1
+    are skipped whole."""
+    v, _ = b.full()
+    n = 2 if v == 0 else 4
+    while v <= 1 and b.left():
+        kind, _, _ = b.box()
+        src = b.u(n)
+        for _ in range(b.u(2)):
+            dst = b.u(n)
+            if src and dst:
+                item = _new_item(items, src)
+                if kind == b"thmb":
+                    item["thumb_for"] = dst
+                elif kind == b"auxl":
+                    item["aux_for"] = dst
+                elif kind == b"dimg":
+                    _new_item(items, dst)
+
+
+def _ipma(b: _Stream, props: list, items: dict):
+    v, flags = b.full()
+    prev = 0
+    for _ in range(b.u(4)):
+        iid = b.u(2 if v == 0 else 4)
+        if iid == 0 or iid <= prev:
+            raise ValueError("AVIF: ipma's item IDs do not increase")
+        prev = iid
+        item = _new_item(items, iid)
+        if item["ipma"]:
+            raise ValueError("AVIF: an item in two ipma entries")
+        item["ipma"] = True
+        bits = 15 if flags & 1 else 7
+        for _ in range(b.u(1)):
+            x = b.u(2 if flags & 1 else 1)
+            essential, k = x >> bits, x & ((1 << bits) - 1)
+            if k == 0:
+                if essential:
+                    raise ValueError("AVIF: property index 0 marked "
+                                     "essential")
+                continue
+            if k > len(props):
+                raise ValueError("AVIF: a property index past ipco")
+            kind, value = props[k - 1]
+            if kind not in KNOWN:
+                item["unsupported"] |= bool(essential)
+                continue
+            if essential and kind == b"a1lx":
+                raise ValueError("AVIF: a1lx marked essential")
+            if not essential and kind in (b"a1op", b"lsel") + TRANSFORMS:
+                raise ValueError(f"AVIF: a {kind.decode()} property not "
+                                 "marked essential")
+            item["props"].append((kind, value))
+    return v, flags
+
+
+def _iprp(data: bytes, b: _Stream, items: dict) -> list:
+    kind, s, e = b.box()
+    if kind != b"ipco":
+        raise ValueError("AVIF: iprp does not start with ipco")
+    props = _properties(data, s, e)
+    b.pos = e
+    seen = []
+    while b.left():
+        kind, s, e = b.box()
+        if kind != b"ipma":
+            raise ValueError("AVIF: iprp holds a box other than ipma")
+        vf = _ipma(_Stream(data, s, e), props, items)
+        if vf in seen:
+            raise ValueError("AVIF: two ipma boxes of one version and flags")
+        seen.append(vf)
+        b.pos = e
+    return props
+
+
+def _meta(data: bytes, start: int, end: int) -> tuple:
+    """(items, primary item ID, idat) of the meta box, as libavif's
+    ``avifParseMetaBox`` reads them."""
+    st = _Stream(data, start, end)
+    st.full((0,))
+    items, primary, idat, seen = {}, 0, None, []
+    while st.left():
+        kind, s, e = st.box()
+        if not seen and kind != b"hdlr":
+            raise ValueError("AVIF: meta does not start with hdlr")
+        if kind in seen and kind in UNIQUE:
+            raise ValueError(f"AVIF: two {kind.decode()} boxes")
+        seen.append(kind)
+        b = _Stream(data, s, e)
+        if kind == b"hdlr":
+            b.full((0,))
+            if b.u(4):
+                raise ValueError("AVIF: hdlr pre_defined is not 0")
+            if b.take(4) != b"pict":
+                raise ValueError("AVIF: the handler is not pict")
+            b.take(12)
+            b.string()
+        elif kind == b"pitm":
+            v, _ = b.full()
+            primary = b.u(2 if v == 0 else 4)
+        elif kind == b"iloc":
+            _iloc(b, items)
+        elif kind == b"idat":
+            idat = data[s:e]
+        elif kind == b"iinf":
+            _iinf(data, b, items)
+        elif kind == b"iref":
+            _iref(b, items)
+        elif kind == b"iprp":
+            _iprp(data, b, items)
+        st.pos = e
+    if not seen:
+        raise ValueError("AVIF: an empty meta box")
+    return items, primary, idat
+
+
+def prop(item: dict, kind: bytes):
+    """The first ``kind`` property associated with ``item`` (None)."""
+    return next((v for k, v in item["props"] if k == kind), None)
+
+
+def _depth(av1c: bytes) -> int:
+    """libavif's bit depth of an ``av1C``: twelve_bit, else
+    high_bitdepth."""
+    return 12 if av1c[2] & 0x20 else 10 if av1c[2] & 0x40 else 8
+
+
+def parse(data: bytes) -> dict:
+    """The container of an AVIF still image as libavif 1.4.2 reads it under
+    OpenCV: ``{"items": {id: item}, "primary": id, "color": item, "alpha":
+    item or None, "idat": bytes}``; ``ValueError`` where libavif fails,
+    ``NotImplementedError`` for what it reads and this module does not."""
+    brands, meta, moov = _top(data)
+    if brands[0] == b"avis" or (brands[0] != b"avif" and moov):
+        raise NotImplementedError("AVIF: an image sequence (avis)")
+    if meta is None:
+        raise ValueError("AVIF: no meta box")
+    items, primary, idat = _meta(data, *meta)
+    usable = []
+    for item in items.values():
+        # libavif skips an empty item, one with an unknown essential
+        # property, a thumbnail and an item of an unknown type
+        if sum(n for _, n in item["extents"]) and not item["unsupported"] \
+                and not item["thumb_for"] and item["type"] in (b"av01",
+                                                               b"grid"):
+            usable.append(item)
+    for item in usable:
+        size = prop(item, b"ispe")
+        if size is None:
+            if prop(item, b"auxC") not in ALPHA_URNS:  # strict checks off
+                raise ValueError(f"AVIF: item {item['id']} without ispe")
+        elif 0 in size or size[0] > MAX_SIDE or size[1] > MAX_SIDE or \
+                size[0] * size[1] > MAX_PIXELS:
+            raise ValueError(f"AVIF: item {item['id']} of size {size}")
+    color = next((it for it in usable if it["id"] == primary), None)
+    if color is None:
+        raise ValueError("AVIF: no primary image item")
+    alpha = next((it for it in usable if it["aux_for"] == primary and
+                  prop(it, b"auxC") in ALPHA_URNS), None)
+    if color["type"] == b"grid":
+        raise NotImplementedError("AVIF: a grid colour image")
+    for item in (color, alpha):
+        if item is None:
+            continue
+        av1c = prop(item, b"av1C")
+        if av1c is None:
+            raise ValueError("AVIF: an av01 item without av1C")
+        if any(d != _depth(av1c) for d in prop(item, b"pixi") or ()):
+            raise ValueError("AVIF: pixi's depths are not av1C's")
+    colr = [v[0] for k, v in color["props"] if k == b"colr" and v]
+    if colr.count(b"nclx") > 1 or colr.count(b"ICC") > 1:
+        raise ValueError("AVIF: two colr properties of one kind")
+    return dict(items=items, primary=primary, color=color, alpha=alpha,
+                idat=idat)
+
+
+def _payload(data: bytes, box: dict, item: dict) -> bytes:
+    if item["method"] == 1 and box["idat"] is None:
+        raise ValueError("AVIF: an item in idat without an idat box")
+    src = data if item["method"] == 0 else box["idat"]
+    out = []
+    for off, length in item["extents"]:
+        if off > len(src) or length > len(src) - off:
+            raise ValueError("AVIF: an item's extent runs past the data")
+        out.append(src[off:off + length])
+    return b"".join(out)
+
+
+def _lib():
+    lib = _build.load("av1_decode")
+    i64, ptr, cint = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int
+    lib.av1_info.argtypes = [ctypes.c_char_p, i64, ptr, ctypes.c_char_p,
+                             cint]
+    lib.av1_decode.argtypes = [ctypes.c_char_p, i64, ptr, cint, i64, i64,
+                               ctypes.c_char_p, cint]
+    lib.av1_info.restype = lib.av1_decode.restype = cint
+    return lib
+
+
+def _call(fn, *args):
+    err = ctypes.create_string_buffer(256)
+    status = fn(*args, err, len(err))
+    if status:
+        raise STATUS.get(status, RuntimeError)(err.value.decode(
+            errors="replace"))
+
+
+def av1_info(obus: bytes) -> dict:
+    """The frame header of an AV1 still image's OBUs."""
+    v = np.zeros(12, np.int32)
+    _call(_lib().av1_info, obus, len(obus), v.ctypes.data)
+    keys = ("width", "height", "depth", "mono", "ssx", "ssy", "matrix",
+            "full_range", "primaries", "transfer", "profile", "still")
+    return {k: int(x) for k, x in zip(keys, v)}
+
+
+def av1_planes(obus: bytes, info: dict = None) -> tuple:
+    """(planes ``uint16 [1 or 3, H, W]`` (Y, U, V), frame header) of an
+    AV1 lossless intra frame, decoded in C; ``info``: its
+    :func:`av1_info`, where known."""
+    info = info or av1_info(obus)
+    n = 1 if info["mono"] else 3
+    H, W = info["height"], info["width"]
+    out = np.empty((n, H, W), np.uint16)
+    _call(_lib().av1_decode, obus, len(obus), out.ctypes.data, n, H, W)
+    return out, info
+
+
+def _decode(data: bytes, box: dict, item: dict, size, alpha=False
+            ) -> tuple:
+    """(planes, frame header, deferred NotImplementedError) of an item
+    whose image is ``size`` (the colour ``ispe``).  libavif scales a frame
+    of another size to its item's size: an alpha frame is then dropped all
+    the same, a colour frame is not read here (NotImplementedError).  A
+    frame of more samples than the image and than ``SCALED_PIXELS`` is not
+    decoded (NotImplementedError): a damaged header cannot make the port
+    allocate more."""
+    payload = _payload(data, box, item)
+    try:
+        info = av1_info(payload)
+    except NotImplementedError as e:
+        return None, None, e
+    frame = (info["width"], info["height"])
+    if frame[0] * frame[1] > max(size[0] * size[1], SCALED_PIXELS):
+        return None, info, NotImplementedError(
+            "AVIF: a frame larger than its image (libavif scales it)")
+    planes = av1_planes(payload, info)[0]
+    if frame != tuple(size) and not alpha:
+        return None, info, NotImplementedError(
+            "AVIF: a frame of another size than ispe's (libavif scales it)")
+    return planes, info, None
+
+
+def _to8(v: np.ndarray, depth: int) -> np.ndarray:
+    """libavif's 10- and 12-bit samples to 8 bits in its YUV to RGB."""
+    scale = np.float32(255.0 / ((1 << depth) - 1))
+    return np.clip(np.rint(v.astype(np.float32) * scale), 0, 255).astype(
+        np.uint8)
+
+
+def decode_avif(data: bytes, path="<bytes>", gray: bool = False
+                ) -> np.ndarray:
+    """AVIF bytes -> what ``cv2.imread`` returns for a file of them (module
+    docstring): ``uint8 [H, W, 3]`` BGR, or with ``gray`` ``[H, W]``
+    (``uint8``, ``uint16`` where ``av1C`` names 10 or 12 bits)."""
+    try:
+        box = parse(data)
+        color, alpha = box["color"], box["alpha"]
+        av1c = prop(color, b"av1C")
+        depth, mono = _depth(av1c), bool(av1c[2] & 0x10)
+        # OpenCV's channel count: av1C's format, and one for alpha
+        if mono and alpha is not None:
+            raise ValueError("AVIF: a gray image with alpha (OpenCV's "
+                             "reader refuses two channels)")
+        size = prop(color, b"ispe")
+        planes, info, later = _decode(data, box, color, size)
+        if alpha is not None:
+            if (prop(alpha, b"ispe") or size) != size:
+                raise ValueError("AVIF: the alpha item's size is not the "
+                                 "image's")
+            _, a_info, a_later = _decode(data, box, alpha, size, True)
+            if info and a_info and a_info["depth"] != info["depth"]:
+                raise ValueError("AVIF: the alpha's bit depth is not the "
+                                 "image's")
+            later = later or a_later
+        if later:
+            raise later
+    except (ValueError, NotImplementedError) as e:
+        raise type(e)(f"{path}: {e}") from None
+    frame_depth = info["depth"]
+    if mono:  # OpenCV copies Y, scaled down where the Mat is 8-bit
+        y = planes[0]
+        if gray and depth > 8:
+            if frame_depth == 8:
+                raise ValueError(f"{path}: AVIF: an 8-bit frame under a "
+                                 "deeper av1C (OpenCV's reader refuses it)")
+            return y
+        if frame_depth > 8:
+            y = np.clip(np.rint(y / float(1 << (frame_depth - 8))), 0, 255)
+        y = y.astype(np.uint8)
+        return y if gray else np.repeat(y[..., None], 3, -1)
+    # libavif's YUV to RGB, to the Mat's depth (OpenCV: 8 bits, or the
+    # frame's own under IMREAD_ANYDEPTH of a deeper av1C)
+    rgb_depth = frame_depth if gray and depth > 8 else 8
+    nclx = next((v for k, v in color["props"] if k == b"colr" and v and
+                 v[0] == b"nclx"), None)
+    matrix, full = (nclx[3], nclx[4]) if nclx else (info["matrix"],
+                                                    info["full_range"])
+    if matrix in REFUSED_MATRICES or matrix >= 17 or (
+            matrix == 16 and (not full or frame_depth != rgb_depth + 2)) \
+            or (matrix == 8 and not full):
+        raise ValueError(f"{path}: AVIF: matrix coefficients {matrix} "
+                         "(libavif's YUV to RGB refuses them)")
+    if gray and depth > 8 and frame_depth == 8:
+        raise NotImplementedError(
+            f"{path}: AVIF: an 8-bit frame under a deeper av1C (OpenCV "
+            "reads uninitialised memory)")
+    if not full:
+        raise NotImplementedError(f"{path}: AVIF: limited-range samples")
+    if planes.shape[0] == 1:  # a monochrome frame: Y, Y, Y
+        planes = np.repeat(planes, 3, 0)
+    elif matrix != 0:
+        raise NotImplementedError(f"{path}: AVIF: YUV to RGB under matrix "
+                                  f"coefficients {matrix}")
+    bgr = np.stack([planes[1], planes[0], planes[2]], -1)
+    if rgb_depth == 8:
+        bgr = bgr.astype(np.uint8) if frame_depth == 8 else _to8(
+            bgr, frame_depth)
+    if gray:
+        b, g, r = (bgr[..., c].astype(np.int64) for c in range(3))
+        return ((3735 * b + 19235 * g + 9798 * r + 16384) >> 15).astype(
+            bgr.dtype)
+    return np.ascontiguousarray(bgr)
+
+
+# -- the writer ------------------------------------------------------------
+
+
+def _box(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(body)) + kind + body
+
+
+def _full(kind: bytes, version: int, flags: int, body: bytes) -> bytes:
+    return _box(kind, struct.pack(">I", (version << 24) | flags) + body)
+
+
+def _av1c(depth: int, mono: bool) -> bytes:
+    """The av1C box of the writer's sequence header (profile 0 gray, 1
+    colour, 2 at 12 bits; seq_level_idx 31)."""
+    profile = 2 if depth == 12 else 0 if mono else 1
+    return _box(b"av1C", bytes([
+        0x81, profile << 5 | 31, (depth > 8) << 6 | (depth == 12) << 5
+        | mono << 4 | mono << 3 | mono << 2, 0]))
+
+
+def _encoder():
+    lib = _build.load("av1_encode")
+    i64, ptr, cint = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int
+    lib.av1_encode.argtypes = [ptr, cint, i64, i64, cint, cint, ptr, i64,
+                               ptr, ctypes.c_char_p, cint]
+    lib.av1_encode.restype = cint
+    return lib
+
+
+def encode_av1(planes: np.ndarray, depth: int = 8, seed: int = 0) -> bytes:
+    """Lossless AV1 OBUs (a sequence header and one frame, the reduced
+    still picture header) of ``uint16 [1 or 3, H, W]`` planes (Y or Y, U,
+    V at 4:4:4), written in C (``csrc/host/av1_encode.c``): 64 x 64
+    superblocks, a partition and an intra mode for each block picked from
+    ``seed`` and the image (DC, directional with angle deltas, smooth,
+    Paeth, CfL, filter intra), 4 x 4 Walsh-Hadamard residuals."""
+    planes = np.ascontiguousarray(planes, np.uint16)
+    n, H, W = planes.shape
+    if n not in (1, 3) or depth not in (8, 10, 12) or \
+            planes.max(initial=0) >= 1 << depth:
+        raise ValueError("encode_av1: 1 or 3 planes of 8-, 10- or 12-bit "
+                         "samples")
+    cap = 64 * n * H * W * 2 + 4096
+    out = np.empty(cap, np.uint8)
+    size = np.zeros(1, np.int64)
+    _call(_encoder().av1_encode, planes.ctypes.data, n, H, W, depth, seed,
+          out.ctypes.data, cap, size.ctypes.data)
+    return out[:int(size[0])].tobytes()
+
+
+def encode_avif(img: np.ndarray, depth: int = 8, seed: int = 0,
+                alpha: np.ndarray = None, extra_props=(),
+                essential: bool = False) -> bytes:
+    """A lossless AVIF still image of ``img``: ``[H, W, 3]`` BGR (colour
+    under the identity matrix at 4:4:4: Y = G, U = B, V = R) or ``[H, W]``
+    gray (4:0:0), ``uint8`` at depth 8, else ``uint16`` samples below ``1
+    << depth`` (10 or 12); ``alpha`` ([H, W], the same depth) adds an alpha
+    item; ``extra_props`` (boxes, e.g. ``irot``) are associated with the
+    image too, marked essential with ``essential``.  cv2.imread reads the colour file back as ``img`` (8-bit)
+    and the gray one under IMREAD_ANYDEPTH as ``img``."""
+    img = np.asarray(img)
+    H, W = img.shape[:2]
+    mono = img.ndim == 2
+    planes = img[None] if mono else np.stack([img[..., 1], img[..., 0],
+                                              img[..., 2]])
+    color = encode_av1(planes, depth, seed)
+    items = [(1, color)]
+    if alpha is not None:
+        items.append((2, encode_av1(np.asarray(alpha)[None], depth, seed)))
+    chans = 1 if mono else 3
+    props = [_full(b"ispe", 0, 0, struct.pack(">II", W, H)),
+             _full(b"pixi", 0, 0, bytes([chans] + [depth] * chans)),
+             _av1c(depth, mono),
+             _box(b"colr", b"nclx" + struct.pack(">HHHB", 2, 2,
+                                                 2 if mono else 0, 0x80))]
+    assoc = [(1, [1, 0x80 | 2, 0x80 | 3, 4] + [
+        5 + k | (0x80 if essential else 0) for k in range(len(extra_props))])]
+    props += list(extra_props)
+    refs = b""
+    infe = _full(b"infe", 2, 0, struct.pack(">HH", 1, 0) + b"av01Color\0")
+    if alpha is not None:
+        props.append(_full(b"pixi", 0, 0, bytes([1, depth])))
+        props.append(_av1c(depth, True))
+        props.append(_full(b"auxC", 0, 0, ALPHA_URNS[0] + b"\0"))
+        k = len(props)
+        assoc.append((2, [1, 0x80 | (k - 1), k - 2, k]))
+        infe += _full(b"infe", 2, 0, struct.pack(">HH", 2, 0)
+                      + b"av01Alpha\0")
+        refs = _full(b"iref", 0, 0, _box(b"auxl", struct.pack(
+            ">HHH", 2, 1, 1)))
+    ipma = struct.pack(">I", len(assoc)) + b"".join(
+        struct.pack(">HB", iid, len(lst)) + bytes(lst) for iid, lst in assoc)
+    iprp = _box(b"iprp", _box(b"ipco", b"".join(props))
+                + _full(b"ipma", 0, 0, ipma))
+    ftyp = _box(b"ftyp", b"avif" + bytes(4) + b"avifmif1miaf")
+
+    def meta(offsets):
+        iloc = struct.pack(">HH", 0x4400, len(items)) + b"".join(
+            struct.pack(">HHHII", iid, 0, 1, off, len(d))
+            for (iid, d), off in zip(items, offsets))
+        return _full(b"meta", 0, 0, _full(b"hdlr", 0, 0, bytes(4) + b"pict"
+                                          + bytes(13))
+                     + _full(b"pitm", 0, 0, struct.pack(">H", 1))
+                     + _full(b"iloc", 0, 0, iloc)
+                     + _full(b"iinf", 0, 0, struct.pack(">H", len(items))
+                             + infe) + refs + iprp)
+    start = len(ftyp) + len(meta([0] * len(items))) + 8
+    offsets, pos = [], start
+    for _, d in items:
+        offsets.append(pos)
+        pos += len(d)
+    return ftyp + meta(offsets) + _box(b"mdat", b"".join(
+        d for _, d in items))

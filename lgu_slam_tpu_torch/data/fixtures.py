@@ -31,7 +31,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from lgu_slam_tpu_torch.data import gif, hdr, jp2, pnm, sunras, tiff, webp
+from lgu_slam_tpu_torch.data import (avif, gif, hdr, jp2, pnm, sunras, tiff,
+                                     webp)
 from lgu_slam_tpu_torch.data.image_io import encode_jpeg, encode_png, imwrite
 from lgu_slam_tpu_torch.data.synthetic import (
     SyntheticScene,
@@ -108,7 +109,8 @@ FRAME_EXT = {"png": "png", "ppm": "ppm", "pgm": "pgm", "tiff": "tiff",
              "webp": "webp", "gif": "gif", "ras": "ras", "hdr": "hdr",
              "rgbe-tiff": "tiff", "ycbcr-tiff": "tif", "ycbcr-png": "png",
              "lzw16-tiff": "tif", "jp2": "jp2", "ht-jp2": "jp2",
-             "12bit-tiff": "tif", "12bit-png": "png"}
+             "12bit-tiff": "tif", "12bit-png": "png", "avif": "avif",
+             "12bit-avif": "avif", "12bit-avif-png": "png"}
 
 
 def ycbcr_samples(bgr: np.ndarray) -> np.ndarray:
@@ -181,7 +183,10 @@ def write_frame(path, image, kind: str) -> str:
     lossless: the cleanup pass alone); depth as ``12bit-tiff`` (its top
     12 bits, ``min(d >> 4, 4095)``, as 12-bit TIFF samples) or
     ``12bit-png``, the 16-bit PNG of what that TIFF reads back as (those
-    12 bits shifted up by 4)."""
+    12 bits shifted up by 4); colour as ``avif`` (lossless AVIF:
+    ``avif.encode_avif``), depth as ``12bit-avif`` (those top 12 bits as a
+    12-bit gray lossless AVIF) or ``12bit-avif-png`` (the same values,
+    unshifted, as a 16-bit PNG)."""
     path = f"{path}.{FRAME_EXT[kind]}" if kind in FRAME_EXT else path
     if kind == "png":
         data = encode_png(image)
@@ -220,6 +225,12 @@ def write_frame(path, image, kind: str) -> str:
         top = np.minimum(image >> 4, 4095).astype(np.uint16)
         data = tiff.encode_tiff(top, twelve_bit=True) if kind == \
             "12bit-tiff" else encode_png(top << 4)
+    elif kind == "avif":
+        data = avif.encode_avif(image)
+    elif kind in ("12bit-avif", "12bit-avif-png"):
+        top = np.minimum(image >> 4, 4095).astype(np.uint16)
+        data = avif.encode_avif(top, 12) if kind == "12bit-avif" else \
+            encode_png(top)
     else:
         raise ValueError(f"no fixture format {kind!r}")
     with open(path, "wb") as fh:

@@ -14,7 +14,8 @@ does (:func:`sniff`), whatever the file's name, and returns what
   ``x / 257``; JPEG 2000 shifts by its precision less 8); Radiance HDR's
   floats become ``saturate(round(255 f))``;
 - ``imread(path, anydepth=True)`` (``cv2.IMREAD_ANYDEPTH``): one channel,
-  ``uint16`` for 16-bit PNG, TIFF, PNM and PAM and 9- to 16-bit JPEG 2000,
+  ``uint16`` for 16-bit PNG, TIFF, PNM and PAM, 9- to 16-bit JPEG 2000
+  and 10- and 12-bit AVIF,
   ``float32`` for float TIFF,
   PFM and Radiance HDR, TIFF's own dtype for its other samples (``int8``,
   ``int16``, ``uint32``, ``int32``, ``uint64``, ``int64``, ``float64``),
@@ -22,7 +23,7 @@ does (:func:`sniff`), whatever the file's name, and returns what
   (libpng's ``rgb_to_gray`` for PNG, libjpeg's ``JCS_GRAYSCALE`` output
   for JPEG, OpenCV's own ``(4899 R + 9617 G + 1868 B + 8192) >> 14`` for
   BMP, TIFF, PNM, PAM and Sun raster, ``cvtColor``'s ``(9798 R + 19235 G +
-  3735 B + 16384) >> 15`` for WebP, GIF and JPEG 2000, ``cvtColor``'s
+  3735 B + 16384) >> 15`` for WebP, GIF, JPEG 2000 and AVIF, ``cvtColor``'s
   float gray for HDR).
 
 The formats, their decoders and what each reads:
@@ -67,21 +68,32 @@ The formats, their decoders and what each reads:
   and all six code-block styles, SOP / EPH, packed packet headers (PPM /
   PPT), ROI shifts, palettes and channel
   definitions, 8- to 16-bit components (and wider, shifted to 8 bits in
-  colour), the sRGB, gray and sYCC colour spaces.
+  colour), the sRGB, gray and sYCC colour spaces;
+- AVIF (``data/avif.py``; the AV1 stream in C, ``csrc/host/
+  av1_decode.c``): lossless still images, 8 to 12 bits, 4:4:4 colour
+  under the identity matrix and 4:0:0 gray, every intra tool libaom's
+  lossless key frames use, tiles, alpha items (decoded, dropped).
+
+PNG (``eXIf``) and WebP (``EXIF``) files are flipped and transposed by
+their EXIF orientation after the gray or depth conversion, in both read
+modes, as cv2.imread does (``data/exif.py``), as JPEG files are.
 
 A file ``cv2.imread`` returns None for raises ``ValueError``, decided
 where each decoder decides it (the C decoders, ``tiff.py``, ``webp.py``,
 ...), so a file reached by any path gets the same class.  A format this
 OpenCV build reads and the port does not yet read raises
-``NotImplementedError`` naming it: AVIF, and within the formats above what
-each decoder lists (TIFF's separate colour planes of 12 or 16 bits read
-to gray, which OpenCV reads partly from memory it never wrote).
+``NotImplementedError`` naming it: within the formats above what each
+decoder lists (AVIF: lossy AV1, subsampled or non-identity colour,
+limited-range colour, frames libavif scales to their item's size,
+grids, sequences; TIFF's separate colour planes of 12 or 16 bits read to
+gray and an 8-bit AV1 frame under a deeper AVIF av1C read with
+anydepth, which OpenCV reads partly from memory it never wrote).
 The encoders
 (:func:`encode_png`, :func:`encode_jpeg`, :func:`encode_bmp`,
 ``tiff.encode_tiff``, ``pnm.encode_pnm`` / ``encode_pam`` /
 ``encode_pfm``, ``webp.encode_webp_lossless``, ``gif.encode_gif``,
-``hdr.encode_hdr``, ``sunras.encode_sunras``) write fixtures of the modes
-the decoders read.
+``hdr.encode_hdr``, ``sunras.encode_sunras``, ``avif.encode_avif``) write
+fixtures of the modes the decoders read.
 """
 
 from __future__ import annotations
@@ -93,7 +105,8 @@ import zlib
 
 import numpy as np
 
-from lgu_slam_tpu_torch.data import gif, hdr, jp2, pnm, sunras, tiff, webp
+from lgu_slam_tpu_torch.data import (avif, exif, gif, hdr, jp2, pnm, sunras,
+                                     tiff, webp)
 from lgu_slam_tpu_torch.ops import _build
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -110,9 +123,12 @@ def _chunks(data: bytes, path):
         kind = data[pos + 4:pos + 8]
         body = data[pos + 8:pos + 8 + length]
         crc, = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
-        if len(body) != length or zlib.crc32(kind + body) != crc:
+        if len(body) != length:
             raise ValueError(f"{path}: corrupt PNG chunk {kind!r}")
-        yield kind, body
+        if zlib.crc32(kind + body) == crc:
+            yield kind, body
+        elif not kind[0] & 0x20:  # libpng drops an ancillary chunk
+            raise ValueError(f"{path}: corrupt PNG chunk {kind!r}")
         if kind == b"IEND":
             return
         pos += 12 + length
@@ -143,7 +159,7 @@ DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
           6: (8, 16)}
 
 
-def decode_png(data: bytes, path="<bytes>") -> np.ndarray:
+def decode_png(data: bytes, path="<bytes>", meta=None) -> np.ndarray:
     """PNG bytes -> ``[H, W, C]`` samples as libpng hands them to OpenCV
     (RGB(A) or gray(+alpha) order; ``uint8``, or ``uint16`` at bit depth
     16): gray at bit depths 1, 2 and 4 expanded to 8 bits
@@ -151,13 +167,24 @@ def decode_png(data: bytes, path="<bytes>") -> np.ndarray:
     expanded through ``PLTE`` to RGB, or RGBA where ``tRNS`` gives its
     entries alpha (``png_set_palette_to_rgb``; an index past the palette
     reads black, as libpng's zeroed 256-entry palette gives it), Adam7
-    passes put back in place."""
+    passes put back in place.  With a dict ``meta``, sets
+    ``meta["orientation"]`` to the EXIF orientation of the first ``eXIf``
+    chunk libpng keeps (a good CRC and a TIFF header ``II*\\0`` or
+    ``MM\\0*``, before or after the image data, not past ``IEND``), or 0.
+    The first chunk must be ``IHDR``; an ancillary chunk whose CRC fails
+    is dropped, as libpng drops it."""
     if not data.startswith(SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
     header, idat, plte, trns = None, [], None, None
+    exif_block = None
     for kind, body in _chunks(data, path):
+        if header is None and kind != b"IHDR":
+            raise ValueError(f"{path}: PNG chunk {kind!r} before IHDR")
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"eXIf" and exif_block is None and body[:4] in (
+                b"II*\0", b"MM\0*"):
+            exif_block = body
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"PLTE":
@@ -178,6 +205,9 @@ def decode_png(data: bytes, path="<bytes>") -> np.ndarray:
                          f"method {interlace}")
     if ctype == 3 and plte is None:
         raise ValueError(f"{path}: a palette PNG without a PLTE chunk")
+    if meta is not None:
+        meta["orientation"] = exif.orientation(exif_block) if exif_block \
+            else 0
     channels = CHANNELS[ctype]
     bits = channels * depth
     raw = zlib.decompress(b"".join(idat))
@@ -231,11 +261,10 @@ def sniff(data: bytes) -> str:
     (``#?RGBE`` / ``#?RADIANCE``), ``jpeg``, ``webp`` (libwebp's header
     check of the first 32 bytes, which also takes a bare VP8 or VP8L
     bitstream), ``sunras``, ``pnm``, ``pfm``, ``tiff``, ``png``, ``gif``
-    (``GIF8``: the decoder then takes only GIF87a and GIF89a), ``jp2`` (the
-    JP2 signature box or a codestream's SOC and SIZ markers) or ``pam``; a
-    format this build of OpenCV reads and the port does not yet read
-    (AVIF) raises ``NotImplementedError`` naming it; anything else
-    ``ValueError`` (cv2.imread returns None)."""
+    (``GIF8``: the decoder then takes only GIF87a and GIF89a), ``avif``
+    (an ``ftyp`` box naming ``avif`` or ``avis``), ``jp2`` (the JP2
+    signature box or a codestream's SOC and SIZ markers) or ``pam``;
+    anything else ``ValueError`` (cv2.imread returns None)."""
     head = data[:32]
     if head.startswith(BMP_MAGIC):
         return "bmp"
@@ -258,9 +287,8 @@ def sniff(data: bytes) -> str:
         return "tiff"
     if head.startswith(SIGNATURE):
         return "png"
-    if head[4:8] == b"ftyp" and (b"avif" in data[8:64] or
-                                  b"avis" in data[8:64]):
-        raise NotImplementedError("AVIF")
+    if avif.is_avif(data):
+        return "avif"
     if head[:4] == b"GIF8":
         return "gif"
     if head.startswith((jp2.SIGNATURE, jp2.CODESTREAM)):
@@ -287,16 +315,19 @@ def imread(path, anydepth: bool = False) -> np.ndarray:
         raise type(e)(f"{path}: {e}") from None
     if kind != "png":
         return DECODERS[kind](data, path, gray=anydepth)
-    px = decode_png(data, path)
+    meta = {}
+    px = decode_png(data, path, meta)
     if px.shape[-1] in (2, 4):  # alpha is dropped (png_set_strip_alpha)
         px = px[..., :-1]
     if anydepth:
-        return px[..., 0] if px.shape[-1] == 1 else png_gray(px)
-    if px.dtype == np.uint16:
-        px = (px >> 8).astype(np.uint8)
-    if px.shape[-1] == 1:
-        return np.repeat(px, 3, axis=-1)
-    return np.ascontiguousarray(px[..., ::-1])
+        px = px[..., 0] if px.shape[-1] == 1 else png_gray(px)
+    else:
+        if px.dtype == np.uint16:
+            px = (px >> 8).astype(np.uint8)
+        px = np.repeat(px, 3, axis=-1) if px.shape[-1] == 1 else \
+            px[..., ::-1]
+    # the EXIF orientation, after the conversion, as cv2.imread applies it
+    return exif.orient(np.ascontiguousarray(px), meta["orientation"])
 
 
 def unfilter(raw: bytes, height: int, rowbytes: int, bpp: int) -> np.ndarray:
@@ -792,15 +823,6 @@ JPEG_STATUS = {1: ValueError, 3: MemoryError}
 JPEG_OUT_BGR, JPEG_OUT_GRAY, JPEG_OUT_YCC_RGB, JPEG_OUT_RAW = range(4)
 # OpenCV's CV_IO_MAX_IMAGE_PIXELS: imread returns None for larger images
 MAX_PIXELS = 1 << 30
-# EXIF orientation -> the flips and transpose cv2.imread applies
-# (imgcodecs' ExifTransform)
-_ORIENT = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1],
-           4: lambda a: a[::-1], 5: lambda a: a.transpose(1, 0, 2),
-           6: lambda a: a.transpose(1, 0, 2)[:, ::-1],
-           7: lambda a: a.transpose(1, 0, 2)[::-1, ::-1],
-           8: lambda a: a.transpose(1, 0, 2)[::-1]}
-
-
 def _jpeg_call(fn, path, *args):
     err = ctypes.create_string_buffer(256)
     status = fn(*args, err, len(err))
@@ -856,8 +878,7 @@ def decode_jpeg(data: bytes, path="<bytes>", gray: bool = False
     orientation = jpeg_info(data, path)[2]
     out = jpeg_samples(data, JPEG_OUT_GRAY if gray else JPEG_OUT_BGR,
                        1 if gray else 3, path)
-    if orientation in _ORIENT:
-        out = np.ascontiguousarray(_ORIENT[orientation](out))
+    out = exif.orient(out, orientation)
     return out[..., 0] if gray else out
 
 
@@ -1569,4 +1590,5 @@ DECODERS = {"jpeg": decode_jpeg, "bmp": decode_bmp, "pnm": pnm.decode_pnm,
             "pfm": pnm.decode_pfm, "pam": pnm.decode_pam,
             "tiff": tiff.decode_tiff, "webp": webp.decode_webp,
             "gif": gif.decode_gif, "hdr": hdr.decode_hdr,
-            "sunras": sunras.decode_sunras, "jp2": jp2.decode_jp2}
+            "sunras": sunras.decode_sunras, "jp2": jp2.decode_jp2,
+            "avif": avif.decode_avif}

@@ -35,7 +35,7 @@ import struct
 
 import numpy as np
 
-from lgu_slam_tpu_torch.data import pnm
+from lgu_slam_tpu_torch.data import exif, pnm
 from lgu_slam_tpu_torch.ops import _build
 
 HEADER = 32  # OpenCV's WEBP_HEADER_SIZE: the bytes its header read sees
@@ -321,10 +321,31 @@ def decode_webp(data: bytes, path="<bytes>", gray: bool = False
         if first["animation"]:
             bgr = _decode_animation(data)
         else:
-            bgr = _decode_still(data)[0]
+            bgr = exif.orient(_decode_still(data)[0],
+                              exif.orientation(exif_chunk(data) or b""))
     except ValueError as e:
         raise ValueError(f"{path}: {e}") from None
     return pnm.cvt_gray(bgr) if gray else bgr
+
+
+def exif_chunk(data: bytes):
+    """The payload of the first ``EXIF`` chunk of an extended (VP8X) file
+    whose EXIF flag is set, as OpenCV's reader gets it from ``WebPDemux``;
+    None where there is none or where the demuxer refuses the chunk list (a
+    chunk that runs past the RIFF size).  cv2.imread applies its
+    orientation to a still image only."""
+    if len(data) < 30 or data[:4] != b"RIFF" or data[12:16] != b"VP8X" \
+            or not _le(data, 20, 4) & 0x08:
+        return None
+    try:
+        chunks = list(_chunks(data, 30, min(_le(data, 4, 4) + 8,
+                                            len(data))))
+    except ValueError:
+        return None
+    for tag, start, size in chunks:
+        if tag == b"EXIF":
+            return data[start:start + size]
+    return None
 
 
 def decode_webp_bgra(data: bytes) -> np.ndarray:

@@ -1,0 +1,364 @@
+#!/usr/bin/env python
+"""Carry libaom's AV1 tables out of OpenCV's own copy of libaom into the
+port's host C, as ``lgu_slam_tpu_torch/csrc/host/av1_tables.h``: the tables
+the lossless AV1 intra decoder (``av1_decode.c``) and the fixture writer
+(``av1_encode.c``) read.
+
+    python scripts/extract_av1_tables_torch.py [--check]
+
+The library is ``opencv_python.libs/libaom-*.so`` beside cv2 (the libaom
+that OpenCV's AVIF reader decodes with).  It keeps its ``.symtab``, which
+this script parses itself (the ELF section headers, the symbol table and
+its string table: no ``nm``), so each table is read by its name, at its
+address and of its size; a name that appears twice (a static table in two
+objects) must hold the same bytes both times.
+
+libaom stores a CDF inverted (``32768 - cdf``) with one more slot that
+counts its adaptations.  The header holds every CDF in the form of the AV1
+specification, which ``av1_decode.c`` decodes and adapts: the cumulative
+counts of symbols 0 .. N-1, increasing, the last 32768, then the counter
+slot (0).  The few CDFs libaom builds into its code instead of a named table
+(two-symbol ones, CfL, filter intra, palette modes and sizes, angle deltas)
+are the specification's default tables, written below; each one of three
+symbols or more is checked against libaom's bytes, where it is stored
+inverted.  The scan is the specification's (row-major positions; libaom
+stores the transpose).
+
+``--check`` compares the committed header with what the library gives and
+exits 1 where they differ.  Needs cv2's wheel (the card machine has none:
+the header is committed).
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import os
+import struct
+import sys
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HEADER = os.path.join(REPO, "lgu_slam_tpu_torch", "csrc", "host",
+                      "av1_tables.h")
+
+# (libaom symbol, C name, element type, shape); "cdf" tables are converted
+CDFS = [
+    ("default_partition_cdf", "partition_cdf", (20, 11)),
+    ("default_kf_y_mode_cdf", "kf_y_mode_cdf", (5, 5, 14)),
+    ("default_uv_mode_cdf", "uv_mode_cdf", (2, 13, 15)),
+    ("default_palette_y_color_index_cdf", "palette_y_color_cdf", (7, 5, 9)),
+    ("default_palette_uv_color_index_cdf", "palette_uv_color_cdf",
+     (7, 5, 9)),
+    ("av1_default_txb_skip_cdfs", "txb_skip_cdf", (4, 5, 13, 3)),
+    ("av1_default_eob_multi16_cdfs", "eob_pt16_cdf", (4, 2, 2, 6)),
+    ("av1_default_eob_extra_cdfs", "eob_extra_cdf", (4, 5, 2, 9, 3)),
+    ("av1_default_dc_sign_cdfs", "dc_sign_cdf", (4, 2, 3, 3)),
+    ("av1_default_coeff_base_eob_multi_cdfs", "coeff_base_eob_cdf",
+     (4, 5, 2, 4, 4)),
+    ("av1_default_coeff_base_multi_cdfs", "coeff_base_cdf",
+     (4, 5, 2, 42, 5)),
+    ("av1_default_coeff_lps_multi_cdfs", "coeff_br_cdf", (4, 5, 2, 21, 5)),
+]
+# the number of symbols of each CDF row where it is not the last axis less
+# one: the partition CDFs of 8 x 8 blocks have 4, of 128 x 128 blocks 8;
+# a palette of n colours has n; the first uv mode row (CfL not allowed) 13
+PLAIN = [
+    ("dr_intra_derivative", "dr_intra_derivative", "<i2", "int16_t", (90,)),
+    ("av1_filter_intra_taps", "filter_intra_taps", "i1", "int8_t",
+     (5, 8, 8)),
+    ("smooth_weights", "sm_weights", "u1", "uint8_t", (124,)),
+    ("mode_to_angle_map", "mode_to_angle", "u1", "uint8_t", (13,)),
+    ("av1_palette_color_index_context_lookup", "palette_color_context",
+     "<i4", "int", (9,)),
+    ("av1_nz_map_ctx_offset_4x4", "nz_map_ctx_offset_4x4", "i1", "int8_t",
+     (16,)),
+    ("dc_qlookup_QTX", "dc_qlookup", "<i2", "int16_t", (256,)),
+    ("dc_qlookup_10_QTX", "dc_qlookup_10", "<i2", "int16_t", (256,)),
+    ("dc_qlookup_12_QTX", "dc_qlookup_12", "<i2", "int16_t", (256,)),
+    ("ac_qlookup_QTX", "ac_qlookup", "<i2", "int16_t", (256,)),
+    ("ac_qlookup_10_QTX", "ac_qlookup_10", "<i2", "int16_t", (256,)),
+    ("ac_qlookup_12_QTX", "ac_qlookup_12", "<i2", "int16_t", (256,)),
+]
+
+# the specification's default CDFs that libaom keeps in its code (values of
+# symbols 0 .. N-2; the last, 32768, and the counter are added)
+SPEC_CDFS = {
+    "skip_cdf": [[31671], [16515], [4576]],
+    "intrabc_cdf": [[30531]],
+    "angle_delta_cdf": [
+        [2180, 5032, 7567, 22776, 26989, 30217],
+        [2301, 5608, 8801, 23487, 26974, 30330],
+        [3780, 11018, 13699, 19354, 23083, 31286],
+        [4581, 11226, 15147, 17138, 21834, 28397],
+        [1737, 10927, 14509, 19588, 22745, 28823],
+        [2664, 10176, 12485, 17650, 21600, 30495],
+        [2240, 11096, 15453, 20341, 22561, 28917],
+        [3605, 10428, 12459, 17676, 21244, 30655]],
+    "filter_intra_cdf": [[v] for v in (
+        4621, 6743, 5893, 7866, 12551, 9394, 12408, 14301, 12756, 22343,
+        16384, 16384, 16384, 16384, 16384, 16384, 12770, 10368, 20229,
+        18101, 16384, 16384)],
+    "filter_intra_mode_cdf": [[8949, 12776, 17211, 29558]],
+    "cfl_sign_cdf": [[1418, 2123, 13340, 18405, 26972, 28343, 32294]],
+    "cfl_alpha_cdf": [
+        [7637, 20719, 31401, 32481, 32657, 32688, 32692, 32696, 32700,
+         32704, 32708, 32712, 32716, 32720, 32724],
+        [14365, 23603, 28135, 31168, 32167, 32395, 32487, 32573, 32620,
+         32647, 32668, 32672, 32676, 32680, 32684],
+        [11532, 22380, 28445, 31360, 32349, 32523, 32584, 32649, 32673,
+         32677, 32681, 32685, 32689, 32693, 32697],
+        [26990, 31402, 32282, 32571, 32692, 32696, 32700, 32704, 32708,
+         32712, 32716, 32720, 32724, 32728, 32732],
+        [17248, 26058, 28904, 30608, 31305, 31877, 32126, 32321, 32394,
+         32464, 32516, 32560, 32576, 32593, 32622],
+        [14738, 21678, 25779, 27901, 29024, 30302, 30980, 31843, 32144,
+         32413, 32520, 32594, 32622, 32656, 32660]],
+    "palette_y_mode_cdf": [[v] for v in (
+        31676, 3419, 1261, 31912, 2859, 980, 31823, 3400, 781, 32030, 3561,
+        904, 32309, 7337, 1462, 32265, 4015, 1521, 32450, 7946, 129)],
+    "palette_uv_mode_cdf": [[32461], [21488]],
+    "palette_y_size_cdf": [
+        [7952, 13000, 18149, 21478, 25527, 29241],
+        [7139, 11421, 16195, 19544, 23666, 28073],
+        [7788, 12741, 17325, 20500, 24315, 28530],
+        [8271, 14064, 18246, 21564, 25071, 28533],
+        [12725, 19180, 21863, 24839, 27535, 30120],
+        [9711, 14888, 16923, 21052, 25661, 27875],
+        [14940, 20797, 21678, 24186, 27033, 28999]],
+    "palette_uv_size_cdf": [
+        [8713, 19979, 27128, 29609, 31331, 32272],
+        [5839, 15573, 23581, 26947, 29848, 31700],
+        [4426, 11260, 17999, 21483, 25863, 29430],
+        [3228, 9464, 14993, 18089, 22523, 27420],
+        [3768, 8886, 13091, 17852, 22495, 27207],
+        [2464, 8451, 12861, 21632, 25525, 28555],
+        [1269, 5435, 10433, 18963, 21700, 25865]],
+}
+SPEC_SHAPES = {"palette_y_mode_cdf": (7, 3), "cfl_sign_cdf": (),
+               "filter_intra_mode_cdf": (), "intrabc_cdf": ()}
+
+# default_nmv_context (libaom's nmv_context): the joints' CDF row, then for
+# the vertical and the horizontal component the rows of classes, class0_fp
+# (2), fp, sign, class0_hp, hp, class0 and bits (10)
+MV_COMPONENT = [12, 5, 5, 5, 3, 3, 3, 3] + [3] * 10
+MV_ROWS = [5] + MV_COMPONENT * 2
+
+LIBAOM_NOTICE = """\
+ * The tables are libaom's (av1/common/entropymode.c, entropy.c,
+ * token_cdfs.h, scan.c, reconintra.c, quant_common.c):
+ *
+ * Copyright (c) 2016, Alliance for Open Media. All rights reserved.
+ *
+ * This source code is subject to the terms of the BSD 2 Clause License and
+ * the Alliance for Open Media Patent License 1.0:
+ *
+ * Redistribution and use in source and binary forms, with or without
+ * modification, are permitted provided that the following conditions are
+ * met:
+ * 1. Redistributions of source code must retain the above copyright
+ *    notice, this list of conditions and the following disclaimer.
+ * 2. Redistributions in binary form must reproduce the above copyright
+ *    notice, this list of conditions and the following disclaimer in the
+ *    documentation and/or other materials provided with the distribution.
+ *
+ * THIS SOFTWARE IS PROVIDED BY THE COPYRIGHT HOLDERS AND CONTRIBUTORS "AS
+ * IS" AND ANY EXPRESS OR IMPLIED WARRANTIES, INCLUDING, BUT NOT LIMITED
+ * TO, THE IMPLIED WARRANTIES OF MERCHANTABILITY AND FITNESS FOR A
+ * PARTICULAR PURPOSE ARE DISCLAIMED. IN NO EVENT SHALL THE COPYRIGHT
+ * HOLDER OR CONTRIBUTORS BE LIABLE FOR ANY DIRECT, INDIRECT, INCIDENTAL,
+ * SPECIAL, EXEMPLARY, OR CONSEQUENTIAL DAMAGES (INCLUDING, BUT NOT LIMITED
+ * TO, PROCUREMENT OF SUBSTITUTE GOODS OR SERVICES; LOSS OF USE, DATA, OR
+ * PROFITS; OR BUSINESS INTERRUPTION) HOWEVER CAUSED AND ON ANY THEORY OF
+ * LIABILITY, WHETHER IN CONTRACT, STRICT LIABILITY, OR TORT (INCLUDING
+ * NEGLIGENCE OR OTHERWISE) ARISING IN ANY WAY OUT OF THE USE OF THIS
+ * SOFTWARE, EVEN IF ADVISED OF THE POSSIBILITY OF SUCH DAMAGE.
+"""
+
+
+def library_path() -> str:
+    """OpenCV's libaom: ``opencv_python.libs/libaom-*.so*`` beside cv2."""
+    import cv2
+
+    site = os.path.dirname(os.path.dirname(os.path.abspath(cv2.__file__)))
+    found = sorted(glob.glob(os.path.join(site, "opencv_python.libs",
+                                          "libaom-*.so*")))
+    if not found:
+        raise SystemExit("no libaom beside cv2")
+    return found[0]
+
+
+def symbols(lib: bytes) -> dict:
+    """``{name: [bytes, ...]}`` of every sized data symbol of an ELF64
+    little-endian library, read from its ``.symtab``."""
+    if lib[:4] != b"\x7fELF" or lib[4] != 2 or lib[5] != 1:
+        raise SystemExit("not an ELF64 little-endian library")
+    shoff, = struct.unpack_from("<Q", lib, 0x28)
+    shentsize, shnum = struct.unpack_from("<HH", lib, 0x3A)
+    sections = [struct.unpack_from("<IIQQQQIIQQ", lib, shoff + k * shentsize)
+                for k in range(shnum)]
+    symtab = [s for s in sections if s[1] == 2]  # SHT_SYMTAB
+    if not symtab:
+        raise SystemExit("the library has no .symtab")
+    _, _, _, _, off, size, link, _, _, entsize = symtab[0]
+    strtab = sections[link]
+    out = {}
+    for k in range(size // entsize):
+        name_off, info, _, shndx, value, sym_size = struct.unpack_from(
+            "<IBBHQQ", lib, off + k * entsize)
+        if info & 15 != 1 or not sym_size or not 0 < shndx < shnum:
+            continue  # STT_OBJECT with a size in a section only
+        sec = sections[shndx]
+        if sec[1] == 8:  # SHT_NOBITS
+            continue
+        s = strtab[4] + name_off
+        name = lib[s:lib.index(b"\0", s)].decode()
+        pos = sec[4] + value - sec[3]
+        out.setdefault(name, []).append(lib[pos:pos + sym_size])
+    return out
+
+
+def table(syms: dict, name: str, nbytes: int) -> bytes:
+    copies = syms.get(name)
+    if not copies:
+        raise SystemExit(f"{name}: not in the library's symbol table")
+    if any(c != copies[0] for c in copies) or len(copies[0]) != nbytes:
+        raise SystemExit(f"{name}: {len(copies[0])} bytes, not {nbytes}, "
+                         "or copies that differ")
+    return copies[0]
+
+
+def spec_form(icdf: np.ndarray) -> np.ndarray:
+    """libaom's inverted CDF rows (``32768 - cdf``: 0 for the last symbol,
+    then the counter, then zeros up to the table's width) -> the
+    specification's: ``cdf`` of each symbol (the last 32768), the counter
+    (0) right after the last symbol, 32768 in the padding past it."""
+    rows = icdf.astype(np.int64).reshape(-1, icdf.shape[-1])
+    out = 32768 - rows
+    for row, inv in zip(out, rows):
+        last = int(np.flatnonzero(inv == 0)[0])
+        row[last + 1] = 0
+    return out.reshape(icdf.shape)
+
+
+def _rows(values, per_line: int) -> str:
+    items = [str(int(v)) for v in values]
+    lines = [", ".join(items[i:i + per_line])
+             for i in range(0, len(items), per_line)]
+    return ",\n".join("    " + line for line in lines)
+
+
+def _array(ctype: str, name: str, a: np.ndarray) -> str:
+    dims = "".join(f"[{d}]" for d in a.shape)
+    per = a.shape[-1] if a.shape[-1] <= 16 else 16
+    return (f"static const {ctype} {name}{dims} = {{\n"
+            + _rows(a.reshape(-1), per) + "\n};\n")
+
+
+def check_spec_cdfs(lib: bytes) -> None:
+    """Each specification CDF of 3 symbols or more must be in libaom's
+    bytes, inverted: each row's first 8 values and its last 8 with the
+    last symbol's 0 and the counter (the compiler copies a long row in
+    overlapping 16-byte pieces); a shorter row's values alone."""
+    for name, rows in SPEC_CDFS.items():
+        for row in rows:
+            if len(row) < 2:
+                continue
+            inv = [32768 - v for v in row] + [0, 0]
+            for piece in (inv[:8], inv[-8:]) if len(row) > 8 else (
+                    inv[:len(row)],):
+                if lib.find(np.array(piece, "<u2").tobytes()) < 0:
+                    raise SystemExit(f"{name}: {row[:3]}... is not in "
+                                     "libaom")
+
+
+def render() -> dict:
+    """``{path: text}`` of the header, from cv2's libaom."""
+    with open(library_path(), "rb") as f:
+        lib = f.read()
+    syms = symbols(lib)
+    check_spec_cdfs(lib)
+    parts = []
+    for sym, name, shape in CDFS:
+        raw = table(syms, sym, 2 * int(np.prod(shape)))
+        a = np.frombuffer(raw, "<u2").reshape(shape)
+        parts.append(_array("uint16_t", name, spec_form(a)))
+    for name, rows in SPEC_CDFS.items():
+        n = max(len(r) for r in rows) + 1
+        a = np.array([list(r) + [32768] * (n - len(r)) + [0] for r in rows])
+        shape = SPEC_SHAPES.get(name, (len(rows),))
+        parts.append(_array("uint16_t", name, a.reshape(shape + (n + 1,))))
+    for sym, name, dtype, ctype, shape in PLAIN:
+        n = int(np.prod(shape)) * np.dtype(dtype).itemsize
+        parts.append(_array(ctype, name, np.frombuffer(
+            table(syms, sym, n), dtype).reshape(shape)))
+    mv = np.frombuffer(table(syms, "default_nmv_context", 286), "<u2")
+    rows, pos = [], 0
+    for n in MV_ROWS:
+        rows.append(spec_form(mv[pos:pos + n][None])[0])
+        pos += n
+    parts.append(_array("uint16_t", "mv_cdf", np.concatenate(rows)))
+    libscan = np.frombuffer(table(syms, "default_scan_4x4", 32), "<i2")
+    scan = (libscan % 4) * 4 + libscan // 4  # the transpose: row-major
+    parts.append(_array("int16_t", "default_scan_4x4", scan))
+    body = "\n".join(parts)
+    text = f"""/* libaom's tables of the AV1 intra decoder, for av1_decode.c and
+ * av1_encode.c (lossless intra frames: 4 x 4 Walsh-Hadamard blocks).
+ *
+ * Every *_cdf table is in the form of the AV1 specification: for each
+ * context, the cumulative count (out of 32768) of symbols 0 .. N-1,
+ * increasing, the last 32768, then at index N one slot that counts the
+ * symbol's adaptations (0 here); a row with fewer symbols than the table's
+ * width (8 x 8 and 128 x 128 partitions, palettes of fewer than 8 colours,
+ * uv modes without CfL) holds 32768 past its counter.  libaom stores them inverted (32768 -
+ * cdf); the coefficient CDFs are indexed [q context][transform size]
+ * [plane type][context] as libaom indexes them (lossless: q context 0,
+ * TX_4X4).  default_scan_4x4 holds row-major positions, the transpose of
+ * libaom's.  sm_weights holds the weights of sizes 4, 8, 16, 32 and 64
+ * (size n from offset n - 4).  mv_cdf is libaom's default_nmv_context,
+ * the CDFs of intra block copy vectors: at 0 the joints (4 symbols), then
+ * for the vertical (at 5) and the horizontal component (at 74): classes
+ * (11) at +0, class0_fp (2 x 4) at +12, fp (4) at +22, sign at +27,
+ * class0_hp at +30, hp at +33, class0 at +36, bits (10 x 2) at +39.
+ *
+ * Written by scripts/extract_av1_tables_torch.py from the .symtab of
+ * OpenCV's libaom (the CDFs libaom keeps in its code are the
+ * specification's defaults, checked against the library's bytes); do not
+ * edit.
+ *
+{LIBAOM_NOTICE} */
+#ifndef AV1_TABLES_H
+#define AV1_TABLES_H
+
+#include <stdint.h>
+
+{body}
+#endif
+"""
+    return {HEADER: text}
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--check", action="store_true",
+                        help="compare the committed header, write nothing")
+    args = parser.parse_args(argv)
+    stale = []
+    for path, text in render().items():
+        if args.check:
+            with open(path) as f:
+                if f.read() != text:
+                    stale.append(path)
+        else:
+            with open(path, "w") as f:
+                f.write(text)
+            print(f"wrote {os.path.relpath(path, REPO)}")
+    for path in stale:
+        print(f"{os.path.relpath(path, REPO)} differs from the library's "
+              "tables", file=sys.stderr)
+    return 1 if stale else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -9,9 +9,11 @@ conversions (``csrc/host/tiff_color.c``), the BMP RLE decoder
 VP8L, VP8, ALPH), the GIF LZW decoder (``csrc/host/gif_lzw.c``), the
 Radiance HDR scanline reader and float gray (``csrc/host/hdr_rgbe.c``) and
 the JPEG 2000 codestream decoder (``csrc/host/j2k_decode.c``: its header
-read, then the whole decode where the header allows it), and that decoder
+read, then the whole decode where the header allows it), that decoder
 again over small HTJ2K codestreams (its HT cleanup, SigProp and MagRef
-decoders).
+decoders), and the lossless AV1 intra decoder of the AVIF reader
+(``csrc/host/av1_decode.c``: its header read, then the decode), seeded
+with the AV1 streams of ``tests/data/avif`` and of the port's AV1 writer.
 Builds each with AddressSanitizer and UndefinedBehavior Sanitizer beside a
 small C harness, then decodes every truncation of a few seed streams and
 ``--mutations`` copies of each with 1-4 random bytes overwritten (JPEG:
@@ -662,6 +664,72 @@ int main(int argc, char **argv)
 """
 
 
+AV1_HARNESS = LOOP + r"""
+int av1_info(const uint8_t *, int64_t, int32_t *, char *, int);
+int av1_decode(const uint8_t *, int64_t, uint16_t *, int, int64_t, int64_t,
+               char *, int);
+int main(int argc, char **argv)
+{
+    long mutations = atol(argv[1]), counts[4] = {0}, skipped = 0;
+    char err[256];
+    srand((unsigned)atoi(argv[2]));
+    for (int f = 3; f < argc; f++) {
+        long n;
+        uint8_t *base = load(argv[f], &n);
+        FOR_EACH_INPUT(base, n, mutations, {
+            int32_t info[12];
+            int st = av1_info(d, m, info, err, sizeof err);
+            int planes = info[3] ? 1 : 3;
+            if (!st && (int64_t)info[0] * info[1] > (1 << 20))
+                skipped++;  /* more samples than the seeds: not decoded */
+            else {
+                if (!st) {
+                    uint16_t *o = malloc(sizeof(uint16_t) * (size_t)planes
+                                         * (size_t)info[0] * info[1]);
+                    st = av1_decode(d, m, o, planes, info[1], info[0], err,
+                                    sizeof err);
+                    free(o);
+                }
+                counts[st]++;
+            }
+        })
+        free(base);
+    }
+    printf("{\"decoded\": %ld, \"corrupt\": %ld, \"not_decoded\": %ld, "
+           "\"out_of_memory\": %ld, \"too_large\": %ld}\n", counts[0],
+           counts[1], counts[2], counts[3], skipped);
+    return 0;
+}
+"""
+
+
+def av1_seeds(rng) -> list:
+    """The AV1 streams of the committed AVIF files of ``tests/data/avif``
+    (every av01 item, alpha included) and of the port's writer (colour and
+    gray, 8 / 10 / 12 bits, 24 x 40 and 17 x 9)."""
+    from lgu_slam_tpu_torch.data import avif
+
+    folder = os.path.join(REPO, "tests", "data", "avif")
+    out = []
+    for name in sorted(os.listdir(folder)):
+        if not name.endswith(".avif"):
+            continue
+        with open(os.path.join(folder, name), "rb") as fh:
+            data = fh.read()
+        try:
+            box = avif.parse(data)
+            out += [avif._payload(data, box, item) for item in
+                    box["items"].values() if item.get("type") == b"av01"]
+        except (ValueError, NotImplementedError):
+            continue
+    for k, (shape, depth) in enumerate((((3, 24, 40), 8), ((1, 24, 40), 8),
+                                        ((3, 17, 9), 10), ((1, 17, 9), 12))):
+        planes = rng.integers(0, 1 << depth, shape).astype(np.uint16)
+        planes[:, :8] = planes[:, :1]  # flat rows: predictions that hit
+        out.append(avif.encode_av1(planes, depth, k))
+    return out
+
+
 def jp2_seeds() -> list:
     """The codestreams of the committed 96 x 128 JPEG 2000 files."""
     folder = os.path.join(REPO, "tests", "data", "jp2")
@@ -731,6 +799,19 @@ def fuzz_bmp_masks(rng, mutations: int) -> str:
                 except ValueError:
                     counts["corrupt"] += 1
     return "{" + ", ".join(f'"{k}": {v}' for k, v in counts.items()) + "}"
+
+
+def fuzz_av1(tmp, args) -> str:
+    """The AV1 decoder's harness over :func:`av1_seeds` (a generator of
+    its own, so that the other seeds stay as they were)."""
+    paths = []
+    for k, data in enumerate(av1_seeds(np.random.default_rng(args.seed
+                                                             + 19))):
+        paths.append(os.path.join(tmp, f"av1_{k}"))
+        with open(paths[-1], "wb") as fh:
+            fh.write(data)
+    return _run(tmp, "fuzz_av1", AV1_HARNESS, ["av1_decode.c"], paths,
+                args.mutations, args.seed)
 
 
 def _run(tmp, name, harness, sources, args, mutations, seed) -> str:
@@ -821,7 +902,8 @@ def main(argv=None) -> str:
                           j2k_args, args.mutations, args.seed),
             "ht " + _run(tmp, "fuzz_ht", J2K_HARNESS, ["j2k_decode.c"],
                          ht_args, args.mutations, args.seed),
-            "bmp_masks " + fuzz_bmp_masks(rng, args.mutations)]
+            "bmp_masks " + fuzz_bmp_masks(rng, args.mutations),
+            "av1 " + fuzz_av1(tmp, args)]
     out = "\n".join(lines)
     print(out)
     return out

@@ -1,0 +1,440 @@
+"""The port's AVIF reader (lgu_slam_tpu_torch/data/avif.py over the lossless
+AV1 intra decoder csrc/host/av1_decode.c) against OpenCV's (libavif 1.4.2
+over libaom): lossless files of libaom at every speed, 8 to 12 bits, colour
+and gray, odd sizes, screen content (palettes, intra block copy), tiles,
+alpha, Pillow's and the port's writer's files read bit for bit in both read
+modes; cut and damaged files raise ValueError where cv2 returns None; what
+OpenCV reads and the port does not yet read raises NotImplementedError
+naming it."""
+
+import hashlib
+import json
+import os
+import struct
+
+import cv2
+import numpy as np
+import pytest
+from torch_port import same_as_cv2
+
+from lgu_slam_tpu_torch.data import avif, image_io
+
+DATA = os.path.join(os.path.dirname(__file__), "data", "avif")
+
+
+def _cv2_avif(path, img, quality=100, speed=6, depth=None):
+    params = [cv2.IMWRITE_AVIF_QUALITY, quality, cv2.IMWRITE_AVIF_SPEED,
+              speed]
+    if depth:
+        params += [cv2.IMWRITE_AVIF_DEPTH, depth]
+    assert cv2.imwrite(str(path), img, params)
+    return path
+
+
+def _scene(rng, H, W):
+    """A smooth image with edges and noise: every intra predictor has
+    work."""
+    y, x = np.mgrid[0:H, 0:W]
+    base = np.stack([np.sin(x / (5.0 + c)) * 60 + np.cos(y / (4.0 + c)) * 50
+                     + 120 + ((x // 9 + y // 7) % 2) * 30 for c in range(3)],
+                    -1)
+    return np.clip(base + rng.normal(0, 4, base.shape), 0,
+                   255).astype(np.uint8)
+
+
+def test_committed_fixtures_decode_to_cv2_hashes():
+    """tests/data/avif (scripts/make_avif_fixtures_torch.py): cv2.imwrite's
+    lossless files at speeds 0-9, 8 / 10 / 12-bit colour and gray, odd
+    sizes, screen content (palettes, intra block copy), alpha, Pillow's
+    4:0:0 gray with and without tiles, the port's writer's files, a damaged
+    and a cut file: the port's arrays hash as cv2.imread's do in both read
+    modes (the hashes written beside them, which chip_smoke.py phase 19
+    checks on machines without OpenCV), or both refuse (null: ValueError);
+    the queued files (lossy AV1, 4:4:4 under BT.601, an avis sequence) are
+    read by cv2 and raise NotImplementedError naming their feature."""
+    hashes = json.load(open(os.path.join(DATA, "hashes.json")))
+    assert len(hashes) == 29
+    for name, want in hashes.items():
+        path = os.path.join(DATA, name)
+        for mode, flag in (("color", cv2.IMREAD_COLOR),
+                           ("anydepth", cv2.IMREAD_ANYDEPTH)):
+            ref = cv2.imread(path, flag)
+            if want.get("queued"):
+                assert ref is not None
+                with pytest.raises(NotImplementedError,
+                                   match=want["queued"]):
+                    image_io.imread(path, anydepth=mode == "anydepth")
+                continue
+            if want[mode] is None:
+                assert ref is None
+                with pytest.raises(ValueError):
+                    image_io.imread(path, anydepth=mode == "anydepth")
+                continue
+            got = image_io.imread(path, anydepth=mode == "anydepth")
+            for a in (got, ref):
+                assert hashlib.sha256(a.tobytes()).hexdigest() == \
+                    want[mode]["sha256"], (name, mode)
+                assert list(a.shape) == want[mode]["shape"]
+                assert str(a.dtype) == want[mode]["dtype"]
+
+
+@pytest.mark.parametrize("speed", range(11))
+def test_cv2_lossless_files_at_every_speed(speed, tmp_path):
+    """cv2.imwrite at IMWRITE_AVIF_QUALITY 100 and each speed (libaom picks
+    other partitions, modes and tools: filter intra, CfL, palettes,
+    directional modes with angle deltas and the edge filter's upsampling,
+    128 x 128 superblocks at speed 0): 8-bit colour and gray, 10- and
+    12-bit colour and gray, odd and even sizes, equal to cv2.imread in
+    both read modes."""
+    rng = np.random.default_rng(speed)
+    img = _scene(rng, 37 + speed, 45 + 2 * speed)
+    cases = {"c8": img, "g8": img[..., 1].copy(),
+             "c10": img.astype(np.uint16) * 4 + 3,
+             "g12": img[..., 0].astype(np.uint16) * 16 + 9}
+    for name, a in cases.items():
+        depth = int(name[1:])
+        path = _cv2_avif(tmp_path / f"{name}.avif", a, speed=speed,
+                         depth=depth if depth > 8 else None)
+        same_as_cv2(path)
+
+
+def test_depth_conversions_follow_libavif(tmp_path):
+    """Every 10- and 12-bit sample value, gray and colour: the colour read
+    of a 4:0:0 file is rint(v / 2^(depth - 8)) (round half to even), of a
+    4:4:4 identity file rint(float32(v) * float32(255 / max)); IMREAD_ANYDEPTH
+    keeps gray as stored and takes cvtColor's 15-bit gray of colour."""
+    for depth in (10, 12):
+        n = 1 << depth
+        v = np.arange(n, dtype=np.uint16).reshape(-1, 64)
+        path = _cv2_avif(tmp_path / f"g{depth}.avif", v, depth=depth)
+        same_as_cv2(path)
+        got = image_io.imread(str(path))[..., 0]
+        np.testing.assert_array_equal(got, np.clip(np.rint(
+            v / float(1 << (depth - 8))), 0, 255))
+        c = np.stack([v, v[::-1], (v * 7) % n], -1).astype(np.uint16)
+        path = _cv2_avif(tmp_path / f"c{depth}.avif", c, depth=depth)
+        same_as_cv2(path)
+        scale = np.float32(255 / (n - 1))
+        np.testing.assert_array_equal(
+            image_io.imread(str(path)),
+            np.clip(np.rint(c.astype(np.float32) * scale), 0, 255))
+
+
+def test_screen_content_and_tiles(tmp_path):
+    """Flat text-like frames push libaom into palettes (colour cache,
+    wavefront index map) and intra block copy; Pillow writes 2 x 2 tiles
+    of 4:0:0 gray: each equal to cv2.imread."""
+    from PIL import Image
+
+    rng = np.random.default_rng(8)
+    img = np.full((128, 192, 3), 235, np.uint8)
+    for y in range(14, 128, 20):
+        for x in range(0, 150, 48):
+            cv2.putText(img, "LGU", (x, y), cv2.FONT_HERSHEY_SIMPLEX, 0.5,
+                        tuple(int(c) for c in rng.integers(0, 120, 3)), 1)
+    for speed in (1, 2, 4):
+        same_as_cv2(_cv2_avif(tmp_path / f"t{speed}.avif", img, speed=speed))
+        same_as_cv2(_cv2_avif(tmp_path / f"tg{speed}.avif",
+                              img[..., 0].copy(), speed=speed))
+    gray = _scene(rng, 150, 260)[..., 1]
+    Image.fromarray(gray).save(tmp_path / "tiles.avif", quality=100,
+                               subsampling="4:0:0", tile_rows=1, tile_cols=1)
+    same_as_cv2(tmp_path / "tiles.avif")
+
+
+@pytest.mark.parametrize("depth", [8, 10, 12])
+def test_writer_files_read_back_through_cv2(depth, tmp_path):
+    """The port's writer (avif.encode_avif: lossless colour at 4:4:4 under
+    the identity matrix, gray at 4:0:0, an alpha item): cv2.imread gives
+    back the input exactly (IMREAD_UNCHANGED), and the port reads each
+    file as cv2 does in both modes."""
+    rng = np.random.default_rng(depth)
+    img = _scene(rng, 29, 43)
+    if depth > 8:
+        img = img.astype(np.uint16) * (1 << (depth - 8)) + 1
+    for seed, (name, a, alpha) in enumerate((
+            ("c", img, None), ("g", img[..., 2].copy(), None),
+            ("ca", img, img[..., 0].copy()))):
+        path = tmp_path / f"{name}.avif"
+        path.write_bytes(avif.encode_avif(a, depth, seed, alpha=alpha))
+        back = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+        np.testing.assert_array_equal(back[..., :3] if alpha is not None
+                                      else back, a)
+        same_as_cv2(path)
+
+
+def test_cut_and_damaged_files(tmp_path):
+    """Every cut of a writer file and of a cv2 file, and 150 copies each
+    with one or two bits of their AV1 data flipped (the decoder's trailing
+    bit check after each tile, as libaom's): ValueError exactly where
+    cv2.imread returns None, else cv2's array."""
+    rng = np.random.default_rng(4)
+    img = _scene(rng, 20, 28)
+    sources = [avif.encode_avif(img, 8, 5),
+               _cv2_avif(tmp_path / "c.avif", img).read_bytes()]
+    path = tmp_path / "d.avif"
+    for data in sources:
+        for k in range(0, len(data), 7):
+            path.write_bytes(data[:k])
+            same_as_cv2(path)
+        start = data.index(b"mdat") + 4
+        for _ in range(150):
+            d = bytearray(data)
+            for _ in range(int(rng.integers(1, 3))):
+                i = int(rng.integers(start + 16, len(d)))
+                d[i] ^= 1 << int(rng.integers(0, 8))
+            path.write_bytes(bytes(d))
+            same_as_cv2(path)
+
+
+# what the port refuses with NotImplementedError where cv2.imread reads
+# (or fails on what the port does not decode): each is queued in ROADMAP.md
+# A item 1, but the last, where OpenCV reads uninitialised memory
+QUEUED = ("lossy AV1", "subsampled AV1 chroma", "AV1 segmentation",
+          "AV1 superres", "AV1 film grain", "AV1 show_existing_frame",
+          "an AV1 inter frame", "more than one AV1 frame",
+          "a frame of another size than ispe's", "a frame larger than its",
+          "YUV to RGB under matrix", "limited-range samples",
+          "an image sequence", "a grid", "an 8-bit frame under a deeper")
+
+
+def _damage_base(kind):
+    img = _scene(np.random.default_rng(9), 24, 36)
+    if kind == "alpha":
+        return avif.encode_avif(img, 8, 0, alpha=img[..., 1].copy())
+    if kind == "gray12":
+        return avif.encode_avif(img[..., 1].astype(np.uint16) * 16, 12, 0)
+    return open(os.path.join(DATA, "cv2_c10_37x53.avif"), "rb").read()
+
+
+# kind: (rng seed, {(feature, cv2 reads): reads}) as measured with OpenCV
+# 5.0.0 (libavif 1.4.2, libaom 3.14.1)
+DAMAGE = {"alpha": (9, {("a frame of another size than ispe's", True): 2,
+                        ("lossy AV1", False): 2,
+                        ("YUV to RGB under matrix", True): 2}),
+          "gray12": (10, {}),
+          "cv2": (11, {("a frame of another size than ispe's", True): 6})}
+
+
+@pytest.mark.parametrize("kind", sorted(DAMAGE))
+def test_container_damage(kind, tmp_path):
+    """300 copies of a file (the writer's colour with alpha, its 12-bit
+    gray, cv2.imwrite's 10-bit colour) with one or two of its box bytes
+    (ftyp, meta and the AV1 sequence header) set at random, each read in
+    both modes: where cv2.imread reads, the port returns its bytes; where
+    cv2 returns None, the port raises ValueError.  The one other outcome
+    is NotImplementedError naming a feature of ``QUEUED``; those reads are
+    counted, and the counts are the ones measured (``DAMAGE``)."""
+    seed, want = DAMAGE[kind]
+    rng = np.random.default_rng(seed)
+    data = _damage_base(kind)
+    end = data.index(b"mdat") + 24
+    path = tmp_path / "d.avif"
+    queued = {}
+    for _ in range(300):
+        d = bytearray(data)
+        for _ in range(int(rng.integers(1, 3))):
+            d[int(rng.integers(0, end))] = int(rng.integers(0, 256))
+        path.write_bytes(bytes(d))
+        for anydepth in (False, True):
+            ref = cv2.imread(str(path), cv2.IMREAD_ANYDEPTH if anydepth
+                             else cv2.IMREAD_COLOR)
+            try:
+                got = image_io.imread(str(path), anydepth=anydepth)
+            except NotImplementedError as e:
+                feature = next((q for q in QUEUED if q in str(e)), None)
+                assert feature, str(e)
+                key = (feature, ref is not None)
+                queued[key] = queued.get(key, 0) + 1
+                continue
+            except ValueError as e:
+                assert ref is None, str(e)
+                continue
+            assert ref is not None
+            assert got.dtype == ref.dtype and got.shape == ref.shape
+            assert got.tobytes() == ref.tobytes()
+    assert queued == want
+
+
+def test_frame_larger_than_its_image_is_not_decoded(tmp_path, monkeypatch):
+    """A frame of more samples than its ispe (and than ``SCALED_PIXELS``,
+    lowered here) is refused from its header alone, NotImplementedError
+    (cv2 reads it, scaled by libavif), and never decoded; a sequence
+    header patched to claim a 65536 x 65536 frame is refused as libaom
+    refuses it (its frame header no longer parses: ValueError), from the
+    headers alone."""
+    img = _scene(np.random.default_rng(4), 64, 96)
+    ispe = b"ispe" + bytes(4) + struct.pack(">II", 96, 64)
+    data = avif.encode_avif(img, 8, 0).replace(
+        ispe, b"ispe" + bytes(4) + struct.pack(">II", 36, 24))
+    path = tmp_path / "scaled.avif"
+    path.write_bytes(data)
+    assert cv2.imread(str(path)).shape == (24, 36, 3)
+
+    def no_decode(*args):
+        raise AssertionError("decoded")
+
+    monkeypatch.setattr(avif, "SCALED_PIXELS", 1000)
+    monkeypatch.setattr(avif, "av1_planes", no_decode)
+    for anydepth in (False, True):
+        with pytest.raises(NotImplementedError, match="larger than its"):
+            image_io.imread(str(path), anydepth=anydepth)
+    # the writer's reduced header: 16-bit size fields, then both maxima
+    huge = bytearray(avif.encode_avif(img[:24, :36], 8, 0))
+    start = huge.index(b"mdat") + 4
+    assert huge[start:start + 3] == b"\x0a\x0b\x3f"
+    bits = "".join(f"{x:08b}" for x in huge[start + 2:start + 13])
+    bits = bits[:16] + "1" * 32 + bits[48:]
+    huge[start + 2:start + 13] = int(bits, 2).to_bytes(11, "big")
+    with pytest.raises(ValueError, match="byte_alignment"):
+        avif.decode_avif(bytes(huge))
+
+
+def test_refusals_cv2_gives_none(tmp_path):
+    """Files libavif and libaom read and cv2.imread still returns None
+    for, ValueError in both modes: a gray (4:0:0) image with alpha
+    (OpenCV's reader takes no two-channel image), a sequence header whose
+    trailing bits are wrong, a frame OBU followed by a cut one."""
+    img = _scene(np.random.default_rng(6), 24, 36)
+    gray = img[..., 1].copy()
+    data = avif.encode_avif(img, 8, 0)
+    at = data.index(b"mdat") + 4
+    assert data[at:at + 2] == b"\x0a\x0b"  # the writer's sequence header
+    files = {"gray alpha": avif.encode_avif(gray, 8, 0, alpha=gray)}
+    bad = bytearray(data)
+    bad[at + 12] |= 1
+    files["trailing bits"] = bytes(bad)
+    # the colour item's extent taken 6 bytes into the alpha's OBUs
+    two = avif.encode_avif(img, 8, 0, alpha=gray)
+    n = len(avif.encode_av1(np.stack([img[..., 1], img[..., 0],
+                                      img[..., 2]]), 8, 0))
+    k = two.index(struct.pack(">I", n), two.index(b"iloc"))
+    files["cut second OBU"] = two[:k] + struct.pack(">I", n + 6) + \
+        two[k + 4:]
+    for name, d in files.items():
+        path = tmp_path / f"{name}.avif"
+        path.write_bytes(d)
+        assert cv2.imread(str(path)) is None, name
+        same_as_cv2(path)
+
+
+def _with_props(img, boxes, essential):
+    return avif.encode_avif(img, 8, 0, extra_props=boxes,
+                            essential=essential)
+
+
+def test_transforms_are_not_applied(tmp_path):
+    """irot, imir and clap marked essential: cv2.imread applies none of
+    them (nor a clap libavif would find invalid); not marked essential,
+    libavif refuses the file (ValueError)."""
+    img = _scene(np.random.default_rng(1), 24, 36)
+    boxes = [avif._box(b"irot", bytes([1])), avif._box(b"imir", bytes([1])),
+             avif._box(b"clap", struct.pack(">8I", 20, 1, 16, 1, 0, 1, 0,
+                                            1)),
+             avif._box(b"clap", struct.pack(">8I", 100, 0, 16, 1, 0, 1, 0,
+                                            1))]
+    for k, box in enumerate(boxes):
+        for essential in (True, False):
+            path = tmp_path / f"{k}{essential}.avif"
+            path.write_bytes(_with_props(img, [box], essential))
+            same_as_cv2(path)
+            if essential:
+                np.testing.assert_array_equal(image_io.imread(str(path)),
+                                              img)
+            else:
+                assert cv2.imread(str(path)) is None
+
+
+def test_queued_files_raise_not_implemented(tmp_path):
+    """Files OpenCV reads and this reader does not yet: lossy AV1
+    (cv2.imwrite's default quality), 4:2:0 lossless (Pillow's default
+    subsampling), 4:4:4 under BT.601 (Pillow), an avis sequence (Pillow,
+    two frames), a hand-made 1 x 2 grid of the writer's 64 x 64 images
+    (MIAF's least tile size): NotImplementedError naming the feature.
+    Limited-range gray (Pillow) is read: OpenCV copies a 4:0:0 image's Y
+    as stored, whatever its range."""
+    from PIL import Image
+
+    img = _scene(np.random.default_rng(2), 40, 56)
+    rgb = Image.fromarray(img[..., ::-1].copy())
+    cases = {"lossy AV1": _cv2_avif(tmp_path / "l.avif", img, 80)}
+    rgb.save(tmp_path / "420.avif", quality=100)
+    cases["subsampled AV1 chroma"] = tmp_path / "420.avif"
+    rgb.save(tmp_path / "601.avif", quality=100, subsampling="4:4:4")
+    cases["YUV to RGB under matrix coefficients 6"] = tmp_path / "601.avif"
+    Image.fromarray(img[..., 1].copy()).save(
+        tmp_path / "lim.avif", quality=100, subsampling="4:0:0",
+        range="limited")
+    same_as_cv2(tmp_path / "lim.avif")
+    rgb.save(tmp_path / "s.avif", save_all=True, quality=100,
+             append_images=[Image.fromarray(255 - img)])
+    cases["image sequence"] = tmp_path / "s.avif"
+    for feature, path in cases.items():
+        assert cv2.imread(str(path)) is not None
+        for anydepth in (False, True):
+            with pytest.raises(NotImplementedError, match=feature):
+                image_io.imread(str(path), anydepth=anydepth)
+    big = _scene(np.random.default_rng(2), 64, 128)
+    (tmp_path / "g.avif").write_bytes(_grid(big[:, :64], big[:, 64:]))
+    np.testing.assert_array_equal(cv2.imread(str(tmp_path / "g.avif")), big)
+    for anydepth in (False, True):
+        with pytest.raises(NotImplementedError, match="grid"):
+            image_io.imread(str(tmp_path / "g.avif"), anydepth=anydepth)
+
+
+def _grid(*tiles) -> bytes:
+    """A grid item (ID 1) over the writer's tiles (IDs 2, ...), its
+    ImageGrid in idat, the tiles in mdat."""
+    H, W = tiles[0].shape[:2]
+    n = len(tiles)
+    obus = [avif.encode_av1(np.stack([t[..., 1], t[..., 0], t[..., 2]]), 8,
+                            k) for k, t in enumerate(tiles)]
+    grid = struct.pack(">BBBBHH", 0, 0, 0, n - 1, W * n, H)
+    full, box = avif._full, avif._box
+    props = [full(b"ispe", 0, 0, struct.pack(">II", W, H)),
+             full(b"ispe", 0, 0, struct.pack(">II", W * n, H)),
+             avif._av1c(8, False)]
+    assoc = [(1, [2])] + [(k + 2, [1, 0x83]) for k in range(n)]
+    ipma = struct.pack(">I", len(assoc)) + b"".join(
+        struct.pack(">HB", i, len(lst)) + bytes(lst) for i, lst in assoc)
+    infe = full(b"infe", 2, 0, struct.pack(">HH", 1, 0) + b"grid\0")
+    infe += b"".join(full(b"infe", 2, 1, struct.pack(">HH", k + 2, 0)
+                          + b"av01\0") for k in range(n))
+    def meta(offsets):
+        iloc = struct.pack(">HH", 0x4400, n + 1) + struct.pack(
+            ">HHHHII", 1, 1, 0, 1, 0, len(grid)) + b"".join(
+            struct.pack(">HHHHII", k + 2, 0, 0, 1, offsets[k],
+                        len(obus[k])) for k in range(n))
+        return full(b"meta", 0, 0, full(b"hdlr", 0, 0, bytes(4) + b"pict"
+                                        + bytes(13))
+                    + full(b"pitm", 0, 0, struct.pack(">H", 1))
+                    + full(b"iloc", 1, 0, iloc)
+                    + full(b"iinf", 0, 0, struct.pack(">H", n + 1) + infe)
+                    + full(b"iref", 0, 0, box(b"dimg", struct.pack(
+                        ">HH", 1, n) + b"".join(struct.pack(">H", k + 2)
+                                               for k in range(n))))
+                    + box(b"idat", grid)
+                    + box(b"iprp", box(b"ipco", b"".join(props))
+                          + full(b"ipma", 0, 0, ipma)))
+
+    ftyp = box(b"ftyp", b"avif" + bytes(4) + b"avifmif1")
+    pos = len(ftyp) + len(meta([0] * n)) + 8
+    offsets = [pos + sum(len(o) for o in obus[:k]) for k in range(n)]
+    return ftyp + meta(offsets) + box(b"mdat", b"".join(obus))
+
+
+def test_alpha_items(tmp_path):
+    """An alpha item (cv2.imwrite of BGRA, the writer's) is decoded and
+    dropped; one whose AV1 data is damaged fails the read as it fails
+    cv2's (ValueError / None)."""
+    img = _scene(np.random.default_rng(3), 24, 36)
+    bgra = np.concatenate([img, img[..., :1]], -1)
+    same_as_cv2(_cv2_avif(tmp_path / "a.avif", bgra))
+    data = bytearray(avif.encode_avif(img, 8, 0, alpha=img[..., 2].copy()))
+    (tmp_path / "w.avif").write_bytes(bytes(data))
+    same_as_cv2(tmp_path / "w.avif")
+    data[-20] ^= 0xFF
+    data[-5] ^= 0x55
+    (tmp_path / "b.avif").write_bytes(bytes(data))
+    assert cv2.imread(str(tmp_path / "b.avif")) is None
+    same_as_cv2(tmp_path / "b.avif")

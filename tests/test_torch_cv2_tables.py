@@ -48,3 +48,40 @@ def test_tables_hold_their_invariants():
         rho, e1, ek = t >> 4 & 15, t >> 8 & 15, t >> 12 & 15
         assert not (e1 & ~ek).any() and not (ek & ~rho).any()
         assert (rho[:128] != 0).all()
+
+
+AV1_SCRIPT = os.path.join(os.path.dirname(SCRIPT), "extract_av1_tables_torch.py")
+
+
+def _av1_script():
+    spec = importlib.util.spec_from_file_location("extract_av1_tables",
+                                                  AV1_SCRIPT)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_av1_header_equals_libaom_tables():
+    """scripts/extract_av1_tables_torch.py --check: av1_tables.h equals
+    what the script reads from the .symtab of cv2's libaom (the CDFs in
+    the specification's form, the scan, the intra tables, the quantizer
+    lookups; the CDFs libaom keeps in its code checked against its bytes):
+    exit 0."""
+    pytest.importorskip("cv2")
+    assert _av1_script().main(["--check"]) == 0
+
+
+def test_av1_cdfs_are_increasing_with_a_counter():
+    """Every CDF row of the header: increasing to 32768 at its last symbol,
+    its counter slot 0 right after it; libaom's partition CDFs of 8 x 8
+    blocks have 4 symbols, of 128 x 128 blocks 8."""
+    pytest.importorskip("cv2")
+    script = _av1_script()
+    with open(script.library_path(), "rb") as f:
+        syms = script.symbols(f.read())
+    part = np.frombuffer(script.table(syms, "default_partition_cdf", 440),
+                         "<u2").reshape(20, 11)
+    spec = script.spec_form(part)
+    for row, n in zip(spec, [4] * 4 + [10] * 12 + [8] * 4):
+        assert (np.diff(row[:n]) > 0).all() and row[n - 1] == 32768
+        assert row[n] == 0

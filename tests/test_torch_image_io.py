@@ -698,6 +698,19 @@ def _kind(name: str, tmp_path) -> bytes:
             "jp2_ht": {}, "jp2_ht_97_magref": dict(irreversible=True,
                                                    refine=2),
             "jp2_ht_four_passes": dict(refine=2, placeholder=1)}[name])
+    if name.startswith("avif_"):
+        from lgu_slam_tpu_torch.data import avif
+
+        if name == "avif_avis":
+            from PIL import Image
+
+            path = tmp_path / "s.avif"
+            Image.fromarray(img).save(path, save_all=True, quality=100,
+                                      append_images=[Image.fromarray(img)])
+            return path.read_bytes()
+        data = avif.encode_avif(gray.astype(np.uint16) * 16, 12) if \
+            name == "avif_gray12" else avif.encode_avif(img)
+        return data[:-300] if name == "avif_cut" else data
     if name == "pam_alpha":
         from lgu_slam_tpu_torch.data import pnm
 
@@ -786,8 +799,12 @@ CLASSES = {
     **{k: ("read", "read") for k in ("webp", "gif", "hdr", "sun_raster",
                                      "jp2", "jp2_ht", "jp2_ht_97_magref")},
     "jp2_ht_four_passes": ("none", "none"),  # OpenJPEG decodes one HT set
-    # cv2 returns memory it never wrote for an alpha PAM
-    **{k: ("queued", "queued") for k in ("avif", "pam_alpha")},
+    # cv2 returns memory it never wrote for an alpha PAM; cv2.imwrite's
+    # default AVIF is lossy AV1
+    **{k: ("queued", "queued") for k in ("avif", "pam_alpha", "avif_avis")},
+    "avif_lossless": ("read", "read"),
+    "avif_gray12": ("read", "read"),
+    "avif_cut": ("none", "none"),
 }
 
 
@@ -813,3 +830,243 @@ def test_refusals_follow_cv2(name, tmp_path):
             with pytest.raises(ValueError if want == "none"
                                else NotImplementedError):
                 image_io.imread(str(path), anydepth=anydepth)
+
+
+def _exif(orientation: int, order: str = "II", typ: int = 3) -> bytes:
+    """A TIFF-structured EXIF block of one IFD holding one Orientation
+    entry of type ``typ`` (3 SHORT, 4 LONG, 1 BYTE)."""
+    e = "<" if order == "II" else ">"
+    value = struct.pack(e + "I", orientation) if typ == 4 else \
+        struct.pack(e + "HH", orientation, 0)
+    return (order.encode() + struct.pack(e + "HIH", 42, 8, 1)
+            + struct.pack(e + "HHI", 0x112, typ, 1) + value
+            + struct.pack(e + "I", 0))
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body)))
+
+
+def _png_with(png: bytes, extra: dict) -> bytes:
+    """``png`` with chunks inserted: ``extra`` maps a place ("before" the
+    first IDAT, "after" the last, "iend" after IEND, "first" before
+    IHDR) to a list of chunks."""
+    pos, chunks = 8, []
+    while pos < len(png):
+        n, = struct.unpack(">I", png[pos:pos + 4])
+        chunks.append(png[pos:pos + 12 + n])
+        pos += 12 + n
+    first_idat = next(k for k, c in enumerate(chunks) if c[4:8] == b"IDAT")
+    out = (extra.get("first", []) + chunks[:first_idat]
+           + extra.get("before", []) + chunks[first_idat:-1]
+           + extra.get("after", []) + chunks[-1:] + extra.get("iend", []))
+    return png[:8] + b"".join(out)
+
+
+@pytest.mark.parametrize("order", ["II", "MM"])
+@pytest.mark.parametrize("place", ["before", "after"])
+@pytest.mark.parametrize("kind", ["bgr8", "gray16", "bgra16"])
+def test_png_exif_orientation(order, place, kind, tmp_path):
+    """An eXIf chunk before or after the image data, in either byte order,
+    at Orientation 0-10: the port flips and transposes as cv2.imread does
+    (2-8; 0, 1, 9 and 10 leave the image as it is) in both read modes,
+    after the gray or 16-bit depth conversion; a 16-bit gray PNG (a depth
+    map) under anydepth comes back transposed as cv2 returns it."""
+    rng = np.random.default_rng(61)
+    im = _images(kind, rng)[3]  # 17 x 33, not square
+    png = image_io.encode_png(im)
+    for orientation in range(11):
+        path = tmp_path / f"o{orientation}.png"
+        path.write_bytes(_png_with(png, {place: [
+            _png_chunk(b"eXIf", _exif(orientation, order))]}))
+        same_as_cv2(path)
+        if orientation in (5, 6, 7, 8):
+            assert image_io.imread(str(path), anydepth=True).shape == \
+                im.shape[1::-1]
+
+
+def _bad_crc(chunk: bytes) -> bytes:
+    return chunk[:-1] + bytes([chunk[-1] ^ 1])
+
+
+def test_png_exif_edge_cases(tmp_path):
+    """How cv2.imread (libpng 1.6 keeping the eXIf chunk, OpenCV's
+    ExifReader reading it) treats the cases around the tag, each pinned:
+    a LONG-typed tag reads its first two bytes (little-endian: the value;
+    big-endian: 0, no change), a BYTE-typed one likewise; an IFD cut
+    anywhere (the entry's value must be whole); an IFD that starts past
+    the header, or past the block's end; an entry count larger than the
+    block; the first of two Orientation entries; the first eXIf chunk
+    whose CRC holds and that starts with a TIFF header (``Exif\\0\\0``, a
+    short block, a bad CRC or a bad magic number are skipped for the next
+    one); an eXIf after IEND is not read; a chunk before IHDR: None; an
+    ancillary chunk whose CRC fails is dropped, the image read."""
+    rng = np.random.default_rng(62)
+    im = rng.integers(0, 256, (20, 30, 3), np.uint8)
+    png = image_io.encode_png(im)
+    ex = lambda *a: _png_chunk(b"eXIf", _exif(*a))  # noqa: E731
+    six = _exif(6)
+    ifd16 = b"II" + struct.pack("<HI", 42, 16) + bytes(8) + struct.pack(
+        "<HHHIHH", 1, 0x112, 3, 1, 8, 0)
+    two = six[:8] + struct.pack("<H", 2) + struct.pack(
+        "<HHIHH", 0x100, 3, 1, 30, 0) + struct.pack(
+        "<HHIHH", 0x112, 3, 1, 3, 0) + bytes(4)
+    cases = {
+        **{f"long_{o}_{k}": {"before": [ex(k, o, 4)]}
+           for o in ("II", "MM") for k in (3, 6, 8)},
+        "byte_6": {"before": [ex(6, "II", 1)]},
+        **{f"cut_{n}": {"before": [_png_chunk(b"eXIf", six[:n])]}
+           for n in range(0, len(six) + 1, 3)},
+        "cut_19": {"before": [_png_chunk(b"eXIf", six[:19])]},
+        "cut_20": {"before": [_png_chunk(b"eXIf", six[:20])]},
+        "ifd_at_16": {"before": [_png_chunk(b"eXIf", ifd16)]},
+        "ifd_past_end": {"before": [_png_chunk(
+            b"eXIf", b"II" + struct.pack("<HI", 42, 200) + bytes(30))]},
+        "many_entries": {"before": [_png_chunk(
+            b"eXIf", six[:8] + struct.pack("<H", 60000) + six[10:])]},
+        "second_entry": {"before": [_png_chunk(b"eXIf", two)]},
+        "two_tags": {"before": [_png_chunk(b"eXIf", six[:8] + struct.pack(
+            "<H", 2) + six[10:22] + six[10:18] + struct.pack(
+            "<HH", 3, 0) + bytes(4))]},
+        "dup_before": {"before": [ex(6), ex(3)]},
+        "dup_around": {"before": [ex(6)], "after": [ex(3)]},
+        "exif_prefix_then_6": {"before": [
+            _png_chunk(b"eXIf", b"Exif\0\0" + _exif(3)), ex(6)]},
+        "short_then_6": {"before": [_png_chunk(b"eXIf", b"II*"), ex(6)]},
+        "bad_crc": {"before": [_bad_crc(ex(6))]},
+        "bad_crc_then_3": {"before": [_bad_crc(ex(6)), ex(3)]},
+        "bad_magic_then_6": {"before": [
+            _png_chunk(b"eXIf", b"II\x2b\0" + _exif(3)[4:]), ex(6)]},
+        "magic_then_6": {"before": [
+            _png_chunk(b"eXIf", b"II*\0" + bytes(4)), ex(6)]},
+        "mixed_order": {"before": [_png_chunk(b"eXIf", b"IM" + six[2:])]},
+        "after_iend": {"iend": [ex(6)]},
+        "before_ihdr": {"first": [ex(6)]},
+        "bad_crc_text": {"before": [_bad_crc(_png_chunk(b"tEXt",
+                                                        b"k\0v")), ex(6)]},
+    }
+    for name, extra in cases.items():
+        path = tmp_path / f"{name}.png"
+        path.write_bytes(_png_with(png, extra))
+        same_as_cv2(path)
+    assert cv2.imread(str(tmp_path / "before_ihdr.png")) is None
+    assert image_io.imread(str(tmp_path / "cut_20.png")).shape == (30, 20, 3)
+    assert image_io.imread(str(tmp_path / "cut_19.png")).shape == (20, 30, 3)
+
+
+@pytest.mark.parametrize("mode", ["gray1", "gray2", "gray4", "palette",
+                                  "apng"])
+def test_png_exif_other_modes(mode, tmp_path):
+    """Gray at 1, 2 and 4 bits and palette PNGs, and an APNG (Pillow, its
+    eXIf before acTL): every orientation is applied as cv2 applies it."""
+    rng = np.random.default_rng(63)
+    for orientation in range(1, 9):
+        path = tmp_path / f"{mode}{orientation}.png"
+        if mode == "apng":
+            from PIL import Image
+
+            frames = [Image.fromarray(rng.integers(0, 256, (20, 30, 3),
+                                                   np.uint8))
+                      for _ in range(2)]
+            exif = Image.Exif()
+            exif[0x112] = orientation
+            frames[0].save(path, save_all=True, append_images=frames[1:],
+                           exif=exif.tobytes())
+            assert b"acTL" in path.read_bytes()
+        else:
+            if mode == "palette":
+                png = image_io.encode_png(
+                    rng.integers(0, 16, (20, 30), np.uint8),
+                    palette=rng.integers(0, 256, (16, 3), np.uint8))
+            else:
+                depth = int(mode[-1])
+                png = image_io.encode_png(
+                    rng.integers(0, 1 << depth, (20, 30), np.uint8),
+                    bit_depth=depth)
+            path.write_bytes(_png_with(png, {"before": [
+                _png_chunk(b"eXIf", _exif(orientation, "MM"))]}))
+        same_as_cv2(path)
+
+
+def _riff(chunks) -> bytes:
+    body = b"WEBP" + b"".join(chunks)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def _webp_chunk(tag: bytes, body: bytes) -> bytes:
+    return (tag + struct.pack("<I", len(body)) + body
+            + (b"\0" if len(body) & 1 else b""))
+
+
+@pytest.mark.parametrize("lossless", [True, False])
+def test_webp_exif_orientation(lossless, tmp_path):
+    """Pillow's WebP files (VP8X with the EXIF flag, lossless and lossy)
+    at Orientation 1-8: flipped and transposed as cv2.imread does it, in
+    both read modes."""
+    from PIL import Image
+
+    im = np.random.default_rng(64).integers(0, 256, (20, 30, 3), np.uint8)
+    for orientation in range(1, 9):
+        exif = Image.Exif()
+        exif[0x112] = orientation
+        path = tmp_path / f"o{orientation}.webp"
+        Image.fromarray(im).save(path, lossless=lossless, quality=90,
+                                 exif=exif.tobytes())
+        same_as_cv2(path)
+        if orientation >= 5:
+            assert image_io.imread(str(path)).shape == (30, 20, 3)
+
+
+def test_webp_exif_edge_cases(tmp_path):
+    """The cases around the WebP EXIF chunk, each pinned against
+    cv2.imread: read before or after the image chunk, only where the VP8X
+    EXIF flag is set, only as a bare TIFF block (no ``Exif\\0\\0``), the
+    first of two, every orientation value 0-10 in big-endian order, an IFD
+    cut anywhere; not where a chunk runs past the RIFF size (the demuxer
+    refuses the list, the image still reads), nor in an animation (Pillow's,
+    EXIF flag set)."""
+    from PIL import Image
+
+    from lgu_slam_tpu_torch.data import webp
+
+    rng = np.random.default_rng(65)
+    im = rng.integers(0, 256, (20, 30, 3), np.uint8)
+    vp8l = webp.encode_webp_lossless(im)[12:]
+
+    def vp8x(flags):
+        return _webp_chunk(b"VP8X", struct.pack("<I", flags)
+                           + (29).to_bytes(3, "little")
+                           + (19).to_bytes(3, "little"))
+    ex = lambda *a: _webp_chunk(b"EXIF", _exif(*a))  # noqa: E731
+    cases = {
+        "after": [vp8x(8), vp8l, ex(6)],
+        "before": [vp8x(8), ex(6), vp8l],
+        "no_flag": [vp8x(0), vp8l, ex(6)],
+        "prefix": [vp8x(8), vp8l, _webp_chunk(b"EXIF",
+                                              b"Exif\0\0" + _exif(6))],
+        "bad_magic": [vp8x(8), vp8l, _webp_chunk(
+            b"EXIF", b"II\x2b\0" + _exif(6)[4:])],
+        "two": [vp8x(8), vp8l, ex(6), ex(3)],
+        "long_II": [vp8x(8), vp8l, ex(7, "II", 4)],
+        "long_MM": [vp8x(8), vp8l, ex(7, "MM", 4)],
+        **{f"mm_{o}": [vp8x(8), vp8l, ex(o, "MM")] for o in range(11)},
+        **{f"cut_{n}": [vp8x(8), vp8l, _webp_chunk(b"EXIF", _exif(6)[:n])]
+           for n in (0, 8, 14, 19, 20, 26)},
+    }
+    for name, chunks in cases.items():
+        (tmp_path / f"{name}.webp").write_bytes(_riff(chunks))
+        same_as_cv2(tmp_path / f"{name}.webp")
+    over = bytearray(_riff([vp8x(8), vp8l, ex(6)]))
+    at = over.rindex(b"EXIF")
+    over[at + 4:at + 8] = struct.pack("<I", 100)
+    (tmp_path / "over.webp").write_bytes(bytes(over))
+    same_as_cv2(tmp_path / "over.webp")
+    assert image_io.imread(str(tmp_path / "over.webp")).shape == (20, 30, 3)
+    frames = [Image.fromarray(im), Image.fromarray(255 - im)]
+    exif = Image.Exif()
+    exif[0x112] = 6
+    frames[0].save(tmp_path / "anim.webp", save_all=True,
+                   append_images=frames[1:], lossless=True,
+                   exif=exif.tobytes())
+    same_as_cv2(tmp_path / "anim.webp")

@@ -452,3 +452,50 @@ def test_image_stream_over_new_tiff_kinds_matches_jax(kind, tmp_path):
     items = _held(tstreams.image_stream(*args, stride=1),
                   jstreams.image_stream(*args, stride=1))
     assert len(items) == 4
+
+
+def test_tum_stream_exif_oriented_depth_matches_jax(tmp_path):
+    """The TUM reader over an fr1 sequence whose 16-bit depth PNGs carry an
+    eXIf chunk of Orientation 6 (cv2.imread turns them 90 degrees, also
+    under IMREAD_ANYDEPTH): the port's stream equals the JAX one in frames,
+    shapes and timestamps."""
+    import zlib
+
+    name = "rgbd_dataset_freiburg1_desk"
+    root = fixtures.write_tum_sequence(str(tmp_path / name), n_frames=3,
+                                       H=60, W=80)
+    exif = b"MM\0*" + struct.pack(">IHHHIHH", 8, 1, 0x112, 3, 1, 6, 0) \
+        + bytes(4)
+    chunk = struct.pack(">I", len(exif)) + b"eXIf" + exif + struct.pack(
+        ">I", zlib.crc32(b"eXIf" + exif))
+    for f in os.listdir(os.path.join(root, "depth")):
+        path = os.path.join(root, "depth", f)
+        data = open(path, "rb").read()
+        with open(path, "wb") as fh:  # after IHDR (8 + 25 bytes)
+            fh.write(data[:33] + chunk + data[33:])
+    items = _held(tstreams.tum_rgbd_stream(root, stride=1),
+                  jstreams.tum_rgbd_stream(root, stride=1))
+    assert len(items) == 3
+
+
+def test_tum_stream_avif_matches_jax(tmp_path):
+    """The TUM reader over an fr1 sequence of lossless AVIF colour and
+    12-bit gray AVIF depth (the port's AV1 writer): the port's stream
+    equals the JAX one (cv2.imread over libavif) in frames and timestamps,
+    and equals the port's own stream over PNG colour with the 16-bit PNG
+    depth of the same 12-bit values (chip_smoke.py phase 19's pair)."""
+    name = "rgbd_dataset_freiburg1_desk"
+    root = fixtures.write_tum_sequence(str(tmp_path / "avif" / name),
+                                       n_frames=3, H=60, W=80, color="avif",
+                                       depth="12bit-avif")
+    png = fixtures.write_tum_sequence(str(tmp_path / "png" / name),
+                                      n_frames=3, H=60, W=80,
+                                      depth="12bit-avif-png")
+    items = _held(tstreams.tum_rgbd_stream(root, stride=1),
+                  jstreams.tum_rgbd_stream(root, stride=1))
+    ref = list(tstreams.tum_rgbd_stream(png, stride=1))
+    assert len(items) == len(ref) == 3
+    for a, b in zip(items, ref):
+        assert a[0] == b[0]
+        for x, y in zip(a[1:], b[1:]):
+            np.testing.assert_array_equal(x, y)
