@@ -274,11 +274,25 @@ Sixteen phases; any failure exits non-zero.
    12-bit values, tracked as in phase 12: both streams feed equal frames
    and depth, ``track()`` makes equal K1 and K2 launches over them, and
    the AVIF stream's host ms per fed frame against the PNG's.
+20. Lossy AVIF on the card machine's host: the committed 480 x 640
+   frames of cv2.imwrite (quality 95, OpenCV's default, 50, and 10-bit
+   80: 4:2:0 under BT.601, quantiser matrices, delta q, deblocking, CDEF)
+   decoded to the SHA-256 of ``cv2.imread``'s arrays in both modes, with
+   the host's median decode ms; a 16-frame TUM fr1 sequence in the port
+   writer's lossy 4:2:0 AVIF colour (``fixtures.LOSSY_AVIF``) with 12-bit
+   lossless AVIF depth, each colour frame's AV1 planes equal to the
+   writer's own reconstruction, tracked beside PNG colour of what those
+   AVIF frames read back as with the 16-bit PNG depth, as in phase 12:
+   both streams feed equal frames and depth, ``track()`` makes equal K1
+   and K2 launches over them, and the AVIF stream's host ms per fed frame
+   against the PNG's; the NotImplementedError of each committed file that
+   holds a feature of a later reader (loop restoration, 4:2:2, a
+   sequence).
 
 Before the last line it prints the tracking, terminate, training, fp32
 tracking, world-size-1, entry-point, 3DGS, JPEG, oracle, the five
-format reports, the scaling report and phases 18 and 19's reports, the
-run's wall time, the
+format reports, the scaling report and phases 18, 19 and 20's reports,
+the run's wall time, the
 card's name and power limit, and one JSON line with each kernel's error,
 time, bound and launches.  The last line is ``{"ok": true, "device": {...}}``.
 Data and weights come from fixed seeds; nothing needs the network.
@@ -308,6 +322,7 @@ import torch.distributed as dist
 from lgu_slam_tpu_torch.data import (avif, gif, hdr, jp2, pnm, sunras, tiff,
                                      webp)
 from lgu_slam_tpu_torch.data.fixtures import (
+    LOSSY_AVIF,
     REPLICA_CAM,
     TUM_FR1,
     gif_cube,
@@ -3618,6 +3633,11 @@ def phase_orientation(root: Path) -> dict:
     return dict(files=n, ms=host_ms(lambda _: imread(str(path)), range(5)))
 
 
+# phase 20's committed frames, which phase 19 leaves to it
+LOSSY_480X640 = ("cv2_lossy_q95_480x640.avif", "cv2_lossy_q50_480x640.avif",
+                 "cv2_lossy_c10_q80_480x640.avif")
+
+
 def avif_queued(name: str) -> bool:
     hashes = json.loads((AVIF_FIXTURES / "hashes.json").read_text())
     return bool(hashes[name].get("queued"))
@@ -3667,7 +3687,8 @@ def phase_19(dev, kernels: dict) -> dict:
         report = dict(orientation=phase_orientation(root))
         report["codecs"] = phase_format_codecs(root, formats_19_cases(), 19)
         report["committed_avif"] = phase_committed(
-            AVIF_FIXTURES, 19, keep=lambda name: not avif_queued(name))
+            AVIF_FIXTURES, 19, keep=lambda name: not avif_queued(name) and
+            name not in LOSSY_480X640)
         queued = {}
         for name, want in json.loads(
                 (AVIF_FIXTURES / "hashes.json").read_text()).items():
@@ -3718,6 +3739,101 @@ def print_phase_19(report: dict) -> None:
           f"{len(report['refused'])} refusals; TUM RGB-D at 384 x 512, "
           f"equal frames and depth from both streams: {tum}; AVIF / PNG "
           f"feed {report['feed_ratio']:.3f}; {report['seconds']:.0f} s")
+
+
+# -- phase 20: lossy AVIF ------------------------------------------------
+
+PHASE_20_FRAMES = 16
+
+
+def avif_planes_of(data: bytes) -> list:
+    """The AV1 planes of an AVIF file's colour item."""
+    box = avif.parse(data)
+    return avif.av1_planes(avif._payload(data, box, box["color"]))[0]
+
+
+def phase_20_writer(seq: Path, seed: int) -> dict:
+    """Each colour frame of the lossy AVIF sequence is the writer's file of
+    its rendered frame, and its AV1 planes equal the writer's own
+    reconstruction (the decoder's inverse transforms and in-loop filters
+    against the writer's)."""
+    images = render_sequence(seed, PHASE_20_FRAMES, 480, 640, TUM_FR1,
+                             0.02, 0.004)[0]
+    files = sorted((seq / "rgb").iterdir())
+    check(len(files) == PHASE_20_FRAMES, "phase 20: the sequence's frames")
+    t_start = time.perf_counter()
+    sizes = []
+    for img, path in zip(images, files):
+        data, rec = avif.encode_avif(img, lossy=LOSSY_AVIF, recon=True)
+        check(path.read_bytes() == data,
+              f"phase 20: {path.name} is not the writer's file")
+        got = avif_planes_of(data)
+        check(len(got) == 3 and all(np.array_equal(a, b) for a, b in
+                                    zip(got, rec)),
+              f"phase 20: {path.name} does not decode to the writer's "
+              "reconstruction")
+        sizes.append(len(data))
+    return dict(frames=len(files), bytes_median=statistics.median(sizes),
+                seconds=time.perf_counter() - t_start)
+
+
+def phase_20(dev, kernels: dict) -> dict:
+    t_start = time.perf_counter()
+    report = dict(committed=phase_committed(
+        AVIF_FIXTURES, 20, keep=lambda name: name in LOSSY_480X640))
+    check(len(report["committed"]) == len(LOSSY_480X640),
+          "phase 20: the committed 480 x 640 frames")
+    refusals_21 = {}
+    for name, want in json.loads(
+            (AVIF_FIXTURES / "hashes.json").read_text()).items():
+        if not want.get("queued"):
+            continue
+        try:
+            imread(str(AVIF_FIXTURES / name))
+            fail(f"phase 20: {name} read; it is queued")
+        except NotImplementedError as e:
+            check(want["queued"] in str(e), f"phase 20: {name} refused as "
+                  f"{e}")
+            refusals_21[name] = str(e).split(": ", 1)[-1]
+    report["refusals_21"] = refusals_21
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        runs = phase_format_track(
+            dev, kernels, root / "tum", n_frames=PHASE_20_FRAMES,
+            seed=SEED + 30, phase=20,
+            pairs=(("lossy-avif", "12bit-avif"),
+                   ("lossy-avif-png", "12bit-avif-png")),
+            key="launches_formats_20")
+        report["writer"] = phase_20_writer(
+            root / "tum" / "lossy-avif_12bit-avif" /
+            "rgbd_dataset_freiburg1_desk", SEED + 30)
+    avif_run, png_run = runs.values()
+    for name in ("k1_launches_track", "k2_launches_track"):
+        check(avif_run[name] == png_run[name],
+              f"phase 20: {name} {avif_run[name]} (lossy AVIF + 12-bit "
+              f"AVIF) != {png_run[name]} (PNG + 16-bit PNG)")
+    report["feed_ratio"] = avif_run["feed_ms"] / png_run["feed_ms"]
+    report["tum"] = runs
+    report["seconds"] = time.perf_counter() - t_start
+    return report
+
+
+def print_phase_20(report: dict) -> None:
+    committed = ", ".join(f"{k} {v['decode_ms']:.2f} ms" for k, v in
+                          report["committed"].items())
+    tum = "; ".join(
+        f"{k}: fed {v['feed_ms']:.2f} ms per frame, {v['keyframes']} "
+        f"keyframes, K1 {v['k1_launches']} / K2 {v['k2_launches']} "
+        f"launches (track {v['k1_launches_track']} / "
+        f"{v['k2_launches_track']})" for k, v in report["tum"].items())
+    refusals = "; ".join(f"{k}: {v}" for k, v in
+                         report["refusals_21"].items())
+    print(f"phase 20: committed 480 x 640 lossy AVIF frames equal to cv2's "
+          f"hashes, host decode {committed}; {report['writer']['frames']} "
+          f"writer frames decode to its reconstruction; TUM RGB-D at 384 x "
+          f"512, equal frames and depth from both streams: {tum}; lossy "
+          f"AVIF / PNG feed {report['feed_ratio']:.3f}; refused for a later "
+          f"reader: {refusals}; {report['seconds']:.0f} s")
 
 
 def main():
@@ -3803,11 +3919,14 @@ def main():
     torch.cuda.empty_cache()
     formats_19 = phase_19(dev, kernels)
     print_phase_19(formats_19)
+    torch.cuda.empty_cache()
+    formats_20 = phase_20(dev, kernels)
+    print_phase_20(formats_20)
     # launches on the main path: K1 bf16 and K2 over track() +
     # terminate(), phase 8's entry points, phase 10's JPEG runs, phases
-    # 12-16's, 18's and 19's TUM tracks and phase 17's backend passes, K2 also
-    # over phase 7's sharded backend pass, K1 fp32 operands over phase 6's
-    # track()
+    # 12-16's, 18's, 19's and 20's TUM tracks and phase 17's backend
+    # passes, K2 also over phase 7's sharded backend pass, K1 fp32 operands
+    # over phase 6's track()
     for name in ("masked_corr_level0_tc", "fused_pyramid_lookup"):
         k = kernels[name]
         k["launches"] = k["launches_track"] + k["launches_terminate"] + \
@@ -3816,7 +3935,8 @@ def main():
             k["launches_formats"] + k["launches_arith"] + \
             k["launches_formats_14"] + k["launches_formats_15"] + \
             k["launches_formats_16"] + k["launches_scaling_17"] + \
-            k["launches_formats_18"] + k["launches_formats_19"]
+            k["launches_formats_18"] + k["launches_formats_19"] + \
+            k["launches_formats_20"]
     k = kernels["masked_corr_level0_tf32"]
     k["launches"] = k["launches_track_fp32"]
     for k in kernels.values():
@@ -3840,6 +3960,7 @@ def main():
     print(json.dumps({"scaling_17": scaling_17}))
     print(json.dumps({"formats_18": formats_18}))
     print(json.dumps({"formats_19": formats_19}))
+    print(json.dumps({"formats_20": formats_20}))
     print(json.dumps({"seconds": seconds}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": list(kernels.values())}))

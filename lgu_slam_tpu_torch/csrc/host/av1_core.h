@@ -1,24 +1,30 @@
-/* The AV1 intra tile syntax of lossless frames, shared by the decoder
- * (av1_decode.c) and the fixture writer (av1_encode.c).
+/* The AV1 intra tile syntax, shared by the decoder (av1_decode.c) and the
+ * fixture writer (av1_encode.c), and the in-loop filters of an intra
+ * frame.
  *
  * One implementation of the block syntax serves both: each symbol goes
  * through sym(), which decodes it (libaom's od_ec decoder, 32-bit window)
  * or, in a writer, encodes the value the writer chose (libaom's od_ec
  * encoder); the CDFs adapt alike on both sides.  Reconstruction follows the
  * AV1 specification (section 7.11: every intra predictor, the edge filter
- * and upsampling, CfL, palette; 7.13: the inverse Walsh-Hadamard transform
- * of lossless blocks) over 16-bit planes of MiCols * 4 x MiRows * 4
- * samples.
+ * and upsampling, CfL, palette; 7.12-7.13: dequantisation with quantiser
+ * matrices and delta q, the inverse Walsh-Hadamard transform of lossless
+ * blocks and every DCT / ADST / identity size of lossy ones, clamped
+ * where libaom clamps; 7.14-7.15: deblocking and CDEF) over 16-bit planes
+ * of MiCols * 4 x MiRows * 4 samples (and room for transform blocks that
+ * reach past them), chroma at 4:4:4, 4:2:2 or 4:2:0.
  *
- * What a lossless key frame can hold and this file does not read raises
- * through av1_fail(ERR_NOTIMPL, ...): intra block copy and segmentation.
- * Errors unwind with longjmp to the entry point, which frees what the
- * frame allocated.
+ * What an intra frame can hold and this file does not read raises
+ * through av1_fail(ERR_NOTIMPL, ...): intra block copy in a lossy frame
+ * (segmentation, loop restoration, superres and film grain are refused
+ * by the frame header).  Errors unwind with longjmp to the entry point,
+ * which frees what the frame allocated.
  */
 #ifndef AV1_CORE_H
 #define AV1_CORE_H
 
 #include <setjmp.h>
+#include <stddef.h>
 #include <stdarg.h>
 #include <stdint.h>
 #include <stdio.h>
@@ -84,6 +90,18 @@ typedef struct {
     uint16_t coeff_base_eob[5][2][4][4];
     uint16_t coeff_base[5][2][42][5];
     uint16_t coeff_br[5][2][21][5];
+    uint16_t eob_pt32[2][2][7];
+    uint16_t eob_pt64[2][2][8];
+    uint16_t eob_pt128[2][2][9];
+    uint16_t eob_pt256[2][2][10];
+    uint16_t eob_pt512[2][2][11];
+    uint16_t eob_pt1024[2][2][12];
+    uint16_t intra_ext_tx[3][4][13][17];
+    uint16_t tx_8x8[3][3];
+    uint16_t tx[3][3][4];
+    uint16_t delta_q[5];
+    uint16_t delta_lf[5];
+    uint16_t delta_lf_multi[4][5];
     uint16_t mv[143];
 } Cdfs;
 
@@ -113,6 +131,18 @@ static void cdfs_init(Cdfs *c, int qctx)
     CP(coeff_base_eob, coeff_base_eob_cdf[qctx]);
     CP(coeff_base, coeff_base_cdf[qctx]);
     CP(coeff_br, coeff_br_cdf[qctx]);
+    CP(eob_pt32, eob_pt32_cdf[qctx]);
+    CP(eob_pt64, eob_pt64_cdf[qctx]);
+    CP(eob_pt128, eob_pt128_cdf[qctx]);
+    CP(eob_pt256, eob_pt256_cdf[qctx]);
+    CP(eob_pt512, eob_pt512_cdf[qctx]);
+    CP(eob_pt1024, eob_pt1024_cdf[qctx]);
+    CP(intra_ext_tx, intra_ext_tx_cdf);
+    CP(tx_8x8, tx_8x8_cdf);
+    CP(tx, tx_cdf);
+    CP(delta_q, delta_q_cdf);
+    CP(delta_lf, delta_lf_cdf);
+    CP(delta_lf_multi, delta_lf_multi_cdf);
     CP(mv, mv_cdf);
 #undef CP
 }
@@ -328,17 +358,29 @@ struct Av1 {
     /* frame header */
     int W, H, MiCols, MiRows, nplanes;
     int sct, allow_intrabc, disable_cdf_update, reduced_tx_set, base_q;
+    int lossless, tx_mode_select, qm_level[3], dq_dc[3], dq_ac[3];
+    int delta_q_present, delta_q_res, delta_lf_present, delta_lf_res;
+    int delta_lf_multi;
+    int lf_level[4], lf_sharpness, lf_delta_enabled, lf_ref_delta_intra;
+    int cdef_damping, cdef_bits, cdef_pri[2][8], cdef_sec[2][8];
     int tile_cols, tile_rows, tile_cols_log2, tile_rows_log2;
     int col_starts[MAX_TILES + 1], row_starts[MAX_TILES + 1];
     int tile_size_bytes, context_update_tile_id;
     int temporal_id, spatial_id;
     char unread[64]; /* the first tool of the frame not read, or "" */
-    /* planes of MiCols * 4 x MiRows * 4 samples */
+    /* planes of MiCols * 4 x MiRows * 4 samples, and room for transform
+     * blocks that reach past them */
     uint16_t *plane[3];
     int stride, rows;
     /* per 4 x 4 (mode info) unit */
     uint8_t *mi_size, *ymodes, *uvmodes, *skips, *pal_sizes[2];
-    uint8_t *is_inter, *written;
+    uint8_t *is_inter, *written, *txsizes;
+    int8_t *delta_lfs; /* 4 per unit */
+    /* per 4 x 4 unit of each plane: the loop filter's transform size */
+    uint8_t *lf_tx[3];
+    /* per 64 x 64 unit: the CDEF strength index, -1 unread */
+    int8_t *cdef_idx;
+    int cdef_cols;
     uint16_t *pal_colors[2];
     int16_t *mvs; /* intra block copy vectors (row, col), 1/8 sample */
     /* contexts */
@@ -350,17 +392,20 @@ struct Av1 {
     int mi_row_start, mi_row_end, mi_col_start, mi_col_end;
     /* the block */
     int mi_row, mi_col, mi_sz, bw4, bh4, has_chroma;
-    int avail_u, avail_l;
+    int avail_u, avail_l, avail_u_uv, avail_l_uv, txsz;
+    int qindex, read_deltas, delta_lf[4];
     int skip, ymode, uvmode, angle_y, angle_uv, use_filter_intra;
     int filter_intra_mode, cfl_u, cfl_v, pal_y, pal_uv, use_intrabc;
     int mv_row, mv_col;
     uint16_t pal_y_colors[8], pal_u_colors[8], pal_v_colors[8];
     uint8_t map_y[64 * 64], map_uv[64 * 64];
     int max_luma_w, max_luma_h;
-    int32_t quant[16];
+    int32_t quant[32 * 32]; /* row-major, at most 32 x 32 */
+    int plane_tx_type;
     /* a writer: its source planes, its choice of each block's modes */
     const uint16_t *src[3];
     uint32_t enc_seed;
+    int enc_block_log2;
     Choice enc_choice;
 };
 
@@ -475,14 +520,28 @@ static int is_smooth_mode(int m)
     return m == SMOOTH_PRED || m == SMOOTH_V_PRED || m == SMOOTH_H_PRED;
 }
 
+/* get_filter_type: the above or left block is smooth; for chroma, the
+ * blocks that hold the chroma above and left */
 static int filter_type(Av1 *f, int plane)
 {
     int above = 0, left = 0;
     uint8_t *modes = plane ? f->uvmodes : f->ymodes;
-    if (f->avail_u)
-        above = is_smooth_mode(MI(modes, f->mi_row - 1, f->mi_col));
-    if (f->avail_l)
-        left = is_smooth_mode(MI(modes, f->mi_row, f->mi_col - 1));
+    if (plane ? f->avail_u_uv : f->avail_u) {
+        int r = f->mi_row - 1, c = f->mi_col;
+        if (plane && f->ssx && !(f->mi_col & 1))
+            c++;
+        if (plane && f->ssy && (f->mi_row & 1))
+            r--;
+        above = is_smooth_mode(MI(modes, r, c));
+    }
+    if (plane ? f->avail_l_uv : f->avail_l) {
+        int r = f->mi_row, c = f->mi_col - 1;
+        if (plane && f->ssx && (f->mi_col & 1))
+            c--;
+        if (plane && f->ssy && !(f->mi_row & 1))
+            r++;
+        left = is_smooth_mode(MI(modes, r, c));
+    }
     return above || left;
 }
 
@@ -808,107 +867,324 @@ static void predict_cfl(Av1 *f, int plane, int x, int y, int log2w, int log2h)
         }
 }
 
-/* -- coefficients of a 4 x 4 block (specification 5.11.39) ---------------- */
+/* -- transform sizes and types (specification 5.11.15-16, 6.10.19) ------ */
 
-static int coeff_base_ctx(const int32_t *q, int pos)
+enum {
+    TX_4X4, TX_8X8, TX_16X16, TX_32X32, TX_64X64, TX_4X8, TX_8X4, TX_8X16,
+    TX_16X8, TX_16X32, TX_32X16, TX_32X64, TX_64X32, TX_4X16, TX_16X4,
+    TX_8X32, TX_32X8, TX_16X64, TX_64X16
+};
+enum {
+    DCT_DCT, ADST_DCT, DCT_ADST, ADST_ADST, FLIPADST_DCT, DCT_FLIPADST,
+    FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST, IDTX, V_DCT, H_DCT,
+    V_ADST, H_ADST, V_FLIPADST, H_FLIPADST
+};
+enum { T_DCT, T_ADST, T_FLIPADST, T_IDTX };
+
+static const uint8_t tx_wl[19] = {2, 3, 4, 5, 6, 2, 3, 3, 4, 4, 5, 5, 6, 2,
+                                  4, 3, 5, 4, 6};
+static const uint8_t tx_hl[19] = {2, 3, 4, 5, 6, 3, 2, 4, 3, 5, 4, 6, 5, 4,
+                                  2, 5, 3, 6, 4};
+/* each transform type's vertical (column) and horizontal (row) kernel */
+static const uint8_t tx_vtype[16] = {
+    T_DCT, T_ADST, T_DCT, T_ADST, T_FLIPADST, T_DCT, T_FLIPADST, T_ADST,
+    T_FLIPADST, T_IDTX, T_DCT, T_IDTX, T_ADST, T_IDTX, T_FLIPADST, T_IDTX};
+static const uint8_t tx_htype[16] = {
+    T_DCT, T_DCT, T_ADST, T_ADST, T_DCT, T_FLIPADST, T_FLIPADST, T_FLIPADST,
+    T_ADST, T_IDTX, T_IDTX, T_DCT, T_IDTX, T_ADST, T_IDTX, T_FLIPADST};
+static const uint8_t filter_intra_dir[5] = {DC_PRED, V_PRED, H_PRED,
+                                            D157_PRED, DC_PRED};
+
+static int tx_of(int wl, int hl)
 {
-    static const int8_t off[5][2] = {{0, 1}, {1, 0}, {1, 1}, {0, 2}, {2, 0}};
-    int row = pos >> 2, col = pos & 3, mag = 0;
+    for (int t = 0; t < 19; t++)
+        if (tx_wl[t] == wl && tx_hl[t] == hl)
+            return t;
+    return -1;
+}
+
+/* the largest transform of a block, at most 64 x 64 */
+static int max_tx_rect(int bsize)
+{
+    int wl = bw4_log2[bsize] + 2, hl = bh4_log2[bsize] + 2;
+    return tx_of(wl > 6 ? 6 : wl, hl > 6 ? 6 : hl);
+}
+
+static int split_tx(int t)
+{
+    int wl = tx_wl[t], hl = tx_hl[t];
+    if (wl == hl)
+        return wl == 2 ? t : tx_of(wl - 1, hl - 1);
+    if (wl - hl == 1 || hl - wl == 1)
+        return wl < hl ? tx_of(wl, wl) : tx_of(hl, hl);
+    return wl > hl ? tx_of(wl - 1, hl) : tx_of(wl, hl - 1);
+}
+
+/* a block's size in a plane subsampled by (ssx, ssy) (Subsampled_Size),
+ * -1 where AV1 has none (a tall block at 4:2:2) */
+static int plane_bsize(int bsize, int ssx, int ssy)
+{
+    int wl = bw4_log2[bsize], hl = bh4_log2[bsize];
+    if ((ssx && !ssy && hl > wl) || (!ssx && ssy && wl > hl))
+        return -1;
+    wl -= ssx;
+    hl -= ssy;
+    return block_size(wl < 0 ? 0 : wl, hl < 0 ? 0 : hl);
+}
+
+/* the transform size of a plane of the block (get_tx_size) */
+static int plane_tx(Av1 *f, int plane, int bsize, int txsz)
+{
+    if (plane == 0)
+        return txsz;
+    if (f->lossless)
+        return TX_4X4;
+    int t = max_tx_rect(plane_bsize(bsize, f->ssx, f->ssy));
+    if (tx_wl[t] == 6 || tx_hl[t] == 6)
+        return tx_wl[t] == 4 ? TX_16X32 : tx_hl[t] == 4 ? TX_32X16
+                                                        : TX_32X32;
+    return t;
+}
+
+/* the intra transform set (get_tx_set): 0 DCT only, 1 TX_SET_INTRA_1
+ * (seven types), 2 TX_SET_INTRA_2 (five); libaom's set type is 3 or 2 */
+static int tx_set(Av1 *f, int t)
+{
+    int up = tx_wl[t] > tx_hl[t] ? tx_wl[t] : tx_hl[t];
+    int sq = tx_wl[t] < tx_hl[t] ? tx_wl[t] : tx_hl[t];
+    if (up >= 5)
+        return 0;
+    if (f->reduced_tx_set || sq == 4)
+        return 2;
+    return 1;
+}
+
+static int set_type(int set)
+{
+    return set == 1 ? 3 : set == 2 ? 2 : 0;
+}
+
+/* the chroma transform type of the block (compute_tx_type) */
+static int uv_tx_type(Av1 *f, int t)
+{
+    int up = tx_wl[t] > tx_hl[t] ? tx_wl[t] : tx_hl[t];
+    if (f->lossless || up > 5)
+        return DCT_DCT;
+    int type = mode_to_txfm[f->uvmode == UV_CFL_PRED ? DC_PRED : f->uvmode];
+    return ext_tx_used[set_type(tx_set(f, t))][type] ? type : DCT_DCT;
+}
+
+static int tx_class(int type)
+{
+    if (type == V_DCT || type == V_ADST || type == V_FLIPADST)
+        return 2; /* TX_CLASS_VERT */
+    if (type == H_DCT || type == H_ADST || type == H_FLIPADST)
+        return 1; /* TX_CLASS_HORIZ */
+    return 0;
+}
+
+/* where the scans (and quantiser matrices) of a size at most 32 x 32
+ * start in their tables */
+static int scan_offset(int wl, int hl)
+{
+    static const int8_t sizes[14][2] = {
+        {2, 2}, {3, 3}, {4, 4}, {5, 5}, {2, 3}, {3, 2}, {3, 4}, {4, 3},
+        {4, 5}, {5, 4}, {2, 4}, {4, 2}, {3, 5}, {5, 3}};
+    int off = 0;
+    for (int k = 0; k < 14; k++) {
+        if (sizes[k][0] == wl && sizes[k][1] == hl)
+            return off;
+        off += 1 << (sizes[k][0] + sizes[k][1]);
+    }
+    return 0;
+}
+
+static const int16_t *get_scan(int t, int type)
+{
+    int wl = tx_wl[t], hl = tx_hl[t];
+    int big = wl == 6 || hl == 6;
+    const int16_t *base = default_scan;
+    if (!big && type != IDTX) {
+        int cls = tx_class(type);
+        base = cls == 2 ? mrow_scan : cls == 1 ? mcol_scan : default_scan;
+    }
+    return base + scan_offset(wl > 5 ? 5 : wl, hl > 5 ? 5 : hl);
+}
+
+/* -- coefficients (specification 5.11.39) --------------------------------- */
+
+/* wide: the transform is wider (1) or taller (-1) than high, before a
+ * 64-point side is cut to 32 (libaom's av1_nz_map_ctx_offset_64x32) */
+static int coeff_base_ctx(const int32_t *q, int wl, int hl, int wide,
+                          int cls, int pos)
+{
+    static const int8_t off[3][5][2] = {
+        {{0, 1}, {1, 0}, {1, 1}, {0, 2}, {2, 0}},
+        {{0, 1}, {1, 0}, {0, 2}, {0, 3}, {0, 4}},
+        {{0, 1}, {1, 0}, {2, 0}, {3, 0}, {4, 0}}};
+    int W = 1 << wl, H = 1 << hl;
+    int row = pos >> wl, col = pos & (W - 1), mag = 0;
     for (int k = 0; k < 5; k++) {
-        int r = row + off[k][0], c = col + off[k][1];
-        if (r < 4 && c < 4) {
-            int a = abs(q[r * 4 + c]);
+        int r = row + off[cls][k][0], c = col + off[cls][k][1];
+        if (r < H && c < W) {
+            int a = abs(q[(r << wl) + c]);
             mag += a < 3 ? a : 3;
         }
     }
     int ctx = (mag + 1) >> 1;
-    if (ctx > 4) ctx = 4;
-    if (pos == 0)
-        return 0;
-    return ctx + nz_map_ctx_offset_4x4[pos];
+    if (ctx > 4)
+        ctx = 4;
+    if (cls == 0) {
+        if (pos == 0)
+            return 0;
+        if (wide < 0 && row < 2)
+            return ctx + 11;
+        if (wide > 0 && col < 2)
+            return ctx + 16;
+        return ctx + (row + col < 2 ? 1 : row + col < 4 ? 6 : 21);
+    }
+    int idx = cls == 2 ? row : col;
+    return ctx + 26 + 5 * (idx < 2 ? idx : 2);
 }
 
-static int coeff_br_ctx(const int32_t *q, int pos)
+static int coeff_br_ctx(const int32_t *q, int wl, int hl, int cls, int pos)
 {
-    static const int8_t off[3][2] = {{0, 1}, {1, 0}, {1, 1}};
-    int row = pos >> 2, col = pos & 3, mag = 0;
+    static const int8_t off[3][3][2] = {{{0, 1}, {1, 0}, {1, 1}},
+                                        {{0, 1}, {1, 0}, {0, 2}},
+                                        {{0, 1}, {1, 0}, {2, 0}}};
+    int W = 1 << wl, H = 1 << hl;
+    int row = pos >> wl, col = pos & (W - 1), mag = 0;
     for (int k = 0; k < 3; k++) {
-        int r = row + off[k][0], c = col + off[k][1];
-        if (r < 4 && c < 4) {
-            int a = q[r * 4 + c];
+        int r = row + off[cls][k][0], c = col + off[cls][k][1];
+        if (r < H && c < W) {
+            int a = q[(r << wl) + c];
             mag += a < 15 ? a : 15;
         }
     }
     mag = (mag + 1) >> 1;
-    if (mag > 6) mag = 6;
+    if (mag > 6)
+        mag = 6;
     if (pos == 0)
         return mag;
-    return (row < 2 && col < 2) ? mag + 7 : mag + 14;
+    if ((cls == 0 && row < 2 && col < 2) || (cls == 1 && col == 0) ||
+        (cls == 2 && row == 0))
+        return mag + 7;
+    return mag + 14;
 }
 
-/* the coefficients of the 4 x 4 block at (x4, y4) of a plane: read into
- * f->quant (signed, row-major), or in a writer written from it; returns
- * the end of block */
-static int coeffs(Av1 *f, int plane, int x4, int y4)
+/* the luma transform type (transform_type); a writer writes DCT_DCT */
+static int read_tx_type(Av1 *f, int t)
+{
+    int set = tx_set(f, t);
+    if (set == 0 || f->base_q == 0)
+        return DCT_DCT;
+    int st = set_type(set), n = set == 1 ? 7 : 5, want = 0;
+    for (int k = 0; k < n; k++)
+        if (ext_tx_inv[st][k] == DCT_DCT)
+            want = k;
+    int mode = f->use_filter_intra ? filter_intra_dir[f->filter_intra_mode]
+                                   : f->ymode;
+    int sq = (tx_wl[t] < tx_hl[t] ? tx_wl[t] : tx_hl[t]) - 2;
+    return ext_tx_inv[st][sym(f, f->cdf.intra_ext_tx[set][sq][mode], n,
+                              want)];
+}
+
+/* the coefficients of the transform block of size t at (x4, y4) of a
+ * plane: read into f->quant (signed, row-major over at most 32 x 32), or
+ * in a writer written from it; sets f->plane_tx_type, returns the end of
+ * block */
+static int coeffs(Av1 *f, int plane, int x4, int y4, int t)
 {
     Cdfs *c = &f->cdf;
     int ptype = plane > 0;
     int maxx4 = f->MiCols, maxy4 = f->MiRows;
+    int wl = tx_wl[t] > 5 ? 5 : tx_wl[t], hl = tx_hl[t] > 5 ? 5 : tx_hl[t];
+    int n = 1 << (wl + hl);
+    int w4 = 1 << (tx_wl[t] - 2), h4 = 1 << (tx_hl[t] - 2);
+    int sq = (tx_wl[t] < tx_hl[t] ? tx_wl[t] : tx_hl[t]) - 2;
+    int up = (tx_wl[t] > tx_hl[t] ? tx_wl[t] : tx_hl[t]) - 2;
+    int txctx = (sq + up + 1) >> 1;
     int32_t *q = f->quant;
-    int32_t want[16];
+    int32_t want[32 * 32];
     if (plane) {
         maxx4 >>= f->ssx;
         maxy4 >>= f->ssy;
     }
-    memcpy(want, q, sizeof(want));
-    memset(q, 0, sizeof(int32_t) * 16);
+    if (f->ec.writing)
+        memcpy(want, q, sizeof(int32_t) * (size_t)n);
+    memset(q, 0, sizeof(int32_t) * (size_t)n);
     int ctx;
     if (plane == 0) {
-        int top = x4 < maxx4 ? f->above_level[0][x4] : 0;
-        int left = y4 < maxy4 ? f->left_level[0][y4] : 0;
-        int bsz = f->mi_sz;
-        if (bsz == BLOCK_4X4)
+        int top = 0, left = 0;
+        for (int k = 0; k < w4; k++)
+            if (x4 + k < maxx4 && f->above_level[0][x4 + k] > top)
+                top = f->above_level[0][x4 + k];
+        for (int k = 0; k < h4; k++)
+            if (y4 + k < maxy4 && f->left_level[0][y4 + k] > left)
+                left = f->left_level[0][y4 + k];
+        int mx = top > left ? top : left, mn = top < left ? top : left;
+        if (bw4_log2[f->mi_sz] + 2 == tx_wl[t] &&
+            bh4_log2[f->mi_sz] + 2 == tx_hl[t])
             ctx = 0;
         else if (top == 0 && left == 0)
             ctx = 1;
         else if (top == 0 || left == 0)
-            ctx = 2 + ((top > left ? top : left) > 3);
-        else if ((top > left ? top : left) <= 3)
+            ctx = 2 + (mx > 3);
+        else if (mx <= 3)
             ctx = 4;
-        else if ((top < left ? top : left) <= 3)
+        else if (mn <= 3)
             ctx = 5;
         else
             ctx = 6;
     } else {
         int above = 0, left = 0;
-        if (x4 < maxx4)
-            above = f->above_level[plane][x4] | f->above_dc[plane][x4];
-        if (y4 < maxy4)
-            left = f->left_level[plane][y4] | f->left_dc[plane][y4];
+        for (int k = 0; k < w4; k++)
+            if (x4 + k < maxx4)
+                above |= f->above_level[plane][x4 + k] |
+                         f->above_dc[plane][x4 + k];
+        for (int k = 0; k < h4; k++)
+            if (y4 + k < maxy4)
+                left |= f->left_level[plane][y4 + k] |
+                        f->left_dc[plane][y4 + k];
         ctx = 7 + (above != 0) + (left != 0);
-        /* the plane's block is larger than 4 x 4 */
-        int bw = 4 << bw4_log2[f->mi_sz], bh = 4 << bh4_log2[f->mi_sz];
-        if ((bw >> f->ssx) * (bh >> f->ssy) > 16)
+        int pb = plane_bsize(f->mi_sz, f->ssx, f->ssy);
+        if (bw4_log2[pb] + bh4_log2[pb] + 4 > tx_wl[t] + tx_hl[t])
             ctx += 3;
     }
+    int type = DCT_DCT;
+    const int16_t *scan = get_scan(t, type);
     int eob = 0, want_eob = 0;
-    if (f->ec.writing)
-        for (int k = 0; k < 16; k++)
-            if (want[default_scan_4x4[k]])
+    if (f->ec.writing) {
+        scan = get_scan(t, plane ? uv_tx_type(f, t) : DCT_DCT);
+        for (int k = 0; k < n; k++)
+            if (want[scan[k]])
                 want_eob = k + 1;
-    int all_zero = sym(f, c->txb_skip[0][ctx], 2, want_eob == 0);
+    }
+    int all_zero = sym(f, c->txb_skip[txctx][ctx], 2, want_eob == 0);
     int cul = 0, dc_cat = 0;
     if (!all_zero) {
-        /* eob: class (eob_pt_16), then its extra bits */
-        static const int pt_of[17] = {0, 1, 2, 3, 3, 4, 4, 4, 4,
-                                      5, 5, 5, 5, 5, 5, 5, 5};
-        int want_pt = f->ec.writing ? pt_of[want_eob] : 0;
-        int eob_pt = sym(f, c->eob_pt16[ptype][0], 5, want_pt - 1) + 1;
+        type = plane ? uv_tx_type(f, t) : f->lossless ? DCT_DCT
+                                                      : read_tx_type(f, t);
+        scan = get_scan(t, type);
+        int cls = tx_class(type);
+        /* eob: its class, then the class's extra bits */
+        int eob_pt, ectx = cls != 0, m = wl + hl - 4;
+        int want_pt = want_eob <= 2 ? want_eob : 2;
+        for (int e = want_eob - 1; want_eob > 2 && e > 1; e >>= 1)
+            want_pt++;
+        uint16_t *pt_cdf = m == 0 ? c->eob_pt16[ptype][ectx]
+                           : m == 1 ? c->eob_pt32[ptype][ectx]
+                           : m == 2 ? c->eob_pt64[ptype][ectx]
+                           : m == 3 ? c->eob_pt128[ptype][ectx]
+                           : m == 4 ? c->eob_pt256[ptype][ectx]
+                           : m == 5 ? c->eob_pt512[ptype][0]
+                                    : c->eob_pt1024[ptype][0];
+        eob_pt = sym(f, pt_cdf, 5 + m, want_pt - 1) + 1;
         eob = eob_pt < 2 ? eob_pt : (1 << (eob_pt - 2)) + 1;
         int shift = eob_pt - 3;
         if (shift >= 0) {
             int rest = want_eob - eob;
-            int bit = sym(f, c->eob_extra[0][ptype][eob_pt - 3], 2,
+            int bit = sym(f, c->eob_extra[txctx][ptype][eob_pt - 3], 2,
                           (rest >> shift) & 1);
             if (bit)
                 eob += 1 << shift;
@@ -919,23 +1195,25 @@ static int coeffs(Av1 *f, int plane, int x4, int y4)
             }
         }
         for (int k = eob - 1; k >= 0; k--) {
-            int pos = default_scan_4x4[k];
-            int wl = abs(want[pos]);
+            int pos = scan[k];
+            int wv = abs(want[pos]);
             int level;
             if (k == eob - 1) {
-                int cx = k == 0 ? 0 : k <= 2 ? 1 : k <= 4 ? 2 : 3;
-                level = sym(f, c->coeff_base_eob[0][ptype][cx], 3,
-                            (wl > 3 ? 3 : wl) - 1) + 1;
+                int cx = k == 0 ? 0 : k <= n / 8 ? 1 : k <= n / 4 ? 2 : 3;
+                level = sym(f, c->coeff_base_eob[txctx][ptype][cx], 3,
+                            (wv > 3 ? 3 : wv) - 1) + 1;
             } else {
-                level = sym(f, c->coeff_base[0][ptype][coeff_base_ctx(q, pos)],
-                            4, wl > 3 ? 3 : wl);
+                level = sym(f, c->coeff_base[txctx][ptype]
+                            [coeff_base_ctx(q, wl, hl, (tx_wl[t] > tx_hl[t]) -
+                             (tx_wl[t] < tx_hl[t]), cls, pos)], 4,
+                            wv > 3 ? 3 : wv);
             }
             if (level > 2) {
-                int bctx = coeff_br_ctx(q, pos);
+                int bctx = coeff_br_ctx(q, wl, hl, cls, pos);
                 for (int idx = 0; idx < 4; idx++) {
-                    int br_want = wl - level;
-                    int br = sym(f, c->coeff_br[0][ptype][bctx], 4,
-                                 br_want > 3 ? 3 : br_want);
+                    int br_want = wv - level;
+                    int br = sym(f, c->coeff_br[txctx < 3 ? txctx : 3][ptype]
+                                 [bctx], 4, br_want > 3 ? 3 : br_want);
                     level += br;
                     if (br < 3)
                         break;
@@ -944,18 +1222,20 @@ static int coeffs(Av1 *f, int plane, int x4, int y4)
             q[pos] = level;
         }
         for (int k = 0; k < eob; k++) {
-            int pos = default_scan_4x4[k];
+            int pos = scan[k];
             int sign = 0;
             if (q[pos]) {
                 int ws = want[pos] < 0;
                 if (k == 0) {
                     int ds = 0;
-                    if (x4 < maxx4)
-                        ds += f->above_dc[plane][x4] == 1 ? -1 :
-                              f->above_dc[plane][x4] == 2 ? 1 : 0;
-                    if (y4 < maxy4)
-                        ds += f->left_dc[plane][y4] == 1 ? -1 :
-                              f->left_dc[plane][y4] == 2 ? 1 : 0;
+                    for (int i = 0; i < w4; i++)
+                        if (x4 + i < maxx4)
+                            ds += f->above_dc[plane][x4 + i] == 1 ? -1 :
+                                  f->above_dc[plane][x4 + i] == 2 ? 1 : 0;
+                    for (int i = 0; i < h4; i++)
+                        if (y4 + i < maxy4)
+                            ds += f->left_dc[plane][y4 + i] == 1 ? -1 :
+                                  f->left_dc[plane][y4 + i] == 2 ? 1 : 0;
                     int sctx = ds < 0 ? 1 : ds > 0 ? 2 : 0;
                     sign = sym(f, c->dc_sign[ptype][sctx], 2, ws);
                 } else {
@@ -964,10 +1244,11 @@ static int coeffs(Av1 *f, int plane, int x4, int y4)
             }
             if (q[pos] > 14) {
                 /* Golomb: the value less 15, plus one */
-                uint32_t gx = f->ec.writing ? (uint32_t)abs(want[pos]) - 14 : 0;
+                uint32_t gx = f->ec.writing ? (uint32_t)abs(want[pos]) - 14
+                                            : 0;
                 int length = 0, glen = 0;
                 if (f->ec.writing)
-                    for (uint32_t t = gx; t; t >>= 1)
+                    for (uint32_t g = gx; g; g >>= 1)
                         glen++;
                 int bit;
                 do {
@@ -992,11 +1273,374 @@ static int coeffs(Av1 *f, int plane, int x4, int y4)
         if (cul > 63)
             cul = 63;
     }
-    f->above_level[plane][x4] = (uint8_t)cul;
-    f->above_dc[plane][x4] = (uint8_t)dc_cat;
-    f->left_level[plane][y4] = (uint8_t)cul;
-    f->left_dc[plane][y4] = (uint8_t)dc_cat;
+    f->plane_tx_type = type;
+    for (int i = 0; i < w4; i++) {
+        f->above_level[plane][x4 + i] = (uint8_t)cul;
+        f->above_dc[plane][x4 + i] = (uint8_t)dc_cat;
+    }
+    for (int i = 0; i < h4; i++) {
+        f->left_level[plane][y4 + i] = (uint8_t)cul;
+        f->left_dc[plane][y4 + i] = (uint8_t)dc_cat;
+    }
     return eob;
+}
+
+/* -- inverse transforms (specification 7.13, as libaom clamps them) ------- */
+
+static int32_t clampv(int64_t v, int bits)
+{
+    int64_t hi = ((int64_t)1 << (bits - 1)) - 1;
+    return (int32_t)(v < -hi - 1 ? -hi - 1 : v > hi ? hi : v);
+}
+
+/* libaom's half_btf: the products wrap at 32 bits, as its C computes
+ * them */
+static int32_t hbtf(int32_t w0, int32_t x0, int32_t w1, int32_t x1)
+{
+    int32_t a = (int32_t)((uint32_t)w0 * (uint32_t)x0);
+    int32_t b = (int32_t)((uint32_t)w1 * (uint32_t)x1);
+    return (int32_t)(((int64_t)a + b + 2048) >> 12);
+}
+
+static int32_t cos128(int a)
+{
+    a &= 255;
+    const int32_t *c = cospi_arr[2];
+#define C64(i) ((i) == 64 ? 0 : c[i])
+    if (a <= 64)
+        return C64(a);
+    if (a <= 128)
+        return -C64(128 - a);
+    if (a <= 192)
+        return -C64(a - 128);
+    return C64(256 - a);
+#undef C64
+}
+
+static int32_t sin128(int a)
+{
+    return cos128(a - 64);
+}
+
+static void bfly(int32_t *T, int a, int b, int angle, int flip)
+{
+    int32_t x = hbtf(cos128(angle), T[a], -sin128(angle), T[b]);
+    int32_t y = hbtf(sin128(angle), T[a], cos128(angle), T[b]);
+    T[a] = flip ? y : x;
+    T[b] = flip ? x : y;
+}
+
+static void hada(int32_t *T, int a, int b, int f, int r)
+{
+    if (f) {
+        int t = a;
+        a = b;
+        b = t;
+    }
+    int32_t x = T[a], y = T[b];
+    T[a] = clampv((int64_t)x + y, r);
+    T[b] = clampv((int64_t)x - y, r);
+}
+
+static int brev(int bits, int x)
+{
+    int r = 0;
+    for (int i = 0; i < bits; i++)
+        r |= ((x >> i) & 1) << (bits - 1 - i);
+    return r;
+}
+
+/* the inverse DCT of 2^n samples (7.13.2.3) */
+static void idct(int32_t *T, int n, int r)
+{
+    int32_t cp[64];
+    int n0 = 1 << n;
+    memcpy(cp, T, sizeof(int32_t) * (size_t)n0);
+    for (int i = 0; i < n0; i++)
+        T[i] = cp[brev(n, i)];
+    if (n == 6)
+        for (int i = 0; i < 16; i++)
+            bfly(T, 32 + i, 63 - i, 63 - 4 * brev(4, i), 0);
+    if (n >= 5)
+        for (int i = 0; i < 8; i++)
+            bfly(T, 16 + i, 31 - i, 6 + (brev(3, 7 - i) << 3), 0);
+    if (n == 6)
+        for (int i = 0; i < 16; i++)
+            hada(T, 32 + i * 2, 33 + i * 2, i & 1, r);
+    if (n >= 4)
+        for (int i = 0; i < 4; i++)
+            bfly(T, 8 + i, 15 - i, 12 + (brev(2, 3 - i) << 4), 0);
+    if (n >= 5)
+        for (int i = 0; i < 8; i++)
+            hada(T, 16 + 2 * i, 17 + 2 * i, i & 1, r);
+    if (n == 6)
+        for (int i = 0; i < 4; i++)
+            for (int j = 0; j < 2; j++)
+                bfly(T, 62 - i * 4 - j, 33 + i * 4 + j,
+                     60 - 16 * brev(2, i) + 64 * j, 1);
+    if (n >= 3)
+        for (int i = 0; i < 2; i++)
+            bfly(T, 4 + i, 7 - i, 56 - 32 * i, 0);
+    if (n >= 4)
+        for (int i = 0; i < 4; i++)
+            hada(T, 8 + 2 * i, 9 + 2 * i, i & 1, r);
+    if (n >= 5)
+        for (int i = 0; i < 2; i++)
+            for (int j = 0; j < 2; j++)
+                bfly(T, 30 - 4 * i - j, 17 + 4 * i + j,
+                     24 + (j << 6) + ((1 - i) << 5), 1);
+    if (n == 6)
+        for (int i = 0; i < 8; i++)
+            for (int j = 0; j < 2; j++)
+                hada(T, 32 + i * 4 + j, 35 + i * 4 - j, i & 1, r);
+    for (int i = 0; i < 2; i++)
+        bfly(T, 2 * i, 1 + 2 * i, 32 + 16 * i, 1 - i);
+    if (n >= 3)
+        for (int i = 0; i < 2; i++)
+            hada(T, 4 + 2 * i, 5 + 2 * i, i, r);
+    if (n >= 4)
+        for (int i = 0; i < 2; i++)
+            bfly(T, 14 - i, 9 + i, 48 + 64 * i, 1);
+    if (n >= 5)
+        for (int i = 0; i < 4; i++)
+            for (int j = 0; j < 2; j++)
+                hada(T, 16 + 4 * i + j, 19 + 4 * i - j, i & 1, r);
+    if (n == 6)
+        for (int i = 0; i < 2; i++)
+            for (int j = 0; j < 4; j++)
+                bfly(T, 61 - i * 8 - j, 34 + i * 8 + j,
+                     56 - i * 32 + (j >> 1) * 64, 1);
+    for (int i = 0; i < 2; i++)
+        hada(T, i, 3 - i, 0, r);
+    if (n >= 3)
+        bfly(T, 6, 5, 32, 1);
+    if (n >= 4)
+        for (int i = 0; i < 2; i++)
+            for (int j = 0; j < 2; j++)
+                hada(T, 8 + 4 * i + j, 11 + 4 * i - j, i, r);
+    if (n >= 5)
+        for (int i = 0; i < 4; i++)
+            bfly(T, 29 - i, 18 + i, 48 + (i >> 1) * 64, 1);
+    if (n == 6)
+        for (int i = 0; i < 4; i++)
+            for (int j = 0; j < 4; j++)
+                hada(T, 32 + 8 * i + j, 39 + 8 * i - j, i & 1, r);
+    if (n >= 3)
+        for (int i = 0; i < 4; i++)
+            hada(T, i, 7 - i, 0, r);
+    if (n >= 4)
+        for (int i = 0; i < 2; i++)
+            bfly(T, 13 - i, 10 + i, 32, 1);
+    if (n >= 5)
+        for (int i = 0; i < 2; i++)
+            for (int j = 0; j < 4; j++)
+                hada(T, 16 + i * 8 + j, 23 + i * 8 - j, i, r);
+    if (n == 6)
+        for (int i = 0; i < 8; i++)
+            bfly(T, 59 - i, 36 + i, i < 4 ? 48 : 112, 1);
+    if (n >= 4)
+        for (int i = 0; i < 8; i++)
+            hada(T, i, 15 - i, 0, r);
+    if (n >= 5)
+        for (int i = 0; i < 4; i++)
+            bfly(T, 27 - i, 20 + i, 32, 1);
+    if (n == 6) {
+        for (int i = 0; i < 8; i++) {
+            hada(T, 32 + i, 47 - i, 0, r);
+            hada(T, 48 + i, 63 - i, 1, r);
+        }
+    }
+    if (n >= 5)
+        for (int i = 0; i < 16; i++)
+            hada(T, i, 31 - i, 0, r);
+    if (n == 6)
+        for (int i = 0; i < 8; i++)
+            bfly(T, 55 - i, 40 + i, 32, 1);
+    if (n == 6)
+        for (int i = 0; i < 32; i++)
+            hada(T, i, 63 - i, 0, r);
+}
+
+static void iadst4(int32_t *T)
+{
+    const int32_t *s = sinpi_arr[2];
+    int32_t x0 = T[0], x1 = T[1], x2 = T[2], x3 = T[3];
+    if (!(x0 | x1 | x2 | x3))
+        return;
+#define M(a, b) ((int32_t)((uint32_t)(a) * (uint32_t)(b)))
+    int32_t s0 = M(s[1], x0), s1 = M(s[2], x0), s2 = M(s[3], x1);
+    int32_t s3 = M(s[4], x2), s4 = M(s[1], x2), s5 = M(s[2], x3);
+    int32_t s6 = M(s[4], x3);
+    int32_t s7 = (int32_t)((uint32_t)x0 - (uint32_t)x2 + (uint32_t)x3);
+    s0 = (int32_t)((uint32_t)s0 + (uint32_t)s3);
+    s1 = (int32_t)((uint32_t)s1 - (uint32_t)s4);
+    s3 = s2;
+    s2 = M(s[3], s7);
+    s0 = (int32_t)((uint32_t)s0 + (uint32_t)s5);
+    s1 = (int32_t)((uint32_t)s1 - (uint32_t)s6);
+    int64_t y0 = (int64_t)s0 + s3, y1 = (int64_t)s1 + s3, y2 = s2;
+    int64_t y3 = (int64_t)s0 + s1 - s3;
+#undef M
+    T[0] = (int32_t)((y0 + 2048) >> 12);
+    T[1] = (int32_t)((y1 + 2048) >> 12);
+    T[2] = (int32_t)((y2 + 2048) >> 12);
+    T[3] = (int32_t)((y3 + 2048) >> 12);
+}
+
+/* libaom's av1_iadst8 and av1_iadst16 (their stages, clamped as they
+ * clamp) */
+static void iadst8(int32_t *T, int r)
+{
+    const int32_t *c = cospi_arr[2];
+    int32_t b[8], o[8];
+    static const int8_t in[8] = {7, 0, 5, 2, 3, 4, 1, 6};
+    for (int i = 0; i < 8; i++)
+        b[i] = T[in[i]];
+    for (int i = 0; i < 4; i++) {
+        int a = 4 + 16 * i;
+        o[2 * i] = hbtf(c[a], b[2 * i], c[64 - a], b[2 * i + 1]);
+        o[2 * i + 1] = hbtf(c[64 - a], b[2 * i], -c[a], b[2 * i + 1]);
+    }
+    for (int i = 0; i < 4; i++) {
+        b[i] = clampv((int64_t)o[i] + o[i + 4], r);
+        b[i + 4] = clampv((int64_t)o[i] - o[i + 4], r);
+    }
+    o[0] = b[0], o[1] = b[1], o[2] = b[2], o[3] = b[3];
+    o[4] = hbtf(c[16], b[4], c[48], b[5]);
+    o[5] = hbtf(c[48], b[4], -c[16], b[5]);
+    o[6] = hbtf(-c[48], b[6], c[16], b[7]);
+    o[7] = hbtf(c[16], b[6], c[48], b[7]);
+    for (int k = 0; k < 8; k += 4) {
+        b[k] = clampv((int64_t)o[k] + o[k + 2], r);
+        b[k + 1] = clampv((int64_t)o[k + 1] + o[k + 3], r);
+        b[k + 2] = clampv((int64_t)o[k] - o[k + 2], r);
+        b[k + 3] = clampv((int64_t)o[k + 1] - o[k + 3], r);
+    }
+    for (int k = 2; k < 8; k += 4) {
+        int32_t x = b[k], y = b[k + 1];
+        b[k] = hbtf(c[32], x, c[32], y);
+        b[k + 1] = hbtf(c[32], x, -c[32], y);
+    }
+    T[0] = b[0], T[1] = -b[4], T[2] = b[6], T[3] = -b[2];
+    T[4] = b[3], T[5] = -b[7], T[6] = b[5], T[7] = -b[1];
+}
+
+static void iadst16(int32_t *T, int r)
+{
+    const int32_t *c = cospi_arr[2];
+    int32_t b[16], o[16];
+    for (int i = 0; i < 16; i++)
+        b[i] = T[(i & 1) ? i - 1 : 15 - i];
+    for (int i = 0; i < 8; i++) {
+        int a = 2 + 8 * i;
+        o[2 * i] = hbtf(c[a], b[2 * i], c[64 - a], b[2 * i + 1]);
+        o[2 * i + 1] = hbtf(c[64 - a], b[2 * i], -c[a], b[2 * i + 1]);
+    }
+    for (int i = 0; i < 8; i++) {
+        b[i] = clampv((int64_t)o[i] + o[i + 8], r);
+        b[i + 8] = clampv((int64_t)o[i] - o[i + 8], r);
+    }
+    for (int i = 0; i < 8; i++)
+        o[i] = b[i];
+    o[8] = hbtf(c[8], b[8], c[56], b[9]);
+    o[9] = hbtf(c[56], b[8], -c[8], b[9]);
+    o[10] = hbtf(c[40], b[10], c[24], b[11]);
+    o[11] = hbtf(c[24], b[10], -c[40], b[11]);
+    o[12] = hbtf(-c[56], b[12], c[8], b[13]);
+    o[13] = hbtf(c[8], b[12], c[56], b[13]);
+    o[14] = hbtf(-c[24], b[14], c[40], b[15]);
+    o[15] = hbtf(c[40], b[14], c[24], b[15]);
+    for (int k = 0; k < 16; k += 8)
+        for (int i = 0; i < 4; i++) {
+            b[k + i] = clampv((int64_t)o[k + i] + o[k + i + 4], r);
+            b[k + i + 4] = clampv((int64_t)o[k + i] - o[k + i + 4], r);
+        }
+    for (int i = 0; i < 16; i++)
+        o[i] = b[i];
+    for (int k = 4; k < 16; k += 8) {
+        o[k] = hbtf(c[16], b[k], c[48], b[k + 1]);
+        o[k + 1] = hbtf(c[48], b[k], -c[16], b[k + 1]);
+        o[k + 2] = hbtf(-c[48], b[k + 2], c[16], b[k + 3]);
+        o[k + 3] = hbtf(c[16], b[k + 2], c[48], b[k + 3]);
+    }
+    for (int k = 0; k < 16; k += 4) {
+        b[k] = clampv((int64_t)o[k] + o[k + 2], r);
+        b[k + 1] = clampv((int64_t)o[k + 1] + o[k + 3], r);
+        b[k + 2] = clampv((int64_t)o[k] - o[k + 2], r);
+        b[k + 3] = clampv((int64_t)o[k + 1] - o[k + 3], r);
+    }
+    for (int k = 2; k < 16; k += 4) {
+        int32_t x = b[k], y = b[k + 1];
+        b[k] = hbtf(c[32], x, c[32], y);
+        b[k + 1] = hbtf(c[32], x, -c[32], y);
+    }
+    static const int8_t out[16] = {0, 8, 12, 4, 6, 14, 10, 2, 3, 11, 15, 7,
+                                   5, 13, 9, 1};
+    for (int i = 0; i < 16; i++)
+        T[i] = (i & 1) ? -b[out[i]] : b[out[i]];
+}
+
+static void itx_1d(int32_t *T, int kind, int n, int r)
+{
+    int N = 1 << n;
+    if (kind == T_IDTX) {
+        for (int i = 0; i < N; i++) {
+            int64_t v = T[i];
+            T[i] = n == 2 ? (int32_t)((v * 5793 + 2048) >> 12)
+                   : n == 3 ? (int32_t)(v * 2)
+                   : n == 4 ? (int32_t)((v * 11586 + 2048) >> 12)
+                            : (int32_t)(v * 4);
+        }
+    } else if (kind == T_DCT) {
+        idct(T, n, r);
+    } else if (n == 2) {
+        iadst4(T);
+    } else if (n == 3) {
+        iadst8(T, r);
+    } else {
+        iadst16(T, r);
+    }
+}
+
+static const uint8_t row_shift[19] = {0, 1, 2, 2, 2, 0, 0, 1, 1, 1, 1, 1, 1,
+                                      1, 1, 2, 2, 2, 2};
+
+/* the residual of dequantised coefficients dq (row-major, at most 32 x
+ * 32) of a transform of size t and type type, added to the plane at
+ * (x, y) */
+static void inverse_transform(Av1 *f, int plane, int x, int y, int t,
+                              int type, const int32_t *dq)
+{
+    int32_t buf[64 * 64];
+    int wl = tx_wl[t], hl = tx_hl[t], W = 1 << wl, H = 1 << hl;
+    int cw = W < 32 ? W : 32;
+    int bd = f->bitdepth, rr = bd + 8, cr = bd + 6 > 16 ? bd + 6 : 16;
+    int vt = tx_vtype[type], ht = tx_htype[type], sh = row_shift[t];
+    int32_t T[64];
+    for (int i = 0; i < H; i++) {
+        for (int j = 0; j < W; j++) {
+            int64_t v = (i < 32 && j < 32) ? dq[i * cw + j] : 0;
+            if (wl - hl == 1 || hl - wl == 1)
+                v = (v * 2896 + 2048) >> 12;
+            T[j] = clampv(v, rr);
+        }
+        itx_1d(T, ht, wl, rr);
+        for (int j = 0; j < W; j++)
+            buf[i * W + j] = sh ? (int32_t)(((int64_t)T[j] + (1 << (sh - 1)))
+                                            >> sh) : T[j];
+    }
+    for (int j = 0; j < W; j++) {
+        int src = ht == T_FLIPADST ? W - 1 - j : j;
+        for (int i = 0; i < H; i++)
+            T[i] = clampv(buf[i * W + src], cr);
+        itx_1d(T, vt, hl, cr);
+        for (int i = 0; i < H; i++) {
+            int32_t v = T[vt == T_FLIPADST ? H - 1 - i : i];
+            v = (int32_t)(((int64_t)v + 8) >> 4);
+            uint16_t *p = &PX(plane, y + i, x + j);
+            *p = (uint16_t)clip1(f, *p + v);
+        }
+    }
 }
 
 static void iwht_1d(int32_t *t, int shift)
@@ -1018,7 +1662,7 @@ static void iwht_1d(int32_t *t, int shift)
 
 /* dequantize (qindex 0: 4 for DC and AC at every bit depth), inverse WHT
  * (rows with shift 2, then columns) and add to the prediction */
-static void reconstruct(Av1 *f, int plane, int x, int y)
+static void reconstruct_lossless(Av1 *f, int plane, int x, int y)
 {
     int32_t r[4][4];
     int32_t lim = (int32_t)1 << (7 + f->bitdepth);
@@ -1048,14 +1692,75 @@ static void reconstruct(Av1 *f, int plane, int x, int y)
                 (uint16_t)clip1(f, PX(plane, y + i, x + j) + r[i][j]);
 }
 
-/* a writer: the coefficients of the residual of a 4 x 4 block (forward
- * WHT, the inverse of reconstruct()) */
-static void forward_wht(Av1 *f, int plane, int x, int y);
+/* a quantiser of the block's qindex (dc_q / ac_q) */
+static int qlookup(Av1 *f, int dc, int delta)
+{
+    int q = f->qindex + delta;
+    q = q < 0 ? 0 : q > 255 ? 255 : q;
+    const int16_t *t = dc ? (f->bitdepth == 8 ? dc_qlookup : f->bitdepth ==
+                             10 ? dc_qlookup_10 : dc_qlookup_12)
+                          : (f->bitdepth == 8 ? ac_qlookup : f->bitdepth ==
+                             10 ? ac_qlookup_10 : ac_qlookup_12);
+    return t[q];
+}
+
+/* the dequantiser of each coefficient position (row-major over the
+ * coded part, at most 32 x 32): dc_q / ac_q, weighted by the quantiser
+ * matrix of 2-D types (libaom's get_dqv) */
+static void dequantisers(Av1 *f, int plane, int t, int type, int32_t *out)
+{
+    int wl = tx_wl[t] > 5 ? 5 : tx_wl[t], hl = tx_hl[t] > 5 ? 5 : tx_hl[t];
+    int W = 1 << wl, H = 1 << hl;
+    int dcq = qlookup(f, 1, f->dq_dc[plane]);
+    int acq = qlookup(f, 0, f->dq_ac[plane]);
+    int lvl = f->qm_level[plane];
+    const uint8_t *qm = NULL;
+    if (lvl < 15 && type < IDTX)
+        qm = qm_iwt[lvl][plane > 0] + scan_offset(wl, hl);
+    for (int r = 0; r < H; r++)
+        for (int c = 0; c < W; c++) {
+            int q = (r | c) ? acq : dcq;
+            if (qm)
+                q = (qm[c * H + r] * q + 16) >> 5;
+            out[r * W + c] = q;
+        }
+}
+
+/* dequantize f->quant, inverse transform, add to the prediction */
+static void reconstruct(Av1 *f, int plane, int x, int y, int t)
+{
+    if (f->lossless) {
+        reconstruct_lossless(f, plane, x, y);
+        return;
+    }
+    int32_t dq[32 * 32], qv[32 * 32];
+    int wl = tx_wl[t] > 5 ? 5 : tx_wl[t], hl = tx_hl[t] > 5 ? 5 : tx_hl[t];
+    int n = 1 << (wl + hl), pels = 1 << (tx_wl[t] + tx_hl[t]);
+    int shift = (pels > 256) + (pels > 1024);
+    int32_t lim = (int32_t)1 << (7 + f->bitdepth);
+    dequantisers(f, plane, t, f->plane_tx_type, qv);
+    for (int k = 0; k < n; k++) {
+        int32_t v = f->quant[k];
+        int32_t d = 0;
+        if (v) {
+            d = (int32_t)(((int64_t)abs(v) * qv[k]) & 0xFFFFFF) >> shift;
+            if (v < 0)
+                d = -d;
+            d = d < -lim ? -lim : d > lim - 1 ? lim - 1 : d;
+        }
+        dq[k] = d;
+    }
+    inverse_transform(f, plane, x, y, t, f->plane_tx_type, dq);
+}
+
+/* a writer: the coefficients of the residual of a transform block
+ * (forward WHT of lossless frames, else a quantised DCT) */
+static void forward_tx(Av1 *f, int plane, int x, int y, int t);
 
 /* -- blocks --------------------------------------------------------------- */
 
-static void transform_block(Av1 *f, int plane, int base_x, int base_y, int tx,
-                            int ty)
+static void transform_block(Av1 *f, int plane, int base_x, int base_y, int t,
+                            int tx, int ty)
 {
     int ssx = plane ? f->ssx : 0, ssy = plane ? f->ssy : 0;
     int sx = base_x + 4 * tx, sy = base_y + 4 * ty;
@@ -1063,6 +1768,8 @@ static void transform_block(Av1 *f, int plane, int base_x, int base_y, int tx,
     int mask = f->use128 ? 31 : 15;
     int sbr = (row & mask) >> ssy, sbc = (col & mask) >> ssx;
     int maxx = f->MiCols * 4 - 1, maxy = f->MiRows * 4 - 1;
+    int stepx = 1 << (tx_wl[t] - 2), stepy = 1 << (tx_hl[t] - 2);
+    int w = 1 << tx_wl[t], h = 1 << tx_hl[t];
     if (sx >= (maxx >> ssx) + 1 || sy >= (maxy >> ssy) + 1)
         return;
     if (f->use_intrabc) {
@@ -1071,31 +1778,39 @@ static void transform_block(Av1 *f, int plane, int base_x, int base_y, int tx,
         const uint16_t *pal = plane == 0 ? f->pal_y_colors : plane == 1
                               ? f->pal_u_colors : f->pal_v_colors;
         const uint8_t *map = plane ? f->map_uv : f->map_y;
-        for (int i = 0; i < 4; i++)
-            for (int j = 0; j < 4; j++)
+        for (int i = 0; i < h; i++)
+            for (int j = 0; j < w; j++)
                 PX(plane, sy + i, sx + j) =
                     pal[map[(ty * 4 + i) * 64 + tx * 4 + j]];
     } else {
         int cfl = plane > 0 && f->uvmode == UV_CFL_PRED;
         int mode = plane == 0 ? f->ymode : cfl ? DC_PRED : f->uvmode;
-        predict_intra(f, plane, sx, sy, f->avail_l || tx > 0,
-                      f->avail_u || ty > 0,
-                      f->decoded[plane][sbr - 1 + 1][sbc + 1 + 1],
-                      f->decoded[plane][sbr + 1 + 1][sbc - 1 + 1], mode, 2, 2);
+        predict_intra(f, plane, sx, sy,
+                      (plane ? f->avail_l_uv : f->avail_l) || tx > 0,
+                      (plane ? f->avail_u_uv : f->avail_u) || ty > 0,
+                      f->decoded[plane][sbr - 1 + 1][sbc + stepx + 1],
+                      f->decoded[plane][sbr + stepy + 1][sbc - 1 + 1], mode,
+                      tx_wl[t], tx_hl[t]);
         if (cfl)
-            predict_cfl(f, plane, sx, sy, 2, 2);
+            predict_cfl(f, plane, sx, sy, tx_wl[t], tx_hl[t]);
     }
     if (plane == 0 && !f->use_intrabc) {
-        f->max_luma_w = sx + 4;
-        f->max_luma_h = sy + 4;
+        f->max_luma_w = sx + w;
+        f->max_luma_h = sy + h;
     }
     if (!f->skip) {
         if (f->ec.writing)
-            forward_wht(f, plane, sx, sy);
-        if (coeffs(f, plane, sx >> 2, sy >> 2) > 0)
-            reconstruct(f, plane, sx, sy);
+            forward_tx(f, plane, sx, sy, t);
+        if (coeffs(f, plane, sx >> 2, sy >> 2, t) > 0)
+            reconstruct(f, plane, sx, sy, t);
     }
-    f->decoded[plane][sbr + 1][sbc + 1] = 1;
+    for (int i = 0; i < stepy; i++)
+        for (int j = 0; j < stepx; j++) {
+            f->decoded[plane][sbr + i + 1][sbc + j + 1] = 1;
+            int py = (sy >> 2) + i, px = (sx >> 2) + j;
+            if (py < f->MiRows && px < f->MiCols)
+                f->lf_tx[plane][(size_t)py * f->MiCols + px] = (uint8_t)t;
+        }
 }
 
 static void residual(Av1 *f)
@@ -1106,15 +1821,16 @@ static void residual(Av1 *f)
         for (int cx = 0; cx < wchunks; cx++)
             for (int plane = 0; plane < 1 + 2 * f->has_chroma; plane++) {
                 int ssx = plane ? f->ssx : 0, ssy = plane ? f->ssy : 0;
-                int n4w = f->bw4 >> ssx, n4h = f->bh4 >> ssy;
-                if (n4w < 1) n4w = 1;
-                if (n4h < 1) n4h = 1;
+                int t = plane_tx(f, plane, f->mi_sz, f->txsz);
+                int stepx = 1 << (tx_wl[t] - 2), stepy = 1 << (tx_hl[t] - 2);
+                int pb = plane ? plane_bsize(f->mi_sz, ssx, ssy) : f->mi_sz;
+                int n4w = 1 << bw4_log2[pb], n4h = 1 << bh4_log2[pb];
                 int bx = (f->mi_col >> ssx) * 4, by = (f->mi_row >> ssy) * 4;
                 int lh = n4h < (16 >> ssy) ? n4h : 16 >> ssy;
                 int lw = n4w < (16 >> ssx) ? n4w : 16 >> ssx;
-                for (int y = 0; y < lh; y++)
-                    for (int x = 0; x < lw; x++)
-                        transform_block(f, plane, bx, by,
+                for (int y = 0; y < lh; y += stepy)
+                    for (int x = 0; x < lw; x += stepx)
+                        transform_block(f, plane, bx, by, t,
                                         x + ((cx << 4) >> ssx),
                                         y + ((cy << 4) >> ssy));
             }
@@ -1328,6 +2044,7 @@ static void palette_tokens(Av1 *f)
 
 static Choice *enc_choice(Av1 *f);
 static int enc_partition(Av1 *f, int r, int c, int bsize);
+static int enc_cdef(Av1 *f, int r, int c);
 
 /* -- intra block copy (specification 7.10.2, 5.11.26, 7.11.3) ----------- */
 
@@ -1570,6 +2287,97 @@ static void intrabc_predict(Av1 *f)
     }
 }
 
+/* cdef_idx of the block's 64 x 64 unit, at its first block that is not
+ * skipped (read_cdef) */
+static void read_cdef(Av1 *f)
+{
+    if (f->skip || f->lossless || !f->cdef_en || f->allow_intrabc)
+        return;
+    int r = f->mi_row & ~15, c = f->mi_col & ~15;
+    int8_t *idx = &f->cdef_idx[(r >> 4) * f->cdef_cols + (c >> 4)];
+    if (*idx != -1)
+        return;
+    int v = lit(f, f->cdef_bits, f->ec.writing ? enc_cdef(f, r, c) : 0);
+    for (int y = r; y < r + f->bh4; y += 16)
+        for (int x = c; x < c + f->bw4; x += 16)
+            f->cdef_idx[(y >> 4) * f->cdef_cols + (x >> 4)] = (int8_t)v;
+}
+
+static int delta_abs(Av1 *f, uint16_t *cdf)
+{
+    int a = sym(f, cdf, 4, 0);
+    if (a == 3) {
+        int n = lit(f, 3, 0) + 1;
+        a = lit(f, n, 0) + (1 << n) + 1;
+    }
+    return a;
+}
+
+static void read_delta_qindex(Av1 *f)
+{
+    int sb = f->use128 ? BLOCK_128X128 : BLOCK_64X64;
+    if ((f->mi_sz == sb && f->skip) || !f->read_deltas)
+        return;
+    int a = delta_abs(f, f->cdf.delta_q);
+    if (a) {
+        int d = lit(f, 1, 0) ? -a : a;
+        int q = f->qindex + d * (1 << f->delta_q_res);
+        f->qindex = q < 1 ? 1 : q > 255 ? 255 : q;
+    }
+}
+
+static void read_delta_lf(Av1 *f)
+{
+    int sb = f->use128 ? BLOCK_128X128 : BLOCK_64X64;
+    if ((f->mi_sz == sb && f->skip) || !f->read_deltas ||
+        !f->delta_lf_present)
+        return;
+    int n = f->delta_lf_multi ? (f->nplanes > 1 ? 4 : 2) : 1;
+    for (int i = 0; i < n; i++) {
+        int a = delta_abs(f, f->delta_lf_multi ? f->cdf.delta_lf_multi[i]
+                                               : f->cdf.delta_lf);
+        if (a) {
+            int d = lit(f, 1, 0) ? -a : a;
+            int v = f->delta_lf[i] + d * (1 << f->delta_lf_res);
+            f->delta_lf[i] = v < -63 ? -63 : v > 63 ? 63 : v;
+        }
+    }
+}
+
+/* the block's transform size (read_tx_size; intra blocks) */
+static void read_tx_size(Av1 *f)
+{
+    if (f->lossless) {
+        f->txsz = TX_4X4;
+        return;
+    }
+    int t = max_tx_rect(f->mi_sz);
+    if (f->mi_sz > BLOCK_4X4 && f->tx_mode_select) {
+        int splits = 0;
+        for (int u = t; u != TX_4X4; u = split_tx(u))
+            splits++;
+        int maxw = 1 << tx_wl[t], maxh = 1 << tx_hl[t];
+        int above = 0, left = 0;
+        if (f->avail_u) {
+            size_t k = (size_t)(f->mi_row - 1) * f->MiCols + f->mi_col;
+            above = (f->is_inter[k] ? 4 << bw4_log2[f->mi_size[k]]
+                                    : 1 << tx_wl[f->txsizes[k]]) >= maxw;
+        }
+        if (f->avail_l) {
+            size_t k = (size_t)f->mi_row * f->MiCols + f->mi_col - 1;
+            left = (f->is_inter[k] ? 4 << bh4_log2[f->mi_size[k]]
+                                   : 1 << tx_hl[f->txsizes[k]]) >= maxh;
+        }
+        int ctx = above + left;
+        uint16_t *cdf = splits == 1 ? f->cdf.tx_8x8[ctx]
+                                    : f->cdf.tx[splits - 2][ctx];
+        int depth = sym(f, cdf, (splits < 2 ? splits : 2) + 1, 0);
+        for (int i = 0; i < depth; i++)
+            t = split_tx(t);
+    }
+    f->txsz = t;
+}
+
 static void intra_frame_mode_info(Av1 *f)
 {
     Cdfs *c = &f->cdf;
@@ -1580,9 +2388,15 @@ static void intra_frame_mode_info(Av1 *f)
     if (f->avail_l)
         ctx += MI(f->skips, f->mi_row, f->mi_col - 1);
     f->skip = sym(f, c->skip[ctx], 2, ch->skip);
+    read_cdef(f);
+    read_delta_qindex(f);
+    read_delta_lf(f);
+    f->read_deltas = 0;
     f->use_intrabc = 0;
     if (f->allow_intrabc) {
         f->use_intrabc = sym(f, c->intrabc, 2, 0);
+        if (f->use_intrabc && !f->lossless)
+            av1_fail(f, ERR_NOTIMPL, "AVIF: lossy AV1 intra block copy");
         if (f->use_intrabc) {
             f->ymode = f->uvmode = DC_PRED;
             f->angle_y = f->angle_uv = f->cfl_u = f->cfl_v = 0;
@@ -1605,9 +2419,11 @@ static void intra_frame_mode_info(Av1 *f)
     f->angle_uv = 0;
     f->cfl_u = f->cfl_v = 0;
     if (f->has_chroma) {
-        /* lossless: CfL only where the chroma block is 4 x 4 */
+        /* CfL: lossless where the chroma block is 4 x 4, else in blocks
+         * of at most 32 x 32 */
         int bw = 4 << bw4_log2[f->mi_sz], bh = 4 << bh4_log2[f->mi_sz];
-        int cfl_ok = (bw >> f->ssx) <= 4 && (bh >> f->ssy) <= 4;
+        int cfl_ok = f->lossless ? plane_bsize(f->mi_sz, f->ssx, f->ssy) ==
+                     BLOCK_4X4 : bw <= 32 && bh <= 32;
         f->uvmode = sym(f, c->uv_mode[cfl_ok][f->ymode], 13 + cfl_ok,
                         ch->uvmode);
         if (f->uvmode == UV_CFL_PRED) {
@@ -1659,8 +2475,15 @@ static void decode_block(Av1 *f, int r, int c, int bsize)
         f->has_chroma = f->nplanes > 1;
     f->avail_u = is_inside(f, r - 1, c);
     f->avail_l = is_inside(f, r, c - 1);
+    f->avail_u_uv = f->avail_u;
+    f->avail_l_uv = f->avail_l;
+    if (f->has_chroma && f->ssy && f->bh4 == 1)
+        f->avail_u_uv = is_inside(f, r - 2, c);
+    if (f->has_chroma && f->ssx && f->bw4 == 1)
+        f->avail_l_uv = is_inside(f, r, c - 2);
     intra_frame_mode_info(f);
     palette_tokens(f);
+    read_tx_size(f);
     if (f->skip)
         for (int plane = 0; plane < 1 + 2 * f->has_chroma; plane++) {
             int ssx = plane ? f->ssx : 0, ssy = plane ? f->ssy : 0;
@@ -1682,6 +2505,9 @@ static void decode_block(Av1 *f, int r, int c, int bsize)
             memcpy(f->pal_colors[1] + k * 8, f->pal_u_colors, 16);
             f->is_inter[k] = (uint8_t)f->use_intrabc;
             f->written[k] = 1;
+            f->txsizes[k] = (uint8_t)f->txsz;
+            for (int i = 0; i < 4; i++)
+                f->delta_lfs[k * 4 + i] = (int8_t)f->delta_lf[i];
             f->mvs[2 * k] = (int16_t)f->mv_row;
             f->mvs[2 * k + 1] = (int16_t)f->mv_col;
         }
@@ -1751,6 +2577,9 @@ static void decode_partition(Av1 *f, int r, int c, int bsize)
     case PARTITION_HORZ_4: sub = block_size(wl, hl - 2); break;
     default: sub = block_size(wl - 2, hl); break;
     }
+    if (plane_bsize(sub, f->ssx, f->ssy) < 0)
+        av1_fail(f, ERR_VALUE, "AV1: a block size the chroma subsampling "
+                 "does not allow");
     switch (partition) {
     case PARTITION_NONE:
         decode_block(f, r, c, sub);
@@ -1829,6 +2658,8 @@ static void code_tile(Av1 *f, int tile_row, int tile_col,
     f->mi_col_end = f->col_starts[tile_col + 1];
     int sb4 = f->use128 ? 32 : 16;
     memcpy(&f->cdf, &f->cdf0, sizeof(Cdfs));
+    f->qindex = f->base_q;
+    memset(f->delta_lf, 0, sizeof(f->delta_lf));
     for (int p = 0; p < f->nplanes; p++) {
         int ssx = p ? f->ssx : 0;
         memset(f->above_level[p] + (f->mi_col_start >> ssx), 0,
@@ -1842,18 +2673,359 @@ static void code_tile(Av1 *f, int tile_row, int tile_col,
             memset(f->left_dc[p], 0, (size_t)f->MiRows + 34);
         }
         for (int c = f->mi_col_start; c < f->mi_col_end; c += sb4) {
+            f->read_deltas = f->delta_q_present;
+            for (int y = r; y < r + sb4; y += 16)
+                for (int x = c; x < c + sb4; x += 16)
+                    f->cdef_idx[(y >> 4) * f->cdef_cols + (x >> 4)] = -1;
             clear_block_decoded(f, r, c, sb4);
             superblock(f, r, c);
         }
     }
 }
 
+/* -- the loop filter (specification 7.14; libaom's filters) --------------- */
+
+static int lf_level(Av1 *f, int row, int col, int plane, int pass)
+{
+    size_t k = (size_t)row * f->MiCols + col;
+    int i = plane == 0 ? pass : plane + 1;
+    int lvl = f->lf_level[i];
+    if (f->delta_lf_present) {
+        lvl += f->delta_lfs[k * 4 + (f->delta_lf_multi ? i : 0)];
+        lvl = lvl < 0 ? 0 : lvl > 63 ? 63 : lvl;
+    }
+    if (f->lf_delta_enabled) {
+        lvl += f->lf_ref_delta_intra * (1 << (lvl >> 5));
+        lvl = lvl < 0 ? 0 : lvl > 63 ? 63 : lvl;
+    }
+    return lvl;
+}
+
+static int sclamp(int v, int bd)
+{
+    int m = 128 << (bd - 8);
+    return v < -m ? -m : v > m - 1 ? m - 1 : v;
+}
+
+/* one sample position of an edge; s at q0, st the step across the edge */
+static void sample_filter(Av1 *f, uint16_t *s, ptrdiff_t st, int size,
+                          int plane, int lvl)
+{
+    int bd = f->bitdepth, sh = bd - 8;
+    int shp = f->lf_sharpness;
+    int limit = lvl >> ((shp > 0) + (shp > 4));
+    if (shp > 0 && limit > 9 - shp)
+        limit = 9 - shp;
+    if (limit < 1)
+        limit = 1;
+    int blimit = 2 * (lvl + 2) + limit, thresh = lvl >> 4;
+    int lim = limit << sh, blim = blimit << sh, thr = thresh << sh;
+    int one = 1 << sh;
+    int taps = size == 4 ? 2 : plane ? 3 : size == 8 ? 4 : 7;
+    int v[14]; /* p6 .. p0 at 0 .. 6, q0 .. q6 at 7 .. 13 */
+    for (int i = 0; i < taps; i++) {
+        v[6 - i] = s[-(i + 1) * st];
+        v[7 + i] = s[i * st];
+    }
+#define P(i) v[6 - (i)]
+#define Q(i) v[7 + (i)]
+    if (abs(P(1) - P(0)) > lim || abs(Q(1) - Q(0)) > lim ||
+        abs(P(0) - Q(0)) * 2 + abs(P(1) - Q(1)) / 2 > blim)
+        return;
+    if (taps >= 3 && (abs(P(2) - P(1)) > lim || abs(Q(2) - Q(1)) > lim))
+        return;
+    if (taps >= 4 && (abs(P(3) - P(2)) > lim || abs(Q(3) - Q(2)) > lim))
+        return;
+    int flat = 0, flat2 = 0;
+    if (taps >= 3) {
+        flat = abs(P(1) - P(0)) <= one && abs(Q(1) - Q(0)) <= one &&
+               abs(P(2) - P(0)) <= one && abs(Q(2) - Q(0)) <= one;
+        if (taps >= 4)
+            flat = flat && abs(P(3) - P(0)) <= one &&
+                   abs(Q(3) - Q(0)) <= one;
+    }
+    if (taps == 7)
+        flat2 = abs(P(4) - P(0)) <= one && abs(Q(4) - Q(0)) <= one &&
+                abs(P(5) - P(0)) <= one && abs(Q(5) - Q(0)) <= one &&
+                abs(P(6) - P(0)) <= one && abs(Q(6) - Q(0)) <= one;
+    if (flat) {
+        /* the wide filters: n samples each side, 2^log2 in all */
+        int n = flat2 ? 6 : taps == 3 ? 2 : 3, log2 = flat2 ? 4 : 3;
+        int n2 = (log2 == 3 && plane == 0) ? 0 : 1;
+        int out[12];
+        for (int i = -n; i < n; i++) {
+            int t = 0;
+            for (int j = -n; j <= n; j++) {
+                int p = i + j;
+                p = p < -(n + 1) ? -(n + 1) : p > n ? n : p;
+                t += v[7 + p] * (abs(j) <= n2 ? 2 : 1);
+            }
+            out[i + n] = (t + (1 << (log2 - 1))) >> log2;
+        }
+        for (int i = -n; i < n; i++)
+            s[i * st] = (uint16_t)out[i + n];
+        return;
+    }
+    int hev = abs(P(1) - P(0)) > thr || abs(Q(1) - Q(0)) > thr;
+    int off = 0x80 << sh;
+    int ps1 = P(1) - off, ps0 = P(0) - off, qs0 = Q(0) - off;
+    int qs1 = Q(1) - off;
+    int filt = hev ? sclamp(ps1 - qs1, bd) : 0;
+    filt = sclamp(filt + 3 * (qs0 - ps0), bd);
+    int f1 = sclamp(filt + 4, bd) >> 3, f2 = sclamp(filt + 3, bd) >> 3;
+    s[0] = (uint16_t)(sclamp(qs0 - f1, bd) + off);
+    s[-st] = (uint16_t)(sclamp(ps0 + f2, bd) + off);
+    if (!hev) {
+        filt = (f1 + 1) >> 1;
+        s[st] = (uint16_t)(sclamp(qs1 - filt, bd) + off);
+        s[-2 * st] = (uint16_t)(sclamp(ps1 + filt, bd) + off);
+    }
+#undef P
+#undef Q
+}
+
+static void edge_filter_4x4(Av1 *f, int plane, int pass, int row, int col)
+{
+    int ssx = plane ? f->ssx : 0, ssy = plane ? f->ssy : 0;
+    int x = col * 4, y = row * 4;
+    if (x >= f->W || y >= f->H || (pass == 0 && x == 0) ||
+        (pass == 1 && y == 0))
+        return;
+    int xp = x >> ssx, yp = y >> ssy;
+    row |= ssy;
+    col |= ssx;
+    int prow = row - (pass ? 1 << ssy : 0), pcol = col - (pass ? 0 : 1 << ssx);
+    int t = f->lf_tx[plane][(size_t)(row >> ssy) * f->MiCols + (col >> ssx)];
+    int pt = f->lf_tx[plane][(size_t)(prow >> ssy) * f->MiCols +
+                             (pcol >> ssx)];
+    /* transform edges only; every block of an intra frame is intra */
+    if (pass == 0 ? xp & ((1 << tx_wl[t]) - 1) : yp & ((1 << tx_hl[t]) - 1))
+        return;
+    int base = pass == 0 ? (tx_wl[t] < tx_wl[pt] ? tx_wl[t] : tx_wl[pt])
+                         : (tx_hl[t] < tx_hl[pt] ? tx_hl[t] : tx_hl[pt]);
+    int size = 1 << base;
+    if (size > (plane ? 8 : 16))
+        size = plane ? 8 : 16;
+    int lvl = lf_level(f, row, col, plane, pass);
+    if (!lvl)
+        lvl = lf_level(f, prow, pcol, plane, pass);
+    if (!lvl)
+        return;
+    for (int i = 0; i < 4; i++) {
+        uint16_t *s = pass == 0 ? &PX(plane, yp + i, xp)
+                                : &PX(plane, yp, xp + i);
+        sample_filter(f, s, pass == 0 ? 1 : f->stride, size, plane, lvl);
+    }
+}
+
+static void loop_filter(Av1 *f)
+{
+    if (!f->lf_level[0] && !f->lf_level[1])
+        return;
+    for (int plane = 0; plane < f->nplanes; plane++) {
+        if (plane && !f->lf_level[plane + 1])
+            continue;
+        int ssx = plane ? f->ssx : 0, ssy = plane ? f->ssy : 0;
+        for (int pass = 0; pass < 2; pass++)
+            for (int row = 0; row < f->MiRows; row += 1 << ssy)
+                for (int col = 0; col < f->MiCols; col += 1 << ssx)
+                    edge_filter_4x4(f, plane, pass, row, col);
+    }
+}
+
+/* -- CDEF (specification 7.15) -------------------------------------------- */
+
+static int cdef_direction(Av1 *f, const uint16_t *src, int r, int c,
+                          int *var)
+{
+    static const int div[9] = {0, 840, 420, 280, 210, 168, 140, 120, 105};
+    int cost[8] = {0}, partial[8][15];
+    memset(partial, 0, sizeof(partial));
+    int x0 = c * 4, y0 = r * 4, sh = f->bitdepth - 8;
+    for (int i = 0; i < 8; i++)
+        for (int j = 0; j < 8; j++) {
+            int x = (src[(size_t)(y0 + i) * f->stride + x0 + j] >> sh) - 128;
+            partial[0][i + j] += x;
+            partial[1][i + j / 2] += x;
+            partial[2][i] += x;
+            partial[3][3 + i - j / 2] += x;
+            partial[4][7 + i - j] += x;
+            partial[5][3 - i / 2 + j] += x;
+            partial[6][j] += x;
+            partial[7][i / 2 + j] += x;
+        }
+    for (int i = 0; i < 8; i++) {
+        cost[2] += partial[2][i] * partial[2][i];
+        cost[6] += partial[6][i] * partial[6][i];
+    }
+    cost[2] *= div[8];
+    cost[6] *= div[8];
+    for (int i = 0; i < 7; i++) {
+        cost[0] += (partial[0][i] * partial[0][i] +
+                    partial[0][14 - i] * partial[0][14 - i]) * div[i + 1];
+        cost[4] += (partial[4][i] * partial[4][i] +
+                    partial[4][14 - i] * partial[4][14 - i]) * div[i + 1];
+    }
+    cost[0] += partial[0][7] * partial[0][7] * div[8];
+    cost[4] += partial[4][7] * partial[4][7] * div[8];
+    for (int i = 1; i < 8; i += 2) {
+        for (int j = 0; j < 5; j++)
+            cost[i] += partial[i][3 + j] * partial[i][3 + j];
+        cost[i] *= div[8];
+        for (int j = 0; j < 3; j++)
+            cost[i] += (partial[i][j] * partial[i][j] +
+                        partial[i][10 - j] * partial[i][10 - j]) *
+                       div[2 * j + 2];
+    }
+    int best = 0, dir = 0;
+    for (int i = 0; i < 8; i++)
+        if (cost[i] > best) {
+            best = cost[i];
+            dir = i;
+        }
+    *var = (best - cost[(dir + 4) & 7]) >> 10;
+    return dir;
+}
+
+static int floor_log2(int x)
+{
+    int n = -1;
+    while (x) {
+        n++;
+        x >>= 1;
+    }
+    return n;
+}
+
+/* constrain() of the specification for a threshold above 0, its damping
+ * adjustment (Max(0, damping - FloorLog2(threshold))) given */
+static int constrain(int diff, int thr, int adj)
+{
+    int a = abs(diff), m = thr - (a >> adj);
+    int v = m < 0 ? 0 : a < m ? a : m;
+    return diff < 0 ? -v : v;
+}
+
+static void cdef_filter(Av1 *f, const uint16_t *src, int plane, int r, int c,
+                        int pri, int sec, int damping, int dir)
+{
+    int ssx = plane ? f->ssx : 0, ssy = plane ? f->ssy : 0;
+    int x0 = (c * 4) >> ssx, y0 = (r * 4) >> ssy;
+    int w = 8 >> ssx, h = 8 >> ssy, sh = f->bitdepth - 8;
+    int xlim = (f->MiCols * 4) >> ssx, ylim = (f->MiRows * 4) >> ssy;
+    /* every tap (at most 2 samples away) inside the frame */
+    int inside = x0 >= 2 && y0 >= 2 && x0 + w + 2 <= xlim &&
+                 y0 + h + 2 <= ylim;
+    const int *pt = cdef_pri_taps[(pri >> sh) & 1];
+    int padj = 0, sadj = 0;
+    if (!pri && !sec)
+        return; /* the output is the input */
+    if (pri) {
+        padj = damping - floor_log2(pri);
+        padj = padj < 0 ? 0 : padj;
+    }
+    if (sec) {
+        sadj = damping - floor_log2(sec);
+        sadj = sadj < 0 ? 0 : sadj;
+    }
+    int dirs[3] = {dir, (dir + 6) & 7, (dir + 2) & 7};
+    for (int i = 0; i < h; i++)
+        for (int j = 0; j < w; j++) {
+            int x = src[(size_t)(y0 + i) * f->stride + x0 + j];
+            int sum = 0, mx = x, mn = x;
+            for (int k = 0; k < 2; k++)
+                for (int sg = -1; sg <= 1; sg += 2)
+                    for (int d = 0; d < 3; d++) {
+                        /* the primary tap, then the two secondary ones */
+                        if (d == 0 ? !pri : !sec)
+                            continue;
+                        int yy = y0 + i + sg * cdef_directions[dirs[d]][k][0];
+                        int xx = x0 + j + sg * cdef_directions[dirs[d]][k][1];
+                        if (!inside && (yy < 0 || xx < 0 || yy >= ylim ||
+                                        xx >= xlim))
+                            continue;
+                        int p = src[(size_t)yy * f->stride + xx];
+                        sum += d == 0 ? pt[k] * constrain(p - x, pri, padj)
+                                      : cdef_sec_taps[k] *
+                                        constrain(p - x, sec, sadj);
+                        mx = p > mx ? p : mx;
+                        mn = p < mn ? p : mn;
+                    }
+            int y = x + ((8 + sum - (sum < 0)) >> 4);
+            PX(plane, y0 + i, x0 + j) = (uint16_t)(y < mn ? mn : y > mx ? mx
+                                                                      : y);
+        }
+}
+
+static void cdef_frame(Av1 *f)
+{
+    if (!f->cdef_en || f->lossless || f->allow_intrabc)
+        return;
+    static const uint8_t uv_dir[2][2][8] = {
+        {{0, 1, 2, 3, 4, 5, 6, 7}, {1, 2, 2, 2, 3, 4, 6, 0}},
+        {{7, 0, 2, 4, 5, 6, 6, 6}, {0, 1, 2, 3, 4, 5, 6, 7}}};
+    size_t size = (size_t)f->stride * f->rows;
+    uint16_t *src[3] = {NULL, NULL, NULL};
+    for (int p = 0; p < f->nplanes; p++) {
+        src[p] = malloc(size * 2);
+        if (!src[p]) {
+            for (int k = 0; k < p; k++)
+                free(src[k]);
+            av1_fail(f, ERR_MEMORY, "out of memory");
+        }
+        memcpy(src[p], f->plane[p], size * 2);
+    }
+    int sh = f->bitdepth - 8;
+    for (int r = 0; r < f->MiRows; r += 2)
+        for (int c = 0; c < f->MiCols; c += 2) {
+            int idx = f->cdef_idx[(r >> 4) * f->cdef_cols + (c >> 4)];
+            size_t k = (size_t)r * f->MiCols + c;
+            if (idx < 0 || (f->skips[k] && f->skips[k + 1] &&
+                            f->skips[k + f->MiCols] &&
+                            f->skips[k + f->MiCols + 1]))
+                continue;
+            int var, ydir = cdef_direction(f, src[0], r, c, &var);
+            int pri = f->cdef_pri[0][idx] << sh, sec = f->cdef_sec[0][idx] << sh;
+            int dir = pri ? ydir : 0;
+            int vs = (var >> 6) ? floor_log2(var >> 6) : 0;
+            if (vs > 12)
+                vs = 12;
+            int adj = var ? (pri * (4 + vs) + 8) >> 4 : 0;
+            cdef_filter(f, src[0], 0, r, c, adj, sec,
+                        f->cdef_damping + sh, dir);
+            if (f->nplanes == 1)
+                continue;
+            pri = f->cdef_pri[1][idx] << sh;
+            sec = f->cdef_sec[1][idx] << sh;
+            dir = pri ? uv_dir[f->ssx][f->ssy][ydir] : 0;
+            for (int p = 1; p < 3; p++)
+                cdef_filter(f, src[p], p, r, c, pri, sec,
+                            f->cdef_damping + sh - 1, dir);
+        }
+    for (int p = 0; p < f->nplanes; p++)
+        free(src[p]);
+}
+
+/* the in-loop filters of a decoded (or written) frame: deblocking, CDEF */
+static void postfilter(Av1 *f)
+{
+    if (f->lossless || f->allow_intrabc)
+        return;
+    loop_filter(f);
+    cdef_frame(f);
+}
+
 static void frame_alloc(Av1 *f)
 {
     size_t n = (size_t)f->MiRows * f->MiCols;
-    f->stride = f->MiCols * 4;
-    f->rows = f->MiRows * 4;
+    f->stride = f->MiCols * 4 + 64;
+    f->rows = f->MiRows * 4 + 64;
+    f->cdef_cols = (f->MiCols + 31) >> 4;
+    f->cdef_idx = av1_alloc(f, (size_t)f->cdef_cols * ((f->MiRows + 31) >> 4));
+    f->txsizes = av1_alloc(f, n);
+    f->delta_lfs = av1_alloc(f, n * 4);
     for (int p = 0; p < f->nplanes; p++) {
+        f->lf_tx[p] = av1_alloc(f, n);
         f->plane[p] = av1_alloc(f, (size_t)f->stride * f->rows * 2);
         f->above_level[p] = av1_alloc(f, (size_t)f->MiCols + 68);
         f->above_dc[p] = av1_alloc(f, (size_t)f->MiCols + 68);
@@ -1882,6 +3054,16 @@ static void frame_free(Av1 *f)
         free(f->left_level[p]);
         free(f->left_dc[p]);
     }
+    for (int p = 0; p < 3; p++) {
+        free(f->lf_tx[p]);
+        f->lf_tx[p] = NULL;
+    }
+    free(f->cdef_idx);
+    free(f->txsizes);
+    free(f->delta_lfs);
+    f->cdef_idx = NULL;
+    f->txsizes = NULL;
+    f->delta_lfs = NULL;
     free(f->mi_size);
     free(f->is_inter);
     free(f->written);

@@ -1,30 +1,32 @@
-/* A lossless AV1 intra decoder for the port's AVIF reader (data/avif.py):
- * the OBUs of one still image (sequence header, frame or frame header and
+/* An AV1 intra decoder for the port's AVIF reader (data/avif.py): the
+ * OBUs of one still image (sequence header, frame or frame header and
  * tile groups) decoded to 16-bit planes as libaom 3.14 decodes them.
  *
- * Read: profiles 0-2, 8 / 10 / 12 bits, mono_chrome, the reduced still
- * picture header and full key frame headers, tiles (uniform or not), 64 or
- * 128 superblocks, every partition, the intra mode info of a lossless key
- * frame (skip, y and uv modes, angle deltas, CfL, palettes with their
- * colour cache, filter intra) and the 4 x 4 Walsh-Hadamard coefficients;
- * the tile syntax and reconstruction are in av1_core.h.  The OBUs are
+ * Read: profiles 0-2, 8 / 10 / 12 bits, mono_chrome, 4:4:4, 4:2:2 and
+ * 4:2:0 chroma, the reduced still picture header and full key frame
+ * headers, tiles (uniform or not), 64 or 128 superblocks, every partition,
+ * the intra mode info of a key frame (skip, CDEF index, delta q and delta
+ * lf, y and uv modes, angle deltas, CfL, palettes with their colour cache,
+ * filter intra, tx_depth) and the coefficients of every transform size
+ * and intra type, lossless or lossy; then deblocking and CDEF.  The tile
+ * syntax, reconstruction and filters are in av1_core.h.  The OBUs are
  * checked as libaom's aom_decode_frame_from_obus checks them (sizes,
  * trailing bits and zero padding, reserved types, the operating point,
- * tile group order, zero bytes between frames).  A frame that is not
- * coded lossless, or uses superres, film grain, segmentation,
- * show_existing_frame or a frame type but a key / intra-only frame, and
- * a second frame in the data, return ERR_NOTIMPL naming it (a later
- * reader takes it up); a stream libaom refuses (a cut header, a tile that
- * reads past its bytes, a Golomb code longer than 20 bits, ...)
- * ERR_VALUE.
+ * tile group order, zero bytes between frames).  A frame that uses loop
+ * restoration, superres, film grain, segmentation, show_existing_frame
+ * or a frame type but a key / intra-only frame, intra block copy in a
+ * lossy frame, and a second frame in the data, return ERR_NOTIMPL naming
+ * it (a later reader takes it up); a stream libaom refuses (a cut header,
+ * a tile that reads past its bytes, a Golomb code longer than 20 bits, a
+ * block size the chroma subsampling does not allow, ...) ERR_VALUE.
  *
  * Entry points (ctypes, data/avif.py):
- *   av1_info(data, n, info[12], err, errlen): the frame's width, height,
+ *   av1_info(data, n, info[15], err, errlen): the frame's width, height,
  *     bit depth, mono_chrome, subsampling x / y, matrix coefficients,
  *     colour range, colour primaries, transfer characteristics, profile,
- *     still_picture;
- *   av1_decode(data, n, out, planes, H, W, err, errlen): the planes, each
- *     H x W uint16.
+ *     still_picture, base_q_idx, tx_mode_select, cdef_bits;
+ *   av1_decode(data, n, out, planes, H, W, err, errlen): the planes,
+ *     uint16, Y (H x W) then U and V at their subsampled size.
  */
 #include "av1_core.h"
 
@@ -43,12 +45,21 @@ static int enc_partition(Av1 *f, int r, int c, int bsize)
     return 0;
 }
 
-static void forward_wht(Av1 *f, int plane, int x, int y)
+static int enc_cdef(Av1 *f, int r, int c)
+{
+    (void)f;
+    (void)r;
+    (void)c;
+    return 0;
+}
+
+static void forward_tx(Av1 *f, int plane, int x, int y, int t)
 {
     (void)f;
     (void)plane;
     (void)x;
     (void)y;
+    (void)t;
 }
 
 /* -- header bits ---------------------------------------------------------- */
@@ -381,22 +392,34 @@ static void unread(Av1 *f, const char *fmt, int v)
 
 static void loop_filter_params(Av1 *f, Bits *b)
 {
-    int l0 = (int)fb(b, 6), l1 = (int)fb(b, 6);
-    if (f->nplanes > 1 && (l0 || l1))
-        fb(b, 12);
-    fb(b, 3); /* sharpness */
-    if (fb(b, 1) && fb(b, 1)) /* delta enabled, delta update */
+    f->lf_level[0] = (int)fb(b, 6);
+    f->lf_level[1] = (int)fb(b, 6);
+    if (f->nplanes > 1 && (f->lf_level[0] || f->lf_level[1])) {
+        f->lf_level[2] = (int)fb(b, 6);
+        f->lf_level[3] = (int)fb(b, 6);
+    }
+    f->lf_sharpness = (int)fb(b, 3);
+    f->lf_delta_enabled = (int)fb(b, 1);
+    if (f->lf_delta_enabled && fb(b, 1)) /* loop_filter_delta_update */
         for (int i = 0; i < 10; i++)
-            if (fb(b, 1))
-                su(b, 7);
+            if (fb(b, 1)) {
+                int v = su(b, 7);
+                if (i == 0)
+                    f->lf_ref_delta_intra = v;
+            }
 }
 
 static void cdef_params(Av1 *f, Bits *b)
 {
-    fb(b, 2); /* damping */
-    int n = 1 << fb(b, 2);
-    for (int i = 0; i < n; i++)
-        fb(b, f->nplanes > 1 ? 12 : 6);
+    f->cdef_damping = (int)fb(b, 2) + 3;
+    f->cdef_bits = (int)fb(b, 2);
+    for (int i = 0; i < 1 << f->cdef_bits; i++)
+        for (int p = 0; p < (f->nplanes > 1 ? 2 : 1); p++) {
+            f->cdef_pri[p][i] = (int)fb(b, 4);
+            f->cdef_sec[p][i] = (int)fb(b, 2);
+            if (f->cdef_sec[p][i] == 3)
+                f->cdef_sec[p][i] = 4;
+        }
 }
 
 static void lr_params(Av1 *f, Bits *b)
@@ -413,6 +436,7 @@ static void lr_params(Av1 *f, Bits *b)
         fb(b, 1);
     if (f->ssx && f->ssy && chroma)
         fb(b, 1);
+    unread(f, "AVIF: AV1 loop restoration", 0);
 }
 
 /* the scaling points of one plane (libaom: at most max, increasing) */
@@ -552,21 +576,28 @@ static void frame_header(Av1 *f, Bits *b, int first)
     tile_info(f, b);
     /* quantization_params */
     f->base_q = (int)fb(b, 8);
-    int dq = read_delta_q(b) != 0;
+    memset(f->dq_dc, 0, sizeof(f->dq_dc));
+    memset(f->dq_ac, 0, sizeof(f->dq_ac));
+    f->dq_dc[0] = read_delta_q(b);
     if (f->nplanes > 1) {
         int diff_uv = f->separate_uv_delta_q ? (int)fb(b, 1) : 0;
-        dq |= read_delta_q(b) != 0;
-        dq |= read_delta_q(b) != 0;
+        f->dq_dc[1] = read_delta_q(b);
+        f->dq_ac[1] = read_delta_q(b);
+        f->dq_dc[2] = f->dq_dc[1];
+        f->dq_ac[2] = f->dq_ac[1];
         if (diff_uv) {
-            dq |= read_delta_q(b) != 0;
-            dq |= read_delta_q(b) != 0;
+            f->dq_dc[2] = read_delta_q(b);
+            f->dq_ac[2] = read_delta_q(b);
         }
     }
+    int dq = f->dq_dc[0] || f->dq_dc[1] || f->dq_ac[1] || f->dq_dc[2] ||
+             f->dq_ac[2];
+    f->qm_level[0] = f->qm_level[1] = f->qm_level[2] = 15;
     if (fb(b, 1)) { /* using_qmatrix */
-        fb(b, 4);
-        fb(b, 4);
+        f->qm_level[0] = (int)fb(b, 4);
+        f->qm_level[1] = f->qm_level[2] = (int)fb(b, 4);
         if (f->separate_uv_delta_q)
-            fb(b, 4);
+            f->qm_level[2] = (int)fb(b, 4);
     }
     /* segmentation_params (no primary reference frame in an intra frame):
      * each segment's quantiser */
@@ -581,28 +612,44 @@ static void frame_header(Av1 *f, Bits *b, int first)
                     seg_q[i] = v < -255 ? -255 : v > 255 ? 255 : v;
             }
     /* delta_q_params, delta_lf_params */
+    f->delta_q_present = f->delta_q_res = 0;
+    f->delta_lf_present = f->delta_lf_res = f->delta_lf_multi = 0;
     if (f->base_q > 0 && fb(b, 1)) {
-        fb(b, 2);
-        if (!f->allow_intrabc && fb(b, 1))
-            fb(b, 3);
+        f->delta_q_present = 1;
+        f->delta_q_res = (int)fb(b, 2);
+        if (!f->allow_intrabc && fb(b, 1)) {
+            f->delta_lf_present = 1;
+            f->delta_lf_res = (int)fb(b, 2);
+            f->delta_lf_multi = (int)fb(b, 1);
+        }
     }
     int lossless = !dq;
     for (int i = 0; i < (seg ? 8 : 1); i++) {
         int q = f->base_q + seg_q[i];
         lossless &= q <= 0;
     }
-    if (!lossless)
-        unread(f, "AVIF: lossy AV1 (base_q_idx %d)", f->base_q);
+    f->lossless = lossless;
+    if (lossless)
+        f->qm_level[0] = f->qm_level[1] = f->qm_level[2] = 15;
     if (seg)
         unread(f, "AVIF: AV1 segmentation", 0);
+    memset(f->lf_level, 0, sizeof(f->lf_level));
+    f->lf_sharpness = 0;
+    f->lf_delta_enabled = 0;
+    f->lf_ref_delta_intra = 1;
+    f->cdef_damping = 3;
+    f->cdef_bits = 0;
+    memset(f->cdef_pri, 0, sizeof(f->cdef_pri));
+    memset(f->cdef_sec, 0, sizeof(f->cdef_sec));
     if (!lossless && !f->allow_intrabc)
         loop_filter_params(f, b);
     if (!lossless && !f->allow_intrabc && f->cdef_en)
         cdef_params(f, b);
     if (!(lossless && coded_w == f->W) && !f->allow_intrabc && f->lr_en)
         lr_params(f, b);
+    f->tx_mode_select = 0;
     if (!lossless)
-        fb(b, 1); /* tx_mode_select */
+        f->tx_mode_select = (int)fb(b, 1);
     /* reference_select, skip_mode, warped motion, global motion: none in
      * an intra frame */
     f->reduced_tx_set = (int)fb(b, 1);
@@ -610,8 +657,6 @@ static void frame_header(Av1 *f, Bits *b, int first)
         film_grain_params(f, b);
         unread(f, "AVIF: AV1 film grain", 0);
     }
-    if (!f->mono && (f->ssx || f->ssy))
-        unread(f, "AVIF: subsampled AV1 chroma (4:2:%d)", f->ssy ? 0 : 2);
 }
 
 /* -- tiles ---------------------------------------------------------------- */
@@ -681,8 +726,10 @@ static void tile_group(Av1 *f, const uint8_t *p, int64_t sz, int frame_obu,
         check_trailing_bits(f, p + pos, size);
         pos += size;
     }
-    if (end == num - 1)
+    if (end == num - 1) {
+        postfilter(f);
         *done = 1;
+    }
 }
 
 static int leb128(const uint8_t *p, int64_t n, int64_t *pos, uint64_t *v)
@@ -757,7 +804,8 @@ static void frame_obu(Av1 *f, Obus *o, int type, const uint8_t *p,
         frame_free(f);
     }
     frame_alloc(f);
-    cdfs_init(&f->cdf0, 0);
+    cdfs_init(&f->cdf0, f->base_q <= 20 ? 0 : f->base_q <= 60 ? 1
+                        : f->base_q <= 120 ? 2 : 3);
     if (type == 6) {
         int done = 0;
         tile_group(f, p + o->fh_size, size - o->fh_size, 1, &o->next_tile,
@@ -886,9 +934,10 @@ int av1_info(const uint8_t *data, int64_t n, int32_t *info, char *err,
     int code = setjmp(f->jb);
     if (code == 0) {
         decode_obus(f, data, n, 1);
-        int32_t v[12] = {f->W, f->H, f->bitdepth, f->mono, f->ssx, f->ssy,
+        int32_t v[15] = {f->W, f->H, f->bitdepth, f->mono, f->ssx, f->ssy,
                          f->mc, f->range, f->cp, f->tc, f->profile,
-                         f->still};
+                         f->still, f->base_q, f->tx_mode_select,
+                         f->cdef_bits};
         memcpy(info, v, sizeof(v));
     }
     frame_free(f);
@@ -910,11 +959,15 @@ int av1_decode(const uint8_t *data, int64_t n, uint16_t *out, int planes,
         if (f->W != W || f->H != H || f->nplanes != planes)
             av1_fail(f, ERR_VALUE, "AV1: the frame is not %lldx%lld",
                      (long long)W, (long long)H);
-        for (int p = 0; p < planes; p++)
-            for (int64_t y = 0; y < H; y++)
-                memcpy(out + ((size_t)p * H + y) * W,
-                       f->plane[p] + (size_t)y * f->stride,
-                       (size_t)W * 2);
+        uint16_t *dst = out;
+        for (int p = 0; p < planes; p++) {
+            int64_t w = p ? (W + f->ssx) >> f->ssx : W;
+            int64_t h = p ? (H + f->ssy) >> f->ssy : H;
+            for (int64_t y = 0; y < h; y++)
+                memcpy(dst + y * w, f->plane[p] + (size_t)y * f->stride,
+                       (size_t)w * 2);
+            dst += h * w;
+        }
     }
     frame_free(f);
     free(f);

@@ -1,25 +1,42 @@
-/* A lossless AV1 still-image writer, for the fixtures of the port's AVIF
- * reader (data/avif.py encode_av1 / encode_avif) on machines without an
- * AVIF encoder.
+/* An AV1 still-image writer, for the fixtures of the port's AVIF reader
+ * (data/avif.py encode_av1 / encode_avif) on machines without an AVIF
+ * encoder.
  *
  * It writes a sequence header (reduced still picture header, 64 x 64
- * superblocks, filter intra and the intra edge filter on, no CDEF,
- * restoration or superres; profile 0 for gray, 1 for 4:4:4 colour, 2 at 12
- * bits) and one frame OBU: base_q_idx 0 (coded lossless), one tile.  The
- * tile goes through the same block syntax as the decoder (av1_core.h) with
- * the symbol coder writing: each superblock is split down to 32 x 32, then
- * a partition and intra modes are picked for each node from a hash of the
- * seed and the position (every partition of 16 x 16 and 8 x 8 nodes, the
- * thirteen y modes with angle deltas, uv modes with CfL, filter intra),
- * the residual of each 4 x 4 block is transformed by the exact inverse of
- * the decoder's Walsh-Hadamard lifting and coded with the decoder's
- * contexts.
+ * superblocks, filter intra and the intra edge filter on, no restoration
+ * or superres; profile 0 for gray and 4:2:0, 1 for 4:4:4 colour, 2 at 12
+ * bits) and one frame OBU with one tile.  The tile goes through the same
+ * block syntax as the decoder (av1_core.h) with the symbol coder writing.
+ *
+ * Lossless frames (base_q_idx 0): each superblock is split down to 32 x
+ * 32, then a partition and intra modes are picked for each node from a
+ * hash of the seed and the position (every partition of 16 x 16 and 8 x 8
+ * nodes, the thirteen y modes with angle deltas, uv modes with CfL,
+ * filter intra), the residual of each 4 x 4 block is transformed by the
+ * exact inverse of the decoder's Walsh-Hadamard lifting and coded with
+ * the decoder's contexts.  Colour is 4:4:4 under the identity matrix, or
+ * 4:2:0 under BT.601.
+ *
+ * Lossy frames: 4:2:0 colour under BT.601 (or gray), blocks of one size
+ * (8, 16 or 32; smaller at the frame's edges) with TX_MODE_LARGEST, so
+ * one DCT_DCT transform per block and plane; y modes and filter intra
+ * from the hash, uv modes DC, D45 or CfL (whose chroma transform is
+ * DCT_DCT); the residual's DCT quantised by the caller's base_q_idx and
+ * quantiser matrix level; deblocking levels and sharpness, CDEF damping
+ * and strengths (the index of each 64 x 64 unit from the hash) as given.
+ * The writer reconstructs with the decoder's own inverse transforms and
+ * in-loop filters, and returns that reconstruction.
  *
  * Entry point (ctypes):
- *   av1_encode(planes, nplanes, H, W, depth, seed, out, cap, size, err,
- *              errlen): planes [nplanes][H][W] uint16 (Y or Y, U, V);
- *     writes the OBUs to out, their length to *size.
+ *   av1_encode(planes, nplanes, H, W, depth, seed, opts, out, cap, size,
+ *              recon, err, errlen): planes Y [H][W] then U, V at their
+ *     subsampled size, uint16; opts NULL (lossless 4:4:4) or int32
+ *     [OPT_COUNT] (below); writes the OBUs to out, their length to *size,
+ *     and, where recon is not NULL, the reconstruction in the planes'
+ *     layout.
  */
+#include <math.h>
+
 #include "av1_core.h"
 
 typedef struct {
@@ -59,11 +76,33 @@ static uint32_t hash(uint32_t a, uint32_t b, uint32_t c, uint32_t d)
     return h;
 }
 
+/* the writer's options (opts[]) */
+enum {
+    OPT_SUBSAMPLED, /* 1: 4:2:0 under BT.601 */
+    OPT_BASE_Q,     /* base_q_idx, 0 lossless */
+    OPT_QM,         /* quantiser matrix level, 15 none */
+    OPT_BLOCK_LOG2, /* lossy blocks and transforms: 3, 4 or 5 */
+    OPT_LF0, OPT_LF1, OPT_LF2, OPT_LF3, OPT_SHARPNESS,
+    OPT_CDEF_DAMPING, /* 3 .. 6 */
+    OPT_CDEF_COUNT,   /* 0 (CDEF off), 1, 2, 4 or 8 strengths */
+    OPT_CDEF,         /* 8 x (y pri, y sec, uv pri, uv sec) */
+    OPT_COUNT = OPT_CDEF + 32
+};
+
+static int enc_cdef(Av1 *f, int r, int c)
+{
+    return (int)(hash(f->enc_seed, (uint32_t)r, (uint32_t)c, 77u) %
+                 (1u << f->cdef_bits));
+}
+
 static int enc_partition(Av1 *f, int r, int c, int bsize)
 {
     int n4 = 1 << bw4_log2[bsize], half = n4 >> 1;
     int has_rows = r + half < f->MiRows, has_cols = c + half < f->MiCols;
     uint32_t h = hash(f->enc_seed, (uint32_t)r, (uint32_t)c, (uint32_t)bsize);
+    if (!f->lossless) /* one block size, smaller at the edges */
+        return bw4_log2[bsize] + 2 > f->enc_block_log2 || !has_rows ||
+               !has_cols ? PARTITION_SPLIT : PARTITION_NONE;
     if (bsize > 9) /* 64 x 64: split */
         return PARTITION_SPLIT;
     if (!has_rows || !has_cols)
@@ -91,8 +130,13 @@ static Choice *enc_choice(Av1 *f)
         ch->filter_intra = 1;
         ch->filter_mode = (int)((h >> 13) % 5);
     }
-    int cfl_ok = (bw >> f->ssx) <= 4 && (bh >> f->ssy) <= 4;
+    int cfl_ok = f->lossless ? plane_bsize(f->mi_sz, f->ssx, f->ssy) ==
+                 BLOCK_4X4 : bw <= 32 && bh <= 32;
     ch->uvmode = (int)(h2 % (13u + (uint32_t)cfl_ok));
+    if (!f->lossless) { /* modes whose chroma transform is DCT_DCT */
+        static const uint8_t dct_modes[3] = {DC_PRED, D45_PRED, UV_CFL_PRED};
+        ch->uvmode = dct_modes[h2 % (2u + (uint32_t)cfl_ok)];
+    }
     ch->angle_uv = (int)((h2 >> 8) % 7) - 3;
     ch->cfl_signs = (int)((h2 >> 12) % 8);
     int su = (ch->cfl_signs + 1) / 3, sv = (ch->cfl_signs + 1) % 3;
@@ -114,17 +158,22 @@ static void fwht_1d(int32_t *t)
     t[3] = b0;
 }
 
+/* the source sample of a plane at (x, y), the edge's past the frame's
+ * edge (as good as any) */
+static int32_t source(Av1 *f, int plane, int x, int y)
+{
+    int w = plane ? (f->W + f->ssx) >> f->ssx : f->W;
+    int h = plane ? (f->H + f->ssy) >> f->ssy : f->H;
+    return f->src[plane][(size_t)(y < h ? y : h - 1) * w + (x < w ? x : w - 1)];
+}
+
 static void forward_wht(Av1 *f, int plane, int x, int y)
 {
     int32_t r[4][4];
     for (int i = 0; i < 4; i++)
-        for (int j = 0; j < 4; j++) {
-            int sy = y + i < f->H ? y + i : f->H - 1;
-            int sx = x + j < f->W ? x + j : f->W - 1;
-            /* past the frame's edge: the edge sample, as good as any */
-            r[i][j] = (int32_t)f->src[plane][(size_t)sy * f->W + sx] -
+        for (int j = 0; j < 4; j++)
+            r[i][j] = source(f, plane, x + j, y + i) -
                       PX(plane, y + i, x + j);
-        }
     for (int j = 0; j < 4; j++) {
         int32_t t[4] = {r[0][j], r[1][j], r[2][j], r[3][j]};
         fwht_1d(t);
@@ -136,6 +185,49 @@ static void forward_wht(Av1 *f, int plane, int x, int y)
         for (int j = 0; j < 4; j++)
             f->quant[i * 4 + j] = r[i][j];
     }
+}
+
+/* the residual's orthonormal DCT scaled to the decoder's coefficients
+ * (2^(row shift + 4) * 2 / sqrt(W H), times sqrt(2) for 2:1 shapes),
+ * quantised to the dequantisers of DCT_DCT */
+static void forward_tx(Av1 *f, int plane, int x, int y, int t)
+{
+    if (f->lossless) {
+        forward_wht(f, plane, x, y);
+        return;
+    }
+    double res[32][32], tmp[32][32];
+    int32_t qv[32 * 32];
+    int wl = tx_wl[t], hl = tx_hl[t], W = 1 << wl, H = 1 << hl;
+    for (int i = 0; i < H; i++)
+        for (int j = 0; j < W; j++)
+            res[i][j] = source(f, plane, x + j, y + i) -
+                        PX(plane, y + i, x + j);
+    for (int i = 0; i < H; i++)
+        for (int k = 0; k < W; k++) {
+            double v = 0;
+            for (int j = 0; j < W; j++)
+                v += res[i][j] * cos(3.14159265358979323846 * (2 * j + 1) *
+                                     k / (2.0 * W));
+            tmp[i][k] = v * sqrt((k ? 2.0 : 1.0) / W);
+        }
+    double scale = (double)(1 << (row_shift[t] + 4)) * 2.0 / sqrt(W * H);
+    if (wl - hl == 1 || hl - wl == 1)
+        scale *= sqrt(2.0);
+    int pels = W * H, shift = (pels > 256) + (pels > 1024);
+    dequantisers(f, plane, t, DCT_DCT, qv);
+    for (int k = 0; k < H; k++)
+        for (int l = 0; l < W; l++) {
+            double v = 0;
+            for (int i = 0; i < H; i++)
+                v += tmp[i][l] * cos(3.14159265358979323846 * (2 * i + 1) *
+                                     k / (2.0 * H));
+            v *= sqrt((k ? 2.0 : 1.0) / H) * scale * (1 << shift) /
+                 qv[k * W + l];
+            long level = lround(v);
+            level = level > 16383 ? 16383 : level < -16383 ? -16383 : level;
+            f->quant[k * W + l] = (int32_t)level;
+        }
 }
 
 static void encode_superblock(Av1 *f, int r, int c)
@@ -157,11 +249,12 @@ static void obu(Put *w, int type, const uint8_t *payload, int64_t n)
 }
 
 int av1_encode(const uint16_t *planes, int nplanes, int64_t H, int64_t W,
-               int depth, int seed, uint8_t *out, int64_t cap, int64_t *size,
-               char *err, int errlen)
+               int depth, int seed, const int32_t *opts, uint8_t *out,
+               int64_t cap, int64_t *size, uint16_t *recon, char *err,
+               int errlen)
 {
     Av1 *f = calloc(1, sizeof(Av1));
-    uint8_t *hdr = malloc(64);
+    uint8_t *hdr = malloc(256);
     uint8_t *volatile tile = NULL; /* kept across longjmp */
     uint16_t *volatile pre = NULL;
     if (!f || !hdr) {
@@ -173,16 +266,38 @@ int av1_encode(const uint16_t *planes, int nplanes, int64_t H, int64_t W,
     f->errlen = errlen;
     int code = setjmp(f->jb);
     if (code == 0) {
+        int32_t none[OPT_COUNT] = {0};
+        none[OPT_QM] = 15;
+        const int32_t *o = opts ? opts : none;
+        int sub = o[OPT_SUBSAMPLED], bq = o[OPT_BASE_Q];
+        int ncdef = bq ? o[OPT_CDEF_COUNT] : 0;
         if (W < 1 || H < 1 || W > 4096 || ((W + 63) / 64) * ((H + 63) / 64)
             > 2304 || (nplanes != 1 && nplanes != 3) ||
             (depth != 8 && depth != 10 && depth != 12))
             av1_fail(f, ERR_VALUE, "writer: 1 or 3 planes of at most 4096 "
                      "samples a row and 2304 superblocks, 8, 10 or 12 bits");
+        if (bq < 0 || bq > 255 || o[OPT_QM] < 0 || o[OPT_QM] > 15 ||
+            (bq && nplanes == 3 && !sub) || (bq && (o[OPT_BLOCK_LOG2] < 3 ||
+            o[OPT_BLOCK_LOG2] > 5)) || o[OPT_CDEF_DAMPING] < 0 ||
+            o[OPT_CDEF_DAMPING] > 6 || (ncdef && o[OPT_CDEF_DAMPING] < 3) ||
+            (ncdef != 0 && ncdef != 1 && ncdef != 2 && ncdef != 4 &&
+             ncdef != 8) || o[OPT_SHARPNESS] < 0 || o[OPT_SHARPNESS] > 7)
+            av1_fail(f, ERR_VALUE, "writer: options out of range (lossy "
+                     "colour is 4:2:0; blocks of 8, 16 or 32)");
+        for (int i = 0; i < 4; i++)
+            if (o[OPT_LF0 + i] < 0 || o[OPT_LF0 + i] > 63)
+                av1_fail(f, ERR_VALUE, "writer: a loop filter level past 63");
+        for (int i = 0; i < 4 * ncdef; i++) {
+            int v = o[OPT_CDEF + i];
+            if (v < 0 || v > ((i & 1) ? 4 : 15) || ((i & 1) && v == 3))
+                av1_fail(f, ERR_VALUE, "writer: CDEF strengths are 0-15, "
+                         "secondary 0, 1, 2 or 4");
+        }
         int mono = nplanes == 1;
-        int profile = depth == 12 ? 2 : mono ? 0 : 1;
+        int profile = depth == 12 ? 2 : mono || sub ? 0 : 1;
         Put w = {out, cap, 0, f};
         /* the sequence header */
-        Put s = {hdr, 64, 0, f};
+        Put s = {hdr, 256, 0, f};
         put(&s, (uint32_t)profile, 3);
         put(&s, 1, 1); /* still_picture */
         put(&s, 1, 1); /* reduced_still_picture_header */
@@ -195,7 +310,7 @@ int av1_encode(const uint16_t *planes, int nplanes, int64_t H, int64_t W,
         put(&s, 1, 1); /* enable_filter_intra */
         put(&s, 1, 1); /* enable_intra_edge_filter */
         put(&s, 0, 1); /* enable_superres */
-        put(&s, 0, 1); /* enable_cdef */
+        put(&s, ncdef > 0, 1); /* enable_cdef */
         put(&s, 0, 1); /* enable_restoration */
         put(&s, depth > 8, 1);
         if (profile == 2)
@@ -203,13 +318,24 @@ int av1_encode(const uint16_t *planes, int nplanes, int64_t H, int64_t W,
         if (profile != 1)
             put(&s, (uint32_t)mono, 1);
         put(&s, 1, 1); /* color_description_present_flag */
-        put(&s, 2, 8);
-        put(&s, 2, 8);
-        put(&s, mono ? 2 : 0, 8); /* identity for colour */
+        if (sub) { /* BT.709 primaries, sRGB transfer, BT.601 matrix */
+            put(&s, 1, 8);
+            put(&s, 13, 8);
+            put(&s, 6, 8);
+        } else {
+            put(&s, 2, 8);
+            put(&s, 2, 8);
+            put(&s, mono ? 2 : 0, 8); /* identity for colour */
+        }
         put(&s, 1, 1); /* color_range: full */
         if (!mono) {
-            if (profile == 2)
-                put(&s, 0, 1); /* subsampling_x */
+            if (profile == 2) {
+                put(&s, (uint32_t)sub, 1); /* subsampling_x */
+                if (sub)
+                    put(&s, 1, 1); /* subsampling_y */
+            }
+            if (sub)
+                put(&s, 0, 2); /* chroma_sample_position */
             put(&s, 0, 1); /* separate_uv_delta_q */
         }
         put(&s, 0, 1); /* film_grain_params_present */
@@ -222,15 +348,38 @@ int av1_encode(const uint16_t *planes, int nplanes, int64_t H, int64_t W,
         f->MiRows = 2 * (((int)H + 7) >> 3);
         f->nplanes = nplanes;
         f->bitdepth = depth;
-        f->ssx = f->ssy = mono;
+        f->ssx = f->ssy = mono || sub;
         f->filter_intra_en = f->edge_filter_en = 1;
         f->tile_cols = f->tile_rows = 1;
         f->col_starts[1] = f->MiCols;
         f->row_starts[1] = f->MiRows;
+        f->base_q = bq;
+        f->lossless = bq == 0;
+        f->enc_block_log2 = o[OPT_BLOCK_LOG2];
+        f->qm_level[0] = f->qm_level[1] = f->qm_level[2] =
+            bq ? o[OPT_QM] : 15;
+        if (bq) {
+            for (int i = 0; i < 4; i++)
+                f->lf_level[i] = o[OPT_LF0 + i];
+            if (mono || (!f->lf_level[0] && !f->lf_level[1]))
+                f->lf_level[2] = f->lf_level[3] = 0;
+            f->lf_sharpness = o[OPT_SHARPNESS];
+            f->cdef_en = ncdef > 0;
+            f->cdef_damping = o[OPT_CDEF_DAMPING];
+            f->cdef_bits = ncdef == 8 ? 3 : ncdef == 4 ? 2 : ncdef == 2;
+            for (int i = 0; i < ncdef; i++) {
+                f->cdef_pri[0][i] = o[OPT_CDEF + 4 * i];
+                f->cdef_sec[0][i] = o[OPT_CDEF + 4 * i + 1];
+                f->cdef_pri[1][i] = o[OPT_CDEF + 4 * i + 2];
+                f->cdef_sec[1][i] = o[OPT_CDEF + 4 * i + 3];
+            }
+        }
+        size_t hw = (size_t)H * W;
+        size_t cw = (size_t)((H + f->ssy) >> f->ssy) * ((W + f->ssx) >> f->ssx);
         for (int p = 0; p < nplanes; p++)
-            f->src[p] = planes + (size_t)p * H * W;
+            f->src[p] = planes + (p ? hw + (p - 1) * cw : 0);
         frame_alloc(f);
-        cdfs_init(&f->cdf0, 0);
+        cdfs_init(&f->cdf0, bq <= 20 ? 0 : bq <= 60 ? 1 : bq <= 120 ? 2 : 3);
         int64_t tcap = 8 * nplanes * H * W + 1024;
         pre = malloc((size_t)tcap * 2);
         tile = malloc((size_t)tcap);
@@ -242,7 +391,8 @@ int av1_encode(const uint16_t *planes, int nplanes, int64_t H, int64_t W,
         int64_t tn = ec_enc_done(&f->ec, tile, tcap);
         if (tn < 0)
             av1_fail(f, ERR_MEMORY, "writer: tile buffer full");
-        Put h = {hdr, 64, 0, f};
+        postfilter(f);
+        Put h = {hdr, 256, 0, f};
         put(&h, 0, 1); /* disable_cdf_update */
         put(&h, 0, 1); /* allow_screen_content_tools */
         put(&h, 0, 1); /* render_and_frame_size_different */
@@ -257,14 +407,40 @@ int av1_encode(const uint16_t *planes, int nplanes, int64_t H, int64_t W,
             put(&h, 0, 1); /* increment_tile_cols_log2 */
         if (maxr > 0)
             put(&h, 0, 1); /* increment_tile_rows_log2 */
-        put(&h, 0, 8); /* base_q_idx */
+        put(&h, (uint32_t)bq, 8); /* base_q_idx */
         put(&h, 0, 1); /* DeltaQYDc */
         if (!mono) {
             put(&h, 0, 1); /* DeltaQUDc */
             put(&h, 0, 1); /* DeltaQUAc */
         }
-        put(&h, 0, 1); /* using_qmatrix */
+        put(&h, bq && o[OPT_QM] < 15, 1); /* using_qmatrix */
+        if (bq && o[OPT_QM] < 15) {
+            put(&h, (uint32_t)o[OPT_QM], 4); /* qm_y */
+            put(&h, (uint32_t)o[OPT_QM], 4); /* qm_u */
+        }
         put(&h, 0, 1); /* segmentation_enabled */
+        if (bq) {
+            put(&h, 0, 1); /* delta_q_present */
+            put(&h, (uint32_t)f->lf_level[0], 6);
+            put(&h, (uint32_t)f->lf_level[1], 6);
+            if (!mono && (f->lf_level[0] || f->lf_level[1])) {
+                put(&h, (uint32_t)f->lf_level[2], 6);
+                put(&h, (uint32_t)f->lf_level[3], 6);
+            }
+            put(&h, (uint32_t)f->lf_sharpness, 3);
+            put(&h, 0, 1); /* loop_filter_delta_enabled */
+            if (ncdef) {
+                put(&h, (uint32_t)(f->cdef_damping - 3), 2);
+                put(&h, (uint32_t)f->cdef_bits, 2);
+                for (int i = 0; i < ncdef; i++)
+                    for (int p = 0; p < (mono ? 1 : 2); p++) {
+                        put(&h, (uint32_t)f->cdef_pri[p][i], 4);
+                        put(&h, (uint32_t)(f->cdef_sec[p][i] == 4 ? 3
+                                           : f->cdef_sec[p][i]), 2);
+                    }
+            }
+            put(&h, 0, 1); /* tx_mode_select */
+        }
         put(&h, 0, 1); /* reduced_tx_set */
         while (h.pos & 7)
             put(&h, 0, 1);
@@ -278,6 +454,16 @@ int av1_encode(const uint16_t *planes, int nplanes, int64_t H, int64_t W,
         tile = frame;
         obu(&w, 6, frame, hn + tn);
         *size = w.pos >> 3;
+        if (recon)
+            for (int p = 0; p < nplanes; p++) {
+                int pw = p ? (f->W + f->ssx) >> f->ssx : f->W;
+                int ph = p ? (f->H + f->ssy) >> f->ssy : f->H;
+                uint16_t *dst = recon + (p ? hw + (p - 1) * cw : 0);
+                for (int y = 0; y < ph; y++)
+                    memcpy(dst + (size_t)y * pw,
+                           f->plane[p] + (size_t)y * f->stride,
+                           (size_t)pw * 2);
+            }
     }
     frame_free(f);
     free(f);

@@ -1,6 +1,5 @@
 """AVIF files as ``cv2.imread`` (OpenCV 5.0 over libavif 1.4.2 and libaom
-3.14) reads them, for the port's data layer, and a lossless writer for
-fixtures.
+3.14) reads them, for the port's data layer, and a writer for fixtures.
 
 The HEIF (ISOBMFF) container is parsed here as libavif's ``read.c`` parses
 a still image, rule for rule where a rule decides between a read and a
@@ -16,9 +15,10 @@ with an unknown essential property, a thumbnail and one of an unknown
 type; each item it keeps needs an ``ispe`` (but an alpha item: strict
 checks are off) within its limits.  The primary ``av01`` item's OBUs, and
 those of its alpha item (``auxl`` with an alpha ``auxC``), are decoded in
-C (``csrc/host/av1_decode.c``: lossless AV1 intra, 8 to 12 bits,
-monochrome or 4:4:4, the OBUs checked as libaom checks them; the alpha is
-decoded and dropped, as OpenCV drops it).
+C (``csrc/host/av1_decode.c``: AV1 intra, lossless or lossy, 8 to 12
+bits, monochrome, 4:4:4, 4:2:2 or 4:2:0, deblocking and CDEF, the OBUs
+checked as libaom checks them; the alpha is decoded and dropped, as
+OpenCV drops it).
 
 What OpenCV's reader then returns, which :func:`decode_avif` repeats:
 
@@ -29,27 +29,35 @@ What OpenCV's reader then returns, which :func:`decode_avif` repeats:
 - a colour read: ``uint8 [H, W, 3]`` BGR.  4:4:4 under the identity matrix
   (how libavif writes lossless colour): G = Y, B = U, R = V; 10- and
   12-bit samples become 8 bits as ``rint(float32(v) * float32(255 / max))``
-  (round half to even).  4:0:0: three equal channels of Y as stored,
+  (round half to even).  4:4:4 and 4:2:0 under BT.601 full range (matrix
+  6, 5 or 2: cv2.imwrite's and Pillow's files): libyuv's fixed-point
+  conversion with bilinear chroma, of 10- and 12-bit samples shifted to 8
+  bits, but with an alpha item other paths at 10 and 12 bits
+  (:func:`_yuv_to_bgr`).  4:0:0: three equal channels of Y as stored,
   whatever its range, 10- and 12-bit samples ``rint(v / 2 ** (depth -
-  8))`` (both measured on every sample value);
+  8))`` (all measured on every sample value);
 - an ``IMREAD_ANYDEPTH`` read: 4:0:0 Y as stored; colour ``cvtColor``'s
   gray of the BGR samples at the Mat's depth (``(3735 B + 19235 G + 9798
-  R + 16384) >> 15``); the frame's own depth decides the conversion;
+  R + 16384) >> 15``), BT.601 colour of a deeper frame converted by
+  libavif's float32 code at that depth; the frame's own depth decides the
+  conversion;
 - ``irot``, ``imir`` and ``clap`` are not applied, nor an Exif
   orientation.
 
 Refused: a file cv2 returns None for raises ``ValueError`` (a cut or
 damaged container or stream, an item without ``ispe``, no usable primary
-item, matrix coefficients libavif's YUV to RGB refuses, ...); what OpenCV
-reads and this module does not yet read raises ``NotImplementedError``
-naming it: lossy AV1, subsampled chroma (4:2:0, 4:2:2), colour under
-another matrix than identity, limited-range colour, a frame of another
-size than ``ispe``'s (libavif scales it), more than one frame in an item,
-``grid`` derived images, ``avis`` sequences, and the AV1 tools the decoder
-lists.
+item, matrix coefficients libavif's YUV to RGB refuses, an alpha item
+stored before a colour item without nclx, ...); what OpenCV reads and
+this module does not yet read raises ``NotImplementedError`` naming it:
+4:2:2 colour, colour under another matrix than identity or BT.601,
+limited-range colour, a frame of another size than ``ispe``'s (libavif
+scales it), more than one frame in an item, ``grid`` derived images,
+``avis`` sequences, and the AV1 tools the decoder lists (loop
+restoration, superres, segmentation, film grain).
 
-:func:`encode_avif` writes lossless still images (colour under the
-identity matrix at 4:4:4, or gray at 4:0:0; 8, 10 or 12 bits;
+:func:`encode_avif` writes still images (lossless colour under the
+identity matrix at 4:4:4 or under BT.601 at 4:2:0, gray at 4:0:0, and
+lossy 4:2:0 or gray with deblocking and CDEF; 8, 10 or 12 bits;
 ``csrc/host/av1_encode.c``) for the tests and for the card machine, which
 has no AVIF writer.
 """
@@ -530,23 +538,29 @@ def _call(fn, *args):
 
 def av1_info(obus: bytes) -> dict:
     """The frame header of an AV1 still image's OBUs."""
-    v = np.zeros(12, np.int32)
+    v = np.zeros(15, np.int32)
     _call(_lib().av1_info, obus, len(obus), v.ctypes.data)
     keys = ("width", "height", "depth", "mono", "ssx", "ssy", "matrix",
-            "full_range", "primaries", "transfer", "profile", "still")
+            "full_range", "primaries", "transfer", "profile", "still",
+            "base_q", "tx_mode_select", "cdef_bits")
     return {k: int(x) for k, x in zip(keys, v)}
 
 
 def av1_planes(obus: bytes, info: dict = None) -> tuple:
-    """(planes ``uint16 [1 or 3, H, W]`` (Y, U, V), frame header) of an
-    AV1 lossless intra frame, decoded in C; ``info``: its
-    :func:`av1_info`, where known."""
+    """(planes: a list of ``uint16`` arrays, Y ``[H, W]`` then U and V at
+    their subsampled size, frame header) of an AV1 intra frame, decoded in
+    C; ``info``: its :func:`av1_info`, where known."""
     info = info or av1_info(obus)
     n = 1 if info["mono"] else 3
     H, W = info["height"], info["width"]
-    out = np.empty((n, H, W), np.uint16)
+    Hc, Wc = (H + info["ssy"]) >> info["ssy"], (W + info["ssx"]) >> info["ssx"]
+    out = np.empty(H * W + (n - 1) * Hc * Wc, np.uint16)
     _call(_lib().av1_decode, obus, len(obus), out.ctypes.data, n, H, W)
-    return out, info
+    planes = [out[:H * W].reshape(H, W)]
+    for k in range(n - 1):
+        start = H * W + k * Hc * Wc
+        planes.append(out[start:start + Hc * Wc].reshape(Hc, Wc))
+    return planes, info
 
 
 def _decode(data: bytes, box: dict, item: dict, size, alpha=False
@@ -581,6 +595,120 @@ def _to8(v: np.ndarray, depth: int) -> np.ndarray:
         np.uint8)
 
 
+def _upsample(c: np.ndarray, H: int, W: int) -> np.ndarray:
+    """libyuv's bilinear 2x chroma upsampling of a 4:2:0 plane (its
+    ScaleRowUp2_Linear / _Bilinear rows and their edge rules, as
+    I420ToARGBMatrixFilter uses them): each sample (9 near + 3 + 3 + 1
+    diagonal + 8) >> 4 of the chroma samples around it, the first and last
+    column (and the first row, and an even height's last) taking only the
+    near sample in that direction; one rounding, as libyuv's (the weights
+    are applied along rows, then columns, before it)."""
+    def taps(n, last):
+        k = np.arange(n)
+        near = np.where(k % 2 == 1, (k - 1) // 2, k // 2)
+        # the first, and the last (libyuv's last column; the last row of
+        # an even height) take the near sample alone
+        edge = (k == 0) | ((k == n - 1) & last)
+        far = np.where(edge, near, np.where(k % 2 == 1, near + 1, near - 1))
+        return near, far, np.where(edge, 4, 3), np.where(edge, 0, 1)
+    rn, rf, rwn, rwf = taps(H, H % 2 == 0)
+    cn, cf, cwn, cwf = taps(W, True)
+    c = c.astype(np.int32)
+    rows = c[:, cn] * cwn.astype(np.int32) + c[:, cf] * cwf.astype(np.int32)
+    return (rows[rn] * rwn[:, None].astype(np.int32) + rows[rf]
+            * rwf[:, None].astype(np.int32) + 8) >> 4
+
+
+def _libyuv_bt601(y, u, v, depth: int = 8) -> np.ndarray:
+    """libyuv's I444ToARGBRow with kYuvJPEGConstants (BT.601 full range,
+    6-bit fixed point) of 8-bit samples, or its YuvPixel10 / YuvPixel12 of
+    10- or 12-bit ones (Y widened to 16 bits, U and V narrowed to 8):
+    uint8 BGR."""
+    # int32 holds every product: y widened to 16 bits, times 16320
+    y, u, v = (a.astype(np.int32) for a in (y, u, v))
+    if depth > 8:
+        sh = depth - 8
+        y = (y << (16 - depth)) | (y >> (2 * depth - 16))
+        u, v = np.minimum(u >> sh, 255), np.minimum(v >> sh, 255)
+    else:
+        y = y * 0x0101
+    yg, yb, ub, ug, vg, vr = 16320, 32, 113, 22, 46, 90
+    y1 = (y * yg) >> 16
+    b = y1 + u * ub - (ub * 128 - yb)
+    g = y1 + (ug * 128 + vg * 128 + yb) - (u * ug + v * vg)
+    r = y1 + v * vr - (vr * 128 - yb)
+    return np.clip(np.stack([b, g, r], -1) >> 6, 0, 255).astype(np.uint8)
+
+
+def _float_bt601(planes, depth: int, ssx: int) -> np.ndarray:
+    """libavif's own YUV to RGB (avifImageYUVAnyToRGBAnySlow), BT.601 full
+    range, to the samples' depth, float32 as it computes: the unorm
+    tables, chroma upsampled bilinearly (9/16, 3/16, 3/16, 1/16 of the
+    nearest chroma samples, the edge's repeated), R = Y + 2 (1 - kr) Cr,
+    B = Y + 2 (1 - kb) Cb, G = Y - 2 (kr (1 - kr) Cr + kb (1 - kb) Cb) /
+    kg, clamped and stored as 0.5 + x * max truncated: uint16 BGR."""
+    F = np.float32
+    mx = F((1 << depth) - 1)
+    cps = np.arange(1 << depth, dtype=F)
+    ty, tuv = cps / mx, (cps - F(1 << (depth - 1))) / mx
+    Y = ty[planes[0]]
+    H, W = Y.shape
+    if ssx:
+        i, j = np.arange(W), np.arange(H)
+        ui, uj = i >> 1, j >> 1
+        ac = np.where((i == 0) | ((i == W - 1) & (i % 2 == 1)), 0,
+                      np.where(i % 2 == 1, 1, -1))
+        ar = np.where((j == 0) | ((j == H - 1) & (j % 2 == 1)), 0,
+                      np.where(j % 2 == 1, 1, -1))
+
+        def chroma(p):
+            t = tuv[p]
+            return ((t[uj[:, None], ui[None, :]] * F(9.0 / 16.0))
+                    + (t[uj[:, None], (ui + ac)[None, :]] * F(3.0 / 16.0))
+                    + (t[(uj + ar)[:, None], ui[None, :]] * F(3.0 / 16.0))
+                    + (t[(uj + ar)[:, None], (ui + ac)[None, :]]
+                       * F(1.0 / 16.0)))
+        cb, cr = chroma(planes[1]), chroma(planes[2])
+    else:
+        cb, cr = tuv[planes[1]], tuv[planes[2]]
+    kr, kb = F(0.299), F(0.114)
+    kg = F(1) - kr - kb
+    r = Y + (F(2) * (F(1) - kr)) * cr
+    b = Y + (F(2) * (F(1) - kb)) * cb
+    g = Y - ((F(2) * ((kr * (F(1) - kr) * cr) + (kb * (F(1) - kb) * cb)))
+             / kg)
+    return np.stack([np.floor(F(0.5) + np.clip(c, F(0), F(1)) * mx)
+                     for c in (b, g, r)], -1).astype(np.uint16)
+
+
+def _yuv_to_bgr(planes, info: dict, rgb_depth: int, alpha: bool
+                ) -> np.ndarray:
+    """BT.601 full-range colour (4:4:4 or 4:2:0) as OpenCV's reader gets it
+    from libavif 1.4.2 (measured on every path through cv2.imread).  To the
+    frame's own depth: libavif's float32 conversion.  To 8 bits, libyuv:
+    8-bit samples, and deeper ones shifted down to 8 bits, upsampled (4:2:0)
+    and converted at 8 bits; but with an alpha item (OpenCV asks for BGRA)
+    10-bit samples upsampled at 10 bits and converted by YuvPixel10, 12-bit
+    4:2:0 ones with each chroma sample repeated over its 2 x 2 block and
+    converted by YuvPixel12."""
+    depth, sub = info["depth"], info["ssx"]
+    if rgb_depth != 8:
+        return _float_bt601(planes, depth, sub)
+    y, u, v = planes
+    H, W = y.shape
+    if depth == 10 and alpha:
+        if sub:
+            u, v = _upsample(u, H, W), _upsample(v, H, W)
+        return _libyuv_bt601(y, u, v, 10)
+    if depth == 12 and alpha and sub:
+        u, v = (np.repeat(np.repeat(c, 2, 0), 2, 1)[:H, :W] for c in (u, v))
+        return _libyuv_bt601(y, u, v, 12)
+    y, u, v = (p >> (depth - 8) for p in planes)
+    if sub:
+        u, v = _upsample(u, H, W), _upsample(v, H, W)
+    return _libyuv_bt601(y, u, v)
+
+
 def decode_avif(data: bytes, path="<bytes>", gray: bool = False
                 ) -> np.ndarray:
     """AVIF bytes -> what ``cv2.imread`` returns for a file of them (module
@@ -596,6 +724,16 @@ def decode_avif(data: bytes, path="<bytes>", gray: bool = False
             raise ValueError("AVIF: a gray image with alpha (OpenCV's "
                              "reader refuses two channels)")
         size = prop(color, b"ispe")
+        has_nclx = any(k == b"colr" and v and v[0] == b"nclx"
+                       for k, v in color["props"])
+        if alpha is not None and not has_nclx and alpha["method"] == \
+                color["method"] == 0 and alpha["extents"] and \
+                color["extents"] and alpha["extents"][0][0] < \
+                color["extents"][0][0]:
+            # measured through cv2.imread (libavif itself decodes it)
+            raise ValueError("AVIF: an alpha item stored before a colour "
+                             "item without nclx (OpenCV's reader returns "
+                             "None)")
         planes, info, later = _decode(data, box, color, size)
         if alpha is not None:
             if (prop(alpha, b"ispe") or size) != size:
@@ -640,15 +778,20 @@ def decode_avif(data: bytes, path="<bytes>", gray: bool = False
             "reads uninitialised memory)")
     if not full:
         raise NotImplementedError(f"{path}: AVIF: limited-range samples")
-    if planes.shape[0] == 1:  # a monochrome frame: Y, Y, Y
-        planes = np.repeat(planes, 3, 0)
-    elif matrix != 0:
+    if len(planes) == 1:  # a monochrome frame: Y, Y, Y
+        planes = planes * 3
+    elif matrix not in (0, 2, 5, 6):
         raise NotImplementedError(f"{path}: AVIF: YUV to RGB under matrix "
                                   f"coefficients {matrix}")
-    bgr = np.stack([planes[1], planes[0], planes[2]], -1)
-    if rgb_depth == 8:
-        bgr = bgr.astype(np.uint8) if frame_depth == 8 else _to8(
-            bgr, frame_depth)
+    elif info["ssx"] and not info["ssy"]:
+        raise NotImplementedError(f"{path}: AVIF: 4:2:2 YUV to RGB")
+    if len(planes) == 3 and matrix != 0:
+        bgr = _yuv_to_bgr(planes, info, rgb_depth, alpha is not None)
+    else:
+        bgr = np.stack([planes[1], planes[0], planes[2]], -1)
+        if rgb_depth == 8:
+            bgr = bgr.astype(np.uint8) if frame_depth == 8 else _to8(
+                bgr, frame_depth)
     if gray:
         b, g, r = (bgr[..., c].astype(np.int64) for c in range(3))
         return ((3735 * b + 19235 * g + 9798 * r + 16384) >> 15).astype(
@@ -667,70 +810,150 @@ def _full(kind: bytes, version: int, flags: int, body: bytes) -> bytes:
     return _box(kind, struct.pack(">I", (version << 24) | flags) + body)
 
 
-def _av1c(depth: int, mono: bool) -> bytes:
-    """The av1C box of the writer's sequence header (profile 0 gray, 1
-    colour, 2 at 12 bits; seq_level_idx 31)."""
-    profile = 2 if depth == 12 else 0 if mono else 1
+def _av1c(depth: int, mono: bool, sub: bool = False) -> bytes:
+    """The av1C box of the writer's sequence header (profile 0 gray or
+    4:2:0, 1 colour at 4:4:4, 2 at 12 bits; seq_level_idx 31)."""
+    profile = 2 if depth == 12 else 0 if mono or sub else 1
+    ss = mono or sub
     return _box(b"av1C", bytes([
         0x81, profile << 5 | 31, (depth > 8) << 6 | (depth == 12) << 5
-        | mono << 4 | mono << 3 | mono << 2, 0]))
+        | mono << 4 | ss << 3 | ss << 2, 0]))
 
 
 def _encoder():
     lib = _build.load("av1_encode")
     i64, ptr, cint = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int
-    lib.av1_encode.argtypes = [ptr, cint, i64, i64, cint, cint, ptr, i64,
-                               ptr, ctypes.c_char_p, cint]
+    lib.av1_encode.argtypes = [ptr, cint, i64, i64, cint, cint, ptr, ptr,
+                               i64, ptr, ptr, ctypes.c_char_p, cint]
     lib.av1_encode.restype = cint
     return lib
 
 
-def encode_av1(planes: np.ndarray, depth: int = 8, seed: int = 0) -> bytes:
-    """Lossless AV1 OBUs (a sequence header and one frame, the reduced
-    still picture header) of ``uint16 [1 or 3, H, W]`` planes (Y or Y, U,
-    V at 4:4:4), written in C (``csrc/host/av1_encode.c``): 64 x 64
+OPT_COUNT = 43  # av1_encode.c's options: 11, then 8 CDEF strengths of 4
+
+
+def _options(subsampled: bool, lossy) -> np.ndarray:
+    """av1_encode.c's opts[] of the writer's keywords (``lossy``: dict of
+    ``base_q``, ``qm`` (15: none), ``block`` (8, 16 or 32), ``lf`` (the
+    four loop filter levels), ``sharpness``, ``cdef_damping`` (3-6) and
+    ``cdef`` (a list of (y primary, y secondary, uv primary, uv secondary)
+    strengths, secondary 0, 1, 2 or 4))."""
+    o = np.zeros(OPT_COUNT, np.int32)
+    o[0] = int(subsampled)
+    o[2] = 15
+    if lossy:
+        cdef = list(lossy.get("cdef", ()))
+        lf = list(lossy.get("lf", (0, 0, 0, 0)))
+        o[1] = lossy["base_q"]
+        o[2] = lossy.get("qm", 15)
+        o[3] = {8: 3, 16: 4, 32: 5}.get(lossy.get("block", 16), 0)
+        o[4:8] = lf + [0] * (4 - len(lf))
+        o[8] = lossy.get("sharpness", 0)
+        o[9] = lossy.get("cdef_damping", 3)
+        o[10] = len(cdef)
+        for k, strengths in enumerate(cdef[:8]):
+            o[11 + 4 * k:15 + 4 * k] = strengths
+    return o
+
+
+def encode_av1(planes, depth: int = 8, seed: int = 0,
+               subsampled: bool = False, lossy: dict = None,
+               recon: bool = False):
+    """AV1 OBUs (a sequence header and one frame, the reduced still picture
+    header) of ``uint16`` planes: ``[1 or 3, H, W]`` (Y or Y, U, V at 4:4:4)
+    or, with ``subsampled``, a list Y ``[H, W]``, U, V ``[(H + 1) // 2,
+    (W + 1) // 2]`` (4:2:0 under BT.601), written in C
+    (``csrc/host/av1_encode.c``).  Lossless by default: 64 x 64
     superblocks, a partition and an intra mode for each block picked from
     ``seed`` and the image (DC, directional with angle deltas, smooth,
-    Paeth, CfL, filter intra), 4 x 4 Walsh-Hadamard residuals."""
-    planes = np.ascontiguousarray(planes, np.uint16)
-    n, H, W = planes.shape
-    if n not in (1, 3) or depth not in (8, 10, 12) or \
-            planes.max(initial=0) >= 1 << depth:
+    Paeth, CfL, filter intra), 4 x 4 Walsh-Hadamard residuals.  ``lossy``
+    (:func:`_options`; gray or 4:2:0): blocks of one size, one DCT_DCT each,
+    deblocking and CDEF as given.  With ``recon``: (OBUs, the writer's
+    reconstruction, planes as given)."""
+    if isinstance(planes, np.ndarray) and planes.ndim == 3:
+        planes = list(planes)
+    planes = [np.ascontiguousarray(p, np.uint16) for p in planes]
+    n = len(planes)
+    H, W = planes[0].shape
+    chroma = ((H + 1) // 2, (W + 1) // 2) if subsampled else (H, W)
+    if n not in (1, 3) or depth not in (8, 10, 12) or any(
+            p.max(initial=0) >= 1 << depth for p in planes) or any(
+            p.shape != chroma for p in planes[1:]) or (
+            lossy and n == 3 and not subsampled):
         raise ValueError("encode_av1: 1 or 3 planes of 8-, 10- or 12-bit "
-                         "samples")
-    cap = 64 * n * H * W * 2 + 4096
+                         "samples (lossy colour at 4:2:0)")
+    flat = np.concatenate([p.ravel() for p in planes])
+    cap = 64 * flat.size * 2 + 4096
     out = np.empty(cap, np.uint8)
     size = np.zeros(1, np.int64)
-    _call(_encoder().av1_encode, planes.ctypes.data, n, H, W, depth, seed,
-          out.ctypes.data, cap, size.ctypes.data)
-    return out[:int(size[0])].tobytes()
+    rec = np.empty_like(flat) if recon else None
+    opts = _options(subsampled, lossy)  # alive through the call
+    _call(_encoder().av1_encode, flat.ctypes.data, n, H, W, depth, seed,
+          opts.ctypes.data, out.ctypes.data, cap, size.ctypes.data,
+          rec.ctypes.data if recon else None)
+    data = out[:int(size[0])].tobytes()
+    if not recon:
+        return data
+    parts, pos = [], 0
+    for p in planes:
+        parts.append(rec[pos:pos + p.size].reshape(p.shape))
+        pos += p.size
+    return data, parts
+
+
+def yuv420(img: np.ndarray, depth: int = 8) -> list:
+    """The writer's BT.601 full-range 4:2:0 planes of ``[H, W, 3]`` BGR:
+    Y, then Cb and Cr averaged over 2 x 2 samples (the edge's repeated)."""
+    x = np.asarray(img, np.float64)
+    b, g, r = x[..., 0], x[..., 1], x[..., 2]
+    half, top = 1 << (depth - 1), (1 << depth) - 1
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = (b - y) / 1.772 + half
+    cr = (r - y) / 1.402 + half
+    H, W = y.shape
+    out = [y]
+    for c in (cb, cr):
+        c = np.pad(c, ((0, H % 2), (0, W % 2)), mode="edge")
+        out.append((c[0::2, 0::2] + c[1::2, 0::2] + c[0::2, 1::2]
+                    + c[1::2, 1::2]) / 4)
+    return [np.clip(np.rint(p), 0, top).astype(np.uint16) for p in out]
 
 
 def encode_avif(img: np.ndarray, depth: int = 8, seed: int = 0,
                 alpha: np.ndarray = None, extra_props=(),
-                essential: bool = False) -> bytes:
-    """A lossless AVIF still image of ``img``: ``[H, W, 3]`` BGR (colour
-    under the identity matrix at 4:4:4: Y = G, U = B, V = R) or ``[H, W]``
-    gray (4:0:0), ``uint8`` at depth 8, else ``uint16`` samples below ``1
-    << depth`` (10 or 12); ``alpha`` ([H, W], the same depth) adds an alpha
-    item; ``extra_props`` (boxes, e.g. ``irot``) are associated with the
-    image too, marked essential with ``essential``.  cv2.imread reads the colour file back as ``img`` (8-bit)
-    and the gray one under IMREAD_ANYDEPTH as ``img``."""
+                essential: bool = False, subsampling: str = None,
+                lossy: dict = None, recon: bool = False):
+    """An AVIF still image of ``img``: ``[H, W, 3]`` BGR or ``[H, W]`` gray
+    (4:0:0), ``uint8`` at depth 8, else ``uint16`` samples below ``1 <<
+    depth`` (10 or 12).  Colour is lossless 4:4:4 under the identity matrix
+    (Y = G, U = B, V = R), or with ``subsampling="4:2:0"`` or ``lossy``
+    (:func:`encode_av1`) 4:2:0 under BT.601 (:func:`yuv420`); ``alpha``
+    ([H, W], the same depth) adds a lossless alpha item; ``extra_props``
+    (boxes, e.g. ``irot``) are associated with the image too, marked
+    essential with ``essential``.  cv2.imread reads the lossless identity
+    colour file back as ``img`` (8-bit) and the lossless gray one under
+    IMREAD_ANYDEPTH as ``img``.  With ``recon``: (bytes, the writer's
+    reconstruction of the image's planes)."""
     img = np.asarray(img)
     H, W = img.shape[:2]
     mono = img.ndim == 2
-    planes = img[None] if mono else np.stack([img[..., 1], img[..., 0],
-                                              img[..., 2]])
-    color = encode_av1(planes, depth, seed)
+    sub = not mono and (subsampling == "4:2:0" or bool(lossy))
+    planes = [img] if mono else yuv420(img, depth) if sub else \
+        [img[..., 1], img[..., 0], img[..., 2]]
+    color = encode_av1(planes, depth, seed, sub, lossy, recon)
+    if recon:
+        color, rec = color
     items = [(1, color)]
     if alpha is not None:
         items.append((2, encode_av1(np.asarray(alpha)[None], depth, seed)))
     chans = 1 if mono else 3
     props = [_full(b"ispe", 0, 0, struct.pack(">II", W, H)),
              _full(b"pixi", 0, 0, bytes([chans] + [depth] * chans)),
-             _av1c(depth, mono),
-             _box(b"colr", b"nclx" + struct.pack(">HHHB", 2, 2,
-                                                 2 if mono else 0, 0x80))]
+             _av1c(depth, mono, sub),
+             _box(b"colr", b"nclx" + (struct.pack(">HHHB", 1, 13, 6, 0x80)
+                                      if sub else struct.pack(
+                                          ">HHHB", 2, 2, 2 if mono else 0,
+                                          0x80)))]
     assoc = [(1, [1, 0x80 | 2, 0x80 | 3, 4] + [
         5 + k | (0x80 if essential else 0) for k in range(len(extra_props))])]
     props += list(extra_props)
@@ -767,5 +990,6 @@ def encode_avif(img: np.ndarray, depth: int = 8, seed: int = 0,
     for _, d in items:
         offsets.append(pos)
         pos += len(d)
-    return ftyp + meta(offsets) + _box(b"mdat", b"".join(
+    data = ftyp + meta(offsets) + _box(b"mdat", b"".join(
         d for _, d in items))
+    return (data, rec) if recon else data

@@ -110,7 +110,12 @@ FRAME_EXT = {"png": "png", "ppm": "ppm", "pgm": "pgm", "tiff": "tiff",
              "rgbe-tiff": "tiff", "ycbcr-tiff": "tif", "ycbcr-png": "png",
              "lzw16-tiff": "tif", "jp2": "jp2", "ht-jp2": "jp2",
              "12bit-tiff": "tif", "12bit-png": "png", "avif": "avif",
-             "12bit-avif": "avif", "12bit-avif-png": "png"}
+             "12bit-avif": "avif", "12bit-avif-png": "png",
+             "lossy-avif": "avif", "lossy-avif-png": "png"}
+# the writer's lossy AVIF frames (avif.encode_avif's ``lossy``): 4:2:0
+# under BT.601, 16 x 16 blocks, deblocking and two CDEF strengths
+LOSSY_AVIF = dict(base_q=60, qm=8, block=16, lf=(8, 8, 4, 4), sharpness=0,
+                  cdef_damping=4, cdef=[(2, 1, 1, 0), (4, 2, 2, 1)])
 
 
 def ycbcr_samples(bgr: np.ndarray) -> np.ndarray:
@@ -186,7 +191,9 @@ def write_frame(path, image, kind: str) -> str:
     12 bits shifted up by 4); colour as ``avif`` (lossless AVIF:
     ``avif.encode_avif``), depth as ``12bit-avif`` (those top 12 bits as a
     12-bit gray lossless AVIF) or ``12bit-avif-png`` (the same values,
-    unshifted, as a 16-bit PNG)."""
+    unshifted, as a 16-bit PNG); colour as ``lossy-avif`` (the writer's
+    lossy 4:2:0 AVIF, :data:`LOSSY_AVIF`) or ``lossy-avif-png``, the PNG of
+    what that AVIF reads back as."""
     path = f"{path}.{FRAME_EXT[kind]}" if kind in FRAME_EXT else path
     if kind == "png":
         data = encode_png(image)
@@ -227,6 +234,10 @@ def write_frame(path, image, kind: str) -> str:
             "12bit-tiff" else encode_png(top << 4)
     elif kind == "avif":
         data = avif.encode_avif(image)
+    elif kind in ("lossy-avif", "lossy-avif-png"):
+        data = avif.encode_avif(image, lossy=LOSSY_AVIF)
+        if kind == "lossy-avif-png":
+            data = encode_png(avif.decode_avif(data))
     elif kind in ("12bit-avif", "12bit-avif-png"):
         top = np.minimum(image >> 4, 4095).astype(np.uint16)
         data = avif.encode_avif(top, 12) if kind == "12bit-avif" else \

@@ -70,9 +70,10 @@ The formats, their decoders and what each reads:
   definitions, 8- to 16-bit components (and wider, shifted to 8 bits in
   colour), the sRGB, gray and sYCC colour spaces;
 - AVIF (``data/avif.py``; the AV1 stream in C, ``csrc/host/
-  av1_decode.c``): lossless still images, 8 to 12 bits, 4:4:4 colour
-  under the identity matrix and 4:0:0 gray, every intra tool libaom's
-  lossless key frames use, tiles, alpha items (decoded, dropped).
+  av1_decode.c``): still images, lossless and lossy, 8 to 12 bits, 4:4:4
+  colour under the identity matrix, 4:4:4 and 4:2:0 under BT.601 full
+  range and 4:0:0 gray, every intra tool and transform of libaom's key
+  frames, deblocking and CDEF, tiles, alpha items (decoded, dropped).
 
 PNG (``eXIf``) and WebP (``EXIF``) files are flipped and transposed by
 their EXIF orientation after the gray or depth conversion, in both read
@@ -83,9 +84,9 @@ where each decoder decides it (the C decoders, ``tiff.py``, ``webp.py``,
 ...), so a file reached by any path gets the same class.  A format this
 OpenCV build reads and the port does not yet read raises
 ``NotImplementedError`` naming it: within the formats above what each
-decoder lists (AVIF: lossy AV1, subsampled or non-identity colour,
-limited-range colour, frames libavif scales to their item's size,
-grids, sequences; TIFF's separate colour planes of 12 or 16 bits read to
+decoder lists (AVIF: loop restoration, superres, segmentation, film
+grain, 4:2:2 or other-matrix colour, limited-range colour, frames
+libavif scales to their item's size, grids, sequences; TIFF's separate colour planes of 12 or 16 bits read to
 gray and an 8-bit AV1 frame under a deeper AVIF av1C read with
 anydepth, which OpenCV reads partly from memory it never wrote).
 The encoders

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Carry libaom's AV1 tables out of OpenCV's own copy of libaom into the
 port's host C, as ``lgu_slam_tpu_torch/csrc/host/av1_tables.h``: the tables
-the lossless AV1 intra decoder (``av1_decode.c``) and the fixture writer
+the AV1 intra decoder (``av1_decode.c``) and the fixture writer
 (``av1_encode.c``) read.
 
     python scripts/extract_av1_tables_torch.py [--check]
@@ -18,11 +18,13 @@ counts its adaptations.  The header holds every CDF in the form of the AV1
 specification, which ``av1_decode.c`` decodes and adapts: the cumulative
 counts of symbols 0 .. N-1, increasing, the last 32768, then the counter
 slot (0).  The few CDFs libaom builds into its code instead of a named table
-(two-symbol ones, CfL, filter intra, palette modes and sizes, angle deltas)
-are the specification's default tables, written below; each one of three
-symbols or more is checked against libaom's bytes, where it is stored
-inverted.  The scan is the specification's (row-major positions; libaom
-stores the transpose).
+(two-symbol ones, CfL, filter intra, palette modes and sizes, angle deltas,
+tx_depth, delta q / lf) are the specification's default tables, written
+below; each one of three symbols or more is checked against libaom's
+bytes, where it is stored inverted.  The scans are the specification's
+(row-major positions; libaom stores coefficients column by column), and
+so is the rule of the 2-D coefficient context offsets, checked against
+libaom's ``av1_nz_map_ctx_offset_*``.
 
 ``--check`` compares the committed header with what the library gives and
 exits 1 where they differ.  Needs cv2's wheel (the card machine has none:
@@ -60,6 +62,13 @@ CDFS = [
     ("av1_default_coeff_base_multi_cdfs", "coeff_base_cdf",
      (4, 5, 2, 42, 5)),
     ("av1_default_coeff_lps_multi_cdfs", "coeff_br_cdf", (4, 5, 2, 21, 5)),
+    ("av1_default_eob_multi32_cdfs", "eob_pt32_cdf", (4, 2, 2, 7)),
+    ("av1_default_eob_multi64_cdfs", "eob_pt64_cdf", (4, 2, 2, 8)),
+    ("av1_default_eob_multi128_cdfs", "eob_pt128_cdf", (4, 2, 2, 9)),
+    ("av1_default_eob_multi256_cdfs", "eob_pt256_cdf", (4, 2, 2, 10)),
+    ("av1_default_eob_multi512_cdfs", "eob_pt512_cdf", (4, 2, 2, 11)),
+    ("av1_default_eob_multi1024_cdfs", "eob_pt1024_cdf", (4, 2, 2, 12)),
+    ("default_intra_ext_tx_cdf", "intra_ext_tx_cdf", (3, 4, 13, 17)),
 ]
 # the number of symbols of each CDF row where it is not the last axis less
 # one: the partition CDFs of 8 x 8 blocks have 4, of 128 x 128 blocks 8;
@@ -72,15 +81,27 @@ PLAIN = [
     ("mode_to_angle_map", "mode_to_angle", "u1", "uint8_t", (13,)),
     ("av1_palette_color_index_context_lookup", "palette_color_context",
      "<i4", "int", (9,)),
-    ("av1_nz_map_ctx_offset_4x4", "nz_map_ctx_offset_4x4", "i1", "int8_t",
-     (16,)),
     ("dc_qlookup_QTX", "dc_qlookup", "<i2", "int16_t", (256,)),
     ("dc_qlookup_10_QTX", "dc_qlookup_10", "<i2", "int16_t", (256,)),
     ("dc_qlookup_12_QTX", "dc_qlookup_12", "<i2", "int16_t", (256,)),
     ("ac_qlookup_QTX", "ac_qlookup", "<i2", "int16_t", (256,)),
     ("ac_qlookup_10_QTX", "ac_qlookup_10", "<i2", "int16_t", (256,)),
     ("ac_qlookup_12_QTX", "ac_qlookup_12", "<i2", "int16_t", (256,)),
+    ("av1_ext_tx_inv", "ext_tx_inv", "<i4", "int8_t", (6, 16)),
+    ("av1_ext_tx_used", "ext_tx_used", "<i4", "int8_t", (6, 16)),
+    ("_intra_mode_to_tx_type.1", "mode_to_txfm", "u1", "uint8_t", (13,)),
+    ("av1_sinpi_arr_data", "sinpi_arr", "<i4", "int32_t", (4, 5)),
+    ("av1_cospi_arr_data", "cospi_arr", "<i4", "int32_t", (4, 64)),
+    ("cdef_pri_taps", "cdef_pri_taps", "<i4", "int", (2, 2)),
+    ("cdef_sec_taps", "cdef_sec_taps", "<i4", "int", (2,)),
+    ("av1_sgr_params", "sgr_params", "<i4", "int", (16, 4)),
+    ("iwt_matrix_ref", "qm_iwt", "u1", "uint8_t", (15, 2, 3344)),
 ]
+# the transform sizes whose scans libaom stores (the 64-point sizes use
+# those of 32 x 32, 16 x 32 and 32 x 16), in the order of scan_offset
+SCAN_SIZES = [(4, 4), (8, 8), (16, 16), (32, 32), (4, 8), (8, 4), (8, 16),
+              (16, 8), (16, 32), (32, 16), (4, 16), (16, 4), (8, 32),
+              (32, 8)]
 
 # the specification's default CDFs that libaom keeps in its code (values of
 # symbols 0 .. N-2; the last, 32768, and the counter are added)
@@ -136,8 +157,19 @@ SPEC_CDFS = {
         [2464, 8451, 12861, 21632, 25525, 28555],
         [1269, 5435, 10433, 18963, 21700, 25865]],
 }
+SPEC_CDFS.update({
+    # tx_depth: 8 x 8 blocks (2 symbols), then the 16, 32 and 64 classes
+    "tx_8x8_cdf": [[19968], [19968], [24320]],
+    "tx_cdf": [[12272, 30172], [12272, 30172], [18677, 30848],
+               [12986, 15180], [12986, 15180], [24302, 25602],
+               [5782, 11475], [5782, 11475], [16803, 22759]],
+    "delta_q_cdf": [[28160, 32120, 32677]],
+    "delta_lf_cdf": [[28160, 32120, 32677]],
+    "delta_lf_multi_cdf": [[28160, 32120, 32677]] * 4,
+})
 SPEC_SHAPES = {"palette_y_mode_cdf": (7, 3), "cfl_sign_cdf": (),
-               "filter_intra_mode_cdf": (), "intrabc_cdf": ()}
+               "filter_intra_mode_cdf": (), "intrabc_cdf": (),
+               "tx_cdf": (3, 3), "delta_q_cdf": (), "delta_lf_cdf": ()}
 
 # default_nmv_context (libaom's nmv_context): the joints' CDF row, then for
 # the vertical and the horizontal component the rows of classes, class0_fp
@@ -147,7 +179,8 @@ MV_ROWS = [5] + MV_COMPONENT * 2
 
 LIBAOM_NOTICE = """\
  * The tables are libaom's (av1/common/entropymode.c, entropy.c,
- * token_cdfs.h, scan.c, reconintra.c, quant_common.c):
+ * token_cdfs.h, scan.c, reconintra.c, quant_common.c, txb_common.c,
+ * av1_txfm.c, cdef_block.c, restoration.c):
  *
  * Copyright (c) 2016, Alliance for Open Media. All rights reserved.
  *
@@ -273,6 +306,28 @@ def check_spec_cdfs(lib: bytes) -> None:
                                      "libaom")
 
 
+def check_nz_map_offsets(syms: dict) -> None:
+    """The 2-D base-level context offsets of av1_core.h's
+    ``coeff_base_ctx`` (a rule of the position and the transform's shape,
+    taken before a 64-point side is cut to 32) must equal libaom's
+    ``av1_nz_map_ctx_offset_*`` tables, read column by column."""
+    for name, copies in syms.items():
+        if not name.startswith("av1_nz_map_ctx_offset_"):
+            continue
+        w, h = map(int, name.rsplit("_", 1)[1].split("x"))
+        t = np.frombuffer(copies[0], "i1")
+        # 32 x 64 and 64 x 32: a 32 x 32 grid, offsets of their own shape
+        gw, gh = min(w, 32), min(h, 32)
+        for r in range(gh):
+            for c in range(gw):
+                want = 0 if r == c == 0 else 11 if w < h and r < 2 else \
+                    16 if w > h and c < 2 else 1 if r + c < 2 else \
+                    6 if r + c < 4 else 21
+                if t[c * gh + r] != want:
+                    raise SystemExit(f"{name}: the offset rule fails at "
+                                     f"({r}, {c})")
+
+
 def render() -> dict:
     """``{path: text}`` of the header, from cv2's libaom."""
     with open(library_path(), "rb") as f:
@@ -299,23 +354,49 @@ def render() -> dict:
         rows.append(spec_form(mv[pos:pos + n][None])[0])
         pos += n
     parts.append(_array("uint16_t", "mv_cdf", np.concatenate(rows)))
-    libscan = np.frombuffer(table(syms, "default_scan_4x4", 32), "<i2")
-    scan = (libscan % 4) * 4 + libscan // 4  # the transpose: row-major
-    parts.append(_array("int16_t", "default_scan_4x4", scan))
+    # libaom keeps coefficients column by column (index col * H + row):
+    # the header holds row-major positions, row * W + col
+    for kind in ("default", "mrow", "mcol"):
+        scans = []
+        for w, h in SCAN_SIZES:
+            lib_scan = np.frombuffer(table(syms, f"{kind}_scan_{w}x{h}",
+                                           2 * w * h), "<i2")
+            scans.append((lib_scan % h) * w + lib_scan // h)
+        parts.append(_array("int16_t", f"{kind}_scan",
+                            np.concatenate(scans)))
+    check_nz_map_offsets(syms)
+    # cdef_directions: libaom's offsets in a buffer of stride 144 -> the
+    # specification's (row, column) steps
+    pad = np.frombuffer(table(syms, "cdef_directions_padded", 96), "<i4")
+    steps = pad.reshape(12, 2)[2:10]
+    rows = (steps + 72) // 144
+    dirs = np.stack([rows, steps - rows * 144], -1)
+    parts.append(_array("int8_t", "cdef_directions", dirs))
+    for other in ("_intra_mode_to_tx_type.9", "_intra_mode_to_tx_type.16"):
+        if set(syms[other]) != set(syms["_intra_mode_to_tx_type.1"]):
+            raise SystemExit("the copies of intra_mode_to_tx_type differ")
     body = "\n".join(parts)
     text = f"""/* libaom's tables of the AV1 intra decoder, for av1_decode.c and
- * av1_encode.c (lossless intra frames: 4 x 4 Walsh-Hadamard blocks).
+ * av1_encode.c.
  *
  * Every *_cdf table is in the form of the AV1 specification: for each
  * context, the cumulative count (out of 32768) of symbols 0 .. N-1,
  * increasing, the last 32768, then at index N one slot that counts the
  * symbol's adaptations (0 here); a row with fewer symbols than the table's
  * width (8 x 8 and 128 x 128 partitions, palettes of fewer than 8 colours,
- * uv modes without CfL) holds 32768 past its counter.  libaom stores them inverted (32768 -
- * cdf); the coefficient CDFs are indexed [q context][transform size]
- * [plane type][context] as libaom indexes them (lossless: q context 0,
- * TX_4X4).  default_scan_4x4 holds row-major positions, the transpose of
- * libaom's.  sm_weights holds the weights of sizes 4, 8, 16, 32 and 64
+ * uv modes without CfL, intra transform sets of fewer types) holds 32768
+ * past its counter.  libaom stores them inverted (32768 - cdf); the
+ * coefficient CDFs are indexed [q context][transform size][plane type]
+ * [context] as libaom indexes them (the eob CDFs [q context][plane type]
+ * [context]).  default_scan, mrow_scan and mcol_scan hold row-major
+ * positions, libaom's column-major ones turned, for the transform sizes
+ * up to 32 x 32 in the order of av1_core.h's scan_offset (64-point sizes
+ * use the 32-point scans); qm_iwt holds libaom's inverse quantiser
+ * matrices (levels 0-14, luma and chroma) in libaom's column-major order
+ * at the same offsets.  cospi_arr and sinpi_arr are libaom's for cos_bit
+ * 10-13 (row 2: 12 bits); cdef_directions the (row, column) steps of
+ * libaom's offsets; sgr_params libaom's self-guided restoration sets
+ * (r[2], s[2]), which no code reads yet (loop restoration is refused).  sm_weights holds the weights of sizes 4, 8, 16, 32 and 64
  * (size n from offset n - 4).  mv_cdf is libaom's default_nmv_context,
  * the CDFs of intra block copy vectors: at 0 the joints (4 symbols), then
  * for the vertical (at 5) and the horizontal component (at 74): classes

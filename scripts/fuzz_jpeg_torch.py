@@ -677,7 +677,7 @@ int main(int argc, char **argv)
         long n;
         uint8_t *base = load(argv[f], &n);
         FOR_EACH_INPUT(base, n, mutations, {
-            int32_t info[12];
+            int32_t info[15];
             int st = av1_info(d, m, info, err, sizeof err);
             int planes = info[3] ? 1 : 3;
             if (!st && (int64_t)info[0] * info[1] > (1 << 20))
@@ -705,14 +705,17 @@ int main(int argc, char **argv)
 
 def av1_seeds(rng) -> list:
     """The AV1 streams of the committed AVIF files of ``tests/data/avif``
-    (every av01 item, alpha included) and of the port's writer (colour and
-    gray, 8 / 10 / 12 bits, 24 x 40 and 17 x 9)."""
+    (every av01 item, alpha included; the 480 x 640 frames left out: each
+    of their truncations decodes for a tenth of a second) and of the
+    port's writer: lossless colour and gray, 8 / 10 / 12 bits, 24 x 40 and
+    17 x 9, lossless 4:2:0, and lossy 4:2:0 at 8 and 10 bits and gray with
+    quantiser matrices, deblocking and CDEF."""
     from lgu_slam_tpu_torch.data import avif
 
     folder = os.path.join(REPO, "tests", "data", "avif")
     out = []
     for name in sorted(os.listdir(folder)):
-        if not name.endswith(".avif"):
+        if not name.endswith(".avif") or "480x640" in name:
             continue
         with open(os.path.join(folder, name), "rb") as fh:
             data = fh.read()
@@ -727,6 +730,18 @@ def av1_seeds(rng) -> list:
         planes = rng.integers(0, 1 << depth, shape).astype(np.uint16)
         planes[:, :8] = planes[:, :1]  # flat rows: predictions that hit
         out.append(avif.encode_av1(planes, depth, k))
+    img = np.cumsum(rng.integers(-6, 7, (24, 40, 3)), 1) + 128
+    img = img.clip(0, 255).astype(np.uint16)
+    lossy = [dict(base_q=90, qm=6, block=8, lf=(12, 9, 4, 3), sharpness=2,
+                  cdef_damping=4, cdef=[(3, 1, 2, 0), (6, 4, 1, 1)]),
+             dict(base_q=200, block=16, lf=(40, 40, 20, 20), cdef_damping=6,
+                  cdef=[(15, 4, 15, 4)])]
+    for depth in (8, 10):
+        planes = avif.yuv420(img << (depth - 8), depth)
+        out.append(avif.encode_av1(planes, depth, depth, True))
+        for k, opts in enumerate(lossy):
+            out.append(avif.encode_av1(planes, depth, k, True, opts))
+    out.append(avif.encode_av1([img[..., 1]], 8, 3, False, lossy[0]))
     return out
 
 

@@ -28,13 +28,23 @@ named otherwise):
   writer (``avif.encode_avif``), each read back by ``cv2.imread`` equal
   to its input before it is kept;
 
+lossy files, read bit for bit (4:2:0 under BT.601 unless named
+otherwise):
+
+- ``cv2_lossy.avif``: ``cv2.imwrite`` at quality 90;
+- ``cv2_lossy_q95_480x640.avif``, ``cv2_lossy_q50_480x640.avif``,
+  ``cv2_lossy_c10_q80_480x640.avif``: a whole rendered 480 x 640 frame at
+  OpenCV's default quality (95), at 50, and 10-bit at 80, which
+  ``chip_smoke.py`` phase 20 decodes and times;
+- ``pillow_c444.avif``: Pillow's lossless 4:4:4 colour under BT.601;
+
 refused as ``cv2.imread`` refuses them (None: null hashes):
 ``port_damaged.avif`` (three bytes of the tile data flipped),
 ``port_cut.avif`` (cut inside its tile); and read by OpenCV but queued for
 a later reader (``NotImplementedError`` naming the feature, the ``queued``
-key): ``cv2_lossy.avif`` (``cv2.imwrite``'s default), ``pillow_c444.avif``
-(Pillow's 4:4:4 colour under the BT.601 matrix), ``pillow_avis.avif`` (an
-image sequence).
+key): ``cv2_lossy_lr_s0.avif`` (``cv2.imwrite`` at speed 0, whose frame
+uses loop restoration), ``pillow_c422.avif`` (Pillow's 4:2:2),
+``pillow_avis.avif`` (an image sequence).
 
 Beside them ``hashes.json``: the SHA-256 of ``cv2.imread``'s array in both
 read modes (colour, ``IMREAD_ANYDEPTH``), its shape and dtype, which
@@ -65,6 +75,7 @@ from lgu_slam_tpu_torch.data.fixtures import (  # noqa: E402
 OUT = os.path.join(REPO, "tests", "data", "avif")
 LIMIT = 128 * 1024
 TOTAL = 640 * 1024
+LOSSY_480X640 = 256 * 1024  # the three 480 x 640 frames together
 
 
 def array_hash(a) -> dict:
@@ -175,14 +186,40 @@ def files() -> dict:
         damaged[-k] ^= 0x24
     out["port_damaged.avif"] = (bytes(damaged), None)
     out["port_cut.avif"] = (out["port_c8.avif"][0][:-700], None)
-    out["cv2_lossy.avif"] = (cv2_file(img, quality=90), "lossy AV1")
+    out["cv2_lossy.avif"] = (cv2_file(img, quality=90), None)
     out["pillow_c444.avif"] = (pillow_file(img[..., ::-1].copy(), quality=100,
-                                           subsampling="4:4:4"),
-                               "YUV to RGB")
+                                           subsampling="4:4:4"), None)
+    frame = frame_480x640()
+    out["cv2_lossy_q95_480x640.avif"] = (cv2_file(frame, quality=95), None)
+    out["cv2_lossy_q50_480x640.avif"] = (cv2_file(frame, quality=50), None)
+    out["cv2_lossy_c10_q80_480x640.avif"] = (cv2_file(
+        frame.astype(np.uint16) << 2, quality=80, depth=10), None)
+    out["cv2_lossy_lr_s0.avif"] = (cv2_file(scene(np.random.default_rng(50),
+                                                  48, 64), quality=50,
+                                            speed=0), "loop restoration")
+    out["pillow_c422.avif"] = (pillow_file(img[..., ::-1].copy(), quality=60,
+                                           subsampling="4:2:2"),
+                               "4:2:2 YUV to RGB")
     out["pillow_avis.avif"] = (pillow_file(img[..., ::-1].copy(), frames=[
         255 - img[..., ::-1]], quality=100, subsampling="4:4:4"),
         "image sequence")
     return out
+
+
+def scene(rng, H: int, W: int) -> np.ndarray:
+    """Sines, a checker and noise: libaom restores this one's loop at
+    speed 0."""
+    y, x = np.mgrid[0:H, 0:W]
+    base = np.stack([np.sin(x / (5.0 + c)) * 60 + np.cos(y / (4.0 + c)) * 50
+                     + 120 + ((x // 9 + y // 7) % 2) * 30 for c in range(3)],
+                    -1)
+    return np.clip(base + rng.normal(0, 4, base.shape), 0,
+                   255).astype(np.uint8)
+
+
+def frame_480x640() -> np.ndarray:
+    """The rendered frame of the 480 x 640 lossy fixtures."""
+    return render_sequence(20, 1, 480, 640, TUM_FR1, 0.02, 0.004)[0][0]
 
 
 def check_writer(name: str, path: str, want) -> None:
@@ -216,6 +253,11 @@ def main(argv=None) -> dict:
                                                     cv2.IMREAD_ANYDEPTH)))
         if queued:
             assert entry["color"] is not None, name
+            try:
+                avif.decode_avif(data)
+                raise AssertionError(f"{name} is read")
+            except NotImplementedError as e:
+                assert queued in str(e), (name, str(e))
             entry["queued"] = queued
         hashes[name] = entry
     images = render_sequence(19, 1, 96, 128, TUM_FR1, 0.02, 0.004)[:2]
@@ -229,6 +271,8 @@ def main(argv=None) -> dict:
     for name in ("port_damaged.avif", "port_cut.avif"):
         assert hashes[name]["color"] is None, name
     assert sum(len(d) for d, _ in made.values()) <= TOTAL
+    assert sum(len(d) for n, (d, _) in made.items()
+               if "480x640" in n) <= LOSSY_480X640
     with open(os.path.join(args.out, "hashes.json"), "w") as fh:
         json.dump(hashes, fh, indent=1, sort_keys=True)
         fh.write("\n")

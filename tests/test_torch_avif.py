@@ -1,11 +1,11 @@
-"""The port's AVIF reader (lgu_slam_tpu_torch/data/avif.py over the lossless
-AV1 intra decoder csrc/host/av1_decode.c) against OpenCV's (libavif 1.4.2
-over libaom): lossless files of libaom at every speed, 8 to 12 bits, colour
-and gray, odd sizes, screen content (palettes, intra block copy), tiles,
+"""The port's AVIF reader (lgu_slam_tpu_torch/data/avif.py over the AV1
+intra decoder csrc/host/av1_decode.c) against OpenCV's (libavif 1.4.2 over
+libaom): lossless files of libaom at every speed, 8 to 12 bits, colour and
+gray, odd sizes, screen content (palettes, intra block copy), tiles,
 alpha, Pillow's and the port's writer's files read bit for bit in both read
 modes; cut and damaged files raise ValueError where cv2 returns None; what
 OpenCV reads and the port does not yet read raises NotImplementedError
-naming it."""
+naming it.  Lossy files: tests/test_torch_avif_lossy.py."""
 
 import hashlib
 import json
@@ -47,13 +47,15 @@ def test_committed_fixtures_decode_to_cv2_hashes():
     lossless files at speeds 0-9, 8 / 10 / 12-bit colour and gray, odd
     sizes, screen content (palettes, intra block copy), alpha, Pillow's
     4:0:0 gray with and without tiles, the port's writer's files, a damaged
-    and a cut file: the port's arrays hash as cv2.imread's do in both read
-    modes (the hashes written beside them, which chip_smoke.py phase 19
-    checks on machines without OpenCV), or both refuse (null: ValueError);
-    the queued files (lossy AV1, 4:4:4 under BT.601, an avis sequence) are
+    and a cut file, cv2's lossy files (48 x 64 at quality 90, 480 x 640
+    frames at 95, 50 and 10-bit 80) and Pillow's 4:4:4 under BT.601: the
+    port's arrays hash as cv2.imread's do in both read modes (the hashes
+    written beside them, which chip_smoke.py phases 19 and 20 check on
+    machines without OpenCV), or both refuse (null: ValueError); the queued
+    files (a frame using loop restoration, 4:2:2, an avis sequence) are
     read by cv2 and raise NotImplementedError naming their feature."""
     hashes = json.load(open(os.path.join(DATA, "hashes.json")))
-    assert len(hashes) == 29
+    assert len(hashes) == 34
     for name, want in hashes.items():
         path = os.path.join(DATA, name)
         for mode, flag in (("color", cv2.IMREAD_COLOR),
@@ -190,7 +192,8 @@ def test_cut_and_damaged_files(tmp_path):
 # what the port refuses with NotImplementedError where cv2.imread reads
 # (or fails on what the port does not decode): each is queued in ROADMAP.md
 # A item 1, but the last, where OpenCV reads uninitialised memory
-QUEUED = ("lossy AV1", "subsampled AV1 chroma", "AV1 segmentation",
+QUEUED = ("loop restoration", "4:2:2 YUV to RGB", "lossy AV1 intra block",
+          "AV1 segmentation",
           "AV1 superres", "AV1 film grain", "AV1 show_existing_frame",
           "an AV1 inter frame", "more than one AV1 frame",
           "a frame of another size than ispe's", "a frame larger than its",
@@ -210,7 +213,6 @@ def _damage_base(kind):
 # kind: (rng seed, {(feature, cv2 reads): reads}) as measured with OpenCV
 # 5.0.0 (libavif 1.4.2, libaom 3.14.1)
 DAMAGE = {"alpha": (9, {("a frame of another size than ispe's", True): 2,
-                        ("lossy AV1", False): 2,
                         ("YUV to RGB under matrix", True): 2}),
           "gray12": (10, {}),
           "cv2": (11, {("a frame of another size than ispe's", True): 6})}
@@ -346,22 +348,34 @@ def test_transforms_are_not_applied(tmp_path):
 
 
 def test_queued_files_raise_not_implemented(tmp_path):
-    """Files OpenCV reads and this reader does not yet: lossy AV1
-    (cv2.imwrite's default quality), 4:2:0 lossless (Pillow's default
-    subsampling), 4:4:4 under BT.601 (Pillow), an avis sequence (Pillow,
-    two frames), a hand-made 1 x 2 grid of the writer's 64 x 64 images
-    (MIAF's least tile size): NotImplementedError naming the feature.
-    Limited-range gray (Pillow) is read: OpenCV copies a 4:0:0 image's Y
-    as stored, whatever its range."""
+    """Files OpenCV reads and this reader does not yet (slice 21), one for
+    each feature an encoder here can write: a cv2.imwrite frame at speed 0
+    that uses loop restoration, film grain (Pillow, libaom's grain test
+    vectors), 4:2:2 (Pillow), colour under BT.709 (the writer's file, its
+    colr changed) and limited-range colour (Pillow), an avis sequence
+    (Pillow, two frames), a hand-made 1 x 2 grid of the writer's 64 x 64
+    images (MIAF's least tile size): NotImplementedError naming the
+    feature.  Limited-range gray (Pillow) is read: OpenCV copies a 4:0:0
+    image's Y as stored, whatever its range."""
     from PIL import Image
 
     img = _scene(np.random.default_rng(2), 40, 56)
     rgb = Image.fromarray(img[..., ::-1].copy())
-    cases = {"lossy AV1": _cv2_avif(tmp_path / "l.avif", img, 80)}
-    rgb.save(tmp_path / "420.avif", quality=100)
-    cases["subsampled AV1 chroma"] = tmp_path / "420.avif"
-    rgb.save(tmp_path / "601.avif", quality=100, subsampling="4:4:4")
-    cases["YUV to RGB under matrix coefficients 6"] = tmp_path / "601.avif"
+    cases = {"loop restoration": _cv2_avif(
+        tmp_path / "r.avif", _scene(np.random.default_rng(50), 48, 64), 50,
+        0)}
+    rgb.save(tmp_path / "g.avif", quality=50,
+             advanced=[("film-grain-test", "1")])
+    cases["AV1 film grain"] = tmp_path / "g.avif"
+    rgb.save(tmp_path / "422.avif", quality=60, subsampling="4:2:2")
+    cases["4:2:2 YUV to RGB"] = tmp_path / "422.avif"
+    bt709 = avif.encode_avif(img, subsampling="4:2:0").replace(
+        b"nclx" + bytes([0, 1, 0, 13, 0, 6]), b"nclx" + bytes([0, 1, 0, 1,
+                                                                0, 1]))
+    (tmp_path / "709.avif").write_bytes(bt709)
+    cases["YUV to RGB under matrix coefficients 1"] = tmp_path / "709.avif"
+    rgb.save(tmp_path / "lc.avif", quality=60, range="limited")
+    cases["limited-range samples"] = tmp_path / "lc.avif"
     Image.fromarray(img[..., 1].copy()).save(
         tmp_path / "lim.avif", quality=100, subsampling="4:0:0",
         range="limited")
@@ -369,6 +383,7 @@ def test_queued_files_raise_not_implemented(tmp_path):
     rgb.save(tmp_path / "s.avif", save_all=True, quality=100,
              append_images=[Image.fromarray(255 - img)])
     cases["image sequence"] = tmp_path / "s.avif"
+    assert len(cases) == 6
     for feature, path in cases.items():
         assert cv2.imread(str(path)) is not None
         for anydepth in (False, True):

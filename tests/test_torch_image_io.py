@@ -126,8 +126,10 @@ def _patch_ihdr(png: bytes, offset: int, value: int) -> bytes:
 
 def test_what_the_port_does_not_read_raises(tmp_path):
     """The format this OpenCV build reads that the port does not read
-    yet (AVIF, written by cv2.imwrite and read back by cv2.imread):
-    NotImplementedError naming the format, whatever the file's extension; a
+    yet (AVIF written by cv2.imwrite at speed 0, whose frame uses loop
+    restoration, read back by cv2.imread; cv2.imwrite's default AVIF reads
+    since lossy AV1 does): NotImplementedError naming the format, whatever
+    the file's extension; a
     signature no decoder of cv2's claims, and an empty file: ValueError
     (cv2 returns None); imwrite writes PNG and JPEG only.  The files the
     port's first decoders refused and now reads (JPEG 2000 as JP2 and as a
@@ -140,10 +142,21 @@ def test_what_the_port_does_not_read_raises(tmp_path):
     read now: tests/test_torch_webp.py, test_torch_gif.py,
     test_torch_hdr_sunras.py, test_torch_jp2.py.)"""
     im = np.random.default_rng(3).integers(0, 256, (64, 64, 3), np.uint8)
+    assert cv2.imwrite(str(tmp_path / "d.avif"), im)
+    assert np.array_equal(image_io.imread(str(tmp_path / "d.avif")),
+                          cv2.imread(str(tmp_path / "d.avif")))
+    y, x = np.mgrid[0:48, 0:64]
+    scene = np.clip(np.stack([
+        np.sin(x / (5.0 + c)) * 60 + np.cos(y / (4.0 + c)) * 50 + 120
+        + ((x // 9 + y // 7) % 2) * 30 for c in range(3)], -1)
+        + np.random.default_rng(50).normal(0, 4, (48, 64, 3)), 0,
+        255).astype(np.uint8)
     formats = {".avif": "AVIF"}
     for ext, name in formats.items():
         other = str(tmp_path / f"a{ext}")
-        assert cv2.imwrite(other, im) and cv2.imread(other) is not None
+        assert cv2.imwrite(other, scene, [cv2.IMWRITE_AVIF_QUALITY, 50,
+                                          cv2.IMWRITE_AVIF_SPEED, 0])
+        assert cv2.imread(other) is not None
         for path in (other, other + ".png"):
             os.replace(other if path != other else other, path)
             with pytest.raises(NotImplementedError, match=name):
@@ -800,8 +813,9 @@ CLASSES = {
                                      "jp2", "jp2_ht", "jp2_ht_97_magref")},
     "jp2_ht_four_passes": ("none", "none"),  # OpenJPEG decodes one HT set
     # cv2 returns memory it never wrote for an alpha PAM; cv2.imwrite's
-    # default AVIF is lossy AV1
-    **{k: ("queued", "queued") for k in ("avif", "pam_alpha", "avif_avis")},
+    # default AVIF is lossy AV1, read since slice 20
+    "avif": ("read", "read"),
+    **{k: ("queued", "queued") for k in ("pam_alpha", "avif_avis")},
     "avif_lossless": ("read", "read"),
     "avif_gray12": ("read", "read"),
     "avif_cut": ("none", "none"),

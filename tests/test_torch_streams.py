@@ -196,20 +196,19 @@ def test_euroc_stream_skips_tiff_cv2_returns_none_for(kind, tmp_path):
 
 
 def test_euroc_stream_raises_on_a_format_it_cannot_read(tmp_path):
-    """A left image stored as AVIF, which cv2.imread reads and the port
-    does not yet: the JAX stream tracks all 4 frames; the port's stream
-    raises NotImplementedError naming the format instead of dropping the
-    frame."""
+    """A left image stored as 4:2:2 AVIF (Pillow's), which cv2.imread
+    reads and the port does not yet: the JAX stream tracks all 4 frames;
+    the port's stream raises NotImplementedError naming the format instead
+    of dropping the frame."""
     import cv2
+    from PIL import Image
 
     root = fixtures.write_euroc_sequence(str(tmp_path / "MH_01_easy"),
                                          n_frames=4)
     left = os.path.join(root, "mav0", "cam0", "data")
     name = os.path.join(left, sorted(os.listdir(left))[1])
-    ok, buf = cv2.imencode(".avif", cv2.imread(name))
-    assert ok
-    with open(name, "wb") as fh:
-        fh.write(buf.tobytes())
+    Image.fromarray(cv2.imread(name)[..., ::-1].copy()).save(
+        name, format="AVIF", quality=60, subsampling="4:2:2")
     assert len(list(jstreams.euroc_stereo_stream(root))) == 4
     with pytest.raises(NotImplementedError, match="AVIF"):
         list(tstreams.euroc_stereo_stream(root))
@@ -476,6 +475,32 @@ def test_tum_stream_exif_oriented_depth_matches_jax(tmp_path):
     items = _held(tstreams.tum_rgbd_stream(root, stride=1),
                   jstreams.tum_rgbd_stream(root, stride=1))
     assert len(items) == 3
+
+
+def test_tum_stream_lossy_avif_matches_jax(tmp_path):
+    """The TUM reader over an fr1 sequence of the port writer's lossy 4:2:0
+    AVIF colour (fixtures.LOSSY_AVIF: quantiser matrix, deblocking, CDEF)
+    and 12-bit lossless AVIF depth: the port's stream equals the JAX one
+    (cv2.imread over libavif and libaom) in frames and timestamps, and the
+    port's own stream over the PNG of what those AVIF frames read back as
+    with the 16-bit PNG depth (chip_smoke.py phase 20's pair)."""
+    name = "rgbd_dataset_freiburg1_desk"
+    root = fixtures.write_tum_sequence(str(tmp_path / "avif" / name),
+                                       n_frames=3, H=60, W=80,
+                                       color="lossy-avif",
+                                       depth="12bit-avif")
+    png = fixtures.write_tum_sequence(str(tmp_path / "png" / name),
+                                      n_frames=3, H=60, W=80,
+                                      color="lossy-avif-png",
+                                      depth="12bit-avif-png")
+    items = _held(tstreams.tum_rgbd_stream(root, stride=1),
+                  jstreams.tum_rgbd_stream(root, stride=1))
+    ref = list(tstreams.tum_rgbd_stream(png, stride=1))
+    assert len(items) == len(ref) == 3
+    for a, b in zip(items, ref):
+        assert a[0] == b[0]
+        for x, y in zip(a[1:], b[1:]):
+            np.testing.assert_array_equal(x, y)
 
 
 def test_tum_stream_avif_matches_jax(tmp_path):
