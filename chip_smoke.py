@@ -286,12 +286,25 @@ Sixteen phases; any failure exits non-zero.
    both streams feed equal frames and depth, ``track()`` makes equal K1
    and K2 launches over them, and the AVIF stream's host ms per fed frame
    against the PNG's; the NotImplementedError of each committed file that
-   holds a feature of a later reader (loop restoration, 4:2:2, a
-   sequence).
+   holds a feature of a later reader (a sequence).
+21. AVIF loop restoration and libavif's other YUV to RGB paths on the card
+   machine's host: the committed 480 x 640 frames of cv2.imwrite at speed
+   2 that restore (quality 30: self-guided luma, Wiener chroma; 60:
+   switchable luma) decoded to the SHA-256 of ``cv2.imread``'s arrays in
+   both modes, with the host's median decode ms and ms inside the
+   restoration filter; a 16-frame TUM fr1 sequence in the writer's lossy
+   4:2:0 AVIF colour with Wiener units on luma and self-guided units on
+   chroma (``fixtures.LR_AVIF``) and 12-bit lossless AVIF depth, each
+   colour frame's AV1 planes equal to the writer's own reconstruction,
+   tracked beside PNG colour of what those frames read back as with 16-bit
+   PNG depth, as in phase 12, with equal K1 and K2 launches in
+   ``track()``; the committed 4:2:2, BT.709 and limited-range files
+   against their hashes; the NotImplementedError of each committed file
+   that holds a feature of slice 22 (a sequence).
 
 Before the last line it prints the tracking, terminate, training, fp32
 tracking, world-size-1, entry-point, 3DGS, JPEG, oracle, the five
-format reports, the scaling report and phases 18, 19 and 20's reports,
+format reports, the scaling report and phases 18 to 21's reports,
 the run's wall time, the
 card's name and power limit, and one JSON line with each kernel's error,
 time, bound and launches.  The last line is ``{"ok": true, "device": {...}}``.
@@ -323,6 +336,7 @@ from lgu_slam_tpu_torch.data import (avif, gif, hdr, jp2, pnm, sunras, tiff,
                                      webp)
 from lgu_slam_tpu_torch.data.fixtures import (
     LOSSY_AVIF,
+    LR_AVIF,
     REPLICA_CAM,
     TUM_FR1,
     gif_cube,
@@ -3634,6 +3648,12 @@ def phase_orientation(root: Path) -> dict:
 
 
 # phase 20's committed frames, which phase 19 leaves to it
+# phase 21's committed files: the 480 x 640 frames that restore the loop,
+# and 4:2:2, BT.709, limited-range and restored 48 x 64 colour
+LR_480X640 = ("cv2_lr_q30_s2_480x640.avif", "cv2_lr_q60_s2_480x640.avif")
+YUV_21 = ("pillow_c422.avif", "port_c420_bt709.avif", "pillow_limited.avif",
+          "cv2_lossy_lr_s0.avif")
+PHASE_21_FILES = LR_480X640 + YUV_21
 LOSSY_480X640 = ("cv2_lossy_q95_480x640.avif", "cv2_lossy_q50_480x640.avif",
                  "cv2_lossy_c10_q80_480x640.avif")
 
@@ -3688,7 +3708,7 @@ def phase_19(dev, kernels: dict) -> dict:
         report["codecs"] = phase_format_codecs(root, formats_19_cases(), 19)
         report["committed_avif"] = phase_committed(
             AVIF_FIXTURES, 19, keep=lambda name: not avif_queued(name) and
-            name not in LOSSY_480X640)
+            name not in LOSSY_480X640 + PHASE_21_FILES)
         queued = {}
         for name, want in json.loads(
                 (AVIF_FIXTURES / "hashes.json").read_text()).items():
@@ -3836,6 +3856,132 @@ def print_phase_20(report: dict) -> None:
           f"reader: {refusals}; {report['seconds']:.0f} s")
 
 
+# -- phase 21: AVIF loop restoration, other YUV to RGB paths ------------
+
+PHASE_21_FRAMES = 16
+
+
+def lr_units(data: bytes) -> tuple:
+    """(unit counts by plane and type, restoration ms) of an AVIF file's
+    colour item, decoded by the host."""
+    box = avif.parse(data)
+    return avif.lr_stats(avif._payload(data, box, box["color"]))
+
+
+def phase_21_restoration() -> dict:
+    """The committed 480 x 640 frames that restore: cv2.imread's hashes in
+    both modes, the host's median decode ms, and the median ms of the
+    decoder's restoration filter (10 decodes each) with the units used."""
+    out = phase_committed(AVIF_FIXTURES, 21,
+                          keep=lambda name: name in LR_480X640)
+    check(len(out) == len(LR_480X640), "phase 21: the committed frames")
+    for name in LR_480X640:
+        data = (AVIF_FIXTURES / name).read_bytes()
+        runs = [lr_units(data) for _ in range(10)]
+        counts = runs[0][0]
+        check(int(counts[:, 1:].sum()) > 0,
+              f"phase 21: {name} uses no restoration unit")
+        out[name]["restoration_ms"] = statistics.median(r[1] for r in runs)
+        out[name]["units"] = counts.tolist()
+    return out
+
+
+def phase_21_writer(seq: Path, seed: int) -> dict:
+    """Each colour frame of the restored AVIF sequence is the writer's file
+    of its rendered frame, its AV1 planes equal the writer's own
+    reconstruction (the decoder's restoration against the writer's), and
+    its luma takes Wiener units, its chroma self-guided ones."""
+    images = render_sequence(seed, PHASE_21_FRAMES, 480, 640, TUM_FR1,
+                             0.02, 0.004)[0]
+    files = sorted((seq / "rgb").iterdir())
+    check(len(files) == PHASE_21_FRAMES, "phase 21: the sequence's frames")
+    t_start = time.perf_counter()
+    sizes, lr_ms = [], []
+    for img, path in zip(images, files):
+        data, rec = avif.encode_avif(img, lossy=LR_AVIF, recon=True)
+        check(path.read_bytes() == data,
+              f"phase 21: {path.name} is not the writer's file")
+        got = avif_planes_of(data)
+        check(len(got) == 3 and all(np.array_equal(a, b) for a, b in
+                                    zip(got, rec)),
+              f"phase 21: {path.name} does not decode to the writer's "
+              "reconstruction")
+        counts, ms = lr_units(data)
+        check(counts[0, 1] > 0 and counts[1, 2] > 0 and counts[2, 2] > 0,
+              f"phase 21: {path.name} units {counts.tolist()}")
+        sizes.append(len(data))
+        lr_ms.append(ms)
+    return dict(frames=len(files), bytes_median=statistics.median(sizes),
+                restoration_ms_median=statistics.median(lr_ms),
+                seconds=time.perf_counter() - t_start)
+
+
+def phase_21(dev, kernels: dict) -> dict:
+    t_start = time.perf_counter()
+    report = dict(restoration=phase_21_restoration())
+    report["yuv"] = phase_committed(AVIF_FIXTURES, 21,
+                                    keep=lambda name: name in YUV_21)
+    check(len(report["yuv"]) == len(YUV_21), "phase 21: the committed "
+          "4:2:2, BT.709 and limited-range files")
+    slice_22 = {}
+    for name, want in json.loads(
+            (AVIF_FIXTURES / "hashes.json").read_text()).items():
+        if not want.get("queued"):
+            continue
+        try:
+            imread(str(AVIF_FIXTURES / name))
+            fail(f"phase 21: {name} read; it is queued")
+        except NotImplementedError as e:
+            check(want["queued"] in str(e), f"phase 21: {name} refused as "
+                  f"{e}")
+            slice_22[name] = str(e).split(": ", 1)[-1]
+    report["slice_22"] = slice_22
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        runs = phase_format_track(
+            dev, kernels, root / "tum", n_frames=PHASE_21_FRAMES,
+            seed=SEED + 31, phase=21,
+            pairs=(("lr-avif", "12bit-avif"),
+                   ("lr-avif-png", "12bit-avif-png")),
+            key="launches_formats_21")
+        report["writer"] = phase_21_writer(
+            root / "tum" / "lr-avif_12bit-avif" /
+            "rgbd_dataset_freiburg1_desk", SEED + 31)
+    avif_run, png_run = runs.values()
+    for name in ("k1_launches_track", "k2_launches_track"):
+        check(avif_run[name] == png_run[name],
+              f"phase 21: {name} {avif_run[name]} (restored AVIF + 12-bit "
+              f"AVIF) != {png_run[name]} (PNG + 16-bit PNG)")
+    report["feed_ratio"] = avif_run["feed_ms"] / png_run["feed_ms"]
+    report["tum"] = runs
+    report["seconds"] = time.perf_counter() - t_start
+    return report
+
+
+def print_phase_21(report: dict) -> None:
+    restored = ", ".join(
+        f"{k} {v['decode_ms']:.2f} ms ({v['restoration_ms']:.2f} in "
+        f"restoration)" for k, v in report["restoration"].items())
+    yuv = ", ".join(f"{k} {v['decode_ms']:.2f} ms" for k, v in
+                    report["yuv"].items())
+    tum = "; ".join(
+        f"{k}: fed {v['feed_ms']:.2f} ms per frame, {v['keyframes']} "
+        f"keyframes, K1 {v['k1_launches']} / K2 {v['k2_launches']} "
+        f"launches (track {v['k1_launches_track']} / "
+        f"{v['k2_launches_track']})" for k, v in report["tum"].items())
+    refusals = "; ".join(f"{k}: {v}" for k, v in report["slice_22"].items())
+    writer = report["writer"]
+    print(f"phase 21: committed 480 x 640 AVIF frames with loop restoration "
+          f"equal to cv2's hashes, host decode {restored}; 4:2:2, BT.709 "
+          f"and limited-range files equal to cv2's hashes: {yuv}; "
+          f"{writer['frames']} restored writer frames decode to its "
+          f"reconstruction ({writer['restoration_ms_median']:.2f} ms in "
+          f"restoration per frame); TUM RGB-D at 384 x 512, equal frames "
+          f"and depth from both streams: {tum}; restored AVIF / PNG feed "
+          f"{report['feed_ratio']:.3f}; refused for slice 22: {refusals}; "
+          f"{report['seconds']:.0f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke run needs an NVIDIA GPU")
@@ -3922,9 +4068,12 @@ def main():
     torch.cuda.empty_cache()
     formats_20 = phase_20(dev, kernels)
     print_phase_20(formats_20)
+    torch.cuda.empty_cache()
+    formats_21 = phase_21(dev, kernels)
+    print_phase_21(formats_21)
     # launches on the main path: K1 bf16 and K2 over track() +
     # terminate(), phase 8's entry points, phase 10's JPEG runs, phases
-    # 12-16's, 18's, 19's and 20's TUM tracks and phase 17's backend
+    # 12-16's and 18-21's TUM tracks and phase 17's backend
     # passes, K2 also over phase 7's sharded backend pass, K1 fp32 operands
     # over phase 6's track()
     for name in ("masked_corr_level0_tc", "fused_pyramid_lookup"):
@@ -3936,7 +4085,7 @@ def main():
             k["launches_formats_14"] + k["launches_formats_15"] + \
             k["launches_formats_16"] + k["launches_scaling_17"] + \
             k["launches_formats_18"] + k["launches_formats_19"] + \
-            k["launches_formats_20"]
+            k["launches_formats_20"] + k["launches_formats_21"]
     k = kernels["masked_corr_level0_tf32"]
     k["launches"] = k["launches_track_fp32"]
     for k in kernels.values():
@@ -3961,6 +4110,7 @@ def main():
     print(json.dumps({"formats_18": formats_18}))
     print(json.dumps({"formats_19": formats_19}))
     print(json.dumps({"formats_20": formats_20}))
+    print(json.dumps({"formats_21": formats_21}))
     print(json.dumps({"seconds": seconds}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": list(kernels.values())}))

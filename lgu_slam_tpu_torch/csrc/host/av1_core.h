@@ -10,14 +10,17 @@
  * and upsampling, CfL, palette; 7.12-7.13: dequantisation with quantiser
  * matrices and delta q, the inverse Walsh-Hadamard transform of lossless
  * blocks and every DCT / ADST / identity size of lossy ones, clamped
- * where libaom clamps; 7.14-7.15: deblocking and CDEF) over 16-bit planes
- * of MiCols * 4 x MiRows * 4 samples (and room for transform blocks that
- * reach past them), chroma at 4:4:4, 4:2:2 or 4:2:0.
+ * where libaom clamps; 7.14-7.15: deblocking and CDEF; 7.17: loop
+ * restoration, the units' coefficients read with each superblock
+ * (5.11.57-58), the Wiener and self-guided filters as libaom's
+ * restoration.c computes them) over 16-bit planes of MiCols * 4 x
+ * MiRows * 4 samples (and room for transform blocks that reach past
+ * them), chroma at 4:4:4, 4:2:2 or 4:2:0.
  *
  * What an intra frame can hold and this file does not read raises
  * through av1_fail(ERR_NOTIMPL, ...): intra block copy in a lossy frame
- * (segmentation, loop restoration, superres and film grain are refused
- * by the frame header).  Errors unwind with longjmp to the entry point,
+ * (segmentation, superres and film grain are refused by the frame
+ * header).  Errors unwind with longjmp to the entry point,
  * which frees what the frame allocated.
  */
 #ifndef AV1_CORE_H
@@ -103,6 +106,9 @@ typedef struct {
     uint16_t delta_lf[5];
     uint16_t delta_lf_multi[4][5];
     uint16_t mv[143];
+    uint16_t switchable_restore[4];
+    uint16_t wiener_restore[3];
+    uint16_t sgrproj_restore[3];
 } Cdfs;
 
 static void cdfs_init(Cdfs *c, int qctx)
@@ -144,6 +150,9 @@ static void cdfs_init(Cdfs *c, int qctx)
     CP(delta_lf, delta_lf_cdf);
     CP(delta_lf_multi, delta_lf_multi_cdf);
     CP(mv, mv_cdf);
+    CP(switchable_restore, switchable_restore_cdf);
+    CP(wiener_restore, wiener_restore_cdf);
+    CP(sgrproj_restore, sgrproj_restore_cdf);
 #undef CP
 }
 
@@ -341,6 +350,16 @@ typedef struct {
     int cfl_signs, cfl_u, cfl_v, skip;
 } Choice;
 
+/* FrameRestorationType and a unit's restoration_type */
+enum { RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
+
+/* one loop restoration unit: its type, the Wiener taps 0-2 of each pass
+ * (0 vertical, 1 horizontal; tap 0 is 0 for chroma), the self-guided set
+ * and its projection xqd */
+typedef struct {
+    int type, wiener[2][3], sgr_set, xqd[2];
+} LrUnit;
+
 struct Av1 {
     jmp_buf jb;
     char *err;
@@ -363,6 +382,10 @@ struct Av1 {
     int delta_lf_multi;
     int lf_level[4], lf_sharpness, lf_delta_enabled, lf_ref_delta_intra;
     int cdef_damping, cdef_bits, cdef_pri[2][8], cdef_sec[2][8];
+    /* loop restoration: FrameRestorationType, LoopRestorationSize and the
+     * unit grid of each plane */
+    int lr_type[3], lr_unit_shift, lr_uv_shift, lr_size[3];
+    int lr_rows[3], lr_cols[3];
     int tile_cols, tile_rows, tile_cols_log2, tile_rows_log2;
     int col_starts[MAX_TILES + 1], row_starts[MAX_TILES + 1];
     int tile_size_bytes, context_update_tile_id;
@@ -381,6 +404,14 @@ struct Av1 {
     /* per 64 x 64 unit: the CDEF strength index, -1 unread */
     int8_t *cdef_idx;
     int cdef_cols;
+    /* per restoration unit of each plane; the references of the tile */
+    LrUnit *lr_units[3];
+    int ref_wiener[3][2][3], ref_xqd[3][2];
+    /* the deblocked planes before CDEF (restoration reads them at stripe
+     * edges), and restoration's stripe buffer */
+    uint16_t *pre_cdef[3];
+    int32_t *lr_buf;
+    double lr_ms; /* time in lr_frame, where the includer sets LR_CLOCK */
     uint16_t *pal_colors[2];
     int16_t *mvs; /* intra block copy vectors (row, col), 1/8 sample */
     /* contexts */
@@ -407,6 +438,8 @@ struct Av1 {
     uint32_t enc_seed;
     int enc_block_log2;
     Choice enc_choice;
+    const int32_t *enc_lr; /* per plane: the count, then the units */
+    LrUnit enc_unit;
 };
 
 static void av1_fail(Av1 *f, int code, const char *fmt, ...)
@@ -2045,6 +2078,7 @@ static void palette_tokens(Av1 *f)
 static Choice *enc_choice(Av1 *f);
 static int enc_partition(Av1 *f, int r, int c, int bsize);
 static int enc_cdef(Av1 *f, int r, int c);
+static const LrUnit *enc_lr_unit(Av1 *f, int plane, int row, int col);
 
 /* -- intra block copy (specification 7.10.2, 5.11.26, 7.11.3) ----------- */
 
@@ -2647,6 +2681,122 @@ static void clear_block_decoded(Av1 *f, int r, int c, int sb4)
     }
 }
 
+/* -- loop restoration coefficients (specification 5.11.57-58) ------------ */
+
+/* count_units_in_frame */
+static int lr_count(int unit, int size)
+{
+    int n = (size + (unit >> 1)) / unit;
+    return n > 1 ? n : 1;
+}
+
+/* decode_subexp_bool of numSyms symbols; in a writer the value v */
+static int subexp_bool(Av1 *f, int num, int k, int v)
+{
+    int i = 0, mk = 0;
+    for (;;) {
+        int b2 = i ? k + i - 1 : k, a = 1 << b2;
+        if (num <= mk + 3 * a)
+            return ns_lit(f, num - mk, v - mk) + mk;
+        if (!lit(f, 1, v >= mk + a))
+            return lit(f, b2, v - mk) + mk;
+        i++;
+        mk += a;
+    }
+}
+
+static int inverse_recenter(int r, int v)
+{
+    return v > 2 * r ? v : v & 1 ? r - ((v + 1) >> 1) : r + (v >> 1);
+}
+
+/* the writer's v of inverse_recenter(r, v) = x */
+static int recenter(int r, int x)
+{
+    return x > 2 * r ? x : x >= r ? (x - r) << 1 : ((r - x) << 1) - 1;
+}
+
+/* decode_signed_subexp_with_ref_bool: a value of [low, high) coded
+ * against the reference r; in a writer the value x */
+static int subexp_ref(Av1 *f, int low, int high, int k, int r, int x)
+{
+    int mx = high - low, near = ((r - low) << 1) <= mx, v = 0;
+    r -= low;
+    if (f->ec.writing) {
+        if (x < low || x >= high)
+            av1_fail(f, ERR_VALUE, "writer: a restoration coefficient "
+                     "%d outside [%d, %d)", x, low, high);
+        x -= low;
+        v = near ? recenter(r, x) : recenter(mx - 1 - r, mx - 1 - x);
+    }
+    v = subexp_bool(f, mx, k, v);
+    return (near ? inverse_recenter(r, v)
+                 : mx - 1 - inverse_recenter(mx - 1 - r, v)) + low;
+}
+
+static void read_lr_unit(Av1 *f, int plane, int row, int col)
+{
+    LrUnit *u = &f->lr_units[plane][(size_t)row * f->lr_cols[plane] + col];
+    LrUnit none = {0};
+    const LrUnit *w = f->ec.writing ? enc_lr_unit(f, plane, row, col)
+                                    : &none;
+    int type = f->lr_type[plane];
+    if (type == RESTORE_SWITCHABLE)
+        type = sym(f, f->cdf.switchable_restore, 3, w->type);
+    else if (!sym(f, type == RESTORE_WIENER ? f->cdf.wiener_restore
+                                            : f->cdf.sgrproj_restore, 2,
+                  w->type == type))
+        type = RESTORE_NONE;
+    memset(u, 0, sizeof(*u));
+    u->type = type;
+    if (type == RESTORE_WIENER) {
+        for (int pass = 0; pass < 2; pass++)
+            for (int j = plane ? 1 : 0; j < 3; j++) {
+                int v = subexp_ref(f, wiener_taps_min[j],
+                                   wiener_taps_max[j] + 1, wiener_taps_k[j],
+                                   f->ref_wiener[plane][pass][j],
+                                   w->wiener[pass][j]);
+                u->wiener[pass][j] = f->ref_wiener[plane][pass][j] = v;
+            }
+    } else if (type == RESTORE_SGRPROJ) {
+        int set = lit(f, 4, w->sgr_set);
+        u->sgr_set = set;
+        for (int i = 0; i < 2; i++) {
+            int mn = sgrproj_xqd_min[i], mx = sgrproj_xqd_max[i], v = 0;
+            if (sgr_params[set][i]) { /* the radius of pass i */
+                v = subexp_ref(f, mn, mx + 1, 4, f->ref_xqd[plane][i],
+                               w->xqd[i]);
+            } else if (i == 1) {
+                v = 128 - f->ref_xqd[plane][0];
+                v = v < mn ? mn : v > mx ? mx : v;
+            }
+            u->xqd[i] = f->ref_xqd[plane][i] = v;
+        }
+    }
+}
+
+/* read_lr: the coefficients of the units whose top left corner lies in
+ * the superblock at (r, c) */
+static void read_lr(Av1 *f, int r, int c, int sb4)
+{
+    if (f->allow_intrabc)
+        return;
+    for (int p = 0; p < f->nplanes; p++) {
+        if (f->lr_type[p] == RESTORE_NONE)
+            continue;
+        int ssx = p ? f->ssx : 0, ssy = p ? f->ssy : 0, us = f->lr_size[p];
+        int r0 = (r * (4 >> ssy) + us - 1) / us;
+        int r1 = ((r + sb4) * (4 >> ssy) + us - 1) / us;
+        int c0 = (c * (4 >> ssx) + us - 1) / us;
+        int c1 = ((c + sb4) * (4 >> ssx) + us - 1) / us;
+        r1 = r1 < f->lr_rows[p] ? r1 : f->lr_rows[p];
+        c1 = c1 < f->lr_cols[p] ? c1 : f->lr_cols[p];
+        for (int y = r0; y < r1; y++)
+            for (int x = c0; x < c1; x++)
+                read_lr_unit(f, p, y, x);
+    }
+}
+
 /* one tile's superblocks, read or written; the tile's symbol coder is set
  * up by the caller */
 static void code_tile(Av1 *f, int tile_row, int tile_col,
@@ -2660,6 +2810,12 @@ static void code_tile(Av1 *f, int tile_row, int tile_col,
     memcpy(&f->cdf, &f->cdf0, sizeof(Cdfs));
     f->qindex = f->base_q;
     memset(f->delta_lf, 0, sizeof(f->delta_lf));
+    for (int p = 0; p < 3; p++)
+        for (int pass = 0; pass < 2; pass++) {
+            f->ref_xqd[p][pass] = sgrproj_xqd_mid[pass];
+            for (int i = 0; i < 3; i++)
+                f->ref_wiener[p][pass][i] = wiener_taps_mid[i];
+        }
     for (int p = 0; p < f->nplanes; p++) {
         int ssx = p ? f->ssx : 0;
         memset(f->above_level[p] + (f->mi_col_start >> ssx), 0,
@@ -2678,6 +2834,7 @@ static void code_tile(Av1 *f, int tile_row, int tile_col,
                 for (int x = c; x < c + sb4; x += 16)
                     f->cdef_idx[(y >> 4) * f->cdef_cols + (x >> 4)] = -1;
             clear_block_decoded(f, r, c, sb4);
+            read_lr(f, r, c, sb4);
             superblock(f, r, c);
         }
     }
@@ -2957,6 +3114,18 @@ static void cdef_filter(Av1 *f, const uint16_t *src, int plane, int r, int c,
         }
 }
 
+/* the deblocked planes, kept in pre_cdef: CDEF's input, and the rows
+ * loop restoration reads past a stripe's edges */
+static void keep_deblocked(Av1 *f)
+{
+    size_t size = (size_t)f->stride * f->rows;
+    for (int p = 0; p < f->nplanes; p++) {
+        if (!f->pre_cdef[p])
+            f->pre_cdef[p] = av1_alloc(f, size * 2);
+        memcpy(f->pre_cdef[p], f->plane[p], size * 2);
+    }
+}
+
 static void cdef_frame(Av1 *f)
 {
     if (!f->cdef_en || f->lossless || f->allow_intrabc)
@@ -2964,17 +3133,7 @@ static void cdef_frame(Av1 *f)
     static const uint8_t uv_dir[2][2][8] = {
         {{0, 1, 2, 3, 4, 5, 6, 7}, {1, 2, 2, 2, 3, 4, 6, 0}},
         {{7, 0, 2, 4, 5, 6, 6, 6}, {0, 1, 2, 3, 4, 5, 6, 7}}};
-    size_t size = (size_t)f->stride * f->rows;
-    uint16_t *src[3] = {NULL, NULL, NULL};
-    for (int p = 0; p < f->nplanes; p++) {
-        src[p] = malloc(size * 2);
-        if (!src[p]) {
-            for (int k = 0; k < p; k++)
-                free(src[k]);
-            av1_fail(f, ERR_MEMORY, "out of memory");
-        }
-        memcpy(src[p], f->plane[p], size * 2);
-    }
+    uint16_t *const *src = f->pre_cdef;
     int sh = f->bitdepth - 8;
     for (int r = 0; r < f->MiRows; r += 2)
         for (int c = 0; c < f->MiCols; c += 2) {
@@ -3002,17 +3161,239 @@ static void cdef_frame(Av1 *f)
                 cdef_filter(f, src[p], p, r, c, pri, sec,
                             f->cdef_damping + sh - 1, dir);
         }
-    for (int p = 0; p < f->nplanes; p++)
-        free(src[p]);
 }
 
-/* the in-loop filters of a decoded (or written) frame: deblocking, CDEF */
+/* -- loop restoration (specification 7.17; libaom's restoration.c) ------- */
+
+/* the Wiener filter of rows [0, h) and columns [x0, x1) of a stripe
+ * buffer (b: row -3, column -3 of the plane at b[0], stride bs) into out
+ * (the plane's first row of the stripe) */
+static void lr_wiener(Av1 *f, const LrUnit *u, const int32_t *b, int bs,
+                      int h, int x0, int x1, uint16_t *out)
+{
+    int bd = f->bitdepth, r0 = bd == 12 ? 5 : 3, r1 = bd == 12 ? 9 : 11;
+    int off = 1 << (bd + 6 - r0), lim = (1 << (bd + 8 - r0)) - 1;
+    int hf[7], vf[7];
+    for (int pass = 0; pass < 2; pass++) {
+        int *t = pass ? hf : vf;
+        const int *c = u->wiener[pass];
+        t[3] = 128 - 2 * (c[0] + c[1] + c[2]);
+        for (int i = 0; i < 3; i++)
+            t[i] = t[6 - i] = c[i];
+    }
+    int w = x1 - x0;
+    int32_t *tmp = f->lr_buf + (size_t)bs * (h + 6);
+    for (int r = 0; r < h + 6; r++)
+        for (int c = 0; c < w; c++) {
+            const int32_t *s = b + (size_t)r * bs + x0 + c;
+            int sum = 0;
+            for (int t = 0; t < 7; t++)
+                sum += hf[t] * s[t];
+            int v = round2(sum, r0);
+            tmp[r * w + c] = v < -off ? -off : v > lim - off ? lim - off : v;
+        }
+    for (int r = 0; r < h; r++)
+        for (int c = 0; c < w; c++) {
+            int sum = 0;
+            for (int t = 0; t < 7; t++)
+                sum += vf[t] * tmp[(r + t) * w + c];
+            out[(size_t)r * f->stride + x0 + c] =
+                (uint16_t)clip1(f, round2(sum, r1));
+        }
+}
+
+/* box_filter_process of one pass of a self-guided set (radius 2 on every
+ * other row, libaom's fast filter; radius 1 on every row): flt[h][w] */
+static void lr_box(Av1 *f, int set, int pass, const int32_t *b, int bs,
+                   int h, int x0, int x1, int32_t *flt)
+{
+    int r = sgr_params[set][pass], n = (2 * r + 1) * (2 * r + 1);
+    uint32_t s = (uint32_t)sgr_params[set][2 + pass];
+    int bd = f->bitdepth, w = x1 - x0, aw = w + 2;
+    int32_t *A = flt + (size_t)h * w, *B = A + (size_t)aw * (h + 2);
+    for (int i = -1; i <= h; i++) {
+        if (pass == 0 && !(i & 1))
+            continue; /* only the odd rows (stripes start on even rows) */
+        for (int j = -1; j <= w; j++) {
+            uint32_t sq = 0, sum = 0;
+            for (int dy = -r; dy <= r; dy++) {
+                const int32_t *row = b + (size_t)(i + 3 + dy) * bs + x0 + 3 +
+                                     j;
+                for (int dx = -r; dx <= r; dx++) {
+                    uint32_t c = (uint32_t)row[dx];
+                    sq += c * c;
+                    sum += c;
+                }
+            }
+            uint32_t a = (uint32_t)round2((int)sq, 2 * (bd - 8));
+            uint32_t d = (uint32_t)round2((int)sum, bd - 8);
+            uint32_t p = a * n < d * d ? 0 : a * n - d * d;
+            uint32_t z = (p * s + (1u << 19)) >> 20;
+            uint32_t a2 = (uint32_t)x_by_xplus1[z < 255 ? z : 255];
+            size_t k = (size_t)(i + 1) * aw + j + 1;
+            A[k] = (int32_t)a2;
+            B[k] = (int32_t)(((256 - a2) * sum * (uint32_t)one_by_x[n - 1] +
+                              (1u << 11)) >> 12);
+        }
+    }
+    for (int i = 0; i < h; i++)
+        for (int j = 0; j < w; j++) {
+            size_t k = (size_t)(i + 1) * aw + j + 1;
+            int32_t a, bb, nb = 5;
+            if (pass == 0 && !(i & 1)) {
+                a = (A[k - aw] + A[k + aw]) * 6 + (A[k - 1 - aw] +
+                    A[k - 1 + aw] + A[k + 1 - aw] + A[k + 1 + aw]) * 5;
+                bb = (B[k - aw] + B[k + aw]) * 6 + (B[k - 1 - aw] +
+                     B[k - 1 + aw] + B[k + 1 - aw] + B[k + 1 + aw]) * 5;
+            } else if (pass == 0) {
+                a = A[k] * 6 + (A[k - 1] + A[k + 1]) * 5;
+                bb = B[k] * 6 + (B[k - 1] + B[k + 1]) * 5;
+                nb = 4;
+            } else {
+                a = (A[k] + A[k - 1] + A[k + 1] + A[k - aw] + A[k + aw]) * 4
+                    + (A[k - 1 - aw] + A[k - 1 + aw] + A[k + 1 - aw] +
+                       A[k + 1 + aw]) * 3;
+                bb = (B[k] + B[k - 1] + B[k + 1] + B[k - aw] + B[k + aw]) * 4
+                     + (B[k - 1 - aw] + B[k - 1 + aw] + B[k + 1 - aw] +
+                        B[k + 1 + aw]) * 3;
+            }
+            int32_t v = a * b[(size_t)(i + 3) * bs + x0 + 3 + j] + bb;
+            flt[(size_t)i * w + j] = round2(v, 8 + nb - 4);
+        }
+}
+
+/* the self-guided filter of a stripe's unit: both passes, projected */
+static void lr_sgrproj(Av1 *f, const LrUnit *u, const int32_t *b, int bs,
+                       int h, int x0, int x1, uint16_t *out)
+{
+    int w = x1 - x0, set = u->sgr_set;
+    size_t part = (size_t)h * w + 2 * (size_t)(w + 2) * (h + 2);
+    int32_t *flt0 = f->lr_buf + (size_t)bs * (h + 6), *flt1 = flt0 + part;
+    int xq0 = 0, xq1 = 0;
+    if (sgr_params[set][0]) {
+        lr_box(f, set, 0, b, bs, h, x0, x1, flt0);
+        xq0 = u->xqd[0];
+    }
+    if (sgr_params[set][1]) {
+        lr_box(f, set, 1, b, bs, h, x0, x1, flt1);
+        xq1 = 128 - xq0 - u->xqd[1];
+    }
+    for (int i = 0; i < h; i++)
+        for (int j = 0; j < w; j++) {
+            int32_t uu = b[(size_t)(i + 3) * bs + x0 + 3 + j] << 4;
+            int32_t v = uu << 7;
+            if (sgr_params[set][0])
+                v += xq0 * (flt0[(size_t)i * w + j] - uu);
+            if (sgr_params[set][1])
+                v += xq1 * (flt1[(size_t)i * w + j] - uu);
+            out[(size_t)i * f->stride + x0 + j] =
+                (uint16_t)clip1(f, (int16_t)round2(v, 11));
+        }
+}
+
+/* lr_frame_process: each plane stripe by stripe (64 luma rows, the first
+ * 8 shorter), each stripe unit by unit.  The stripe's samples are taken
+ * once into a buffer with 3 rows and columns around it, as
+ * get_source_sample takes them: columns clamped to the plane, rows to the
+ * plane, then rows above or below the stripe from the deblocked frame
+ * before CDEF, at most 2 away (the frame's own top and bottom rows come
+ * from the CDEF output). */
+static void lr_frame(Av1 *f)
+{
+    for (int p = 0; p < f->nplanes; p++) {
+        if (f->lr_type[p] == RESTORE_NONE)
+            continue;
+        int ssx = p ? f->ssx : 0, ssy = p ? f->ssy : 0, us = f->lr_size[p];
+        int pw = (f->W + ssx) >> ssx, ph = (f->H + ssy) >> ssy;
+        int bs = pw + 6;
+        for (int st = 0;; st++) {
+            int top = (64 * st - 8) >> ssy, end = top + (64 >> ssy) - 1;
+            int y0 = top > 0 ? top : 0, y1 = end < ph - 1 ? end + 1 : ph;
+            if (y0 >= ph)
+                break;
+            int h = y1 - y0;
+            int32_t *b = f->lr_buf;
+            for (int k = 0; k < h + 6; k++) {
+                int y = y0 - 3 + k;
+                y = y < 0 ? 0 : y > ph - 1 ? ph - 1 : y;
+                const uint16_t *src = f->plane[p];
+                if (y < top) {
+                    y = y > top - 2 ? y : top - 2;
+                    src = f->pre_cdef[p];
+                } else if (y > end) {
+                    y = y < end + 2 ? y : end + 2;
+                    src = f->pre_cdef[p];
+                }
+                const uint16_t *row = src + (size_t)y * f->stride;
+                for (int j = 0; j < bs; j++) {
+                    int x = j - 3;
+                    b[(size_t)k * bs + j] = row[x < 0 ? 0 : x > pw - 1 ? pw - 1
+                                                                         : x];
+                }
+            }
+            int ur = ((y0 << ssy) + 8) >> ssy;
+            ur = ur / us < f->lr_rows[p] - 1 ? ur / us : f->lr_rows[p] - 1;
+            uint16_t *out = f->plane[p] + (size_t)y0 * f->stride;
+            for (int uc = 0; uc < f->lr_cols[p]; uc++) {
+                const LrUnit *u =
+                    &f->lr_units[p][(size_t)ur * f->lr_cols[p] + uc];
+                int x0 = uc * us;
+                int x1 = uc == f->lr_cols[p] - 1 ? pw : x0 + us;
+                if (u->type == RESTORE_WIENER)
+                    lr_wiener(f, u, b, bs, h, x0, x1, out);
+                else if (u->type == RESTORE_SGRPROJ)
+                    lr_sgrproj(f, u, b, bs, h, x0, x1, out);
+            }
+        }
+    }
+}
+
+/* the in-loop filters of a decoded (or written) frame: deblocking, CDEF,
+ * loop restoration */
 static void postfilter(Av1 *f)
 {
     if (f->lossless || f->allow_intrabc)
         return;
     loop_filter(f);
+    int lr = 0;
+    for (int p = 0; p < f->nplanes; p++)
+        lr |= f->lr_type[p] != RESTORE_NONE;
+    if (lr || (f->cdef_en && !f->lossless && !f->allow_intrabc))
+        keep_deblocked(f);
     cdef_frame(f);
+    if (lr) {
+#ifdef LR_CLOCK
+        double t0 = LR_CLOCK();
+#endif
+        lr_frame(f);
+#ifdef LR_CLOCK
+        f->lr_ms += LR_CLOCK() - t0;
+#endif
+    }
+}
+
+/* the restoration unit grid of each plane, and the buffers of the filter */
+static void lr_alloc(Av1 *f)
+{
+    int lr = 0;
+    for (int p = 0; p < f->nplanes; p++) {
+        f->lr_rows[p] = f->lr_cols[p] = 0;
+        if (f->lr_type[p] == RESTORE_NONE)
+            continue;
+        int ssx = p ? f->ssx : 0, ssy = p ? f->ssy : 0;
+        f->lr_rows[p] = lr_count(f->lr_size[p], (f->H + ssy) >> ssy);
+        f->lr_cols[p] = lr_count(f->lr_size[p], (f->W + ssx) >> ssx);
+        f->lr_units[p] = av1_alloc(f, sizeof(LrUnit) * (size_t)f->lr_rows[p]
+                                   * f->lr_cols[p]);
+        lr = 1;
+    }
+    if (lr) {
+        /* the stripe (70 rows), then the Wiener rows or the two passes of
+         * the self-guided filter over a unit (at most 64 x 384 + 4:4:4's
+         * 70 x 390 for A and B, per pass) */
+        size_t bs = (size_t)f->W + 6, unit = 70 * 390 * 3;
+        f->lr_buf = av1_alloc(f, (bs * 70 + 2 * unit) * sizeof(int32_t));
+    }
 }
 
 static void frame_alloc(Av1 *f)
@@ -3043,6 +3424,7 @@ static void frame_alloc(Av1 *f)
         f->pal_sizes[k] = av1_alloc(f, n);
         f->pal_colors[k] = av1_alloc(f, n * 16);
     }
+    lr_alloc(f);
 }
 
 static void frame_free(Av1 *f)
@@ -3058,6 +3440,14 @@ static void frame_free(Av1 *f)
         free(f->lf_tx[p]);
         f->lf_tx[p] = NULL;
     }
+    for (int p = 0; p < 3; p++) {
+        free(f->lr_units[p]);
+        free(f->pre_cdef[p]);
+        f->lr_units[p] = NULL;
+        f->pre_cdef[p] = NULL;
+    }
+    free(f->lr_buf);
+    f->lr_buf = NULL;
     free(f->cdef_idx);
     free(f->txsizes);
     free(f->delta_lfs);

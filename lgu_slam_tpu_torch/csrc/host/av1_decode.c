@@ -7,13 +7,14 @@
  * headers, tiles (uniform or not), 64 or 128 superblocks, every partition,
  * the intra mode info of a key frame (skip, CDEF index, delta q and delta
  * lf, y and uv modes, angle deltas, CfL, palettes with their colour cache,
- * filter intra, tx_depth) and the coefficients of every transform size
- * and intra type, lossless or lossy; then deblocking and CDEF.  The tile
+ * filter intra, tx_depth), the loop restoration units' coefficients and
+ * the coefficients of every transform size and intra type, lossless or
+ * lossy; then deblocking, CDEF and loop restoration.  The tile
  * syntax, reconstruction and filters are in av1_core.h.  The OBUs are
  * checked as libaom's aom_decode_frame_from_obus checks them (sizes,
  * trailing bits and zero padding, reserved types, the operating point,
- * tile group order, zero bytes between frames).  A frame that uses loop
- * restoration, superres, film grain, segmentation, show_existing_frame
+ * tile group order, zero bytes between frames).  A frame that uses
+ * superres, film grain, segmentation, show_existing_frame
  * or a frame type but a key / intra-only frame, intra block copy in a
  * lossy frame, and a second frame in the data, return ERR_NOTIMPL naming
  * it (a later reader takes it up); a stream libaom refuses (a cut header,
@@ -21,13 +22,31 @@
  * block size the chroma subsampling does not allow, ...) ERR_VALUE.
  *
  * Entry points (ctypes, data/avif.py):
- *   av1_info(data, n, info[15], err, errlen): the frame's width, height,
+ *   av1_info(data, n, info[20], err, errlen): the frame's width, height,
  *     bit depth, mono_chrome, subsampling x / y, matrix coefficients,
  *     colour range, colour primaries, transfer characteristics, profile,
- *     still_picture, base_q_idx, tx_mode_select, cdef_bits;
+ *     still_picture, base_q_idx, tx_mode_select, cdef_bits, then
+ *     FrameRestorationType of Y, U and V (0 none, 1 Wiener, 2
+ *     self-guided, 3 switchable), the luma restoration unit size and
+ *     lr_uv_shift;
  *   av1_decode(data, n, out, planes, H, W, err, errlen): the planes,
- *     uint16, Y (H x W) then U and V at their subsampled size.
+ *     uint16, Y (H x W) then U and V at their subsampled size;
+ *   av1_lr_stats(data, n, counts[9], ms, err, errlen): the frame decoded,
+ *     its restoration units of each plane counted by type (none, Wiener,
+ *     self-guided) and the milliseconds spent in the restoration filter.
  */
+#define _POSIX_C_SOURCE 199309L
+#include <time.h>
+
+/* the clock of av1_lr_stats's restoration time */
+static double clock_ms(void)
+{
+    struct timespec t;
+    clock_gettime(CLOCK_MONOTONIC, &t);
+    return (double)t.tv_sec * 1e3 + (double)t.tv_nsec / 1e6;
+}
+#define LR_CLOCK clock_ms
+
 #include "av1_core.h"
 
 static Choice *enc_choice(Av1 *f)
@@ -51,6 +70,15 @@ static int enc_cdef(Av1 *f, int r, int c)
     (void)r;
     (void)c;
     return 0;
+}
+
+static const LrUnit *enc_lr_unit(Av1 *f, int plane, int row, int col)
+{
+    (void)f;
+    (void)plane;
+    (void)row;
+    (void)col;
+    return NULL;
 }
 
 static void forward_tx(Av1 *f, int plane, int x, int y, int t)
@@ -422,21 +450,32 @@ static void cdef_params(Av1 *f, Bits *b)
         }
 }
 
+/* lr_params: FrameRestorationType (Remap_Lr_Type of lr_type) and
+ * LoopRestorationSize of each plane */
 static void lr_params(Av1 *f, Bits *b)
 {
+    static const int remap[4] = {RESTORE_NONE, RESTORE_SWITCHABLE,
+                                 RESTORE_WIENER, RESTORE_SGRPROJ};
     int uses = 0, chroma = 0;
-    for (int i = 0; i < f->nplanes; i++)
-        if (fb(b, 2)) {
+    for (int i = 0; i < f->nplanes; i++) {
+        f->lr_type[i] = remap[fb(b, 2)];
+        if (f->lr_type[i] != RESTORE_NONE) {
             uses = 1;
             chroma |= i > 0;
         }
+    }
     if (!uses)
         return;
-    if (fb(b, 1) && !f->use128)
-        fb(b, 1);
-    if (f->ssx && f->ssy && chroma)
-        fb(b, 1);
-    unread(f, "AVIF: AV1 loop restoration", 0);
+    if (f->use128) {
+        f->lr_unit_shift = (int)fb(b, 1) + 1;
+    } else {
+        f->lr_unit_shift = (int)fb(b, 1);
+        if (f->lr_unit_shift)
+            f->lr_unit_shift += (int)fb(b, 1);
+    }
+    f->lr_size[0] = 256 >> (2 - f->lr_unit_shift);
+    f->lr_uv_shift = f->ssx && f->ssy && chroma ? (int)fb(b, 1) : 0;
+    f->lr_size[1] = f->lr_size[2] = f->lr_size[0] >> f->lr_uv_shift;
 }
 
 /* the scaling points of one plane (libaom: at most max, increasing) */
@@ -641,6 +680,8 @@ static void frame_header(Av1 *f, Bits *b, int first)
     f->cdef_bits = 0;
     memset(f->cdef_pri, 0, sizeof(f->cdef_pri));
     memset(f->cdef_sec, 0, sizeof(f->cdef_sec));
+    memset(f->lr_type, 0, sizeof(f->lr_type));
+    f->lr_unit_shift = f->lr_uv_shift = 0;
     if (!lossless && !f->allow_intrabc)
         loop_filter_params(f, b);
     if (!lossless && !f->allow_intrabc && f->cdef_en)
@@ -934,10 +975,11 @@ int av1_info(const uint8_t *data, int64_t n, int32_t *info, char *err,
     int code = setjmp(f->jb);
     if (code == 0) {
         decode_obus(f, data, n, 1);
-        int32_t v[15] = {f->W, f->H, f->bitdepth, f->mono, f->ssx, f->ssy,
+        int32_t v[20] = {f->W, f->H, f->bitdepth, f->mono, f->ssx, f->ssy,
                          f->mc, f->range, f->cp, f->tc, f->profile,
                          f->still, f->base_q, f->tx_mode_select,
-                         f->cdef_bits};
+                         f->cdef_bits, f->lr_type[0], f->lr_type[1],
+                         f->lr_type[2], f->lr_size[0], f->lr_uv_shift};
         memcpy(info, v, sizeof(v));
     }
     frame_free(f);
@@ -968,6 +1010,28 @@ int av1_decode(const uint8_t *data, int64_t n, uint16_t *out, int planes,
                        (size_t)w * 2);
             dst += h * w;
         }
+    }
+    frame_free(f);
+    free(f);
+    return code;
+}
+
+int av1_lr_stats(const uint8_t *data, int64_t n, int32_t *counts, double *ms,
+                 char *err, int errlen)
+{
+    Av1 *f = calloc(1, sizeof(Av1));
+    if (!f)
+        return ERR_MEMORY;
+    f->err = err;
+    f->errlen = errlen;
+    int code = setjmp(f->jb);
+    if (code == 0) {
+        decode_obus(f, data, n, 0);
+        memset(counts, 0, 9 * sizeof(int32_t));
+        for (int p = 0; p < f->nplanes; p++)
+            for (int k = 0; k < f->lr_rows[p] * f->lr_cols[p]; k++)
+                counts[3 * p + f->lr_units[p][k].type]++;
+        *ms = f->lr_ms;
     }
     frame_free(f);
     free(f);

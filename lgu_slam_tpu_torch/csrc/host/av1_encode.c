@@ -2,10 +2,11 @@
  * (data/avif.py encode_av1 / encode_avif) on machines without an AVIF
  * encoder.
  *
- * It writes a sequence header (reduced still picture header, 64 x 64
- * superblocks, filter intra and the intra edge filter on, no restoration
- * or superres; profile 0 for gray and 4:2:0, 1 for 4:4:4 colour, 2 at 12
- * bits) and one frame OBU with one tile.  The tile goes through the same
+ * It writes a sequence header (reduced still picture header, 64 x 64 or
+ * 128 x 128 superblocks, filter intra and the intra edge filter on, no
+ * superres; profile 0 for gray and 4:2:0, 1 for 4:4:4 colour, 2 at 12
+ * bits and for 4:2:2; the colour description given) and one frame OBU
+ * with one tile.  The tile goes through the same
  * block syntax as the decoder (av1_core.h) with the symbol coder writing.
  *
  * Lossless frames (base_q_idx 0): each superblock is split down to 32 x
@@ -14,26 +15,31 @@
  * nodes, the thirteen y modes with angle deltas, uv modes with CfL,
  * filter intra), the residual of each 4 x 4 block is transformed by the
  * exact inverse of the decoder's Walsh-Hadamard lifting and coded with
- * the decoder's contexts.  Colour is 4:4:4 under the identity matrix, or
- * 4:2:0 under BT.601.
+ * the decoder's contexts.  Colour is 4:4:4 (under the identity matrix by
+ * default), 4:2:0 or 4:2:2 (no partition a 4:2:2 chroma block cannot
+ * follow).
  *
- * Lossy frames: 4:2:0 colour under BT.601 (or gray), blocks of one size
+ * Lossy frames: 4:2:0 or 4:2:2 colour (or gray), blocks of one size
  * (8, 16 or 32; smaller at the frame's edges) with TX_MODE_LARGEST, so
  * one DCT_DCT transform per block and plane; y modes and filter intra
  * from the hash, uv modes DC, D45 or CfL (whose chroma transform is
  * DCT_DCT); the residual's DCT quantised by the caller's base_q_idx and
  * quantiser matrix level; deblocking levels and sharpness, CDEF damping
- * and strengths (the index of each 64 x 64 unit from the hash) as given.
- * The writer reconstructs with the decoder's own inverse transforms and
- * in-loop filters, and returns that reconstruction.
+ * and strengths (the index of each 64 x 64 unit from the hash) as given;
+ * loop restoration of a given type per plane, unit size and lr_uv_shift,
+ * each unit's Wiener taps or self-guided set and projection taken in
+ * turn from the caller's list (lr[]).  The writer reconstructs with the
+ * decoder's own inverse transforms and in-loop filters, and returns that
+ * reconstruction.
  *
  * Entry point (ctypes):
- *   av1_encode(planes, nplanes, H, W, depth, seed, opts, out, cap, size,
- *              recon, err, errlen): planes Y [H][W] then U, V at their
- *     subsampled size, uint16; opts NULL (lossless 4:4:4) or int32
- *     [OPT_COUNT] (below); writes the OBUs to out, their length to *size,
- *     and, where recon is not NULL, the reconstruction in the planes'
- *     layout.
+ *   av1_encode(planes, nplanes, H, W, depth, seed, opts, lr, out, cap,
+ *              size, recon, err, errlen): planes Y [H][W] then U, V at
+ *     their subsampled size, uint16; opts NULL (lossless 4:4:4) or int32
+ *     [OPT_COUNT] (below); lr NULL (no restoration) or int32: the
+ *     number of units of Y, U and V, then theirs, LR_FIELDS each; writes
+ *     the OBUs to out, their length to *size, and, where recon is not
+ *     NULL, the reconstruction in the planes' layout.
  */
 #include <math.h>
 
@@ -78,7 +84,7 @@ static uint32_t hash(uint32_t a, uint32_t b, uint32_t c, uint32_t d)
 
 /* the writer's options (opts[]) */
 enum {
-    OPT_SUBSAMPLED, /* 1: 4:2:0 under BT.601 */
+    OPT_SUBSAMPLED, /* 0: 4:4:4, 1: 4:2:0, 2: 4:2:2 */
     OPT_BASE_Q,     /* base_q_idx, 0 lossless */
     OPT_QM,         /* quantiser matrix level, 15 none */
     OPT_BLOCK_LOG2, /* lossy blocks and transforms: 3, 4 or 5 */
@@ -86,8 +92,44 @@ enum {
     OPT_CDEF_DAMPING, /* 3 .. 6 */
     OPT_CDEF_COUNT,   /* 0 (CDEF off), 1, 2, 4 or 8 strengths */
     OPT_CDEF,         /* 8 x (y pri, y sec, uv pri, uv sec) */
-    OPT_COUNT = OPT_CDEF + 32
+    OPT_CP = OPT_CDEF + 32, OPT_TC, OPT_MC, /* the colour description */
+    OPT_FULL_RANGE,
+    OPT_SB128,        /* 128 x 128 superblocks */
+    OPT_LR,           /* FrameRestorationType of Y, U and V */
+    OPT_LR_UNIT_SHIFT = OPT_LR + 3, OPT_LR_UV_SHIFT,
+    OPT_COUNT
 };
+
+/* the fields of one restoration unit in lr[] (after the three counts):
+ * restoration_type, the Wiener taps 0-2 of the vertical then the
+ * horizontal pass, the self-guided set, its xqd[2] */
+#define LR_FIELDS 10
+
+/* unit k (raster order) of a plane takes the plane's (k mod count)-th
+ * unit of lr[] */
+static const LrUnit *enc_lr_unit(Av1 *f, int plane, int row, int col)
+{
+    const int32_t *lr = f->enc_lr;
+    int start = 3;
+    for (int p = 0; p < plane; p++)
+        start += lr[p] * LR_FIELDS;
+    const int32_t *e = lr + start + ((row * f->lr_cols[plane] + col) %
+                                     lr[plane]) * LR_FIELDS;
+    LrUnit *u = &f->enc_unit;
+    int type = f->lr_type[plane];
+    if (e[0] < 0 || e[0] > 2 || (type != RESTORE_SWITCHABLE && e[0] &&
+                                 e[0] != type) || e[7] < 0 || e[7] > 15)
+        av1_fail(f, ERR_VALUE, "writer: a restoration unit of type %d in "
+                 "a plane of type %d, or set %d", e[0], type, e[7]);
+    u->type = e[0];
+    for (int pass = 0; pass < 2; pass++)
+        for (int i = 0; i < 3; i++)
+            u->wiener[pass][i] = e[1 + 3 * pass + i];
+    u->sgr_set = e[7];
+    u->xqd[0] = e[8];
+    u->xqd[1] = e[9];
+    return u;
+}
 
 static int enc_cdef(Av1 *f, int r, int c)
 {
@@ -105,14 +147,18 @@ static int enc_partition(Av1 *f, int r, int c, int bsize)
                !has_cols ? PARTITION_SPLIT : PARTITION_NONE;
     if (bsize > 9) /* 64 x 64: split */
         return PARTITION_SPLIT;
+    /* 4:2:2 has no chroma block for a block taller than wide */
+    int narrow = f->ssx && !f->ssy;
     if (!has_rows || !has_cols)
-        return h & 1 ? PARTITION_SPLIT : has_cols ? PARTITION_HORZ
-                                                  : PARTITION_VERT;
+        return h & 1 || (narrow && !has_cols) ? PARTITION_SPLIT
+               : has_cols ? PARTITION_HORZ : PARTITION_VERT;
     if (bsize == 9) /* 32 x 32 */
         return h % 4 ? PARTITION_SPLIT : PARTITION_NONE;
-    if (bsize == BLOCK_8X8)
-        return (int)(h % 4);
-    return (int)(h % 10);
+    int p = bsize == BLOCK_8X8 ? (int)(h % 4) : (int)(h % 10);
+    if (narrow && (p == PARTITION_VERT || p == PARTITION_VERT_A ||
+                   p == PARTITION_VERT_B || p == PARTITION_VERT_4))
+        p = PARTITION_SPLIT;
+    return p;
 }
 
 static Choice *enc_choice(Av1 *f)
@@ -232,7 +278,7 @@ static void forward_tx(Av1 *f, int plane, int x, int y, int t)
 
 static void encode_superblock(Av1 *f, int r, int c)
 {
-    decode_partition(f, r, c, BLOCK_64X64);
+    decode_partition(f, r, c, f->use128 ? BLOCK_128X128 : BLOCK_64X64);
 }
 
 static void obu(Put *w, int type, const uint8_t *payload, int64_t n)
@@ -249,9 +295,9 @@ static void obu(Put *w, int type, const uint8_t *payload, int64_t n)
 }
 
 int av1_encode(const uint16_t *planes, int nplanes, int64_t H, int64_t W,
-               int depth, int seed, const int32_t *opts, uint8_t *out,
-               int64_t cap, int64_t *size, uint16_t *recon, char *err,
-               int errlen)
+               int depth, int seed, const int32_t *opts, const int32_t *lr,
+               uint8_t *out, int64_t cap, int64_t *size, uint16_t *recon,
+               char *err, int errlen)
 {
     Av1 *f = calloc(1, sizeof(Av1));
     uint8_t *hdr = malloc(256);
@@ -268,14 +314,19 @@ int av1_encode(const uint16_t *planes, int nplanes, int64_t H, int64_t W,
     if (code == 0) {
         int32_t none[OPT_COUNT] = {0};
         none[OPT_QM] = 15;
+        none[OPT_CP] = none[OPT_TC] = 2;
+        none[OPT_FULL_RANGE] = 1;
         const int32_t *o = opts ? opts : none;
+        static const int32_t no_units[3] = {0, 0, 0};
         int sub = o[OPT_SUBSAMPLED], bq = o[OPT_BASE_Q];
         int ncdef = bq ? o[OPT_CDEF_COUNT] : 0;
         if (W < 1 || H < 1 || W > 4096 || ((W + 63) / 64) * ((H + 63) / 64)
             > 2304 || (nplanes != 1 && nplanes != 3) ||
-            (depth != 8 && depth != 10 && depth != 12))
+            (depth != 8 && depth != 10 && depth != 12) || sub < 0 ||
+            sub > 2)
             av1_fail(f, ERR_VALUE, "writer: 1 or 3 planes of at most 4096 "
-                     "samples a row and 2304 superblocks, 8, 10 or 12 bits");
+                     "samples a row and 2304 superblocks, 8, 10 or 12 "
+                     "bits, 4:4:4, 4:2:0 or 4:2:2");
         if (bq < 0 || bq > 255 || o[OPT_QM] < 0 || o[OPT_QM] > 15 ||
             (bq && nplanes == 3 && !sub) || (bq && (o[OPT_BLOCK_LOG2] < 3 ||
             o[OPT_BLOCK_LOG2] > 5)) || o[OPT_CDEF_DAMPING] < 0 ||
@@ -293,8 +344,39 @@ int av1_encode(const uint16_t *planes, int nplanes, int64_t H, int64_t W,
                 av1_fail(f, ERR_VALUE, "writer: CDEF strengths are 0-15, "
                          "secondary 0, 1, 2 or 4");
         }
-        int mono = nplanes == 1;
-        int profile = depth == 12 ? 2 : mono || sub ? 0 : 1;
+        int mono = nplanes == 1, use128 = o[OPT_SB128] != 0;
+        int cp = o[OPT_CP], tc = o[OPT_TC], mc = o[OPT_MC];
+        /* BT.709 primaries, sRGB transfer and the identity matrix: the
+         * sequence header then holds no range or subsampling (full range,
+         * 4:4:4) */
+        int srgb = cp == 1 && tc == 13 && mc == 0;
+        int profile = depth == 12 || sub == 2 ? 2 : mono || sub ? 0 : 1;
+        if (cp < 0 || cp > 255 || tc < 0 || tc > 255 || mc < 0 ||
+            mc > 255 || (mc == 0 && sub) || (srgb && (mono || !o[
+            OPT_FULL_RANGE])))
+            av1_fail(f, ERR_VALUE, "writer: a colour description AV1 does "
+                     "not allow (identity is 4:4:4)");
+        int lr_used = 0, lr_chroma = 0;
+        for (int p = 0; p < 3; p++) {
+            int t = o[OPT_LR + p];
+            if (t < 0 || t > 3 || (t && (!bq || p >= nplanes)))
+                av1_fail(f, ERR_VALUE, "writer: restoration types are 0-3, "
+                         "in a lossy frame's planes");
+            lr_used |= t != 0;
+            lr_chroma |= p && t;
+            f->lr_type[p] = t;
+        }
+        if (lr_used && (o[OPT_LR_UNIT_SHIFT] < use128 ||
+                        o[OPT_LR_UNIT_SHIFT] > 2 || o[OPT_LR_UV_SHIFT] < 0 ||
+                        o[OPT_LR_UV_SHIFT] > (sub == 1 && lr_chroma)))
+            av1_fail(f, ERR_VALUE, "writer: lr_unit_shift 0-2 (1-2 with 128 "
+                     "x 128 superblocks), lr_uv_shift 0-1 (restored 4:2:0 "
+                     "chroma)");
+        for (int p = 0; p < 3; p++)
+            if (f->lr_type[p] && (!lr || lr[p] < 1))
+                av1_fail(f, ERR_VALUE, "writer: a restored plane without "
+                         "its units");
+        f->enc_lr = lr ? lr : no_units;
         Put w = {out, cap, 0, f};
         /* the sequence header */
         Put s = {hdr, 256, 0, f};
@@ -306,38 +388,34 @@ int av1_encode(const uint16_t *planes, int nplanes, int64_t H, int64_t W,
         put(&s, 15, 4);
         put(&s, (uint32_t)(W - 1), 16);
         put(&s, (uint32_t)(H - 1), 16);
-        put(&s, 0, 1); /* use_128x128_superblock */
+        put(&s, (uint32_t)use128, 1); /* use_128x128_superblock */
         put(&s, 1, 1); /* enable_filter_intra */
         put(&s, 1, 1); /* enable_intra_edge_filter */
         put(&s, 0, 1); /* enable_superres */
         put(&s, ncdef > 0, 1); /* enable_cdef */
-        put(&s, 0, 1); /* enable_restoration */
+        put(&s, (uint32_t)lr_used, 1); /* enable_restoration */
         put(&s, depth > 8, 1);
-        if (profile == 2)
+        if (profile == 2 && depth > 8)
             put(&s, depth == 12, 1);
         if (profile != 1)
             put(&s, (uint32_t)mono, 1);
         put(&s, 1, 1); /* color_description_present_flag */
-        if (sub) { /* BT.709 primaries, sRGB transfer, BT.601 matrix */
-            put(&s, 1, 8);
-            put(&s, 13, 8);
-            put(&s, 6, 8);
-        } else {
-            put(&s, 2, 8);
-            put(&s, 2, 8);
-            put(&s, mono ? 2 : 0, 8); /* identity for colour */
-        }
-        put(&s, 1, 1); /* color_range: full */
-        if (!mono) {
-            if (profile == 2) {
-                put(&s, (uint32_t)sub, 1); /* subsampling_x */
+        put(&s, (uint32_t)cp, 8);
+        put(&s, (uint32_t)tc, 8);
+        put(&s, (uint32_t)mc, 8);
+        if (!srgb)
+            put(&s, o[OPT_FULL_RANGE] != 0, 1); /* color_range */
+        if (!mono && !srgb) {
+            if (profile == 2 && depth == 12) {
+                put(&s, sub != 0, 1); /* subsampling_x */
                 if (sub)
-                    put(&s, 1, 1); /* subsampling_y */
+                    put(&s, sub == 1, 1); /* subsampling_y */
             }
-            if (sub)
+            if (sub == 1)
                 put(&s, 0, 2); /* chroma_sample_position */
-            put(&s, 0, 1); /* separate_uv_delta_q */
         }
+        if (!mono)
+            put(&s, 0, 1); /* separate_uv_delta_q */
         put(&s, 0, 1); /* film_grain_params_present */
         trailing(&s);
         obu(&w, 1, hdr, s.pos >> 3);
@@ -348,7 +426,15 @@ int av1_encode(const uint16_t *planes, int nplanes, int64_t H, int64_t W,
         f->MiRows = 2 * (((int)H + 7) >> 3);
         f->nplanes = nplanes;
         f->bitdepth = depth;
-        f->ssx = f->ssy = mono || sub;
+        f->ssx = mono || sub;
+        f->ssy = mono || sub == 1;
+        f->use128 = use128;
+        if (lr_used) {
+            f->lr_unit_shift = o[OPT_LR_UNIT_SHIFT];
+            f->lr_uv_shift = o[OPT_LR_UV_SHIFT];
+            f->lr_size[0] = 256 >> (2 - f->lr_unit_shift);
+            f->lr_size[1] = f->lr_size[2] = f->lr_size[0] >> f->lr_uv_shift;
+        }
         f->filter_intra_en = f->edge_filter_en = 1;
         f->tile_cols = f->tile_rows = 1;
         f->col_starts[1] = f->MiCols;
@@ -397,7 +483,8 @@ int av1_encode(const uint16_t *planes, int nplanes, int64_t H, int64_t W,
         put(&h, 0, 1); /* allow_screen_content_tools */
         put(&h, 0, 1); /* render_and_frame_size_different */
         put(&h, 1, 1); /* uniform_tile_spacing_flag */
-        int sbc = (f->MiCols + 15) >> 4, sbr = (f->MiRows + 15) >> 4;
+        int sbc = use128 ? (f->MiCols + 31) >> 5 : (f->MiCols + 15) >> 4;
+        int sbr = use128 ? (f->MiRows + 31) >> 5 : (f->MiRows + 15) >> 4;
         int maxc = 0, maxr = 0;
         while ((1 << maxc) < (sbc < 64 ? sbc : 64))
             maxc++;
@@ -438,6 +525,20 @@ int av1_encode(const uint16_t *planes, int nplanes, int64_t H, int64_t W,
                         put(&h, (uint32_t)(f->cdef_sec[p][i] == 4 ? 3
                                            : f->cdef_sec[p][i]), 2);
                     }
+            }
+            if (lr_used) { /* lr_params: lr_type of Remap_Lr_Type */
+                static const int coded[4] = {0, 2, 3, 1};
+                for (int p = 0; p < nplanes; p++)
+                    put(&h, (uint32_t)coded[f->lr_type[p]], 2);
+                if (use128) {
+                    put(&h, (uint32_t)(f->lr_unit_shift - 1), 1);
+                } else {
+                    put(&h, f->lr_unit_shift > 0, 1);
+                    if (f->lr_unit_shift)
+                        put(&h, f->lr_unit_shift > 1, 1);
+                }
+                if (sub == 1 && lr_chroma)
+                    put(&h, (uint32_t)f->lr_uv_shift, 1);
             }
             put(&h, 0, 1); /* tx_mode_select */
         }

@@ -16,9 +16,9 @@ type; each item it keeps needs an ``ispe`` (but an alpha item: strict
 checks are off) within its limits.  The primary ``av01`` item's OBUs, and
 those of its alpha item (``auxl`` with an alpha ``auxC``), are decoded in
 C (``csrc/host/av1_decode.c``: AV1 intra, lossless or lossy, 8 to 12
-bits, monochrome, 4:4:4, 4:2:2 or 4:2:0, deblocking and CDEF, the OBUs
-checked as libaom checks them; the alpha is decoded and dropped, as
-OpenCV drops it).
+bits, monochrome, 4:4:4, 4:2:2 or 4:2:0, deblocking, CDEF and loop
+restoration, the OBUs checked as libaom checks them; the alpha is
+decoded and dropped, as OpenCV drops it).
 
 What OpenCV's reader then returns, which :func:`decode_avif` repeats:
 
@@ -29,16 +29,19 @@ What OpenCV's reader then returns, which :func:`decode_avif` repeats:
 - a colour read: ``uint8 [H, W, 3]`` BGR.  4:4:4 under the identity matrix
   (how libavif writes lossless colour): G = Y, B = U, R = V; 10- and
   12-bit samples become 8 bits as ``rint(float32(v) * float32(255 / max))``
-  (round half to even).  4:4:4 and 4:2:0 under BT.601 full range (matrix
-  6, 5 or 2: cv2.imwrite's and Pillow's files): libyuv's fixed-point
-  conversion with bilinear chroma, of 10- and 12-bit samples shifted to 8
-  bits, but with an alpha item other paths at 10 and 12 bits
-  (:func:`_yuv_to_bgr`).  4:0:0: three equal channels of Y as stored,
-  whatever its range, 10- and 12-bit samples ``rint(v / 2 ** (depth -
-  8))`` (all measured on every sample value);
+  (round half to even).  4:4:4, 4:2:2 and 4:2:0 under a matrix libyuv
+  has constants for (BT.601, BT.709, BT.2020, chroma-derived under their
+  primaries; full or limited range): libyuv's fixed-point conversion
+  with bilinear chroma (4:2:2: along rows), of 10- and 12-bit samples
+  shifted to 8 bits, but with an alpha item other paths at 10 and 12
+  bits; under another matrix (FCC, SMPTE 240, YCgCo, YCgCo-R,
+  chroma-derived under other primaries) and identity at limited range,
+  libavif's float32 conversion (:func:`_yuv_to_bgr`).  4:0:0: three equal
+  channels of Y as stored, whatever its range, 10- and 12-bit samples
+  ``rint(v / 2 ** (depth - 8))`` (all measured on every sample value);
 - an ``IMREAD_ANYDEPTH`` read: 4:0:0 Y as stored; colour ``cvtColor``'s
   gray of the BGR samples at the Mat's depth (``(3735 B + 19235 G + 9798
-  R + 16384) >> 15``), BT.601 colour of a deeper frame converted by
+  R + 16384) >> 15``), YUV colour of a deeper frame converted by
   libavif's float32 code at that depth; the frame's own depth decides the
   conversion;
 - ``irot``, ``imir`` and ``clap`` are not applied, nor an Exif
@@ -46,18 +49,18 @@ What OpenCV's reader then returns, which :func:`decode_avif` repeats:
 
 Refused: a file cv2 returns None for raises ``ValueError`` (a cut or
 damaged container or stream, an item without ``ispe``, no usable primary
-item, matrix coefficients libavif's YUV to RGB refuses, an alpha item
-stored before a colour item without nclx, ...); what OpenCV reads and
-this module does not yet read raises ``NotImplementedError`` naming it:
-4:2:2 colour, colour under another matrix than identity or BT.601,
-limited-range colour, a frame of another size than ``ispe``'s (libavif
-scales it), more than one frame in an item, ``grid`` derived images,
-``avis`` sequences, and the AV1 tools the decoder lists (loop
-restoration, superres, segmentation, film grain).
+item, matrix coefficients libavif's YUV to RGB refuses, subsampled
+colour labelled identity, an alpha item stored before a colour item
+without nclx, ...); what OpenCV reads and this module does not yet read
+raises ``NotImplementedError`` naming it: a frame of another size than
+``ispe``'s (libavif scales it), more than one frame in an item,
+``grid`` derived images, ``avis`` sequences, and the AV1 tools the
+decoder lists (superres, segmentation, film grain).
 
 :func:`encode_avif` writes still images (lossless colour under the
-identity matrix at 4:4:4 or under BT.601 at 4:2:0, gray at 4:0:0, and
-lossy 4:2:0 or gray with deblocking and CDEF; 8, 10 or 12 bits;
+identity matrix at 4:4:4 or subsampled at 4:2:0 or 4:2:2, gray at 4:0:0,
+and lossy 4:2:0, 4:2:2 or gray with deblocking, CDEF and loop
+restoration; any matrix, primaries and range; 8, 10 or 12 bits;
 ``csrc/host/av1_encode.c``) for the tests and for the card machine, which
 has no AVIF writer.
 """
@@ -524,7 +527,10 @@ def _lib():
                              cint]
     lib.av1_decode.argtypes = [ctypes.c_char_p, i64, ptr, cint, i64, i64,
                                ctypes.c_char_p, cint]
+    lib.av1_lr_stats.argtypes = [ctypes.c_char_p, i64, ptr, ptr,
+                                 ctypes.c_char_p, cint]
     lib.av1_info.restype = lib.av1_decode.restype = cint
+    lib.av1_lr_stats.restype = cint
     return lib
 
 
@@ -538,12 +544,17 @@ def _call(fn, *args):
 
 def av1_info(obus: bytes) -> dict:
     """The frame header of an AV1 still image's OBUs."""
-    v = np.zeros(15, np.int32)
+    v = np.zeros(20, np.int32)
     _call(_lib().av1_info, obus, len(obus), v.ctypes.data)
     keys = ("width", "height", "depth", "mono", "ssx", "ssy", "matrix",
             "full_range", "primaries", "transfer", "profile", "still",
             "base_q", "tx_mode_select", "cdef_bits")
-    return {k: int(x) for k, x in zip(keys, v)}
+    info = {k: int(x) for k, x in zip(keys, v)}
+    # FrameRestorationType of each plane (0 none, 1 Wiener, 2 self-guided,
+    # 3 switchable), the luma unit size and lr_uv_shift
+    info["lr_types"] = tuple(int(x) for x in v[15:18])
+    info["lr_unit"], info["lr_uv_shift"] = int(v[18]), int(v[19])
+    return info
 
 
 def av1_planes(obus: bytes, info: dict = None) -> tuple:
@@ -561,6 +572,18 @@ def av1_planes(obus: bytes, info: dict = None) -> tuple:
         start = H * W + k * Hc * Wc
         planes.append(out[start:start + Hc * Wc].reshape(Hc, Wc))
     return planes, info
+
+
+def lr_stats(obus: bytes) -> tuple:
+    """(counts, ms) of an AV1 frame's loop restoration, decoded in C:
+    ``counts[plane]`` the plane's restoration units that take no filter,
+    the Wiener filter and the self-guided filter; ``ms`` the milliseconds
+    the decoder spent in the restoration filter."""
+    counts = np.zeros(9, np.int32)
+    ms = np.zeros(1, np.float64)
+    _call(_lib().av1_lr_stats, obus, len(obus), counts.ctypes.data,
+          ms.ctypes.data)
+    return counts.reshape(3, 3), float(ms[0])
 
 
 def _decode(data: bytes, box: dict, item: dict, size, alpha=False
@@ -603,28 +626,105 @@ def _upsample(c: np.ndarray, H: int, W: int) -> np.ndarray:
     column (and the first row, and an even height's last) taking only the
     near sample in that direction; one rounding, as libyuv's (the weights
     are applied along rows, then columns, before it)."""
-    def taps(n, last):
-        k = np.arange(n)
-        near = np.where(k % 2 == 1, (k - 1) // 2, k // 2)
-        # the first, and the last (libyuv's last column; the last row of
-        # an even height) take the near sample alone
-        edge = (k == 0) | ((k == n - 1) & last)
-        far = np.where(edge, near, np.where(k % 2 == 1, near + 1, near - 1))
-        return near, far, np.where(edge, 4, 3), np.where(edge, 0, 1)
-    rn, rf, rwn, rwf = taps(H, H % 2 == 0)
-    cn, cf, cwn, cwf = taps(W, True)
+    rn, rf, rwn, rwf = _taps(H, H % 2 == 0)
+    cn, cf, cwn, cwf = _taps(W, True)
     c = c.astype(np.int32)
     rows = c[:, cn] * cwn.astype(np.int32) + c[:, cf] * cwf.astype(np.int32)
     return (rows[rn] * rwn[:, None].astype(np.int32) + rows[rf]
             * rwf[:, None].astype(np.int32) + 8) >> 4
 
 
-def _libyuv_bt601(y, u, v, depth: int = 8) -> np.ndarray:
-    """libyuv's I444ToARGBRow with kYuvJPEGConstants (BT.601 full range,
-    6-bit fixed point) of 8-bit samples, or its YuvPixel10 / YuvPixel12 of
-    10- or 12-bit ones (Y widened to 16 bits, U and V narrowed to 8):
-    uint8 BGR."""
-    # int32 holds every product: y widened to 16 bits, times 16320
+def _taps(n: int, last: bool) -> tuple:
+    """(near, far, near weight, far weight) of each of ``n`` upsampled
+    positions: 3 and 1, the first (and with ``last`` the last) the near
+    sample alone (4 and 0)."""
+    k = np.arange(n)
+    near = np.where(k % 2 == 1, (k - 1) // 2, k // 2)
+    edge = (k == 0) | ((k == n - 1) & last)
+    far = np.where(edge, near, np.where(k % 2 == 1, near + 1, near - 1))
+    return near, far, np.where(edge, 4, 3), np.where(edge, 0, 1)
+
+
+def _upsample_h(c: np.ndarray, W: int) -> np.ndarray:
+    """libyuv's linear 2x horizontal chroma upsampling of a 4:2:2 plane
+    (ScaleRowUp2_Linear, as I422ToARGBMatrixFilter uses it): (3 near + 1
+    far + 2) >> 2, the first and last column the near sample."""
+    cn, cf, cwn, cwf = _taps(W, True)
+    c = c.astype(np.int32)
+    return (c[:, cn] * cwn.astype(np.int32) + c[:, cf] * cwf.astype(np.int32)
+            + 2) >> 2
+
+
+def _chroma_up(c: np.ndarray, H: int, W: int, ssx: int, ssy: int
+               ) -> np.ndarray:
+    """libyuv's upsampling of a chroma plane to [H, W]."""
+    return _upsample(c, H, W) if ssy else _upsample_h(c, W) if ssx else c
+
+
+# libyuv's YuvConstants as libavif 1.4.2's build holds them (yg, yb, ub,
+# ug, vg, vr: kYuv<name>Constants of cv2's libavif)
+LIBYUV = {"JPEG": (16320, 32, 113, 22, 46, 90),
+          "F709": (16320, 32, 119, 12, 30, 101),
+          "V2020": (16320, 32, 120, 11, 37, 94),
+          "I601": (18997, -1160, 128, 25, 52, 102),
+          "H709": (18997, -1160, 128, 14, 34, 115),
+          "2020": (19003, -1160, 128, 12, 42, 107)}
+# libavif's matrixCoefficientsTables (kr, kb) and avifColorPrimariesTables
+# (rx, ry, gx, gy, bx, by, wx, wy), float32 in the library
+MATRIX_KR_KB = {1: (0.2126, 0.0722), 4: (0.3, 0.11), 5: (0.299, 0.114),
+                6: (0.299, 0.114), 7: (0.212, 0.087), 9: (0.2627, 0.0593)}
+PRIMARIES = {
+    1: (0.64, 0.33, 0.3, 0.6, 0.15, 0.06, 0.3127, 0.329),
+    4: (0.67, 0.33, 0.21, 0.71, 0.14, 0.08, 0.31, 0.316),
+    5: (0.64, 0.33, 0.29, 0.6, 0.15, 0.06, 0.3127, 0.329),
+    6: (0.63, 0.34, 0.31, 0.595, 0.155, 0.07, 0.3127, 0.329),
+    7: (0.63, 0.34, 0.31, 0.595, 0.155, 0.07, 0.3127, 0.329),
+    8: (0.681, 0.319, 0.243, 0.692, 0.145, 0.049, 0.31, 0.316),
+    9: (0.708, 0.292, 0.17, 0.797, 0.131, 0.046, 0.3127, 0.329),
+    10: (1.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.3333, 0.3333),
+    11: (0.68, 0.32, 0.265, 0.69, 0.15, 0.06, 0.314, 0.351),
+    12: (0.68, 0.32, 0.265, 0.69, 0.15, 0.06, 0.3127, 0.329),
+    22: (0.63, 0.34, 0.295, 0.605, 0.155, 0.077, 0.3127, 0.329)}
+
+
+def _libyuv_constants(matrix: int, full: bool, primaries: int):
+    """The libyuv constants libavif's getLibYUVConstants picks, or None
+    (libavif's own conversion)."""
+    if matrix == 12:  # chroma-derived: by the primaries
+        matrix = {1: 1, 2: 1, 5: 6, 6: 6, 9: 9}.get(primaries, 0)
+    names = {1: ("F709", "H709"), 2: ("JPEG", "I601"), 5: ("JPEG", "I601"),
+             6: ("JPEG", "I601"), 9: ("V2020", "2020")}.get(matrix)
+    return LIBYUV[names[0 if full else 1]] if names else None
+
+
+def _kr_kb(matrix: int, primaries: int) -> tuple:
+    """libavif's (kr, kb) of a matrix, float32: its table's, BT.601's for
+    one it lacks, and for 12 (chroma-derived) computed from the primaries
+    (avifColorPrimariesComputeYCoeffs; BT.709's for unknown primaries)."""
+    F = np.float32
+    if matrix != 12:
+        kr, kb = MATRIX_KR_KB.get(matrix, (0.299, 0.114))
+        return F(kr), F(kb)
+    rX, rY, gX, gY, bX, bY, wX, wY = (F(v) for v in PRIMARIES.get(
+        primaries, PRIMARIES[1]))
+    one = F(1)
+    rZ, gZ, bZ, wZ = (one - (rX + rY), one - (gX + gY), one - (bX + bY),
+                      one - (wX + wY))
+    den = wY * (rX * (gY * bZ - bY * gZ) + gX * (bY * rZ - rY * bZ)
+                + bX * (rY * gZ - gY * rZ))
+    kr = (rY * (wX * (gY * bZ - bY * gZ) + wY * (bX * gZ - gX * bZ)
+                + wZ * (gX * bY - bX * gY))) / den
+    kb = (bY * (wX * (rY * gZ - gY * rZ) + wY * (gX * rZ - rX * gZ)
+                + wZ * (rX * gY - gX * rY))) / den
+    return F(kr), F(kb)
+
+
+def _libyuv(y, u, v, consts, depth: int = 8) -> np.ndarray:
+    """libyuv's I444ToARGBRow (YuvPixel, 6-bit fixed point) with
+    ``consts`` of 8-bit samples, or its YuvPixel10 / YuvPixel12 of 10- or
+    12-bit ones (Y widened to 16 bits, U and V narrowed to 8): uint8
+    BGR."""
+    # int32 holds every product: y widened to 16 bits, times 19003
     y, u, v = (a.astype(np.int32) for a in (y, u, v))
     if depth > 8:
         sh = depth - 8
@@ -632,7 +732,7 @@ def _libyuv_bt601(y, u, v, depth: int = 8) -> np.ndarray:
         u, v = np.minimum(u >> sh, 255), np.minimum(v >> sh, 255)
     else:
         y = y * 0x0101
-    yg, yb, ub, ug, vg, vr = 16320, 32, 113, 22, 46, 90
+    yg, yb, ub, ug, vg, vr = consts
     y1 = (y * yg) >> 16
     b = y1 + u * ub - (ub * 128 - yb)
     g = y1 + (ug * 128 + vg * 128 + yb) - (u * ug + v * vg)
@@ -640,26 +740,33 @@ def _libyuv_bt601(y, u, v, depth: int = 8) -> np.ndarray:
     return np.clip(np.stack([b, g, r], -1) >> 6, 0, 255).astype(np.uint8)
 
 
-def _float_bt601(planes, depth: int, ssx: int) -> np.ndarray:
-    """libavif's own YUV to RGB (avifImageYUVAnyToRGBAnySlow), BT.601 full
-    range, to the samples' depth, float32 as it computes: the unorm
-    tables, chroma upsampled bilinearly (9/16, 3/16, 3/16, 1/16 of the
-    nearest chroma samples, the edge's repeated), R = Y + 2 (1 - kr) Cr,
-    B = Y + 2 (1 - kb) Cb, G = Y - 2 (kr (1 - kr) Cr + kb (1 - kb) Cb) /
-    kg, clamped and stored as 0.5 + x * max truncated: uint16 BGR."""
+def _float_rgb(planes, depth: int, rgb_depth: int, ssx: int, ssy: int,
+               matrix: int, full: bool, primaries: int) -> np.ndarray:
+    """libavif's own YUV to RGB (avifImageYUVAnyToRGBAnySlow, and its fast
+    paths where the chroma is not subsampled), float32 as it computes: the
+    unorm tables of the range, chroma upsampled bilinearly (9/16, 3/16,
+    3/16, 1/16 of the nearest chroma samples, the edge's repeated; 4:2:2
+    along rows only), R = Y + 2 (1 - kr) Cr, B = Y + 2 (1 - kb) Cb, G = Y -
+    2 (kr (1 - kr) Cr + kb (1 - kb) Cb) / kg (YCgCo: G = Y + Cg, B = Y -
+    Cg - Co, R = Y - Cg + Co), clamped and stored as 0.5 + x * max
+    truncated: BGR at ``rgb_depth`` (uint8 or uint16)."""
     F = np.float32
     mx = F((1 << depth) - 1)
     cps = np.arange(1 << depth, dtype=F)
-    ty, tuv = cps / mx, (cps - F(1 << (depth - 1))) / mx
+    s = 1 << (depth - 8)
+    bias_y, range_y, range_uv = (0, mx, mx) if full else (
+        16 * s, 219 * s, 224 * s)
+    ty = (cps - F(bias_y)) / F(range_y)
+    tuv = (cps - F(1 << (depth - 1))) / F(range_uv)
     Y = ty[planes[0]]
     H, W = Y.shape
     if ssx:
         i, j = np.arange(W), np.arange(H)
-        ui, uj = i >> 1, j >> 1
+        ui, uj = i >> 1, j >> ssy
         ac = np.where((i == 0) | ((i == W - 1) & (i % 2 == 1)), 0,
                       np.where(i % 2 == 1, 1, -1))
         ar = np.where((j == 0) | ((j == H - 1) & (j % 2 == 1)), 0,
-                      np.where(j % 2 == 1, 1, -1))
+                      np.where(j % 2 == 1, 1, -1)) if ssy else 0 * j
 
         def chroma(p):
             t = tuv[p]
@@ -671,42 +778,61 @@ def _float_bt601(planes, depth: int, ssx: int) -> np.ndarray:
         cb, cr = chroma(planes[1]), chroma(planes[2])
     else:
         cb, cr = tuv[planes[1]], tuv[planes[2]]
-    kr, kb = F(0.299), F(0.114)
-    kg = F(1) - kr - kb
-    r = Y + (F(2) * (F(1) - kr)) * cr
-    b = Y + (F(2) * (F(1) - kb)) * cb
-    g = Y - ((F(2) * ((kr * (F(1) - kr) * cr) + (kb * (F(1) - kb) * cb)))
-             / kg)
-    return np.stack([np.floor(F(0.5) + np.clip(c, F(0), F(1)) * mx)
-                     for c in (b, g, r)], -1).astype(np.uint16)
+    out = F((1 << rgb_depth) - 1)
+    if matrix == 0:  # identity, limited range: Y's table for each
+        g, b, r = Y, ty[planes[1]], ty[planes[2]]
+    elif matrix == 16:  # YCgCo-Re, in integers of the unrounded chroma
+        cg, co = (np.floor(c * mx + F(0.5)).astype(np.int64)
+                  for c in (cb, cr))  # avifRoundf
+        t = planes[0].astype(np.int64) - (cg >> 1)
+        top = (1 << rgb_depth) - 1
+        g = np.clip(t + cg, 0, top)
+        b = np.clip(t - (co >> 1), 0, top)
+        r = np.clip(b + co, 0, top)
+        g, b, r = (x.astype(F) / out for x in (g, b, r))
+    elif matrix == 8:
+        t = Y - cb
+        g, b, r = Y + cb, t - cr, t + cr
+    else:
+        kr, kb = _kr_kb(matrix, primaries)
+        kg = F(1) - kr - kb
+        r = Y + (F(2) * (F(1) - kr)) * cr
+        b = Y + (F(2) * (F(1) - kb)) * cb
+        g = Y - ((F(2) * ((kr * (F(1) - kr) * cr) + (kb * (F(1) - kb)
+                                                      * cb))) / kg)
+    return np.stack([np.floor(F(0.5) + np.clip(c, F(0), F(1)) * out)
+                     for c in (b, g, r)], -1).astype(
+        np.uint8 if rgb_depth == 8 else np.uint16)
 
 
-def _yuv_to_bgr(planes, info: dict, rgb_depth: int, alpha: bool
-                ) -> np.ndarray:
-    """BT.601 full-range colour (4:4:4 or 4:2:0) as OpenCV's reader gets it
-    from libavif 1.4.2 (measured on every path through cv2.imread).  To the
-    frame's own depth: libavif's float32 conversion.  To 8 bits, libyuv:
-    8-bit samples, and deeper ones shifted down to 8 bits, upsampled (4:2:0)
-    and converted at 8 bits; but with an alpha item (OpenCV asks for BGRA)
-    10-bit samples upsampled at 10 bits and converted by YuvPixel10, 12-bit
-    4:2:0 ones with each chroma sample repeated over its 2 x 2 block and
-    converted by YuvPixel12."""
-    depth, sub = info["depth"], info["ssx"]
-    if rgb_depth != 8:
-        return _float_bt601(planes, depth, sub)
+def _yuv_to_bgr(planes, info: dict, rgb_depth: int, alpha: bool,
+                matrix: int, full: bool, primaries: int) -> np.ndarray:
+    """Colour (4:4:4, 4:2:2 or 4:2:0) under a YUV matrix as OpenCV's reader
+    gets it from libavif 1.4.2 (measured on every path through
+    cv2.imread).  To the frame's own depth, and to 8 bits under a matrix
+    libyuv has no constants for: libavif's float32 conversion.  To 8 bits
+    otherwise, libyuv: 8-bit samples, and deeper ones shifted down to 8
+    bits, upsampled (4:2:0 bilinearly, 4:2:2 along rows) and converted at
+    8 bits; but with an alpha item (OpenCV asks for BGRA) 10-bit samples
+    upsampled at 10 bits and converted by YuvPixel10, 12-bit 4:2:0 ones
+    with each chroma sample repeated over its 2 x 2 block and converted by
+    YuvPixel12 (12-bit 4:2:2 and 4:4:4 take the 8-bit path)."""
+    depth, ssx, ssy = info["depth"], info["ssx"], info["ssy"]
+    consts = _libyuv_constants(matrix, full, primaries)
+    if rgb_depth != 8 or consts is None:
+        return _float_rgb(planes, depth, rgb_depth, ssx, ssy, matrix, full,
+                          primaries)
     y, u, v = planes
     H, W = y.shape
     if depth == 10 and alpha:
-        if sub:
-            u, v = _upsample(u, H, W), _upsample(v, H, W)
-        return _libyuv_bt601(y, u, v, 10)
-    if depth == 12 and alpha and sub:
+        u, v = (_chroma_up(c, H, W, ssx, ssy) for c in (u, v))
+        return _libyuv(y, u, v, consts, 10)
+    if depth == 12 and alpha and ssy:
         u, v = (np.repeat(np.repeat(c, 2, 0), 2, 1)[:H, :W] for c in (u, v))
-        return _libyuv_bt601(y, u, v, 12)
+        return _libyuv(y, u, v, consts, 12)
     y, u, v = (p >> (depth - 8) for p in planes)
-    if sub:
-        u, v = _upsample(u, H, W), _upsample(v, H, W)
-    return _libyuv_bt601(y, u, v)
+    u, v = (_chroma_up(c, H, W, ssx, ssy) for c in (u, v))
+    return _libyuv(y, u, v, consts)
 
 
 def decode_avif(data: bytes, path="<bytes>", gray: bool = False
@@ -765,28 +891,34 @@ def decode_avif(data: bytes, path="<bytes>", gray: bool = False
     rgb_depth = frame_depth if gray and depth > 8 else 8
     nclx = next((v for k, v in color["props"] if k == b"colr" and v and
                  v[0] == b"nclx"), None)
-    matrix, full = (nclx[3], nclx[4]) if nclx else (info["matrix"],
-                                                    info["full_range"])
+    primaries, matrix, full = (nclx[1], nclx[3], nclx[4]) if nclx else (
+        info["primaries"], info["matrix"], info["full_range"])
     if matrix in REFUSED_MATRICES or matrix >= 17 or (
             matrix == 16 and (not full or frame_depth != rgb_depth + 2)) \
             or (matrix == 8 and not full):
         raise ValueError(f"{path}: AVIF: matrix coefficients {matrix} "
                          "(libavif's YUV to RGB refuses them)")
+    if matrix == 0 and len(planes) == 3 and info["ssx"]:
+        raise ValueError(f"{path}: AVIF: subsampled colour under the "
+                         "identity matrix (libavif's YUV to RGB refuses it)")
     if gray and depth > 8 and frame_depth == 8:
         raise NotImplementedError(
             f"{path}: AVIF: an 8-bit frame under a deeper av1C (OpenCV "
             "reads uninitialised memory)")
-    if not full:
-        raise NotImplementedError(f"{path}: AVIF: limited-range samples")
-    if len(planes) == 1:  # a monochrome frame: Y, Y, Y
-        planes = planes * 3
-    elif matrix not in (0, 2, 5, 6):
-        raise NotImplementedError(f"{path}: AVIF: YUV to RGB under matrix "
-                                  f"coefficients {matrix}")
-    elif info["ssx"] and not info["ssy"]:
-        raise NotImplementedError(f"{path}: AVIF: 4:2:2 YUV to RGB")
-    if len(planes) == 3 and matrix != 0:
-        bgr = _yuv_to_bgr(planes, info, rgb_depth, alpha is not None)
+    mono_frame = len(planes) == 1
+    if mono_frame:  # no chroma: R = G = B = Y where libavif converts
+        if matrix == 0:
+            planes = planes * 3
+        else:
+            mid = np.full_like(planes[0], 1 << (frame_depth - 1))
+            planes, info = [planes[0], mid, mid], dict(info, ssx=0, ssy=0)
+    if mono_frame and (matrix != 0 or not full) and (
+            frame_depth > 8 or not full):
+        bgr = _float_rgb(planes, frame_depth, rgb_depth, 0, 0,
+                         6 if matrix == 16 else matrix, full, primaries)
+    elif matrix != 0 or not full:
+        bgr = _yuv_to_bgr(planes, info, rgb_depth, alpha is not None,
+                          matrix, full, primaries)
     else:
         bgr = np.stack([planes[1], planes[0], planes[2]], -1)
         if rgb_depth == 8:
@@ -810,37 +942,83 @@ def _full(kind: bytes, version: int, flags: int, body: bytes) -> bytes:
     return _box(kind, struct.pack(">I", (version << 24) | flags) + body)
 
 
-def _av1c(depth: int, mono: bool, sub: bool = False) -> bytes:
+def _chroma(subsampling) -> int:
+    """av1_encode.c's OPT_SUBSAMPLED: 0 4:4:4, 1 4:2:0 (``True`` too), 2
+    4:2:2."""
+    return {None: 0, 0: 0, "4:4:4": 0, 1: 1, "4:2:0": 1, 2: 2,
+            "4:2:2": 2}[subsampling]
+
+
+def _av1c(depth: int, mono: bool, sub=False) -> bytes:
     """The av1C box of the writer's sequence header (profile 0 gray or
-    4:2:0, 1 colour at 4:4:4, 2 at 12 bits; seq_level_idx 31)."""
-    profile = 2 if depth == 12 else 0 if mono or sub else 1
-    ss = mono or sub
+    4:2:0, 1 colour at 4:4:4, 2 at 12 bits or 4:2:2; seq_level_idx 31);
+    ``sub``: as :func:`_chroma` takes it."""
+    chroma = _chroma(sub)
+    profile = 2 if depth == 12 or chroma == 2 else 0 if mono or chroma \
+        else 1
+    ssx, ssy = mono or chroma > 0, mono or chroma == 1
     return _box(b"av1C", bytes([
         0x81, profile << 5 | 31, (depth > 8) << 6 | (depth == 12) << 5
-        | mono << 4 | ss << 3 | ss << 2, 0]))
+        | mono << 4 | ssx << 3 | ssy << 2, 0]))
 
 
 def _encoder():
     lib = _build.load("av1_encode")
     i64, ptr, cint = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int
     lib.av1_encode.argtypes = [ptr, cint, i64, i64, cint, cint, ptr, ptr,
-                               i64, ptr, ptr, ctypes.c_char_p, cint]
+                               ptr, i64, ptr, ptr, ctypes.c_char_p, cint]
     lib.av1_encode.restype = cint
     return lib
 
 
-OPT_COUNT = 43  # av1_encode.c's options: 11, then 8 CDEF strengths of 4
+# av1_encode.c's options: 11, then 8 CDEF strengths of 4, the colour
+# description (primaries, transfer, matrix, full range), 128 x 128
+# superblocks, the three planes' restoration types, lr_unit_shift and
+# lr_uv_shift
+OPT_COUNT = 53
+LR_TYPES = {"none": 0, "wiener": 1, "sgrproj": 2, "switchable": 3}
 
 
-def _options(subsampled: bool, lossy) -> np.ndarray:
+def _lr_units(lr) -> np.ndarray:
+    """av1_encode.c's lr[] of ``lossy["lr"]["units"]``: for each plane a
+    list of units, each ``("none",)``, ``("wiener", (v0, v1, v2), (h0, h1,
+    h2))`` (taps 0-2 of the vertical and the horizontal pass, the outer
+    first; tap 0 is ignored for chroma) or ``("sgrproj", set, (xqd0,
+    xqd1))``; the plane's units take them in turn, in raster order."""
+    units = list(lr.get("units", ((), (), ()))) if lr else []
+    units += [()] * (3 - len(units))
+    rows = []
+    for plane in units:
+        for u in plane:
+            row = [LR_TYPES[u[0]]] + [0] * 9
+            if u[0] == "wiener":
+                row[1:7] = list(u[1]) + list(u[2])
+            elif u[0] == "sgrproj":
+                row[7], row[8:10] = u[1], list(u[2])
+            rows += row
+    return np.array([len(p) for p in units] + rows, np.int32)
+
+
+def _options(subsampled, lossy, colour=None, sb128=False) -> np.ndarray:
     """av1_encode.c's opts[] of the writer's keywords (``lossy``: dict of
     ``base_q``, ``qm`` (15: none), ``block`` (8, 16 or 32), ``lf`` (the
-    four loop filter levels), ``sharpness``, ``cdef_damping`` (3-6) and
+    four loop filter levels), ``sharpness``, ``cdef_damping`` (3-6),
     ``cdef`` (a list of (y primary, y secondary, uv primary, uv secondary)
-    strengths, secondary 0, 1, 2 or 4))."""
+    strengths, secondary 0, 1, 2 or 4) and ``lr``: dict of ``types`` (of
+    Y, U and V: "none", "wiener", "sgrproj" or "switchable"),
+    ``unit_shift`` (units of 256 >> (2 - shift) luma samples),
+    ``uv_shift`` (4:2:0 chroma units halved) and ``units``
+    (:func:`_lr_units`)); ``colour``: (primaries, transfer, matrix, full
+    range) of the sequence header."""
     o = np.zeros(OPT_COUNT, np.int32)
-    o[0] = int(subsampled)
+    o[0] = _chroma(subsampled)
     o[2] = 15
+    o[43:47] = colour
+    o[47] = int(sb128)
+    if lossy and lossy.get("lr"):
+        lr = lossy["lr"]
+        o[48:51] = [LR_TYPES[t] for t in lr["types"]]
+        o[51], o[52] = lr.get("unit_shift", 0), lr.get("uv_shift", 0)
     if lossy:
         cdef = list(lossy.get("cdef", ()))
         lf = list(lossy.get("lf", (0, 0, 0, 0)))
@@ -856,41 +1034,58 @@ def _options(subsampled: bool, lossy) -> np.ndarray:
     return o
 
 
+def default_colour(planes: int, subsampled) -> tuple:
+    """The writer's colour description (primaries, transfer, matrix, full
+    range): BT.709 primaries, sRGB transfer and BT.601 for subsampled
+    colour, else unspecified and identity (gray: unspecified)."""
+    if _chroma(subsampled):
+        return (1, 13, 6, 1)
+    return (2, 2, 2 if planes == 1 else 0, 1)
+
+
 def encode_av1(planes, depth: int = 8, seed: int = 0,
-               subsampled: bool = False, lossy: dict = None,
-               recon: bool = False):
+               subsampled=False, lossy: dict = None,
+               recon: bool = False, colour: tuple = None,
+               sb128: bool = False):
     """AV1 OBUs (a sequence header and one frame, the reduced still picture
     header) of ``uint16`` planes: ``[1 or 3, H, W]`` (Y or Y, U, V at 4:4:4)
-    or, with ``subsampled``, a list Y ``[H, W]``, U, V ``[(H + 1) // 2,
-    (W + 1) // 2]`` (4:2:0 under BT.601), written in C
-    (``csrc/host/av1_encode.c``).  Lossless by default: 64 x 64
-    superblocks, a partition and an intra mode for each block picked from
-    ``seed`` and the image (DC, directional with angle deltas, smooth,
-    Paeth, CfL, filter intra), 4 x 4 Walsh-Hadamard residuals.  ``lossy``
-    (:func:`_options`; gray or 4:2:0): blocks of one size, one DCT_DCT each,
-    deblocking and CDEF as given.  With ``recon``: (OBUs, the writer's
+    or, with ``subsampled`` (``True`` or "4:2:0", or "4:2:2"), a list Y
+    ``[H, W]``, U, V ``[(H + 1) // 2, (W + 1) // 2]`` (4:2:2: ``[H, (W +
+    1) // 2]``), written in C (``csrc/host/av1_encode.c``); ``colour``:
+    the sequence header's (primaries, transfer, matrix, full range),
+    :func:`default_colour` by default.  Lossless by default: 64 x 64
+    superblocks (``sb128``: 128 x 128), a partition and an intra mode for
+    each block picked from ``seed`` and the image (DC, directional with
+    angle deltas, smooth, Paeth, CfL, filter intra), 4 x 4
+    Walsh-Hadamard residuals.  ``lossy`` (:func:`_options`; gray, 4:2:0
+    or 4:2:2): blocks of one size, one DCT_DCT each, deblocking, CDEF and
+    loop restoration as given.  With ``recon``: (OBUs, the writer's
     reconstruction, planes as given)."""
     if isinstance(planes, np.ndarray) and planes.ndim == 3:
         planes = list(planes)
     planes = [np.ascontiguousarray(p, np.uint16) for p in planes]
     n = len(planes)
     H, W = planes[0].shape
-    chroma = ((H + 1) // 2, (W + 1) // 2) if subsampled else (H, W)
+    sub = _chroma(subsampled)
+    chroma = ((H + 1) // 2 if sub == 1 else H, (W + 1) // 2 if sub else W)
     if n not in (1, 3) or depth not in (8, 10, 12) or any(
             p.max(initial=0) >= 1 << depth for p in planes) or any(
             p.shape != chroma for p in planes[1:]) or (
-            lossy and n == 3 and not subsampled):
+            lossy and n == 3 and not sub):
         raise ValueError("encode_av1: 1 or 3 planes of 8-, 10- or 12-bit "
-                         "samples (lossy colour at 4:2:0)")
+                         "samples (lossy colour at 4:2:0 or 4:2:2)")
     flat = np.concatenate([p.ravel() for p in planes])
     cap = 64 * flat.size * 2 + 4096
     out = np.empty(cap, np.uint8)
     size = np.zeros(1, np.int64)
     rec = np.empty_like(flat) if recon else None
-    opts = _options(subsampled, lossy)  # alive through the call
+    # alive through the call
+    opts = _options(subsampled, lossy, colour or default_colour(
+        n, subsampled), sb128)
+    lr = _lr_units(lossy.get("lr") if lossy else None)
     _call(_encoder().av1_encode, flat.ctypes.data, n, H, W, depth, seed,
-          opts.ctypes.data, out.ctypes.data, cap, size.ctypes.data,
-          rec.ctypes.data if recon else None)
+          opts.ctypes.data, lr.ctypes.data, out.ctypes.data, cap,
+          size.ctypes.data, rec.ctypes.data if recon else None)
     data = out[:int(size[0])].tobytes()
     if not recon:
         return data
@@ -901,46 +1096,80 @@ def encode_av1(planes, depth: int = 8, seed: int = 0,
     return data, parts
 
 
-def yuv420(img: np.ndarray, depth: int = 8) -> list:
-    """The writer's BT.601 full-range 4:2:0 planes of ``[H, W, 3]`` BGR:
-    Y, then Cb and Cr averaged over 2 x 2 samples (the edge's repeated)."""
+# (kr, kb) of the matrices the writer converts with other than BT.601,
+# whose literals below it has always used (5, 6 and the rest)
+KR_KB = {1: (0.2126, 0.0722), 4: (0.30, 0.11), 7: (0.212, 0.087),
+         9: (0.2627, 0.0593), 10: (0.2627, 0.0593)}
+
+
+def yuv_planes(img: np.ndarray, depth: int = 8, subsampling="4:2:0",
+               matrix: int = 6, full: bool = True) -> list:
+    """The writer's planes of ``[H, W, 3]`` BGR under ``matrix``
+    (:data:`KR_KB`, else BT.601) at full or limited range: Y, then Cb and
+    Cr averaged over 2 x 2 samples (4:2:0) or 2 x 1 (4:2:2), the edge's
+    repeated."""
     x = np.asarray(img, np.float64)
     b, g, r = x[..., 0], x[..., 1], x[..., 2]
+    if matrix in KR_KB:
+        kr, kb = KR_KB[matrix]
+        kg, db, dr = 1 - kr - kb, 2 * (1 - kb), 2 * (1 - kr)
+    else:
+        kr, kg, kb, db, dr = 0.299, 0.587, 0.114, 1.772, 1.402
     half, top = 1 << (depth - 1), (1 << depth) - 1
-    y = 0.299 * r + 0.587 * g + 0.114 * b
-    cb = (b - y) / 1.772 + half
-    cr = (r - y) / 1.402 + half
+    y = kr * r + kg * g + kb * b
+    cb = (b - y) / db + half
+    cr = (r - y) / dr + half
+    if not full:
+        s = 1 << (depth - 8)
+        y = y * (219 * s) / top + 16 * s
+        cb, cr = ((c - half) * (224 * s) / top + half for c in (cb, cr))
     H, W = y.shape
+    sy = 2 if _chroma(subsampling) == 1 else 1
     out = [y]
     for c in (cb, cr):
-        c = np.pad(c, ((0, H % 2), (0, W % 2)), mode="edge")
-        out.append((c[0::2, 0::2] + c[1::2, 0::2] + c[0::2, 1::2]
-                    + c[1::2, 1::2]) / 4)
+        c = np.pad(c, ((0, H % sy), (0, W % 2)), mode="edge")
+        out.append(sum(c[i::sy, j::2] for j in range(2)
+                       for i in range(sy)) / (2 * sy))
     return [np.clip(np.rint(p), 0, top).astype(np.uint16) for p in out]
+
+
+def yuv420(img: np.ndarray, depth: int = 8) -> list:
+    """The writer's BT.601 full-range 4:2:0 planes of ``[H, W, 3]`` BGR
+    (:func:`yuv_planes`)."""
+    return yuv_planes(img, depth)
 
 
 def encode_avif(img: np.ndarray, depth: int = 8, seed: int = 0,
                 alpha: np.ndarray = None, extra_props=(),
                 essential: bool = False, subsampling: str = None,
-                lossy: dict = None, recon: bool = False):
+                lossy: dict = None, recon: bool = False,
+                colour: tuple = None, sb128: bool = False, planes=None):
     """An AVIF still image of ``img``: ``[H, W, 3]`` BGR or ``[H, W]`` gray
     (4:0:0), ``uint8`` at depth 8, else ``uint16`` samples below ``1 <<
     depth`` (10 or 12).  Colour is lossless 4:4:4 under the identity matrix
-    (Y = G, U = B, V = R), or with ``subsampling="4:2:0"`` or ``lossy``
-    (:func:`encode_av1`) 4:2:0 under BT.601 (:func:`yuv420`); ``alpha``
-    ([H, W], the same depth) adds a lossless alpha item; ``extra_props``
-    (boxes, e.g. ``irot``) are associated with the image too, marked
-    essential with ``essential``.  cv2.imread reads the lossless identity
-    colour file back as ``img`` (8-bit) and the lossless gray one under
-    IMREAD_ANYDEPTH as ``img``.  With ``recon``: (bytes, the writer's
-    reconstruction of the image's planes)."""
+    (Y = G, U = B, V = R), or with ``subsampling`` ("4:2:0", or "4:2:2")
+    or ``lossy`` (:func:`encode_av1`; 4:2:0 unless "4:2:2" is asked)
+    subsampled (:func:`yuv_planes`) under ``colour`` (primaries, transfer,
+    matrix, full range: the sequence header's and the colr box's; BT.601
+    full range by default); ``planes`` (Y, U, V) are then written as
+    given instead of ``img``'s.  ``alpha`` ([H, W], the same depth) adds a
+    lossless alpha item; ``extra_props`` (boxes, e.g. ``irot``) are
+    associated with the image too, marked essential with ``essential``.
+    cv2.imread reads the lossless identity colour file back as ``img``
+    (8-bit) and the lossless gray one under IMREAD_ANYDEPTH as ``img``.
+    With ``recon``: (bytes, the writer's reconstruction of the image's
+    planes)."""
     img = np.asarray(img)
     H, W = img.shape[:2]
     mono = img.ndim == 2
-    sub = not mono and (subsampling == "4:2:0" or bool(lossy))
-    planes = [img] if mono else yuv420(img, depth) if sub else \
-        [img[..., 1], img[..., 0], img[..., 2]]
-    color = encode_av1(planes, depth, seed, sub, lossy, recon)
+    sub = 0 if mono else _chroma(subsampling) or int(bool(lossy))
+    colour = tuple(colour or default_colour(1 if mono else 3, sub))
+    if planes is None:
+        planes = [img] if mono else yuv_planes(
+            img, depth, sub, colour[2], colour[3]) if sub else \
+            [img[..., 1], img[..., 0], img[..., 2]]
+    color = encode_av1(planes, depth, seed, sub, lossy, recon, colour,
+                       sb128)
     if recon:
         color, rec = color
     items = [(1, color)]
@@ -950,10 +1179,8 @@ def encode_avif(img: np.ndarray, depth: int = 8, seed: int = 0,
     props = [_full(b"ispe", 0, 0, struct.pack(">II", W, H)),
              _full(b"pixi", 0, 0, bytes([chans] + [depth] * chans)),
              _av1c(depth, mono, sub),
-             _box(b"colr", b"nclx" + (struct.pack(">HHHB", 1, 13, 6, 0x80)
-                                      if sub else struct.pack(
-                                          ">HHHB", 2, 2, 2 if mono else 0,
-                                          0x80)))]
+             _box(b"colr", b"nclx" + struct.pack(">HHHB", *colour[:3],
+                                                 0x80 * bool(colour[3])))]
     assoc = [(1, [1, 0x80 | 2, 0x80 | 3, 4] + [
         5 + k | (0x80 if essential else 0) for k in range(len(extra_props))])]
     props += list(extra_props)

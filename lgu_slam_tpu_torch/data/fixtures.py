@@ -111,11 +111,20 @@ FRAME_EXT = {"png": "png", "ppm": "ppm", "pgm": "pgm", "tiff": "tiff",
              "lzw16-tiff": "tif", "jp2": "jp2", "ht-jp2": "jp2",
              "12bit-tiff": "tif", "12bit-png": "png", "avif": "avif",
              "12bit-avif": "avif", "12bit-avif-png": "png",
-             "lossy-avif": "avif", "lossy-avif-png": "png"}
+             "lossy-avif": "avif", "lossy-avif-png": "png",
+             "lr-avif": "avif", "lr-avif-png": "png"}
 # the writer's lossy AVIF frames (avif.encode_avif's ``lossy``): 4:2:0
 # under BT.601, 16 x 16 blocks, deblocking and two CDEF strengths
 LOSSY_AVIF = dict(base_q=60, qm=8, block=16, lf=(8, 8, 4, 4), sharpness=0,
                   cdef_damping=4, cdef=[(2, 1, 1, 0), (4, 2, 2, 1)])
+# the same with loop restoration: Wiener units of 256 x 256 on luma (their
+# taps in turn), self-guided units on chroma (two sets, one of radius 2
+# and 1, one of radius 1 alone)
+LR_AVIF = dict(LOSSY_AVIF, lr=dict(
+    types=("wiener", "sgrproj", "sgrproj"), unit_shift=2, units=[
+        [("wiener", (3, -7, 15), (3, -7, 15)),
+         ("wiener", (-2, 5, 20), (1, -12, 30))],
+        [("sgrproj", 4, (-40, 40))], [("sgrproj", 12, (0, 50))]]))
 
 
 def ycbcr_samples(bgr: np.ndarray) -> np.ndarray:
@@ -193,7 +202,8 @@ def write_frame(path, image, kind: str) -> str:
     12-bit gray lossless AVIF) or ``12bit-avif-png`` (the same values,
     unshifted, as a 16-bit PNG); colour as ``lossy-avif`` (the writer's
     lossy 4:2:0 AVIF, :data:`LOSSY_AVIF`) or ``lossy-avif-png``, the PNG of
-    what that AVIF reads back as."""
+    what that AVIF reads back as; ``lr-avif`` and ``lr-avif-png`` the same
+    with loop restoration (:data:`LR_AVIF`)."""
     path = f"{path}.{FRAME_EXT[kind]}" if kind in FRAME_EXT else path
     if kind == "png":
         data = encode_png(image)
@@ -234,9 +244,10 @@ def write_frame(path, image, kind: str) -> str:
             "12bit-tiff" else encode_png(top << 4)
     elif kind == "avif":
         data = avif.encode_avif(image)
-    elif kind in ("lossy-avif", "lossy-avif-png"):
-        data = avif.encode_avif(image, lossy=LOSSY_AVIF)
-        if kind == "lossy-avif-png":
+    elif kind in ("lossy-avif", "lossy-avif-png", "lr-avif", "lr-avif-png"):
+        data = avif.encode_avif(image, lossy=LR_AVIF if kind.startswith(
+            "lr") else LOSSY_AVIF)
+        if kind.endswith("-png"):
             data = encode_png(avif.decode_avif(data))
     elif kind in ("12bit-avif", "12bit-avif-png"):
         top = np.minimum(image >> 4, 4095).astype(np.uint16)

@@ -84,8 +84,7 @@ where each decoder decides it (the C decoders, ``tiff.py``, ``webp.py``,
 ...), so a file reached by any path gets the same class.  A format this
 OpenCV build reads and the port does not yet read raises
 ``NotImplementedError`` naming it: within the formats above what each
-decoder lists (AVIF: loop restoration, superres, segmentation, film
-grain, 4:2:2 or other-matrix colour, limited-range colour, frames
+decoder lists (AVIF: superres, segmentation, film grain, frames
 libavif scales to their item's size, grids, sequences; TIFF's separate colour planes of 12 or 16 bits read to
 gray and an 8-bit AV1 frame under a deeper AVIF av1C read with
 anydepth, which OpenCV reads partly from memory it never wrote).

@@ -95,6 +95,8 @@ PLAIN = [
     ("cdef_pri_taps", "cdef_pri_taps", "<i4", "int", (2, 2)),
     ("cdef_sec_taps", "cdef_sec_taps", "<i4", "int", (2,)),
     ("av1_sgr_params", "sgr_params", "<i4", "int", (16, 4)),
+    ("av1_one_by_x", "one_by_x", "<i4", "int", (25,)),
+    ("av1_x_by_xplus1", "x_by_xplus1", "<i4", "int", (256,)),
     ("iwt_matrix_ref", "qm_iwt", "u1", "uint8_t", (15, 2, 3344)),
 ]
 # the transform sizes whose scans libaom stores (the 64-point sizes use
@@ -166,10 +168,24 @@ SPEC_CDFS.update({
     "delta_q_cdf": [[28160, 32120, 32677]],
     "delta_lf_cdf": [[28160, 32120, 32677]],
     "delta_lf_multi_cdf": [[28160, 32120, 32677]] * 4,
+    # loop restoration: restoration_type, use_wiener, use_sgrproj
+    "switchable_restore_cdf": [[9413, 22581]],
+    "wiener_restore_cdf": [[11570]],
+    "sgrproj_restore_cdf": [[16855]],
 })
 SPEC_SHAPES = {"palette_y_mode_cdf": (7, 3), "cfl_sign_cdf": (),
                "filter_intra_mode_cdf": (), "intrabc_cdf": (),
-               "tx_cdf": (3, 3), "delta_q_cdf": (), "delta_lf_cdf": ()}
+               "tx_cdf": (3, 3), "delta_q_cdf": (), "delta_lf_cdf": (),
+               "switchable_restore_cdf": (), "wiener_restore_cdf": (),
+               "sgrproj_restore_cdf": ()}
+# the specification's constants of loop restoration's coefficients: the
+# Wiener taps 0-2 (the outer first) and the self-guided projection's xqd
+SPEC_CONSTANTS = [
+    ("wiener_taps_min", [-5, -23, -17]), ("wiener_taps_max", [10, 8, 46]),
+    ("wiener_taps_k", [1, 2, 3]), ("wiener_taps_mid", [3, -7, 15]),
+    ("sgrproj_xqd_min", [-96, -32]), ("sgrproj_xqd_max", [31, 95]),
+    ("sgrproj_xqd_mid", [-32, 31]),
+]
 
 # default_nmv_context (libaom's nmv_context): the joints' CDF row, then for
 # the vertical and the horizontal component the rows of classes, class0_fp
@@ -348,6 +364,8 @@ def render() -> dict:
         n = int(np.prod(shape)) * np.dtype(dtype).itemsize
         parts.append(_array(ctype, name, np.frombuffer(
             table(syms, sym, n), dtype).reshape(shape)))
+    for name, values in SPEC_CONSTANTS:
+        parts.append(_array("int", name, np.array(values)))
     mv = np.frombuffer(table(syms, "default_nmv_context", 286), "<u2")
     rows, pos = [], 0
     for n in MV_ROWS:
@@ -396,8 +414,9 @@ def render() -> dict:
  * at the same offsets.  cospi_arr and sinpi_arr are libaom's for cos_bit
  * 10-13 (row 2: 12 bits); cdef_directions the (row, column) steps of
  * libaom's offsets; sgr_params libaom's self-guided restoration sets
- * (r[2], s[2]), which no code reads yet (loop restoration is refused).  sm_weights holds the weights of sizes 4, 8, 16, 32 and 64
- * (size n from offset n - 4).  mv_cdf is libaom's default_nmv_context,
+ * (r[2], s[2]), one_by_x and x_by_xplus1 its reciprocals; the wiener_taps_*
+ * and sgrproj_xqd_* ranges are the specification's.  sm_weights holds the
+ * weights of sizes 4, 8, 16, 32 and 64 (size n from offset n - 4).  mv_cdf is libaom's default_nmv_context,
  * the CDFs of intra block copy vectors: at 0 the joints (4 symbols), then
  * for the vertical (at 5) and the horizontal component (at 74): classes
  * (11) at +0, class0_fp (2 x 4) at +12, fp (4) at +22, sign at +27,

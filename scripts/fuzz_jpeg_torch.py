@@ -677,7 +677,7 @@ int main(int argc, char **argv)
         long n;
         uint8_t *base = load(argv[f], &n);
         FOR_EACH_INPUT(base, n, mutations, {
-            int32_t info[15];
+            int32_t info[20];
             int st = av1_info(d, m, info, err, sizeof err);
             int planes = info[3] ? 1 : 3;
             if (!st && (int64_t)info[0] * info[1] > (1 << 20))
@@ -708,8 +708,10 @@ def av1_seeds(rng) -> list:
     (every av01 item, alpha included; the 480 x 640 frames left out: each
     of their truncations decodes for a tenth of a second) and of the
     port's writer: lossless colour and gray, 8 / 10 / 12 bits, 24 x 40 and
-    17 x 9, lossless 4:2:0, and lossy 4:2:0 at 8 and 10 bits and gray with
-    quantiser matrices, deblocking and CDEF."""
+    17 x 9, lossless 4:2:0 and 4:2:2, lossy 4:2:0 at 8 and 10 bits, 4:2:2
+    and gray with quantiser matrices, deblocking and CDEF, and 70 x 98
+    frames with loop restoration (every type, 8 to 12 bits, 4:2:0 and
+    4:2:2, 128 x 128 superblocks, gray)."""
     from lgu_slam_tpu_torch.data import avif
 
     folder = os.path.join(REPO, "tests", "data", "avif")
@@ -742,6 +744,30 @@ def av1_seeds(rng) -> list:
         for k, opts in enumerate(lossy):
             out.append(avif.encode_av1(planes, depth, k, True, opts))
     out.append(avif.encode_av1([img[..., 1]], 8, 3, False, lossy[0]))
+    # 4:2:2, lossless and lossy; loop restoration of every type on each
+    # plane, units of 64 and 128 samples, 128 x 128 superblocks
+    units = [[("wiener", (3, -7, 15), (-5, 8, 46)), ("sgrproj", 10, (0, 95)),
+              ("none",), ("sgrproj", 14, (-96, 0))],
+             [("sgrproj", 3, (31, -32)), ("wiener", (0, -23, -17),
+                                          (0, 8, 46))],
+             [("wiener", (0, 4, 2), (0, -1, 9)), ("none",)]]
+    wide = np.cumsum(rng.integers(-6, 7, (70, 98, 3)), 1) + 128
+    wide = wide.clip(0, 255).astype(np.uint16)
+    for depth, sub, sb128, shift in ((8, "4:2:0", False, 0),
+                                     (10, "4:2:2", True, 1),
+                                     (12, "4:2:0", True, 1)):
+        planes = avif.yuv_planes(wide << (depth - 8), depth, sub)
+        lr = dict(types=("switchable", "switchable", "wiener"),
+                  unit_shift=shift, uv_shift=int(sub == "4:2:0"),
+                  units=units)
+        out.append(avif.encode_av1(planes, depth, depth, sub,
+                                   dict(lossy[0], lr=lr), sb128=sb128))
+    planes = avif.yuv_planes(img, 8, "4:2:2")
+    out.append(avif.encode_av1(planes, 8, 5, "4:2:2"))
+    out.append(avif.encode_av1(planes, 8, 6, "4:2:2", lossy[1]))
+    out.append(avif.encode_av1([wide[..., 1]], 8, 7, False, dict(
+        lossy[1], lr=dict(types=("wiener", "none", "none"),
+                          units=[units[0][:1] + [("none",)]]))))
     return out
 
 

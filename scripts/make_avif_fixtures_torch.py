@@ -36,15 +36,22 @@ otherwise):
   ``cv2_lossy_c10_q80_480x640.avif``: a whole rendered 480 x 640 frame at
   OpenCV's default quality (95), at 50, and 10-bit at 80, which
   ``chip_smoke.py`` phase 20 decodes and times;
+- ``cv2_lr_q30_s2_480x640.avif``, ``cv2_lr_q60_s2_480x640.avif``: that
+  frame as cv2 reads the first, written at speed 2 and qualities 30
+  (self-guided luma, Wiener chroma) and 60 (switchable luma), whose loop
+  restoration ``chip_smoke.py`` phase 21 decodes and times;
+- ``cv2_lossy_lr_s0.avif``: ``cv2.imwrite`` at speed 0, a 48 x 64 frame
+  with a self-guided unit;
 - ``pillow_c444.avif``: Pillow's lossless 4:4:4 colour under BT.601;
+  ``pillow_c422.avif``: its lossy 4:2:2; ``pillow_limited.avif``: its
+  lossy 4:2:0 at limited range; ``port_c420_bt709.avif``: the port's
+  writer's lossless 4:2:0 under BT.709;
 
 refused as ``cv2.imread`` refuses them (None: null hashes):
 ``port_damaged.avif`` (three bytes of the tile data flipped),
 ``port_cut.avif`` (cut inside its tile); and read by OpenCV but queued for
 a later reader (``NotImplementedError`` naming the feature, the ``queued``
-key): ``cv2_lossy_lr_s0.avif`` (``cv2.imwrite`` at speed 0, whose frame
-uses loop restoration), ``pillow_c422.avif`` (Pillow's 4:2:2),
-``pillow_avis.avif`` (an image sequence).
+key): ``pillow_avis.avif`` (an image sequence).
 
 Beside them ``hashes.json``: the SHA-256 of ``cv2.imread``'s array in both
 read modes (colour, ``IMREAD_ANYDEPTH``), its shape and dtype, which
@@ -75,7 +82,7 @@ from lgu_slam_tpu_torch.data.fixtures import (  # noqa: E402
 OUT = os.path.join(REPO, "tests", "data", "avif")
 LIMIT = 128 * 1024
 TOTAL = 640 * 1024
-LOSSY_480X640 = 256 * 1024  # the three 480 x 640 frames together
+LOSSY_480X640 = 256 * 1024  # the 480 x 640 frames together
 
 
 def array_hash(a) -> dict:
@@ -194,16 +201,35 @@ def files() -> dict:
     out["cv2_lossy_q50_480x640.avif"] = (cv2_file(frame, quality=50), None)
     out["cv2_lossy_c10_q80_480x640.avif"] = (cv2_file(
         frame.astype(np.uint16) << 2, quality=80, depth=10), None)
+    q95 = cv2_read(out["cv2_lossy_q95_480x640.avif"][0])
+    for quality in (30, 60):
+        out[f"cv2_lr_q{quality}_s2_480x640.avif"] = (cv2_file(
+            q95, quality=quality, speed=2), None)
     out["cv2_lossy_lr_s0.avif"] = (cv2_file(scene(np.random.default_rng(50),
                                                   48, 64), quality=50,
-                                            speed=0), "loop restoration")
+                                            speed=0), None)
     out["pillow_c422.avif"] = (pillow_file(img[..., ::-1].copy(), quality=60,
-                                           subsampling="4:2:2"),
-                               "4:2:2 YUV to RGB")
+                                           subsampling="4:2:2"), None)
+    out["pillow_limited.avif"] = (pillow_file(img[..., ::-1].copy(),
+                                              quality=60, range="limited"),
+                                  None)
+    out["port_c420_bt709.avif"] = (avif.encode_avif(
+        img, 8, 4, subsampling="4:2:0", colour=(1, 1, 1, 1)), None)
     out["pillow_avis.avif"] = (pillow_file(img[..., ::-1].copy(), frames=[
         255 - img[..., ::-1]], quality=100, subsampling="4:4:4"),
         "image sequence")
     return out
+
+
+def cv2_read(data: bytes) -> np.ndarray:
+    """cv2.imread of a file of ``data``."""
+    import cv2
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "f.avif")
+        with open(path, "wb") as fh:
+            fh.write(data)
+        return cv2.imread(path)
 
 
 def scene(rng, H: int, W: int) -> np.ndarray:

@@ -48,14 +48,16 @@ def test_committed_fixtures_decode_to_cv2_hashes():
     sizes, screen content (palettes, intra block copy), alpha, Pillow's
     4:0:0 gray with and without tiles, the port's writer's files, a damaged
     and a cut file, cv2's lossy files (48 x 64 at quality 90, 480 x 640
-    frames at 95, 50 and 10-bit 80) and Pillow's 4:4:4 under BT.601: the
-    port's arrays hash as cv2.imread's do in both read modes (the hashes
-    written beside them, which chip_smoke.py phases 19 and 20 check on
-    machines without OpenCV), or both refuse (null: ValueError); the queued
-    files (a frame using loop restoration, 4:2:2, an avis sequence) are
-    read by cv2 and raise NotImplementedError naming their feature."""
+    frames at 95, 50 and 10-bit 80, frames using loop restoration: 480 x
+    640 at speed 2, qualities 30 and 60, 48 x 64 at speed 0), Pillow's
+    4:4:4 under BT.601, 4:2:2 and limited-range 4:2:0, the writer's 4:2:0
+    under BT.709: the port's arrays hash as cv2.imread's do in both read
+    modes (the hashes written beside them, which chip_smoke.py phases 19
+    to 21 check on machines without OpenCV), or both refuse (null:
+    ValueError); the queued file (an avis sequence) is read by cv2 and
+    raises NotImplementedError naming its feature."""
     hashes = json.load(open(os.path.join(DATA, "hashes.json")))
-    assert len(hashes) == 34
+    assert len(hashes) == 38
     for name, want in hashes.items():
         path = os.path.join(DATA, name)
         for mode, flag in (("color", cv2.IMREAD_COLOR),
@@ -192,12 +194,10 @@ def test_cut_and_damaged_files(tmp_path):
 # what the port refuses with NotImplementedError where cv2.imread reads
 # (or fails on what the port does not decode): each is queued in ROADMAP.md
 # A item 1, but the last, where OpenCV reads uninitialised memory
-QUEUED = ("loop restoration", "4:2:2 YUV to RGB", "lossy AV1 intra block",
-          "AV1 segmentation",
+QUEUED = ("lossy AV1 intra block", "AV1 segmentation",
           "AV1 superres", "AV1 film grain", "AV1 show_existing_frame",
           "an AV1 inter frame", "more than one AV1 frame",
           "a frame of another size than ispe's", "a frame larger than its",
-          "YUV to RGB under matrix", "limited-range samples",
           "an image sequence", "a grid", "an 8-bit frame under a deeper")
 
 
@@ -212,8 +212,7 @@ def _damage_base(kind):
 
 # kind: (rng seed, {(feature, cv2 reads): reads}) as measured with OpenCV
 # 5.0.0 (libavif 1.4.2, libaom 3.14.1)
-DAMAGE = {"alpha": (9, {("a frame of another size than ispe's", True): 2,
-                        ("YUV to RGB under matrix", True): 2}),
+DAMAGE = {"alpha": (9, {("a frame of another size than ispe's", True): 2}),
           "gray12": (10, {}),
           "cv2": (11, {("a frame of another size than ispe's", True): 6})}
 
@@ -348,42 +347,40 @@ def test_transforms_are_not_applied(tmp_path):
 
 
 def test_queued_files_raise_not_implemented(tmp_path):
-    """Files OpenCV reads and this reader does not yet (slice 21), one for
-    each feature an encoder here can write: a cv2.imwrite frame at speed 0
-    that uses loop restoration, film grain (Pillow, libaom's grain test
-    vectors), 4:2:2 (Pillow), colour under BT.709 (the writer's file, its
-    colr changed) and limited-range colour (Pillow), an avis sequence
-    (Pillow, two frames), a hand-made 1 x 2 grid of the writer's 64 x 64
-    images (MIAF's least tile size): NotImplementedError naming the
-    feature.  Limited-range gray (Pillow) is read: OpenCV copies a 4:0:0
-    image's Y as stored, whatever its range."""
+    """Files OpenCV reads and this reader does not yet (slice 22), one for
+    each feature an encoder here can write: film grain (Pillow, libaom's
+    grain test vectors), an avis sequence (Pillow, two frames), a
+    hand-made 1 x 2 grid of the writer's 64 x 64 images (MIAF's least tile
+    size): NotImplementedError naming the feature.  Files of features
+    this reader reads equal cv2.imread's result: a cv2.imwrite
+    frame at speed 0 that uses loop restoration, 4:2:2 (Pillow), colour
+    under BT.709 (the writer's file, its colr changed), limited-range
+    colour and gray (Pillow; OpenCV copies a 4:0:0 image's Y as stored,
+    whatever its range)."""
     from PIL import Image
 
     img = _scene(np.random.default_rng(2), 40, 56)
     rgb = Image.fromarray(img[..., ::-1].copy())
-    cases = {"loop restoration": _cv2_avif(
-        tmp_path / "r.avif", _scene(np.random.default_rng(50), 48, 64), 50,
-        0)}
-    rgb.save(tmp_path / "g.avif", quality=50,
-             advanced=[("film-grain-test", "1")])
-    cases["AV1 film grain"] = tmp_path / "g.avif"
+    _cv2_avif(tmp_path / "r.avif", _scene(np.random.default_rng(50), 48, 64),
+              50, 0)
     rgb.save(tmp_path / "422.avif", quality=60, subsampling="4:2:2")
-    cases["4:2:2 YUV to RGB"] = tmp_path / "422.avif"
     bt709 = avif.encode_avif(img, subsampling="4:2:0").replace(
         b"nclx" + bytes([0, 1, 0, 13, 0, 6]), b"nclx" + bytes([0, 1, 0, 1,
                                                                 0, 1]))
     (tmp_path / "709.avif").write_bytes(bt709)
-    cases["YUV to RGB under matrix coefficients 1"] = tmp_path / "709.avif"
     rgb.save(tmp_path / "lc.avif", quality=60, range="limited")
-    cases["limited-range samples"] = tmp_path / "lc.avif"
     Image.fromarray(img[..., 1].copy()).save(
         tmp_path / "lim.avif", quality=100, subsampling="4:0:0",
         range="limited")
-    same_as_cv2(tmp_path / "lim.avif")
+    for name in ("r", "422", "709", "lc", "lim"):
+        same_as_cv2(tmp_path / f"{name}.avif")
+    rgb.save(tmp_path / "g.avif", quality=50,
+             advanced=[("film-grain-test", "1")])
+    cases = {"AV1 film grain": tmp_path / "g.avif"}
     rgb.save(tmp_path / "s.avif", save_all=True, quality=100,
              append_images=[Image.fromarray(255 - img)])
     cases["image sequence"] = tmp_path / "s.avif"
-    assert len(cases) == 6
+    assert len(cases) == 2
     for feature, path in cases.items():
         assert cv2.imread(str(path)) is not None
         for anydepth in (False, True):

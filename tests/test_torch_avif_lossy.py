@@ -80,25 +80,21 @@ def test_cv2_lossy_files_at_every_quality(quality, tmp_path):
 
 
 @pytest.mark.parametrize("speed", range(5))
-def test_cv2_slow_speeds_read_or_refuse_loop_restoration(speed, tmp_path):
-    """cv2.imwrite at speeds 0-4, where libaom may restore the loop: a
-    frame that uses no restoration (or only enables it) reads equal to
-    cv2.imread in both modes, one that uses it raises NotImplementedError
-    naming it while cv2 reads it.  Across the qualities of each speed some
-    frame reads."""
-    reads = 0
+def test_cv2_slow_speeds_read_with_loop_restoration(speed, tmp_path):
+    """cv2.imwrite at speeds 0-4, where libaom restores the loop: every
+    frame reads equal to cv2.imread in both modes, those that restore
+    too (a self-guided unit at quality 80 at speeds 0-3; none of these
+    frames restores at speed 4, tests/test_torch_avif_lr.py's do)."""
+    restored = 0
     for k, quality in enumerate((20, 50, 80)):
         img = _natural(np.random.default_rng(10 * speed + k), 64, 96)
         path = _cv2_avif(tmp_path / f"q{quality}.avif", img, quality, speed)
-        try:
-            image_io.imread(str(path))
-        except NotImplementedError as e:
-            assert "loop restoration" in str(e)
-            assert cv2.imread(str(path)) is not None
-            continue
         same_as_cv2(path)
-        reads += 1
-    assert reads
+        data = path.read_bytes()
+        box = avif.parse(data)
+        counts = avif.lr_stats(avif._payload(data, box, box["color"]))[0]
+        restored += int(counts[:, 1:].sum())
+    assert restored == (speed < 4)
 
 
 def test_cv2_lossy_alpha_odd_sizes_and_deep_gray(tmp_path):
@@ -216,6 +212,15 @@ def _with_planes(H, W, depth, planes, alpha=None) -> bytes:
     return data[:m] + struct.pack(">I", len(data) - m) + data[m + 4:]
 
 
+# restoration units for the writer: the Wiener taps at their least, most
+# and middle values (the outer tap first; the vertical pass, then the
+# horizontal), self-guided sets with xqd at the ends of their ranges
+LR_WIENER_MIN = ("wiener", (-5, -23, -17), (-5, -23, -17))
+LR_WIENER_MAX = ("wiener", (10, 8, 46), (10, 8, 46))
+LR_WIENER_MID = ("wiener", (3, -7, 15), (-5, 8, 46))
+LR_SGR = [("sgrproj", k, ((-96, 95), (31, -32), (0, 0), (-32, 31))[k % 4])
+          for k in range(16)]
+
 WRITER = {
     "q60 16": dict(depth=8, lossy=dict(base_q=60, qm=8, block=16,
                                        lf=(8, 8, 4, 4), cdef_damping=4,
@@ -241,37 +246,95 @@ WRITER = {
         base_q=150, qm=6, block=16, lf=(30, 10), sharpness=2,
         cdef_damping=5, cdef=[(5, 1, 0, 0), (10, 4, 0, 0)])),
     "lossless 4:2:0": dict(depth=10, subsampling="4:2:0"),
+    "4:2:2 BT.709 limited": dict(depth=8, subsampling="4:2:2",
+                                 colour=(1, 1, 1, 0), lossy=dict(
+                                     base_q=80, qm=6, block=16,
+                                     lf=(12, 12, 6, 6), cdef_damping=4,
+                                     cdef=[(3, 1, 2, 1)])),
+    "lossless 4:2:2 BT.2020": dict(depth=12, subsampling="4:2:2",
+                                   colour=(9, 16, 9, 1)),
+    "lr 64 switchable": dict(depth=8, size=(140, 200), lossy=dict(
+        base_q=120, block=16, lf=(10, 10, 5, 5), cdef_damping=4,
+        cdef=[(4, 1, 2, 1)], lr=dict(
+            types=("switchable", "wiener", "sgrproj"), unit_shift=0,
+            uv_shift=1, units=[[LR_WIENER_MIN, LR_SGR[0], ("none",),
+                                LR_SGR[10], LR_WIENER_MAX, LR_SGR[14]],
+                               [LR_WIENER_MAX, LR_WIENER_MIN],
+                               [LR_SGR[5], ("none",), LR_SGR[15]]]))),
+    "lr 10-bit 4:2:2 sb128": dict(depth=10, subsampling="4:2:2", sb128=True,
+                                  size=(256, 1024), lossy=dict(
+        base_q=90, block=32, lf=(20, 16, 8, 8), cdef_damping=5,
+        cdef=[(6, 2, 3, 1), (0, 0, 0, 0)], lr=dict(
+            types=("sgrproj", "switchable", "wiener"), unit_shift=1,
+            units=[[LR_SGR[k] for k in range(16)],
+                   [("none",), LR_SGR[11], LR_WIENER_MIN],
+                   [LR_WIENER_MAX, LR_WIENER_MIN]]))),
+    "lr 12-bit": dict(depth=12, size=(260, 260), lossy=dict(
+        base_q=60, block=8, lf=(30, 30, 15, 15), cdef_damping=3,
+        cdef=[(9, 4, 9, 4)], lr=dict(
+            types=("wiener", "sgrproj", "switchable"), unit_shift=0,
+            units=[[LR_WIENER_MIN, LR_WIENER_MAX, LR_WIENER_MID],
+                   [LR_SGR[k] for k in (13, 2, 14, 7)],
+                   [LR_WIENER_MAX, LR_SGR[12], ("none",)]]))),
+    "lr 12-bit sb128 uv": dict(depth=12, sb128=True, size=(260, 390),
+                               lossy=dict(
+        base_q=200, block=16, lf=(40, 40, 20, 20), cdef_damping=6,
+        cdef=[(15, 4, 15, 4)], lr=dict(
+            types=("switchable", "switchable", "switchable"), unit_shift=1,
+            uv_shift=1, units=[[LR_SGR[3], LR_WIENER_MAX, ("none",)],
+                               [LR_SGR[8], LR_WIENER_MIN],
+                               [LR_WIENER_MID, LR_SGR[15]]]))),
+    "lr gray": dict(depth=10, gray=True, size=(256, 600), lossy=dict(
+        base_q=150, block=16, lf=(30, 10), cdef_damping=5,
+        cdef=[(5, 1, 0, 0)], lr=dict(
+            types=("wiener", "none", "none"), unit_shift=2,
+            units=[[LR_WIENER_MAX, LR_WIENER_MIN]]))),
 }
 
 
 @pytest.mark.parametrize("name", list(WRITER))
 def test_writer_lossy_files_read_back_through_cv2(name, tmp_path):
-    """The port's writer (avif.encode_avif): lossy 4:2:0 and gray at 8 to
-    12 bits with quantiser matrices, every block size, deblocking levels up
-    to 63 and sharpness up to 7, CDEF damping 3-6 and one to eight
-    strengths (settings libaom's encoder never picks), and lossless 4:2:0:
-    the port reads each equal to cv2.imread in both modes, and its AV1
-    planes equal the writer's own reconstruction."""
+    """The port's writer (avif.encode_avif): lossy 4:2:0, 4:2:2 and gray at
+    8 to 12 bits with quantiser matrices, every block size, deblocking
+    levels up to 63 and sharpness up to 7, CDEF damping 3-6 and one to
+    eight strengths, loop restoration of each type on each plane with
+    units of 64 to 256 samples, lr_uv_shift, 128 x 128 superblocks, the
+    Wiener taps and self-guided projections at the ends of their ranges
+    (settings libaom's encoder never picks; restoration at 12 bits, which
+    it never enables), lossless 4:2:0 and 4:2:2, BT.709 limited range and
+    BT.2020: the port reads each equal to cv2.imread in both modes, its
+    AV1 planes equal the writer's own reconstruction, and each unit type
+    given is used."""
     case = WRITER[name]
     depth = case["depth"]
-    img = _natural(np.random.default_rng(len(name)), 70, 98)
+    img = _natural(np.random.default_rng(len(name)),
+                   *case.get("size", (70, 98)))
     if case.get("gray"):
         img = img[..., 1].copy()
     if depth > 8:
         img = img.astype(np.uint16) << (depth - 8)
     data, rec = avif.encode_avif(img, depth, 3, lossy=case.get("lossy"),
                                  subsampling=case.get("subsampling"),
-                                 recon=True)
+                                 recon=True, colour=case.get("colour"),
+                                 sb128=case.get("sb128", False))
     path = tmp_path / "w.avif"
     path.write_bytes(data)
     same_as_cv2(path)
     box = avif.parse(data)
-    planes = avif.av1_planes(avif._payload(data, box, box["color"]))[0]
+    obus = avif._payload(data, box, box["color"])
+    planes = avif.av1_planes(obus)[0]
     assert len(planes) == len(rec)
     for a, b in zip(planes, rec):
         np.testing.assert_array_equal(a, b)
-    if not case.get("lossy") and not case.get("gray"):
+    if not case.get("lossy") and not case.get("gray") and \
+            case.get("subsampling") == "4:2:0":
         np.testing.assert_array_equal(rec[0], avif.yuv420(img, depth)[0])
+    lr = (case.get("lossy") or {}).get("lr")
+    if lr:
+        counts = avif.lr_stats(obus)[0]
+        for p, units in enumerate(lr["units"]):
+            for t in {avif.LR_TYPES[u[0]] for u in units}:
+                assert counts[p, t], (p, t)
 
 
 def _damaged(data: bytes, rng, start: int) -> bytes:
@@ -312,6 +375,53 @@ def test_lossy_damage(kind, tmp_path):
     if kind == "alpha":
         img = np.concatenate([img, img[..., :1]], -1)
     data = _cv2_avif(tmp_path / "src.avif", img, 50, 6).read_bytes()
+    start = data.index(b"mdat") + 4 if kind == "obus" else 0
+    path = tmp_path / "d.avif"
+    queued = {}
+    for _ in range(300):
+        path.write_bytes(_damaged(data, rng, start))
+        for anydepth in (False, True):
+            ref = cv2.imread(str(path), cv2.IMREAD_ANYDEPTH if anydepth
+                             else cv2.IMREAD_COLOR)
+            try:
+                got = image_io.imread(str(path), anydepth=anydepth)
+            except NotImplementedError as e:
+                feature = next((q for q in QUEUED if q in str(e)), None)
+                assert feature, str(e)
+                key = (feature, ref is not None)
+                queued[key] = queued.get(key, 0) + 1
+                continue
+            except ValueError as e:
+                assert ref is None, str(e)
+                continue
+            assert ref is not None
+            assert got.dtype == ref.dtype and got.shape == ref.shape
+            assert got.tobytes() == ref.tobytes()
+    assert queued == want
+
+
+# kind: (rng seed, {(feature, cv2 reads): reads}) as measured with OpenCV
+# 5.0.0 (libavif 1.4.2, libaom 3.14.1)
+LR_DAMAGE = {"whole": (31, {}),
+             "obus": (32, {("AV1 segmentation", False): 2})}
+
+
+@pytest.mark.parametrize("kind", sorted(LR_DAMAGE))
+def test_restoration_damage(kind, tmp_path):
+    """300 copies of a cv2 file whose frame restores every plane with
+    Wiener units, with one or two bytes changed (``whole``: anywhere;
+    ``obus``: in its AV1 data, the restoration coefficients among them),
+    each read in both modes: cv2's array where cv2.imread reads, ValueError
+    where it returns None; NotImplementedError only for a feature of
+    test_torch_avif.QUEUED, counted against ``LR_DAMAGE``."""
+    from test_torch_avif import QUEUED
+    from test_torch_avif_lr import _cv2_avif as cv2_avif, _tum, _used
+
+    seed, want = LR_DAMAGE[kind]
+    rng = np.random.default_rng(seed)
+    src = cv2_avif(tmp_path / "src.avif", _tum(120, 160), 50, 4)
+    assert _used(src) == {("luma", "wiener"), ("chroma", "wiener")}
+    data = src.read_bytes()
     start = data.index(b"mdat") + 4 if kind == "obus" else 0
     path = tmp_path / "d.avif"
     queued = {}

@@ -13,6 +13,7 @@ picks its decoder by the file's signature, and what the port does not
 read raises."""
 
 import os
+import shutil
 import struct
 import zlib
 
@@ -126,10 +127,11 @@ def _patch_ihdr(png: bytes, offset: int, value: int) -> bytes:
 
 def test_what_the_port_does_not_read_raises(tmp_path):
     """The format this OpenCV build reads that the port does not read
-    yet (AVIF written by cv2.imwrite at speed 0, whose frame uses loop
-    restoration, read back by cv2.imread; cv2.imwrite's default AVIF reads
-    since lossy AV1 does): NotImplementedError naming the format, whatever
-    the file's extension; a
+    yet (an AVIF image sequence, Pillow's, read back by cv2.imread;
+    cv2.imwrite's default AVIF reads since lossy AV1 does, and its files at
+    speed 0, whose frames use loop restoration, since restoration does):
+    NotImplementedError naming the format, whatever the file's extension;
+    a
     signature no decoder of cv2's claims, and an empty file: ValueError
     (cv2 returns None); imwrite writes PNG and JPEG only.  The files the
     port's first decoders refused and now reads (JPEG 2000 as JP2 and as a
@@ -151,11 +153,15 @@ def test_what_the_port_does_not_read_raises(tmp_path):
         + ((x // 9 + y // 7) % 2) * 30 for c in range(3)], -1)
         + np.random.default_rng(50).normal(0, 4, (48, 64, 3)), 0,
         255).astype(np.uint8)
+    restored = str(tmp_path / "r.avif")
+    assert cv2.imwrite(restored, scene, [cv2.IMWRITE_AVIF_QUALITY, 50,
+                                         cv2.IMWRITE_AVIF_SPEED, 0])
+    assert np.array_equal(image_io.imread(restored), cv2.imread(restored))
     formats = {".avif": "AVIF"}
     for ext, name in formats.items():
         other = str(tmp_path / f"a{ext}")
-        assert cv2.imwrite(other, scene, [cv2.IMWRITE_AVIF_QUALITY, 50,
-                                          cv2.IMWRITE_AVIF_SPEED, 0])
+        shutil.copy(os.path.join(os.path.dirname(__file__), "data", "avif",
+                                 "pillow_avis.avif"), other)
         assert cv2.imread(other) is not None
         for path in (other, other + ".png"):
             os.replace(other if path != other else other, path)

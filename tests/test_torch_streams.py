@@ -196,10 +196,10 @@ def test_euroc_stream_skips_tiff_cv2_returns_none_for(kind, tmp_path):
 
 
 def test_euroc_stream_raises_on_a_format_it_cannot_read(tmp_path):
-    """A left image stored as 4:2:2 AVIF (Pillow's), which cv2.imread
-    reads and the port does not yet: the JAX stream tracks all 4 frames;
-    the port's stream raises NotImplementedError naming the format instead
-    of dropping the frame."""
+    """A left image stored as AVIF with film grain (Pillow's), which
+    cv2.imread reads and the port does not yet: the JAX stream tracks all
+    4 frames; the port's stream raises NotImplementedError naming the
+    format instead of dropping the frame."""
     import cv2
     from PIL import Image
 
@@ -208,7 +208,8 @@ def test_euroc_stream_raises_on_a_format_it_cannot_read(tmp_path):
     left = os.path.join(root, "mav0", "cam0", "data")
     name = os.path.join(left, sorted(os.listdir(left))[1])
     Image.fromarray(cv2.imread(name)[..., ::-1].copy()).save(
-        name, format="AVIF", quality=60, subsampling="4:2:2")
+        name, format="AVIF", quality=60,
+        advanced=[("film-grain-test", "1")])
     assert len(list(jstreams.euroc_stereo_stream(root))) == 4
     with pytest.raises(NotImplementedError, match="AVIF"):
         list(tstreams.euroc_stereo_stream(root))
@@ -493,6 +494,39 @@ def test_tum_stream_lossy_avif_matches_jax(tmp_path):
                                       n_frames=3, H=60, W=80,
                                       color="lossy-avif-png",
                                       depth="12bit-avif-png")
+    items = _held(tstreams.tum_rgbd_stream(root, stride=1),
+                  jstreams.tum_rgbd_stream(root, stride=1))
+    ref = list(tstreams.tum_rgbd_stream(png, stride=1))
+    assert len(items) == len(ref) == 3
+    for a, b in zip(items, ref):
+        assert a[0] == b[0]
+        for x, y in zip(a[1:], b[1:]):
+            np.testing.assert_array_equal(x, y)
+
+
+def test_tum_stream_restored_avif_matches_jax(tmp_path):
+    """The TUM reader over an fr1 sequence of the port writer's lossy 4:2:0
+    AVIF colour with loop restoration (fixtures.LR_AVIF: Wiener units on
+    luma, self-guided units on chroma) and 12-bit lossless AVIF depth: the
+    port's stream equals the JAX one (cv2.imread over libavif and libaom)
+    in frames and timestamps, and the port's own stream over the PNG of
+    what those AVIF frames read back as with the 16-bit PNG depth
+    (chip_smoke.py phase 21's pair)."""
+    from lgu_slam_tpu_torch.data import avif
+
+    name = "rgbd_dataset_freiburg1_desk"
+    root = fixtures.write_tum_sequence(str(tmp_path / "avif" / name),
+                                       n_frames=3, H=60, W=80,
+                                       color="lr-avif", depth="12bit-avif")
+    png = fixtures.write_tum_sequence(str(tmp_path / "png" / name),
+                                      n_frames=3, H=60, W=80,
+                                      color="lr-avif-png",
+                                      depth="12bit-avif-png")
+    rgb = os.path.join(root, "rgb")
+    data = open(os.path.join(rgb, sorted(os.listdir(rgb))[0]), "rb").read()
+    box = avif.parse(data)
+    counts = avif.lr_stats(avif._payload(data, box, box["color"]))[0]
+    assert counts[0, 1] and counts[1, 2] and counts[2, 2]
     items = _held(tstreams.tum_rgbd_stream(root, stride=1),
                   jstreams.tum_rgbd_stream(root, stride=1))
     ref = list(tstreams.tum_rgbd_stream(png, stride=1))
