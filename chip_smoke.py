@@ -300,11 +300,26 @@ Sixteen phases; any failure exits non-zero.
    PNG depth, as in phase 12, with equal K1 and K2 launches in
    ``track()``; the committed 4:2:2, BT.709 and limited-range files
    against their hashes; the NotImplementedError of each committed file
-   that holds a feature of slice 22 (a sequence).
+   that holds a feature of a later reader.
+22. AVIF film grain, grids, sequences and scaled frames on the card
+   machine's host: the committed files (Pillow's grain with libaom's test
+   vectors 1, 10 and 16 at 4:2:0, 4:4:4 and 4:0:0, the writer's 10-bit
+   4:2:0 and 12-bit gray grain, a 1 x 2 and a cropped 2 x 2 grid with an
+   alpha grid, Pillow's avis sequence, frames scaled down and up to their
+   ispe) decoded to the SHA-256 of ``cv2.imread``'s arrays in both modes,
+   with the host's median decode ms and ms of adding the grain; a
+   16-frame TUM fr1 sequence in the writer's lossy 4:2:0 AVIF colour with
+   film grain (``fixtures.GRAIN_AVIF``) and 12-bit AVIF depth with grain
+   (``fixtures.GRAIN_DEPTH``), each colour frame the writer's file of its
+   rendered frame with its grain, tracked beside PNG colour and 16-bit
+   PNG depth of what those frames read back as, as in phase 12, with
+   equal K1 and K2 launches in ``track()``; the NotImplementedError of
+   each committed file that holds a feature of a later reader (two AV1
+   frames in an item).
 
 Before the last line it prints the tracking, terminate, training, fp32
 tracking, world-size-1, entry-point, 3DGS, JPEG, oracle, the five
-format reports, the scaling report and phases 18 to 21's reports,
+format reports, the scaling report and phases 18 to 22's reports,
 the run's wall time, the
 card's name and power limit, and one JSON line with each kernel's error,
 time, bound and launches.  The last line is ``{"ok": true, "device": {...}}``.
@@ -335,6 +350,8 @@ import torch.distributed as dist
 from lgu_slam_tpu_torch.data import (avif, gif, hdr, jp2, pnm, sunras, tiff,
                                      webp)
 from lgu_slam_tpu_torch.data.fixtures import (
+    GRAIN_AVIF,
+    GRAIN_DEPTH,
     LOSSY_AVIF,
     LR_AVIF,
     REPLICA_CAM,
@@ -3654,6 +3671,13 @@ LR_480X640 = ("cv2_lr_q30_s2_480x640.avif", "cv2_lr_q60_s2_480x640.avif")
 YUV_21 = ("pillow_c422.avif", "port_c420_bt709.avif", "pillow_limited.avif",
           "cv2_lossy_lr_s0.avif")
 PHASE_21_FILES = LR_480X640 + YUV_21
+# phase 22's committed files: film grain, grids, a sequence, scaled frames
+GRAIN_22 = ("pillow_grain_v1_420.avif", "pillow_grain_v10_444.avif",
+            "pillow_grain_v16_400.avif", "port_grain_c10.avif",
+            "port_grain_g12.avif")
+PHASE_22_FILES = GRAIN_22 + ("port_grid_1x2.avif", "port_grid_2x2_alpha.avif",
+                             "pillow_avis.avif", "port_scaled_down.avif",
+                             "port_scaled_up_g12.avif")
 LOSSY_480X640 = ("cv2_lossy_q95_480x640.avif", "cv2_lossy_q50_480x640.avif",
                  "cv2_lossy_c10_q80_480x640.avif")
 
@@ -3708,7 +3732,7 @@ def phase_19(dev, kernels: dict) -> dict:
         report["codecs"] = phase_format_codecs(root, formats_19_cases(), 19)
         report["committed_avif"] = phase_committed(
             AVIF_FIXTURES, 19, keep=lambda name: not avif_queued(name) and
-            name not in LOSSY_480X640 + PHASE_21_FILES)
+            name not in LOSSY_480X640 + PHASE_21_FILES + PHASE_22_FILES)
         queued = {}
         for name, want in json.loads(
                 (AVIF_FIXTURES / "hashes.json").read_text()).items():
@@ -3982,6 +4006,139 @@ def print_phase_21(report: dict) -> None:
           f"{report['seconds']:.0f} s")
 
 
+# -- phase 22: AVIF film grain, grids, sequences, scaled frames ---------
+
+PHASE_22_FRAMES = 16
+
+
+def grain_ms(data: bytes) -> tuple:
+    """(ms of the AV1 decode, ms of adding its film grain) of an AVIF
+    file's colour item, decoded by the host."""
+    box = avif.parse(data)
+    return avif.grain_ms(avif._payload(data, box, box["color"]))
+
+
+def phase_22_committed() -> dict:
+    """The committed slice-22 files against cv2.imread's hashes in both
+    modes, the host's median decode ms; for the grain files the median ms
+    of the frame's AV1 decode and of its grain (10 decodes each)."""
+    out = phase_committed(AVIF_FIXTURES, 22,
+                          keep=lambda name: name in PHASE_22_FILES)
+    check(len(out) == len(PHASE_22_FILES), "phase 22: the committed files")
+    for name in GRAIN_22:
+        runs = [grain_ms((AVIF_FIXTURES / name).read_bytes())
+                for _ in range(10)]
+        check(all(g > 0 for _, g in runs), f"phase 22: {name} adds no grain")
+        out[name]["av1_ms"] = statistics.median(r[0] for r in runs)
+        out[name]["grain_ms"] = statistics.median(r[1] for r in runs)
+    return out
+
+
+def phase_22_writer(seq: Path, seed: int) -> dict:
+    """Each colour frame of the grain sequence is the writer's lossy file
+    of its rendered frame with ``GRAIN_AVIF``'s grain (its parameters as
+    the test vector's, the seed's), each depth frame carries
+    ``GRAIN_DEPTH``'s; the host's median ms of the AV1 decode and of the
+    grain of a 480 x 640 colour frame and of a depth frame."""
+    images = render_sequence(seed, PHASE_22_FRAMES, 480, 640, TUM_FR1,
+                             0.02, 0.004)[0]
+    files = sorted((seq / "rgb").iterdir())
+    depths = sorted((seq / "depth").iterdir())
+    check(len(files) == len(depths) == PHASE_22_FRAMES,
+          "phase 22: the sequence's frames")
+    want = avif.grain_vector(GRAIN_AVIF)
+    want_depth = avif.grain_vector(GRAIN_DEPTH)
+    t_start = time.perf_counter()
+    colour, depth = [], []
+    for img, path, dpath in zip(images, files, depths):
+        data = path.read_bytes()
+        check(data == avif.encode_avif(img, lossy=LOSSY_AVIF,
+                                       grain=GRAIN_AVIF),
+              f"phase 22: {path.name} is not the writer's file")
+        box = avif.parse(data)
+        got = avif.grain_params(avif._payload(data, box, box["color"]))
+        check(np.array_equal(got[:158], want[:158]) and got[-1] == want[-1],
+              f"phase 22: {path.name}'s grain is not test vector "
+              f"{GRAIN_AVIF}")
+        ddata = dpath.read_bytes()
+        dbox = avif.parse(ddata)
+        check(avif.grain_params(avif._payload(ddata, dbox, dbox["color"]))[
+            74] == want_depth[74], f"phase 22: {dpath.name}'s grain")
+        colour.append(grain_ms(data))
+        depth.append(grain_ms(ddata))
+    return dict(frames=len(files),
+                av1_ms_median=statistics.median(c[0] for c in colour),
+                grain_ms_median=statistics.median(c[1] for c in colour),
+                depth_av1_ms_median=statistics.median(d[0] for d in depth),
+                depth_grain_ms_median=statistics.median(d[1] for d in depth),
+                seconds=time.perf_counter() - t_start)
+
+
+def phase_22(dev, kernels: dict) -> dict:
+    t_start = time.perf_counter()
+    report = dict(committed=phase_22_committed())
+    later = {}
+    for name, want in json.loads(
+            (AVIF_FIXTURES / "hashes.json").read_text()).items():
+        if not want.get("queued"):
+            continue
+        for mode in (False, True):
+            try:
+                imread(str(AVIF_FIXTURES / name), anydepth=mode)
+                fail(f"phase 22: {name} read; it is queued")
+            except NotImplementedError as e:
+                check(want["queued"] in str(e), f"phase 22: {name} refused "
+                      f"as {e}")
+                later[name] = str(e).split(": ", 1)[-1]
+    report["later"] = later
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        runs = phase_format_track(
+            dev, kernels, root / "tum", n_frames=PHASE_22_FRAMES,
+            seed=SEED + 32, phase=22,
+            pairs=(("grain-avif", "12bit-grain-avif"),
+                   ("grain-avif-png", "12bit-grain-avif-png")),
+            key="launches_formats_22")
+        report["writer"] = phase_22_writer(
+            root / "tum" / "grain-avif_12bit-grain-avif" /
+            "rgbd_dataset_freiburg1_desk", SEED + 32)
+    avif_run, png_run = runs.values()
+    for name in ("k1_launches_track", "k2_launches_track"):
+        check(avif_run[name] == png_run[name],
+              f"phase 22: {name} {avif_run[name]} (grain AVIF + 12-bit "
+              f"grain AVIF) != {png_run[name]} (PNG + 16-bit PNG)")
+    report["feed_ratio"] = avif_run["feed_ms"] / png_run["feed_ms"]
+    report["tum"] = runs
+    report["seconds"] = time.perf_counter() - t_start
+    return report
+
+
+def print_phase_22(report: dict) -> None:
+    committed = report["committed"]
+    grain = ", ".join(f"{k} {v['decode_ms']:.2f} ms ({v['grain_ms']:.3f} "
+                      f"grain)" for k, v in committed.items()
+                      if k in GRAIN_22)
+    others = ", ".join(f"{k} {v['decode_ms']:.2f} ms" for k, v in
+                       committed.items() if k not in GRAIN_22)
+    tum = "; ".join(
+        f"{k}: fed {v['feed_ms']:.2f} ms per frame, {v['keyframes']} "
+        f"keyframes, K1 {v['k1_launches']} / K2 {v['k2_launches']} "
+        f"launches (track {v['k1_launches_track']} / "
+        f"{v['k2_launches_track']})" for k, v in report["tum"].items())
+    writer = report["writer"]
+    later = "; ".join(f"{k}: {v}" for k, v in report["later"].items())
+    print(f"phase 22: committed AVIF files equal to cv2's hashes, host "
+          f"decode {grain}; {others}; {writer['frames']} writer grain "
+          f"frames at 480 x 640: AV1 decode {writer['av1_ms_median']:.2f} "
+          f"ms, grain {writer['grain_ms_median']:.2f} ms per colour frame, "
+          f"{writer['depth_av1_ms_median']:.2f} / "
+          f"{writer['depth_grain_ms_median']:.2f} ms per 12-bit depth "
+          f"frame; TUM RGB-D at 384 x 512, equal frames and depth from both "
+          f"streams: {tum}; grain AVIF / PNG feed "
+          f"{report['feed_ratio']:.3f}; refused for a later reader: "
+          f"{later}; {report['seconds']:.0f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke run needs an NVIDIA GPU")
@@ -4071,9 +4228,12 @@ def main():
     torch.cuda.empty_cache()
     formats_21 = phase_21(dev, kernels)
     print_phase_21(formats_21)
+    torch.cuda.empty_cache()
+    formats_22 = phase_22(dev, kernels)
+    print_phase_22(formats_22)
     # launches on the main path: K1 bf16 and K2 over track() +
     # terminate(), phase 8's entry points, phase 10's JPEG runs, phases
-    # 12-16's and 18-21's TUM tracks and phase 17's backend
+    # 12-16's and 18-22's TUM tracks and phase 17's backend
     # passes, K2 also over phase 7's sharded backend pass, K1 fp32 operands
     # over phase 6's track()
     for name in ("masked_corr_level0_tc", "fused_pyramid_lookup"):
@@ -4085,7 +4245,8 @@ def main():
             k["launches_formats_14"] + k["launches_formats_15"] + \
             k["launches_formats_16"] + k["launches_scaling_17"] + \
             k["launches_formats_18"] + k["launches_formats_19"] + \
-            k["launches_formats_20"] + k["launches_formats_21"]
+            k["launches_formats_20"] + k["launches_formats_21"] + \
+            k["launches_formats_22"]
     k = kernels["masked_corr_level0_tf32"]
     k["launches"] = k["launches_track_fp32"]
     for k in kernels.values():
@@ -4111,6 +4272,7 @@ def main():
     print(json.dumps({"formats_19": formats_19}))
     print(json.dumps({"formats_20": formats_20}))
     print(json.dumps({"formats_21": formats_21}))
+    print(json.dumps({"formats_22": formats_22}))
     print(json.dumps({"seconds": seconds}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": list(kernels.values())}))

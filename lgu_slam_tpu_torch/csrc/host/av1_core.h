@@ -19,8 +19,8 @@
  *
  * What an intra frame can hold and this file does not read raises
  * through av1_fail(ERR_NOTIMPL, ...): intra block copy in a lossy frame
- * (segmentation, superres and film grain are refused by the frame
- * header).  Errors unwind with longjmp to the entry point,
+ * (segmentation and superres are refused by the frame header; film
+ * grain is added to the shown frame by av1_grain.h).  Errors unwind with longjmp to the entry point,
  * which frees what the frame allocated.
  */
 #ifndef AV1_CORE_H
@@ -344,6 +344,17 @@ static void cdf_adapt(uint16_t *cdf, int n, int s)
 
 typedef struct Av1 Av1;
 
+/* film_grain_params of a frame (5.9.30): the scaling points (x, y) of
+ * each plane, the auto-regressive coefficients less 128, the shifts with
+ * their offsets added (scaling 8-11, AR 6-9) */
+typedef struct {
+    int apply, seed, ny, ncb, ncr, from_luma;
+    int pts_y[14][2], pts_cb[10][2], pts_cr[10][2];
+    int scaling_shift, lag, ar_y[24], ar_cb[25], ar_cr[25], ar_shift;
+    int grain_scale_shift, cb_mult, cb_luma_mult, cb_offset;
+    int cr_mult, cr_luma_mult, cr_offset, overlap, clip;
+} Grain;
+
 /* a writer's choices for one block (av1_encode.c) */
 typedef struct {
     int ymode, uvmode, angle_y, angle_uv, filter_intra, filter_mode;
@@ -391,6 +402,11 @@ struct Av1 {
     int tile_size_bytes, context_update_tile_id;
     int temporal_id, spatial_id;
     char unread[64]; /* the first tool of the frame not read, or "" */
+    Grain grain;
+    /* film grain's templates and noise stripes while it runs; its time
+     * (where the includer sets LR_CLOCK) */
+    int16_t *grain_buf[9];
+    double grain_ms;
     /* planes of MiCols * 4 x MiRows * 4 samples, and room for transform
      * blocks that reach past them */
     uint16_t *plane[3];
@@ -3448,6 +3464,10 @@ static void frame_free(Av1 *f)
     }
     free(f->lr_buf);
     f->lr_buf = NULL;
+    for (int k = 0; k < 9; k++) {
+        free(f->grain_buf[k]);
+        f->grain_buf[k] = NULL;
+    }
     free(f->cdef_idx);
     free(f->txsizes);
     free(f->delta_lfs);

@@ -9,12 +9,13 @@
  * lf, y and uv modes, angle deltas, CfL, palettes with their colour cache,
  * filter intra, tx_depth), the loop restoration units' coefficients and
  * the coefficients of every transform size and intra type, lossless or
- * lossy; then deblocking, CDEF and loop restoration.  The tile
+ * lossy; then deblocking, CDEF and loop restoration, and the shown
+ * frame's film grain (av1_grain.h).  The tile
  * syntax, reconstruction and filters are in av1_core.h.  The OBUs are
  * checked as libaom's aom_decode_frame_from_obus checks them (sizes,
  * trailing bits and zero padding, reserved types, the operating point,
  * tile group order, zero bytes between frames).  A frame that uses
- * superres, film grain, segmentation, show_existing_frame
+ * superres, segmentation, show_existing_frame
  * or a frame type but a key / intra-only frame, intra block copy in a
  * lossy frame, and a second frame in the data, return ERR_NOTIMPL naming
  * it (a later reader takes it up); a stream libaom refuses (a cut header,
@@ -33,7 +34,11 @@
  *     uint16, Y (H x W) then U and V at their subsampled size;
  *   av1_lr_stats(data, n, counts[9], ms, err, errlen): the frame decoded,
  *     its restoration units of each plane counted by type (none, Wiener,
- *     self-guided) and the milliseconds spent in the restoration filter.
+ *     self-guided) and the milliseconds spent in the restoration filter;
+ *   av1_grain_params(data, n, v[162], err, errlen): the frame's film
+ *     grain in libaom's aom_film_grain_t order;
+ *   av1_grain_ms(data, n, ms[2], err, errlen): milliseconds of the
+ *     decode, and of its film grain.
  */
 #define _POSIX_C_SOURCE 199309L
 #include <time.h>
@@ -48,6 +53,7 @@ static double clock_ms(void)
 #define LR_CLOCK clock_ms
 
 #include "av1_core.h"
+#include "av1_grain.h"
 
 static Choice *enc_choice(Av1 *f)
 {
@@ -479,51 +485,64 @@ static void lr_params(Av1 *f, Bits *b)
 }
 
 /* the scaling points of one plane (libaom: at most max, increasing) */
-static int grain_points(Av1 *f, Bits *b, int max)
+static int grain_points(Av1 *f, Bits *b, int max, int (*pts)[2])
 {
-    int n = (int)fb(b, 4), prev = -1;
+    int n = (int)fb(b, 4);
     if (n > max)
         av1_fail(f, ERR_VALUE, "AV1: %d film grain points", n);
     for (int i = 0; i < n; i++) {
-        int x = (int)fb(b, 8);
-        if (x <= prev)
+        pts[i][0] = (int)fb(b, 8);
+        if (i && pts[i][0] <= pts[i - 1][0])
             av1_fail(f, ERR_VALUE, "AV1: film grain points that do not "
                      "increase");
-        prev = x;
-        fb(b, 8);
+        pts[i][1] = (int)fb(b, 8);
     }
     return n;
 }
 
-/* film_grain_params of an intra frame with apply_grain set */
+/* film_grain_params of an intra frame with apply_grain set (libaom's
+ * read_film_grain_params) */
 static void film_grain_params(Av1 *f, Bits *b)
 {
-    fb(b, 16); /* grain_seed; update_grain is 1 in an intra frame */
-    int ny = grain_points(f, b, 14), ncb = 0, ncr = 0;
-    int from_luma = f->mono ? 0 : (int)fb(b, 1);
-    if (!(f->mono || from_luma || (f->ssx && f->ssy && !ny))) {
-        ncb = grain_points(f, b, 10);
-        ncr = grain_points(f, b, 10);
-        if (f->ssx && f->ssy && !ncb != !ncr)
+    Grain *g = &f->grain;
+    memset(g, 0, sizeof(*g));
+    g->apply = 1;
+    g->seed = (int)fb(b, 16); /* update_grain is 1 in an intra frame */
+    g->ny = grain_points(f, b, 14, g->pts_y);
+    g->from_luma = f->mono ? 0 : (int)fb(b, 1);
+    if (!(f->mono || g->from_luma || (f->ssx && f->ssy && !g->ny))) {
+        g->ncb = grain_points(f, b, 10, g->pts_cb);
+        g->ncr = grain_points(f, b, 10, g->pts_cr);
+        if (f->ssx && f->ssy && !g->ncb != !g->ncr)
             av1_fail(f, ERR_VALUE, "AV1: film grain on one chroma plane "
                      "of 4:2:0");
     }
-    fb(b, 2); /* grain_scaling_minus_8 */
-    int lag = (int)fb(b, 2), luma = 2 * lag * (lag + 1);
-    int chroma = luma + (ny > 0);
-    if (ny)
+    g->scaling_shift = (int)fb(b, 2) + 8;
+    g->lag = (int)fb(b, 2);
+    int luma = 2 * g->lag * (g->lag + 1), chroma = luma + (g->ny > 0);
+    if (g->ny)
         for (int i = 0; i < luma; i++)
-            fb(b, 8);
-    for (int k = 0; k < 2; k++)
-        if (from_luma || (k ? ncr : ncb))
-            for (int i = 0; i < chroma; i++)
-                fb(b, 8);
-    fb(b, 4); /* ar_coeff_shift_minus_6, grain_scale_shift */
-    if (ncb)
-        fb(b, 25);
-    if (ncr)
-        fb(b, 25);
-    fb(b, 2); /* overlap_flag, clip_to_restricted_range */
+            g->ar_y[i] = (int)fb(b, 8) - 128;
+    if (g->ncb || g->from_luma)
+        for (int i = 0; i < chroma; i++)
+            g->ar_cb[i] = (int)fb(b, 8) - 128;
+    if (g->ncr || g->from_luma)
+        for (int i = 0; i < chroma; i++)
+            g->ar_cr[i] = (int)fb(b, 8) - 128;
+    g->ar_shift = (int)fb(b, 2) + 6;
+    g->grain_scale_shift = (int)fb(b, 2);
+    if (g->ncb) {
+        g->cb_mult = (int)fb(b, 8);
+        g->cb_luma_mult = (int)fb(b, 8);
+        g->cb_offset = (int)fb(b, 9);
+    }
+    if (g->ncr) {
+        g->cr_mult = (int)fb(b, 8);
+        g->cr_luma_mult = (int)fb(b, 8);
+        g->cr_offset = (int)fb(b, 9);
+    }
+    g->overlap = (int)fb(b, 1);
+    g->clip = (int)fb(b, 1);
 }
 
 /* an intra frame's uncompressed header (5.9); first: no frame decoded
@@ -694,10 +713,9 @@ static void frame_header(Av1 *f, Bits *b, int first)
     /* reference_select, skip_mode, warped motion, global motion: none in
      * an intra frame */
     f->reduced_tx_set = (int)fb(b, 1);
-    if (f->film_grain_present && (show_frame || showable) && fb(b, 1)) {
+    f->grain.apply = 0;
+    if (f->film_grain_present && (show_frame || showable) && fb(b, 1))
         film_grain_params(f, b);
-        unread(f, "AVIF: AV1 film grain", 0);
-    }
 }
 
 /* -- tiles ---------------------------------------------------------------- */
@@ -987,6 +1005,16 @@ int av1_info(const uint8_t *data, int64_t n, int32_t *info, char *err,
     return code;
 }
 
+/* the frame as libaom's decoder outputs it: with its film grain */
+static void shown_frame(Av1 *f)
+{
+    if (!f->grain.apply)
+        return;
+    double t0 = clock_ms();
+    film_grain(f);
+    f->grain_ms = clock_ms() - t0;
+}
+
 int av1_decode(const uint8_t *data, int64_t n, uint16_t *out, int planes,
                int64_t H, int64_t W, char *err, int errlen)
 {
@@ -1001,6 +1029,7 @@ int av1_decode(const uint8_t *data, int64_t n, uint16_t *out, int planes,
         if (f->W != W || f->H != H || f->nplanes != planes)
             av1_fail(f, ERR_VALUE, "AV1: the frame is not %lldx%lld",
                      (long long)W, (long long)H);
+        shown_frame(f);
         uint16_t *dst = out;
         for (int p = 0; p < planes; p++) {
             int64_t w = p ? (W + f->ssx) >> f->ssx : W;
@@ -1032,6 +1061,78 @@ int av1_lr_stats(const uint8_t *data, int64_t n, int32_t *counts, double *ms,
             for (int k = 0; k < f->lr_rows[p] * f->lr_cols[p]; k++)
                 counts[3 * p + f->lr_units[p][k].type]++;
         *ms = f->lr_ms;
+    }
+    frame_free(f);
+    free(f);
+    return code;
+}
+
+/* the frame's film_grain_params in the ints of libaom's aom_film_grain_t
+ * (av1_tables.h film_grain_test_vectors): all zero where the frame has
+ * no grain */
+int av1_grain_params(const uint8_t *data, int64_t n, int32_t *v, char *err,
+                     int errlen)
+{
+    Av1 *f = calloc(1, sizeof(Av1));
+    if (!f)
+        return ERR_MEMORY;
+    f->err = err;
+    f->errlen = errlen;
+    int code = setjmp(f->jb);
+    if (code == 0) {
+        decode_obus(f, data, n, 1);
+        const Grain *g = &f->grain;
+        memset(v, 0, 162 * sizeof(int32_t));
+        if (g->apply) {
+            int k = 0;
+            v[k++] = 1;
+            v[k++] = 1;
+            for (int i = 0; i < 14; i++, k += 2)
+                v[k] = g->pts_y[i][0], v[k + 1] = g->pts_y[i][1];
+            v[k++] = g->ny;
+            for (int i = 0; i < 10; i++, k += 2)
+                v[k] = g->pts_cb[i][0], v[k + 1] = g->pts_cb[i][1];
+            v[k++] = g->ncb;
+            for (int i = 0; i < 10; i++, k += 2)
+                v[k] = g->pts_cr[i][0], v[k + 1] = g->pts_cr[i][1];
+            v[k++] = g->ncr;
+            v[k++] = g->scaling_shift;
+            v[k++] = g->lag;
+            for (int i = 0; i < 24; i++)
+                v[k++] = g->ar_y[i];
+            for (int i = 0; i < 25; i++)
+                v[k++] = g->ar_cb[i];
+            for (int i = 0; i < 25; i++)
+                v[k++] = g->ar_cr[i];
+            int rest[13] = {g->ar_shift, g->cb_mult, g->cb_luma_mult,
+                            g->cb_offset, g->cr_mult, g->cr_luma_mult,
+                            g->cr_offset, g->overlap, g->clip, f->bitdepth,
+                            g->from_luma, g->grain_scale_shift, g->seed};
+            memcpy(v + k, rest, sizeof(rest));
+        }
+    }
+    frame_free(f);
+    free(f);
+    return code;
+}
+
+/* the frame decoded and its grain added: ms[0] the milliseconds of the
+ * whole, ms[1] of the grain */
+int av1_grain_ms(const uint8_t *data, int64_t n, double *ms, char *err,
+                 int errlen)
+{
+    Av1 *f = calloc(1, sizeof(Av1));
+    if (!f)
+        return ERR_MEMORY;
+    f->err = err;
+    f->errlen = errlen;
+    double t0 = clock_ms();
+    int code = setjmp(f->jb);
+    if (code == 0) {
+        decode_obus(f, data, n, 0);
+        shown_frame(f);
+        ms[0] = clock_ms() - t0;
+        ms[1] = f->grain_ms;
     }
     frame_free(f);
     free(f);

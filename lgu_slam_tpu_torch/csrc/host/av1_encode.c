@@ -32,14 +32,21 @@
  * decoder's own inverse transforms and in-loop filters, and returns that
  * reconstruction.
  *
- * Entry point (ctypes):
- *   av1_encode(planes, nplanes, H, W, depth, seed, opts, lr, out, cap,
- *              size, recon, err, errlen): planes Y [H][W] then U, V at
- *     their subsampled size, uint16; opts NULL (lossless 4:4:4) or int32
- *     [OPT_COUNT] (below); lr NULL (no restoration) or int32: the
- *     number of units of Y, U and V, then theirs, LR_FIELDS each; writes
- *     the OBUs to out, their length to *size, and, where recon is not
- *     NULL, the reconstruction in the planes' layout.
+ * Film grain: the sequence header allows it and the frame carries the
+ * grain given (any of libaom's test vectors, or one changed: lags 0-3,
+ * chroma scaling from luma, overlap, the clip), which a decoder adds to
+ * the shown frame (the reconstruction returned is without it).
+ *
+ * Entry points (ctypes):
+ *   av1_encode(planes, nplanes, H, W, depth, seed, opts, lr, grain, out,
+ *              cap, size, recon, err, errlen): planes Y [H][W] then U, V
+ *     at their subsampled size, uint16; opts NULL (lossless 4:4:4) or
+ *     int32 [OPT_COUNT] (below); lr NULL (no restoration) or int32: the
+ *     number of units of Y, U and V, then theirs, LR_FIELDS each; grain
+ *     NULL (none) or int32 [162] in aom_film_grain_t's order; writes the
+ *     OBUs to out, their length to *size, and, where recon is not NULL,
+ *     the reconstruction in the planes' layout;
+ *   av1_grain_vector(k, v[162]): libaom's film grain test vector k.
  */
 #include <math.h>
 
@@ -294,13 +301,80 @@ static void obu(Put *w, int type, const uint8_t *payload, int64_t n)
         put(w, payload[k], 8);
 }
 
+/* a field of at most n bits, or the writer refuses the grain */
+static void put_field(Put *w, int v, int n)
+{
+    if (v < 0 || v >= 1 << n)
+        av1_fail(w->f, ERR_VALUE, "writer: a film grain field of %d bits "
+                 "holds %d", n, v);
+    put(w, (uint32_t)v, n);
+}
+
+/* film_grain_params with apply_grain set, of a grain in the ints of
+ * libaom's aom_film_grain_t (av1_tables.h film_grain_test_vectors; its
+ * bit depth is ignored): the fields the frame's format reads, as given
+ * (a grain a decoder refuses too: more points than it allows, points
+ * that do not increase) */
+static void put_grain(Put *h, const int32_t *v, int mono, int sub420)
+{
+    int ny = v[30], ncb = v[51], ncr = v[72], lag = v[74];
+    int from_luma = mono ? 0 : v[159];
+    if (ny > 15 || ncb > 15 || ncr > 15)
+        av1_fail(h->f, ERR_VALUE, "writer: more than 15 film grain points");
+    put(h, 1, 1); /* apply_grain */
+    put_field(h, v[161], 16);
+    put_field(h, ny, 4);
+    for (int i = 0; i < 2 * ny; i++)
+        put_field(h, v[2 + i], 8);
+    if (!mono)
+        put_field(h, from_luma, 1);
+    if (mono || from_luma || (sub420 && !ny)) {
+        ncb = ncr = 0;
+    } else {
+        put_field(h, ncb, 4);
+        for (int i = 0; i < 2 * ncb; i++)
+            put_field(h, v[31 + i], 8);
+        put_field(h, ncr, 4);
+        for (int i = 0; i < 2 * ncr; i++)
+            put_field(h, v[52 + i], 8);
+    }
+    put_field(h, v[73] - 8, 2); /* grain_scaling_minus_8 */
+    put_field(h, lag, 2);
+    int luma = 2 * lag * (lag + 1), chroma = luma + (ny > 0);
+    for (int i = 0; ny && i < luma; i++)
+        put_field(h, v[75 + i] + 128, 8);
+    for (int i = 0; (ncb || from_luma) && i < chroma; i++)
+        put_field(h, v[99 + i] + 128, 8);
+    for (int i = 0; (ncr || from_luma) && i < chroma; i++)
+        put_field(h, v[124 + i] + 128, 8);
+    put_field(h, v[149] - 6, 2); /* ar_coeff_shift_minus_6 */
+    put_field(h, v[160], 2);     /* grain_scale_shift */
+    for (int k = 0; k < 2; k++)
+        if (k ? ncr : ncb) {
+            put_field(h, v[150 + 3 * k], 8);
+            put_field(h, v[151 + 3 * k], 8);
+            put_field(h, v[152 + 3 * k], 9);
+        }
+    put_field(h, v[156], 1); /* overlap_flag */
+    put_field(h, v[157], 1); /* clip_to_restricted_range */
+}
+
+/* libaom's film grain test vector k (1-16) in aom_film_grain_t's ints */
+int av1_grain_vector(int k, int32_t *v)
+{
+    if (k < 1 || k > 16)
+        return ERR_VALUE;
+    memcpy(v, film_grain_test_vectors[k - 1], 162 * sizeof(int32_t));
+    return ERR_OK;
+}
+
 int av1_encode(const uint16_t *planes, int nplanes, int64_t H, int64_t W,
                int depth, int seed, const int32_t *opts, const int32_t *lr,
-               uint8_t *out, int64_t cap, int64_t *size, uint16_t *recon,
-               char *err, int errlen)
+               const int32_t *grain, uint8_t *out, int64_t cap,
+               int64_t *size, uint16_t *recon, char *err, int errlen)
 {
     Av1 *f = calloc(1, sizeof(Av1));
-    uint8_t *hdr = malloc(256);
+    uint8_t *hdr = malloc(512);
     uint8_t *volatile tile = NULL; /* kept across longjmp */
     uint16_t *volatile pre = NULL;
     if (!f || !hdr) {
@@ -379,7 +453,7 @@ int av1_encode(const uint16_t *planes, int nplanes, int64_t H, int64_t W,
         f->enc_lr = lr ? lr : no_units;
         Put w = {out, cap, 0, f};
         /* the sequence header */
-        Put s = {hdr, 256, 0, f};
+        Put s = {hdr, 512, 0, f};
         put(&s, (uint32_t)profile, 3);
         put(&s, 1, 1); /* still_picture */
         put(&s, 1, 1); /* reduced_still_picture_header */
@@ -416,7 +490,7 @@ int av1_encode(const uint16_t *planes, int nplanes, int64_t H, int64_t W,
         }
         if (!mono)
             put(&s, 0, 1); /* separate_uv_delta_q */
-        put(&s, 0, 1); /* film_grain_params_present */
+        put(&s, grain != NULL, 1); /* film_grain_params_present */
         trailing(&s);
         obu(&w, 1, hdr, s.pos >> 3);
         /* the frame */
@@ -478,7 +552,7 @@ int av1_encode(const uint16_t *planes, int nplanes, int64_t H, int64_t W,
         if (tn < 0)
             av1_fail(f, ERR_MEMORY, "writer: tile buffer full");
         postfilter(f);
-        Put h = {hdr, 256, 0, f};
+        Put h = {hdr, 512, 0, f};
         put(&h, 0, 1); /* disable_cdf_update */
         put(&h, 0, 1); /* allow_screen_content_tools */
         put(&h, 0, 1); /* render_and_frame_size_different */
@@ -543,6 +617,8 @@ int av1_encode(const uint16_t *planes, int nplanes, int64_t H, int64_t W,
             put(&h, 0, 1); /* tx_mode_select */
         }
         put(&h, 0, 1); /* reduced_tx_set */
+        if (grain)
+            put_grain(&h, grain, mono, sub == 1);
         while (h.pos & 7)
             put(&h, 0, 1);
         int64_t hn = h.pos >> 3;

@@ -2,30 +2,39 @@
 3.14) reads them, for the port's data layer, and a writer for fixtures.
 
 The HEIF (ISOBMFF) container is parsed here as libavif's ``read.c`` parses
-a still image, rule for rule where a rule decides between a read and a
-failure: the file-level boxes up to those the brands need (``ftyp``,
-``meta``, ``moov``; a major brand ``avis`` names a sequence), then
-``meta`` (``hdlr`` first, ``pitm``, ``iloc`` versions 0-2 with
-construction methods 0 (file) and 1 (``idat``), ``iinf`` / ``infe``
-versions 2-3, ``iref``, ``iprp`` / ``ipco`` / ``ipma``: ``ispe``, ``av1C``,
-``pixi``, ``colr`` (nclx or ICC), ``irot``, ``imir``, ``clap``, ``auxC``,
-``pasp``, ``clli``, ``a1op``, ``lsel``, ``a1lx``), every property checked
-whether associated or not.  libavif skips an item without extents, one
-with an unknown essential property, a thumbnail and one of an unknown
-type; each item it keeps needs an ``ispe`` (but an alpha item: strict
-checks are off) within its limits.  The primary ``av01`` item's OBUs, and
-those of its alpha item (``auxl`` with an alpha ``auxC``), are decoded in
-C (``csrc/host/av1_decode.c``: AV1 intra, lossless or lossy, 8 to 12
-bits, monochrome, 4:4:4, 4:2:2 or 4:2:0, deblocking, CDEF and loop
-restoration, the OBUs checked as libaom checks them; the alpha is
-decoded and dropped, as OpenCV drops it).
+it, rule for rule where a rule decides between a read and a failure: the
+file-level boxes up to those the brands need (``ftyp``, ``meta``,
+``moov``; a major brand ``avis``, or a ``moov`` without the ``avif``
+major brand, names a sequence), then ``meta`` (``hdlr`` first, ``pitm``,
+``iloc`` versions 0-2 with construction methods 0 (file) and 1
+(``idat``), ``iinf`` / ``infe`` versions 2-3, ``iref``, ``iprp`` /
+``ipco`` / ``ipma``: ``ispe``, ``av1C``, ``pixi``, ``colr`` (nclx or
+ICC), ``irot``, ``imir``, ``clap``, ``auxC``, ``pasp``, ``clli``,
+``a1op``, ``lsel``, ``a1lx``), every property checked whether associated
+or not.  libavif skips an item without extents, one with an unknown
+essential property, a thumbnail and one of an unknown type; each item it
+keeps needs an ``ispe`` (but an alpha item: strict checks are off) within
+its limits, and a ``pixi`` of its ``av1C``'s depth, whatever the image's
+source.  The image is the primary ``av01`` item, or a ``grid`` item over
+``av01`` tiles (its ImageGrid; the tiles copied into one image), and its
+alpha item (``auxl`` with an alpha ``auxC``, an item or a grid); in a
+sequence, the first sample of the colour track and of its ``auxl`` alpha
+track (``moov``'s ``trak`` / ``tkhd`` / ``mdia`` / ``minf`` / ``stbl``
+sample tables).  Their OBUs are decoded in C (``csrc/host/av1_decode.c``:
+AV1 intra, lossless or lossy, 8 to 12 bits, monochrome, 4:4:4, 4:2:2 or
+4:2:0, deblocking, CDEF and loop restoration, then the frame's film grain
+(``av1_grain.h``), the OBUs checked as libaom checks them; the alpha is
+decoded and dropped, as OpenCV drops it), and a frame of another size than
+its item's (or track's) is scaled to it with libyuv's ScalePlane
+(:mod:`yuv_scale`), as libavif scales it.
 
 What OpenCV's reader then returns, which :func:`decode_avif` repeats:
 
 - its Mat from the container: ``av1C``'s depth (8 bits, or 16 for a 10-
   or 12-bit ``av1C`` under ``IMREAD_ANYDEPTH``) and format (one channel
   for 4:0:0, three for colour, one more for alpha: a 4:0:0 image with
-  alpha, two channels, is None);
+  alpha, two channels, is None); its size the ``ispe``'s (a grid whose
+  output is another size is None);
 - a colour read: ``uint8 [H, W, 3]`` BGR.  4:4:4 under the identity matrix
   (how libavif writes lossless colour): G = Y, B = U, R = V; 10- and
   12-bit samples become 8 bits as ``rint(float32(v) * float32(255 / max))``
@@ -50,19 +59,21 @@ What OpenCV's reader then returns, which :func:`decode_avif` repeats:
 Refused: a file cv2 returns None for raises ``ValueError`` (a cut or
 damaged container or stream, an item without ``ispe``, no usable primary
 item, matrix coefficients libavif's YUV to RGB refuses, subsampled
-colour labelled identity, an alpha item stored before a colour item
-without nclx, ...); what OpenCV reads and this module does not yet read
-raises ``NotImplementedError`` naming it: a frame of another size than
-``ispe``'s (libavif scales it), more than one frame in an item,
-``grid`` derived images, ``avis`` sequences, and the AV1 tools the
-decoder lists (superres, segmentation, film grain).
+colour labelled identity, item data stored in an order OpenCV's reader
+refuses (:func:`_stored_before`), a grid's tiles that do not fit its
+output, ...); what OpenCV reads and this module does not yet read raises
+``NotImplementedError`` naming it: more than one frame in an item, a
+frame of more samples than its image and than ``SCALED_PIXELS`` (the
+guard against a damaged header), and the AV1 tools the decoder lists
+(superres, segmentation, intra block copy in a lossy frame).
 
 :func:`encode_avif` writes still images (lossless colour under the
 identity matrix at 4:4:4 or subsampled at 4:2:0 or 4:2:2, gray at 4:0:0,
 and lossy 4:2:0, 4:2:2 or gray with deblocking, CDEF and loop
-restoration; any matrix, primaries and range; 8, 10 or 12 bits;
-``csrc/host/av1_encode.c``) for the tests and for the card machine, which
-has no AVIF writer.
+restoration; any matrix, primaries and range; 8, 10 or 12 bits; film
+grain; ``csrc/host/av1_encode.c``), for the tests and for the card
+machine, which has no AVIF writer (``scripts/make_avif_fixtures_torch.py``
+builds grids and image sequences of its frames).
 """
 
 from __future__ import annotations
@@ -72,6 +83,7 @@ import struct
 
 import numpy as np
 
+from lgu_slam_tpu_torch.data import yuv_scale
 from lgu_slam_tpu_torch.ops import _build
 
 STATUS = {1: ValueError, 2: NotImplementedError, 3: MemoryError}
@@ -169,10 +181,10 @@ class _Stream:
 
 
 def _top(data: bytes) -> tuple:
-    """libavif's file-level loop: (brands, meta's body span or None, moov
-    seen), stopping once the boxes the brands need are seen."""
+    """libavif's file-level loop: (brands, meta's body span or None,
+    moov's or None), stopping once the boxes the brands need are seen."""
     st = _Stream(data, 0, len(data))
-    brands, meta, moov = None, None, False
+    brands, meta, moov = None, None, None
     while True:
         if st.pos > len(data):
             raise ValueError("AVIF: a box runs past the end of the file")
@@ -205,13 +217,235 @@ def _top(data: bytes) -> tuple:
         elif kind == b"moov":
             if moov:
                 raise ValueError("AVIF: two moov boxes")
-            moov = True
+            moov = (s, e)
         if brands is not None and (b"avif" not in brands or meta) and \
                 (b"avis" not in brands or moov):
             return brands, meta, moov
     if brands is None:
         raise ValueError("AVIF: no ftyp box")
     raise ValueError("AVIF: the file ends before the boxes its brands need")
+
+
+# the bytes of a VisualSampleEntry before its child boxes
+VISUAL_SAMPLE_ENTRY = 78
+
+
+def _children(data: bytes, start: int, end: int, parse: dict,
+              where: str) -> None:
+    """The child boxes of a box, each kind in ``parse`` (kind: function of
+    its body's span) at most once, each handed to its function."""
+    st, seen = _Stream(data, start, end), set()
+    while st.left():
+        kind, s, e = st.box()
+        if kind in parse:
+            if kind in seen:
+                raise ValueError(f"AVIF: two {kind.decode()} boxes in "
+                                 f"{where}")
+            seen.add(kind)
+            parse[kind](s, e)
+        st.pos = e
+
+
+def _track(data: bytes, start: int, end: int) -> dict:
+    """A ``trak`` box as libavif's avifParseTrackBox reads it: ``tkhd``
+    (versions 0 and 1: the track ID and its size, 16.16 fixed point, not
+    0 and within the limits), ``mdia`` (``mdhd`` versions 0 and 1,
+    ``hdlr`` of any handler, ``minf`` / ``stbl``: ``stsd``'s sample
+    entries (version 0 or 1) with the properties of an ``av01`` one,
+    ``stsc``, ``stsz``, ``stco`` or ``co64``, ``stss`` and ``stts``, each
+    a version 0 box read to its counts), ``tref`` (``auxl``: the first
+    track ID), ``edts`` (one ``elst``: one entry and a duration other
+    than 0 where it repeats)."""
+    t = dict(id=0, size=None, aux_for=0, formats=[], props=None,
+             chunks=[], to_chunk=[], sizes=[], all_size=0, stbl=False)
+
+    def v0(s, e):
+        b = _Stream(data, s, e)
+        b.full((0,))
+        return b
+
+    def tkhd(s, e):
+        b = _Stream(data, s, e)
+        v, _ = b.full((0, 1))
+        n = 8 if v else 4
+        b.u(2 * n)
+        t["id"] = b.u(4)
+        b.u(4)
+        b.u(n)
+        b.take(52)
+        W, H = b.u(4) >> 16, b.u(4) >> 16
+        if not W or not H or W > MAX_SIDE or H > MAX_SIDE or \
+                W * H > MAX_PIXELS:
+            raise ValueError(f"AVIF: a track of {W} x {H}")
+        t["size"] = (W, H)
+
+    def mdhd(s, e):
+        b = _Stream(data, s, e)
+        v, _ = b.full((0, 1))
+        n = 8 if v else 4
+        b.u(2 * n)
+        b.u(4)
+        b.u(n)
+
+    def stsd(s, e):
+        b = _Stream(data, s, e)
+        b.full((0, 1))
+        for _ in range(b.u(4)):
+            kind, bs, be = b.box()
+            t["formats"].append(kind)
+            if kind == b"av01":
+                if be - bs < VISUAL_SAMPLE_ENTRY:
+                    raise ValueError("AVIF: a short VisualSampleEntry")
+                props = _properties(data, bs + VISUAL_SAMPLE_ENTRY, be)
+                if t["props"] is None:
+                    t["props"] = props
+            b.pos = be
+
+    def offsets(s, e, n):
+        b = v0(s, e)
+        t["chunks"] = [b.u(n) for _ in range(b.u(4))]
+
+    def stsc(s, e):
+        b, prev = v0(s, e), 0
+        for k in range(b.u(4)):
+            first, per = b.u(4), b.u(4)
+            b.u(4)
+            if (k == 0 and first != 1) or (k and first <= prev):
+                raise ValueError("AVIF: stsc's chunks do not start at 1 "
+                                 "and increase")
+            prev = first
+            t["to_chunk"].append((first, per))
+
+    def stsz(s, e):
+        b = v0(s, e)
+        t["all_size"], n = b.u(4), b.u(4)
+        if not t["all_size"]:
+            t["sizes"] = [b.u(4) for _ in range(n)]
+
+    def counted(s, e, fields):
+        b = v0(s, e)
+        for _ in range(b.u(4)):
+            b.u(4 * fields)
+
+    def stbl(s, e):
+        t["stbl"] = True
+        _children(data, s, e, {
+            b"stco": lambda s, e: offsets(s, e, 4),
+            b"co64": lambda s, e: offsets(s, e, 8), b"stsc": stsc,
+            b"stsz": stsz, b"stss": lambda s, e: counted(s, e, 1),
+            b"stts": lambda s, e: counted(s, e, 2), b"stsd": stsd}, "stbl")
+
+    def minf(s, e):
+        _children(data, s, e, {b"stbl": stbl}, "minf")
+
+    def hdlr(s, e):
+        _handler(_Stream(data, s, e))
+
+    def mdia(s, e):
+        _children(data, s, e, {b"mdhd": mdhd, b"hdlr": hdlr,
+                               b"minf": minf}, "mdia")
+
+    def tref(s, e):
+        b = _Stream(data, s, e)
+        while b.left():
+            kind, bs, be = b.box()
+            if kind == b"auxl":
+                t["aux_for"] = b.u(4)
+            b.pos = be
+
+    def elst(s, e):
+        t["elst"] = True
+        b = _Stream(data, s, e)
+        v, flags = b.full()
+        if flags & 1:
+            if b.u(4) != 1:
+                raise ValueError("AVIF: an elst of other than one entry")
+            if v > 1:
+                raise ValueError(f"AVIF: elst version {v}")
+            if not b.u(8 if v else 4):
+                raise ValueError("AVIF: an elst segment of duration 0")
+
+    def edts(s, e):
+        _children(data, s, e, {b"elst": elst}, "edts")
+        if not t.get("elst"):
+            raise ValueError("AVIF: an edts box without elst")
+
+    _children(data, start, end, {b"tkhd": tkhd, b"mdia": mdia,
+                                 b"tref": tref, b"edts": edts}, "trak")
+    if t["size"] is None:
+        raise ValueError("AVIF: a trak box without tkhd")
+    return t
+
+
+def _samples(t: dict, size: int) -> list:
+    """libavif's avifCodecDecodeInputFillFromSampleTable: (offset, size) of
+    every sample of a track, chunk by chunk (each chunk's count from the
+    last stsc entry that starts at or before it; a chunk of none, a
+    sample past stsz's sizes or past the file's end fails)."""
+    out, k = [], 0
+    for c, offset in enumerate(t["chunks"]):
+        per = next((n for first, n in reversed(t["to_chunk"])
+                    if first <= c + 1), 0)
+        if not per:
+            raise ValueError("AVIF: a chunk of no samples")
+        if len(out) + per > 86400:  # libavif's imageCountLimit
+            raise ValueError("AVIF: more samples than libavif's limit")
+        for _ in range(per):
+            n = t["all_size"]
+            if not n:
+                if k >= len(t["sizes"]):
+                    raise ValueError("AVIF: a sample table that ends early")
+                n = t["sizes"][k]
+            if offset + n > size:
+                raise ValueError("AVIF: a sample past the end of the file")
+            out.append((offset, n))
+            offset += n
+            k += 1
+    return out
+
+
+def _tracks(data: bytes, moov: tuple) -> tuple:
+    """The colour and alpha tracks of an image sequence as libavif picks
+    them (the first track with an ID, a sample table of chunks, an av01
+    sample entry and no auxl reference; the first such track auxiliary to
+    it whose ``auxi``, if any, names alpha), each as an item of its first
+    sample (``track``: only the colour's properties are checked)."""
+    tracks = []
+    st = _Stream(data, *moov)
+    while st.left():
+        kind, s, e = st.box()
+        if kind == b"trak":
+            tracks.append(_track(data, s, e))
+        st.pos = e
+
+    def usable(t):
+        return t["stbl"] and t["id"] and t["chunks"] and b"av01" in \
+            t["formats"]
+
+    color = next((t for t in tracks if usable(t) and not t["aux_for"]),
+                 None)
+    if color is None:
+        raise ValueError("AVIF: no AV1 colour track")
+    if color["props"] is None:
+        raise ValueError("AVIF: the colour track's sample entry has no "
+                         "properties")
+    # an auxiliary track's auxi (where it has one) names the alpha URN
+    alpha = next((t for t in tracks if usable(t) and t["aux_for"] ==
+                  color["id"] and next((v for k, v in t["props"] or ()
+                                        if k == b"auxi"), ALPHA_URNS[0])
+                  in ALPHA_URNS), None)
+    out = []
+    for t in (color, alpha):
+        if t is None:
+            out.append(None)
+            continue
+        samples = _samples(t, len(data))
+        W, H = t["size"]
+        props = list(t["props"] or []) + [(b"ispe", (W, H))]
+        out.append(dict(id=t["id"], type=b"av01", method=0,
+                        extents=samples[:1], props=props, track=True,
+                        aux_for=t["aux_for"]))
+    return out[0], out[1]
 
 
 def _properties(data: bytes, start: int, end: int) -> list:
@@ -224,7 +458,7 @@ def _properties(data: bytes, start: int, end: int) -> list:
         if kind == b"ispe":
             r.full((0,))
             value = (r.u(4), r.u(4))
-        elif kind == b"auxC":
+        elif kind in (b"auxC", b"auxi"):
             r.full((0,))
             value = r.string()
         elif kind == b"colr":
@@ -274,7 +508,7 @@ def _new_item(items: dict, iid: int) -> dict:
     if iid not in items:
         items[iid] = dict(id=iid, type=None, extents=[], method=0, props=[],
                           unsupported=False, ipma=False, aux_for=0,
-                          thumb_for=0)
+                          thumb_for=0, dimg_for=0, dimg_idx=0)
     return items[iid]
 
 
@@ -340,7 +574,7 @@ def _iref(b: _Stream, items: dict):
     while v <= 1 and b.left():
         kind, _, _ = b.box()
         src = b.u(n)
-        for _ in range(b.u(2)):
+        for k in range(b.u(2)):
             dst = b.u(n)
             if src and dst:
                 item = _new_item(items, src)
@@ -348,8 +582,9 @@ def _iref(b: _Stream, items: dict):
                     item["thumb_for"] = dst
                 elif kind == b"auxl":
                     item["aux_for"] = dst
-                elif kind == b"dimg":
-                    _new_item(items, dst)
+                elif kind == b"dimg":  # the tile's grid and its place
+                    tile = _new_item(items, dst)
+                    tile["dimg_for"], tile["dimg_idx"] = src, k
 
 
 def _ipma(b: _Stream, props: list, items: dict):
@@ -407,6 +642,18 @@ def _iprp(data: bytes, b: _Stream, items: dict) -> list:
     return props
 
 
+def _handler(b: _Stream) -> bytes:
+    """A ``hdlr`` box's handler type (version 0, pre_defined 0, a name
+    that ends)."""
+    b.full((0,))
+    if b.u(4):
+        raise ValueError("AVIF: hdlr pre_defined is not 0")
+    kind = b.take(4)
+    b.take(12)
+    b.string()
+    return kind
+
+
 def _meta(data: bytes, start: int, end: int) -> tuple:
     """(items, primary item ID, idat) of the meta box, as libavif's
     ``avifParseMetaBox`` reads them."""
@@ -422,13 +669,8 @@ def _meta(data: bytes, start: int, end: int) -> tuple:
         seen.append(kind)
         b = _Stream(data, s, e)
         if kind == b"hdlr":
-            b.full((0,))
-            if b.u(4):
-                raise ValueError("AVIF: hdlr pre_defined is not 0")
-            if b.take(4) != b"pict":
+            if _handler(b) != b"pict":
                 raise ValueError("AVIF: the handler is not pict")
-            b.take(12)
-            b.string()
         elif kind == b"pitm":
             v, _ = b.full()
             primary = b.u(2 if v == 0 else 4)
@@ -459,17 +701,10 @@ def _depth(av1c: bytes) -> int:
     return 12 if av1c[2] & 0x20 else 10 if av1c[2] & 0x40 else 8
 
 
-def parse(data: bytes) -> dict:
-    """The container of an AVIF still image as libavif 1.4.2 reads it under
-    OpenCV: ``{"items": {id: item}, "primary": id, "color": item, "alpha":
-    item or None, "idat": bytes}``; ``ValueError`` where libavif fails,
-    ``NotImplementedError`` for what it reads and this module does not."""
-    brands, meta, moov = _top(data)
-    if brands[0] == b"avis" or (brands[0] != b"avif" and moov):
-        raise NotImplementedError("AVIF: an image sequence (avis)")
-    if meta is None:
-        raise ValueError("AVIF: no meta box")
-    items, primary, idat = _meta(data, *meta)
+def _usable(items: dict) -> list:
+    """The items libavif keeps, each checked for its ``ispe`` and its
+    ``pixi`` against its ``av1C`` (whatever the image's source: a
+    sequence's file is refused for them too)."""
     usable = []
     for item in items.values():
         # libavif skips an empty item, one with an unknown essential
@@ -486,15 +721,45 @@ def parse(data: bytes) -> dict:
         elif 0 in size or size[0] > MAX_SIDE or size[1] > MAX_SIDE or \
                 size[0] * size[1] > MAX_PIXELS:
             raise ValueError(f"AVIF: item {item['id']} of size {size}")
+        av1c = prop(item, b"av1C")
+        if av1c is not None and any(d != _depth(av1c) for d in
+                                    prop(item, b"pixi") or ()):
+            raise ValueError("AVIF: pixi's depths are not av1C's")
+    return usable
+
+
+def _items(usable: list, primary: int, meta) -> tuple:
+    """The primary item and its alpha item as libavif picks them."""
+    if meta is None:
+        raise ValueError("AVIF: no meta box")
     color = next((it for it in usable if it["id"] == primary), None)
     if color is None:
         raise ValueError("AVIF: no primary image item")
     alpha = next((it for it in usable if it["aux_for"] == primary and
                   prop(it, b"auxC") in ALPHA_URNS), None)
-    if color["type"] == b"grid":
-        raise NotImplementedError("AVIF: a grid colour image")
+    return color, alpha
+
+
+def parse(data: bytes) -> dict:
+    """The container of an AVIF image as libavif 1.4.2 reads it under
+    OpenCV: ``{"items": {id: item}, "primary": id, "color": item, "alpha":
+    item or None, "idat": bytes}`` (an image sequence: its colour and
+    alpha tracks' first samples as items); ``ValueError`` where libavif
+    fails, ``NotImplementedError`` for what it reads and this module does
+    not."""
+    brands, meta, moov = _top(data)
+    items, primary, idat = _meta(data, *meta) if meta else ({}, 0, None)
+    usable = _usable(items)
+    if brands[0] == b"avis" or (brands[0] != b"avif" and moov):
+        color, alpha = _tracks(data, moov)
+        primary = color["id"]
+    else:
+        color, alpha = _items(usable, primary, meta)
     for item in (color, alpha):
-        if item is None:
+        if item is not None and item["type"] == b"grid":
+            _grid(data, items, idat, item)
+    for item in (color, alpha):
+        if item is None or (item is alpha and item.get("track")):
             continue
         av1c = prop(item, b"av1C")
         if av1c is None:
@@ -506,6 +771,46 @@ def parse(data: bytes) -> dict:
         raise ValueError("AVIF: two colr properties of one kind")
     return dict(items=items, primary=primary, color=color, alpha=alpha,
                 idat=idat)
+
+
+def _grid(data: bytes, items: dict, idat, item: dict):
+    """A grid item as libavif's parser takes it: its ImageGrid (version 0,
+    16- or 32-bit output sizes, nothing after them, within the size
+    limits) as ``item["grid"]`` (rows, columns, W, H), and as
+    ``item["tiles"]`` the items that name it in ``dimg``, in their order
+    there: as many as the grid's cells, each an ``av01`` item without an
+    unknown essential property and with the first tile's ``av1C``, which
+    the grid takes as its own."""
+    payload = _payload(data, dict(idat=idat), item)
+    st = _Stream(payload, 0, len(payload))
+    try:
+        if st.u(1):
+            raise ValueError("AVIF: an ImageGrid of version other than 0")
+        n = 4 if st.u(1) & 1 else 2
+        rows, cols = st.u(1) + 1, st.u(1) + 1
+        W, H = st.u(n), st.u(n)
+    except ValueError as e:
+        raise ValueError(f"AVIF: the ImageGrid: {e}") from None
+    if not W or not H or W > MAX_SIDE or H > MAX_SIDE or \
+            W * H > MAX_PIXELS or st.left():
+        raise ValueError(f"AVIF: an ImageGrid of {W} x {H} (or bytes "
+                         "after it)")
+    tiles = sorted((it for it in items.values()
+                    if it["dimg_for"] == item["id"]),
+                   key=lambda it: it["dimg_idx"])
+    if len(tiles) != rows * cols:
+        raise ValueError(f"AVIF: a grid of {rows} x {cols} with "
+                         f"{len(tiles)} tiles")
+    av1c = prop(tiles[0], b"av1C")
+    for t in tiles:
+        if t["type"] != b"av01" or t["unsupported"]:
+            raise ValueError("AVIF: a grid tile that is not a usable av01 "
+                             "item")
+        if av1c is None or prop(t, b"av1C") != av1c:
+            raise ValueError("AVIF: grid tiles without the first tile's "
+                             "av1C")
+    item["grid"], item["tiles"] = (rows, cols, W, H), tiles
+    item["props"].append((b"av1C", av1c))
 
 
 def _payload(data: bytes, box: dict, item: dict) -> bytes:
@@ -529,8 +834,13 @@ def _lib():
                                ctypes.c_char_p, cint]
     lib.av1_lr_stats.argtypes = [ctypes.c_char_p, i64, ptr, ptr,
                                  ctypes.c_char_p, cint]
+    lib.av1_grain_params.argtypes = [ctypes.c_char_p, i64, ptr,
+                                     ctypes.c_char_p, cint]
+    lib.av1_grain_ms.argtypes = [ctypes.c_char_p, i64, ptr, ctypes.c_char_p,
+                                 cint]
     lib.av1_info.restype = lib.av1_decode.restype = cint
-    lib.av1_lr_stats.restype = cint
+    lib.av1_lr_stats.restype = lib.av1_grain_params.restype = cint
+    lib.av1_grain_ms.restype = cint
     return lib
 
 
@@ -586,29 +896,122 @@ def lr_stats(obus: bytes) -> tuple:
     return counts.reshape(3, 3), float(ms[0])
 
 
+def grain_params(obus: bytes) -> np.ndarray:
+    """The film grain of an AV1 frame, ``int32 [162]`` in the order of
+    libaom's ``aom_film_grain_t`` (``av1_tables.h``
+    ``film_grain_test_vectors``; the last entry the grain seed): zeros
+    where the frame has none."""
+    v = np.zeros(162, np.int32)
+    _call(_lib().av1_grain_params, obus, len(obus), v.ctypes.data)
+    return v
+
+
+def grain_ms(obus: bytes) -> tuple:
+    """(ms of the decode, ms of adding its film grain) of an AV1 frame,
+    decoded in C."""
+    ms = np.zeros(2, np.float64)
+    _call(_lib().av1_grain_ms, obus, len(obus), ms.ctypes.data)
+    return float(ms[0]), float(ms[1])
+
+
 def _decode(data: bytes, box: dict, item: dict, size, alpha=False
             ) -> tuple:
     """(planes, frame header, deferred NotImplementedError) of an item
-    whose image is ``size`` (the colour ``ispe``).  libavif scales a frame
-    of another size to its item's size: an alpha frame is then dropped all
-    the same, a colour frame is not read here (NotImplementedError).  A
+    whose image is ``size`` (its ``ispe``, a track's ``tkhd`` size).
+    libavif scales a frame of another size to it (libyuv's ScalePlane,
+    :mod:`yuv_scale`; it refuses a frame wider or taller than 16384).  A
     frame of more samples than the image and than ``SCALED_PIXELS`` is not
     decoded (NotImplementedError): a damaged header cannot make the port
-    allocate more."""
+    allocate more.  An ``alpha`` item is decoded for its faults only
+    (OpenCV's reader drops it): its planes are None."""
     payload = _payload(data, box, item)
     try:
         info = av1_info(payload)
     except NotImplementedError as e:
         return None, None, e
-    frame = (info["width"], info["height"])
-    if frame[0] * frame[1] > max(size[0] * size[1], SCALED_PIXELS):
+    W, H = info["width"], info["height"]
+    if W * H > max(size[0] * size[1], SCALED_PIXELS):
         return None, info, NotImplementedError(
             "AVIF: a frame larger than its image (libavif scales it)")
     planes = av1_planes(payload, info)[0]
-    if frame != tuple(size) and not alpha:
-        return None, info, NotImplementedError(
-            "AVIF: a frame of another size than ispe's (libavif scales it)")
-    return planes, info, None
+    if (W, H) != tuple(size) and (W > 16384 or H > 16384):
+        raise ValueError("AVIF: a frame wider or taller than 16384 that "
+                         "libavif would scale")
+    if alpha:
+        return None, dict(info, width=size[0], height=size[1]), None
+    if (W, H) == tuple(size):
+        return planes, info, None
+    dw, dh = size
+    out = []
+    for p, plane in enumerate(planes):
+        sx, sy = (info["ssx"], info["ssy"]) if p else (0, 0)
+        out.append(yuv_scale.scale_plane(plane, (dw + sx) >> sx,
+                                         (dh + sy) >> sy, info["depth"] > 8))
+    return out, dict(info, width=dw, height=dh), None
+
+
+# the frame properties every tile of a grid shares with the first
+TILE_KEYS = ("depth", "mono", "ssx", "ssy", "full_range", "primaries",
+             "transfer", "matrix")
+
+
+def _decode_grid(data: bytes, box: dict, item: dict, size, alpha=False
+                 ) -> tuple:
+    """(planes, frame header, deferred NotImplementedError) of a grid item
+    (libavif's avifDecoderDataFillImageGrid): each tile decoded (and
+    scaled to its ``ispe``), every tile like the first (size, depth,
+    format, range, colour description), the tiles covering the output and
+    those of the last row and column reaching into it, tiles of at least
+    64 x 64 and even sides and output where the chroma is subsampled
+    (alpha: its format is none, and its planes None); the tiles copied
+    into one image cropped to the output size, which must be the image's
+    (OpenCV's Mat is ``ispe``'s)."""
+    rows, cols, W, H = item["grid"]
+    later, infos, tiles = None, [], []
+    for t in item["tiles"]:
+        planes, info, e = _decode(data, box, t, prop(t, b"ispe") or size,
+                                  alpha)
+        later = later or e
+        infos.append(info)
+        tiles.append(planes)
+    if any(i is None for i in infos):
+        return None, None, later
+    # a tile's size is its ispe's: libavif scales the frame to it
+    dims = [tuple(prop(t, b"ispe") or (i["width"], i["height"]))
+            for t, i in zip(item["tiles"], infos)]
+    first = infos[0]
+    tw, th = dims[0]
+    if any(d != dims[0] or any(i[k] != first[k] for k in TILE_KEYS)
+           for d, i in zip(dims, infos)):
+        raise ValueError("AVIF: a grid of mismatched tiles")
+    if tw * cols < W or th * rows < H or tw * (cols - 1) >= W or \
+            th * (rows - 1) >= H:
+        raise ValueError("AVIF: grid tiles that do not cover the output, "
+                         "or a last row or column outside it")
+    ssx, ssy = (0, 0) if alpha or first["mono"] else (first["ssx"],
+                                                      first["ssy"])
+    if tw < 64 or th < 64 or (ssx and (W % 2 or tw % 2)) or (
+            ssy and (H % 2 or th % 2)):
+        raise ValueError("AVIF: grid tiles smaller than 64 x 64, or odd "
+                         "sides under subsampled chroma")
+    if (W, H) != tuple(size):
+        raise ValueError("AVIF: a grid whose output is not its image's "
+                         "size (OpenCV's reader refuses it)")
+    if later or alpha:
+        return None, first, later
+    out = []
+    for p in range(len(tiles[0])):
+        sx, sy = (ssx, ssy) if p else (0, 0)
+        plane = np.empty(((H + sy) >> sy, (W + sx) >> sx), np.uint16)
+        for k, planes in enumerate(tiles):
+            r, c = divmod(k, cols)
+            y0, x0 = (r * th) >> sy, (c * tw) >> sx
+            h = min(th, H - r * th)
+            w = min(tw, W - c * tw)
+            h, w = (h + sy) >> sy, (w + sx) >> sx
+            plane[y0:y0 + h, x0:x0 + w] = planes[p][:h, :w]
+        out.append(plane)
+    return out, dict(first, width=W, height=H), None
 
 
 def _to8(v: np.ndarray, depth: int) -> np.ndarray:
@@ -618,47 +1021,11 @@ def _to8(v: np.ndarray, depth: int) -> np.ndarray:
         np.uint8)
 
 
-def _upsample(c: np.ndarray, H: int, W: int) -> np.ndarray:
-    """libyuv's bilinear 2x chroma upsampling of a 4:2:0 plane (its
-    ScaleRowUp2_Linear / _Bilinear rows and their edge rules, as
-    I420ToARGBMatrixFilter uses them): each sample (9 near + 3 + 3 + 1
-    diagonal + 8) >> 4 of the chroma samples around it, the first and last
-    column (and the first row, and an even height's last) taking only the
-    near sample in that direction; one rounding, as libyuv's (the weights
-    are applied along rows, then columns, before it)."""
-    rn, rf, rwn, rwf = _taps(H, H % 2 == 0)
-    cn, cf, cwn, cwf = _taps(W, True)
-    c = c.astype(np.int32)
-    rows = c[:, cn] * cwn.astype(np.int32) + c[:, cf] * cwf.astype(np.int32)
-    return (rows[rn] * rwn[:, None].astype(np.int32) + rows[rf]
-            * rwf[:, None].astype(np.int32) + 8) >> 4
-
-
-def _taps(n: int, last: bool) -> tuple:
-    """(near, far, near weight, far weight) of each of ``n`` upsampled
-    positions: 3 and 1, the first (and with ``last`` the last) the near
-    sample alone (4 and 0)."""
-    k = np.arange(n)
-    near = np.where(k % 2 == 1, (k - 1) // 2, k // 2)
-    edge = (k == 0) | ((k == n - 1) & last)
-    far = np.where(edge, near, np.where(k % 2 == 1, near + 1, near - 1))
-    return near, far, np.where(edge, 4, 3), np.where(edge, 0, 1)
-
-
-def _upsample_h(c: np.ndarray, W: int) -> np.ndarray:
-    """libyuv's linear 2x horizontal chroma upsampling of a 4:2:2 plane
-    (ScaleRowUp2_Linear, as I422ToARGBMatrixFilter uses it): (3 near + 1
-    far + 2) >> 2, the first and last column the near sample."""
-    cn, cf, cwn, cwf = _taps(W, True)
-    c = c.astype(np.int32)
-    return (c[:, cn] * cwn.astype(np.int32) + c[:, cf] * cwf.astype(np.int32)
-            + 2) >> 2
-
-
 def _chroma_up(c: np.ndarray, H: int, W: int, ssx: int, ssy: int
                ) -> np.ndarray:
     """libyuv's upsampling of a chroma plane to [H, W]."""
-    return _upsample(c, H, W) if ssy else _upsample_h(c, W) if ssx else c
+    return yuv_scale.up2_bilinear(c, H, W) if ssy else \
+        yuv_scale.up2_linear(c, W) if ssx else c
 
 
 # libyuv's YuvConstants as libavif 1.4.2's build holds them (yg, yb, ub,
@@ -835,6 +1202,37 @@ def _yuv_to_bgr(planes, info: dict, rgb_depth: int, alpha: bool,
     return _libyuv(y, u, v, consts)
 
 
+def _file_extents(*items) -> list:
+    """The extents in the file (not idat) of ``items`` (None skipped)."""
+    return [e for it in items if it is not None and it["method"] == 0
+            for e in it["extents"]]
+
+
+def _stored_before(color: dict, alpha, nclx: bool) -> bool:
+    """OpenCV's reader returns None for a file whose data is stored in an
+    order it does not take (probed on every order of one- and two-extent
+    items and of a grid's items; an extent in idat takes no part): a grid
+    whose ImageGrid, in the file, comes after one of its tiles' data;
+    where no nclx names the colour, a colour item whose first extent
+    comes after another of its extents or of its alpha item's, or a grid
+    whose first tile's first extent comes after another extent of its
+    tiles (its alpha's take no part)."""
+    if color.get("track"):
+        return False
+    if color.get("grid"):
+        tiles = color["tiles"]
+        first = _file_extents(color)[:1]
+        if first and any(off < first[0][0] for off, _ in
+                         _file_extents(*tiles)):
+            return True
+        lead, others = tiles[0], _file_extents(*tiles[1:])
+    else:
+        lead, others = color, _file_extents(alpha)
+    first = _file_extents(lead)
+    return not nclx and bool(first) and any(
+        off < first[0][0] for off, _ in first[1:] + others)
+
+
 def decode_avif(data: bytes, path="<bytes>", gray: bool = False
                 ) -> np.ndarray:
     """AVIF bytes -> what ``cv2.imread`` returns for a file of them (module
@@ -850,22 +1248,22 @@ def decode_avif(data: bytes, path="<bytes>", gray: bool = False
             raise ValueError("AVIF: a gray image with alpha (OpenCV's "
                              "reader refuses two channels)")
         size = prop(color, b"ispe")
+        if size is None:  # an image of 0 x 0: OpenCV refuses it
+            raise ValueError("AVIF: the image item has no ispe")
         has_nclx = any(k == b"colr" and v and v[0] == b"nclx"
                        for k, v in color["props"])
-        if alpha is not None and not has_nclx and alpha["method"] == \
-                color["method"] == 0 and alpha["extents"] and \
-                color["extents"] and alpha["extents"][0][0] < \
-                color["extents"][0][0]:
+        if _stored_before(color, alpha, has_nclx):
             # measured through cv2.imread (libavif itself decodes it)
-            raise ValueError("AVIF: an alpha item stored before a colour "
-                             "item without nclx (OpenCV's reader returns "
-                             "None)")
-        planes, info, later = _decode(data, box, color, size)
+            raise ValueError("AVIF: item data stored in an order OpenCV's "
+                             "reader refuses")
+        planes, info, later = (_decode_grid if color.get("grid") else
+                               _decode)(data, box, color, size)
         if alpha is not None:
             if (prop(alpha, b"ispe") or size) != size:
                 raise ValueError("AVIF: the alpha item's size is not the "
                                  "image's")
-            _, a_info, a_later = _decode(data, box, alpha, size, True)
+            _, a_info, a_later = (_decode_grid if alpha.get("grid") else
+                                  _decode)(data, box, alpha, size, True)
             if info and a_info and a_info["depth"] != info["depth"]:
                 raise ValueError("AVIF: the alpha's bit depth is not the "
                                  "image's")
@@ -966,9 +1364,42 @@ def _encoder():
     lib = _build.load("av1_encode")
     i64, ptr, cint = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int
     lib.av1_encode.argtypes = [ptr, cint, i64, i64, cint, cint, ptr, ptr,
-                               ptr, i64, ptr, ptr, ctypes.c_char_p, cint]
-    lib.av1_encode.restype = cint
+                               ptr, ptr, i64, ptr, ptr, ctypes.c_char_p,
+                               cint]
+    lib.av1_grain_vector.argtypes = [cint, ptr]
+    lib.av1_encode.restype = lib.av1_grain_vector.restype = cint
     return lib
+
+
+# the offsets of aom_film_grain_t's scalar fields among its ints
+# (grain_params), for the writer's grain overrides
+GRAIN_AT = {"num_y_points": 30, "num_cb_points": 51, "num_cr_points": 72,
+            "scaling_shift": 73, "ar_coeff_lag": 74, "ar_coeff_shift": 149,
+            "cb_mult": 150, "cb_luma_mult": 151, "cb_offset": 152,
+            "cr_mult": 153, "cr_luma_mult": 154, "cr_offset": 155,
+            "overlap_flag": 156, "clip_to_restricted_range": 157,
+            "chroma_scaling_from_luma": 159, "grain_scale_shift": 160,
+            "random_seed": 161}
+
+
+def grain_vector(grain) -> np.ndarray:
+    """A film grain for the writer, ``int32 [162]`` in libaom's
+    ``aom_film_grain_t`` order: libaom's test vector ``grain`` (1-16, as
+    its encoder's ``film-grain-test`` option), or a dict: ``vector`` and
+    fields of :data:`GRAIN_AT` changed (a smaller ``ar_coeff_lag`` writes
+    the first coefficients), or the 162 ints as they are."""
+    if isinstance(grain, dict):
+        v = grain_vector(grain.get("vector", 1))
+        for k, x in grain.items():
+            if k != "vector":
+                v[GRAIN_AT[k]] = x
+        return v
+    if np.ndim(grain):
+        return np.ascontiguousarray(grain, np.int32)
+    v = np.zeros(162, np.int32)
+    if _encoder().av1_grain_vector(int(grain), v.ctypes.data):
+        raise ValueError(f"grain_vector: no test vector {grain}")
+    return v
 
 
 # av1_encode.c's options: 11, then 8 CDEF strengths of 4, the colour
@@ -1046,7 +1477,7 @@ def default_colour(planes: int, subsampled) -> tuple:
 def encode_av1(planes, depth: int = 8, seed: int = 0,
                subsampled=False, lossy: dict = None,
                recon: bool = False, colour: tuple = None,
-               sb128: bool = False):
+               sb128: bool = False, grain=None):
     """AV1 OBUs (a sequence header and one frame, the reduced still picture
     header) of ``uint16`` planes: ``[1 or 3, H, W]`` (Y or Y, U, V at 4:4:4)
     or, with ``subsampled`` (``True`` or "4:2:0", or "4:2:2"), a list Y
@@ -1059,8 +1490,10 @@ def encode_av1(planes, depth: int = 8, seed: int = 0,
     angle deltas, smooth, Paeth, CfL, filter intra), 4 x 4
     Walsh-Hadamard residuals.  ``lossy`` (:func:`_options`; gray, 4:2:0
     or 4:2:2): blocks of one size, one DCT_DCT each, deblocking, CDEF and
-    loop restoration as given.  With ``recon``: (OBUs, the writer's
-    reconstruction, planes as given)."""
+    loop restoration as given.  ``grain`` (:func:`grain_vector`): the
+    frame's film grain, which a decoder adds to it.  With ``recon``:
+    (OBUs, the writer's reconstruction (without grain), planes as
+    given)."""
     if isinstance(planes, np.ndarray) and planes.ndim == 3:
         planes = list(planes)
     planes = [np.ascontiguousarray(p, np.uint16) for p in planes]
@@ -1083,8 +1516,10 @@ def encode_av1(planes, depth: int = 8, seed: int = 0,
     opts = _options(subsampled, lossy, colour or default_colour(
         n, subsampled), sb128)
     lr = _lr_units(lossy.get("lr") if lossy else None)
+    fg = None if grain is None else grain_vector(grain)
     _call(_encoder().av1_encode, flat.ctypes.data, n, H, W, depth, seed,
-          opts.ctypes.data, lr.ctypes.data, out.ctypes.data, cap,
+          opts.ctypes.data, lr.ctypes.data,
+          None if fg is None else fg.ctypes.data, out.ctypes.data, cap,
           size.ctypes.data, rec.ctypes.data if recon else None)
     data = out[:int(size[0])].tobytes()
     if not recon:
@@ -1143,7 +1578,8 @@ def encode_avif(img: np.ndarray, depth: int = 8, seed: int = 0,
                 alpha: np.ndarray = None, extra_props=(),
                 essential: bool = False, subsampling: str = None,
                 lossy: dict = None, recon: bool = False,
-                colour: tuple = None, sb128: bool = False, planes=None):
+                colour: tuple = None, sb128: bool = False, planes=None,
+                grain=None, alpha_grain=None):
     """An AVIF still image of ``img``: ``[H, W, 3]`` BGR or ``[H, W]`` gray
     (4:0:0), ``uint8`` at depth 8, else ``uint16`` samples below ``1 <<
     depth`` (10 or 12).  Colour is lossless 4:4:4 under the identity matrix
@@ -1152,7 +1588,9 @@ def encode_avif(img: np.ndarray, depth: int = 8, seed: int = 0,
     subsampled (:func:`yuv_planes`) under ``colour`` (primaries, transfer,
     matrix, full range: the sequence header's and the colr box's; BT.601
     full range by default); ``planes`` (Y, U, V) are then written as
-    given instead of ``img``'s.  ``alpha`` ([H, W], the same depth) adds a
+    given instead of ``img``'s.  ``grain`` / ``alpha_grain``
+    (:func:`grain_vector`): the film grain of the image's / the alpha's
+    frame.  ``alpha`` ([H, W], the same depth) adds a
     lossless alpha item; ``extra_props`` (boxes, e.g. ``irot``) are
     associated with the image too, marked essential with ``essential``.
     cv2.imread reads the lossless identity colour file back as ``img``
@@ -1169,12 +1607,13 @@ def encode_avif(img: np.ndarray, depth: int = 8, seed: int = 0,
             img, depth, sub, colour[2], colour[3]) if sub else \
             [img[..., 1], img[..., 0], img[..., 2]]
     color = encode_av1(planes, depth, seed, sub, lossy, recon, colour,
-                       sb128)
+                       sb128, grain)
     if recon:
         color, rec = color
     items = [(1, color)]
     if alpha is not None:
-        items.append((2, encode_av1(np.asarray(alpha)[None], depth, seed)))
+        items.append((2, encode_av1(np.asarray(alpha)[None], depth, seed,
+                                    grain=alpha_grain)))
     chans = 1 if mono else 3
     props = [_full(b"ispe", 0, 0, struct.pack(">II", W, H)),
              _full(b"pixi", 0, 0, bytes([chans] + [depth] * chans)),

@@ -112,7 +112,9 @@ FRAME_EXT = {"png": "png", "ppm": "ppm", "pgm": "pgm", "tiff": "tiff",
              "12bit-tiff": "tif", "12bit-png": "png", "avif": "avif",
              "12bit-avif": "avif", "12bit-avif-png": "png",
              "lossy-avif": "avif", "lossy-avif-png": "png",
-             "lr-avif": "avif", "lr-avif-png": "png"}
+             "lr-avif": "avif", "lr-avif-png": "png",
+             "grain-avif": "avif", "grain-avif-png": "png",
+             "12bit-grain-avif": "avif", "12bit-grain-avif-png": "png"}
 # the writer's lossy AVIF frames (avif.encode_avif's ``lossy``): 4:2:0
 # under BT.601, 16 x 16 blocks, deblocking and two CDEF strengths
 LOSSY_AVIF = dict(base_q=60, qm=8, block=16, lf=(8, 8, 4, 4), sharpness=0,
@@ -125,6 +127,13 @@ LR_AVIF = dict(LOSSY_AVIF, lr=dict(
         [("wiener", (3, -7, 15), (3, -7, 15)),
          ("wiener", (-2, 5, 20), (1, -12, 30))],
         [("sgrproj", 4, (-40, 40))], [("sgrproj", 12, (0, 50))]]))
+
+
+# the film grain of the writer's grain frames (avif.grain_vector): libaom's
+# test vector 4 on lossy colour (luma and chroma grain, lag 3, overlap),
+# vector 6 with lag 1 on 12-bit depth (luma grain, clipped to 16-235)
+GRAIN_AVIF = 4
+GRAIN_DEPTH = dict(vector=6, ar_coeff_lag=1)
 
 
 def ycbcr_samples(bgr: np.ndarray) -> np.ndarray:
@@ -203,7 +212,11 @@ def write_frame(path, image, kind: str) -> str:
     unshifted, as a 16-bit PNG); colour as ``lossy-avif`` (the writer's
     lossy 4:2:0 AVIF, :data:`LOSSY_AVIF`) or ``lossy-avif-png``, the PNG of
     what that AVIF reads back as; ``lr-avif`` and ``lr-avif-png`` the same
-    with loop restoration (:data:`LR_AVIF`)."""
+    with loop restoration (:data:`LR_AVIF`); ``grain-avif`` and
+    ``grain-avif-png`` the same with film grain (:data:`GRAIN_AVIF`);
+    depth as ``12bit-grain-avif`` (``12bit-avif`` with film grain,
+    :data:`GRAIN_DEPTH`) or ``12bit-grain-avif-png``, the 16-bit PNG of
+    what that AVIF reads back as."""
     path = f"{path}.{FRAME_EXT[kind]}" if kind in FRAME_EXT else path
     if kind == "png":
         data = encode_png(image)
@@ -244,15 +257,22 @@ def write_frame(path, image, kind: str) -> str:
             "12bit-tiff" else encode_png(top << 4)
     elif kind == "avif":
         data = avif.encode_avif(image)
-    elif kind in ("lossy-avif", "lossy-avif-png", "lr-avif", "lr-avif-png"):
+    elif kind in ("lossy-avif", "lossy-avif-png", "lr-avif", "lr-avif-png",
+                  "grain-avif", "grain-avif-png"):
         data = avif.encode_avif(image, lossy=LR_AVIF if kind.startswith(
-            "lr") else LOSSY_AVIF)
+            "lr") else LOSSY_AVIF, grain=GRAIN_AVIF if kind.startswith(
+                "grain") else None)
         if kind.endswith("-png"):
             data = encode_png(avif.decode_avif(data))
     elif kind in ("12bit-avif", "12bit-avif-png"):
         top = np.minimum(image >> 4, 4095).astype(np.uint16)
         data = avif.encode_avif(top, 12) if kind == "12bit-avif" else \
             encode_png(top)
+    elif kind in ("12bit-grain-avif", "12bit-grain-avif-png"):
+        top = np.minimum(image >> 4, 4095).astype(np.uint16)
+        data = avif.encode_avif(top, 12, grain=GRAIN_DEPTH)
+        if kind.endswith("-png"):
+            data = encode_png(avif.decode_avif(data, gray=True))
     else:
         raise ValueError(f"no fixture format {kind!r}")
     with open(path, "wb") as fh:

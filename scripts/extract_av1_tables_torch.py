@@ -98,7 +98,66 @@ PLAIN = [
     ("av1_one_by_x", "one_by_x", "<i4", "int", (25,)),
     ("av1_x_by_xplus1", "x_by_xplus1", "<i4", "int", (256,)),
     ("iwt_matrix_ref", "qm_iwt", "u1", "uint8_t", (15, 2, 3344)),
+    ("gaussian_sequence", "gaussian_sequence", "<i4", "int16_t", (2048,)),
 ]
+# libaom's aom_film_grain_t (aom_dsp/grain_params.h), int fields in this
+# order (a name with a count: an array of that many ints), then the
+# uint16_t random_seed and its padding: 648 bytes
+GRAIN_FIELDS = [
+    ("apply_grain", 1), ("update_parameters", 1), ("scaling_points_y", 28),
+    ("num_y_points", 1), ("scaling_points_cb", 20), ("num_cb_points", 1),
+    ("scaling_points_cr", 20), ("num_cr_points", 1), ("scaling_shift", 1),
+    ("ar_coeff_lag", 1), ("ar_coeffs_y", 24), ("ar_coeffs_cb", 25),
+    ("ar_coeffs_cr", 25), ("ar_coeff_shift", 1), ("cb_mult", 1),
+    ("cb_luma_mult", 1), ("cb_offset", 1), ("cr_mult", 1),
+    ("cr_luma_mult", 1), ("cr_offset", 1), ("overlap_flag", 1),
+    ("clip_to_restricted_range", 1), ("bit_depth", 1),
+    ("chroma_scaling_from_luma", 1), ("grain_scale_shift", 1),
+    ("random_seed", 1)]
+GRAIN_INTS = sum(n for _, n in GRAIN_FIELDS)
+
+
+def grain_vector(raw: bytes) -> dict:
+    """One aom_film_grain_t of libaom's bytes: {field: int or list}."""
+    v = list(np.frombuffer(raw[:4 * (GRAIN_INTS - 1)], "<i4"))
+    v.append(int.from_bytes(raw[4 * (GRAIN_INTS - 1):][:2], "little"))
+    out, pos = {}, 0
+    for name, n in GRAIN_FIELDS:
+        out[name] = [int(x) for x in v[pos:pos + n]] if n > 1 else int(v[pos])
+        pos += n
+    return out
+
+
+def check_grain_vectors(raw: bytes) -> np.ndarray:
+    """libaom's 16 film_grain_test_vectors, read by GRAIN_FIELDS: each
+    must be a grain libaom's bitstream can carry (at most 14 / 10 / 10
+    points, increasing, shifts and lags in their fields' ranges, 8-bit
+    coefficients, the seed's padding zero); ``[16, GRAIN_INTS]`` int32 in
+    the struct's order."""
+    size = len(raw) // 16
+    if len(raw) != 16 * size or size != 4 * GRAIN_INTS:
+        raise SystemExit(f"film_grain_test_vectors: {len(raw)} bytes, not "
+                         f"16 of {4 * GRAIN_INTS}")
+    rows = []
+    for k in range(16):
+        chunk = raw[k * size:(k + 1) * size]
+        g = grain_vector(chunk)
+        ok = g["apply_grain"] == 1 and chunk[-2:] == bytes(2) and \
+            8 <= g["scaling_shift"] <= 11 and 6 <= g["ar_coeff_shift"] <= 9 \
+            and 0 <= g["ar_coeff_lag"] <= 3 and \
+            0 <= g["grain_scale_shift"] <= 3
+        for plane, most in (("y", 14), ("cb", 10), ("cr", 10)):
+            n = g[f"num_{plane}_points"]
+            xs = g[f"scaling_points_{plane}"][0:2 * n:2]
+            ok &= 0 <= n <= most and all(a < b for a, b in zip(xs, xs[1:]))
+            ok &= all(-128 <= c < 128 for c in g[f"ar_coeffs_{plane}"])
+        if not ok:
+            raise SystemExit(f"film_grain_test_vectors[{k}] is not a grain "
+                             "of aom_film_grain_t's layout")
+        rows.append(np.frombuffer(chunk[:-4], "<i4").tolist()
+                    + [g["random_seed"]])
+    return np.array(rows, np.int32)
+
 # the transform sizes whose scans libaom stores (the 64-point sizes use
 # those of 32 x 32, 16 x 32 and 32 x 16), in the order of scan_offset
 SCAN_SIZES = [(4, 4), (8, 8), (16, 16), (32, 32), (4, 8), (8, 4), (8, 16),
@@ -196,7 +255,8 @@ MV_ROWS = [5] + MV_COMPONENT * 2
 LIBAOM_NOTICE = """\
  * The tables are libaom's (av1/common/entropymode.c, entropy.c,
  * token_cdfs.h, scan.c, reconintra.c, quant_common.c, txb_common.c,
- * av1_txfm.c, cdef_block.c, restoration.c):
+ * av1_txfm.c, cdef_block.c, restoration.c, aom_dsp/grain_synthesis.c,
+ * av1/encoder/grain_test_vectors.h):
  *
  * Copyright (c) 2016, Alliance for Open Media. All rights reserved.
  *
@@ -364,6 +424,9 @@ def render() -> dict:
         n = int(np.prod(shape)) * np.dtype(dtype).itemsize
         parts.append(_array(ctype, name, np.frombuffer(
             table(syms, sym, n), dtype).reshape(shape)))
+    grain = check_grain_vectors(table(syms, "film_grain_test_vectors",
+                                      16 * 4 * GRAIN_INTS))
+    parts.append(_array("int32_t", "film_grain_test_vectors", grain))
     for name, values in SPEC_CONSTANTS:
         parts.append(_array("int", name, np.array(values)))
     mv = np.frombuffer(table(syms, "default_nmv_context", 286), "<u2")
@@ -416,7 +479,14 @@ def render() -> dict:
  * libaom's offsets; sgr_params libaom's self-guided restoration sets
  * (r[2], s[2]), one_by_x and x_by_xplus1 its reciprocals; the wiener_taps_*
  * and sgrproj_xqd_* ranges are the specification's.  sm_weights holds the
- * weights of sizes 4, 8, 16, 32 and 64 (size n from offset n - 4).  mv_cdf is libaom's default_nmv_context,
+ * weights of sizes 4, 8, 16, 32 and 64 (size n from offset n - 4).
+ * gaussian_sequence is film grain's (2048 values, 12 bits);
+ * film_grain_test_vectors libaom's 16 grains of its encoder's
+ * film-grain-test option, each aom_film_grain_t's ints in its order
+ * (apply, update, 14 y points (x, y), their count, 10 cb points, count,
+ * 10 cr points, count, scaling shift, lag, 24 y, 25 cb, 25 cr AR
+ * coefficients (less 128), AR shift, cb mult, luma mult, offset, cr's,
+ * overlap, clip, bit depth, chroma from luma, grain scale shift, seed).  mv_cdf is libaom's default_nmv_context,
  * the CDFs of intra block copy vectors: at 0 the joints (4 symbols), then
  * for the vertical (at 5) and the horizontal component (at 74): classes
  * (11) at +0, class0_fp (2 x 4) at +12, fp (4) at +22, sign at +27,

@@ -711,7 +711,11 @@ def av1_seeds(rng) -> list:
     17 x 9, lossless 4:2:0 and 4:2:2, lossy 4:2:0 at 8 and 10 bits, 4:2:2
     and gray with quantiser matrices, deblocking and CDEF, and 70 x 98
     frames with loop restoration (every type, 8 to 12 bits, 4:2:0 and
-    4:2:2, 128 x 128 superblocks, gray)."""
+    4:2:2, 128 x 128 superblocks, gray), and frames with film grain (the
+    committed grain files, Pillow's and the writer's, the grid tiles and
+    the sequences' first samples among the above; the writer's 10- and
+    12-bit grain at 4:4:4, 4:2:2, 4:2:0 and gray, lags 0-3, chroma scaling
+    from luma, no overlap, the clip)."""
     from lgu_slam_tpu_torch.data import avif
 
     folder = os.path.join(REPO, "tests", "data", "avif")
@@ -725,6 +729,10 @@ def av1_seeds(rng) -> list:
             box = avif.parse(data)
             out += [avif._payload(data, box, item) for item in
                     box["items"].values() if item.get("type") == b"av01"]
+            # a sequence's first samples (its colour and alpha tracks)
+            out += [avif._payload(data, box, item) for item in
+                    (box["color"], box["alpha"]) if item is not None and
+                    item.get("track")]
         except (ValueError, NotImplementedError):
             continue
     for k, (shape, depth) in enumerate((((3, 24, 40), 8), ((1, 24, 40), 8),
@@ -744,6 +752,20 @@ def av1_seeds(rng) -> list:
         for k, opts in enumerate(lossy):
             out.append(avif.encode_av1(planes, depth, k, True, opts))
     out.append(avif.encode_av1([img[..., 1]], 8, 3, False, lossy[0]))
+    grains = [dict(vector=2, ar_coeff_lag=0), dict(vector=4, ar_coeff_lag=1),
+              dict(vector=3, chroma_scaling_from_luma=1),
+              dict(vector=9, clip_to_restricted_range=1, overlap_flag=0),
+              dict(vector=16, grain_scale_shift=3, scaling_shift=8), 5]
+    for k, grain in enumerate(grains):
+        depth, sub = (10, 12)[k % 2], (0, "4:2:2", "4:2:0")[k % 3]
+        if k == 5:
+            out.append(avif.encode_av1([img[..., 1] << 4], 12, k,
+                                       grain=grain))
+            continue
+        planes = [p << (depth - 8) for p in avif.yuv_planes(
+            img, 8, sub)] if sub else list(np.moveaxis(img, -1, 0)
+                                           << (depth - 8))
+        out.append(avif.encode_av1(planes, depth, k, sub, grain=grain))
     # 4:2:2, lossless and lossy; loop restoration of every type on each
     # plane, units of 64 and 128 samples, 128 x 128 superblocks
     units = [[("wiener", (3, -7, 15), (-5, 8, 46)), ("sgrproj", 10, (0, 95)),

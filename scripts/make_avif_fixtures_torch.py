@@ -47,11 +47,30 @@ otherwise):
   lossy 4:2:0 at limited range; ``port_c420_bt709.avif``: the port's
   writer's lossless 4:2:0 under BT.709;
 
+film grain, grids, sequences and scaled frames, read bit for bit (the
+files of ``chip_smoke.py`` phase 22):
+
+- ``pillow_grain_v1_420.avif``, ``pillow_grain_v10_444.avif``,
+  ``pillow_grain_v16_400.avif``: Pillow's lossy files with libaom's film
+  grain test vectors 1, 10 and 16 (4:2:0, 4:4:4 and 4:0:0 gray);
+- ``port_grain_c10.avif``: the port's writer's lossy 10-bit 4:2:0 frame
+  with test vector 4; ``port_grain_g12.avif``: its 12-bit gray (the
+  depth's top 12 bits) with vector 6 at lag 1;
+- ``port_grid_1x2.avif``: a 1 x 2 grid of the writer's 64 x 64 lossless
+  tiles; ``port_grid_2x2_alpha.avif``: a 2 x 2 grid of lossy 4:2:0 tiles
+  cropped to 120 x 100, with a 2 x 2 alpha grid;
+- ``pillow_avis.avif``: Pillow's two-frame image sequence (its first
+  frame);
+- ``port_scaled_down.avif``: a 96 x 128 frame under an ``ispe`` of 60 x
+  80, ``port_scaled_up_g12.avif``: a 12-bit gray 48 x 64 frame under 100
+  x 80 (libavif scales both with libyuv);
+
 refused as ``cv2.imread`` refuses them (None: null hashes):
 ``port_damaged.avif`` (three bytes of the tile data flipped),
 ``port_cut.avif`` (cut inside its tile); and read by OpenCV but queued for
 a later reader (``NotImplementedError`` naming the feature, the ``queued``
-key): ``pillow_avis.avif`` (an image sequence).
+key): ``port_two_frames.avif`` (two AV1 frames in the item; OpenCV shows
+the second).
 
 Beside them ``hashes.json``: the SHA-256 of ``cv2.imread``'s array in both
 read modes (colour, ``IMREAD_ANYDEPTH``), its shape and dtype, which
@@ -65,6 +84,7 @@ import argparse
 import hashlib
 import json
 import os
+import struct
 import sys
 import tempfile
 
@@ -74,6 +94,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from lgu_slam_tpu_torch.data import avif  # noqa: E402
+from lgu_slam_tpu_torch.data.avif import (  # noqa: E402
+    ALPHA_URNS,
+    _av1c,
+    _box,
+    _chroma,
+    _full,
+    default_colour,
+    encode_av1,
+    yuv_planes,
+)
 from lgu_slam_tpu_torch.data.fixtures import (  # noqa: E402
     TUM_FR1,
     render_sequence,
@@ -216,8 +246,272 @@ def files() -> dict:
     out["port_c420_bt709.avif"] = (avif.encode_avif(
         img, 8, 4, subsampling="4:2:0", colour=(1, 1, 1, 1)), None)
     out["pillow_avis.avif"] = (pillow_file(img[..., ::-1].copy(), frames=[
-        255 - img[..., ::-1]], quality=100, subsampling="4:4:4"),
-        "image sequence")
+        255 - img[..., ::-1]], quality=100, subsampling="4:4:4"), None)
+    out.update(files_22(img, top))
+    return out
+
+
+def with_ispe(data: bytes, W: int, H: int, size: tuple) -> bytes:
+    """A writer file whose ispe (W x H) names ``size`` (W, H) instead."""
+    ispe = b"ispe" + bytes(4) + struct.pack(">II", W, H)
+    assert data.count(ispe) == 1
+    return data.replace(ispe, b"ispe" + bytes(4) + struct.pack(">II", *size))
+
+
+def heif(items, stored=None) -> bytes:
+    """An AVIF (HEIF) file of ``items``, the first the primary, in order
+    (their data stored in the order of the indices ``stored``, by default
+    theirs): dicts of ``id``, ``type`` (``b"av01"``, ``b"grid"``),
+    ``data`` (bytes), ``props`` (a list of (property box, essential)),
+    ``refs`` (a list of (kind, [to IDs])) and ``idat`` (the data in
+    ``idat``, else in ``mdat``); ``ipco`` holds each distinct property
+    once.  :func:`avif.encode_avif` writes its own still images."""
+    full, box = _full, _box
+    props, assoc = [], []
+    for it in items:
+        lst = []
+        for b, essential in it.get("props", ()):
+            if b not in props:
+                props.append(b)
+            lst.append((props.index(b) + 1) | (0x80 if essential else 0))
+        assoc.append((it["id"], lst))
+    ipma = struct.pack(">I", len(assoc)) + b"".join(
+        struct.pack(">HB", i, len(lst)) + bytes(lst) for i, lst in assoc)
+    refs = b"".join(box(kind, struct.pack(">HH", it["id"], len(to)) +
+                        b"".join(struct.pack(">H", k) for k in to))
+                    for it in items for kind, to in it.get("refs", ()))
+    infe = b"".join(full(b"infe", 2, 0, struct.pack(">HH", it["id"], 0)
+                         + it["type"] + b"\0") for it in items)
+    idat = b"".join(items[k]["data"] for k in (
+        range(len(items)) if stored is None else stored)
+        if items[k].get("idat"))
+
+    def meta(offsets):
+        iloc = struct.pack(">HH", 0x4400, len(items)) + b"".join(
+            struct.pack(">HHHHII", it["id"], 1 if it.get("idat") else 0, 0,
+                        1, off, len(it["data"]))
+            for it, off in zip(items, offsets))
+        return full(b"meta", 0, 0, full(b"hdlr", 0, 0, bytes(4) + b"pict"
+                                        + bytes(13))
+                    + full(b"pitm", 0, 0, struct.pack(">H", items[0]["id"]))
+                    + full(b"iloc", 1, 0, iloc)
+                    + full(b"iinf", 0, 0, struct.pack(">H", len(items))
+                           + infe)
+                    + (full(b"iref", 0, 0, refs) if refs else b"")
+                    + (box(b"idat", idat) if idat else b"")
+                    + box(b"iprp", box(b"ipco", b"".join(props))
+                          + full(b"ipma", 0, 0, ipma)))
+
+    ftyp = box(b"ftyp", b"avif" + bytes(4) + b"avifmif1miaf")
+    start = len(ftyp) + len(meta([0] * len(items))) + 8
+    offsets, pos, ipos = [0] * len(items), start, 0
+    order = list(range(len(items))) if stored is None else list(stored)
+    for k in order:
+        it = items[k]
+        if it.get("idat"):
+            offsets[k] = ipos
+            ipos += len(it["data"])
+        else:
+            offsets[k] = pos
+            pos += len(it["data"])
+    return ftyp + meta(offsets) + box(b"mdat", b"".join(
+        items[k]["data"] for k in order if not items[k].get("idat")))
+
+
+def grid_box(rows: int, cols: int, W: int, H: int, wide: bool = False
+             ) -> bytes:
+    """An ImageGrid (version 0; 32-bit sizes with ``wide`` or where a side
+    needs them)."""
+    wide = wide or W > 0xFFFF or H > 0xFFFF
+    return struct.pack(">BBBB", 0, int(wide), rows - 1, cols - 1) + \
+        struct.pack(">II" if wide else ">HH", W, H)
+
+
+def encode_grid(tiles, cols: int, size=None, depth: int = 8,
+                alpha_tiles=None, seed: int = 0, idat: bool = True,
+                wide: bool = False, tile_size=None, nclx: bool = True,
+                stored=None, **kw) -> bytes:
+    """An AVIF grid image (item 1) of the writer's ``tiles`` (arrays of one
+    shape, :func:`avif.encode_avif`'s images, in raster order over ``cols``
+    columns), output ``size`` (W, H: by default the tiles' span),
+    ``alpha_tiles`` (an alpha grid over them), its ImageGrid in ``idat``
+    (else in ``mdat``), with 32-bit sizes (``wide``); ``tile_size`` (W, H):
+    the tiles' ``ispe``, where it is not their frames' (libavif scales
+    each); ``nclx``: the grid's colr (else none); ``stored``: the order
+    of the items' data (:func:`heif`); ``kw``: :func:`avif.encode_av1`'s
+    ``subsampled``, ``lossy``, ``colour``, ``grain``."""
+    H, W = np.asarray(tiles[0]).shape[:2]
+    W, H = tile_size or (W, H)
+    rows = len(tiles) // cols
+    size = size or (W * cols, H * rows)
+    mono = np.asarray(tiles[0]).ndim == 2
+    sub = 0 if mono else _chroma(kw.get("subsampled"))
+    colour = kw.pop("colour", None) or default_colour(1 if mono else 3, sub)
+    ispe = _full(b"ispe", 0, 0, struct.pack(">II", W, H))
+    av1c = _av1c(depth, mono, sub)
+    colr = _box(b"colr", b"nclx" + struct.pack(">HHHB", *colour[:3],
+                                               0x80 * bool(colour[3])))
+    items = [dict(id=1, type=b"grid", data=grid_box(rows, cols, *size, wide),
+                  idat=idat, props=[(_full(b"ispe", 0, 0, struct.pack(
+                      ">II", *size)), False)] + ([(colr, False)] if nclx
+                                                 else []),
+                  refs=[(b"dimg", list(range(2, 2 + len(tiles))))])]
+    for k, t in enumerate(tiles):
+        t = np.asarray(t)
+        planes = [t] if mono else yuv_planes(t, depth, sub, colour[2],
+                                             colour[3]) if sub else \
+            [t[..., 1], t[..., 0], t[..., 2]]
+        items.append(dict(id=2 + k, type=b"av01", data=encode_av1(
+            planes, depth, seed + k, colour=colour, **kw),
+            props=[(ispe, False), (av1c, True)]))
+    if alpha_tiles is not None:
+        n = len(items) + 1
+        aux = _full(b"auxC", 0, 0, ALPHA_URNS[0] + b"\0")
+        items.append(dict(id=n, type=b"grid", data=grid_box(
+            rows, cols, *size, wide), idat=idat, props=[(_full(
+                b"ispe", 0, 0, struct.pack(">II", *size)), False),
+                (aux, False)], refs=[(b"auxl", [1]), (b"dimg", list(range(
+                    n + 1, n + 1 + len(alpha_tiles))))]))
+        for k, a in enumerate(alpha_tiles):
+            items.append(dict(id=n + 1 + k, type=b"av01", data=encode_av1(
+                np.asarray(a)[None], depth, seed + k), props=[
+                (ispe, False), (_av1c(depth, True), True), (aux, False)]))
+    return heif(items, stored=stored)
+
+
+def _sample_entry(W: int, H: int, props: bytes) -> bytes:
+    """An ``av01`` VisualSampleEntry of a W x H track and its property
+    boxes."""
+    return _box(b"av01", bytes(6) + struct.pack(">H", 1) + bytes(16)
+                + struct.pack(">HHIIIH", W, H, 0x480000, 0x480000, 0, 1)
+                + bytes(32) + struct.pack(">Hh", 0x18, -1) + props)
+
+
+def _trak(tid: int, W: int, H: int, entry: bytes, sizes: list,
+          offsets: list, per_chunk: int, co64: bool, tref: bytes) -> bytes:
+    """A video ``trak``: its samples ``sizes``, ``per_chunk`` to a chunk at
+    ``offsets`` (``co64``: 64-bit offsets)."""
+    full, box = _full, _box
+    n = len(sizes)
+    tkhd = full(b"tkhd", 0, 3, struct.pack(">IIIII", 0, 0, tid, 0, n)
+                + bytes(16) + struct.pack(">9I", 0x10000, 0, 0, 0, 0x10000,
+                                          0, 0, 0, 0x40000000)
+                + struct.pack(">II", W << 16, H << 16))
+    mdhd = full(b"mdhd", 0, 0, struct.pack(">IIIIHH", 0, 0, 1000, n, 0x55C4,
+                                           0))
+    hdlr = full(b"hdlr", 0, 0, bytes(4) + b"pict" + bytes(12) + b"\0")
+    dinf = box(b"dinf", full(b"dref", 0, 0, struct.pack(">I", 1)
+                             + full(b"url ", 0, 1, b"")))
+    chunks = len(offsets)
+    stbl = box(b"stbl", full(b"stsd", 0, 0, struct.pack(">I", 1) + entry)
+               + full(b"stts", 0, 0, struct.pack(">III", 1, n, 1))
+               + full(b"stsc", 0, 0, struct.pack(">IIII", 1, 1, per_chunk,
+                                                 1))
+               + full(b"stsz", 0, 0, struct.pack(">II", 0, n) + b"".join(
+                   struct.pack(">I", k) for k in sizes))
+               + full(b"co64" if co64 else b"stco", 0, 0, struct.pack(
+                   ">I", chunks) + b"".join(struct.pack(
+                       ">Q" if co64 else ">I", o) for o in offsets)))
+    minf = box(b"minf", full(b"vmhd", 0, 1, bytes(8)) + dinf + stbl)
+    return box(b"trak", tkhd + tref + box(b"mdia", mdhd + hdlr + minf))
+
+
+def encode_avis(frames, depth: int = 8, alpha=None, size=None,
+                per_chunk: int = 1, co64: bool = False, seed: int = 0,
+                **kw) -> bytes:
+    """An AVIF image sequence (major brand ``avis``, no ``meta``) of the
+    writer's frames (:func:`avif.encode_avif`'s images, one AV1 still each;
+    ``kw``: :func:`avif.encode_av1`'s ``subsampled``, ``lossy``, ``colour``,
+    ``grain``), ``per_chunk`` samples to a chunk (``co64``: 64-bit chunk
+    offsets), an alpha track of ``alpha`` (images like the frames) whose
+    sample entry's ``auxi`` names alpha, the tracks' ``tkhd`` size
+    ``size`` (W, H; the frames' by default)."""
+    frames = [np.asarray(f) for f in frames]
+    H, W = frames[0].shape[:2]
+    mono = frames[0].ndim == 2
+    sub = 0 if mono else _chroma(kw.get("subsampled"))
+    colour = kw.pop("colour", None) or default_colour(1 if mono else 3, sub)
+    tW, tH = size or (W, H)
+    colr = _box(b"colr", b"nclx" + struct.pack(">HHHB", *colour[:3],
+                                               0x80 * bool(colour[3])))
+    tracks = [([encode_av1([f] if mono else yuv_planes(
+        f, depth, sub, colour[2], colour[3]) if sub else
+        [f[..., 1], f[..., 0], f[..., 2]], depth, seed + k, colour=colour,
+        **kw) for k, f in enumerate(frames)], _sample_entry(
+            tW, tH, _av1c(depth, mono, sub) + colr), b"")]
+    if alpha is not None:
+        aux = _full(b"auxi", 0, 0, ALPHA_URNS[0] + b"\0")
+        tracks.append(([encode_av1(np.asarray(a)[None], depth, seed + k)
+                        for k, a in enumerate(alpha)], _sample_entry(
+            tW, tH, _av1c(depth, True) + aux), _box(b"tref", _box(
+                b"auxl", struct.pack(">I", 1)))))
+    ftyp = _box(b"ftyp", b"avis" + bytes(4) + b"avismsf1miafMA1B")
+
+    def moov(base):
+        pos, traks = base, []
+        for tid, (samples, entry, tref) in enumerate(tracks, 1):
+            offsets = []
+            for k, smp in enumerate(samples):
+                if k % per_chunk == 0:
+                    offsets.append(pos)
+                pos += len(smp)
+            traks.append(_trak(tid, tW, tH, entry, [len(x) for x in samples],
+                               offsets, per_chunk, co64, tref))
+        mvhd = _full(b"mvhd", 0, 0, struct.pack(">IIII", 0, 0, 1000,
+                                                len(frames))
+                     + struct.pack(">IH", 0x10000, 0x100) + bytes(10)
+                     + struct.pack(">9I", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0,
+                                   0x40000000) + bytes(24)
+                     + struct.pack(">I", len(tracks) + 1))
+        return _box(b"moov", mvhd + b"".join(traks))
+
+    base = len(ftyp) + len(moov(0)) + 8
+    mdat = b"".join(x for samples, _, _ in tracks for x in samples)
+    return ftyp + moov(base) + _box(b"mdat", mdat)
+
+
+def two_frames(img: np.ndarray) -> bytes:
+    """A writer file whose colour item holds two AV1 frames (the second of
+    the negative image)."""
+    first = avif.encode_av1(np.stack([img[..., 1], img[..., 0],
+                                      img[..., 2]]), 8, 0)
+    second = avif.encode_av1(np.stack([255 - img[..., 1], img[..., 0],
+                                       img[..., 2]]), 8, 1)
+    return heif([dict(id=1, type=b"av01", data=first + second, props=[
+        (avif._full(b"ispe", 0, 0, struct.pack(">II", img.shape[1],
+                                                img.shape[0])), False),
+        (avif._av1c(8, False), True)])])
+
+
+def files_22(img: np.ndarray, top: np.ndarray) -> dict:
+    """Slice 22's files: film grain, grids, a sequence, scaled frames."""
+    rgb = img[..., ::-1].copy()
+    out = {}
+    for v, sub in ((1, "4:2:0"), (10, "4:4:4"), (16, "4:0:0")):
+        src = img[..., 1].copy() if sub == "4:0:0" else rgb
+        out[f"pillow_grain_v{v}_{sub.replace(':', '')}.avif"] = (
+            pillow_file(src, quality=60, subsampling=sub, advanced=[
+                ("film-grain-test", str(v))]), None)
+    c10 = img.astype(np.uint16) << 2
+    out["port_grain_c10.avif"] = (avif.encode_avif(
+        c10, 10, 5, lossy=dict(base_q=60, lf=(8, 8, 4, 4)), grain=4), None)
+    out["port_grain_g12.avif"] = (avif.encode_avif(
+        top, 12, 6, grain=dict(vector=6, ar_coeff_lag=1)), None)
+    big = scene(np.random.default_rng(22), 128, 128)
+    out["port_grid_1x2.avif"] = (encode_grid(
+        [big[:64, :64], big[:64, 64:]], 2), None)
+    tiles = [big[:64, :64], big[:64, 64:], big[64:, :64], big[64:, 64:]]
+    out["port_grid_2x2_alpha.avif"] = (encode_grid(
+        tiles, 2, size=(120, 100), subsampled="4:2:0", lossy=dict(
+            base_q=80, lf=(8, 8, 4, 4)), alpha_tiles=[
+            t[..., 0] for t in tiles]), None)
+    frame = scene(np.random.default_rng(23), 96, 128)
+    out["port_scaled_down.avif"] = (with_ispe(avif.encode_avif(
+        frame, 8, 7, lossy=dict(base_q=40)), 128, 96, (80, 60)), None)
+    out["port_scaled_up_g12.avif"] = (with_ispe(avif.encode_avif(
+        top, 12, 8), 64, 48, (100, 80)), None)
+    out["port_two_frames.avif"] = (two_frames(img[:24, :32]),
+                                   "more than one AV1 frame")
     return out
 
 

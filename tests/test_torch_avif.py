@@ -11,6 +11,7 @@ import hashlib
 import json
 import os
 import struct
+import sys
 
 import cv2
 import numpy as np
@@ -20,6 +21,9 @@ from torch_port import same_as_cv2
 from lgu_slam_tpu_torch.data import avif, image_io
 
 DATA = os.path.join(os.path.dirname(__file__), "data", "avif")
+sys.path.insert(0, os.path.join(os.path.dirname(DATA), "..", "..",
+                                "scripts"))
+from make_avif_fixtures_torch import encode_grid, two_frames  # noqa: E402
 
 
 def _cv2_avif(path, img, quality=100, speed=6, depth=None):
@@ -51,13 +55,15 @@ def test_committed_fixtures_decode_to_cv2_hashes():
     frames at 95, 50 and 10-bit 80, frames using loop restoration: 480 x
     640 at speed 2, qualities 30 and 60, 48 x 64 at speed 0), Pillow's
     4:4:4 under BT.601, 4:2:2 and limited-range 4:2:0, the writer's 4:2:0
-    under BT.709: the port's arrays hash as cv2.imread's do in both read
-    modes (the hashes written beside them, which chip_smoke.py phases 19
-    to 21 check on machines without OpenCV), or both refuse (null:
-    ValueError); the queued file (an avis sequence) is read by cv2 and
-    raises NotImplementedError naming its feature."""
+    under BT.709, film grain (Pillow's and the writer's), grids, Pillow's
+    avis sequence, frames scaled to their ispe: the port's arrays hash as
+    cv2.imread's do in both read modes (the hashes written beside them,
+    which chip_smoke.py phases 19 to 22 check on machines without OpenCV),
+    or both refuse (null: ValueError); the queued file (two AV1 frames in
+    one item) is read by cv2 and raises NotImplementedError naming its
+    feature."""
     hashes = json.load(open(os.path.join(DATA, "hashes.json")))
-    assert len(hashes) == 38
+    assert len(hashes) == 48
     for name, want in hashes.items():
         path = os.path.join(DATA, name)
         for mode, flag in (("color", cv2.IMREAD_COLOR),
@@ -193,12 +199,15 @@ def test_cut_and_damaged_files(tmp_path):
 
 # what the port refuses with NotImplementedError where cv2.imread reads
 # (or fails on what the port does not decode): each is queued in ROADMAP.md
-# A item 1, but the last, where OpenCV reads uninitialised memory
+# A item 1 (e: lossy intra block copy, segmentation, superres; f: more
+# than one frame), but the last two: a frame of more samples than its
+# image and than avif.SCALED_PIXELS (the guard against a damaged header)
+# and the 8-bit frame under a deeper av1C, where OpenCV reads
+# uninitialised memory
 QUEUED = ("lossy AV1 intra block", "AV1 segmentation",
-          "AV1 superres", "AV1 film grain", "AV1 show_existing_frame",
+          "AV1 superres", "AV1 show_existing_frame",
           "an AV1 inter frame", "more than one AV1 frame",
-          "a frame of another size than ispe's", "a frame larger than its",
-          "an image sequence", "a grid", "an 8-bit frame under a deeper")
+          "a frame larger than its", "an 8-bit frame under a deeper")
 
 
 def _damage_base(kind):
@@ -212,9 +221,7 @@ def _damage_base(kind):
 
 # kind: (rng seed, {(feature, cv2 reads): reads}) as measured with OpenCV
 # 5.0.0 (libavif 1.4.2, libaom 3.14.1)
-DAMAGE = {"alpha": (9, {("a frame of another size than ispe's", True): 2}),
-          "gray12": (10, {}),
-          "cv2": (11, {("a frame of another size than ispe's", True): 6})}
+DAMAGE = {"alpha": (9, {}), "gray12": (10, {}), "cv2": (11, {})}
 
 
 @pytest.mark.parametrize("kind", sorted(DAMAGE))
@@ -347,16 +354,18 @@ def test_transforms_are_not_applied(tmp_path):
 
 
 def test_queued_files_raise_not_implemented(tmp_path):
-    """Files OpenCV reads and this reader does not yet (slice 22), one for
-    each feature an encoder here can write: film grain (Pillow, libaom's
-    grain test vectors), an avis sequence (Pillow, two frames), a
-    hand-made 1 x 2 grid of the writer's 64 x 64 images (MIAF's least tile
-    size): NotImplementedError naming the feature.  Files of features
-    this reader reads equal cv2.imread's result: a cv2.imwrite
-    frame at speed 0 that uses loop restoration, 4:2:2 (Pillow), colour
-    under BT.709 (the writer's file, its colr changed), limited-range
-    colour and gray (Pillow; OpenCV copies a 4:0:0 image's Y as stored,
-    whatever its range)."""
+    """Files of features this reader once refused, one for each feature
+    an encoder here can write, read equal to cv2.imread in both modes:
+    film grain (Pillow, libaom's grain test vectors), an avis sequence
+    (Pillow, two frames: the first), a 1 x 2 grid of the writer's 64 x 64
+    images (MIAF's least tile size, no colr), equal to the image it was
+    cut from.  What stays queued: an item of two AV1 frames (cv2 shows
+    the second), NotImplementedError naming the feature.  Files of
+    features read before: a cv2.imwrite frame at speed 0 that uses loop
+    restoration, 4:2:2 (Pillow), colour under BT.709 (the writer's file,
+    its colr changed), limited-range colour and gray (Pillow; OpenCV
+    copies a 4:0:0 image's Y as stored, whatever its
+    range)."""
     from PIL import Image
 
     img = _scene(np.random.default_rng(2), 40, 56)
@@ -372,67 +381,25 @@ def test_queued_files_raise_not_implemented(tmp_path):
     Image.fromarray(img[..., 1].copy()).save(
         tmp_path / "lim.avif", quality=100, subsampling="4:0:0",
         range="limited")
-    for name in ("r", "422", "709", "lc", "lim"):
-        same_as_cv2(tmp_path / f"{name}.avif")
     rgb.save(tmp_path / "g.avif", quality=50,
              advanced=[("film-grain-test", "1")])
-    cases = {"AV1 film grain": tmp_path / "g.avif"}
     rgb.save(tmp_path / "s.avif", save_all=True, quality=100,
              append_images=[Image.fromarray(255 - img)])
-    cases["image sequence"] = tmp_path / "s.avif"
-    assert len(cases) == 2
-    for feature, path in cases.items():
-        assert cv2.imread(str(path)) is not None
-        for anydepth in (False, True):
-            with pytest.raises(NotImplementedError, match=feature):
-                image_io.imread(str(path), anydepth=anydepth)
+    for name in ("r", "422", "709", "lc", "lim", "g", "s"):
+        assert cv2.imread(str(tmp_path / f"{name}.avif")) is not None
+        same_as_cv2(tmp_path / f"{name}.avif")
     big = _scene(np.random.default_rng(2), 64, 128)
-    (tmp_path / "g.avif").write_bytes(_grid(big[:, :64], big[:, 64:]))
-    np.testing.assert_array_equal(cv2.imread(str(tmp_path / "g.avif")), big)
+    (tmp_path / "grid.avif").write_bytes(encode_grid(
+        [big[:, :64], big[:, 64:]], 2, nclx=False))
+    np.testing.assert_array_equal(cv2.imread(str(tmp_path / "grid.avif")),
+                                  big)
+    same_as_cv2(tmp_path / "grid.avif")
+    (tmp_path / "two.avif").write_bytes(two_frames(img))
+    assert cv2.imread(str(tmp_path / "two.avif")) is not None
     for anydepth in (False, True):
-        with pytest.raises(NotImplementedError, match="grid"):
-            image_io.imread(str(tmp_path / "g.avif"), anydepth=anydepth)
-
-
-def _grid(*tiles) -> bytes:
-    """A grid item (ID 1) over the writer's tiles (IDs 2, ...), its
-    ImageGrid in idat, the tiles in mdat."""
-    H, W = tiles[0].shape[:2]
-    n = len(tiles)
-    obus = [avif.encode_av1(np.stack([t[..., 1], t[..., 0], t[..., 2]]), 8,
-                            k) for k, t in enumerate(tiles)]
-    grid = struct.pack(">BBBBHH", 0, 0, 0, n - 1, W * n, H)
-    full, box = avif._full, avif._box
-    props = [full(b"ispe", 0, 0, struct.pack(">II", W, H)),
-             full(b"ispe", 0, 0, struct.pack(">II", W * n, H)),
-             avif._av1c(8, False)]
-    assoc = [(1, [2])] + [(k + 2, [1, 0x83]) for k in range(n)]
-    ipma = struct.pack(">I", len(assoc)) + b"".join(
-        struct.pack(">HB", i, len(lst)) + bytes(lst) for i, lst in assoc)
-    infe = full(b"infe", 2, 0, struct.pack(">HH", 1, 0) + b"grid\0")
-    infe += b"".join(full(b"infe", 2, 1, struct.pack(">HH", k + 2, 0)
-                          + b"av01\0") for k in range(n))
-    def meta(offsets):
-        iloc = struct.pack(">HH", 0x4400, n + 1) + struct.pack(
-            ">HHHHII", 1, 1, 0, 1, 0, len(grid)) + b"".join(
-            struct.pack(">HHHHII", k + 2, 0, 0, 1, offsets[k],
-                        len(obus[k])) for k in range(n))
-        return full(b"meta", 0, 0, full(b"hdlr", 0, 0, bytes(4) + b"pict"
-                                        + bytes(13))
-                    + full(b"pitm", 0, 0, struct.pack(">H", 1))
-                    + full(b"iloc", 1, 0, iloc)
-                    + full(b"iinf", 0, 0, struct.pack(">H", n + 1) + infe)
-                    + full(b"iref", 0, 0, box(b"dimg", struct.pack(
-                        ">HH", 1, n) + b"".join(struct.pack(">H", k + 2)
-                                               for k in range(n))))
-                    + box(b"idat", grid)
-                    + box(b"iprp", box(b"ipco", b"".join(props))
-                          + full(b"ipma", 0, 0, ipma)))
-
-    ftyp = box(b"ftyp", b"avif" + bytes(4) + b"avifmif1")
-    pos = len(ftyp) + len(meta([0] * n)) + 8
-    offsets = [pos + sum(len(o) for o in obus[:k]) for k in range(n)]
-    return ftyp + meta(offsets) + box(b"mdat", b"".join(obus))
+        with pytest.raises(NotImplementedError,
+                           match="more than one AV1 frame"):
+            image_io.imread(str(tmp_path / "two.avif"), anydepth=anydepth)
 
 
 def test_alpha_items(tmp_path):

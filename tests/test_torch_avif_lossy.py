@@ -350,11 +350,9 @@ def _damaged(data: bytes, rng, start: int) -> bytes:
 
 # kind: (rng seed, {(feature, cv2 reads): reads}) as measured with OpenCV
 # 5.0.0 (libavif 1.4.2, libaom 3.14.1)
-DAMAGE = {"whole": (21, {("AV1 segmentation", False): 6,
-                          ("a frame of another size than ispe's", True): 2}),
-          "obus": (22, {("AV1 segmentation", False): 2,
-                         ("a frame of another size than ispe's", True): 4}),
-          "alpha": (23, {("a frame of another size than ispe's", True): 4})}
+DAMAGE = {"whole": (21, {("AV1 segmentation", False): 6}),
+          "obus": (22, {("AV1 segmentation", False): 2}),
+          "alpha": (23, {})}
 
 
 @pytest.mark.parametrize("kind", sorted(DAMAGE))

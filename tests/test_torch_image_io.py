@@ -127,7 +127,8 @@ def _patch_ihdr(png: bytes, offset: int, value: int) -> bytes:
 
 def test_what_the_port_does_not_read_raises(tmp_path):
     """The format this OpenCV build reads that the port does not read
-    yet (an AVIF image sequence, Pillow's, read back by cv2.imread;
+    yet (an AVIF item of two AV1 frames, read back by cv2.imread; image
+    sequences, film grain, grids and scaled frames read;
     cv2.imwrite's default AVIF reads since lossy AV1 does, and its files at
     speed 0, whose frames use loop restoration, since restoration does):
     NotImplementedError naming the format, whatever the file's extension;
@@ -161,7 +162,7 @@ def test_what_the_port_does_not_read_raises(tmp_path):
     for ext, name in formats.items():
         other = str(tmp_path / f"a{ext}")
         shutil.copy(os.path.join(os.path.dirname(__file__), "data", "avif",
-                                 "pillow_avis.avif"), other)
+                                 "port_two_frames.avif"), other)
         assert cv2.imread(other) is not None
         for path in (other, other + ".png"):
             os.replace(other if path != other else other, path)
@@ -727,6 +728,23 @@ def _kind(name: str, tmp_path) -> bytes:
             Image.fromarray(img).save(path, save_all=True, quality=100,
                                       append_images=[Image.fromarray(img)])
             return path.read_bytes()
+        if name == "avif_grain":
+            return avif.encode_avif(img, lossy=dict(base_q=60), grain=3)
+        if name == "avif_grid":
+            big = np.tile(img, (4, 5, 1))[:64, :128]
+            from test_torch_avif import encode_grid
+
+            return encode_grid([big[:, :64], big[:, 64:]], 2,
+                               size=(120, 64))
+        if name == "avif_scaled":
+            H, W = img.shape[:2]
+            return avif.encode_avif(img).replace(
+                b"ispe" + bytes(4) + struct.pack(">II", W, H),
+                b"ispe" + bytes(4) + struct.pack(">II", W + 9, H - 7))
+        if name == "avif_two_frames":
+            from test_torch_avif import two_frames
+
+            return two_frames(img)
         data = avif.encode_avif(gray.astype(np.uint16) * 16, 12) if \
             name == "avif_gray12" else avif.encode_avif(img)
         return data[:-300] if name == "avif_cut" else data
@@ -821,7 +839,10 @@ CLASSES = {
     # cv2 returns memory it never wrote for an alpha PAM; cv2.imwrite's
     # default AVIF is lossy AV1, read since slice 20
     "avif": ("read", "read"),
-    **{k: ("queued", "queued") for k in ("pam_alpha", "avif_avis")},
+    **{k: ("queued", "queued") for k in ("pam_alpha", "avif_two_frames")},
+    # film grain, grids, sequences and scaled frames: read
+    **{k: ("read", "read") for k in ("avif_avis", "avif_grain", "avif_grid",
+                                     "avif_scaled")},
     "avif_lossless": ("read", "read"),
     "avif_gray12": ("read", "read"),
     "avif_cut": ("none", "none"),

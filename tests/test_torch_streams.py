@@ -196,20 +196,21 @@ def test_euroc_stream_skips_tiff_cv2_returns_none_for(kind, tmp_path):
 
 
 def test_euroc_stream_raises_on_a_format_it_cannot_read(tmp_path):
-    """A left image stored as AVIF with film grain (Pillow's), which
-    cv2.imread reads and the port does not yet: the JAX stream tracks all
-    4 frames; the port's stream raises NotImplementedError naming the
-    format instead of dropping the frame."""
+    """A left image stored as an AVIF item of two AV1 frames, which
+    cv2.imread reads (the second) and the port does not yet: the JAX
+    stream tracks all 4 frames; the port's stream raises
+    NotImplementedError naming the format instead of dropping the
+    frame."""
     import cv2
-    from PIL import Image
+    from test_torch_avif import two_frames
 
     root = fixtures.write_euroc_sequence(str(tmp_path / "MH_01_easy"),
                                          n_frames=4)
     left = os.path.join(root, "mav0", "cam0", "data")
     name = os.path.join(left, sorted(os.listdir(left))[1])
-    Image.fromarray(cv2.imread(name)[..., ::-1].copy()).save(
-        name, format="AVIF", quality=60,
-        advanced=[("film-grain-test", "1")])
+    data = two_frames(cv2.imread(name))
+    with open(name, "wb") as fh:
+        fh.write(data)
     assert len(list(jstreams.euroc_stereo_stream(root))) == 4
     with pytest.raises(NotImplementedError, match="AVIF"):
         list(tstreams.euroc_stereo_stream(root))
@@ -550,6 +551,41 @@ def test_tum_stream_avif_matches_jax(tmp_path):
     png = fixtures.write_tum_sequence(str(tmp_path / "png" / name),
                                       n_frames=3, H=60, W=80,
                                       depth="12bit-avif-png")
+    items = _held(tstreams.tum_rgbd_stream(root, stride=1),
+                  jstreams.tum_rgbd_stream(root, stride=1))
+    ref = list(tstreams.tum_rgbd_stream(png, stride=1))
+    assert len(items) == len(ref) == 3
+    for a, b in zip(items, ref):
+        assert a[0] == b[0]
+        for x, y in zip(a[1:], b[1:]):
+            np.testing.assert_array_equal(x, y)
+
+
+def test_tum_stream_grain_avif_matches_jax(tmp_path):
+    """The TUM reader over an fr1 sequence of the port writer's lossy 4:2:0
+    AVIF colour with film grain (fixtures.GRAIN_AVIF) and 12-bit lossless
+    AVIF depth with grain (fixtures.GRAIN_DEPTH): the port's stream equals
+    the JAX one (cv2.imread over libavif and libaom, which adds the grain)
+    in frames, depth and timestamps, and the port's own stream over the
+    PNG and 16-bit PNG of what those AVIF frames read back as
+    (chip_smoke.py phase 22's pair)."""
+    from lgu_slam_tpu_torch.data import avif
+
+    name = "rgbd_dataset_freiburg1_desk"
+    root = fixtures.write_tum_sequence(str(tmp_path / "avif" / name),
+                                       n_frames=3, H=60, W=80,
+                                       color="grain-avif",
+                                       depth="12bit-grain-avif")
+    png = fixtures.write_tum_sequence(str(tmp_path / "png" / name),
+                                      n_frames=3, H=60, W=80,
+                                      color="grain-avif-png",
+                                      depth="12bit-grain-avif-png")
+    for folder in ("rgb", "depth"):
+        path = os.path.join(root, folder)
+        data = open(os.path.join(path, sorted(os.listdir(path))[0]),
+                    "rb").read()
+        box = avif.parse(data)
+        assert avif.grain_params(avif._payload(data, box, box["color"]))[0]
     items = _held(tstreams.tum_rgbd_stream(root, stride=1),
                   jstreams.tum_rgbd_stream(root, stride=1))
     ref = list(tstreams.tum_rgbd_stream(png, stride=1))
