@@ -314,12 +314,28 @@ Sixteen phases; any failure exits non-zero.
    rendered frame with its grain, tracked beside PNG colour and 16-bit
    PNG depth of what those frames read back as, as in phase 12, with
    equal K1 and K2 launches in ``track()``; the NotImplementedError of
-   each committed file that holds a feature of a later reader (two AV1
-   frames in an item).
+   each committed file that holds a feature of a later reader (none is
+   left).
+23. AVIF intra block copy, segmentation, superres and items of several
+   frames on the card machine's host: the committed files (Pillow's
+   lossless 4:2:0 / 4:2:2 and lossy 4:4:4 screen content, cv2's lossy
+   text pages at 8 and 10 bits, the writer's 12-bit 4:2:2 lossy intra
+   block copy, its segmented frames, superres
+   frames with restoration over two tile columns and 14 samples wide,
+   items of several frames, two AV1 frames in an item) decoded to the
+   SHA-256 of ``cv2.imread``'s arrays in both modes, with the host's
+   median decode ms and superres upscale ms; a rendered 480 x 640 frame
+   through the writer with superres and restoration and one with
+   segmentation, each decoding to the writer's reconstruction, with
+   decode and upscale ms; a 16-frame TUM fr1 sequence in the writer's
+   segmented superres AVIF colour (``fixtures.TOOLS_AVIF``) and 12-bit
+   depth stored as items of three frames (``show_existing_frame``),
+   tracked beside PNG colour and 16-bit PNG depth of the same values, as
+   in phase 12, with equal K1 and K2 launches in ``track()``.
 
 Before the last line it prints the tracking, terminate, training, fp32
 tracking, world-size-1, entry-point, 3DGS, JPEG, oracle, the five
-format reports, the scaling report and phases 18 to 22's reports,
+format reports, the scaling report and phases 18 to 23's reports,
 the run's wall time, the
 card's name and power limit, and one JSON line with each kernel's error,
 time, bound and launches.  The last line is ``{"ok": true, "device": {...}}``.
@@ -355,6 +371,7 @@ from lgu_slam_tpu_torch.data.fixtures import (
     LOSSY_AVIF,
     LR_AVIF,
     REPLICA_CAM,
+    TOOLS_AVIF,
     TUM_FR1,
     gif_cube,
     render_sequence,
@@ -3680,6 +3697,17 @@ PHASE_22_FILES = GRAIN_22 + ("port_grid_1x2.avif", "port_grid_2x2_alpha.avif",
                              "port_scaled_up_g12.avif")
 LOSSY_480X640 = ("cv2_lossy_q95_480x640.avif", "cv2_lossy_q50_480x640.avif",
                  "cv2_lossy_c10_q80_480x640.avif")
+# phase 23's committed files: intra block copy in lossless 4:2:0 / 4:2:2
+# and in lossy frames, segmentation, superres, items of several frames
+IBC_23 = ("pillow_screen_c420_s2.avif", "pillow_screen_c422_s2.avif",
+          "cv2_page_q95_s2.avif", "cv2_page_c_q80_s2.avif",
+          "cv2_page_c10_q95_s2.avif", "pillow_screen_c444_q90.avif",
+          "port_intrabc_c422_12.avif")
+SUPERRES_23 = ("port_superres_lr_tiles.avif", "port_superres_narrow.avif")
+PHASE_23_FILES = IBC_23 + SUPERRES_23 + (
+    "port_seg_lossless.avif", "port_seg_skip_g12.avif",
+    "port_frames_existing.avif", "port_frames_sizes.avif",
+    "port_two_frames.avif")
 
 
 def avif_queued(name: str) -> bool:
@@ -3732,7 +3760,8 @@ def phase_19(dev, kernels: dict) -> dict:
         report["codecs"] = phase_format_codecs(root, formats_19_cases(), 19)
         report["committed_avif"] = phase_committed(
             AVIF_FIXTURES, 19, keep=lambda name: not avif_queued(name) and
-            name not in LOSSY_480X640 + PHASE_21_FILES + PHASE_22_FILES)
+            name not in LOSSY_480X640 + PHASE_21_FILES + PHASE_22_FILES +
+            PHASE_23_FILES)
         queued = {}
         for name, want in json.loads(
                 (AVIF_FIXTURES / "hashes.json").read_text()).items():
@@ -4139,6 +4168,147 @@ def print_phase_22(report: dict) -> None:
           f"{later}; {report['seconds']:.0f} s")
 
 
+# -- phase 23: AVIF intra block copy, segmentation, superres, frames ----
+
+PHASE_23_FRAMES = 16
+
+
+def superres_ms(data: bytes) -> tuple:
+    """(ms of the AV1 decode, ms of its superres upscaling) of an AVIF
+    file's colour item, decoded by the host."""
+    box = avif.parse(data)
+    return avif.superres_ms(avif._payload(data, box, box["color"]))
+
+
+def phase_23_committed() -> dict:
+    """The committed slice-23 files against cv2.imread's hashes in both
+    modes, the host's median decode ms; for the superres files the median
+    ms of the frame's AV1 decode and of its upscaling (10 decodes
+    each)."""
+    out = phase_committed(AVIF_FIXTURES, 23,
+                          keep=lambda name: name in PHASE_23_FILES)
+    check(len(out) == len(PHASE_23_FILES), "phase 23: the committed files")
+    for name in SUPERRES_23:
+        runs = [superres_ms((AVIF_FIXTURES / name).read_bytes())
+                for _ in range(10)]
+        out[name]["av1_ms"] = statistics.median(r[0] for r in runs)
+        out[name]["upscale_ms"] = statistics.median(r[1] for r in runs)
+    check(out[SUPERRES_23[0]]["upscale_ms"] > 0,
+          "phase 23: the superres file is not upscaled")
+    return out
+
+
+def phase_23_frames() -> dict:
+    """A rendered 480 x 640 frame through the writer with superres (8 /
+    12, two tile columns) and loop restoration, and one with segmentation
+    (``fixtures.TOOLS_AVIF``'s segments: one lossless): each decodes to
+    the writer's reconstruction; the host's median ms of 10 decodes and of
+    the upscale."""
+    img = render_sequence(SEED + 33, 1, 480, 640, TUM_FR1, 0.02,
+                          0.004)[0][0]
+    cases = {"superres": dict(lossy=LR_AVIF, superres=12, tile_cols_log2=1),
+             "segmented": dict(lossy=TOOLS_AVIF)}
+    out = {}
+    for name, kw in cases.items():
+        data, rec = avif.encode_avif(img, recon=True, **kw)
+        got = avif_planes_of(data)
+        check(len(got) == 3 and all(np.array_equal(a, b) for a, b in
+                                    zip(got, rec)),
+              f"phase 23: the {name} frame does not decode to the writer's "
+              "reconstruction")
+        runs = [superres_ms(data) for _ in range(10)]
+        out[name] = dict(bytes=len(data),
+                         decode_ms=statistics.median(r[0] for r in runs),
+                         upscale_ms=statistics.median(r[1] for r in runs))
+    check(out["superres"]["upscale_ms"] > 0 and
+          out["segmented"]["upscale_ms"] == 0, "phase 23: upscale times")
+    return out
+
+
+def phase_23_writer(seq: Path, seed: int) -> dict:
+    """Each colour frame of the sequence is the writer's file of its
+    rendered frame with ``TOOLS_AVIF`` and superres, each depth frame an
+    item of three AV1 frames; the host's median ms of a colour frame's
+    decode and upscale and of a depth item's decode."""
+    images = render_sequence(seed, PHASE_23_FRAMES, 480, 640, TUM_FR1,
+                             0.02, 0.004)[0]
+    files = sorted((seq / "rgb").iterdir())
+    depths = sorted((seq / "depth").iterdir())
+    check(len(files) == len(depths) == PHASE_23_FRAMES,
+          "phase 23: the sequence's frames")
+    t_start = time.perf_counter()
+    colour, depth = [], []
+    for img, path, dpath in zip(images, files, depths):
+        data = path.read_bytes()
+        check(data == avif.encode_avif(img, lossy=dict(
+            TOOLS_AVIF, lr=LR_AVIF["lr"]), superres=12, tile_cols_log2=1),
+              f"phase 23: {path.name} is not the writer's file")
+        ddata = dpath.read_bytes()
+        dbox = avif.parse(ddata)
+        kinds = [t for t, _ in avif.split_obus(avif._payload(
+            ddata, dbox, dbox["color"]))]
+        check(kinds == [1, 6, 6, 3], f"phase 23: {dpath.name} holds OBUs "
+              f"{kinds}, not three frames")
+        colour.append(superres_ms(data))
+        depth.append(superres_ms(ddata)[0])
+    return dict(frames=len(files),
+                decode_ms_median=statistics.median(c[0] for c in colour),
+                upscale_ms_median=statistics.median(c[1] for c in colour),
+                depth_decode_ms_median=statistics.median(depth),
+                seconds=time.perf_counter() - t_start)
+
+
+def phase_23(dev, kernels: dict) -> dict:
+    t_start = time.perf_counter()
+    report = dict(committed=phase_23_committed(), frames=phase_23_frames())
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        runs = phase_format_track(
+            dev, kernels, root / "tum", n_frames=PHASE_23_FRAMES,
+            seed=SEED + 34, phase=23,
+            pairs=(("tools-avif", "12bit-frames-avif"),
+                   ("tools-avif-png", "12bit-frames-avif-png")),
+            key="launches_formats_23")
+        report["writer"] = phase_23_writer(
+            root / "tum" / "tools-avif_12bit-frames-avif" /
+            "rgbd_dataset_freiburg1_desk", SEED + 34)
+    avif_run, png_run = runs.values()
+    for name in ("k1_launches_track", "k2_launches_track"):
+        check(avif_run[name] == png_run[name],
+              f"phase 23: {name} {avif_run[name]} (tools AVIF + 12-bit "
+              f"frames AVIF) != {png_run[name]} (PNG + 16-bit PNG)")
+    report["feed_ratio"] = avif_run["feed_ms"] / png_run["feed_ms"]
+    report["tum"] = runs
+    report["seconds"] = time.perf_counter() - t_start
+    return report
+
+
+def print_phase_23(report: dict) -> None:
+    committed = report["committed"]
+    files = ", ".join(
+        f"{k} {v['decode_ms']:.2f} ms" + (f" ({v['upscale_ms']:.3f} "
+                                          "upscale)" if k in SUPERRES_23
+                                          else "")
+        for k, v in committed.items())
+    frames = ", ".join(f"{k} {v['decode_ms']:.2f} ms ({v['upscale_ms']:.3f} "
+                       f"upscale)" for k, v in report["frames"].items())
+    tum = "; ".join(
+        f"{k}: fed {v['feed_ms']:.2f} ms per frame, {v['keyframes']} "
+        f"keyframes, K1 {v['k1_launches']} / K2 {v['k2_launches']} "
+        f"launches (track {v['k1_launches_track']} / "
+        f"{v['k2_launches_track']})" for k, v in report["tum"].items())
+    writer = report["writer"]
+    print(f"phase 23: committed AVIF files equal to cv2's hashes, host "
+          f"decode {files}; writer frames at 480 x 640: {frames}; "
+          f"{writer['frames']} writer sequence frames: decode "
+          f"{writer['decode_ms_median']:.2f} ms (upscale "
+          f"{writer['upscale_ms_median']:.2f}) per colour frame, "
+          f"{writer['depth_decode_ms_median']:.2f} ms per three-frame depth "
+          f"item; TUM RGB-D at 384 x 512, equal frames and depth from both "
+          f"streams: {tum}; tools AVIF / PNG feed "
+          f"{report['feed_ratio']:.3f}; {report['seconds']:.0f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke run needs an NVIDIA GPU")
@@ -4231,9 +4401,12 @@ def main():
     torch.cuda.empty_cache()
     formats_22 = phase_22(dev, kernels)
     print_phase_22(formats_22)
+    torch.cuda.empty_cache()
+    formats_23 = phase_23(dev, kernels)
+    print_phase_23(formats_23)
     # launches on the main path: K1 bf16 and K2 over track() +
     # terminate(), phase 8's entry points, phase 10's JPEG runs, phases
-    # 12-16's and 18-22's TUM tracks and phase 17's backend
+    # 12-16's and 18-23's TUM tracks and phase 17's backend
     # passes, K2 also over phase 7's sharded backend pass, K1 fp32 operands
     # over phase 6's track()
     for name in ("masked_corr_level0_tc", "fused_pyramid_lookup"):
@@ -4246,7 +4419,7 @@ def main():
             k["launches_formats_16"] + k["launches_scaling_17"] + \
             k["launches_formats_18"] + k["launches_formats_19"] + \
             k["launches_formats_20"] + k["launches_formats_21"] + \
-            k["launches_formats_22"]
+            k["launches_formats_22"] + k["launches_formats_23"]
     k = kernels["masked_corr_level0_tf32"]
     k["launches"] = k["launches_track_fp32"]
     for k in kernels.values():
@@ -4273,6 +4446,7 @@ def main():
     print(json.dumps({"formats_20": formats_20}))
     print(json.dumps({"formats_21": formats_21}))
     print(json.dumps({"formats_22": formats_22}))
+    print(json.dumps({"formats_23": formats_23}))
     print(json.dumps({"seconds": seconds}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -1,27 +1,31 @@
 /* The AV1 intra tile syntax, shared by the decoder (av1_decode.c) and the
- * fixture writer (av1_encode.c), and the in-loop filters of an intra
- * frame.
+ * fixture writer (av1_encode.c), and the in-loop filters and superres of
+ * an intra frame.
  *
  * One implementation of the block syntax serves both: each symbol goes
  * through sym(), which decodes it (libaom's od_ec decoder, 32-bit window)
  * or, in a writer, encodes the value the writer chose (libaom's od_ec
  * encoder); the CDFs adapt alike on both sides.  Reconstruction follows the
  * AV1 specification (section 7.11: every intra predictor, the edge filter
- * and upsampling, CfL, palette; 7.12-7.13: dequantisation with quantiser
- * matrices and delta q, the inverse Walsh-Hadamard transform of lossless
- * blocks and every DCT / ADST / identity size of lossy ones, clamped
- * where libaom clamps; 7.14-7.15: deblocking and CDEF; 7.17: loop
- * restoration, the units' coefficients read with each superblock
- * (5.11.57-58), the Wiener and self-guided filters as libaom's
- * restoration.c computes them) over 16-bit planes of MiCols * 4 x
- * MiRows * 4 samples (and room for transform blocks that reach past
- * them), chroma at 4:4:4, 4:2:2 or 4:2:0.
+ * and upsampling, CfL, palette, intra block copy with libaom's bilinear
+ * chroma; 5.11.9 and 7.12.2: segment ids and each segment's qindex,
+ * lossless flag and loop filter levels; 7.12-7.13: dequantisation with
+ * quantiser matrices and delta q, the inverse Walsh-Hadamard transform of
+ * lossless blocks and every DCT / ADST / identity size of lossy ones,
+ * clamped where libaom clamps, the intra and inter (intra block copy)
+ * transform sets and an intra block copy block's variable transform
+ * partition; 7.14-7.15: deblocking and CDEF; 7.16: superres, as libaom's
+ * av1_upscale_normative_rows; 7.17: loop restoration, the units'
+ * coefficients read with each superblock (5.11.57-58), the Wiener and
+ * self-guided filters as libaom's restoration.c computes them) over
+ * 16-bit planes of MiCols * 4 x MiRows * 4 samples (and room for
+ * transform blocks that reach past them), chroma at 4:4:4, 4:2:2 or
+ * 4:2:0.
  *
- * What an intra frame can hold and this file does not read raises
- * through av1_fail(ERR_NOTIMPL, ...): intra block copy in a lossy frame
- * (segmentation and superres are refused by the frame header; film
- * grain is added to the shown frame by av1_grain.h).  Errors unwind with longjmp to the entry point,
- * which frees what the frame allocated.
+ * An intra frame holds nothing this file does not read (film grain is
+ * added to the shown frame by av1_grain.h; av1_decode.c refuses inter
+ * frames).  Errors unwind with longjmp to the entry point, which frees
+ * what the frame allocated.
  */
 #ifndef AV1_CORE_H
 #define AV1_CORE_H
@@ -100,6 +104,9 @@ typedef struct {
     uint16_t eob_pt512[2][2][11];
     uint16_t eob_pt1024[2][2][12];
     uint16_t intra_ext_tx[3][4][13][17];
+    uint16_t inter_ext_tx[4][4][17];
+    uint16_t txfm_partition[21][3];
+    uint16_t spatial_pred_seg[3][9];
     uint16_t tx_8x8[3][3];
     uint16_t tx[3][3][4];
     uint16_t delta_q[5];
@@ -144,6 +151,9 @@ static void cdfs_init(Cdfs *c, int qctx)
     CP(eob_pt512, eob_pt512_cdf[qctx]);
     CP(eob_pt1024, eob_pt1024_cdf[qctx]);
     CP(intra_ext_tx, intra_ext_tx_cdf);
+    CP(inter_ext_tx, inter_ext_tx_cdf);
+    CP(txfm_partition, txfm_partition_cdf);
+    CP(spatial_pred_seg, spatial_pred_seg_cdf);
     CP(tx_8x8, tx_8x8_cdf);
     CP(tx, tx_cdf);
     CP(delta_q, delta_q_cdf);
@@ -343,6 +353,7 @@ static void cdf_adapt(uint16_t *cdf, int n, int s)
 #define MAX_TILES 64
 
 typedef struct Av1 Av1;
+struct Frame; /* a decoded frame a reference slot holds (av1_decode.c) */
 
 /* film_grain_params of a frame (5.9.30): the scaling points (x, y) of
  * each plane, the auto-regressive coefficients less 128, the shifts with
@@ -359,6 +370,7 @@ typedef struct {
 typedef struct {
     int ymode, uvmode, angle_y, angle_uv, filter_intra, filter_mode;
     int cfl_signs, cfl_u, cfl_v, skip;
+    int intrabc, dv_row, dv_col; /* an intra block copy vector, 1/8 sample */
 } Choice;
 
 /* FrameRestorationType and a unit's restoration_type */
@@ -384,11 +396,25 @@ struct Av1 {
     int max_w, max_h, decoder_model_info, equal_picture_interval;
     int presentation_time_bits, removal_time_bits, op_count;
     int op_idc[32], op_model[32];
-    int seq_seen;
-    /* frame header */
-    int W, H, MiCols, MiRows, nplanes;
+    int seq_seen, frame_id_delta;
+    /* the reference slots, the frame to output; frame ids; a sequence
+     * header that changed (the next frame must be a key frame) */
+    struct Frame *slot[8], *shown;
+    int ref_id[8], ref_valid[8], frame_id, first_frame, seq_changed;
+    const uint8_t *seq;
+    int64_t seq_size;
+    /* frame header; W is the coded width until superres upscales the
+     * frame to up_w (UpscaledWidth), SuperresDenom (8: none) */
+    int W, H, MiCols, MiRows, nplanes, up_w, superres_denom;
     int sct, allow_intrabc, disable_cdf_update, reduced_tx_set, base_q;
+    int frame_type, show_frame, showable, refresh, show_existing, existing;
     int lossless, tx_mode_select, qm_level[3], dq_dc[3], dq_ac[3];
+    /* segmentation: each segment's features (a mask of SEG_LVL_*) and
+     * their values, SegIdPreSkip, LastActiveSegId; each segment's qindex
+     * (base_q_idx and its feature, without delta q) and whether it is
+     * lossless */
+    int seg_enabled, seg_mask[8], seg_data[8][8], seg_preskip, seg_last;
+    int seg_qindex[8], seg_lossless[8];
     int delta_q_present, delta_q_res, delta_lf_present, delta_lf_res;
     int delta_lf_multi;
     int lf_level[4], lf_sharpness, lf_delta_enabled, lf_ref_delta_intra;
@@ -401,12 +427,13 @@ struct Av1 {
     int col_starts[MAX_TILES + 1], row_starts[MAX_TILES + 1];
     int tile_size_bytes, context_update_tile_id;
     int temporal_id, spatial_id;
-    char unread[64]; /* the first tool of the frame not read, or "" */
     Grain grain;
     /* film grain's templates and noise stripes while it runs; its time
      * (where the includer sets LR_CLOCK) */
     int16_t *grain_buf[9];
     double grain_ms;
+    /* the planes output: the shown frame's, or a copy with its grain */
+    uint16_t *out[3], *grained[3];
     /* planes of MiCols * 4 x MiRows * 4 samples, and room for transform
      * blocks that reach past them */
     uint16_t *plane[3];
@@ -414,6 +441,11 @@ struct Av1 {
     /* per 4 x 4 (mode info) unit */
     uint8_t *mi_size, *ymodes, *uvmodes, *skips, *pal_sizes[2];
     uint8_t *is_inter, *written, *txsizes;
+    /* per 4 x 4 luma unit: the transform size of an intra block copy
+     * block's variable partition, the luma transform type (chroma's of an
+     * intra block copy block) */
+    uint8_t *vtx, *tx_types;
+    uint8_t *seg_ids; /* segment_id */
     int8_t *delta_lfs; /* 4 per unit */
     /* per 4 x 4 unit of each plane: the loop filter's transform size */
     uint8_t *lf_tx[3];
@@ -428,10 +460,14 @@ struct Av1 {
     uint16_t *pre_cdef[3];
     int32_t *lr_buf;
     double lr_ms; /* time in lr_frame, where the includer sets LR_CLOCK */
+    double superres_ms; /* time in superres_upscale, likewise */
     uint16_t *pal_colors[2];
     int16_t *mvs; /* intra block copy vectors (row, col), 1/8 sample */
     /* contexts */
     uint8_t *above_level[3], *above_dc[3], *left_level[3], *left_dc[3];
+    /* the transform width above and height left of each 4 x 4 unit in
+     * samples (libaom's txfm contexts) */
+    uint8_t *above_txfm, *left_txfm;
     uint8_t decoded[3][34][34];
     Cdfs cdf, cdf0;
     Ec ec;
@@ -440,7 +476,7 @@ struct Av1 {
     /* the block */
     int mi_row, mi_col, mi_sz, bw4, bh4, has_chroma;
     int avail_u, avail_l, avail_u_uv, avail_l_uv, txsz;
-    int qindex, read_deltas, delta_lf[4];
+    int qindex, read_deltas, delta_lf[4], blk_lossless, segment_id, blk_q;
     int skip, ymode, uvmode, angle_y, angle_uv, use_filter_intra;
     int filter_intra_mode, cfl_u, cfl_v, pal_y, pal_uv, use_intrabc;
     int mv_row, mv_col;
@@ -986,7 +1022,7 @@ static int plane_tx(Av1 *f, int plane, int bsize, int txsz)
 {
     if (plane == 0)
         return txsz;
-    if (f->lossless)
+    if (f->blk_lossless)
         return TX_4X4;
     int t = max_tx_rect(plane_bsize(bsize, f->ssx, f->ssy));
     if (tx_wl[t] == 6 || tx_hl[t] == 6)
@@ -995,32 +1031,42 @@ static int plane_tx(Av1 *f, int plane, int bsize, int txsz)
     return t;
 }
 
-/* the intra transform set (get_tx_set): 0 DCT only, 1 TX_SET_INTRA_1
- * (seven types), 2 TX_SET_INTRA_2 (five); libaom's set type is 3 or 2 */
-static int tx_set(Av1 *f, int t)
+/* libaom's TxSetType of a transform of an intra block or of an inter one
+ * (intra block copy; av1_get_ext_tx_set_type): 0 DCT only, 1 DCT and
+ * identity, 2 DTT4_IDTX, 3 DTT4_IDTX_1DDCT, 4 DTT9_IDTX_1DDCT, 5 ALL16 */
+static int tx_set_type(Av1 *f, int t, int inter)
 {
     int up = tx_wl[t] > tx_hl[t] ? tx_wl[t] : tx_hl[t];
     int sq = tx_wl[t] < tx_hl[t] ? tx_wl[t] : tx_hl[t];
-    if (up >= 5)
+    if (up > 5)
         return 0;
-    if (f->reduced_tx_set || sq == 4)
-        return 2;
-    return 1;
+    if (up == 5)
+        return inter ? 1 : 0;
+    if (f->reduced_tx_set)
+        return inter ? 1 : 2;
+    if (inter)
+        return sq == 4 ? 4 : 5;
+    return sq == 4 ? 2 : 3;
 }
 
-static int set_type(int set)
-{
-    return set == 1 ? 3 : set == 2 ? 2 : 0;
-}
-
-/* the chroma transform type of the block (compute_tx_type) */
-static int uv_tx_type(Av1 *f, int t)
+/* the chroma transform type of the transform at (sx, sy) of a chroma plane
+ * (av1_get_tx_type): an intra block's from its uv mode, an intra block
+ * copy block's the luma type at the same place in the block */
+static int uv_tx_type(Av1 *f, int t, int sx, int sy)
 {
     int up = tx_wl[t] > tx_hl[t] ? tx_wl[t] : tx_hl[t];
-    if (f->lossless || up > 5)
+    if (f->blk_lossless || up > 5)
         return DCT_DCT;
-    int type = mode_to_txfm[f->uvmode == UV_CFL_PRED ? DC_PRED : f->uvmode];
-    return ext_tx_used[set_type(tx_set(f, t))][type] ? type : DCT_DCT;
+    int type;
+    if (f->use_intrabc) {
+        int r = f->mi_row + (((sy >> 2) - (f->mi_row >> f->ssy)) << f->ssy);
+        int c = f->mi_col + (((sx >> 2) - (f->mi_col >> f->ssx)) << f->ssx);
+        type = MI(f->tx_types, r, c);
+    } else {
+        type = mode_to_txfm[f->uvmode == UV_CFL_PRED ? DC_PRED : f->uvmode];
+    }
+    return ext_tx_used[tx_set_type(f, t, f->use_intrabc)][type] ? type
+                                                               : DCT_DCT;
 }
 
 static int tx_class(int type)
@@ -1121,21 +1167,27 @@ static int coeff_br_ctx(const int32_t *q, int wl, int hl, int cls, int pos)
     return mag + 14;
 }
 
-/* the luma transform type (transform_type); a writer writes DCT_DCT */
+/* the luma transform type (transform_type), of the intra sets or, in an
+ * intra block copy block, the inter sets; none where the segment's
+ * qindex (without delta q) is 0; a writer writes DCT_DCT */
 static int read_tx_type(Av1 *f, int t)
 {
-    int set = tx_set(f, t);
-    if (set == 0 || f->base_q == 0)
+    static const int8_t eset[2][6] = {{0, -1, 2, 1, -1, -1},
+                                      {0, 3, -1, -1, 2, 1}};
+    static const int8_t nsym[6] = {1, 2, 5, 7, 12, 16};
+    int inter = f->use_intrabc, st = tx_set_type(f, t, inter);
+    if (st == 0 || f->seg_qindex[f->segment_id] == 0)
         return DCT_DCT;
-    int st = set_type(set), n = set == 1 ? 7 : 5, want = 0;
+    int set = eset[inter][st], n = nsym[st], want = 0;
     for (int k = 0; k < n; k++)
         if (ext_tx_inv[st][k] == DCT_DCT)
             want = k;
     int mode = f->use_filter_intra ? filter_intra_dir[f->filter_intra_mode]
                                    : f->ymode;
     int sq = (tx_wl[t] < tx_hl[t] ? tx_wl[t] : tx_hl[t]) - 2;
-    return ext_tx_inv[st][sym(f, f->cdf.intra_ext_tx[set][sq][mode], n,
-                              want)];
+    uint16_t *cdf = inter ? f->cdf.inter_ext_tx[set][sq]
+                          : f->cdf.intra_ext_tx[set][sq][mode];
+    return ext_tx_inv[st][sym(f, cdf, n, want)];
 }
 
 /* the coefficients of the transform block of size t at (x4, y4) of a
@@ -1204,7 +1256,8 @@ static int coeffs(Av1 *f, int plane, int x4, int y4, int t)
     const int16_t *scan = get_scan(t, type);
     int eob = 0, want_eob = 0;
     if (f->ec.writing) {
-        scan = get_scan(t, plane ? uv_tx_type(f, t) : DCT_DCT);
+        scan = get_scan(t, plane ? uv_tx_type(f, t, x4 * 4, y4 * 4)
+                                 : DCT_DCT);
         for (int k = 0; k < n; k++)
             if (want[scan[k]])
                 want_eob = k + 1;
@@ -1212,8 +1265,8 @@ static int coeffs(Av1 *f, int plane, int x4, int y4, int t)
     int all_zero = sym(f, c->txb_skip[txctx][ctx], 2, want_eob == 0);
     int cul = 0, dc_cat = 0;
     if (!all_zero) {
-        type = plane ? uv_tx_type(f, t) : f->lossless ? DCT_DCT
-                                                      : read_tx_type(f, t);
+        type = plane ? uv_tx_type(f, t, x4 * 4, y4 * 4)
+                     : f->blk_lossless ? DCT_DCT : read_tx_type(f, t);
         scan = get_scan(t, type);
         int cls = tx_class(type);
         /* eob: its class, then the class's extra bits */
@@ -1323,6 +1376,10 @@ static int coeffs(Av1 *f, int plane, int x4, int y4, int t)
             cul = 63;
     }
     f->plane_tx_type = type;
+    if (plane == 0)
+        for (int i = 0; i < h4 && y4 + i < maxy4; i++)
+            for (int j = 0; j < w4 && x4 + j < maxx4; j++)
+                MI(f->tx_types, y4 + i, x4 + j) = (uint8_t)type;
     for (int i = 0; i < w4; i++) {
         f->above_level[plane][x4 + i] = (uint8_t)cul;
         f->above_dc[plane][x4 + i] = (uint8_t)dc_cat;
@@ -1744,7 +1801,7 @@ static void reconstruct_lossless(Av1 *f, int plane, int x, int y)
 /* a quantiser of the block's qindex (dc_q / ac_q) */
 static int qlookup(Av1 *f, int dc, int delta)
 {
-    int q = f->qindex + delta;
+    int q = f->blk_q + delta;
     q = q < 0 ? 0 : q > 255 ? 255 : q;
     const int16_t *t = dc ? (f->bitdepth == 8 ? dc_qlookup : f->bitdepth ==
                              10 ? dc_qlookup_10 : dc_qlookup_12)
@@ -1762,7 +1819,7 @@ static void dequantisers(Av1 *f, int plane, int t, int type, int32_t *out)
     int W = 1 << wl, H = 1 << hl;
     int dcq = qlookup(f, 1, f->dq_dc[plane]);
     int acq = qlookup(f, 0, f->dq_ac[plane]);
-    int lvl = f->qm_level[plane];
+    int lvl = f->blk_lossless ? 15 : f->qm_level[plane];
     const uint8_t *qm = NULL;
     if (lvl < 15 && type < IDTX)
         qm = qm_iwt[lvl][plane > 0] + scan_offset(wl, hl);
@@ -1778,7 +1835,7 @@ static void dequantisers(Av1 *f, int plane, int t, int type, int32_t *out)
 /* dequantize f->quant, inverse transform, add to the prediction */
 static void reconstruct(Av1 *f, int plane, int x, int y, int t)
 {
-    if (f->lossless) {
+    if (f->blk_lossless) {
         reconstruct_lossless(f, plane, x, y);
         return;
     }
@@ -1862,6 +1919,23 @@ static void transform_block(Av1 *f, int plane, int base_x, int base_y, int t,
         }
 }
 
+/* the luma transform blocks of an intra block copy block below the
+ * transform t at (x4, y4) of the block, in the order of libaom's
+ * decode_reconstruct_tx */
+static void vartx_blocks(Av1 *f, int t, int x4, int y4)
+{
+    if (f->mi_row + y4 >= f->MiRows || f->mi_col + x4 >= f->MiCols)
+        return;
+    if (t == TX_4X4 || MI(f->vtx, f->mi_row + y4, f->mi_col + x4) == t) {
+        transform_block(f, 0, f->mi_col * 4, f->mi_row * 4, t, x4, y4);
+        return;
+    }
+    int sub = split_tx(t);
+    for (int i = 0; i < 1 << (tx_hl[t] - 2); i += 1 << (tx_hl[sub] - 2))
+        for (int j = 0; j < 1 << (tx_wl[t] - 2); j += 1 << (tx_wl[sub] - 2))
+            vartx_blocks(f, sub, x4 + j, y4 + i);
+}
+
 static void residual(Av1 *f)
 {
     int wchunks = f->bw4 >> 4 > 1 ? f->bw4 >> 4 : 1;
@@ -1877,6 +1951,13 @@ static void residual(Av1 *f)
                 int bx = (f->mi_col >> ssx) * 4, by = (f->mi_row >> ssy) * 4;
                 int lh = n4h < (16 >> ssy) ? n4h : 16 >> ssy;
                 int lw = n4w < (16 >> ssx) ? n4w : 16 >> ssx;
+                if (plane == 0 && f->use_intrabc && !f->blk_lossless) {
+                    int m = max_tx_rect(f->mi_sz);
+                    for (int y = 0; y < lh; y += 1 << (tx_hl[m] - 2))
+                        for (int x = 0; x < lw; x += 1 << (tx_wl[m] - 2))
+                            vartx_blocks(f, m, x + (cx << 4), y + (cy << 4));
+                    continue;
+                }
                 for (int y = 0; y < lh; y += stepy)
                     for (int x = 0; x < lw; x += stepx)
                         transform_block(f, plane, bx, by, t,
@@ -2197,17 +2278,27 @@ static void sort_stack(MvStack *st, int start, int end)
     }
 }
 
-static int mv_component(Av1 *f, const int base)
+/* a vector component of integer precision (1/8 samples); in a writer v,
+ * a nonzero multiple of 8: |v| / 8 = 1 or 2 (class 0), else 2^c + d + 1 */
+static int mv_component(Av1 *f, const int base, int v)
 {
     uint16_t *m = f->cdf.mv + base;
-    int sign = sym(f, m + 27, 2, 0);
-    int cls = sym(f, m, 11, 0), mag;
+    int a = abs(v) / 8, wc = 0, wd = a - 1;
+    if (f->ec.writing && (v % 8 || !a || a > 2048))
+        av1_fail(f, ERR_VALUE, "writer: a vector component of %d", v);
+    if (a > 2)
+        while (2 << wc <= a - 1)
+            wc++;
+    if (wc)
+        wd = a - 1 - (1 << wc);
+    int sign = sym(f, m + 27, 2, v < 0);
+    int cls = sym(f, m, 11, wc), mag;
     if (cls == 0) {
-        mag = sym(f, m + 36, 2, 0) << 3;
+        mag = sym(f, m + 36, 2, wd) << 3;
     } else {
         int d = 0;
         for (int i = 0; i < cls; i++)
-            d |= sym(f, m + 39 + 3 * i, 2, 0) << i;
+            d |= sym(f, m + 39 + 3 * i, 2, (wd >> i) & 1) << i;
         mag = (2 << (cls + 2)) + (d << 3);
     }
     mag += (3 << 1) + 1 + 1; /* fr = 3, hp = 1 */
@@ -2300,19 +2391,26 @@ static void intrabc_vector(Av1 *f)
         }
     }
     uint16_t *m = f->cdf.mv;
-    int joint = sym(f, m, 4, 0);
+    /* a writer: its vector against the prediction */
+    int wr = f->enc_choice.dv_row - pr, wc = f->enc_choice.dv_col - pc;
+    int joint = sym(f, m, 4, (wr != 0) * 2 + (wc != 0));
     int dr = 0, dc = 0;
     if (joint == 2 || joint == 3)
-        dr = mv_component(f, 5);
+        dr = mv_component(f, 5, wr);
     if (joint == 1 || joint == 3)
-        dc = mv_component(f, 74);
+        dc = mv_component(f, 74, wc);
     f->mv_row = pr + dr;
     f->mv_col = pc + dc;
     if (!dv_valid(f, f->mv_row, f->mv_col))
         av1_fail(f, ERR_VALUE, "AV1: an invalid intra block copy vector");
 }
 
-/* the block copied from the frame decoded so far, clamped to the frame */
+/* the block copied from the frame decoded so far (libaom's
+ * build_inter_predictors_8x8_and_bigger: intra block copy never takes the
+ * sub-8x8 path, so a chroma block of a block 4 samples wide or high is 4
+ * samples and takes this block's vector).  Under subsampling an odd luma
+ * vector is a half chroma sample: libaom's intra block copy bilinear
+ * filter, the rounded mean of 2 (or 2 x 2) samples. */
 static void intrabc_predict(Av1 *f)
 {
     int bw = 4 << bw4_log2[f->mi_sz], bh = 4 << bh4_log2[f->mi_sz];
@@ -2320,21 +2418,132 @@ static void intrabc_predict(Av1 *f)
         int ssx = plane ? f->ssx : 0, ssy = plane ? f->ssy : 0;
         int x0 = (f->mi_col >> ssx) * 4, y0 = (f->mi_row >> ssy) * 4;
         int w = bw >> ssx, h = bh >> ssy;
-        int lastx = ((f->W + ssx) >> ssx) - 1, lasty = ((f->H + ssy) >> ssy)
-                    - 1;
-        int dy = (f->mv_row >> 3) >> ssy, dx = (f->mv_col >> 3) >> ssx;
+        w = w < 4 ? 4 : w;
+        h = h < 4 ? 4 : h;
+        /* the vector in 1/16 samples of the plane (mv_q4) */
+        int qy = f->mv_row * (1 << (1 - ssy));
+        int qx = f->mv_col * (1 << (1 - ssx));
+        int dy = qy >> 4, dx = qx >> 4, fy = qy & 15, fx = qx & 15;
         uint16_t tmp[128 * 128];
         for (int i = 0; i < h; i++)
             for (int j = 0; j < w; j++) {
                 int sy = y0 + i + dy, sx = x0 + j + dx;
-                sy = sy < 0 ? 0 : sy > lasty ? lasty : sy;
-                sx = sx < 0 ? 0 : sx > lastx ? lastx : sx;
-                tmp[i * 128 + j] = PX(plane, sy, sx);
+                int a[4];
+                for (int k = 0; k < 4; k++) {
+                    int yy = sy + ((k >> 1) && fy), xx = sx + ((k & 1) && fx);
+                    yy = yy < 0 ? 0 : yy >= f->rows ? f->rows - 1 : yy;
+                    xx = xx < 0 ? 0 : xx >= f->stride ? f->stride - 1 : xx;
+                    a[k] = PX(plane, yy, xx);
+                }
+                tmp[i * 128 + j] = (uint16_t)(fx && fy ?
+                    (a[0] + a[1] + a[2] + a[3] + 2) >> 2 : fx || fy ?
+                    (a[0] + a[fx ? 1 : 2] + 1) >> 1 : a[0]);
             }
         for (int i = 0; i < h && y0 + i < f->rows; i++)
             for (int j = 0; j < w && x0 + j < f->stride; j++)
                 PX(plane, y0 + i, x0 + j) = tmp[i * 128 + j];
     }
+}
+
+/* -- segmentation (specification 5.9.14, 5.11.9, 7.12.2) ---------------- */
+
+enum { SEG_LVL_ALT_Q, SEG_LVL_ALT_LF_Y_V, SEG_LVL_REF_FRAME = 5,
+       SEG_LVL_SKIP };
+
+static int seg_active(Av1 *f, int id, int feature)
+{
+    return f->seg_enabled && (f->seg_mask[id] >> feature & 1);
+}
+
+/* the qindex of segment id over qindex q (get_qindex) */
+static int seg_q(Av1 *f, int id, int q)
+{
+    if (!seg_active(f, id, SEG_LVL_ALT_Q))
+        return q;
+    q += f->seg_data[id][SEG_LVL_ALT_Q];
+    return q < 0 ? 0 : q > 255 ? 255 : q;
+}
+
+/* av1_neg_deinterleave */
+static int neg_deinterleave(int diff, int ref, int max)
+{
+    if (!ref)
+        return diff;
+    if (ref >= max - 1)
+        return max - diff - 1;
+    if (2 * ref < max) {
+        if (diff <= 2 * ref)
+            return diff & 1 ? ref + ((diff + 1) >> 1) : ref - (diff >> 1);
+        return diff;
+    }
+    if (diff <= 2 * (max - ref - 1))
+        return diff & 1 ? ref + ((diff + 1) >> 1) : ref - (diff >> 1);
+    return max - (diff + 1);
+}
+
+static int enc_segment(Av1 *f);
+
+/* from the segments' features: SegIdPreSkip, LastActiveSegId, each
+ * segment's qindex and lossless flag (dq: a delta q of the chroma or of
+ * luma DC), and the frame's CodedLossless */
+static void seg_setup(Av1 *f, int dq)
+{
+    f->seg_preskip = f->seg_last = 0;
+    for (int i = 0; f->seg_enabled && i < 8; i++)
+        for (int j = 0; j < 8; j++)
+            if (f->seg_mask[i] >> j & 1) {
+                f->seg_preskip |= j >= SEG_LVL_REF_FRAME;
+                f->seg_last = i;
+            }
+    f->lossless = 1;
+    for (int i = 0; i < 8; i++) {
+        f->seg_qindex[i] = seg_q(f, i, f->base_q);
+        f->seg_lossless[i] = f->seg_qindex[i] == 0 && !dq;
+        if (i < (f->seg_enabled ? 8 : 1))
+            f->lossless &= f->seg_lossless[i];
+    }
+}
+
+/* intra_segment_id: predicted from the segments above, left and above
+ * left (av1_get_spatial_seg_pred), taken as it is in a skipped block
+ * (read after skip), else coded against it; then the block's map */
+static void read_segment_id(Av1 *f, int skip)
+{
+    int ul = -1, u = -1, l = -1, ctx, pred, id;
+    if (f->avail_u && f->avail_l)
+        ul = MI(f->seg_ids, f->mi_row - 1, f->mi_col - 1);
+    if (f->avail_u)
+        u = MI(f->seg_ids, f->mi_row - 1, f->mi_col);
+    if (f->avail_l)
+        l = MI(f->seg_ids, f->mi_row, f->mi_col - 1);
+    if (ul < 0)
+        ctx = 0;
+    else if (ul == u && ul == l)
+        ctx = 2;
+    else
+        ctx = ul == u || ul == l || u == l;
+    pred = u < 0 ? (l < 0 ? 0 : l) : l < 0 ? u : ul == u ? u : l;
+    if (skip) {
+        id = pred;
+    } else {
+        int want = 0, n = f->seg_last + 1;
+        if (f->ec.writing) {
+            int v = enc_segment(f);
+            for (int d = 0; d < 8; d++)
+                if (neg_deinterleave(d, pred, n) == v)
+                    want = d;
+        }
+        id = neg_deinterleave(sym(f, f->cdf.spatial_pred_seg[ctx], 8, want),
+                              pred, n);
+        if (id < 0 || id > f->seg_last)
+            av1_fail(f, ERR_VALUE, "AV1: segment_id %d past the last active "
+                     "segment", id);
+    }
+    for (int y = 0; y < f->bh4 && f->mi_row + y < f->MiRows; y++)
+        for (int x = 0; x < f->bw4 && f->mi_col + x < f->MiCols; x++)
+            MI(f->seg_ids, f->mi_row + y, f->mi_col + x) = (uint8_t)id;
+    f->segment_id = id;
+    f->blk_lossless = f->seg_lossless[id];
 }
 
 /* cdef_idx of the block's 64 x 64 unit, at its first block that is not
@@ -2394,14 +2603,95 @@ static void read_delta_lf(Av1 *f)
     }
 }
 
-/* the block's transform size (read_tx_size; intra blocks) */
-static void read_tx_size(Av1 *f)
+/* the transform widths above and heights left of w4 x h4 units at (r, c)
+ * (libaom's set_txfm_ctx, txfm_partition_update) */
+static void set_txfm_ctx(Av1 *f, int r, int c, int w4, int h4, int tw,
+                         int th)
 {
-    if (f->lossless) {
-        f->txsz = TX_4X4;
+    memset(f->above_txfm + c, tw, (size_t)w4);
+    memset(f->left_txfm + r, th, (size_t)h4);
+}
+
+/* the transform size t over its units from (r4, c4) of the block */
+static void set_vtx(Av1 *f, int r4, int c4, int t, int v)
+{
+    for (int i = 0; i < 1 << (tx_hl[t] - 2); i++)
+        for (int j = 0; j < 1 << (tx_wl[t] - 2); j++)
+            if (f->mi_row + r4 + i < f->MiRows &&
+                f->mi_col + c4 + j < f->MiCols)
+                MI(f->vtx, f->mi_row + r4 + i, f->mi_col + c4 + j) =
+                    (uint8_t)v;
+}
+
+/* an intra block copy block's variable transform partition below the
+ * transform t at (r4, c4) of the block (read_tx_size_vartx: at most two
+ * splits); a writer splits nothing */
+static void read_vartx(Av1 *f, int t, int depth, int r4, int c4)
+{
+    int r = f->mi_row + r4, c = f->mi_col + c4;
+    if (r >= f->MiRows || c >= f->MiCols)
+        return;
+    int tw = 1 << tx_wl[t], th = 1 << tx_hl[t], split = 0;
+    if (depth < 2) {
+        int bl = bw4_log2[f->mi_sz] > bh4_log2[f->mi_sz] ? bw4_log2[f->mi_sz]
+                                                         : bh4_log2[f->mi_sz];
+        int maxl = bl + 2 > 6 ? 6 : bl + 2;
+        int upl = tx_wl[t] > tx_hl[t] ? tx_wl[t] : tx_hl[t];
+        int cat = (upl != maxl && maxl > 3) + (6 - maxl) * 2;
+        int ctx = cat * 3 + (f->above_txfm[c] < tw) + (f->left_txfm[r] < th);
+        split = sym(f, f->cdf.txfm_partition[ctx], 2, 0);
+    }
+    if (!split) {
+        set_vtx(f, r4, c4, t, t);
+        set_txfm_ctx(f, r, c, tw >> 2, th >> 2, tw, th);
         return;
     }
+    int sub = split_tx(t);
+    if (sub == TX_4X4) {
+        set_vtx(f, r4, c4, t, TX_4X4);
+        set_txfm_ctx(f, r, c, tw >> 2, th >> 2, 4, 4);
+        return;
+    }
+    for (int i = 0; i < th >> 2; i += 1 << (tx_hl[sub] - 2))
+        for (int j = 0; j < tw >> 2; j += 1 << (tx_wl[sub] - 2))
+            read_vartx(f, sub, depth + 1, r4 + i, c4 + j);
+}
+
+/* the block's transform size (read_tx_size): of an intra block, its
+ * tx_depth; of an intra block copy block (an inter block to the transform
+ * syntax), its variable partition where the frame selects transform sizes
+ * and the block is not skipped, else the largest rectangular size; then
+ * the transform contexts (a skipped intra block copy block's are its
+ * size) */
+static void read_tx_size(Av1 *f)
+{
     int t = max_tx_rect(f->mi_sz);
+    if (f->use_intrabc) {
+        if (f->tx_mode_select && f->mi_sz > BLOCK_4X4 && !f->skip &&
+            !f->blk_lossless) {
+            for (int i = 0; i < f->bh4; i += 1 << (tx_hl[t] - 2))
+                for (int j = 0; j < f->bw4; j += 1 << (tx_wl[t] - 2))
+                    read_vartx(f, t, 0, i, j);
+            f->txsz = t;
+            return;
+        }
+        f->txsz = f->blk_lossless ? TX_4X4 : t;
+        for (int i = 0; i < f->bh4 && f->mi_row + i < f->MiRows; i++)
+            for (int j = 0; j < f->bw4 && f->mi_col + j < f->MiCols; j++)
+                MI(f->vtx, f->mi_row + i, f->mi_col + j) = (uint8_t)f->txsz;
+        if (f->skip)
+            set_txfm_ctx(f, f->mi_row, f->mi_col, f->bw4, f->bh4,
+                         f->bw4 * 4, f->bh4 * 4);
+        else
+            set_txfm_ctx(f, f->mi_row, f->mi_col, f->bw4, f->bh4,
+                         1 << tx_wl[f->txsz], 1 << tx_hl[f->txsz]);
+        return;
+    }
+    if (f->blk_lossless) {
+        f->txsz = TX_4X4;
+        set_txfm_ctx(f, f->mi_row, f->mi_col, f->bw4, f->bh4, 4, 4);
+        return;
+    }
     if (f->mi_sz > BLOCK_4X4 && f->tx_mode_select) {
         int splits = 0;
         for (int u = t; u != TX_4X4; u = split_tx(u))
@@ -2426,27 +2716,39 @@ static void read_tx_size(Av1 *f)
             t = split_tx(t);
     }
     f->txsz = t;
+    set_txfm_ctx(f, f->mi_row, f->mi_col, f->bw4, f->bh4, 1 << tx_wl[t],
+                 1 << tx_hl[t]);
 }
 
 static void intra_frame_mode_info(Av1 *f)
 {
     Cdfs *c = &f->cdf;
-    Choice none = {0}, *ch = f->ec.writing ? enc_choice(f) : &none;
+    Choice none = {0}, *ch;
     int ctx = 0;
+    if (f->seg_enabled && f->seg_preskip)
+        read_segment_id(f, 0);
+    ch = f->ec.writing ? enc_choice(f) : &none;
     if (f->avail_u)
         ctx += MI(f->skips, f->mi_row - 1, f->mi_col);
     if (f->avail_l)
         ctx += MI(f->skips, f->mi_row, f->mi_col - 1);
-    f->skip = sym(f, c->skip[ctx], 2, ch->skip);
+    if (seg_active(f, f->segment_id, SEG_LVL_SKIP))
+        f->skip = 1;
+    else
+        f->skip = sym(f, c->skip[ctx], 2, ch->skip);
+    if (f->seg_enabled && !f->seg_preskip) {
+        read_segment_id(f, f->skip);
+        if (f->ec.writing)
+            ch = enc_choice(f);
+    }
     read_cdef(f);
     read_delta_qindex(f);
     read_delta_lf(f);
+    f->blk_q = seg_q(f, f->segment_id, f->qindex);
     f->read_deltas = 0;
     f->use_intrabc = 0;
     if (f->allow_intrabc) {
-        f->use_intrabc = sym(f, c->intrabc, 2, 0);
-        if (f->use_intrabc && !f->lossless)
-            av1_fail(f, ERR_NOTIMPL, "AVIF: lossy AV1 intra block copy");
+        f->use_intrabc = sym(f, c->intrabc, 2, ch->intrabc);
         if (f->use_intrabc) {
             f->ymode = f->uvmode = DC_PRED;
             f->angle_y = f->angle_uv = f->cfl_u = f->cfl_v = 0;
@@ -2472,7 +2774,7 @@ static void intra_frame_mode_info(Av1 *f)
         /* CfL: lossless where the chroma block is 4 x 4, else in blocks
          * of at most 32 x 32 */
         int bw = 4 << bw4_log2[f->mi_sz], bh = 4 << bh4_log2[f->mi_sz];
-        int cfl_ok = f->lossless ? plane_bsize(f->mi_sz, f->ssx, f->ssy) ==
+        int cfl_ok = f->blk_lossless ? plane_bsize(f->mi_sz, f->ssx, f->ssy) ==
                      BLOCK_4X4 : bw <= 32 && bh <= 32;
         f->uvmode = sym(f, c->uv_mode[cfl_ok][f->ymode], 13 + cfl_ok,
                         ch->uvmode);
@@ -2525,6 +2827,12 @@ static void decode_block(Av1 *f, int r, int c, int bsize)
         f->has_chroma = f->nplanes > 1;
     f->avail_u = is_inside(f, r - 1, c);
     f->avail_l = is_inside(f, r, c - 1);
+    f->segment_id = 0;
+    f->blk_lossless = f->seg_lossless[0];
+    if (!f->seg_enabled)
+        for (int y = 0; y < f->bh4 && r + y < f->MiRows; y++)
+            memset(&MI(f->seg_ids, r + y, c), 0,
+                   (size_t)(f->bw4 < f->MiCols - c ? f->bw4 : f->MiCols - c));
     f->avail_u_uv = f->avail_u;
     f->avail_l_uv = f->avail_l;
     if (f->has_chroma && f->ssy && f->bh4 == 1)
@@ -2801,10 +3109,12 @@ static void read_lr(Av1 *f, int r, int c, int sb4)
         if (f->lr_type[p] == RESTORE_NONE)
             continue;
         int ssx = p ? f->ssx : 0, ssy = p ? f->ssy : 0, us = f->lr_size[p];
+        /* columns of the upscaled frame under superres */
+        int num = (4 >> ssx) * f->superres_denom, den = us * 8;
         int r0 = (r * (4 >> ssy) + us - 1) / us;
         int r1 = ((r + sb4) * (4 >> ssy) + us - 1) / us;
-        int c0 = (c * (4 >> ssx) + us - 1) / us;
-        int c1 = ((c + sb4) * (4 >> ssx) + us - 1) / us;
+        int c0 = (c * num + den - 1) / den;
+        int c1 = ((c + sb4) * num + den - 1) / den;
         r1 = r1 < f->lr_rows[p] ? r1 : f->lr_rows[p];
         c1 = c1 < f->lr_cols[p] ? c1 : f->lr_cols[p];
         for (int y = r0; y < r1; y++)
@@ -2839,7 +3149,10 @@ static void code_tile(Av1 *f, int tile_row, int tile_col,
         memset(f->above_dc[p] + (f->mi_col_start >> ssx), 0,
                (size_t)((f->mi_col_end - f->mi_col_start) >> ssx) + 34);
     }
+    memset(f->above_txfm + f->mi_col_start, 64,
+           (size_t)(f->mi_col_end - f->mi_col_start) + 32);
     for (int r = f->mi_row_start; r < f->mi_row_end; r += sb4) {
+        memset(f->left_txfm, 64, (size_t)f->MiRows + 64);
         for (int p = 0; p < f->nplanes; p++) {
             memset(f->left_level[p], 0, (size_t)f->MiRows + 34);
             memset(f->left_dc[p], 0, (size_t)f->MiRows + 34);
@@ -2862,9 +3175,13 @@ static int lf_level(Av1 *f, int row, int col, int plane, int pass)
 {
     size_t k = (size_t)row * f->MiCols + col;
     int i = plane == 0 ? pass : plane + 1;
-    int lvl = f->lf_level[i];
+    int lvl = f->lf_level[i], id = f->seg_ids[k];
     if (f->delta_lf_present) {
         lvl += f->delta_lfs[k * 4 + (f->delta_lf_multi ? i : 0)];
+        lvl = lvl < 0 ? 0 : lvl > 63 ? 63 : lvl;
+    }
+    if (seg_active(f, id, SEG_LVL_ALT_LF_Y_V + i)) {
+        lvl += f->seg_data[id][SEG_LVL_ALT_LF_Y_V + i];
         lvl = lvl < 0 ? 0 : lvl > 63 ? 63 : lvl;
     }
     if (f->lf_delta_enabled) {
@@ -3364,19 +3681,84 @@ static void lr_frame(Av1 *f)
     }
 }
 
+/* -- superres (specification 7.16; libaom's av1_upscale_normative_rows) -- */
+
+/* one plane's rows [0, rows) of width w (samples up to the decoded width
+ * dw read, the edges repeated) upscaled to uw samples into dst: libaom's
+ * 8-tap normative filter at its x0 and step, continuous across tile
+ * columns */
+static void upscale_rows(Av1 *f, const uint16_t *src, uint16_t *dst,
+                         int stride, int dstride, int rows, int w, int dw,
+                         int uw)
+{
+    int32_t step = ((w << 14) + uw / 2) / uw;
+    int32_t err = uw * step - (w << 14);
+    int32_t x0 = (-((uw - w) << 13) + uw / 2) / uw + 128 - err / 2;
+    x0 &= (1 << 14) - 1;
+    for (int y = 0; y < rows; y++) {
+        const uint16_t *s = src + (size_t)y * stride;
+        uint16_t *d = dst + (size_t)y * dstride;
+        int32_t xq = x0;
+        for (int x = 0; x < uw; x++, xq += step) {
+            const int16_t *k = resize_filter[(xq & ((1 << 14) - 1)) >> 8];
+            int sum = 0;
+            for (int t = 0; t < 8; t++) {
+                int sx = (xq >> 14) + t - 4;
+                sum += s[sx < 0 ? 0 : sx > dw - 1 ? dw - 1 : sx] * k[t];
+            }
+            d[x] = (uint16_t)clip1(f, round2(sum, 7));
+        }
+    }
+}
+
+/* the frame (and the deblocked planes that loop restoration reads)
+ * widened from the coded width to UpscaledWidth */
+static void superres_upscale(Av1 *f)
+{
+    int stride = ((f->up_w + 7) & ~7) + 64, lr = 0;
+    for (int p = 0; p < f->nplanes; p++)
+        lr |= f->lr_type[p] != RESTORE_NONE;
+    for (int p = 0; p < f->nplanes; p++) {
+        int ssx = p ? f->ssx : 0, ssy = p ? f->ssy : 0;
+        int w = (f->W + ssx) >> ssx, uw = (f->up_w + ssx) >> ssx;
+        int dw = (f->MiCols * 4) >> ssx, rows = (f->H + ssy) >> ssy;
+        for (int k = 0; k < 2; k++) {
+            uint16_t **pl = k ? &f->pre_cdef[p] : &f->plane[p];
+            if (!*pl || (k && !lr))
+                continue;
+            uint16_t *up = av1_alloc(f, (size_t)stride * f->rows * 2);
+            upscale_rows(f, *pl, up, f->stride, stride, rows, w, dw, uw);
+            free(*pl);
+            *pl = up;
+        }
+    }
+    f->stride = stride;
+    f->W = f->up_w;
+}
+
 /* the in-loop filters of a decoded (or written) frame: deblocking, CDEF,
- * loop restoration */
+ * superres, loop restoration */
 static void postfilter(Av1 *f)
 {
-    if (f->lossless || f->allow_intrabc)
+    if (f->allow_intrabc)
         return;
-    loop_filter(f);
+    if (!f->lossless)
+        loop_filter(f);
     int lr = 0;
     for (int p = 0; p < f->nplanes; p++)
         lr |= f->lr_type[p] != RESTORE_NONE;
-    if (lr || (f->cdef_en && !f->lossless && !f->allow_intrabc))
+    if (lr || (f->cdef_en && !f->lossless))
         keep_deblocked(f);
     cdef_frame(f);
+    if (f->up_w != f->W) {
+#ifdef LR_CLOCK
+        double t0 = LR_CLOCK();
+#endif
+        superres_upscale(f);
+#ifdef LR_CLOCK
+        f->superres_ms += LR_CLOCK() - t0;
+#endif
+    }
     if (lr) {
 #ifdef LR_CLOCK
         double t0 = LR_CLOCK();
@@ -3398,7 +3780,7 @@ static void lr_alloc(Av1 *f)
             continue;
         int ssx = p ? f->ssx : 0, ssy = p ? f->ssy : 0;
         f->lr_rows[p] = lr_count(f->lr_size[p], (f->H + ssy) >> ssy);
-        f->lr_cols[p] = lr_count(f->lr_size[p], (f->W + ssx) >> ssx);
+        f->lr_cols[p] = lr_count(f->lr_size[p], (f->up_w + ssx) >> ssx);
         f->lr_units[p] = av1_alloc(f, sizeof(LrUnit) * (size_t)f->lr_rows[p]
                                    * f->lr_cols[p]);
         lr = 1;
@@ -3407,7 +3789,7 @@ static void lr_alloc(Av1 *f)
         /* the stripe (70 rows), then the Wiener rows or the two passes of
          * the self-guided filter over a unit (at most 64 x 384 + 4:4:4's
          * 70 x 390 for A and B, per pass) */
-        size_t bs = (size_t)f->W + 6, unit = 70 * 390 * 3;
+        size_t bs = (size_t)f->up_w + 6, unit = 70 * 390 * 3;
         f->lr_buf = av1_alloc(f, (bs * 70 + 2 * unit) * sizeof(int32_t));
     }
 }
@@ -3430,6 +3812,11 @@ static void frame_alloc(Av1 *f)
         f->left_dc[p] = av1_alloc(f, (size_t)f->MiRows + 68);
     }
     f->mi_size = av1_alloc(f, n);
+    f->vtx = av1_alloc(f, n);
+    f->seg_ids = av1_alloc(f, n);
+    f->tx_types = av1_alloc(f, n);
+    f->above_txfm = av1_alloc(f, (size_t)f->MiCols + 68);
+    f->left_txfm = av1_alloc(f, (size_t)f->MiRows + 68);
     f->is_inter = av1_alloc(f, n);
     f->written = av1_alloc(f, n);
     f->mvs = av1_alloc(f, n * 4);
@@ -3475,6 +3862,13 @@ static void frame_free(Av1 *f)
     f->txsizes = NULL;
     f->delta_lfs = NULL;
     free(f->mi_size);
+    free(f->vtx);
+    free(f->seg_ids);
+    f->seg_ids = NULL;
+    free(f->tx_types);
+    free(f->above_txfm);
+    free(f->left_txfm);
+    f->vtx = f->tx_types = f->above_txfm = f->left_txfm = NULL;
     free(f->is_inter);
     free(f->written);
     free(f->mvs);

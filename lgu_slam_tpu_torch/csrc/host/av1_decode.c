@@ -1,26 +1,31 @@
 /* An AV1 intra decoder for the port's AVIF reader (data/avif.py): the
- * OBUs of one still image (sequence header, frame or frame header and
+ * OBUs of one AVIF item (sequence headers, frames or frame headers and
  * tile groups) decoded to 16-bit planes as libaom 3.14 decodes them.
  *
  * Read: profiles 0-2, 8 / 10 / 12 bits, mono_chrome, 4:4:4, 4:2:2 and
- * 4:2:0 chroma, the reduced still picture header and full key frame
- * headers, tiles (uniform or not), 64 or 128 superblocks, every partition,
- * the intra mode info of a key frame (skip, CDEF index, delta q and delta
- * lf, y and uv modes, angle deltas, CfL, palettes with their colour cache,
- * filter intra, tx_depth), the loop restoration units' coefficients and
- * the coefficients of every transform size and intra type, lossless or
- * lossy; then deblocking, CDEF and loop restoration, and the shown
- * frame's film grain (av1_grain.h).  The tile
- * syntax, reconstruction and filters are in av1_core.h.  The OBUs are
- * checked as libaom's aom_decode_frame_from_obus checks them (sizes,
- * trailing bits and zero padding, reserved types, the operating point,
- * tile group order, zero bytes between frames).  A frame that uses
- * superres, segmentation, show_existing_frame
- * or a frame type but a key / intra-only frame, intra block copy in a
- * lossy frame, and a second frame in the data, return ERR_NOTIMPL naming
- * it (a later reader takes it up); a stream libaom refuses (a cut header,
- * a tile that reads past its bytes, a Golomb code longer than 20 bits, a
- * block size the chroma subsampling does not allow, ...) ERR_VALUE.
+ * 4:2:0 chroma, the reduced still picture header and full sequence and
+ * frame headers, tiles (uniform or not), 64 or 128 superblocks, every
+ * partition, the mode info of key and intra-only frames (segment ids,
+ * skip, CDEF index, delta q and delta lf, y and uv modes, angle deltas,
+ * CfL, palettes with their colour cache, filter intra, tx_depth, intra
+ * block copy in lossless and lossy frames with its variable transform
+ * partition), segmentation (every feature: a segment's qindex, lossless
+ * segments, loop filter levels, skip), the loop restoration units'
+ * coefficients and the coefficients of every transform size and type,
+ * lossless or lossy; then deblocking, CDEF, superres (libaom's normative
+ * upscale) and loop restoration.  An item may hold several frames: each
+ * is decoded, the reference slots keep them for show_existing_frame, and
+ * the last frame shown is output with its film grain (av1_grain.h), as
+ * libaom outputs it; a changed sequence header starts a new sequence at
+ * its key frame.  The tile syntax, reconstruction and filters are in
+ * av1_core.h.  The OBUs are checked as libaom's aom_decode_frame_from_obus
+ * checks them (sizes, trailing bits and zero padding, reserved types, the
+ * operating point, tile group order, zero bytes between frames, frame ids,
+ * showable frames, tile columns under superres).  An inter frame returns
+ * ERR_NOTIMPL naming it (no encoder here writes one); a stream libaom
+ * refuses (a cut header, a tile that reads past its bytes, a Golomb code
+ * longer than 20 bits, a block size the chroma subsampling does not
+ * allow, no frame shown, ...) ERR_VALUE.
  *
  * Entry points (ctypes, data/avif.py):
  *   av1_info(data, n, info[20], err, errlen): the frame's width, height,
@@ -37,13 +42,15 @@
  *     self-guided) and the milliseconds spent in the restoration filter;
  *   av1_grain_params(data, n, v[162], err, errlen): the frame's film
  *     grain in libaom's aom_film_grain_t order;
- *   av1_grain_ms(data, n, ms[2], err, errlen): milliseconds of the
- *     decode, and of its film grain.
+ *   av1_decode_ms(data, n, ms[3], err, errlen): milliseconds of the
+ *     decode, of its film grain and of its superres upscaling.
+ * av1_info and av1_grain_params read the headers alone and report the
+ * frame that is output; av1_lr_stats counts the last frame decoded.
  */
 #define _POSIX_C_SOURCE 199309L
 #include <time.h>
 
-/* the clock of av1_lr_stats's restoration time */
+/* the clock of the restoration, upscaling and grain times */
 static double clock_ms(void)
 {
     struct timespec t;
@@ -67,6 +74,12 @@ static int enc_partition(Av1 *f, int r, int c, int bsize)
     (void)r;
     (void)c;
     (void)bsize;
+    return 0;
+}
+
+static int enc_segment(Av1 *f)
+{
+    (void)f;
     return 0;
 }
 
@@ -95,6 +108,16 @@ static void forward_tx(Av1 *f, int plane, int x, int y, int t)
     (void)y;
     (void)t;
 }
+
+/* a decoded frame: what a reference slot holds and what is output (the
+ * last frame shown), with av1_info's fields (its size and format first)
+ * and its grain; planes NULL where only the headers were read */
+struct Frame {
+    int refs, showable, key, stride;
+    int32_t info[20];
+    Grain grain;
+    uint16_t *plane[3];
+};
 
 /* -- header bits ---------------------------------------------------------- */
 
@@ -244,6 +267,7 @@ static void sequence_header(Av1 *f, Bits *b)
     f->frame_id_present = f->reduced ? 0 : (int)fb(b, 1);
     if (f->frame_id_present) {
         int delta = (int)fb(b, 4) + 2;
+        f->frame_id_delta = delta;
         f->frame_id_bits = (int)fb(b, 3) + delta + 1;
         if (f->frame_id_bits > 16)
             av1_fail(f, ERR_VALUE, "AV1: frame_id_length %d",
@@ -404,6 +428,12 @@ static void tile_info(Av1 *f, Bits *b)
         f->tile_rows = i;
         f->tile_rows_log2 = tile_log2(1, f->tile_rows);
     }
+    /* libaom's is_min_tile_width_satisfied: under superres, tile columns
+     * but the last of at least 128 samples */
+    for (i = 0; f->W != f->up_w && i < f->tile_cols - 1; i++)
+        if ((f->col_starts[i + 1] - f->col_starts[i]) * 4 < 128)
+            av1_fail(f, ERR_VALUE, "AV1: a tile column narrower than 128 "
+                     "samples under superres");
     f->context_update_tile_id = 0;
     f->tile_size_bytes = 4;
     if (f->tile_cols_log2 > 0 || f->tile_rows_log2 > 0) {
@@ -414,14 +444,6 @@ static void tile_info(Av1 *f, Bits *b)
                      f->context_update_tile_id);
         f->tile_size_bytes = (int)fb(b, 2) + 1;
     }
-}
-
-/* the first tool of the frame this decoder does not read: it is refused
- * (ERR_NOTIMPL) once the whole header has been checked */
-static void unread(Av1 *f, const char *fmt, int v)
-{
-    if (!f->unread[0])
-        snprintf(f->unread, sizeof f->unread, fmt, v);
 }
 
 static void loop_filter_params(Av1 *f, Bits *b)
@@ -545,28 +567,86 @@ static void film_grain_params(Av1 *f, Bits *b)
     g->clip = (int)fb(b, 1);
 }
 
-/* an intra frame's uncompressed header (5.9); first: no frame decoded
- * yet, where libaom refuses a frame that needs one */
+static void release_frame(struct Frame *fr);
+
+/* every reference slot emptied (libaom's reset_frame_buffers) */
+static void reset_slots(Av1 *f)
+{
+    for (int i = 0; i < 8; i++) {
+        release_frame(f->slot[i]);
+        f->slot[i] = NULL;
+    }
+}
+
+/* current_frame_id, checked against the previous frame's, and the slots
+ * too old for it marked (libaom's read_uncompressed_header) */
+static void frame_id(Av1 *f, Bits *b, int key_shown)
+{
+    int n = f->frame_id_bits, prev = f->frame_id;
+    int have_prev = !f->first_frame && !key_shown;
+    f->frame_id = (int)fb(b, n);
+    if (have_prev) {
+        int diff = f->frame_id > prev ? f->frame_id - prev
+                                      : (1 << n) + f->frame_id - prev;
+        if (prev == f->frame_id || diff >= 1 << (n - 1))
+            av1_fail(f, ERR_VALUE, "AV1: an invalid current_frame_id");
+    }
+    int id = f->frame_id, d = 1 << f->frame_id_delta;
+    for (int i = 0; i < 8; i++)
+        if (id - d > 0 ? f->ref_id[i] > id || f->ref_id[i] < id - d
+                       : f->ref_id[i] > id && f->ref_id[i] < (1 << n) + id - d)
+            f->ref_valid[i] = 0;
+}
+
+/* an intra frame's uncompressed header (5.9), or show_existing_frame of
+ * a frame a slot holds; first: no frame decoded yet, where libaom
+ * refuses a frame that needs one */
 static void frame_header(Av1 *f, Bits *b, int first)
 {
     int frame_type = 0, show_frame = 1, showable = 0, error_resilient = 1;
-    f->unread[0] = 0;
+    f->show_existing = 0;
     if (!f->seq_seen)
         av1_fail(f, ERR_VALUE, "AV1: a frame before the sequence header");
     if (!f->reduced) {
-        if (fb(b, 1)) {
-            if (first)
-                av1_fail(f, ERR_VALUE, "AV1: show_existing_frame before a "
-                         "frame");
-            av1_fail(f, ERR_NOTIMPL, "AVIF: AV1 show_existing_frame");
+        if (fb(b, 1)) { /* show_existing_frame */
+            int idx = (int)fb(b, 3);
+            if (f->seq_changed)
+                av1_fail(f, ERR_VALUE, "AV1: a new sequence header starts "
+                         "with show_existing_frame");
+            if (!f->slot[idx])
+                av1_fail(f, ERR_VALUE, "AV1: show_existing_frame of an "
+                         "empty slot");
+            if (f->decoder_model_info && !f->equal_picture_interval)
+                fb(b, f->presentation_time_bits);
+            if (f->frame_id_present && ((int)fb(b, f->frame_id_bits) !=
+                                        f->ref_id[idx] || !f->ref_valid[idx]))
+                av1_fail(f, ERR_VALUE, "AV1: a display_frame_id that is not "
+                         "the slot's");
+            if (!f->slot[idx]->showable)
+                av1_fail(f, ERR_VALUE, "AV1: show_existing_frame of a frame "
+                         "that is not showable");
+            f->show_existing = 1;
+            f->existing = idx;
+            return;
         }
         frame_type = (int)fb(b, 2);
+        if (f->seq_changed) {
+            if (frame_type != 0)
+                av1_fail(f, ERR_VALUE, "AV1: a new sequence header without "
+                         "a key frame");
+            f->seq_changed = 0;
+            f->first_frame = 1;
+            reset_slots(f);
+        }
         show_frame = (int)fb(b, 1);
         if (frame_type != 0 && frame_type != 2) {
             if (first)
                 av1_fail(f, ERR_VALUE, "AV1: an inter frame first");
             av1_fail(f, ERR_NOTIMPL, "AVIF: an AV1 inter frame");
         }
+        if (frame_type == 0 && show_frame)
+            for (int i = 0; i < 8; i++)
+                f->ref_valid[i] = 0;
         if (show_frame && f->decoder_model_info && !f->equal_picture_interval)
             fb(b, f->presentation_time_bits);
         showable = show_frame ? frame_type != 0 : (int)fb(b, 1);
@@ -575,13 +655,15 @@ static void frame_header(Av1 *f, Bits *b, int first)
         else
             error_resilient = (int)fb(b, 1);
     }
-    (void)error_resilient;
+    f->frame_type = frame_type;
+    f->show_frame = show_frame;
+    f->showable = showable;
     f->disable_cdf_update = (int)fb(b, 1);
     f->sct = f->sct_force == 2 ? (int)fb(b, 1) : f->sct_force;
     if (f->sct && f->intmv_force == 2)
         fb(b, 1); /* force_integer_mv */
     if (f->frame_id_present)
-        fb(b, f->frame_id_bits);
+        frame_id(f, b, frame_type == 0 && show_frame);
     int size_override = f->reduced ? 0 : (int)fb(b, 1);
     fb(b, f->order_hint_bits);
     /* primary_ref_frame: none for intra frames */
@@ -601,6 +683,7 @@ static void frame_header(Av1 *f, Bits *b, int first)
     if (frame_type == 2 && refresh == 0xFF)
         av1_fail(f, ERR_VALUE, "AV1: an intra-only frame refreshing every "
                  "reference");
+    f->refresh = refresh;
     if (refresh != 0xFF && error_resilient && f->order_hint_bits)
         for (int i = 0; i < 8; i++)
             fb(b, f->order_hint_bits);
@@ -615,20 +698,24 @@ static void frame_header(Av1 *f, Bits *b, int first)
         f->W = f->max_w;
         f->H = f->max_h;
     }
-    int coded_w = f->W;
+    /* superres_params: the coded width (libaom's
+     * av1_calculate_scaled_superres_size, at least 16 samples or the
+     * frame's width) */
+    f->up_w = f->W;
+    f->superres_denom = 8;
     if (f->superres_en && fb(b, 1)) {
-        int denom = (int)fb(b, 3) + 9;
-        coded_w = (f->W * 8 + denom / 2) / denom;
-        unread(f, "AVIF: AV1 superres", 0);
+        int denom = (int)fb(b, 3) + 9, least = f->W < 16 ? f->W : 16;
+        f->superres_denom = denom;
+        f->W = (f->W * 8 + denom / 2) / denom;
+        f->W = f->W < least ? least : f->W;
     }
-    f->MiCols = 2 * ((coded_w + 7) >> 3);
+    f->MiCols = 2 * ((f->W + 7) >> 3);
     f->MiRows = 2 * ((f->H + 7) >> 3);
     if (fb(b, 1)) { /* render_and_frame_size_different */
         fb(b, 16);
         fb(b, 16);
     }
-    f->allow_intrabc = f->sct && coded_w == f->W ? (int)fb(b, 1) : 0;
-    (void)showable;
+    f->allow_intrabc = f->sct && f->W == f->up_w ? (int)fb(b, 1) : 0;
     if (!(f->reduced || f->disable_cdf_update))
         fb(b, 1); /* disable_frame_end_update_cdf */
     tile_info(f, b);
@@ -657,17 +744,21 @@ static void frame_header(Av1 *f, Bits *b, int first)
         if (f->separate_uv_delta_q)
             f->qm_level[2] = (int)fb(b, 4);
     }
-    /* segmentation_params (no primary reference frame in an intra frame):
-     * each segment's quantiser */
-    int seg = (int)fb(b, 1), seg_q[8] = {0};
+    /* segmentation_params (no primary reference frame in an intra frame:
+     * the map and the data are updated); SegIdPreSkip, LastActiveSegId */
     static const int seg_bits[8] = {8, 6, 6, 6, 6, 3, 0, 0};
-    for (int i = 0; seg && i < 8; i++)
+    static const int seg_max[8] = {255, 63, 63, 63, 63, 7, 0, 0};
+    f->seg_enabled = (int)fb(b, 1);
+    memset(f->seg_mask, 0, sizeof(f->seg_mask));
+    memset(f->seg_data, 0, sizeof(f->seg_data));
+    for (int i = 0; f->seg_enabled && i < 8; i++)
         for (int j = 0; j < 8; j++)
             if (fb(b, 1)) {
                 int v = j < 5 ? su(b, 1 + seg_bits[j]) : (int)fb(b,
                                                                 seg_bits[j]);
-                if (j == 0)
-                    seg_q[i] = v < -255 ? -255 : v > 255 ? 255 : v;
+                f->seg_mask[i] |= 1 << j;
+                f->seg_data[i][j] = v < -seg_max[j] ? -seg_max[j]
+                                    : v > seg_max[j] ? seg_max[j] : v;
             }
     /* delta_q_params, delta_lf_params */
     f->delta_q_present = f->delta_q_res = 0;
@@ -681,16 +772,8 @@ static void frame_header(Av1 *f, Bits *b, int first)
             f->delta_lf_multi = (int)fb(b, 1);
         }
     }
-    int lossless = !dq;
-    for (int i = 0; i < (seg ? 8 : 1); i++) {
-        int q = f->base_q + seg_q[i];
-        lossless &= q <= 0;
-    }
-    f->lossless = lossless;
-    if (lossless)
-        f->qm_level[0] = f->qm_level[1] = f->qm_level[2] = 15;
-    if (seg)
-        unread(f, "AVIF: AV1 segmentation", 0);
+    seg_setup(f, dq);
+    int lossless = f->lossless;
     memset(f->lf_level, 0, sizeof(f->lf_level));
     f->lf_sharpness = 0;
     f->lf_delta_enabled = 0;
@@ -705,7 +788,7 @@ static void frame_header(Av1 *f, Bits *b, int first)
         loop_filter_params(f, b);
     if (!lossless && !f->allow_intrabc && f->cdef_en)
         cdef_params(f, b);
-    if (!(lossless && coded_w == f->W) && !f->allow_intrabc && f->lr_en)
+    if (!(lossless && f->W == f->up_w) && !f->allow_intrabc && f->lr_en)
         lr_params(f, b);
     f->tx_mode_select = 0;
     if (!lossless)
@@ -743,10 +826,81 @@ static void check_trailing_bits(Av1 *f, const uint8_t *p, int64_t size)
             av1_fail(f, ERR_VALUE, "AV1: corrupt tile data (padding)");
 }
 
+static void release_frame(struct Frame *fr)
+{
+    if (!fr || --fr->refs > 0)
+        return;
+    for (int p = 0; p < 3; p++)
+        free(fr->plane[p]);
+    free(fr);
+}
+
+static void hold(struct Frame **dst, struct Frame *fr)
+{
+    fr->refs++;
+    release_frame(*dst);
+    *dst = fr;
+}
+
+/* the frame just decoded (or whose headers were read) into the slots
+ * refresh_frame_flags names, and output where it is shown */
+static void frame_done(Av1 *f, int decoded)
+{
+    struct Frame *fr = calloc(1, sizeof(struct Frame));
+    if (!fr)
+        av1_fail(f, ERR_MEMORY, "out of memory");
+    int32_t v[20] = {f->up_w, f->H, f->bitdepth, f->mono, f->ssx, f->ssy,
+                     f->mc, f->range, f->cp, f->tc, f->profile, f->still,
+                     f->base_q, f->tx_mode_select, f->cdef_bits,
+                     f->lr_type[0], f->lr_type[1], f->lr_type[2],
+                     f->lr_size[0], f->lr_uv_shift};
+    memcpy(fr->info, v, sizeof(v));
+    fr->showable = f->showable;
+    fr->key = f->frame_type == 0;
+    fr->grain = f->grain;
+    fr->stride = f->stride;
+    if (decoded)
+        for (int p = 0; p < f->nplanes; p++) {
+            fr->plane[p] = f->plane[p];
+            f->plane[p] = NULL;
+        }
+    fr->refs = 1;
+    for (int i = 0; i < 8; i++)
+        if (f->refresh >> i & 1) {
+            hold(&f->slot[i], fr);
+            f->ref_id[i] = f->frame_id;
+            f->ref_valid[i] = 1;
+        }
+    if (f->show_frame)
+        hold(&f->shown, fr);
+    release_frame(fr);
+    f->first_frame = 0;
+}
+
+/* show_existing_frame: the slot's frame is output; a key frame shown so
+ * refreshes every slot and cannot be shown again */
+static void show_existing(Av1 *f)
+{
+    struct Frame *fr = f->slot[f->existing];
+    hold(&f->shown, fr);
+    if (fr->key) {
+        fr->showable = 0;
+        f->frame_id = f->ref_id[f->existing];
+        for (int i = 0; i < 8; i++) {
+            if (f->slot[i] != fr)
+                hold(&f->slot[i], fr);
+            f->ref_id[i] = f->frame_id;
+            f->ref_valid[i] = 1;
+        }
+    }
+    f->first_frame = 0;
+}
+
 /* one tile group; *next: the tile it must start at (libaom's
- * next_start_tile), 0 again once the frame's last tile is read */
+ * next_start_tile), 0 again once the frame's last tile is read; with
+ * headers, its tiles are not decoded */
 static void tile_group(Av1 *f, const uint8_t *p, int64_t sz, int frame_obu,
-                       int *next, int *done)
+                       int *next, int *done, int headers)
 {
     Bits b = {f, p, sz, 0};
     int num = f->tile_cols * f->tile_rows, start = 0, end = num - 1;
@@ -763,7 +917,7 @@ static void tile_group(Av1 *f, const uint8_t *p, int64_t sz, int frame_obu,
                  end, num);
     *next = end == num - 1 ? 0 : end + 1;
     int64_t pos = (b.pos + 7) >> 3;
-    for (int t = start; t <= end; t++) {
+    for (int t = start; t <= end && !headers; t++) {
         int64_t size;
         if (t == end) {
             size = sz - pos;
@@ -786,7 +940,9 @@ static void tile_group(Av1 *f, const uint8_t *p, int64_t sz, int frame_obu,
         pos += size;
     }
     if (end == num - 1) {
-        postfilter(f);
+        if (!headers)
+            postfilter(f);
+        frame_done(f, !headers);
         *done = 1;
     }
 }
@@ -840,35 +996,33 @@ static void frame_obu(Av1 *f, Obus *o, int type, const uint8_t *p,
     }
     if (o->in_frame)
         av1_fail(f, ERR_VALUE, "AV1: a frame header inside a frame");
-    int W = f->W, H = f->H, nplanes = f->nplanes;
     frame_header(f, &b, !o->frames);
     if (type == 3)
         trailing_bits(f, &b, "frame header");
     else
         byte_alignment(f, &b);
-    if (f->unread[0])
-        av1_fail(f, ERR_NOTIMPL, "%s", f->unread);
+    o->have_header = 1;
+    if (f->show_existing) {
+        if (type == 6)
+            av1_fail(f, ERR_VALUE, "AV1: show_existing_frame in a frame OBU");
+        show_existing(f);
+        o->frames++;
+        return;
+    }
     o->fh = p;
     o->fh_size = b.pos >> 3;
     o->in_frame = 1;
-    o->have_header = 1;
     o->next_tile = 0;
-    if (headers)
-        return;
-    if (o->frames) {
-        /* libaom decodes it and outputs the last frame: not read here */
-        if (f->W != W || f->H != H || f->nplanes != nplanes)
-            av1_fail(f, ERR_NOTIMPL, "AVIF: more than one AV1 frame in "
-                     "an item");
+    if (!headers) {
         frame_free(f);
+        frame_alloc(f);
+        cdfs_init(&f->cdf0, f->base_q <= 20 ? 0 : f->base_q <= 60 ? 1
+                            : f->base_q <= 120 ? 2 : 3);
     }
-    frame_alloc(f);
-    cdfs_init(&f->cdf0, f->base_q <= 20 ? 0 : f->base_q <= 60 ? 1
-                        : f->base_q <= 120 ? 2 : 3);
     if (type == 6) {
         int done = 0;
         tile_group(f, p + o->fh_size, size - o->fh_size, 1, &o->next_tile,
-                   &done);
+                   &done, headers);
         if (done)
             o->in_frame = 0, o->frames++;
     }
@@ -887,13 +1041,14 @@ static void metadata(Av1 *f, const uint8_t *p, int64_t size)
         av1_fail(f, ERR_VALUE, "AV1: metadata without its trailing bits");
 }
 
-/* every OBU of the data (libaom decodes every frame in it; zero bytes
- * may follow a frame); with headers, only up to the first frame
- * header */
+/* every OBU of the data, as libaom decodes an item: each frame decoded
+ * (with headers, only their headers read), the last frame shown output
+ * (f->shown); zero bytes may follow a frame */
 static void decode_obus(Av1 *f, const uint8_t *data, int64_t n, int headers)
 {
     int64_t pos = 0;
     Obus o = {0};
+    f->first_frame = 1;
     while (pos < n) {
         if (o.frames && !o.in_frame) {
             while (pos < n && !data[pos])
@@ -929,8 +1084,18 @@ static void decode_obus(Av1 *f, const uint8_t *data, int64_t n, int headers)
         Bits b = {f, p, (int64_t)size, 0};
         switch (type) {
         case 1:
+            /* libaom: a sequence header that differs from the last starts
+             * a new sequence (not inside a frame) */
+            if (f->seq_seen && ((int64_t)size != f->seq_size ||
+                                memcmp(p, f->seq, (size_t)size)))
+                f->seq_changed = 1;
             sequence_header(f, &b);
             trailing_bits(f, &b, "sequence header");
+            f->seq = p;
+            f->seq_size = (int64_t)size;
+            if (f->seq_changed && o.in_frame)
+                av1_fail(f, ERR_VALUE, "AV1: a new sequence header inside a "
+                         "frame");
             break;
         case 2:
             if (o.in_frame)
@@ -944,14 +1109,12 @@ static void decode_obus(Av1 *f, const uint8_t *data, int64_t n, int headers)
         case 6:
         case 7:
             frame_obu(f, &o, type, p, (int64_t)size, headers);
-            if (headers && o.have_header)
-                return;
             break;
         case 4: {
             int done = 0;
             if (!o.in_frame)
                 av1_fail(f, ERR_VALUE, "AV1: tiles outside a frame");
-            tile_group(f, p, (int64_t)size, 0, &o.next_tile, &done);
+            tile_group(f, p, (int64_t)size, 0, &o.next_tile, &done, headers);
             if (done)
                 o.in_frame = 0, o.frames++;
             break;
@@ -975,84 +1138,114 @@ static void decode_obus(Av1 *f, const uint8_t *data, int64_t n, int headers)
     }
     if (o.in_frame)
         av1_fail(f, ERR_VALUE, "AV1: the frame's tiles end early");
-    if (!o.have_header || (!headers && !o.frames))
+    if (!o.have_header || !o.frames)
         av1_fail(f, ERR_VALUE, "AV1: no frame in the data");
-    if (o.frames > 1)
-        av1_fail(f, ERR_NOTIMPL, "AVIF: more than one AV1 frame in an "
-                 "item");
+    if (!f->shown)
+        av1_fail(f, ERR_VALUE, "AV1: no frame is shown");
+}
+
+static Av1 *av1_open(char *err, int errlen)
+{
+    Av1 *f = calloc(1, sizeof(Av1));
+    if (f) {
+        f->err = err;
+        f->errlen = errlen;
+    }
+    return f;
+}
+
+static void av1_close(Av1 *f)
+{
+    for (int p = 0; p < 3; p++)
+        free(f->grained[p]);
+    reset_slots(f);
+    release_frame(f->shown);
+    frame_free(f);
+    free(f);
 }
 
 int av1_info(const uint8_t *data, int64_t n, int32_t *info, char *err,
              int errlen)
 {
-    Av1 *f = calloc(1, sizeof(Av1));
+    Av1 *f = av1_open(err, errlen);
     if (!f)
         return ERR_MEMORY;
-    f->err = err;
-    f->errlen = errlen;
     int code = setjmp(f->jb);
     if (code == 0) {
         decode_obus(f, data, n, 1);
-        int32_t v[20] = {f->W, f->H, f->bitdepth, f->mono, f->ssx, f->ssy,
-                         f->mc, f->range, f->cp, f->tc, f->profile,
-                         f->still, f->base_q, f->tx_mode_select,
-                         f->cdef_bits, f->lr_type[0], f->lr_type[1],
-                         f->lr_type[2], f->lr_size[0], f->lr_uv_shift};
-        memcpy(info, v, sizeof(v));
+        memcpy(info, f->shown->info, sizeof(f->shown->info));
     }
-    frame_free(f);
-    free(f);
+    av1_close(f);
     return code;
 }
 
-/* the frame as libaom's decoder outputs it: with its film grain */
+/* the frame output, as libaom's decoder outputs it: with its film
+ * grain */
 static void shown_frame(Av1 *f)
 {
+    struct Frame *fr = f->shown;
+    f->W = fr->info[0];
+    f->H = fr->info[1];
+    f->bitdepth = fr->info[2];
+    f->nplanes = fr->info[3] ? 1 : 3;
+    f->ssx = fr->info[4];
+    f->ssy = fr->info[5];
+    f->mc = fr->info[6];
+    f->stride = fr->stride;
+    f->grain = fr->grain;
+    for (int p = 0; p < 3; p++)
+        f->out[p] = fr->plane[p];
     if (!f->grain.apply)
         return;
+    /* the grain goes onto a copy: a slot may show the frame again */
+    size_t rows = (size_t)((f->H + 7) & ~7) + 64;
+    for (int p = 0; p < f->nplanes; p++) {
+        f->grained[p] = av1_alloc(f, (size_t)f->stride * rows * 2);
+        memcpy(f->grained[p], fr->plane[p], (size_t)f->stride * (size_t)(
+                   p ? (f->H + f->ssy) >> f->ssy : f->H) * 2);
+        f->out[p] = f->grained[p];
+    }
+    uint16_t *keep[3] = {f->plane[0], f->plane[1], f->plane[2]};
+    memcpy(f->plane, f->out, sizeof(f->plane));
     double t0 = clock_ms();
     film_grain(f);
     f->grain_ms = clock_ms() - t0;
+    memcpy(f->plane, keep, sizeof(f->plane));
 }
 
 int av1_decode(const uint8_t *data, int64_t n, uint16_t *out, int planes,
                int64_t H, int64_t W, char *err, int errlen)
 {
-    Av1 *f = calloc(1, sizeof(Av1));
+    Av1 *f = av1_open(err, errlen);
     if (!f)
         return ERR_MEMORY;
-    f->err = err;
-    f->errlen = errlen;
     int code = setjmp(f->jb);
     if (code == 0) {
         decode_obus(f, data, n, 0);
+        shown_frame(f);
         if (f->W != W || f->H != H || f->nplanes != planes)
             av1_fail(f, ERR_VALUE, "AV1: the frame is not %lldx%lld",
                      (long long)W, (long long)H);
-        shown_frame(f);
         uint16_t *dst = out;
         for (int p = 0; p < planes; p++) {
             int64_t w = p ? (W + f->ssx) >> f->ssx : W;
             int64_t h = p ? (H + f->ssy) >> f->ssy : H;
             for (int64_t y = 0; y < h; y++)
-                memcpy(dst + y * w, f->plane[p] + (size_t)y * f->stride,
+                memcpy(dst + y * w, f->out[p] + (size_t)y * f->stride,
                        (size_t)w * 2);
             dst += h * w;
         }
     }
-    frame_free(f);
-    free(f);
+    av1_close(f);
     return code;
 }
 
 int av1_lr_stats(const uint8_t *data, int64_t n, int32_t *counts, double *ms,
                  char *err, int errlen)
 {
-    Av1 *f = calloc(1, sizeof(Av1));
+    Av1 *f = av1_open(err, errlen);
     if (!f)
         return ERR_MEMORY;
-    f->err = err;
-    f->errlen = errlen;
     int code = setjmp(f->jb);
     if (code == 0) {
         decode_obus(f, data, n, 0);
@@ -1062,8 +1255,7 @@ int av1_lr_stats(const uint8_t *data, int64_t n, int32_t *counts, double *ms,
                 counts[3 * p + f->lr_units[p][k].type]++;
         *ms = f->lr_ms;
     }
-    frame_free(f);
-    free(f);
+    av1_close(f);
     return code;
 }
 
@@ -1073,15 +1265,13 @@ int av1_lr_stats(const uint8_t *data, int64_t n, int32_t *counts, double *ms,
 int av1_grain_params(const uint8_t *data, int64_t n, int32_t *v, char *err,
                      int errlen)
 {
-    Av1 *f = calloc(1, sizeof(Av1));
+    Av1 *f = av1_open(err, errlen);
     if (!f)
         return ERR_MEMORY;
-    f->err = err;
-    f->errlen = errlen;
     int code = setjmp(f->jb);
     if (code == 0) {
         decode_obus(f, data, n, 1);
-        const Grain *g = &f->grain;
+        const Grain *g = &f->shown->grain;
         memset(v, 0, 162 * sizeof(int32_t));
         if (g->apply) {
             int k = 0;
@@ -1106,26 +1296,24 @@ int av1_grain_params(const uint8_t *data, int64_t n, int32_t *v, char *err,
                 v[k++] = g->ar_cr[i];
             int rest[13] = {g->ar_shift, g->cb_mult, g->cb_luma_mult,
                             g->cb_offset, g->cr_mult, g->cr_luma_mult,
-                            g->cr_offset, g->overlap, g->clip, f->bitdepth,
-                            g->from_luma, g->grain_scale_shift, g->seed};
+                            g->cr_offset, g->overlap, g->clip,
+                            f->shown->info[2], g->from_luma,
+                            g->grain_scale_shift, g->seed};
             memcpy(v + k, rest, sizeof(rest));
         }
     }
-    frame_free(f);
-    free(f);
+    av1_close(f);
     return code;
 }
 
 /* the frame decoded and its grain added: ms[0] the milliseconds of the
- * whole, ms[1] of the grain */
-int av1_grain_ms(const uint8_t *data, int64_t n, double *ms, char *err,
-                 int errlen)
+ * whole, ms[1] of the grain, ms[2] of the superres upscaling */
+int av1_decode_ms(const uint8_t *data, int64_t n, double *ms, char *err,
+                  int errlen)
 {
-    Av1 *f = calloc(1, sizeof(Av1));
+    Av1 *f = av1_open(err, errlen);
     if (!f)
         return ERR_MEMORY;
-    f->err = err;
-    f->errlen = errlen;
     double t0 = clock_ms();
     int code = setjmp(f->jb);
     if (code == 0) {
@@ -1133,8 +1321,8 @@ int av1_grain_ms(const uint8_t *data, int64_t n, double *ms, char *err,
         shown_frame(f);
         ms[0] = clock_ms() - t0;
         ms[1] = f->grain_ms;
+        ms[2] = f->superres_ms;
     }
-    frame_free(f);
-    free(f);
+    av1_close(f);
     return code;
 }

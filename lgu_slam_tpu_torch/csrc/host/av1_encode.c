@@ -2,12 +2,12 @@
  * (data/avif.py encode_av1 / encode_avif) on machines without an AVIF
  * encoder.
  *
- * It writes a sequence header (reduced still picture header, 64 x 64 or
- * 128 x 128 superblocks, filter intra and the intra edge filter on, no
- * superres; profile 0 for gray and 4:2:0, 1 for 4:4:4 colour, 2 at 12
- * bits and for 4:2:2; the colour description given) and one frame OBU
- * with one tile.  The tile goes through the same
- * block syntax as the decoder (av1_core.h) with the symbol coder writing.
+ * It writes a sequence header (reduced still picture header, or a full
+ * one, 64 x 64 or 128 x 128 superblocks, filter intra and the intra edge
+ * filter on; profile 0 for gray and 4:2:0, 1 for 4:4:4 colour, 2 at 12
+ * bits and for 4:2:2; the colour description given) and one frame OBU.
+ * Its tiles go through the same block syntax as the decoder (av1_core.h)
+ * with the symbol coder writing.
  *
  * Lossless frames (base_q_idx 0): each superblock is split down to 32 x
  * 32, then a partition and intra modes are picked for each node from a
@@ -19,7 +19,7 @@
  * default), 4:2:0 or 4:2:2 (no partition a 4:2:2 chroma block cannot
  * follow).
  *
- * Lossy frames: 4:2:0 or 4:2:2 colour (or gray), blocks of one size
+ * Lossy frames: 4:4:4, 4:2:0 or 4:2:2 colour (or gray), blocks of one size
  * (8, 16 or 32; smaller at the frame's edges) with TX_MODE_LARGEST, so
  * one DCT_DCT transform per block and plane; y modes and filter intra
  * from the hash, uv modes DC, D45 or CfL (whose chroma transform is
@@ -36,6 +36,22 @@
  * grain given (any of libaom's test vectors, or one changed: lags 0-3,
  * chroma scaling from luma, overlap, the clip), which a decoder adds to
  * the shown frame (the reconstruction returned is without it).
+ *
+ * Segmentation: each segment's features as given (alt q, the four loop
+ * filter levels, skip), each block's segment from the hash up to the
+ * last segment with a feature; a lossless segment takes the 4 x 4 WHT.
+ * Superres: the frame coded at 8 / SuperresDenom of its width (at least
+ * 16 samples), its columns sampled from the source's, upscaled by the
+ * shared filters; uniform tile columns.  Full headers (not the reduced
+ * still picture header): a key or intra-only frame, shown or not,
+ * showable, its refresh_frame_flags, a size below the sequence's largest
+ * (frame_size_override), screen content tools on; items of several
+ * frames are these frames' OBUs in a row (data/avif.py frames_av1).
+ * Intra block copy (screen content tools on, no in-loop filter): two
+ * blocks in three copy from the first valid of eight vectors up and left
+ * (odd ones give half chroma samples); a lossy frame then selects
+ * transform sizes (tx_depth 0, no split of the variable partition) and
+ * writes DCT_DCT of the inter sets.
  *
  * Entry points (ctypes):
  *   av1_encode(planes, nplanes, H, W, depth, seed, opts, lr, grain, out,
@@ -104,6 +120,16 @@ enum {
     OPT_SB128,        /* 128 x 128 superblocks */
     OPT_LR,           /* FrameRestorationType of Y, U and V */
     OPT_LR_UNIT_SHIFT = OPT_LR + 3, OPT_LR_UV_SHIFT,
+    OPT_SEG,          /* segmentation_enabled */
+    OPT_SEG_FEATURES, /* 8 segments x 8 features x (enabled, value) */
+    OPT_FULL = OPT_SEG_FEATURES + 128, /* full headers (not reduced) */
+    OPT_MAX_W, OPT_MAX_H, /* the sequence's largest frame; 0: this one */
+    OPT_FRAME_TYPE,   /* 0 key, 2 intra-only (full headers) */
+    OPT_SHOW_FRAME, OPT_SHOWABLE, OPT_REFRESH, /* (full headers) */
+    OPT_SUPERRES,     /* SuperresDenom 9-16, 0 none */
+    OPT_TILE_COLS_LOG2, /* 0: one tile column */
+    OPT_SCT,          /* allow_screen_content_tools (full headers) */
+    OPT_INTRABC,      /* allow_intrabc (screen content tools on) */
     OPT_COUNT
 };
 
@@ -136,6 +162,13 @@ static const LrUnit *enc_lr_unit(Av1 *f, int plane, int row, int col)
     u->xqd[0] = e[8];
     u->xqd[1] = e[9];
     return u;
+}
+
+/* a block's segment: from the hash, up to LastActiveSegId */
+static int enc_segment(Av1 *f)
+{
+    return (int)(hash(f->enc_seed, (uint32_t)f->mi_row, (uint32_t)f->mi_col,
+                      91u) % (uint32_t)(f->seg_last + 1));
 }
 
 static int enc_cdef(Av1 *f, int r, int c)
@@ -183,7 +216,7 @@ static Choice *enc_choice(Av1 *f)
         ch->filter_intra = 1;
         ch->filter_mode = (int)((h >> 13) % 5);
     }
-    int cfl_ok = f->lossless ? plane_bsize(f->mi_sz, f->ssx, f->ssy) ==
+    int cfl_ok = f->blk_lossless ? plane_bsize(f->mi_sz, f->ssx, f->ssy) ==
                  BLOCK_4X4 : bw <= 32 && bh <= 32;
     ch->uvmode = (int)(h2 % (13u + (uint32_t)cfl_ok));
     if (!f->lossless) { /* modes whose chroma transform is DCT_DCT */
@@ -196,6 +229,21 @@ static Choice *enc_choice(Av1 *f)
     int au = 1 + (int)((h2 >> 16) % 16), av = 1 + (int)((h2 >> 20) % 16);
     ch->cfl_u = su ? (su == 1 ? -au : au) : 0;
     ch->cfl_v = sv ? (sv == 1 ? -av : av) : 0;
+    /* intra block copy in two blocks of three, from the first valid of
+     * vectors (in samples) at least 2 superblock rows up or 4 columns
+     * left, as libaom's delay wants; odd ones give half chroma samples */
+    static const int16_t dvs[8][2] = {{-128, 0}, {-128, -5}, {-131, 3},
+                                      {-192, 7}, {0, -256}, {-3, -261},
+                                      {-64, -320}, {-197, -1}};
+    for (int k = 0; f->allow_intrabc && h2 % 3 && k < 8; k++) {
+        int j = (k + (int)(h2 >> 24)) & 7;
+        if (dv_valid(f, dvs[j][0] * 8, dvs[j][1] * 8)) {
+            ch->intrabc = 1;
+            ch->dv_row = dvs[j][0] * 8;
+            ch->dv_col = dvs[j][1] * 8;
+            break;
+        }
+    }
     return ch;
 }
 
@@ -216,8 +264,12 @@ static void fwht_1d(int32_t *t)
 static int32_t source(Av1 *f, int plane, int x, int y)
 {
     int w = plane ? (f->W + f->ssx) >> f->ssx : f->W;
+    int uw = plane ? (f->up_w + f->ssx) >> f->ssx : f->up_w;
     int h = plane ? (f->H + f->ssy) >> f->ssy : f->H;
-    return f->src[plane][(size_t)(y < h ? y : h - 1) * w + (x < w ? x : w - 1)];
+    x = x < w ? x : w - 1;
+    /* under superres the coded frame samples the source's columns */
+    x = (int)((int64_t)x * uw / w);
+    return f->src[plane][(size_t)(y < h ? y : h - 1) * uw + x];
 }
 
 static void forward_wht(Av1 *f, int plane, int x, int y)
@@ -245,7 +297,7 @@ static void forward_wht(Av1 *f, int plane, int x, int y)
  * quantised to the dequantisers of DCT_DCT */
 static void forward_tx(Av1 *f, int plane, int x, int y, int t)
 {
-    if (f->lossless) {
+    if (f->blk_lossless) {
         forward_wht(f, plane, x, y);
         return;
     }
@@ -393,7 +445,24 @@ int av1_encode(const uint16_t *planes, int nplanes, int64_t H, int64_t W,
         const int32_t *o = opts ? opts : none;
         static const int32_t no_units[3] = {0, 0, 0};
         int sub = o[OPT_SUBSAMPLED], bq = o[OPT_BASE_Q];
-        int ncdef = bq ? o[OPT_CDEF_COUNT] : 0;
+        static const int seg_max[8] = {255, 63, 63, 63, 63, 7, 0, 0};
+        if (bq < 0 || bq > 255)
+            av1_fail(f, ERR_VALUE, "writer: base_q_idx 0-255");
+        f->base_q = bq;
+        f->seg_enabled = o[OPT_SEG] != 0;
+        for (int i = 0; f->seg_enabled && i < 64; i++) {
+            int on = o[OPT_SEG_FEATURES + 2 * i];
+            int v = o[OPT_SEG_FEATURES + 2 * i + 1], j = i & 7;
+            if (on && (v < (j < 5 ? -seg_max[j] : 0) || v > seg_max[j] ||
+                       j == SEG_LVL_REF_FRAME || j == 7))
+                av1_fail(f, ERR_VALUE, "writer: segment feature %d of %d",
+                         j, v);
+            f->seg_mask[i >> 3] |= (on != 0) << j;
+            f->seg_data[i >> 3][j] = on ? v : 0;
+        }
+        seg_setup(f, 0);
+        int lossy = !f->lossless;
+        int ncdef = lossy ? o[OPT_CDEF_COUNT] : 0;
         if (W < 1 || H < 1 || W > 4096 || ((W + 63) / 64) * ((H + 63) / 64)
             > 2304 || (nplanes != 1 && nplanes != 3) ||
             (depth != 8 && depth != 10 && depth != 12) || sub < 0 ||
@@ -401,14 +470,14 @@ int av1_encode(const uint16_t *planes, int nplanes, int64_t H, int64_t W,
             av1_fail(f, ERR_VALUE, "writer: 1 or 3 planes of at most 4096 "
                      "samples a row and 2304 superblocks, 8, 10 or 12 "
                      "bits, 4:4:4, 4:2:0 or 4:2:2");
-        if (bq < 0 || bq > 255 || o[OPT_QM] < 0 || o[OPT_QM] > 15 ||
-            (bq && nplanes == 3 && !sub) || (bq && (o[OPT_BLOCK_LOG2] < 3 ||
+        if (o[OPT_QM] < 0 || o[OPT_QM] > 15 ||
+            (lossy && (o[OPT_BLOCK_LOG2] < 3 ||
             o[OPT_BLOCK_LOG2] > 5)) || o[OPT_CDEF_DAMPING] < 0 ||
             o[OPT_CDEF_DAMPING] > 6 || (ncdef && o[OPT_CDEF_DAMPING] < 3) ||
             (ncdef != 0 && ncdef != 1 && ncdef != 2 && ncdef != 4 &&
              ncdef != 8) || o[OPT_SHARPNESS] < 0 || o[OPT_SHARPNESS] > 7)
             av1_fail(f, ERR_VALUE, "writer: options out of range (lossy "
-                     "colour is 4:2:0; blocks of 8, 16 or 32)");
+                     "blocks of 8, 16 or 32)");
         for (int i = 0; i < 4; i++)
             if (o[OPT_LF0 + i] < 0 || o[OPT_LF0 + i] > 63)
                 av1_fail(f, ERR_VALUE, "writer: a loop filter level past 63");
@@ -430,12 +499,38 @@ int av1_encode(const uint16_t *planes, int nplanes, int64_t H, int64_t W,
             OPT_FULL_RANGE])))
             av1_fail(f, ERR_VALUE, "writer: a colour description AV1 does "
                      "not allow (identity is 4:4:4)");
+        /* superres: the coded width (av1_decode.c's frame header) */
+        int denom = o[OPT_SUPERRES], coded = (int)W, full = o[OPT_FULL];
+        if (denom && (denom < 9 || denom > 16))
+            av1_fail(f, ERR_VALUE, "writer: SuperresDenom 9-16");
+        if (denom) {
+            coded = ((int)W * 8 + denom / 2) / denom;
+            coded = coded < (W < 16 ? W : 16) ? (int)(W < 16 ? W : 16)
+                                              : coded;
+        }
+        int all_lossless = f->lossless && coded == W;
+        int max_w = o[OPT_MAX_W] ? o[OPT_MAX_W] : (int)W;
+        int max_h = o[OPT_MAX_H] ? o[OPT_MAX_H] : (int)H;
+        int ftype = full ? o[OPT_FRAME_TYPE] : 0;
+        int show = full ? o[OPT_SHOW_FRAME] : 1, intrabc = o[OPT_INTRABC];
+        int sct = (full && o[OPT_SCT]) || intrabc;
+        int refresh = ftype == 0 && show ? 0xFF : o[OPT_REFRESH];
+        if (max_w < W || max_h < H || max_w > 65536 || max_h > 65536 ||
+            (!full && (max_w != W || max_h != H)) || (ftype != 0 &&
+            ftype != 2) || refresh < 0 || refresh > 255 ||
+            (ftype == 2 && refresh == 0xFF) || (intrabc && (coded != W ||
+            ncdef || o[OPT_LR] || o[OPT_LR + 1] || o[OPT_LR + 2] ||
+            o[OPT_LF0] || o[OPT_LF0 + 1])))
+            av1_fail(f, ERR_VALUE, "writer: a frame inside the sequence's "
+                     "largest, a key or intra-only frame (full headers), "
+                     "refresh_frame_flags of 8 bits (not all intra-only), "
+                     "intra block copy without superres or in-loop filters");
         int lr_used = 0, lr_chroma = 0;
         for (int p = 0; p < 3; p++) {
             int t = o[OPT_LR + p];
-            if (t < 0 || t > 3 || (t && (!bq || p >= nplanes)))
+            if (t < 0 || t > 3 || (t && (all_lossless || p >= nplanes)))
                 av1_fail(f, ERR_VALUE, "writer: restoration types are 0-3, "
-                         "in a lossy frame's planes");
+                         "in a frame that is not all lossless");
             lr_used |= t != 0;
             lr_chroma |= p && t;
             f->lr_type[p] = t;
@@ -452,20 +547,42 @@ int av1_encode(const uint16_t *planes, int nplanes, int64_t H, int64_t W,
                          "its units");
         f->enc_lr = lr ? lr : no_units;
         Put w = {out, cap, 0, f};
-        /* the sequence header */
+        /* the sequence header: reduced, or with one operating point, no
+         * timing, frame ids or order hints; screen content tools off, or
+         * on (integer vectors) with sct */
         Put s = {hdr, 512, 0, f};
         put(&s, (uint32_t)profile, 3);
-        put(&s, 1, 1); /* still_picture */
-        put(&s, 1, 1); /* reduced_still_picture_header */
+        put(&s, !full, 1); /* still_picture */
+        put(&s, !full, 1); /* reduced_still_picture_header */
+        if (full) {
+            put(&s, 0, 1); /* timing_info_present_flag */
+            put(&s, 0, 1); /* initial_display_delay_present_flag */
+            put(&s, 0, 5); /* operating_points_cnt_minus_1 */
+            put(&s, 0, 12); /* operating_point_idc[0] */
+        }
         put(&s, 31, 5); /* seq_level_idx: no level */
+        if (full)
+            put(&s, 0, 1); /* seq_tier */
         put(&s, 15, 4);
         put(&s, 15, 4);
-        put(&s, (uint32_t)(W - 1), 16);
-        put(&s, (uint32_t)(H - 1), 16);
+        put(&s, (uint32_t)(max_w - 1), 16);
+        put(&s, (uint32_t)(max_h - 1), 16);
+        if (full)
+            put(&s, 0, 1); /* frame_id_numbers_present_flag */
         put(&s, (uint32_t)use128, 1); /* use_128x128_superblock */
         put(&s, 1, 1); /* enable_filter_intra */
         put(&s, 1, 1); /* enable_intra_edge_filter */
-        put(&s, 0, 1); /* enable_superres */
+        if (full) {
+            put(&s, 0, 4); /* inter tools */
+            put(&s, 0, 1); /* enable_order_hint */
+            put(&s, 0, 1); /* seq_choose_screen_content_tools */
+            put(&s, (uint32_t)sct, 1); /* seq_force_screen_content_tools */
+            if (sct) {
+                put(&s, 0, 1); /* seq_choose_integer_mv */
+                put(&s, 1, 1); /* seq_force_integer_mv */
+            }
+        }
+        put(&s, denom != 0, 1); /* enable_superres */
         put(&s, ncdef > 0, 1); /* enable_cdef */
         put(&s, (uint32_t)lr_used, 1); /* enable_restoration */
         put(&s, depth > 8, 1);
@@ -494,15 +611,22 @@ int av1_encode(const uint16_t *planes, int nplanes, int64_t H, int64_t W,
         trailing(&s);
         obu(&w, 1, hdr, s.pos >> 3);
         /* the frame */
-        f->W = (int)W;
+        f->W = coded;
+        f->up_w = (int)W;
+        f->superres_denom = denom ? denom : 8;
         f->H = (int)H;
-        f->MiCols = 2 * (((int)W + 7) >> 3);
+        f->MiCols = 2 * ((coded + 7) >> 3);
         f->MiRows = 2 * (((int)H + 7) >> 3);
         f->nplanes = nplanes;
         f->bitdepth = depth;
         f->ssx = mono || sub;
         f->ssy = mono || sub == 1;
         f->use128 = use128;
+        f->sct = sct;
+        f->allow_intrabc = intrabc != 0;
+        /* intra block copy's variable transform partition is read where
+         * the frame selects transform sizes */
+        f->tx_mode_select = intrabc && lossy;
         if (lr_used) {
             f->lr_unit_shift = o[OPT_LR_UNIT_SHIFT];
             f->lr_uv_shift = o[OPT_LR_UV_SHIFT];
@@ -510,15 +634,29 @@ int av1_encode(const uint16_t *planes, int nplanes, int64_t H, int64_t W,
             f->lr_size[1] = f->lr_size[2] = f->lr_size[0] >> f->lr_uv_shift;
         }
         f->filter_intra_en = f->edge_filter_en = 1;
-        f->tile_cols = f->tile_rows = 1;
-        f->col_starts[1] = f->MiCols;
+        /* uniform tile columns (av1_decode.c's tile_info), one tile row */
+        int sb_shift = use128 ? 5 : 4;
+        int sbc = (f->MiCols + (1 << sb_shift) - 1) >> sb_shift;
+        int sbr = (f->MiRows + (1 << sb_shift) - 1) >> sb_shift;
+        int maxc = 0, maxr = 0, cols_log2 = o[OPT_TILE_COLS_LOG2];
+        while ((1 << maxc) < (sbc < 64 ? sbc : 64))
+            maxc++;
+        while ((1 << maxr) < (sbr < 64 ? sbr : 64))
+            maxr++;
+        if (cols_log2 < 0 || cols_log2 > maxc || sbc > 4096 >> (sb_shift + 2))
+            av1_fail(f, ERR_VALUE, "writer: tile_cols_log2 %d of at most %d "
+                     "(and one tile row)", cols_log2, maxc);
+        int tw = (sbc + (1 << cols_log2) - 1) >> cols_log2, ntiles = 0;
+        for (int c = 0; c < sbc; c += tw)
+            f->col_starts[ntiles++] = c << sb_shift;
+        f->col_starts[ntiles] = f->MiCols;
+        f->tile_cols = ntiles;
+        f->tile_rows = 1;
         f->row_starts[1] = f->MiRows;
-        f->base_q = bq;
-        f->lossless = bq == 0;
         f->enc_block_log2 = o[OPT_BLOCK_LOG2];
         f->qm_level[0] = f->qm_level[1] = f->qm_level[2] =
-            bq ? o[OPT_QM] : 15;
-        if (bq) {
+            lossy ? o[OPT_QM] : 15;
+        if (lossy) {
             for (int i = 0; i < 4; i++)
                 f->lf_level[i] = o[OPT_LF0 + i];
             if (mono || (!f->lf_level[0] && !f->lf_level[1]))
@@ -540,48 +678,95 @@ int av1_encode(const uint16_t *planes, int nplanes, int64_t H, int64_t W,
             f->src[p] = planes + (p ? hw + (p - 1) * cw : 0);
         frame_alloc(f);
         cdfs_init(&f->cdf0, bq <= 20 ? 0 : bq <= 60 ? 1 : bq <= 120 ? 2 : 3);
-        int64_t tcap = 8 * nplanes * H * W + 1024;
+        /* each tile's symbols, then its bytes after the last one's */
+        int64_t tcap = 8 * nplanes * H * W + 1024, tn = 0;
         pre = malloc((size_t)tcap * 2);
         tile = malloc((size_t)tcap);
         if (!pre || !tile)
             av1_fail(f, ERR_MEMORY, "out of memory");
-        ec_enc_init(&f->ec, pre, tcap);
         f->enc_seed = (uint32_t)seed;
-        code_tile(f, 0, 0, encode_superblock);
-        int64_t tn = ec_enc_done(&f->ec, tile, tcap);
-        if (tn < 0)
-            av1_fail(f, ERR_MEMORY, "writer: tile buffer full");
+        for (int t = 0; t < ntiles; t++) {
+            int64_t at = tn + (t < ntiles - 1 ? 4 : 0);
+            ec_enc_init(&f->ec, pre, tcap);
+            code_tile(f, 0, t, encode_superblock);
+            int64_t k = ec_enc_done(&f->ec, tile + at, tcap - at);
+            if (k < 0)
+                av1_fail(f, ERR_MEMORY, "writer: tile buffer full");
+            for (int i = 0; i < 4 && t < ntiles - 1; i++)
+                tile[tn + i] = (uint8_t)((k - 1) >> (8 * i));
+            tn = at + k;
+        }
         postfilter(f);
         Put h = {hdr, 512, 0, f};
+        if (full) {
+            put(&h, 0, 1); /* show_existing_frame */
+            put(&h, (uint32_t)ftype, 2);
+            put(&h, (uint32_t)show, 1);
+            if (!show)
+                put(&h, o[OPT_SHOWABLE] != 0, 1); /* showable_frame */
+            if (!(ftype == 0 && show))
+                put(&h, 0, 1); /* error_resilient_mode */
+        }
         put(&h, 0, 1); /* disable_cdf_update */
-        put(&h, 0, 1); /* allow_screen_content_tools */
+        if (full) {
+            put(&h, max_w != W || max_h != H, 1); /* frame_size_override */
+            if (!(ftype == 0 && show))
+                put(&h, (uint32_t)refresh, 8); /* refresh_frame_flags */
+            if (max_w != W || max_h != H) {
+                put(&h, (uint32_t)(W - 1), 16);
+                put(&h, (uint32_t)(H - 1), 16);
+            }
+        } else {
+            put(&h, (uint32_t)sct, 1); /* allow_screen_content_tools */
+            if (sct)
+                put(&h, 1, 1); /* force_integer_mv */
+        }
+        if (denom) {
+            put(&h, 1, 1); /* use_superres */
+            put(&h, (uint32_t)(denom - 9), 3);
+        }
         put(&h, 0, 1); /* render_and_frame_size_different */
+        if (sct && coded == W)
+            put(&h, (uint32_t)f->allow_intrabc, 1); /* allow_intrabc */
+        if (full)
+            put(&h, 1, 1); /* disable_frame_end_update_cdf */
         put(&h, 1, 1); /* uniform_tile_spacing_flag */
-        int sbc = use128 ? (f->MiCols + 31) >> 5 : (f->MiCols + 15) >> 4;
-        int sbr = use128 ? (f->MiRows + 31) >> 5 : (f->MiRows + 15) >> 4;
-        int maxc = 0, maxr = 0;
-        while ((1 << maxc) < (sbc < 64 ? sbc : 64))
-            maxc++;
-        while ((1 << maxr) < (sbr < 64 ? sbr : 64))
-            maxr++;
-        if (maxc > 0)
-            put(&h, 0, 1); /* increment_tile_cols_log2 */
+        for (int i = 0; i < cols_log2; i++)
+            put(&h, 1, 1); /* increment_tile_cols_log2 */
+        if (cols_log2 < maxc)
+            put(&h, 0, 1);
         if (maxr > 0)
             put(&h, 0, 1); /* increment_tile_rows_log2 */
+        if (cols_log2) {
+            put(&h, 0, (int)cols_log2); /* context_update_tile_id */
+            put(&h, 3, 2); /* tile_size_bytes_minus_1 */
+        }
         put(&h, (uint32_t)bq, 8); /* base_q_idx */
         put(&h, 0, 1); /* DeltaQYDc */
         if (!mono) {
             put(&h, 0, 1); /* DeltaQUDc */
             put(&h, 0, 1); /* DeltaQUAc */
         }
-        put(&h, bq && o[OPT_QM] < 15, 1); /* using_qmatrix */
-        if (bq && o[OPT_QM] < 15) {
+        put(&h, lossy && o[OPT_QM] < 15, 1); /* using_qmatrix */
+        if (lossy && o[OPT_QM] < 15) {
             put(&h, (uint32_t)o[OPT_QM], 4); /* qm_y */
             put(&h, (uint32_t)o[OPT_QM], 4); /* qm_u */
         }
-        put(&h, 0, 1); /* segmentation_enabled */
-        if (bq) {
+        put(&h, (uint32_t)f->seg_enabled, 1); /* segmentation_enabled */
+        for (int i = 0; f->seg_enabled && i < 8; i++)
+            for (int j = 0; j < 8; j++) {
+                static const int bits[8] = {8, 6, 6, 6, 6, 3, 0, 0};
+                int on = f->seg_mask[i] >> j & 1, v = f->seg_data[i][j];
+                put(&h, (uint32_t)on, 1);
+                if (on && j < 5)
+                    put(&h, (uint32_t)v & ((2u << bits[j]) - 1),
+                        1 + bits[j]);
+                else if (on)
+                    put(&h, (uint32_t)v, bits[j]);
+            }
+        if (bq)
             put(&h, 0, 1); /* delta_q_present */
+        if (lossy && !intrabc) {
             put(&h, (uint32_t)f->lf_level[0], 6);
             put(&h, (uint32_t)f->lf_level[1], 6);
             if (!mono && (f->lf_level[0] || f->lf_level[1])) {
@@ -600,27 +785,33 @@ int av1_encode(const uint16_t *planes, int nplanes, int64_t H, int64_t W,
                                            : f->cdef_sec[p][i]), 2);
                     }
             }
-            if (lr_used) { /* lr_params: lr_type of Remap_Lr_Type */
-                static const int coded[4] = {0, 2, 3, 1};
-                for (int p = 0; p < nplanes; p++)
-                    put(&h, (uint32_t)coded[f->lr_type[p]], 2);
-                if (use128) {
-                    put(&h, (uint32_t)(f->lr_unit_shift - 1), 1);
-                } else {
-                    put(&h, f->lr_unit_shift > 0, 1);
-                    if (f->lr_unit_shift)
-                        put(&h, f->lr_unit_shift > 1, 1);
-                }
-                if (sub == 1 && lr_chroma)
-                    put(&h, (uint32_t)f->lr_uv_shift, 1);
-            }
-            put(&h, 0, 1); /* tx_mode_select */
         }
+        if (lr_used && !intrabc) { /* lr_params: lr_type of Remap_Lr_Type */
+            static const int coded_type[4] = {0, 2, 3, 1};
+            for (int p = 0; p < nplanes; p++)
+                put(&h, (uint32_t)coded_type[f->lr_type[p]], 2);
+            if (use128) {
+                put(&h, (uint32_t)(f->lr_unit_shift - 1), 1);
+            } else {
+                put(&h, f->lr_unit_shift > 0, 1);
+                if (f->lr_unit_shift)
+                    put(&h, f->lr_unit_shift > 1, 1);
+            }
+            if (sub == 1 && lr_chroma)
+                put(&h, (uint32_t)f->lr_uv_shift, 1);
+        }
+        if (lossy)
+            put(&h, (uint32_t)f->tx_mode_select, 1); /* tx_mode_select */
         put(&h, 0, 1); /* reduced_tx_set */
-        if (grain)
+        if (grain && (show || o[OPT_SHOWABLE]))
             put_grain(&h, grain, mono, sub == 1);
+        else if (grain)
+            av1_fail(f, ERR_VALUE, "writer: film grain on a frame that is "
+                     "neither shown nor showable");
         while (h.pos & 7)
             put(&h, 0, 1);
+        if (ntiles > 1) /* the tile group: tile_start_and_end_present_flag */
+            put(&h, 0, 8);
         int64_t hn = h.pos >> 3;
         uint8_t *frame = malloc((size_t)(hn + tn));
         if (!frame)

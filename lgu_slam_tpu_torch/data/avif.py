@@ -21,12 +21,14 @@ alpha item (``auxl`` with an alpha ``auxC``, an item or a grid); in a
 sequence, the first sample of the colour track and of its ``auxl`` alpha
 track (``moov``'s ``trak`` / ``tkhd`` / ``mdia`` / ``minf`` / ``stbl``
 sample tables).  Their OBUs are decoded in C (``csrc/host/av1_decode.c``:
-AV1 intra, lossless or lossy, 8 to 12 bits, monochrome, 4:4:4, 4:2:2 or
-4:2:0, deblocking, CDEF and loop restoration, then the frame's film grain
-(``av1_grain.h``), the OBUs checked as libaom checks them; the alpha is
-decoded and dropped, as OpenCV drops it), and a frame of another size than
-its item's (or track's) is scaled to it with libyuv's ScalePlane
-(:mod:`yuv_scale`), as libavif scales it.
+AV1 key and intra-only frames, lossless or lossy, 8 to 12 bits,
+monochrome, 4:4:4, 4:2:2 or 4:2:0, intra block copy, segmentation,
+deblocking, CDEF, superres and loop restoration, then the frame's film
+grain (``av1_grain.h``); of an item of several frames the last one shown,
+``show_existing_frame`` included, as libaom outputs it; the OBUs checked as
+libaom checks them; the alpha is decoded and dropped, as OpenCV drops it),
+and a frame of another size than its item's (or track's) is scaled to it
+with libyuv's ScalePlane (:mod:`yuv_scale`), as libavif scales it.
 
 What OpenCV's reader then returns, which :func:`decode_avif` repeats:
 
@@ -62,16 +64,19 @@ item, matrix coefficients libavif's YUV to RGB refuses, subsampled
 colour labelled identity, item data stored in an order OpenCV's reader
 refuses (:func:`_stored_before`), a grid's tiles that do not fit its
 output, ...); what OpenCV reads and this module does not yet read raises
-``NotImplementedError`` naming it: more than one frame in an item, a
-frame of more samples than its image and than ``SCALED_PIXELS`` (the
-guard against a damaged header), and the AV1 tools the decoder lists
-(superres, segmentation, intra block copy in a lossy frame).
+``NotImplementedError`` naming it: an AV1 inter frame (no encoder here
+writes one), a frame of more samples than its image and than
+``SCALED_PIXELS`` (the guard against a damaged header), and an 8-bit
+frame under a deeper ``av1C`` in an ``IMREAD_ANYDEPTH`` colour read
+(OpenCV reads uninitialised memory there).
 
 :func:`encode_avif` writes still images (lossless colour under the
 identity matrix at 4:4:4 or subsampled at 4:2:0 or 4:2:2, gray at 4:0:0,
-and lossy 4:2:0, 4:2:2 or gray with deblocking, CDEF and loop
+and lossy 4:4:4, 4:2:0, 4:2:2 or gray with deblocking, CDEF and loop
 restoration; any matrix, primaries and range; 8, 10 or 12 bits; film
-grain; ``csrc/host/av1_encode.c``), for the tests and for the card
+grain, segmentation, superres, tile columns; key and intra-only frames
+of full headers, which :func:`frames_av1` strings into items of several
+frames; ``csrc/host/av1_encode.c``), for the tests and for the card
 machine, which has no AVIF writer (``scripts/make_avif_fixtures_torch.py``
 builds grids and image sequences of its frames).
 """
@@ -836,11 +841,11 @@ def _lib():
                                  ctypes.c_char_p, cint]
     lib.av1_grain_params.argtypes = [ctypes.c_char_p, i64, ptr,
                                      ctypes.c_char_p, cint]
-    lib.av1_grain_ms.argtypes = [ctypes.c_char_p, i64, ptr, ctypes.c_char_p,
-                                 cint]
+    lib.av1_decode_ms.argtypes = [ctypes.c_char_p, i64, ptr,
+                                  ctypes.c_char_p, cint]
     lib.av1_info.restype = lib.av1_decode.restype = cint
     lib.av1_lr_stats.restype = lib.av1_grain_params.restype = cint
-    lib.av1_grain_ms.restype = cint
+    lib.av1_decode_ms.restype = cint
     return lib
 
 
@@ -906,12 +911,26 @@ def grain_params(obus: bytes) -> np.ndarray:
     return v
 
 
+def _decode_ms(obus: bytes) -> np.ndarray:
+    """ms of the decode of AV1 data, of its film grain and of its superres
+    upscaling, decoded in C."""
+    ms = np.zeros(3, np.float64)
+    _call(_lib().av1_decode_ms, obus, len(obus), ms.ctypes.data)
+    return ms
+
+
 def grain_ms(obus: bytes) -> tuple:
     """(ms of the decode, ms of adding its film grain) of an AV1 frame,
     decoded in C."""
-    ms = np.zeros(2, np.float64)
-    _call(_lib().av1_grain_ms, obus, len(obus), ms.ctypes.data)
+    ms = _decode_ms(obus)
     return float(ms[0]), float(ms[1])
+
+
+def superres_ms(obus: bytes) -> tuple:
+    """(ms of the decode, ms of its superres upscaling: 0 where the frame
+    is coded at its width) of AV1 data, decoded in C."""
+    ms = _decode_ms(obus)
+    return float(ms[0]), float(ms[2])
 
 
 def _decode(data: bytes, box: dict, item: dict, size, alpha=False
@@ -1405,8 +1424,16 @@ def grain_vector(grain) -> np.ndarray:
 # av1_encode.c's options: 11, then 8 CDEF strengths of 4, the colour
 # description (primaries, transfer, matrix, full range), 128 x 128
 # superblocks, the three planes' restoration types, lr_unit_shift and
-# lr_uv_shift
-OPT_COUNT = 53
+# lr_uv_shift, segmentation_enabled and each segment's 8 features
+# (enabled, value), then full headers, the sequence's largest frame (W, H),
+# frame_type, show_frame, showable_frame, refresh_frame_flags,
+# SuperresDenom, tile_cols_log2, allow_screen_content_tools and
+# allow_intrabc
+OPT_COUNT = 193
+# the segment features the writer sets (SEG_LVL_*): alt q, the four loop
+# filter levels' deltas, skip
+SEG_FEATURES = {"alt_q": 0, "lf_y_v": 1, "lf_y_h": 2, "lf_u": 3, "lf_v": 4,
+                "skip": 6}
 LR_TYPES = {"none": 0, "wiener": 1, "sgrproj": 2, "switchable": 3}
 
 
@@ -1430,7 +1457,8 @@ def _lr_units(lr) -> np.ndarray:
     return np.array([len(p) for p in units] + rows, np.int32)
 
 
-def _options(subsampled, lossy, colour=None, sb128=False) -> np.ndarray:
+def _options(subsampled, lossy, colour=None, sb128=False, frame=None,
+             superres=0, tile_cols_log2=0, intrabc=False) -> np.ndarray:
     """av1_encode.c's opts[] of the writer's keywords (``lossy``: dict of
     ``base_q``, ``qm`` (15: none), ``block`` (8, 16 or 32), ``lf`` (the
     four loop filter levels), ``sharpness``, ``cdef_damping`` (3-6),
@@ -1439,8 +1467,19 @@ def _options(subsampled, lossy, colour=None, sb128=False) -> np.ndarray:
     Y, U and V: "none", "wiener", "sgrproj" or "switchable"),
     ``unit_shift`` (units of 256 >> (2 - shift) luma samples),
     ``uv_shift`` (4:2:0 chroma units halved) and ``units``
-    (:func:`_lr_units`)); ``colour``: (primaries, transfer, matrix, full
-    range) of the sequence header."""
+    (:func:`_lr_units`)) and ``segments``: a list of at most 8 dicts of
+    :data:`SEG_FEATURES` and their values (``skip``: True), each block
+    taking one of the segments up to the last with a feature;
+    ``colour``: (primaries, transfer, matrix, full range) of the sequence
+    header; ``frame`` (full sequence and frame headers, not the reduced
+    still picture header): dict of ``type`` ("key" or "intra"), ``show``,
+    ``showable``, ``refresh`` (refresh_frame_flags), ``max_size`` (the
+    sequence's largest frame, (W, H): frame_size_override), ``sct``
+    (screen content tools on); ``superres``: SuperresDenom (9-16);
+    ``tile_cols_log2``: uniform tile columns; ``intrabc``: intra block
+    copy allowed (screen content tools on, no in-loop filter or superres),
+    two blocks in three copied from up or left where libaom's delay
+    allows."""
     o = np.zeros(OPT_COUNT, np.int32)
     o[0] = _chroma(subsampled)
     o[2] = 15
@@ -1462,6 +1501,22 @@ def _options(subsampled, lossy, colour=None, sb128=False) -> np.ndarray:
         o[10] = len(cdef)
         for k, strengths in enumerate(cdef[:8]):
             o[11 + 4 * k:15 + 4 * k] = strengths
+        segments = lossy.get("segments")
+        if segments:
+            o[53] = 1
+            for i, seg in enumerate(segments[:8]):
+                for name, v in seg.items():
+                    k = 54 + 2 * (8 * i + SEG_FEATURES[name])
+                    o[k], o[k + 1] = 1, 0 if name == "skip" else int(v)
+    if frame is not None:
+        o[182] = 1
+        o[183:185] = frame.get("max_size", (0, 0))
+        o[185] = {"key": 0, "intra": 2}[frame.get("type", "key")]
+        o[186] = int(frame.get("show", True))
+        o[187] = int(frame.get("showable", False))
+        o[188] = frame.get("refresh", 0xFF)
+        o[191] = int(frame.get("sct", False))
+    o[189], o[190], o[192] = superres, tile_cols_log2, int(intrabc)
     return o
 
 
@@ -1477,7 +1532,9 @@ def default_colour(planes: int, subsampled) -> tuple:
 def encode_av1(planes, depth: int = 8, seed: int = 0,
                subsampled=False, lossy: dict = None,
                recon: bool = False, colour: tuple = None,
-               sb128: bool = False, grain=None):
+               sb128: bool = False, grain=None, frame: dict = None,
+               superres: int = 0, tile_cols_log2: int = 0,
+               intrabc: bool = False):
     """AV1 OBUs (a sequence header and one frame, the reduced still picture
     header) of ``uint16`` planes: ``[1 or 3, H, W]`` (Y or Y, U, V at 4:4:4)
     or, with ``subsampled`` (``True`` or "4:2:0", or "4:2:2"), a list Y
@@ -1488,10 +1545,14 @@ def encode_av1(planes, depth: int = 8, seed: int = 0,
     superblocks (``sb128``: 128 x 128), a partition and an intra mode for
     each block picked from ``seed`` and the image (DC, directional with
     angle deltas, smooth, Paeth, CfL, filter intra), 4 x 4
-    Walsh-Hadamard residuals.  ``lossy`` (:func:`_options`; gray, 4:2:0
+    Walsh-Hadamard residuals.  ``lossy`` (:func:`_options`; gray, 4:4:4, 4:2:0
     or 4:2:2): blocks of one size, one DCT_DCT each, deblocking, CDEF and
     loop restoration as given.  ``grain`` (:func:`grain_vector`): the
-    frame's film grain, which a decoder adds to it.  With ``recon``:
+    frame's film grain, which a decoder adds to it.  ``frame``,
+    ``superres`` (the frame coded at 8 / ``superres`` of its width, its
+    columns sampled from the planes', and upscaled by the decoder),
+    ``tile_cols_log2`` and ``intrabc``: :func:`_options`.  With
+    ``recon``:
     (OBUs, the writer's reconstruction (without grain), planes as
     given)."""
     if isinstance(planes, np.ndarray) and planes.ndim == 3:
@@ -1503,10 +1564,9 @@ def encode_av1(planes, depth: int = 8, seed: int = 0,
     chroma = ((H + 1) // 2 if sub == 1 else H, (W + 1) // 2 if sub else W)
     if n not in (1, 3) or depth not in (8, 10, 12) or any(
             p.max(initial=0) >= 1 << depth for p in planes) or any(
-            p.shape != chroma for p in planes[1:]) or (
-            lossy and n == 3 and not sub):
+            p.shape != chroma for p in planes[1:]):
         raise ValueError("encode_av1: 1 or 3 planes of 8-, 10- or 12-bit "
-                         "samples (lossy colour at 4:2:0 or 4:2:2)")
+                         "samples")
     flat = np.concatenate([p.ravel() for p in planes])
     cap = 64 * flat.size * 2 + 4096
     out = np.empty(cap, np.uint8)
@@ -1514,7 +1574,7 @@ def encode_av1(planes, depth: int = 8, seed: int = 0,
     rec = np.empty_like(flat) if recon else None
     # alive through the call
     opts = _options(subsampled, lossy, colour or default_colour(
-        n, subsampled), sb128)
+        n, subsampled), sb128, frame, superres, tile_cols_log2, intrabc)
     lr = _lr_units(lossy.get("lr") if lossy else None)
     fg = None if grain is None else grain_vector(grain)
     _call(_encoder().av1_encode, flat.ctypes.data, n, H, W, depth, seed,
@@ -1529,6 +1589,46 @@ def encode_av1(planes, depth: int = 8, seed: int = 0,
         parts.append(rec[pos:pos + p.size].reshape(p.shape))
         pos += p.size
     return data, parts
+
+
+def split_obus(data: bytes) -> list:
+    """[(OBU type, the OBU's bytes)] of AV1 OBUs that carry their
+    sizes."""
+    out, pos = [], 0
+    while pos < len(data):
+        p, v, i = pos + 1 + (data[pos] >> 2 & 1), 0, 0
+        while True:
+            b = data[p]
+            p += 1
+            v |= (b & 0x7F) << (7 * i)
+            i += 1
+            if not b & 0x80:
+                break
+        out.append((data[pos] >> 3 & 15, data[pos:p + v]))
+        pos = p + v
+    return out
+
+
+def show_existing_obu(slot: int) -> bytes:
+    """A frame header OBU of show_existing_frame showing reference slot
+    ``slot`` (of a sequence the writer's full headers start: no frame ids,
+    no decoder model)."""
+    return bytes([3 << 3 | 2, 1, 0x80 | slot << 4 | 0x08])
+
+
+def frames_av1(frames) -> bytes:
+    """One item's AV1 data of several frames: each of ``frames`` a dict of
+    :func:`encode_av1`'s arguments (``planes`` and the rest; ``frame`` for
+    full headers, the same sequence for all) or an int, show_existing_frame
+    of that slot; the first frame's sequence header alone is kept."""
+    out = []
+    for k, fr in enumerate(frames):
+        if isinstance(fr, int):
+            out.append(show_existing_obu(fr))
+            continue
+        out += [o for t, o in split_obus(encode_av1(**fr))
+                if t != 1 or not k]
+    return b"".join(out)
 
 
 # (kr, kb) of the matrices the writer converts with other than BT.601,
@@ -1579,16 +1679,20 @@ def encode_avif(img: np.ndarray, depth: int = 8, seed: int = 0,
                 essential: bool = False, subsampling: str = None,
                 lossy: dict = None, recon: bool = False,
                 colour: tuple = None, sb128: bool = False, planes=None,
-                grain=None, alpha_grain=None):
+                grain=None, alpha_grain=None, av1: bytes = None,
+                **frame_kw):
     """An AVIF still image of ``img``: ``[H, W, 3]`` BGR or ``[H, W]`` gray
     (4:0:0), ``uint8`` at depth 8, else ``uint16`` samples below ``1 <<
     depth`` (10 or 12).  Colour is lossless 4:4:4 under the identity matrix
     (Y = G, U = B, V = R), or with ``subsampling`` ("4:2:0", or "4:2:2")
-    or ``lossy`` (:func:`encode_av1`; 4:2:0 unless "4:2:2" is asked)
+    or ``lossy`` (:func:`encode_av1`; 4:2:0 unless "4:2:2" or "4:4:4" is asked)
     subsampled (:func:`yuv_planes`) under ``colour`` (primaries, transfer,
     matrix, full range: the sequence header's and the colr box's; BT.601
     full range by default); ``planes`` (Y, U, V) are then written as
-    given instead of ``img``'s.  ``grain`` / ``alpha_grain``
+    given instead of ``img``'s; ``frame_kw``: :func:`encode_av1`'s
+    ``frame``, ``superres``, ``tile_cols_log2``, ``intrabc``; ``av1`` (e.g.
+    :func:`frames_av1`'s): the colour item's AV1 data as given, ``img``
+    only naming its size and format.  ``grain`` / ``alpha_grain``
     (:func:`grain_vector`): the film grain of the image's / the alpha's
     frame.  ``alpha`` ([H, W], the same depth) adds a
     lossless alpha item; ``extra_props`` (boxes, e.g. ``irot``) are
@@ -1600,14 +1704,16 @@ def encode_avif(img: np.ndarray, depth: int = 8, seed: int = 0,
     img = np.asarray(img)
     H, W = img.shape[:2]
     mono = img.ndim == 2
-    sub = 0 if mono else _chroma(subsampling) or int(bool(lossy))
+    sub = 0 if mono else int(bool(lossy)) if subsampling is None else \
+        _chroma(subsampling)
     colour = tuple(colour or default_colour(1 if mono else 3, sub))
     if planes is None:
         planes = [img] if mono else yuv_planes(
             img, depth, sub, colour[2], colour[3]) if sub else \
             [img[..., 1], img[..., 0], img[..., 2]]
-    color = encode_av1(planes, depth, seed, sub, lossy, recon, colour,
-                       sb128, grain)
+    color = av1 if av1 is not None else encode_av1(
+        planes, depth, seed, sub, lossy, recon, colour, sb128, grain,
+        **frame_kw)
     if recon:
         color, rec = color
     items = [(1, color)]

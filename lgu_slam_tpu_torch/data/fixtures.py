@@ -114,11 +114,18 @@ FRAME_EXT = {"png": "png", "ppm": "ppm", "pgm": "pgm", "tiff": "tiff",
              "lossy-avif": "avif", "lossy-avif-png": "png",
              "lr-avif": "avif", "lr-avif-png": "png",
              "grain-avif": "avif", "grain-avif-png": "png",
-             "12bit-grain-avif": "avif", "12bit-grain-avif-png": "png"}
+             "12bit-grain-avif": "avif", "12bit-grain-avif-png": "png",
+             "tools-avif": "avif", "tools-avif-png": "png",
+             "12bit-frames-avif": "avif", "12bit-frames-avif-png": "png"}
 # the writer's lossy AVIF frames (avif.encode_avif's ``lossy``): 4:2:0
 # under BT.601, 16 x 16 blocks, deblocking and two CDEF strengths
 LOSSY_AVIF = dict(base_q=60, qm=8, block=16, lf=(8, 8, 4, 4), sharpness=0,
                   cdef_damping=4, cdef=[(2, 1, 1, 0), (4, 2, 2, 1)])
+# the same with segmentation (a segment of its own quantiser, a lossless
+# one, one of other loop filter levels), for frames coded at 8 / 12 of
+# their width (superres) in two tile columns where wide enough
+TOOLS_AVIF = dict(LOSSY_AVIF, segments=[
+    dict(alt_q=20), dict(alt_q=-60), dict(lf_y_v=6, lf_u=-4)])
 # the same with loop restoration: Wiener units of 256 x 256 on luma (their
 # taps in turn), self-guided units on chroma (two sets, one of radius 2
 # and 1, one of radius 1 alone)
@@ -216,7 +223,13 @@ def write_frame(path, image, kind: str) -> str:
     ``grain-avif-png`` the same with film grain (:data:`GRAIN_AVIF`);
     depth as ``12bit-grain-avif`` (``12bit-avif`` with film grain,
     :data:`GRAIN_DEPTH`) or ``12bit-grain-avif-png``, the 16-bit PNG of
-    what that AVIF reads back as."""
+    what that AVIF reads back as; colour as ``tools-avif`` (segmentation
+    and superres with loop restoration, :data:`TOOLS_AVIF`) or
+    ``tools-avif-png``, the PNG of what it reads back as; depth as
+    ``12bit-frames-avif`` (an item of three frames: a hidden key frame of
+    the 12 bits, a shown intra-only frame of their complement, then
+    show_existing_frame of the first) or ``12bit-frames-avif-png``, the
+    16-bit PNG of those 12 bits."""
     path = f"{path}.{FRAME_EXT[kind]}" if kind in FRAME_EXT else path
     if kind == "png":
         data = encode_png(image)
@@ -268,6 +281,20 @@ def write_frame(path, image, kind: str) -> str:
         top = np.minimum(image >> 4, 4095).astype(np.uint16)
         data = avif.encode_avif(top, 12) if kind == "12bit-avif" else \
             encode_png(top)
+    elif kind in ("tools-avif", "tools-avif-png"):
+        W = image.shape[1]
+        data = avif.encode_avif(image, lossy=dict(TOOLS_AVIF, lr=LR_AVIF[
+            "lr"]), superres=12, tile_cols_log2=int((W * 8 + 6) // 12 > 128))
+        if kind.endswith("-png"):
+            data = encode_png(avif.decode_avif(data))
+    elif kind in ("12bit-frames-avif", "12bit-frames-avif-png"):
+        top = np.minimum(image >> 4, 4095).astype(np.uint16)
+        hidden = dict(type="key", show=False, showable=True, refresh=1)
+        data = avif.encode_avif(top, 12, av1=avif.frames_av1([
+            dict(planes=[top], depth=12, frame=hidden),
+            dict(planes=[4095 - top], depth=12, seed=1,
+                 frame=dict(type="intra", refresh=2)), 0])) if kind == \
+            "12bit-frames-avif" else encode_png(top)
     elif kind in ("12bit-grain-avif", "12bit-grain-avif-png"):
         top = np.minimum(image >> 4, 4095).astype(np.uint16)
         data = avif.encode_avif(top, 12, grain=GRAIN_DEPTH)

@@ -69,6 +69,7 @@ CDFS = [
     ("av1_default_eob_multi512_cdfs", "eob_pt512_cdf", (4, 2, 2, 11)),
     ("av1_default_eob_multi1024_cdfs", "eob_pt1024_cdf", (4, 2, 2, 12)),
     ("default_intra_ext_tx_cdf", "intra_ext_tx_cdf", (3, 4, 13, 17)),
+    ("default_inter_ext_tx_cdf", "inter_ext_tx_cdf", (4, 4, 17)),
 ]
 # the number of symbols of each CDF row where it is not the last axis less
 # one: the partition CDFs of 8 x 8 blocks have 4, of 128 x 128 blocks 8;
@@ -99,6 +100,8 @@ PLAIN = [
     ("av1_x_by_xplus1", "x_by_xplus1", "<i4", "int", (256,)),
     ("iwt_matrix_ref", "qm_iwt", "u1", "uint8_t", (15, 2, 3344)),
     ("gaussian_sequence", "gaussian_sequence", "<i4", "int16_t", (2048,)),
+    ("av1_resize_filter_normative", "resize_filter", "<i2", "int16_t",
+     (64, 8)),
 ]
 # libaom's aom_film_grain_t (aom_dsp/grain_params.h), int fields in this
 # order (a name with a count: an array of that many ints), then the
@@ -231,6 +234,16 @@ SPEC_CDFS.update({
     "switchable_restore_cdf": [[9413, 22581]],
     "wiener_restore_cdf": [[11570]],
     "sgrproj_restore_cdf": [[16855]],
+    # txfm_split of the 21 contexts of txfm_partition_context
+    "txfm_partition_cdf": [[v] for v in (
+        28581, 23846, 20847, 24315, 18196, 12133, 18791, 10887, 11005,
+        27179, 20004, 11281, 26549, 19308, 14224, 28015, 21546, 14400,
+        28165, 22401, 16088)],
+    # segment_id of an intra frame, by the spatial prediction's context
+    "spatial_pred_seg_cdf": [
+        [5622, 7893, 16093, 18233, 27809, 28373, 32533],
+        [14274, 18230, 22557, 24935, 29980, 30851, 32344],
+        [27527, 28487, 28723, 28890, 32397, 32647, 32679]],
 })
 SPEC_SHAPES = {"palette_y_mode_cdf": (7, 3), "cfl_sign_cdf": (),
                "filter_intra_mode_cdf": (), "intrabc_cdf": (),
@@ -480,6 +493,11 @@ def render() -> dict:
  * (r[2], s[2]), one_by_x and x_by_xplus1 its reciprocals; the wiener_taps_*
  * and sgrproj_xqd_* ranges are the specification's.  sm_weights holds the
  * weights of sizes 4, 8, 16, 32 and 64 (size n from offset n - 4).
+ * inter_ext_tx_cdf holds the inter transform sets' CDFs (intra block
+ * copy) [set][square size], txfm_partition_cdf txfm_split's,
+ * spatial_pred_seg_cdf an intra frame's segment_id by context;
+ * resize_filter is superres's 8-tap normative upscaling filter (64
+ * phases).
  * gaussian_sequence is film grain's (2048 values, 12 bits);
  * film_grain_test_vectors libaom's 16 grains of its encoder's
  * film-grain-test option, each aom_film_grain_t's ints in its order

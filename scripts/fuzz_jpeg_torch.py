@@ -790,6 +790,50 @@ def av1_seeds(rng) -> list:
     out.append(avif.encode_av1([wide[..., 1]], 8, 7, False, dict(
         lossy[1], lr=dict(types=("wiener", "none", "none"),
                           units=[units[0][:1] + [("none",)]]))))
+    out += tools_seeds(img, wide)
+    return out
+
+
+def tools_seeds(img, wide) -> list:
+    """Slice 23's writer seeds: segmented frames (alt q with a lossless
+    segment, alt loop filter levels, skip: SegIdPreSkip 0 and 1; 4:2:0,
+    4:4:4, 12-bit gray), superres frames (with restoration, two tile
+    columns, a frame 14 samples wide) and items of several frames (a
+    hidden key frame, an intra-only frame of another size, show_existing
+    of each; a second sequence header).  The committed files add cv2's
+    and Pillow's lossy and lossless intra block copy."""
+    from lgu_slam_tpu_torch.data import avif
+
+    out = []
+    segs = [dict(base_q=80, lf=(8, 8, 4, 4), segments=[
+                dict(alt_q=-80), dict(lf_y_v=9, lf_v=-3), dict(alt_q=40)]),
+            dict(base_q=60, lf=(6, 6, 3, 3), cdef=[(4, 1, 2, 1)],
+                 segments=[dict(skip=True), dict(alt_q=-20, lf_y_h=5)])]
+    planes = avif.yuv_planes(wide, 8, "4:2:0")
+    for k, seg in enumerate(segs):
+        out.append(avif.encode_av1(planes, 8, k, "4:2:0", seg))
+    out.append(avif.encode_av1(list(np.moveaxis(img, -1, 0)), 8, 2, 0,
+                               segs[0]))
+    out.append(avif.encode_av1([wide[..., 1] << 4], 12, 3, False, segs[1]))
+    big = np.concatenate([wide, wide[:, ::-1]], 1)
+    lr = dict(types=("switchable", "sgrproj", "wiener"), units=[
+        [("wiener", (3, -7, 15), (-5, 8, 46)), ("sgrproj", 10, (0, 95))],
+        [("sgrproj", 3, (31, -32))], [("wiener", (0, 4, 2), (0, -1, 9))]])
+    out.append(avif.encode_av1(avif.yuv_planes(big, 8, "4:2:0"), 8, 4,
+                               "4:2:0", dict(segs[0], lr=lr), superres=11,
+                               tile_cols_log2=1))
+    out.append(avif.encode_av1(avif.yuv_planes(wide[:, :14], 8, "4:2:0"),
+                               8, 5, "4:2:0", dict(base_q=70, lr=lr),
+                               superres=16))
+    hidden = dict(type="key", show=False, showable=True, refresh=1,
+                  max_size=(98, 70))
+    small = list(np.moveaxis(img, -1, 0))
+    out.append(avif.frames_av1([
+        dict(planes=list(np.moveaxis(wide, -1, 0)), frame=hidden),
+        dict(planes=small, seed=1, frame=dict(
+            type="intra", refresh=2, max_size=(98, 70))), 0, 1]))
+    out.append(avif.encode_av1(small, 8, 6) + avif.encode_av1(
+        [img[..., 1] << 2], 10, 7))
     return out
 
 

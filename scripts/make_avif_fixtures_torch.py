@@ -65,12 +65,35 @@ files of ``chip_smoke.py`` phase 22):
   80, ``port_scaled_up_g12.avif``: a 12-bit gray 48 x 64 frame under 100
   x 80 (libavif scales both with libyuv);
 
+intra block copy, segmentation, superres and items of several frames,
+read bit for bit (the files of ``chip_smoke.py`` phase 23):
+
+- ``pillow_screen_c420_s2.avif``, ``pillow_screen_c422_s2.avif``:
+  Pillow's lossless screen content (speed 2) of a 192 x 256 text page at
+  4:2:0 and 4:2:2, whose intra block copy predicts chroma at half
+  samples (C7); ``pillow_screen_c444_q90.avif``: its lossy 4:4:4;
+- ``cv2_page_q95_s2.avif``, ``cv2_page_c_q80_s2.avif``,
+  ``cv2_page_c10_q95_s2.avif``: ``cv2.imwrite``'s lossy intra block copy
+  of that page, gray at 95, colour at 80 and 10-bit colour at 95;
+  ``port_intrabc_c422_12.avif``: the writer's lossy 12-bit 4:2:2 intra
+  block copy;
+- ``port_seg_lossless.avif``, ``port_seg_skip_g12.avif``: the writer's
+  segmentation (a lossless segment and loop filter levels; skip in
+  12-bit gray);
+- ``port_superres_lr_tiles.avif``, ``port_superres_narrow.avif``: its
+  superres with restoration in two tile columns, and of a frame 14
+  samples wide (coded at its width);
+- ``port_frames_existing.avif`` (a hidden key frame, an intra-only frame,
+  show_existing_frame of the first), ``port_frames_sizes.avif`` (a key
+  frame and a smaller intra-only frame shown last), and
+  ``port_two_frames.avif`` (two AV1 frames in the item; OpenCV shows the
+  second);
+
 refused as ``cv2.imread`` refuses them (None: null hashes):
 ``port_damaged.avif`` (three bytes of the tile data flipped),
-``port_cut.avif`` (cut inside its tile); and read by OpenCV but queued for
-a later reader (``NotImplementedError`` naming the feature, the ``queued``
-key): ``port_two_frames.avif`` (two AV1 frames in the item; OpenCV shows
-the second).
+``port_cut.avif`` (cut inside its tile).  A file read by OpenCV but
+queued for a later reader would carry a ``queued`` key (the feature
+``NotImplementedError`` names); none is left.
 
 Beside them ``hashes.json``: the SHA-256 of ``cv2.imread``'s array in both
 read modes (colour, ``IMREAD_ANYDEPTH``), its shape and dtype, which
@@ -248,6 +271,7 @@ def files() -> dict:
     out["pillow_avis.avif"] = (pillow_file(img[..., ::-1].copy(), frames=[
         255 - img[..., ::-1]], quality=100, subsampling="4:4:4"), None)
     out.update(files_22(img, top))
+    out.update(files_23(img))
     return out
 
 
@@ -510,8 +534,127 @@ def files_22(img: np.ndarray, top: np.ndarray) -> dict:
         frame, 8, 7, lossy=dict(base_q=40)), 128, 96, (80, 60)), None)
     out["port_scaled_up_g12.avif"] = (with_ispe(avif.encode_avif(
         top, 12, 8), 64, 48, (100, 80)), None)
-    out["port_two_frames.avif"] = (two_frames(img[:24, :32]),
-                                   "more than one AV1 frame")
+    out["port_two_frames.avif"] = (two_frames(img[:24, :32]), None)
+    return out
+
+
+def text_page(H: int, W: int, seed: int) -> np.ndarray:
+    """Gray lines of words of a few kinds at two sizes, jittered: libaom
+    copies most of its blocks with intra block copy and codes a residual,
+    splitting their transforms and using the inter transform types."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    img = np.full((H, W), 235, np.uint8)
+    words = ["LGU", "SLAM", "TPU", "AV1", "copy"]
+    for y in range(16, H, 18):
+        x = int(rng.integers(0, 6))
+        while x < W - 50:
+            word = words[int(rng.integers(0, len(words)))]
+            cv2.putText(img, word, (x, y), cv2.FONT_HERSHEY_SIMPLEX,
+                        0.45 + 0.05 * int(rng.integers(0, 2)),
+                        int(rng.integers(0, 60)), 1)
+            x += 44 + int(rng.integers(0, 12))
+    return img
+
+
+def two_colour(gray: np.ndarray) -> np.ndarray:
+    """A gray text image as BGR dark blue ink on a light ground."""
+    a = (235 - gray.astype(np.float64)) / 235.0
+    ink, ground = np.array([160, 40, 20]), np.array([230, 240, 235])
+    return np.clip(np.rint(ground * (1 - a[..., None]) + ink * a[..., None]),
+                   0, 255).astype(np.uint8)
+
+
+def av1_frame(planes, depth: int = 8, seed: int = 0, sequence=False,
+              **kw) -> bytes:
+    """The writer's frame OBU (``avif.encode_av1``'s keywords; ``frame``
+    for full headers), with its sequence header OBU first where
+    ``sequence``."""
+    return b"".join(o for t, o in avif.split_obus(avif.encode_av1(
+        planes, depth, seed, **kw)) if sequence or t != 1)
+
+
+def av1_item(data: bytes, W: int, H: int, depth: int = 8,
+             mono: bool = False, sub: int = 0) -> bytes:
+    """An AVIF file of one colour item of AV1 data ``data`` under an ispe
+    of W x H."""
+    return heif([dict(id=1, type=b"av01", data=data, props=[
+        (avif._full(b"ispe", 0, 0, struct.pack(">II", W, H)), False),
+        (avif._av1c(depth, mono, sub), True)])])
+
+
+def gbr(img: np.ndarray) -> np.ndarray:
+    """The writer's identity planes (G, B, R) of BGR."""
+    return np.stack([img[..., 1], img[..., 0], img[..., 2]])
+
+
+def frames_items(img: np.ndarray, img2: np.ndarray) -> dict:
+    """Items of several intra frames (full headers): a hidden key frame, a
+    shown intra-only frame and show_existing_frame of the key frame; a key
+    frame and a smaller intra-only frame (frame_size_override) shown
+    last."""
+    key = dict(type="key", show=False, showable=True, refresh=1)
+    a = av1_frame(gbr(img), sequence=True, frame=key)
+    b = av1_frame(gbr(img2), 8, 1, frame=dict(type="intra", refresh=2))
+    H, W = img.shape[:2]
+    big = np.concatenate([img, img2], 1)
+    c = av1_frame(gbr(big), sequence=True, frame=dict(
+        type="key", max_size=(2 * W, H)))
+    d = av1_frame(gbr(img2), 8, 2, frame=dict(type="intra", refresh=2,
+                                                max_size=(2 * W, H)))
+    return {"port_frames_existing.avif": (av1_item(
+                a + b + avif.show_existing_obu(0), W, H), None),
+            "port_frames_sizes.avif": (av1_item(c + d, 2 * W, H), None)}
+
+
+def files_23(img: np.ndarray) -> dict:
+    """Slice 23's files: lossless intra block copy at 4:2:0 and 4:2:2
+    (Pillow's screen content, speed 2), lossy intra block copy (cv2's
+    text pages, gray and colour, 8 and 10 bits; Pillow's 4:4:4 screen
+    content; the writer's 12-bit 4:2:2), segmentation, superres and items
+    of several frames (the writer's)."""
+    page = text_page(192, 256, 1)
+    colour = two_colour(page)
+    rgb = colour[..., ::-1].copy()
+    out = {}
+    for sub in ("4:2:0", "4:2:2"):
+        out[f"pillow_screen_c{sub.replace(':', '')}_s2.avif"] = (pillow_file(
+            rgb, quality=100, speed=2, subsampling=sub,
+            advanced=[("tune-content", "screen")]), None)
+    out["cv2_page_q95_s2.avif"] = (cv2_file(page, quality=95, speed=2), None)
+    out["cv2_page_c_q80_s2.avif"] = (cv2_file(colour, quality=80, speed=2),
+                                     None)
+    out["cv2_page_c10_q95_s2.avif"] = (cv2_file(
+        colour.astype(np.uint16) * 4 + 1, quality=95, speed=2, depth=10),
+        None)
+    out["pillow_screen_c444_q90.avif"] = (pillow_file(
+        rgb, quality=90, subsampling="4:4:4",
+        advanced=[("tune-content", "screen")]), None)
+    wide = two_colour(text_page(192, 384, 3)).astype(np.uint16) << 4
+    out["port_intrabc_c422_12.avif"] = (avif.encode_avif(
+        wide, 12, 5, lossy=dict(base_q=90, block=16), subsampling="4:2:2",
+        intrabc=True), None)
+    frame = scene(np.random.default_rng(24), 96, 200)
+    out["port_seg_lossless.avif"] = (avif.encode_avif(
+        frame, 8, 9, lossy=dict(base_q=80, lf=(10, 12, 6, 5), segments=[
+            dict(lf_y_v=-8), dict(alt_q=-80), dict(alt_q=40, lf_u=9)])),
+        None)
+    out["port_seg_skip_g12.avif"] = (avif.encode_avif(
+        frame[..., 1].astype(np.uint16) << 4, 12, 10, lossy=dict(
+            base_q=70, lf=(10, 10, 0, 0), segments=[
+                dict(alt_q=-30), dict(skip=True), dict(lf_y_h=20)])), None)
+    lr = dict(types=("switchable", "sgrproj", "wiener"), units=[
+        [("wiener", (1, -3, 8), (2, -5, 10)), ("sgrproj", 5, (-10, 30))],
+        [("sgrproj", 3, (-20, 40))], [("wiener", (0, -2, 5), (0, 3, -7))]])
+    out["port_superres_lr_tiles.avif"] = (avif.encode_avif(
+        frame, 8, 11, lossy=dict(base_q=90, lf=(8, 8, 4, 4),
+                                 cdef=[(4, 1, 2, 1), (8, 2, 0, 4)], lr=lr),
+        superres=12, tile_cols_log2=1), None)
+    out["port_superres_narrow.avif"] = (avif.encode_avif(
+        frame[:, :14].copy(), 8, 12, lossy=dict(base_q=70, lr=lr),
+        superres=14), None)
+    out.update(frames_items(img, 255 - img))
     return out
 
 

@@ -56,14 +56,16 @@ def test_committed_fixtures_decode_to_cv2_hashes():
     640 at speed 2, qualities 30 and 60, 48 x 64 at speed 0), Pillow's
     4:4:4 under BT.601, 4:2:2 and limited-range 4:2:0, the writer's 4:2:0
     under BT.709, film grain (Pillow's and the writer's), grids, Pillow's
-    avis sequence, frames scaled to their ispe: the port's arrays hash as
+    avis sequence, frames scaled to their ispe, slice 23's (Pillow's
+    lossless and lossy screen content with intra block copy, cv2's lossy
+    text pages, the writer's segmentation, superres and items of several
+    frames, two AV1 frames in one item): the port's arrays hash as
     cv2.imread's do in both read modes (the hashes written beside them,
-    which chip_smoke.py phases 19 to 22 check on machines without OpenCV),
-    or both refuse (null: ValueError); the queued file (two AV1 frames in
-    one item) is read by cv2 and raises NotImplementedError naming its
-    feature."""
+    which chip_smoke.py phases 19 to 23 check on machines without OpenCV),
+    or both refuse (null: ValueError); a queued file (none now) is read by
+    cv2 and raises NotImplementedError naming its feature."""
     hashes = json.load(open(os.path.join(DATA, "hashes.json")))
-    assert len(hashes) == 48
+    assert len(hashes) == 61
     for name, want in hashes.items():
         path = os.path.join(DATA, name)
         for mode, flag in (("color", cv2.IMREAD_COLOR),
@@ -204,10 +206,8 @@ def test_cut_and_damaged_files(tmp_path):
 # image and than avif.SCALED_PIXELS (the guard against a damaged header)
 # and the 8-bit frame under a deeper av1C, where OpenCV reads
 # uninitialised memory
-QUEUED = ("lossy AV1 intra block", "AV1 segmentation",
-          "AV1 superres", "AV1 show_existing_frame",
-          "an AV1 inter frame", "more than one AV1 frame",
-          "a frame larger than its", "an 8-bit frame under a deeper")
+QUEUED = ("an AV1 inter frame", "a frame larger than its",
+          "an 8-bit frame under a deeper")
 
 
 def _damage_base(kind):
@@ -359,8 +359,8 @@ def test_queued_files_raise_not_implemented(tmp_path):
     film grain (Pillow, libaom's grain test vectors), an avis sequence
     (Pillow, two frames: the first), a 1 x 2 grid of the writer's 64 x 64
     images (MIAF's least tile size, no colr), equal to the image it was
-    cut from.  What stays queued: an item of two AV1 frames (cv2 shows
-    the second), NotImplementedError naming the feature.  Files of
+    cut from, and an item of two AV1 frames (cv2 shows the second).
+    Files of
     features read before: a cv2.imwrite frame at speed 0 that uses loop
     restoration, 4:2:2 (Pillow), colour under BT.709 (the writer's file,
     its colr changed), limited-range colour and gray (Pillow; OpenCV
@@ -396,10 +396,7 @@ def test_queued_files_raise_not_implemented(tmp_path):
     same_as_cv2(tmp_path / "grid.avif")
     (tmp_path / "two.avif").write_bytes(two_frames(img))
     assert cv2.imread(str(tmp_path / "two.avif")) is not None
-    for anydepth in (False, True):
-        with pytest.raises(NotImplementedError,
-                           match="more than one AV1 frame"):
-            image_io.imread(str(tmp_path / "two.avif"), anydepth=anydepth)
+    same_as_cv2(tmp_path / "two.avif")
 
 
 def test_alpha_items(tmp_path):

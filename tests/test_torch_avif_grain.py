@@ -238,12 +238,11 @@ def _frame_header(data: bytes) -> tuple:
 
 # file: (rng seed, {(feature, cv2 reads): reads}) as measured with OpenCV
 # 5.0.0 (libavif 1.4.2, libaom 3.14.1)
-GRAIN_DAMAGE = {"port_grain_c10.avif": (1, {("AV1 segmentation", False): 2}),
+GRAIN_DAMAGE = {"port_grain_c10.avif": (1, {}),
                 "port_grain_g12.avif": (1, {}),
                 "pillow_grain_v1_420.avif": (1, {}),
                 "pillow_grain_v10_444.avif": (1, {}),
-                "pillow_grain_v16_400.avif": (1, {("AV1 segmentation",
-                                                   False): 2})}
+                "pillow_grain_v16_400.avif": (1, {})}
 
 
 @pytest.mark.parametrize("name", sorted(GRAIN_DAMAGE))

@@ -13,7 +13,6 @@ picks its decoder by the file's signature, and what the port does not
 read raises."""
 
 import os
-import shutil
 import struct
 import zlib
 
@@ -26,7 +25,7 @@ from torch_port import (  # noqa: F401
     torch_single_thread,
 )
 
-from lgu_slam_tpu_torch.data import image_io
+from lgu_slam_tpu_torch.data import avif, image_io
 from lgu_slam_tpu_torch.ops import _build
 
 
@@ -125,10 +124,12 @@ def _patch_ihdr(png: bytes, offset: int, value: int) -> bytes:
     return png[:16] + bytes(body) + crc + png[33:]
 
 
-def test_what_the_port_does_not_read_raises(tmp_path):
+def test_what_the_port_does_not_read_raises(tmp_path, monkeypatch):
     """The format this OpenCV build reads that the port does not read
-    yet (an AVIF item of two AV1 frames, read back by cv2.imread; image
-    sequences, film grain, grids and scaled frames read;
+    (an AVIF frame larger than its ispe, which cv2.imread reads scaled
+    down and the port does not decode past ``avif.SCALED_PIXELS``, lowered
+    here; items of two AV1 frames, image sequences, film grain, grids
+    and scaled frames read;
     cv2.imwrite's default AVIF reads since lossy AV1 does, and its files at
     speed 0, whose frames use loop restoration, since restoration does):
     NotImplementedError naming the format, whatever the file's extension;
@@ -159,10 +160,14 @@ def test_what_the_port_does_not_read_raises(tmp_path):
                                          cv2.IMWRITE_AVIF_SPEED, 0])
     assert np.array_equal(image_io.imread(restored), cv2.imread(restored))
     formats = {".avif": "AVIF"}
+    ispe = b"ispe" + bytes(4) + struct.pack(">II", 64, 48)
+    larger = avif.encode_avif(scene).replace(
+        ispe, b"ispe" + bytes(4) + struct.pack(">II", 32, 24))
+    monkeypatch.setattr(avif, "SCALED_PIXELS", 1000)
     for ext, name in formats.items():
         other = str(tmp_path / f"a{ext}")
-        shutil.copy(os.path.join(os.path.dirname(__file__), "data", "avif",
-                                 "port_two_frames.avif"), other)
+        with open(other, "wb") as fh:
+            fh.write(larger)
         assert cv2.imread(other) is not None
         for path in (other, other + ".png"):
             os.replace(other if path != other else other, path)
@@ -839,10 +844,11 @@ CLASSES = {
     # cv2 returns memory it never wrote for an alpha PAM; cv2.imwrite's
     # default AVIF is lossy AV1, read since slice 20
     "avif": ("read", "read"),
-    **{k: ("queued", "queued") for k in ("pam_alpha", "avif_two_frames")},
-    # film grain, grids, sequences and scaled frames: read
+    "pam_alpha": ("queued", "queued"),
+    # film grain, grids, sequences, scaled frames and items of two AV1
+    # frames: read
     **{k: ("read", "read") for k in ("avif_avis", "avif_grain", "avif_grid",
-                                     "avif_scaled")},
+                                     "avif_scaled", "avif_two_frames")},
     "avif_lossless": ("read", "read"),
     "avif_gray12": ("read", "read"),
     "avif_cut": ("none", "none"),

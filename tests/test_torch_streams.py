@@ -195,22 +195,36 @@ def test_euroc_stream_skips_tiff_cv2_returns_none_for(kind, tmp_path):
         it[0] for it in items]
 
 
-def test_euroc_stream_raises_on_a_format_it_cannot_read(tmp_path):
+def test_euroc_stream_raises_on_a_format_it_cannot_read(tmp_path,
+                                                        monkeypatch):
     """A left image stored as an AVIF item of two AV1 frames, which
-    cv2.imread reads (the second) and the port does not yet: the JAX
-    stream tracks all 4 frames; the port's stream raises
-    NotImplementedError naming the format instead of dropping the
-    frame."""
+    cv2.imread reads (the second): both streams yield all 4 frames, the
+    same.  The same image stored as an AVIF frame larger than its ispe,
+    which cv2.imread reads (scaled by libavif) and the port does not
+    decode past ``avif.SCALED_PIXELS`` (lowered here): the JAX stream
+    tracks all 4 frames; the port's stream raises NotImplementedError
+    naming the format instead of dropping the frame."""
     import cv2
     from test_torch_avif import two_frames
+
+    from lgu_slam_tpu_torch.data import avif
 
     root = fixtures.write_euroc_sequence(str(tmp_path / "MH_01_easy"),
                                          n_frames=4)
     left = os.path.join(root, "mav0", "cam0", "data")
     name = os.path.join(left, sorted(os.listdir(left))[1])
-    data = two_frames(cv2.imread(name))
+    img = cv2.imread(name)
     with open(name, "wb") as fh:
-        fh.write(data)
+        fh.write(two_frames(img))
+    items = _held(tstreams.euroc_stereo_stream(root),
+                  jstreams.euroc_stereo_stream(root))
+    assert len(items) == 4
+    H, W = img.shape[:2]
+    ispe = b"ispe" + bytes(4) + struct.pack(">II", W, H)
+    with open(name, "wb") as fh:
+        fh.write(avif.encode_avif(img).replace(
+            ispe, b"ispe" + bytes(4) + struct.pack(">II", W // 2, H // 2)))
+    monkeypatch.setattr(avif, "SCALED_PIXELS", 1000)
     assert len(list(jstreams.euroc_stereo_stream(root))) == 4
     with pytest.raises(NotImplementedError, match="AVIF"):
         list(tstreams.euroc_stereo_stream(root))
@@ -586,6 +600,40 @@ def test_tum_stream_grain_avif_matches_jax(tmp_path):
                     "rb").read()
         box = avif.parse(data)
         assert avif.grain_params(avif._payload(data, box, box["color"]))[0]
+    items = _held(tstreams.tum_rgbd_stream(root, stride=1),
+                  jstreams.tum_rgbd_stream(root, stride=1))
+    ref = list(tstreams.tum_rgbd_stream(png, stride=1))
+    assert len(items) == len(ref) == 3
+    for a, b in zip(items, ref):
+        assert a[0] == b[0]
+        for x, y in zip(a[1:], b[1:]):
+            np.testing.assert_array_equal(x, y)
+
+
+def test_tum_stream_tools_avif_matches_jax(tmp_path):
+    """The TUM reader over an fr1 sequence of the port writer's lossy 4:2:0
+    AVIF colour with segmentation (a lossless segment among them) and
+    superres with loop restoration (fixtures.TOOLS_AVIF) and 12-bit AVIF
+    depth stored as items of three frames (a hidden key frame shown again
+    by show_existing_frame): the port's stream equals the JAX one
+    (cv2.imread over libavif and libaom) in frames, depth and timestamps,
+    and the port's own stream over the PNG and 16-bit PNG of the same
+    values (chip_smoke.py phase 23's pair)."""
+    from lgu_slam_tpu_torch.data import avif
+
+    name = "rgbd_dataset_freiburg1_desk"
+    root = fixtures.write_tum_sequence(str(tmp_path / "avif" / name),
+                                       n_frames=3, H=60, W=80,
+                                       color="tools-avif",
+                                       depth="12bit-frames-avif")
+    png = fixtures.write_tum_sequence(str(tmp_path / "png" / name),
+                                      n_frames=3, H=60, W=80,
+                                      color="tools-avif-png",
+                                      depth="12bit-frames-avif-png")
+    path = os.path.join(root, "rgb")
+    data = open(os.path.join(path, sorted(os.listdir(path))[0]), "rb").read()
+    box = avif.parse(data)
+    assert avif.superres_ms(avif._payload(data, box, box["color"]))[1] > 0
     items = _held(tstreams.tum_rgbd_stream(root, stride=1),
                   jstreams.tum_rgbd_stream(root, stride=1))
     ref = list(tstreams.tum_rgbd_stream(png, stride=1))
