@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Sixteen phases; any failure exits non-zero.
+Twenty-four phases; any failure exits non-zero.
 
 1. Build the CUDA kernels from ``lgu_slam_tpu_torch/csrc`` with nvcc for
    sm_90a, all at once (printing ptxas' register/shared-memory summary),
@@ -332,10 +332,22 @@ Sixteen phases; any failure exits non-zero.
    depth stored as items of three frames (``show_existing_frame``),
    tracked beside PNG colour and 16-bit PNG depth of the same values, as
    in phase 12, with equal K1 and K2 launches in ``track()``.
+24. AV1 inter frames on the card machine's host: the committed layered
+   (progressive) AVIF items cv2's libavif writes (2-4 layers, quality
+   layers and scaled base layers, 8 / 10 / 12 bits, 4:2:0 / 4:4:4 / gray,
+   alpha, lsel and a1op, two refused as cv2 refuses them) decoded to the
+   SHA-256 of ``cv2.imread``'s arrays in both modes, with the host's
+   median decode ms; for each of the eight committed 480 x 640 layered
+   frames (a half-size base layer, then the full frame predicted from
+   it) the median ms of its AV1 decode and of its inter prediction, the
+   share printed with the card's name and power limit; a 16-frame TUM fr1
+   sequence of those eight frames there and back, tracked beside the PNG
+   of what they read back as (16-bit PNG depth in both), as in phase 12,
+   with equal K1 and K2 launches in ``track()``.
 
 Before the last line it prints the tracking, terminate, training, fp32
 tracking, world-size-1, entry-point, 3DGS, JPEG, oracle, the five
-format reports, the scaling report and phases 18 to 23's reports,
+format reports, the scaling report and phases 18 to 24's reports,
 the run's wall time, the
 card's name and power limit, and one JSON line with each kernel's error,
 time, bound and launches.  The last line is ``{"ok": true, "device": {...}}``.
@@ -378,6 +390,7 @@ from lgu_slam_tpu_torch.data.fixtures import (
     write_euroc_sequence,
     write_frame,
     write_jpeg_imagedir,
+    write_tum_with_colour,
     write_replica_scene,
     write_scannet_sequence,
     write_tum_sequence,
@@ -2838,7 +2851,7 @@ def phase_format_track(dev, kernels: dict, root: Path, n_frames: int = 24,
                        size: tuple = (384, 512),
                        pairs=(("ppm", "tiff"), ("png", "png")),
                        seed: int = SEED + 14, phase: int = 12,
-                       key: str = "launches_formats") -> dict:
+                       key: str = "launches_formats", writer=None) -> dict:
     """A 24-frame TUM fr1 sequence written twice, in the (colour, depth)
     formats of ``pairs`` (``write_frame``'s kinds; phase 12: PPM colour
     with float32 TIFF depth and PNG colour with 16-bit PNG depth of the
@@ -2847,15 +2860,20 @@ def phase_format_track(dev, kernels: dict, root: Path, n_frames: int = 24,
     0), then ``terminate()``.  K1's launches in track() equal the motion
     filter's probes plus the pyramid rebuilds, K2's the probes plus the
     GRU iterations (phase 3's count); the trajectories are finite.  The
-    launches over both runs add to ``kernels[...][key]``."""
+    launches over both runs add to ``kernels[...][key]``.  ``writer(seq,
+    color, depth)``, where given, writes each sequence instead of
+    ``write_tum_sequence``."""
     runs, streams = {}, []
     cfg = SLAMConfig().replace(filter_thresh=0.0, keyframe_thresh=0.0,
                                image_size=size)
     for color, depth in pairs:
         seq = root / f"{color}_{depth}" / "rgbd_dataset_freiburg1_desk"
         t_start = time.perf_counter()
-        write_tum_sequence(str(seq), n_frames, seed=seed, color=color,
-                           depth=depth)
+        if writer is not None:
+            writer(seq, color, depth)
+        else:
+            write_tum_sequence(str(seq), n_frames, seed=seed, color=color,
+                               depth=depth)
         write_s = time.perf_counter() - t_start
         frames, feed_ms = tum_frames(seq, size)
         streams.append(frames)
@@ -3761,7 +3779,7 @@ def phase_19(dev, kernels: dict) -> dict:
         report["committed_avif"] = phase_committed(
             AVIF_FIXTURES, 19, keep=lambda name: not avif_queued(name) and
             name not in LOSSY_480X640 + PHASE_21_FILES + PHASE_22_FILES +
-            PHASE_23_FILES)
+            PHASE_23_FILES + PHASE_24_FILES)
         queued = {}
         for name, want in json.loads(
                 (AVIF_FIXTURES / "hashes.json").read_text()).items():
@@ -4309,6 +4327,99 @@ def print_phase_23(report: dict) -> None:
           f"{report['feed_ratio']:.3f}; {report['seconds']:.0f} s")
 
 
+# -- phase 24: AV1 inter frames (layered AVIF items) ----------------------
+
+# the committed layered items (libavif's progressive layers through cv2's
+# libavif, scripts/make_avif_fixtures_torch.py), and the rendered TUM fr1
+# frames of its 480 x 640 ones: seed 24 (LAYERED_TUM_SEED there)
+PHASE_24_FILES = tuple(sorted(p.name for p in AVIF_FIXTURES.glob(
+    "layered_*.avif")))
+LAYERED_TUM = tuple(n for n in PHASE_24_FILES if "480x640" in n)
+LAYERED_TUM_SEED = 24
+# the sequence: the eight frames there and back
+PHASE_24_ORDER = tuple(range(8)) + tuple(range(7, -1, -1))
+
+
+def inter_ms(data: bytes) -> tuple:
+    """(tool counts, ms of the AV1 decode, ms of its inter prediction) of
+    an AVIF file's colour item, decoded by the host."""
+    box = avif.parse(data)
+    return avif.inter_stats(avif._payload(data, box, box["color"]))
+
+
+def phase_24_committed() -> dict:
+    """The committed layered items against cv2.imread's hashes in both
+    modes (the host's median decode ms); for each 480 x 640 frame the
+    median ms of 10 AV1 decodes and of their inter prediction, and its
+    blocks by tool."""
+    out = phase_committed(AVIF_FIXTURES, 24,
+                          keep=lambda name: name in PHASE_24_FILES)
+    check(len(out) == len(PHASE_24_FILES) and len(LAYERED_TUM) == 8,
+          "phase 24: the committed files")
+    for name in LAYERED_TUM:
+        runs = [inter_ms((AVIF_FIXTURES / name).read_bytes())
+                for _ in range(10)]
+        out[name]["tools"] = runs[0][0]
+        out[name]["av1_ms"] = statistics.median(r[1] for r in runs)
+        out[name]["inter_ms"] = statistics.median(r[2] for r in runs)
+        check(runs[0][0]["inter"] > 0 and runs[0][0]["scaled"] > 0,
+              f"phase 24: {name} has no inter blocks from its scaled base")
+    return out
+
+
+def phase_24_writer(seq: Path, color: str, depth: str) -> None:
+    """The TUM sequence of the committed layered frames there and back,
+    or (``*-png``) of the PNG of what they read back as, with their
+    rendered depth and poses."""
+    colour = [("avif", (AVIF_FIXTURES / n).read_bytes()) for n in LAYERED_TUM]
+    write_tum_with_colour(str(seq), colour, LAYERED_TUM_SEED,
+                          order=PHASE_24_ORDER, png=color.endswith("-png"))
+
+
+def phase_24(dev, kernels: dict) -> dict:
+    t_start = time.perf_counter()
+    report = dict(committed=phase_24_committed())
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        runs = phase_format_track(
+            dev, kernels, root / "tum", n_frames=len(PHASE_24_ORDER),
+            phase=24, pairs=(("layered-avif", "png"),
+                             ("layered-avif-png", "png")),
+            key="launches_formats_24", writer=phase_24_writer)
+    avif_run, png_run = runs.values()
+    for name in ("k1_launches_track", "k2_launches_track"):
+        check(avif_run[name] == png_run[name],
+              f"phase 24: {name} {avif_run[name]} (layered AVIF) != "
+              f"{png_run[name]} (PNG)")
+    report["feed_ratio"] = avif_run["feed_ms"] / png_run["feed_ms"]
+    report["tum"] = runs
+    report["seconds"] = time.perf_counter() - t_start
+    return report
+
+
+def print_phase_24(report: dict, smi: str) -> None:
+    frames = [v for k, v in report["committed"].items() if k in LAYERED_TUM]
+    av1 = statistics.median(v["av1_ms"] for v in frames)
+    inter = statistics.median(v["inter_ms"] for v in frames)
+    share = statistics.median(v["inter_ms"] / v["av1_ms"] for v in frames)
+    small = [v["decode_ms"] for k, v in report["committed"].items()
+             if k not in LAYERED_TUM and not v.get("refused")]
+    tum = "; ".join(
+        f"{k}: fed {v['feed_ms']:.2f} ms per frame, {v['keyframes']} "
+        f"keyframes, K1 {v['k1_launches']} / K2 {v['k2_launches']} "
+        f"launches (track {v['k1_launches_track']} / "
+        f"{v['k2_launches_track']})" for k, v in report["tum"].items())
+    print(f"phase 24 ({smi}; host times on this machine's CPU): "
+          f"{len(report['committed'])} committed layered AVIF items equal "
+          f"to cv2's hashes or refused as cv2 refuses them "
+          f"({min(small):.2f}-{max(small):.2f} ms); 480 x 640 layered frames "
+          f"(2 layers, half-size base): AV1 decode {av1:.2f} ms, inter "
+          f"prediction {inter:.2f} ms ({100 * share:.1f} % of the decode), "
+          f"median of 8; TUM RGB-D at 384 x 512, equal frames and depth "
+          f"from both streams: {tum}; layered AVIF / PNG feed "
+          f"{report['feed_ratio']:.3f}; {report['seconds']:.0f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke run needs an NVIDIA GPU")
@@ -4404,9 +4515,12 @@ def main():
     torch.cuda.empty_cache()
     formats_23 = phase_23(dev, kernels)
     print_phase_23(formats_23)
+    torch.cuda.empty_cache()
+    formats_24 = phase_24(dev, kernels)
+    print_phase_24(formats_24, smi.stdout.strip().splitlines()[0])
     # launches on the main path: K1 bf16 and K2 over track() +
     # terminate(), phase 8's entry points, phase 10's JPEG runs, phases
-    # 12-16's and 18-23's TUM tracks and phase 17's backend
+    # 12-16's and 18-24's TUM tracks and phase 17's backend
     # passes, K2 also over phase 7's sharded backend pass, K1 fp32 operands
     # over phase 6's track()
     for name in ("masked_corr_level0_tc", "fused_pyramid_lookup"):
@@ -4419,7 +4533,8 @@ def main():
             k["launches_formats_16"] + k["launches_scaling_17"] + \
             k["launches_formats_18"] + k["launches_formats_19"] + \
             k["launches_formats_20"] + k["launches_formats_21"] + \
-            k["launches_formats_22"] + k["launches_formats_23"]
+            k["launches_formats_22"] + k["launches_formats_23"] + \
+            k["launches_formats_24"]
     k = kernels["masked_corr_level0_tf32"]
     k["launches"] = k["launches_track_fp32"]
     for k in kernels.values():
@@ -4447,6 +4562,7 @@ def main():
     print(json.dumps({"formats_21": formats_21}))
     print(json.dumps({"formats_22": formats_22}))
     print(json.dumps({"formats_23": formats_23}))
+    print(json.dumps({"formats_24": formats_24}))
     print(json.dumps({"seconds": seconds}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -1,6 +1,7 @@
-/* The AV1 intra tile syntax, shared by the decoder (av1_decode.c) and the
- * fixture writer (av1_encode.c), and the in-loop filters and superres of
- * an intra frame.
+/* The AV1 tile syntax, shared by the decoder (av1_decode.c) and the
+ * fixture writer (av1_encode.c), and the in-loop filters and superres of a
+ * frame; the inter blocks of inter frames are av1_inter.h's, which this
+ * file includes.
  *
  * One implementation of the block syntax serves both: each symbol goes
  * through sym(), which decodes it (libaom's od_ec decoder, 32-bit window)
@@ -23,9 +24,10 @@
  * 4:2:0.
  *
  * An intra frame holds nothing this file does not read (film grain is
- * added to the shown frame by av1_grain.h; av1_decode.c refuses inter
- * frames).  Errors unwind with longjmp to the entry point, which frees
- * what the frame allocated.
+ * added to the shown frame by av1_grain.h); an inter frame's blocks go to
+ * av1_inter.h, and deblocking takes their reference and mode deltas and
+ * skips the inner edges of skipped inter blocks.  Errors unwind with
+ * longjmp to the entry point, which frees what the frame allocated.
  */
 #ifndef AV1_CORE_H
 #define AV1_CORE_H
@@ -62,6 +64,9 @@ static const uint8_t bh4_log2[22] = {0, 1, 0, 1, 2, 1, 2, 3, 2, 3, 4, 3,
                                      4, 5, 4, 5, 2, 0, 3, 1, 4, 2};
 static const uint8_t intra_mode_context[13] = {0, 1, 2, 3, 4, 4, 4, 4, 3,
                                                0, 1, 2, 0};
+/* Size_Group: the y mode context of an inter frame's intra blocks */
+static const uint8_t size_group[22] = {0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 3,
+                                       3, 3, 3, 3, 0, 0, 1, 1, 2, 2};
 static const uint8_t intra_edge_kernel[3][5] = {
     {0, 4, 8, 4, 0}, {0, 5, 6, 5, 0}, {2, 4, 4, 4, 2}};
 
@@ -116,6 +121,19 @@ typedef struct {
     uint16_t switchable_restore[4];
     uint16_t wiener_restore[3];
     uint16_t sgrproj_restore[3];
+    /* inter frames (mv_inter: the vectors of inter blocks, mv's layout) */
+    uint16_t y_mode[4][14];
+    uint16_t intra_inter[4][3];
+    uint16_t comp_inter[5][3];
+    uint16_t single_ref[3][6][3];
+    uint16_t skip_mode[3][3];
+    uint16_t newmv[6][3], zeromv[2][3], refmv[6][3], drl[3][3];
+    uint16_t interintra[4][3], interintra_mode[4][5];
+    uint16_t wedge_interintra[22][3], wedge_idx[22][17];
+    uint16_t motion_mode[22][4], obmc[22][3];
+    uint16_t interp[16][4];
+    uint16_t seg_pred[3][3];
+    uint16_t mv_inter[143];
 } Cdfs;
 
 static void cdfs_init(Cdfs *c, int qctx)
@@ -163,6 +181,24 @@ static void cdfs_init(Cdfs *c, int qctx)
     CP(switchable_restore, switchable_restore_cdf);
     CP(wiener_restore, wiener_restore_cdf);
     CP(sgrproj_restore, sgrproj_restore_cdf);
+    CP(y_mode, y_mode_cdf);
+    CP(intra_inter, intra_inter_cdf);
+    CP(comp_inter, comp_inter_cdf);
+    CP(single_ref, single_ref_cdf);
+    CP(skip_mode, skip_mode_cdf);
+    CP(newmv, newmv_cdf);
+    CP(zeromv, zeromv_cdf);
+    CP(refmv, refmv_cdf);
+    CP(drl, drl_cdf);
+    CP(interintra, interintra_cdf);
+    CP(interintra_mode, interintra_mode_cdf);
+    CP(wedge_interintra, wedge_interintra_cdf);
+    CP(wedge_idx, wedge_idx_cdf);
+    CP(motion_mode, motion_mode_cdf);
+    CP(obmc, obmc_cdf);
+    CP(interp, switchable_interp_cdf);
+    CP(seg_pred, seg_pred_cdf);
+    CP(mv_inter, mv_cdf);
 #undef CP
 }
 
@@ -348,6 +384,25 @@ static void cdf_adapt(uint16_t *cdf, int n, int s)
     cdf[n] += (cdf[n] < 32);
 }
 
+/* every CDF's adaptation counter cleared (libaom's
+ * av1_reset_cdf_symbol_counters): a row holds its cumulative counts below
+ * 32768, then 32768, then its counter, then 32768s up to its width */
+static void cdfs_clear_counts(void *cdfs, size_t bytes)
+{
+    uint16_t *p = cdfs;
+    size_t n = bytes / 2;
+    int in_row = 1;
+    for (size_t i = 0; i < n; i++) {
+        if (p[i] == 32768) {
+            if (in_row && i + 1 < n)
+                p[++i] = 0;
+            in_row = 0;
+        } else {
+            in_row = 1;
+        }
+    }
+}
+
 /* -- the frame ------------------------------------------------------------ */
 
 #define MAX_TILES 64
@@ -372,6 +427,21 @@ typedef struct {
     int cfl_signs, cfl_u, cfl_v, skip;
     int intrabc, dv_row, dv_col; /* an intra block copy vector, 1/8 sample */
 } Choice;
+
+/* a reference frame of an inter frame (the slot ref_frame_idx names):
+ * its planes, UpscaledWidth and FrameHeight, MiRows / MiCols, whether it
+ * is an intra frame, its OrderHint and the OrderHints of its own
+ * references, its motion field (7.19: per 8 x 8 unit, the reference
+ * frame, -1 none, and the vector); the scale factors of the current
+ * frame's prediction from it (REF_SCALE_SHIFT 14), 0 where invalid */
+typedef struct {
+    const uint16_t *plane[3];
+    int stride, up_w, h, mi_rows, mi_cols, intra, order_hint;
+    int saved_hints[8];
+    const int8_t *mf_ref;
+    const int16_t *mf_mv;
+    int xs, ys;
+} RefView;
 
 /* FrameRestorationType and a unit's restoration_type */
 enum { RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
@@ -417,7 +487,7 @@ struct Av1 {
     int seg_qindex[8], seg_lossless[8];
     int delta_q_present, delta_q_res, delta_lf_present, delta_lf_res;
     int delta_lf_multi;
-    int lf_level[4], lf_sharpness, lf_delta_enabled, lf_ref_delta_intra;
+    int lf_level[4], lf_sharpness, lf_delta_enabled;
     int cdef_damping, cdef_bits, cdef_pri[2][8], cdef_sec[2][8];
     /* loop restoration: FrameRestorationType, LoopRestorationSize and the
      * unit grid of each plane */
@@ -427,6 +497,54 @@ struct Av1 {
     int col_starts[MAX_TILES + 1], row_starts[MAX_TILES + 1];
     int tile_size_bytes, context_update_tile_id;
     int temporal_id, spatial_id;
+    /* the operating point (libavif's a1op) and the spatial layer to
+     * output (lsel; -1: the last frame shown) */
+    int op_point, want_layer;
+    /* inter frames: the sequence's inter tools; the frame's header
+     * (FrameIsIntra's negation, OrderHint, primary_ref_frame,
+     * ref_frame_idx and OrderHints by reference frame 1-7,
+     * RefFrameSignBias, ...), the loop filter's reference and mode deltas,
+     * global motion (gm: the warp parameters of each reference frame,
+     * prev_gm: PrevGmParams; gm_valid: its shear is valid), the
+     * segmentation map's update flags, the references and the previous
+     * segment ids (NULL: none) */
+    int enable_order_hint, enable_dual_filter, enable_ref_frame_mvs;
+    int enable_warped, enable_interintra;
+    int inter_frame, order_hint, primary_ref, ref_idx[8], order_hints[8];
+    int sign_bias[8], ref_side[8];
+    int force_intmv, allow_hp, interp_filter, switchable_motion;
+    int use_ref_mvs, ref_select, skip_mode_present, allow_warp;
+    int disable_end_update;
+    int lf_ref[8], lf_mode[2];
+    int32_t gm[8][6], prev_gm[8][6];
+    int gm_type[8], gm_valid[8];
+    int seg_update_map, seg_temporal;
+    RefView ref[8];
+    const uint8_t *prev_seg;
+    /* the motion field of use_ref_frame_mvs (per 8 x 8 unit: the
+     * projected vector, -32768 none, and its reference's offset), the
+     * frame's own field to save (per 8 x 8 unit) */
+    int16_t *tpl_mv;
+    int8_t *tpl_off, *save_ref;
+    int16_t *save_mv;
+    int mf_rows, mf_cols;
+    /* the CDFs at the end of the tile context_update_tile_id names */
+    Cdfs cdf_end;
+    /* inter prediction's intermediate rows and its block */
+    int32_t *pred_tmp;
+    uint16_t *pred_blk;
+    /* the time spent in inter prediction, where the includer sets
+     * LR_CLOCK */
+    double inter_ms;
+    /* the inter frames' blocks by tool (av1_decode_ms): inter, intra,
+     * NEWMV, GLOBALMV, OBMC, local warp, global warp, inter-intra, wedge
+     * inter-intra, predictions from a scaled reference, chroma predicted
+     * from several luma blocks, two interpolation filters; motion field
+     * units projected; temporal candidates added to a vector stack */
+    int32_t tools[14];
+    /* the first tool read that no layered item here exercises (NULL:
+     * none), refused once the decode has ended (av1_refuse) */
+    const char *refused;
     Grain grain;
     /* film grain's templates and noise stripes while it runs; its time
      * (where the includer sets LR_CLOCK) */
@@ -441,6 +559,10 @@ struct Av1 {
     /* per 4 x 4 (mode info) unit */
     uint8_t *mi_size, *ymodes, *uvmodes, *skips, *pal_sizes[2];
     uint8_t *is_inter, *written, *txsizes;
+    /* per unit of inter frames: the reference frames (2; -1 none), the
+     * interpolation filters (y, x), seg_id_predicted */
+    int8_t *ref_frames;
+    uint8_t *filters, *seg_preds;
     /* per 4 x 4 luma unit: the transform size of an intra block copy
      * block's variable partition, the luma transform type (chroma's of an
      * intra block copy block) */
@@ -462,7 +584,9 @@ struct Av1 {
     double lr_ms; /* time in lr_frame, where the includer sets LR_CLOCK */
     double superres_ms; /* time in superres_upscale, likewise */
     uint16_t *pal_colors[2];
-    int16_t *mvs; /* intra block copy vectors (row, col), 1/8 sample */
+    /* the vectors of each unit's two reference lists (row, col), 1/8
+     * sample (an intra block copy vector in the first) */
+    int16_t *mvs;
     /* contexts */
     uint8_t *above_level[3], *above_dc[3], *left_level[3], *left_dc[3];
     /* the transform width above and height left of each 4 x 4 unit in
@@ -480,6 +604,15 @@ struct Av1 {
     int skip, ymode, uvmode, angle_y, angle_uv, use_filter_intra;
     int filter_intra_mode, cfl_u, cfl_v, pal_y, pal_uv, use_intrabc;
     int mv_row, mv_col;
+    /* an inter block (inter: an inter block or intra block copy, to the
+     * transform syntax): its reference frames, vectors, filters (y, x),
+     * motion mode, inter-intra, the neighbours' reference frames, the
+     * local warp and its validity */
+    int inter, blk_inter, ref_frame[2], mv[2][2], filt[2], motion_mode;
+    int interintra, ii_mode, wedge_ii, wedge_idx;
+    int above_ref[2], left_ref[2];
+    int32_t lw[6];
+    int lw_valid;
     uint16_t pal_y_colors[8], pal_u_colors[8], pal_v_colors[8];
     uint8_t map_y[64 * 64], map_uv[64 * 64];
     int max_luma_w, max_luma_h;
@@ -503,6 +636,16 @@ static void av1_fail(Av1 *f, int code, const char *fmt, ...)
         va_end(ap);
     }
     longjmp(f->jb, code);
+}
+
+/* a tool no layered item here exercises, where it is read: the decode
+ * goes on, so that a damaged stream still fails where libaom fails, and
+ * a full decode that ends ends in ERR_NOTIMPL naming the first such tool
+ * (decode_obus) */
+static void av1_refuse(Av1 *f, const char *what)
+{
+    if (!f->refused)
+        f->refused = what;
 }
 
 static void *av1_alloc(Av1 *f, size_t n)
@@ -1058,14 +1201,14 @@ static int uv_tx_type(Av1 *f, int t, int sx, int sy)
     if (f->blk_lossless || up > 5)
         return DCT_DCT;
     int type;
-    if (f->use_intrabc) {
+    if (f->inter) {
         int r = f->mi_row + (((sy >> 2) - (f->mi_row >> f->ssy)) << f->ssy);
         int c = f->mi_col + (((sx >> 2) - (f->mi_col >> f->ssx)) << f->ssx);
         type = MI(f->tx_types, r, c);
     } else {
         type = mode_to_txfm[f->uvmode == UV_CFL_PRED ? DC_PRED : f->uvmode];
     }
-    return ext_tx_used[tx_set_type(f, t, f->use_intrabc)][type] ? type
+    return ext_tx_used[tx_set_type(f, t, f->inter)][type] ? type
                                                                : DCT_DCT;
 }
 
@@ -1175,7 +1318,7 @@ static int read_tx_type(Av1 *f, int t)
     static const int8_t eset[2][6] = {{0, -1, 2, 1, -1, -1},
                                       {0, 3, -1, -1, 2, 1}};
     static const int8_t nsym[6] = {1, 2, 5, 7, 12, 16};
-    int inter = f->use_intrabc, st = tx_set_type(f, t, inter);
+    int inter = f->inter, st = tx_set_type(f, t, inter);
     if (st == 0 || f->seg_qindex[f->segment_id] == 0)
         return DCT_DCT;
     int set = eset[inter][st], n = nsym[st], want = 0;
@@ -1878,8 +2021,8 @@ static void transform_block(Av1 *f, int plane, int base_x, int base_y, int t,
     int w = 1 << tx_wl[t], h = 1 << tx_hl[t];
     if (sx >= (maxx >> ssx) + 1 || sy >= (maxy >> ssy) + 1)
         return;
-    if (f->use_intrabc) {
-        /* predicted with the block (intrabc_predict) */
+    if (f->inter) {
+        /* predicted with the block (intrabc_predict, predict_inter) */
     } else if ((plane == 0 && f->pal_y) || (plane && f->pal_uv)) {
         const uint16_t *pal = plane == 0 ? f->pal_y_colors : plane == 1
                               ? f->pal_u_colors : f->pal_v_colors;
@@ -1900,7 +2043,7 @@ static void transform_block(Av1 *f, int plane, int base_x, int base_y, int t,
         if (cfl)
             predict_cfl(f, plane, sx, sy, tx_wl[t], tx_hl[t]);
     }
-    if (plane == 0 && !f->use_intrabc) {
+    if (plane == 0 && !f->inter) {
         f->max_luma_w = sx + w;
         f->max_luma_h = sy + h;
     }
@@ -1951,7 +2094,7 @@ static void residual(Av1 *f)
                 int bx = (f->mi_col >> ssx) * 4, by = (f->mi_row >> ssy) * 4;
                 int lh = n4h < (16 >> ssy) ? n4h : 16 >> ssy;
                 int lw = n4w < (16 >> ssx) ? n4w : 16 >> ssx;
-                if (plane == 0 && f->use_intrabc && !f->blk_lossless) {
+                if (plane == 0 && f->inter && !f->blk_lossless) {
                     int m = max_tx_rect(f->mi_sz);
                     for (int y = 0; y < lh; y += 1 << (tx_hl[m] - 2))
                         for (int x = 0; x < lw; x += 1 << (tx_wl[m] - 2))
@@ -2180,16 +2323,23 @@ static const LrUnit *enc_lr_unit(Av1 *f, int plane, int row, int col);
 /* -- intra block copy (specification 7.10.2, 5.11.26, 7.11.3) ----------- */
 
 typedef struct {
-    int n, row[8], col[8], weight[8], found;
+    int n, row[8], col[8], weight[8], found, new_count;
+    int global[2]; /* GlobalMvs[0] of an inter block */
 } MvStack;
+
+static void inter_candidate(Av1 *f, MvStack *st, int r, int c, int weight);
 
 static void add_candidate(Av1 *f, MvStack *st, int r, int c, int weight)
 {
     size_t k = (size_t)r * f->MiCols + c;
+    if (f->inter_frame) {
+        inter_candidate(f, st, r, c, weight);
+        return;
+    }
     if (!f->is_inter[k])
         return;
     /* the candidate's vector, at integer precision (force_integer_mv) */
-    int v[2] = {f->mvs[2 * k], f->mvs[2 * k + 1]};
+    int v[2] = {f->mvs[4 * k], f->mvs[4 * k + 1]};
     for (int i = 0; i < 2; i++) {
         int a = (abs(v[i]) + 3) >> 3;
         v[i] = v[i] > 0 ? a << 3 : -(a << 3);
@@ -2666,7 +2816,7 @@ static void read_vartx(Av1 *f, int t, int depth, int r4, int c4)
 static void read_tx_size(Av1 *f)
 {
     int t = max_tx_rect(f->mi_sz);
-    if (f->use_intrabc) {
+    if (f->inter) {
         if (f->tx_mode_select && f->mi_sz > BLOCK_4X4 && !f->skip &&
             !f->blk_lossless) {
             for (int i = 0; i < f->bh4; i += 1 << (tx_hl[t] - 2))
@@ -2720,6 +2870,8 @@ static void read_tx_size(Av1 *f)
                  1 << tx_hl[t]);
 }
 
+static void intra_modes(Av1 *f, Choice *ch);
+
 static void intra_frame_mode_info(Av1 *f)
 {
     Cdfs *c = &f->cdf;
@@ -2757,12 +2909,24 @@ static void intra_frame_mode_info(Av1 *f)
             return;
         }
     }
-    int above = f->avail_u ? MI(f->ymodes, f->mi_row - 1, f->mi_col)
-                           : DC_PRED;
-    int left = f->avail_l ? MI(f->ymodes, f->mi_row, f->mi_col - 1)
-                          : DC_PRED;
-    f->ymode = sym(f, c->kf_y_mode[intra_mode_context[above]]
-                   [intra_mode_context[left]], 13, ch->ymode);
+    intra_modes(f, ch);
+}
+
+/* an intra block's modes (intra_frame_y_mode or, in an inter frame, y_mode
+ * by Size_Group; uv_mode, CfL, angle deltas, palettes, filter intra) */
+static void intra_modes(Av1 *f, Choice *ch)
+{
+    Cdfs *c = &f->cdf;
+    uint16_t *ycdf = c->y_mode[size_group[f->mi_sz]];
+    if (!f->inter_frame) {
+        int above = f->avail_u ? MI(f->ymodes, f->mi_row - 1, f->mi_col)
+                               : DC_PRED;
+        int left = f->avail_l ? MI(f->ymodes, f->mi_row, f->mi_col - 1)
+                              : DC_PRED;
+        ycdf = c->kf_y_mode[intra_mode_context[above]]
+                           [intra_mode_context[left]];
+    }
+    f->ymode = sym(f, ycdf, 13, ch->ymode);
     f->angle_y = 0;
     if (f->mi_sz >= BLOCK_8X8 && f->ymode >= V_PRED && f->ymode <= D67_PRED)
         f->angle_y = sym(f, c->angle_delta[f->ymode - V_PRED], 7,
@@ -2812,6 +2976,8 @@ static void intra_frame_mode_info(Av1 *f)
     }
 }
 
+#include "av1_inter.h"
+
 static void decode_block(Av1 *f, int r, int c, int bsize)
 {
     f->mi_row = r;
@@ -2839,7 +3005,16 @@ static void decode_block(Av1 *f, int r, int c, int bsize)
         f->avail_u_uv = is_inside(f, r - 2, c);
     if (f->has_chroma && f->ssx && f->bw4 == 1)
         f->avail_l_uv = is_inside(f, r, c - 2);
-    intra_frame_mode_info(f);
+    f->blk_inter = f->use_intrabc = f->motion_mode = f->interintra = 0;
+    f->ref_frame[0] = INTRA_FRAME;
+    f->ref_frame[1] = -1;
+    memset(f->mv, 0, sizeof(f->mv));
+    f->filt[0] = f->filt[1] = 0;
+    if (f->inter_frame)
+        inter_frame_mode_info(f);
+    else
+        intra_frame_mode_info(f);
+    f->inter = f->use_intrabc || f->blk_inter;
     palette_tokens(f);
     read_tx_size(f);
     if (f->skip)
@@ -2861,16 +3036,30 @@ static void decode_block(Av1 *f, int r, int c, int bsize)
             f->pal_sizes[1][k] = (uint8_t)f->pal_uv;
             memcpy(f->pal_colors[0] + k * 8, f->pal_y_colors, 16);
             memcpy(f->pal_colors[1] + k * 8, f->pal_u_colors, 16);
-            f->is_inter[k] = (uint8_t)f->use_intrabc;
+            f->is_inter[k] = (uint8_t)f->inter;
             f->written[k] = 1;
             f->txsizes[k] = (uint8_t)f->txsz;
             for (int i = 0; i < 4; i++)
                 f->delta_lfs[k * 4 + i] = (int8_t)f->delta_lf[i];
-            f->mvs[2 * k] = (int16_t)f->mv_row;
-            f->mvs[2 * k + 1] = (int16_t)f->mv_col;
+            f->ref_frames[2 * k] = (int8_t)f->ref_frame[0];
+            f->ref_frames[2 * k + 1] = (int8_t)f->ref_frame[1];
+            f->filters[2 * k] = (uint8_t)f->filt[0];
+            f->filters[2 * k + 1] = (uint8_t)f->filt[1];
+            if (f->use_intrabc) {
+                f->mvs[4 * k] = (int16_t)f->mv_row;
+                f->mvs[4 * k + 1] = (int16_t)f->mv_col;
+                f->mvs[4 * k + 2] = f->mvs[4 * k + 3] = 0;
+            } else {
+                for (int i = 0; i < 4; i++)
+                    f->mvs[4 * k + i] = (int16_t)f->mv[i >> 1][i & 1];
+            }
         }
+    if (f->save_ref)
+        save_frame_mvs(f);
     if (f->use_intrabc)
         intrabc_predict(f);
+    else if (f->blk_inter)
+        predict_inter(f);
     residual(f);
 }
 
@@ -3185,7 +3374,13 @@ static int lf_level(Av1 *f, int row, int col, int plane, int pass)
         lvl = lvl < 0 ? 0 : lvl > 63 ? 63 : lvl;
     }
     if (f->lf_delta_enabled) {
-        lvl += f->lf_ref_delta_intra * (1 << (lvl >> 5));
+        /* loop_filter_ref_deltas by the block's first reference frame,
+         * and an inter block's mode delta (1 but for GLOBALMV) */
+        int ref = f->ref_frames ? f->ref_frames[2 * k] : 0, sc = 1 << (lvl >> 5);
+        ref = ref < 0 ? 0 : ref;
+        lvl += f->lf_ref[ref] * sc;
+        if (ref > 0)
+            lvl += f->lf_mode[f->ymodes[k] != GLOBALMV] * sc;
         lvl = lvl < 0 ? 0 : lvl > 63 ? 63 : lvl;
     }
     return lvl;
@@ -3288,9 +3483,18 @@ static void edge_filter_4x4(Av1 *f, int plane, int pass, int row, int col)
     int t = f->lf_tx[plane][(size_t)(row >> ssy) * f->MiCols + (col >> ssx)];
     int pt = f->lf_tx[plane][(size_t)(prow >> ssy) * f->MiCols +
                              (pcol >> ssx)];
-    /* transform edges only; every block of an intra frame is intra */
+    /* transform edges only; between two skipped inter blocks (or intra
+     * block copy ones), prediction block edges only */
     if (pass == 0 ? xp & ((1 << tx_wl[t]) - 1) : yp & ((1 << tx_hl[t]) - 1))
         return;
+    size_t k = (size_t)row * f->MiCols + col;
+    size_t pk = (size_t)prow * f->MiCols + pcol;
+    if (f->skips[k] && f->is_inter[k] && f->skips[pk] && f->is_inter[pk]) {
+        int pb = plane_bsize(f->mi_size[k], ssx, ssy);
+        if (pass == 0 ? xp & ((4 << bw4_log2[pb]) - 1)
+                      : yp & ((4 << bh4_log2[pb]) - 1))
+            return;
+    }
     int base = pass == 0 ? (tx_wl[t] < tx_wl[pt] ? tx_wl[t] : tx_wl[pt])
                          : (tx_hl[t] < tx_hl[pt] ? tx_hl[t] : tx_hl[pt]);
     int size = 1 << base;
@@ -3819,7 +4023,10 @@ static void frame_alloc(Av1 *f)
     f->left_txfm = av1_alloc(f, (size_t)f->MiRows + 68);
     f->is_inter = av1_alloc(f, n);
     f->written = av1_alloc(f, n);
-    f->mvs = av1_alloc(f, n * 4);
+    f->mvs = av1_alloc(f, n * 8);
+    f->ref_frames = av1_alloc(f, n * 2);
+    f->filters = av1_alloc(f, n * 2);
+    f->seg_preds = av1_alloc(f, n);
     f->ymodes = av1_alloc(f, n);
     f->uvmodes = av1_alloc(f, n);
     f->skips = av1_alloc(f, n);
@@ -3872,6 +4079,21 @@ static void frame_free(Av1 *f)
     free(f->is_inter);
     free(f->written);
     free(f->mvs);
+    free(f->ref_frames);
+    free(f->filters);
+    free(f->seg_preds);
+    free(f->tpl_mv);
+    free(f->tpl_off);
+    free(f->save_ref);
+    free(f->save_mv);
+    free(f->pred_tmp);
+    free(f->pred_blk);
+    f->ref_frames = NULL;
+    f->filters = f->seg_preds = NULL;
+    f->tpl_mv = f->save_mv = NULL;
+    f->tpl_off = f->save_ref = NULL;
+    f->pred_tmp = NULL;
+    f->pred_blk = NULL;
     free(f->ymodes);
     free(f->uvmodes);
     free(f->skips);

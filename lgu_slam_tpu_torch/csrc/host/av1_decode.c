@@ -1,6 +1,6 @@
-/* An AV1 intra decoder for the port's AVIF reader (data/avif.py): the
- * OBUs of one AVIF item (sequence headers, frames or frame headers and
- * tile groups) decoded to 16-bit planes as libaom 3.14 decodes them.
+/* An AV1 decoder for the port's AVIF reader (data/avif.py): the OBUs of
+ * one AVIF item (sequence headers, frames or frame headers and tile
+ * groups) decoded to 16-bit planes as libaom 3.14 decodes them.
  *
  * Read: profiles 0-2, 8 / 10 / 12 bits, mono_chrome, 4:4:4, 4:2:2 and
  * 4:2:0 chroma, the reduced still picture header and full sequence and
@@ -13,37 +13,64 @@
  * segments, loop filter levels, skip), the loop restoration units'
  * coefficients and the coefficients of every transform size and type,
  * lossless or lossy; then deblocking, CDEF, superres (libaom's normative
- * upscale) and loop restoration.  An item may hold several frames: each
- * is decoded, the reference slots keep them for show_existing_frame, and
- * the last frame shown is output with its film grain (av1_grain.h), as
- * libaom outputs it; a changed sequence header starts a new sequence at
- * its key frame.  The tile syntax, reconstruction and filters are in
- * av1_core.h.  The OBUs are checked as libaom's aom_decode_frame_from_obus
- * checks them (sizes, trailing bits and zero padding, reserved types, the
- * operating point, tile group order, zero bytes between frames, frame ids,
- * showable frames, tile columns under superres).  An inter frame returns
- * ERR_NOTIMPL naming it (no encoder here writes one); a stream libaom
- * refuses (a cut header, a tile that reads past its bytes, a Golomb code
- * longer than 20 bits, a block size the chroma subsampling does not
- * allow, no frame shown, ...) ERR_VALUE.
+ * upscale) and loop restoration.  Inter frames (av1_inter.h): their
+ * header (references, frame_size_with_refs, global motion, the CDFs, loop
+ * filter deltas and segmentation features of the primary reference
+ * frame), single-reference inter blocks with OBMC, local warp and
+ * inter-intra, from references of the same or another size, chroma
+ * blocks over several luma blocks, with the temporal vector candidates of
+ * the projected motion field, as the layers
+ * of a layered (progressive) AVIF item carry them; each frame's CDFs,
+ * deltas, segment ids and motion field are kept in its slot for the
+ * frames that reference it.  An item may hold several frames: each is
+ * decoded, the reference slots keep them for show_existing_frame and
+ * inter prediction, and the last frame shown (or the first of the spatial
+ * layer libavif's lsel selects) is output with its film grain
+ * (av1_grain.h), as libaom outputs it; a changed sequence header starts a
+ * new sequence at its key frame.  The tile syntax, reconstruction and
+ * filters are in av1_core.h.  The OBUs are checked as libaom's
+ * aom_decode_frame_from_obus checks them (sizes, trailing bits and zero
+ * padding, reserved types, the operating point, tile group order, zero
+ * bytes between frames, frame ids, showable frames, tile columns under
+ * superres, references of another format or of a size libaom cannot
+ * scale).  A tool no layered item here uses returns ERR_NOTIMPL naming it:
+ * at once where nothing decodes it (compound prediction, skip mode, switch
+ * frames, frame_refs_short_signaling, a reference replaced by its order
+ * hint), else at the end of a decode that libaom's checks pass, the code
+ * that reads it run but not held against libaom by any file (a frame
+ * size taken from a reference, segmentation of an inter frame, film
+ * grain of a reference frame, a reference frame other than LAST, a block
+ * predicted from a reference with global motion, dual interpolation
+ * filters, a vector candidate of the extra search, a wedge inter-intra
+ * block with 4:2:2 chroma); a
+ * stream libaom refuses (a cut header, a tile that reads past its bytes, a
+ * Golomb code longer than 20 bits, a block size the chroma subsampling
+ * does not allow, an inter frame first, a vector out of range, no frame
+ * shown, ...) ERR_VALUE.
  *
  * Entry points (ctypes, data/avif.py):
- *   av1_info(data, n, info[20], err, errlen): the frame's width, height,
+ *   av1_info(data, n, op, layer, info[20], err, errlen): of operating
+ *     point op (libavif's a1op; libaom takes 0 where the sequence has no
+ *     such point) and, with layer >= 0 (lsel), of the first frame shown of
+ *     that spatial layer, else of the last frame shown: its width, height,
  *     bit depth, mono_chrome, subsampling x / y, matrix coefficients,
  *     colour range, colour primaries, transfer characteristics, profile,
  *     still_picture, base_q_idx, tx_mode_select, cdef_bits, then
  *     FrameRestorationType of Y, U and V (0 none, 1 Wiener, 2
  *     self-guided, 3 switchable), the luma restoration unit size and
  *     lr_uv_shift;
- *   av1_decode(data, n, out, planes, H, W, err, errlen): the planes,
- *     uint16, Y (H x W) then U and V at their subsampled size;
+ *   av1_decode(data, n, op, layer, out, planes, H, W, err, errlen): that
+ *     frame's planes, uint16, Y (H x W) then U and V at their subsampled
+ *     size;
  *   av1_lr_stats(data, n, counts[9], ms, err, errlen): the frame decoded,
  *     its restoration units of each plane counted by type (none, Wiener,
  *     self-guided) and the milliseconds spent in the restoration filter;
  *   av1_grain_params(data, n, v[162], err, errlen): the frame's film
  *     grain in libaom's aom_film_grain_t order;
- *   av1_decode_ms(data, n, ms[3], err, errlen): milliseconds of the
- *     decode, of its film grain and of its superres upscaling.
+ *   av1_decode_ms(data, n, ms[4], counts, err, errlen): milliseconds of
+ *     the decode, of its film grain, of its superres upscaling and of its
+ *     inter prediction; where counts is not NULL, counts[14] the inter
+ *     frames' blocks by tool (Av1's tools).
  * av1_info and av1_grain_params read the headers alone and report the
  * frame that is output; av1_lr_stats counts the last frame decoded.
  */
@@ -111,12 +138,24 @@ static void forward_tx(Av1 *f, int plane, int x, int y, int t)
 
 /* a decoded frame: what a reference slot holds and what is output (the
  * last frame shown), with av1_info's fields (its size and format first)
- * and its grain; planes NULL where only the headers were read */
+ * and its grain; planes NULL where only the headers were read.  What a
+ * later inter frame loads from it (7.20): whether it is intra, its
+ * OrderHint and its references' (by reference frame), MiRows and MiCols,
+ * the loop filter deltas, segmentation features, global motion, its CDFs
+ * (NULL where only the headers were read), segment ids and motion field
+ * (per 8 x 8 unit; NULL where the sequence has no ref frame mvs) */
 struct Frame {
     int refs, showable, key, stride;
     int32_t info[20];
     Grain grain;
     uint16_t *plane[3];
+    int intra, order_hint, saved_hints[8], mi_rows, mi_cols;
+    int lf_ref[8], lf_mode[2], seg_mask[8], seg_data[8][8];
+    int32_t gm[8][6];
+    Cdfs *cdf;
+    uint8_t *seg_map;
+    int8_t *mf_ref;
+    int16_t *mf_mv;
 };
 
 /* -- header bits ---------------------------------------------------------- */
@@ -277,18 +316,21 @@ static void sequence_header(Av1 *f, Bits *b)
     f->filter_intra_en = (int)fb(b, 1);
     f->edge_filter_en = (int)fb(b, 1);
     f->order_hint_bits = 0;
+    f->enable_interintra = f->enable_warped = f->enable_dual_filter = 0;
+    f->enable_ref_frame_mvs = 0;
     if (f->reduced) {
         f->sct_force = 2;
         f->intmv_force = 2;
     } else {
-        fb(b, 1); /* interintra compound */
+        f->enable_interintra = (int)fb(b, 1);
         fb(b, 1); /* masked compound */
-        fb(b, 1); /* warped motion */
-        fb(b, 1); /* dual filter */
+        f->enable_warped = (int)fb(b, 1);
+        f->enable_dual_filter = (int)fb(b, 1);
         int order_hint = (int)fb(b, 1);
+        f->enable_ref_frame_mvs = 0;
         if (order_hint) {
             fb(b, 1); /* jnt comp */
-            fb(b, 1); /* ref frame mvs */
+            f->enable_ref_frame_mvs = (int)fb(b, 1);
         }
         if (fb(b, 1)) /* seq_choose_screen_content_tools */
             f->sct_force = 2;
@@ -305,6 +347,7 @@ static void sequence_header(Av1 *f, Bits *b)
         if (order_hint)
             f->order_hint_bits = (int)fb(b, 3) + 1;
     }
+    f->enable_order_hint = f->order_hint_bits > 0;
     f->superres_en = (int)fb(b, 1);
     f->cdef_en = (int)fb(b, 1);
     f->lr_en = (int)fb(b, 1);
@@ -460,8 +503,10 @@ static void loop_filter_params(Av1 *f, Bits *b)
         for (int i = 0; i < 10; i++)
             if (fb(b, 1)) {
                 int v = su(b, 7);
-                if (i == 0)
-                    f->lf_ref_delta_intra = v;
+                if (i < 8)
+                    f->lf_ref[i] = v;
+                else
+                    f->lf_mode[i - 8] = v;
             }
 }
 
@@ -522,14 +567,27 @@ static int grain_points(Av1 *f, Bits *b, int max, int (*pts)[2])
     return n;
 }
 
-/* film_grain_params of an intra frame with apply_grain set (libaom's
- * read_film_grain_params) */
+/* film_grain_params of a frame with apply_grain set (libaom's
+ * read_film_grain_params): an inter frame may take a reference's grain
+ * (update_grain 0) with its own seed */
 static void film_grain_params(Av1 *f, Bits *b)
 {
     Grain *g = &f->grain;
     memset(g, 0, sizeof(*g));
     g->apply = 1;
-    g->seed = (int)fb(b, 16); /* update_grain is 1 in an intra frame */
+    g->seed = (int)fb(b, 16);
+    if (f->inter_frame && !fb(b, 1)) {
+        av1_refuse(f, "an AV1 film grain of a reference frame");
+        int idx = (int)fb(b, 3), seed = g->seed, found = 0;
+        for (int i = LAST_FRAME; i <= ALTREF_FRAME; i++)
+            found |= f->ref_idx[i] == idx;
+        if (!found || !f->slot[idx])
+            av1_fail(f, ERR_VALUE, "AV1: film grain of a frame that is not "
+                     "a reference");
+        *g = f->slot[idx]->grain;
+        g->seed = seed;
+        return;
+    }
     g->ny = grain_points(f, b, 14, g->pts_y);
     g->from_luma = f->mono ? 0 : (int)fb(b, 1);
     if (!(f->mono || g->from_luma || (f->ssx && f->ssy && !g->ny))) {
@@ -568,6 +626,164 @@ static void film_grain_params(Av1 *f, Bits *b)
 }
 
 static void release_frame(struct Frame *fr);
+
+/* the references of an inter frame (ref_frame_idx): OrderHints,
+ * RefFrameSignBias, and each one's view and scale factors; libaom refuses a
+ * reference of another format or of a size it cannot scale from */
+static void setup_refs(Av1 *f)
+{
+    for (int i = LAST_FRAME; i <= ALTREF_FRAME; i++) {
+        const struct Frame *r = f->slot[f->ref_idx[i]];
+        RefView *v = &f->ref[i];
+        int rw = r->info[0], rh = r->info[1];
+        if (r->info[2] != f->bitdepth || r->info[4] != f->ssx ||
+            r->info[5] != f->ssy || r->info[3] != f->mono)
+            av1_fail(f, ERR_VALUE, "AV1: a reference frame of another "
+                     "format");
+        if (2 * f->W < rw || 2 * f->H < rh || f->W > 16 * rw ||
+            f->H > 16 * rh)
+            av1_fail(f, ERR_VALUE, "AV1: a reference frame of invalid "
+                     "dimensions");
+        f->order_hints[i] = r->order_hint;
+        f->sign_bias[i] = rel_dist(f, r->order_hint, f->order_hint) > 0;
+        memset(v, 0, sizeof(*v));
+        for (int p = 0; p < 3; p++)
+            v->plane[p] = r->plane[p];
+        v->stride = r->stride;
+        v->up_w = rw;
+        v->h = rh;
+        v->mi_rows = r->mi_rows;
+        v->mi_cols = r->mi_cols;
+        v->intra = r->intra;
+        v->order_hint = r->order_hint;
+        memcpy(v->saved_hints, r->saved_hints, sizeof(v->saved_hints));
+        v->mf_ref = r->mf_ref;
+        v->mf_mv = r->mf_mv;
+        v->xs = ((rw << 14) + f->W / 2) / f->W;
+        v->ys = ((rh << 14) + f->H / 2) / f->H;
+    }
+}
+
+/* setup_past_independence, or load_previous of the primary reference
+ * frame: the loop filter deltas, the segmentation features, PrevGmParams
+ * and the previous segment ids (where its size is the frame's) */
+static void load_previous(Av1 *f)
+{
+    static const int deltas[8] = {1, 0, 0, 0, -1, 0, -1, -1};
+    f->prev_seg = NULL;
+    if (f->primary_ref == 7) {
+        memcpy(f->lf_ref, deltas, sizeof(deltas));
+        f->lf_mode[0] = f->lf_mode[1] = 0;
+        memset(f->seg_mask, 0, sizeof(f->seg_mask));
+        memset(f->seg_data, 0, sizeof(f->seg_data));
+        memset(f->prev_gm, 0, sizeof(f->prev_gm));
+        for (int i = 0; i < 8; i++)
+            f->prev_gm[i][2] = f->prev_gm[i][5] = 1 << 16;
+        return;
+    }
+    const struct Frame *r = f->slot[f->ref_idx[f->primary_ref + 1]];
+    memcpy(f->lf_ref, r->lf_ref, sizeof(f->lf_ref));
+    memcpy(f->lf_mode, r->lf_mode, sizeof(f->lf_mode));
+    memcpy(f->seg_mask, r->seg_mask, sizeof(f->seg_mask));
+    memcpy(f->seg_data, r->seg_data, sizeof(f->seg_data));
+    memcpy(f->prev_gm, r->gm, sizeof(f->prev_gm));
+    if (r->mi_rows == f->MiRows && r->mi_cols == f->MiCols)
+        f->prev_seg = r->seg_map;
+}
+
+/* skipModeAllowed of skip_mode_params */
+static int skip_mode_allowed(Av1 *f)
+{
+    if (!f->inter_frame || !f->ref_select || !f->enable_order_hint)
+        return 0;
+    int fwd = -1, bwd = -1, fh = 0, bh = 0;
+    for (int i = LAST_FRAME; i <= ALTREF_FRAME; i++) {
+        int h = f->order_hints[i];
+        if (rel_dist(f, h, f->order_hint) < 0) {
+            if (fwd < 0 || rel_dist(f, h, fh) > 0)
+                fwd = i, fh = h;
+        } else if (rel_dist(f, h, f->order_hint) > 0) {
+            if (bwd < 0 || rel_dist(f, h, bh) < 0)
+                bwd = i, bh = h;
+        }
+    }
+    if (fwd < 0)
+        return 0;
+    if (bwd >= 0)
+        return 1;
+    for (int i = LAST_FRAME; i <= ALTREF_FRAME; i++)
+        if (rel_dist(f, f->order_hints[i], fh) < 0)
+            return 1;
+    return 0;
+}
+
+/* decode_subexp (k 3) and decode_signed_subexp_with_ref of the frame
+ * header */
+static int decode_subexp(Bits *b, int num)
+{
+    int i = 0, mk = 0;
+    for (;;) {
+        int b2 = i ? 3 + i - 1 : 3, a = 1 << b2;
+        if (num <= mk + 3 * a)
+            return (int)ns(b, (uint32_t)(num - mk)) + mk;
+        if (!fb(b, 1))
+            return (int)fb(b, b2) + mk;
+        i++;
+        mk += a;
+    }
+}
+
+static int signed_subexp_ref(Bits *b, int low, int high, int r)
+{
+    int mx = high - low, v = decode_subexp(b, mx);
+    r -= low;
+    int x = (r << 1) <= mx ? inverse_recenter(r, v)
+                          : mx - 1 - inverse_recenter(mx - 1 - r, v);
+    return x + low;
+}
+
+/* global_motion_params: each reference frame's warp against the previous
+ * frame's (PrevGmParams), and whether its shear is valid */
+static void global_motion_params(Av1 *f, Bits *b)
+{
+    for (int ref = 0; ref < 8; ref++) {
+        memset(f->gm[ref], 0, sizeof(f->gm[ref]));
+        f->gm[ref][2] = f->gm[ref][5] = 1 << 16;
+        f->gm_type[ref] = GM_IDENTITY;
+    }
+    for (int ref = LAST_FRAME; ref <= ALTREF_FRAME && f->inter_frame; ref++) {
+        int type = GM_IDENTITY;
+        if (fb(b, 1))
+            type = fb(b, 1) ? GM_ROTZOOM : fb(b, 1) ? GM_TRANSLATION
+                                                    : GM_AFFINE;
+        f->gm_type[ref] = type;
+        static const int order[6] = {2, 3, 4, 5, 0, 1};
+        for (int k = 0; k < 6; k++) {
+            int idx = order[k];
+            if (idx < 2 ? type < GM_TRANSLATION : idx < 4
+                ? type < GM_ROTZOOM : type < GM_AFFINE)
+                continue;
+            int abs_bits = 12, prec_bits = 15;
+            if (idx < 2) {
+                abs_bits = type == GM_TRANSLATION ? 9 - !f->allow_hp : 12;
+                prec_bits = type == GM_TRANSLATION ? 3 - !f->allow_hp : 6;
+            }
+            int diff = 16 - prec_bits, round = idx % 3 == 2 ? 1 << 16 : 0;
+            int sub = idx % 3 == 2 ? 1 << prec_bits : 0, mx = 1 << abs_bits;
+            int r = (f->prev_gm[ref][idx] >> diff) - sub;
+            f->gm[ref][idx] = (int32_t)(signed_subexp_ref(b, -mx, mx + 1, r)
+                                        * (1 << diff)) + round;
+        }
+        if (type == GM_ROTZOOM) {
+            f->gm[ref][4] = -f->gm[ref][3];
+            f->gm[ref][5] = f->gm[ref][2];
+        }
+    }
+    for (int ref = 0; ref < 8; ref++) {
+        int sh[4];
+        f->gm_valid[ref] = shear_params(f->gm[ref], sh);
+    }
+}
 
 /* every reference slot emptied (libaom's reset_frame_buffers) */
 static void reset_slots(Av1 *f)
@@ -639,11 +855,10 @@ static void frame_header(Av1 *f, Bits *b, int first)
             reset_slots(f);
         }
         show_frame = (int)fb(b, 1);
-        if (frame_type != 0 && frame_type != 2) {
-            if (first)
-                av1_fail(f, ERR_VALUE, "AV1: an inter frame first");
-            av1_fail(f, ERR_NOTIMPL, "AVIF: an AV1 inter frame");
-        }
+        if (frame_type != 0 && frame_type != 2 && first)
+            av1_fail(f, ERR_VALUE, "AV1: an inter frame first");
+        if (frame_type == 3)
+            av1_fail(f, ERR_NOTIMPL, "AVIF: an AV1 switch frame");
         if (frame_type == 0 && show_frame)
             for (int i = 0; i < 8; i++)
                 f->ref_valid[i] = 0;
@@ -655,18 +870,23 @@ static void frame_header(Av1 *f, Bits *b, int first)
         else
             error_resilient = (int)fb(b, 1);
     }
+    int intra = frame_type == 0 || frame_type == 2;
     f->frame_type = frame_type;
+    f->inter_frame = !intra;
     f->show_frame = show_frame;
     f->showable = showable;
     f->disable_cdf_update = (int)fb(b, 1);
     f->sct = f->sct_force == 2 ? (int)fb(b, 1) : f->sct_force;
-    if (f->sct && f->intmv_force == 2)
-        fb(b, 1); /* force_integer_mv */
+    f->force_intmv = 0;
+    if (f->sct)
+        f->force_intmv = f->intmv_force == 2 ? (int)fb(b, 1) : f->intmv_force;
+    if (intra)
+        f->force_intmv = 1;
     if (f->frame_id_present)
         frame_id(f, b, frame_type == 0 && show_frame);
     int size_override = f->reduced ? 0 : (int)fb(b, 1);
-    fb(b, f->order_hint_bits);
-    /* primary_ref_frame: none for intra frames */
+    f->order_hint = (int)fb(b, f->order_hint_bits);
+    f->primary_ref = intra || error_resilient ? 7 : (int)fb(b, 3);
     if (f->decoder_model_info && fb(b, 1)) { /* buffer_removal_time_present */
         for (int op = 0; op < f->op_count; op++)
             if (f->op_model[op]) {
@@ -684,19 +904,57 @@ static void frame_header(Av1 *f, Bits *b, int first)
         av1_fail(f, ERR_VALUE, "AV1: an intra-only frame refreshing every "
                  "reference");
     f->refresh = refresh;
-    if (refresh != 0xFF && error_resilient && f->order_hint_bits)
+    if ((!intra || refresh != 0xFF) && error_resilient && f->order_hint_bits)
         for (int i = 0; i < 8; i++)
-            fb(b, f->order_hint_bits);
-    /* frame_size, superres_params, render_size */
-    if (size_override) {
-        f->W = (int)fb(b, f->width_bits) + 1;
-        f->H = (int)fb(b, f->height_bits) + 1;
-        if (f->W > f->max_w || f->H > f->max_h)
-            av1_fail(f, ERR_VALUE, "AV1: a frame larger than the sequence's "
-                     "maximum");
-    } else {
-        f->W = f->max_w;
-        f->H = f->max_h;
+            /* libaom replaces a slot of another order hint by a grey
+             * frame; an intra frame predicts from none */
+            if ((int)fb(b, f->order_hint_bits) !=
+                (f->slot[i] ? f->slot[i]->order_hint : -1) && !intra)
+                av1_fail(f, ERR_NOTIMPL, "AVIF: an AV1 reference frame "
+                         "replaced by its order hint");
+    int found_ref = 0;
+    if (!intra) {
+        if (f->enable_order_hint && fb(b, 1))
+            av1_fail(f, ERR_NOTIMPL, "AVIF: AV1 frame_refs_short_signaling");
+        for (int i = LAST_FRAME; i <= ALTREF_FRAME; i++) {
+            int idx = (int)fb(b, 3);
+            f->ref_idx[i] = idx;
+            if (!f->slot[idx])
+                av1_fail(f, ERR_VALUE, "AV1: an inter frame references an "
+                         "empty slot");
+            if (f->frame_id_present) {
+                int n = f->frame_id_bits;
+                int delta = (int)fb(b, f->frame_id_delta) + 1;
+                int want = (f->frame_id + (1 << n) - delta) % (1 << n);
+                if (want != f->ref_id[idx] || !f->ref_valid[idx])
+                    av1_fail(f, ERR_VALUE, "AV1: a reference's frame id "
+                             "mismatches");
+            }
+        }
+        if (size_override && !error_resilient)
+            for (int i = LAST_FRAME; i <= ALTREF_FRAME && !found_ref; i++)
+                if (fb(b, 1)) { /* found_ref */
+                    av1_refuse(f, "an AV1 frame size taken from a "
+                               "reference");
+                    const struct Frame *r = f->slot[f->ref_idx[i]];
+                    f->W = r->info[0];
+                    f->H = r->info[1];
+                    found_ref = 1;
+                }
+    }
+    /* frame_size (or the size of frame_size_with_refs), superres_params,
+     * render_size */
+    if (!found_ref) {
+        if (size_override) {
+            f->W = (int)fb(b, f->width_bits) + 1;
+            f->H = (int)fb(b, f->height_bits) + 1;
+            if (f->W > f->max_w || f->H > f->max_h)
+                av1_fail(f, ERR_VALUE, "AV1: a frame larger than the "
+                         "sequence's maximum");
+        } else {
+            f->W = f->max_w;
+            f->H = f->max_h;
+        }
     }
     /* superres_params: the coded width (libaom's
      * av1_calculate_scaled_superres_size, at least 16 samples or the
@@ -711,13 +969,27 @@ static void frame_header(Av1 *f, Bits *b, int first)
     }
     f->MiCols = 2 * ((f->W + 7) >> 3);
     f->MiRows = 2 * ((f->H + 7) >> 3);
-    if (fb(b, 1)) { /* render_and_frame_size_different */
+    if (!found_ref && fb(b, 1)) { /* render_and_frame_size_different */
         fb(b, 16);
         fb(b, 16);
     }
-    f->allow_intrabc = f->sct && f->W == f->up_w ? (int)fb(b, 1) : 0;
+    f->allow_intrabc = 0;
+    if (intra)
+        f->allow_intrabc = f->sct && f->W == f->up_w ? (int)fb(b, 1) : 0;
+    f->allow_hp = f->use_ref_mvs = f->switchable_motion = 0;
+    f->interp_filter = 0;
+    if (!intra) {
+        f->allow_hp = f->force_intmv ? 0 : (int)fb(b, 1);
+        f->interp_filter = fb(b, 1) ? 4 : (int)fb(b, 2);
+        f->switchable_motion = (int)fb(b, 1);
+        if (!error_resilient && f->enable_ref_frame_mvs)
+            f->use_ref_mvs = (int)fb(b, 1);
+        setup_refs(f);
+    }
+    f->disable_end_update = 1;
     if (!(f->reduced || f->disable_cdf_update))
-        fb(b, 1); /* disable_frame_end_update_cdf */
+        f->disable_end_update = (int)fb(b, 1);
+    load_previous(f);
     tile_info(f, b);
     /* quantization_params */
     f->base_q = (int)fb(b, 8);
@@ -744,14 +1016,28 @@ static void frame_header(Av1 *f, Bits *b, int first)
         if (f->separate_uv_delta_q)
             f->qm_level[2] = (int)fb(b, 4);
     }
-    /* segmentation_params (no primary reference frame in an intra frame:
-     * the map and the data are updated); SegIdPreSkip, LastActiveSegId */
+    /* segmentation_params: without a primary reference frame the map and
+     * the data are updated; else the data not updated are the primary
+     * reference's (load_previous); SegIdPreSkip, LastActiveSegId */
     static const int seg_bits[8] = {8, 6, 6, 6, 6, 3, 0, 0};
     static const int seg_max[8] = {255, 63, 63, 63, 63, 7, 0, 0};
     f->seg_enabled = (int)fb(b, 1);
-    memset(f->seg_mask, 0, sizeof(f->seg_mask));
-    memset(f->seg_data, 0, sizeof(f->seg_data));
-    for (int i = 0; f->seg_enabled && i < 8; i++)
+    if (f->seg_enabled && f->inter_frame)
+        av1_refuse(f, "an AV1 segmentation of an inter frame");
+    f->seg_update_map = 1;
+    f->seg_temporal = 0;
+    int update_data = 1;
+    if (f->seg_enabled && f->primary_ref != 7) {
+        f->seg_update_map = (int)fb(b, 1);
+        if (f->seg_update_map)
+            f->seg_temporal = (int)fb(b, 1);
+        update_data = (int)fb(b, 1);
+    }
+    if (!f->seg_enabled || update_data) {
+        memset(f->seg_mask, 0, sizeof(f->seg_mask));
+        memset(f->seg_data, 0, sizeof(f->seg_data));
+    }
+    for (int i = 0; f->seg_enabled && update_data && i < 8; i++)
         for (int j = 0; j < 8; j++)
             if (fb(b, 1)) {
                 int v = j < 5 ? su(b, 1 + seg_bits[j]) : (int)fb(b,
@@ -777,15 +1063,19 @@ static void frame_header(Av1 *f, Bits *b, int first)
     memset(f->lf_level, 0, sizeof(f->lf_level));
     f->lf_sharpness = 0;
     f->lf_delta_enabled = 0;
-    f->lf_ref_delta_intra = 1;
     f->cdef_damping = 3;
     f->cdef_bits = 0;
     memset(f->cdef_pri, 0, sizeof(f->cdef_pri));
     memset(f->cdef_sec, 0, sizeof(f->cdef_sec));
     memset(f->lr_type, 0, sizeof(f->lr_type));
     f->lr_unit_shift = f->lr_uv_shift = 0;
-    if (!lossless && !f->allow_intrabc)
+    if (!lossless && !f->allow_intrabc) {
         loop_filter_params(f, b);
+    } else {
+        static const int deltas[8] = {1, 0, 0, 0, -1, 0, -1, -1};
+        memcpy(f->lf_ref, deltas, sizeof(deltas));
+        f->lf_mode[0] = f->lf_mode[1] = 0;
+    }
     if (!lossless && !f->allow_intrabc && f->cdef_en)
         cdef_params(f, b);
     if (!(lossless && f->W == f->up_w) && !f->allow_intrabc && f->lr_en)
@@ -793,9 +1083,15 @@ static void frame_header(Av1 *f, Bits *b, int first)
     f->tx_mode_select = 0;
     if (!lossless)
         f->tx_mode_select = (int)fb(b, 1);
-    /* reference_select, skip_mode, warped motion, global motion: none in
-     * an intra frame */
+    f->ref_select = intra ? 0 : (int)fb(b, 1);
+    f->skip_mode_present = 0;
+    if (skip_mode_allowed(f))
+        f->skip_mode_present = (int)fb(b, 1);
+    f->allow_warp = 0;
+    if (!intra && !error_resilient && f->enable_warped)
+        f->allow_warp = (int)fb(b, 1);
     f->reduced_tx_set = (int)fb(b, 1);
+    global_motion_params(f, b);
     f->grain.apply = 0;
     if (f->film_grain_present && (show_frame || showable) && fb(b, 1))
         film_grain_params(f, b);
@@ -832,7 +1128,19 @@ static void release_frame(struct Frame *fr)
         return;
     for (int p = 0; p < 3; p++)
         free(fr->plane[p]);
+    free(fr->cdf);
+    free(fr->seg_map);
+    free(fr->mf_ref);
+    free(fr->mf_mv);
     free(fr);
+}
+
+/* whether a frame shown is the one output: the last one, or with a layer
+ * selected (libavif's lsel: libaom outputs every layer) the first of that
+ * spatial layer */
+static int show_layer(Av1 *f)
+{
+    return f->want_layer < 0 || (!f->shown && f->spatial_id == f->want_layer);
 }
 
 static void hold(struct Frame **dst, struct Frame *fr)
@@ -859,11 +1167,38 @@ static void frame_done(Av1 *f, int decoded)
     fr->key = f->frame_type == 0;
     fr->grain = f->grain;
     fr->stride = f->stride;
-    if (decoded)
+    fr->intra = !f->inter_frame;
+    fr->order_hint = f->order_hint;
+    memcpy(fr->saved_hints, f->order_hints, sizeof(fr->saved_hints));
+    fr->mi_rows = f->MiRows;
+    fr->mi_cols = f->MiCols;
+    memcpy(fr->lf_ref, f->lf_ref, sizeof(fr->lf_ref));
+    memcpy(fr->lf_mode, f->lf_mode, sizeof(fr->lf_mode));
+    memcpy(fr->seg_mask, f->seg_mask, sizeof(fr->seg_mask));
+    memcpy(fr->seg_data, f->seg_data, sizeof(fr->seg_data));
+    memcpy(fr->gm, f->gm, sizeof(fr->gm));
+    if (decoded) {
         for (int p = 0; p < f->nplanes; p++) {
             fr->plane[p] = f->plane[p];
             f->plane[p] = NULL;
         }
+        /* the CDFs at the frame's end (of the tile context_update_tile_id
+         * names, unless disable_frame_end_update_cdf), counts cleared */
+        fr->cdf = malloc(sizeof(Cdfs));
+        if (!fr->cdf) {
+            free(fr);
+            av1_fail(f, ERR_MEMORY, "out of memory");
+        }
+        memcpy(fr->cdf, f->disable_end_update ? &f->cdf0 : &f->cdf_end,
+               sizeof(Cdfs));
+        cdfs_clear_counts(fr->cdf, sizeof(Cdfs));
+        fr->seg_map = f->seg_ids;
+        fr->mf_ref = f->save_ref;
+        fr->mf_mv = f->save_mv;
+        f->seg_ids = NULL;
+        f->save_ref = NULL;
+        f->save_mv = NULL;
+    }
     fr->refs = 1;
     for (int i = 0; i < 8; i++)
         if (f->refresh >> i & 1) {
@@ -871,7 +1206,7 @@ static void frame_done(Av1 *f, int decoded)
             f->ref_id[i] = f->frame_id;
             f->ref_valid[i] = 1;
         }
-    if (f->show_frame)
+    if (f->show_frame && show_layer(f))
         hold(&f->shown, fr);
     release_frame(fr);
     f->first_frame = 0;
@@ -882,7 +1217,8 @@ static void frame_done(Av1 *f, int decoded)
 static void show_existing(Av1 *f)
 {
     struct Frame *fr = f->slot[f->existing];
-    hold(&f->shown, fr);
+    if (show_layer(f))
+        hold(&f->shown, fr);
     if (fr->key) {
         fr->showable = 0;
         f->frame_id = f->ref_id[f->existing];
@@ -937,6 +1273,8 @@ static void tile_group(Av1 *f, const uint8_t *p, int64_t sz, int frame_obu,
         ec_dec_init(&f->ec, p + pos, size);
         code_tile(f, t / f->tile_cols, t % f->tile_cols, decode_superblock);
         check_trailing_bits(f, p + pos, size);
+        if (t == f->context_update_tile_id)
+            memcpy(&f->cdf_end, &f->cdf, sizeof(Cdfs));
         pos += size;
     }
     if (end == num - 1) {
@@ -983,8 +1321,10 @@ static void frame_obu(Av1 *f, Obus *o, int type, const uint8_t *p,
 {
     Bits b = {f, p, size, 0};
     if (type == 7) { /* a redundant frame header: a copy of the frame's */
+        /* libaom 3.14 refuses one outside a frame (measured) */
         if (!o->in_frame)
-            return;
+            av1_fail(f, ERR_VALUE, "AV1: a redundant frame header outside "
+                     "a frame");
         if (o->fh_size > size || memcmp(p, o->fh, (size_t)o->fh_size))
             av1_fail(f, ERR_VALUE, "AV1: a redundant frame header that "
                      "differs");
@@ -1016,8 +1356,31 @@ static void frame_obu(Av1 *f, Obus *o, int type, const uint8_t *p,
     if (!headers) {
         frame_free(f);
         frame_alloc(f);
-        cdfs_init(&f->cdf0, f->base_q <= 20 ? 0 : f->base_q <= 60 ? 1
-                            : f->base_q <= 120 ? 2 : 3);
+        if (f->primary_ref == 7) {
+            cdfs_init(&f->cdf0, f->base_q <= 20 ? 0 : f->base_q <= 60 ? 1
+                                : f->base_q <= 120 ? 2 : 3);
+        } else {
+            const struct Frame *r = f->slot[f->ref_idx[f->primary_ref + 1]];
+            if (!r->cdf)
+                av1_fail(f, ERR_VALUE, "AV1: a primary reference frame "
+                         "without CDFs");
+            memcpy(&f->cdf0, r->cdf, sizeof(Cdfs));
+        }
+        if (!f->seg_enabled)
+            f->prev_seg = NULL;
+        /* the saved motion field (per 8 x 8 unit), the projected one */
+        f->mf_rows = f->MiRows >> 1;
+        f->mf_cols = f->MiCols >> 1;
+        size_t n8 = (size_t)f->mf_rows * f->mf_cols;
+        if (f->enable_ref_frame_mvs) {
+            f->save_ref = av1_alloc(f, n8);
+            f->save_mv = av1_alloc(f, n8 * 4);
+        }
+        if (f->inter_frame) {
+            f->tpl_mv = av1_alloc(f, n8 * 4);
+            f->tpl_off = av1_alloc(f, n8);
+            motion_field(f);
+        }
     }
     if (type == 6) {
         int done = 0;
@@ -1077,7 +1440,9 @@ static void decode_obus(Av1 *f, const uint8_t *data, int64_t n, int headers)
             av1_fail(f, ERR_VALUE, "AV1: an OBU runs past the data");
         const uint8_t *p = data + pos;
         pos += (int64_t)size;
-        int op = f->seq_seen ? f->op_idc[0] : 0;
+        /* libaom's operating point: 0 where the sequence has not as many */
+        int op = !f->seq_seen ? 0 : f->op_idc[f->op_point < f->op_count ?
+                                               f->op_point : 0];
         if (type != 1 && type != 2 && ext && op &&
             !((op >> f->temporal_id) & 1 && (op >> (f->spatial_id + 8)) & 1))
             continue; /* not in operating point 0 */
@@ -1141,7 +1506,10 @@ static void decode_obus(Av1 *f, const uint8_t *data, int64_t n, int headers)
     if (!o.have_header || !o.frames)
         av1_fail(f, ERR_VALUE, "AV1: no frame in the data");
     if (!f->shown)
-        av1_fail(f, ERR_VALUE, "AV1: no frame is shown");
+        av1_fail(f, ERR_VALUE, f->want_layer < 0 ? "AV1: no frame is shown"
+                 : "AV1: no frame of the selected layer is shown");
+    if (!headers && f->refused)
+        av1_fail(f, ERR_NOTIMPL, "AVIF: %s", f->refused);
 }
 
 static Av1 *av1_open(char *err, int errlen)
@@ -1150,9 +1518,11 @@ static Av1 *av1_open(char *err, int errlen)
     if (f) {
         f->err = err;
         f->errlen = errlen;
+        f->want_layer = -1;
     }
     return f;
 }
+
 
 static void av1_close(Av1 *f)
 {
@@ -1164,12 +1534,14 @@ static void av1_close(Av1 *f)
     free(f);
 }
 
-int av1_info(const uint8_t *data, int64_t n, int32_t *info, char *err,
-             int errlen)
+int av1_info(const uint8_t *data, int64_t n, int op, int layer,
+             int32_t *info, char *err, int errlen)
 {
     Av1 *f = av1_open(err, errlen);
     if (!f)
         return ERR_MEMORY;
+    f->op_point = op;
+    f->want_layer = layer;
     int code = setjmp(f->jb);
     if (code == 0) {
         decode_obus(f, data, n, 1);
@@ -1213,12 +1585,15 @@ static void shown_frame(Av1 *f)
     memcpy(f->plane, keep, sizeof(f->plane));
 }
 
-int av1_decode(const uint8_t *data, int64_t n, uint16_t *out, int planes,
-               int64_t H, int64_t W, char *err, int errlen)
+int av1_decode(const uint8_t *data, int64_t n, int op, int layer,
+               uint16_t *out, int planes, int64_t H, int64_t W, char *err,
+               int errlen)
 {
     Av1 *f = av1_open(err, errlen);
     if (!f)
         return ERR_MEMORY;
+    f->op_point = op;
+    f->want_layer = layer;
     int code = setjmp(f->jb);
     if (code == 0) {
         decode_obus(f, data, n, 0);
@@ -1307,9 +1682,11 @@ int av1_grain_params(const uint8_t *data, int64_t n, int32_t *v, char *err,
 }
 
 /* the frame decoded and its grain added: ms[0] the milliseconds of the
- * whole, ms[1] of the grain, ms[2] of the superres upscaling */
-int av1_decode_ms(const uint8_t *data, int64_t n, double *ms, char *err,
-                  int errlen)
+ * whole, ms[1] of the grain, ms[2] of the superres upscaling, ms[3] of the
+ * inter prediction; counts (NULL: not wanted) the inter frames' blocks by
+ * tool (Av1's tools) */
+int av1_decode_ms(const uint8_t *data, int64_t n, double *ms, int32_t *counts,
+                  char *err, int errlen)
 {
     Av1 *f = av1_open(err, errlen);
     if (!f)
@@ -1322,7 +1699,74 @@ int av1_decode_ms(const uint8_t *data, int64_t n, double *ms, char *err,
         ms[0] = clock_ms() - t0;
         ms[1] = f->grain_ms;
         ms[2] = f->superres_ms;
+        ms[3] = f->inter_ms;
+        if (counts)
+            memcpy(counts, f->tools, sizeof(f->tools));
     }
     av1_close(f);
     return code;
+}
+
+/* the inter prediction of one block, for the tests: reference plane ref
+ * (stride samples a row) of a frame whose luma is rw x rh, predicting a
+ * frame of luma fw x fh (the scale factors' sizes) at depth bits with
+ * chroma subsampling ssx / ssy; p = {plane, x, y, w, h, vector row, vector
+ * column (1/8 luma sample), filter y, filter x, warp, then the warp's six
+ * parameters}: block_inter, or block_warp where warp is set, into out (h
+ * rows of w) */
+int av1_predict(const uint16_t *ref, int64_t stride, int rw, int rh, int fw,
+                int fh, int depth, int ssx, int ssy, const int32_t *p,
+                uint16_t *out, char *err, int errlen)
+{
+    Av1 *f = av1_open(err, errlen);
+    if (!f)
+        return ERR_MEMORY;
+    int code = setjmp(f->jb);
+    if (code == 0) {
+        int plane = p[0], x = p[1], y = p[2], w = p[3], h = p[4];
+        if (w < 1 || h < 1 || w > 128 || h > 128 || plane < 0 || plane > 2)
+            av1_fail(f, ERR_VALUE, "a block of %d x %d", w, h);
+        f->bitdepth = depth;
+        f->ssx = ssx;
+        f->ssy = ssy;
+        f->W = fw;
+        f->H = fh;
+        RefView *v = &f->ref[1];
+        v->plane[plane] = ref;
+        v->stride = (int)stride;
+        v->up_w = rw;
+        v->h = rh;
+        v->xs = ((rw << 14) + fw / 2) / fw;
+        v->ys = ((rh << 14) + fh / 2) / fh;
+        f->pred_tmp = av1_alloc(f, sizeof(int32_t) * 128 * 280);
+        f->pred_blk = av1_alloc(f, sizeof(uint16_t) * 128 * 128);
+        int mv[2] = {p[5], p[6]}, filt[2] = {p[7], p[8]};
+        if (p[9])
+            block_warp(f, plane, 1, p + 10, x, y, w, h, f->pred_blk);
+        else
+            block_inter(f, plane, 1, mv, filt, x, y, w, h, f->pred_blk);
+        for (int i = 0; i < h; i++)
+            memcpy(out + (size_t)i * w, f->pred_blk + i * 128,
+                   (size_t)w * 2);
+    }
+    av1_close(f);
+    return code;
+}
+
+/* the 16 wedge masks (sign 0) of block size bsize, each h rows of w, into
+ * out; returns 0, or ERR_VALUE for a size without wedges */
+int av1_wedge_masks(int bsize, uint8_t *out)
+{
+    static const int8_t sizes[9] = {3, 4, 5, 6, 7, 8, 9, 18, 19};
+    int ok = 0;
+    for (int k = 0; k < 9; k++)
+        ok |= sizes[k] == bsize;
+    if (!ok)
+        return ERR_VALUE;
+    int w = 4 << bw4_log2[bsize], h = 4 << bh4_log2[bsize];
+    for (int k = 0; k < 16; k++)
+        for (int i = 0; i < h; i++)
+            for (int j = 0; j < w; j++)
+                *out++ = (uint8_t)wedge_mask(bsize, k, i, j);
+    return 0;
 }

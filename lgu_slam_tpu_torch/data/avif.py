@@ -21,11 +21,14 @@ alpha item (``auxl`` with an alpha ``auxC``, an item or a grid); in a
 sequence, the first sample of the colour track and of its ``auxl`` alpha
 track (``moov``'s ``trak`` / ``tkhd`` / ``mdia`` / ``minf`` / ``stbl``
 sample tables).  Their OBUs are decoded in C (``csrc/host/av1_decode.c``:
-AV1 key and intra-only frames, lossless or lossy, 8 to 12 bits,
-monochrome, 4:4:4, 4:2:2 or 4:2:0, intra block copy, segmentation,
-deblocking, CDEF, superres and loop restoration, then the frame's film
-grain (``av1_grain.h``); of an item of several frames the last one shown,
-``show_existing_frame`` included, as libaom outputs it; the OBUs checked as
+AV1 key, intra-only and inter frames (``av1_inter.h``: the layers of the
+layered items libavif writes, one reference each), lossless or lossy, 8
+to 12 bits, monochrome, 4:4:4, 4:2:2 or 4:2:0, intra block copy,
+segmentation, deblocking, CDEF, superres and loop restoration, then the
+frame's film grain (``av1_grain.h``); of an item of several frames the
+last one shown, ``show_existing_frame`` included, as libaom outputs it, or
+with an ``lsel`` layer the first of that spatial layer, under ``a1op``'s
+operating point, as libavif has libaom output it; the OBUs checked as
 libaom checks them; the alpha is decoded and dropped, as OpenCV drops it),
 and a frame of another size than its item's (or track's) is scaled to it
 with libyuv's ScalePlane (:mod:`yuv_scale`), as libavif scales it.
@@ -64,8 +67,15 @@ item, matrix coefficients libavif's YUV to RGB refuses, subsampled
 colour labelled identity, item data stored in an order OpenCV's reader
 refuses (:func:`_stored_before`), a grid's tiles that do not fit its
 output, ...); what OpenCV reads and this module does not yet read raises
-``NotImplementedError`` naming it: an AV1 inter frame (no encoder here
-writes one), a frame of more samples than its image and than
+``NotImplementedError`` naming it: the AV1 inter tools no layered item
+here uses (compound prediction, skip mode, switch frames,
+``frame_refs_short_signaling``, a reference replaced by its order hint;
+and, once a decode libaom's checks pass has ended, a frame size taken
+from a reference, segmentation of an inter frame, film grain of a
+reference frame, a reference frame other than LAST, a block predicted
+from a reference with global motion, dual interpolation filters, a vector
+candidate of the extra search, a wedge inter-intra block with 4:2:2
+chroma), a frame of more samples than its image and than
 ``SCALED_PIXELS`` (the guard against a damaged header), and an 8-bit
 frame under a deeper ``av1C`` in an ``IMREAD_ANYDEPTH`` colour read
 (OpenCV reads uninitialised memory there).
@@ -489,11 +499,12 @@ def _properties(data: bytes, start: int, end: int) -> list:
             if r.u(1) & (0xFC if kind == b"irot" else 0xFE):
                 raise ValueError(f"AVIF: {kind.decode()}'s reserved bits")
         elif kind == b"a1op":
-            if r.u(1) > 31:
+            value = r.u(1)
+            if value > 31:
                 raise ValueError("AVIF: a1op's operating point")
         elif kind == b"lsel":
-            layer = r.u(2)
-            if layer != 0xFFFF and layer >= 4:
+            value = r.u(2)
+            if value != 0xFFFF and value >= 4:
                 raise ValueError("AVIF: lsel's layer")
         elif kind == b"a1lx":
             x = r.u(1)
@@ -833,15 +844,15 @@ def _payload(data: bytes, box: dict, item: dict) -> bytes:
 def _lib():
     lib = _build.load("av1_decode")
     i64, ptr, cint = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int
-    lib.av1_info.argtypes = [ctypes.c_char_p, i64, ptr, ctypes.c_char_p,
-                             cint]
-    lib.av1_decode.argtypes = [ctypes.c_char_p, i64, ptr, cint, i64, i64,
-                               ctypes.c_char_p, cint]
+    lib.av1_info.argtypes = [ctypes.c_char_p, i64, cint, cint, ptr,
+                             ctypes.c_char_p, cint]
+    lib.av1_decode.argtypes = [ctypes.c_char_p, i64, cint, cint, ptr, cint,
+                               i64, i64, ctypes.c_char_p, cint]
     lib.av1_lr_stats.argtypes = [ctypes.c_char_p, i64, ptr, ptr,
                                  ctypes.c_char_p, cint]
     lib.av1_grain_params.argtypes = [ctypes.c_char_p, i64, ptr,
                                      ctypes.c_char_p, cint]
-    lib.av1_decode_ms.argtypes = [ctypes.c_char_p, i64, ptr,
+    lib.av1_decode_ms.argtypes = [ctypes.c_char_p, i64, ptr, ptr,
                                   ctypes.c_char_p, cint]
     lib.av1_info.restype = lib.av1_decode.restype = cint
     lib.av1_lr_stats.restype = lib.av1_grain_params.restype = cint
@@ -857,10 +868,12 @@ def _call(fn, *args):
             errors="replace"))
 
 
-def av1_info(obus: bytes) -> dict:
-    """The frame header of an AV1 still image's OBUs."""
+def av1_info(obus: bytes, op: int = 0, layer: int = -1) -> dict:
+    """The frame header of the frame an AV1 item's OBUs output: under
+    operating point ``op`` (``a1op``), the last frame shown, or with
+    ``layer`` (``lsel``) the first shown of that spatial layer."""
     v = np.zeros(20, np.int32)
-    _call(_lib().av1_info, obus, len(obus), v.ctypes.data)
+    _call(_lib().av1_info, obus, len(obus), op, layer, v.ctypes.data)
     keys = ("width", "height", "depth", "mono", "ssx", "ssy", "matrix",
             "full_range", "primaries", "transfer", "profile", "still",
             "base_q", "tx_mode_select", "cdef_bits")
@@ -872,16 +885,19 @@ def av1_info(obus: bytes) -> dict:
     return info
 
 
-def av1_planes(obus: bytes, info: dict = None) -> tuple:
+def av1_planes(obus: bytes, info: dict = None, op: int = 0,
+               layer: int = -1) -> tuple:
     """(planes: a list of ``uint16`` arrays, Y ``[H, W]`` then U and V at
-    their subsampled size, frame header) of an AV1 intra frame, decoded in
-    C; ``info``: its :func:`av1_info`, where known."""
-    info = info or av1_info(obus)
+    their subsampled size, frame header) of the frame an AV1 item outputs
+    (:func:`av1_info`'s ``op`` and ``layer``), decoded in C; ``info``: its
+    :func:`av1_info`, where known."""
+    info = info or av1_info(obus, op, layer)
     n = 1 if info["mono"] else 3
     H, W = info["height"], info["width"]
     Hc, Wc = (H + info["ssy"]) >> info["ssy"], (W + info["ssx"]) >> info["ssx"]
     out = np.empty(H * W + (n - 1) * Hc * Wc, np.uint16)
-    _call(_lib().av1_decode, obus, len(obus), out.ctypes.data, n, H, W)
+    _call(_lib().av1_decode, obus, len(obus), op, layer, out.ctypes.data, n,
+          H, W)
     planes = [out[:H * W].reshape(H, W)]
     for k in range(n - 1):
         start = H * W + k * Hc * Wc
@@ -911,11 +927,14 @@ def grain_params(obus: bytes) -> np.ndarray:
     return v
 
 
-def _decode_ms(obus: bytes) -> np.ndarray:
-    """ms of the decode of AV1 data, of its film grain and of its superres
-    upscaling, decoded in C."""
-    ms = np.zeros(3, np.float64)
-    _call(_lib().av1_decode_ms, obus, len(obus), ms.ctypes.data)
+def _decode_ms(obus: bytes, counts=None) -> np.ndarray:
+    """ms of the decode of AV1 data, of its film grain, of its superres
+    upscaling and of its inter prediction, decoded in C; ``counts`` (an
+    int32 array of len(:data:`INTER_TOOLS`)) takes the inter frames' blocks
+    by tool."""
+    ms = np.zeros(4, np.float64)
+    _call(_lib().av1_decode_ms, obus, len(obus), ms.ctypes.data,
+          None if counts is None else counts.ctypes.data)
     return ms
 
 
@@ -924,6 +943,27 @@ def grain_ms(obus: bytes) -> tuple:
     decoded in C."""
     ms = _decode_ms(obus)
     return float(ms[0]), float(ms[1])
+
+
+# the counts of av1_decode_ms: the inter frames' blocks by tool
+INTER_TOOLS = ("inter", "intra", "newmv", "globalmv", "obmc", "local_warp",
+               "global_warp", "interintra", "wedge", "scaled", "sub8x8",
+               "dual_filter", "projected", "temporal")
+
+
+def inter_stats(obus: bytes) -> tuple:
+    """(counts, ms of the decode, ms of its inter prediction) of AV1 data
+    decoded in C: ``counts`` by :data:`INTER_TOOLS`: the inter frames'
+    inter and intra blocks, NEWMV and GLOBALMV ones, OBMC, valid local
+    warps, global warps, inter-intra with and without a wedge; predictions
+    from a reference of another size and chroma predicted from several
+    luma blocks' vectors, counted per prediction; blocks of two
+    interpolation filters; motion field units projected
+    (use_ref_frame_mvs); temporal candidates added to a block's vector
+    stack.  A decode that reaches a refused tool raises."""
+    counts = np.zeros(len(INTER_TOOLS), np.int32)
+    ms = _decode_ms(obus, counts)
+    return dict(zip(INTER_TOOLS, counts.tolist())), float(ms[0]), float(ms[3])
 
 
 def superres_ms(obus: bytes) -> tuple:
@@ -944,15 +984,19 @@ def _decode(data: bytes, box: dict, item: dict, size, alpha=False
     allocate more.  An ``alpha`` item is decoded for its faults only
     (OpenCV's reader drops it): its planes are None."""
     payload = _payload(data, box, item)
+    # libavif decodes the item under its a1op's operating point; with an
+    # lsel layer libaom outputs every layer and libavif takes that one
+    op, layer = prop(item, b"a1op") or 0, prop(item, b"lsel")
+    layer = -1 if layer in (None, 0xFFFF) else layer
     try:
-        info = av1_info(payload)
+        info = av1_info(payload, op, layer)
     except NotImplementedError as e:
         return None, None, e
     W, H = info["width"], info["height"]
     if W * H > max(size[0] * size[1], SCALED_PIXELS):
         return None, info, NotImplementedError(
             "AVIF: a frame larger than its image (libavif scales it)")
-    planes = av1_planes(payload, info)[0]
+    planes = av1_planes(payload, info, op, layer)[0]
     if (W, H) != tuple(size) and (W > 16384 or H > 16384):
         raise ValueError("AVIF: a frame wider or taller than 16384 that "
                          "libavif would scale")

@@ -307,6 +307,31 @@ def write_frame(path, image, kind: str) -> str:
     return path
 
 
+def _write_tum(root, rgb, depths, poses, rate: float, depth: str = "png"
+               ) -> None:
+    """The rest of a TUM RGB-D sequence under ``root`` whose colour frames
+    the caller has written under ``rgb/`` (``rgb``: their file names, frame
+    k stamped ``TUM_T0 + k / rate``): each frame's depth (in 1/5000 m, 10
+    ms later, as :func:`write_frame`'s ``depth`` format), its ground truth
+    at the colour stamp, and the three lists."""
+    os.makedirs(os.path.join(root, "depth"), exist_ok=True)
+    lines, dep, gt, files = [], [], [], []
+    for k, name in enumerate(rgb):
+        t = TUM_T0 + k / rate
+        d = np.clip(np.rint(depths[k] * 5000.0), 0, 65535).astype(np.uint16)
+        files.append((os.path.join(root, "depth", f"{t + 0.01:.6f}"), d,
+                      depth))
+        lines.append(f"{t:.6f} rgb/{name}")
+        dep.append(f"{t + 0.01:.6f} depth/{t + 0.01:.6f}."
+                   f"{FRAME_EXT[depth]}")
+        gt.append(f"{t:.6f} " + " ".join(f"{v:.7f}" for v in poses[k]))
+    _on_cores(lambda f: write_frame(*f), files)
+    _write_list(os.path.join(root, "rgb.txt"), "# color images", lines)
+    _write_list(os.path.join(root, "depth.txt"), "# depth maps", dep)
+    _write_list(os.path.join(root, "groundtruth.txt"),
+                "# timestamp tx ty tz qx qy qz qw", gt)
+
+
 def write_tum_sequence(root, n_frames: int = 40, H: int = 480, W: int = 640,
                        seed: int = 0, rate: float = 30.0, color: str = "png",
                        depth: str = "png") -> str:
@@ -318,23 +343,53 @@ def write_tum_sequence(root, n_frames: int = 40, H: int = 480, W: int = 640,
     ``root``."""
     images, depths, poses, _ = render_sequence(
         seed, n_frames, H, W, TUM_FR1, t_step=0.02, r_step=0.004)
-    for sub in ("rgb", "depth"):
-        os.makedirs(os.path.join(root, sub), exist_ok=True)
-    rgb, dep, gt, files = [], [], [], []
-    for k in range(n_frames):
-        t = TUM_T0 + k / rate
-        d = np.clip(np.rint(depths[k] * 5000.0), 0, 65535).astype(np.uint16)
-        files += [(os.path.join(root, "rgb", f"{t:.6f}"), images[k], color),
-                  (os.path.join(root, "depth", f"{t + 0.01:.6f}"), d, depth)]
-        rgb.append(f"{t:.6f} rgb/{t:.6f}.{FRAME_EXT[color]}")
-        dep.append(f"{t + 0.01:.6f} depth/{t + 0.01:.6f}."
-                   f"{FRAME_EXT[depth]}")
-        gt.append(f"{t:.6f} " + " ".join(f"{v:.7f}" for v in poses[k]))
-    _on_cores(lambda f: write_frame(*f), files)
-    _write_list(os.path.join(root, "rgb.txt"), "# color images", rgb)
-    _write_list(os.path.join(root, "depth.txt"), "# depth maps", dep)
-    _write_list(os.path.join(root, "groundtruth.txt"),
-                "# timestamp tx ty tz qx qy qz qw", gt)
+    os.makedirs(os.path.join(root, "rgb"), exist_ok=True)
+    stamps = [f"{TUM_T0 + k / rate:.6f}" for k in range(n_frames)]
+    _on_cores(lambda f: write_frame(*f), [
+        (os.path.join(root, "rgb", t), img, color)
+        for t, img in zip(stamps, images)])
+    _write_tum(root, [f"{t}.{FRAME_EXT[color]}" for t in stamps], depths,
+               poses, rate, depth)
+    return root
+
+
+def write_tum_with_colour(root, colour, seed: int, order=None,
+                          png: bool = False, rate: float = 30.0) -> str:
+    """A TUM RGB-D sequence under ``root`` whose colour frames are encoded
+    files given as they are (``colour``: a list of (extension, bytes), such
+    as committed layered AVIF items no writer here makes), taken in
+    ``order`` (indices into ``colour``; by default each once): the depth
+    and ground truth of each are those of the same frame of
+    ``render_sequence(seed, len(colour), H, W, TUM_FR1)``, H x W the
+    colour's decoded size, as :func:`write_tum_sequence` writes them; with
+    ``png`` the colour is stored as the PNG of what each file reads back
+    as.  Returns ``root``."""
+    from lgu_slam_tpu_torch.data.image_io import imread
+
+    order = list(range(len(colour))) if order is None else list(order)
+    os.makedirs(os.path.join(root, "rgb"), exist_ok=True)
+    first = os.path.join(root, "rgb", "first." + colour[0][0])
+    with open(first, "wb") as fh:
+        fh.write(colour[0][1])
+    H, W = imread(first).shape[:2]
+    os.remove(first)
+    _, depths, poses, _ = render_sequence(seed, len(colour), H, W, TUM_FR1,
+                                          t_step=0.02, r_step=0.004)
+    names = []
+    for n, k in enumerate(order):
+        t = f"{TUM_T0 + n / rate:.6f}"
+        ext, data = colour[k]
+        path = os.path.join(root, "rgb", f"{t}.{ext}")
+        with open(path, "wb") as fh:
+            fh.write(data)
+        if png:
+            img = imread(path)
+            os.remove(path)
+            ext = "png"
+            write_frame(os.path.join(root, "rgb", t), img, "png")
+        names.append(f"{t}.{ext}")
+    _write_tum(root, names, [depths[k] for k in order],
+               [poses[k] for k in order], rate)
     return root
 
 

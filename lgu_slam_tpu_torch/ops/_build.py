@@ -21,6 +21,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -81,7 +82,8 @@ def _stale(name: str) -> bool:
 
 def _start(name: str) -> tuple[subprocess.Popen, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"lib{name}.so.{os.getpid()}.tmp"
+    # per process and thread: two threads of a reader may build one library
+    tmp = BUILD_DIR / f"lib{name}.so.{os.getpid()}.{threading.get_ident()}.tmp"
     src = _source(name)
     compiler = [_nvcc(), *NVCC_FLAGS] if src.suffix == ".cu" else \
         [_cc(), *HOST_CFLAGS]

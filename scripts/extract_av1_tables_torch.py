@@ -257,7 +257,114 @@ SPEC_CONSTANTS = [
     ("wiener_taps_k", [1, 2, 3]), ("wiener_taps_mid", [3, -7, 15]),
     ("sgrproj_xqd_min", [-96, -32]), ("sgrproj_xqd_max", [31, 95]),
     ("sgrproj_xqd_mid", [-32, 31]),
+    # the vertical wedge prototype (Wedge_Master_Vertical), which libaom
+    # keeps in code
+    ("wedge_master_vertical", [0] * 29 + [2, 7, 21, 43, 57, 62] + [64] * 29),
 ]
+
+# the inter CDFs libaom builds in code (av1_init_mode_probs): read out of a
+# FRAME_CONTEXT that function fills, called through ctypes at its .symtab
+# address; (C name, offset in uint16 of the FRAME_CONTEXT, shape).  The
+# offsets follow libaom 3.14's field order (entropymode.h) and are checked
+# against the tables the .symtab names at their own offsets (ANCHORS) and
+# against the specification's first values of a few (FC_SPEC).
+FC_CDFS = [
+    ("newmv_cdf", 4045, (6, 3)), ("zeromv_cdf", 4063, (2, 3)),
+    ("refmv_cdf", 4069, (6, 3)), ("drl_cdf", 4087, (3, 3)),
+    ("interintra_cdf", 4608, (4, 3)),
+    ("wedge_interintra_cdf", 4620, (22, 3)),
+    ("interintra_mode_cdf", 4686, (4, 5)),
+    ("motion_mode_cdf", 4706, (22, 4)), ("obmc_cdf", 4794, (22, 3)),
+    ("comp_inter_cdf", 5671, (5, 3)), ("single_ref_cdf", 5686, (3, 6, 3)),
+    ("skip_mode_cdf", 5926, (3, 3)), ("intra_inter_cdf", 5944, (4, 3)),
+    ("seg_pred_cdf", 6245, (3, 3)), ("y_mode_cdf", 6363, (4, 14)),
+    ("switchable_interp_cdf", 7029, (16, 4)),
+]
+FC_ANCHORS = [("default_wedge_idx_cdf", 4234), ("default_palette_y_color_index_cdf", 4972),
+              ("default_uv_mode_cdf", 6419), ("default_partition_cdf", 6809),
+              ("default_kf_y_mode_cdf", 7093), ("default_intra_ext_tx_cdf", 7585),
+              ("default_inter_ext_tx_cdf", 10237)]
+FC_SPEC = {"newmv_cdf": 24035, "zeromv_cdf": 2175, "refmv_cdf": 23974,
+           "drl_cdf": 13104, "intra_inter_cdf": 806, "skip_mode_cdf": 32621}
+FC_SIZE = 10618  # uint16 of av1_init_mode_probs's fields, up to cfl_alpha
+# the interpolation filters in the specification's order of
+# Subpel_Filters: regular, smooth, sharp, bilinear, 4-tap regular, 4-tap
+# smooth (16 phases of 8 taps)
+SUBPEL = ["av1_sub_pel_filters_8", "av1_sub_pel_filters_8smooth",
+          "av1_sub_pel_filters_8sharp", "av1_bilinear_filters",
+          "av1_sub_pel_filters_4", "av1_sub_pel_filters_4smooth"]
+INTER_PLAIN = [
+    ("av1_warped_filter", "warped_filter", "<i2", "int16_t", (193, 8)),
+    ("div_lut", "div_lut", "<i2", "int16_t", (257,)),
+    ("obmc_mask_2", "obmc_mask_2", "u1", "uint8_t", (2,)),
+    ("obmc_mask_4", "obmc_mask_4", "u1", "uint8_t", (4,)),
+    ("obmc_mask_8", "obmc_mask_8", "u1", "uint8_t", (8,)),
+    ("obmc_mask_16", "obmc_mask_16", "u1", "uint8_t", (16,)),
+    ("obmc_mask_32", "obmc_mask_32", "u1", "uint8_t", (32,)),
+    ("ii_weights1d", "ii_weights1d", "u1", "uint8_t", (128,)),
+    ("ii_size_scales", "ii_size_scales", "u1", "uint8_t", (22,)),
+    ("wedge_master_oblique_even", "wedge_master_even", "u1", "uint8_t",
+     (64,)),
+    ("wedge_master_oblique_odd", "wedge_master_odd", "u1", "uint8_t", (64,)),
+    ("wedge_signflip_lookup", "wedge_signflip", "u1", "uint8_t", (22, 16)),
+    ("default_wedge_idx_cdf", None, None, None, (22, 17)),
+]
+# wedge codebooks (direction, x offset, y offset) of square, tall and wide
+# blocks
+WEDGE_BOOKS = ["wedge_codebook_16_heqw", "wedge_codebook_16_hgtw",
+               "wedge_codebook_16_hltw"]
+
+
+def _local_function(path: str, lib: bytes, name: str):
+    """A function of the library's .symtab (a local one too) as a ctypes
+    function taking one pointer: the library is loaded and the symbol's
+    address placed by the load address of ``aom_codec_av1_dx``."""
+    import ctypes
+
+    shoff, = struct.unpack_from("<Q", lib, 0x28)
+    shentsize, shnum = struct.unpack_from("<HH", lib, 0x3A)
+    sections = [struct.unpack_from("<IIQQQQIIQQ", lib, shoff + k * shentsize)
+                for k in range(shnum)]
+    _, _, _, _, off, size, link, _, _, entsize = [
+        s for s in sections if s[1] == 2][0]
+    strtab = sections[link][4]
+    found = {}
+    for k in range(size // entsize):
+        name_off, info, _, _, value, _ = struct.unpack_from(
+            "<IBBHQQ", lib, off + k * entsize)
+        if info & 15 != 2:  # STT_FUNC
+            continue
+        found[lib[strtab + name_off:lib.index(b"\0", strtab + name_off)]
+              .decode()] = value
+    so = ctypes.CDLL(path)
+    base = ctypes.cast(so.aom_codec_av1_dx, ctypes.c_void_p).value - \
+        found["aom_codec_av1_dx"]
+    fn = ctypes.CFUNCTYPE(None, ctypes.c_void_p)(base + found[name])
+    fn._so = so  # keep the library loaded
+    return fn
+
+
+def frame_context_cdfs(path: str, lib: bytes, syms: dict) -> list:
+    """The FC_CDFS tables in the specification's form, from a FRAME_CONTEXT
+    that libaom's av1_init_mode_probs fills."""
+    import ctypes
+
+    buf = (ctypes.c_uint16 * (FC_SIZE + 64))()
+    _local_function(path, lib, "av1_init_mode_probs")(ctypes.addressof(buf))
+    fc = np.array(buf, np.uint16)
+    for sym, pos in FC_ANCHORS:
+        t = np.frombuffer(syms[sym][0], "<u2")
+        if not np.array_equal(fc[pos:pos + len(t)], t):
+            raise SystemExit(f"the frame context's layout: {sym} is not at "
+                             f"{pos}")
+    out = []
+    for name, pos, shape in FC_CDFS:
+        a = fc[pos:pos + int(np.prod(shape))].reshape(shape)
+        if name in FC_SPEC and 32768 - int(a.reshape(-1)[0]) != FC_SPEC[name]:
+            raise SystemExit(f"{name}: not the specification's default")
+        out.append(_array("uint16_t", name, spec_form(a)))
+    return out
+
 
 # default_nmv_context (libaom's nmv_context): the joints' CDF row, then for
 # the vertical and the horizontal component the rows of classes, class0_fp
@@ -437,6 +544,22 @@ def render() -> dict:
         n = int(np.prod(shape)) * np.dtype(dtype).itemsize
         parts.append(_array(ctype, name, np.frombuffer(
             table(syms, sym, n), dtype).reshape(shape)))
+    parts += frame_context_cdfs(library_path(), lib, syms)
+    for sym, name, dtype, ctype, shape in INTER_PLAIN:
+        n = int(np.prod(shape)) * (np.dtype(dtype).itemsize if dtype else 2)
+        raw = table(syms, sym, n)
+        if name is None:
+            parts.append(_array("uint16_t", "wedge_idx_cdf", spec_form(
+                np.frombuffer(raw, "<u2").reshape(shape))))
+        else:
+            parts.append(_array(ctype, name, np.frombuffer(
+                raw, dtype).reshape(shape)))
+    parts.append(_array("int16_t", "subpel_filters", np.stack([
+        np.frombuffer(table(syms, sym, 256), "<i2").reshape(16, 8)
+        for sym in SUBPEL])))
+    parts.append(_array("int8_t", "wedge_codebook", np.stack([
+        np.frombuffer(table(syms, sym, 192), "<i4").reshape(16, 3)
+        for sym in WEDGE_BOOKS])))
     grain = check_grain_vectors(table(syms, "film_grain_test_vectors",
                                       16 * 4 * GRAIN_INTS))
     parts.append(_array("int32_t", "film_grain_test_vectors", grain))
@@ -508,7 +631,18 @@ def render() -> dict:
  * the CDFs of intra block copy vectors: at 0 the joints (4 symbols), then
  * for the vertical (at 5) and the horizontal component (at 74): classes
  * (11) at +0, class0_fp (2 x 4) at +12, fp (4) at +22, sign at +27,
- * class0_hp at +30, hp at +33, class0 at +36, bits (10 x 2) at +39.
+ * class0_hp at +30, hp at +33, class0 at +36, bits (10 x 2) at +39;
+ * inter blocks use the same defaults (libaom's nmvc).  The inter CDFs
+ * (newmv_cdf ... switchable_interp_cdf) are those libaom's
+ * av1_init_mode_probs writes; wedge_idx_cdf is indexed by block size.
+ * subpel_filters holds the interpolation filters in the specification's
+ * order (regular, smooth, sharp, bilinear, 4-tap regular, 4-tap smooth),
+ * warped_filter the warp filter's 193 phases, div_lut the warp's
+ * reciprocals, obmc_mask_* OBMC's blending masks, ii_weights1d and
+ * ii_size_scales the smooth inter-intra masks, wedge_master_* the oblique
+ * wedge prototypes, wedge_signflip the wedges' sign flips by block size
+ * and wedge_codebook the (direction, x, y offset) codebooks of square,
+ * tall and wide blocks.
  *
  * Written by scripts/extract_av1_tables_torch.py from the .symtab of
  * OpenCV's libaom (the CDFs libaom keeps in its code are the

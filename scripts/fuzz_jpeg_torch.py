@@ -665,9 +665,9 @@ int main(int argc, char **argv)
 
 
 AV1_HARNESS = LOOP + r"""
-int av1_info(const uint8_t *, int64_t, int32_t *, char *, int);
-int av1_decode(const uint8_t *, int64_t, uint16_t *, int, int64_t, int64_t,
-               char *, int);
+int av1_info(const uint8_t *, int64_t, int, int, int32_t *, char *, int);
+int av1_decode(const uint8_t *, int64_t, int, int, uint16_t *, int, int64_t,
+               int64_t, char *, int);
 int main(int argc, char **argv)
 {
     long mutations = atol(argv[1]), counts[4] = {0}, skipped = 0;
@@ -678,7 +678,7 @@ int main(int argc, char **argv)
         uint8_t *base = load(argv[f], &n);
         FOR_EACH_INPUT(base, n, mutations, {
             int32_t info[20];
-            int st = av1_info(d, m, info, err, sizeof err);
+            int st = av1_info(d, m, 0, -1, info, err, sizeof err);
             int planes = info[3] ? 1 : 3;
             if (!st && (int64_t)info[0] * info[1] > (1 << 20))
                 skipped++;  /* more samples than the seeds: not decoded */
@@ -686,8 +686,8 @@ int main(int argc, char **argv)
                 if (!st) {
                     uint16_t *o = malloc(sizeof(uint16_t) * (size_t)planes
                                          * (size_t)info[0] * info[1]);
-                    st = av1_decode(d, m, o, planes, info[1], info[0], err,
-                                    sizeof err);
+                    st = av1_decode(d, m, 0, -1, o, planes, info[1],
+                                    info[0], err, sizeof err);
                     free(o);
                 }
                 counts[st]++;

@@ -89,7 +89,43 @@ read bit for bit (the files of ``chip_smoke.py`` phase 23):
   ``port_two_frames.avif`` (two AV1 frames in the item; OpenCV shows the
   second);
 
+layered (progressive) items, written through cv2's own libavif 1.4.2
+with ctypes (:func:`encode_layered`: ``extraLayerCount``, a quality and a
+scaling fraction per layer; avifenc's ``--progressive``), read bit for
+bit: AV1 inter frames, one reference each (the files of ``chip_smoke.py``
+phase 24; 96 x 128 frames of the rendered TUM scene, two poses taking
+turns as the layers):
+
+- ``layered_l2_s6_c444.avif``: 2 layers at qualities 30 and 80, 4:4:4,
+  speed 6 (local warp); ``layered_l2_s6_alpha.avif``: the same at 4:2:0
+  with an alpha item of 2 layers;
+- ``layered_l2_s0_half_c420.avif``: a base layer at half scale, then the
+  full frame, 4:2:0, speed 0 (OBMC, inter-intra, scaled prediction);
+- ``layered_l3_s2_c10.avif``: 3 quality layers, 10-bit 4:2:0, speed 2;
+- ``layered_l3_s0_quarter.avif``: layers at a quarter, half and full
+  scale, 4:2:0, speed 0 (a wedge inter-intra block);
+- ``layered_l4_s0_c444.avif``, ``layered_l4_s0_g8.avif``: 4 quality
+  layers at speed 0, 4:4:4 and gray (OBMC, local warp over 4-sample
+  neighbours, inter-intra);
+- ``layered_l4_s9_c12_quarter.avif``: 4 layers, 12-bit 4:4:4, speed 9,
+  the first two at a quarter and half scale;
+- ``layered_l3_s0_sub8x8_c420.avif``, ``layered_l3_s0_sub8x8_c422.avif``:
+  3 quality layers of :func:`scene` (seed 25; the middle one moved by 2
+  rows and 3 columns), speed 0, 4:2:0 and 4:2:2: chroma blocks over
+  several 4-sample-wide or -high inter blocks, predicted from each one's
+  vector;
+- ``layered_lsel0_half.avif``: the half-scale item rebuilt with ``lsel``
+  0 (libavif outputs the base layer, scaled to ispe);
+  ``layered_a1op1_lsel1.avif``: the quarter-scale item under ``a1op`` 1
+  with ``lsel`` 1;
+- ``layered_tum0_480x640.avif`` ... ``layered_tum7_480x640.avif``: the
+  eight rendered 480 x 640 frames of TUM seed 24 (:data:`LAYERED_TUM_SEED`),
+  each a half-scale base layer at quality 30 and the full frame at 60,
+  speed 6, which ``chip_smoke.py`` phase 24 times and tracks;
+
 refused as ``cv2.imread`` refuses them (None: null hashes):
+``layered_lsel3_absent.avif`` (``lsel`` names a layer the item lacks),
+``layered_damaged.avif`` (bytes of the last layer's tile data changed),
 ``port_damaged.avif`` (three bytes of the tile data flipped),
 ``port_cut.avif`` (cut inside its tile).  A file read by OpenCV but
 queued for a later reader would carry a ``queued`` key (the feature
@@ -134,8 +170,9 @@ from lgu_slam_tpu_torch.data.fixtures import (  # noqa: E402
 
 OUT = os.path.join(REPO, "tests", "data", "avif")
 LIMIT = 128 * 1024
-TOTAL = 640 * 1024
+TOTAL = 900 * 1024
 LOSSY_480X640 = 256 * 1024  # the 480 x 640 frames together
+LAYERED_480X640 = 240 * 1024  # the layered 480 x 640 sequence together
 
 
 def array_hash(a) -> dict:
@@ -272,6 +309,7 @@ def files() -> dict:
         255 - img[..., ::-1]], quality=100, subsampling="4:4:4"), None)
     out.update(files_22(img, top))
     out.update(files_23(img))
+    out.update(files_24())
     return out
 
 
@@ -658,6 +696,267 @@ def files_23(img: np.ndarray) -> dict:
     return out
 
 
+# -- layered (progressive) items through cv2's own libavif ------------------
+
+LIBAVIF_VERSION = b"1.4.2"
+# avifEncoder's fields this script sets (libavif 1.4.2's avif.h): speed,
+# extraLayerCount, quality, qualityAlpha, scalingMode (horizontal then
+# vertical fraction); each write is checked by parsing what it wrote
+ENC_SPEED, ENC_EXTRA_LAYERS, ENC_QUALITY, ENC_QUALITY_ALPHA = 8, 28, 32, 36
+ENC_SCALING = 68
+# avifImage's: width, height, depth, yuvFormat, yuvPlanes[3], yuvRowBytes[3],
+# alphaPlane, alphaRowBytes
+IMG_PLANES, IMG_ROWBYTES, IMG_ALPHA, IMG_ALPHA_ROWBYTES = 24, 48, 64, 72
+# avifPixelFormat of each subsampling
+AVIF_FORMATS = {"4:4:4": 1, "4:2:2": 2, "4:2:0": 3, "4:0:0": 4}
+# the seed of the rendered TUM fr1 frames of the committed 480 x 640
+# layered sequence (chip_smoke.py phase 24 renders its depth and poses)
+LAYERED_TUM_SEED, LAYERED_TUM_FRAMES = 24, 8
+
+
+def libavif():
+    """cv2's bundled libavif (``opencv_python.libs/libavif-*.so``) through
+    ctypes, its version checked first."""
+    import ctypes
+    import glob
+
+    import cv2
+
+    site = os.path.dirname(os.path.dirname(os.path.abspath(cv2.__file__)))
+    found = sorted(glob.glob(os.path.join(site, "opencv_python.libs",
+                                          "libavif-*.so*")))
+    assert found, "no libavif beside cv2"
+    lib = ctypes.CDLL(found[0])
+    lib.avifVersion.restype = ctypes.c_char_p
+    assert lib.avifVersion() == LIBAVIF_VERSION, lib.avifVersion()
+    vp, u32 = ctypes.c_void_p, ctypes.c_uint32
+    lib.avifImageCreate.restype = vp
+    lib.avifImageCreate.argtypes = [u32, u32, u32, ctypes.c_int]
+    lib.avifImageAllocatePlanes.argtypes = [vp, ctypes.c_int]
+    lib.avifImageDestroy.argtypes = [vp]
+    lib.avifEncoderCreate.restype = vp
+    lib.avifEncoderDestroy.argtypes = [vp]
+    lib.avifEncoderAddImage.argtypes = [vp, vp, ctypes.c_uint64, u32]
+    lib.avifEncoderFinish.argtypes = [vp, vp]
+    lib.avifRWDataFree.argtypes = [vp]
+    lib.avifEncoderSetCodecSpecificOption.argtypes = [vp, ctypes.c_char_p,
+                                                      ctypes.c_char_p]
+    return lib
+
+
+def _fill(lib, image: int, planes, alpha, depth: int) -> None:
+    import ctypes
+
+    dt = np.uint16 if depth > 8 else np.uint8
+    targets = [(IMG_PLANES + 8 * k, IMG_ROWBYTES + 4 * k, p)
+               for k, p in enumerate(planes)]
+    if alpha is not None:
+        targets.append((IMG_ALPHA, IMG_ALPHA_ROWBYTES, alpha))
+    for ptr_off, rb_off, p in targets:
+        ptr = ctypes.c_void_p.from_address(image + ptr_off).value
+        rb = ctypes.c_uint32.from_address(image + rb_off).value
+        h, w = p.shape
+        assert ptr and rb >= w * np.dtype(dt).itemsize
+        dst = np.ctypeslib.as_array((ctypes.c_uint8 * (rb * h)).from_address(
+            ptr)).view(dt).reshape(h, -1)
+        dst[:, :w] = p
+
+
+def layer_planes(img: np.ndarray, depth: int = 8, sub: str = "4:2:0"):
+    """BT.601 full-range planes of BGR ``img`` (cv2's YUV), widened to
+    ``depth`` bits, at ``sub``."""
+    import cv2
+
+    y = cv2.cvtColor(img, cv2.COLOR_BGR2YUV).astype(np.uint16)
+    if depth > 8:
+        y = (y << (depth - 8)) | (y >> (16 - depth))
+    if sub == "4:0:0":
+        return [y[..., 0]]
+    if sub == "4:2:0":
+        return [y[..., 0], y[::2, ::2, 1], y[::2, ::2, 2]]
+    if sub == "4:2:2":
+        return [y[..., 0], y[:, ::2, 1], y[:, ::2, 2]]
+    return [y[..., k] for k in range(3)]
+
+
+def a1lx_layers(data: bytes) -> int:
+    """The layers an item's ``a1lx`` counts: the sizes of all but the last,
+    each nonzero, and the last."""
+    k = data.index(b"a1lx")
+    large = data[k + 4] & 1
+    n = 4 if large else 2
+    sizes = [int.from_bytes(data[k + 5 + n * i:k + 5 + n * (i + 1)], "big")
+             for i in range(3)]
+    return sum(1 for v in sizes if v) + 1
+
+
+def encode_layered(layers, depth: int = 8, sub: str = "4:2:0",
+                   speed: int = 6, qualities=None, scales=None,
+                   alpha=None, options=None) -> bytes:
+    """A layered (progressive) AVIF of ``layers`` (BGR images, one per
+    layer) written by cv2's libavif (``extraLayerCount``; a quality and a
+    scaling fraction per layer), the avifenc ``--progressive`` path;
+    ``alpha``: one plane per layer; ``options``: libaom's options by name
+    (avifEncoderSetCodecSpecificOption, avifenc's ``-a``).  The layer
+    count is checked in ``a1lx`` and each frame's size in its AV1
+    headers."""
+    import ctypes
+
+    lib = libavif()
+    enc = lib.avifEncoderCreate()
+    ints = {off: ctypes.c_int32.from_address(enc + off) for off in (
+        ENC_SPEED, ENC_EXTRA_LAYERS, ENC_QUALITY, ENC_QUALITY_ALPHA,
+        ENC_SCALING, ENC_SCALING + 4, ENC_SCALING + 8, ENC_SCALING + 12)}
+    # the defaults of avifEncoderCreate where this script writes
+    assert [ints[o].value for o in sorted(ints)] == [-1, 0, -1, -1, 1, 1, 1,
+                                                     1]
+    ints[ENC_SPEED].value = speed
+    ints[ENC_EXTRA_LAYERS].value = len(layers) - 1
+    for key, value in (options or {}).items():
+        assert lib.avifEncoderSetCodecSpecificOption(
+            enc, key.encode(), str(value).encode()) == 0, key
+    images = []
+    try:
+        for i, img in enumerate(layers):
+            if qualities:
+                ints[ENC_QUALITY].value = ints[ENC_QUALITY_ALPHA].value = \
+                    qualities[i]
+            num, den = scales[i] if scales else (1, 1)
+            for off in (0, 8):
+                ints[ENC_SCALING + off].value = num
+                ints[ENC_SCALING + off + 4].value = den
+            planes = layer_planes(img, depth, sub)
+            H, W = planes[0].shape
+            image = lib.avifImageCreate(W, H, depth, AVIF_FORMATS[sub])
+            images.append(image)
+            assert lib.avifImageAllocatePlanes(
+                image, 1 | (2 if alpha is not None else 0)) == 0
+            _fill(lib, image, planes, None if alpha is None else alpha[i],
+                  depth)
+            assert lib.avifEncoderAddImage(enc, image, 1, 0) == 0
+        out = (ctypes.c_uint8 * 16)()
+        assert lib.avifEncoderFinish(enc, out) == 0
+        ptr = ctypes.c_void_p.from_buffer(out).value
+        data = ctypes.string_at(ptr, ctypes.c_size_t.from_buffer(out,
+                                                                 8).value)
+        lib.avifRWDataFree(out)
+    finally:
+        for image in images:
+            lib.avifImageDestroy(image)
+        lib.avifEncoderDestroy(enc)
+    assert a1lx_layers(data) == len(layers)
+    box = avif.parse(data)
+    obus = avif._payload(data, box, box["color"])
+    sizes = [(f["width"], f["height"]) for f in frame_headers(obus)]
+    H, W = layers[0].shape[:2]
+    # libaom scales a layer's size by the fraction, rounding up
+    assert sizes == [(-(-W * n // d), -(-H * n // d)) for n, d in (
+        scales or [(1, 1)] * len(layers))], sizes
+    return data
+
+
+def frame_ends(obus: bytes) -> list:
+    """Where each frame (a frame OBU, or a frame header and its tile
+    groups) of an item's OBUs ends."""
+    out, pos = [], 0
+    while pos < len(obus):
+        h = obus[pos]
+        kind, ext = (h >> 3) & 15, (h >> 2) & 1
+        p, size, shift = pos + 1 + ext, 0, 0
+        while True:
+            byte = obus[p]
+            p += 1
+            size |= (byte & 127) << shift
+            shift += 7
+            if not byte & 128:
+                break
+        pos = p + size
+        if kind in (4, 6):
+            out.append(pos)
+    return out
+
+
+def frame_headers(obus: bytes) -> list:
+    """:func:`avif.av1_info` of each frame of an item's OBUs (its data up
+    to the end of that frame)."""
+    return [avif.av1_info(obus[:end]) for end in frame_ends(obus)]
+
+
+def with_props(data: bytes, extra: list) -> bytes:
+    """A layered file's colour item rebuilt (ispe, av1C) with the extra
+    (property, essential) pairs, such as ``lsel`` or ``a1op``."""
+    box = avif.parse(data)
+    obus = avif._payload(data, box, box["color"])
+    info = avif.av1_info(obus)
+    return heif([dict(id=1, type=b"av01", data=obus, props=[
+        (avif._full(b"ispe", 0, 0, struct.pack(">II", info["width"],
+                                                info["height"])), False),
+        (avif._av1c(info["depth"], bool(info["mono"]),
+                    bool(info["ssx"] and info["ssy"])), True)] + extra)])
+
+
+def layered_tum_frames() -> list:
+    """The rendered 480 x 640 TUM fr1 frames of the committed layered
+    sequence."""
+    return render_sequence(LAYERED_TUM_SEED, LAYERED_TUM_FRAMES, 480, 640,
+                           TUM_FR1, 0.02, 0.004)[0]
+
+
+def files_24() -> dict:
+    """Slice 24's layered items (see the module docstring)."""
+    a, b = render_sequence(19, 2, 96, 128, TUM_FR1, 0.05, 0.01)[0]
+    out = {}
+    cases = {
+        "layered_l2_s6_c444.avif": dict(sub="4:4:4", speed=6,
+                                         qualities=[30, 80]),
+        "layered_l2_s0_half_c420.avif": dict(speed=0, qualities=[20, 80],
+                                             scales=[(1, 2), (1, 1)]),
+        "layered_l3_s2_c10.avif": dict(depth=10, speed=2,
+                                       qualities=[20, 50, 80]),
+        "layered_l3_s0_quarter.avif": dict(speed=0, qualities=[20, 50, 80],
+                                           scales=[(1, 4), (1, 2), (1, 1)]),
+        "layered_l4_s0_c444.avif": dict(sub="4:4:4", speed=0,
+                                        qualities=[20, 40, 60, 80]),
+        "layered_l4_s0_g8.avif": dict(sub="4:0:0", speed=0,
+                                      qualities=[20, 40, 60, 80]),
+        "layered_l4_s9_c12_quarter.avif": dict(
+            depth=12, sub="4:4:4", speed=9, qualities=[20, 40, 60, 80],
+            scales=[(1, 4), (1, 2), (1, 1), (1, 1)]),
+        "layered_l2_s6_alpha.avif": dict(speed=6, qualities=[30, 80],
+                                         alpha=[a[..., 1], a[..., 1]]),
+    }
+    for name, kw in cases.items():
+        n = len(kw["qualities"])
+        out[name] = (encode_layered([(a, b)[k % 2] for k in range(n)], **kw),
+                     None)
+    img = scene(np.random.default_rng(25), 96, 128)
+    moved = np.roll(img, (2, 3), (0, 1))
+    for sub in ("4:2:0", "4:2:2"):
+        name = f"layered_l3_s0_sub8x8_c{sub.replace(':', '')[:3]}.avif"
+        out[name] = (encode_layered([img, moved, img], sub=sub, speed=0,
+                                    qualities=[30, 50, 70]), None)
+    half = out["layered_l2_s0_half_c420.avif"][0]
+    out["layered_lsel0_half.avif"] = (with_props(half, [
+        (avif._box(b"lsel", struct.pack(">H", 0)), True)]), None)
+    out["layered_a1op1_lsel1.avif"] = (with_props(
+        out["layered_l3_s0_quarter.avif"][0], [
+            (avif._box(b"a1op", bytes([1])), True),
+            (avif._box(b"lsel", struct.pack(">H", 1)), True)]), None)
+    # refused by cv2 (None): a layer selected that the item lacks, bytes of
+    # the last layer's tile data changed
+    out["layered_lsel3_absent.avif"] = (with_props(half, [
+        (avif._box(b"lsel", struct.pack(">H", 3)), True)]), None)
+    damaged = bytearray(half)
+    for k in (30, 90, 150):
+        damaged[-k] ^= 0x5A
+    out["layered_damaged.avif"] = (bytes(damaged), None)
+    for k, img in enumerate(layered_tum_frames()):
+        out[f"layered_tum{k}_480x640.avif"] = (encode_layered(
+            [img, img], speed=6, qualities=[30, 60],
+            scales=[(1, 2), (1, 1)]), None)
+    return out
+
+
 def cv2_read(data: bytes) -> np.ndarray:
     """cv2.imread of a file of ``data``."""
     import cv2
@@ -735,7 +1034,11 @@ def main(argv=None) -> dict:
         assert hashes[name]["color"] is None, name
     assert sum(len(d) for d, _ in made.values()) <= TOTAL
     assert sum(len(d) for n, (d, _) in made.items()
-               if "480x640" in n) <= LOSSY_480X640
+               if "480x640" in n and not n.startswith("layered")
+               ) <= LOSSY_480X640
+    assert sum(len(d) for n, (d, _) in made.items()
+               if "480x640" in n and n.startswith("layered")
+               ) <= LAYERED_480X640
     with open(os.path.join(args.out, "hashes.json"), "w") as fh:
         json.dump(hashes, fh, indent=1, sort_keys=True)
         fh.write("\n")

@@ -59,13 +59,15 @@ def test_committed_fixtures_decode_to_cv2_hashes():
     avis sequence, frames scaled to their ispe, slice 23's (Pillow's
     lossless and lossy screen content with intra block copy, cv2's lossy
     text pages, the writer's segmentation, superres and items of several
-    frames, two AV1 frames in one item): the port's arrays hash as
-    cv2.imread's do in both read modes (the hashes written beside them,
-    which chip_smoke.py phases 19 to 23 check on machines without OpenCV),
+    frames, two AV1 frames in one item), slice 24's layered items
+    (libavif's progressive layers: AV1 inter frames): the port's arrays
+    hash as cv2.imread's do in both read modes (the hashes written beside
+    them, which chip_smoke.py phases 19 to 24 check on machines without
+    OpenCV),
     or both refuse (null: ValueError); a queued file (none now) is read by
     cv2 and raises NotImplementedError naming its feature."""
     hashes = json.load(open(os.path.join(DATA, "hashes.json")))
-    assert len(hashes) == 61
+    assert len(hashes) == 83
     for name, want in hashes.items():
         path = os.path.join(DATA, name)
         for mode, flag in (("color", cv2.IMREAD_COLOR),
@@ -200,13 +202,26 @@ def test_cut_and_damaged_files(tmp_path):
 
 
 # what the port refuses with NotImplementedError where cv2.imread reads
-# (or fails on what the port does not decode): each is queued in ROADMAP.md
-# A item 1 (e: lossy intra block copy, segmentation, superres; f: more
-# than one frame), but the last two: a frame of more samples than its
-# image and than avif.SCALED_PIXELS (the guard against a damaged header)
-# and the 8-bit frame under a deeper av1C, where OpenCV reads
-# uninitialised memory
-QUEUED = ("an AV1 inter frame", "a frame larger than its",
+# (or fails on what the port does not decode): the AV1 tools of inter
+# frames no layered item here uses, each queued in ROADMAP.md A item 1
+# (compound prediction, skip mode, switch frames, short reference
+# signalling, a reference replaced by its order hint, a frame size taken
+# from a reference, segmentation of an inter frame, film grain of a
+# reference frame, a reference frame other than LAST, a block predicted
+# from a reference with global motion, dual interpolation filters, a
+# vector candidate of the extra search, a wedge inter-intra block with
+# 4:2:2 chroma: these raised once a decode libaom's checks pass has
+# ended), and two guards: a frame of more samples than its image and than
+# avif.SCALED_PIXELS (against a damaged header) and the 8-bit frame under
+# a deeper av1C, where OpenCV reads uninitialised memory
+QUEUED = ("an AV1 compound prediction", "an AV1 skip mode",
+          "an AV1 switch frame", "AV1 frame_refs_short_signaling",
+          "an AV1 reference frame replaced", "an AV1 frame size taken from",
+          "an AV1 segmentation of an inter", "an AV1 film grain of a ref",
+          "an AV1 reference frame other", "with global motion",
+          "an AV1 dual interpolation filter", "of the extra search",
+          "an AV1 wedge inter-intra block with 4:2:2",
+          "a frame larger than its",
           "an 8-bit frame under a deeper")
 
 

@@ -750,6 +750,13 @@ def _kind(name: str, tmp_path) -> bytes:
             from test_torch_avif import two_frames
 
             return two_frames(img)
+        if name == "avif_layered":
+            import test_torch_avif  # noqa: F401 (puts scripts/ on the path)
+            from make_avif_fixtures_torch import encode_layered
+
+            return encode_layered([img, np.roll(img, 3, 1)], speed=6,
+                                  qualities=[30, 70],
+                                  scales=[(1, 2), (1, 1)])
         data = avif.encode_avif(gray.astype(np.uint16) * 16, 12) if \
             name == "avif_gray12" else avif.encode_avif(img)
         return data[:-300] if name == "avif_cut" else data
@@ -848,7 +855,8 @@ CLASSES = {
     # film grain, grids, sequences, scaled frames and items of two AV1
     # frames: read
     **{k: ("read", "read") for k in ("avif_avis", "avif_grain", "avif_grid",
-                                     "avif_scaled", "avif_two_frames")},
+                                     "avif_scaled", "avif_two_frames",
+                                     "avif_layered")},
     "avif_lossless": ("read", "read"),
     "avif_gray12": ("read", "read"),
     "avif_cut": ("none", "none"),

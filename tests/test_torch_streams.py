@@ -552,6 +552,43 @@ def test_tum_stream_restored_avif_matches_jax(tmp_path):
             np.testing.assert_array_equal(x, y)
 
 
+def test_tum_stream_layered_avif_matches_jax(tmp_path):
+    """The TUM reader over an fr1 sequence whose colour frames are three of
+    the committed layered AVIF items (tests/data/avif/layered_tum*: two
+    layers, the base at half size; AV1 inter frames, which no writer here
+    makes) with 16-bit PNG depth: the port's stream equals the JAX one
+    (cv2.imread over libavif and libaom) in frames, depth and timestamps,
+    the ground truth both packages load is the same, and the port's own
+    stream over the PNG of what those AVIF frames read back as equals it
+    (chip_smoke.py phase 24's pair)."""
+    from lgu_slam_tpu.eval.ate import load_tum_trajectory as jload
+    from lgu_slam_tpu_torch.eval.ate import load_tum_trajectory as tload
+
+    data = os.path.join(os.path.dirname(__file__), "data", "avif")
+    colour = [("avif", open(os.path.join(
+        data, f"layered_tum{k}_480x640.avif"), "rb").read())
+        for k in range(3)]
+    name = "rgbd_dataset_freiburg1_desk"
+    root = fixtures.write_tum_with_colour(str(tmp_path / "avif" / name),
+                                          colour, 24, order=[0, 1, 2, 1])
+    png = fixtures.write_tum_with_colour(str(tmp_path / "png" / name),
+                                         colour, 24, order=[0, 1, 2, 1],
+                                         png=True)
+    items = _held(tstreams.tum_rgbd_stream(root, stride=1),
+                  jstreams.tum_rgbd_stream(root, stride=1))
+    ref = list(tstreams.tum_rgbd_stream(png, stride=1))
+    assert len(items) == len(ref) == 4
+    for a, b in zip(items, ref):
+        assert a[0] == b[0]
+        for x, y in zip(a[1:], b[1:]):
+            np.testing.assert_array_equal(x, y)
+    np.testing.assert_array_equal(np.array(items[1][1]),
+                                  np.array(items[3][1]))
+    gt = os.path.join(root, "groundtruth.txt")
+    for a, b in zip(tload(gt), jload(gt)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
 def test_tum_stream_avif_matches_jax(tmp_path):
     """The TUM reader over an fr1 sequence of lossless AVIF colour and
     12-bit gray AVIF depth (the port's AV1 writer): the port's stream
