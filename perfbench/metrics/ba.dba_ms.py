@@ -1,0 +1,7 @@
+"""Device span of dba_step per 128 edge-updates."""
+
+from perfbench.harness import readers
+
+
+def read(run):
+    return readers.span_ms_per_unit(run, "dba")

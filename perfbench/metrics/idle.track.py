@@ -1,0 +1,7 @@
+"""Per cent of the traced frames' window with no device operation."""
+
+from perfbench.harness import readers
+
+
+def read(run):
+    return readers.idle_share(run)

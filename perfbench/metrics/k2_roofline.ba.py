@@ -1,0 +1,7 @@
+"""K2's sector bound over its time, per cent, over sampled launches of the global BA."""
+
+from perfbench.harness import readers
+
+
+def read(run):
+    return readers.roofline_share(run, "k2")
